@@ -1,0 +1,209 @@
+"""Public entry point: make_solver — the analogue of the reference's
+spcies_gen_controller.m "generate a solver" flow, except the product is a
+batched PyTorch solve function on a chosen device instead of a C file.
+
+The (formulation, method, submethod) -> builder dispatch mirrors the
+reference's name-mangled `cons_*` eval dispatch
+(spcies_gen_controller.m:111-130) via an explicit registry
+(formulations.base.BUILDERS). Port of spcies_tpu/api.py.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from spcies_tpu_torch.config import Options, default_options
+
+
+def broadcast_inputs(dtype, device, *arrays):
+    """Promote per-call input vectors to batched [B, n] tensors on `device`;
+    single problems ([n] vectors) get a singleton batch dim. All inputs
+    must agree on B."""
+    out = []
+    B = None
+    for a in arrays:
+        a = torch.as_tensor(a, dtype=dtype, device=device)
+        if a.ndim == 1:
+            a = a[None]
+        elif a.ndim != 2:
+            raise ValueError(
+                f"input must have rank 1 (one problem) or 2 (batched); "
+                f"got rank {a.ndim}")
+        if B is None:
+            B = a.shape[0]
+        elif a.shape[0] == 1 and B > 1:
+            a = a.expand((B,) + tuple(a.shape[1:]))
+        elif a.shape[0] != B:
+            if B == 1:
+                B = a.shape[0]
+                out = [o.expand((B,) + tuple(o.shape[1:])) for o in out]
+            else:
+                raise ValueError("inconsistent batch sizes in solver inputs")
+        out.append(a)
+    return out
+
+
+class BatchedSolver:
+    """A generated batched solver: callable with (x0, xr, ur[, warm start]).
+
+    Plays the role of the reference's generated MEX/C solver function
+    `<formulation>_<method>(x0, xr, ur, ...) -> (u_opt, k, e_flag, sol)`
+    (header_laxMPC_ADMM_C.h:24-28), but batched: inputs may be [n] (single
+    problem) or [B, n]. Every tensor of the solve lives on `device`.
+    """
+
+    def __init__(self, solve_fn, ingredients: dict, options: Options,
+                 *, n: int, m: int, N: int, nz: int, dtype, device):
+        self.ingredients = ingredients
+        self.options = options
+        self.n, self.m, self.N, self.nz = n, m, N, nz
+        self.dtype = dtype
+        self.device = torch.device(device)
+        self.input_names = ("x0", "xr", "ur")
+        # per-input unit kind for the in_engineering scaling
+        # (code_laxMPC_ADMM_C.c:82-115)
+        self.input_kinds = ("x", "x", "u")
+        self.n_inputs = len(self.input_names)
+        # solve_fn(*inputs, init, fixed_iters)
+        self.raw_fn = solve_fn
+
+        # engineering-units scaling; populated by make_solver from sys
+        # (reference Nx/Nu/x0/u0 fields, +sp_utils/scale_ss.m)
+        self._Nx = np.ones(n)
+        self._Nu = np.ones(m)
+        self._opx = np.zeros(n)
+        self._opu = np.zeros(m)
+
+    def set_engineering(self, sys: dict):
+        """Install scaling vectors / operating point for in_engineering mode
+        (sys fields Nx, Nu, x0, u0; spcies_gen_controller sys conventions)."""
+        n, m = self.n, self.m
+        self._Nx = np.asarray(sys.get("Nx", np.ones(n)), float).ravel()
+        self._Nu = np.asarray(sys.get("Nu", np.ones(m)), float).ravel()
+        self._opx = np.asarray(sys.get("x0", np.zeros(n)), float).ravel()
+        self._opu = np.asarray(sys.get("u0", np.zeros(m)), float).ravel()
+
+    def _to_incremental(self, inputs):
+        """Engineering -> incremental units: x = Nx*(x_eng - opx) etc.
+        (code_laxMPC_ADMM_C.c:82-99), computed in fp64 on the host."""
+        out = []
+        for a, kind in zip(inputs, self.input_kinds):
+            if torch.is_tensor(a):
+                a = a.detach().cpu().numpy()
+            if kind == "x":
+                a = self._Nx * (np.asarray(a, float) - self._opx)
+            elif kind == "u":
+                a = self._Nu * (np.asarray(a, float) - self._opu)
+            out.append(a)
+        return tuple(out)
+
+    def __call__(self, *inputs, init=None, fixed_iters=None):
+        # Phase timing (Options.timing, the reference's MEASURE_TIME
+        # contract: update/solve/polish/run ms stamps around the solve —
+        # snippets/get_elapsed_time.c:12-15, docs/timing.md). On CUDA each
+        # mark synchronises the device first.
+        timer = None
+        if self.options.timing:
+            from spcies_tpu_torch.diagnostics.timing import PhaseTimer
+            timer = PhaseTimer(self.device)
+        if len(inputs) != self.n_inputs:
+            raise TypeError(
+                f"solver expects inputs {self.input_names}, got {len(inputs)}")
+        if self.options.in_engineering:
+            inputs = self._to_incremental(inputs)
+        inputs = broadcast_inputs(self.dtype, self.device, *inputs)
+        if timer is not None:
+            timer.mark("update")
+        # Full-fp32 matrix products for the whole solve: TF32 keeps about
+        # three decimal digits, and any solver product with O(1) operands
+        # then floors the residual far above tol. The explicit bf16 paths
+        # (bf16_delta) round their operands themselves and are unaffected.
+        # "highest" also turns torch.backends.cuda.matmul.allow_tf32 off
+        # (PyTorch derives one from the other; setting both through their
+        # two APIs makes newer releases refuse to read the precision). The
+        # setting is process-wide, so it is restored afterwards.
+        prec = torch.get_float32_matmul_precision()
+        torch.set_float32_matmul_precision("highest")
+        try:
+            res = self.raw_fn(*inputs, init, fixed_iters)
+        finally:
+            torch.set_float32_matmul_precision(prec)
+        if timer is not None:
+            timer.mark("solve")
+        if self.options.in_engineering:
+            # de-scale the control move (code_laxMPC_ADMM_C.c:642-651);
+            # sol iterates stay in incremental units like the C DEBUG output
+            Nu = torch.as_tensor(self._Nu, dtype=self.dtype,
+                                 device=self.device)
+            opu = torch.as_tensor(self._opu, dtype=self.dtype,
+                                  device=self.device)
+            res = dataclasses.replace(res, u=res.u / Nu + opu)
+        if timer is not None:
+            timer.mark("polish")
+            res.sol["times_ms"] = timer.finish()
+        return res
+
+    def solve(self, *inputs, **kw):
+        return self(*inputs, **kw)
+
+
+def make_solver(sys: dict, param: dict, *, formulation: str = "",
+                method: str = "", submethod: str = "",
+                options: Options | dict | None = None,
+                backend: str = "dense", device=None, ingredients=None,
+                **solver_overrides) -> BatchedSolver:
+    """Build a batched solver for the given system + MPC parameters.
+
+    sys:   dict with A, B, LBx, UBx, LBu, UBu (reference `sys` struct)
+    param: dict with the formulation's ingredients (Q, R, N, ...; reference
+           `param` struct). If formulation is omitted it is auto-detected
+           from the param fields (+sp_utils/determine_formulation.m).
+    device: where the solve runs ('cpu' by default, or 'cuda').
+    ingredients: an ingredient dict to build from instead of computing one
+           (for example convert.ingredients_from_jax of a JAX solver's).
+    """
+    if not formulation and (options is None
+                            or isinstance(options, dict)
+                            or not options.formulation):
+        from spcies_tpu_torch.config import determine_formulation
+        formulation = determine_formulation(param)
+    if options is None:
+        opt = default_options(formulation, method, submethod,
+                              **solver_overrides)
+    elif isinstance(options, dict):
+        opt = Options(formulation=formulation, method=method,
+                      submethod=submethod,
+                      solver={**options, **solver_overrides})
+    else:
+        opt = options
+        opt.formulation = opt.formulation or formulation
+        if method:
+            opt.method = method
+        if submethod:
+            opt.submethod = submethod
+        opt.solver.update(solver_overrides)
+        opt.resolve()
+
+    if backend == "auto":
+        raise NotImplementedError(
+            "backend='auto' is not ported to spcies_tpu_torch yet "
+            "(ROADMAP queue 1 item 12); choose 'dense' or 'fused'")
+    if backend == "fused" and opt.debug:
+        # genHist-style traces (debug=1/2) are recorded by the masked loop
+        # (solvers/loop.py); the fused kernel runs the whole iteration and
+        # returns only the exit state
+        raise ValueError(
+            "debug traces (genHist) are not available on backend='fused' "
+            "— the fused kernel returns only the exit state; use "
+            "backend='dense' for debug=1/2 runs")
+    from spcies_tpu_torch.formulations.base import get_builder
+    builder = get_builder(opt.formulation, opt.method, opt.submethod)
+    device = torch.device(device if device is not None else "cpu")
+    solver = builder(sys, param, opt, backend=backend, device=device,
+                     ingredients=ingredients)
+    if opt.in_engineering:
+        solver.set_engineering(sys)
+    return solver

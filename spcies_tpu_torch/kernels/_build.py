@@ -1,0 +1,89 @@
+"""Build and bind the hand-written CUDA kernels of csrc/.
+
+Each `csrc/<name>.cu` is compiled by `nvcc` for sm_90a into a shared
+library with a plain C interface and loaded with ctypes. The build runs at
+the first launch, never at import, into `spcies_tpu_torch/_build/` (listed
+in .gitignore), and is cached there by a hash of the source and the flags:
+a changed source builds anew, an unchanged one loads the library built
+before.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC",
+              # no contraction of separate multiply and add: the
+              # element-wise arithmetic then rounds as PyTorch's does
+              "-fmad=false", "-Xptxas", "-v")
+
+# name -> (ctypes.CDLL, build record); one entry per loaded library
+_LOADED: dict[str, tuple[ctypes.CDLL, dict]] = {}
+
+
+def _nvcc() -> str:
+    # PyTorch's own search: $CUDA_HOME, $CUDA_PATH, nvcc on PATH, the
+    # toolkit's default install directory
+    from torch.utils.cpp_extension import CUDA_HOME
+    nvcc = os.path.join(CUDA_HOME, "bin", "nvcc") if CUDA_HOME else ""
+    if not os.path.isfile(nvcc):
+        nvcc = shutil.which("nvcc") or ""
+    if not nvcc:
+        raise RuntimeError("nvcc not found (set CUDA_HOME); the CUDA "
+                           "kernels are built from csrc/ at their first "
+                           "launch")
+    return nvcc
+
+
+def source_digest(name: str) -> str:
+    """Hash of a kernel's source and the build flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def build(name: str) -> tuple[Path, dict]:
+    """Compile csrc/<name>.cu unless a library of the same digest exists.
+    Returns the library's path and a record of the build (seconds, the
+    compiler's resource report)."""
+    lib = BUILD_DIR / f"lib{name}-{source_digest(name)}.so"
+    if lib.exists():
+        return lib, dict(seconds=0.0, cached=True, log="")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_suffix(f".tmp{os.getpid()}.so")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed building {name}:\n{proc.stderr}")
+    os.replace(tmp, lib)
+    return lib, dict(seconds=seconds, cached=False,
+                     log=(proc.stdout + proc.stderr).strip())
+
+
+def load_kernel(name: str, symbol: str, argtypes):
+    """The C entry point `symbol` of csrc/<name>.cu, built on first use,
+    with its argument types set; it returns a cudaError_t as int."""
+    if name not in _LOADED:
+        path, record = build(name)
+        _LOADED[name] = (ctypes.CDLL(str(path)), record)
+    fn = getattr(_LOADED[name][0], symbol)
+    fn.argtypes = list(argtypes)
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def build_record(name: str) -> dict | None:
+    """The build record of a loaded library (None before its first use)."""
+    return _LOADED[name][1] if name in _LOADED else None
