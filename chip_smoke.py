@@ -5,10 +5,11 @@ Run from the repository root on a machine with a CUDA card:
 
     python3 chip_smoke.py
 
-It builds the port's CUDA kernel from csrc/, then
-  1. runs the kernel and its plain PyTorch version on the same CUDA tensors
-     at the laxMPC-ADMM headline (oscillating masses, N=30, rho=10,
-     relax_alpha=1.9, tol 1e-4, k_max 1000, B=32768, exact-k with
+It builds the port's CUDA kernels from csrc/ (one nvcc per source, all
+started together), then
+  1. runs the box-ADMM kernel and its plain PyTorch version on the same
+     CUDA tensors at the laxMPC-ADMM headline (oscillating masses, N=30,
+     rho=10, relax_alpha=1.9, tol 1e-4, k_max 1000, B=32768, exact-k with
      check_every=16), and at B=4096 in the checked, free-run, fixed_iters
      and bf16 modes, and holds them together: every lane converges, k
      agrees on >= 0.9985 of lanes, and u agrees within 1e-4 on the lanes
@@ -18,7 +19,21 @@ It builds the port's CUDA kernel from csrc/, then
      start), checks that each went through the kernel and converged, and
      checks a small batch against the fp64 dense engine on the CPU;
   3. times the kernel, its plain version and the fp32 dense engine at the
-     headline shape with CUDA events.
+     headline shape with CUDA events;
+  4. runs the dual-FISTA kernel and its plain version on the same CUDA
+     tensors at the bench's N=30 families (bench.py:262-288: tol 1e-4,
+     k_max 4000, tile_b 256, check_every 8, exact-k; laxMPC-FISTA with
+     restart, equMPC-FISTA without) at the family batch B=8192, and at
+     B=4096 in the checked, free-run, fixed_iters and exact-k (with and
+     without restart) modes, held together as in 1;
+  5. drives the slice's three paths — laxMPC-FISTA, equMPC-FISTA and
+     equMPC-ADMM (rho 6, relax_alpha 1.8) through make_solver(...,
+     backend="fused", device="cuda") — with a request and a warm start
+     each at B=8192; each request launches its kernel once and converges
+     on every lane, and a small batch agrees with the fp64 dense engine
+     on the CPU;
+  6. times the FISTA kernel, its plain version and the fp32 dense FISTA
+     engine at B=8192 and 32768, and the equMPC-ADMM fused solve at 8192.
 It exits non-zero, with no result line, when there is no CUDA device or
 any check fails. The last line is the JSON result.
 """
@@ -29,6 +44,7 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -45,6 +61,17 @@ CHECK_EVERY = 16
 K_AGREE = 0.9985    # the JAX package's hardware bar for per-lane k parity
 U_TOL = 1e-4        # kernel vs plain version, lanes with equal k
 U_TOL_FP64 = 1e-3   # fp32 fused vs fp64 dense, tol 1e-4 solutions
+KERNELS = ("fused_admm", "fused_fista")
+DEVICE = "cuda"
+# the bench's N=30 families (bench.py:262-288) at its family batch
+# (bench.py:207): exact-k, check_every 8, k_max 4000
+FB = 8192
+FAMILY_K_MAX = 4000
+FAMILIES = {
+    "laxMPC-FISTA": ("laxMPC", "FISTA", dict(restart=True)),
+    "equMPC-FISTA": ("equMPC", "FISTA", {}),
+    "equMPC-ADMM": ("equMPC", "ADMM", dict(rho=6.0, relax_alpha=1.8)),
+}
 
 
 def log(msg):
@@ -65,18 +92,24 @@ def card_line() -> str:
     return out.stdout.strip()
 
 
-def build_kernel():
+def build_kernels():
+    """Compile every kernel of csrc/, one nvcc each, all at once; then
+    load them and print the compiler's resource report."""
     from spcies_tpu_torch.kernels import _build
     from spcies_tpu_torch.kernels.fused_admm import FUSED_ADMM_ARGTYPES
+    from spcies_tpu_torch.kernels.fused_fista import FUSED_FISTA_ARGTYPES
     t0 = time.perf_counter()
-    _build.load_kernel("fused_admm", "fused_admm_launch",
-                       FUSED_ADMM_ARGTYPES)
-    rec = _build.build_record("fused_admm")
-    log(f"kernel build: fused_admm {time.perf_counter() - t0:.2f} s "
-        f"(nvcc {rec['seconds']:.2f} s, cached={rec['cached']})")
-    for line in rec["log"].splitlines():
-        if "registers" in line or "spill" in line or "error" in line:
-            log(f"  ptxas: {line.strip()}")
+    with ThreadPoolExecutor(len(KERNELS)) as pool:
+        built = list(pool.map(_build.build, KERNELS))
+    for name, argtypes, (_lib, rec) in zip(
+            KERNELS, (FUSED_ADMM_ARGTYPES, FUSED_FISTA_ARGTYPES), built):
+        _build.load_kernel(name, f"{name}_launch", argtypes)
+        log(f"kernel build: {name} (nvcc {rec['seconds']:.2f} s, "
+            f"cached={rec['cached']})")
+        for line in rec["log"].splitlines():
+            if "registers" in line or "spill" in line or "error" in line:
+                log(f"  ptxas: {line.strip()}")
+    log(f"kernel builds: {time.perf_counter() - t0:.2f} s")
 
 
 def problem(sp, seed: int, B: int):
@@ -115,11 +148,13 @@ def kernel_args(solver, inputs, fixed_iters=0):
     return (z1p, v0p, lam0p, *solver.raw_fn.operator), kw
 
 
-def agreement(out_k, out_p, B, m, fixed):
-    """k agreement and max |u_kernel - u_plain| over lanes with equal k."""
+def agreement(out_k, out_p, B, m, fixed, u_at=1):
+    """k agreement and max |u_kernel - u_plain| over lanes with equal k;
+    u is the first m entries of output u_at (both kernels return k and
+    e_flag as outputs 3 and 4)."""
     k_k, k_p = out_k[3][:B], out_p[3][:B]
     same = k_k == k_p
-    du = (out_k[1][:B, :m] - out_p[1][:B, :m]).abs().amax(dim=1)
+    du = (out_k[u_at][:B, :m] - out_p[u_at][:B, :m]).abs().amax(dim=1)
     return dict(
         k_agree=float(same.float().mean()),
         conv_kernel=float((out_k[4][:B] == 1).float().mean()),
@@ -128,8 +163,8 @@ def agreement(out_k, out_p, B, m, fixed):
         k_mean=float(k_k.float().mean()), fixed=fixed)
 
 
-def check_agreement(name, a):
-    log(f"phase 1 {name}: " + json.dumps(a))
+def check_agreement(name, a, phase=1):
+    log(f"phase {phase} {name}: " + json.dumps(a))
     if not a["fixed"]:
         assert a["conv_kernel"] == 1.0 and a["conv_plain"] == 1.0, name
     assert a["k_agree"] >= K_AGREE, (name, a["k_agree"])
@@ -271,6 +306,165 @@ def phase_times(sp, fused):
     return {key: min(v) for key, v in t.items()}
 
 
+def family_solver(sp, name, backend="fused", device=None,
+                  precision="float", **kw):
+    """A solver of one of the bench's N=30 families: the tester fixture
+    with T diagonalised for laxMPC-FISTA (bench.py:270-271) and dropped
+    for equMPC (bench.py:277-278)."""
+    formulation, method, extra = FAMILIES[name]
+    sys_, param30, _ = problem(sp, 0, 1)
+    p = dict(param30)
+    if formulation == "laxMPC":
+        p["T"] = np.diag(np.sum(np.asarray(p["T"]), axis=1))
+    else:
+        p.pop("T", None)
+    o = sp.default_options(formulation, method, **{
+        **dict(tol=TOL, k_max=FAMILY_K_MAX, tile_b=TILE_B, check_every=8,
+               exact_k=True), **extra, **kw})
+    o.precision = precision
+    return sp.make_solver(sys_, p, formulation=formulation, method=method,
+                          options=o, backend=backend,
+                          device=device or DEVICE)
+
+
+def fista_kernel_args(solver, inputs, fixed_iters=0):
+    """The FISTA kernel's exact arguments for one call of a fused
+    solver."""
+    from spcies_tpu_torch.api import broadcast_inputs
+    x = broadcast_inputs(torch.float32, solver.device, *inputs)
+    *kin, _b = solver.raw_fn.prepare(*x)
+    kw = dict(solver.raw_fn.kernel_kw, fixed_iters=fixed_iters)
+    return (*kin, *solver.raw_fn.operator), kw
+
+
+def phase_fista_kernel_vs_plain(sp):
+    """The FISTA kernel and its plain version on the same CUDA tensors.
+    Returns the largest u error over the modes."""
+    from spcies_tpu_torch.kernels.fused_fista import (fused_fista_reference,
+                                                      fused_fista_solve)
+    lax, equ = "laxMPC-FISTA", "equMPC-FISTA"
+    modes = [
+        (f"{lax} exact-k B={FB}", lax, FB, 0, {}),
+        (f"{equ} exact-k B={FB}", equ, FB, 0, {}),
+        (f"{lax} checked B={SMALL_BATCH}", lax, SMALL_BATCH, 0,
+         dict(check_every=1, exact_k=False)),
+        (f"{lax} free-run B={SMALL_BATCH}", lax, SMALL_BATCH, 0,
+         dict(tile_b=8, exact_k=False)),
+        (f"{lax} fixed_iters=50 B={SMALL_BATCH}", lax, SMALL_BATCH, 50, {}),
+        (f"{lax} exact-k B={SMALL_BATCH}", lax, SMALL_BATCH, 0, {}),
+        (f"{lax} exact-k no restart B={SMALL_BATCH}", lax, SMALL_BATCH, 0,
+         dict(restart=False)),
+    ]
+    u_err = 0.0
+    for label, name, B, fixed, kw in modes:
+        solver = family_solver(sp, name, **kw)
+        _, _, inputs = problem(sp, 0, B)
+        args, kk = fista_kernel_args(solver, inputs, fixed)
+        out_k = fused_fista_solve(*args, **kk)
+        torch.cuda.synchronize()
+        out_p = fused_fista_reference(*args, **kk)
+        torch.cuda.synchronize()
+        a = agreement(out_k, out_p, B, solver.m, bool(fixed), u_at=0)
+        check_agreement(label, a, phase=4)
+        u_err = max(u_err, a["u_err"])
+    return u_err
+
+
+def phase_family_paths(sp):
+    """The slice's three paths, each through make_solver(...,
+    backend='fused'): a request and a warm start from it, each launching
+    its kernel once; then a small batch against the fp64 dense engine on
+    the CPU. Returns the launches of each kernel."""
+    from spcies_tpu_torch.kernels.fused_admm import fused_admm_solve
+    from spcies_tpu_torch.kernels.fused_fista import fused_fista_solve
+    counters = {"fused_admm": fused_admm_solve,
+                "fused_fista": fused_fista_solve}
+    launches = dict.fromkeys(counters, 0)
+    for name in FAMILIES:
+        kernel = "fused_admm" if name.endswith("ADMM") else "fused_fista"
+        solver = family_solver(sp, name)
+        _, _, inputs = problem(sp, 0, FB)
+        for c in counters.values():
+            c.launches = 0
+        cold = solver(*inputs)
+        torch.cuda.synchronize()
+        after_cold = counters[kernel].launches
+        init = ((cold.sol["lam"],) if kernel == "fused_fista"
+                else (cold.sol["z"], cold.sol["v"], cold.sol["lam"]))
+        warm = solver(*inputs, init=init)
+        torch.cuda.synchronize()
+        counts = {key: c.launches for key, c in counters.items()}
+        for tag, res in (("seed 0", cold), ("seed 0 warm", warm)):
+            log(f"phase 5 {name} request {tag}: "
+                f"k_mean={float(res.k.float().mean())} "
+                f"k_max={int(res.k.max())} "
+                f"converged={float((res.e_flag == 1).float().mean())} "
+                f"times_ms={res.sol['times_ms']}")
+            assert tuple(res.u.shape) == (FB, solver.m), res.u.shape
+            assert res.u.device.type == DEVICE
+            assert bool(torch.isfinite(res.u).all()), name
+            assert bool((res.e_flag == 1).all()), (name, tag)
+        assert after_cold == 1 and counts[kernel] == 2, (name, counts)
+        assert sum(counts.values()) == 2, (name, counts)
+        assert float(warm.k.float().mean()) < float(cold.k.float().mean())
+        launches[kernel] += counts[kernel]
+
+        _, _, small = problem(sp, 5, 64)
+        r64 = family_solver(sp, name, backend="dense", device="cpu",
+                            precision="double")(*small)
+        r32 = solver(*small)
+        err = float((r32.u.cpu().double() - r64.u).abs().max())
+        log(f"phase 5 {name} fused fp32 ({DEVICE}) vs dense fp64 (cpu), "
+            f"B=64: max|du|={err}")
+        assert bool((r64.e_flag == 1).all()) and bool((r32.e_flag == 1).all())
+        assert err <= U_TOL_FP64, (name, err)
+    return launches
+
+
+def phase_family_times(sp):
+    """The FISTA kernel, its plain version and the fp32 dense FISTA engine
+    for laxMPC-FISTA at B=8192 and 32768, and the equMPC-ADMM fused solve
+    at 8192, in turns, each a CUDA-event mean. Returns the minima."""
+    from spcies_tpu_torch.kernels.fused_fista import (fused_fista_reference,
+                                                      fused_fista_solve)
+    out = {}
+    for B in (FB, BATCH):
+        fused = family_solver(sp, "laxMPC-FISTA")
+        dense = family_solver(sp, "laxMPC-FISTA", backend="dense")
+        dense.options.timing = False
+        _, _, inputs = problem(sp, 0, B)
+        args, kk = fista_kernel_args(fused, inputs)
+        x = [torch.as_tensor(a, dtype=torch.float32, device=DEVICE)
+             for a in inputs]
+        kernel = lambda: fused_fista_solve(*args, **kk)  # noqa: E731
+        plain = lambda: fused_fista_reference(*args, **kk)  # noqa: E731
+        dense_fn = lambda: dense(*x)  # noqa: E731
+        t = {"plain": [], "kernel": [], "dense": []}
+        t["plain"].append(cuda_ms(plain))
+        t["kernel"].append(cuda_ms(kernel, reps=5))
+        t["kernel"].append(cuda_ms(kernel, reps=5))
+        t["plain"].append(cuda_ms(plain))
+        t["dense"].append(cuda_ms(dense_fn))
+        t["dense"].append(cuda_ms(dense_fn))
+        res = dense(*x)
+        log(f"phase 6 laxMPC-FISTA dense fp32 engine B={B}: "
+            f"k_mean={float(res.k.float().mean())} "
+            f"converged={float((res.e_flag == 1).float().mean())}")
+        log(f"phase 6 laxMPC-FISTA times (ms per B={B} solve, CUDA "
+            f"events): " + json.dumps(t))
+        out[B] = {key: min(v) for key, v in t.items()}
+    eq = family_solver(sp, "equMPC-ADMM")
+    eq.options.timing = False
+    _, _, inputs = problem(sp, 0, FB)
+    x = [torch.as_tensor(a, dtype=torch.float32, device=DEVICE)
+         for a in inputs]
+    t_eq = [cuda_ms(lambda: eq(*x), reps=3) for _ in range(2)]
+    log(f"phase 6 equMPC-ADMM fused solve (ms per B={FB} solve, CUDA "
+        f"events): {json.dumps(t_eq)}")
+    out["equMPC-ADMM"] = min(t_eq)
+    return out
+
+
 def main():
     require_cuda()
     import spcies_tpu_torch as sp
@@ -280,16 +474,25 @@ def main():
     log(f"python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
     card = card_line()
-    build_kernel()
+    build_kernels()
     head, head_plain, m = phase_kernel_vs_plain(sp)
     launches, fused = phase_main_path(sp, head_plain, m)
     times = phase_times(sp, fused)
+    fista_err = phase_fista_kernel_vs_plain(sp)
+    fam_launches = phase_family_paths(sp)
+    fam_times = phase_family_times(sp)
     log(json.dumps({"kernels": [{
         "name": "fused_admm", "route": "cuda",
         "source": "spcies_tpu_torch/csrc/fused_admm.cu",
         "replaces": "spcies_tpu/kernels/fused_admm.py:74",
-        "launches": launches, "max_abs_err": head["u_err"],
-        "ms": times["kernel"], "plain_ms": times["plain"]}]}))
+        "launches": launches + fam_launches["fused_admm"],
+        "max_abs_err": head["u_err"],
+        "ms": times["kernel"], "plain_ms": times["plain"]}, {
+        "name": "fused_fista", "route": "cuda",
+        "source": "spcies_tpu_torch/csrc/fused_fista.cu",
+        "replaces": "spcies_tpu/kernels/fused_fista.py:61",
+        "launches": fam_launches["fused_fista"], "max_abs_err": fista_err,
+        "ms": fam_times[FB]["kernel"], "plain_ms": fam_times[FB]["plain"]}]}))
     log(card)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,13 +7,15 @@ Decision vector z = (u_0, x_1, u_1, ..., x_{N-1}, u_{N-1}, x_N), dim N(n+m).
 Reference: formulations/+laxMPC/compute_laxMPC_ADMM_ingredients.m (offline
 math), code_laxMPC_ADMM_C.c:308-633 (ADMM loop), TCST 2020 eq. (9).
 
-Port of the ADMM part of spcies_tpu/formulations/laxmpc.py, with two
-z-step backends:
-  'dense' — the whole equality-QP solve collapsed offline into one affine
-            map z = M_q q_hat + M_b b0 (one [B,nz]x[nz,nz] product per
-            iteration), run by the masked loop of solvers/admm.py.
-  'fused' — the whole ADMM loop in one hand-written GPU kernel per call
-            (kernels/fused_admm.py through solvers/fused_backend.py).
+Port of the ADMM and FISTA parts of spcies_tpu/formulations/laxmpc.py,
+with two backends each:
+  'dense' — ADMM: the whole equality-QP solve collapsed offline into one
+            affine map z = M_q q_hat + M_b b0 (one [B,nz]x[nz,nz] product
+            per iteration), run by the masked loop of solvers/admm.py.
+            FISTA: products with G, G' and Winv, run by solvers/fista.py.
+  'fused' — the whole loop in one hand-written GPU kernel per call
+            (kernels/fused_admm.py, kernels/fused_fista.py, through
+            solvers/fused_backend.py).
 """
 
 from __future__ import annotations
@@ -27,11 +29,26 @@ from spcies_tpu_torch.formulations.base import (register_builder,
 from spcies_tpu_torch.utils import linalg
 from spcies_tpu_torch.utils.projections import proj_box
 from spcies_tpu_torch.solvers.admm import admm_solve
+from spcies_tpu_torch.solvers.fista import fista_solve
 from spcies_tpu_torch.solvers.common import (SolveResult, hist_sol_entries,
                                              delta_dot)
 from spcies_tpu_torch.api import BatchedSolver
 
 _DTYPES = {"double": torch.float64, "float": torch.float32}
+
+
+def stacked_bounds(sys, n, m, N, inf_value, *, terminal: bool):
+    """Stage bounds stacked over the decision vector: LB = (LBu, [LBx, LBu]
+    x (N-1)[, LBx]), v_0 clipped by LBu and, with a terminal state, v_N by
+    LBx (code_laxMPC_ADMM_C.c:487-537; equMPC has no terminal block,
+    spcies_equMPC_ADMM_solver.m:195-196)."""
+    LBx, UBx, LBu, UBu = get_bounds(sys, n, m, inf_value)
+    tail = 1 if terminal else 0
+    LB = np.concatenate([LBu] + [np.concatenate([LBx, LBu])] * (N - 1)
+                        + [LBx] * tail)
+    UB = np.concatenate([UBu] + [np.concatenate([UBx, UBu])] * (N - 1)
+                        + [UBx] * tail)
+    return LB, UB
 
 
 def laxmpc_admm_ingredients(sys: dict, param: dict, opt: Options) -> dict:
@@ -74,12 +91,7 @@ def laxmpc_admm_ingredients(sys: dict, param: dict, opt: Options) -> dict:
     M_q = GH.T @ K - Hinv              # [nz, nz]
     M_b = GH.T @ np.linalg.inv(W)[:, :n]   # [nz, n]
 
-    # Stage bounds stacked over the decision vector
-    # (LB = [LBx; LBu], v_0 clipped by LBu, v_N by LBx:
-    #  code_laxMPC_ADMM_C.c:487-537)
-    LBx, UBx, LBu, UBu = get_bounds(sys, n, m, opt.inf_value)
-    LB_z = np.concatenate([LBu] + [np.concatenate([LBx, LBu])] * (N - 1) + [LBx])
-    UB_z = np.concatenate([UBu] + [np.concatenate([UBx, UBu])] * (N - 1) + [UBx])
+    LB_z, UB_z = stacked_bounds(sys, n, m, N, opt.inf_value, terminal=True)
 
     # Structured pieces for the banded backend (reference vars.Hi* layout,
     # compute_laxMPC_ADMM_ingredients.m:140-147)
@@ -132,14 +144,7 @@ def build_laxmpc_admm(sys: dict, param: dict, opt: Options,
                       ingredients: dict | None = None) -> BatchedSolver:
     """Build the laxMPC-ADMM solver on `device`. `ingredients` replaces
     the offline computation (same keys as laxmpc_admm_ingredients)."""
-    if opt.time_varying:
-        raise NotImplementedError(
-            "time-varying laxMPC is not ported to spcies_tpu_torch yet "
-            "(ROADMAP queue 1 item 8)")
-    if backend == "banded":
-        raise NotImplementedError(
-            "backend='banded' is not ported to spcies_tpu_torch yet "
-            "(ROADMAP queue 1 item 8)")
+    _reject_unported(opt, backend)
     if backend not in ("dense", "fused"):
         raise ValueError(f"unknown backend {backend!r}")
     device = torch.device(device if device is not None else "cpu")
@@ -224,3 +229,145 @@ def _build_laxmpc_admm_fused(ing, opt, dtype, device):
         u_start=0)
     return BatchedSolver(_solve, ing, opt, n=n, m=m, N=N, nz=nz,
                          dtype=dtype, device=device)
+
+
+# ---------------------------------------------------------------------------
+# FISTA
+# ---------------------------------------------------------------------------
+
+def laxmpc_fista_ingredients(sys: dict, param: dict, opt: Options) -> dict:
+    """Offline ingredients for dual FISTA, the analogue of
+    compute_laxMPC_FISTA_ingredients.m (H without rho; Q, R, T all diagonal
+    required, :50-52; exports Hinv diag and the W band factors :71-97)."""
+    A, B, n, m = get_sys_matrices(sys)
+    N = int(param["N"])
+    Q = np.asarray(param["Q"], dtype=float)
+    R = np.asarray(param["R"], dtype=float)
+    T = np.asarray(param["T"], dtype=float)
+    for name, M in (("Q", Q), ("R", R), ("T", T)):
+        if not np.allclose(M, np.diag(np.diag(M))):
+            raise ValueError(
+                f"laxMPC/FISTA requires diagonal {name} "
+                "(compute_laxMPC_FISTA_ingredients.m:50-52)")
+    Qd, Rd, Td = np.diag(Q).copy(), np.diag(R).copy(), np.diag(T).copy()
+    nz = N * (n + m)
+
+    h_diag = np.concatenate([Rd] + [np.concatenate([Qd, Rd])] * (N - 1)
+                            + [Td])
+    hinv_diag = 1.0 / h_diag
+    G = linalg.mpc_equality_matrix(A, B, N)
+    W = G @ (hinv_diag[:, None] * G.T)
+    Alpha, Beta = linalg.band_chol_blocks(W, n, N)
+
+    LB_z, UB_z = stacked_bounds(sys, n, m, N, opt.inf_value, terminal=True)
+
+    return dict(
+        n=n, m=m, N=N, nz=nz, A=A, B=B, AB=np.hstack([A, B]),
+        Qd=Qd, Rd=Rd, T=T, hinv_diag=hinv_diag,
+        G=G, Winv=np.linalg.inv(W), Alpha=Alpha, Beta=Beta,
+        LB_z=LB_z, UB_z=UB_z,
+    )
+
+
+def _make_fista_parts(ing, dtype, device):
+    """Dense FISTA operators, shared by laxMPC and equMPC: z-from-q clip,
+    the linear G^T / G applies (consumed on deltas by the engine) and the
+    W solve as a product with Winv."""
+    hinv = torch.as_tensor(ing["hinv_diag"], dtype=dtype, device=device)
+    LB_z = torch.as_tensor(ing["LB_z"], dtype=dtype, device=device)
+    UB_z = torch.as_tensor(ing["UB_z"], dtype=dtype, device=device)
+    G = torch.as_tensor(ing["G"], dtype=dtype, device=device)
+    Winv = torch.as_tensor(ing["Winv"], dtype=dtype, device=device)
+
+    def z_from_q(q):
+        return proj_box(-hinv * q, LB_z, UB_z)
+
+    def gt_op(y):
+        return y @ G
+
+    def g_op(z):
+        return z @ G.T
+
+    def w_solve(r):
+        return r @ Winv.T
+
+    return z_from_q, gt_op, g_op, w_solve
+
+
+def _fista_b_lax(ing, x0, xr, dtype):
+    """Equality right-hand side b = (-A x0, 0, ..., 0)."""
+    A = torch.as_tensor(ing["A"], dtype=dtype, device=x0.device)
+    b = torch.zeros((x0.shape[0], ing["N"] * ing["n"]), dtype=dtype,
+                    device=x0.device)
+    b[:, :ing["n"]] = -(x0 @ A.T)
+    return b
+
+
+def build_fista(ing, opt, backend, device, *, make_q_ref, make_b,
+                terminal: bool):
+    """The dense or fused dual-FISTA solver of laxMPC (terminal=True) or
+    equMPC (terminal=False): make_q_ref(ing, xr, ur, dtype) and
+    make_b(ing, x0, xr, dtype) build the per-call cost and right-hand
+    side."""
+    if backend not in ("dense", "fused"):
+        raise ValueError(f"unknown backend {backend!r}")
+    dtype = _DTYPES[opt.precision]
+    n, m, N, nz = ing["n"], ing["m"], ing["N"], ing["nz"]
+    if backend == "fused":
+        from spcies_tpu_torch.solvers.fused_backend import (
+            build_fused_fista_solve)
+        f32 = torch.float32
+        _solve = build_fused_fista_solve(
+            ing, opt, dtype, device,
+            make_q_ref=lambda x0, xr, ur: make_q_ref(ing, xr, ur, f32),
+            make_b=lambda x0, xr, ur: make_b(ing, x0, xr, f32))
+        return _tag_stagewise(
+            BatchedSolver(_solve, ing, opt, n=n, m=m, N=N, nz=nz,
+                          dtype=dtype, device=device), terminal)
+
+    tol = float(opt.solver["tol"])
+    k_max = int(opt.solver["k_max"])
+    z_from_q, gt_op, g_op, w_solve = _make_fista_parts(ing, dtype, device)
+
+    def _solve(x0, xr, ur, init, fixed_iters):
+        z, y, lam, k, e_flag, res, hist = fista_solve(
+            z_from_q, gt_op, g_op, w_solve, make_q_ref(ing, xr, ur, dtype),
+            make_b(ing, x0, xr, dtype), tol=tol, k_max=k_max,
+            batch=x0.shape[0], nlam=N * n, dtype=dtype,
+            lam_init=None if init is None else init[0],
+            fixed_iters=fixed_iters,
+            restart=bool(opt.solver.get("restart", False)),
+            history=opt.debug, device=device)
+        return SolveResult(u=z[:, :m], k=k, e_flag=e_flag,
+                           sol=dict(z=z, lam=y, res=res,
+                                    **hist_sol_entries(hist)))
+
+    return _tag_stagewise(
+        BatchedSolver(_solve, ing, opt, n=n, m=m, N=N, nz=nz, dtype=dtype,
+                      device=device), terminal)
+
+
+def _reject_unported(opt, backend):
+    if opt.time_varying:
+        raise NotImplementedError(
+            "time-varying laxMPC/equMPC is not ported to spcies_tpu_torch "
+            "yet (ROADMAP queue 1 item 8)")
+    if backend == "banded":
+        raise NotImplementedError(
+            "backend='banded' is not ported to spcies_tpu_torch yet "
+            "(ROADMAP queue 1 item 8)")
+
+
+@register_builder("laxMPC", "FISTA")
+def build_laxmpc_fista(sys: dict, param: dict, opt: Options,
+                       backend: str = "dense", device=None,
+                       ingredients: dict | None = None) -> BatchedSolver:
+    """laxMPC via dual FISTA (code_laxMPC_FISTA_C.c,
+    spcies_laxMPC_FISTA_solver.m) on `device`. `ingredients` replaces the
+    offline computation (same keys as laxmpc_fista_ingredients)."""
+    _reject_unported(opt, backend)
+    ing = (ingredients if ingredients is not None
+           else laxmpc_fista_ingredients(sys, param, opt))
+    return build_fista(ing, opt, backend,
+                       torch.device(device if device is not None else "cpu"),
+                       make_q_ref=_q_ref, make_b=_fista_b_lax, terminal=True)

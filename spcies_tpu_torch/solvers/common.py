@@ -50,3 +50,10 @@ def delta_dot(x, M):
     turns TF32 off for the whole solve, which is what the JAX package's
     DEFAULT-precision product computes on the CPU."""
     return x @ M
+
+
+def delta_dot_op(op, x):
+    """Apply a linear operator to a shrinking delta: the operator-callback
+    form of delta_dot, a plain call for the same reason (the precision is
+    BatchedSolver.__call__'s)."""
+    return op(x)

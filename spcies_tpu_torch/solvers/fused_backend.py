@@ -1,4 +1,6 @@
-"""Generic 'fused' backend builder for dense single-split box-ADMM solvers.
+"""Generic 'fused' backend builders: dense single-split box-ADMM solvers
+on kernels/fused_admm.py, and laxMPC/equMPC dual FISTA on
+kernels/fused_fista.py.
 
 Any formulation whose z-step is a baked dense affine map and whose
 projection is a box (laxMPC, equMPC, MPCT-ADMM-cs) runs the same fused
@@ -20,6 +22,7 @@ import torch.nn.functional as F
 
 from spcies_tpu_torch.kernels.fused_admm import (COL_PAD, fused_admm_solve,
                                                  round_up)
+from spcies_tpu_torch.kernels.fused_fista import fused_fista_solve
 from spcies_tpu_torch.solvers.common import SolveResult
 
 
@@ -120,15 +123,110 @@ class FusedBoxADMMSolve:
             sol=dict(z=z, v=v, lam=lam, r_p=r_p, r_d=r_d))
 
 
+def _require_fp32(dtype):
+    if dtype != torch.float32:
+        raise ValueError("the fused backend is the fp32 production path; "
+                         "use backend='dense' for fp64 verification")
+
+
 def build_fused_box_admm_solve(ing, opt, dtype, device, *, make_q_ref,
                                make_aux_b, u_start: int,
                                lb_key: str = "LB_z", ub_key: str = "UB_z"):
     """Return a FusedBoxADMMSolve for a dense box-ADMM formulation."""
-    if dtype != torch.float32:
-        raise ValueError("the fused backend is the fp32 production path; "
-                         "use backend='dense' for fp64 verification")
+    _require_fp32(dtype)
     if not ing["rho_is_scalar"]:
         raise ValueError("the fused backend requires scalar rho")
     return FusedBoxADMMSolve(ing, opt, device, make_q_ref=make_q_ref,
                              make_aux_b=make_aux_b, u_start=u_start,
                              lb_key=lb_key, ub_key=ub_key)
+
+
+class FusedFISTASolve:
+    """`(*inputs, init, fixed_iters) -> SolveResult` running the fused
+    dual-FISTA kernel (kernels/fused_fista.py) for laxMPC and equMPC,
+    which differ only in how they build q_ref and b. Port of
+    spcies_tpu/formulations/laxmpc.py `_build_fista_fused`.
+
+    make_q_ref(*inputs) -> [B, nz] linear cost; make_b(*inputs) ->
+    [B, N n] equality right-hand side. `init` is (lam,). `prepare` and
+    `operator` expose the kernel's exact arguments.
+    """
+
+    def __init__(self, ing, opt, device, *, make_q_ref, make_b):
+        self.m, self.nz = ing["m"], ing["nz"]
+        self.nlam = ing["N"] * ing["n"]
+        self.make_q_ref, self.make_b = make_q_ref, make_b
+        s = opt.solver
+        self.tile_b = int(s.get("tile_b", 256))
+        # exact_k: free-run windows + per-iteration window replay — the
+        # dense masked loop's exit semantics at free-run speed
+        self.kernel_kw = dict(
+            tol=float(s["tol"]), k_max=int(s["k_max"]),
+            restart=bool(s.get("restart", False)), tile_b=self.tile_b,
+            check_every=int(s.get("check_every", 1)),
+            exact_k=bool(s.get("exact_k", False)))
+
+        nz, nlam = self.nz, self.nlam
+        nzp, nlamp = round_up(nz, COL_PAD), round_up(nlam, COL_PAD)
+        G_pad = np.zeros((nlamp, nzp), np.float32)
+        G_pad[:nlam, :nz] = ing["G"]
+        WinvT_pad = np.zeros((nlamp, nlamp), np.float32)
+        WinvT_pad[:nlam, :nlam] = np.asarray(ing["Winv"]).T
+        rows = np.zeros((3, nzp), np.float32)   # hinv, LB, UB
+        rows[0, :nz] = ing["hinv_diag"]
+        rows[1, :nz] = np.maximum(ing["LB_z"], -1e30)
+        rows[2, :nz] = np.minimum(ing["UB_z"], 1e30)
+        self.operator = tuple(
+            torch.as_tensor(np.ascontiguousarray(a), device=device)
+            for a in (G_pad, G_pad.T, WinvT_pad, rows[0:1], rows[1:2],
+                      rows[2:3]))
+        # the warm-start prologue's operators, unpadded, at full fp32
+        self.G = torch.as_tensor(ing["G"], dtype=torch.float32,
+                                 device=device)
+        self.Winv = torch.as_tensor(ing["Winv"], dtype=torch.float32,
+                                    device=device)
+        self.hinv = torch.as_tensor(ing["hinv_diag"], dtype=torch.float32,
+                                    device=device)
+        self.LB, self.UB = self.operator[4][0, :nz], self.operator[5][0, :nz]
+
+    def prepare(self, *inputs, init=None):
+        """Kernel inputs for one call: (q1, z0, r0, y0, lam0) padded to
+        [Bp, nzp] and [Bp, nlamp], and the batch B."""
+        Bsz = inputs[0].shape[0]
+        q_ref = self.make_q_ref(*inputs)
+        b = self.make_b(*inputs)
+        lam0 = (torch.zeros_like(b) if init is None
+                else torch.as_tensor(init[0], dtype=torch.float32,
+                                     device=b.device))
+        # k = 0 warm-start gradient step (solvers/fista.py prologue), plain
+        # full-fp32 products
+        z0 = torch.minimum(torch.maximum(-self.hinv * (q_ref - lam0 @ self.G),
+                                         self.LB), self.UB)
+        r0 = b - z0 @ self.G.T
+        y = lam0 + r0 @ self.Winv.T          # lam = y after the warm start
+        q1 = q_ref - y @ self.G
+        nzp, nlamp = self.operator[0].shape[1], self.operator[0].shape[0]
+        padb = round_up(Bsz, self.tile_b) - Bsz
+        padz = (0, nzp - self.nz, 0, padb)
+        padl = (0, nlamp - self.nlam, 0, padb)
+        y_p = F.pad(y, padl)
+        return (F.pad(q1, padz), F.pad(z0, padz), F.pad(r0, padl), y_p,
+                y_p, Bsz)
+
+    def __call__(self, *args):
+        *inputs, init, fixed_iters = args
+        *kin, Bsz = self.prepare(*inputs, init=init)
+        z, y, lam, k, e_flag, res = fused_fista_solve(
+            *kin, *self.operator, fixed_iters=int(fixed_iters or 0),
+            **self.kernel_kw)
+        z = z[:Bsz, :self.nz]
+        return SolveResult(u=z[:, :self.m], k=k[:Bsz], e_flag=e_flag[:Bsz],
+                           sol=dict(z=z, lam=y[:Bsz, :self.nlam],
+                                    res=res[:Bsz]))
+
+
+def build_fused_fista_solve(ing, opt, dtype, device, *, make_q_ref, make_b):
+    """Return a FusedFISTASolve for laxMPC or equMPC dual FISTA."""
+    _require_fp32(dtype)
+    return FusedFISTASolve(ing, opt, device, make_q_ref=make_q_ref,
+                           make_b=make_b)

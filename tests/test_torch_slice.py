@@ -201,7 +201,7 @@ def test_problem_recipe_builds_solver(fixture):
 @pytest.mark.parametrize("probe,exc,match", [
     (dict(formulation="nope", method="ADMM"), ValueError, "Unknown"),
     (dict(formulation="laxMPC", method="EADMM"), ValueError, "not available"),
-    (dict(formulation="laxMPC", method="FISTA"), NotImplementedError,
+    (dict(formulation="ellipMPC", method="ADMM"), NotImplementedError,
      "No solver builder"),
     (dict(formulation="MPCT", method="EADMM"), NotImplementedError,
      "No solver builder"),
