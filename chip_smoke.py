@@ -33,7 +33,18 @@ started together), then
      on every lane, and a small batch agrees with the fp64 dense engine
      on the CPU;
   6. times the FISTA kernel, its plain version and the fp32 dense FISTA
-     engine at B=8192 and 32768, and the equMPC-ADMM fused solve at 8192.
+     engine at B=8192 and 32768, and the equMPC-ADMM fused solve at 8192;
+  7. runs the MPCT-EADMM kernel and its plain version on the same CUDA
+     tensors at the bench's N=30 family (bench.py:289-296: T = 10 Q,
+     S = R, rho_base 2, rho_mult 20, tol 1e-4, k_max 5000, checked) at
+     B=8192, and at B=4096 in the free-run, exact-k and k_max-capped
+     modes, held together as in 1;
+  8. drives MPCT-EADMM and MPCT-ADMM-cs (bench.py:297-302: rho 2, k_max
+     4000, exact-k, check_every 8) through make_solver(...,
+     backend="fused", device="cuda") as in 5;
+  9. times the EADMM kernel, its plain version and the fp32 dense EADMM
+     engine at B=8192 and 32768, and the MPCT-ADMM-cs fused solve and its
+     fp32 dense engine at 8192.
 It exits non-zero, with no result line, when there is no CUDA device or
 any check fails. The last line is the JSON result.
 """
@@ -61,7 +72,7 @@ CHECK_EVERY = 16
 K_AGREE = 0.9985    # the JAX package's hardware bar for per-lane k parity
 U_TOL = 1e-4        # kernel vs plain version, lanes with equal k
 U_TOL_FP64 = 1e-3   # fp32 fused vs fp64 dense, tol 1e-4 solutions
-KERNELS = ("fused_admm", "fused_fista")
+KERNELS = ("fused_admm", "fused_fista", "fused_eadmm")
 DEVICE = "cuda"
 # the bench's N=30 families (bench.py:262-288) at its family batch
 # (bench.py:207): exact-k, check_every 8, k_max 4000
@@ -71,6 +82,14 @@ FAMILIES = {
     "laxMPC-FISTA": ("laxMPC", "FISTA", dict(restart=True)),
     "equMPC-FISTA": ("equMPC", "FISTA", {}),
     "equMPC-ADMM": ("equMPC", "ADMM", dict(rho=6.0, relax_alpha=1.8)),
+}
+# the bench's N=30 MPCT families (bench.py:289-302), T = 10 Q and S = R
+MPCT_FAMILIES = {
+    "MPCT-EADMM": ("EADMM", "", dict(rho_base=2.0, rho_mult=20.0, tol=TOL,
+                                     k_max=5000, tile_b=TILE_B)),
+    "MPCT-ADMM-cs": ("ADMM", "cs", dict(rho=2.0, tol=TOL, k_max=4000,
+                                        tile_b=TILE_B, check_every=8,
+                                        exact_k=True)),
 }
 
 
@@ -97,12 +116,14 @@ def build_kernels():
     load them and print the compiler's resource report."""
     from spcies_tpu_torch.kernels import _build
     from spcies_tpu_torch.kernels.fused_admm import FUSED_ADMM_ARGTYPES
+    from spcies_tpu_torch.kernels.fused_eadmm import FUSED_EADMM_ARGTYPES
     from spcies_tpu_torch.kernels.fused_fista import FUSED_FISTA_ARGTYPES
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(KERNELS)) as pool:
         built = list(pool.map(_build.build, KERNELS))
     for name, argtypes, (_lib, rec) in zip(
-            KERNELS, (FUSED_ADMM_ARGTYPES, FUSED_FISTA_ARGTYPES), built):
+            KERNELS, (FUSED_ADMM_ARGTYPES, FUSED_FISTA_ARGTYPES,
+                      FUSED_EADMM_ARGTYPES), built):
         _build.load_kernel(name, f"{name}_launch", argtypes)
         log(f"kernel build: {name} (nvcc {rec['seconds']:.2f} s, "
             f"cached={rec['cached']})")
@@ -148,17 +169,18 @@ def kernel_args(solver, inputs, fixed_iters=0):
     return (z1p, v0p, lam0p, *solver.raw_fn.operator), kw
 
 
-def agreement(out_k, out_p, B, m, fixed, u_at=1):
+def agreement(out_k, out_p, B, m, fixed, u_at=1, k_at=3, u_off=0):
     """k agreement and max |u_kernel - u_plain| over lanes with equal k;
-    u is the first m entries of output u_at (both kernels return k and
-    e_flag as outputs 3 and 4)."""
-    k_k, k_p = out_k[3][:B], out_p[3][:B]
+    u is entries u_off..u_off+m of output u_at, k and e_flag are outputs
+    k_at and k_at + 1."""
+    k_k, k_p = out_k[k_at][:B], out_p[k_at][:B]
     same = k_k == k_p
-    du = (out_k[u_at][:B, :m] - out_p[u_at][:B, :m]).abs().amax(dim=1)
+    u = slice(u_off, u_off + m)
+    du = (out_k[u_at][:B, u] - out_p[u_at][:B, u]).abs().amax(dim=1)
     return dict(
         k_agree=float(same.float().mean()),
-        conv_kernel=float((out_k[4][:B] == 1).float().mean()),
-        conv_plain=float((out_p[4][:B] == 1).float().mean()),
+        conv_kernel=float((out_k[k_at + 1][:B] == 1).float().mean()),
+        conv_plain=float((out_p[k_at + 1][:B] == 1).float().mean()),
         u_err=float(du[same].max()) if bool(same.any()) else float("inf"),
         k_mean=float(k_k.float().mean()), fixed=fixed)
 
@@ -465,6 +487,164 @@ def phase_family_times(sp):
     return out
 
 
+def mpct_solver(sp, name, backend="fused", device=None, precision="float",
+                **kw):
+    """A solver of one of the bench's N=30 MPCT families."""
+    method, submethod, base = MPCT_FAMILIES[name]
+    sys_, param30, _ = problem(sp, 0, 1)
+    p = dict(param30)
+    p["T"] = 10.0 * np.asarray(p["Q"])
+    p["S"] = np.asarray(p["R"]).copy()
+    o = sp.default_options("MPCT", method, submethod, **{**base, **kw})
+    o.precision = precision
+    return sp.make_solver(sys_, p, formulation="MPCT", method=method,
+                          submethod=submethod, options=o, backend=backend,
+                          device=device or DEVICE)
+
+
+def eadmm_kernel_args(solver, inputs):
+    """The EADMM kernel's exact arguments for one call of a fused
+    solver."""
+    from spcies_tpu_torch.api import broadcast_inputs
+    x = broadcast_inputs(torch.float32, solver.device, *inputs)
+    *kin, _b = solver.raw_fn.prepare(*x)
+    return (*kin, *solver.raw_fn.operator), dict(solver.raw_fn.kernel_kw)
+
+
+def phase_eadmm_kernel_vs_plain(sp):
+    """The EADMM kernel and its plain version on the same CUDA tensors.
+    Returns the largest u error over the modes."""
+    from spcies_tpu_torch.kernels.fused_eadmm import (fused_eadmm_reference,
+                                                      fused_eadmm_solve)
+    name = "MPCT-EADMM"
+    modes = [
+        (f"checked B={FB}", FB, False, {}),
+        (f"free-run B={SMALL_BATCH}", SMALL_BATCH, False,
+         dict(check_every=8, tile_b=8)),
+        (f"exact-k B={SMALL_BATCH}", SMALL_BATCH, False,
+         dict(check_every=8, exact_k=True)),
+        (f"exact-k capped (tol 1e-13, k_max 19) B={SMALL_BATCH}",
+         SMALL_BATCH, True,
+         dict(check_every=8, exact_k=True, tol=1e-13, k_max=19)),
+    ]
+    u_err = 0.0
+    for label, B, capped, kw in modes:
+        solver = mpct_solver(sp, name, **kw)
+        _, _, inputs = problem(sp, 0, B)
+        args, kk = eadmm_kernel_args(solver, inputs)
+        out_k = fused_eadmm_solve(*args, **kk)
+        torch.cuda.synchronize()
+        out_p = fused_eadmm_reference(*args, **kk)
+        torch.cuda.synchronize()
+        a = agreement(out_k, out_p, B, solver.m, capped, u_at=0, k_at=5,
+                      u_off=solver.n)
+        check_agreement(f"{name} {label}", a, phase=7)
+        if capped:
+            assert bool((out_k[5][:B] == 19).all()), "capped k"
+        u_err = max(u_err, a["u_err"])
+    return u_err
+
+
+def phase_mpct_paths(sp):
+    """The two MPCT paths, each through make_solver(..., backend='fused'):
+    a request and a warm start from it, each launching its kernel once;
+    then a small batch against the fp64 dense engine on the CPU. Returns
+    the launches of each kernel."""
+    from spcies_tpu_torch.kernels.fused_admm import fused_admm_solve
+    from spcies_tpu_torch.kernels.fused_eadmm import fused_eadmm_solve
+    from spcies_tpu_torch.kernels.fused_fista import fused_fista_solve
+    counters = {"fused_admm": fused_admm_solve,
+                "fused_fista": fused_fista_solve,
+                "fused_eadmm": fused_eadmm_solve}
+    launches = dict.fromkeys(counters, 0)
+    for name in MPCT_FAMILIES:
+        eadmm = name == "MPCT-EADMM"
+        kernel = "fused_eadmm" if eadmm else "fused_admm"
+        solver = mpct_solver(sp, name)
+        _, _, inputs = problem(sp, 0, FB)
+        for c in counters.values():
+            c.launches = 0
+        cold = solver(*inputs)
+        torch.cuda.synchronize()
+        after_cold = counters[kernel].launches
+        keys = ("z1", "z2", "z3", "lam") if eadmm else ("z", "v", "lam")
+        warm = solver(*inputs, init=tuple(cold.sol[key] for key in keys))
+        torch.cuda.synchronize()
+        counts = {key: c.launches for key, c in counters.items()}
+        for tag, res in (("seed 0", cold), ("seed 0 warm", warm)):
+            log(f"phase 8 {name} request {tag}: "
+                f"k_mean={float(res.k.float().mean())} "
+                f"k_max={int(res.k.max())} "
+                f"converged={float((res.e_flag == 1).float().mean())} "
+                f"times_ms={res.sol['times_ms']}")
+            assert tuple(res.u.shape) == (FB, solver.m), res.u.shape
+            assert res.u.device.type == DEVICE
+            assert bool(torch.isfinite(res.u).all()), name
+            assert bool((res.e_flag == 1).all()), (name, tag)
+        assert after_cold == 1 and counts[kernel] == 2, (name, counts)
+        assert sum(counts.values()) == 2, (name, counts)
+        assert float(warm.k.float().mean()) < float(cold.k.float().mean())
+        launches[kernel] += counts[kernel]
+
+        _, _, small = problem(sp, 5, 64)
+        r64 = mpct_solver(sp, name, backend="dense", device="cpu",
+                          precision="double")(*small)
+        r32 = solver(*small)
+        err = float((r32.u.cpu().double() - r64.u).abs().max())
+        log(f"phase 8 {name} fused fp32 ({DEVICE}) vs dense fp64 (cpu), "
+            f"B=64: max|du|={err}")
+        assert bool((r64.e_flag == 1).all()) and bool((r32.e_flag == 1).all())
+        assert err <= U_TOL_FP64, (name, err)
+    return launches
+
+
+def phase_mpct_times(sp):
+    """The EADMM kernel, its plain version and the fp32 dense EADMM engine
+    at B=8192 and 32768, and the MPCT-ADMM-cs fused solve and its fp32
+    dense engine at 8192, in turns, each a CUDA-event mean. Returns the
+    minima."""
+    from spcies_tpu_torch.kernels.fused_eadmm import (fused_eadmm_reference,
+                                                      fused_eadmm_solve)
+    out = {}
+    for B in (FB, BATCH):
+        fused = mpct_solver(sp, "MPCT-EADMM")
+        dense = mpct_solver(sp, "MPCT-EADMM", backend="dense")
+        dense.options.timing = False
+        _, _, inputs = problem(sp, 0, B)
+        args, kk = eadmm_kernel_args(fused, inputs)
+        x = [torch.as_tensor(a, dtype=torch.float32, device=DEVICE)
+             for a in inputs]
+        kernel = lambda: fused_eadmm_solve(*args, **kk)  # noqa: E731
+        plain = lambda: fused_eadmm_reference(*args, **kk)  # noqa: E731
+        dense_fn = lambda: dense(*x)  # noqa: E731
+        t = {"plain": [], "kernel": [], "dense": []}
+        t["plain"].append(cuda_ms(plain))
+        t["kernel"].append(cuda_ms(kernel, reps=5))
+        t["kernel"].append(cuda_ms(kernel, reps=5))
+        t["plain"].append(cuda_ms(plain))
+        t["dense"].append(cuda_ms(dense_fn))
+        t["dense"].append(cuda_ms(dense_fn))
+        res = dense(*x)
+        log(f"phase 9 MPCT-EADMM dense fp32 engine B={B}: "
+            f"k_mean={float(res.k.float().mean())} "
+            f"converged={float((res.e_flag == 1).float().mean())}")
+        log(f"phase 9 MPCT-EADMM times (ms per B={B} solve, CUDA "
+            f"events): " + json.dumps(t))
+        out[B] = {key: min(v) for key, v in t.items()}
+    _, _, inputs = problem(sp, 0, FB)
+    x = [torch.as_tensor(a, dtype=torch.float32, device=DEVICE)
+         for a in inputs]
+    t = {}
+    for backend in ("fused", "dense", "fused", "dense"):
+        s = mpct_solver(sp, "MPCT-ADMM-cs", backend=backend)
+        s.options.timing = False
+        t.setdefault(backend, []).append(cuda_ms(lambda: s(*x)))
+    log(f"phase 9 MPCT-ADMM-cs times (ms per B={FB} solve, CUDA events): "
+        + json.dumps(t))
+    out["MPCT-ADMM-cs"] = {key: min(v) for key, v in t.items()}
+    return out
+
+
 def main():
     require_cuda()
     import spcies_tpu_torch as sp
@@ -481,18 +661,28 @@ def main():
     fista_err = phase_fista_kernel_vs_plain(sp)
     fam_launches = phase_family_paths(sp)
     fam_times = phase_family_times(sp)
+    eadmm_err = phase_eadmm_kernel_vs_plain(sp)
+    mpct_launches = phase_mpct_paths(sp)
+    mpct_times = phase_mpct_times(sp)
     log(json.dumps({"kernels": [{
         "name": "fused_admm", "route": "cuda",
         "source": "spcies_tpu_torch/csrc/fused_admm.cu",
         "replaces": "spcies_tpu/kernels/fused_admm.py:74",
-        "launches": launches + fam_launches["fused_admm"],
+        "launches": (launches + fam_launches["fused_admm"]
+                     + mpct_launches["fused_admm"]),
         "max_abs_err": head["u_err"],
         "ms": times["kernel"], "plain_ms": times["plain"]}, {
         "name": "fused_fista", "route": "cuda",
         "source": "spcies_tpu_torch/csrc/fused_fista.cu",
         "replaces": "spcies_tpu/kernels/fused_fista.py:61",
         "launches": fam_launches["fused_fista"], "max_abs_err": fista_err,
-        "ms": fam_times[FB]["kernel"], "plain_ms": fam_times[FB]["plain"]}]}))
+        "ms": fam_times[FB]["kernel"], "plain_ms": fam_times[FB]["plain"]}, {
+        "name": "fused_eadmm", "route": "cuda",
+        "source": "spcies_tpu_torch/csrc/fused_eadmm.cu",
+        "replaces": "spcies_tpu/kernels/fused_eadmm.py:50",
+        "launches": mpct_launches["fused_eadmm"], "max_abs_err": eadmm_err,
+        "ms": mpct_times[FB]["kernel"],
+        "plain_ms": mpct_times[FB]["plain"]}]}))
     log(card)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

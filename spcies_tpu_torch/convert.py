@@ -14,29 +14,35 @@ import numpy as np
 _ADMM_RHO = ("rho_is_scalar", "rho_scalar", "rho_vec", "rho_inv_vec")
 _FISTA = ("hinv_diag", "G", "Winv")
 
-# (formulation, method) -> the keys that triple's builders read
+# (formulation, method, submethod) -> the keys that triple's builders read
 BUILDER_KEYS = {
-    ("laxMPC", "ADMM"): ("n", "m", "N", "nz", *_ADMM_RHO, "A", "Qd", "Rd",
-                         "T", "M_q", "M_b", "LB_z", "UB_z"),
-    ("laxMPC", "FISTA"): ("n", "m", "N", "nz", "A", "Qd", "Rd", "T",
-                          *_FISTA, "LB_z", "UB_z"),
-    ("equMPC", "ADMM"): ("n", "m", "N", "nz", *_ADMM_RHO, "A", "Qd", "Rd",
-                         "M_q", "M_b0", "M_bN", "LB_z", "UB_z"),
-    ("equMPC", "FISTA"): ("n", "m", "N", "nz", "A", "Qd", "Rd", *_FISTA,
-                          "LB_z", "UB_z"),
+    ("laxMPC", "ADMM", ""): ("n", "m", "N", "nz", *_ADMM_RHO, "A", "Qd",
+                             "Rd", "T", "M_q", "M_b", "LB_z", "UB_z"),
+    ("laxMPC", "FISTA", ""): ("n", "m", "N", "nz", "A", "Qd", "Rd", "T",
+                              *_FISTA, "LB_z", "UB_z"),
+    ("equMPC", "ADMM", ""): ("n", "m", "N", "nz", *_ADMM_RHO, "A", "Qd",
+                             "Rd", "M_q", "M_b0", "M_bN", "LB_z", "UB_z"),
+    ("equMPC", "FISTA", ""): ("n", "m", "N", "nz", "A", "Qd", "Rd",
+                              *_FISTA, "LB_z", "UB_z"),
+    ("MPCT", "EADMM", ""): ("n", "m", "N", "nm", "nz1", "nrow", "T", "S",
+                            "rho", "H1i", "W2", "M3", "LB", "UB"),
+    ("MPCT", "ADMM", "cs"): ("n", "m", "N", "nz", *_ADMM_RHO, "T", "S",
+                             "M_q", "M_b", "LB", "UB"),
 }
 
 
 def ingredients_from_jax(ing: dict, formulation: str = "laxMPC",
-                         method: str = "ADMM") -> dict:
+                         method: str = "ADMM", submethod: str = "") -> dict:
     """Copy a JAX solver's ingredient dict into the port's form: arrays
     become fp64 numpy arrays (integer and bool arrays keep their dtype),
     Python and numpy scalars become Python scalars. Raises KeyError if a
-    key the port's (formulation, method) builder reads is missing."""
-    if (formulation, method) not in BUILDER_KEYS:
-        raise KeyError(f"no ingredient layout for ({formulation}, {method}); "
-                       f"known: {sorted(BUILDER_KEYS)}")
-    missing = [k for k in BUILDER_KEYS[(formulation, method)] if k not in ing]
+    key the port's (formulation, method, submethod) builder reads is
+    missing."""
+    triple = (formulation, method, submethod)
+    if triple not in BUILDER_KEYS:
+        raise KeyError(f"no ingredient layout for {triple}; known: "
+                       f"{sorted(BUILDER_KEYS)}")
+    missing = [k for k in BUILDER_KEYS[triple] if k not in ing]
     if missing:
         raise KeyError(f"ingredients lack {missing}")
     out = {}

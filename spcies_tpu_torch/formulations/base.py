@@ -16,6 +16,17 @@ import numpy as np
 
 BUILDERS: dict[tuple[str, str, str], Callable] = {}
 
+# triples of the JAX package not ported yet -> their ROADMAP queue 1 item
+UNPORTED = {
+    ("MPCT", "ADMM", "semiband"): 9,
+    ("ellipMPC", "ADMM", ""): 10,
+    ("ellipMPC", "ADMM", "soc"): 10,
+    ("HMPC", "ADMM", ""): 11,
+    ("HMPC", "ADMM", "split"): 11,
+    ("HMPC", "SADMM", "split"): 11,
+    ("ellipHMPC", "ADMM", ""): 11,
+}
+
 
 def register_builder(formulation: str, method: str, submethod: str = ""):
     def deco(fn):
@@ -28,8 +39,11 @@ def get_builder(formulation: str, method: str, submethod: str = ""):
     key = (formulation, method, submethod)
     if key not in BUILDERS:
         avail = sorted(BUILDERS)
+        todo = (f" (not ported to spcies_tpu_torch yet, ROADMAP queue 1 "
+                f"item {UNPORTED[key]})" if key in UNPORTED else "")
         raise NotImplementedError(
-            f"No solver builder registered for {key}; available: {avail}")
+            f"No solver builder registered for {key}{todo}; available: "
+            f"{avail}")
     return BUILDERS[key]
 
 

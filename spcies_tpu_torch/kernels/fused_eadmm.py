@@ -1,0 +1,316 @@
+"""Fused three-block EADMM for MPCT: the wrapper of the hand-written CUDA
+kernel (csrc/fused_eadmm.cu) and its plain PyTorch version.
+
+Counterpart of spcies_tpu/kernels/fused_eadmm.py (`_fused_eadmm_kernel`).
+Everything lives in one padded lane layout of Z columns, the z1/z3
+decision layout (N+1)(n+m) padded to a multiple of COL_PAD: z2 is carried
+in broadcast form z2b = z2 (x) 1_{N+1}, the duals of the middle constraint
+rows as lm, and those of the head rows (lanes 0..n) and tail rows (the last
+stage block's lanes) as lht. For each lane one iteration is
+
+    s_ht = rht (mt z2b - x0b) + lht
+    q1   = -(rm (z2b + z3) + lm) + (mh - mt) s_ht
+    z1   = clip(-q1 h1i, lb, ub)
+    v2m  = rm (z3 - z1) + lm ;  v2t = mt (rht (-z1) + lht)
+    z2bn = z2acc + (v2m - v2m_p) @ C2m + (v2t - v2t_p) @ C2t
+    q3   = rm (z2bn - z1) + lm
+    z3n  = z3acc + (q3 - q3_p) @ M3p
+    midR = z2bn + z3n - z1 ;  htR = mh z1 - x0b + mt (z2bn - z1)
+    lm'  = lm + rm midR ;  lht' = lht + rht htR
+    r_pf = max(max|midR mr|, max|htR|), r_z2 = max|(z2bn - z2b) mr|,
+    r_z3 = max|(z3n - z3) mr|
+
+with the three products in delta form against the previous inputs
+(v2m_p, v2t_p, q3_p) and the accumulators (z2acc, z3acc), which start at
+(z2refb, 0) with zero previous inputs, so the first iteration computes the
+full products under a warm start too. A lane exits when all three
+residuals are <= tol. Modes:
+
+  checked     check_every=1: exit tests every iteration; a converged lane
+              freezes all its carries, and its residuals are those at exit.
+  free-run    check_every=C>1: C-1 plain iterations, then one tested
+              iteration; k is recorded at check granularity, converged
+              lanes keep iterating until their tile drains, and a done
+              lane's residuals stay at its exit.
+  exact-k     check_every=C>1, exact_k: free-run windows with a snapshot
+              of each active lane's nine in-loop leaves at the window
+              start, then a per-iteration replay of each lane's last window
+              with the checked semantics (budget min(C, k_max - kws)) — the
+              checked mode's k, e_flag and iterates at free-run speed.
+
+Padding contract: the columns beyond the layout carry zero rows and columns
+in C2m, C2t and M3p, zero rm, rht, mh, mt, mr and h1i and [0, 0] bounds, so
+they stay exactly 0 and never enter a residual. The batch is padded to a
+multiple of tile_b by the caller.
+
+`fused_eadmm_solve` runs the plain version for CPU tensors and launches the
+kernel for CUDA tensors; `fused_eadmm_solve.launches` counts the launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from spcies_tpu_torch.kernels.fused_admm import (COL_PAD, CTA_LANES,
+                                                 MAX_COLS, RBIG, round_up)
+
+__all__ = ["COL_PAD", "CTA_LANES", "MAX_COLS", "round_up",
+           "fused_eadmm_reference", "fused_eadmm_solve", "launch_geometry"]
+
+# C signature of fused_eadmm_launch: 28 tensor pointers (17 inputs, 10
+# outputs, the exact-k snapshot scratch); B, Z, blocks, threads, shared
+# bytes; tol; k_max, check_every, exact_k; the stream
+FUSED_EADMM_ARGTYPES = ([ctypes.c_void_p] * 28 + [ctypes.c_int] * 5
+                        + [ctypes.c_float] + [ctypes.c_int] * 3
+                        + [ctypes.c_void_p])
+# the leaves an exact-k snapshot saves per lane in the kernel: z2b, z3, lm,
+# lht and the three previous product inputs (the accumulators equal z2b and
+# z3 after the first iteration, which the kernel marks instead)
+SNAP_LEAVES = 7
+# plain version: read "all lanes done" on the host every this many
+# iterations of the checked loop (extra iterations of frozen lanes are
+# exact no-ops)
+_SYNC_EVERY = 8
+
+
+def _sel(mask, new, old):
+    return torch.where(mask.reshape(-1, *([1] * (new.ndim - 1))), new, old)
+
+
+class _Ops:
+    """One iteration in the kernel's operation order, over padded
+    operators."""
+
+    def __init__(self, x0b, C2m, C2t, M3p, rm, rht, mh, mt, mr, h1i, lb,
+                 ub):
+        self.x0b, self.C2m, self.C2t, self.M3p = x0b, C2m, C2t, M3p
+        self.rm, self.rht, self.mh, self.mt, self.mr, self.h1i, self.lb, \
+            self.ub = (r.reshape(1, -1) for r in (rm, rht, mh, mt, mr, h1i,
+                                                  lb, ub))
+        self.sign_ht = self.mh - self.mt
+
+    def iterate(self, z2b, z3, lm, lht, z2acc, z3acc, v2m_p, v2t_p, q3_p):
+        """One EADMM iteration (code_MPCT_EADMM_C.c:85-459 phase order).
+        Returns (z1, the nine new leaves, (r_pf, r_z2, r_z3))."""
+        rm, rht, mh, mt, mr = self.rm, self.rht, self.mh, self.mt, self.mr
+        x0b = self.x0b
+        # P1: q1 = A1'(rho.*rows(0, z2, z3, x0) + lam); clipped diag solve
+        s_ht = rht * (mt * z2b - x0b) + lht
+        q1 = -(rm * (z2b + z3) + lm) + self.sign_ht * s_ht
+        z1 = torch.minimum(torch.maximum(-q1 * self.h1i, self.lb), self.ub)
+        # P2: z2 = W2 (q2_ref + A2'(rho.*rows(z1, 0, z3, 0) + lam)) in
+        # broadcast form through the folded C2m/C2t
+        v2m = rm * (z3 - z1) + lm
+        v2t = mt * (rht * (-z1) + lht)
+        z2bn = z2acc + (v2m - v2m_p) @ self.C2m + (v2t - v2t_p) @ self.C2t
+        # P3: z3 = M3 (A3'(rho.*rows(z1, z2n, 0, 0) + lam)), mid rows only
+        q3 = rm * (z2bn - z1) + lm
+        z3n = z3acc + (q3 - q3_p) @ self.M3p
+        # residual rows and dual ascent
+        midR = z2bn + z3n - z1
+        htR = mh * z1 - x0b + mt * (z2bn - z1)
+        lm_n = lm + rm * midR
+        lht_n = lht + rht * htR
+        r_pf = torch.maximum(torch.amax(torch.abs(midR * mr), dim=1),
+                             torch.amax(torch.abs(htR), dim=1))
+        r_z2 = torch.amax(torch.abs((z2bn - z2b) * mr), dim=1)
+        r_z3 = torch.amax(torch.abs((z3n - z3) * mr), dim=1)
+        return (z1, (z2bn, z3n, lm_n, lht_n, z2bn, z3n, v2m, v2t, q3),
+                (r_pf, r_z2, r_z3))
+
+
+def _conv(r, tol):
+    return (r[0] <= tol) & (r[1] <= tol) & (r[2] <= tol)
+
+
+def fused_eadmm_reference(x0b, z2refb, z2b0, z30, lm0, lht0, C2m, C2t, M3p,
+                          rm_row, rht_row, mh_row, mt_row, mr_row, h1i_row,
+                          lb_row, ub_row, *, tol: float, k_max: int,
+                          tile_b: int = 256, check_every: int = 1,
+                          exact_k: bool = False):
+    """Plain PyTorch version of the fused kernel, for any float dtype and
+    device. Same arguments and returns as `fused_eadmm_solve`."""
+    B = x0b.shape[0]
+    dt, dev = x0b.dtype, x0b.device
+    ops = _Ops(x0b, C2m, C2t, M3p, rm_row, rht_row, mh_row, mt_row, mr_row,
+               h1i_row, lb_row, ub_row)
+    C = int(check_every)
+    zero = torch.zeros_like(x0b)
+    rbig = torch.full((B,), RBIG, dtype=dt, device=dev)
+    st = (z2b0, z30, lm0, lht0, z2refb, zero, zero, zero, zero)
+    z1 = zero
+    r = (rbig, rbig, rbig)
+    done = torch.zeros((B,), dtype=torch.bool, device=dev)
+    k = torch.zeros((B,), dtype=torch.int32, device=dev)
+
+    if C > 1 and exact_k:
+        sn = st
+        kws = torch.zeros_like(k)
+        it = 0
+        while it < k_max and not bool(done.all()):
+            a = torch.logical_not(done)
+            sn = tuple(_sel(a, x, s) for x, s in zip(st, sn))
+            kws = torch.where(a, it, kws)
+            # windows may overshoot k_max: the replay budget cuts each
+            # lane off at exactly k_max
+            for _ in range(C - 1):
+                _, st, _ = ops.iterate(*st)
+            _, st, rw = ops.iterate(*st)
+            done = torch.logical_or(done, a & _conv(rw, tol))
+            it += C
+        # replay each lane's last window with per-iteration checks
+        budget = torch.clamp(k_max - kws, max=C)
+        convd = torch.zeros_like(done)
+        k = kws
+        st = sn
+        for j in range(C):
+            act = torch.logical_not(convd) & (j < budget)
+            z1n, new, rn = ops.iterate(*st)
+            st = tuple(_sel(act, x, s) for x, s in zip(new, st))
+            z1 = _sel(act, z1n, z1)
+            r = tuple(torch.where(act, x, s) for x, s in zip(rn, r))
+            k = k + act.to(torch.int32)
+            convd = torch.logical_or(convd, act & _conv(rn, tol))
+        done = convd
+    elif C > 1:
+        # a tile of tile_b lanes stops iterating once all its lanes are
+        # done; until then its converged lanes keep iterating too
+        if B % tile_b:
+            raise ValueError(f"batch {B} is not a multiple of tile_b "
+                             f"{tile_b}")
+        it = 0
+        while it < k_max and not bool(done.all()):
+            ta = torch.logical_not(
+                done.reshape(-1, tile_b).all(dim=1)).repeat_interleave(tile_b)
+            n_fast = min(C - 1, k_max - 1 - it)
+            for _ in range(n_fast):
+                _, new, _ = ops.iterate(*st)
+                st = tuple(_sel(ta, x, s) for x, s in zip(new, st))
+            z1n, new, rn = ops.iterate(*st)
+            st = tuple(_sel(ta, x, s) for x, s in zip(new, st))
+            z1 = _sel(ta, z1n, z1)
+            a = torch.logical_not(done)
+            k = k + a.to(torch.int32) * (n_fast + 1)
+            r = tuple(torch.where(a, x, s) for x, s in zip(rn, r))
+            done = torch.logical_or(done, a & _conv(rn, tol))
+            it += n_fast + 1
+    else:
+        for it in range(k_max):
+            if it % _SYNC_EVERY == 0 and bool(done.all()):
+                break
+            z1n, new, rn = ops.iterate(*st)
+            a = torch.logical_not(done)
+            st = tuple(_sel(a, x, s) for x, s in zip(new, st))
+            z1 = _sel(a, z1n, z1)
+            r = tuple(torch.where(a, x, s) for x, s in zip(rn, r))
+            k = k + a.to(torch.int32)
+            done = torch.logical_or(done, a & _conv(rn, tol))
+    e_flag = torch.where(done, 1, -1).to(torch.int32)
+    return (z1, st[0], st[1], st[2], st[3], k, e_flag) + r
+
+
+def launch_geometry(B: int, Z: int, *, tile_b: int, check_every: int,
+                    exact_k: bool, k_max: int):
+    """(blocks, threads, dynamic shared bytes) of a kernel launch; raises
+    ValueError on a shape or mode the kernel does not take."""
+    if Z % COL_PAD or not 0 < Z <= MAX_COLS:
+        raise ValueError(f"the kernel takes a padded width that is a "
+                         f"multiple of {COL_PAD} up to {MAX_COLS}; got {Z}")
+    if tile_b % CTA_LANES:
+        raise ValueError(f"tile_b must be a multiple of {CTA_LANES}; "
+                         f"got {tile_b}")
+    if B % tile_b:
+        raise ValueError(f"batch {B} is not a multiple of tile_b {tile_b}")
+    if k_max < 1:
+        raise ValueError(f"k_max must be at least 1; got {k_max}")
+    if check_every > 1 and not exact_k and tile_b != CTA_LANES:
+        # in plain free-run the output iterates depend on when a lane's
+        # tile drains, and the kernel drains per block of CTA_LANES lanes
+        raise ValueError(
+            f"plain free-run (check_every > 1 without exact_k) takes "
+            f"tile_b={CTA_LANES} on the GPU; got {tile_b}")
+    # nine state vectors (z1, z2b, z3, lm, lht, v2m_p, v2t_p, q3_p, x0b)
+    # and three product inputs, each [Z][8]; warp maxima of the three
+    # residuals [Z / 32][3][8]
+    smem = 4 * CTA_LANES * (12 * Z + 3 * (Z // 32))
+    return B // CTA_LANES, Z, smem
+
+
+def _launch(*args, tol, k_max, tile_b, check_every, exact_k):
+    for t in args:
+        if t.dtype != torch.float32:
+            raise TypeError(f"the fused kernel takes float32; got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError("the fused kernel takes contiguous tensors")
+    B, Z = args[0].shape
+    blocks, threads, smem = launch_geometry(
+        B, Z, tile_b=tile_b, check_every=check_every, exact_k=exact_k,
+        k_max=k_max)
+    from spcies_tpu_torch.kernels._build import load_kernel
+    launch = load_kernel("fused_eadmm", "fused_eadmm_launch",
+                         FUSED_EADMM_ARGTYPES)
+    dev = args[0].device
+    outs = tuple(torch.empty_like(args[0]) for _ in range(5))
+    k, done = (torch.empty((B,), dtype=torch.int32, device=dev)
+               for _ in range(2))
+    res = tuple(torch.empty((B,), dtype=torch.float32, device=dev)
+                for _ in range(3))
+    exact = check_every > 1 and exact_k
+    snap = torch.empty((B if exact else 0, SNAP_LEAVES * Z),
+                       dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = launch(
+            *(t.data_ptr() for t in args + outs + (k, done) + res + (snap,)),
+            B, Z, blocks, threads, smem, float(tol), int(k_max),
+            int(check_every), int(bool(exact_k)), stream)
+    if err != 0:
+        raise RuntimeError(f"fused_eadmm kernel launch failed with CUDA "
+                           f"error {err} (blocks={blocks}, threads={threads},"
+                           f" shared={smem} B)")
+    fused_eadmm_solve.launches += 1
+    e_flag = torch.where(done == 1, 1, -1).to(torch.int32)
+    return outs + (k, e_flag) + res
+
+
+def fused_eadmm_solve(x0b, z2refb, z2b0, z30, lm0, lht0, C2m, C2t, M3p,
+                      rm_row, rht_row, mh_row, mt_row, mr_row, h1i_row,
+                      lb_row, ub_row, *, tol: float, k_max: int,
+                      tile_b: int = 256, check_every: int = 1,
+                      exact_k: bool = False):
+    """Run the fused EADMM loop: six [B, Z] tiles, three [Z, Z] matrices
+    and eight rows of Z entries (padded as the module docstring says; B a
+    multiple of tile_b). CPU tensors run the plain version; CUDA tensors
+    launch the kernel or raise.
+
+    Returns (z1, z2b, z3, lm, lht [B, Z], k [B] int32, e_flag [B] int32
+    (1 converged / -1 k_max reached), r_pf, r_z2, r_z3 [B]).
+    """
+    args = (x0b, z2refb, z2b0, z30, lm0, lht0, C2m, C2t, M3p, rm_row,
+            rht_row, mh_row, mt_row, mr_row, h1i_row, lb_row, ub_row)
+    B, Z = x0b.shape
+    if any(t.shape != (B, Z) for t in args[1:6]):
+        raise ValueError(f"the six tiles must share one shape [B, Z]; got "
+                         f"{[tuple(t.shape) for t in args[:6]]}")
+    if any(t.shape != (Z, Z) for t in args[6:9]):
+        raise ValueError(f"C2m, C2t and M3p must be [{Z}, {Z}]")
+    if any(t.numel() != Z for t in args[9:]):
+        raise ValueError(f"the eight rows hold {Z} entries each")
+    if B % tile_b:
+        raise ValueError(f"batch {B} is not a multiple of tile_b {tile_b}")
+    devices = {t.device for t in args}
+    if len(devices) != 1:
+        raise ValueError(f"all tensors must be on one device; got {devices}")
+    kw = dict(tol=tol, k_max=k_max, tile_b=tile_b, check_every=check_every,
+              exact_k=exact_k)
+    if x0b.device.type == "cpu":
+        return fused_eadmm_reference(*args, **kw)
+    if x0b.device.type == "cuda":
+        return _launch(*args, **kw)
+    raise ValueError(f"fused_eadmm_solve takes CPU or CUDA tensors; got "
+                     f"{x0b.device}")
+
+
+fused_eadmm_solve.launches = 0

@@ -1,6 +1,7 @@
 """Generic 'fused' backend builders: dense single-split box-ADMM solvers
-on kernels/fused_admm.py, and laxMPC/equMPC dual FISTA on
-kernels/fused_fista.py.
+on kernels/fused_admm.py, laxMPC/equMPC dual FISTA on
+kernels/fused_fista.py, and MPCT three-block EADMM on
+kernels/fused_eadmm.py.
 
 Any formulation whose z-step is a baked dense affine map and whose
 projection is a box (laxMPC, equMPC, MPCT-ADMM-cs) runs the same fused
@@ -22,6 +23,7 @@ import torch.nn.functional as F
 
 from spcies_tpu_torch.kernels.fused_admm import (COL_PAD, fused_admm_solve,
                                                  round_up)
+from spcies_tpu_torch.kernels.fused_eadmm import fused_eadmm_solve
 from spcies_tpu_torch.kernels.fused_fista import fused_fista_solve
 from spcies_tpu_torch.solvers.common import SolveResult
 
@@ -230,3 +232,105 @@ def build_fused_fista_solve(ing, opt, dtype, device, *, make_q_ref, make_b):
     _require_fp32(dtype)
     return FusedFISTASolve(ing, opt, device, make_q_ref=make_q_ref,
                            make_b=make_b)
+
+
+class FusedEADMMSolve:
+    """`(x0, xr, ur, init, fixed_iters) -> SolveResult` running the fused
+    MPCT-EADMM kernel (kernels/fused_eadmm.py). Port of
+    spcies_tpu/formulations/mpct.py `_build_mpct_eadmm_fused`.
+
+    The A1/A3 coupling applies are elementwise in the kernel's lane
+    layout; the A2/W2 block is folded offline into two Z x Z constants,
+    C2m (middle rows) and C2t (tail rows). `init` is (z1, z2, z3, lam).
+    `prepare` and `operator` expose the kernel's exact arguments; the
+    kernel takes them in float32, and `dtype` other than that builds them
+    for the plain version alone.
+    """
+
+    def __init__(self, ing, opt, device, dtype=torch.float32):
+        n, m, N, nm = ing["n"], ing["m"], ing["N"], ing["nm"]
+        nz1 = ing["nz1"]
+        self.n, self.m, self.N, self.nm, self.nz1 = n, m, N, nm, nz1
+        s = opt.solver
+        self.tile_b = int(s.get("tile_b", 256))
+        self.kernel_kw = dict(
+            tol=float(s["tol"]), k_max=int(s["k_max"]), tile_b=self.tile_b,
+            check_every=int(s.get("check_every", 1)),
+            exact_k=bool(s.get("exact_k", False)))
+
+        Z = round_up(nz1, COL_PAD)
+        rho = ing["rho"]
+        # z2 block folded offline: v(mid rows) @ C2m + v(tail rows) @ C2t =
+        # tile(W2 (A2' v), N+1) -- blocksum (A2mid), W2 map, broadcast (BC)
+        W2BC = ing["W2"].T @ np.tile(np.eye(nm), (1, N + 1))    # [nm, nz1]
+        A2mid = np.tile(np.eye(nm), (N + 1, 1))                 # [nz1, nm]
+        npdt = {torch.float32: np.float32, torch.float64: np.float64}[dtype]
+        mats = np.zeros((3, Z, Z), npdt)                        # C2m C2t M3p
+        mats[0, :nz1, :nz1] = A2mid @ W2BC
+        mats[1, N * nm:nz1, :nz1] = W2BC
+        mats[2, :nz1, :nz1] = ing["M3"].T
+        # rm, rht, mh, mt, mr, h1i, lb, ub
+        rows = np.zeros((8, Z), npdt)
+        rows[0, :nz1] = rho[n:n + nz1]
+        rows[1, :n] = rho[:n]
+        rows[1, N * nm:nz1] = rho[-nm:]
+        rows[2, :n] = 1.0
+        rows[3, N * nm:nz1] = 1.0
+        rows[4, :nz1] = 1.0
+        rows[5, :nz1] = ing["H1i"]
+        rows[6, :nz1] = np.maximum(ing["LB"], -1e30)
+        rows[7, :nz1] = np.minimum(ing["UB"], 1e30)
+        self.operator = tuple(torch.as_tensor(a, device=device)
+                              for a in (*mats, *rows[:, None, :]))
+        self.dtype = dtype
+        self.W2, self.T, self.S = (
+            torch.as_tensor(ing[key], dtype=dtype, device=device)
+            for key in ("W2", "T", "S"))
+
+    def prepare(self, x0, xr, ur, init=None):
+        """Kernel inputs for one call: (x0b, z2refb, z2b0, z30, lm0, lht0)
+        padded to [Bp, Z], and the batch B."""
+        n, N, nm, nz1 = self.n, self.N, self.nm, self.nz1
+        Bsz = x0.shape[0]
+        Z = self.operator[0].shape[0]
+        q2_ref = -torch.cat([xr @ self.T.T, ur @ self.S.T], dim=-1)
+        z2ref = q2_ref @ self.W2.T             # a plain full-fp32 product
+        Bp = round_up(Bsz, self.tile_b)
+
+        def padB(a):
+            return F.pad(a, (0, Z - a.shape[1], 0, Bp - Bsz))
+
+        x0b = padB(x0)                         # x0 at the head lanes
+        z2refb = padB(z2ref.repeat(1, N + 1))
+        dt = dict(dtype=self.dtype, device=x0.device)
+        if init is None:
+            zero = torch.zeros((Bp, Z), **dt)
+            return x0b, z2refb, zero, zero, zero, zero, Bsz
+        _z1i, z2i, z3i, lami = (torch.as_tensor(a, **dt) for a in init)
+        lht0 = torch.zeros((Bp, Z), **dt)
+        lht0[:Bsz, :n] = lami[:, :n]
+        lht0[:Bsz, N * nm:nz1] = lami[:, -nm:]
+        return (x0b, z2refb, padB(z2i.repeat(1, N + 1)), padB(z3i),
+                padB(lami[:, n:n + nz1]), lht0, Bsz)
+
+    def __call__(self, x0, xr, ur, init, fixed_iters):
+        if fixed_iters is not None:
+            raise ValueError("fixed_iters is not supported by the fused "
+                             "EADMM backend; use backend='dense'")
+        *kin, Bsz = self.prepare(x0, xr, ur, init=init)
+        (z1, z2b, z3, lm, lht, k, e_flag, r_pf, r_z2,
+         r_z3) = fused_eadmm_solve(*kin, *self.operator, **self.kernel_kw)
+        n, m, N, nm, nz1 = self.n, self.m, self.N, self.nm, self.nz1
+        lam = torch.cat([lht[:Bsz, :n], lm[:Bsz, :nz1],
+                         lht[:Bsz, N * nm:nz1]], dim=-1)
+        return SolveResult(
+            u=z1[:Bsz, n:n + m], k=k[:Bsz], e_flag=e_flag[:Bsz],
+            sol=dict(z1=z1[:Bsz, :nz1], z2=z2b[:Bsz, :nm],
+                     z3=z3[:Bsz, :nz1], lam=lam, r_pf=r_pf[:Bsz],
+                     r_z2=r_z2[:Bsz], r_z3=r_z3[:Bsz]))
+
+
+def build_fused_eadmm_solve(ing, opt, dtype, device):
+    """Return a FusedEADMMSolve for MPCT-EADMM."""
+    _require_fp32(dtype)
+    return FusedEADMMSolve(ing, opt, device)

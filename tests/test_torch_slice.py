@@ -203,7 +203,7 @@ def test_problem_recipe_builds_solver(fixture):
     (dict(formulation="laxMPC", method="EADMM"), ValueError, "not available"),
     (dict(formulation="ellipMPC", method="ADMM"), NotImplementedError,
      "No solver builder"),
-    (dict(formulation="MPCT", method="EADMM"), NotImplementedError,
+    (dict(formulation="HMPC", method="ADMM"), NotImplementedError,
      "No solver builder"),
     (dict(backend="auto"), NotImplementedError, "item 12"),
     (dict(backend="banded"), NotImplementedError, "item 8"),
