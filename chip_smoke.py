@@ -44,7 +44,28 @@ started together), then
      backend="fused", device="cuda") as in 5;
   9. times the EADMM kernel, its plain version and the fp32 dense EADMM
      engine at B=8192 and 32768, and the MPCT-ADMM-cs fused solve and its
-     fp32 dense engine at 8192.
+     fp32 dense engine at 8192;
+ 10. runs the ellipMPC kernels and their plain versions on the same CUDA
+     tensors at the bench's N=30 ellipMPC families (bench.py:309-326: T
+     diagonalised, P = I, c = xr, r = 0.5, tol 1e-4): K4 (ellipMPC-ADMM,
+     rho 5, k_max 4000, tile_b 256, exact-k, check_every 8) at B=8192 and
+     at B=4096 checked, free-run, fixed_iters, capped and with a random
+     SPD P and c != xr; K5 (ellipMPC-ADMM-soc, rho 5, sigma 4, k_max 5000,
+     plain free-run with check_every 8, which takes tile_b 8 on the card,
+     r_ellip 0.5) at B=8192 and at B=4096 checked, exact-k, capped and
+     with a per-lane radius in [0.1, 1]; held together as in 1;
+ 11. drives both ellipMPC paths through make_solver(..., backend="fused")
+     with the device left to its default, the card: a request and a warm
+     start each at B=8192, each launching its kernel once and converging
+     on every lane, and a small batch against the fp64 dense engine on
+     the CPU;
+ 12. times K4 and K5, their plain versions and the fp32 dense engines at
+     B=8192 and 32768.
+The line before the card line lists every kernel with its launches on the
+main paths, its largest u error against its plain version, its time, its
+plain version's time and its bound: the larger of the bytes it must move
+(inputs read once, outputs written once) over 3.35 TB/s and the fp32
+FLOP of its products, counted from each lane's own k, over 67 TFLOP/s.
 It exits non-zero, with no result line, when there is no CUDA device or
 any check fails. The last line is the JSON result.
 """
@@ -72,7 +93,8 @@ CHECK_EVERY = 16
 K_AGREE = 0.9985    # the JAX package's hardware bar for per-lane k parity
 U_TOL = 1e-4        # kernel vs plain version, lanes with equal k
 U_TOL_FP64 = 1e-3   # fp32 fused vs fp64 dense, tol 1e-4 solutions
-KERNELS = ("fused_admm", "fused_fista", "fused_eadmm")
+KERNELS = ("fused_admm", "fused_fista", "fused_eadmm", "fused_ellip",
+           "fused_soc")
 DEVICE = "cuda"
 # the bench's N=30 families (bench.py:262-288) at its family batch
 # (bench.py:207): exact-k, check_every 8, k_max 4000
@@ -91,6 +113,20 @@ MPCT_FAMILIES = {
                                         tile_b=TILE_B, check_every=8,
                                         exact_k=True)),
 }
+# the bench's N=30 ellipMPC families (bench.py:309-326): T diagonalised,
+# P = I, c = xr, r = 0.5 (the soc solver's runtime radius on every lane)
+R_ELLIP = 0.5
+ELLIP_FAMILIES = {
+    "ellipMPC-ADMM": ("", dict(rho=5.0, tol=TOL, k_max=4000, tile_b=TILE_B,
+                               check_every=8, exact_k=True)),
+    "ellipMPC-ADMM-soc": ("soc", dict(rho=5.0, sigma=4.0, tol_p=TOL,
+                                      tol_d=TOL, k_max=5000, tile_b=8,
+                                      check_every=8)),
+}
+# the card's published peaks (H100 SXM, 700 W): fp32 outside the tensor
+# cores, and device memory
+PEAK_FP32 = 67e12
+PEAK_BYTES = 3.35e12
 
 
 def log(msg):
@@ -117,13 +153,16 @@ def build_kernels():
     from spcies_tpu_torch.kernels import _build
     from spcies_tpu_torch.kernels.fused_admm import FUSED_ADMM_ARGTYPES
     from spcies_tpu_torch.kernels.fused_eadmm import FUSED_EADMM_ARGTYPES
+    from spcies_tpu_torch.kernels.fused_ellip import FUSED_ELLIP_ARGTYPES
     from spcies_tpu_torch.kernels.fused_fista import FUSED_FISTA_ARGTYPES
+    from spcies_tpu_torch.kernels.fused_soc import FUSED_SOC_ARGTYPES
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(KERNELS)) as pool:
         built = list(pool.map(_build.build, KERNELS))
     for name, argtypes, (_lib, rec) in zip(
             KERNELS, (FUSED_ADMM_ARGTYPES, FUSED_FISTA_ARGTYPES,
-                      FUSED_EADMM_ARGTYPES), built):
+                      FUSED_EADMM_ARGTYPES, FUSED_ELLIP_ARGTYPES,
+                      FUSED_SOC_ARGTYPES), built):
         _build.load_kernel(name, f"{name}_launch", argtypes)
         log(f"kernel build: {name} (nvcc {rec['seconds']:.2f} s, "
             f"cached={rec['cached']})")
@@ -271,7 +310,8 @@ def phase_main_path(sp, head_plain, m):
     # a small batch against the fp64 dense engine on the CPU
     sys_, param30, small = problem(sp, 5, 64)
     ref = sp.make_solver(sys_, param30, formulation="laxMPC", method="ADMM",
-                         options=headline_options(sp, precision="double"))
+                         options=headline_options(sp, precision="double"),
+                         device="cpu")
     r64 = ref(*small)
     r32 = solver(*small)
     err = float((r32.u.cpu().double() - r64.u).abs().max())
@@ -293,6 +333,22 @@ def cuda_ms(fn, reps=1):
     e1.record()
     torch.cuda.synchronize()
     return e0.elapsed_time(e1) / reps
+
+
+def roofline(tensors, flops):
+    """(bound ms, what bounds it): the least time the card could take for
+    a call that reads each input once, writes each output once and does
+    `flops` fp32 operations."""
+    nbytes = sum(t.numel() * t.element_size() for t in tensors)
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = flops / PEAK_FP32 * 1e3
+    return ((t_bytes, "bytes") if t_bytes > t_ops else (t_ops, "operations"))
+
+
+def iter_flops(k, per_iter):
+    """FLOP of a batch's products: each lane's own k times the FLOP of one
+    iteration's products."""
+    return float(k.double().sum()) * per_iter
 
 
 def phase_times(sp, fused):
@@ -325,7 +381,11 @@ def phase_times(sp, fused):
         f"converged={float((res.e_flag == 1).float().mean())}")
     log("phase 3 times (ms per B=32768 solve, CUDA events): "
         + json.dumps(t))
-    return {key: min(v) for key, v in t.items()}
+    out = kernel()
+    nz = fused.nz
+    bound = roofline(args + out, iter_flops(out[3][:BATCH], 2.0 * nz * nz))
+    log(f"phase 3 bound: {bound}")
+    return dict({key: min(v) for key, v in t.items()}, bound=bound)
 
 
 def family_solver(sp, name, backend="fused", device=None,
@@ -474,7 +534,12 @@ def phase_family_times(sp):
             f"converged={float((res.e_flag == 1).float().mean())}")
         log(f"phase 6 laxMPC-FISTA times (ms per B={B} solve, CUDA "
             f"events): " + json.dumps(t))
-        out[B] = {key: min(v) for key, v in t.items()}
+        res = kernel()
+        nz, nlam = fused.nz, fused.raw_fn.nlam
+        bound = roofline(args + res, iter_flops(
+            res[3][:B], 2.0 * (2 * nz * nlam + nlam * nlam)))
+        log(f"phase 6 laxMPC-FISTA bound B={B}: {bound}")
+        out[B] = dict({key: min(v) for key, v in t.items()}, bound=bound)
     eq = family_solver(sp, "equMPC-ADMM")
     eq.options.timing = False
     _, _, inputs = problem(sp, 0, FB)
@@ -630,7 +695,12 @@ def phase_mpct_times(sp):
             f"converged={float((res.e_flag == 1).float().mean())}")
         log(f"phase 9 MPCT-EADMM times (ms per B={B} solve, CUDA "
             f"events): " + json.dumps(t))
-        out[B] = {key: min(v) for key, v in t.items()}
+        res = kernel()
+        nz1, nm = fused.raw_fn.nz1, fused.raw_fn.nm
+        bound = roofline(args + res, iter_flops(
+            res[5][:B], 2.0 * (2 * nz1 * nz1 + nm * nz1)))
+        log(f"phase 9 MPCT-EADMM bound B={B}: {bound}")
+        out[B] = dict({key: min(v) for key, v in t.items()}, bound=bound)
     _, _, inputs = problem(sp, 0, FB)
     x = [torch.as_tensor(a, dtype=torch.float32, device=DEVICE)
          for a in inputs]
@@ -643,6 +713,233 @@ def phase_mpct_times(sp):
         + json.dumps(t))
     out["MPCT-ADMM-cs"] = {key: min(v) for key, v in t.items()}
     return out
+
+
+def ellip_solver(sp, name, backend="fused", device=None, precision="float",
+                 spd_seed=None, **kw):
+    """A solver of one of the bench's N=30 ellipMPC families; `device`
+    None leaves it to make_solver's default, the card. spd_seed draws a
+    random SPD P and a centre c != xr from that seed."""
+    submethod, base = ELLIP_FAMILIES[name]
+    sys_, param30, (_, xr, _) = problem(sp, 0, 1)
+    n = xr.shape[1]
+    p = dict(param30)
+    p["T"] = np.diag(np.sum(np.asarray(p["T"]), axis=1))
+    p["P"] = np.eye(n)
+    p["c"] = xr[0].copy()
+    p["r"] = R_ELLIP
+    if spd_seed is not None:
+        rng = np.random.default_rng(spd_seed)
+        L = rng.normal(0.0, 0.5, (n, n))
+        p["P"] = L @ L.T + 0.5 * np.eye(n)
+        p["c"] = xr[0] + rng.normal(0.0, 0.2, n)
+    o = sp.default_options("ellipMPC", "ADMM", submethod, **{**base, **kw})
+    o.precision = precision
+    where = {} if device is None else dict(device=device)
+    return sp.make_solver(sys_, p, formulation="ellipMPC", method="ADMM",
+                          submethod=submethod, options=o, backend=backend,
+                          **where)
+
+
+def ellip_inputs(sp, name, seed, B, radius=None):
+    """The bench inputs of `problem`, with the soc solver's runtime radius
+    (R_ELLIP on every lane, or the given [B, 1] radii) as the 4th."""
+    _, _, inputs = problem(sp, seed, B)
+    if ELLIP_FAMILIES[name][0] == "soc":
+        inputs = inputs + ((np.full((B, 1), R_ELLIP) if radius is None
+                            else radius),)
+    return inputs
+
+
+def ellip_kernel_args(solver, inputs, fixed_iters=0):
+    """The K4 or K5 kernel's exact arguments for one call of a fused
+    solver."""
+    from spcies_tpu_torch.api import broadcast_inputs
+    x = broadcast_inputs(torch.float32, solver.device, *inputs)
+    *kin, _b = solver.raw_fn.prepare(*x)
+    kw = dict(solver.raw_fn.kernel_kw)
+    if fixed_iters:
+        kw["fixed_iters"] = fixed_iters
+    return (*kin, *solver.raw_fn.operator), kw
+
+
+def phase_ellip_kernel_vs_plain(sp):
+    """K4 and K5 against their plain versions on the same CUDA tensors.
+    Returns the largest u error of each kernel over its modes."""
+    from spcies_tpu_torch.kernels import fused_ellip as k4
+    from spcies_tpu_torch.kernels import fused_soc as k5
+    adm, soc = "ellipMPC-ADMM", "ellipMPC-ADMM-soc"
+    radii = np.random.default_rng(7).uniform(0.1, 1.0, (SMALL_BATCH, 1))
+    capped = dict(tol=1e-13, k_max=19)
+    capped_soc = dict(tol_p=1e-13, tol_d=1e-13, k_max=19, tile_b=TILE_B,
+                      exact_k=True)
+    modes = [
+        (adm, f"exact-k B={FB}", FB, 0, False, {}, {}),
+        (adm, f"checked B={SMALL_BATCH}", SMALL_BATCH, 0, False,
+         dict(check_every=1, exact_k=False), {}),
+        (adm, f"free-run B={SMALL_BATCH}", SMALL_BATCH, 0, False,
+         dict(tile_b=8, exact_k=False), {}),
+        (adm, f"fixed_iters=50 B={SMALL_BATCH}", SMALL_BATCH, 50, True, {},
+         {}),
+        (adm, f"exact-k capped (tol 1e-13, k_max 19) B={SMALL_BATCH}",
+         SMALL_BATCH, 0, True, capped, {}),
+        (adm, f"exact-k random SPD P, c != xr B={SMALL_BATCH}", SMALL_BATCH,
+         0, False, dict(spd_seed=11), {}),
+        (soc, f"free-run B={FB}", FB, 0, False, {}, {}),
+        (soc, f"checked B={SMALL_BATCH}", SMALL_BATCH, 0, False,
+         dict(check_every=1, tile_b=TILE_B), {}),
+        (soc, f"exact-k B={SMALL_BATCH}", SMALL_BATCH, 0, False,
+         dict(tile_b=TILE_B, exact_k=True), {}),
+        (soc, f"exact-k capped (tol 1e-13, k_max 19) B={SMALL_BATCH}",
+         SMALL_BATCH, 0, True, capped_soc, {}),
+        (soc, f"free-run per-lane radius in [0.1, 1] B={SMALL_BATCH}",
+         SMALL_BATCH, 0, False, {}, dict(radius=radii)),
+    ]
+    u_err = {"fused_ellip": 0.0, "fused_soc": 0.0}
+    for name, label, B, fixed, cut, kw, extra in modes:
+        solver = ellip_solver(sp, name, device=DEVICE, **kw)
+        inputs = ellip_inputs(sp, name, 0, B, **extra)
+        args, kk = ellip_kernel_args(solver, inputs, fixed)
+        if name == adm:
+            key, kern, plain, u_at = ("fused_ellip", k4.fused_ellip_solve,
+                                      k4.fused_ellip_reference, 1)
+        else:
+            key, kern, plain, u_at = ("fused_soc", k5.fused_soc_solve,
+                                      k5.fused_soc_reference, 0)
+        out_k = kern(*args, **kk)
+        torch.cuda.synchronize()
+        out_p = plain(*args, **kk)
+        torch.cuda.synchronize()
+        a = agreement(out_k, out_p, B, solver.m, cut, u_at=u_at)
+        check_agreement(f"{name} {label}", a, phase=10)
+        if "capped" in label:
+            assert bool((out_k[3][:B] == 19).all()), "capped k"
+        u_err[key] = max(u_err[key], a["u_err"])
+    return u_err
+
+
+def phase_ellip_paths(sp):
+    """The two ellipMPC paths, each through make_solver(...,
+    backend='fused') with the device left to its default: a request and a
+    warm start from it, each launching its kernel once and no other; then
+    a small batch against the fp64 dense engine on the CPU. Returns the
+    launches of each kernel."""
+    from spcies_tpu_torch.kernels.fused_admm import fused_admm_solve
+    from spcies_tpu_torch.kernels.fused_eadmm import fused_eadmm_solve
+    from spcies_tpu_torch.kernels.fused_ellip import fused_ellip_solve
+    from spcies_tpu_torch.kernels.fused_fista import fused_fista_solve
+    from spcies_tpu_torch.kernels.fused_soc import fused_soc_solve
+    counters = {"fused_admm": fused_admm_solve,
+                "fused_fista": fused_fista_solve,
+                "fused_eadmm": fused_eadmm_solve,
+                "fused_ellip": fused_ellip_solve,
+                "fused_soc": fused_soc_solve}
+    launches = dict.fromkeys(counters, 0)
+    for name, (submethod, _) in ELLIP_FAMILIES.items():
+        kernel = "fused_soc" if submethod == "soc" else "fused_ellip"
+        solver = ellip_solver(sp, name)
+        assert solver.device.type == DEVICE, solver.device
+        inputs = ellip_inputs(sp, name, 0, FB)
+        for c in counters.values():
+            c.launches = 0
+        cold = solver(*inputs)
+        torch.cuda.synchronize()
+        after_cold = counters[kernel].launches
+        keys = ("z", "s", "lam", "mu") if submethod else ("z", "v", "lam")
+        warm = solver(*inputs, init=tuple(cold.sol[key] for key in keys))
+        torch.cuda.synchronize()
+        counts = {key: c.launches for key, c in counters.items()}
+        for tag, res in (("seed 0", cold), ("seed 0 warm", warm)):
+            log(f"phase 11 {name} request {tag}: "
+                f"k_mean={float(res.k.float().mean())} "
+                f"k_max={int(res.k.max())} "
+                f"converged={float((res.e_flag == 1).float().mean())} "
+                f"times_ms={res.sol['times_ms']}")
+            assert tuple(res.u.shape) == (FB, solver.m), res.u.shape
+            assert res.u.device.type == DEVICE
+            assert bool(torch.isfinite(res.u).all()), name
+            assert bool((res.e_flag == 1).all()), (name, tag)
+        assert after_cold == 1 and counts[kernel] == 2, (name, counts)
+        assert sum(counts.values()) == 2, (name, counts)
+        assert float(warm.k.float().mean()) < float(cold.k.float().mean())
+        launches[kernel] += counts[kernel]
+
+        small = ellip_inputs(sp, name, 5, 64)
+        r64 = ellip_solver(sp, name, backend="dense", device="cpu",
+                           precision="double")(*small)
+        r32 = solver(*small)
+        err = float((r32.u.cpu().double() - r64.u).abs().max())
+        log(f"phase 11 {name} fused fp32 ({DEVICE}) vs dense fp64 (cpu), "
+            f"B=64: max|du|={err}")
+        assert bool((r64.e_flag == 1).all()) and bool((r32.e_flag == 1).all())
+        assert err <= U_TOL_FP64, (name, err)
+    return launches
+
+
+def phase_ellip_times(sp):
+    """K4 and K5, their plain versions and the fp32 dense engines at
+    B=8192 and 32768, in turns, each a CUDA-event mean. Returns the minima
+    and each kernel's bound at B=8192."""
+    from spcies_tpu_torch.kernels import fused_ellip as k4
+    from spcies_tpu_torch.kernels import fused_soc as k5
+    out = {}
+    for name, (submethod, _) in ELLIP_FAMILIES.items():
+        kern, plain = ((k5.fused_soc_solve, k5.fused_soc_reference)
+                       if submethod else
+                       (k4.fused_ellip_solve, k4.fused_ellip_reference))
+        for B in (FB, BATCH):
+            fused = ellip_solver(sp, name, device=DEVICE)
+            dense = ellip_solver(sp, name, backend="dense", device=DEVICE)
+            dense.options.timing = False
+            inputs = ellip_inputs(sp, name, 0, B)
+            args, kk = ellip_kernel_args(fused, inputs)
+            x = [torch.as_tensor(a, dtype=torch.float32, device=DEVICE)
+                 for a in inputs]
+            kernel = lambda: kern(*args, **kk)  # noqa: E731
+            plain_fn = lambda: plain(*args, **kk)  # noqa: E731
+            dense_fn = lambda: dense(*x)  # noqa: E731
+            t = {"plain": [], "kernel": [], "dense": []}
+            t["plain"].append(cuda_ms(plain_fn))
+            t["kernel"].append(cuda_ms(kernel, reps=5))
+            t["kernel"].append(cuda_ms(kernel, reps=5))
+            t["plain"].append(cuda_ms(plain_fn))
+            t["dense"].append(cuda_ms(dense_fn))
+            t["dense"].append(cuda_ms(dense_fn))
+            res = dense(*x)
+            log(f"phase 12 {name} dense fp32 engine B={B}: "
+                f"k_mean={float(res.k.float().mean())} "
+                f"converged={float((res.e_flag == 1).float().mean())}")
+            res = kernel()
+            k = res[3][:B].long()
+            blocks = k.reshape(-1, 8).amax(dim=1)
+            # the products' real rows and columns: nz for K4, dim + n + 1
+            # for K5
+            w = (fused.raw_fn.dim + fused.raw_fn.n_s if submethod
+                 else fused.nz)
+            bound = roofline(args + res, iter_flops(k, 2.0 * w * w))
+            log(f"phase 12 {name} kernel B={B}: k_mean="
+                f"{float(k.float().mean())} k_max={int(k.max())} mean "
+                f"block k={float(blocks.float().mean())} bound={bound}")
+            log(f"phase 12 {name} times (ms per B={B} solve, CUDA events): "
+                + json.dumps(t))
+            out[(name, B)] = dict({key: min(v) for key, v in t.items()},
+                                  bound=bound)
+    return out
+
+
+def kernel_entry(name, launches, err, times):
+    """One kernel's entry of the `kernels` line."""
+    line = {"fused_admm": "fused_admm.py:74", "fused_fista":
+            "fused_fista.py:61", "fused_eadmm": "fused_eadmm.py:50",
+            "fused_ellip": "fused_ellip.py:54",
+            "fused_soc": "fused_soc.py:42"}[name]
+    bound_ms, bound_by = times["bound"]
+    return {"name": name, "route": "cuda",
+            "source": f"spcies_tpu_torch/csrc/{name}.cu",
+            "replaces": f"spcies_tpu/kernels/{line}", "launches": launches,
+            "max_abs_err": err, "ms": times["kernel"],
+            "plain_ms": times["plain"], "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None}
 
 
 def main():
@@ -664,25 +961,22 @@ def main():
     eadmm_err = phase_eadmm_kernel_vs_plain(sp)
     mpct_launches = phase_mpct_paths(sp)
     mpct_times = phase_mpct_times(sp)
-    log(json.dumps({"kernels": [{
-        "name": "fused_admm", "route": "cuda",
-        "source": "spcies_tpu_torch/csrc/fused_admm.cu",
-        "replaces": "spcies_tpu/kernels/fused_admm.py:74",
-        "launches": (launches + fam_launches["fused_admm"]
-                     + mpct_launches["fused_admm"]),
-        "max_abs_err": head["u_err"],
-        "ms": times["kernel"], "plain_ms": times["plain"]}, {
-        "name": "fused_fista", "route": "cuda",
-        "source": "spcies_tpu_torch/csrc/fused_fista.cu",
-        "replaces": "spcies_tpu/kernels/fused_fista.py:61",
-        "launches": fam_launches["fused_fista"], "max_abs_err": fista_err,
-        "ms": fam_times[FB]["kernel"], "plain_ms": fam_times[FB]["plain"]}, {
-        "name": "fused_eadmm", "route": "cuda",
-        "source": "spcies_tpu_torch/csrc/fused_eadmm.cu",
-        "replaces": "spcies_tpu/kernels/fused_eadmm.py:50",
-        "launches": mpct_launches["fused_eadmm"], "max_abs_err": eadmm_err,
-        "ms": mpct_times[FB]["kernel"],
-        "plain_ms": mpct_times[FB]["plain"]}]}))
+    ellip_err = phase_ellip_kernel_vs_plain(sp)
+    ellip_launches = phase_ellip_paths(sp)
+    ellip_times = phase_ellip_times(sp)
+    log(json.dumps({"kernels": [
+        kernel_entry("fused_admm", launches + fam_launches["fused_admm"]
+                     + mpct_launches["fused_admm"], head["u_err"], times),
+        kernel_entry("fused_fista", fam_launches["fused_fista"], fista_err,
+                     fam_times[FB]),
+        kernel_entry("fused_eadmm", mpct_launches["fused_eadmm"], eadmm_err,
+                     mpct_times[FB]),
+        kernel_entry("fused_ellip", ellip_launches["fused_ellip"],
+                     ellip_err["fused_ellip"],
+                     ellip_times[("ellipMPC-ADMM", FB)]),
+        kernel_entry("fused_soc", ellip_launches["fused_soc"],
+                     ellip_err["fused_soc"],
+                     ellip_times[("ellipMPC-ADMM-soc", FB)])]}))
     log(card)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

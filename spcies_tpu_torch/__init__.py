@@ -8,8 +8,9 @@ The same public API as spcies_tpu, on PyTorch tensors on a chosen device:
 
 Offline ingredients are computed in fp64 numpy, as in the JAX package; the
 online loop runs as torch operations ('dense') or as one hand-written CUDA
-kernel per solve ('fused', kernels/fused_admm.py). This package never
-imports jax or spcies_tpu.
+kernel per solve ('fused', kernels/ and csrc/). Solvers run on the CUDA
+card unless the caller passes device="cpu". This package never imports
+jax or spcies_tpu.
 """
 
 __version__ = "0.1.0"

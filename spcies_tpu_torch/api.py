@@ -46,6 +46,9 @@ def broadcast_inputs(dtype, device, *arrays):
     return out
 
 
+_INPUT_KINDS = {"x0": "x", "xr": "x", "ur": "u"}
+
+
 class BatchedSolver:
     """A generated batched solver: callable with (x0, xr, ur[, warm start]).
 
@@ -56,16 +59,22 @@ class BatchedSolver:
     """
 
     def __init__(self, solve_fn, ingredients: dict, options: Options,
-                 *, n: int, m: int, N: int, nz: int, dtype, device):
+                 *, n: int, m: int, N: int, nz: int, dtype, device,
+                 input_names=("x0", "xr", "ur"), default_inputs=()):
         self.ingredients = ingredients
         self.options = options
         self.n, self.m, self.N, self.nz = n, m, N, nz
         self.dtype = dtype
         self.device = torch.device(device)
-        self.input_names = ("x0", "xr", "ur")
-        # per-input unit kind for the in_engineering scaling
+        self.input_names = tuple(input_names)
+        # trailing optional inputs (e.g. the soc solver's runtime radius,
+        # code_ellipMPC_ADMM_soc_C.c:20 r_ellip) with their default values
+        self.default_inputs = tuple(default_inputs)
+        # per-input unit kind for the in_engineering scaling ('x' | 'u' |
+        # None: unscaled), from the input's name
         # (code_laxMPC_ADMM_C.c:82-115)
-        self.input_kinds = ("x", "x", "u")
+        self.input_kinds = tuple(_INPUT_KINDS.get(name)
+                                 for name in self.input_names)
         self.n_inputs = len(self.input_names)
         # solve_fn(*inputs, init, fixed_iters)
         self.raw_fn = solve_fn
@@ -109,9 +118,12 @@ class BatchedSolver:
         if self.options.timing:
             from spcies_tpu_torch.diagnostics.timing import PhaseTimer
             timer = PhaseTimer(self.device)
-        if len(inputs) != self.n_inputs:
+        missing = self.n_inputs - len(inputs)
+        if missing < 0 or missing > len(self.default_inputs):
             raise TypeError(
                 f"solver expects inputs {self.input_names}, got {len(inputs)}")
+        if missing:
+            inputs = inputs + self.default_inputs[-missing:]
         if self.options.in_engineering:
             inputs = self._to_incremental(inputs)
         inputs = broadcast_inputs(self.dtype, self.device, *inputs)
@@ -150,10 +162,22 @@ class BatchedSolver:
         return self(*inputs, **kw)
 
 
+def resolve_device(device="cuda") -> torch.device:
+    """The device a solver runs on: the card unless the caller names
+    another. Raises where a CUDA device is asked for and there is none,
+    rather than solving on the CPU unasked."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: spcies_tpu_torch solvers run on the card "
+            "unless the caller asks for the CPU; pass device=\"cpu\"")
+    return device
+
+
 def make_solver(sys: dict, param: dict, *, formulation: str = "",
                 method: str = "", submethod: str = "",
                 options: Options | dict | None = None,
-                backend: str = "dense", device=None, ingredients=None,
+                backend: str = "dense", device="cuda", ingredients=None,
                 **solver_overrides) -> BatchedSolver:
     """Build a batched solver for the given system + MPC parameters.
 
@@ -161,7 +185,8 @@ def make_solver(sys: dict, param: dict, *, formulation: str = "",
     param: dict with the formulation's ingredients (Q, R, N, ...; reference
            `param` struct). If formulation is omitted it is auto-detected
            from the param fields (+sp_utils/determine_formulation.m).
-    device: where the solve runs ('cpu' by default, or 'cuda').
+    device: where the solve runs: the CUDA card by default, 'cpu' on
+           request (without a card the default raises RuntimeError).
     ingredients: an ingredient dict to build from instead of computing one
            (for example convert.ingredients_from_jax of a JAX solver's).
     """
@@ -201,7 +226,7 @@ def make_solver(sys: dict, param: dict, *, formulation: str = "",
             "backend='dense' for debug=1/2 runs")
     from spcies_tpu_torch.formulations.base import get_builder
     builder = get_builder(opt.formulation, opt.method, opt.submethod)
-    device = torch.device(device if device is not None else "cpu")
+    device = resolve_device(device)
     solver = builder(sys, param, opt, backend=backend, device=device,
                      ingredients=ingredients)
     if opt.in_engineering:

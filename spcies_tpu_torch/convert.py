@@ -28,6 +28,14 @@ BUILDER_KEYS = {
                             "rho", "H1i", "W2", "M3", "LB", "UB"),
     ("MPCT", "ADMM", "cs"): ("n", "m", "N", "nz", *_ADMM_RHO, "T", "S",
                              "M_q", "M_b", "LB", "UB"),
+    ("ellipMPC", "ADMM", ""): ("n", "m", "N", "nz", "A", "Qd", "Rd", "T",
+                               "rho_is_scalar", "rho_s", "rho_T", "P",
+                               "P_half", "Pinv_half", "c", "r", "M_q",
+                               "M_b", "LB", "UB"),
+    ("ellipMPC", "ADMM", "soc"): ("n", "m", "N", "dim", "n_s", "A", "Qd",
+                                  "Rd", "T", "sigma", "rho", "M1", "M2_b0",
+                                  "M2_r", "M2_d", "PhiP", "LB", "UB",
+                                  "r_default"),
 }
 
 

@@ -20,7 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from spcies_tpu_torch.api import BatchedSolver
+from spcies_tpu_torch.api import BatchedSolver, resolve_device
 from spcies_tpu_torch.config import Options
 from spcies_tpu_torch.formulations.base import (get_sys_matrices,
                                                 register_builder)
@@ -106,14 +106,14 @@ def _equmpc_q_ref(ing, xr, ur, dtype):
 
 @register_builder("equMPC", "ADMM")
 def build_equmpc_admm(sys: dict, param: dict, opt: Options,
-                      backend: str = "dense", device=None,
+                      backend: str = "dense", device="cuda",
                       ingredients: dict | None = None) -> BatchedSolver:
     """Build the equMPC-ADMM solver on `device`. `ingredients` replaces
     the offline computation (same keys as equmpc_admm_ingredients)."""
     _reject_unported(opt, backend)
     if backend not in ("dense", "fused"):
         raise ValueError(f"unknown backend {backend!r}")
-    device = torch.device(device if device is not None else "cpu")
+    device = resolve_device(device)
     ing = (ingredients if ingredients is not None
            else equmpc_admm_ingredients(sys, param, opt))
     dtype = _DTYPES[opt.precision]
@@ -219,15 +219,15 @@ def _b_equ(ing, x0, xr, dtype):
 
 @register_builder("equMPC", "FISTA")
 def build_equmpc_fista(sys: dict, param: dict, opt: Options,
-                       backend: str = "dense", device=None,
+                       backend: str = "dense", device="cuda",
                        ingredients: dict | None = None) -> BatchedSolver:
     """equMPC via dual FISTA (code_equMPC_FISTA_C.c,
     spcies_equMPC_FISTA_solver.m) on `device`. `ingredients` replaces the
     offline computation (same keys as equmpc_fista_ingredients)."""
     _reject_unported(opt, backend)
+    device = resolve_device(device)
     ing = (ingredients if ingredients is not None
            else equmpc_fista_ingredients(sys, param, opt))
-    return build_fista(ing, opt, backend,
-                       torch.device(device if device is not None else "cpu"),
+    return build_fista(ing, opt, backend, device,
                        make_q_ref=_equmpc_q_ref, make_b=_b_equ,
                        terminal=False)

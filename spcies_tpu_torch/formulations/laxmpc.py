@@ -32,7 +32,7 @@ from spcies_tpu_torch.solvers.admm import admm_solve
 from spcies_tpu_torch.solvers.fista import fista_solve
 from spcies_tpu_torch.solvers.common import (SolveResult, hist_sol_entries,
                                              delta_dot)
-from spcies_tpu_torch.api import BatchedSolver
+from spcies_tpu_torch.api import BatchedSolver, resolve_device
 
 _DTYPES = {"double": torch.float64, "float": torch.float32}
 
@@ -140,14 +140,14 @@ def _tag_stagewise(solver, terminal: bool):
 
 @register_builder("laxMPC", "ADMM")
 def build_laxmpc_admm(sys: dict, param: dict, opt: Options,
-                      backend: str = "dense", device=None,
+                      backend: str = "dense", device="cuda",
                       ingredients: dict | None = None) -> BatchedSolver:
     """Build the laxMPC-ADMM solver on `device`. `ingredients` replaces
     the offline computation (same keys as laxmpc_admm_ingredients)."""
     _reject_unported(opt, backend)
     if backend not in ("dense", "fused"):
         raise ValueError(f"unknown backend {backend!r}")
-    device = torch.device(device if device is not None else "cpu")
+    device = resolve_device(device)
     ing = (ingredients if ingredients is not None
            else laxmpc_admm_ingredients(sys, param, opt))
     dtype = _DTYPES[opt.precision]
@@ -360,14 +360,14 @@ def _reject_unported(opt, backend):
 
 @register_builder("laxMPC", "FISTA")
 def build_laxmpc_fista(sys: dict, param: dict, opt: Options,
-                       backend: str = "dense", device=None,
+                       backend: str = "dense", device="cuda",
                        ingredients: dict | None = None) -> BatchedSolver:
     """laxMPC via dual FISTA (code_laxMPC_FISTA_C.c,
     spcies_laxMPC_FISTA_solver.m) on `device`. `ingredients` replaces the
     offline computation (same keys as laxmpc_fista_ingredients)."""
     _reject_unported(opt, backend)
+    device = resolve_device(device)
     ing = (ingredients if ingredients is not None
            else laxmpc_fista_ingredients(sys, param, opt))
-    return build_fista(ing, opt, backend,
-                       torch.device(device if device is not None else "cpu"),
+    return build_fista(ing, opt, backend, device,
                        make_q_ref=_q_ref, make_b=_fista_b_lax, terminal=True)

@@ -30,7 +30,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from spcies_tpu_torch.api import BatchedSolver
+from spcies_tpu_torch.api import BatchedSolver, resolve_device
 from spcies_tpu_torch.config import Options
 from spcies_tpu_torch.formulations.base import (get_bounds, get_sys_matrices,
                                                 register_builder)
@@ -144,14 +144,14 @@ def mpct_eadmm_ingredients(sys: dict, param: dict, opt: Options) -> dict:
 
 @register_builder("MPCT", "EADMM")
 def build_mpct_eadmm(sys: dict, param: dict, opt: Options,
-                     backend: str = "dense", device=None,
+                     backend: str = "dense", device="cuda",
                      ingredients: dict | None = None) -> BatchedSolver:
     """Build the MPCT-EADMM solver on `device`. `ingredients` replaces the
     offline computation (same keys as mpct_eadmm_ingredients). The warm
     start is init=(z1, z2, z3, lam)."""
     if backend not in ("dense", "fused"):
         raise ValueError("MPCT/EADMM has dense and fused backends")
-    device = torch.device(device if device is not None else "cpu")
+    device = resolve_device(device)
     ing = (ingredients if ingredients is not None
            else mpct_eadmm_ingredients(sys, param, opt))
     dtype = _DTYPES[opt.precision]
@@ -376,7 +376,7 @@ def mpct_admm_cs_ingredients(sys: dict, param: dict, opt: Options) -> dict:
 
 @register_builder("MPCT", "ADMM", "cs")
 def build_mpct_admm_cs(sys: dict, param: dict, opt: Options,
-                       backend: str = "dense", device=None,
+                       backend: str = "dense", device="cuda",
                        ingredients: dict | None = None) -> BatchedSolver:
     """MPCT via ADMM on the extended (x_i, x_s, u_i, u_s) state space
     (code_MPCT_ADMM_cs_C.c:94-218, spcies_MPCT_ADMM_cs_solver.m) on
@@ -392,7 +392,7 @@ def build_mpct_admm_cs(sys: dict, param: dict, opt: Options,
         raise NotImplementedError(
             "backend='banded' is not ported to spcies_tpu_torch yet "
             "(ROADMAP queue 1 item 8)")
-    device = torch.device(device if device is not None else "cpu")
+    device = resolve_device(device)
     ing = (ingredients if ingredients is not None
            else mpct_admm_cs_ingredients(sys, param, opt))
     dtype = _DTYPES[opt.precision]

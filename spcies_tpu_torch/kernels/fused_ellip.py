@@ -1,0 +1,364 @@
+"""Fused ellipMPC-ADMM in P_half coordinates: the wrapper of the
+hand-written CUDA kernel (csrc/fused_ellip.cu) and its plain PyTorch
+version.
+
+Counterpart of spcies_tpu/kernels/fused_ellip.py (`_fused_ellip_kernel`).
+With S = blkdiag(I, P_half) the iterates are z' = S z and v' = S v (the
+dual lam is already the transformed one), so the P-norm ellipsoid
+projection on the terminal state is a Euclidean ball of radius r about
+c' = P_half c, and for each lane the loop runs
+
+    y      = z' + rho_i lam
+    v'     = clip(y, LB, UB) on the stage columns,
+             c' + min(1, r / max(||y - c'||, 1e-30)) (y - c') on the slab
+    lam   += rho (z' - v')
+    dq     = rho (z' - 2 v' + v'_prev)           (delta form; dq -> 0)
+    z'    += dq @ M2                             (M2 = S M_q S, full fp32)
+
+where the slab is the n terminal columns t0 .. t0+n-1. The residuals are
+those of the original coordinates: at a checked iteration the slab columns
+of z' - v' and v' - v'_prev are mapped back through P_half^-1 (the n x n
+`pinvh` = P_half^-T, applied as d_slab @ pinvh) before the row maxima.
+The ball's squares and the terms of that map are added in slab order, one
+column after the other, in the kernel and in the plain version alike (the
+JAX kernel uses a row sum and a product; the order moves the last bit of
+the norm, and where the ball binds that moves a lane's exit).
+Modes, as kernels/fused_admm.py has them:
+
+  checked     check_every=1: exit tests every iteration; a converged lane
+              freezes and keeps the z' it consumed at exit.
+  free-run    check_every=C>1: C-1 plain iterations, then one checked
+              iteration; k at check granularity, converged lanes keep
+              iterating until their tile drains; the output z' is the
+              prepared iterate.
+  exact-k     check_every=C>1, exact_k: free-run windows with a snapshot
+              of (z', v', lam) of each active lane at each window start,
+              then a per-iteration replay of each lane's last window
+              (budget min(C, k_max - kws)) — the checked mode's k, e_flag
+              and exit iterates at free-run speed.
+  fixed_iters exactly fixed_iters plain iterations, k = fixed_iters,
+              e_flag = 1, residuals 3.4e38.
+
+Padding contract: the columns outside [0, ns) and the slab carry zero rows
+and columns in M2, [0, 0] bounds and c' = 0, so they stay exactly 0 and add
+nothing to a residual. The batch is padded to a multiple of tile_b by the
+caller. On the card the slab must lie inside one warp of 32 columns
+(t0 % 32 + n <= 32): the adapter lays it out so.
+
+`fused_ellip_solve` runs the plain version for CPU tensors and launches the
+kernel for CUDA tensors; `fused_ellip_solve.launches` counts the launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from spcies_tpu_torch.kernels.fused_admm import (COL_PAD, CTA_LANES,
+                                                 MAX_COLS, RBIG, round_up)
+
+__all__ = ["COL_PAD", "CTA_LANES", "MAX_COLS", "round_up",
+           "fused_ellip_reference", "fused_ellip_solve", "launch_geometry",
+           "slab_start"]
+
+# C signature of fused_ellip_launch: 16 tensor pointers (8 inputs, 7
+# outputs, the exact-k snapshot scratch); B, nzp, t0, n, blocks, threads,
+# shared bytes; rho, 1/rho, r; tol_p, tol_d; k_max, check_every,
+# fixed_iters, exact_k; the stream
+FUSED_ELLIP_ARGTYPES = ([ctypes.c_void_p] * 16 + [ctypes.c_int] * 7
+                        + [ctypes.c_float] * 5 + [ctypes.c_int] * 4
+                        + [ctypes.c_void_p])
+# the leaves an exact-k snapshot saves per lane: z', v', lam
+SNAP_LEAVES = 3
+WARP = 32
+# plain version: read "all lanes done" on the host every this many
+# iterations of the checked loop (extra iterations of frozen lanes are
+# exact no-ops)
+_SYNC_EVERY = 8
+
+
+def slab_start(ns: int, n: int) -> int:
+    """Where the n terminal columns start in the kernel's layout: right
+    after the ns stage columns when they fit in that warp, else at the next
+    warp boundary (the columns between are zero pads)."""
+    return ns if ns % WARP + n <= WARP else round_up(ns, WARP)
+
+
+class _Ops:
+    """One iteration in the kernel's operation order, over padded
+    operators."""
+
+    def __init__(self, M2, pinvh, lb, ub, c, t0, rho, r_ball):
+        nzp, n = M2.shape[0], pinvh.shape[0]
+        self.M2, self.pinvh = M2, pinvh
+        self.lb, self.ub, self.c = (r.reshape(1, -1) for r in (lb, ub, c))
+        self.segt = torch.zeros((1, nzp), dtype=M2.dtype, device=M2.device)
+        self.segt[0, t0:t0 + n] = 1.0
+        self.segs = 1.0 - self.segt
+        self.t0, self.t1, self.nzp = t0, t0 + n, nzp
+        self.rho, self.rho_i, self.r_ball = (float(rho), float(1.0 / rho),
+                                             float(r_ball))
+
+    def prox(self, y):
+        """Box on the stage columns, the ball about c' on the slab. The
+        squares are summed in slab order, one column after the other, as
+        the kernel sums them."""
+        vbox = torch.minimum(torch.maximum(y, self.lb), self.ub)
+        yc = y - self.c
+        sq = yc[:, self.t0:self.t1] * yc[:, self.t0:self.t1]
+        quad = sq[:, 0:1]
+        for i in range(1, sq.shape[1]):
+            quad = quad + sq[:, i:i + 1]
+        nrm = torch.sqrt(quad)
+        scale = torch.clamp(self.r_ball / torch.clamp(nrm, min=1e-30),
+                            max=1.0)
+        return self.segs * vbox + self.segt * (self.c + scale * yc)
+
+    def orig(self, d):
+        """The slab columns of a difference mapped back through P_half^-1:
+        d_slab @ pinvh, its terms added in slab order as the kernel adds
+        them."""
+        ds = d[:, self.t0:self.t1]
+        back = ds[:, 0:1] * self.pinvh[0]
+        for i in range(1, ds.shape[1]):
+            back = back + ds[:, i:i + 1] * self.pinvh[i]
+        return d * self.segs + F.pad(back, (self.t0, self.nzp - self.t1))
+
+    def iterate(self, zc, v_prev, lam, check=True):
+        """One iteration. Returns (v_new, lam_new, z_next, r_p, r_d); the
+        residuals are None without `check`."""
+        v_new = self.prox(zc + self.rho_i * lam)
+        lam_new = lam + self.rho * (zc - v_new)
+        dq = self.rho * (zc - 2.0 * v_new + v_prev)
+        z_next = zc + dq @ self.M2
+        if not check:
+            return v_new, lam_new, z_next, None, None
+        r_p = torch.amax(torch.abs(self.orig(zc - v_new)), dim=1)
+        r_d = torch.amax(torch.abs(self.orig(v_new - v_prev)), dim=1)
+        return v_new, lam_new, z_next, r_p, r_d
+
+
+def _sel(mask, new, old):
+    return torch.where(mask.reshape(-1, *([1] * (new.ndim - 1))), new, old)
+
+
+def fused_ellip_reference(z1, v0, lam0, M2_pad, pinvh, LB_pad, UB_pad,
+                          c_pad, *, t0: int, rho: float, r_ball: float,
+                          tol_p: float, tol_d: float, k_max: int,
+                          tile_b: int = 256, check_every: int = 1,
+                          fixed_iters: int = 0, exact_k: bool = False):
+    """Plain PyTorch version of the fused kernel, for any float dtype and
+    device. Same arguments and returns as `fused_ellip_solve`."""
+    B = z1.shape[0]
+    dt, dev = z1.dtype, z1.device
+    ops = _Ops(M2_pad, pinvh, LB_pad, UB_pad, c_pad, t0, rho, r_ball)
+    C = int(check_every)
+
+    def conv_of(r_p, r_d):
+        return torch.logical_and(r_p <= tol_p, r_d <= tol_d)
+
+    rbig = torch.full((B,), RBIG, dtype=dt, device=dev)
+    zn, v, lam = z1, v0, lam0
+    if fixed_iters:
+        for _ in range(int(fixed_iters)):
+            v, lam, zn, _rp, _rd = ops.iterate(zn, v, lam, check=False)
+        k = torch.full((B,), int(fixed_iters), dtype=torch.int32,
+                       device=dev)
+        return (zn, v, lam, k, torch.ones_like(k), rbig, rbig.clone())
+
+    done = torch.zeros((B,), dtype=torch.bool, device=dev)
+    k = torch.zeros((B,), dtype=torch.int32, device=dev)
+    rp, rd = rbig, rbig
+    if C > 1 and exact_k:
+        snz, snv, snl = zn, v, lam
+        kws = torch.zeros_like(k)
+        it = 0
+        while it < k_max and not bool(done.all()):
+            a = torch.logical_not(done)
+            snz, snv, snl = _sel(a, zn, snz), _sel(a, v, snv), _sel(a, lam,
+                                                                    snl)
+            kws = torch.where(a, it, kws)
+            # windows may overshoot k_max: the replay budget cuts each
+            # lane off at exactly k_max
+            for _ in range(C - 1):
+                v, lam, zn, _rp, _rd = ops.iterate(zn, v, lam, check=False)
+            v, lam, zn, r_p, r_d = ops.iterate(zn, v, lam)
+            done = torch.logical_or(done, a & conv_of(r_p, r_d))
+            it += C
+        # replay each lane's last window with per-iteration checks
+        budget = torch.clamp(k_max - kws, max=C)
+        convd = torch.zeros_like(done)
+        k = kws
+        z, zn, v, lam = snz, snz, snv, snl
+        for j in range(C):
+            act = torch.logical_not(convd) & (j < budget)
+            v_new, lam_new, z_new, r_p, r_d = ops.iterate(zn, v, lam)
+            z, zn = _sel(act, zn, z), _sel(act, z_new, zn)
+            v, lam = _sel(act, v_new, v), _sel(act, lam_new, lam)
+            k = k + act.to(torch.int32)
+            rp, rd = _sel(act, r_p, rp), _sel(act, r_d, rd)
+            convd = torch.logical_or(convd, act & conv_of(r_p, r_d))
+        done = convd
+    elif C > 1:
+        # a tile of tile_b lanes stops iterating once all its lanes are
+        # done; until then its converged lanes keep iterating too
+        if B % tile_b:
+            raise ValueError(f"batch {B} is not a multiple of tile_b "
+                             f"{tile_b}")
+        it = 0
+        while it < k_max and not bool(done.all()):
+            ta = torch.logical_not(
+                done.reshape(-1, tile_b).all(dim=1)).repeat_interleave(tile_b)
+            n_fast = min(C - 1, k_max - 1 - it)
+            for _ in range(n_fast):
+                v_new, lam_new, z_new, _rp, _rd = ops.iterate(zn, v, lam,
+                                                              check=False)
+                zn, v, lam = (_sel(ta, z_new, zn), _sel(ta, v_new, v),
+                              _sel(ta, lam_new, lam))
+            v_new, lam_new, z_new, r_p, r_d = ops.iterate(zn, v, lam)
+            zn, v, lam = (_sel(ta, z_new, zn), _sel(ta, v_new, v),
+                          _sel(ta, lam_new, lam))
+            a = torch.logical_not(done)
+            k = k + a.to(torch.int32) * (n_fast + 1)
+            rp, rd = _sel(a, r_p, rp), _sel(a, r_d, rd)
+            done = torch.logical_or(done, a & conv_of(r_p, r_d))
+            it += n_fast + 1
+        z = zn
+    else:
+        z = zn
+        for it in range(k_max):
+            if it % _SYNC_EVERY == 0 and bool(done.all()):
+                break
+            v_new, lam_new, z_new, r_p, r_d = ops.iterate(zn, v, lam)
+            a = torch.logical_not(done)
+            z, zn = _sel(a, zn, z), _sel(a, z_new, zn)
+            v, lam = _sel(a, v_new, v), _sel(a, lam_new, lam)
+            k = k + a.to(torch.int32)
+            rp, rd = _sel(a, r_p, rp), _sel(a, r_d, rd)
+            done = torch.logical_or(done, a & conv_of(r_p, r_d))
+    e_flag = torch.where(done, 1, -1).to(torch.int32)
+    return z, v, lam, k, e_flag, rp, rd
+
+
+def launch_geometry(B: int, nzp: int, t0: int, n: int, *, tile_b: int,
+                    check_every: int, exact_k: bool, fixed_iters: int):
+    """(blocks, threads, dynamic shared bytes) of a kernel launch; raises
+    ValueError on a shape or mode the kernel does not take."""
+    if nzp % COL_PAD or not 0 < nzp <= MAX_COLS:
+        raise ValueError(f"the kernel takes a padded width that is a "
+                         f"multiple of {COL_PAD} up to {MAX_COLS}; got {nzp}")
+    if not (0 < n <= WARP and 0 <= t0 and t0 + n <= nzp
+            and t0 % WARP + n <= WARP):
+        raise ValueError(f"the kernel takes a terminal slab inside one warp "
+                         f"of {WARP} columns; got t0={t0}, n={n}")
+    if tile_b % CTA_LANES:
+        raise ValueError(f"tile_b must be a multiple of {CTA_LANES}; "
+                         f"got {tile_b}")
+    if B % tile_b:
+        raise ValueError(f"batch {B} is not a multiple of tile_b {tile_b}")
+    if (check_every > 1 and not exact_k and not fixed_iters
+            and tile_b != CTA_LANES):
+        # in plain free-run the output iterates depend on when a lane's
+        # tile drains, and the kernel drains per block of CTA_LANES lanes
+        raise ValueError(
+            f"plain free-run (check_every > 1 without exact_k) takes "
+            f"tile_b={CTA_LANES} on the GPU; got {tile_b}")
+    # dq [2][nzp][TB], the warp maxima [2][warps][2][TB] and the four
+    # state vectors [nzp][TB]
+    smem = 4 * CTA_LANES * (6 * nzp + 4 * (nzp // WARP))
+    return B // CTA_LANES, nzp, smem
+
+
+def _launch(z1, v0, lam0, M2_pad, pinvh, LB_pad, UB_pad, c_pad, *, t0, rho,
+            r_ball, tol_p, tol_d, k_max, tile_b, check_every, fixed_iters,
+            exact_k):
+    args = (z1, v0, lam0, M2_pad, pinvh, LB_pad, UB_pad, c_pad)
+    for t in args:
+        if t.dtype != torch.float32:
+            raise TypeError(f"the fused kernel takes float32; got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError("the fused kernel takes contiguous tensors")
+    B, nzp = z1.shape
+    n = pinvh.shape[0]
+    blocks, threads, smem = launch_geometry(
+        B, nzp, t0, n, tile_b=tile_b, check_every=check_every,
+        exact_k=exact_k, fixed_iters=fixed_iters)
+    from spcies_tpu_torch.kernels._build import load_kernel
+    launch = load_kernel("fused_ellip", "fused_ellip_launch",
+                         FUSED_ELLIP_ARGTYPES)
+    dev = z1.device
+    z, v, lam = (torch.empty_like(z1) for _ in range(3))
+    k, done = (torch.empty((B,), dtype=torch.int32, device=dev)
+               for _ in range(2))
+    rp, rd = (torch.empty((B,), dtype=torch.float32, device=dev)
+              for _ in range(2))
+    exact = check_every > 1 and exact_k and not fixed_iters
+    snap = torch.empty((B if exact else 0, SNAP_LEAVES * nzp),
+                       dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = launch(
+            *(t.data_ptr() for t in args + (z, v, lam, k, done, rp, rd,
+                                            snap)),
+            B, nzp, int(t0), n, blocks, threads, smem, float(rho),
+            float(1.0 / rho), float(r_ball), float(tol_p), float(tol_d),
+            int(k_max), int(check_every), int(fixed_iters),
+            int(bool(exact_k)), stream)
+    if err != 0:
+        raise RuntimeError(f"fused_ellip kernel launch failed with CUDA "
+                           f"error {err} (blocks={blocks}, threads={threads},"
+                           f" shared={smem} B)")
+    fused_ellip_solve.launches += 1
+    e_flag = torch.where(done == 1, 1, -1).to(torch.int32)
+    return z, v, lam, k, e_flag, rp, rd
+
+
+def fused_ellip_solve(z1, v0, lam0, M2_pad, pinvh, LB_pad, UB_pad, c_pad, *,
+                      t0: int, rho: float, r_ball: float, tol_p: float,
+                      tol_d: float, k_max: int, tile_b: int = 256,
+                      check_every: int = 1, fixed_iters: int = 0,
+                      exact_k: bool = False):
+    """Run the fused ellipMPC-ADMM loop on [B, nzp] tensors in transformed
+    coordinates (padded as the module docstring says; B a multiple of
+    tile_b): z1 and v0 transformed, lam0 the dual as it is; M2_pad
+    [nzp, nzp] in row form (z' += dq @ M2_pad); pinvh the [n, n] map of
+    the slab back to the original coordinates; the bounds and c' rows of
+    nzp entries; the slab at columns t0 .. t0+n-1. CPU tensors run the
+    plain version; CUDA tensors launch the kernel or raise.
+
+    Returns (z', v' [B, nzp] transformed, lam [B, nzp], k [B] int32,
+    e_flag [B] int32 (1 converged / -1 k_max reached), r_p [B], r_d [B]).
+    """
+    B, nzp = z1.shape
+    args = (z1, v0, lam0, M2_pad, pinvh, LB_pad, UB_pad, c_pad)
+    for t in (v0, lam0):
+        if t.shape != (B, nzp):
+            raise ValueError(f"z1, v0 and lam0 must share one shape; got "
+                             f"{tuple(z1.shape)} and {tuple(t.shape)}")
+    n = pinvh.shape[0]
+    if (M2_pad.shape != (nzp, nzp) or pinvh.shape != (n, n)
+            or any(t.numel() != nzp for t in (LB_pad, UB_pad, c_pad))):
+        raise ValueError(f"M2_pad must be [{nzp}, {nzp}], pinvh square and "
+                         f"the rows hold {nzp} entries")
+    if not 0 <= t0 <= nzp - n:
+        raise ValueError(f"the slab t0={t0}, n={n} lies outside {nzp} "
+                         f"columns")
+    if B % tile_b:
+        raise ValueError(f"batch {B} is not a multiple of tile_b {tile_b}")
+    devices = {t.device for t in args}
+    if len(devices) != 1:
+        raise ValueError(f"all tensors must be on one device; got {devices}")
+    kw = dict(t0=int(t0), rho=rho, r_ball=r_ball, tol_p=tol_p, tol_d=tol_d,
+              k_max=k_max, tile_b=tile_b, check_every=check_every,
+              fixed_iters=fixed_iters, exact_k=exact_k)
+    if z1.device.type == "cpu":
+        return fused_ellip_reference(*args, **kw)
+    if z1.device.type == "cuda":
+        return _launch(*args, **kw)
+    raise ValueError(f"fused_ellip_solve takes CPU or CUDA tensors; got "
+                     f"{z1.device}")
+
+
+fused_ellip_solve.launches = 0

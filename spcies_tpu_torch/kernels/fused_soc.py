@@ -1,0 +1,308 @@
+"""Fused slack-SOC split ADMM for ellipMPC-ADMM-soc: the wrapper of the
+hand-written CUDA kernel (csrc/fused_soc.cu) and its plain PyTorch version.
+
+Counterpart of spcies_tpu/kernels/fused_soc.py (`_fused_soc_kernel`). One
+row per lane holds [z (dim_p columns) | s (sp columns)], both slabs padded
+to multiples of COL_PAD; aux = (z_hat, s_hat) is kept in delta form through
+the single KKT map M1'. For each lane one iteration is
+
+    w      = aux + iscale lm
+    z      = clip(w[:dim_p], LB, UB)     (x_N and the slack: +-3e38)
+    s      = SOC projection of w[dim_p:] = [s0 | tail]:
+             nrm = sqrt(max(sum(seg^2) - s0^2, 0));
+             inside (nrm <= s0): s = seg; apex (nrm <= -s0): s = 0;
+             else s0 -> (s0 + nrm) / 2, tail -> tail (s0 + nrm) / (2 nrm)
+    lm'    = lm + scale (aux - zs)
+    dq     = (lm' - lm) - scale (zs - zs_old)
+    aux   += dq @ M1'
+    r_p    = max |aux - zs|, r_d = max |zs - zs_old|
+
+with scale = sigma on the z slab and rho on the s slab, iscale their
+inverses on the real columns and 0 on the pads. The squares of the cone's
+n + 1 real entries are summed in column order, one after the other, in the
+kernel and in the plain version alike (the JAX kernel uses a row sum). The
+runtime radius enters only the prologue offset aux_b, never the loop. Modes,
+as
+kernels/fused_admm.py has them: checked (check_every=1), plain free-run
+(check_every>1) and exact-k (window snapshots of (aux, zs, lm) and a
+budgeted replay); there is no fixed_iters mode, as in the JAX kernel.
+
+Padding contract: pad columns carry zero rows and columns in M1', [0, 0]
+bounds on the z slab and iscale = 0, so they stay exactly 0. The batch is
+padded to a multiple of tile_b by the caller. On the card the s slab is one
+warp (sp = 32, n + 1 <= 32).
+
+`fused_soc_solve` runs the plain version for CPU tensors and launches the
+kernel for CUDA tensors; `fused_soc_solve.launches` counts the launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from spcies_tpu_torch.kernels.fused_admm import (COL_PAD, CTA_LANES,
+                                                 MAX_COLS, RBIG, round_up)
+
+__all__ = ["COL_PAD", "CTA_LANES", "MAX_COLS", "round_up",
+           "fused_soc_reference", "fused_soc_solve", "launch_geometry"]
+
+# C signature of fused_soc_launch: 16 tensor pointers (8 inputs, 7 outputs,
+# the exact-k snapshot scratch); B, P, dim_p, blocks, threads, shared
+# bytes; tol_p, tol_d; k_max, check_every, exact_k; the stream
+FUSED_SOC_ARGTYPES = ([ctypes.c_void_p] * 16 + [ctypes.c_int] * 6
+                      + [ctypes.c_float] * 2 + [ctypes.c_int] * 3
+                      + [ctypes.c_void_p])
+# the leaves an exact-k snapshot saves per lane: aux, zs, lm
+SNAP_LEAVES = 3
+WARP = 32
+# plain version: read "all lanes done" on the host every this many
+# iterations of the checked loop (extra iterations of frozen lanes are
+# exact no-ops)
+_SYNC_EVERY = 8
+
+
+class _Ops:
+    """One iteration in the kernel's operation order, over padded
+    operators."""
+
+    def __init__(self, M1P, lb, ub, scale, iscale, dim_p):
+        self.M1P, self.dim_p = M1P, dim_p
+        self.lb, self.ub, self.scale, self.iscale = (
+            r.reshape(1, -1) for r in (lb, ub, scale, iscale))
+        sp = M1P.shape[0] - dim_p
+        self.e0 = torch.zeros((1, sp), dtype=M1P.dtype, device=M1P.device)
+        self.e0[0, 0] = 1.0
+        # the cone's real entries (iscale is 0 on the pads)
+        self.n_s = int(torch.count_nonzero(self.iscale[0, dim_p:]))
+
+    def iterate(self, aux, zs_old, lm):
+        """One split iteration; returns (aux_next, zs_new, lm_new, r_p,
+        r_d)."""
+        dim_p, e0 = self.dim_p, self.e0
+        w = aux + self.iscale * lm
+        head = torch.minimum(torch.maximum(w[:, :dim_p], self.lb), self.ub)
+        seg = w[:, dim_p:]
+        s0 = seg[:, 0:1]
+        # the squares summed in column order, as the kernel sums them
+        sq = seg * seg
+        ss = sq[:, 0:1]
+        for i in range(1, self.n_s):
+            ss = ss + sq[:, i:i + 1]
+        nrm = torch.sqrt(torch.clamp(ss - s0 * s0, min=0.0))
+        inside = (nrm <= s0).to(w.dtype)
+        apex = (nrm <= -s0).to(w.dtype) * (1.0 - inside)
+        proj = (1.0 - inside) * (1.0 - apex)
+        safe = torch.clamp(nrm, min=1e-30)
+        coef = 0.5 * (s0 + nrm)
+        tail_scale = inside + proj * (coef / safe)
+        s_new = (e0 * (inside * s0 + proj * coef)
+                 + (1.0 - e0) * (seg * tail_scale))
+        zs_new = torch.cat([head, s_new], dim=1)
+        lm_new = lm + self.scale * (aux - zs_new)
+        dp = aux - zs_new
+        dd = zs_new - zs_old
+        dq = (lm_new - lm) - self.scale * dd
+        aux_next = aux + dq @ self.M1P
+        return (aux_next, zs_new, lm_new, torch.amax(torch.abs(dp), dim=1),
+                torch.amax(torch.abs(dd), dim=1))
+
+
+def _sel(mask, new, old):
+    return torch.where(mask.reshape(-1, *([1] * (new.ndim - 1))), new, old)
+
+
+def fused_soc_reference(aux1, zs0, lm0, M1P, LB_head, UB_head, scale_row,
+                        iscale_row, *, dim_p: int, tol_p: float,
+                        tol_d: float, k_max: int, tile_b: int = 256,
+                        check_every: int = 1, exact_k: bool = False):
+    """Plain PyTorch version of the fused kernel, for any float dtype and
+    device. Same arguments and returns as `fused_soc_solve`."""
+    B = aux1.shape[0]
+    dt, dev = aux1.dtype, aux1.device
+    ops = _Ops(M1P, LB_head, UB_head, scale_row, iscale_row, dim_p)
+    C = int(check_every)
+
+    def conv_of(r_p, r_d):
+        return torch.logical_and(r_p <= tol_p, r_d <= tol_d)
+
+    rbig = torch.full((B,), RBIG, dtype=dt, device=dev)
+    aux, zs, lm = aux1, zs0, lm0
+    done = torch.zeros((B,), dtype=torch.bool, device=dev)
+    k = torch.zeros((B,), dtype=torch.int32, device=dev)
+    rp, rd = rbig, rbig
+    if C > 1 and exact_k:
+        sa, szs, slm = aux, zs, lm
+        kws = torch.zeros_like(k)
+        it = 0
+        while it < k_max and not bool(done.all()):
+            a = torch.logical_not(done)
+            sa, szs, slm = _sel(a, aux, sa), _sel(a, zs, szs), _sel(a, lm,
+                                                                    slm)
+            kws = torch.where(a, it, kws)
+            # windows may overshoot k_max: the replay budget cuts each
+            # lane off at exactly k_max
+            for _ in range(C):
+                aux, zs, lm, r_p, r_d = ops.iterate(aux, zs, lm)
+            done = torch.logical_or(done, a & conv_of(r_p, r_d))
+            it += C
+        # replay each lane's last window with per-iteration checks
+        budget = torch.clamp(k_max - kws, max=C)
+        convd = torch.zeros_like(done)
+        k = kws
+        aux, an, zs, lm = sa, sa, szs, slm
+        for j in range(C):
+            act = torch.logical_not(convd) & (j < budget)
+            a2, zs2, lm2, r_p, r_d = ops.iterate(an, zs, lm)
+            aux, an = _sel(act, an, aux), _sel(act, a2, an)
+            zs, lm = _sel(act, zs2, zs), _sel(act, lm2, lm)
+            k = k + act.to(torch.int32)
+            rp, rd = _sel(act, r_p, rp), _sel(act, r_d, rd)
+            convd = torch.logical_or(convd, act & conv_of(r_p, r_d))
+        done = convd
+    elif C > 1:
+        # a tile of tile_b lanes stops iterating once all its lanes are
+        # done; until then its converged lanes keep iterating too
+        if B % tile_b:
+            raise ValueError(f"batch {B} is not a multiple of tile_b "
+                             f"{tile_b}")
+        it = 0
+        while it < k_max and not bool(done.all()):
+            ta = torch.logical_not(
+                done.reshape(-1, tile_b).all(dim=1)).repeat_interleave(tile_b)
+            n_fast = min(C - 1, k_max - 1 - it)
+            for _ in range(n_fast + 1):
+                a2, zs2, lm2, r_p, r_d = ops.iterate(aux, zs, lm)
+                aux, zs, lm = (_sel(ta, a2, aux), _sel(ta, zs2, zs),
+                               _sel(ta, lm2, lm))
+            a = torch.logical_not(done)
+            k = k + a.to(torch.int32) * (n_fast + 1)
+            rp, rd = _sel(a, r_p, rp), _sel(a, r_d, rd)
+            done = torch.logical_or(done, a & conv_of(r_p, r_d))
+            it += n_fast + 1
+    else:
+        an = aux
+        for it in range(k_max):
+            if it % _SYNC_EVERY == 0 and bool(done.all()):
+                break
+            a2, zs2, lm2, r_p, r_d = ops.iterate(an, zs, lm)
+            a = torch.logical_not(done)
+            aux, an = _sel(a, an, aux), _sel(a, a2, an)
+            zs, lm = _sel(a, zs2, zs), _sel(a, lm2, lm)
+            k = k + a.to(torch.int32)
+            rp, rd = _sel(a, r_p, rp), _sel(a, r_d, rd)
+            done = torch.logical_or(done, a & conv_of(r_p, r_d))
+    e_flag = torch.where(done, 1, -1).to(torch.int32)
+    return zs, lm, aux, k, e_flag, rp, rd
+
+
+def launch_geometry(B: int, P: int, dim_p: int, *, tile_b: int,
+                    check_every: int, exact_k: bool):
+    """(blocks, threads, dynamic shared bytes) of a kernel launch; raises
+    ValueError on a shape or mode the kernel does not take."""
+    if P % COL_PAD or not 0 < P <= MAX_COLS:
+        raise ValueError(f"the kernel takes a padded width that is a "
+                         f"multiple of {COL_PAD} up to {MAX_COLS}; got {P}")
+    if dim_p % WARP or P - dim_p != WARP:
+        raise ValueError(f"the kernel takes an s slab of one warp of {WARP} "
+                         f"columns after a z slab of whole warps; got "
+                         f"dim_p={dim_p}, P={P}")
+    if tile_b % CTA_LANES:
+        raise ValueError(f"tile_b must be a multiple of {CTA_LANES}; "
+                         f"got {tile_b}")
+    if B % tile_b:
+        raise ValueError(f"batch {B} is not a multiple of tile_b {tile_b}")
+    if check_every > 1 and not exact_k and tile_b != CTA_LANES:
+        # in plain free-run the output iterates depend on when a lane's
+        # tile drains, and the kernel drains per block of CTA_LANES lanes
+        raise ValueError(
+            f"plain free-run (check_every > 1 without exact_k) takes "
+            f"tile_b={CTA_LANES} on the GPU; got {tile_b}")
+    # dq [2][P][TB], the warp maxima [2][warps][2][TB] and the four state
+    # vectors [P][TB]
+    smem = 4 * CTA_LANES * (6 * P + 4 * (P // WARP))
+    return B // CTA_LANES, P, smem
+
+
+def _launch(*args, dim_p, tol_p, tol_d, k_max, tile_b, check_every,
+            exact_k):
+    for t in args:
+        if t.dtype != torch.float32:
+            raise TypeError(f"the fused kernel takes float32; got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError("the fused kernel takes contiguous tensors")
+    B, P = args[0].shape
+    blocks, threads, smem = launch_geometry(
+        B, P, dim_p, tile_b=tile_b, check_every=check_every, exact_k=exact_k)
+    from spcies_tpu_torch.kernels._build import load_kernel
+    launch = load_kernel("fused_soc", "fused_soc_launch", FUSED_SOC_ARGTYPES)
+    dev = args[0].device
+    zs, lm, aux = (torch.empty_like(args[0]) for _ in range(3))
+    k, done = (torch.empty((B,), dtype=torch.int32, device=dev)
+               for _ in range(2))
+    rp, rd = (torch.empty((B,), dtype=torch.float32, device=dev)
+              for _ in range(2))
+    exact = check_every > 1 and exact_k
+    snap = torch.empty((B if exact else 0, SNAP_LEAVES * P),
+                       dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = launch(
+            *(t.data_ptr() for t in args + (zs, lm, aux, k, done, rp, rd,
+                                            snap)),
+            B, P, int(dim_p), blocks, threads, smem, float(tol_p),
+            float(tol_d), int(k_max), int(check_every), int(bool(exact_k)),
+            stream)
+    if err != 0:
+        raise RuntimeError(f"fused_soc kernel launch failed with CUDA error "
+                           f"{err} (blocks={blocks}, threads={threads}, "
+                           f"shared={smem} B)")
+    fused_soc_solve.launches += 1
+    e_flag = torch.where(done == 1, 1, -1).to(torch.int32)
+    return zs, lm, aux, k, e_flag, rp, rd
+
+
+def fused_soc_solve(aux1, zs0, lm0, M1P, LB_head, UB_head, scale_row,
+                    iscale_row, *, dim_p: int, tol_p: float, tol_d: float,
+                    k_max: int, tile_b: int = 256, check_every: int = 1,
+                    exact_k: bool = False):
+    """Run the fused slack-SOC split ADMM loop on [B, P] tensors in the
+    layout [z (dim_p) | s (P - dim_p)] (padded as the module docstring
+    says; B a multiple of tile_b): M1P [P, P] in row form
+    (aux += dq @ M1P), the z-slab bounds of dim_p entries, the scale and
+    iscale rows of P entries. CPU tensors run the plain version; CUDA
+    tensors launch the kernel or raise.
+
+    Returns (zs, lm, aux [B, P], k [B] int32, e_flag [B] int32 (1
+    converged / -1 k_max reached), r_p [B], r_d [B]).
+    """
+    args = (aux1, zs0, lm0, M1P, LB_head, UB_head, scale_row, iscale_row)
+    B, P = aux1.shape
+    for t in (zs0, lm0):
+        if t.shape != (B, P):
+            raise ValueError(f"aux1, zs0 and lm0 must share one shape; got "
+                             f"{tuple(aux1.shape)} and {tuple(t.shape)}")
+    if not 0 < dim_p < P:
+        raise ValueError(f"dim_p={dim_p} must split {P} columns")
+    if (M1P.shape != (P, P) or LB_head.numel() != dim_p
+            or UB_head.numel() != dim_p or scale_row.numel() != P
+            or iscale_row.numel() != P):
+        raise ValueError(f"M1P must be [{P}, {P}], the bounds hold {dim_p} "
+                         f"entries and the scale rows {P}")
+    if B % tile_b:
+        raise ValueError(f"batch {B} is not a multiple of tile_b {tile_b}")
+    devices = {t.device for t in args}
+    if len(devices) != 1:
+        raise ValueError(f"all tensors must be on one device; got {devices}")
+    kw = dict(dim_p=int(dim_p), tol_p=tol_p, tol_d=tol_d, k_max=k_max,
+              tile_b=tile_b, check_every=check_every, exact_k=exact_k)
+    if aux1.device.type == "cpu":
+        return fused_soc_reference(*args, **kw)
+    if aux1.device.type == "cuda":
+        return _launch(*args, **kw)
+    raise ValueError(f"fused_soc_solve takes CPU or CUDA tensors; got "
+                     f"{aux1.device}")
+
+
+fused_soc_solve.launches = 0

@@ -1,7 +1,8 @@
 """Generic 'fused' backend builders: dense single-split box-ADMM solvers
 on kernels/fused_admm.py, laxMPC/equMPC dual FISTA on
-kernels/fused_fista.py, and MPCT three-block EADMM on
-kernels/fused_eadmm.py.
+kernels/fused_fista.py, MPCT three-block EADMM on kernels/fused_eadmm.py,
+and ellipMPC-ADMM and ADMM-soc on kernels/fused_ellip.py and
+kernels/fused_soc.py.
 
 Any formulation whose z-step is a baked dense affine map and whose
 projection is a box (laxMPC, equMPC, MPCT-ADMM-cs) runs the same fused
@@ -24,7 +25,10 @@ import torch.nn.functional as F
 from spcies_tpu_torch.kernels.fused_admm import (COL_PAD, fused_admm_solve,
                                                  round_up)
 from spcies_tpu_torch.kernels.fused_eadmm import fused_eadmm_solve
+from spcies_tpu_torch.kernels.fused_ellip import (fused_ellip_solve,
+                                                  slab_start)
 from spcies_tpu_torch.kernels.fused_fista import fused_fista_solve
+from spcies_tpu_torch.kernels.fused_soc import fused_soc_solve
 from spcies_tpu_torch.solvers.common import SolveResult
 
 
@@ -334,3 +338,233 @@ def build_fused_eadmm_solve(ing, opt, dtype, device):
     """Return a FusedEADMMSolve for MPCT-EADMM."""
     _require_fp32(dtype)
     return FusedEADMMSolve(ing, opt, device)
+
+
+class FusedEllipADMMSolve:
+    """`(x0, xr, ur, init, fixed_iters) -> SolveResult` running the fused
+    ellipMPC-ADMM kernel (kernels/fused_ellip.py) in P_half coordinates.
+    Port of spcies_tpu/formulations/ellipmpc.py `_build_ellipmpc_admm_fused`.
+
+    M2 = S M_q S with S = blkdiag(I, P_half) and the centre c' = P_half c
+    are built offline in fp64. The kernel's columns are the ns stage
+    entries, then the n terminal entries from column t0 (`slab_start`),
+    padded to a multiple of COL_PAD. The peeled first z-solve runs outside
+    the kernel at full fp32; `_to_t` / `_from_t` map the terminal block
+    into and out of the transformed coordinates (lam is not transformed).
+    `init` is (z, v, lam). `prepare` and `operator` expose the kernel's
+    exact arguments; the kernel takes them in float32, and `dtype` other
+    than that builds them for the plain version alone.
+    """
+
+    def __init__(self, ing, opt, device, *, make_q_ref,
+                 dtype=torch.float32):
+        n, m, nz = ing["n"], ing["m"], ing["nz"]
+        self.dtype = dtype
+        self.n, self.m, self.nz, self.ns = n, m, nz, nz - n
+        self.make_q_ref = make_q_ref
+        ns = self.ns
+        s = opt.solver
+        tol = float(s["tol"])
+        self.tile_b = int(s.get("tile_b", 256))
+        self.rho = float(ing["rho_T"])
+        self.t0 = slab_start(ns, n)
+        nzp = round_up(self.t0 + n, COL_PAD)
+        # kernel column of each entry of the decision vector
+        self.pos = np.concatenate([np.arange(ns), self.t0 + np.arange(n)])
+        self.kernel_kw = dict(
+            t0=self.t0, rho=self.rho, r_ball=float(ing["r"]), tol_p=tol,
+            tol_d=tol, k_max=int(s["k_max"]), tile_b=self.tile_b,
+            check_every=int(s.get("check_every", 1)),
+            exact_k=bool(s.get("exact_k", False)))
+
+        # offline fp64: M2 = S M_q S (symmetric, as M_q and S are)
+        P_half = np.asarray(ing["P_half"], float)
+        Pinv_half = np.linalg.inv(P_half)
+        S = np.eye(nz)
+        S[ns:, ns:] = P_half
+        M2 = S @ np.asarray(ing["M_q"], float) @ S
+        npdt = {torch.float32: np.float32, torch.float64: np.float64}[dtype]
+        M2_pad = np.zeros((nzp, nzp), npdt)
+        M2_pad[np.ix_(self.pos, self.pos)] = M2.T   # kernel: dq @ M2_pad
+        rows = np.zeros((3, nzp), npdt)             # LB, UB, c'
+        rows[0, :ns] = np.maximum(ing["LB"], -1e30)
+        rows[1, :ns] = np.minimum(ing["UB"], 1e30)
+        rows[2, self.t0:self.t0 + n] = P_half @ np.asarray(ing["c"], float)
+        self.operator = tuple(
+            torch.as_tensor(np.ascontiguousarray(a), device=device)
+            for a in (M2_pad, Pinv_half.T.astype(npdt), rows[0:1],
+                      rows[1:2], rows[2:3]))
+        self.M_q, self.M_b, self.A, self.P, self.P_half, self.Pinv_half = (
+            torch.as_tensor(np.asarray(a, float), dtype=dtype, device=device)
+            for a in (ing["M_q"], ing["M_b"], ing["A"], ing["P"], P_half,
+                      Pinv_half))
+
+    def _to_t(self, x):
+        """Original -> transformed coordinates (the terminal block through
+        P_half)."""
+        return torch.cat([x[:, :self.ns], x[:, self.ns:] @ self.P_half.T],
+                         dim=-1)
+
+    def _from_t(self, x):
+        return torch.cat([x[:, :self.ns], x[:, self.ns:] @ self.Pinv_half.T],
+                         dim=-1)
+
+    def _scatter(self, x, Bp):
+        out = torch.zeros((Bp, self.operator[0].shape[0]), dtype=x.dtype,
+                          device=x.device)
+        out[:x.shape[0], self.pos] = x
+        return out
+
+    def prepare(self, x0, xr, ur, init=None):
+        """Kernel inputs for one call: (z1', v0', lam0) in the kernel's
+        padded layout [Bp, nzp], and the batch B."""
+        ns, rho = self.ns, self.rho
+        Bsz = x0.shape[0]
+        q_ref = self.make_q_ref(xr, ur)
+        b0 = -(x0 @ self.A.T)
+        if init is None:
+            v0 = torch.zeros_like(q_ref)
+            lam0 = torch.zeros_like(q_ref)
+        else:
+            v0, lam0 = (torch.as_tensor(a, dtype=self.dtype,
+                                        device=x0.device) for a in init[1:])
+        # the peeled first equality-QP solve, plain full-fp32 products
+        qs = q_ref[:, :ns] + lam0[:, :ns] - rho * v0[:, :ns]
+        qT = (q_ref[:, ns:] + lam0[:, ns:] @ self.P_half.T
+              - rho * (v0[:, ns:] @ self.P.T))
+        z1 = torch.cat([qs, qT], dim=-1) @ self.M_q.T + b0 @ self.M_b.T
+        Bp = round_up(Bsz, self.tile_b)
+        return (self._scatter(self._to_t(z1), Bp),
+                self._scatter(self._to_t(v0), Bp), self._scatter(lam0, Bp),
+                Bsz)
+
+    def __call__(self, x0, xr, ur, init, fixed_iters):
+        *kin, Bsz = self.prepare(x0, xr, ur, init=init)
+        z, v, lam, k, e_flag, r_p, r_d = fused_ellip_solve(
+            *kin, *self.operator, fixed_iters=int(fixed_iters or 0),
+            **self.kernel_kw)
+        pos = torch.as_tensor(self.pos, device=z.device)
+        z_o = self._from_t(z[:Bsz, pos])
+        v_o = self._from_t(v[:Bsz, pos])
+        return SolveResult(
+            u=v_o[:, :self.m], k=k[:Bsz], e_flag=e_flag[:Bsz],
+            sol=dict(z=z_o, v=v_o, lam=lam[:Bsz, pos], r_p=r_p[:Bsz],
+                     r_d=r_d[:Bsz]))
+
+
+def build_fused_ellip_solve(ing, opt, dtype, device, *, make_q_ref):
+    """Return a FusedEllipADMMSolve for ellipMPC-ADMM; make_q_ref(xr, ur)
+    -> [B, nz] linear cost."""
+    _require_fp32(dtype)
+    if not ing["rho_is_scalar"]:
+        raise ValueError("the fused ellipMPC backend supports scalar rho; "
+                         "use backend='dense' for vector rho")
+    return FusedEllipADMMSolve(ing, opt, device, make_q_ref=make_q_ref)
+
+
+class FusedSOCSolve:
+    """`(x0, xr, ur, r_ellip, init, fixed_iters) -> SolveResult` running
+    the fused slack-SOC kernel (kernels/fused_soc.py) for
+    ellipMPC-ADMM-soc. Port of spcies_tpu/formulations/ellipmpc.py
+    `_build_ellipmpc_soc_fused`.
+
+    The layout is [z | s], each slab padded to COL_PAD columns (at N=30,
+    256 + 32). The runtime radius enters only the prologue offset aux_b.
+    `init` is (z, s, lam, mu). `prepare` and `operator` expose the
+    kernel's exact arguments; the kernel takes them in float32, and
+    `dtype` other than that builds them for the plain version alone.
+    """
+
+    def __init__(self, ing, opt, device, *, make_q, dtype=torch.float32):
+        n, m, N = ing["n"], ing["m"], ing["N"]
+        dim, n_s = ing["dim"], ing["n_s"]
+        self.make_q = make_q
+        self.m, self.dim, self.n_s = m, dim, n_s
+        nbox = (N - 1) * (n + m) + m
+        s = opt.solver
+        self.tile_b = int(s.get("tile_b", 256))
+        sigma, rho = float(ing["sigma"]), float(ing["rho"])
+        dim_p = round_up(dim, COL_PAD)
+        P = dim_p + round_up(n_s, COL_PAD)
+        self.kernel_kw = dict(
+            dim_p=dim_p, tol_p=float(s["tol_p"]), tol_d=float(s["tol_d"]),
+            k_max=int(s["k_max"]), tile_b=self.tile_b,
+            check_every=int(s.get("check_every", 1)),
+            exact_k=bool(s.get("exact_k", False)))
+        # kernel column of each entry of [z | s]
+        self.pos = np.concatenate([np.arange(dim), dim_p + np.arange(n_s)])
+
+        npdt = {torch.float32: np.float32, torch.float64: np.float64}[dtype]
+        M1P = np.zeros((P, P), npdt)
+        M1P[np.ix_(self.pos, self.pos)] = np.asarray(ing["M1"]).T
+        head = np.zeros((2, dim_p), npdt)           # LB, UB
+        head[0, :nbox] = np.maximum(ing["LB"], -1e30)
+        head[1, :nbox] = np.minimum(ing["UB"], 1e30)
+        head[0, nbox:dim] = -3.0e38                 # x_N, slack unclipped
+        head[1, nbox:dim] = 3.0e38
+        scales = np.zeros((2, P), npdt)             # scale, iscale
+        scales[0, :dim_p] = sigma
+        scales[0, dim_p:] = rho
+        scales[1, :dim] = 1.0 / sigma
+        scales[1, dim_p:dim_p + n_s] = 1.0 / rho
+        self.operator = tuple(
+            torch.as_tensor(np.ascontiguousarray(a), device=device)
+            for a in (M1P, head[0:1], head[1:2], scales[0:1], scales[1:2]))
+        self.dtype = dtype
+        self.M1, self.M2_b0, self.M2_r, self.M2_d, self.PhiP, self.A = (
+            torch.as_tensor(ing[key], dtype=dtype, device=device)
+            for key in ("M1", "M2_b0", "M2_r", "M2_d", "PhiP", "A"))
+        self.sigma, self.rho = sigma, rho
+
+    def prepare(self, x0, xr, ur, r_ellip, init=None):
+        """Kernel inputs for one call: (aux1, zs0, lm0) in the kernel's
+        padded layout [Bp, P], and the batch B."""
+        Bsz, dim, n_s = x0.shape[0], self.dim, self.n_s
+        q = self.make_q(xr, ur)
+        aux_b = ((-(x0 @ self.A.T)) @ self.M2_b0.T
+                 + r_ellip[:, 0:1] * self.M2_r
+                 + (-(xr @ self.PhiP.T)) @ self.M2_d.T)
+        dt = dict(dtype=self.dtype, device=x0.device)
+        if init is None:
+            z0 = torch.zeros((Bsz, dim), **dt)
+            s0 = torch.zeros((Bsz, n_s), **dt)
+            lam0, mu0 = torch.zeros_like(z0), torch.zeros_like(s0)
+        else:
+            z0, s0, lam0, mu0 = (torch.as_tensor(a, **dt) for a in init)
+        # the peeled first KKT solve, a plain full-fp32 product
+        q_hat0 = torch.cat([q - self.sigma * z0 + lam0,
+                            mu0 - self.rho * s0], dim=-1)
+        aux1 = q_hat0 @ self.M1.T + aux_b
+        Bp = round_up(Bsz, self.tile_b)
+        P = self.operator[0].shape[0]
+
+        def scatter(x):
+            out = torch.zeros((Bp, P), **dt)
+            out[:Bsz, self.pos] = x
+            return out
+
+        return (scatter(aux1), scatter(torch.cat([z0, s0], dim=-1)),
+                scatter(torch.cat([lam0, mu0], dim=-1)), Bsz)
+
+    def __call__(self, x0, xr, ur, r_ellip, init, fixed_iters):
+        if fixed_iters is not None:
+            raise ValueError("fixed_iters is not supported by the fused "
+                             "soc backend; use backend='dense'")
+        *kin, Bsz = self.prepare(x0, xr, ur, r_ellip, init=init)
+        zs, lm, aux, k, e_flag, r_p, r_d = fused_soc_solve(
+            *kin, *self.operator, **self.kernel_kw)
+        pos = torch.as_tensor(self.pos, device=zs.device)
+        zs, lm, aux = zs[:Bsz, pos], lm[:Bsz, pos], aux[:Bsz, pos]
+        dim = self.dim
+        return SolveResult(
+            u=zs[:, :self.m], k=k[:Bsz], e_flag=e_flag[:Bsz],
+            sol=dict(z=zs[:, :dim], s=zs[:, dim:], z_hat=aux[:, :dim],
+                     s_hat=aux[:, dim:], lam=lm[:, :dim], mu=lm[:, dim:],
+                     r_p=r_p[:Bsz], r_d=r_d[:Bsz]))
+
+
+def build_fused_soc_solve(ing, opt, dtype, device, *, make_q):
+    """Return a FusedSOCSolve for ellipMPC-ADMM-soc; make_q(xr, ur) ->
+    [B, dim] linear cost."""
+    _require_fp32(dtype)
+    return FusedSOCSolve(ing, opt, device, make_q=make_q)

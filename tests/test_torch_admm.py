@@ -15,6 +15,12 @@ import spcies_tpu_torch as tsp
 
 torch.set_num_threads(2)
 
+
+def _on_cpu(pkg):
+    """make_solver's device argument for `pkg`: the port's solvers run on
+    the card unless asked for the CPU; the JAX package takes none."""
+    return dict(device="cpu") if pkg is tsp else {}
+
 SOLVER_OPTS = dict(rho=15.0, tol=1e-7, k_max=5000)  # test_laxMPC_ADMM.m:6-8
 
 
@@ -35,7 +41,7 @@ def _pair(sys, param, precision="double", debug=0, **kw):
         o.precision = precision
         o.debug = debug
         out.append(pkg.make_solver(sys, param, formulation="laxMPC",
-                                   method="ADMM", options=o))
+                                   method="ADMM", options=o, **_on_cpu(pkg)))
     return out
 
 
@@ -182,7 +188,7 @@ def test_genhist2_requires_freeze(fixture):
                             freeze_converged=False)
     o.debug = 2
     s = tsp.make_solver(sys, param, formulation="laxMPC", method="ADMM",
-                        options=o)
+                        options=o, device="cpu")
     with pytest.raises(ValueError, match="freeze_converged"):
         s(st["x"], st["xr"], st["ur"])
 
@@ -195,9 +201,9 @@ def test_bf16_delta_accuracy(fixture):
                             k_max=1000, bf16_delta=True)
     o.precision = "float"
     s_bf = tsp.make_solver(sys, param, formulation="laxMPC", method="ADMM",
-                           options=o)
+                           options=o, device="cpu")
     s_64 = tsp.make_solver(sys, param, formulation="laxMPC", method="ADMM",
-                           rho=15.0, tol=1e-4, k_max=1000)
+                           rho=15.0, tol=1e-4, k_max=1000, device="cpu")
     x = _batch(st, 16, 3)
     r_bf, r_64 = s_bf(*x), s_64(*x)
     assert np.all(r_bf.e_flag.numpy() == 1)
@@ -240,7 +246,7 @@ def test_straggler_polish_fixes_fp32_floor():
                                 straggler_polish=polish)
         o.precision = "float"
         s = tsp.make_solver(sys, p30, formulation="laxMPC", method="ADMM",
-                            options=o)
+                            options=o, device="cpu")
         return s(xb, xr, ur)
 
     r0 = solve(0)
@@ -268,7 +274,7 @@ def test_straggler_polish_continues_exact_recursion(fixture):
     def solve(pkg, k_max, polish):
         s = pkg.make_solver(sys, param, formulation="laxMPC", method="ADMM",
                             rho=15.0, tol=1e-9, k_max=k_max,
-                            straggler_polish=polish)
+                            straggler_polish=polish, **_on_cpu(pkg))
         return s(*x)
 
     ref = solve(tsp, 20000, 0)

@@ -20,6 +20,12 @@ from spcies_tpu_torch.kernels import fused_admm as fa
 
 torch.set_num_threads(2)
 
+
+def _on_cpu(pkg):
+    """make_solver's device argument for `pkg`: the port's solvers run on
+    the card unless asked for the CPU; the JAX package takes none."""
+    return dict(device="cpu") if pkg is tsp else {}
+
 ADMM_OPTS = dict(rho=15.0, tol=1e-7, k_max=5000)   # test_equMPC_ADMM.m:6-8
 FISTA_OPTS = dict(tol=1e-7, k_max=5000)            # test_equMPC_FISTA.m:6-7
 
@@ -41,14 +47,14 @@ def fixture():
 def admm_solver(fixture):
     sys, param, _ = fixture
     return tsp.make_solver(sys, param, formulation="equMPC", method="ADMM",
-                           **ADMM_OPTS)
+                           **ADMM_OPTS, device="cpu")
 
 
 @pytest.fixture(scope="module")
 def fista_solver(fixture):
     sys, param, _ = fixture
     return tsp.make_solver(sys, param, formulation="equMPC", method="FISTA",
-                           **FISTA_OPTS)
+                           **FISTA_OPTS, device="cpu")
 
 
 def _batch(st, B, seed):
@@ -133,7 +139,8 @@ def test_admm_dense_fp64_parity(fixture, relax_alpha):
     sys, param, st = fixture
     s_j, s_t = (pkg.make_solver(sys, param, formulation="equMPC",
                                 method="ADMM", relax_alpha=relax_alpha,
-                                **ADMM_OPTS) for pkg in (jsp, tsp))
+                                **ADMM_OPTS, **_on_cpu(pkg))
+                for pkg in (jsp, tsp))
     x = _batch(st, 8, 2)
     rt, rj = s_t(*x), s_j(*x)
     assert s_t.stage_layout == ("stagewise", False)
@@ -162,7 +169,7 @@ def _fused_admm_pair(sys, param, **kw):
         o.precision = "float"
         out.append(pkg.make_solver(sys, param, formulation="equMPC",
                                    method="ADMM", backend="fused",
-                                   options=o))
+                                   options=o, **_on_cpu(pkg)))
     return out
 
 
@@ -208,7 +215,7 @@ def test_fused_admm_matches_jax_fused(fixture, mode):
     o = tsp.default_options("equMPC", "ADMM", **dense_kw)
     o.precision = "float"
     rd = tsp.make_solver(sys, param, formulation="equMPC", method="ADMM",
-                         options=o)(*x)
+                         options=o, device="cpu")(*x)
     assert np.all(rd.e_flag.numpy() == 1)
     np.testing.assert_allclose(rd.u.numpy(), rt.u.numpy(), rtol=0,
                                atol=1e-4)
@@ -271,7 +278,8 @@ def test_ingredients_from_jax_per_triple(name):
             res.append(tsp.make_solver(sys, param, formulation=formulation,
                                        method=method, options=o,
                                        backend=backend,
-                                       ingredients=ingredients)(*x))
+                                       ingredients=ingredients,
+                                       device="cpu")(*x))
         assert torch.equal(res[0].k, res[1].k)
         for key in res[0].sol:
             if key != "times_ms":
@@ -302,4 +310,4 @@ def test_error_probes(fixture, method, probe, exc, match):
     o.time_varying = probe.pop("time_varying", False)
     with pytest.raises(exc, match=match):
         tsp.make_solver(sys, p, formulation="equMPC", method=method,
-                        options=o, **probe)
+                        options=o, **probe, device="cpu")

@@ -16,6 +16,12 @@ import spcies_tpu_torch as tsp
 
 torch.set_num_threads(2)
 
+
+def _on_cpu(pkg):
+    """make_solver's device argument for `pkg`: the port's solvers run on
+    the card unless asked for the CPU; the JAX package takes none."""
+    return dict(device="cpu") if pkg is tsp else {}
+
 OPTS = dict(tol=1e-7, k_max=5000)  # test_laxMPC_FISTA.m:6-7
 
 
@@ -32,7 +38,7 @@ def fixture():
 def solver(fixture):
     sys, param, _ = fixture
     return tsp.make_solver(sys, param, formulation="laxMPC", method="FISTA",
-                           **OPTS)
+                           **OPTS, device="cpu")
 
 
 def _param(param, formulation):
@@ -49,7 +55,7 @@ def _pair(formulation, sys, param, debug=0, **kw):
         o.debug = debug
         out.append(pkg.make_solver(sys, _param(param, formulation),
                                    formulation=formulation, method="FISTA",
-                                   options=o))
+                                   options=o, **_on_cpu(pkg)))
     return out
 
 
@@ -111,7 +117,8 @@ def test_nondiagonal_T_rejected(fixture):
     T[0, 1] = T[1, 0] = 0.5
     param["T"] = T
     with pytest.raises(ValueError, match="diagonal"):
-        tsp.make_solver(sys, param, formulation="laxMPC", method="FISTA")
+        tsp.make_solver(sys, param, formulation="laxMPC", method="FISTA",
+                        device="cpu")
 
 
 def test_adaptive_restart(fixture):
@@ -120,10 +127,11 @@ def test_adaptive_restart(fixture):
     fixture."""
     sys, param, st = fixture
     s_plain = tsp.make_solver(sys, param, formulation="laxMPC",
-                              method="FISTA", tol=1e-7, k_max=10000)
+                              method="FISTA", tol=1e-7, k_max=10000,
+                              device="cpu")
     s_rst = tsp.make_solver(sys, param, formulation="laxMPC",
                             method="FISTA", tol=1e-7, k_max=10000,
-                            restart=True)
+                            restart=True, device="cpu")
     x0 = np.asarray(st["x"]) * 1.5
     rp = s_plain(x0, st["xr"], st["ur"])
     rr = s_rst(x0, st["xr"], st["ur"])
@@ -192,9 +200,9 @@ def test_fp32_dense_engine_converges(fixture):
                             restart=True)
     o.precision = "float"
     s32 = tsp.make_solver(sys, param, formulation="laxMPC", method="FISTA",
-                          options=o)
+                          options=o, device="cpu")
     s64 = tsp.make_solver(sys, param, formulation="laxMPC", method="FISTA",
-                          tol=1e-5, k_max=3000, restart=True)
+                          tol=1e-5, k_max=3000, restart=True, device="cpu")
     x = _batch(st, 16, 3)
     r32, r64 = s32(*x), s64(*x)
     assert r32.u.dtype == torch.float32

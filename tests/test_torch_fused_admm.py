@@ -17,6 +17,12 @@ from spcies_tpu_torch.kernels import fused_admm as fk
 
 torch.set_num_threads(2)
 
+
+def _on_cpu(pkg):
+    """make_solver's device argument for `pkg`: the port's solvers run on
+    the card unless asked for the CPU; the JAX package takes none."""
+    return dict(device="cpu") if pkg is tsp else {}
+
 # fp32 iterates: the two frameworks sum the [nz] x [nz, nz] product in
 # different orders. Each iteration adds about one fp32 ulp of an O(1)
 # entry to the gap between the two runs, and ADMM's slow modes keep it:
@@ -42,7 +48,7 @@ def _pair(sys, param, tol=1e-4, k_max=1000, tile_b=8, **kw):
         o.precision = "float"
         out.append(pkg.make_solver(sys, param, formulation="laxMPC",
                                    method="ADMM", backend="fused",
-                                   options=o))
+                                   options=o, **_on_cpu(pkg)))
     return out
 
 

@@ -19,6 +19,12 @@ from spcies_tpu_torch.solvers.fused_backend import FusedEADMMSolve
 
 torch.set_num_threads(2)
 
+
+def _on_cpu(pkg):
+    """make_solver's device argument for `pkg`: the port's solvers run on
+    the card unless asked for the CPU; the JAX package takes none."""
+    return dict(device="cpu") if pkg is tsp else {}
+
 # fp32 iterates: the two frameworks sum the products in different orders,
 # and each iteration adds about one fp32 ulp to the gap between the runs.
 # On this fixture max|dz| reaches 1.2e-5 after at most 155 iterations, so
@@ -48,7 +54,7 @@ def _fused_pair(sys, param, **kw):
         o.precision = "float"
         out.append(pkg.make_solver(sys, param, formulation="MPCT",
                                    method="EADMM", backend="fused",
-                                   options=o))
+                                   options=o, **_on_cpu(pkg)))
     return out
 
 
@@ -121,7 +127,7 @@ def test_warm_start_matches_jax_fused(fixture):
     x = _data(st, 8, 24)
     o = tsp.default_options("MPCT", "EADMM", **KW)
     rd = tsp.make_solver(sys, param, formulation="MPCT", method="EADMM",
-                         options=o)(*x)
+                         options=o, device="cpu")(*x)
     init = tuple(rd.sol[key].float() for key in ("z1", "z2", "z3", "lam"))
     s_j, s_t = _fused_pair(sys, param)
     rt = s_t(*x, init=init)

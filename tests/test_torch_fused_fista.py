@@ -18,6 +18,12 @@ from spcies_tpu_torch.kernels import fused_fista as fk
 
 torch.set_num_threads(2)
 
+
+def _on_cpu(pkg):
+    """make_solver's device argument for `pkg`: the port's solvers run on
+    the card unless asked for the CPU; the JAX package takes none."""
+    return dict(device="cpu") if pkg is tsp else {}
+
 # fp32 iterates: the two frameworks sum the products in different orders,
 # and each iteration adds about one fp32 ulp to the gap between the runs.
 # On this fixture max|dz| reaches 2.4e-6 after at most 108 iterations, so z
@@ -52,7 +58,7 @@ def _fused_pair(formulation, sys, param, tol=1e-5, k_max=3000, **kw):
         o.precision = "float"
         out.append(pkg.make_solver(sys, _param(param, formulation),
                                    formulation=formulation, method="FISTA",
-                                   backend="fused", options=o))
+                                   backend="fused", options=o, **_on_cpu(pkg)))
     return out
 
 
@@ -62,7 +68,7 @@ def _dense(pkg, formulation, sys, param, precision="float", tol=1e-5,
     o.precision = precision
     return pkg.make_solver(sys, _param(param, formulation),
                            formulation=formulation, method="FISTA",
-                           options=o)
+                           options=o, **_on_cpu(pkg))
 
 
 def _data(st, B, seed=0):

@@ -21,6 +21,12 @@ from spcies_tpu_torch.kernels import fused_admm as fa
 
 torch.set_num_threads(2)
 
+
+def _on_cpu(pkg):
+    """make_solver's device argument for `pkg`: the port's solvers run on
+    the card unless asked for the CPU; the JAX package takes none."""
+    return dict(device="cpu") if pkg is tsp else {}
+
 OPTS = dict(rho=1e-2, tol=1e-7, k_max=5000)   # test_MPCT_ADMM.m
 CS = dict(formulation="MPCT", method="ADMM", submethod="cs")
 
@@ -37,7 +43,7 @@ def fixture():
 @pytest.fixture(scope="module")
 def solver(fixture):
     sys, param, _ = fixture
-    return tsp.make_solver(sys, param, **CS, **OPTS)
+    return tsp.make_solver(sys, param, **CS, **OPTS, device="cpu")
 
 
 def _batch(st, B, seed):
@@ -70,7 +76,8 @@ def test_u_matches_eadmm(solver, fixture):
     the optimisation tolerance."""
     sys, param, st = fixture
     s_ea = tsp.make_solver(sys, param, formulation="MPCT", method="EADMM",
-                           rho_base=2.0, rho_mult=20.0, tol=1e-7, k_max=5000)
+                           rho_base=2.0, rho_mult=20.0, tol=1e-7, k_max=5000,
+                           device="cpu")
     u_cs = solver(st["x"], st["xr"], st["ur"]).u[0].numpy()
     u_ea = s_ea(st["x"], st["xr"], st["ur"]).u[0].numpy()
     assert np.max(np.abs(u_cs - u_ea)) < 1e-4
@@ -94,7 +101,7 @@ def test_dense_fp64_parity(fixture, relax_alpha):
     warm start included."""
     sys, param, st = fixture
     kw = dict(rho=0.1, tol=1e-7, k_max=5000, relax_alpha=relax_alpha)
-    s_j, s_t = (pkg.make_solver(sys, param, **CS, **kw)
+    s_j, s_t = (pkg.make_solver(sys, param, **CS, **kw, **_on_cpu(pkg))
                 for pkg in (jsp, tsp))
     x = _batch(st, 8, 2)
 
@@ -124,7 +131,7 @@ def _fused_pair(sys, param, **kw):
                                 **{**kw, **extra})
         o.precision = "float"
         out.append(pkg.make_solver(sys, param, **CS, backend="fused",
-                                   options=o))
+                                   options=o, **_on_cpu(pkg)))
     return out
 
 
@@ -161,7 +168,7 @@ def test_fused_matches_jax_fused(fixture, mode):
                 if key not in ("check_every", "exact_k")}
     o = tsp.default_options("MPCT", "ADMM", "cs", **dense_kw)
     o.precision = "float"
-    rd = tsp.make_solver(sys, param, **CS, options=o)(*x)
+    rd = tsp.make_solver(sys, param, **CS, options=o, device="cpu")(*x)
     assert np.all(rd.e_flag.numpy() == 1)
     np.testing.assert_allclose(rd.u.numpy(), rt.u.numpy(), rtol=0,
                                atol=1e-4)
@@ -208,7 +215,7 @@ def test_slice_from_jax_ingredients(fixture, name):
     rj = s_j(*x)
     for ingredients in (ing, None):
         rt = tsp.make_solver(sys, param, **fm, ingredients=ingredients,
-                             **kw)(*x)
+                             **kw, device="cpu")(*x)
         np.testing.assert_array_equal(rt.k.numpy(), np.asarray(rj.k))
         np.testing.assert_array_equal(rt.e_flag.numpy(),
                                       np.asarray(rj.e_flag))
@@ -245,4 +252,4 @@ def test_error_probes(fixture, probe, exc, match):
     o.precision = probe.pop("precision", "double")
     with pytest.raises(exc, match=match):
         tsp.make_solver(sys, param, formulation="MPCT", method="ADMM",
-                        submethod=sub, options=o, **probe)
+                        submethod=sub, options=o, **probe, device="cpu")

@@ -17,6 +17,12 @@ from spcies_tpu_torch.kernels import fused_eadmm as fk
 
 torch.set_num_threads(2)
 
+
+def _on_cpu(pkg):
+    """make_solver's device argument for `pkg`: the port's solvers run on
+    the card unless asked for the CPU; the JAX package takes none."""
+    return dict(device="cpu") if pkg is tsp else {}
+
 OPTS = dict(rho_base=2.0, rho_mult=20.0, tol=1e-7, k_max=5000)
 
 
@@ -33,7 +39,7 @@ def fixture():
 def solver(fixture):
     sys, param, _ = fixture
     return tsp.make_solver(sys, param, formulation="MPCT", method="EADMM",
-                           **OPTS)
+                           **OPTS, device="cpu")
 
 
 def _batch(st, B, seed, scale=2.0):
@@ -88,7 +94,7 @@ def test_rho_scalar_override(fixture):
     (compute_MPCT_EADMM_ingredients.m:76-79)."""
     sys, param, st = fixture
     s = tsp.make_solver(sys, param, formulation="MPCT", method="EADMM",
-                        rho=2.0, tol=1e-5, k_max=5000)
+                        rho=2.0, tol=1e-5, k_max=5000, device="cpu")
     assert np.all(s.ingredients["rho"] == 2.0)
     res = s(st["x"], st["xr"], st["ur"])
     u_o, k_o, _, _ = mpct_eadmm_oracle(
@@ -103,7 +109,8 @@ def test_dense_fp64_parity(fixture):
     warm start included."""
     sys, param, st = fixture
     s_j, s_t = (pkg.make_solver(sys, param, formulation="MPCT",
-                                method="EADMM", **OPTS) for pkg in (jsp, tsp))
+                                method="EADMM", **OPTS, **_on_cpu(pkg))
+                for pkg in (jsp, tsp))
     x = _batch(st, 8, 2)
     keys = ("z1", "z2", "z3", "lam", "r_pf", "r_z2", "r_z3")
 
@@ -120,7 +127,7 @@ def test_dense_fp64_parity(fixture):
     parity(rj, rt)
     # a warm start from a looser solve
     loose = tsp.make_solver(sys, param, formulation="MPCT", method="EADMM",
-                            **dict(OPTS, tol=1e-3))(*x)
+                            **dict(OPTS, tol=1e-3), device="cpu")(*x)
     init = tuple(loose.sol[key] for key in ("z1", "z2", "z3", "lam"))
     warm_t = s_t(*x, init=init)
     assert np.all(warm_t.k.numpy() < rt.k.numpy())
@@ -137,7 +144,7 @@ def test_debug_traces_and_fixed_iters(fixture, debug):
         o = pkg.default_options("MPCT", "EADMM", **dict(OPTS, k_max=400))
         o.debug = debug
         out.append(pkg.make_solver(sys, param, formulation="MPCT",
-                                   method="EADMM", options=o)(
+                                   method="EADMM", options=o, **_on_cpu(pkg))(
             *_batch(st, 3, 3)))
     rj, rt = out
     for key in ("hRpf", "hRz2", "hRz3"):
@@ -146,7 +153,7 @@ def test_debug_traces_and_fixed_iters(fixture, debug):
                                    np.asarray(rj.sol[key]), rtol=0,
                                    atol=1e-9, err_msg=key)
     s = tsp.make_solver(sys, param, formulation="MPCT", method="EADMM",
-                        **OPTS)
+                        **OPTS, device="cpu")
     r = s(*_batch(st, 3, 3), fixed_iters=7)
     assert np.all(r.k.numpy() == 7) and np.all(r.e_flag.numpy() == 1)
     np.testing.assert_allclose(r.sol["r_pf"].numpy(),
@@ -165,7 +172,7 @@ def _solver(sys, param, backend, **kw):
     o = tsp.default_options("MPCT", "EADMM", tile_b=8, **{**FUSED_KW, **kw})
     o.precision = "float"
     return tsp.make_solver(sys, param, formulation="MPCT", method="EADMM",
-                           backend=backend, options=o)
+                           backend=backend, options=o, device="cpu")
 
 
 def test_fused_matches_dense(fixture):
@@ -253,5 +260,5 @@ def test_error_probes(fixture, probe, exc, match):
     fixed = probe.pop("fixed_iters", None)
     with pytest.raises(exc, match=match):
         s = tsp.make_solver(sys, param, formulation="MPCT", method="EADMM",
-                            options=o, **probe)
+                            options=o, **probe, device="cpu")
         s(*_batch(st, 8, 0), fixed_iters=fixed)

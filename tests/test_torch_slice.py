@@ -19,6 +19,12 @@ from spcies_tpu_torch.convert import ingredients_from_jax
 
 torch.set_num_threads(2)
 
+
+def _on_cpu(pkg):
+    """make_solver's device argument for `pkg`: the port's solvers run on
+    the card unless asked for the CPU; the JAX package takes none."""
+    return dict(device="cpu") if pkg is tsp else {}
+
 REPO = Path(__file__).resolve().parent.parent
 
 
@@ -71,7 +77,7 @@ def test_dense_fp64_end_to_end(fixture):
     for ing in (None, ingredients_from_jax(s_j.ingredients)):
         s_t = tsp.make_solver(sys, param, formulation="laxMPC",
                               method="ADMM", options=_opts(tsp, "double"),
-                              ingredients=ing)
+                              ingredients=ing, device="cpu")
         rt = s_t(*x)
         np.testing.assert_array_equal(rt.k.numpy(), np.asarray(rj.k))
         np.testing.assert_array_equal(rt.e_flag.numpy(),
@@ -100,7 +106,7 @@ def test_fused_end_to_end(fixture):
     for ing in (None, ingredients_from_jax(s_j.ingredients)):
         s_t = tsp.make_solver(sys, param, formulation="laxMPC",
                               method="ADMM", options=_opts(tsp, "float", **kw),
-                              backend="fused", ingredients=ing)
+                              backend="fused", ingredients=ing, device="cpu")
         assert s_t.stage_layout == ("stagewise", True)
         rt = s_t(*x)
         dk = np.abs(rt.k.numpy() - np.asarray(rj.k))
@@ -118,7 +124,7 @@ def test_fused_end_to_end(fixture):
 def test_single_problem_and_broadcast(fixture):
     sys, param, st = fixture
     s_t = tsp.make_solver(sys, param, formulation="laxMPC", method="ADMM",
-                          options=_opts(tsp, "double"))
+                          options=_opts(tsp, "double"), device="cpu")
     one = s_t(st["x"], st["xr"], st["ur"])
     assert tuple(one.u.shape) == (1, 2)
     x0, _, _ = _batch(st, 3, 13)
@@ -144,7 +150,7 @@ def test_engineering_units(fixture):
         o = _opts(pkg, "double")
         o.in_engineering = True
         out.append(pkg.make_solver(sys_e, param, formulation="laxMPC",
-                                   method="ADMM", options=o))
+                                   method="ADMM", options=o, **_on_cpu(pkg)))
     x0e = np.asarray(st["x"]) / sys_e["Nx"] + sys_e["x0"]
     xre = np.asarray(st["xr"]) / sys_e["Nx"] + sys_e["x0"]
     ure = np.asarray(st["ur"]) / sys_e["Nu"] + sys_e["u0"]
@@ -154,7 +160,7 @@ def test_engineering_units(fixture):
                                atol=1e-9)
     # the incremental solve gives the same move, de-scaled
     s_inc = tsp.make_solver(sys, param, formulation="laxMPC", method="ADMM",
-                            options=_opts(tsp, "double"))
+                            options=_opts(tsp, "double"), device="cpu")
     r_inc = s_inc(st["x"], st["xr"], st["ur"])
     np.testing.assert_allclose(
         rt.u.numpy(), r_inc.u.numpy() / sys_e["Nu"] + sys_e["u0"], rtol=0,
@@ -164,7 +170,7 @@ def test_engineering_units(fixture):
 def test_timing_and_precision_pin(fixture):
     sys, param, st = fixture
     s_t = tsp.make_solver(sys, param, formulation="laxMPC", method="ADMM",
-                          options=_opts(tsp, "float"))
+                          options=_opts(tsp, "float"), device="cpu")
     seen = []
     raw = s_t.raw_fn
 
@@ -187,21 +193,21 @@ def test_timing_and_precision_pin(fixture):
     o = _opts(tsp, "float")
     o.timing = False
     res = tsp.make_solver(sys, param, formulation="laxMPC", method="ADMM",
-                          options=o)(st["x"], st["xr"], st["ur"])
+                          options=o, device="cpu")(st["x"], st["xr"], st["ur"])
     assert "times_ms" not in res.sol
 
 
 def test_problem_recipe_builds_solver(fixture):
     sys, param, st = fixture
     prob = tsp.Problem(sys=sys, param=param, options=_opts(tsp, "double"))
-    res = prob.copy().solver()(st["x"], st["xr"], st["ur"])
+    res = prob.copy().solver(device="cpu")(st["x"], st["xr"], st["ur"])
     assert int(res.e_flag[0]) == 1
 
 
 @pytest.mark.parametrize("probe,exc,match", [
     (dict(formulation="nope", method="ADMM"), ValueError, "Unknown"),
     (dict(formulation="laxMPC", method="EADMM"), ValueError, "not available"),
-    (dict(formulation="ellipMPC", method="ADMM"), NotImplementedError,
+    (dict(formulation="ellipHMPC", method="ADMM"), NotImplementedError,
      "No solver builder"),
     (dict(formulation="HMPC", method="ADMM"), NotImplementedError,
      "No solver builder"),
@@ -226,10 +232,29 @@ def test_error_probes(fixture, probe, exc, match):
         o.time_varying = probe.pop("time_varying", False)
     with pytest.raises(exc, match=match):
         if o is None:
-            tsp.make_solver(sys, p, rho=15.0, **probe)
+            tsp.make_solver(sys, p, rho=15.0, **probe, device="cpu")
         else:
             tsp.make_solver(sys, p, formulation="laxMPC", method="ADMM",
-                            options=o, **probe)
+                            options=o, **probe, device="cpu")
+
+
+def test_default_device_is_the_card(fixture):
+    """Left out, make_solver's and every builder's device is the CUDA card:
+    without one they raise and name device="cpu", never solving on the
+    CPU unasked."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default builds there")
+    sys, param, _ = fixture
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        tsp.make_solver(sys, param, formulation="laxMPC", method="ADMM",
+                        options=_opts(tsp, "double"))
+    builders = [(key, fn) for key, fn in tsp.formulations.BUILDERS.items()]
+    assert len(builders) == 8
+    for (f, m, sub), build in builders:
+        opt = tsp.default_options(f, m, sub)
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            build(sys, param, opt)
+    assert tsp.api.resolve_device("cpu") == torch.device("cpu")
 
 
 def test_fused_rejects_vector_rho(fixture):
@@ -237,7 +262,7 @@ def test_fused_rejects_vector_rho(fixture):
     o = _opts(tsp, "float", force_vector_rho=True)
     with pytest.raises(ValueError, match="scalar rho"):
         tsp.make_solver(sys, param, formulation="laxMPC", method="ADMM",
-                        options=o, backend="fused")
+                        options=o, backend="fused", device="cpu")
 
 
 def test_package_never_imports_jax():
