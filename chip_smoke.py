@@ -60,7 +60,23 @@ started together), then
      on every lane, and a small batch against the fp64 dense engine on
      the CPU;
  12. times K4 and K5, their plain versions and the fp32 dense engines at
-     B=8192 and 32768.
+     B=8192 and 32768;
+ 13. runs the HMPC kernels and their plain versions on the same CUDA
+     tensors at the bench's four N=30 HMPC families (bench.py:327-375: w =
+     3 * 1.627 * 0.2, Te = Th = 10 N Q, Se = R, Sh = R / 2, tol 1e-4):
+     K6 for HMPC-ADMM (rho 5, k_max 5000, plain free-run with check_every
+     8, which takes tile_b 8 on the card) and ellipHMPC-ADMM (the three
+     mass positions as outputs within +-0.1, Te = Th = N Q, rho 200,
+     sigma 0.01, binding sinusoidal references) at B=8192, and at B=4096
+     checked, exact-k, capped and with use_soc; K7 for HMPC-ADMM-split and
+     HMPC-SADMM-split (rho 5, sigma 5, k_max 4000, exact-k with
+     check_every 8, tile_b 256) at B=8192, and at B=4096 checked, capped
+     and with use_soc; held together as in 1;
+ 14. drives the four HMPC paths through make_solver(..., backend="fused")
+     with the device left to its default, as in 11;
+ 15. times K6 and K7, their plain versions and the fp32 dense engines at
+     B=8192 and 32768 for HMPC-ADMM and HMPC-ADMM-split, and at B=8192 for
+     HMPC-SADMM-split and ellipHMPC-ADMM.
 The line before the card line lists every kernel with its launches on the
 main paths, its largest u error against its plain version, its time, its
 plain version's time and its bound: the larger of the bytes it must move
@@ -94,7 +110,7 @@ K_AGREE = 0.9985    # the JAX package's hardware bar for per-lane k parity
 U_TOL = 1e-4        # kernel vs plain version, lanes with equal k
 U_TOL_FP64 = 1e-3   # fp32 fused vs fp64 dense, tol 1e-4 solutions
 KERNELS = ("fused_admm", "fused_fista", "fused_eadmm", "fused_ellip",
-           "fused_soc")
+           "fused_soc", "fused_hmpc", "fused_split")
 DEVICE = "cuda"
 # the bench's N=30 families (bench.py:262-288) at its family batch
 # (bench.py:207): exact-k, check_every 8, k_max 4000
@@ -122,6 +138,22 @@ ELLIP_FAMILIES = {
     "ellipMPC-ADMM-soc": ("soc", dict(rho=5.0, sigma=4.0, tol_p=TOL,
                                       tol_d=TOL, k_max=5000, tile_b=8,
                                       check_every=8)),
+}
+# the bench's N=30 HMPC families (bench.py:327-375); HMPC-ADMM and
+# ellipHMPC-ADMM run plain free-run, which takes tile_b 8 on the card
+HMPC_FAMILIES = {
+    "HMPC-ADMM": ("HMPC", "ADMM", "", dict(
+        rho=5.0, sigma=20.0, tol_p=TOL, tol_d=TOL, k_max=5000, tile_b=8,
+        check_every=8)),
+    "HMPC-ADMM-split": ("HMPC", "ADMM", "split", dict(
+        rho=5.0, sigma=5.0, tol_p=TOL, tol_d=TOL, k_max=4000,
+        tile_b=TILE_B, check_every=8, exact_k=True)),
+    "HMPC-SADMM-split": ("HMPC", "SADMM", "split", dict(
+        rho=5.0, sigma=5.0, tol_p=TOL, tol_d=TOL, k_max=4000,
+        tile_b=TILE_B, check_every=8, exact_k=True)),
+    "ellipHMPC-ADMM": ("ellipHMPC", "ADMM", "", dict(
+        rho=200.0, sigma=0.01, tol_p=TOL, tol_d=TOL, k_max=5000, tile_b=8,
+        check_every=8)),
 }
 # the card's published peaks (H100 SXM, 700 W): fp32 outside the tensor
 # cores, and device memory
@@ -155,14 +187,17 @@ def build_kernels():
     from spcies_tpu_torch.kernels.fused_eadmm import FUSED_EADMM_ARGTYPES
     from spcies_tpu_torch.kernels.fused_ellip import FUSED_ELLIP_ARGTYPES
     from spcies_tpu_torch.kernels.fused_fista import FUSED_FISTA_ARGTYPES
+    from spcies_tpu_torch.kernels.fused_hmpc import FUSED_HMPC_ARGTYPES
     from spcies_tpu_torch.kernels.fused_soc import FUSED_SOC_ARGTYPES
+    from spcies_tpu_torch.kernels.fused_split import FUSED_SPLIT_ARGTYPES
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(KERNELS)) as pool:
         built = list(pool.map(_build.build, KERNELS))
     for name, argtypes, (_lib, rec) in zip(
             KERNELS, (FUSED_ADMM_ARGTYPES, FUSED_FISTA_ARGTYPES,
                       FUSED_EADMM_ARGTYPES, FUSED_ELLIP_ARGTYPES,
-                      FUSED_SOC_ARGTYPES), built):
+                      FUSED_SOC_ARGTYPES, FUSED_HMPC_ARGTYPES,
+                      FUSED_SPLIT_ARGTYPES), built):
         _build.load_kernel(name, f"{name}_launch", argtypes)
         log(f"kernel build: {name} (nvcc {rec['seconds']:.2f} s, "
             f"cached={rec['cached']})")
@@ -927,12 +962,255 @@ def phase_ellip_times(sp):
     return out
 
 
+def hmpc_solver(sp, name, backend="fused", device=None, precision="float",
+                **kw):
+    """A solver of one of the bench's N=30 HMPC families; `device` None
+    leaves it to make_solver's default, the card."""
+    formulation, method, submethod, base = HMPC_FAMILIES[name]
+    sys_, param30, (_, _, ur) = problem(sp, 0, 1)
+    p = dict(param30)
+    p.pop("T", None)
+    p["w"] = 3 * 1.627 * 0.2
+    p["Te"] = 10 * p["N"] * np.asarray(p["Q"])
+    p["Th"] = p["Te"]
+    p["Se"] = np.asarray(p["R"]).copy()
+    p["Sh"] = 0.5 * p["Se"]
+    if formulation == "ellipHMPC":
+        n_x = np.asarray(sys_["A"]).shape[0]
+        sys_ = dict(sys_, E=np.eye(3, n_x), F=np.zeros((3, ur.shape[1])),
+                    LBy=-0.1 * np.ones(3), UBy=0.1 * np.ones(3))
+        p["Te"] = p["N"] * np.asarray(p["Q"])
+        p["Th"] = p["Te"]
+    o = sp.default_options(formulation, method, submethod, **{**base, **kw})
+    o.precision = precision
+    where = {} if device is None else dict(device=device)
+    return sp.make_solver(sys_, p, formulation=formulation, method=method,
+                          submethod=submethod, options=o, backend=backend,
+                          **where)
+
+
+def hmpc_inputs(sp, name, seed, B):
+    """The bench inputs of `problem`; for ellipHMPC the seven decomposed
+    references of bench.py:355-370: per-lane sine amplitudes in [0.125,
+    0.25] (cosine half as much) on the three positions, whose outputs then
+    exceed the +-0.1 bounds, and a constant input sine."""
+    _, _, (x0, xr, ur) = problem(sp, seed, B)
+    if HMPC_FAMILIES[name][0] != "ellipHMPC":
+        return x0, xr, ur
+    rng = np.random.default_rng(seed)
+    rng.uniform(-2.0, 2.0, (B, 1))         # the draw that made x0
+    amp = rng.uniform(0.5, 1.0, (B, 1)) * 0.25
+    xrs = np.zeros_like(xr)
+    xrs[:, :3] = amp
+    xrc = np.zeros_like(xr)
+    xrc[:, :3] = 0.5 * amp
+    return (x0, xr, xrs, xrc, ur, 0.1 * np.ones_like(ur),
+            np.zeros_like(ur))
+
+
+def hmpc_kernel_args(solver, inputs):
+    """The K6 or K7 kernel's exact arguments for one call of a fused
+    solver."""
+    from spcies_tpu_torch.api import broadcast_inputs
+    x = broadcast_inputs(torch.float32, solver.device, *inputs)
+    *kin, _b = solver.raw_fn.prepare(*x)
+    return (*kin, *solver.raw_fn.operator), dict(solver.raw_fn.kernel_kw)
+
+
+def hmpc_kernel(name):
+    """(key, kernel wrapper, plain version) of the kernel that serves an
+    HMPC family; both kernels return u's iterate first."""
+    from spcies_tpu_torch.kernels import fused_hmpc as k6
+    from spcies_tpu_torch.kernels import fused_split as k7
+    if HMPC_FAMILIES[name][2] == "split":
+        return "fused_split", k7.fused_split_solve, k7.fused_split_reference
+    return "fused_hmpc", k6.fused_hmpc_solve, k6.fused_hmpc_reference
+
+
+def phase_hmpc_kernel_vs_plain(sp):
+    """K6 and K7 against their plain versions on the same CUDA tensors.
+    Returns the largest u error of each kernel over its modes."""
+    adm, ell = "HMPC-ADMM", "ellipHMPC-ADMM"
+    spl, sad = "HMPC-ADMM-split", "HMPC-SADMM-split"
+    ek = dict(tile_b=TILE_B, check_every=8, exact_k=True)
+    checked = dict(tile_b=TILE_B, check_every=1, exact_k=False)
+    capped = dict(ek, tol_p=1e-13, tol_d=1e-13, k_max=19)
+    modes = [
+        (adm, f"free-run B={FB}", FB, False, {}),
+        (ell, f"free-run B={FB}", FB, False, {}),
+        (spl, f"exact-k B={FB}", FB, False, {}),
+        (sad, f"exact-k B={FB}", FB, False, {}),
+        (adm, f"checked B={SMALL_BATCH}", SMALL_BATCH, False, checked),
+        (adm, f"exact-k B={SMALL_BATCH}", SMALL_BATCH, False, ek),
+        (adm, f"exact-k capped (tol 1e-13, k_max 19) B={SMALL_BATCH}",
+         SMALL_BATCH, True, capped),
+        (adm, f"use_soc free-run B={SMALL_BATCH}", SMALL_BATCH, False,
+         dict(use_soc=True)),
+        (ell, f"exact-k B={SMALL_BATCH}", SMALL_BATCH, False, ek),
+        (spl, f"checked B={SMALL_BATCH}", SMALL_BATCH, False, checked),
+        (sad, f"checked B={SMALL_BATCH}", SMALL_BATCH, False, checked),
+        (spl, f"exact-k capped (tol 1e-13, k_max 19) B={SMALL_BATCH}",
+         SMALL_BATCH, True, capped),
+        (spl, f"use_soc exact-k B={SMALL_BATCH}", SMALL_BATCH, False,
+         dict(use_soc=True)),
+        (sad, f"use_soc exact-k B={SMALL_BATCH}", SMALL_BATCH, False,
+         dict(use_soc=True)),
+    ]
+    u_err = {"fused_hmpc": 0.0, "fused_split": 0.0}
+    for name, label, B, cut, kw in modes:
+        solver = hmpc_solver(sp, name, device=DEVICE, **kw)
+        args, kk = hmpc_kernel_args(solver, hmpc_inputs(sp, name, 0, B))
+        key, kern, plain = hmpc_kernel(name)
+        out_k = kern(*args, **kk)
+        torch.cuda.synchronize()
+        out_p = plain(*args, **kk)
+        torch.cuda.synchronize()
+        a = agreement(out_k, out_p, B, solver.m, cut, u_at=0)
+        check_agreement(f"{name} {label}", a, phase=13)
+        if cut:
+            assert bool((out_k[3][:B] == 19).all()), "capped k"
+        u_err[key] = max(u_err[key], a["u_err"])
+    return u_err
+
+
+def phase_hmpc_paths(sp):
+    """The four HMPC paths, each through make_solver(..., backend='fused')
+    with the device left to its default: a request and a warm start from
+    it, each launching its kernel once and no other; then a small batch
+    against the fp64 dense engine on the CPU. Returns the launches of each
+    kernel."""
+    from spcies_tpu_torch.kernels.fused_admm import fused_admm_solve
+    from spcies_tpu_torch.kernels.fused_eadmm import fused_eadmm_solve
+    from spcies_tpu_torch.kernels.fused_ellip import fused_ellip_solve
+    from spcies_tpu_torch.kernels.fused_fista import fused_fista_solve
+    from spcies_tpu_torch.kernels.fused_hmpc import fused_hmpc_solve
+    from spcies_tpu_torch.kernels.fused_soc import fused_soc_solve
+    from spcies_tpu_torch.kernels.fused_split import fused_split_solve
+    counters = {"fused_admm": fused_admm_solve,
+                "fused_fista": fused_fista_solve,
+                "fused_eadmm": fused_eadmm_solve,
+                "fused_ellip": fused_ellip_solve,
+                "fused_soc": fused_soc_solve,
+                "fused_hmpc": fused_hmpc_solve,
+                "fused_split": fused_split_solve}
+    launches = dict.fromkeys(counters, 0)
+    for name in HMPC_FAMILIES:
+        kernel = hmpc_kernel(name)[0]
+        split = kernel == "fused_split"
+        solver = hmpc_solver(sp, name)
+        assert solver.device.type == DEVICE, solver.device
+        inputs = hmpc_inputs(sp, name, 0, FB)
+        for c in counters.values():
+            c.launches = 0
+        cold = solver(*inputs)
+        torch.cuda.synchronize()
+        after_cold = counters[kernel].launches
+        keys = ("z", "s", "lam", "mu") if split else ("z", "s", "lam")
+        warm = solver(*inputs, init=tuple(cold.sol[key] for key in keys))
+        torch.cuda.synchronize()
+        counts = {key: c.launches for key, c in counters.items()}
+        for tag, res in (("seed 0", cold), ("seed 0 warm", warm)):
+            log(f"phase 14 {name} request {tag}: "
+                f"k_mean={float(res.k.float().mean())} "
+                f"k_max={int(res.k.max())} "
+                f"converged={float((res.e_flag == 1).float().mean())} "
+                f"times_ms={res.sol['times_ms']}")
+            assert tuple(res.u.shape) == (FB, solver.m), res.u.shape
+            assert res.u.device.type == DEVICE
+            assert bool(torch.isfinite(res.u).all()), name
+            assert bool((res.e_flag == 1).all()), (name, tag)
+        assert after_cold == 1 and counts[kernel] == 2, (name, counts)
+        assert sum(counts.values()) == 2, (name, counts)
+        assert float(warm.k.float().mean()) < float(cold.k.float().mean())
+        launches[kernel] += counts[kernel]
+
+        # a lane in plain free-run keeps iterating past its exit until its
+        # block of 8 is done, so its u is not the fp64 engine's exit point
+        # (at ellipHMPC's rho 200 and tol 1e-4 the two lie 2.8e-3 apart in
+        # a CPU rehearsal, each as far from the solution): those families
+        # are held to it through the checked mode of the same kernel
+        small = hmpc_inputs(sp, name, 5, 64)
+        r64 = hmpc_solver(sp, name, backend="dense", device="cpu",
+                          precision="double")(*small)
+        kw = solver.raw_fn.kernel_kw
+        free_run = kw["check_every"] > 1 and not kw["exact_k"]
+        r32 = (hmpc_solver(sp, name, check_every=1) if free_run
+               else solver)(*small)
+        err = float((r32.u.cpu().double() - r64.u).abs().max())
+        log(f"phase 14 {name} fused fp32 ({DEVICE}"
+            f"{', checked' if free_run else ''}) vs dense fp64 (cpu), B=64: "
+            f"max|du|={err}")
+        assert bool((r64.e_flag == 1).all()) and bool((r32.e_flag == 1).all())
+        assert err <= U_TOL_FP64, (name, err)
+    return launches
+
+
+def hmpc_flops(solver, key):
+    """FLOP of one iteration's products at the real widths: K7's dq @ M1'
+    over dim + n_s; K6's w @ (C M1') over n_s x dim (dense) and z @ C' over
+    C's nonzeros alone (a box row of C is one -1, a cone row touches a few
+    harmonic entries)."""
+    ing = solver.ingredients
+    dim, n_s = ing["dim"], ing["n_s"]
+    if key == "fused_split":
+        return 2.0 * (dim + n_s) ** 2
+    return 2.0 * n_s * dim + 2.0 * np.count_nonzero(ing["C"])
+
+
+def phase_hmpc_times(sp):
+    """K6 and K7, their plain versions and the fp32 dense engines, in turns,
+    each a CUDA-event mean: at B=8192 and 32768 for HMPC-ADMM and
+    HMPC-ADMM-split, at B=8192 for the other two. Returns the minima and
+    each kernel's bound."""
+    out = {}
+    for name in HMPC_FAMILIES:
+        key, kern, plain = hmpc_kernel(name)
+        sizes = (FB, BATCH) if name in ("HMPC-ADMM",
+                                        "HMPC-ADMM-split") else (FB,)
+        for B in sizes:
+            fused = hmpc_solver(sp, name, device=DEVICE)
+            dense = hmpc_solver(sp, name, backend="dense", device=DEVICE)
+            dense.options.timing = False
+            inputs = hmpc_inputs(sp, name, 0, B)
+            args, kk = hmpc_kernel_args(fused, inputs)
+            x = [torch.as_tensor(a, dtype=torch.float32, device=DEVICE)
+                 for a in inputs]
+            kernel = lambda: kern(*args, **kk)  # noqa: E731
+            plain_fn = lambda: plain(*args, **kk)  # noqa: E731
+            dense_fn = lambda: dense(*x)  # noqa: E731
+            t = {"plain": [], "kernel": [], "dense": []}
+            t["plain"].append(cuda_ms(plain_fn))
+            t["kernel"].append(cuda_ms(kernel, reps=5))
+            t["kernel"].append(cuda_ms(kernel, reps=5))
+            t["plain"].append(cuda_ms(plain_fn))
+            t["dense"].append(cuda_ms(dense_fn))
+            t["dense"].append(cuda_ms(dense_fn))
+            res = dense(*x)
+            log(f"phase 15 {name} dense fp32 engine B={B}: "
+                f"k_mean={float(res.k.float().mean())} "
+                f"converged={float((res.e_flag == 1).float().mean())}")
+            res = kernel()
+            k = res[3][:B].long()
+            blocks = k.reshape(-1, 8).amax(dim=1)
+            bound = roofline(args + res, iter_flops(k, hmpc_flops(fused, key)))
+            log(f"phase 15 {name} kernel B={B}: k_mean="
+                f"{float(k.float().mean())} k_max={int(k.max())} mean "
+                f"block k={float(blocks.float().mean())} bound={bound}")
+            log(f"phase 15 {name} times (ms per B={B} solve, CUDA events): "
+                + json.dumps(t))
+            out[(name, B)] = dict({key: min(v) for key, v in t.items()},
+                                  bound=bound)
+    return out
+
+
 def kernel_entry(name, launches, err, times):
     """One kernel's entry of the `kernels` line."""
     line = {"fused_admm": "fused_admm.py:74", "fused_fista":
             "fused_fista.py:61", "fused_eadmm": "fused_eadmm.py:50",
             "fused_ellip": "fused_ellip.py:54",
-            "fused_soc": "fused_soc.py:42"}[name]
+            "fused_soc": "fused_soc.py:42",
+            "fused_hmpc": "fused_hmpc.py:57",
+            "fused_split": "fused_split.py:58"}[name]
     bound_ms, bound_by = times["bound"]
     return {"name": name, "route": "cuda",
             "source": f"spcies_tpu_torch/csrc/{name}.cu",
@@ -964,6 +1242,9 @@ def main():
     ellip_err = phase_ellip_kernel_vs_plain(sp)
     ellip_launches = phase_ellip_paths(sp)
     ellip_times = phase_ellip_times(sp)
+    hmpc_err = phase_hmpc_kernel_vs_plain(sp)
+    hmpc_launches = phase_hmpc_paths(sp)
+    hmpc_times = phase_hmpc_times(sp)
     log(json.dumps({"kernels": [
         kernel_entry("fused_admm", launches + fam_launches["fused_admm"]
                      + mpct_launches["fused_admm"], head["u_err"], times),
@@ -976,7 +1257,13 @@ def main():
                      ellip_times[("ellipMPC-ADMM", FB)]),
         kernel_entry("fused_soc", ellip_launches["fused_soc"],
                      ellip_err["fused_soc"],
-                     ellip_times[("ellipMPC-ADMM-soc", FB)])]}))
+                     ellip_times[("ellipMPC-ADMM-soc", FB)]),
+        kernel_entry("fused_hmpc", hmpc_launches["fused_hmpc"],
+                     hmpc_err["fused_hmpc"],
+                     hmpc_times[("HMPC-ADMM", FB)]),
+        kernel_entry("fused_split", hmpc_launches["fused_split"],
+                     hmpc_err["fused_split"],
+                     hmpc_times[("HMPC-ADMM-split", FB)])]}))
     log(card)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

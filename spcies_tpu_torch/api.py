@@ -46,7 +46,14 @@ def broadcast_inputs(dtype, device, *arrays):
     return out
 
 
-_INPUT_KINDS = {"x0": "x", "xr": "x", "ur": "u"}
+# per-input unit kind for the in_engineering scaling: 'x' and 'u' take
+# the scaling and the operating point (code_laxMPC_ADMM_C.c:82-115); 'xa'
+# and 'ua' are sinusoid AMPLITUDES (ellipHMPC's harmonic sine and cosine
+# components), which take the scaling alone: for x_eng(t) = xre + xrs sin +
+# xrc cos the incremental signal is Nx (xre - opx) + (Nx xrs) sin +
+# (Nx xrc) cos
+_INPUT_KINDS = {"x0": "x", "xr": "x", "ur": "u", "xre": "x", "ure": "u",
+                "xrs": "xa", "xrc": "xa", "urs": "ua", "urc": "ua"}
 
 
 class BatchedSolver:
@@ -70,9 +77,8 @@ class BatchedSolver:
         # trailing optional inputs (e.g. the soc solver's runtime radius,
         # code_ellipMPC_ADMM_soc_C.c:20 r_ellip) with their default values
         self.default_inputs = tuple(default_inputs)
-        # per-input unit kind for the in_engineering scaling ('x' | 'u' |
+        # per-input unit kind for the in_engineering scaling (_INPUT_KINDS;
         # None: unscaled), from the input's name
-        # (code_laxMPC_ADMM_C.c:82-115)
         self.input_kinds = tuple(_INPUT_KINDS.get(name)
                                  for name in self.input_names)
         self.n_inputs = len(self.input_names)
@@ -106,6 +112,10 @@ class BatchedSolver:
                 a = self._Nx * (np.asarray(a, float) - self._opx)
             elif kind == "u":
                 a = self._Nu * (np.asarray(a, float) - self._opu)
+            elif kind == "xa":
+                a = self._Nx * np.asarray(a, float)
+            elif kind == "ua":
+                a = self._Nu * np.asarray(a, float)
             out.append(a)
         return tuple(out)
 

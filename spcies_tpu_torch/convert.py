@@ -13,6 +13,11 @@ import numpy as np
 
 _ADMM_RHO = ("rho_is_scalar", "rho_scalar", "rho_vec", "rho_inv_vec")
 _FISTA = ("hinv_diag", "G", "Winv")
+# hmpc_common_ingredients; the builders form M1 and M2 from H, G and C
+_HMPC = ("n", "m", "N", "n_y", "ns", "dim", "n_eq", "n_s", "n_box", "n_soc",
+         "A", "B", "Q", "Te", "Se", "Th", "Sh", "H", "G", "C", "d",
+         "box_constraints", "use_soc", "box_LB", "box_UB", "stage_LB",
+         "stage_UB", "LBy", "UBy")
 
 # (formulation, method, submethod) -> the keys that triple's builders read
 BUILDER_KEYS = {
@@ -36,6 +41,10 @@ BUILDER_KEYS = {
                                   "Rd", "T", "sigma", "rho", "M1", "M2_b0",
                                   "M2_r", "M2_d", "PhiP", "LB", "UB",
                                   "r_default"),
+    ("HMPC", "ADMM", ""): _HMPC,
+    ("HMPC", "ADMM", "split"): _HMPC,
+    ("HMPC", "SADMM", "split"): _HMPC,
+    ("ellipHMPC", "ADMM", ""): _HMPC,
 }
 
 

@@ -66,7 +66,7 @@
 // registers; it spills about 280 bytes): on an NVIDIA H100 (700 W) at
 // B=8192 and 32768 that took 26.5 / 85.3 ms, against 26.6 / 89.3 ms at 128
 // registers (two blocks an SM), 28.0 / 87.6 ms unrolled 8 and 37.6 / 112.1
-// ms unrolled 4 (tools/ab_ellip_kernels.py; PERF.md, K4). Staging M2
+// ms unrolled 4 (tools/ab_kernels.py; PERF.md, K4). Staging M2
 // through shared memory, wgmma and TMA are left for later work.
 //
 // Arithmetic. fp32 on the CUDA cores, no TF32. The library is built with

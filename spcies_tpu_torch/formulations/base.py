@@ -19,10 +19,6 @@ BUILDERS: dict[tuple[str, str, str], Callable] = {}
 # triples of the JAX package not ported yet -> their ROADMAP queue 1 item
 UNPORTED = {
     ("MPCT", "ADMM", "semiband"): 9,
-    ("HMPC", "ADMM", ""): 11,
-    ("HMPC", "ADMM", "split"): 11,
-    ("HMPC", "SADMM", "split"): 11,
-    ("ellipHMPC", "ADMM", ""): 11,
 }
 
 

@@ -43,7 +43,8 @@ import ctypes
 import torch
 
 from spcies_tpu_torch.kernels.fused_admm import (COL_PAD, CTA_LANES,
-                                                 MAX_COLS, RBIG, round_up)
+                                                 MAX_COLS, round_up)
+from spcies_tpu_torch.kernels.modes import run_modes
 
 __all__ = ["COL_PAD", "CTA_LANES", "MAX_COLS", "round_up",
            "fused_soc_reference", "fused_soc_solve", "launch_geometry"]
@@ -57,10 +58,6 @@ FUSED_SOC_ARGTYPES = ([ctypes.c_void_p] * 16 + [ctypes.c_int] * 6
 # the leaves an exact-k snapshot saves per lane: aux, zs, lm
 SNAP_LEAVES = 3
 WARP = 32
-# plain version: read "all lanes done" on the host every this many
-# iterations of the checked loop (extra iterations of frozen lanes are
-# exact no-ops)
-_SYNC_EVERY = 8
 
 
 class _Ops:
@@ -109,92 +106,17 @@ class _Ops:
                 torch.amax(torch.abs(dd), dim=1))
 
 
-def _sel(mask, new, old):
-    return torch.where(mask.reshape(-1, *([1] * (new.ndim - 1))), new, old)
-
-
 def fused_soc_reference(aux1, zs0, lm0, M1P, LB_head, UB_head, scale_row,
                         iscale_row, *, dim_p: int, tol_p: float,
                         tol_d: float, k_max: int, tile_b: int = 256,
                         check_every: int = 1, exact_k: bool = False):
     """Plain PyTorch version of the fused kernel, for any float dtype and
     device. Same arguments and returns as `fused_soc_solve`."""
-    B = aux1.shape[0]
-    dt, dev = aux1.dtype, aux1.device
     ops = _Ops(M1P, LB_head, UB_head, scale_row, iscale_row, dim_p)
-    C = int(check_every)
-
-    def conv_of(r_p, r_d):
-        return torch.logical_and(r_p <= tol_p, r_d <= tol_d)
-
-    rbig = torch.full((B,), RBIG, dtype=dt, device=dev)
-    aux, zs, lm = aux1, zs0, lm0
-    done = torch.zeros((B,), dtype=torch.bool, device=dev)
-    k = torch.zeros((B,), dtype=torch.int32, device=dev)
-    rp, rd = rbig, rbig
-    if C > 1 and exact_k:
-        sa, szs, slm = aux, zs, lm
-        kws = torch.zeros_like(k)
-        it = 0
-        while it < k_max and not bool(done.all()):
-            a = torch.logical_not(done)
-            sa, szs, slm = _sel(a, aux, sa), _sel(a, zs, szs), _sel(a, lm,
-                                                                    slm)
-            kws = torch.where(a, it, kws)
-            # windows may overshoot k_max: the replay budget cuts each
-            # lane off at exactly k_max
-            for _ in range(C):
-                aux, zs, lm, r_p, r_d = ops.iterate(aux, zs, lm)
-            done = torch.logical_or(done, a & conv_of(r_p, r_d))
-            it += C
-        # replay each lane's last window with per-iteration checks
-        budget = torch.clamp(k_max - kws, max=C)
-        convd = torch.zeros_like(done)
-        k = kws
-        aux, an, zs, lm = sa, sa, szs, slm
-        for j in range(C):
-            act = torch.logical_not(convd) & (j < budget)
-            a2, zs2, lm2, r_p, r_d = ops.iterate(an, zs, lm)
-            aux, an = _sel(act, an, aux), _sel(act, a2, an)
-            zs, lm = _sel(act, zs2, zs), _sel(act, lm2, lm)
-            k = k + act.to(torch.int32)
-            rp, rd = _sel(act, r_p, rp), _sel(act, r_d, rd)
-            convd = torch.logical_or(convd, act & conv_of(r_p, r_d))
-        done = convd
-    elif C > 1:
-        # a tile of tile_b lanes stops iterating once all its lanes are
-        # done; until then its converged lanes keep iterating too
-        if B % tile_b:
-            raise ValueError(f"batch {B} is not a multiple of tile_b "
-                             f"{tile_b}")
-        it = 0
-        while it < k_max and not bool(done.all()):
-            ta = torch.logical_not(
-                done.reshape(-1, tile_b).all(dim=1)).repeat_interleave(tile_b)
-            n_fast = min(C - 1, k_max - 1 - it)
-            for _ in range(n_fast + 1):
-                a2, zs2, lm2, r_p, r_d = ops.iterate(aux, zs, lm)
-                aux, zs, lm = (_sel(ta, a2, aux), _sel(ta, zs2, zs),
-                               _sel(ta, lm2, lm))
-            a = torch.logical_not(done)
-            k = k + a.to(torch.int32) * (n_fast + 1)
-            rp, rd = _sel(a, r_p, rp), _sel(a, r_d, rd)
-            done = torch.logical_or(done, a & conv_of(r_p, r_d))
-            it += n_fast + 1
-    else:
-        an = aux
-        for it in range(k_max):
-            if it % _SYNC_EVERY == 0 and bool(done.all()):
-                break
-            a2, zs2, lm2, r_p, r_d = ops.iterate(an, zs, lm)
-            a = torch.logical_not(done)
-            aux, an = _sel(a, an, aux), _sel(a, a2, an)
-            zs, lm = _sel(a, zs2, zs), _sel(a, lm2, lm)
-            k = k + a.to(torch.int32)
-            rp, rd = _sel(a, r_p, rp), _sel(a, r_d, rd)
-            done = torch.logical_or(done, a & conv_of(r_p, r_d))
-    e_flag = torch.where(done, 1, -1).to(torch.int32)
-    return zs, lm, aux, k, e_flag, rp, rd
+    aux, zs, lm, *rest = run_modes(
+        ops.iterate, aux1, zs0, lm0, tol_p=tol_p, tol_d=tol_d, k_max=k_max,
+        tile_b=tile_b, check_every=check_every, exact_k=exact_k)
+    return (zs, lm, aux, *rest)
 
 
 def launch_geometry(B: int, P: int, dim_p: int, *, tile_b: int,

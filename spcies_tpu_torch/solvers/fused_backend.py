@@ -1,8 +1,9 @@
 """Generic 'fused' backend builders: dense single-split box-ADMM solvers
 on kernels/fused_admm.py, laxMPC/equMPC dual FISTA on
 kernels/fused_fista.py, MPCT three-block EADMM on kernels/fused_eadmm.py,
-and ellipMPC-ADMM and ADMM-soc on kernels/fused_ellip.py and
-kernels/fused_soc.py.
+ellipMPC-ADMM and ADMM-soc on kernels/fused_ellip.py and
+kernels/fused_soc.py, HMPC-ADMM and ellipHMPC-ADMM on kernels/fused_hmpc.py,
+and HMPC-ADMM-split and HMPC-SADMM-split on kernels/fused_split.py.
 
 Any formulation whose z-step is a baked dense affine map and whose
 projection is a box (laxMPC, equMPC, MPCT-ADMM-cs) runs the same fused
@@ -28,7 +29,11 @@ from spcies_tpu_torch.kernels.fused_eadmm import fused_eadmm_solve
 from spcies_tpu_torch.kernels.fused_ellip import (fused_ellip_solve,
                                                   slab_start)
 from spcies_tpu_torch.kernels.fused_fista import fused_fista_solve
+from spcies_tpu_torch.kernels.fused_hmpc import (WARP, cone_columns,
+                                                 cone_layout,
+                                                 fused_hmpc_solve)
 from spcies_tpu_torch.kernels.fused_soc import fused_soc_solve
+from spcies_tpu_torch.kernels.fused_split import fused_split_solve
 from spcies_tpu_torch.solvers.common import SolveResult
 
 
@@ -568,3 +573,245 @@ def build_fused_soc_solve(ing, opt, dtype, device, *, make_q):
     [B, dim] linear cost."""
     _require_fp32(dtype)
     return FusedSOCSolve(ing, opt, device, make_q=make_q)
+
+
+def _cone_positions(ing, start: int):
+    """(cone0, warps, g, columns [n_cones, 3]) of the HMPC cones in a
+    kernel layout whose box rows take columns [start, start + n_box)."""
+    n_cones = ing["n_soc"] if ing["use_soc"] else ing["n_y"]
+    cone0 = start + round_up(ing["n_box"], COL_PAD)
+    warps, g = cone_layout(n_cones)
+    return cone0, warps, g, cone_columns(warps, g, cone0)[:n_cones]
+
+
+def _cone_bounds(rows, cols, lby, uby):
+    """Write each cone's D-set bounds onto its three lanes of rows[0:2]."""
+    rows[0, cols] = np.asarray(lby)[:, None]
+    rows[1, cols] = np.asarray(uby)[:, None]
+
+
+class FusedHMPCSolve:
+    """`(*inputs, init, fixed_iters) -> SolveResult` running the fused
+    single-split cone-ADMM kernel (kernels/fused_hmpc.py) for HMPC-ADMM and
+    ellipHMPC-ADMM. Port of spcies_tpu/formulations/hmpc.py
+    `_build_hmpc_admm_fused`.
+
+    The constraint rows are permuted into the kernel's layout: the box
+    rows first, then the cone warps (`pos`); CT = C' and MC = C M1' are
+    built offline in fp64 at the padded widths. make_q(*inputs) -> [B, dim]
+    linear cost, x0 the first input; lby/uby override the D-set bounds
+    (ellipHMPC's sigma-tightened ones). The peeled first solve
+    z1 = (q + (rho (s0 - d) + lam0) @ C) @ M1' + aux_b runs outside the
+    kernel at full fp32. `init` is (z, s, lam). `prepare` and `operator`
+    expose the kernel's exact arguments; the kernel takes them in float32,
+    and `dtype` other than that builds them for the plain version alone.
+    """
+
+    def __init__(self, ing, opt, device, M1_np, M2_np, *, make_q, lby=None,
+                 uby=None, dtype=torch.float32):
+        dim, n_s, n_box = ing["dim"], ing["n_s"], ing["n_box"]
+        self.m, self.dim, self.make_q, self.dtype = ing["m"], dim, make_q, dtype
+        s = opt.solver
+        self.tile_b = int(s.get("tile_b", 256))
+        self.rho = float(s["rho"])
+        use_soc = bool(ing["use_soc"])
+        cone0, warps, g, cols = _cone_positions(ing, 0)
+        dim_p, ns_p = round_up(dim, COL_PAD), cone0 + WARP * warps
+        # kernel column of each constraint row: box rows, then cone c's
+        # (y0, y1, y2)
+        self.pos = np.concatenate([np.arange(n_box), cols.ravel()])
+        self.kernel_kw = dict(
+            rho=self.rho, tol_p=float(s["tol_p"]), tol_d=float(s["tol_d"]),
+            k_max=int(s["k_max"]), use_soc=use_soc, cone0=cone0, cone_g=g,
+            tile_b=self.tile_b, check_every=int(s.get("check_every", 1)),
+            exact_k=bool(s.get("exact_k", False)))
+
+        npdt = {torch.float32: np.float32, torch.float64: np.float64}[dtype]
+        C_pp = np.zeros((ns_p, dim))
+        C_pp[self.pos] = ing["C"]
+        CT = np.zeros((dim_p, ns_p), npdt)
+        CT[:dim] = C_pp.T
+        MC = np.zeros((ns_p, dim_p), npdt)
+        MC[:, :dim] = C_pp @ np.asarray(M1_np).T
+        rows = np.zeros((3, ns_p), npdt)           # d, lb, ub
+        rows[0, self.pos] = ing["d"]
+        rows[1, :n_box] = np.maximum(ing["box_LB"], -1e30)
+        rows[2, :n_box] = np.minimum(ing["box_UB"], 1e30)
+        if not use_soc:
+            _cone_bounds(rows[1:], cols, ing["LBy"] if lby is None else lby,
+                         ing["UBy"] if uby is None else uby)
+        self.operator = tuple(
+            torch.as_tensor(np.ascontiguousarray(a), device=device)
+            for a in (CT, MC, rows[0:1], rows[1:2], rows[2:3]))
+        self.M1, self.M2, self.C, self.d, self.A = (
+            torch.as_tensor(np.asarray(a, float), dtype=dtype, device=device)
+            for a in (M1_np, M2_np, ing["C"], ing["d"], ing["A"]))
+
+    def _scatter(self, x, Bp):
+        out = torch.zeros((Bp, self.operator[0].shape[1]), dtype=x.dtype,
+                          device=x.device)
+        out[:x.shape[0], self.pos] = x
+        return out
+
+    def prepare(self, *inputs, init=None):
+        """Kernel inputs for one call: z1 padded to [Bp, dim_p], (s0, lam0)
+        in the kernel's layout [Bp, ns_p], and the batch B."""
+        x0 = inputs[0]
+        Bsz = x0.shape[0]
+        q = self.make_q(*inputs)
+        aux_b = (-(x0 @ self.A.T)) @ self.M2.T
+        dt = dict(dtype=self.dtype, device=x0.device)
+        if init is None:
+            s0 = torch.zeros((Bsz, self.C.shape[0]), **dt)
+            lam0 = torch.zeros_like(s0)
+        else:
+            s0, lam0 = (torch.as_tensor(a, **dt) for a in init[1:])
+        # the peeled first z-solve, plain full-fp32 products
+        z1 = (q + (self.rho * (s0 - self.d) + lam0) @ self.C) @ self.M1.T \
+            + aux_b
+        Bp = round_up(Bsz, self.tile_b)
+        z1p = F.pad(z1, (0, self.operator[0].shape[0] - self.dim,
+                         0, Bp - Bsz))
+        return z1p, self._scatter(s0, Bp), self._scatter(lam0, Bp), Bsz
+
+    def __call__(self, *args):
+        *inputs, init, fixed_iters = args
+        if fixed_iters is not None:
+            raise ValueError("fixed_iters is not supported by the fused "
+                             "HMPC backend; use backend='dense'")
+        *kin, Bsz = self.prepare(*inputs, init=init)
+        z, s, lam, k, e_flag, r_p, r_d = fused_hmpc_solve(
+            *kin, *self.operator, **self.kernel_kw)
+        pos = torch.as_tensor(self.pos, device=z.device)
+        z = z[:Bsz, :self.dim]
+        return SolveResult(
+            u=z[:, :self.m], k=k[:Bsz], e_flag=e_flag[:Bsz],
+            sol=dict(z=z, s=s[:Bsz, pos], lam=lam[:Bsz, pos],
+                     r_p=r_p[:Bsz], r_d=r_d[:Bsz]))
+
+
+def build_fused_hmpc_solve(ing, opt, dtype, device, M1_np, M2_np, *, make_q,
+                           lby=None, uby=None):
+    """Return a FusedHMPCSolve for HMPC-ADMM or ellipHMPC-ADMM."""
+    _require_fp32(dtype)
+    return FusedHMPCSolve(ing, opt, device, M1_np, M2_np, make_q=make_q,
+                          lby=lby, uby=uby)
+
+
+class FusedSplitSolve:
+    """`(x0, xr, ur, init, fixed_iters) -> SolveResult` running the fused
+    split (S)ADMM kernel (kernels/fused_split.py) for HMPC-ADMM-split and
+    HMPC-SADMM-split. Port of spcies_tpu/formulations/hmpc.py
+    `_build_hmpc_split_fused`.
+
+    The layout is [z | s] with z padded to COL_PAD columns and the s rows
+    permuted into box rows, then cone warps (`pos`); M1' is permuted to
+    match. Head clip rows: the box bounds on z's stage entries (box mode)
+    or on s's box rows (output mode), +-3e38 on the free entries, [0, 0]
+    on pads. aux_b = -(x0 A') M2_b0' + aux_d with aux_d = M2[:, n_eq:] d
+    from fp64, and the peeled first aux1 = q_hat0 @ M1' + aux_b at full
+    fp32. `init` is (z, s, lam, mu). `prepare` and `operator` expose the
+    kernel's exact arguments; the kernel takes them in float32, and `dtype`
+    other than that builds them for the plain version alone.
+    """
+
+    def __init__(self, ing, opt, device, M1_np, M2_np, *, make_q,
+                 symmetric: bool, dtype=torch.float32):
+        n, dim, n_s = ing["n"], ing["dim"], ing["n_s"]
+        ns, n_box = ing["ns"], ing["n_box"]
+        self.m, self.dim, self.make_q, self.dtype = ing["m"], dim, make_q, dtype
+        s = opt.solver
+        self.tile_b = int(s.get("tile_b", 256))
+        self.sigma, self.rho = float(s["sigma"]), float(s["rho"])
+        use_soc = bool(ing["use_soc"])
+        dim_p = round_up(dim, COL_PAD)
+        cone0, warps, g, cols = _cone_positions(ing, dim_p)
+        P = cone0 + WARP * warps
+        pos_s = np.concatenate([dim_p + np.arange(n_box), cols.ravel()])
+        # kernel column of each entry of [z | s]
+        self.pos = np.concatenate([np.arange(dim), pos_s])
+        self.kernel_kw = dict(
+            alpha=float(s["alpha"]) if symmetric else 1.0,
+            symmetric=bool(symmetric), use_soc=use_soc, dim_p=dim_p,
+            cone0=cone0, cone_g=g, tol_p=float(s["tol_p"]),
+            tol_d=float(s["tol_d"]), k_max=int(s["k_max"]),
+            tile_b=self.tile_b, check_every=int(s.get("check_every", 1)),
+            exact_k=bool(s.get("exact_k", False)))
+
+        npdt = {torch.float32: np.float32, torch.float64: np.float64}[dtype]
+        M1P = np.zeros((P, P), npdt)
+        M1P[np.ix_(self.pos, self.pos)] = np.asarray(M1_np).T
+        rows = np.zeros((4, P), npdt)               # lb, ub, scale, iscale
+        box_at = np.arange(ns) if ing["box_constraints"] else pos_s[:n_box]
+        free = np.arange(ns if ing["box_constraints"] else 0, dim)
+        rows[0, box_at] = np.maximum(ing["box_LB"], -1e30)
+        rows[1, box_at] = np.minimum(ing["box_UB"], 1e30)
+        rows[0, free] = -3.0e38                     # harmonic refs unclipped
+        rows[1, free] = 3.0e38
+        if not use_soc:
+            _cone_bounds(rows, cols, ing["LBy"], ing["UBy"])
+        rows[2, :dim_p] = self.sigma
+        rows[2, dim_p:] = self.rho
+        rows[3, :dim] = 1.0 / self.sigma
+        rows[3, pos_s] = 1.0 / self.rho
+        self.operator = tuple(
+            torch.as_tensor(np.ascontiguousarray(a), device=device)
+            for a in (M1P, rows[0:1], rows[1:2], rows[2:3], rows[3:4]))
+        M2_np = np.asarray(M2_np, float)
+        self.M1, self.M2_b0, self.aux_d, self.A = (
+            torch.as_tensor(a, dtype=dtype, device=device)
+            for a in (np.asarray(M1_np, float), M2_np[:, :n],
+                      M2_np[:, ing["n_eq"]:] @ ing["d"], ing["A"]))
+        self.n_s = n_s
+
+    def prepare(self, x0, xr, ur, init=None):
+        """Kernel inputs for one call: (aux1, zs0, lm0) in the kernel's
+        padded layout [Bp, P], and the batch B."""
+        Bsz, dim = x0.shape[0], self.dim
+        q = self.make_q(x0, xr, ur)
+        aux_b = (-(x0 @ self.A.T)) @ self.M2_b0.T + self.aux_d
+        dt = dict(dtype=self.dtype, device=x0.device)
+        if init is None:
+            z0 = torch.zeros((Bsz, dim), **dt)
+            s0 = torch.zeros((Bsz, self.n_s), **dt)
+            lam0, mu0 = torch.zeros_like(z0), torch.zeros_like(s0)
+        else:
+            z0, s0, lam0, mu0 = (torch.as_tensor(a, **dt) for a in init)
+        # the peeled first KKT solve, a plain full-fp32 product
+        q_hat0 = torch.cat([q - self.sigma * z0 + lam0,
+                            mu0 - self.rho * s0], dim=-1)
+        aux1 = q_hat0 @ self.M1.T + aux_b
+        Bp = round_up(Bsz, self.tile_b)
+        P = self.operator[0].shape[0]
+
+        def scatter(x):
+            out = torch.zeros((Bp, P), **dt)
+            out[:Bsz, self.pos] = x
+            return out
+
+        return (scatter(aux1), scatter(torch.cat([z0, s0], dim=-1)),
+                scatter(torch.cat([lam0, mu0], dim=-1)), Bsz)
+
+    def __call__(self, x0, xr, ur, init, fixed_iters):
+        if fixed_iters is not None:
+            raise ValueError("fixed_iters is not supported by the fused "
+                             "split backend; use backend='dense'")
+        *kin, Bsz = self.prepare(x0, xr, ur, init=init)
+        zs, lm, aux, k, e_flag, r_p, r_d = fused_split_solve(
+            *kin, *self.operator, **self.kernel_kw)
+        pos = torch.as_tensor(self.pos, device=zs.device)
+        zs, lm, aux = zs[:Bsz, pos], lm[:Bsz, pos], aux[:Bsz, pos]
+        dim = self.dim
+        return SolveResult(
+            u=zs[:, :self.m], k=k[:Bsz], e_flag=e_flag[:Bsz],
+            sol=dict(z=zs[:, :dim], s=zs[:, dim:], z_hat=aux[:, :dim],
+                     s_hat=aux[:, dim:], lam=lm[:, :dim], mu=lm[:, dim:],
+                     r_p=r_p[:Bsz], r_d=r_d[:Bsz]))
+
+
+def build_fused_split_solve(ing, opt, dtype, device, M1_np, M2_np, *,
+                            make_q, symmetric: bool):
+    """Return a FusedSplitSolve for HMPC-ADMM-split or HMPC-SADMM-split."""
+    _require_fp32(dtype)
+    return FusedSplitSolve(ing, opt, device, M1_np, M2_np, make_q=make_q,
+                           symmetric=symmetric)
