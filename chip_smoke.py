@@ -10,10 +10,15 @@ started together), then
   1. runs the box-ADMM kernel and its plain PyTorch version on the same
      CUDA tensors at the laxMPC-ADMM headline (oscillating masses, N=30,
      rho=10, relax_alpha=1.9, tol 1e-4, k_max 1000, B=32768, exact-k with
-     check_every=16), and at B=4096 in the checked, free-run, fixed_iters
-     and bf16 modes, and holds them together: every lane converges, k
-     agrees on >= 0.9985 of lanes, and u agrees within 1e-4 on the lanes
-     with equal k;
+     check_every=16), at the MPCT-ADMM-cs family (480 columns, B=8192), in
+     the bf16 mode at B=32768 and 4096, and at B=4096 in the checked,
+     free-run, fixed_iters and unrelaxed modes, and holds them together:
+     every lane converges, k agrees on >= 0.9985 of lanes, and u agrees
+     within 1e-4 on the lanes with equal k; every fp32 mode is also run at
+     each number of lanes a block the kernel is built for and must give the
+     8-lane build's k, e_flag, iterates and residuals bit for bit
+     (tools/ab_kernels.py holds every build to the one-column-per-thread
+     parent kernel, csrc/variants/fused_admm_parent.cu);
   2. drives the main path — make_solver(..., backend="fused",
      device="cuda") — through four requests (three batches, then a warm
      start), checks that each went through the kernel and converged, and
@@ -70,8 +75,8 @@ started together), then
      sigma 0.01, binding sinusoidal references) at B=8192, and at B=4096
      checked, exact-k, capped and with use_soc; K7 for HMPC-ADMM-split and
      HMPC-SADMM-split (rho 5, sigma 5, k_max 4000, exact-k with
-     check_every 8, tile_b 256) at B=8192, and at B=4096 checked, capped
-     and with use_soc; held together as in 1;
+     check_every 8, tile_b 256) at B=8192, and at B=4096 checked,
+     free-run, capped and with use_soc; held together as in 1;
  14. drives the four HMPC paths through make_solver(..., backend="fused")
      with the device left to its default, as in 11;
  15. times K6 and K7, their plain versions and the fp32 dense engines at
@@ -89,10 +94,12 @@ any check fails. The last line is the JSON result.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -112,6 +119,9 @@ U_TOL_FP64 = 1e-3   # fp32 fused vs fp64 dense, tol 1e-4 solutions
 KERNELS = ("fused_admm", "fused_fista", "fused_eadmm", "fused_ellip",
            "fused_soc", "fused_hmpc", "fused_split")
 DEVICE = "cuda"
+# main() also writes every line to $SPCIES_LOG_DIR/chip_smoke.log where that
+# variable names a directory
+LOG_FILE = None
 # the bench's N=30 families (bench.py:262-288) at its family batch
 # (bench.py:207): exact-k, check_every 8, k_max 4000
 FB = 8192
@@ -158,11 +168,14 @@ HMPC_FAMILIES = {
 # the card's published peaks (H100 SXM, 700 W): fp32 outside the tensor
 # cores, and device memory
 PEAK_FP32 = 67e12
+PEAK_BF16 = 989e12   # dense bf16 on the tensor cores
 PEAK_BYTES = 3.35e12
 
 
 def log(msg):
     print(msg, flush=True)
+    if LOG_FILE is not None:
+        print(msg, file=LOG_FILE, flush=True)
 
 
 def require_cuda():
@@ -197,7 +210,8 @@ def build_kernels():
             KERNELS, (FUSED_ADMM_ARGTYPES, FUSED_FISTA_ARGTYPES,
                       FUSED_EADMM_ARGTYPES, FUSED_ELLIP_ARGTYPES,
                       FUSED_SOC_ARGTYPES, FUSED_HMPC_ARGTYPES,
-                      FUSED_SPLIT_ARGTYPES), built):
+                      FUSED_SPLIT_ARGTYPES),
+            built):
         _build.load_kernel(name, f"{name}_launch", argtypes)
         log(f"kernel build: {name} (nvcc {rec['seconds']:.2f} s, "
             f"cached={rec['cached']})")
@@ -221,8 +235,8 @@ def problem(sp, seed: int, B: int):
 
 
 def headline_options(sp, precision="float", **kw):
-    o = sp.default_options("laxMPC", "ADMM", rho=RHO, tol=TOL, k_max=K_MAX,
-                           relax_alpha=RELAX_ALPHA, **kw)
+    o = sp.default_options("laxMPC", "ADMM", **{**dict(
+        rho=RHO, tol=TOL, k_max=K_MAX, relax_alpha=RELAX_ALPHA), **kw})
     o.precision = precision
     return o
 
@@ -267,33 +281,60 @@ def check_agreement(name, a, phase=1):
     assert a["u_err"] <= U_TOL, (name, a["u_err"])
 
 
+def check_lanes_bitwise(args, kk, B, name):
+    """Run K1 at every number of lanes a block that takes this shape and
+    hold the builds to the 8-lane one bit for bit: every output (iterates,
+    k, e_flag, residuals) equal on every lane."""
+    from spcies_tpu_torch.kernels import fused_admm as k1
+    nzp = args[0].shape[1]
+    lanes = [L for L in k1.LANES
+             if B % L == 0 and k1.shared_bytes(nzp, L) <= k1.SMEM_MAX]
+    assert 8 in lanes and len(lanes) > 1, lanes
+    outs = {}
+    for L in lanes:
+        outs[L] = k1.fused_admm_solve(*args, **kk, lanes=L)
+        assert k1.fused_admm_solve.last_plan["lanes"] == L
+    torch.cuda.synchronize()
+    for L, out in outs.items():
+        same = all(bool(torch.equal(a, b)) for a, b in zip(out, outs[8]))
+        assert same, (name, L)
+    log(f"phase 1 {name}: builds {list(outs)} bit-identical")
+
+
 def phase_kernel_vs_plain(sp):
     """Kernel and plain version on the same CUDA tensors. Returns the
     headline comparison and the headline plain outputs."""
-    from spcies_tpu_torch.kernels.fused_admm import (fused_admm_reference,
-                                                     fused_admm_solve)
+    from spcies_tpu_torch.kernels import fused_admm as k1
+    exact = dict(tile_b=TILE_B, check_every=CHECK_EVERY, exact_k=True)
     modes = [
-        ("headline exact-k B=32768", BATCH, 0,
-         dict(tile_b=TILE_B, check_every=CHECK_EVERY, exact_k=True)),
+        ("headline exact-k B=32768", BATCH, 0, exact),
         ("checked B=4096", SMALL_BATCH, 0, dict(tile_b=TILE_B)),
         ("free-run B=4096", SMALL_BATCH, 0,
          dict(tile_b=8, check_every=CHECK_EVERY)),
         ("fixed_iters=50 B=4096", SMALL_BATCH, 50, dict(tile_b=TILE_B)),
+        ("relax_alpha=1 exact-k B=4096", SMALL_BATCH, 0,
+         dict(exact, relax_alpha=1.0)),
+        ("MPCT-ADMM-cs exact-k B=8192", FB, 0, None),
         ("bf16 exact-k B=4096", SMALL_BATCH, 0,
-         dict(tile_b=TILE_B, check_every=CHECK_EVERY, exact_k=True,
-              bf16_delta=True)),
+         dict(exact, bf16_delta=True)),
+        ("bf16 exact-k B=32768", BATCH, 0, dict(exact, bf16_delta=True)),
     ]
     head = None
     for name, B, fixed, kw in modes:
-        solver = fused_solver(sp, **kw)
+        solver = (mpct_solver(sp, "MPCT-ADMM-cs") if kw is None
+                  else fused_solver(sp, **kw))
         _, _, inputs = problem(sp, 0, B)
         args, kk = kernel_args(solver, inputs, fixed)
-        out_k = fused_admm_solve(*args, **kk)
+        out_k = k1.fused_admm_solve(*args, **kk)
         torch.cuda.synchronize()
-        out_p = fused_admm_reference(*args, **kk)
+        out_p = k1.fused_admm_reference(*args, **kk)
         torch.cuda.synchronize()
-        a = agreement(out_k, out_p, B, solver.m, bool(fixed))
+        # MPCT-ADMM-cs keeps u elsewhere in v: hold all of v together
+        m = solver.nz if kw is None else solver.m
+        a = agreement(out_k, out_p, B, m, bool(fixed))
         check_agreement(name, a)
+        if not kk["bf16"]:
+            check_lanes_bitwise(args, kk, B, name)
         if head is None:
             head = (a, out_p, solver.m)
     return head
@@ -418,9 +459,37 @@ def phase_times(sp, fused):
         + json.dumps(t))
     out = kernel()
     nz = fused.nz
-    bound = roofline(args + out, iter_flops(out[3][:BATCH], 2.0 * nz * nz))
+    k = out[3][:BATCH].long()
+    lanes = fused_admm_solve.last_plan["lanes"]
+    bound = roofline(args + out, iter_flops(k, 2.0 * nz * nz))
+    log(f"phase 3 kernel: k_mean={float(k.float().mean())} lanes a block="
+        f"{lanes} mean block k="
+        f"{float(k.reshape(-1, lanes).amax(dim=1).float().mean())} "
+        f"plan={fused_admm_solve.last_plan}")
     log(f"phase 3 bound: {bound}")
-    return dict({key: min(v) for key, v in t.items()}, bound=bound)
+    # the bf16 mode at the same shape; its operations are bf16 products, so
+    # its bound takes the tensor cores' bf16 peak
+    bf = fused_solver(sp, tile_b=TILE_B, check_every=CHECK_EVERY,
+                      exact_k=True, bf16_delta=True)
+    bargs, bkk = kernel_args(bf, inputs)
+    t_bf = {"kernel": [], "plain": []}
+    for key, fn in (("plain", fused_admm_reference),
+                    ("kernel", fused_admm_solve),
+                    ("kernel", fused_admm_solve),
+                    ("plain", fused_admm_reference)):
+        t_bf[key].append(cuda_ms(lambda: fn(*bargs, **bkk),
+                                 reps=5 if key == "kernel" else 1))
+    bout = fused_admm_solve(*bargs, **bkk)
+    nbytes = sum(x.numel() * x.element_size() for x in bargs + bout)
+    bf_flops = iter_flops(bout[3][:BATCH], 2.0 * nz * nz)
+    bf_bound = max(nbytes / PEAK_BYTES, bf_flops / PEAK_BF16) * 1e3
+    log(f"phase 3 bf16 mode times (ms per B={BATCH} solve, CUDA events): "
+        f"{json.dumps(t_bf)} k_mean={float(bout[3].float().mean())} "
+        f"plan={fused_admm_solve.last_plan} bound (bf16 products at 989 "
+        f"TFLOP/s)={bf_bound} ms")
+    return dict({key: min(v) for key, v in t.items()}, bound=bound,
+                bf16=dict(kernel=min(t_bf["kernel"]),
+                          plain=min(t_bf["plain"]), bound=bf_bound))
 
 
 def family_solver(sp, name, backend="fused", device=None,
@@ -1049,6 +1118,10 @@ def phase_hmpc_kernel_vs_plain(sp):
         (ell, f"exact-k B={SMALL_BATCH}", SMALL_BATCH, False, ek),
         (spl, f"checked B={SMALL_BATCH}", SMALL_BATCH, False, checked),
         (sad, f"checked B={SMALL_BATCH}", SMALL_BATCH, False, checked),
+        (spl, f"free-run B={SMALL_BATCH}", SMALL_BATCH, False,
+         dict(tile_b=8, exact_k=False)),
+        (sad, f"free-run B={SMALL_BATCH}", SMALL_BATCH, False,
+         dict(tile_b=8, exact_k=False)),
         (spl, f"exact-k capped (tol 1e-13, k_max 19) B={SMALL_BATCH}",
          SMALL_BATCH, True, capped),
         (spl, f"use_soc exact-k B={SMALL_BATCH}", SMALL_BATCH, False,
@@ -1191,11 +1264,13 @@ def phase_hmpc_times(sp):
                 f"converged={float((res.e_flag == 1).float().mean())}")
             res = kernel()
             k = res[3][:B].long()
-            blocks = k.reshape(-1, 8).amax(dim=1)
+            lanes = 8
+            blocks = k.reshape(-1, lanes).amax(dim=1)
             bound = roofline(args + res, iter_flops(k, hmpc_flops(fused, key)))
             log(f"phase 15 {name} kernel B={B}: k_mean="
-                f"{float(k.float().mean())} k_max={int(k.max())} mean "
-                f"block k={float(blocks.float().mean())} bound={bound}")
+                f"{float(k.float().mean())} k_max={int(k.max())} lanes a "
+                f"block={lanes} mean block k={float(blocks.float().mean())} "
+                f"bound={bound}")
             log(f"phase 15 {name} times (ms per B={B} solve, CUDA events): "
                 + json.dumps(t))
             out[(name, B)] = dict({key: min(v) for key, v in t.items()},
@@ -1217,12 +1292,21 @@ def kernel_entry(name, launches, err, times):
             "replaces": f"spcies_tpu/kernels/{line}", "launches": launches,
             "max_abs_err": err, "ms": times["kernel"],
             "plain_ms": times["plain"], "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None}
+            "bound_by": bound_by, "library_ms": None,
+            **({"bf16_ms": times["bf16"]["kernel"],
+                "bf16_plain_ms": times["bf16"]["plain"],
+                "bf16_bound_ms": times["bf16"]["bound"]}
+               if "bf16" in times else {})}
 
 
 def main():
     require_cuda()
     import spcies_tpu_torch as sp
+    global LOG_FILE
+    if os.environ.get("SPCIES_LOG_DIR"):
+        out = Path(os.environ["SPCIES_LOG_DIR"])
+        out.mkdir(parents=True, exist_ok=True)
+        LOG_FILE = open(out / "chip_smoke.log", "w")
     # full fp32 products everywhere, the plain versions included (this
     # also turns torch.backends.cuda.matmul.allow_tf32 off)
     torch.set_float32_matmul_precision("highest")

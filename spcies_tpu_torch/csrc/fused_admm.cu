@@ -16,37 +16,48 @@
 // until the lane meets tol or k_max. The wrapper and the plain PyTorch
 // version of every mode are in kernels/fused_admm.py.
 //
-// Layout. One thread block per tile of TB lanes; one thread per column j of
-// the padded decision vector (nzp threads: a multiple of 32, at most 512).
-// Thread j keeps z_next, v and lam of column j for the block's TB lanes in
-// registers (and, in exact-k mode, the three window snapshots). Per
-// iteration:
-//   1. thread j forms v, lam and dq of its column for the TB lanes;
-//   2. it stores dq to shared memory as [nzp][TB]; in a checked iteration
-//      the row maxima go through warp shuffles, then shared memory across
-//      warps (both buffers double-buffered by iteration parity, so one
-//      __syncthreads per iteration suffices);
-//   3. thread j forms z_next[b][j] = z[b][j] + sum_i dq[b][i] M[i][j],
-//      reading row i of M at column j (the 32 threads of a warp read 32
-//      consecutive floats) and dq[.][i] as broadcast reads of shared memory.
-// Blocks share nothing: the TPU's sequential grid carried nothing between
-// tiles either. Loop control is uniform across a block because every
-// thread reads the same row maxima.
+// fused_admm_kernel<L> runs every mode, the bf16 mode included (see
+// Arithmetic). One thread block per L = 8, 16 or 32 lanes (the wrapper picks
+// L by the batch and the width), one thread per column j of the padded
+// decision vector (nzp threads: a multiple of 32, at most 512). z, v, lam and
+// dq of the block's lanes lie in shared memory as [nzp][L] (the layouts of
+// csrc/tile_product.cuh). An iteration is
+//   1. thread j forms v, lam and dq of column j for the L lanes, 8 at a
+//      time; at a checked iteration the residuals' maxima go through warp
+//      shuffles to shared memory;
+//   2. the product stage of csrc/tile_product.cuh: a thread owns 8 lanes x
+//      4 columns (8 x 1 at L = 8: tp::tile_cols), M's rows come through a
+//      shared-memory ring filled by asynchronous copies (TMA); groups of 8
+//      lanes that are done are skipped, and in exact-k's windows the lanes
+//      still running are compacted into the first groups and the tiles
+//      narrow, so that a block's cost follows its live lanes; after the
+//      stage's first barrier, thread t < L (lane t's keeper: its k and
+//      residuals live in that thread's registers) takes lane t's maxima over
+//      the warps and warp 0 publishes the mask of converged lanes;
+//   3. the tile's owner adds acc to z, except on lanes that are frozen or
+//      end here: a lane's z stays the one it consumed at exit, which is the
+//      checked and exact-k modes' output, so no copy of it is kept.
+// An iteration has one __syncthreads a slab of M (slabs of 32 rows up to
+// 256 columns, of 16 above: 8 or 30 at nzp = 256 or 480) and one after step
+// 3. Loop control is uniform: every thread reads the same masks. Exact-k
+// snapshots (z, v, lam at each window start of every lane not yet done) go
+// to global scratch, each thread writing and reading back its own column. In
+// plain free-run each group of 8 lanes freezes once its 8 lanes are done, as
+// a tile of tile_b = 8 does, while the block runs on.
 //
-// Bound. Every block re-reads all of M (nzp^2 * 4 bytes, 256 KiB at the
-// N=30 headline where nzp = 256) from L2 on every iteration, for 2 TB FLOP
-// per 4 bytes read: (B / TB) * k * nzp^2 * 4 bytes in all, about 1 GiB per
-// iteration of a B = 32768 batch. That L2 traffic, not the FMAs, limits
-// this first kernel. M (256 KiB) stays resident in the 50 MB L2, so none of
-// it comes from HBM after the first touch. A larger TB divides the traffic
-// but costs registers (exact-k carries 6 TB state values per thread).
-// Holding M in shared memory (bf16, or split across a 2-block cluster),
-// wgmma and TMA are left for later work.
+// Bound. 2 nz^2 FLOP an iteration and lane on the CUDA cores; L2 traffic is
+// (B / L) k nzp^2 4 bytes, a quarter of the 8-lane kernel's at L = 32.
 //
-// Arithmetic. fp32 FMAs on the CUDA cores, no TF32. The library is built
-// with -fmad=false, so the element-wise steps round exactly as PyTorch's
-// separate operations do; the product uses explicit fmaf. Only the order
-// of the product's sum differs from a cuBLAS or CPU matmul.
+// Arithmetic. fp32 FMAs, no TF32; the library is built with -fmad=false, so
+// the element-wise steps round exactly as PyTorch's separate operations do;
+// the product is an explicit fmaf chain over the rows in ascending order, so
+// the results are the same bits for every L and the same as the
+// one-column-per-thread kernel's (csrc/variants/fused_admm_parent.cu). In the
+// bf16 mode the same chain runs on dq rounded to bf16 where it is formed and
+// on M rounded to bf16 once a launch, by round_matrix_kernel into scratch,
+// before the loop's kernel starts. A kernel that multiplies on the tensor
+// cores (csrc/variants/fused_admm_tc.cu) sums otherwise, misses the k
+// agreement bar with the plain version and is not launched.
 //
 // Padding. Pad columns carry zero rows and columns of M, [0, 0] bounds and
 // zero state, so they stay exactly 0 and add nothing to the row maxima.
@@ -54,18 +65,21 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "tile_product.cuh"
+
 namespace {
 
-constexpr int TB = 8;          // lanes per block (CTA_LANES in the wrapper)
 constexpr int MAX_COLS = 512;  // threads per block, one per column
-constexpr float RBIG = 3.4e38f;
-static_assert(TB % 4 == 0, "dq rows are moved as float4");
+constexpr int NARROW = 256;    // up to this width a build of its own
+constexpr int NSNAP = 3;       // snapshot leaves: z, v, lam
+constexpr unsigned FULL = 0xffffffffu;
 
 struct Params {
   const float* __restrict__ z1;
   const float* __restrict__ v0;
   const float* __restrict__ lam0;
-  const float* __restrict__ mq;  // [nzp][nzp], row-major, dq @ mq
+  const float* __restrict__ mq;  // [nzp][nzp], row-major, dq @ mq; in the
+                                 // bf16 mode the rounded copy
   const float* __restrict__ lb;
   const float* __restrict__ ub;
   float* z;
@@ -75,6 +89,7 @@ struct Params {
   int* done;
   float* rp;
   float* rd;
+  float* snap;  // exact-k: per lane [z | v | lam]
   int nzp;
   float rho, rho_i, alpha, beta;  // beta = 1 - alpha, rounded on the host
   int relax;                      // alpha != 1
@@ -82,317 +97,280 @@ struct Params {
   int k_max, check_every, fixed_iters, exact_k, bf16;
 };
 
-// Column j of the block's TB lanes.
-struct Column {
-  float z[TB];  // the prepared iterate z_next
-  float v[TB];
-  float lam[TB];
-};
-
-struct Scratch {
-  float* dq;   // [2][nzp][TB]
-  float* red;  // [2][warps][TB][2]
-  int nzp, warps;
-};
-
 __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
-__device__ __forceinline__ bool all_of(const bool (&d)[TB]) {
-  bool all = true;
-#pragma unroll
-  for (int b = 0; b < TB; ++b) all = all && d[b];
-  return all;
+using tp::bit;
+using tp::Keeper;
+
+__device__ __forceinline__ void write_lane(const Params& p, const Keeper& kp,
+                                           int lane, bool done) {
+  p.k[lane] = kp.k;
+  p.done[lane] = done ? 1 : 0;
+  p.rp[lane] = kp.rp;
+  p.rd[lane] = kp.rd;
 }
 
-// One iteration of column j for the block's TB lanes: reads st, writes the
-// new z_next, v and lam into out. With CHECK, rpo/rdo receive each lane's
-// residual row maxima (identical in every thread of the block).
-template <bool CHECK>
-__device__ __forceinline__ void iterate(const Params& p, const Scratch& s,
-                                        int& parity, int j, float lbj,
-                                        float ubj, const Column& st,
-                                        Column& out, float (&rpo)[TB],
-                                        float (&rdo)[TB]) {
-  float* dq_s = s.dq + parity * s.nzp * TB;
-  float* red = s.red + parity * s.warps * TB * 2;
-  float dq[TB], ap[TB], ad[TB];
+template <int L, int TC, int SR>
+struct Engine {
+  static constexpr int G = L / 8;
+  static constexpr unsigned ALL = L == 32 ? FULL : (1u << L) - 1u;
+  const Params& p;
+  float *z, *v, *lam, *dq, *red;
+  unsigned* ctrl;
+  int *sn_k, *orig;
+  tp::Ring ring;
+  int tid, nzp, warps, lane0;
+  float lbj, ubj;
+  Keeper kp;
+
+  __device__ __forceinline__ Engine(const Params& p_, float* smem)
+      : p(p_) {
+    tid = threadIdx.x;
+    nzp = p.nzp;
+    warps = nzp >> 5;
+    lane0 = blockIdx.x * L;
+    float* a = smem + tp::ring_bytes(nzp, SR) / 4;
+    z = a;
+    v = z + nzp * L;
+    lam = v + nzp * L;
+    dq = lam + nzp * L;
+    red = dq + nzp * (L + tp::DQ_PAD);
+    ctrl = reinterpret_cast<unsigned*>(red + warps * 2 * L);
+    sn_k = reinterpret_cast<int*>(ctrl + 4);
+    orig = sn_k + L;
+    lbj = p.lb[tid];
+    ubj = p.ub[tid];
+    tp::ring_init<SR>(ring, smem, p.mq, nzp, nzp, 0, 0, tid, nzp);
+  }
+
+  template <bool CHECK>
+  TP_ITERATE unsigned iterate(unsigned frozen, unsigned idle, unsigned last,
+                              bool stop, unsigned rmask, int kinc) {
+    const int j = tid;
+    // groups of 8 lanes with nothing left to do are skipped
+    const unsigned dead = tp::whole_groups<L>(frozen | idle);
 #pragma unroll
-  for (int b = 0; b < TB; ++b) {
-    const float zc = st.z[b];
-    const float vp = st.v[b];
-    const float zr = p.relax ? p.alpha * zc + p.beta * vp : zc;
-    const float y = zr + p.rho_i * st.lam[b];
-    const float vn = fminf(fmaxf(y, lbj), ubj);
-    out.lam[b] = st.lam[b] + p.rho * (zr - vn);
-    out.v[b] = vn;
-    const float d = p.rho * ((zr - 2.0f * vn) + vp);
-    dq[b] = p.bf16 ? round_bf16(d) : d;
-    if (CHECK) {
-      ap[b] = fabsf(zc - vn);
-      ad[b] = fabsf(vn - vp);
+    for (int g = 0; g < G; ++g) {
+      if (bit(dead, 8 * g)) continue;
+      float zc[8], vp[8], lm[8], d[8], ap[8], ad[8];
+      tp::ld8<L>(zc, z, j, g);
+      tp::ld8<L>(vp, v, j, g);
+      tp::ld8<L>(lm, lam, j, g);
+#pragma unroll
+      for (int b = 0; b < 8; ++b) {
+        const float zr = p.relax ? p.alpha * zc[b] + p.beta * vp[b] : zc[b];
+        const float y = zr + p.rho_i * lm[b];
+        const float vn = fminf(fmaxf(y, lbj), ubj);
+        const float ln = lm[b] + p.rho * (zr - vn);
+        const float dd = p.rho * ((zr - 2.0f * vn) + vp[b]);
+        d[b] = p.bf16 ? round_bf16(dd) : dd;
+        if (CHECK) {
+          ap[b] = fabsf(zc[b] - vn);
+          ad[b] = fabsf(vn - vp[b]);
+        }
+        if (!bit(frozen, g * 8 + b)) {
+          vp[b] = vn;
+          lm[b] = ln;
+        }
+      }
+      tp::st8_dq<L>(dq, j, g, d);
+      tp::st8<L>(v, j, g, vp);
+      tp::st8<L>(lam, j, g, lm);
+      if (CHECK) {
+        tp::warp_max<L>(ap, red, j, 0, g);
+        tp::warp_max<L>(ad, red, j, 1, g);
+      }
+    }
+    // the product's tiles: once the live groups are the block's first half
+    // or quarter (the exact-k windows keep them first), narrower tiles give
+    // every thread work again
+    const int nl = max(1, G - __popc(dead) / 8);
+    const bool packed = dead == (ALL & ~((1u << (8 * nl - 1) << 1) - 1u));
+    if constexpr (TC >= 4 && G >= 4) {
+      if (packed && 4 * nl <= G)
+        return finish<TC / 4, CHECK>(dead, frozen, last, stop, rmask, kinc);
+    }
+    if constexpr (TC >= 2 && G >= 2) {
+      if (packed && 2 * nl <= G)
+        return finish<TC / 2, CHECK>(dead, frozen, last, stop, rmask, kinc);
+    }
+    return finish<TC, CHECK>(dead, frozen, last, stop, rmask, kinc);
+  }
+
+  // The iteration's second half with tiles of 8 lanes x TCX columns: the
+  // product, the keeper's part after its first barrier, and z += acc.
+  template <int TCX, bool CHECK>
+  __device__ __forceinline__ unsigned finish(unsigned dead, unsigned frozen,
+                                             unsigned last, bool stop,
+                                             unsigned rmask, int kinc) {
+    const tp::Tile<L, TCX> tile(tid, nzp);
+    float acc[TCX][8];
+#pragma unroll
+    for (int q = 0; q < TCX; ++q) {
+#pragma unroll
+      for (int b = 0; b < 8; ++b) acc[q][b] = 0.0f;
+    }
+    const bool live = tile.active && !bit(dead, 8 * tile.lg);
+    tp::product<L, TCX, SR>(ring, dq, tile, acc, live, tid, nzp, CHECK, [&]() {
+      if (CHECK && tid < 32) {
+        float r_p = 0.0f, r_d = 0.0f;
+        if (tid < L) {
+          r_p = tp::lane_max<L>(red, warps, 0, tid);
+          r_d = tp::lane_max<L>(red, warps, 1, tid);
+        }
+        const unsigned m =
+            kp.keep(tid, L, r_p, r_d, p.tol_p, p.tol_d, rmask, kinc);
+        if (tid == 0) ctrl[0] = m;
+      }
+    });
+    if (live) {
+      unsigned skip = (frozen | last) >> (tile.lg * 8);
+      if (CHECK && stop) skip |= ctrl[0] >> (tile.lg * 8);
+#pragma unroll
+      for (int q = 0; q < TCX; ++q) {
+        float zc[8];
+        tp::ld8<L>(zc, z, tile.col(q), tile.lg);
+#pragma unroll
+        for (int b = 0; b < 8; ++b)
+          if (!bit(skip, b)) zc[b] = zc[b] + acc[q][b];
+        tp::st8<L>(z, tile.col(q), tile.lg, zc);
+      }
+    }
+    __syncthreads();
+    return CHECK ? ctrl[0] : 0u;
+  }
+
+  __device__ __forceinline__ unsigned compact(unsigned done) {
+    float* const leaves[NSNAP] = {z, v, lam};
+    return tp::compact_lanes<L>(done, leaves, orig, tid);
+  }
+
+  // Copy this thread's column of z, v and lam between shared memory and the
+  // per-lane [z | v | lam] layout in global memory, for the slots in
+  // `lanes` (slot b holds lane orig[b]). TO_GLOBAL selects the direction.
+  template <bool TO_GLOBAL>
+  __device__ __forceinline__ void snapshot(unsigned lanes) {
+    float* const leaves[NSNAP] = {z, v, lam};
+#pragma unroll
+    for (int l = 0; l < NSNAP; ++l) {
+      for (int b = 0; b < L; ++b) {
+        if (!bit(lanes, b)) continue;
+        float* g = p.snap +
+                   (static_cast<size_t>(lane0 + orig[b]) * NSNAP + l) * nzp +
+                   tid;
+        float& sh = tp::at<L>(leaves[l], tid, b);
+        if (TO_GLOBAL)
+          *g = sh;
+        else
+          sh = *g;
+      }
     }
   }
-  float4* dst = reinterpret_cast<float4*>(dq_s + j * TB);
-#pragma unroll
-  for (int q = 0; q < TB / 4; ++q)
-    dst[q] = make_float4(dq[4 * q], dq[4 * q + 1], dq[4 * q + 2],
-                         dq[4 * q + 3]);
-  if (CHECK) {
-#pragma unroll
-    for (int b = 0; b < TB; ++b) {
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        ap[b] = fmaxf(ap[b], __shfl_xor_sync(0xffffffffu, ap[b], off));
-        ad[b] = fmaxf(ad[b], __shfl_xor_sync(0xffffffffu, ad[b], off));
-      }
-    }
-    if ((j & 31) == 0) {
-      float* w = red + (j >> 5) * TB * 2;
-#pragma unroll
-      for (int b = 0; b < TB; ++b) {
-        w[2 * b] = ap[b];
-        w[2 * b + 1] = ad[b];
-      }
-    }
+};
+
+template <int L, int TC, int MAXT, int SR>
+__global__ void __launch_bounds__(MAXT) fused_admm_kernel(Params p) {
+  extern __shared__ __align__(16) float smem[];
+  Engine<L, TC, SR> e(p, smem);
+  const int j = e.tid;
+  const int nzp = p.nzp;
+  for (int b = 0; b < L; ++b) {
+    const size_t g = static_cast<size_t>(e.lane0 + b) * nzp + j;
+    tp::at<L>(e.z, j, b) = p.z1[g];
+    tp::at<L>(e.v, j, b) = p.v0[g];
+    tp::at<L>(e.lam, j, b) = p.lam0[g];
+  }
+  if (j < L) {
+    e.sn_k[j] = 0;
+    e.orig[j] = j;
   }
   __syncthreads();
-  if (CHECK) {
-#pragma unroll
-    for (int b = 0; b < TB; ++b) {
-      rpo[b] = 0.0f;
-      rdo[b] = 0.0f;
-    }
-    for (int w = 0; w < s.warps; ++w) {
-      const float* r = red + w * TB * 2;
-#pragma unroll
-      for (int b = 0; b < TB; ++b) {
-        rpo[b] = fmaxf(rpo[b], r[2 * b]);
-        rdo[b] = fmaxf(rdo[b], r[2 * b + 1]);
-      }
-    }
+  const unsigned done = tp::run_modes<L>(e, p.k_max, p.check_every,
+                                          p.exact_k, p.fixed_iters);
+  tp::ring_drain(e.ring);
+  for (int b = 0; b < L; ++b) {
+    const size_t g = static_cast<size_t>(e.lane0 + b) * nzp + j;
+    p.z[g] = tp::at<L>(e.z, j, b);
+    p.v[g] = tp::at<L>(e.v, j, b);
+    p.lam[g] = tp::at<L>(e.lam, j, b);
   }
-  float acc[TB];
-#pragma unroll
-  for (int b = 0; b < TB; ++b) acc[b] = 0.0f;
-  const float* col = p.mq + j;
-  const int nzp = s.nzp;
-#pragma unroll 4
-  for (int i = 0; i < nzp; ++i) {
-    float m = __ldg(col + i * nzp);
-    if (p.bf16) m = round_bf16(m);
-    const float4* d4 = reinterpret_cast<const float4*>(dq_s + i * TB);
-#pragma unroll
-    for (int q = 0; q < TB / 4; ++q) {
-      const float4 d = d4[q];
-      acc[4 * q] = fmaf(d.x, m, acc[4 * q]);
-      acc[4 * q + 1] = fmaf(d.y, m, acc[4 * q + 1]);
-      acc[4 * q + 2] = fmaf(d.z, m, acc[4 * q + 2]);
-      acc[4 * q + 3] = fmaf(d.w, m, acc[4 * q + 3]);
-    }
-  }
-#pragma unroll
-  for (int b = 0; b < TB; ++b) out.z[b] = st.z[b] + acc[b];
-  parity ^= 1;
+  if (j < L) write_lane(p, e.kp, e.lane0 + j, bit(done, j));
 }
 
-__device__ __forceinline__ bool converged(const Params& p, float r_p,
-                                          float r_d) {
-  return r_p <= p.tol_p && r_d <= p.tol_d;
+// out = in rounded to bf16, entry by entry (the bf16 mode's M).
+__global__ void round_matrix_kernel(const float* __restrict__ in,
+                                    float* __restrict__ out, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) out[i] = round_bf16(in[i]);
 }
 
-__global__ void __launch_bounds__(MAX_COLS)
-    fused_admm_kernel(Params p) {
-  extern __shared__ __align__(16) float smem[];
-  const int nzp = p.nzp;
-  const int j = threadIdx.x;
-  const Scratch s{smem, smem + 2 * nzp * TB, nzp, nzp >> 5};
-  const size_t base = static_cast<size_t>(blockIdx.x) * TB * nzp + j;
-  const float lbj = p.lb[j];
-  const float ubj = p.ub[j];
-  int parity = 0;
-
-  Column st, nw;
-#pragma unroll
-  for (int b = 0; b < TB; ++b) {
-    st.z[b] = p.z1[base + b * nzp];
-    st.v[b] = p.v0[base + b * nzp];
-    st.lam[b] = p.lam0[base + b * nzp];
+template <int L>
+int launch(const Params& p, int blocks, int threads, int smem, void* stream) {
+  // up to NARROW columns a build with more registers a thread and deeper
+  // slabs of M
+  constexpr int TC = tp::tile_cols<L>();
+  void (*kernel)(Params) =
+      p.nzp <= NARROW ? fused_admm_kernel<L, TC, NARROW, tp::SLAB_NARROW>
+                      : fused_admm_kernel<L, TC, MAX_COLS, tp::SLAB>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
   }
-  bool done[TB];
-  int k[TB];
-  float rp[TB], rd[TB], r_p[TB], r_d[TB], zout[TB];
-#pragma unroll
-  for (int b = 0; b < TB; ++b) {
-    done[b] = false;
-    k[b] = 0;
-    rp[b] = RBIG;
-    rd[b] = RBIG;
-  }
-  const int C = p.check_every;
-
-  if (p.fixed_iters > 0) {
-    // exactly fixed_iters plain iterations, no exit tests
-    for (int it = 0; it < p.fixed_iters; ++it) {
-      iterate<false>(p, s, parity, j, lbj, ubj, st, nw, r_p, r_d);
-      st = nw;
-    }
-#pragma unroll
-    for (int b = 0; b < TB; ++b) {
-      zout[b] = st.z[b];
-      k[b] = p.fixed_iters;
-      done[b] = true;
-    }
-  } else if (C > 1 && p.exact_k) {
-    // free-run windows of C iterations; snapshot every still-active lane
-    // at each window start, so the window a lane converges in can be
-    // replayed with per-iteration checks once the tile has drained.
-    // Windows may overshoot k_max: the replay budget cuts each lane off
-    // at exactly k_max.
-    Column sn = st;
-    int kws[TB];
-#pragma unroll
-    for (int b = 0; b < TB; ++b) kws[b] = 0;
-    for (int it = 0; it < p.k_max && !all_of(done); it += C) {
-#pragma unroll
-      for (int b = 0; b < TB; ++b) {
-        if (!done[b]) {
-          sn.z[b] = st.z[b];
-          sn.v[b] = st.v[b];
-          sn.lam[b] = st.lam[b];
-          kws[b] = it;
-        }
-      }
-      for (int f = 0; f < C - 1; ++f) {
-        iterate<false>(p, s, parity, j, lbj, ubj, st, nw, r_p, r_d);
-        st = nw;
-      }
-      iterate<true>(p, s, parity, j, lbj, ubj, st, nw, r_p, r_d);
-      st = nw;
-#pragma unroll
-      for (int b = 0; b < TB; ++b)
-        done[b] = done[b] || converged(p, r_p[b], r_d[b]);
-    }
-    // replay from the snapshots: k counts on from the window start
-    int budget[TB];
-#pragma unroll
-    for (int b = 0; b < TB; ++b) {
-      budget[b] = min(C, p.k_max - kws[b]);
-      done[b] = false;
-      k[b] = kws[b];
-      zout[b] = sn.z[b];
-    }
-    st = sn;
-    for (int w = 0; w < C; ++w) {
-      bool any = false;
-#pragma unroll
-      for (int b = 0; b < TB; ++b) any = any || (!done[b] && w < budget[b]);
-      if (!any) break;
-      iterate<true>(p, s, parity, j, lbj, ubj, st, nw, r_p, r_d);
-#pragma unroll
-      for (int b = 0; b < TB; ++b) {
-        if (!done[b] && w < budget[b]) {
-          zout[b] = st.z[b];
-          st.z[b] = nw.z[b];
-          st.v[b] = nw.v[b];
-          st.lam[b] = nw.lam[b];
-          ++k[b];
-          rp[b] = r_p[b];
-          rd[b] = r_d[b];
-          done[b] = converged(p, r_p[b], r_d[b]);
-        }
-      }
-    }
-  } else if (C > 1) {
-    // free-run: C-1 plain iterations, then one checked iteration; every
-    // lane keeps iterating until the block's lanes are all done, and k
-    // is recorded at check granularity
-    for (int it = 0; it < p.k_max && !all_of(done);) {
-      const int n_fast = min(C - 1, p.k_max - 1 - it);
-      for (int f = 0; f < n_fast; ++f) {
-        iterate<false>(p, s, parity, j, lbj, ubj, st, nw, r_p, r_d);
-        st = nw;
-      }
-      iterate<true>(p, s, parity, j, lbj, ubj, st, nw, r_p, r_d);
-      st = nw;
-#pragma unroll
-      for (int b = 0; b < TB; ++b) {
-        if (!done[b]) {
-          k[b] += n_fast + 1;
-          rp[b] = r_p[b];
-          rd[b] = r_d[b];
-          done[b] = converged(p, r_p[b], r_d[b]);
-        }
-      }
-      it += n_fast + 1;
-    }
-#pragma unroll
-    for (int b = 0; b < TB; ++b) zout[b] = st.z[b];
-  } else {
-    // checked: exit tests every iteration; a converged lane freezes and
-    // keeps the z it consumed at exit
-#pragma unroll
-    for (int b = 0; b < TB; ++b) zout[b] = st.z[b];
-    for (int it = 0; it < p.k_max && !all_of(done); ++it) {
-      iterate<true>(p, s, parity, j, lbj, ubj, st, nw, r_p, r_d);
-#pragma unroll
-      for (int b = 0; b < TB; ++b) {
-        if (!done[b]) {
-          zout[b] = st.z[b];
-          st.z[b] = nw.z[b];
-          st.v[b] = nw.v[b];
-          st.lam[b] = nw.lam[b];
-          ++k[b];
-          rp[b] = r_p[b];
-          rd[b] = r_d[b];
-          done[b] = converged(p, r_p[b], r_d[b]);
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int b = 0; b < TB; ++b) {
-    p.z[base + b * nzp] = zout[b];
-    p.v[base + b * nzp] = st.v[b];
-    p.lam[base + b * nzp] = st.lam[b];
-  }
-  if (j == 0) {
-    const int lane0 = blockIdx.x * TB;
-#pragma unroll
-    for (int b = 0; b < TB; ++b) {
-      p.k[lane0 + b] = k[b];
-      p.done[lane0 + b] = done[b] ? 1 : 0;
-      p.rp[lane0 + b] = rp[b];
-      p.rd[lane0 + b] = rd[b];
-    }
-  }
+  kernel<<<blocks, threads, smem, static_cast<cudaStream_t>(stream)>>>(p);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
+// Dynamic shared bytes at `lanes` lanes a block (kernels/fused_admm.py
+// computes the same).
+extern "C" long fused_admm_smem(int nzp, int lanes) {
+  return tp::ring_bytes(nzp, nzp <= NARROW ? tp::SLAB_NARROW : tp::SLAB) +
+         4L * (nzp * (4L * lanes + tp::DQ_PAD) + (nzp / 32) * 2L * lanes + 4 +
+               2 * lanes);
+}
+
 // Launch on `stream` (a cudaStream_t). The geometry comes from the wrapper
 // (kernels/fused_admm.py launch_geometry) and is checked here again.
-// Returns cudaGetLastError() after the launch, as an int.
+// `mq_round` is [nzp][nzp] of scratch for the bf16 mode's rounded M (unused
+// otherwise). Returns the CUDA error of the launch, as an int.
 extern "C" int fused_admm_launch(
     const float* z1, const float* v0, const float* lam0, const float* mq,
     const float* lb, const float* ub, float* z, float* v, float* lam, int* k,
-    int* done, float* rp, float* rd, int B, int nzp, int blocks, int threads,
-    int smem, float rho, float rho_i, float alpha, float beta, int relax,
-    float tol_p, float tol_d, int k_max, int check_every, int fixed_iters,
-    int exact_k, int bf16, void* stream) {
-  const int warps = nzp / 32;
-  const long need = 4L * (2L * nzp * TB + 2L * warps * TB * 2);
-  if (nzp <= 0 || nzp % 32 != 0 || nzp > MAX_COLS || B % TB != 0 ||
-      blocks != B / TB || threads != nzp || smem != need || check_every < 1)
+    int* done, float* rp, float* rd, float* snap, float* mq_round, int B,
+    int nzp, int lanes, int blocks, int threads, int smem, float rho,
+    float rho_i, float alpha, float beta, int relax, float tol_p,
+    float tol_d, int k_max, int check_every, int fixed_iters, int exact_k,
+    int bf16, void* stream) {
+  const bool exact = check_every > 1 && exact_k && fixed_iters == 0;
+  if (nzp <= 0 || nzp % 32 != 0 || nzp > MAX_COLS ||
+      (lanes != 8 && lanes != 16 && lanes != 32) || B % lanes != 0 ||
+      blocks != B / lanes || threads != nzp ||
+      smem != fused_admm_smem(nzp, lanes) || check_every < 1 ||
+      (exact && B > 0 && snap == nullptr) || (bf16 && mq_round == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0) return 0;
-  Params p{z1,    v0,    lam0,    mq,     lb,     ub,          z,
-           v,     lam,   k,       done,   rp,     rd,          nzp,
-           rho,   rho_i, alpha,   beta,   relax,  tol_p,       tol_d,
-           k_max, check_every, fixed_iters, exact_k, bf16};
-  fused_admm_kernel<<<blocks, threads, smem,
-                      static_cast<cudaStream_t>(stream)>>>(p);
-  return static_cast<int>(cudaGetLastError());
+  if (bf16) {
+    const int n = nzp * nzp;
+    round_matrix_kernel<<<(n + 255) / 256, 256, 0,
+                          static_cast<cudaStream_t>(stream)>>>(mq, mq_round, n);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+    mq = mq_round;
+  }
+  Params p{z1,    v0,    lam0,  mq,    lb,    ub,    z,
+           v,     lam,   k,     done,  rp,    rd,    snap,
+           nzp,   rho,   rho_i, alpha, beta,  relax, tol_p,
+           tol_d, k_max, check_every,  fixed_iters,  exact_k, bf16};
+  switch (lanes) {
+    case 8:
+      return launch<8>(p, blocks, threads, smem, stream);
+    case 16:
+      return launch<16>(p, blocks, threads, smem, stream);
+    default:
+      return launch<32>(p, blocks, threads, smem, stream);
+  }
 }

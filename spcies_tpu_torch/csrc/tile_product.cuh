@@ -1,0 +1,647 @@
+// The product stage of the fused loops on NVIDIA Hopper (sm_90a), written by
+// hand: acc[L x P] = dq[L x R] @ M[R x P] for the L lanes of a thread block,
+// once an iteration. csrc/fused_admm.cu (K1) includes it, and so does a build
+// of K7 on it that is timed but not launched
+// (csrc/variants/fused_split_tile.cu); the other fused kernels' redesigns
+// start from it. The end of the file holds the mode loops a kernel runs over
+// its iteration.
+//
+// Many lanes a block. A block of P threads (one per column of the padded
+// width P) holds L = 8, 16 or 32 lanes. The rows of M, which every block
+// re-reads on every iteration, are read once per L lanes: L2 traffic per
+// lane falls by L / 8 against the one-column-per-thread kernels.
+//
+// Register tile. In the product a thread owns 8 lanes x TC columns (thread
+// t: lane group t / (P / TC), columns TC (t % (P / TC)) + q), so per row of
+// M it reads TC floats of the row and 8 deltas for 8 TC fmaf. Counting 32
+// floats a clock from shared memory to an SM's registers, whatever is
+// broadcast, against 128 fmaf a clock (a count that fits the times of the
+// one-column-per-thread kernels: 16 floats per 8 fmaf, a quarter of the
+// fmaf rate), a tile of 8 x 4 asks for 12 floats per 32 fmaf and is bound
+// at two thirds of the fmaf rate, 8 x 8 for 16 per 64, the balance. With TC
+// above L / 8 only the first
+// (L / 8) (P / TC) threads multiply; at L = 8, TC = 1 the mapping is the
+// one-column-per-thread mapping. A lane group whose 8 lanes are all done
+// is skipped: its threads (whole warps where P / TC is a multiple of 32)
+// multiply nothing. In the first half of exact-k the lanes still running
+// are kept in the first slots (compact_lanes below), and once they fill half
+// or a quarter of the block's groups the tiles narrow to TC / 2 or TC / 4
+// columns, so that every thread again has work: a block's cost follows its
+// live lanes, not L times its slowest lane's iterations.
+//
+// M through shared memory. The rows arrive in slabs of SR rows (16, or 32
+// where a kernel has the shared memory for it) in a ring of NST
+// shared-memory buffers, filled by one cp.async.bulk (TMA) a slab that
+// reports to an mbarrier; TP_STAGE 1 fills them by cp.async (16 bytes a
+// thread) and TP_STAGE 0 reads M straight from L2 with __ldg, both slower
+// on an H100 (PERF.md). The load of slab s + NST - 1 is issued before slab
+// s is multiplied. M is the same on every iteration, so the ring runs on
+// across iterations: the first slabs of the next iteration load while this
+// one's element-wise half runs. One __syncthreads a slab: it publishes the
+// slab and frees the buffer of the slab before.
+//
+// The sum order. Every (lane, column) sum is one fmaf chain over the rows in
+// ascending order (the first row range, then the second), as in the
+// one-column-per-thread kernels: results are bit-identical for every L.
+//
+// Layouts. A [rows][L] buffer of the kernels' state holds row c's L lanes as
+// L / 4 chunks of 16 bytes, chunk ch stored at position ch ^ key(c) so that
+// the 8 threads of a quarter warp, which hold 8 consecutive rows (or 8 rows
+// a stride of 4 or 8 apart, in the product's tiles), hit 8 different bank
+// groups (a plain [rows][L] layout would put them all on the same banks
+// once L reaches 32). dq, which the product reads once a row of M, is
+// [rows][L + 4] instead: its writers are spread over the banks by the
+// padding, and a row's address is affine in the row, so the unrolled
+// product spends no instruction on it.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#ifndef TP_STAGE
+#define TP_STAGE 2  // 0: __ldg from L2, unstaged; 1: cp.async ring; 2: TMA
+#endif
+#ifndef TP_SLAB_ROWS
+#define TP_SLAB_ROWS 16  // rows a slab
+#endif
+#ifndef TP_SLAB_ROWS_NARROW
+#define TP_SLAB_ROWS_NARROW 32  // rows a slab where a kernel has the room
+#endif
+#ifndef TP_STAGES
+#define TP_STAGES 2
+#endif
+#ifndef TP_ADJ
+#define TP_ADJ 1  // 1: a thread's TC columns are adjacent (16-byte reads)
+#endif
+#ifndef TP_COLS_16
+#define TP_COLS_16 4  // columns a thread owns at 16 lanes a block
+#endif
+#ifndef TP_NOINLINE
+#define TP_NOINLINE 0  // 1: a kernel's iteration is one function, not inlined
+#endif
+#ifndef TP_UNROLL
+#define TP_UNROLL 0  // rows of a slab unrolled together; 0: the whole slab
+#endif
+#if TP_NOINLINE
+#define TP_ITERATE __device__ __noinline__
+#else
+#define TP_ITERATE __device__ __forceinline__
+#endif
+
+namespace tp {
+
+constexpr int SLAB = TP_SLAB_ROWS;                // rows a slab ...
+constexpr int SLAB_NARROW = TP_SLAB_ROWS_NARROW;  // ... with room for more
+constexpr int NST = TP_STAGES;    // buffers in the ring
+constexpr int DQ_PAD = 4;         // floats of padding a row of dq
+constexpr unsigned FULL = 0xffffffffu;
+static_assert(NST >= 2, "the ring needs two buffers");
+
+// Bytes of the ring (and its mbarriers) for a width P and slabs of SR rows.
+__host__ __device__ constexpr long ring_bytes(int P, int SR) {
+  return TP_STAGE == 0 ? 0L : 4L * NST * SR * P + (TP_STAGE == 2 ? 64L : 0L);
+}
+
+// Float offset of chunk ch (4 lanes) of row c in a swizzled [rows][L] buffer.
+// The key spreads over the bank groups both 8 consecutive rows (the
+// element-wise half: a quarter warp holds 8 consecutive columns) and 8 rows
+// a stride of 4 or 8 apart (the product's tiles of adjacent columns).
+template <int L>
+__device__ __forceinline__ int chunk(int c, int ch) {
+  constexpr int NCH = L / 4;                 // chunks a row
+  constexpr int RPB = L >= 32 ? 1 : 32 / L;  // rows that span the 32 banks
+  constexpr int KM = NCH < 8 ? NCH : 8;
+  const int r = c / RPB;
+  return c * L + ((ch ^ ((r ^ (r >> 3)) % KM)) << 2);
+}
+
+// The 8 lanes of group g of row c.
+template <int L>
+__device__ __forceinline__ void ld8(float (&v)[8], const float* buf, int c,
+                                    int g) {
+  const float4 a = *reinterpret_cast<const float4*>(buf + chunk<L>(c, 2 * g));
+  const float4 b =
+      *reinterpret_cast<const float4*>(buf + chunk<L>(c, 2 * g + 1));
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+}
+
+template <int L>
+__device__ __forceinline__ void st8(float* buf, int c, int g,
+                                    const float (&v)[8]) {
+  *reinterpret_cast<float4*>(buf + chunk<L>(c, 2 * g)) =
+      make_float4(v[0], v[1], v[2], v[3]);
+  *reinterpret_cast<float4*>(buf + chunk<L>(c, 2 * g + 1)) =
+      make_float4(v[4], v[5], v[6], v[7]);
+}
+
+// The 8 lanes of group g of row i of dq ([rows][L + DQ_PAD], not swizzled).
+template <int L>
+__device__ __forceinline__ void ld8_dq(float (&v)[8], const float* dq, int i,
+                                       int g) {
+  const float4* s = reinterpret_cast<const float4*>(dq + i * (L + DQ_PAD) +
+                                                    g * 8);
+  const float4 a = s[0], b = s[1];
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+}
+
+template <int L>
+__device__ __forceinline__ void st8_dq(float* dq, int i, int g,
+                                       const float (&v)[8]) {
+  float4* d = reinterpret_cast<float4*>(dq + i * (L + DQ_PAD) + g * 8);
+  d[0] = make_float4(v[0], v[1], v[2], v[3]);
+  d[1] = make_float4(v[4], v[5], v[6], v[7]);
+}
+
+// One lane of row c.
+template <int L>
+__device__ __forceinline__ float& at(float* buf, int c, int lane) {
+  return buf[chunk<L>(c, lane >> 2) + (lane & 3)];
+}
+
+// The maxima over the warp of the 8 lanes of group g, written to
+// red[warp][slot][g * 8 + b] by the warp's first thread.
+template <int L>
+__device__ __forceinline__ void warp_max(float (&v)[8], float* red, int tid,
+                                         int slot, int g) {
+#pragma unroll
+  for (int b = 0; b < 8; ++b) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      v[b] = fmaxf(v[b], __shfl_xor_sync(FULL, v[b], off));
+  }
+  if ((tid & 31) == 0) {
+    float* w = red + ((tid >> 5) * 2 + slot) * L + g * 8;
+    *reinterpret_cast<float4*>(w) = make_float4(v[0], v[1], v[2], v[3]);
+    *reinterpret_cast<float4*>(w + 4) = make_float4(v[4], v[5], v[6], v[7]);
+  }
+}
+
+// The maximum over the warps of red[.][slot][lane].
+template <int L>
+__device__ __forceinline__ float lane_max(const float* red, int warps,
+                                          int slot, int lane) {
+  float r = 0.0f;
+  for (int w = 0; w < warps; ++w)
+    r = fmaxf(r, red[(w * 2 + slot) * L + lane]);
+  return r;
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// The ring of slabs of M = m[.][P] (row-major, row length P) over the row
+// ranges [0, a_end) and [b0, b_end), and where its endless sequence of
+// slabs stands.
+struct Ring {
+  float* stage;    // [NST][SR * P]
+  uint64_t* bar;   // TP_STAGE 2: one mbarrier a buffer
+  const float* m;
+  int P, a_end, b0, b_end;
+  int nsa, ns;     // slabs of the first range, of an iteration
+  int used;        // slabs multiplied since the kernel began
+  int next;        // the slab of the iteration that is loaded next
+};
+
+template <int SR>
+__device__ __forceinline__ void slab_rows(const Ring& r, int s, int& row0,
+                                          int& n) {
+  if (s < r.nsa) {
+    row0 = s * SR;
+    n = min(SR, r.a_end - row0);
+  } else {
+    row0 = r.b0 + (s - r.nsa) * SR;
+    n = min(SR, r.b_end - row0);
+  }
+}
+
+// Start the load of the ring's next slab into buffer `buf`.
+template <int SR>
+__device__ __forceinline__ void issue(Ring& r, int buf, int tid, int T) {
+#if TP_STAGE != 0
+  int row0, n;
+  slab_rows<SR>(r, r.next, row0, n);
+  r.next = r.next + 1 == r.ns ? 0 : r.next + 1;
+  float* dst = r.stage + buf * SR * r.P;
+  const float* src = r.m + static_cast<size_t>(row0) * r.P;
+#if TP_STAGE == 1
+  const int n4 = n * r.P / 4;
+  for (int i = tid; i < n4; i += T)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                     smem_addr(dst + 4 * i)),
+                 "l"(src + 4 * i)
+                 : "memory");
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+#else
+  if (tid == 0) {
+    const uint32_t bar = smem_addr(r.bar + buf);
+    const uint32_t bytes = static_cast<uint32_t>(n) * r.P * 4u;
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                     "r"(bar), "r"(bytes)
+                 : "memory");
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+        "l"(src), "r"(bytes), "r"(bar)
+        : "memory");
+  }
+#endif
+#endif
+}
+
+// Set the ring up over `smem` (ring_bytes(P, SR) bytes, 16-byte aligned) and
+// start its first NST - 1 loads. Every thread of the block calls it.
+template <int SR>
+__device__ __forceinline__ void ring_init(Ring& r, float* smem,
+                                          const float* m, int P, int a_end,
+                                          int b0, int b_end, int tid, int T) {
+  r.stage = smem;
+  r.bar = reinterpret_cast<uint64_t*>(smem + NST * SR * P);
+  r.m = m;
+  r.P = P;
+  r.a_end = a_end;
+  r.b0 = b0;
+  r.b_end = b_end;
+  r.nsa = (a_end + SR - 1) / SR;
+  r.ns = r.nsa + (b_end > b0 ? (b_end - b0 + SR - 1) / SR : 0);
+  r.used = 0;
+  r.next = 0;
+#if TP_STAGE == 2
+  if (tid == 0) {
+    for (int b = 0; b < NST; ++b)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                       smem_addr(r.bar + b)),
+                   "r"(1)
+                   : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+#endif
+  for (int b = 0; b < NST - 1; ++b) issue<SR>(r, b, tid, T);
+}
+
+// Wait for the loads still in flight before the block ends.
+__device__ __forceinline__ void ring_drain(Ring& r) {
+#if TP_STAGE == 1
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+#elif TP_STAGE == 2
+  for (int i = 0; i < NST - 1; ++i) {
+    const int g = r.used + i;
+    const uint32_t bar = smem_addr(r.bar + g % NST);
+    const uint32_t parity = (g / NST) & 1;
+    asm volatile(
+        "{\n.reg .pred P1;\nLAB_WAIT:\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+        "@P1 bra DONE;\nbra LAB_WAIT;\nDONE:\n}\n" ::"r"(bar),
+        "r"(parity)
+        : "memory");
+  }
+#endif
+  __syncthreads();
+}
+
+// The columns a thread owns in the product at L lanes a block: a tile of 8
+// lanes x 4 columns, and the one-column-per-thread mapping at 8 lanes.
+template <int L>
+constexpr int tile_cols() {
+  return L == 8 ? 1 : (L == 16 ? TP_COLS_16 : 4);
+}
+
+// A thread's tile of the product: lane group lg, columns c0 + q * cs;
+// threads past the last tile are not active.
+template <int L, int TC>
+struct Tile {
+  int lg, c0, cs;
+  bool active;
+  __device__ __forceinline__ Tile(int tid, int P) {
+    const int ncg = P / TC;
+    lg = tid / ncg;
+    active = lg < L / 8;
+    if (!active) lg = 0;
+    const int cg = tid % ncg;
+    c0 = TP_ADJ ? cg * TC : cg;
+    cs = TP_ADJ ? 1 : ncg;
+  }
+  __device__ __forceinline__ int col(int q) const { return c0 + q * cs; }
+};
+
+__device__ __forceinline__ bool bit(unsigned m, int b) {
+  return (m >> b) & 1u;
+}
+
+// The lanes of `mask` that belong to groups of 8 whose lanes are all in it.
+template <int L>
+__device__ __forceinline__ unsigned whole_groups(unsigned mask) {
+  unsigned out = 0;
+#pragma unroll
+  for (int g = 0; g < L / 8; ++g)
+    if (((mask >> (8 * g)) & 0xffu) == 0xffu) out |= 0xffu << (8 * g);
+  return out;
+}
+
+// The thread's TC entries of a row of M (shared or global memory).
+template <int TC, class T>
+__device__ __forceinline__ void load_m(float (&m)[TC], const float* mrow,
+                                       const T& t) {
+#if TP_ADJ
+  if constexpr (TC % 4 == 0) {
+#pragma unroll
+    for (int q = 0; q < TC / 4; ++q) {
+      const float4 a = *reinterpret_cast<const float4*>(mrow + t.c0 + 4 * q);
+      m[4 * q] = a.x; m[4 * q + 1] = a.y; m[4 * q + 2] = a.z;
+      m[4 * q + 3] = a.w;
+    }
+  } else if constexpr (TC == 2) {
+    const float2 a = *reinterpret_cast<const float2*>(mrow + t.c0);
+    m[0] = a.x; m[1] = a.y;
+  } else {
+    m[0] = mrow[t.c0];
+  }
+#else
+#pragma unroll
+  for (int q = 0; q < TC; ++q) m[q] = mrow[t.col(q)];
+#endif
+}
+
+// acc[q][b] = fmaf(dq[i][lg * 8 + b], mrow[col(q)], acc[q][b]) for row i.
+template <int L, int TC>
+__device__ __forceinline__ void row_fma(float (&acc)[TC][8],
+                                        const float* mrow, const float* dq,
+                                        int i, const Tile<L, TC>& t) {
+  float m[TC];
+  load_m<TC>(m, mrow, t);
+  float d[8];
+  ld8_dq<L>(d, dq, i, t.lg);
+#pragma unroll
+  for (int q = 0; q < TC; ++q) {
+#pragma unroll
+    for (int b = 0; b < 8; ++b) acc[q][b] = fmaf(d[b], m[q], acc[q][b]);
+  }
+}
+
+// acc = dq @ M over the ring's row ranges, for this thread's tile; acc
+// comes in as the start of the chains (zeros). Threads that are not `live`
+// (no tile, or a lane group that is done) multiply nothing but keep the
+// ring and its barriers going. dq is the [P][L + DQ_PAD] buffer the block
+// wrote before the call: the first __syncthreads here publishes it, and
+// hook() runs right after that barrier, before any product work. With
+// need_sync, what hook() writes to shared memory can be read by every
+// thread when product() returns (a barrier is added when the ring's own
+// barriers do not already order it).
+template <int L, int TC, int SR, class Hook>
+__device__ __forceinline__ void product(Ring& r, const float* dq,
+                                        const Tile<L, TC>& t,
+                                        float (&acc)[TC][8], bool live,
+                                        int tid, int T, bool need_sync,
+                                        Hook&& hook) {
+#if TP_STAGE == 0
+  __syncthreads();
+  hook();
+  if (live) {
+#pragma unroll 1
+    for (int half = 0; half < 2; ++half) {
+      const int i0 = half ? r.b0 : 0;
+      const int i1 = half ? r.b_end : r.a_end;
+#pragma unroll 8
+      for (int i = i0; i < i1; ++i)
+        row_fma<L, TC>(acc, r.m + static_cast<size_t>(i) * r.P, dq, i, t);
+    }
+  }
+  if (need_sync) __syncthreads();
+#else
+  for (int s = 0; s < r.ns; ++s) {
+    const int buf = r.used % NST;
+#if TP_STAGE == 1
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(NST - 2) : "memory");
+#else
+    {
+      const uint32_t bar = smem_addr(r.bar + buf);
+      const uint32_t parity = (r.used / NST) & 1;
+      asm volatile(
+          "{\n.reg .pred P1;\nLAB_WAIT:\n"
+          "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+          "@P1 bra DONE;\nbra LAB_WAIT;\nDONE:\n}\n" ::"r"(bar),
+          "r"(parity)
+          : "memory");
+    }
+#endif
+    __syncthreads();
+    issue<SR>(r, (r.used + NST - 1) % NST, tid, T);
+    if (s == 0) hook();
+    ++r.used;
+    if (!live) continue;
+    int row0, n;
+    slab_rows<SR>(r, s, row0, n);
+    const float* st = r.stage + buf * SR * r.P;
+    const float* dqs = dq + row0 * (L + DQ_PAD);
+    constexpr int UNROLL = TP_UNROLL > 0 ? TP_UNROLL : SR;
+    if (n == SR) {
+#pragma unroll UNROLL
+      for (int q = 0; q < SR; ++q)
+        row_fma<L, TC>(acc, st + q * r.P, dqs, q, t);
+    } else {
+      for (int q = 0; q < n; ++q)
+        row_fma<L, TC>(acc, st + q * r.P, dqs, q, t);
+    }
+  }
+  if (need_sync && r.ns < 2) __syncthreads();
+#endif
+}
+
+// ---- the modes of a fused loop ---------------------------------------------
+
+// Lane compaction for the first half of exact-k, where a lane that is done
+// is never read again: move the state of the lanes still running (the unset
+// bits of `done`) down to slots 0, 1, ... so that whole groups of 8 slots
+// fall idle and are skipped. A lane's arithmetic does not depend on its
+// slot, so results do not change. Thread j moves column j of each of the NL
+// leaves (swizzled [P][L] buffers); orig[s] (shared int[L]) follows with the
+// lane each slot now holds. Returns the done mask of the new slots. Called
+// by every thread of the block, outside an iteration.
+template <int L, int NL>
+__device__ __forceinline__ unsigned compact_lanes(unsigned done,
+                                                  float* const (&leaves)[NL],
+                                                  int* orig, int j) {
+  constexpr unsigned ALL = L == 32 ? FULL : (1u << L) - 1u;
+  const unsigned live = ~done & ALL;
+  const int n = __popc(live);
+  // nothing to gain while the idle slots already fill as many groups as
+  // they can
+  if (__popc(whole_groups<L>(done)) / 8 == (L - n) / 8) return done;
+#pragma unroll
+  for (int l = 0; l < NL; ++l) {
+    int to = 0;
+    for (int s = 0; s < L; ++s) {
+      if (!bit(live, s)) continue;
+      if (s != to) at<L>(leaves[l], j, to) = at<L>(leaves[l], j, s);
+      ++to;
+    }
+  }
+  if (j == 0) {
+    int to = 0;
+    for (int s = 0; s < L; ++s) {
+      if (!bit(live, s)) continue;
+      orig[to++] = orig[s];
+    }
+  }
+  __syncthreads();
+  return n == 32 ? 0u : ALL & ~((1u << n) - 1u);
+}
+
+// What lane t's keeper (thread t < L) holds of its lane.
+struct Keeper {
+  int k = 0;
+  float rp = 3.4e38f, rd = 3.4e38f;  // "no residual yet"
+
+  // The keeper's part of a checked iteration, run by all of warp 0: lane
+  // tid's residuals r_p, r_d; the lanes in rmask record them and count kinc
+  // iterations. Returns the mask of lanes that meet tol.
+  __device__ __forceinline__ unsigned keep(int tid, int L, float r_p,
+                                           float r_d, float tol_p,
+                                           float tol_d, unsigned rmask,
+                                           int kinc) {
+    bool c = false;
+    if (tid < L) {
+      c = r_p <= tol_p && r_d <= tol_d;
+      if (bit(rmask, tid)) {
+        k += kinc;
+        rp = r_p;
+        rd = r_d;
+      }
+    }
+    return __ballot_sync(FULL, c);
+  }
+};
+
+// The modes (fixed_iters, exact-k, plain free-run, checked) over an engine E
+// that offers
+//   iterate<CHECK>(frozen, idle, last, stop, rmask, kinc) -> converged lanes
+//   snapshot<TO_GLOBAL>(lanes), compact(done) (compact_lanes above, or the
+//   identity), kp (the Keeper), sn_k and orig (shared int[L]: each lane's
+//   window start, the lane a slot holds), tid.
+// frozen lanes keep all their state; what idle lanes hold is never read
+// again (an engine may stop working on them); the lanes in `last` (and, with
+// stop, the lanes that converge here) keep the iterate they consumed.
+// Returns the done mask.
+// The loops are one loop with two call sites of iterate (one checked, one
+// not), each inlined once.
+template <int L, class E>
+__device__ __forceinline__ unsigned run_modes(E& e, int k_max, int C,
+                                              int exact_k, int fixed_iters) {
+  constexpr unsigned ALL = L == 32 ? FULL : (1u << L) - 1u;
+  enum { FIXED, WINDOW, REPLAY, FREE, CHECKED };
+  const int tid = e.tid;
+  int mode = fixed_iters > 0 ? FIXED
+             : C > 1 ? (exact_k ? WINDOW : FREE)
+                     : CHECKED;
+  int it = 0;      // iterations begun (WINDOW, FREE: at the window's start)
+  int f = 0;       // the iteration's place in its window
+  int w = 0;       // REPLAY: the step
+  int n_fast = 0;  // FREE: plain iterations before the checked one
+  unsigned done = 0, convd = 0;
+  for (;;) {
+    bool check = false, stop = false;
+    unsigned frozen = 0, idle = 0, last = 0, rmask = 0;
+    int kinc = 0;
+    if (mode == FIXED) {
+      // exactly fixed_iters plain iterations, no exit tests
+      if (it >= fixed_iters) break;
+      ++it;
+    } else if (mode == WINDOW) {
+      // exact-k, first half: free-run windows of C iterations; snapshot
+      // every still-active lane at each window start, so the window a lane
+      // converges in can be replayed with per-iteration checks once the
+      // block has drained. Windows may overshoot k_max: the replay budget
+      // cuts each lane off at exactly k_max.
+      if (f == 0) {
+        if (!(it < k_max && done != ALL)) {
+          // replay each lane's last window from its snapshot, every lane
+          // in its own slot again: k counts on from the window start
+          if (tid < L) e.orig[tid] = tid;
+          __syncthreads();
+          e.template snapshot<false>(ALL);
+          if (tid < L) e.kp.k = e.sn_k[tid];
+          mode = REPLAY;
+          continue;
+        }
+        done = e.compact(done);
+        e.template snapshot<true>(~done & ALL);
+        if (tid < L && !bit(done, tid)) e.sn_k[e.orig[tid]] = it;
+      }
+      // a lane that is done runs on only for its neighbours' sake: the
+      // replay starts from its snapshot
+      idle = done;
+      check = f == C - 1;
+    } else if (mode == REPLAY) {
+      if (w >= C) break;
+      unsigned over = 0;
+#pragma unroll
+      for (int b = 0; b < L; ++b) {
+        const int budget = min(C, k_max - e.sn_k[b]);
+        if (w >= budget) over |= 1u << b;
+        if (w == budget - 1) last |= 1u << b;
+      }
+      frozen = convd | over;
+      if (frozen == ALL) break;
+      check = stop = true;
+      rmask = ~frozen & ALL;
+      kinc = 1;
+    } else if (mode == FREE) {
+      // plain free-run: C-1 plain iterations, then one checked iteration;
+      // every lane keeps iterating until its group of 8 lanes is done, k is
+      // recorded at check granularity, and a done lane's residuals stay at
+      // its exit
+      if (f == 0) {
+        if (!(it < k_max && done != ALL)) break;
+        n_fast = min(C - 1, k_max - 1 - it);
+      }
+      frozen = whole_groups<L>(done);
+      check = f == n_fast;
+      if (check) {
+        rmask = ~done & ALL;
+        kinc = n_fast + 1;
+      }
+    } else {
+      // checked: exit tests every iteration; a converged lane freezes and
+      // keeps the iterate it consumed at exit
+      if (!(it < k_max && done != ALL)) break;
+      frozen = done;
+      last = it == k_max - 1 ? ALL : 0u;
+      check = stop = true;
+      rmask = ~done & ALL;
+      kinc = 1;
+    }
+    unsigned conv = 0;
+    if (check)
+      conv = e.template iterate<true>(frozen, idle, last, stop, rmask, kinc);
+    else
+      e.template iterate<false>(frozen, idle, last, stop, rmask, kinc);
+    if (mode == WINDOW || mode == FREE) {
+      if (check) {
+        done |= conv;
+        it += mode == WINDOW ? C : n_fast + 1;
+        f = 0;
+      } else {
+        ++f;
+      }
+    } else if (mode == REPLAY) {
+      convd |= conv & ~frozen;
+      ++w;
+    } else if (mode == CHECKED) {
+      done |= conv;
+      ++it;
+    }
+  }
+  if (mode == FIXED) {
+    e.kp.k = fixed_iters;
+    done = ALL;
+  } else if (mode == REPLAY) {
+    done = convd;
+  }
+  return done;
+}
+
+}  // namespace tp

@@ -3,9 +3,10 @@
 Each `csrc/<name>.cu` is compiled by `nvcc` for sm_90a into a shared
 library with a plain C interface and loaded with ctypes. The build runs at
 the first launch, never at import, into `spcies_tpu_torch/_build/` (listed
-in .gitignore), and is cached there by a hash of the source and the flags:
-a changed source builds anew, an unchanged one loads the library built
-before.
+in .gitignore), and is cached there by a hash of the source, of every
+header under csrc/ it includes (csrc/tile_product.cuh) and of the flags: a
+changed source or header builds anew, an unchanged one loads the library
+built before.
 """
 
 from __future__ import annotations
@@ -13,13 +14,19 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
+# where `<name>.cu` is read from; a timing script may point it elsewhere
 CSRC = _PKG / "csrc"
+# where a header is looked for when it is not beside its source
+INCLUDE = _PKG / "csrc"
+_INCLUDE_RE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -45,23 +52,50 @@ def _nvcc() -> str:
     return nvcc
 
 
-def source_digest(name: str) -> str:
-    """Hash of a kernel's source and the build flags."""
-    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+def included_files(path: Path) -> list[Path]:
+    """`path` and every file it includes with quotes, directly or through
+    another, each looked for beside the including file and then under
+    INCLUDE; in the order met."""
+    found: list[Path] = []
+    todo = [path]
+    while todo:
+        f = todo.pop()
+        if f in found:
+            continue
+        found.append(f)
+        for inc in _INCLUDE_RE.findall(f.read_text()):
+            for d in (f.parent, INCLUDE):
+                if (d / inc).is_file():
+                    todo.append((d / inc).resolve())
+                    break
+            else:
+                raise FileNotFoundError(f"{f} includes {inc!r}, which is "
+                                        f"neither beside it nor in {INCLUDE}")
+    return found
+
+
+def source_digest(name: str, csrc: Path | None = None) -> str:
+    """Hash of a kernel's source (in `csrc`, CSRC when left out), the
+    headers it includes and the build flags."""
+    h = hashlib.sha256()
+    for f in included_files(((csrc or CSRC) / f"{name}.cu").resolve()):
+        h.update(f.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return h.hexdigest()[:16]
 
 
-def build(name: str) -> tuple[Path, dict]:
-    """Compile csrc/<name>.cu unless a library of the same digest exists.
-    Returns the library's path and a record of the build (seconds, the
-    compiler's resource report)."""
-    lib = BUILD_DIR / f"lib{name}-{source_digest(name)}.so"
+def build(name: str, csrc: Path | None = None) -> tuple[Path, dict]:
+    """Compile <name>.cu of `csrc` (CSRC when left out) unless a library of
+    the same digest exists. Returns the library's path and a record of the
+    build (seconds, the compiler's resource report)."""
+    csrc = csrc or CSRC
+    lib = BUILD_DIR / f"lib{name}-{source_digest(name, csrc)}.so"
     if lib.exists():
         return lib, dict(seconds=0.0, cached=True, log="")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".tmp{os.getpid()}.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    tmp = lib.with_suffix(f".tmp{os.getpid()}-{threading.get_ident()}.so")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(csrc), "-I", str(INCLUDE), "-o",
+           str(tmp), str(csrc / f"{name}.cu")]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     seconds = time.perf_counter() - t0

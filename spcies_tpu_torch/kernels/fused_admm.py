@@ -33,6 +33,14 @@ of tile_b by the caller.
 
 `fused_admm_solve` runs the plain version for CPU tensors and launches the
 kernel for CUDA tensors; `fused_admm_solve.launches` counts the launches.
+
+The kernel is built for 8, 16 and 32 lanes a thread block (its product
+stage is csrc/tile_product.cuh); `pick_lanes` takes the widest build that
+divides the batch, fits the 232,448 bytes of shared memory a block can have
+and still gives half of the 132 SMs a block, and `launch_plan` states the
+choice. Every build gives the same bits, so `lanes=` of `fused_admm_solve`
+may name another build, for a check or a timing. The bf16 mode runs the same
+kernel with M and dq rounded to bf16.
 """
 
 from __future__ import annotations
@@ -43,16 +51,33 @@ import torch
 
 # columns are padded to whole warps: the kernel runs one thread per column
 COL_PAD = 32
-# lanes per thread block (TB in csrc/fused_admm.cu)
-CTA_LANES = 8
-# threads per block the kernel is compiled for (__launch_bounds__)
+# plain free-run drains by groups of this many lanes (a tile of tile_b = 8),
+# whatever the lanes a block
+DRAIN_LANES = 8
+# lanes a block the kernel is built for (fused_admm_kernel<L> in
+# csrc/fused_admm.cu), widest first
+LANES = (32, 16, 8)
+# threads per block the kernel is compiled for (__launch_bounds__); up to
+# NARROW columns a build of its own, with more registers and deeper slabs
 MAX_COLS = 512
+NARROW = 256
+# dynamic shared memory a block can have on an H100, and its SMs
+SMEM_MAX = 232448
+SMS = 132
+# csrc/tile_product.cuh as built: rows a slab of M (and in a narrow
+# build), buffers in the ring, floats of padding a row of dq, bytes of the
+# ring's mbarriers
+SLAB_ROWS, SLAB_ROWS_NARROW, STAGES, DQ_PAD, RING_EXTRA = 16, 32, 2, 4, 64
 # the "no residual yet" value of the JAX kernel, rounded to fp32
 RBIG = 3.4e38
-# C signature of fused_admm_launch: 13 tensor pointers; B, nzp, blocks,
-# threads, shared bytes; rho, 1/rho, alpha, 1-alpha; relax; tol_p, tol_d;
-# k_max, check_every, fixed_iters, exact_k, bf16; the stream
-FUSED_ADMM_ARGTYPES = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 5
+# the leaves an exact-k snapshot saves per lane: z, v, lam
+SNAP_LEAVES = 3
+# C signature of fused_admm_launch: 15 tensor pointers (6 inputs, 7 outputs,
+# the exact-k snapshot scratch, the bf16 mode's scratch for M rounded); B,
+# nzp, lanes, blocks, threads, shared bytes; rho, 1/rho, alpha, 1-alpha;
+# relax; tol_p, tol_d; k_max, check_every, fixed_iters, exact_k, bf16; the
+# stream
+FUSED_ADMM_ARGTYPES = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 6
                        + [ctypes.c_float] * 4 + [ctypes.c_int]
                        + [ctypes.c_float] * 2 + [ctypes.c_int] * 5
                        + [ctypes.c_void_p])
@@ -188,33 +213,75 @@ def fused_admm_reference(z1, v0, lam0, M_q_pad, LB_pad, UB_pad, *,
     return z, v, lam, k, e_flag, rp, rd
 
 
-def launch_geometry(B: int, nzp: int, *, tile_b: int, check_every: int,
-                    exact_k: bool, fixed_iters: int):
-    """(blocks, threads, dynamic shared bytes) of a kernel launch; raises
-    ValueError on a shape or mode the kernel does not take."""
+def shared_bytes(nzp: int, lanes: int) -> int:
+    """Dynamic shared bytes of a block (fused_admm_smem in the source)."""
+    # the ring of M's slabs, z, v and lam as [nzp][lanes], dq with its
+    # padding, the warps' row maxima, the masks, the window starts and the
+    # slots' lanes
+    slab = SLAB_ROWS_NARROW if nzp <= NARROW else SLAB_ROWS
+    return (4 * STAGES * slab * nzp + RING_EXTRA
+            + 4 * (nzp * (4 * lanes + DQ_PAD) + nzp // 32 * 2 * lanes + 4
+                   + 2 * lanes))
+
+
+def pick_lanes(B: int, nzp: int) -> int:
+    """Lanes a block for a batch of B lanes of width nzp: the widest build
+    that divides the batch, fits shared memory and still gives half of the
+    SMs a block (one round of 32-lane blocks beat two of 16-lane blocks at
+    B = 4096 on an H100); the narrowest that fits when the batch is smaller
+    than that."""
+    fits = [L for L in LANES
+            if B % L == 0 and shared_bytes(nzp, L) <= SMEM_MAX]
+    if not fits:
+        raise ValueError(f"no build of the kernel takes batch {B} at padded "
+                         f"width {nzp}")
+    for L in fits:
+        if B // L >= SMS // 2:
+            return L
+    return fits[-1]
+
+
+def launch_plan(B: int, nzp: int, *, tile_b: int, check_every: int,
+                exact_k: bool, fixed_iters: int, lanes: int | None = None):
+    """The build a launch takes and its geometry, as a dict: lanes a block,
+    blocks, threads, dynamic shared bytes. `lanes` names a build in place of
+    `pick_lanes`' choice; raises ValueError on a shape or mode no build
+    takes."""
     if nzp % COL_PAD or not 0 < nzp <= MAX_COLS:
         raise ValueError(f"the kernel takes a padded nz that is a multiple "
                          f"of {COL_PAD} up to {MAX_COLS}; got {nzp}")
-    if tile_b % CTA_LANES:
-        raise ValueError(f"tile_b must be a multiple of {CTA_LANES}; "
+    if tile_b % DRAIN_LANES:
+        raise ValueError(f"tile_b must be a multiple of {DRAIN_LANES}; "
                          f"got {tile_b}")
     if B % tile_b:
         raise ValueError(f"batch {B} is not a multiple of tile_b {tile_b}")
     if (check_every > 1 and not exact_k and not fixed_iters
-            and tile_b != CTA_LANES):
+            and tile_b != DRAIN_LANES):
         # in plain free-run the output iterates depend on when a lane's
-        # tile drains, and the kernel drains per block of CTA_LANES lanes
+        # tile drains, and the kernel drains per group of DRAIN_LANES lanes
         raise ValueError(
             f"plain free-run (check_every > 1 without exact_k) takes "
-            f"tile_b={CTA_LANES} on the GPU; got {tile_b}")
-    warps = nzp // 32
-    smem = 4 * (2 * nzp * CTA_LANES + 2 * warps * CTA_LANES * 2)
-    return B // CTA_LANES, nzp, smem
+            f"tile_b={DRAIN_LANES} on the GPU; got {tile_b}")
+    if lanes is None:
+        lanes = pick_lanes(B, nzp)
+    elif (lanes not in LANES or B % lanes
+          or shared_bytes(nzp, lanes) > SMEM_MAX):
+        raise ValueError(f"no build of the kernel takes {lanes} lanes a "
+                         f"block at batch {B}, padded width {nzp}")
+    return dict(lanes=lanes, blocks=B // lanes, threads=nzp,
+                smem=shared_bytes(nzp, lanes))
+
+
+def launch_geometry(B: int, nzp: int, **kw):
+    """(blocks, threads, dynamic shared bytes) of a kernel launch; the
+    arguments of `launch_plan`."""
+    plan = launch_plan(B, nzp, **kw)
+    return plan["blocks"], plan["threads"], plan["smem"]
 
 
 def _launch(z1, v0, lam0, M_q_pad, LB_pad, UB_pad, *, rho, tol_p, tol_d,
             k_max, tile_b, bf16, relax_alpha, check_every, fixed_iters,
-            exact_k):
+            exact_k, lanes):
     args = (z1, v0, lam0, M_q_pad, LB_pad, UB_pad)
     for t in args:
         if t.dtype != torch.float32:
@@ -222,32 +289,42 @@ def _launch(z1, v0, lam0, M_q_pad, LB_pad, UB_pad, *, rho, tol_p, tol_d,
         if not t.is_contiguous():
             raise ValueError("the fused kernel takes contiguous tensors")
     B, nzp = z1.shape
-    blocks, threads, smem = launch_geometry(
-        B, nzp, tile_b=tile_b, check_every=check_every, exact_k=exact_k,
-        fixed_iters=fixed_iters)
+    plan = launch_plan(B, nzp, tile_b=tile_b, check_every=check_every,
+                       exact_k=exact_k, fixed_iters=fixed_iters, lanes=lanes)
     from spcies_tpu_torch.kernels._build import load_kernel
     launch = load_kernel("fused_admm", "fused_admm_launch",
                          FUSED_ADMM_ARGTYPES)
+    dev = z1.device
     z, v, lam = (torch.empty_like(z1) for _ in range(3))
-    k, done = (torch.empty((B,), dtype=torch.int32, device=z1.device)
+    k, done = (torch.empty((B,), dtype=torch.int32, device=dev)
                for _ in range(2))
-    rp, rd = (torch.empty((B,), dtype=torch.float32, device=z1.device)
+    rp, rd = (torch.empty((B,), dtype=torch.float32, device=dev)
               for _ in range(2))
+    exact = check_every > 1 and exact_k and not fixed_iters
+    snap = torch.empty((B if exact else 0, SNAP_LEAVES * nzp),
+                       dtype=torch.float32, device=dev)
+    # the bf16 mode's launch rounds M to bf16 into this before its loop
+    m_round = torch.empty((nzp if bf16 else 0, nzp), dtype=torch.float32,
+                          device=dev)
+    ptrs = [t.data_ptr() for t in (z1, v0, lam0, M_q_pad, LB_pad, UB_pad, z,
+                                   v, lam, k, done, rp, rd, snap, m_round)]
+    if any(ptr % 16 for ptr in ptrs):
+        raise ValueError("the fused kernel takes 16-byte aligned tensors")
     alpha = float(relax_alpha)
-    stream = torch.cuda.current_stream(z1.device).cuda_stream
-    with torch.cuda.device(z1.device):
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
         err = launch(
-            *(t.data_ptr() for t in args + (z, v, lam, k, done, rp, rd)),
-            B, nzp, blocks, threads, smem,
+            *ptrs, B, nzp, plan["lanes"], plan["blocks"], plan["threads"],
+            plan["smem"],
             float(rho), float(1.0 / rho), alpha, 1.0 - alpha,
             int(alpha != 1.0), float(tol_p), float(tol_d), int(k_max),
             int(check_every), int(fixed_iters), int(bool(exact_k)),
             int(bool(bf16)), stream)
     if err != 0:
         raise RuntimeError(f"fused_admm kernel launch failed with CUDA "
-                           f"error {err} (blocks={blocks}, threads={threads},"
-                           f" shared={smem} B)")
+                           f"error {err} ({plan})")
     fused_admm_solve.launches += 1
+    fused_admm_solve.last_plan = plan
     e_flag = torch.where(done == 1, 1, -1).to(torch.int32)
     return z, v, lam, k, e_flag, rp, rd
 
@@ -256,10 +333,13 @@ def fused_admm_solve(z1, v0, lam0, M_q_pad, LB_pad, UB_pad, *,
                      rho: float, tol_p: float, tol_d: float, k_max: int,
                      tile_b: int = 256, bf16: bool = False,
                      relax_alpha: float = 1.0, check_every: int = 1,
-                     fixed_iters: int = 0, exact_k: bool = False):
+                     fixed_iters: int = 0, exact_k: bool = False,
+                     lanes: int | None = None):
     """Run the fused ADMM loop on [B, nzp] tensors (padded as the module
     docstring says; B a multiple of tile_b). CPU tensors run the plain
-    version; CUDA tensors launch the kernel or raise.
+    version; CUDA tensors launch the kernel or raise. `lanes` names the
+    build to launch (one of LANES) in place of `pick_lanes`' choice; the
+    results do not depend on it, and the plain version has no such builds.
 
     Returns (z, v, lam [B, nzp], k [B] int32, e_flag [B] int32 (1
     converged / -1 k_max reached), r_p [B], r_d [B]).
@@ -285,9 +365,11 @@ def fused_admm_solve(z1, v0, lam0, M_q_pad, LB_pad, UB_pad, *,
         return fused_admm_reference(z1, v0, lam0, M_q_pad, LB_pad, UB_pad,
                                     **kw)
     if z1.device.type == "cuda":
-        return _launch(z1, v0, lam0, M_q_pad, LB_pad, UB_pad, **kw)
+        return _launch(z1, v0, lam0, M_q_pad, LB_pad, UB_pad, lanes=lanes,
+                       **kw)
     raise ValueError(f"fused_admm_solve takes CPU or CUDA tensors; got "
                      f"{z1.device}")
 
 
 fused_admm_solve.launches = 0
+fused_admm_solve.last_plan = None

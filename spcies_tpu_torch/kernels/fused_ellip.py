@@ -56,8 +56,11 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from spcies_tpu_torch.kernels.fused_admm import (COL_PAD, CTA_LANES,
-                                                 MAX_COLS, RBIG, round_up)
+from spcies_tpu_torch.kernels.fused_admm import (COL_PAD, MAX_COLS,
+                                                 RBIG, round_up)
+
+# lanes per thread block (TB in csrc/fused_ellip.cu)
+CTA_LANES = 8
 
 __all__ = ["COL_PAD", "CTA_LANES", "MAX_COLS", "round_up",
            "fused_ellip_reference", "fused_ellip_solve", "launch_geometry",

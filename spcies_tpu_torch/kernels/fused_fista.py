@@ -51,8 +51,11 @@ import ctypes
 
 import torch
 
-from spcies_tpu_torch.kernels.fused_admm import (COL_PAD, CTA_LANES,
-                                                 MAX_COLS, RBIG, round_up)
+from spcies_tpu_torch.kernels.fused_admm import (COL_PAD, MAX_COLS,
+                                                 RBIG, round_up)
+
+# lanes per thread block (TB in csrc/fused_fista.cu)
+CTA_LANES = 8
 
 __all__ = ["COL_PAD", "CTA_LANES", "MAX_COLS", "round_up",
            "fused_fista_reference", "fused_fista_solve", "launch_geometry"]

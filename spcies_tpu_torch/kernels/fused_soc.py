@@ -42,9 +42,12 @@ import ctypes
 
 import torch
 
-from spcies_tpu_torch.kernels.fused_admm import (COL_PAD, CTA_LANES,
-                                                 MAX_COLS, round_up)
+from spcies_tpu_torch.kernels.fused_admm import (COL_PAD, MAX_COLS,
+                                                 round_up)
 from spcies_tpu_torch.kernels.modes import run_modes
+
+# lanes per thread block (TB in csrc/fused_soc.cu)
+CTA_LANES = 8
 
 __all__ = ["COL_PAD", "CTA_LANES", "MAX_COLS", "round_up",
            "fused_soc_reference", "fused_soc_solve", "launch_geometry"]

@@ -34,6 +34,13 @@ fixed_iters mode, as in the JAX kernel.
 `fused_split_solve` runs the plain version for CPU tensors and launches
 the kernel for CUDA tensors; `fused_split_solve.launches` counts the
 launches.
+
+The kernel runs 8 lanes a thread block, one column a thread, three blocks an
+SM. A build on the product stage K1 runs on (csrc/tile_product.cuh: 8, 16 or
+32 lanes a block, M1' staged through shared memory, register tiles) gives the
+same bits on every lane and is 3-17 % slower at the HMPC families' batches on
+an H100 (PERF.md): it is kept as csrc/variants/fused_split_tile.cu, which
+tools/ab_kernels.py builds and times and nothing here launches.
 """
 
 from __future__ import annotations
@@ -42,13 +49,15 @@ import ctypes
 
 import torch
 
-from spcies_tpu_torch.kernels.fused_admm import (COL_PAD, CTA_LANES,
-                                                 MAX_COLS)
+from spcies_tpu_torch.kernels.fused_admm import COL_PAD, MAX_COLS
 from spcies_tpu_torch.kernels.fused_hmpc import (WARP, check_cone_layout,
                                                  cone_columns, cone_project)
 from spcies_tpu_torch.kernels.modes import run_modes
 
 __all__ = ["fused_split_reference", "fused_split_solve", "launch_geometry"]
+
+# lanes per thread block (TB in csrc/fused_split.cu)
+CTA_LANES = 8
 
 # C signature of fused_split_launch: 16 tensor pointers (8 inputs, 7
 # outputs, the exact-k snapshot scratch); B, P, dim_p, cone0, cone_g,

@@ -248,10 +248,14 @@ def test_wrapper_rejects_bad_arguments():
 
 
 def test_launch_geometry():
-    # the N=30 headline: nz=240 pads to 256 columns, one thread each
-    assert fk.launch_geometry(32768, 256, tile_b=256, check_every=16,
-                              exact_k=True, fixed_iters=0) == (
-        4096, 256, 4 * (2 * 256 * 8 + 2 * 8 * 8 * 2))
+    # the N=30 headline: nz=240 pads to 256 columns, one thread each, 32
+    # lanes a block
+    kw = dict(tile_b=256, check_every=16, exact_k=True, fixed_iters=0)
+    assert fk.launch_geometry(32768, 256, **kw) == (
+        1024, 256, fk.shared_bytes(256, 32))
+    assert fk.shared_bytes(256, 32) == fk.RING_EXTRA + 4 * (
+        fk.STAGES * fk.SLAB_ROWS_NARROW * 256 + 256 * (4 * 32 + fk.DQ_PAD)
+        + 8 * 2 * 32 + 4 + 2 * 32)
     assert fk.launch_geometry(16, 96, tile_b=8, check_every=8,
                               exact_k=False, fixed_iters=0)[:2] == (2, 96)
     assert fk.launch_geometry(512, 96, tile_b=256, check_every=8,
@@ -259,7 +263,7 @@ def test_launch_geometry():
     bad = [
         dict(B=64, nzp=250, tile_b=8),          # not whole warps
         dict(B=64, nzp=544, tile_b=8),          # beyond 512 threads
-        dict(B=60, nzp=96, tile_b=12),          # tile not whole blocks
+        dict(B=60, nzp=96, tile_b=12),          # tile not whole groups
         dict(B=48, nzp=96, tile_b=32),          # batch not whole tiles
         dict(B=256, nzp=96, tile_b=256, check_every=8),  # free-run drain
     ]
@@ -268,6 +272,133 @@ def test_launch_geometry():
             fk.launch_geometry(b["B"], b["nzp"], tile_b=b["tile_b"],
                                check_every=b.get("check_every", 1),
                                exact_k=False, fixed_iters=0)
+
+
+# (batch, padded width) -> lanes a block the dispatch picks: the headline,
+# equMPC-ADMM, MPCT-ADMM-cs (the widest shape a family runs), the widest
+# shape the kernel takes, a batch of one round of 32-lane blocks, one under
+# half a round, and a request of 64 lanes
+DISPATCH = {(32768, 256): 32, (8192, 256): 32, (8192, 480): 16,
+            (32768, 480): 16, (8192, 512): 16, (4096, 256): 32,
+            (2048, 256): 16, (64, 256): 8, (8, 512): 8}
+
+
+@pytest.mark.parametrize("shape", sorted(DISPATCH))
+def test_dispatch_by_shape(shape):
+    B, nzp = shape
+    plan = fk.launch_plan(B, nzp, tile_b=8, check_every=16, exact_k=True,
+                          fixed_iters=0)
+    assert plan["lanes"] == DISPATCH[shape] == fk.pick_lanes(B, nzp)
+    assert plan["blocks"] * plan["lanes"] == B and plan["threads"] == nzp
+    assert plan["smem"] == fk.shared_bytes(nzp, plan["lanes"]) <= 232448
+    # the bf16 mode takes the same build
+    assert fk.launch_geometry(B, nzp, tile_b=8, check_every=16, exact_k=True,
+                              fixed_iters=0) == (
+        plan["blocks"], plan["threads"], plan["smem"])
+    # a request of 64 lanes keeps its 8 blocks
+    assert plan["blocks"] >= min(B // 8, fk.SMS // 2)
+
+
+@pytest.mark.parametrize("lanes", fk.LANES)
+def test_plain_free_run_takes_tile_8_at_every_lanes(lanes):
+    kw = dict(check_every=16, exact_k=False, fixed_iters=0, lanes=lanes)
+    plan = fk.launch_plan(4096, 256, tile_b=8, **kw)
+    assert plan["lanes"] == lanes and plan["blocks"] == 4096 // lanes
+    with pytest.raises(ValueError, match="plain free-run"):
+        fk.launch_plan(4096, 256, tile_b=256, **kw)
+
+
+@pytest.mark.parametrize("forced", [
+    dict(lanes=32, nzp=480),            # four [480][32] buffers do not fit
+    dict(lanes=32, nzp=512),
+    dict(lanes=64),                     # no such build
+    dict(lanes=4),
+    dict(lanes=32, B=48),               # batch not whole blocks
+    dict(lanes=16, B=4104),
+])
+def test_named_builds_are_refused(forced):
+    f = dict(dict(B=4096, nzp=256, lanes=None), **forced)
+    with pytest.raises(ValueError, match="no build"):
+        fk.launch_plan(f["B"], f["nzp"], tile_b=8, check_every=1,
+                       exact_k=False, fixed_iters=0, lanes=f["lanes"])
+
+
+@pytest.mark.parametrize("lanes", (None,) + fk.LANES)
+def test_lanes_do_not_reach_the_plain_version(fixture, lanes):
+    # on CPU tensors `lanes` names no build: the plain version runs
+    sys, param, st = fixture
+    args, _ = _fp64_kernel_args(sys, param, _batch(st, 8, 6), 15.0)
+    args = tuple(a.float().contiguous() for a in args)
+    kw = dict(rho=15.0, tol_p=1e-4, tol_d=1e-4, k_max=500, tile_b=8,
+              check_every=4, exact_k=True)
+    want = fk.fused_admm_reference(*args, **kw)
+    for a, b in zip(fk.fused_admm_solve(*args, lanes=lanes, **kw), want):
+        assert torch.equal(a, b)
+
+
+def test_geometry_constants_match_the_sources():
+    head = (_build.CSRC / "tile_product.cuh").read_text()
+    assert f"#define TP_SLAB_ROWS {fk.SLAB_ROWS} " in head
+    assert f"#define TP_SLAB_ROWS_NARROW {fk.SLAB_ROWS_NARROW} " in head
+    assert f"NARROW = {fk.NARROW};" in (
+        _build.CSRC / "fused_admm.cu").read_text()
+    assert f"#define TP_STAGES {fk.STAGES}\n" in head
+    assert "#define TP_STAGE 2 " in head        # the TMA ring
+    assert f"DQ_PAD = {fk.DQ_PAD};" in head
+    src = (_build.CSRC / "fused_admm.cu").read_text()
+    assert '#include "tile_product.cuh"' in src
+    assert f"NSNAP = {fk.SNAP_LEAVES};" in src
+    for lanes in fk.LANES:
+        assert f"launch<{lanes}>(p, " in src
+    # no tensor-core product and no library product in the launched source
+    assert "mma" not in src and "cublas" not in src.lower()
+    # the C signature the wrapper binds: 15 pointers, 6 + 4 + 1 + 2 + 5
+    # scalars, the stream
+    assert src.count('extern "C" int fused_admm_launch(') == 1
+    assert len(fk.FUSED_ADMM_ARGTYPES) == 34
+
+
+@pytest.mark.parametrize("name", ["fused_admm_parent", "fused_admm_tc",
+                                  "fused_split_tile"])
+def test_variant_sources_stay_out_of_the_launched_builds(name):
+    # the builds a timing script holds against the launched kernels
+    variants = _build.CSRC / "variants"
+    src = (variants / f"{name}.cu").read_text()
+    assert 'extern "C" int fused_' in src
+    files = _build.included_files(variants / f"{name}.cu")
+    uses_stage = name != "fused_admm_parent"
+    assert (_build.CSRC / "tile_product.cuh" in files) == uses_stage
+    # no wrapper of the package names a variant
+    for wrapper in (_build.CSRC.parent / "kernels").glob("*.py"):
+        assert f'"{name}"' not in wrapper.read_text()
+
+
+def test_source_digest_follows_includes(tmp_path, monkeypatch):
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    monkeypatch.setattr(_build, "INCLUDE", tmp_path)
+    (tmp_path / "k.cu").write_text(
+        '#include <cuda_runtime.h>\n#include "a.cuh"\nint k;\n')
+    (tmp_path / "a.cuh").write_text('#include "b.cuh"\nint a;\n')
+    (tmp_path / "b.cuh").write_text("int b;\n")
+    (tmp_path / "other.cuh").write_text("int o;\n")
+    assert [f.name for f in _build.included_files(tmp_path / "k.cu")] == [
+        "k.cu", "a.cuh", "b.cuh"]
+    d0 = _build.source_digest("k")
+    (tmp_path / "other.cuh").write_text("int o2;\n")    # not included
+    assert _build.source_digest("k") == d0
+    (tmp_path / "b.cuh").write_text("int b2;\n")        # through a.cuh
+    d1 = _build.source_digest("k")
+    assert d1 != d0
+    (tmp_path / "a.cuh").write_text('#include "b.cuh"\nint a2;\n')
+    assert _build.source_digest("k") not in (d0, d1)
+    # a source in another directory finds the header under INCLUDE
+    sub = tmp_path / "variant"
+    sub.mkdir()
+    (sub / "k.cu").write_text((tmp_path / "k.cu").read_text())
+    assert _build.source_digest("k", sub) == _build.source_digest("k")
+    (tmp_path / "k.cu").write_text('#include "missing.cuh"\n')
+    with pytest.raises(FileNotFoundError, match="missing.cuh"):
+        _build.source_digest("k")
 
 
 def test_build_is_lazy_and_content_addressed(monkeypatch):

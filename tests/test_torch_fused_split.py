@@ -396,6 +396,31 @@ def test_launch_geometry():
                                check_every=a["check_every"], exact_k=False)
 
 
+# (batch, padded width): the HMPC families at both batches, the use_soc
+# width, the widest shape and a request of 64 lanes
+@pytest.mark.parametrize("shape", [(8192, 320), (32768, 320), (8192, 352),
+                                   (4096, 512), (64, 320)])
+def test_launch_geometry_by_shape(shape):
+    B, P = shape
+    blocks, threads, smem = fk.launch_geometry(
+        B, P, 288, 288, 8, tile_b=8, check_every=8, exact_k=True)
+    # 8 lanes a block and one column a thread at every shape
+    assert (blocks, threads) == (B // fk.CTA_LANES, P)
+    assert smem == 4 * 8 * (6 * P + 4 * (P // 32)) <= 232448
+    # three blocks an SM fit its 228 KiB up to the families' width
+    assert (3 * (smem + 1024) <= 228 * 1024) == (P <= 352)
+
+
+def test_lanes_constant_is_the_kernels_own():
+    from spcies_tpu_torch.kernels import fused_admm
+    assert not hasattr(fused_admm, "CTA_LANES")
+    src = (_build.CSRC / "fused_split.cu").read_text()
+    assert f"TB = {fk.CTA_LANES};" in src
+    # the launched source stands alone: no shared header in its cache key
+    assert _build.included_files(_build.CSRC / "fused_split.cu") == [
+        _build.CSRC / "fused_split.cu"]
+
+
 def test_build_is_lazy_and_content_addressed():
     # importing the package built nothing
     assert _build.build_record("fused_split") is None

@@ -1,25 +1,51 @@
 #!/usr/bin/env python3
-"""A/B of build variants of the port's kernels K4-K7 on one CUDA card, in
-one process.
+"""A/B of build variants of the port's kernels on one CUDA card, in one
+process.
 
-Each variant is the committed source (spcies_tpu_torch/csrc/) with one
-text substitution: the product's unroll depth, or the blocks an SM the
-kernel is compiled for. The script builds every variant into the
-git-ignored spcies_tpu_torch/_build/ab/, prints ptxas's registers and
-spills, holds each variant against the plain PyTorch version at the
-kernel's chip_smoke.py families (B=8192), and times the variants in turns
-(forward, then backward) at B=8192 and 32768 with CUDA events. Run from
-the repository root on a machine with a card, for all four kernels or the
-ones named:
+K4-K6 (fused_ellip, fused_soc, fused_hmpc): each variant is the committed
+source (spcies_tpu_torch/csrc/) with one text substitution: the product's
+unroll depth, or the blocks an SM the kernel is compiled for.
 
-    python3 tools/ab_kernels.py [fused_ellip fused_soc fused_hmpc fused_split]
+K1 and K7 (fused_admm, fused_split): the builds of the product stage
+csrc/tile_product.cuh, under K1's source csrc/fused_admm.cu and K7's build on
+it, csrc/variants/fused_split_tile.cu (which no wrapper launches): the lanes
+a block L in {8, 16, 32} (64 does not fit shared memory: the bytes are
+printed), 2 or 4 columns a thread at 16 lanes, and builds of the stage with
+another slab depth, another ring depth, cp.async in place of TMA
+(cp.async.bulk), M read unstaged from L2 by __ldg, strided in place of
+adjacent columns a thread, and the iteration not inlined. The parent (one
+column a thread, 8 lanes a block: csrc/variants/fused_admm_parent.cu with its
+state in registers for K1, and for K7 csrc/fused_split.cu, the kernel its
+wrapper launches) is one more variant, so parent and change are timed in one
+call. Every fp32 variant must give the parent's k, e_flag and iterates bit
+for bit. For K1 the bf16 mode is timed on the tensor cores
+(csrc/variants/fused_admm_tc.cu at 16 and 32 lanes a block), on the CUDA cores
+and in the parent, each held against the plain version, and the laxMPC-ADMM
+solver is timed with sort_lanes on and off.
+
+The script builds every variant into the git-ignored
+spcies_tpu_torch/_build/ab/, prints ptxas's registers and spills and the
+mean block iterations beside k_mean, holds each variant against the plain
+PyTorch version (K4-K6) or the parent (K1, K7) at the kernel's chip_smoke.py
+families, and times the variants in turns (forward, then backward) at
+B=4096, 8192 and 32768 (K4-K6: 8192 and 32768) with CUDA events. Run from
+the repository root on a machine with a card, for all kernels or the ones
+named:
+
+    python3 tools/ab_kernels.py [fused_admm fused_split fused_ellip ...]
+
+With SPCIES_LOG_DIR set, every line also goes to ab_kernels.log in that
+directory.
 """
 
 from __future__ import annotations
 
+import ctypes
 import json
+import os
 import re
 import sys
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
@@ -30,6 +56,7 @@ sys.path.insert(0, str(REPO))
 import chip_smoke as c  # noqa: E402
 import spcies_tpu_torch as sp  # noqa: E402
 from spcies_tpu_torch.kernels import _build  # noqa: E402
+from spcies_tpu_torch.kernels import fused_admm as k1  # noqa: E402
 from spcies_tpu_torch.kernels import fused_ellip as k4  # noqa: E402
 from spcies_tpu_torch.kernels import fused_hmpc as k6  # noqa: E402
 from spcies_tpu_torch.kernels import fused_soc as k5  # noqa: E402
@@ -56,13 +83,6 @@ VARIANTS = {
                            "fused_hmpc_kernel<NARROW, 2>"),
         "128 registers, 1 block an SM": ("width <= NARROW ?", "false ?"),
     },
-    "fused_split": {
-        "committed (unroll 8, 3 blocks an SM)": None,
-        "unroll 16": ("UNROLL = 8; ", "UNROLL = 16;"),
-        "2 blocks an SM": ("fused_split_kernel<NARROW, 3>",
-                           "fused_split_kernel<NARROW, 2>"),
-        "128 registers, 1 block an SM": ("P <= NARROW ?", "false ?"),
-    },
 }
 
 
@@ -88,16 +108,15 @@ KERNELS = {
                         "ellipMPC-ADMM-soc"),
     "fused_hmpc": _hmpc(k6.fused_hmpc_solve, k6.fused_hmpc_reference,
                         "HMPC-ADMM", "ellipHMPC-ADMM"),
-    "fused_split": _hmpc(k7.fused_split_solve, k7.fused_split_reference,
-                         "HMPC-ADMM-split", "HMPC-SADMM-split"),
 }
 ARGTYPES = {"fused_ellip": k4.FUSED_ELLIP_ARGTYPES,
             "fused_soc": k5.FUSED_SOC_ARGTYPES,
             "fused_hmpc": k6.FUSED_HMPC_ARGTYPES,
-            "fused_split": k7.FUSED_SPLIT_ARGTYPES}
+            "fused_split": k7.FUSED_SPLIT_ARGTYPES,
+            "fused_admm": k1.FUSED_ADMM_ARGTYPES}
 
 
-def variant_dir(kernel: str, name: str, change) -> Path:
+def variant_dir(kernel: str, name: str, change) -> Path:  # K4-K6
     """A directory holding a variant's source, written from the committed
     one: `change` is None (the committed source itself) or an (old, new)
     text substitution."""
@@ -156,13 +175,404 @@ def ab(kernel: str, result: dict):
                                                for k, v in t.items()}
 
 
+# ---- K1 and K7: the builds of csrc/tile_product.cuh -----------------------
+
+CSRC = REPO / "spcies_tpu_torch" / "csrc"
+# the sources no wrapper launches: K1's parent, its bf16 kernel on the tensor
+# cores, and K7 on the product stage
+VARIANTS = CSRC / "variants"
+# variant name -> (the macro defaults of tile_product.cuh it changes, the
+# (lanes a block, columns a thread) it is run at)
+TILE_BUILDS = {
+    "cp.async": ({"TP_STAGE": 1}, [(32, 4), (16, 4)]),
+    "unstaged __ldg": ({"TP_STAGE": 0}, [(32, 4)]),
+    "strided columns": ({"TP_ADJ": 0}, [(32, 4)]),
+    "iteration not inlined": ({"TP_NOINLINE": 1}, [(32, 4)]),
+    "slabs of 8 rows": ({"TP_SLAB_ROWS": 8, "TP_SLAB_ROWS_NARROW": 8},
+                        [(32, 4), (16, 2)]),
+    "slabs of 16 rows": ({"TP_SLAB_ROWS_NARROW": 16}, [(32, 4), (16, 4)]),
+    "ring of 3, slabs of 16 rows": ({"TP_STAGES": 3,
+                                     "TP_SLAB_ROWS_NARROW": 16}, [(32, 4)]),
+    "unroll 8 rows": ({"TP_UNROLL": 8}, [(32, 4)]),
+}
+# the tiles of the committed header: (lanes a block, columns a thread)
+TILES = [(8, 1), (16, 2), (16, 4), (32, 4)]
+# the C signature of the parent K1 (csrc/variants/fused_admm_parent.cu)
+PARENT_ADMM_ARGTYPES = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 5
+                        + [ctypes.c_float] * 4 + [ctypes.c_int]
+                        + [ctypes.c_float] * 2 + [ctypes.c_int] * 5
+                        + [ctypes.c_void_p])
+# and of K1's bf16 kernel on the tensor cores (fused_admm_tc.cu): 14 tensor
+# pointers; B, nzp, lanes; rho, 1/rho, alpha, 1-alpha; relax; tol_p, tol_d;
+# k_max, check_every, fixed_iters, exact_k; the stream
+TC_ADMM_ARGTYPES = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 3
+                    + [ctypes.c_float] * 4 + [ctypes.c_int]
+                    + [ctypes.c_float] * 2 + [ctypes.c_int] * 4
+                    + [ctypes.c_void_p])
+
+
+def tile_dir(source: Path, macros: dict) -> Path:
+    """The directory of `source` when `macros` is empty; else a directory
+    holding a copy of it and a tile_product.cuh whose macro defaults are
+    `macros`."""
+    if not macros:
+        return source.parent
+    tag = "_".join(f"{m}{v}" for m, v in sorted(macros.items()))
+    d = _build.BUILD_DIR / "ab" / f"{source.stem}-{tag}"
+    d.mkdir(parents=True, exist_ok=True)
+    (d / source.name).write_text(source.read_text())
+    head = (CSRC / "tile_product.cuh").read_text()
+    for macro, value in macros.items():
+        head, n = re.subn(rf"(#define {macro}) \w+", rf"\1 {value}", head)
+        if n != 1:
+            raise RuntimeError(f"{macro} not defined once")
+    (d / "tile_product.cuh").write_text(head)
+    return d
+
+
+def log_ptxas(tag: str, record: dict):
+    for line in record["log"].splitlines():
+        if "registers" in line or "spill" in line:
+            c.log(f"{tag} ptxas: {line.strip()}")
+
+
+def outputs(like, B, snap_cols):
+    """The output tensors of a launch: three iterates, k, done, r_p, r_d and
+    the exact-k scratch (snap_cols columns a lane; 0 for none)."""
+    dev = like.device
+    its = [torch.empty_like(like) for _ in range(3)]
+    k, done = (torch.empty((B,), dtype=torch.int32, device=dev)
+               for _ in range(2))
+    rp, rd = (torch.empty((B,), dtype=torch.float32, device=dev)
+              for _ in range(2))
+    snap = torch.empty((B if snap_cols else 0, snap_cols),
+                       dtype=torch.float32, device=dev)
+    return its, k, done, rp, rd, snap
+
+
+def results(its, k, done, rp, rd):
+    return (*its, k, torch.where(done == 1, 1, -1).to(torch.int32), rp, rd)
+
+
+def admm_scalars(kk):
+    """The scalars K1's launchers share, rho to exact_k."""
+    alpha = float(kk["relax_alpha"])
+    return (float(kk["rho"]), float(1.0 / kk["rho"]), alpha, 1.0 - alpha,
+            int(alpha != 1.0), float(kk["tol_p"]), float(kk["tol_d"]),
+            int(kk["k_max"]), int(kk["check_every"]), int(kk["fixed_iters"]),
+            int(bool(kk["exact_k"])))
+
+
+def run_admm(v, args, kk):
+    """K1 through its wrapper at v.lanes lanes a block, with the shared
+    bytes of the build loaded (its slab and ring depth)."""
+    fn = _build._LOADED["fused_admm"][0].fused_admm_smem
+    fn.restype = ctypes.c_long
+    saved = k1.shared_bytes
+    k1.shared_bytes = lambda nzp, lanes: fn(nzp, lanes)
+    try:
+        return k1.fused_admm_solve(*args, **kk, lanes=v.lanes)
+    finally:
+        k1.shared_bytes = saved
+
+
+def run_admm_parent(v, args, kk):
+    """The parent K1: 8 lanes a block, state in registers."""
+    B, nzp = args[0].shape
+    its, k, done, rp, rd, _ = outputs(args[0], B, 0)
+    smem = 4 * (2 * nzp * 8 + 2 * (nzp // 32) * 8 * 2)
+    err = v.fn(*(t.data_ptr() for t in (*args, *its, k, done, rp, rd)),
+               B, nzp, B // 8, nzp, smem, *admm_scalars(kk),
+               int(bool(kk["bf16"])), torch.cuda.current_stream().cuda_stream)
+    assert err == 0, err
+    return results(its, k, done, rp, rd)
+
+
+def run_admm_tc(v, args, kk):
+    """K1's bf16 mode on the tensor cores, on M^T rounded to bf16."""
+    B, nzp = args[0].shape
+    assert kk["bf16"] and B % v.lanes == 0
+    exact = kk["check_every"] > 1 and kk["exact_k"] and not kk["fixed_iters"]
+    its, k, done, rp, rd, snap = outputs(args[0], B, 3 * nzp if exact else 0)
+    m_t = args[3].to(torch.bfloat16).t().contiguous()
+    err = v.fn(*(t.data_ptr() for t in (*args[:3], m_t, *args[4:], *its, k,
+                                        done, rp, rd, snap)),
+               B, nzp, v.lanes, *admm_scalars(kk),
+               torch.cuda.current_stream().cuda_stream)
+    assert err == 0, err
+    return results(its, k, done, rp, rd)
+
+
+def run_split(v, args, kk):
+    """K7 as its wrapper launches it: csrc/fused_split.cu."""
+    return k7.fused_split_solve(*args, **kk)
+
+
+def run_split_tile(v, args, kk):
+    """K7 on the product stage at v.lanes lanes a block."""
+    B, P = args[0].shape
+    # the wrapper's checks of the shape and the mode hold for this build too
+    k7.launch_geometry(B, P, kk["dim_p"], kk["cone0"], kk["cone_g"],
+                       tile_b=kk["tile_b"], check_every=kk["check_every"],
+                       exact_k=kk["exact_k"])
+    fn = _build._LOADED["fused_split_tile"][0].fused_split_tile_smem
+    fn.restype = ctypes.c_long
+    smem = fn(P, v.lanes)
+    if B % v.lanes or smem > k1.SMEM_MAX:
+        raise ValueError(f"{v.name} does not take batch {B} at width {P}")
+    exact = kk["check_every"] > 1 and kk["exact_k"]
+    its, k, done, rp, rd, snap = outputs(args[0], B, 3 * P if exact else 0)
+    err = v.fn(*(t.data_ptr() for t in (*args, *its, k, done, rp, rd, snap)),
+               B, P, kk["dim_p"], kk["cone0"], kk["cone_g"],
+               int(kk["symmetric"]), int(kk["use_soc"]), B // v.lanes, P,
+               smem, float(kk["alpha"]), float(kk["tol_p"]),
+               float(kk["tol_d"]), int(kk["k_max"]), int(kk["check_every"]),
+               int(bool(kk["exact_k"])),
+               torch.cuda.current_stream().cuda_stream)
+    assert err == 0, err
+    return results(its, k, done, rp, rd)    # zs, lm, aux
+
+
+# what runs a source: the entry point's name, its C signature, the launcher
+RUNNERS = {
+    "fused_admm": ("fused_admm_launch", k1.FUSED_ADMM_ARGTYPES, run_admm),
+    "fused_admm_parent": ("fused_admm_launch", PARENT_ADMM_ARGTYPES,
+                          run_admm_parent),
+    "fused_admm_tc": ("fused_admm_tc_launch", TC_ADMM_ARGTYPES, run_admm_tc),
+    "fused_split": ("fused_split_launch", k7.FUSED_SPLIT_ARGTYPES, run_split),
+    "fused_split_tile": ("fused_split_tile_launch", k7.FUSED_SPLIT_ARGTYPES,
+                         run_split_tile),
+}
+
+
+class Variant:
+    """One build of a source and the lanes a block it is launched with.
+    `macros` are the defaults of tile_product.cuh the build changes."""
+
+    def __init__(self, name, source: Path, lanes=None, macros=None):
+        self.name, self.lanes = name, lanes
+        self.stem = source.stem
+        self.dir = tile_dir(source, macros or {})
+        self.fn = None
+
+    def load(self):
+        symbol, argtypes, _ = RUNNERS[self.stem]
+        _build.CSRC = self.dir
+        _build._LOADED.pop(self.stem, None)
+        self.fn = _build.load_kernel(self.stem, symbol, argtypes)
+        return _build.build_record(self.stem)
+
+    def run(self, args, kk):
+        """Run the variant, which is the build of its source loaded last."""
+        return RUNNERS[self.stem][2](self, args, kk)
+
+    def __call__(self, args, kk):
+        self.load()
+        return self.run(args, kk)
+
+    def fits(self, args, kk):
+        """Whether the build takes this call's shape (shared memory)."""
+        try:
+            self(args, dict(kk, k_max=1))
+        except ValueError:
+            return False
+        return True
+
+
+def tile_variants(kernel: str):
+    """The parent first, then the committed header at every tile, then the
+    other builds of the product stage."""
+    if kernel == "fused_admm":
+        parent = VARIANTS / "fused_admm_parent.cu"
+        source = CSRC / "fused_admm.cu"
+    else:
+        parent = CSRC / "fused_split.cu"
+        source = VARIANTS / "fused_split_tile.cu"
+    out = [Variant("parent (8 lanes, one column a thread)", parent, 8)]
+
+    def add(label, macros, tiles):
+        for L, tc in tiles:
+            m = dict(macros, TP_COLS_16=tc) if L == 16 and tc != 4 else macros
+            out.append(Variant(f"{label} {L}x{tc}", source, L, m))
+    add("committed", {}, TILES)
+    for name, (macros, tiles) in TILE_BUILDS.items():
+        add(name, macros, tiles)
+    return out
+
+
+def same_bits(out, ref, B):
+    """Every output of `out` equals `ref`'s exactly on the first B lanes."""
+    return all(bool(torch.equal(a[:B], b[:B])) for a, b in zip(out, ref))
+
+
+def block_iterations(k, lanes):
+    """Mean over the blocks of the largest k of a block's lanes."""
+    return float(k.reshape(-1, lanes).amax(dim=1).float().mean())
+
+
+def tile_families(kernel):
+    """name -> (solver builder, input builder, argument builder)."""
+    if kernel == "fused_split":
+        return {fam: (lambda fam=fam: c.hmpc_solver(sp, fam, device="cuda"),
+                      lambda B, fam=fam: c.hmpc_inputs(sp, fam, 0, B),
+                      c.hmpc_kernel_args)
+                for fam in ("HMPC-ADMM-split", "HMPC-SADMM-split")}
+    plain = lambda B: c.problem(sp, 0, B)[2]  # noqa: E731
+    return {
+        "laxMPC-ADMM": (lambda: c.fused_solver(
+            sp, tile_b=c.TILE_B, check_every=c.CHECK_EVERY, exact_k=True),
+            plain, c.kernel_args),
+        "equMPC-ADMM": (lambda: c.family_solver(sp, "equMPC-ADMM"), plain,
+                        c.kernel_args),
+        "MPCT-ADMM-cs": (lambda: c.mpct_solver(sp, "MPCT-ADMM-cs"), plain,
+                         c.kernel_args),
+    }
+
+
+def time_in_turns(variants, args, kk, reps=3):
+    t = {v.name: [] for v in variants}
+    for v in list(variants) + list(variants)[::-1]:
+        v.load()
+        t[v.name].append(c.cuda_ms(lambda: v.run(args, kk), reps=reps))
+    return t
+
+
+def ab_tile(kernel: str, result: dict):
+    """Build, check against the parent and time every variant of K1 or K7."""
+    # the state buffers alone at 64 lanes a block: K1's z, v, lam and dq
+    # (K7's aux, zs, lm and dq) as [width][64] floats
+    width = 256 if kernel == "fused_admm" else 320
+    c.log(f"{kernel} at width {width}: the four [width][64] buffers of 64 "
+          f"lanes a block take {4 * 4 * width * 64} of {k1.SMEM_MAX} bytes "
+          f"before the ring: not built")
+    variants = []
+    candidates = tile_variants(kernel)
+    if kernel == "fused_admm":
+        candidates += bf16_variants()[2:]
+
+    def try_build(v):    # a variant that does not build is reported, not run
+        try:
+            return _build.build(v.stem, v.dir)[1]
+        except RuntimeError as e:
+            return e
+    firsts = list({(v.dir, v.stem): v for v in candidates}.values())
+    with ThreadPoolExecutor(8) as pool:
+        records = dict(zip(((v.dir, v.stem) for v in firsts),
+                           pool.map(try_build, firsts)))
+    for v in candidates:
+        rec = records[(v.dir, v.stem)]
+        if isinstance(rec, RuntimeError):
+            c.log(f"{kernel} [{v.name}] DOES NOT BUILD: {str(rec)[-1500:]}")
+            continue
+        c.log(f"{kernel} [{v.name}] nvcc {rec['seconds']:.1f} s")
+        log_ptxas(f"{kernel} [{v.name}]", rec)
+        if v.stem != "fused_admm_tc":
+            variants.append(v)
+    for fam, (make, inputs, make_args) in tile_families(kernel).items():
+        solver = make()
+        for B in (c.SMALL_BATCH, c.FB, c.BATCH):
+            args, kk = make_args(solver, inputs(B))
+            nzp = args[0].shape[1]
+            run = [v for v in variants if v.fits(args, kk)]
+            c.log(f"{kernel} {fam} B={B}: not run, the shape does not fit "
+                  f"their shared memory: "
+                  f"{[v.name for v in variants if v not in run]}")
+            ref = run[0](args, kk)
+            torch.cuda.synchronize()
+            k = ref[3][:B]
+            c.log(f"{kernel} {fam} B={B} width={nzp}: k_mean="
+                  f"{float(k.float().mean())} converged="
+                  f"{float((ref[4][:B] == 1).float().mean())} mean block "
+                  f"iterations " + json.dumps(
+                      {L: block_iterations(k, L) for L in (8, 16, 32)}))
+            for v in run[1:]:
+                out = v(args, kk)
+                torch.cuda.synchronize()
+                ok = same_bits(out, ref, B)
+                c.log(f"{kernel} [{v.name}] {fam} B={B}: bit-identical to "
+                      f"the parent: {ok}")
+                assert ok, (kernel, v.name, fam, B)
+            t = time_in_turns(run, args, kk)
+            c.log(f"{kernel} {fam} B={B} ms (CUDA events, in turns): "
+                  + json.dumps(t))
+            result[f"{kernel} {fam} B={B}"] = {n: min(x)
+                                               for n, x in t.items()}
+    if kernel == "fused_admm":
+        ab_bf16(result)
+        ab_sort_lanes(result)
+
+
+def bf16_variants():
+    tc = VARIANTS / "fused_admm_tc.cu"
+    return [
+        Variant("parent bf16 (CUDA cores, 8 lanes)",
+                VARIANTS / "fused_admm_parent.cu", 8),
+        Variant("bf16 CUDA cores 32x4", CSRC / "fused_admm.cu", 32),
+        Variant("bf16 tensor cores L=16", tc, 16),
+        Variant("bf16 tensor cores L=32", tc, 32),
+    ]
+
+
+def ab_bf16(result: dict):
+    """K1's bf16 mode at the headline: tensor cores (16 and 32 lanes a
+    block), CUDA cores and the parent, each against the plain version."""
+    variants = bf16_variants()
+    solver = c.fused_solver(sp, tile_b=c.TILE_B, check_every=c.CHECK_EVERY,
+                            exact_k=True, bf16_delta=True)
+    for B in (c.SMALL_BATCH, c.BATCH):
+        args, kk = c.kernel_args(solver, c.problem(sp, 0, B)[2])
+        ref = k1.fused_admm_reference(*args, **kk)
+        for v in variants:
+            out = v(args, kk)
+            torch.cuda.synchronize()
+            a = c.agreement(out, ref, B, solver.m, False)
+            dk = (out[3][:B] - ref[3][:B]).abs()
+            a["k_within_1"] = float((dk <= 1).float().mean())
+            a["k_within_16"] = float((dk <= 16).float().mean())
+            a["dk_max"] = int(dk.max())
+            c.log(f"fused_admm [{v.name}] bf16 vs plain B={B}: "
+                  + json.dumps(a))
+        t = time_in_turns(variants, args, kk)
+        c.log(f"fused_admm bf16 B={B} ms (CUDA events, in turns): "
+              + json.dumps(t))
+        result[f"fused_admm bf16 B={B}"] = {n: min(x) for n, x in t.items()}
+
+
+def ab_sort_lanes(result: dict):
+    """The headline solver with sort_lanes off and on, at the dispatch's L."""
+    Variant("committed", CSRC / "fused_admm.cu").load()
+    x = [torch.as_tensor(a, dtype=torch.float32, device="cuda")
+         for a in c.problem(sp, 0, c.BATCH)[2]]
+    t = {}
+    for sort in (False, True, True, False):
+        solver = c.fused_solver(sp, tile_b=c.TILE_B,
+                                check_every=c.CHECK_EVERY, exact_k=True,
+                                sort_lanes=sort)
+        solver.options.timing = False
+        res = solver(*x)
+        t.setdefault(f"sort_lanes={sort}", []).append(
+            c.cuda_ms(lambda: solver(*x), reps=3))
+        c.log(f"fused_admm laxMPC-ADMM solver B={c.BATCH} sort_lanes={sort}: "
+              f"k_mean={float(res.k.float().mean())} plan="
+              f"{k1.fused_admm_solve.last_plan}")
+    c.log(f"fused_admm laxMPC-ADMM solver B={c.BATCH} ms (CUDA events): "
+          + json.dumps(t))
+    result["fused_admm sort_lanes"] = {n: min(v) for n, v in t.items()}
+
+
 def main(kernels):
     c.require_cuda()
+    if os.environ.get("SPCIES_LOG_DIR"):    # the lines also go to a file there
+        out = Path(os.environ["SPCIES_LOG_DIR"])
+        out.mkdir(parents=True, exist_ok=True)
+        c.LOG_FILE = open(out / "ab_kernels.log", "w")
     torch.set_float32_matmul_precision("highest")
     c.log(c.card_line())
     result = {}
-    for kernel in kernels or KERNELS:
-        ab(kernel, result)
+    for kernel in kernels or ["fused_admm", "fused_split", *KERNELS]:
+        (ab_tile if kernel in ("fused_admm", "fused_split") else ab)(
+            kernel, result)
+    _build.CSRC = CSRC
     c.log(json.dumps(result))
 
 
