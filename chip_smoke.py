@@ -57,15 +57,19 @@ started together), then
      at B=4096 checked, free-run, fixed_iters, capped and with a random
      SPD P and c != xr; K5 (ellipMPC-ADMM-soc, rho 5, sigma 4, k_max 5000,
      plain free-run with check_every 8, which takes tile_b 8 on the card,
-     r_ellip 0.5) at B=8192 and at B=4096 checked, exact-k, capped and
-     with a per-lane radius in [0.1, 1]; held together as in 1;
+     r_ellip 0.5) at B=8192 and at B=4096 checked, exact-k, capped in
+     exact-k and in free-run and with a per-lane radius in [0.1, 1]; held
+     together as in 1, and K5 at each number of lanes a block its builds
+     take held to its 8-lane build bit for bit in every mode, as K1 in 1;
  11. drives both ellipMPC paths through make_solver(..., backend="fused")
      with the device left to its default, the card: a request and a warm
      start each at B=8192, each launching its kernel once and converging
      on every lane, and a small batch against the fp64 dense engine on
      the CPU;
  12. times K4 and K5, their plain versions and the fp32 dense engines at
-     B=8192 and 32768;
+     B=8192 and 32768, with the lanes a block of the launch, the mean k of
+     its 8-lane groups and its blocks' iterations (K5's own count, with
+     refill);
  13. runs the HMPC kernels and their plain versions on the same CUDA
      tensors at the bench's four N=30 HMPC families (bench.py:327-375: w =
      3 * 1.627 * 0.2, Te = Th = 10 N Q, Se = R, Sh = R / 2, tol 1e-4):
@@ -73,15 +77,19 @@ started together), then
      8, which takes tile_b 8 on the card) and ellipHMPC-ADMM (the three
      mass positions as outputs within +-0.1, Te = Th = N Q, rho 200,
      sigma 0.01, binding sinusoidal references) at B=8192, and at B=4096
-     checked, exact-k, capped and with use_soc; K7 for HMPC-ADMM-split and
-     HMPC-SADMM-split (rho 5, sigma 5, k_max 4000, exact-k with
-     check_every 8, tile_b 256) at B=8192, and at B=4096 checked,
-     free-run, capped and with use_soc; held together as in 1;
+     checked, exact-k, capped in exact-k and in free-run and with use_soc;
+     K7 for HMPC-ADMM-split and HMPC-SADMM-split (rho 5, sigma 5, k_max
+     4000, exact-k with check_every 8, tile_b 256) at B=8192, and at
+     B=4096 checked, free-run, capped and with use_soc; held together as in
+     1, and K6's builds to each other as K5's in 10;
  14. drives the four HMPC paths through make_solver(..., backend="fused")
      with the device left to its default, as in 11;
  15. times K6 and K7, their plain versions and the fp32 dense engines at
-     B=8192 and 32768 for HMPC-ADMM and HMPC-ADMM-split, and at B=8192 for
-     HMPC-SADMM-split and ellipHMPC-ADMM.
+     B=8192 and 32768 for HMPC-ADMM, HMPC-ADMM-split and ellipHMPC-ADMM,
+     and at B=8192 for HMPC-SADMM-split, with iterations as in 12.
+K1, K5 and K6 run on the product stage csrc/tile_product.cuh;
+tools/ab_kernels.py holds their builds to the one-column-per-thread parents
+in csrc/variants/.
 The line before the card line lists every kernel with its launches on the
 main paths, its largest u error against its plain version, its time, its
 plain version's time and its bound: the larger of the bytes it must move
@@ -281,24 +289,44 @@ def check_agreement(name, a, phase=1):
     assert a["u_err"] <= U_TOL, (name, a["u_err"])
 
 
-def check_lanes_bitwise(args, kk, B, name):
-    """Run K1 at every number of lanes a block that takes this shape and
-    hold the builds to the 8-lane one bit for bit: every output (iterates,
-    k, e_flag, residuals) equal on every lane."""
-    from spcies_tpu_torch.kernels import fused_admm as k1
-    nzp = args[0].shape[1]
-    lanes = [L for L in k1.LANES
-             if B % L == 0 and k1.shared_bytes(nzp, L) <= k1.SMEM_MAX]
-    assert 8 in lanes and len(lanes) > 1, lanes
+def check_lanes_bitwise(solve, args, kk, B, name, phase=1):
+    """Run a kernel whose wrapper takes `lanes=` (K1, K5, K6) at every
+    number of lanes a block whose build takes this shape, and hold the
+    builds to the 8-lane one bit for bit: every output (iterates, k,
+    e_flag, residuals) equal on every lane."""
     outs = {}
-    for L in lanes:
-        outs[L] = k1.fused_admm_solve(*args, **kk, lanes=L)
-        assert k1.fused_admm_solve.last_plan["lanes"] == L
+    for L in (8, 16, 32):
+        try:
+            outs[L] = solve(*args, **kk, lanes=L)
+        except ValueError as e:     # no build of L lanes takes the shape
+            if "no build" not in str(e):
+                raise
+            continue
+        assert solve.last_plan["lanes"] == L
     torch.cuda.synchronize()
+    assert 8 in outs and len(outs) > 1, list(outs)
     for L, out in outs.items():
-        same = all(bool(torch.equal(a, b)) for a, b in zip(out, outs[8]))
+        same = all(bool(torch.equal(a[:B], b[:B]))
+                   for a, b in zip(out, outs[8]))
         assert same, (name, L)
-    log(f"phase 1 {name}: builds {list(outs)} bit-identical")
+    log(f"phase {phase} {name}: builds {list(outs)} bit-identical")
+
+
+def iterations(k, solve, lanes=8):
+    """The mean k of a launch's 8-lane groups (each its slowest lane's),
+    and the mean and largest count of its blocks' iterations: the kernel's
+    own count with refill, else each block's slowest lane. `solve` is the
+    wrapper of the last launch; one without `last_plan` runs `lanes` lanes
+    a block."""
+    plan = getattr(solve, "last_plan", None) or dict(lanes=lanes,
+                                                       refill=False)
+    groups = k.reshape(-1, 8).amax(dim=1).float()
+    blocks = (plan["block_iterations"].float() if plan["refill"]
+              else k.reshape(-1, plan["lanes"]).amax(dim=1).float())
+    return dict(lanes=plan["lanes"], refill=plan["refill"],
+                group_k_mean=float(groups.mean()),
+                block_iterations_mean=float(blocks.mean()),
+                block_iterations_max=float(blocks.max()))
 
 
 def phase_kernel_vs_plain(sp):
@@ -334,7 +362,7 @@ def phase_kernel_vs_plain(sp):
         a = agreement(out_k, out_p, B, m, bool(fixed))
         check_agreement(name, a)
         if not kk["bf16"]:
-            check_lanes_bitwise(args, kk, B, name)
+            check_lanes_bitwise(k1.fused_admm_solve, args, kk, B, name)
         if head is None:
             head = (a, out_p, solver.m)
     return head
@@ -867,11 +895,9 @@ def ellip_kernel_args(solver, inputs, fixed_iters=0):
     return (*kin, *solver.raw_fn.operator), kw
 
 
-def phase_ellip_kernel_vs_plain(sp):
-    """K4 and K5 against their plain versions on the same CUDA tensors.
-    Returns the largest u error of each kernel over its modes."""
-    from spcies_tpu_torch.kernels import fused_ellip as k4
-    from spcies_tpu_torch.kernels import fused_soc as k5
+def ellip_modes():
+    """Phase 10's runs: (family, label, B, fixed_iters, capped, solver
+    options, input options)."""
     adm, soc = "ellipMPC-ADMM", "ellipMPC-ADMM-soc"
     radii = np.random.default_rng(7).uniform(0.1, 1.0, (SMALL_BATCH, 1))
     capped = dict(tol=1e-13, k_max=19)
@@ -896,11 +922,24 @@ def phase_ellip_kernel_vs_plain(sp):
          dict(tile_b=TILE_B, exact_k=True), {}),
         (soc, f"exact-k capped (tol 1e-13, k_max 19) B={SMALL_BATCH}",
          SMALL_BATCH, 0, True, capped_soc, {}),
+        (soc, f"free-run capped (tol 1e-13, k_max 19) B={SMALL_BATCH}",
+         SMALL_BATCH, 0, True, dict(tol_p=1e-13, tol_d=1e-13, k_max=19),
+         {}),
         (soc, f"free-run per-lane radius in [0.1, 1] B={SMALL_BATCH}",
          SMALL_BATCH, 0, False, {}, dict(radius=radii)),
     ]
+    return modes
+
+
+def phase_ellip_kernel_vs_plain(sp):
+    """K4 and K5 against their plain versions on the same CUDA tensors, and
+    K5's builds against each other. Returns the largest u error of each
+    kernel over its modes."""
+    from spcies_tpu_torch.kernels import fused_ellip as k4
+    from spcies_tpu_torch.kernels import fused_soc as k5
+    adm = "ellipMPC-ADMM"
     u_err = {"fused_ellip": 0.0, "fused_soc": 0.0}
-    for name, label, B, fixed, cut, kw, extra in modes:
+    for name, label, B, fixed, cut, kw, extra in ellip_modes():
         solver = ellip_solver(sp, name, device=DEVICE, **kw)
         inputs = ellip_inputs(sp, name, 0, B, **extra)
         args, kk = ellip_kernel_args(solver, inputs, fixed)
@@ -918,6 +957,8 @@ def phase_ellip_kernel_vs_plain(sp):
         check_agreement(f"{name} {label}", a, phase=10)
         if "capped" in label:
             assert bool((out_k[3][:B] == 19).all()), "capped k"
+        if key == "fused_soc":
+            check_lanes_bitwise(kern, args, kk, B, f"{name} {label}", 10)
         u_err[key] = max(u_err[key], a["u_err"])
     return u_err
 
@@ -1015,15 +1056,14 @@ def phase_ellip_times(sp):
                 f"converged={float((res.e_flag == 1).float().mean())}")
             res = kernel()
             k = res[3][:B].long()
-            blocks = k.reshape(-1, 8).amax(dim=1)
             # the products' real rows and columns: nz for K4, dim + n + 1
             # for K5
             w = (fused.raw_fn.dim + fused.raw_fn.n_s if submethod
                  else fused.nz)
             bound = roofline(args + res, iter_flops(k, 2.0 * w * w))
             log(f"phase 12 {name} kernel B={B}: k_mean="
-                f"{float(k.float().mean())} k_max={int(k.max())} mean "
-                f"block k={float(blocks.float().mean())} bound={bound}")
+                f"{float(k.float().mean())} k_max={int(k.max())} "
+                f"{json.dumps(iterations(k, kern))} bound={bound}")
             log(f"phase 12 {name} times (ms per B={B} solve, CUDA events): "
                 + json.dumps(t))
             out[(name, B)] = dict({key: min(v) for key, v in t.items()},
@@ -1096,9 +1136,8 @@ def hmpc_kernel(name):
     return "fused_hmpc", k6.fused_hmpc_solve, k6.fused_hmpc_reference
 
 
-def phase_hmpc_kernel_vs_plain(sp):
-    """K6 and K7 against their plain versions on the same CUDA tensors.
-    Returns the largest u error of each kernel over its modes."""
+def hmpc_modes():
+    """Phase 13's runs: (family, label, B, capped, solver options)."""
     adm, ell = "HMPC-ADMM", "ellipHMPC-ADMM"
     spl, sad = "HMPC-ADMM-split", "HMPC-SADMM-split"
     ek = dict(tile_b=TILE_B, check_every=8, exact_k=True)
@@ -1115,6 +1154,8 @@ def phase_hmpc_kernel_vs_plain(sp):
          SMALL_BATCH, True, capped),
         (adm, f"use_soc free-run B={SMALL_BATCH}", SMALL_BATCH, False,
          dict(use_soc=True)),
+        (adm, f"free-run capped (tol 1e-13, k_max 19) B={SMALL_BATCH}",
+         SMALL_BATCH, True, dict(tol_p=1e-13, tol_d=1e-13, k_max=19)),
         (ell, f"exact-k B={SMALL_BATCH}", SMALL_BATCH, False, ek),
         (spl, f"checked B={SMALL_BATCH}", SMALL_BATCH, False, checked),
         (sad, f"checked B={SMALL_BATCH}", SMALL_BATCH, False, checked),
@@ -1129,8 +1170,15 @@ def phase_hmpc_kernel_vs_plain(sp):
         (sad, f"use_soc exact-k B={SMALL_BATCH}", SMALL_BATCH, False,
          dict(use_soc=True)),
     ]
+    return modes
+
+
+def phase_hmpc_kernel_vs_plain(sp):
+    """K6 and K7 against their plain versions on the same CUDA tensors, and
+    K6's builds against each other. Returns the largest u error of each
+    kernel over its modes."""
     u_err = {"fused_hmpc": 0.0, "fused_split": 0.0}
-    for name, label, B, cut, kw in modes:
+    for name, label, B, cut, kw in hmpc_modes():
         solver = hmpc_solver(sp, name, device=DEVICE, **kw)
         args, kk = hmpc_kernel_args(solver, hmpc_inputs(sp, name, 0, B))
         key, kern, plain = hmpc_kernel(name)
@@ -1142,6 +1190,8 @@ def phase_hmpc_kernel_vs_plain(sp):
         check_agreement(f"{name} {label}", a, phase=13)
         if cut:
             assert bool((out_k[3][:B] == 19).all()), "capped k"
+        if key == "fused_hmpc":
+            check_lanes_bitwise(kern, args, kk, B, f"{name} {label}", 13)
         u_err[key] = max(u_err[key], a["u_err"])
     return u_err
 
@@ -1227,19 +1277,18 @@ def hmpc_flops(solver, key):
     dim, n_s = ing["dim"], ing["n_s"]
     if key == "fused_split":
         return 2.0 * (dim + n_s) ** 2
-    return 2.0 * n_s * dim + 2.0 * np.count_nonzero(ing["C"])
+    return 2.0 * n_s * dim + 2.0 * float(np.count_nonzero(ing["C"]))
 
 
 def phase_hmpc_times(sp):
     """K6 and K7, their plain versions and the fp32 dense engines, in turns,
-    each a CUDA-event mean: at B=8192 and 32768 for HMPC-ADMM and
-    HMPC-ADMM-split, at B=8192 for the other two. Returns the minima and
-    each kernel's bound."""
+    each a CUDA-event mean: at B=8192 and 32768 for HMPC-ADMM,
+    HMPC-ADMM-split and ellipHMPC-ADMM, at B=8192 for HMPC-SADMM-split.
+    Returns the minima and each kernel's bound."""
     out = {}
     for name in HMPC_FAMILIES:
         key, kern, plain = hmpc_kernel(name)
-        sizes = (FB, BATCH) if name in ("HMPC-ADMM",
-                                        "HMPC-ADMM-split") else (FB,)
+        sizes = (FB,) if name == "HMPC-SADMM-split" else (FB, BATCH)
         for B in sizes:
             fused = hmpc_solver(sp, name, device=DEVICE)
             dense = hmpc_solver(sp, name, backend="dense", device=DEVICE)
@@ -1264,13 +1313,10 @@ def phase_hmpc_times(sp):
                 f"converged={float((res.e_flag == 1).float().mean())}")
             res = kernel()
             k = res[3][:B].long()
-            lanes = 8
-            blocks = k.reshape(-1, lanes).amax(dim=1)
             bound = roofline(args + res, iter_flops(k, hmpc_flops(fused, key)))
             log(f"phase 15 {name} kernel B={B}: k_mean="
-                f"{float(k.float().mean())} k_max={int(k.max())} lanes a "
-                f"block={lanes} mean block k={float(blocks.float().mean())} "
-                f"bound={bound}")
+                f"{float(k.float().mean())} k_max={int(k.max())} "
+                f"{json.dumps(iterations(k, kern))} bound={bound}")
             log(f"phase 15 {name} times (ms per B={B} solve, CUDA events): "
                 + json.dumps(t))
             out[(name, B)] = dict({key: min(v) for key, v in t.items()},

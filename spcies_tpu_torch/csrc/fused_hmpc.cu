@@ -1,5 +1,6 @@
 // Fused single-split cone ADMM for HMPC-ADMM and ellipHMPC-ADMM on NVIDIA
-// Hopper (sm_90a), written by hand.
+// Hopper (sm_90a), written by hand, on the product stage
+// csrc/tile_product.cuh.
 //
 // Replaces the Pallas TPU kernel
 // spcies_tpu/kernels/fused_hmpc.py::_fused_hmpc_kernel (with its
@@ -18,54 +19,66 @@
 //     r_p  = max|czd + s|, r_d = max|s - s_old|
 //
 // until the lane meets tol or k_max. The wrapper and the plain PyTorch
-// version of every mode are in kernels/fused_hmpc.py.
+// version of every mode are in kernels/fused_hmpc.py. The one-column-per-
+// thread kernel this design replaced is csrc/variants/fused_hmpc_parent.cu
+// (tools/ab_kernels.py holds every build to it, bit for bit).
 //
-// Layout. One thread block per TB = 8 lanes; one thread per column of the
-// wider of the two padded widths (dim_p for z, ns_p for s; at most 512, 288
-// at N=30). Thread j owns z column j and s column j: it forms czd, s, lam
-// and w of s column j, then z of z column j. The prepared z and w are read
-// by every thread and live in shared memory as [columns][TB]; the consumed
-// z, s and lam are read and written by their own thread only, in shared
-// memory too (K5's layout, csrc/fused_soc.cu: it leaves the registers to
-// the products' loads in flight). An iteration has two barriers, one after
-// each half: w must be whole before z's product, and z before the next
-// czd. Up to 320 columns the kernel is compiled for three blocks an SM (at
-// most 64 registers, about 1 KB of spills a thread), which at N=30 on an
-// NVIDIA H100 ran faster than two blocks (96 registers, 588 bytes of
-// spills) or one (tools/ab_kernels.py; the times are in PERF.md, K6).
+// Layout. A block of max(dim_p, ns_p) threads (288 at N=30) holds L = 8, 16
+// or 32 lanes (kernels/fused_hmpc.py pick_lanes); z [dim_p][L], s and lam
+// [ns_p][L] and w [ns_p][L + 4] lie in shared memory (the layouts of
+// csrc/tile_product.cuh). An iteration is
+//   1. thread j < ns_p forms czd, s, lam and w of column j for the L lanes,
+//      8 at a time: czd as a chain over the rows of CT column j that can be
+//      nonzero (one row on a box column, the harmonic rows on a cone
+//      column; found once, CT read by __ldg), z read from shared memory.
+//      The cones lie in whole warps from column cone0, g <= 10 a warp, cone
+//      c's y0, y1, y2 at lanes c, g + c, 2g + c. A cone warp leaves y in its
+//      rows of w, and after a barrier every thread of the block projects
+//      (cone, lane) pairs there, one a thread, in _proj_ssoc_seg's blended
+//      form; after a second barrier the cone warps go on from the result.
+//      (The parent's way, each lane of a cone reading its cone's entries by
+//      shuffles and projecting them itself, puts all L lanes' projections
+//      on one warp while the others wait: at L = 32 it took 44 % of an
+//      iteration, against 15 % spread (PERF.md); HM_SPREAD_CONES 0 builds
+//      it for a timing script);
+//   2. the product stage: a thread owns 8 lanes x 4 columns of z (8 x 1 at
+//      L = 8), MC's real rows ([0, box_end) and [cone0, s_end), 258 of 288
+//      at N=30) come through the shared-memory ring filled by TMA; after its
+//      first barrier thread t < L (lane t's keeper) takes lane t's row
+//      maxima and warp 0 publishes the converged lanes;
+//   3. the tile's owner adds acc to z, except on lanes that are frozen or
+//      end here: a lane's z stays the one it consumed at exit, the checked
+//      and exact-k modes' output, so no copy of the consumed z is kept.
+// The parent's two barriers an iteration (one after each half) give way to
+// the ring's barrier a slab, which publishes w, the barrier after step 3,
+// which orders z before the next czd, and the two around the projections.
+// The parent ran three blocks an SM at 64 registers with about 1 KB of
+// spills; here each L has its own build (Build below: rows a slab, blocks
+// an SM).
 //
-// The cones. A projection couples a cone's three entries, which the TPU
-// kernel keeps in three 128-lane segments. Here the adapter lays the cones
-// out in whole warps from column cone0, g <= 10 cones a warp, cone c's y0,
-// y1, y2 at lanes c, g + c, 2g + c: each lane of a cone reads its cone's
-// three entries by warp shuffles and computes the projection itself (the
-// three lanes of a cone do the same arithmetic on the same values, so they
-// agree), with no barrier. The blended inside / apex / boundary sums of
-// _proj_ssoc_seg are kept as they are.
+// Plain free-run and the checked mode refill (csrc/tile_product.cuh,
+// Refill): persistent blocks whose 8-lane slots take the next group of 8
+// lanes from a queue once their group has ended, so a wide block does not
+// run to its slowest group. Exact-k keeps its block of L lanes, compacts the
+// lanes still running and narrows the tiles.
 //
-// Bytes. C is sparse: in box mode a box row of CT is one -1, and the cone
-// rows touch only the 3 (n + m) harmonic entries of z. Each thread finds,
-// once, the rows of its CT column that can be nonzero (first to last
-// nonzero) and sums only those: a skipped term is an exact 0, so no sum
-// changes. Of MC = C M1' (dense), the product reads the rows of real
-// constraints only: [0, box_end) and [cone0, s_end), found from CT by each
-// block before its loop (258 of 288 at N=30). Every block re-reads those
-// rows (297 KB at N=30) from L2 each iteration; MC stays in the 50 MB L2.
-// Both products are fmaf chains in row order, the second unrolled 8 deep
-// to keep 8 L2 loads in flight per thread.
+// Bound. 2 n_s dim FLOP an iteration and lane for w @ MC and 2 nnz(C) for
+// z @ CT. Each block re-reads MC's real rows from L2 once an iteration for
+// its L lanes.
 //
 // Arithmetic. fp32 on the CUDA cores, no TF32: z is an O(1) operand of the
 // first product, where a truncated product would floor the residual near
 // 1e-3 (the JAX kernel pins it to HIGHEST). The library is built with
 // -fmad=false, so the element-wise steps (sqrtf and the division included)
-// round as PyTorch's separate operations do; the products use explicit
-// fmaf.
+// round as PyTorch's separate operations do; both products are explicit
+// fmaf chains over the rows in ascending order, as in the parent, so every
+// build gives the parent's bits.
 //
 // Exact-k snapshots. At each window start z, s and lam of every lane not
 // yet done go to global scratch (each thread writes, and later reads back,
-// only its own columns), and the window start to shared memory; the replay
+// only its own rows), and the window start to shared memory; the replay
 // runs each lane's last window with the checked semantics and the budget
-// min(C, k_max - kws), as K1-K5 do.
+// min(C, k_max - kws).
 //
 // Padding. Pad columns carry zero rows and columns of CT and MC, d = 0 and
 // [0, 0] bounds; a pad cone slot projects a zero triple onto zero. So pad
@@ -73,17 +86,57 @@
 
 #include <cuda_runtime.h>
 
+#include "tile_product.cuh"
+
+// 1: the cones' projections are spread over the block's threads, one (cone,
+// lane) a thread; 0: each cone warp projects its own cones, lane by lane
+#ifndef HM_SPREAD_CONES
+#define HM_SPREAD_CONES 1
+#endif
+
+// rows a slab of MC and blocks an SM of each build up to NARROW columns
+// (kernels/fused_hmpc.py BUILDS); a timing script may set others
+#ifndef HM_SLAB_8
+#define HM_SLAB_8 16
+#endif
+#ifndef HM_BLOCKS_8
+#define HM_BLOCKS_8 2
+#endif
+#ifndef HM_SLAB_16
+#define HM_SLAB_16 8
+#endif
+#ifndef HM_BLOCKS_16
+#define HM_BLOCKS_16 2
+#endif
+#ifndef HM_SLAB_32
+#define HM_SLAB_32 32
+#endif
+#ifndef HM_BLOCKS_32
+#define HM_BLOCKS_32 1
+#endif
+
 namespace {
 
-constexpr int TB = 8;          // lanes per block (CTA_LANES in the wrapper)
 constexpr int MAX_COLS = 512;  // threads per block, one per column
-constexpr int NARROW = 320;    // up to this width, three blocks an SM
+constexpr int NARROW = 320;    // up to this width the builds of Build<L>
+constexpr int WIDE_SLAB = 16;  // rows a slab above NARROW (8 and 16 lanes)
 constexpr int MAX_G = 10;      // cones a warp (MAX_CONES_PER_WARP)
-constexpr int UNROLL = 8;      // L2 loads in flight per thread
-constexpr float RBIG = 3.4e38f;
 constexpr unsigned FULL = 0xffffffffu;
-constexpr unsigned ALL = (1u << TB) - 1u;
-static_assert(TB % 4 == 0, "vectors are moved as float4");
+
+template <int L>
+struct Build;
+template <>
+struct Build<8> {
+  static constexpr int SR = HM_SLAB_8, MINB = HM_BLOCKS_8;
+};
+template <>
+struct Build<16> {
+  static constexpr int SR = HM_SLAB_16, MINB = HM_BLOCKS_16;
+};
+template <>
+struct Build<32> {
+  static constexpr int SR = HM_SLAB_32, MINB = HM_BLOCKS_32;
+};
 
 struct Params {
   const float* __restrict__ z1;
@@ -102,91 +155,15 @@ struct Params {
   float* rp;
   float* rd;
   float* snap;  // exact-k: per lane [z (dim_p) | s (ns_p) | lam (ns_p)]
+  int* queue;   // refill: [0] the next group, [1 + b] block b's
+                // iterations; zeroed by the wrapper
+  int n_groups;  // B / 8
   int dim_p, ns_p, cone0, cone_g, use_soc;
   float rho, rho_i, tol_p, tol_d;
   int k_max, check_every, exact_k;
 };
 
-// Shared memory: the prepared z, the product's input w and the warps' row
-// maxima, read by every thread; the consumed z, s and lam, each column read
-// and written by its own thread.
-struct Shared {
-  float* zn;   // [dim_p][TB]
-  float* w;    // [ns_p][TB]
-  float* red;  // [ns_p / 32][2][TB]
-  float* zc;   // [dim_p][TB]
-  float* s;    // [ns_p][TB]
-  float* lam;  // [ns_p][TB]
-};
-
-// What thread j knows of its columns.
-struct Col {
-  int j;
-  bool has_z, has_s;  // j < dim_p, j < ns_p
-  bool cone_warp;     // j in a warp of cones: the warp shuffles
-  bool cone;          // j holds an entry of a cone (lane < 3g)
-  int src, seg;       // the lane of its cone's y0; which entry it holds
-  int lo, hi;         // the rows of CT column j that can be nonzero
-  int box_end, s_end;  // MC rows read: [0, box_end) and [cone0, s_end)
-  float d, lb, ub;
-};
-
-__device__ __forceinline__ bool bit(unsigned m, int b) {
-  return (m >> b) & 1u;
-}
-
-__device__ __forceinline__ void load(float (&v)[TB], const float* src) {
-  const float4* s4 = reinterpret_cast<const float4*>(src);
-#pragma unroll
-  for (int q = 0; q < TB / 4; ++q) {
-    const float4 a = s4[q];
-    v[4 * q] = a.x;
-    v[4 * q + 1] = a.y;
-    v[4 * q + 2] = a.z;
-    v[4 * q + 3] = a.w;
-  }
-}
-
-__device__ __forceinline__ void store(float* dst, const float (&v)[TB]) {
-  float4* d4 = reinterpret_cast<float4*>(dst);
-#pragma unroll
-  for (int q = 0; q < TB / 4; ++q)
-    d4[q] = make_float4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]);
-}
-
-// The maxima of v[b] over the warp, written to red[warp][slot][b] by the
-// warp's first thread.
-__device__ __forceinline__ void warp_max(float (&v)[TB], float* red, int j,
-                                         int slot) {
-#pragma unroll
-  for (int b = 0; b < TB; ++b) {
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      v[b] = fmaxf(v[b], __shfl_xor_sync(FULL, v[b], off));
-  }
-  if ((j & 31) == 0) store(red + ((j >> 5) * 2 + slot) * TB, v);
-}
-
-// acc[b] += sum_{i0 <= i < i1} x[i][b] m[i][j], UNROLL L2 loads in flight.
-__device__ __forceinline__ void product(const float* x_s,
-                                        const float* __restrict__ m, int ld,
-                                        int i0, int i1, int j,
-                                        float (&acc)[TB]) {
-  const float* col = m + j;
-#pragma unroll UNROLL
-  for (int i = i0; i < i1; ++i) {
-    const float w = __ldg(col + static_cast<size_t>(i) * ld);
-    const float4* x4 = reinterpret_cast<const float4*>(x_s + i * TB);
-#pragma unroll
-    for (int q = 0; q < TB / 4; ++q) {
-      const float4 x = x4[q];
-      acc[4 * q] = fmaf(x.x, w, acc[4 * q]);
-      acc[4 * q + 1] = fmaf(x.y, w, acc[4 * q + 1]);
-      acc[4 * q + 2] = fmaf(x.z, w, acc[4 * q + 2]);
-      acc[4 * q + 3] = fmaf(x.w, w, acc[4 * q + 3]);
-    }
-  }
-}
+using tp::bit;
 
 // Projection onto {||(y1, y2)|| <= a (y0 - dd)}, a in {-1, +1}, in
 // _proj_ssoc_seg's blended form.
@@ -207,377 +184,337 @@ __device__ __forceinline__ void proj_ssoc(float& y0, float& y1, float& y2,
   y2 = z2;
 }
 
-// One iteration of thread j's columns for the block's TB lanes. Lanes in
-// `frozen` keep all their state. With CHECK, returns the lanes whose
-// residuals meet tol (identical in every thread of the block), and thread 0
-// records the residuals of the lanes in `rmask` in lres.
-template <bool CHECK>
-__device__ __forceinline__ unsigned iterate(const Params& p, const Shared& s,
-                                            const Col& c, unsigned frozen,
-                                            unsigned rmask,
-                                            float (&lres)[2][TB]) {
-  if (c.has_s) {
-    const int o = c.j * TB;
-    float czd[TB], y[TB], sn[TB];
-#pragma unroll
-    for (int b = 0; b < TB; ++b) czd[b] = 0.0f;
-    product(s.zn, p.ct, p.ns_p, c.lo, c.hi, c.j, czd);
-    {
-      float lam[TB];
-      load(lam, s.lam + o);
-#pragma unroll
-      for (int b = 0; b < TB; ++b) {
-        czd[b] = czd[b] - c.d;
-        y[b] = -czd[b] - p.rho_i * lam[b];
-      }
-    }
-    if (c.cone_warp) {
-#pragma unroll
-      for (int b = 0; b < TB; ++b) {
-        float y0 = __shfl_sync(FULL, y[b], c.src);
-        float y1 = __shfl_sync(FULL, y[b], c.src + p.cone_g);
-        float y2 = __shfl_sync(FULL, y[b], c.src + 2 * p.cone_g);
-        if (p.use_soc) {
-          proj_ssoc(y0, y1, y2, 1.0f, 0.0f);
-        } else {
-          proj_ssoc(y0, y1, y2, 1.0f, c.lb);
-          proj_ssoc(y0, y1, y2, -1.0f, c.ub);
+// The block: the stage's engine over the leaves z, s, lam, and what thread
+// j knows of its s column.
+template <int L, int TC, int SR>
+struct Engine : tp::TileEngine<L, TC, SR, 3> {
+  static constexpr int G = L / 8;
+  const Params& p;
+  float *z, *s, *lam;
+  bool has_s;      // j < ns_p
+  bool cone_warp;  // j in a warp of cones
+  bool cone;       // j holds an entry of a cone (lane < 3g)
+  int src, seg;    // the lane of its cone's y0; which entry it holds
+  int lo, hi;      // the rows of CT column j that can be nonzero
+  float d, lb, ub;
+
+  __device__ __forceinline__ Engine(const Params& p_, float* smem,
+                                    int* bounds)
+      : p(p_) {
+    const int j = threadIdx.x;
+    this->tid = j;
+    this->T = blockDim.x;
+    this->P = p.dim_p;
+    this->rwarps = p.ns_p >> 5;
+    this->lane0 = blockIdx.x * L;
+    this->tol_p = p.tol_p;
+    this->tol_d = p.tol_d;
+    float* a = smem + tp::ring_bytes(p.dim_p, SR) / 4;
+    z = a;
+    s = z + p.dim_p * L;
+    lam = s + p.ns_p * L;
+    this->dq = lam + p.ns_p * L;
+    this->red = this->dq + p.ns_p * (L + tp::DQ_PAD);
+    this->ctrl = reinterpret_cast<unsigned*>(this->red + this->rwarps * 2 * L);
+    this->sn_k = reinterpret_cast<int*>(this->ctrl + 4);
+    this->orig = this->sn_k + L;
+    this->leaf[0] = tp::Leaf{z, p.z1, p.z, p.dim_p, 0};
+    this->leaf[1] = tp::Leaf{s, p.s0, p.s, p.ns_p, p.dim_p};
+    this->leaf[2] = tp::Leaf{lam, p.lam0, p.lam, p.ns_p, p.dim_p + p.ns_p};
+    this->snap = p.snap;
+    this->snap_width = p.dim_p + 2 * p.ns_p;
+    this->out = tp::LaneOut{p.k, p.done, p.rp, p.rd};
+    has_s = j < p.ns_p;
+    cone_warp = has_s && j >= p.cone0;
+    const int lane = j & 31;
+    cone = cone_warp && lane < 3 * p.cone_g;
+    seg = lane / p.cone_g;
+    src = lane % p.cone_g;
+    d = has_s ? p.d[j] : 0.0f;
+    lb = has_s ? p.lb[j] : 0.0f;
+    ub = has_s ? p.ub[j] : 0.0f;
+    lo = 0;
+    hi = 0;
+    if (has_s) {
+      // the first and last nonzero of CT column j
+      for (int i = 0; i < p.dim_p; ++i) {
+        if (p.ct[static_cast<size_t>(i) * p.ns_p + j] != 0.0f) {
+          if (hi == 0) lo = i;
+          hi = i + 1;
         }
-        const float v = c.seg == 0 ? y0 : (c.seg == 1 ? y1 : y2);
-        sn[b] = c.cone ? v : fminf(fmaxf(y[b], c.lb), c.ub);
       }
-    } else {
-#pragma unroll
-      for (int b = 0; b < TB; ++b) sn[b] = fminf(fmaxf(y[b], c.lb), c.ub);
     }
-    float sv[TB], lam[TB], w[TB], ap[TB], ad[TB];
-    load(sv, s.s + o);
-    load(lam, s.lam + o);
+    // the product's row ranges: [0, box_end) and [cone0, s_end)
+    if (j == 0) {
+      bounds[0] = 0;
+      bounds[1] = p.cone0;
+    }
+    __syncthreads();
+    if (hi > lo) atomicMax(&bounds[j < p.cone0 ? 0 : 1], j + 1);
+    __syncthreads();
+    tp::ring_init<SR>(this->ring, smem, p.mc, p.dim_p, bounds[0], p.cone0,
+                      bounds[1], j, this->T);
+  }
+
+  // One iteration (tp::run_modes, tp::run_refill). Lanes in `frozen` keep
+  // all their state; what `idle` lanes hold is never read again, and a group
+  // of 8 lanes that are all frozen or idle is skipped; the lanes in `last`
+  // (and, with stop, the lanes that converge here) keep the z they
+  // consumed. With CHECK, the keepers of the lanes in rmask record their
+  // residuals and count kinc iterations, and the lanes whose residuals meet
+  // tol are returned (identical in every thread of the block).
+  template <bool CHECK>
+  TP_ITERATE unsigned iterate(unsigned frozen, unsigned idle, unsigned last,
+                              bool stop, unsigned rmask, int kinc) {
+    const int j = this->tid;
+    this->tic();
+    const unsigned dead = tp::whole_groups<L>(frozen | idle);
+    float czd[G][8];
+    if (has_s) {
+      // czd = z @ CT - d over CT column j's rows that can be nonzero
 #pragma unroll
-    for (int b = 0; b < TB; ++b) {
-      const float resid = czd[b] + sn[b];
+      for (int g = 0; g < G; ++g) {
+#pragma unroll
+        for (int b = 0; b < 8; ++b) czd[g][b] = 0.0f;
+      }
+      for (int i = lo; i < hi; ++i) {
+        const float ct = __ldg(p.ct + static_cast<size_t>(i) * p.ns_p + j);
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+          if (bit(dead, 8 * g)) continue;
+          float zv[8];
+          tp::ld8<L>(zv, z, i, g);
+#pragma unroll
+          for (int b = 0; b < 8; ++b) czd[g][b] = fmaf(zv[b], ct, czd[g][b]);
+        }
+      }
+    }
+    if (HM_SPREAD_CONES) {
+      // the cone warps leave y in their rows of w; every thread projects
+      // (cone, lane) pairs there; the cone warps then go on from the result
+      if (cone_warp) {
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+          if (bit(dead, 8 * g)) continue;
+          float lm[8], y[8];
+          tp::ld8<L>(lm, lam, j, g);
+#pragma unroll
+          for (int b = 0; b < 8; ++b) {
+            czd[g][b] = czd[g][b] - d;
+            y[b] = -czd[g][b] - p.rho_i * lm[b];
+          }
+          tp::st8_dq<L>(this->dq, j, g, y);
+        }
+      }
+      __syncthreads();
+      project_cones(dead);
+      __syncthreads();
+    }
+    if (has_s) {
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        if (bit(dead, 8 * g)) continue;
+        if (HM_SPREAD_CONES && cone_warp) {
+          float sn[8];
+          tp::ld8_dq<L>(sn, this->dq, j, g);   // projected, or y off a cone
+          if (!cone) {
+#pragma unroll
+            for (int b = 0; b < 8; ++b) sn[b] = fminf(fmaxf(sn[b], lb), ub);
+          }
+          update<CHECK>(g, j, czd[g], sn, frozen);
+          continue;
+        }
+        float lm[8], y[8], sn[8];
+        tp::ld8<L>(lm, lam, j, g);
+#pragma unroll
+        for (int b = 0; b < 8; ++b) {
+          czd[g][b] = czd[g][b] - d;
+          y[b] = -czd[g][b] - p.rho_i * lm[b];
+        }
+        if (!HM_SPREAD_CONES && cone_warp) {
+#pragma unroll
+          for (int b = 0; b < 8; ++b) {
+            float y0 = __shfl_sync(FULL, y[b], src);
+            float y1 = __shfl_sync(FULL, y[b], src + p.cone_g);
+            float y2 = __shfl_sync(FULL, y[b], src + 2 * p.cone_g);
+            project(y0, y1, y2, lb, ub);
+            const float v = seg == 0 ? y0 : (seg == 1 ? y1 : y2);
+            sn[b] = cone ? v : fminf(fmaxf(y[b], lb), ub);
+          }
+        } else {
+#pragma unroll
+          for (int b = 0; b < 8; ++b) sn[b] = fminf(fmaxf(y[b], lb), ub);
+        }
+        update<CHECK>(g, j, czd[g], sn, frozen);
+      }
+    }
+    return this->template product_half<CHECK>(dead, frozen, last, stop,
+                                              rmask, kinc);
+  }
+
+  // SOC, or the diamond with the cone's D-set bounds lb, ub
+  __device__ __forceinline__ void project(float& y0, float& y1, float& y2,
+                                         float lo_, float hi_) const {
+    if (p.use_soc) {
+      proj_ssoc(y0, y1, y2, 1.0f, 0.0f);
+    } else {
+      proj_ssoc(y0, y1, y2, 1.0f, lo_);
+      proj_ssoc(y0, y1, y2, -1.0f, hi_);
+    }
+  }
+
+  // Every (cone, lane) pair of the groups not in `dead`, one a thread: the
+  // cone's (y0, y1, y2) in its three rows of w, projected in place; the
+  // bounds are those of the cone's y0 column, which its three columns
+  // share.
+  __device__ __forceinline__ void project_cones(unsigned dead) {
+    const int slots = ((p.ns_p - p.cone0) >> 5) * p.cone_g;
+    for (int t = this->tid; t < slots * L; t += this->T) {
+      const int b = t % L;
+      if (bit(dead, b)) continue;
+      const int c = t / L;
+      const int c0 = p.cone0 + 32 * (c / p.cone_g) + c % p.cone_g;
+      float* w0 = this->dq + c0 * (L + tp::DQ_PAD) + b;
+      float* w1 = w0 + p.cone_g * (L + tp::DQ_PAD);
+      float* w2 = w1 + p.cone_g * (L + tp::DQ_PAD);
+      float y0 = *w0, y1 = *w1, y2 = *w2;
+      project(y0, y1, y2, __ldg(p.lb + c0), __ldg(p.ub + c0));
+      *w0 = y0;
+      *w1 = y1;
+      *w2 = y2;
+    }
+  }
+
+  // The rest of column j's half for group g, from its czd and s: lam, s,
+  // w into the row of dq, the residuals' maxima.
+  template <bool CHECK>
+  __device__ __forceinline__ void update(int g, int j, const float (&cz)[8],
+                                         const float (&sn)[8],
+                                         unsigned frozen) {
+    float lm[8], sv[8], w[8], ap[8], ad[8];
+    tp::ld8<L>(lm, lam, j, g);
+    tp::ld8<L>(sv, s, j, g);
+#pragma unroll
+    for (int b = 0; b < 8; ++b) {
+      const float resid = cz[b] + sn[b];
       const float ds = sn[b] - sv[b];
       w[b] = p.rho * ds + p.rho * resid;
       if (CHECK) {
         ap[b] = fabsf(resid);
         ad[b] = fabsf(ds);
       }
-      if (!bit(frozen, b)) {
-        lam[b] = lam[b] + p.rho * resid;
+      if (!bit(frozen, g * 8 + b)) {
+        lm[b] = lm[b] + p.rho * resid;
         sv[b] = sn[b];
       }
     }
-    store(s.w + o, w);
-    store(s.s + o, sv);
-    store(s.lam + o, lam);
+    tp::st8_dq<L>(this->dq, j, g, w);
+    tp::st8<L>(s, j, g, sv);
+    tp::st8<L>(lam, j, g, lm);
     if (CHECK) {
-      warp_max(ap, s.red, c.j, 0);
-      warp_max(ad, s.red, c.j, 1);
+      tp::warp_max<L>(ap, this->red, j, 0, g);
+      tp::warp_max<L>(ad, this->red, j, 1, g);
     }
   }
-  __syncthreads();
-  if (c.has_z) {
-    const int o = c.j * TB;
-    float acc[TB];
-#pragma unroll
-    for (int b = 0; b < TB; ++b) acc[b] = 0.0f;
-    product(s.w, p.mc, p.dim_p, 0, c.box_end, c.j, acc);
-    product(s.w, p.mc, p.dim_p, p.cone0, c.s_end, c.j, acc);
-    float zn[TB], zc[TB];
-    load(zn, s.zn + o);
-    load(zc, s.zc + o);
-#pragma unroll
-    for (int b = 0; b < TB; ++b) {
-      if (!bit(frozen, b)) {
-        zc[b] = zn[b];
-        zn[b] = zn[b] + acc[b];
-      }
-    }
-    store(s.zn + o, zn);
-    store(s.zc + o, zc);
-  }
-  unsigned conv = 0;
-  if (CHECK) {
-    float rs[2][TB];
-#pragma unroll
-    for (int b = 0; b < TB; ++b) {
-      rs[0][b] = 0.0f;
-      rs[1][b] = 0.0f;
-    }
-    for (int w = 0; w < (p.ns_p >> 5); ++w) {
-#pragma unroll
-      for (int q = 0; q < 2; ++q) {
-        float m[TB];
-        load(m, s.red + (w * 2 + q) * TB);
-#pragma unroll
-        for (int b = 0; b < TB; ++b) rs[q][b] = fmaxf(rs[q][b], m[b]);
-      }
-    }
-#pragma unroll
-    for (int b = 0; b < TB; ++b) {
-      if (rs[0][b] <= p.tol_p && rs[1][b] <= p.tol_d) conv |= 1u << b;
-      if (c.j == 0 && bit(rmask, b)) {
-        lres[0][b] = rs[0][b];
-        lres[1][b] = rs[1][b];
-      }
-    }
-  }
-  __syncthreads();
-  return conv;
-}
+};
 
-// Copy thread j's columns of the prepared z, s and lam between shared
-// memory and the per-lane [z | s | lam] layout in global memory, for the
-// lanes in `lanes`. TO_GLOBAL selects the direction.
-template <bool TO_GLOBAL>
-__device__ __forceinline__ void snapshot(const Params& p, const Shared& s,
-                                         const Col& c, int lane0,
-                                         unsigned lanes) {
-  const int width = p.dim_p + 2 * p.ns_p;
-#pragma unroll
-  for (int b = 0; b < TB; ++b) {
-    if (!bit(lanes, b)) continue;
-    float* g = p.snap + static_cast<size_t>(lane0 + b) * width;
-    const int o = c.j * TB + b;
-    float* sh[3] = {s.zn + o, s.s + o, s.lam + o};
-    const int at[3] = {c.j, p.dim_p + c.j, p.dim_p + p.ns_p + c.j};
-    const bool own[3] = {c.has_z, c.has_s, c.has_s};
-#pragma unroll
-    for (int l = 0; l < 3; ++l) {
-      if (!own[l]) continue;
-      if (TO_GLOBAL)
-        g[at[l]] = *sh[l];
-      else
-        *sh[l] = g[at[l]];
-    }
-  }
-}
-
-template <int MAXT, int MINB>
+template <int L, int TC, int MAXT, int MINB, int SR, bool REFILL>
 __global__ void __launch_bounds__(MAXT, MINB) fused_hmpc_kernel(Params p) {
   extern __shared__ __align__(16) float smem[];
-  __shared__ int sn_k[TB];       // exact-k: each lane's window start
-  __shared__ float lres[2][TB];  // thread 0's residuals of each lane
-  __shared__ int bounds[2];      // box_end, s_end
-  const int j = threadIdx.x;
-  Shared s;
-  s.zn = smem;
-  s.w = s.zn + p.dim_p * TB;
-  s.red = s.w + p.ns_p * TB;
-  s.zc = s.red + (p.ns_p >> 5) * 2 * TB;
-  s.s = s.zc + p.dim_p * TB;
-  s.lam = s.s + p.ns_p * TB;
-  Col c;
-  c.j = j;
-  c.has_z = j < p.dim_p;
-  c.has_s = j < p.ns_p;
-  c.cone_warp = c.has_s && j >= p.cone0;
-  const int lane = j & 31;
-  c.cone = c.cone_warp && lane < 3 * p.cone_g;
-  c.seg = lane / p.cone_g;
-  c.src = lane % p.cone_g;
-  c.d = c.has_s ? p.d[j] : 0.0f;
-  c.lb = c.has_s ? p.lb[j] : 0.0f;
-  c.ub = c.has_s ? p.ub[j] : 0.0f;
-  c.lo = 0;
-  c.hi = 0;
-  if (c.has_s) {
-    // the first and last nonzero of CT column j
-    for (int i = 0; i < p.dim_p; ++i) {
-      if (p.ct[static_cast<size_t>(i) * p.ns_p + j] != 0.0f) {
-        if (c.hi == 0) c.lo = i;
-        c.hi = i + 1;
-      }
-    }
-  }
-  if (j == 0) {
-    bounds[0] = 0;
-    bounds[1] = p.cone0;
-#pragma unroll
-    for (int b = 0; b < TB; ++b) {
-      lres[0][b] = RBIG;
-      lres[1][b] = RBIG;
-    }
-  }
-  __syncthreads();
-  if (c.hi > c.lo) atomicMax(&bounds[j < p.cone0 ? 0 : 1], j + 1);
-  __syncthreads();
-  c.box_end = bounds[0];
-  c.s_end = bounds[1];
-  const int lane0 = blockIdx.x * TB;
-  const int o = j * TB;
-  if (c.has_z) {
-    float z[TB];
-#pragma unroll
-    for (int b = 0; b < TB; ++b)
-      z[b] = p.z1[static_cast<size_t>(lane0 + b) * p.dim_p + j];
-    store(s.zn + o, z);
-    store(s.zc + o, z);
-  }
-  if (c.has_s) {
-    float sv[TB], lam[TB];
-#pragma unroll
-    for (int b = 0; b < TB; ++b) {
-      const size_t g = static_cast<size_t>(lane0 + b) * p.ns_p + j;
-      sv[b] = p.s0[g];
-      lam[b] = p.lam0[g];
-    }
-    store(s.s + o, sv);
-    store(s.lam + o, lam);
-  }
-  __syncthreads();
-  unsigned done = 0;
-  int k[TB];
-#pragma unroll
-  for (int b = 0; b < TB; ++b) k[b] = 0;
-  const int C = p.check_every;
-  const float* zout = s.zc;  // the z written out: the consumed z ...
-
-  if (C > 1 && p.exact_k) {
-    // free-run windows of C iterations; snapshot every still-active lane
-    // at each window start, so the window a lane converges in can be
-    // replayed with per-iteration checks once the block has drained.
-    // Windows may overshoot k_max: the replay budget cuts each lane off at
-    // exactly k_max.
-    for (int it = 0; it < p.k_max && done != ALL; it += C) {
-      snapshot<true>(p, s, c, lane0, ~done & ALL);
-      if (j == 0) {
-#pragma unroll
-        for (int b = 0; b < TB; ++b)
-          if (!bit(done, b)) sn_k[b] = it;
-      }
-      for (int f = 0; f < C - 1; ++f)
-        iterate<false>(p, s, c, 0u, 0u, lres);
-      done |= iterate<true>(p, s, c, 0u, 0u, lres);
-    }
-    // replay each lane's last window from its snapshot with per-iteration
-    // checks: k counts on from the window start (the last iteration's
-    // closing barrier ordered thread 0's window starts)
-    snapshot<false>(p, s, c, lane0, ALL);
-    if (c.has_z) {
-      float z[TB];
-      load(z, s.zn + o);
-      store(s.zc + o, z);
-    }
-    __syncthreads();
-    int budget[TB];
-#pragma unroll
-    for (int b = 0; b < TB; ++b) {
-      k[b] = sn_k[b];
-      budget[b] = min(C, p.k_max - k[b]);
-    }
-    unsigned convd = 0;
-    for (int w = 0; w < C; ++w) {
-      unsigned frozen = convd;
-#pragma unroll
-      for (int b = 0; b < TB; ++b)
-        if (w >= budget[b]) frozen |= 1u << b;
-      if (frozen == ALL) break;
-      const unsigned conv =
-          iterate<true>(p, s, c, frozen, ~frozen & ALL, lres);
-#pragma unroll
-      for (int b = 0; b < TB; ++b)
-        if (!bit(frozen, b)) ++k[b];
-      convd |= conv & ~frozen;
-    }
-    done = convd;
-  } else if (C > 1) {
-    // free-run: C-1 plain iterations, then one checked iteration; every
-    // lane keeps iterating until the block's lanes are all done, k is
-    // recorded at check granularity, and a done lane's residuals stay at
-    // its exit
-    for (int it = 0; it < p.k_max && done != ALL;) {
-      const int n_fast = min(C - 1, p.k_max - 1 - it);
-      for (int f = 0; f < n_fast; ++f)
-        iterate<false>(p, s, c, 0u, 0u, lres);
-      const unsigned conv =
-          iterate<true>(p, s, c, 0u, ~done & ALL, lres);
-#pragma unroll
-      for (int b = 0; b < TB; ++b)
-        if (!bit(done, b)) k[b] += n_fast + 1;
-      done |= conv;
-      it += n_fast + 1;
-    }
-    zout = s.zn;  // ... but the prepared one in free-run
-  } else {
-    // checked: exit tests every iteration; a converged lane freezes and
-    // keeps the z it consumed at exit
-    for (int it = 0; it < p.k_max && done != ALL; ++it) {
-      const unsigned conv =
-          iterate<true>(p, s, c, done, ~done & ALL, lres);
-#pragma unroll
-      for (int b = 0; b < TB; ++b)
-        if (!bit(done, b)) ++k[b];
-      done |= conv;
-    }
-  }
-
-  if (c.has_z) {
-    float x[TB];
-    load(x, zout + o);
-#pragma unroll
-    for (int b = 0; b < TB; ++b)
-      p.z[static_cast<size_t>(lane0 + b) * p.dim_p + j] = x[b];
-  }
-  if (c.has_s) {
-    const float* leaves[2] = {s.s, s.lam};
-    float* outs[2] = {p.s, p.lam};
-#pragma unroll
-    for (int l = 0; l < 2; ++l) {
-      float x[TB];
-      load(x, leaves[l] + o);
-#pragma unroll
-      for (int b = 0; b < TB; ++b)
-        outs[l][static_cast<size_t>(lane0 + b) * p.ns_p + j] = x[b];
-    }
-  }
-  if (j == 0) {
-#pragma unroll
-    for (int b = 0; b < TB; ++b) {
-      p.k[lane0 + b] = k[b];
-      p.done[lane0 + b] = bit(done, b) ? 1 : 0;
-      p.rp[lane0 + b] = lres[0][b];
-      p.rd[lane0 + b] = lres[1][b];
-    }
-  }
+  __shared__ int bounds[2];  // box_end, s_end
+  Engine<L, TC, SR> e(p, smem, bounds);
+  tp::run_lanes<L, REFILL>(e, p.k_max, p.check_every, p.exact_k, p.n_groups,
+                           p.queue);
 }
 
-}  // namespace
+// Rows a slab of the build that runs `width` threads at `lanes` lanes.
+int slab_rows(int width, int lanes) {
+  if (width > NARROW) return WIDE_SLAB;
+  return lanes == 8 ? Build<8>::SR : lanes == 16 ? Build<16>::SR
+                                                 : Build<32>::SR;
+}
 
-// Launch on `stream` (a cudaStream_t). The geometry comes from the wrapper
-// (kernels/fused_hmpc.py launch_geometry) and is checked here again.
-// Returns the CUDA error of the launch, as an int.
-extern "C" int fused_hmpc_launch(
-    const float* z1, const float* s0, const float* lam0, const float* ct,
-    const float* mc, const float* d, const float* lb, const float* ub,
-    float* z, float* s, float* lam, int* k, int* done, float* rp, float* rd,
-    float* snap, int B, int dim_p, int ns_p, int cone0, int cone_g,
-    int use_soc, int blocks, int threads, int smem, float rho, float rho_i,
-    float tol_p, float tol_d, int k_max, int check_every, int exact_k,
-    void* stream) {
-  const long need = 4L * TB * (2L * dim_p + 3L * ns_p + 2L * (ns_p / 32));
-  const bool exact = check_every > 1 && exact_k;
-  const int width = dim_p > ns_p ? dim_p : ns_p;
-  if (dim_p <= 0 || dim_p % 32 != 0 || dim_p > MAX_COLS || ns_p <= 0 ||
-      ns_p % 32 != 0 || ns_p > MAX_COLS || cone0 < 0 || cone0 % 32 != 0 ||
-      cone0 >= ns_p || cone_g < 1 || cone_g > MAX_G || B % TB != 0 ||
-      blocks != B / TB || threads != width || smem != need ||
-      check_every < 1 || k_max < 1 || (exact && B > 0 && snap == nullptr))
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (B == 0) return 0;
-  // up to NARROW columns, compiled for three blocks an SM (at most 64
-  // registers a thread), wider for one block of up to MAX_COLS threads
-  void (*kernel)(Params) = width <= NARROW ? fused_hmpc_kernel<NARROW, 3>
-                                           : fused_hmpc_kernel<MAX_COLS, 1>;
+template <int L, bool REFILL>
+int launch(const Params& p, int blocks, int threads, int smem, void* stream) {
+  // up to NARROW columns the build of Build<L>; wider, one block of up to
+  // MAX_COLS threads an SM (not at 32 lanes: its state does not fit)
+  constexpr int TC = tp::tile_cols<L>();
+  void (*kernel)(Params) = nullptr;
+  if (threads <= NARROW)
+    kernel = fused_hmpc_kernel<L, TC, NARROW, Build<L>::MINB, Build<L>::SR,
+                               REFILL>;
+  else if constexpr (L < 32)
+    kernel = fused_hmpc_kernel<L, TC, MAX_COLS, 1, WIDE_SLAB, REFILL>;
+  if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  Params p{z1,    s0,    lam0,   ct,      mc,    d,     lb,   ub,
-           z,     s,     lam,    k,       done,  rp,    rd,   snap,
-           dim_p, ns_p,  cone0,  cone_g,  use_soc, rho, rho_i, tol_p,
-           tol_d, k_max, check_every, exact_k};
   kernel<<<blocks, threads, smem, static_cast<cudaStream_t>(stream)>>>(p);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Dynamic shared bytes at `lanes` lanes a block (kernels/fused_hmpc.py
+// shared_bytes computes the same): the ring of MC's slabs, z, s and lam as
+// [rows][lanes], w with its padding, the warps' row maxima, the masks, the
+// window starts and the slots' lanes.
+extern "C" long fused_hmpc_smem(int dim_p, int ns_p, int lanes) {
+  const int width = dim_p > ns_p ? dim_p : ns_p;
+  return tp::ring_bytes(dim_p, slab_rows(width, lanes)) +
+         4L * (dim_p * static_cast<long>(lanes) + 2L * ns_p * lanes +
+               ns_p * (lanes + static_cast<long>(tp::DQ_PAD)) +
+               (ns_p / 32) * 2L * lanes + 4 + 2L * lanes);
+}
+
+// Launch on `stream` (a cudaStream_t). The geometry comes from the wrapper
+// (kernels/fused_hmpc.py launch_plan) and is checked here again: with refill
+// (every mode but exact-k) any number of persistent blocks up to one per L
+// lanes, and `queue` 1 + blocks int32 zeros; else B / lanes blocks. Returns
+// the CUDA error of the launch, as an int.
+extern "C" int fused_hmpc_launch(
+    const float* z1, const float* s0, const float* lam0, const float* ct,
+    const float* mc, const float* d, const float* lb, const float* ub,
+    float* z, float* s, float* lam, int* k, int* done, float* rp, float* rd,
+    float* snap, int* queue, int B, int dim_p, int ns_p, int cone0,
+    int cone_g, int use_soc, int lanes, int blocks, int threads, int smem,
+    float rho, float rho_i, float tol_p, float tol_d, int k_max,
+    int check_every, int exact_k, void* stream) {
+  const bool exact = check_every > 1 && exact_k;
+  const bool refill = TP_REFILL && !exact;
+  const int width = dim_p > ns_p ? dim_p : ns_p;
+  const int groups = B / 8, slots = lanes / 8;
+  if (dim_p <= 0 || dim_p % 32 != 0 || dim_p > MAX_COLS || ns_p <= 0 ||
+      ns_p % 32 != 0 || ns_p > MAX_COLS || cone0 < 0 || cone0 % 32 != 0 ||
+      cone0 >= ns_p || cone_g < 1 || cone_g > MAX_G ||
+      (lanes != 8 && lanes != 16 && lanes != 32) ||
+      (lanes == 32 && width > NARROW) || B % 8 != 0 || threads != width ||
+      smem != fused_hmpc_smem(dim_p, ns_p, lanes) || check_every < 1 ||
+      k_max < 1 || (exact && B > 0 && snap == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (refill ? (blocks < 1 || blocks > (groups + slots - 1) / slots ||
+                queue == nullptr)
+             : (B % lanes != 0 || blocks != B / lanes))
+    return B == 0 ? 0 : static_cast<int>(cudaErrorInvalidValue);
+  if (B == 0) return 0;
+  Params p{z1,    s0,     lam0,  ct,     mc,      d,     lb,    ub,
+           z,     s,      lam,   k,      done,    rp,    rd,    snap,
+           queue, groups, dim_p, ns_p,   cone0,   cone_g, use_soc,
+           rho,   rho_i,  tol_p, tol_d,  k_max,   check_every, exact_k};
+  switch (lanes * 2 + (refill ? 1 : 0)) {
+    case 16:
+      return launch<8, false>(p, blocks, threads, smem, stream);
+    case 17:
+      return launch<8, true>(p, blocks, threads, smem, stream);
+    case 32:
+      return launch<16, false>(p, blocks, threads, smem, stream);
+    case 33:
+      return launch<16, true>(p, blocks, threads, smem, stream);
+    case 64:
+      return launch<32, false>(p, blocks, threads, smem, stream);
+    default:
+      return launch<32, true>(p, blocks, threads, smem, stream);
+  }
 }

@@ -1,10 +1,10 @@
 // The product stage of the fused loops on NVIDIA Hopper (sm_90a), written by
 // hand: acc[L x P] = dq[L x R] @ M[R x P] for the L lanes of a thread block,
-// once an iteration. csrc/fused_admm.cu (K1) includes it, and so does a build
-// of K7 on it that is timed but not launched
-// (csrc/variants/fused_split_tile.cu); the other fused kernels' redesigns
-// start from it. The end of the file holds the mode loops a kernel runs over
-// its iteration.
+// once an iteration. csrc/fused_admm.cu (K1), csrc/fused_soc.cu (K5) and
+// csrc/fused_hmpc.cu (K6) include it, and so does a build of K7 on it that
+// is timed but not launched (csrc/variants/fused_split_tile.cu). The end of
+// the file holds the mode loops a kernel runs over its iteration, and the
+// engine and refill loop K5 and K6 share.
 //
 // Many lanes a block. A block of P threads (one per column of the padded
 // width P) holds L = 8, 16 or 32 lanes. The rows of M, which every block
@@ -82,6 +82,12 @@
 #endif
 #ifndef TP_UNROLL
 #define TP_UNROLL 0  // rows of a slab unrolled together; 0: the whole slab
+#endif
+#ifndef TP_REFILL
+#define TP_REFILL 1  // 0: K5's and K6's blocks keep their lanes (no refill)
+#endif
+#ifndef TP_CLOCKS
+#define TP_CLOCKS 0  // 1: engines count the clocks of an iteration's halves
 #endif
 #if TP_NOINLINE
 #define TP_ITERATE __device__ __noinline__
@@ -642,6 +648,440 @@ __device__ __forceinline__ unsigned run_modes(E& e, int k_max, int C,
     done = convd;
   }
   return done;
+}
+
+// ---- engines on leaves, and refill ---------------------------------------
+//
+// TileEngine below is what csrc/fused_hmpc.cu (K6) and csrc/fused_soc.cu (K5)
+// share: the state as leaves, the product's half of an iteration, the moves
+// of a lane group's state, and run_lanes, which runs a block's modes with or
+// without refill. K1 keeps its own engine and takes no refill.
+//
+// Refill. Plain free-run and the checked mode end per group of 8 lanes (a
+// tile of tile_b = 8), and a wide block would otherwise run to its slowest
+// group. With refill the blocks are persistent (about the SMs times the
+// blocks an SM) and each block's L / 8 slots hold one group each: a slot
+// whose group has ended writes it out and takes the next group from a queue,
+// an int32 counter the wrapper zeroes (a block's first groups are its own:
+// blockIdx.x * G + slot). A group's arithmetic depends neither on its slot
+// nor on the other groups, so the results are the same bits. In plain
+// free-run each group counts its own iterations and its own k_max cut, and
+// slots refill at window ends only, so every live group's checked iteration
+// falls on the same block iteration; a group cut short by k_max waits, frozen,
+// for the window's end. In the checked mode a slot refills once its 8 lanes
+// are all frozen. Once the queue is empty the live groups move down into the
+// first slots, so that the product's tiles narrow as in exact-k. Exact-k
+// keeps one block of L lanes from start to end (compaction and narrowing, no
+// refill). TP_REFILL 0 builds the engines without refill, for a timing script.
+
+// A leaf of an engine's state: `rows` rows of L floats in shared memory
+// (swizzled, chunk<L>), read from `in` and written to `out` ([B][rows] in
+// global memory); snap_off is its offset in a lane's exact-k snapshot.
+struct Leaf {
+  float* sh;
+  const float* in;
+  float* out;
+  int rows, snap_off;
+};
+
+// What a lane's keeper writes out besides the leaves.
+struct LaneOut {
+  int* k;
+  int* done;
+  float* rp;
+  float* rd;
+};
+
+// An engine of NL leaves whose product adds acc = dq @ M to leaf 0 (P
+// columns: leaf 0's rows). The kernel's engine derives from it, sets every
+// member, and supplies iterate<CHECK>(frozen, idle, last, stop, rmask,
+// kinc), which runs its element-wise half for the groups not in `dead` and
+// returns product_half's result.
+template <int L, int TC, int SR, int NL>
+struct TileEngine {
+  static constexpr int G = L / 8;
+  static constexpr unsigned ALL = L == 32 ? FULL : (1u << L) - 1u;
+  Leaf leaf[NL];
+  float* dq;          // [rows of M][L + DQ_PAD]
+  float* red;         // [rwarps][2][L]
+  unsigned* ctrl;     // [4]
+  int *sn_k, *orig;   // exact-k: [L] each
+  float* snap;        // exact-k: [B][snap_width]
+  int snap_width;
+  LaneOut out;
+  Ring ring;
+  Keeper kp;
+  int tid, T, P, rwarps, lane0;  // threads, product columns, warps of
+                                 // residuals, the static block's first lane
+  float tol_p, tol_d;
+  // TP_CLOCKS: thread 0's clocks from an iteration's start to the product's
+  // first barrier (the element-wise half, waiting for the slowest warp),
+  // and from there to the iteration's end
+  long long t0 = 0, clk_ew = 0, clk_prod = 0;
+
+  // Where an iteration starts (TP_CLOCKS).
+  __device__ __forceinline__ void tic() {
+    if (TP_CLOCKS && tid == 0) t0 = clock64();
+  }
+
+  // The block's counts, to queue[1 + b] (iterations) and, with TP_CLOCKS,
+  // queue[1 + gridDim.x + 2 b + {0, 1}] (kilo-clocks of the two halves).
+  __device__ __forceinline__ void count(int* queue, int iters) {
+    if (tid != 0) return;
+    queue[1 + blockIdx.x] = iters;
+    if (TP_CLOCKS) {
+      int* c = queue + 1 + gridDim.x + 2 * blockIdx.x;
+      c[0] = static_cast<int>(clk_ew >> 10);
+      c[1] = static_cast<int>(clk_prod >> 10);
+    }
+  }
+
+  // The iteration's second half: the product with the widest tiles the live
+  // groups allow (narrower once they are the block's first half or quarter),
+  // the keepers' part after its first barrier, and leaf 0 += acc.
+  template <bool CHECK>
+  __device__ __forceinline__ unsigned product_half(unsigned dead,
+                                                   unsigned frozen,
+                                                   unsigned last, bool stop,
+                                                   unsigned rmask, int kinc) {
+    const int nl = max(1, G - __popc(dead) / 8);
+    const bool packed = dead == (ALL & ~((1u << (8 * nl - 1) << 1) - 1u));
+    if constexpr (TC >= 4 && G >= 4) {
+      if (packed && 4 * nl <= G)
+        return finish<TC / 4, CHECK>(dead, frozen, last, stop, rmask, kinc);
+    }
+    if constexpr (TC >= 2 && G >= 2) {
+      if (packed && 2 * nl <= G)
+        return finish<TC / 2, CHECK>(dead, frozen, last, stop, rmask, kinc);
+    }
+    return finish<TC, CHECK>(dead, frozen, last, stop, rmask, kinc);
+  }
+
+  template <int TCX, bool CHECK>
+  __device__ __forceinline__ unsigned finish(unsigned dead, unsigned frozen,
+                                             unsigned last, bool stop,
+                                             unsigned rmask, int kinc) {
+    const Tile<L, TCX> tile(tid, P);
+    float acc[TCX][8];
+#pragma unroll
+    for (int q = 0; q < TCX; ++q) {
+#pragma unroll
+      for (int b = 0; b < 8; ++b) acc[q][b] = 0.0f;
+    }
+    const bool live = tile.active && !bit(dead, 8 * tile.lg);
+    long long t1 = 0;
+    product<L, TCX, SR>(ring, dq, tile, acc, live, tid, T, CHECK, [&]() {
+      if (TP_CLOCKS && tid == 0) {
+        t1 = clock64();
+        clk_ew += t1 - t0;
+      }
+      if (CHECK && tid < 32) {
+        float r_p = 0.0f, r_d = 0.0f;
+        if (tid < L) {
+          r_p = lane_max<L>(red, rwarps, 0, tid);
+          r_d = lane_max<L>(red, rwarps, 1, tid);
+        }
+        const unsigned m = kp.keep(tid, L, r_p, r_d, tol_p, tol_d, rmask,
+                                   kinc);
+        if (tid == 0) ctrl[0] = m;
+      }
+    });
+    if (live) {
+      unsigned skip = (frozen | last) >> (tile.lg * 8);
+      if (CHECK && stop) skip |= ctrl[0] >> (tile.lg * 8);
+      float* x = leaf[0].sh;
+#pragma unroll
+      for (int q = 0; q < TCX; ++q) {
+        float v[8];
+        ld8<L>(v, x, tile.col(q), tile.lg);
+#pragma unroll
+        for (int b = 0; b < 8; ++b)
+          if (!bit(skip, b)) v[b] = v[b] + acc[q][b];
+        st8<L>(x, tile.col(q), tile.lg, v);
+      }
+    }
+    __syncthreads();
+    if (TP_CLOCKS && tid == 0) clk_prod += clock64() - t1;
+    return CHECK ? ctrl[0] : 0u;
+  }
+
+  // Slot g's 8 lanes of every leaf from (TO_SHARED) or to global lanes
+  // lane0 .. lane0 + 7; each thread moves its own row.
+  template <bool TO_SHARED>
+  __device__ __forceinline__ void move8(int g, int lane0_) {
+#pragma unroll
+    for (int l = 0; l < NL; ++l) {
+      const Leaf& f = leaf[l];
+      if (tid >= f.rows) continue;
+      float v[8];
+      if (TO_SHARED) {
+#pragma unroll
+        for (int b = 0; b < 8; ++b)
+          v[b] = f.in[static_cast<size_t>(lane0_ + b) * f.rows + tid];
+        st8<L>(f.sh, tid, g, v);
+      } else {
+        ld8<L>(v, f.sh, tid, g);
+#pragma unroll
+        for (int b = 0; b < 8; ++b)
+          f.out[static_cast<size_t>(lane0_ + b) * f.rows + tid] = v[b];
+      }
+    }
+  }
+
+  // Slot g's lanes out to global lanes lane0 .. lane0 + 7, the keepers'
+  // records with them (`done`: the block's done mask).
+  __device__ __forceinline__ void write8(int g, int lane0_, unsigned done) {
+    move8<false>(g, lane0_);
+    if (tid >= 8 * g && tid < 8 * g + 8) {
+      const int lane = lane0_ + tid - 8 * g;
+      out.k[lane] = kp.k;
+      out.done[lane] = bit(done, tid) ? 1 : 0;
+      out.rp[lane] = kp.rp;
+      out.rd[lane] = kp.rd;
+    }
+  }
+
+  // Slot g takes global lanes lane0 .. lane0 + 7, its keepers start afresh.
+  __device__ __forceinline__ void read8(int g, int lane0_) {
+    move8<true>(g, lane0_);
+    if (tid >= 8 * g && tid < 8 * g + 8) kp = Keeper{};
+  }
+
+  // Slot `from`'s lanes move to slot `to` (each thread its rows; the
+  // keepers by shuffles in warp 0). Called by every thread.
+  __device__ __forceinline__ void slot_move(int from, int to) {
+#pragma unroll
+    for (int l = 0; l < NL; ++l) {
+      const Leaf& f = leaf[l];
+      if (tid >= f.rows) continue;
+      float v[8];
+      ld8<L>(v, f.sh, tid, from);
+      st8<L>(f.sh, tid, to, v);
+    }
+    if (tid < 32) {
+      const bool mine = tid >= 8 * to && tid < 8 * to + 8;
+      const int src = mine ? tid + 8 * (from - to) : tid;
+      Keeper k2;
+      k2.k = __shfl_sync(FULL, kp.k, src);
+      k2.rp = __shfl_sync(FULL, kp.rp, src);
+      k2.rd = __shfl_sync(FULL, kp.rd, src);
+      if (mine) kp = k2;
+    }
+  }
+
+  // The exact-k compaction of csrc/tile_product.cuh's compact_lanes, over
+  // leaves of their own row counts.
+  __device__ __forceinline__ unsigned compact(unsigned done) {
+    const unsigned live = ~done & ALL;
+    const int n = __popc(live);
+    if (__popc(whole_groups<L>(done)) / 8 == (L - n) / 8) return done;
+#pragma unroll
+    for (int l = 0; l < NL; ++l) {
+      if (tid >= leaf[l].rows) continue;
+      int to = 0;
+      for (int s = 0; s < L; ++s) {
+        if (!bit(live, s)) continue;
+        if (s != to) at<L>(leaf[l].sh, tid, to) = at<L>(leaf[l].sh, tid, s);
+        ++to;
+      }
+    }
+    if (tid == 0) {
+      int to = 0;
+      for (int s = 0; s < L; ++s) {
+        if (!bit(live, s)) continue;
+        orig[to++] = orig[s];
+      }
+    }
+    __syncthreads();
+    return n == 32 ? 0u : ALL & ~((1u << n) - 1u);
+  }
+
+  // Exact-k: each thread's rows of every leaf between shared memory and the
+  // lanes' snapshots, for the slots in `lanes` (slot b holds lane orig[b]).
+  template <bool TO_GLOBAL>
+  __device__ __forceinline__ void snapshot(unsigned lanes) {
+#pragma unroll
+    for (int l = 0; l < NL; ++l) {
+      if (tid >= leaf[l].rows) continue;
+      for (int b = 0; b < L; ++b) {
+        if (!bit(lanes, b)) continue;
+        float* g = snap +
+                   static_cast<size_t>(lane0 + orig[b]) * snap_width +
+                   leaf[l].snap_off + tid;
+        float& sh = at<L>(leaf[l].sh, tid, b);
+        if (TO_GLOBAL)
+          *g = sh;
+        else
+          sh = *g;
+      }
+    }
+    // an engine may read rows other threads restored
+    if (!TO_GLOBAL) __syncthreads();
+  }
+};
+
+// The refill loop of plain free-run (C > 1) and the checked mode (C == 1)
+// over n_groups groups of 8 lanes (see Refill above): queue[0] hands out the
+// groups, and the block's counts go to the rest (TileEngine::count).
+// Returns when every group this block took is written out.
+template <int L, class E>
+__device__ __forceinline__ void run_refill(E& e, int k_max, int C,
+                                           int n_groups, int* queue) {
+  constexpr int G = L / 8;
+  constexpr unsigned ALL = L == 32 ? FULL : (1u << L) - 1u;
+  const bool free_run = C > 1;
+  int grp[G], it[G], nf[G];  // a slot's group (-1: none), its iterations
+                             // begun (free-run: at its window's start), the
+                             // plain iterations before its checked one
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    grp[g] = -1;
+    it[g] = 0;
+    nf[g] = 0;
+  }
+  unsigned done = 0;    // lanes whose exit test has passed
+  unsigned ended = ALL; // lanes of slots whose group has ended, or no group
+  bool first = true, dry = false;
+  int f = 0;            // free-run: the iteration's place in its window
+  int iters = 0;        // the block's iterations
+  for (;;) {
+    if (!free_run || f == 0) {
+      if (ended) {
+        // the slots whose group has ended write it out and take the next
+        int need = 0;
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+          if (!bit(ended, 8 * g)) continue;
+          if (grp[g] >= 0) e.write8(g, 8 * grp[g], done);
+          grp[g] = -1;
+          ++need;
+        }
+        if (!dry) {
+          int base;
+          if (first) {
+            base = blockIdx.x * G;
+          } else {
+            if (e.tid == 0)
+              e.ctrl[1] = static_cast<unsigned>(
+                  gridDim.x * G + atomicAdd(queue, need));
+            __syncthreads();
+            base = static_cast<int>(e.ctrl[1]);
+          }
+          first = false;
+          int i = 0;
+#pragma unroll
+          for (int g = 0; g < G; ++g) {
+            if (!bit(ended, 8 * g)) continue;
+            const int n = base + i++;
+            if (n >= n_groups) {  // the queue's groups follow a block's own
+              dry = true;
+              continue;
+            }
+            grp[g] = n;
+            it[g] = 0;
+            e.read8(g, 8 * n);
+            const unsigned lanes = 0xffu << (8 * g);
+            ended &= ~lanes;
+            done &= ~lanes;
+          }
+        }
+        if (dry) {
+          // the live groups move down into the first slots
+#pragma unroll
+          for (int d = 0; d < G; ++d) {
+            if (grp[d] >= 0) continue;
+#pragma unroll
+            for (int s = d + 1; s < G; ++s) {
+              if (grp[s] < 0) continue;
+              e.slot_move(s, d);
+              grp[d] = grp[s];
+              it[d] = it[s];
+              grp[s] = -1;
+              const unsigned from = 0xffu << (8 * s), to = 0xffu << (8 * d);
+              done = (done & ~to) | (((done & from) >> (8 * (s - d))));
+              done &= ~from;
+              ended = (ended & ~to) | from;
+              break;
+            }
+          }
+        }
+        // the rows a thread moved, before others read them
+        __syncthreads();
+      }
+      if (ended == ALL) break;
+      if (free_run) {
+#pragma unroll
+        for (int g = 0; g < G; ++g) nf[g] = min(C - 1, k_max - 1 - it[g]);
+      }
+    }
+    unsigned frozen, last = 0, rmask, check_lanes = 0;
+    if (free_run) {
+#pragma unroll
+      for (int g = 0; g < G; ++g)
+        if (grp[g] >= 0 && !bit(ended, 8 * g) && nf[g] == f)
+          check_lanes |= 0xffu << (8 * g);
+      frozen = ended | whole_groups<L>(done);
+      rmask = check_lanes & ~done;
+    } else {
+#pragma unroll
+      for (int g = 0; g < G; ++g)
+        if (grp[g] >= 0 && it[g] == k_max - 1) last |= 0xffu << (8 * g);
+      frozen = done | ended;
+      check_lanes = ~frozen & ALL;
+      rmask = check_lanes;
+    }
+    ++iters;
+    unsigned conv = 0;
+    if (!free_run || check_lanes)
+      conv = e.template iterate<true>(frozen, 0u, last, !free_run, rmask,
+                                      free_run ? f + 1 : 1);
+    else
+      e.template iterate<false>(frozen, 0u, 0u, false, 0u, 0);
+    done |= conv & check_lanes;
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      const unsigned lanes = 0xffu << (8 * g);
+      if (!(check_lanes & lanes)) continue;
+      it[g] += free_run ? nf[g] + 1 : 1;
+      if ((done & lanes) == lanes || it[g] >= k_max) ended |= lanes;
+    }
+    if (free_run) {
+      // the window ends after its C-th iteration, or once no live group is
+      // left in it
+      bool any = false;
+#pragma unroll
+      for (int g = 0; g < G; ++g) any = any || !bit(ended, 8 * g);
+      f = (f == C - 1 || !any) ? 0 : f + 1;
+    }
+  }
+  ring_drain(e.ring);
+  e.count(queue, iters);
+}
+
+// A block's whole run: with REFILL run_refill; else the block's L lanes
+// from blockIdx.x * L, through run_modes. A kernel is built for each, so
+// that each holds one loop (two inlined iterations) and not two.
+template <int L, bool REFILL, class E>
+__device__ __forceinline__ void run_lanes(E& e, int k_max, int C,
+                                          int exact_k, int n_groups,
+                                          int* queue) {
+  constexpr int G = L / 8;
+  if constexpr (REFILL) {
+    run_refill<L>(e, k_max, C, n_groups, queue);
+  } else {
+#pragma unroll
+    for (int g = 0; g < G; ++g) e.read8(g, e.lane0 + 8 * g);
+    if (e.tid < L) {
+      e.sn_k[e.tid] = 0;
+      e.orig[e.tid] = e.tid;
+    }
+    __syncthreads();
+    const unsigned done = run_modes<L>(e, k_max, C, exact_k, 0);
+    ring_drain(e.ring);
+#pragma unroll
+    for (int g = 0; g < G; ++g) e.write8(g, e.lane0 + 8 * g, done);
+    if (TP_CLOCKS) e.count(queue, 0);
+  }
 }
 
 }  // namespace tp

@@ -32,7 +32,14 @@ prepared z returned) and exact-k (window snapshots of (z, s, lam) and a
 budgeted replay); there is no fixed_iters mode, as in the JAX kernel.
 
 `fused_hmpc_solve` runs the plain version for CPU tensors and launches the
-kernel for CUDA tensors; `fused_hmpc_solve.launches` counts the launches.
+kernel for CUDA tensors; `fused_hmpc_solve.launches` counts the launches and
+`fused_hmpc_solve.last_plan` holds the last launch's build and geometry.
+
+The kernel runs on the product stage csrc/tile_product.cuh, built for 8, 16
+and 32 lanes a block (kernels/stage.py); plain free-run and the checked mode
+refill its persistent blocks group by group of 8 lanes. Every build gives
+the same bits, so `lanes=` of `fused_hmpc_solve` may name another build, for
+a check or a timing.
 """
 
 from __future__ import annotations
@@ -42,27 +49,28 @@ import ctypes
 import numpy as np
 import torch
 
-from spcies_tpu_torch.kernels.fused_admm import (COL_PAD, MAX_COLS,
+from spcies_tpu_torch.kernels import stage
+from spcies_tpu_torch.kernels.fused_admm import (COL_PAD, DQ_PAD, MAX_COLS,
                                                  round_up)
 from spcies_tpu_torch.kernels.modes import run_modes
 
-# lanes per thread block (TB in csrc/fused_hmpc.cu)
-CTA_LANES = 8
-
-__all__ = ["COL_PAD", "CTA_LANES", "MAX_COLS", "round_up", "cone_layout",
-           "cone_columns", "proj_ssoc_seg", "fused_hmpc_reference",
-           "fused_hmpc_solve", "launch_geometry"]
+__all__ = ["COL_PAD", "MAX_COLS", "round_up", "cone_layout", "cone_columns",
+           "proj_ssoc_seg", "fused_hmpc_reference", "fused_hmpc_solve",
+           "launch_plan", "launch_geometry", "shared_bytes"]
 
 WARP = 32
 # cones a warp holds at most: three lanes each
 MAX_CONES_PER_WARP = WARP // 3
-# C signature of fused_hmpc_launch: 16 tensor pointers (8 inputs, 7
-# outputs, the exact-k snapshot scratch); B, dim_p, ns_p, cone0, cone_g,
-# use_soc, blocks, threads, shared bytes; rho, rho_i, tol_p, tol_d; k_max,
-# check_every, exact_k; the stream
-FUSED_HMPC_ARGTYPES = ([ctypes.c_void_p] * 16 + [ctypes.c_int] * 9
+# C signature of fused_hmpc_launch: 17 pointers (8 inputs, 7 outputs, the
+# exact-k snapshot scratch, the refill queue); B, dim_p, ns_p, cone0,
+# cone_g, use_soc, lanes, blocks, threads, shared bytes; rho, rho_i, tol_p,
+# tol_d; k_max, check_every, exact_k; the stream
+FUSED_HMPC_ARGTYPES = ([ctypes.c_void_p] * 17 + [ctypes.c_int] * 10
                        + [ctypes.c_float] * 4 + [ctypes.c_int] * 3
                        + [ctypes.c_void_p])
+# lanes a block -> (rows a slab of MC, blocks an SM) of its build up to
+# stage.NARROW columns (Build<L> in csrc/fused_hmpc.cu)
+BUILDS = {8: (16, 2), 16: (8, 2), 32: (32, 1)}
 # the leaves an exact-k snapshot saves per lane: z, s, lam
 SNAP_LEAVES = 3
 
@@ -170,34 +178,46 @@ def check_cone_layout(width: int, cone0: int, cone_g: int):
                          f"got {cone_g}")
 
 
-def launch_geometry(B: int, dim_p: int, ns_p: int, cone0: int, cone_g: int,
-                    *, tile_b: int, check_every: int, exact_k: bool):
-    """(blocks, threads, dynamic shared bytes) of a kernel launch; raises
-    ValueError on a shape or mode the kernel does not take."""
+def shared_bytes(dim_p: int, ns_p: int, lanes: int) -> int:
+    """Dynamic shared bytes of a block (fused_hmpc_smem in the source): the
+    ring of MC's slabs, z, s and lam as [rows][lanes], w with its padding,
+    the warps' row maxima, the masks, the window starts and the slots'
+    lanes."""
+    slab = stage.build_of(BUILDS, max(dim_p, ns_p), lanes)[0]
+    return stage.ring_bytes(dim_p, slab) + 4 * (
+        dim_p * lanes + 2 * ns_p * lanes + ns_p * (lanes + DQ_PAD)
+        + ns_p // WARP * 2 * lanes + 4 + 2 * lanes)
+
+
+def launch_plan(B: int, dim_p: int, ns_p: int, cone0: int, cone_g: int, *,
+                tile_b: int, check_every: int, exact_k: bool,
+                lanes: int | None = None):
+    """The build a launch takes and its geometry, as a dict: lanes a block,
+    blocks, threads, dynamic shared bytes, refill. `lanes` names a build in
+    place of the dispatch's choice; raises ValueError on a shape or mode no
+    build takes."""
     for name, w in (("dim_p", dim_p), ("ns_p", ns_p)):
         if w % COL_PAD or not 0 < w <= MAX_COLS:
             raise ValueError(f"the kernel takes {name} a multiple of "
                              f"{COL_PAD} up to {MAX_COLS}; got {w}")
     check_cone_layout(ns_p, cone0, cone_g)
-    if tile_b % CTA_LANES:
-        raise ValueError(f"tile_b must be a multiple of {CTA_LANES}; "
-                         f"got {tile_b}")
-    if B % tile_b:
-        raise ValueError(f"batch {B} is not a multiple of tile_b {tile_b}")
-    if check_every > 1 and not exact_k and tile_b != CTA_LANES:
-        # in plain free-run the output iterates depend on when a lane's
-        # tile drains, and the kernel drains per block of CTA_LANES lanes
-        raise ValueError(
-            f"plain free-run (check_every > 1 without exact_k) takes "
-            f"tile_b={CTA_LANES} on the GPU; got {tile_b}")
-    # z (prepared, consumed) [dim_p][TB]; w, s, lam [ns_p][TB]; the warp
-    # maxima [warps][2][TB]
-    smem = 4 * CTA_LANES * (2 * dim_p + 3 * ns_p + 2 * (ns_p // WARP))
-    return B // CTA_LANES, max(dim_p, ns_p), smem
+    stage.check_mode(B, tile_b=tile_b, check_every=check_every,
+                     exact_k=exact_k)
+    return stage.plan(B, max(dim_p, ns_p),
+                      lambda L: shared_bytes(dim_p, ns_p, L), BUILDS,
+                      refill=not (check_every > 1 and exact_k), lanes=lanes)
+
+
+def launch_geometry(B: int, dim_p: int, ns_p: int, cone0: int, cone_g: int,
+                    **kw):
+    """(blocks, threads, dynamic shared bytes) of a kernel launch; the
+    arguments of `launch_plan`."""
+    plan = launch_plan(B, dim_p, ns_p, cone0, cone_g, **kw)
+    return plan["blocks"], plan["threads"], plan["smem"]
 
 
 def _launch(*args, rho, tol_p, tol_d, k_max, use_soc, cone0, cone_g, tile_b,
-            check_every, exact_k):
+            check_every, exact_k, lanes=None):
     for t in args:
         if t.dtype != torch.float32:
             raise TypeError(f"the fused kernel takes float32; got {t.dtype}")
@@ -205,9 +225,8 @@ def _launch(*args, rho, tol_p, tol_d, k_max, use_soc, cone0, cone_g, tile_b,
             raise ValueError("the fused kernel takes contiguous tensors")
     B, dim_p = args[0].shape
     ns_p = args[1].shape[1]
-    blocks, threads, smem = launch_geometry(
-        B, dim_p, ns_p, cone0, cone_g, tile_b=tile_b,
-        check_every=check_every, exact_k=exact_k)
+    plan = launch_plan(B, dim_p, ns_p, cone0, cone_g, tile_b=tile_b,
+                       check_every=check_every, exact_k=exact_k, lanes=lanes)
     from spcies_tpu_torch.kernels._build import load_kernel
     launch = load_kernel("fused_hmpc", "fused_hmpc_launch",
                          FUSED_HMPC_ARGTYPES)
@@ -221,20 +240,29 @@ def _launch(*args, rho, tol_p, tol_d, k_max, use_soc, cone0, cone_g, tile_b,
     exact = check_every > 1 and exact_k
     snap = torch.empty((B if exact else 0, dim_p + 2 * ns_p),
                        dtype=torch.float32, device=dev)
+    # the queue of groups of 8 lanes (refill), then each block's count of
+    # iterations (refill) and kilo-clocks of the two halves of an iteration
+    # (in a build with TP_CLOCKS; else zeros)
+    nb = plan["blocks"]
+    queue = torch.zeros((1 + 3 * nb,), dtype=torch.int32, device=dev)
+    ptrs = [t.data_ptr() for t in args + (z, s, lam, k, done, rp, rd, snap,
+                                          queue)]
+    if any(ptr % 16 for ptr in ptrs):
+        raise ValueError("the fused kernel takes 16-byte aligned tensors")
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = launch(
-            *(t.data_ptr() for t in args + (z, s, lam, k, done, rp, rd,
-                                            snap)),
-            B, dim_p, ns_p, int(cone0), int(cone_g), int(bool(use_soc)),
-            blocks, threads, smem, float(rho), float(1.0 / rho),
+            *ptrs, B, dim_p, ns_p, int(cone0), int(cone_g),
+            int(bool(use_soc)), plan["lanes"], plan["blocks"],
+            plan["threads"], plan["smem"], float(rho), float(1.0 / rho),
             float(tol_p), float(tol_d), int(k_max), int(check_every),
             int(bool(exact_k)), stream)
     if err != 0:
         raise RuntimeError(f"fused_hmpc kernel launch failed with CUDA error "
-                           f"{err} (blocks={blocks}, threads={threads}, "
-                           f"shared={smem} B)")
+                           f"{err} ({plan})")
     fused_hmpc_solve.launches += 1
+    fused_hmpc_solve.last_plan = dict(plan, block_iterations=queue[1:1 + nb],
+                                   block_clocks=queue[1 + nb:].view(nb, 2))
     e_flag = torch.where(done == 1, 1, -1).to(torch.int32)
     return z, s, lam, k, e_flag, rp, rd
 
@@ -243,12 +271,15 @@ def fused_hmpc_solve(z1, s0, lam0, CT, MC, d_row, lb_row, ub_row, *,
                      rho: float, tol_p: float, tol_d: float, k_max: int,
                      use_soc: bool, cone0: int, cone_g: int,
                      tile_b: int = 256, check_every: int = 1,
-                     exact_k: bool = False):
+                     exact_k: bool = False, lanes: int | None = None):
     """Run the fused single-split cone-ADMM loop on z [B, dim_p] and s, lam
     [B, ns_p] in the layout the module docstring sets out (B a multiple of
     tile_b): CT [dim_p, ns_p] and MC [ns_p, dim_p] in row form
     (czd = z @ CT, z += w @ MC), the rows d, lb, ub of ns_p entries. CPU
     tensors run the plain version; CUDA tensors launch the kernel or raise.
+    `lanes` names the build to launch (one of stage.LANES) in place of the
+    dispatch's choice; the results do not depend on it, and the plain
+    version has no such builds.
 
     Returns (z [B, dim_p], s, lam [B, ns_p], k [B] int32, e_flag [B] int32
     (1 converged / -1 k_max reached), r_p [B], r_d [B]).
@@ -276,9 +307,10 @@ def fused_hmpc_solve(z1, s0, lam0, CT, MC, d_row, lb_row, ub_row, *,
     if z1.device.type == "cpu":
         return fused_hmpc_reference(*args, **kw)
     if z1.device.type == "cuda":
-        return _launch(*args, **kw)
+        return _launch(*args, lanes=lanes, **kw)
     raise ValueError(f"fused_hmpc_solve takes CPU or CUDA tensors; got "
                      f"{z1.device}")
 
 
 fused_hmpc_solve.launches = 0
+fused_hmpc_solve.last_plan = None

@@ -33,7 +33,14 @@ padded to a multiple of tile_b by the caller. On the card the s slab is one
 warp (sp = 32, n + 1 <= 32).
 
 `fused_soc_solve` runs the plain version for CPU tensors and launches the
-kernel for CUDA tensors; `fused_soc_solve.launches` counts the launches.
+kernel for CUDA tensors; `fused_soc_solve.launches` counts the launches and
+`fused_soc_solve.last_plan` holds the last launch's build and geometry.
+
+The kernel runs on the product stage csrc/tile_product.cuh, built for 8, 16
+and 32 lanes a block (kernels/stage.py); plain free-run and the checked mode
+refill its persistent blocks group by group of 8 lanes. Every build gives
+the same bits, so `lanes=` of `fused_soc_solve` may name another build, for
+a check or a timing.
 """
 
 from __future__ import annotations
@@ -42,22 +49,25 @@ import ctypes
 
 import torch
 
-from spcies_tpu_torch.kernels.fused_admm import (COL_PAD, MAX_COLS,
+from spcies_tpu_torch.kernels import stage
+from spcies_tpu_torch.kernels.fused_admm import (COL_PAD, DQ_PAD, MAX_COLS,
                                                  round_up)
 from spcies_tpu_torch.kernels.modes import run_modes
 
-# lanes per thread block (TB in csrc/fused_soc.cu)
-CTA_LANES = 8
+__all__ = ["COL_PAD", "MAX_COLS", "round_up", "fused_soc_reference",
+           "fused_soc_solve", "launch_plan", "launch_geometry",
+           "shared_bytes"]
 
-__all__ = ["COL_PAD", "CTA_LANES", "MAX_COLS", "round_up",
-           "fused_soc_reference", "fused_soc_solve", "launch_geometry"]
-
-# C signature of fused_soc_launch: 16 tensor pointers (8 inputs, 7 outputs,
-# the exact-k snapshot scratch); B, P, dim_p, blocks, threads, shared
-# bytes; tol_p, tol_d; k_max, check_every, exact_k; the stream
-FUSED_SOC_ARGTYPES = ([ctypes.c_void_p] * 16 + [ctypes.c_int] * 6
+# C signature of fused_soc_launch: 17 pointers (8 inputs, 7 outputs, the
+# exact-k snapshot scratch, the refill queue); B, P, dim_p, lanes, blocks,
+# threads, shared bytes; tol_p, tol_d; k_max, check_every, exact_k; the
+# stream
+FUSED_SOC_ARGTYPES = ([ctypes.c_void_p] * 17 + [ctypes.c_int] * 7
                       + [ctypes.c_float] * 2 + [ctypes.c_int] * 3
                       + [ctypes.c_void_p])
+# lanes a block -> (rows a slab of M1', blocks an SM) of its build up to
+# stage.NARROW columns (Build<L> in csrc/fused_soc.cu)
+BUILDS = {8: (16, 2), 16: (8, 2), 32: (32, 1)}
 # the leaves an exact-k snapshot saves per lane: aux, zs, lm
 SNAP_LEAVES = 3
 WARP = 32
@@ -122,10 +132,22 @@ def fused_soc_reference(aux1, zs0, lm0, M1P, LB_head, UB_head, scale_row,
     return (zs, lm, aux, *rest)
 
 
-def launch_geometry(B: int, P: int, dim_p: int, *, tile_b: int,
-                    check_every: int, exact_k: bool):
-    """(blocks, threads, dynamic shared bytes) of a kernel launch; raises
-    ValueError on a shape or mode the kernel does not take."""
+def shared_bytes(P: int, lanes: int) -> int:
+    """Dynamic shared bytes of a block (fused_soc_smem in the source): the
+    ring of M1''s slabs, aux, zs and lm as [P][lanes], dq with its padding,
+    the warps' row maxima, the masks, the window starts, the slots' lanes
+    and the lanes' cones."""
+    slab = stage.build_of(BUILDS, P, lanes)[0]
+    return stage.ring_bytes(P, slab) + 4 * (
+        P * (4 * lanes + DQ_PAD) + P // WARP * 2 * lanes + 4 + 5 * lanes)
+
+
+def launch_plan(B: int, P: int, dim_p: int, *, tile_b: int,
+                check_every: int, exact_k: bool, lanes: int | None = None):
+    """The build a launch takes and its geometry, as a dict: lanes a block,
+    blocks, threads, dynamic shared bytes, refill. `lanes` names a build in
+    place of the dispatch's choice; raises ValueError on a shape or mode no
+    build takes."""
     if P % COL_PAD or not 0 < P <= MAX_COLS:
         raise ValueError(f"the kernel takes a padded width that is a "
                          f"multiple of {COL_PAD} up to {MAX_COLS}; got {P}")
@@ -133,33 +155,29 @@ def launch_geometry(B: int, P: int, dim_p: int, *, tile_b: int,
         raise ValueError(f"the kernel takes an s slab of one warp of {WARP} "
                          f"columns after a z slab of whole warps; got "
                          f"dim_p={dim_p}, P={P}")
-    if tile_b % CTA_LANES:
-        raise ValueError(f"tile_b must be a multiple of {CTA_LANES}; "
-                         f"got {tile_b}")
-    if B % tile_b:
-        raise ValueError(f"batch {B} is not a multiple of tile_b {tile_b}")
-    if check_every > 1 and not exact_k and tile_b != CTA_LANES:
-        # in plain free-run the output iterates depend on when a lane's
-        # tile drains, and the kernel drains per block of CTA_LANES lanes
-        raise ValueError(
-            f"plain free-run (check_every > 1 without exact_k) takes "
-            f"tile_b={CTA_LANES} on the GPU; got {tile_b}")
-    # dq [2][P][TB], the warp maxima [2][warps][2][TB] and the four state
-    # vectors [P][TB]
-    smem = 4 * CTA_LANES * (6 * P + 4 * (P // WARP))
-    return B // CTA_LANES, P, smem
+    stage.check_mode(B, tile_b=tile_b, check_every=check_every,
+                     exact_k=exact_k)
+    return stage.plan(B, P, lambda L: shared_bytes(P, L), BUILDS,
+                      refill=not (check_every > 1 and exact_k), lanes=lanes)
+
+
+def launch_geometry(B: int, P: int, dim_p: int, **kw):
+    """(blocks, threads, dynamic shared bytes) of a kernel launch; the
+    arguments of `launch_plan`."""
+    plan = launch_plan(B, P, dim_p, **kw)
+    return plan["blocks"], plan["threads"], plan["smem"]
 
 
 def _launch(*args, dim_p, tol_p, tol_d, k_max, tile_b, check_every,
-            exact_k):
+            exact_k, lanes=None):
     for t in args:
         if t.dtype != torch.float32:
             raise TypeError(f"the fused kernel takes float32; got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError("the fused kernel takes contiguous tensors")
     B, P = args[0].shape
-    blocks, threads, smem = launch_geometry(
-        B, P, dim_p, tile_b=tile_b, check_every=check_every, exact_k=exact_k)
+    plan = launch_plan(B, P, dim_p, tile_b=tile_b, check_every=check_every,
+                       exact_k=exact_k, lanes=lanes)
     from spcies_tpu_torch.kernels._build import load_kernel
     launch = load_kernel("fused_soc", "fused_soc_launch", FUSED_SOC_ARGTYPES)
     dev = args[0].device
@@ -171,19 +189,27 @@ def _launch(*args, dim_p, tol_p, tol_d, k_max, tile_b, check_every,
     exact = check_every > 1 and exact_k
     snap = torch.empty((B if exact else 0, SNAP_LEAVES * P),
                        dtype=torch.float32, device=dev)
+    # the queue of groups of 8 lanes (refill), then each block's count of
+    # iterations (refill) and kilo-clocks of the two halves of an iteration
+    # (in a build with TP_CLOCKS; else zeros)
+    nb = plan["blocks"]
+    queue = torch.zeros((1 + 3 * nb,), dtype=torch.int32, device=dev)
+    ptrs = [t.data_ptr() for t in args + (zs, lm, aux, k, done, rp, rd, snap,
+                                          queue)]
+    if any(ptr % 16 for ptr in ptrs):
+        raise ValueError("the fused kernel takes 16-byte aligned tensors")
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = launch(
-            *(t.data_ptr() for t in args + (zs, lm, aux, k, done, rp, rd,
-                                            snap)),
-            B, P, int(dim_p), blocks, threads, smem, float(tol_p),
-            float(tol_d), int(k_max), int(check_every), int(bool(exact_k)),
-            stream)
+            *ptrs, B, P, int(dim_p), plan["lanes"], plan["blocks"],
+            plan["threads"], plan["smem"], float(tol_p), float(tol_d),
+            int(k_max), int(check_every), int(bool(exact_k)), stream)
     if err != 0:
         raise RuntimeError(f"fused_soc kernel launch failed with CUDA error "
-                           f"{err} (blocks={blocks}, threads={threads}, "
-                           f"shared={smem} B)")
+                           f"{err} ({plan})")
     fused_soc_solve.launches += 1
+    fused_soc_solve.last_plan = dict(plan, block_iterations=queue[1:1 + nb],
+                                   block_clocks=queue[1 + nb:].view(nb, 2))
     e_flag = torch.where(done == 1, 1, -1).to(torch.int32)
     return zs, lm, aux, k, e_flag, rp, rd
 
@@ -191,13 +217,15 @@ def _launch(*args, dim_p, tol_p, tol_d, k_max, tile_b, check_every,
 def fused_soc_solve(aux1, zs0, lm0, M1P, LB_head, UB_head, scale_row,
                     iscale_row, *, dim_p: int, tol_p: float, tol_d: float,
                     k_max: int, tile_b: int = 256, check_every: int = 1,
-                    exact_k: bool = False):
+                    exact_k: bool = False, lanes: int | None = None):
     """Run the fused slack-SOC split ADMM loop on [B, P] tensors in the
     layout [z (dim_p) | s (P - dim_p)] (padded as the module docstring
     says; B a multiple of tile_b): M1P [P, P] in row form
     (aux += dq @ M1P), the z-slab bounds of dim_p entries, the scale and
     iscale rows of P entries. CPU tensors run the plain version; CUDA
-    tensors launch the kernel or raise.
+    tensors launch the kernel or raise. `lanes` names the build to launch
+    (one of stage.LANES) in place of the dispatch's choice; the results do
+    not depend on it, and the plain version has no such builds.
 
     Returns (zs, lm, aux [B, P], k [B] int32, e_flag [B] int32 (1
     converged / -1 k_max reached), r_p [B], r_d [B]).
@@ -225,9 +253,10 @@ def fused_soc_solve(aux1, zs0, lm0, M1P, LB_head, UB_head, scale_row,
     if aux1.device.type == "cpu":
         return fused_soc_reference(*args, **kw)
     if aux1.device.type == "cuda":
-        return _launch(*args, **kw)
+        return _launch(*args, lanes=lanes, **kw)
     raise ValueError(f"fused_soc_solve takes CPU or CUDA tensors; got "
                      f"{aux1.device}")
 
 
 fused_soc_solve.launches = 0
+fused_soc_solve.last_plan = None

@@ -359,14 +359,16 @@ def test_geometry_constants_match_the_sources():
 
 
 @pytest.mark.parametrize("name", ["fused_admm_parent", "fused_admm_tc",
-                                  "fused_split_tile"])
+                                  "fused_split_tile", "fused_hmpc_parent",
+                                  "fused_soc_parent"])
 def test_variant_sources_stay_out_of_the_launched_builds(name):
-    # the builds a timing script holds against the launched kernels
+    # the builds a timing script holds against the launched kernels; the
+    # parents are the one-column-per-thread kernels of 8 lanes a block
     variants = _build.CSRC / "variants"
     src = (variants / f"{name}.cu").read_text()
     assert 'extern "C" int fused_' in src
     files = _build.included_files(variants / f"{name}.cu")
-    uses_stage = name != "fused_admm_parent"
+    uses_stage = not name.endswith("_parent")
     assert (_build.CSRC / "tile_product.cuh" in files) == uses_stage
     # no wrapper of the package names a variant
     for wrapper in (_build.CSRC.parent / "kernels").glob("*.py"):

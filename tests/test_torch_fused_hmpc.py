@@ -18,6 +18,7 @@ import spcies_tpu_torch as tsp
 from spcies_tpu_torch.formulations import hmpc as th
 from spcies_tpu_torch.kernels import _build
 from spcies_tpu_torch.kernels import fused_hmpc as fk
+from spcies_tpu_torch.kernels import stage
 from spcies_tpu_torch.solvers.fused_backend import FusedHMPCSolve
 
 torch.set_num_threads(2)
@@ -345,23 +346,39 @@ def test_wrapper_rejects_bad_arguments():
 def test_launch_geometry():
     # the N=30 shapes: z 258 -> 288; s 234 box rows -> 256 and one warp of
     # 8 diamonds (288), or two warps of 8 SOCs (320); ellipHMPC 90 -> 96
-    # and one warp of 3 cones (128)
-    for dim_p, ns_p, cone0, g in ((288, 288, 256, 8), (288, 320, 256, 8),
-                                  (288, 128, 96, 3)):
-        smem = 4 * 8 * (2 * dim_p + 3 * ns_p + 2 * (ns_p // 32))
+    # and one warp of 3 cones (128). Plain free-run refills persistent
+    # blocks; each shape takes the widest build whose shared memory fits.
+    for (dim_p, ns_p, cone0, g), lanes in (((288, 288, 256, 8), 32),
+                                           ((288, 320, 256, 8), 16),
+                                           ((288, 128, 96, 3), 32)):
         for B in (8192, 32768):
-            assert fk.launch_geometry(
-                B, dim_p, ns_p, cone0, g, tile_b=8, check_every=8,
-                exact_k=False) == (B // 8, max(dim_p, ns_p), smem)
+            kw = dict(tile_b=8, check_every=8, exact_k=False)
+            plan = fk.launch_plan(B, dim_p, ns_p, cone0, g, **kw)
+            per_sm = min(fk.BUILDS[lanes][1],
+                         233472 // (plan["smem"] + 1024))
+            assert plan == dict(
+                lanes=lanes, blocks=132 * per_sm, threads=max(dim_p, ns_p),
+                smem=fk.shared_bytes(dim_p, ns_p, lanes), refill=True)
+            assert plan["smem"] <= 232448
+            assert fk.launch_geometry(B, dim_p, ns_p, cone0, g, **kw) == (
+                plan["blocks"], plan["threads"], plan["smem"])
+            # exact-k keeps one block per L lanes
+            ek = fk.launch_plan(B, dim_p, ns_p, cone0, g, tile_b=256,
+                                check_every=8, exact_k=True)
+            assert not ek["refill"] and ek["blocks"] * ek["lanes"] == B
+    # at 32 lanes the diamond shape's state and its 32-row slabs take all
+    # but 4 KB of a block's shared memory
+    assert fk.shared_bytes(288, 288, 32) == 4 * (
+        2 * 32 * 288 + 16 + 288 * 32 * 3 + 288 * 36 + 9 * 2 * 32 + 4 + 64)
     bad = [
         dict(dim_p=120),                  # not whole warps
         dict(ns_p=544, cone0=512),        # beyond 512 threads
         dict(cone0=40),                   # cones off a warp boundary
         dict(cone0=128),                  # no cone warp
         dict(g=0),                        # an empty warp of cones
-        dict(tile_b=12, B=48),            # tile not whole blocks
+        dict(tile_b=12, B=48),            # tile not whole groups of 8
         dict(tile_b=32, B=48),            # batch not whole tiles
-        dict(tile_b=256, B=256, check_every=8),   # drain per block
+        dict(tile_b=256, B=256, check_every=8),   # drain per group
     ]
     for b in bad:
         a = {**dict(B=64, dim_p=96, ns_p=128, cone0=96, g=3, tile_b=8,
@@ -370,6 +387,99 @@ def test_launch_geometry():
             fk.launch_geometry(a["B"], a["dim_p"], a["ns_p"], a["cone0"],
                                a["g"], tile_b=a["tile_b"],
                                check_every=a["check_every"], exact_k=False)
+
+
+# (batch, dim_p, ns_p, cone0, mode) -> lanes a block the dispatch picks: the
+# families' batches at the diamond, use_soc and ellipHMPC shapes, a request
+# of 64 lanes, and exact-k, which keeps one block per L lanes
+DISPATCH = {(8192, 288, 288, 256, "free-run"): 32,
+            (32768, 288, 320, 256, "free-run"): 16,
+            (8192, 288, 128, 96, "checked"): 32,
+            (64, 288, 288, 256, "free-run"): 8,
+            (4096, 288, 288, 256, "exact-k"): 32,
+            (512, 288, 288, 256, "exact-k"): 8,
+            (8192, 512, 512, 480, "free-run"): 16}
+
+
+@pytest.mark.parametrize("shape", sorted(DISPATCH))
+def test_dispatch_by_shape(shape):
+    B, dim_p, ns_p, cone0, mode = shape
+    kw = dict(tile_b=8 if mode != "exact-k" else 256,
+              check_every={"checked": 1}.get(mode, 8),
+              exact_k=mode == "exact-k")
+    plan = fk.launch_plan(B, dim_p, ns_p, cone0, 8, **kw)
+    assert plan["lanes"] == DISPATCH[shape]
+    assert plan["smem"] == fk.shared_bytes(dim_p, ns_p, plan["lanes"])
+    assert plan["smem"] <= 232448 and plan["refill"] == (mode != "exact-k")
+    # with refill every slot has a group to start with; without, one block
+    # per L lanes
+    slots = plan["blocks"] * plan["lanes"] // 8
+    assert (slots <= B // 8 if plan["refill"]
+            else plan["blocks"] * plan["lanes"] == B)
+
+
+@pytest.mark.parametrize("lanes,kw", [
+    (64, {}),                              # no such build
+    (4, {}),
+    (32, dict(ns_p=320)),                  # use_soc: 241,488 bytes
+    (32, dict(dim_p=384, ns_p=384, cone0=352)),   # above 320 columns
+    (16, dict(B=8200, exact_k=True)),      # exact-k: not whole blocks
+])
+def test_named_builds_are_refused(lanes, kw):
+    a = {**dict(B=8192, dim_p=288, ns_p=288, cone0=256, exact_k=False),
+         **kw}
+    with pytest.raises(ValueError, match="no build"):
+        fk.launch_plan(a["B"], a["dim_p"], a["ns_p"], a["cone0"], 8,
+                       tile_b=8, check_every=8 if a["exact_k"] else 1,
+                       exact_k=a["exact_k"], lanes=lanes)
+
+
+@pytest.mark.parametrize("lanes", [8, 16, 32])
+def test_plain_free_run_takes_tile_8_at_every_lanes(lanes):
+    kw = dict(check_every=8, exact_k=False, lanes=lanes)
+    plan = fk.launch_plan(8200, 288, 288, 256, 8, tile_b=8, **kw)
+    # refill takes whole groups of 8 lanes, not whole blocks
+    assert plan["lanes"] == lanes and plan["refill"]
+    assert plan["blocks"] <= -(-8200 // lanes)
+    with pytest.raises(ValueError, match="plain free-run"):
+        fk.launch_plan(8192, 288, 288, 256, 8, tile_b=256, **kw)
+
+
+def _group_runs(args, kw, perm):
+    """The plain version on all groups of 8 lanes at once, on each group
+    alone, and on the groups in the order `perm`."""
+    z1, s0, lam0, *ops = args
+    B = z1.shape[0]
+    whole = fk.fused_hmpc_reference(z1, s0, lam0, *ops, **kw)
+    alone = [fk.fused_hmpc_reference(z1[g:g + 8], s0[g:g + 8],
+                                     lam0[g:g + 8], *ops, **kw)
+             for g in range(0, B, 8)]
+    rows = torch.cat([torch.arange(8 * g, 8 * g + 8) for g in perm])
+    moved = fk.fused_hmpc_reference(z1[rows], s0[rows], lam0[rows], *ops,
+                                    **kw)
+    return whole, alone, rows, moved
+
+
+@pytest.mark.parametrize("check_every", [1, 4])
+def test_groups_do_not_depend_on_their_neighbours(fixture, check_every):
+    """What refill relies on: in the checked mode and plain free-run
+    (tile_b 8) each group of 8 lanes gets the same bits solved alone, in
+    another order of the groups, or beside other groups."""
+    sys, _, param, st = fixture
+    x0, xr, ur = _data(st, 32, 12)
+    x0[8:16] *= 0.05                # groups of unlike iteration counts
+    xr[8:16] = 0.0
+    args, fused = _fp64(sys, param, (x0, xr, ur))
+    args = tuple(a.float() for a in args)
+    kw = dict(fused.kernel_kw, tile_b=8, check_every=check_every,
+              exact_k=False)
+    whole, alone, rows, moved = _group_runs(args, kw, (2, 0, 3, 1))
+    assert len(set(whole[3].reshape(4, 8).amax(dim=1).tolist())) > 1
+    for g, out in enumerate(alone):
+        for a, b in zip(whole, out):
+            assert torch.equal(a[8 * g:8 * g + 8], b), g
+    for a, b in zip(whole, moved):
+        assert torch.equal(a[rows], b)
 
 
 def test_build_is_lazy_and_content_addressed():
@@ -381,6 +491,14 @@ def test_build_is_lazy_and_content_addressed():
     src = (_build.CSRC / "fused_hmpc.cu").read_text()
     assert src.count("extern \"C\" int fused_hmpc_launch(") == 1
     assert f"MAX_G = {fk.MAX_CONES_PER_WARP};" in src
-    # the C signature the wrapper binds: 16 pointers, 9 + 4 + 3 scalars,
+    # the C signature the wrapper binds: 17 pointers, 10 + 4 + 3 scalars,
     # the stream
-    assert len(fk.FUSED_HMPC_ARGTYPES) == 33
+    assert len(fk.FUSED_HMPC_ARGTYPES) == 35
+    # the builds the wrapper plans for are the source's
+    assert '#include "tile_product.cuh"' in src
+    for lanes, (slab, blocks) in fk.BUILDS.items():
+        assert f"#define HM_SLAB_{lanes} {slab}\n" in src
+        assert f"#define HM_BLOCKS_{lanes} {blocks}\n" in src
+        assert f"launch<{lanes}, true>(p, " in src
+    assert f"NARROW = {stage.NARROW};" in src
+    assert f"WIDE_SLAB = {stage.WIDE_BUILD[0]};" in src

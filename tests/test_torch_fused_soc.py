@@ -295,26 +295,80 @@ def test_wrapper_rejects_bad_arguments():
 
 
 def test_launch_geometry():
-    # the N=30 shape: dim = 241 pads to 256, the cone's 7 entries to 32
-    smem = 4 * 8 * (6 * 288 + 4 * 9)
+    # the N=30 shape: dim = 241 pads to 256, the cone's 7 entries to 32.
+    # Plain free-run refills persistent blocks of 32 lanes, one an SM: the
+    # state and the 32-row slabs of M1' take all but 4 KB of its shared
+    # memory
     for B in (8192, 32768):
-        assert fk.launch_geometry(B, 288, 256, tile_b=8, check_every=8,
-                                  exact_k=False) == (B // 8, 288, smem)
+        kw = dict(tile_b=8, check_every=8, exact_k=False)
+        plan = fk.launch_plan(B, 288, 256, **kw)
+        assert plan == dict(lanes=32, blocks=132, threads=288,
+                            smem=fk.shared_bytes(288, 32), refill=True)
+        assert fk.launch_geometry(B, 288, 256, **kw) == (132, 288,
+                                                         plan["smem"])
+    assert fk.shared_bytes(288, 32) == 4 * (
+        2 * 32 * 288 + 16 + 288 * (4 * 32 + 4) + 9 * 2 * 32 + 4 + 5 * 32)
+    assert fk.shared_bytes(288, 32) <= 232448
+    # exact-k keeps one block per L lanes: at a small batch, 8
     assert fk.launch_geometry(256, 128, 96, tile_b=256, check_every=8,
                               exact_k=True)[:2] == (32, 128)
+    # above 320 columns: 16-row slabs, one block an SM, at most 16 lanes
+    plan = fk.launch_plan(8192, 512, 480, tile_b=8, check_every=8,
+                          exact_k=False)
+    assert plan["lanes"] == 16 and plan["blocks"] == 132
+    assert plan["smem"] == fk.shared_bytes(512, 16) <= 232448
     bad = [
         dict(P=120, dim_p=96),            # not whole warps
         dict(P=544, dim_p=512),           # beyond 512 threads
         dict(P=160, dim_p=96),            # an s slab of two warps
-        dict(tile_b=12, B=48),            # tile not whole blocks
+        dict(tile_b=12, B=48),            # tile not whole groups of 8
         dict(tile_b=32, B=48),            # batch not whole tiles
-        dict(tile_b=256, B=256, check_every=8),   # drain per block
+        dict(tile_b=256, B=256, check_every=8),   # drain per group
     ]
     for b in bad:
         g = {**dict(B=64, P=128, dim_p=96, tile_b=8, check_every=1), **b}
         with pytest.raises(ValueError):
             fk.launch_geometry(g["B"], g["P"], g["dim_p"], tile_b=g["tile_b"],
                                check_every=g["check_every"], exact_k=False)
+
+
+@pytest.mark.parametrize("lanes,kw", [
+    (64, {}),                              # no such build
+    (32, dict(P=352, dim_p=320)),          # above 320 columns
+    (16, dict(B=8200, exact_k=True)),      # exact-k: not whole blocks
+])
+def test_named_builds_are_refused(lanes, kw):
+    a = {**dict(B=8192, P=288, dim_p=256, exact_k=False), **kw}
+    with pytest.raises(ValueError, match="no build"):
+        fk.launch_plan(a["B"], a["P"], a["dim_p"], tile_b=8,
+                       check_every=8 if a["exact_k"] else 1,
+                       exact_k=a["exact_k"], lanes=lanes)
+
+
+@pytest.mark.parametrize("check_every", [1, 4])
+def test_groups_do_not_depend_on_their_neighbours(fixture, check_every):
+    """What refill relies on: in the checked mode and plain free-run
+    (tile_b 8) each group of 8 lanes gets the same bits solved alone, in
+    another order of the groups, or beside other groups."""
+    sys, param, st = fixture
+    x0, xr, ur, r = _data(st, 32, 12)
+    x0[8:16] *= 0.05                # groups of unlike iteration counts
+    args, fused = _fp64(sys, param, (x0, xr, ur, r))
+    aux1, zs0, lm0, *ops = (a.float() for a in args)
+    kw = dict(fused.kernel_kw, tile_b=8, check_every=check_every,
+              exact_k=False)
+    whole = fk.fused_soc_reference(aux1, zs0, lm0, *ops, **kw)
+    assert len(set(whole[3].reshape(4, 8).amax(dim=1).tolist())) > 1
+    for g in range(0, 32, 8):
+        out = fk.fused_soc_reference(aux1[g:g + 8], zs0[g:g + 8],
+                                     lm0[g:g + 8], *ops, **kw)
+        for a, b in zip(whole, out):
+            assert torch.equal(a[g:g + 8], b), g
+    rows = torch.cat([torch.arange(8 * g, 8 * g + 8) for g in (2, 0, 3, 1)])
+    moved = fk.fused_soc_reference(aux1[rows], zs0[rows], lm0[rows], *ops,
+                                   **kw)
+    for a, b in zip(whole, moved):
+        assert torch.equal(a[rows], b)
 
 
 def test_build_is_lazy_and_content_addressed():
@@ -326,6 +380,14 @@ def test_build_is_lazy_and_content_addressed():
     src = (_build.CSRC / "fused_soc.cu").read_text()
     assert src.count("extern \"C\" int fused_soc_launch(") == 1
     assert f"NSNAP = {fk.SNAP_LEAVES};" in src
-    # the C signature the wrapper binds: 16 pointers, 6 + 2 + 3 scalars,
+    # the C signature the wrapper binds: 17 pointers, 7 + 2 + 3 scalars,
     # the stream
-    assert len(fk.FUSED_SOC_ARGTYPES) == 28
+    assert len(fk.FUSED_SOC_ARGTYPES) == 30
+    # the builds the wrapper plans for are the source's
+    assert '#include "tile_product.cuh"' in src
+    for lanes, (slab, blocks) in fk.BUILDS.items():
+        assert f"#define SOC_SLAB_{lanes} {slab}\n" in src
+        assert f"#define SOC_BLOCKS_{lanes} {blocks}\n" in src
+        assert f"launch<{lanes}, true>(p, " in src
+    # no tensor-core product and no library product in the launched source
+    assert "mma" not in src and "cublas" not in src.lower()

@@ -2,9 +2,20 @@
 """A/B of build variants of the port's kernels on one CUDA card, in one
 process.
 
-K4-K6 (fused_ellip, fused_soc, fused_hmpc): each variant is the committed
-source (spcies_tpu_torch/csrc/) with one text substitution: the product's
-unroll depth, or the blocks an SM the kernel is compiled for.
+K4 (fused_ellip): each variant is the committed source
+(spcies_tpu_torch/csrc/) with one text substitution: the product's unroll
+depth, or the blocks an SM the kernel is compiled for.
+
+K5 and K6 (fused_soc, fused_hmpc): the committed source on the product stage
+csrc/tile_product.cuh at 8, 16 and 32 lanes a block, and builds of it with
+other macro defaults (refill off, other slab rows and blocks an SM, a ring
+of three slabs, clock counts of an iteration's halves, the cones projected
+as the parents project them), each held to the parent
+(csrc/variants/fused_hmpc_parent.cu, fused_soc_parent.cu: one column a
+thread, 8 lanes a block) bit for bit in every mode chip_smoke.py runs for
+the kernel, then timed with the parent in turns at B=8192 and 32768 beside
+each launch's group and block iterations. `--only a,b` keeps the builds
+whose names hold a or b.
 
 K1 and K7 (fused_admm, fused_split): the builds of the product stage
 csrc/tile_product.cuh, under K1's source csrc/fused_admm.cu and K7's build on
@@ -26,13 +37,13 @@ solver is timed with sort_lanes on and off.
 The script builds every variant into the git-ignored
 spcies_tpu_torch/_build/ab/, prints ptxas's registers and spills and the
 mean block iterations beside k_mean, holds each variant against the plain
-PyTorch version (K4-K6) or the parent (K1, K7) at the kernel's chip_smoke.py
-families, and times the variants in turns (forward, then backward) at
-B=4096, 8192 and 32768 (K4-K6: 8192 and 32768) with CUDA events. Run from
-the repository root on a machine with a card, for all kernels or the ones
-named:
+PyTorch version (K4) or the parent (K1, K5-K7) at the kernel's
+chip_smoke.py families, and times the variants in turns (forward, then
+backward) at B=4096, 8192 and 32768 (K4-K6: 8192 and 32768) with CUDA
+events. Run from the repository root on a machine with a card, for all
+kernels or the ones named:
 
-    python3 tools/ab_kernels.py [fused_admm fused_split fused_ellip ...]
+    python3 tools/ab_kernels.py [fused_admm fused_split fused_hmpc ...]
 
 With SPCIES_LOG_DIR set, every line also goes to ab_kernels.log in that
 directory.
@@ -61,27 +72,16 @@ from spcies_tpu_torch.kernels import fused_ellip as k4  # noqa: E402
 from spcies_tpu_torch.kernels import fused_hmpc as k6  # noqa: E402
 from spcies_tpu_torch.kernels import fused_soc as k5  # noqa: E402
 from spcies_tpu_torch.kernels import fused_split as k7  # noqa: E402
+from spcies_tpu_torch.kernels import stage  # noqa: E402
 
 # kernel -> variant name -> (text in the committed source, replacement);
 # None is the committed source itself
-VARIANTS = {
+TEXT_VARIANTS = {
     "fused_ellip": {
         "committed (unroll 16, 3 blocks an SM)": None,
         "unroll 8": ("UNROLL = 16;", "UNROLL = 8; "),
         "unroll 4": ("UNROLL = 16;", "UNROLL = 4;  "),
         "128 registers, 2 blocks an SM": ("nzp <= NARROW ?", "false ?"),
-    },
-    "fused_soc": {
-        "committed (unroll 8, 2 blocks an SM)": None,
-        "unroll 16": ("UNROLL = 8; ", "UNROLL = 16;"),
-        "128 registers, 1 block an SM": ("P <= NARROW ?", "false ?"),
-    },
-    "fused_hmpc": {
-        "committed (unroll 8, 3 blocks an SM)": None,
-        "unroll 16": ("UNROLL = 8; ", "UNROLL = 16;"),
-        "2 blocks an SM": ("fused_hmpc_kernel<NARROW, 3>",
-                           "fused_hmpc_kernel<NARROW, 2>"),
-        "128 registers, 1 block an SM": ("width <= NARROW ?", "false ?"),
     },
 }
 
@@ -92,31 +92,17 @@ def _ellip(kern, plain, u_at, *families):
                 args=c.ellip_kernel_args)
 
 
-def _hmpc(kern, plain, *families):
-    return dict(families=families, kern=kern, plain=plain, u_at=0,
-                solver=c.hmpc_solver, inputs=c.hmpc_inputs,
-                args=c.hmpc_kernel_args)
-
-
 # kernel -> its families, wrapper, plain version, u's column in the
 # kernel's first output, and chip_smoke.py's solver, input and argument
 # builders for them
 KERNELS = {
     "fused_ellip": _ellip(k4.fused_ellip_solve, k4.fused_ellip_reference, 1,
                           "ellipMPC-ADMM"),
-    "fused_soc": _ellip(k5.fused_soc_solve, k5.fused_soc_reference, 0,
-                        "ellipMPC-ADMM-soc"),
-    "fused_hmpc": _hmpc(k6.fused_hmpc_solve, k6.fused_hmpc_reference,
-                        "HMPC-ADMM", "ellipHMPC-ADMM"),
 }
-ARGTYPES = {"fused_ellip": k4.FUSED_ELLIP_ARGTYPES,
-            "fused_soc": k5.FUSED_SOC_ARGTYPES,
-            "fused_hmpc": k6.FUSED_HMPC_ARGTYPES,
-            "fused_split": k7.FUSED_SPLIT_ARGTYPES,
-            "fused_admm": k1.FUSED_ADMM_ARGTYPES}
+ARGTYPES = {"fused_ellip": k4.FUSED_ELLIP_ARGTYPES}
 
 
-def variant_dir(kernel: str, name: str, change) -> Path:  # K4-K6
+def variant_dir(kernel: str, name: str, change) -> Path:  # K4
     """A directory holding a variant's source, written from the committed
     one: `change` is None (the committed source itself) or an (old, new)
     text substitution."""
@@ -145,7 +131,7 @@ def ab(kernel: str, result: dict):
     spec = KERNELS[kernel]
     kern, plain = spec["kern"], spec["plain"]
     dirs = {name: variant_dir(kernel, name, change)
-            for name, change in VARIANTS[kernel].items()}
+            for name, change in TEXT_VARIANTS[kernel].items()}
     for name, d in dirs.items():
         for line in use(kernel, d)["log"].splitlines():
             if "registers" in line or "spill" in line:
@@ -213,27 +199,40 @@ TC_ADMM_ARGTYPES = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 3
 
 def tile_dir(source: Path, macros: dict) -> Path:
     """The directory of `source` when `macros` is empty; else a directory
-    holding a copy of it and a tile_product.cuh whose macro defaults are
-    `macros`."""
+    holding a copy of it and of tile_product.cuh whose macro defaults (in
+    either file) are `macros`."""
     if not macros:
         return source.parent
     tag = "_".join(f"{m}{v}" for m, v in sorted(macros.items()))
     d = _build.BUILD_DIR / "ab" / f"{source.stem}-{tag}"
     d.mkdir(parents=True, exist_ok=True)
-    (d / source.name).write_text(source.read_text())
-    head = (CSRC / "tile_product.cuh").read_text()
+    texts = {source.name: source.read_text(),
+             "tile_product.cuh": (CSRC / "tile_product.cuh").read_text()}
     for macro, value in macros.items():
-        head, n = re.subn(rf"(#define {macro}) \w+", rf"\1 {value}", head)
-        if n != 1:
-            raise RuntimeError(f"{macro} not defined once")
-    (d / "tile_product.cuh").write_text(head)
+        found = 0
+        for name, text in texts.items():
+            texts[name], n = re.subn(rf"(#define {macro}) \w+",
+                                     rf"\1 {value}", text)
+            found += n
+        if not found:
+            raise RuntimeError(f"{macro} not defined")
+    for name, text in texts.items():
+        (d / name).write_text(text)
     return d
 
 
 def log_ptxas(tag: str, record: dict):
+    """The registers and spills of each kernel of a build, named by its
+    template arguments."""
+    kernel = ""
     for line in record["log"].splitlines():
-        if "registers" in line or "spill" in line:
-            c.log(f"{tag} ptxas: {line.strip()}")
+        m = re.search(r"Compiling entry function '\w*?(fused_\w+?_kernel)"
+                      r"I(\w*)E", line)
+        if m:
+            args = ",".join(re.findall(r"L[ib](\d+)E", m.group(2) + "E"))
+            kernel = f"{m.group(1)}<{args}>"
+        elif "registers" in line or "spill" in line:
+            c.log(f"{tag} ptxas: {kernel} {line.strip()}")
 
 
 def outputs(like, B, snap_cols):
@@ -333,6 +332,105 @@ def run_split_tile(v, args, kk):
     return results(its, k, done, rp, rd)    # zs, lm, aux
 
 
+# ---- K5 and K6 on the product stage, with refill -------------------------
+
+# the C signatures of the parents (csrc/variants/fused_hmpc_parent.cu and
+# fused_soc_parent.cu): 16 tensor pointers; the ints of the launch; the
+# floats; k_max, check_every, exact_k; the stream
+PARENT_HMPC_ARGTYPES = ([ctypes.c_void_p] * 16 + [ctypes.c_int] * 9
+                        + [ctypes.c_float] * 4 + [ctypes.c_int] * 3
+                        + [ctypes.c_void_p])
+PARENT_SOC_ARGTYPES = ([ctypes.c_void_p] * 16 + [ctypes.c_int] * 6
+                       + [ctypes.c_float] * 2 + [ctypes.c_int] * 3
+                       + [ctypes.c_void_p])
+
+
+def _hmpc_chip(name):
+    return dict(module=k6, solve=k6.fused_hmpc_solve, prefix="HM",
+                families=("HMPC-ADMM", "ellipHMPC-ADMM"),
+                modes=[(m[0], m[1], m[2], m[4], {}) for m in c.hmpc_modes()
+                       if c.hmpc_kernel(m[0])[0] == name],
+                solver=c.hmpc_solver,
+                inputs=lambda fam, B, extra: c.hmpc_inputs(sp, fam, 0, B),
+                args=lambda solver, x: c.hmpc_kernel_args(solver, x))
+
+
+def _soc_chip(name):
+    return dict(module=k5, solve=k5.fused_soc_solve, prefix="SOC",
+                families=("ellipMPC-ADMM-soc",),
+                modes=[(m[0], m[1], m[2], m[5], m[6]) for m in c.ellip_modes()
+                       if m[0] == "ellipMPC-ADMM-soc"],
+                solver=lambda sp_, fam, **kw: c.ellip_solver(
+                    sp_, fam, device="cuda", **kw),
+                inputs=lambda fam, B, extra: c.ellip_inputs(sp, fam, 0, B,
+                                                            **extra),
+                args=lambda solver, x: c.ellip_kernel_args(solver, x))
+
+
+STAGE = {"fused_hmpc": _hmpc_chip("fused_hmpc"),
+         "fused_soc": _soc_chip("fused_soc")}
+
+
+def run_stage(v, args, kk):
+    """K5 or K6 through its wrapper at v.lanes lanes a block, with the
+    loaded build's shared bytes, slabs, blocks an SM and refill."""
+    spec = STAGE[v.stem]
+    mod = spec["module"]
+    fn = getattr(_build._LOADED[v.stem][0], f"{v.stem}_smem")
+    fn.restype = ctypes.c_long
+    saved = mod.shared_bytes, mod.BUILDS, stage.plan
+    mod.shared_bytes = lambda *a: fn(*a)
+    mod.BUILDS = v.builds
+    if not v.refill:
+        stage.plan = lambda *a, refill, **kw: saved[2](*a, refill=False,
+                                                        **kw)
+    try:
+        return spec["solve"](*args, **kk, lanes=v.lanes)
+    finally:
+        mod.shared_bytes, mod.BUILDS, stage.plan = saved
+
+
+def run_hmpc_parent(v, args, kk):
+    """The parent K6: 8 lanes a block, one column a thread."""
+    B, dim_p = args[0].shape
+    ns_p = args[1].shape[1]
+    k6.launch_plan(B, dim_p, ns_p, kk["cone0"], kk["cone_g"],
+                   tile_b=kk["tile_b"], check_every=kk["check_every"],
+                   exact_k=kk["exact_k"])
+    exact = kk["check_every"] > 1 and kk["exact_k"]
+    its = [torch.empty_like(args[0]), torch.empty_like(args[1]),
+           torch.empty_like(args[1])]
+    _, k, done, rp, rd, snap = outputs(args[0], B,
+                                       dim_p + 2 * ns_p if exact else 0)
+    smem = 4 * 8 * (2 * dim_p + 3 * ns_p + 2 * (ns_p // 32))
+    err = v.fn(*(t.data_ptr() for t in (*args, *its, k, done, rp, rd, snap)),
+               B, dim_p, ns_p, kk["cone0"], kk["cone_g"],
+               int(kk["use_soc"]), B // 8, max(dim_p, ns_p), smem,
+               float(kk["rho"]), float(1.0 / kk["rho"]), float(kk["tol_p"]),
+               float(kk["tol_d"]), int(kk["k_max"]), int(kk["check_every"]),
+               int(bool(kk["exact_k"])),
+               torch.cuda.current_stream().cuda_stream)
+    assert err == 0, err
+    return results(its, k, done, rp, rd)
+
+
+def run_soc_parent(v, args, kk):
+    """The parent K5: 8 lanes a block, one column a thread."""
+    B, P = args[0].shape
+    k5.launch_plan(B, P, kk["dim_p"], tile_b=kk["tile_b"],
+                   check_every=kk["check_every"], exact_k=kk["exact_k"])
+    exact = kk["check_every"] > 1 and kk["exact_k"]
+    its, k, done, rp, rd, snap = outputs(args[0], B, 3 * P if exact else 0)
+    smem = 4 * 8 * (6 * P + 4 * (P // 32))
+    err = v.fn(*(t.data_ptr() for t in (*args, *its, k, done, rp, rd, snap)),
+               B, P, kk["dim_p"], B // 8, P, smem, float(kk["tol_p"]),
+               float(kk["tol_d"]), int(kk["k_max"]), int(kk["check_every"]),
+               int(bool(kk["exact_k"])),
+               torch.cuda.current_stream().cuda_stream)
+    assert err == 0, err
+    return results(its, k, done, rp, rd)    # zs, lm, aux
+
+
 # what runs a source: the entry point's name, its C signature, the launcher
 RUNNERS = {
     "fused_admm": ("fused_admm_launch", k1.FUSED_ADMM_ARGTYPES, run_admm),
@@ -342,6 +440,12 @@ RUNNERS = {
     "fused_split": ("fused_split_launch", k7.FUSED_SPLIT_ARGTYPES, run_split),
     "fused_split_tile": ("fused_split_tile_launch", k7.FUSED_SPLIT_ARGTYPES,
                          run_split_tile),
+    "fused_hmpc": ("fused_hmpc_launch", k6.FUSED_HMPC_ARGTYPES, run_stage),
+    "fused_hmpc_parent": ("fused_hmpc_launch", PARENT_HMPC_ARGTYPES,
+                          run_hmpc_parent),
+    "fused_soc": ("fused_soc_launch", k5.FUSED_SOC_ARGTYPES, run_stage),
+    "fused_soc_parent": ("fused_soc_launch", PARENT_SOC_ARGTYPES,
+                         run_soc_parent),
 }
 
 
@@ -400,6 +504,142 @@ def tile_variants(kernel: str):
     return out
 
 
+# K5's and K6's builds besides the committed one at each L: (name, lanes,
+# macros); the prefix of a kernel's own macros (HM_, SOC_) is filled in
+STAGE_BUILDS = [
+    ("no refill", 8, {"TP_REFILL": 0}),
+    ("no refill", 16, {"TP_REFILL": 0}),
+    ("no refill", 32, {"TP_REFILL": 0}),
+    ("slabs of 8, 3 blocks an SM", 8, {"{P}_SLAB_8": 8, "{P}_BLOCKS_8": 3}),
+    ("slabs of 16", 32, {"{P}_SLAB_32": 16}),
+    ("ring of 3, slabs of 16", 32, {"TP_STAGES": 3, "{P}_SLAB_32": 16}),
+    ("clock counts", 8, {"TP_CLOCKS": 1}),
+    ("clock counts", 16, {"TP_CLOCKS": 1}),
+    ("clock counts", 32, {"TP_CLOCKS": 1}),
+]
+# K6's own: the cones projected in their warps, lane by lane, as the
+# parent does
+OWN_BUILDS = {
+    "fused_hmpc": [
+        ("cones in their warps", 8, {"HM_SPREAD_CONES": 0}),
+        ("cones in their warps", 32, {"HM_SPREAD_CONES": 0}),
+        ("cones in their warps, clock counts", 32, {"HM_SPREAD_CONES": 0,
+                                                    "TP_CLOCKS": 1}),
+    ],
+    # K5's own: the cone's squares broadcast by shuffles, each thread its
+    # column of every lane, as the parent does
+    "fused_soc": [
+        ("cone by shuffles", 32, {"SOC_SPREAD_CONE": 0}),
+        ("cone by shuffles, clock counts", 32, {"SOC_SPREAD_CONE": 0,
+                                                "TP_CLOCKS": 1}),
+    ],
+}
+
+
+def stage_variants(kernel: str):
+    """K5's or K6's parent first, then the committed source at each L, then
+    the builds of STAGE_BUILDS."""
+    spec = STAGE[kernel]
+    out = [Variant("parent (8 lanes, one column a thread)",
+                   VARIANTS / f"{kernel}_parent.cu", 8)]
+    builds = ([("committed", L, {}) for L in k1.LANES[::-1]] + STAGE_BUILDS
+              + OWN_BUILDS[kernel])
+    for name, L, macros in builds:
+        macros = {m.format(P=spec["prefix"]): x for m, x in macros.items()}
+        v = Variant(f"{name} L={L}", CSRC / f"{kernel}.cu", L, macros)
+        v.refill = bool(macros.get("TP_REFILL", 1))
+        v.builds = {
+            lanes: (macros.get(f"{spec['prefix']}_SLAB_{lanes}", slab),
+                    macros.get(f"{spec['prefix']}_BLOCKS_{lanes}", minb))
+            for lanes, (slab, minb) in spec["module"].BUILDS.items()}
+        out.append(v)
+    return out
+
+
+def build_all(kernel, candidates):
+    """Build every candidate's source, eight at a time; returns those that
+    built, with their compiler reports logged."""
+    def try_build(v):    # a variant that does not build is reported, not run
+        try:
+            return _build.build(v.stem, v.dir)[1]
+        except RuntimeError as e:
+            return e
+    firsts = list({(v.dir, v.stem): v for v in candidates}.values())
+    with ThreadPoolExecutor(8) as pool:
+        records = dict(zip(((v.dir, v.stem) for v in firsts),
+                           pool.map(try_build, firsts)))
+    built = []
+    for v in candidates:
+        rec = records[(v.dir, v.stem)]
+        if isinstance(rec, RuntimeError):
+            c.log(f"{kernel} [{v.name}] DOES NOT BUILD: {str(rec)[-1500:]}")
+            continue
+        c.log(f"{kernel} [{v.name}] nvcc {rec['seconds']:.1f} s")
+        log_ptxas(f"{kernel} [{v.name}]", rec)
+        built.append(v)
+    return built
+
+
+def clock_shares(plan):
+    """From a TP_CLOCKS build's counts: the clocks of a block iteration's
+    element-wise half (to the product's first barrier) and of the rest, and
+    the element-wise share, each a mean over the blocks."""
+    clocks = plan["block_clocks"].double() * 1024
+    iters = plan["block_iterations"].double().clamp(min=1)
+    ew = float((clocks[:, 0] / iters).mean())
+    prod = float((clocks[:, 1] / iters).mean())
+    return dict(clocks_elementwise=ew, clocks_product=prod,
+                elementwise_share=ew / (ew + prod))
+
+
+def ab_stage(kernel: str, result: dict, only=()):
+    """K5 or K6: every build against the parent, bit for bit, in every mode
+    chip_smoke.py runs; then parent and builds timed in turns at the family
+    batches, with each build's group and block iterations. With `only`, the
+    parent and the builds whose names hold one of its strings."""
+    spec = STAGE[kernel]
+    variants = stage_variants(kernel)
+    if only:
+        variants = variants[:1] + [v for v in variants[1:]
+                                   if any(o in v.name for o in only)]
+    variants = build_all(kernel, variants)
+    parent, builds = variants[0], variants[1:]
+    for fam, label, B, kw, extra in spec["modes"]:
+        solver = spec["solver"](sp, fam, **kw)
+        args, kk = spec["args"](solver, spec["inputs"](fam, B, extra))
+        ref = parent(args, kk)
+        torch.cuda.synchronize()
+        ok = []
+        for v in builds:
+            if not v.fits(args, kk):
+                continue
+            out = v(args, kk)
+            torch.cuda.synchronize()
+            assert same_bits(out, ref, B), (kernel, v.name, fam, label)
+            ok.append(v.name)
+        c.log(f"{kernel} {fam} {label}: bit-identical to the parent: {ok}")
+    for fam in spec["families"]:
+        solver = spec["solver"](sp, fam)
+        for B in (c.FB, c.BATCH):
+            args, kk = spec["args"](solver, spec["inputs"](fam, B, {}))
+            run = [parent] + [v for v in builds if v.fits(args, kk)]
+            for v in run:
+                out = v(args, kk)
+                torch.cuda.synchronize()
+                k = out[3][:B].long()
+                it = c.iterations(k, spec["solve"] if v is not parent
+                                  else None)
+                if "clock" in v.name:
+                    it.update(clock_shares(spec["solve"].last_plan))
+                c.log(f"{kernel} [{v.name}] {fam} B={B}: k_mean="
+                      f"{float(k.float().mean())} " + json.dumps(it))
+            t = time_in_turns(run, args, kk)
+            c.log(f"{kernel} {fam} B={B} ms (CUDA events, in turns): "
+                  + json.dumps(t))
+            result[f"{kernel} {fam} B={B}"] = {n: min(x)
+                                               for n, x in t.items()}
+
+
 def same_bits(out, ref, B):
     """Every output of `out` equals `ref`'s exactly on the first B lanes."""
     return all(bool(torch.equal(a[:B], b[:B])) for a, b in zip(out, ref))
@@ -445,29 +685,11 @@ def ab_tile(kernel: str, result: dict):
     c.log(f"{kernel} at width {width}: the four [width][64] buffers of 64 "
           f"lanes a block take {4 * 4 * width * 64} of {k1.SMEM_MAX} bytes "
           f"before the ring: not built")
-    variants = []
     candidates = tile_variants(kernel)
     if kernel == "fused_admm":
         candidates += bf16_variants()[2:]
-
-    def try_build(v):    # a variant that does not build is reported, not run
-        try:
-            return _build.build(v.stem, v.dir)[1]
-        except RuntimeError as e:
-            return e
-    firsts = list({(v.dir, v.stem): v for v in candidates}.values())
-    with ThreadPoolExecutor(8) as pool:
-        records = dict(zip(((v.dir, v.stem) for v in firsts),
-                           pool.map(try_build, firsts)))
-    for v in candidates:
-        rec = records[(v.dir, v.stem)]
-        if isinstance(rec, RuntimeError):
-            c.log(f"{kernel} [{v.name}] DOES NOT BUILD: {str(rec)[-1500:]}")
-            continue
-        c.log(f"{kernel} [{v.name}] nvcc {rec['seconds']:.1f} s")
-        log_ptxas(f"{kernel} [{v.name}]", rec)
-        if v.stem != "fused_admm_tc":
-            variants.append(v)
+    variants = [v for v in build_all(kernel, candidates)
+                if v.stem != "fused_admm_tc"]
     for fam, (make, inputs, make_args) in tile_families(kernel).items():
         solver = make()
         for B in (c.SMALL_BATCH, c.FB, c.BATCH):
@@ -561,6 +783,11 @@ def ab_sort_lanes(result: dict):
 
 
 def main(kernels):
+    only = ()    # --only a,b: K5 and K6 run the builds whose names hold a or b
+    if "--only" in kernels:
+        i = kernels.index("--only")
+        only = tuple(kernels[i + 1].split(","))
+        kernels = kernels[:i] + kernels[i + 2:]
     c.require_cuda()
     if os.environ.get("SPCIES_LOG_DIR"):    # the lines also go to a file there
         out = Path(os.environ["SPCIES_LOG_DIR"])
@@ -569,9 +796,12 @@ def main(kernels):
     torch.set_float32_matmul_precision("highest")
     c.log(c.card_line())
     result = {}
-    for kernel in kernels or ["fused_admm", "fused_split", *KERNELS]:
-        (ab_tile if kernel in ("fused_admm", "fused_split") else ab)(
-            kernel, result)
+    for kernel in kernels or ["fused_admm", "fused_split", *STAGE, *KERNELS]:
+        if kernel in STAGE:
+            ab_stage(kernel, result, only)
+        else:
+            (ab_tile if kernel in ("fused_admm", "fused_split") else ab)(
+                kernel, result)
     _build.CSRC = CSRC
     c.log(json.dumps(result))
 
