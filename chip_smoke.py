@@ -30,7 +30,9 @@ started together), then
      k_max 4000, tile_b 256, check_every 8, exact-k; laxMPC-FISTA with
      restart, equMPC-FISTA without) at the family batch B=8192, and at
      B=4096 in the checked, free-run, fixed_iters and exact-k (with and
-     without restart) modes, held together as in 1;
+     without restart) modes, held together as in 1, each mode at each
+     number of lanes a block the kernel is built for, every build also held
+     to the plain version and to the 8-lane build bit for bit;
   5. drives the slice's three paths — laxMPC-FISTA, equMPC-FISTA and
      equMPC-ADMM (rho 6, relax_alpha 1.8) through make_solver(...,
      backend="fused", device="cuda") — with a request and a warm start
@@ -38,7 +40,9 @@ started together), then
      on every lane, and a small batch agrees with the fp64 dense engine
      on the CPU;
   6. times the FISTA kernel, its plain version and the fp32 dense FISTA
-     engine at B=8192 and 32768, and the equMPC-ADMM fused solve at 8192;
+     engine at B=8192 and 32768, with the lanes a block of the launch, its
+     blocks' iterations against k_mean and its bound, and the equMPC-ADMM
+     fused solve at 8192;
   7. runs the MPCT-EADMM kernel and its plain version on the same CUDA
      tensors at the bench's N=30 family (bench.py:289-296: T = 10 Q,
      S = R, rho_base 2, rho_mult 20, tol 1e-4, k_max 5000, checked) at
@@ -59,8 +63,9 @@ started together), then
      plain free-run with check_every 8, which takes tile_b 8 on the card,
      r_ellip 0.5) at B=8192 and at B=4096 checked, exact-k, capped in
      exact-k and in free-run and with a per-lane radius in [0.1, 1]; held
-     together as in 1, and K5 at each number of lanes a block its builds
-     take held to its 8-lane build bit for bit in every mode, as K1 in 1;
+     together as in 1; K4 at each number of lanes a block its builds take
+     held to the plain version and to its 8-lane build bit for bit in every
+     mode, as K2 in 4, and K5's builds to its 8-lane build, as K1's in 1;
  11. drives both ellipMPC paths through make_solver(..., backend="fused")
      with the device left to its default, the card: a request and a warm
      start each at B=8192, each launching its kernel once and converging
@@ -68,8 +73,8 @@ started together), then
      the CPU;
  12. times K4 and K5, their plain versions and the fp32 dense engines at
      B=8192 and 32768, with the lanes a block of the launch, the mean k of
-     its 8-lane groups and its blocks' iterations (K5's own count, with
-     refill);
+     its 8-lane groups and its blocks' iterations (the kernel's own count
+     where it refills);
  13. runs the HMPC kernels and their plain versions on the same CUDA
      tensors at the bench's four N=30 HMPC families (bench.py:327-375: w =
      3 * 1.627 * 0.2, Te = Th = 10 N Q, Se = R, Sh = R / 2, tol 1e-4):
@@ -87,7 +92,7 @@ started together), then
  15. times K6 and K7, their plain versions and the fp32 dense engines at
      B=8192 and 32768 for HMPC-ADMM, HMPC-ADMM-split and ellipHMPC-ADMM,
      and at B=8192 for HMPC-SADMM-split, with iterations as in 12.
-K1, K5 and K6 run on the product stage csrc/tile_product.cuh;
+K1, K2, K4, K5 and K6 run on the product stage csrc/tile_product.cuh;
 tools/ab_kernels.py holds their builds to the one-column-per-thread parents
 in csrc/variants/.
 The line before the card line lists every kernel with its launches on the
@@ -310,6 +315,27 @@ def check_lanes_bitwise(solve, args, kk, B, name, phase=1):
                    for a, b in zip(out, outs[8]))
         assert same, (name, L)
     log(f"phase {phase} {name}: builds {list(outs)} bit-identical")
+
+
+def check_builds(solve, args, kk, B, name, phase, out_p, m, fixed, u_at):
+    """Run a kernel whose wrapper takes `lanes=` (K2, K4) at every number
+    of lanes a block whose build takes this shape: hold each build to the
+    plain version's outputs `out_p` (check_agreement) and to the 8-lane
+    build bit for bit (check_lanes_bitwise). Returns the largest u error."""
+    u_err = 0.0
+    for L in (8, 16, 32):
+        try:
+            out = solve(*args, **kk, lanes=L)
+        except ValueError as e:     # no build of L lanes takes the shape
+            if "no build" not in str(e):
+                raise
+            continue
+        torch.cuda.synchronize()
+        a = agreement(out, out_p, B, m, fixed, u_at=u_at)
+        check_agreement(f"{name} lanes={L}", a, phase)
+        u_err = max(u_err, a["u_err"])
+    check_lanes_bitwise(solve, args, kk, B, name, phase)
+    return u_err
 
 
 def iterations(k, solve, lanes=8):
@@ -551,13 +577,10 @@ def fista_kernel_args(solver, inputs, fixed_iters=0):
     return (*kin, *solver.raw_fn.operator), kw
 
 
-def phase_fista_kernel_vs_plain(sp):
-    """The FISTA kernel and its plain version on the same CUDA tensors.
-    Returns the largest u error over the modes."""
-    from spcies_tpu_torch.kernels.fused_fista import (fused_fista_reference,
-                                                      fused_fista_solve)
+def fista_modes():
+    """Phase 4's runs: (label, family, B, fixed_iters, solver options)."""
     lax, equ = "laxMPC-FISTA", "equMPC-FISTA"
-    modes = [
+    return [
         (f"{lax} exact-k B={FB}", lax, FB, 0, {}),
         (f"{equ} exact-k B={FB}", equ, FB, 0, {}),
         (f"{lax} checked B={SMALL_BATCH}", lax, SMALL_BATCH, 0,
@@ -569,8 +592,16 @@ def phase_fista_kernel_vs_plain(sp):
         (f"{lax} exact-k no restart B={SMALL_BATCH}", lax, SMALL_BATCH, 0,
          dict(restart=False)),
     ]
+
+
+def phase_fista_kernel_vs_plain(sp):
+    """The FISTA kernel and its plain version on the same CUDA tensors, at
+    every number of lanes a block its builds take. Returns the largest u
+    error over the modes."""
+    from spcies_tpu_torch.kernels.fused_fista import (fused_fista_reference,
+                                                      fused_fista_solve)
     u_err = 0.0
-    for label, name, B, fixed, kw in modes:
+    for label, name, B, fixed, kw in fista_modes():
         solver = family_solver(sp, name, **kw)
         _, _, inputs = problem(sp, 0, B)
         args, kk = fista_kernel_args(solver, inputs, fixed)
@@ -580,7 +611,9 @@ def phase_fista_kernel_vs_plain(sp):
         torch.cuda.synchronize()
         a = agreement(out_k, out_p, B, solver.m, bool(fixed), u_at=0)
         check_agreement(label, a, phase=4)
-        u_err = max(u_err, a["u_err"])
+        u_err = max(u_err, a["u_err"], check_builds(
+            fused_fista_solve, args, kk, B, label, 4, out_p, solver.m,
+            bool(fixed), 0))
     return u_err
 
 
@@ -668,9 +701,12 @@ def phase_family_times(sp):
             f"events): " + json.dumps(t))
         res = kernel()
         nz, nlam = fused.nz, fused.raw_fn.nlam
+        k = res[3][:B].long()
         bound = roofline(args + res, iter_flops(
-            res[3][:B], 2.0 * (2 * nz * nlam + nlam * nlam)))
-        log(f"phase 6 laxMPC-FISTA bound B={B}: {bound}")
+            k, 2.0 * (2 * nz * nlam + nlam * nlam)))
+        log(f"phase 6 laxMPC-FISTA kernel B={B}: k_mean="
+            f"{float(k.float().mean())} k_max={int(k.max())} "
+            f"{json.dumps(iterations(k, fused_fista_solve))} bound={bound}")
         out[B] = dict({key: min(v) for key, v in t.items()}, bound=bound)
     eq = family_solver(sp, "equMPC-ADMM")
     eq.options.timing = False
@@ -932,9 +968,10 @@ def ellip_modes():
 
 
 def phase_ellip_kernel_vs_plain(sp):
-    """K4 and K5 against their plain versions on the same CUDA tensors, and
-    K5's builds against each other. Returns the largest u error of each
-    kernel over its modes."""
+    """K4 and K5 against their plain versions on the same CUDA tensors, K4
+    at every number of lanes a block its builds take, and both kernels'
+    builds against each other. Returns the largest u error of each kernel
+    over its modes."""
     from spcies_tpu_torch.kernels import fused_ellip as k4
     from spcies_tpu_torch.kernels import fused_soc as k5
     adm = "ellipMPC-ADMM"
@@ -959,6 +996,10 @@ def phase_ellip_kernel_vs_plain(sp):
             assert bool((out_k[3][:B] == 19).all()), "capped k"
         if key == "fused_soc":
             check_lanes_bitwise(kern, args, kk, B, f"{name} {label}", 10)
+        else:
+            a["u_err"] = max(a["u_err"], check_builds(
+                kern, args, kk, B, f"{name} {label}", 10, out_p, solver.m,
+                cut, u_at))
         u_err[key] = max(u_err[key], a["u_err"])
     return u_err
 

@@ -1,4 +1,5 @@
-// Fused ellipMPC-ADMM on NVIDIA Hopper (sm_90a), written by hand.
+// Fused ellipMPC-ADMM on NVIDIA Hopper (sm_90a), written by hand, on the
+// product stage csrc/tile_product.cuh.
 //
 // Replaces the Pallas TPU kernel
 // spcies_tpu/kernels/fused_ellip.py::_fused_ellip_kernel. It computes what
@@ -17,79 +18,114 @@
 // iteration the residuals r_p = max|z' - v'|, r_d = max|v' - v'_prev| after
 // the slab's differences are mapped back to the original coordinates
 // (d_slab @ pinvh, pinvh = P_half^-T, n x n). The wrapper and the plain
-// PyTorch version of every mode are in kernels/fused_ellip.py.
+// PyTorch version of every mode are in kernels/fused_ellip.py. The
+// one-column-per-thread kernel this design replaced is
+// csrc/variants/fused_ellip_parent.cu (tools/ab_kernels.py holds every
+// build to it, bit for bit).
 //
-// Layout. One thread block per TB = 8 lanes; one thread per column j of the
-// padded width nzp (a multiple of 32, at most 512). Thread j owns column j
-// of the four state vectors (z_next, the consumed z, v, lam) for the
-// block's TB lanes, in shared memory that only thread j touches: kept out
-// of registers, they leave the registers to the product's loads in flight
-// (K2 and K3 do the same; with the state in registers this kernel spilled
-// about 550 bytes a thread). K1's iteration (csrc/fused_admm.cu) needs
-// nothing from other columns before the product; this one needs two
-// reductions across the slab:
-//   - the ball's norm ||y - c'|| over the n slab columns before v, and
-//   - at a checked iteration, the slab's differences of all n columns for
-//     each column's entry of d_slab @ pinvh.
-// The adapter lays the slab out inside one warp (t0 % 32 + n <= 32; at
-// N=30, columns 234..239 of warp 7), so both are warp shuffles within that
-// warp: the slab's n entries are broadcast in turn and added in slab order.
-// No barrier is added: like K1, an iteration has one __syncthreads, after
-// the deltas dq are stored to shared memory as [nzp][TB] (and, at a checked
-// iteration, the warps' row maxima), both double-buffered by iteration
-// parity. Then thread j forms z_next[b][j] = z[b][j] + sum_i dq[b][i]
-// M2[i][j], reading row i of M2 at column j (a warp reads 32 consecutive
-// floats) and dq as broadcast reads of shared memory; rows from t0 + n on
-// are pads (dq = 0) and are skipped. Every thread reads the same row maxima
-// after the product, so loop control is uniform across a block; lanes that
-// are done are frozen by a mask and keep all their state.
+// Layout. A block of nzp threads (one per padded column, a multiple of 32,
+// at most 512; 256 at N=30) holds L = 8, 16 or 32 lanes
+// (kernels/fused_ellip.py launch_plan); z, v and lam [nzp][L] and dq
+// [nzp][L + 4] lie in shared memory (the layouts of csrc/tile_product.cuh).
+// An iteration is
+//   1. the warp that holds the slab (the adapter keeps it inside one warp:
+//      t0 % 32 + n <= 32; at N=30 columns 234..239 of warp 7) stages
+//      y - c' of its columns in its rows of dq, and its thread t takes lane
+//      t's ball: the n squares added in slab order, one after the other, as
+//      the plain version adds them, the norm and the scale, into shared
+//      memory. The parent did this with every thread of the warp summing
+//      its column of all lanes from shuffled squares, a way that cost K5
+//      and K6 a quarter or more of an iteration on an H100 (PERF.md);
+//   2. thread j forms v, lam and dq of column j for the L lanes, 8 at a
+//      time (the slab columns from their lanes' scales); at a checked
+//      iteration the slab columns stage their differences z' - v' and
+//      v' - v'_prev, the slab warp's thread t maps lane t's through pinvh
+//      (n terms a column in slab order, each product and sum rounded on its
+//      own) and folds the maxima into its warp's row maxima;
+//   3. the product stage: a thread owns 8 lanes x 4 columns of z (8 x 1 at
+//      L = 8); M2's t0 + n real rows (240 of 256 at N=30) come through the
+//      shared-memory ring filled by TMA; after its first barrier thread
+//      t < L (lane t's keeper) takes lane t's row maxima and warp 0
+//      publishes the converged lanes;
+//   4. the tile's owner adds acc to z, except on lanes that are frozen or
+//      end here: a lane's z stays the one it consumed at exit, the checked
+//      and exact-k modes' output, so no copy of the consumed z is kept.
+// An iteration has one barrier a slab and one after step 4. Each L has its
+// own build (Build below: rows a slab, blocks an SM).
 //
-// Sum orders. The ball's norm and the pinvh map add their n terms in slab
-// order, one after the other, each product and sum rounded on its own, as
-// the plain version does; the product is an fmaf chain in row order. (A
-// butterfly sum for the norm moved the exit of 8 of 4096 lanes where the
-// ball binds, on an NVIDIA H100.)
+// Plain free-run and the checked mode refill (csrc/tile_product.cuh,
+// Refill): persistent blocks whose 8-lane slots take the next group of 8
+// lanes from a queue once their group has ended. Exact-k, the main path,
+// keeps its block of L lanes, compacts the lanes still running and narrows
+// the tiles; fixed_iters keeps its block of L lanes.
+//
+// Bound. 2 (t0 + n)^2 FLOP an iteration and lane (the real columns of the
+// product); each block re-reads M2's real rows from L2 once an iteration
+// for its L lanes. The product must stay full fp32 (the JAX kernel pins it
+// to HIGHEST: a truncated M2 shifts the fixed point of degenerate
+// ellipsoids), so no bf16 or TF32 path.
+//
+// Arithmetic. fp32 on the CUDA cores, no TF32. The library is built with
+// -fmad=false, so the element-wise steps (sqrtf and the division included)
+// round as PyTorch's separate operations do; the product is an explicit
+// fmaf chain over the rows in ascending order, as in the parent, so every
+// build gives the parent's bits.
 //
 // Exact-k snapshots. At each window start z, v and lam of every lane not
 // yet done go to global scratch (each thread writes, and later reads back,
 // only its own column), and the window start to shared memory; the replay
 // runs each lane's last window with the checked semantics and the budget
-// min(C, k_max - kws), as K1-K3 do.
-//
-// Bound. Every block re-reads the t0 + n real rows of M2 (240 x 256 floats,
-// 240 KiB at the N=30 shapes) from L2 on every iteration, for 2 TB FLOP per
-// 4 bytes read; M2 stays in the 50 MB L2. The product must stay full fp32
-// (the JAX kernel pins it to HIGHEST: a truncated M2 shifts the fixed point
-// of degenerate ellipsoids), so no bf16 or TF32 path. The product loop is
-// unrolled 16 deep to keep 16 L2 loads in flight per thread, and up to 256
-// columns the kernel is compiled for three blocks an SM (at most 85
-// registers; it spills about 280 bytes): on an NVIDIA H100 (700 W) at
-// B=8192 and 32768 that took 26.5 / 85.3 ms, against 26.6 / 89.3 ms at 128
-// registers (two blocks an SM), 28.0 / 87.6 ms unrolled 8 and 37.6 / 112.1
-// ms unrolled 4 (tools/ab_kernels.py; PERF.md, K4). Staging M2
-// through shared memory, wgmma and TMA are left for later work.
-//
-// Arithmetic. fp32 on the CUDA cores, no TF32. The library is built with
-// -fmad=false, so the element-wise steps (sqrtf and the division included)
-// round as PyTorch's separate operations do; the products use explicit
-// fmaf.
+// min(C, k_max - kws).
 //
 // Padding. Pad columns carry zero rows and columns of M2, [0, 0] bounds
 // and c' = 0, so they stay exactly 0 and add nothing to the row maxima.
 
 #include <cuda_runtime.h>
 
+#include "tile_product.cuh"
+
+// rows a slab of M2 and blocks an SM of each build up to NARROW columns
+// (kernels/fused_ellip.py BUILDS); a timing script may set others
+#ifndef EL_SLAB_8
+#define EL_SLAB_8 16
+#endif
+#ifndef EL_BLOCKS_8
+#define EL_BLOCKS_8 2
+#endif
+#ifndef EL_SLAB_16
+#define EL_SLAB_16 16
+#endif
+#ifndef EL_BLOCKS_16
+#define EL_BLOCKS_16 2
+#endif
+#ifndef EL_SLAB_32
+#define EL_SLAB_32 32
+#endif
+#ifndef EL_BLOCKS_32
+#define EL_BLOCKS_32 1
+#endif
+
 namespace {
 
-constexpr int TB = 8;          // lanes per block (CTA_LANES in the wrapper)
 constexpr int MAX_COLS = 512;  // threads per block, one per column
-constexpr int NARROW = 256;    // up to this width, three blocks an SM
+constexpr int NARROW = 320;    // up to this width the builds of Build<L>
+constexpr int WIDE_SLAB = 16;  // rows a slab above NARROW (8 and 16 lanes)
 constexpr int NSNAP = 3;       // snapshot leaves (SNAP_LEAVES in the wrapper)
-constexpr int UNROLL = 16;     // L2 loads in flight per thread
-constexpr float RBIG = 3.4e38f;
-constexpr unsigned FULL = 0xffffffffu;
-constexpr unsigned ALL = (1u << TB) - 1u;
-static_assert(TB % 4 == 0, "vectors are moved as float4");
+
+template <int L>
+struct Build;
+template <>
+struct Build<8> {
+  static constexpr int SR = EL_SLAB_8, MINB = EL_BLOCKS_8;
+};
+template <>
+struct Build<16> {
+  static constexpr int SR = EL_SLAB_16, MINB = EL_BLOCKS_16;
+};
+template <>
+struct Build<32> {
+  static constexpr int SR = EL_SLAB_32, MINB = EL_BLOCKS_32;
+};
 
 struct Params {
   const float* __restrict__ z1;
@@ -107,450 +143,292 @@ struct Params {
   int* done;
   float* rp;
   float* rd;
-  float* snap;  // exact-k: per lane [z | v | lam]
+  float* snap;   // exact-k: per lane [z | v | lam]
+  int* queue;    // refill: [0] the next group, [1 + b] block b's
+                 // iterations; zeroed by the wrapper
+  int n_groups;  // B / 8
   int nzp, t0, n;
   float rho, rho_i, r_ball, tol_p, tol_d;
   int k_max, check_every, fixed_iters, exact_k;
 };
 
-// Shared memory: the product's input and the warps' row maxima, read by
-// every thread; the state columns, each read and written by its own thread.
-struct Shared {
-  float* dq;     // [2][nzp][TB]
-  float* red;    // [2][warps][2][TB]
-  float* st[4];  // [nzp][TB] each, the leaves below
-};
-// the state leaves; the first NSNAP are the snapshot's, in its order
-enum { Z, V, LAM, ZC };  // z_next, v, lam, the consumed z
+using tp::bit;
 
-// What thread j knows of its column.
-struct Col {
-  int j, jj;       // column, and its place in the slab
-  bool slab;       // a terminal column
+// The block: the stage's engine over the leaves z, v, lam, and what thread
+// j knows of its column.
+template <int L, int TC, int SR>
+struct Engine : tp::TileEngine<L, TC, SR, NSNAP> {
+  static constexpr int G = L / 8;
+  static constexpr int RS = L + tp::DQ_PAD;  // row stride of dq and rst
+  const Params& p;
+  float *z, *v, *lam;
+  float* ball;  // [L]: each lane's scale of y - c' on the slab
+  float* rst;   // [2][n][RS]: the slab's z' - v' and v' - v'_prev
+  float* pin;   // [n][n]: pinvh
+  int jj;       // this column's place in the slab
+  bool slab;    // a slab column
   bool slab_warp;  // in the warp that holds the slab (warp-uniform)
-  int nr;          // rows of M2 the product reads
-  int warps;
-  float lb, ub, c;
+  float lbj, ubj, cj;
+
+  __device__ __forceinline__ Engine(const Params& p_, float* smem) : p(p_) {
+    const int j = threadIdx.x;
+    const int P = p.nzp;
+    this->tid = j;
+    this->T = P;
+    this->P = P;
+    this->rwarps = P >> 5;
+    this->lane0 = blockIdx.x * L;
+    this->tol_p = p.tol_p;
+    this->tol_d = p.tol_d;
+    float* a = smem + tp::ring_bytes(P, SR) / 4;
+    z = a;
+    v = z + P * L;
+    lam = v + P * L;
+    this->dq = lam + P * L;
+    this->red = this->dq + P * RS;
+    this->ctrl = reinterpret_cast<unsigned*>(this->red + this->rwarps * 2 * L);
+    this->sn_k = reinterpret_cast<int*>(this->ctrl + 4);
+    this->orig = this->sn_k + L;
+    ball = reinterpret_cast<float*>(this->orig + L);
+    rst = ball + L;
+    pin = rst + 2 * p.n * RS;
+    // z is the leaf the product adds to; the snapshot is [z | v | lam]
+    this->leaf[0] = tp::Leaf{z, p.z1, p.z, P, 0};
+    this->leaf[1] = tp::Leaf{v, p.v0, p.v, P, P};
+    this->leaf[2] = tp::Leaf{lam, p.lam0, p.lam, P, 2 * P};
+    this->snap = p.snap;
+    this->snap_width = NSNAP * P;
+    this->out = tp::LaneOut{p.k, p.done, p.rp, p.rd};
+    jj = j - p.t0;
+    slab = jj >= 0 && jj < p.n;
+    slab_warp = (j >> 5) == (p.t0 >> 5);
+    lbj = p.lb[j];
+    ubj = p.ub[j];
+    cj = p.c[j];
+    // pinvh, published by the barrier after the lanes are read in
+    for (int i = j; i < p.n * p.n; i += P) pin[i] = p.pinvh[i];
+    // the product's rows: the real ones, [0, t0 + n)
+    const int nr = p.t0 + p.n;
+    tp::ring_init<SR>(this->ring, smem, p.m2, P, nr, nr, nr, j, P);
+  }
+
+  // One iteration (tp::run_modes, tp::run_refill). Lanes in `frozen` keep
+  // all their state; what `idle` lanes hold is never read again, and a group
+  // of 8 lanes that are all frozen or idle is skipped; the lanes in `last`
+  // (and, with stop, the lanes that converge here) keep the z they consumed.
+  // With CHECK, the keepers of the lanes in rmask record their residuals
+  // and count kinc iterations, and the lanes whose residuals meet tol are
+  // returned (identical in every thread of the block).
+  template <bool CHECK>
+  TP_ITERATE unsigned iterate(unsigned frozen, unsigned idle, unsigned last,
+                              bool stop, unsigned rmask, int kinc) {
+    const int j = this->tid;
+    this->tic();
+    const unsigned dead = tp::whole_groups<L>(frozen | idle);
+    if (slab_warp) ball_scales(dead);
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      if (bit(dead, 8 * g)) continue;
+      float zc[8], vp[8], lm[8], d[8], ap[8], ad[8];
+      tp::ld8<L>(zc, z, j, g);
+      tp::ld8<L>(vp, v, j, g);
+      tp::ld8<L>(lm, lam, j, g);
+#pragma unroll
+      for (int b = 0; b < 8; ++b) {
+        const float y = zc[b] + p.rho_i * lm[b];
+        const float vn = slab ? cj + ball[8 * g + b] * (y - cj)
+                              : fminf(fmaxf(y, lbj), ubj);
+        const float ln = lm[b] + p.rho * (zc[b] - vn);
+        d[b] = p.rho * ((zc[b] - 2.0f * vn) + vp[b]);
+        if (CHECK) {
+          ap[b] = zc[b] - vn;
+          ad[b] = vn - vp[b];
+        }
+        if (!bit(frozen, g * 8 + b)) {
+          vp[b] = vn;
+          lm[b] = ln;
+        }
+      }
+      tp::st8_dq<L>(this->dq, j, g, d);
+      tp::st8<L>(v, j, g, vp);
+      tp::st8<L>(lam, j, g, lm);
+      if (CHECK) {
+        if (slab) {
+          // mapped back and folded into the maxima below, lane by lane
+          tp::st8_dq<L>(rst, jj, g, ap);
+          tp::st8_dq<L>(rst + p.n * RS, jj, g, ad);
+        }
+#pragma unroll
+        for (int b = 0; b < 8; ++b) {
+          ap[b] = slab ? 0.0f : fabsf(ap[b]);
+          ad[b] = slab ? 0.0f : fabsf(ad[b]);
+        }
+        tp::warp_max<L>(ap, this->red, j, 0, g);
+        tp::warp_max<L>(ad, this->red, j, 1, g);
+      }
+    }
+    if (CHECK && slab_warp) slab_residuals(dead);
+    return this->template product_half<CHECK>(dead, frozen, last, stop,
+                                              rmask, kinc);
+  }
+
+  // The slab warp's ball, one lane a thread: the warp stages y - c' of its
+  // columns in its rows of dq; thread t then adds lane t's n squares in slab
+  // order, one after the other, and leaves min(1, r / max(norm, 1e-30)) in
+  // ball[t].
+  __device__ __forceinline__ void ball_scales(unsigned dead) {
+    const int j = this->tid;
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      if (bit(dead, 8 * g)) continue;
+      float zc[8], lm[8], yc[8];
+      tp::ld8<L>(zc, z, j, g);
+      tp::ld8<L>(lm, lam, j, g);
+#pragma unroll
+      for (int b = 0; b < 8; ++b) yc[b] = (zc[b] + p.rho_i * lm[b]) - cj;
+      tp::st8_dq<L>(this->dq, j, g, yc);
+    }
+    __syncwarp();
+    const int t = j & 31;
+    if (t < L && !bit(dead, t)) {
+      const float* col = this->dq + p.t0 * RS + t;
+      float q = 0.0f;
+      for (int i = 0; i < p.n; ++i) {
+        const float x = col[i * RS];
+        const float sq = x * x;
+        q = q + sq;
+      }
+      const float nrm = sqrtf(q);
+      ball[t] = fminf(1.0f, p.r_ball / fmaxf(nrm, 1e-30f));
+    }
+    __syncwarp();
+  }
+
+  // At a checked iteration, the slab warp's thread t maps lane t's staged
+  // differences back to the original coordinates (column jj of d_slab @
+  // pinvh: n terms in slab order, each product and sum rounded on its own)
+  // and folds the maxima of their magnitudes into the warp's row maxima,
+  // where the slab columns put 0.
+  __device__ __forceinline__ void slab_residuals(unsigned dead) {
+    __syncwarp();
+    const int t = this->tid & 31;
+    if (t < L && !bit(dead, t)) {
+      const int n = p.n;
+      const float* a = rst + t;
+      const float* d = rst + n * RS + t;
+      float mp = 0.0f, md = 0.0f;
+      for (int c = 0; c < n; ++c) {
+        float bp = 0.0f, bd = 0.0f;
+        for (int i = 0; i < n; ++i) {
+          const float w = pin[i * n + c];
+          bp = bp + a[i * RS] * w;
+          bd = bd + d[i * RS] * w;
+        }
+        mp = fmaxf(mp, fabsf(bp));
+        md = fmaxf(md, fabsf(bd));
+      }
+      float* r = this->red + ((this->tid >> 5) * 2) * L + t;
+      r[0] = fmaxf(r[0], mp);
+      r[L] = fmaxf(r[L], md);
+    }
+  }
 };
 
-__device__ __forceinline__ bool bit(unsigned m, int b) {
-  return (m >> b) & 1u;
-}
-
-__device__ __forceinline__ void load(float (&v)[TB], const float* src) {
-  const float4* s4 = reinterpret_cast<const float4*>(src);
-#pragma unroll
-  for (int q = 0; q < TB / 4; ++q) {
-    const float4 a = s4[q];
-    v[4 * q] = a.x;
-    v[4 * q + 1] = a.y;
-    v[4 * q + 2] = a.z;
-    v[4 * q + 3] = a.w;
-  }
-}
-
-__device__ __forceinline__ void store(float* dst, const float (&v)[TB]) {
-  float4* d4 = reinterpret_cast<float4*>(dst);
-#pragma unroll
-  for (int q = 0; q < TB / 4; ++q)
-    d4[q] = make_float4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]);
-}
-
-// The maxima of v[b] over the warp, written to red[warp][slot][b] by the
-// warp's first thread.
-__device__ __forceinline__ void warp_max(float (&v)[TB], float* red, int j,
-                                         int slot) {
-#pragma unroll
-  for (int b = 0; b < TB; ++b) {
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      v[b] = fmaxf(v[b], __shfl_xor_sync(FULL, v[b], off));
-  }
-  if ((j & 31) == 0) store(red + ((j >> 5) * 2 + slot) * TB, v);
-}
-
-// One iteration of column j for the block's TB lanes. Lanes in `frozen`
-// keep all their state. With CHECK, returns the lanes whose residuals meet
-// tol (identical in every thread of the block), and thread 0 records the
-// residuals of the lanes in `rmask` in lres.
-template <bool CHECK>
-__device__ __forceinline__ unsigned iterate(const Params& p, const Shared& s,
-                                            const Col& c, int& parity,
-                                            unsigned frozen, unsigned rmask,
-                                            float (&lres)[2][TB]) {
-  const int o = c.j * TB;  // this thread's column in every buffer
-  float* dq_s = s.dq + parity * p.nzp * TB;
-  float* red = s.red + parity * c.warps * 2 * TB;
-  float z[TB], v[TB], lam[TB], vn[TB];
-  load(z, s.st[Z] + o);
-  load(v, s.st[V] + o);
-  load(lam, s.st[LAM] + o);
-  if (c.slab_warp) {
-    // the ball about c' on the slab: the squares of the slab's columns,
-    // broadcast in turn and added in slab order
-    float yc[TB], sq[TB], q[TB];
-#pragma unroll
-    for (int b = 0; b < TB; ++b) {
-      const float y = z[b] + p.rho_i * lam[b];
-      yc[b] = y - c.c;
-      sq[b] = yc[b] * yc[b];
-      q[b] = 0.0f;
-      vn[b] = fminf(fmaxf(y, c.lb), c.ub);
-    }
-    for (int i = 0; i < p.n; ++i) {
-      const int src = (p.t0 + i) & 31;
-#pragma unroll
-      for (int b = 0; b < TB; ++b)
-        q[b] = q[b] + __shfl_sync(FULL, sq[b], src);
-    }
-    if (c.slab) {
-#pragma unroll
-      for (int b = 0; b < TB; ++b) {
-        const float nrm = sqrtf(q[b]);
-        const float scale = fminf(1.0f, p.r_ball / fmaxf(nrm, 1e-30f));
-        vn[b] = c.c + scale * yc[b];
-      }
-    }
-  } else {
-#pragma unroll
-    for (int b = 0; b < TB; ++b)
-      vn[b] = fminf(fmaxf(z[b] + p.rho_i * lam[b], c.lb), c.ub);
-  }
-  {
-    float dq[TB], ap[TB], ad[TB];
-#pragma unroll
-    for (int b = 0; b < TB; ++b) {
-      dq[b] = p.rho * ((z[b] - 2.0f * vn[b]) + v[b]);
-      if (CHECK) {
-        ap[b] = z[b] - vn[b];
-        ad[b] = vn[b] - v[b];
-      }
-      if (!bit(frozen, b)) {
-        lam[b] = lam[b] + p.rho * (z[b] - vn[b]);
-        v[b] = vn[b];
-      }
-    }
-    store(dq_s + o, dq);
-    store(s.st[V] + o, v);
-    store(s.st[LAM] + o, lam);
-    if (CHECK) {
-      if (c.slab_warp) {
-        // the slab's differences back to the original coordinates:
-        // column jj of d_slab @ pinvh, the slab's entries broadcast in
-        // turn
-        float bp[TB], bd[TB];
-#pragma unroll
-        for (int b = 0; b < TB; ++b) {
-          bp[b] = 0.0f;
-          bd[b] = 0.0f;
-        }
-        for (int i = 0; i < p.n; ++i) {
-          const int src = (p.t0 + i) & 31;
-          const float w = c.slab ? __ldg(p.pinvh + i * p.n + c.jj) : 0.0f;
-#pragma unroll
-          for (int b = 0; b < TB; ++b) {
-            bp[b] = bp[b] + __shfl_sync(FULL, ap[b], src) * w;
-            bd[b] = bd[b] + __shfl_sync(FULL, ad[b], src) * w;
-          }
-        }
-        if (c.slab) {
-#pragma unroll
-          for (int b = 0; b < TB; ++b) {
-            ap[b] = bp[b];
-            ad[b] = bd[b];
-          }
-        }
-      }
-#pragma unroll
-      for (int b = 0; b < TB; ++b) {
-        ap[b] = fabsf(ap[b]);
-        ad[b] = fabsf(ad[b]);
-      }
-      warp_max(ap, red, c.j, 0);
-      warp_max(ad, red, c.j, 1);
-    }
-  }
-  __syncthreads();
-  float acc[TB];
-#pragma unroll
-  for (int b = 0; b < TB; ++b) acc[b] = 0.0f;
-  const float* col = p.m2 + c.j;
-#pragma unroll UNROLL
-  for (int i = 0; i < c.nr; ++i) {
-    const float m = __ldg(col + static_cast<size_t>(i) * p.nzp);
-    const float4* d4 = reinterpret_cast<const float4*>(dq_s + i * TB);
-#pragma unroll
-    for (int q = 0; q < TB / 4; ++q) {
-      const float4 d = d4[q];
-      acc[4 * q] = fmaf(d.x, m, acc[4 * q]);
-      acc[4 * q + 1] = fmaf(d.y, m, acc[4 * q + 1]);
-      acc[4 * q + 2] = fmaf(d.z, m, acc[4 * q + 2]);
-      acc[4 * q + 3] = fmaf(d.w, m, acc[4 * q + 3]);
-    }
-  }
-  {
-    float zc[TB];
-    load(zc, s.st[ZC] + o);
-#pragma unroll
-    for (int b = 0; b < TB; ++b) {
-      if (!bit(frozen, b)) {
-        zc[b] = z[b];
-        z[b] = z[b] + acc[b];
-      }
-    }
-    store(s.st[Z] + o, z);
-    store(s.st[ZC] + o, zc);
-  }
-  parity ^= 1;
-  unsigned conv = 0;
-  if (CHECK) {
-    float rs[2][TB];
-#pragma unroll
-    for (int b = 0; b < TB; ++b) {
-      rs[0][b] = 0.0f;
-      rs[1][b] = 0.0f;
-    }
-    for (int w = 0; w < c.warps; ++w) {
-#pragma unroll
-      for (int q = 0; q < 2; ++q) {
-        float m[TB];
-        load(m, red + (w * 2 + q) * TB);
-#pragma unroll
-        for (int b = 0; b < TB; ++b) rs[q][b] = fmaxf(rs[q][b], m[b]);
-      }
-    }
-#pragma unroll
-    for (int b = 0; b < TB; ++b) {
-      if (rs[0][b] <= p.tol_p && rs[1][b] <= p.tol_d) conv |= 1u << b;
-      if (c.j == 0 && bit(rmask, b)) {
-        lres[0][b] = rs[0][b];
-        lres[1][b] = rs[1][b];
-      }
-    }
-  }
-  return conv;
-}
-
-// Copy this thread's column of z, v and lam between shared memory and the
-// per-lane [z | v | lam] layout in global memory, for the lanes in
-// `lanes`. TO_GLOBAL selects the direction.
-template <bool TO_GLOBAL>
-__device__ __forceinline__ void snapshot(const Params& p, const Shared& s,
-                                         int j, int lane0, unsigned lanes) {
-#pragma unroll
-  for (int l = 0; l < NSNAP; ++l) {
-#pragma unroll
-    for (int b = 0; b < TB; ++b) {
-      if (!bit(lanes, b)) continue;
-      float* g = p.snap + static_cast<size_t>(lane0 + b) * NSNAP * p.nzp +
-                 l * p.nzp + j;
-      float* sh = s.st[l] + j * TB + b;
-      if (TO_GLOBAL)
-        *g = *sh;
-      else
-        *sh = *g;
-    }
-  }
-}
-
-template <int MAXT, int MINB>
+template <int L, int TC, int MAXT, int MINB, int SR, bool REFILL>
 __global__ void __launch_bounds__(MAXT, MINB) fused_ellip_kernel(Params p) {
   extern __shared__ __align__(16) float smem[];
-  __shared__ int sn_k[TB];       // exact-k: each lane's window start
-  __shared__ float lres[2][TB];  // thread 0's residuals of each lane
-  const int nzp = p.nzp;
-  const int j = threadIdx.x;
-  Shared s;
-  s.dq = smem;
-  s.red = smem + 2 * nzp * TB;
-  {
-    float* a = s.red + 2 * (nzp / 32) * 2 * TB;
-    for (int l = 0; l < 4; ++l, a += nzp * TB) s.st[l] = a;
-  }
-  Col c;
-  c.j = j;
-  c.jj = j - p.t0;
-  c.slab = j >= p.t0 && j < p.t0 + p.n;
-  c.slab_warp = (j >> 5) == (p.t0 >> 5);
-  c.nr = p.t0 + p.n;
-  c.warps = nzp >> 5;
-  c.lb = p.lb[j];
-  c.ub = p.ub[j];
-  c.c = p.c[j];
-  const int lane0 = blockIdx.x * TB;
-  const int o = j * TB;
-  {
-    float z[TB], v[TB], lam[TB];
-#pragma unroll
-    for (int b = 0; b < TB; ++b) {
-      const size_t g = static_cast<size_t>(lane0 + b) * nzp + j;
-      z[b] = p.z1[g];
-      v[b] = p.v0[g];
-      lam[b] = p.lam0[g];
-    }
-    store(s.st[Z] + o, z);
-    store(s.st[ZC] + o, z);
-    store(s.st[V] + o, v);
-    store(s.st[LAM] + o, lam);
-  }
-  if (j == 0) {
-#pragma unroll
-    for (int b = 0; b < TB; ++b) {
-      lres[0][b] = RBIG;
-      lres[1][b] = RBIG;
-    }
-  }
-  int parity = 0;
-  unsigned done = 0;
-  int k[TB];
-#pragma unroll
-  for (int b = 0; b < TB; ++b) k[b] = 0;
-  const int C = p.check_every;
-  int zout = ZC;  // the leaf written out as z: the consumed z ...
-
-  if (p.fixed_iters > 0) {
-    // exactly fixed_iters plain iterations, no exit tests
-    for (int it = 0; it < p.fixed_iters; ++it)
-      iterate<false>(p, s, c, parity, 0u, 0u, lres);
-#pragma unroll
-    for (int b = 0; b < TB; ++b) k[b] = p.fixed_iters;
-    done = ALL;
-    zout = Z;  // ... but the prepared one here and in free-run
-  } else if (C > 1 && p.exact_k) {
-    // free-run windows of C iterations; snapshot every still-active lane
-    // at each window start, so the window a lane converges in can be
-    // replayed with per-iteration checks once the block has drained.
-    // Windows may overshoot k_max: the replay budget cuts each lane off at
-    // exactly k_max.
-    for (int it = 0; it < p.k_max && done != ALL; it += C) {
-      snapshot<true>(p, s, j, lane0, ~done & ALL);
-      if (j == 0) {
-#pragma unroll
-        for (int b = 0; b < TB; ++b)
-          if (!bit(done, b)) sn_k[b] = it;
-      }
-      for (int f = 0; f < C - 1; ++f)
-        iterate<false>(p, s, c, parity, 0u, 0u, lres);
-      done |= iterate<true>(p, s, c, parity, 0u, 0u, lres);
-    }
-    __syncthreads();  // the window starts, written by thread 0
-    // replay each lane's last window from its snapshot with per-iteration
-    // checks: k counts on from the window start
-    snapshot<false>(p, s, j, lane0, ALL);
-    {
-      float z[TB];
-      load(z, s.st[Z] + o);
-      store(s.st[ZC] + o, z);
-    }
-    int budget[TB];
-#pragma unroll
-    for (int b = 0; b < TB; ++b) {
-      k[b] = sn_k[b];
-      budget[b] = min(C, p.k_max - k[b]);
-    }
-    unsigned convd = 0;
-    for (int w = 0; w < C; ++w) {
-      unsigned frozen = convd;
-#pragma unroll
-      for (int b = 0; b < TB; ++b)
-        if (w >= budget[b]) frozen |= 1u << b;
-      if (frozen == ALL) break;
-      const unsigned conv =
-          iterate<true>(p, s, c, parity, frozen, ~frozen & ALL, lres);
-#pragma unroll
-      for (int b = 0; b < TB; ++b)
-        if (!bit(frozen, b)) ++k[b];
-      convd |= conv & ~frozen;
-    }
-    done = convd;
-  } else if (C > 1) {
-    // free-run: C-1 plain iterations, then one checked iteration; every
-    // lane keeps iterating until the block's lanes are all done, k is
-    // recorded at check granularity, and a done lane's residuals stay at
-    // its exit
-    for (int it = 0; it < p.k_max && done != ALL;) {
-      const int n_fast = min(C - 1, p.k_max - 1 - it);
-      for (int f = 0; f < n_fast; ++f)
-        iterate<false>(p, s, c, parity, 0u, 0u, lres);
-      const unsigned conv =
-          iterate<true>(p, s, c, parity, 0u, ~done & ALL, lres);
-#pragma unroll
-      for (int b = 0; b < TB; ++b)
-        if (!bit(done, b)) k[b] += n_fast + 1;
-      done |= conv;
-      it += n_fast + 1;
-    }
-    zout = Z;
-  } else {
-    // checked: exit tests every iteration; a converged lane freezes and
-    // keeps the z it consumed at exit
-    for (int it = 0; it < p.k_max && done != ALL; ++it) {
-      const unsigned conv =
-          iterate<true>(p, s, c, parity, done, ~done & ALL, lres);
-#pragma unroll
-      for (int b = 0; b < TB; ++b)
-        if (!bit(done, b)) ++k[b];
-      done |= conv;
-    }
-  }
-
-  {
-    const int leaves[3] = {zout, V, LAM};
-    float* outs[3] = {p.z, p.v, p.lam};
-#pragma unroll
-    for (int l = 0; l < 3; ++l) {
-      float x[TB];
-      load(x, s.st[leaves[l]] + o);
-#pragma unroll
-      for (int b = 0; b < TB; ++b)
-        outs[l][static_cast<size_t>(lane0 + b) * nzp + j] = x[b];
-    }
-  }
-  if (j == 0) {
-#pragma unroll
-    for (int b = 0; b < TB; ++b) {
-      p.k[lane0 + b] = k[b];
-      p.done[lane0 + b] = bit(done, b) ? 1 : 0;
-      p.rp[lane0 + b] = lres[0][b];
-      p.rd[lane0 + b] = lres[1][b];
-    }
-  }
+  Engine<L, TC, SR> e(p, smem);
+  tp::run_lanes<L, REFILL>(e, p.k_max, p.check_every, p.exact_k, p.n_groups,
+                           p.queue, p.fixed_iters);
 }
 
-}  // namespace
+// Rows a slab of the build that runs P threads at `lanes` lanes.
+int slab_rows(int P, int lanes) {
+  if (P > NARROW) return WIDE_SLAB;
+  return lanes == 8 ? Build<8>::SR : lanes == 16 ? Build<16>::SR
+                                                 : Build<32>::SR;
+}
 
-// Launch on `stream` (a cudaStream_t). The geometry comes from the wrapper
-// (kernels/fused_ellip.py launch_geometry) and is checked here again.
-// Returns the CUDA error of the launch, as an int.
-extern "C" int fused_ellip_launch(
-    const float* z1, const float* v0, const float* lam0, const float* m2,
-    const float* pinvh, const float* lb, const float* ub, const float* c,
-    float* z, float* v, float* lam, int* k, int* done, float* rp, float* rd,
-    float* snap, int B, int nzp, int t0, int n, int blocks, int threads,
-    int smem, float rho, float rho_i, float r_ball, float tol_p, float tol_d,
-    int k_max, int check_every, int fixed_iters, int exact_k, void* stream) {
-  const long need = 4L * TB * (6L * nzp + 4L * (nzp / 32));
-  const bool exact = check_every > 1 && exact_k && fixed_iters <= 0;
-  if (nzp <= 0 || nzp % 32 != 0 || nzp > MAX_COLS || B % TB != 0 ||
-      blocks != B / TB || threads != nzp || smem != need || check_every < 1 ||
-      k_max < 1 || n < 1 || n > 32 || t0 < 0 || t0 + n > nzp ||
-      t0 % 32 + n > 32 || (exact && B > 0 && snap == nullptr))
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (B == 0) return 0;
-  // up to NARROW columns, compiled for three blocks an SM (at most 85
-  // registers a thread), wider for one block of up to MAX_COLS threads
-  void (*kernel)(Params) = nzp <= NARROW ? fused_ellip_kernel<NARROW, 3>
-                                         : fused_ellip_kernel<MAX_COLS, 1>;
+template <int L, bool REFILL>
+int launch(const Params& p, int blocks, int threads, int smem, void* stream) {
+  // up to NARROW columns the build of Build<L>; wider, one block of up to
+  // MAX_COLS threads an SM (not at 32 lanes: its state does not fit)
+  constexpr int TC = tp::tile_cols<L>();
+  void (*kernel)(Params) = nullptr;
+  if (threads <= NARROW)
+    kernel = fused_ellip_kernel<L, TC, NARROW, Build<L>::MINB, Build<L>::SR,
+                                REFILL>;
+  else if constexpr (L < 32)
+    kernel = fused_ellip_kernel<L, TC, MAX_COLS, 1, WIDE_SLAB, REFILL>;
+  if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  Params p{z1,   v0,    lam0, m2,          pinvh,       lb,
-           ub,   c,     z,    v,           lam,         k,
-           done, rp,    rd,   snap,        nzp,         t0,
-           n,    rho,   rho_i, r_ball,     tol_p,       tol_d,
-           k_max, check_every, fixed_iters, exact_k};
   kernel<<<blocks, threads, smem, static_cast<cudaStream_t>(stream)>>>(p);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Dynamic shared bytes at `lanes` lanes a block for a slab of n columns
+// (kernels/fused_ellip.py shared_bytes computes the same): the ring of M2's
+// slabs, z, v and lam as [P][lanes], dq with its padding, the warps' row
+// maxima, the masks, the window starts, the slots' lanes, the lanes' ball
+// scales, the slab's staged differences and pinvh.
+extern "C" long fused_ellip_smem(int P, int n, int lanes) {
+  return tp::ring_bytes(P, slab_rows(P, lanes)) +
+         4L * (P * (4L * lanes + tp::DQ_PAD) + (P / 32) * 2L * lanes + 4 +
+               3L * lanes + 2L * n * (lanes + tp::DQ_PAD) + n * n);
+}
+
+// Launch on `stream` (a cudaStream_t). The geometry comes from the wrapper
+// (kernels/fused_ellip.py launch_plan) and is checked here again: with
+// refill (plain free-run and the checked mode) any number of persistent
+// blocks up to one per L lanes, and `queue` 1 + blocks int32 zeros; else
+// B / lanes blocks. Returns the CUDA error of the launch, as an int.
+extern "C" int fused_ellip_launch(
+    const float* z1, const float* v0, const float* lam0, const float* m2,
+    const float* pinvh, const float* lb, const float* ub, const float* c,
+    float* z, float* v, float* lam, int* k, int* done, float* rp, float* rd,
+    float* snap, int* queue, int B, int nzp, int t0, int n, int lanes,
+    int blocks, int threads, int smem, float rho, float rho_i, float r_ball,
+    float tol_p, float tol_d, int k_max, int check_every, int fixed_iters,
+    int exact_k, void* stream) {
+  const bool fixed = fixed_iters > 0;
+  const bool exact = check_every > 1 && exact_k && !fixed;
+  const bool refill = TP_REFILL && !exact && !fixed;
+  const int groups = B / 8, slots = lanes / 8;
+  if (nzp <= 0 || nzp % 32 != 0 || nzp > MAX_COLS ||
+      (lanes != 8 && lanes != 16 && lanes != 32) ||
+      (lanes == 32 && nzp > NARROW) || B % 8 != 0 || threads != nzp ||
+      n < 1 || n > 32 || t0 < 0 || t0 + n > nzp || t0 % 32 + n > 32 ||
+      smem != fused_ellip_smem(nzp, n, lanes) || check_every < 1 ||
+      k_max < 1 || (exact && B > 0 && snap == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (refill ? (blocks < 1 || blocks > (groups + slots - 1) / slots ||
+                queue == nullptr)
+             : (B % lanes != 0 || blocks != B / lanes))
+    return B == 0 ? 0 : static_cast<int>(cudaErrorInvalidValue);
+  if (B == 0) return 0;
+  Params p{z1,    v0,     lam0,  m2,          pinvh,       lb,
+           ub,    c,      z,     v,           lam,         k,
+           done,  rp,     rd,    snap,        queue,       groups,
+           nzp,   t0,     n,     rho,         rho_i,       r_ball,
+           tol_p, tol_d,  k_max, check_every, fixed_iters, exact_k};
+  switch (lanes * 2 + (refill ? 1 : 0)) {
+    case 16:
+      return launch<8, false>(p, blocks, threads, smem, stream);
+    case 17:
+      return launch<8, true>(p, blocks, threads, smem, stream);
+    case 32:
+      return launch<16, false>(p, blocks, threads, smem, stream);
+    case 33:
+      return launch<16, true>(p, blocks, threads, smem, stream);
+    case 64:
+      return launch<32, false>(p, blocks, threads, smem, stream);
+    default:
+      return launch<32, true>(p, blocks, threads, smem, stream);
+  }
 }

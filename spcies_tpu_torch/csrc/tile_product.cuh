@@ -1,10 +1,12 @@
 // The product stage of the fused loops on NVIDIA Hopper (sm_90a), written by
 // hand: acc[L x P] = dq[L x R] @ M[R x P] for the L lanes of a thread block,
-// once an iteration. csrc/fused_admm.cu (K1), csrc/fused_soc.cu (K5) and
-// csrc/fused_hmpc.cu (K6) include it, and so does a build of K7 on it that
-// is timed but not launched (csrc/variants/fused_split_tile.cu). The end of
-// the file holds the mode loops a kernel runs over its iteration, and the
-// engine and refill loop K5 and K6 share.
+// once an iteration. csrc/fused_admm.cu (K1), csrc/fused_fista.cu (K2),
+// csrc/fused_ellip.cu (K4), csrc/fused_soc.cu (K5) and csrc/fused_hmpc.cu
+// (K6) include it, and so does a build of K7 on it that is timed but not
+// launched (csrc/variants/fused_split_tile.cu). K2's three products an
+// iteration run over a ring of several matrices (SegRing). The end of the
+// file holds the mode loops a kernel runs over its iteration, and the
+// engine and refill loop K4, K5 and K6 share.
 //
 // Many lanes a block. A block of P threads (one per column of the padded
 // width P) holds L = 8, 16 or 32 lanes. The rows of M, which every block
@@ -84,7 +86,7 @@
 #define TP_UNROLL 0  // rows of a slab unrolled together; 0: the whole slab
 #endif
 #ifndef TP_REFILL
-#define TP_REFILL 1  // 0: K5's and K6's blocks keep their lanes (no refill)
+#define TP_REFILL 1  // 0: K4's, K5's and K6's blocks keep their lanes
 #endif
 #ifndef TP_CLOCKS
 #define TP_CLOCKS 0  // 1: engines count the clocks of an iteration's halves
@@ -457,6 +459,188 @@ __device__ __forceinline__ void product(Ring& r, const float* dq,
 #endif
 }
 
+// ---- a ring over several matrices ------------------------------------------
+//
+// K2 (csrc/fused_fista.cu) runs three products an iteration, each over its
+// own matrix and width. SegRing is the ring above over an endless cycle of
+// NS segments, segment s the rows [0, rows[s]) of m[s] (row-major, row
+// length P[s]), each cut into slabs of SR rows: a product consumes its
+// segment's slabs, and the loads of the next segment's first slab run while
+// the element-wise step between two products runs. Its buffers hold slabs
+// of the widest row (ring_bytes(pmax, SR)), filled by TMA. A slab is 16
+// rows (shared memory has no room for more beside K2's state), so a
+// __syncthreads a slab, as Ring has, would cost K2 some 40 barriers an
+// iteration: instead each buffer has a second mbarrier, `empty`, on which
+// every warp arrives once it is done with the buffer, and thread 0 waits on
+// it before it loads the buffer again. The warps then wait for each other
+// only where a product's input is published (a barrier a slab was 3 %
+// slower on an H100, PERF.md).
+
+template <int NS>
+struct SegRing {
+  float* stage;     // [NST][SR * pmax]
+  uint64_t* full;   // [NST]: the buffer's load has landed
+  uint64_t* empty;  // [NST]: every warp is done with the buffer
+  const float* m[NS];
+  int P[NS], rows[NS];
+  int first[NS], ns[NS];  // a segment's first slab in the cycle, its slabs
+  int pmax, total;        // the widest row, slabs of a cycle
+  int used;               // slabs multiplied since the kernel began
+  int next;               // the slab of the cycle that is loaded next
+  long long clk[NS];      // TP_CLOCKS: thread 0's clocks in each segment's
+                          // slab loop
+};
+
+// Wait for the phase of mbarrier `bar` whose parity is `parity` to end.
+__device__ __forceinline__ void bar_wait(const uint64_t* bar, int parity) {
+  asm volatile(
+      "{\n.reg .pred P1;\nLAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\nbra LAB_WAIT;\nDONE:\n}\n" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// Thread 0: start the load of slab number u (counted since the kernel
+// began; it is the cycle's slab r.next) into buffer u % NST, once every
+// warp is done with that buffer's slab before.
+template <int SR, int NS>
+__device__ __forceinline__ void issue(SegRing<NS>& r, int u, int tid) {
+  static_assert(TP_STAGE == 2 || NS < 0, "SegRing loads its slabs by TMA");
+  // the segment of slab r.next, picked with constant indices so that the
+  // ring stays in registers
+  const float* m = r.m[0];
+  int first = 0, rows = r.rows[0], P = r.P[0];
+#pragma unroll
+  for (int i = 1; i < NS; ++i) {
+    if (r.next >= r.first[i]) {
+      m = r.m[i];
+      first = r.first[i];
+      rows = r.rows[i];
+      P = r.P[i];
+    }
+  }
+  const int row0 = (r.next - first) * SR;
+  const int n = min(SR, rows - row0);
+  r.next = r.next + 1 == r.total ? 0 : r.next + 1;
+  if (tid != 0) return;
+  const int buf = u % NST;
+  if (u >= NST) bar_wait(r.empty + buf, (u / NST - 1) & 1);
+  float* dst = r.stage + buf * SR * r.pmax;
+  const float* src = m + static_cast<size_t>(row0) * P;
+  const uint32_t bar = smem_addr(r.full + buf);
+  const uint32_t bytes = static_cast<uint32_t>(n) * P * 4u;
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar), "r"(bytes)
+               : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// Set the ring up over `smem` (ring_bytes(pmax, SR) bytes, 16-byte aligned)
+// and start its first NST - 1 loads; every segment has at least one row.
+// Every thread of the block (T threads, whole warps) calls it.
+template <int SR, int NS>
+__device__ __forceinline__ void ring_init(SegRing<NS>& r, float* smem,
+                                          const float* const (&m)[NS],
+                                          const int (&P)[NS],
+                                          const int (&rows)[NS], int pmax,
+                                          int tid, int T) {
+  static_assert(2 * NST * 8 <= 64, "the mbarriers fit ring_bytes' 64 bytes");
+  r.stage = smem;
+  r.full = reinterpret_cast<uint64_t*>(smem + NST * SR * pmax);
+  r.empty = r.full + NST;
+  r.pmax = pmax;
+  r.total = 0;
+#pragma unroll
+  for (int s = 0; s < NS; ++s) {
+    r.m[s] = m[s];
+    r.P[s] = P[s];
+    r.rows[s] = rows[s];
+    r.first[s] = r.total;
+    r.ns[s] = (rows[s] + SR - 1) / SR;
+    r.total += r.ns[s];
+  }
+  r.used = 0;
+  r.next = 0;
+#pragma unroll
+  for (int s = 0; s < NS; ++s) r.clk[s] = 0;
+  if (tid == 0) {
+    for (int b = 0; b < NST; ++b) {
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                       smem_addr(r.full + b)),
+                   "r"(1)
+                   : "memory");
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                       smem_addr(r.empty + b)),
+                   "r"(T / 32)
+                   : "memory");
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  for (int u = 0; u < NST - 1; ++u) issue<SR>(r, u, tid);
+}
+
+// Wait for the loads still in flight before the block ends.
+template <int NS>
+__device__ __forceinline__ void ring_drain(SegRing<NS>& r) {
+  for (int i = 0; i < NST - 1; ++i) {
+    const int u = r.used + i;
+    bar_wait(r.full + u % NST, (u / NST) & 1);
+  }
+  __syncthreads();
+}
+
+// product() above over segment `seg` of a SegRing: acc = in @ M for this
+// thread's tile, in being a [rows][L + DQ_PAD] buffer the block wrote before
+// the call. The barrier at the start publishes it, and hook() runs right
+// after that barrier; with need_sync, what hook() writes to shared memory
+// can be read by every thread when product() returns. Every warp waits for
+// each slab and releases it, live or not.
+template <int L, int TC, int SR, int NS, class Hook>
+__device__ __forceinline__ void product(SegRing<NS>& r, int seg,
+                                        const float* in, const Tile<L, TC>& t,
+                                        float (&acc)[TC][8], bool live,
+                                        int tid, bool need_sync,
+                                        Hook&& hook) {
+  const int P = r.P[seg], rows = r.rows[seg], ns = r.ns[seg];
+  __syncthreads();
+  hook();
+  const long long t0 = TP_CLOCKS && tid == 0 ? clock64() : 0;
+  for (int s = 0; s < ns; ++s) {
+    const int buf = r.used % NST;
+    bar_wait(r.full + buf, (r.used / NST) & 1);
+    issue<SR>(r, r.used + NST - 1, tid);
+    ++r.used;
+    if (live) {
+      const int row0 = s * SR;
+      const int n = min(SR, rows - row0);
+      const float* st = r.stage + buf * SR * r.pmax;
+      const float* ins = in + row0 * (L + DQ_PAD);
+      constexpr int UNROLL = TP_UNROLL > 0 ? TP_UNROLL : SR;
+      if (n == SR) {
+#pragma unroll UNROLL
+        for (int q = 0; q < SR; ++q)
+          row_fma<L, TC>(acc, st + q * P, ins, q, t);
+      } else {
+        for (int q = 0; q < n; ++q)
+          row_fma<L, TC>(acc, st + q * P, ins, q, t);
+      }
+    }
+    __syncwarp();
+    if ((tid & 31) == 0)
+      asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                       smem_addr(r.empty + buf))
+                   : "memory");
+  }
+  if (TP_CLOCKS && tid == 0) r.clk[seg] += clock64() - t0;
+  if (need_sync) __syncthreads();
+}
+
 // ---- the modes of a fused loop ---------------------------------------------
 
 // Lane compaction for the first half of exact-k, where a lane that is done
@@ -531,10 +715,14 @@ struct Keeper {
 // frozen lanes keep all their state; what idle lanes hold is never read
 // again (an engine may stop working on them); the lanes in `last` (and, with
 // stop, the lanes that converge here) keep the iterate they consumed.
+// With WMIN (K2, whose residual oscillates) exact-k's windows end on the
+// window's least residual: iterate returns the lanes that meet tol on every
+// iteration, checked or not, and a lane is done once any iteration of its
+// window met tol (min <= tol exactly when one of them is <= tol).
 // Returns the done mask.
 // The loops are one loop with two call sites of iterate (one checked, one
 // not), each inlined once.
-template <int L, class E>
+template <int L, bool WMIN = false, class E>
 __device__ __forceinline__ unsigned run_modes(E& e, int k_max, int C,
                                               int exact_k, int fixed_iters) {
   constexpr unsigned ALL = L == 32 ? FULL : (1u << L) - 1u;
@@ -548,6 +736,7 @@ __device__ __forceinline__ unsigned run_modes(E& e, int k_max, int C,
   int w = 0;       // REPLAY: the step
   int n_fast = 0;  // FREE: plain iterations before the checked one
   unsigned done = 0, convd = 0;
+  unsigned wconv = 0;  // WMIN: the lanes that met tol in this window
   for (;;) {
     bool check = false, stop = false;
     unsigned frozen = 0, idle = 0, last = 0, rmask = 0;
@@ -621,12 +810,19 @@ __device__ __forceinline__ unsigned run_modes(E& e, int k_max, int C,
       kinc = 1;
     }
     unsigned conv = 0;
-    if (check)
+    if (check) {
       conv = e.template iterate<true>(frozen, idle, last, stop, rmask, kinc);
-    else
-      e.template iterate<false>(frozen, idle, last, stop, rmask, kinc);
+    } else {
+      [[maybe_unused]] const unsigned c =
+          e.template iterate<false>(frozen, idle, last, stop, rmask, kinc);
+      if constexpr (WMIN) conv = c;
+    }
+    if constexpr (WMIN) {
+      if (mode == WINDOW) conv = wconv |= conv;
+    }
     if (mode == WINDOW || mode == FREE) {
       if (check) {
+        wconv = 0;
         done |= conv;
         it += mode == WINDOW ? C : n_fast + 1;
         f = 0;
@@ -652,10 +848,11 @@ __device__ __forceinline__ unsigned run_modes(E& e, int k_max, int C,
 
 // ---- engines on leaves, and refill ---------------------------------------
 //
-// TileEngine below is what csrc/fused_hmpc.cu (K6) and csrc/fused_soc.cu (K5)
-// share: the state as leaves, the product's half of an iteration, the moves
-// of a lane group's state, and run_lanes, which runs a block's modes with or
-// without refill. K1 keeps its own engine and takes no refill.
+// TileEngine below is what csrc/fused_ellip.cu (K4), csrc/fused_hmpc.cu (K6)
+// and csrc/fused_soc.cu (K5) share: the state as leaves, the product's half
+// of an iteration, the moves of a lane group's state, and run_lanes, which
+// runs a block's modes with or without refill. K1 and K2 keep their own
+// engines and take no refill.
 //
 // Refill. Plain free-run and the checked mode end per group of 8 lanes (a
 // tile of tile_b = 8), and a wide block would otherwise run to its slowest
@@ -672,7 +869,8 @@ __device__ __forceinline__ unsigned run_modes(E& e, int k_max, int C,
 // are all frozen. Once the queue is empty the live groups move down into the
 // first slots, so that the product's tiles narrow as in exact-k. Exact-k
 // keeps one block of L lanes from start to end (compaction and narrowing, no
-// refill). TP_REFILL 0 builds the engines without refill, for a timing script.
+// refill); so do K4's exact-k and fixed_iters. TP_REFILL 0 builds the
+// engines without refill, for a timing script.
 
 // A leaf of an engine's state: `rows` rows of L floats in shared memory
 // (swizzled, chunk<L>), read from `in` and written to `out` ([B][rows] in
@@ -1059,12 +1257,13 @@ __device__ __forceinline__ void run_refill(E& e, int k_max, int C,
 }
 
 // A block's whole run: with REFILL run_refill; else the block's L lanes
-// from blockIdx.x * L, through run_modes. A kernel is built for each, so
-// that each holds one loop (two inlined iterations) and not two.
+// from blockIdx.x * L, through run_modes (fixed_iters > 0 there: exactly
+// that many plain iterations, K4's fourth mode). A kernel is built for
+// each, so that each holds one loop (two inlined iterations) and not two.
 template <int L, bool REFILL, class E>
 __device__ __forceinline__ void run_lanes(E& e, int k_max, int C,
                                           int exact_k, int n_groups,
-                                          int* queue) {
+                                          int* queue, int fixed_iters = 0) {
   constexpr int G = L / 8;
   if constexpr (REFILL) {
     run_refill<L>(e, k_max, C, n_groups, queue);
@@ -1076,7 +1275,7 @@ __device__ __forceinline__ void run_lanes(E& e, int k_max, int C,
       e.orig[e.tid] = e.tid;
     }
     __syncthreads();
-    const unsigned done = run_modes<L>(e, k_max, C, exact_k, 0);
+    const unsigned done = run_modes<L>(e, k_max, C, exact_k, fixed_iters);
     ring_drain(e.ring);
 #pragma unroll
     for (int g = 0; g < G; ++g) e.write8(g, e.lane0 + 8 * g, done);

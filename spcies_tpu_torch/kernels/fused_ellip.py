@@ -43,10 +43,20 @@ Padding contract: the columns outside [0, ns) and the slab carry zero rows
 and columns in M2, [0, 0] bounds and c' = 0, so they stay exactly 0 and add
 nothing to a residual. The batch is padded to a multiple of tile_b by the
 caller. On the card the slab must lie inside one warp of 32 columns
-(t0 % 32 + n <= 32): the adapter lays it out so.
+(t0 % 32 + n <= 32): the adapter lays it out so, and the kernel takes the
+ball and the residual map in that warp, one lane a thread.
 
 `fused_ellip_solve` runs the plain version for CPU tensors and launches the
-kernel for CUDA tensors; `fused_ellip_solve.launches` counts the launches.
+kernel for CUDA tensors; `fused_ellip_solve.launches` counts the launches
+and `fused_ellip_solve.last_plan` holds the last launch's build and
+geometry.
+
+The kernel runs on the product stage csrc/tile_product.cuh, built for 8, 16
+and 32 lanes a block (kernels/stage.py); plain free-run and the checked mode
+refill its persistent blocks group by group of 8 lanes, exact-k and
+fixed_iters keep a block of L lanes. Every build gives the same bits, so
+`lanes=` of `fused_ellip_solve` may name another build, for a check or a
+timing.
 """
 
 from __future__ import annotations
@@ -56,23 +66,24 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from spcies_tpu_torch.kernels.fused_admm import (COL_PAD, MAX_COLS,
+from spcies_tpu_torch.kernels import stage
+from spcies_tpu_torch.kernels.fused_admm import (COL_PAD, DQ_PAD, MAX_COLS,
                                                  RBIG, round_up)
 
-# lanes per thread block (TB in csrc/fused_ellip.cu)
-CTA_LANES = 8
+__all__ = ["COL_PAD", "MAX_COLS", "round_up", "fused_ellip_reference",
+           "fused_ellip_solve", "launch_geometry", "launch_plan",
+           "shared_bytes", "slab_start"]
 
-__all__ = ["COL_PAD", "CTA_LANES", "MAX_COLS", "round_up",
-           "fused_ellip_reference", "fused_ellip_solve", "launch_geometry",
-           "slab_start"]
-
-# C signature of fused_ellip_launch: 16 tensor pointers (8 inputs, 7
-# outputs, the exact-k snapshot scratch); B, nzp, t0, n, blocks, threads,
-# shared bytes; rho, 1/rho, r; tol_p, tol_d; k_max, check_every,
-# fixed_iters, exact_k; the stream
-FUSED_ELLIP_ARGTYPES = ([ctypes.c_void_p] * 16 + [ctypes.c_int] * 7
+# C signature of fused_ellip_launch: 17 tensor pointers (8 inputs, 7
+# outputs, the exact-k snapshot scratch, the refill queue); B, nzp, t0, n,
+# lanes, blocks, threads, shared bytes; rho, 1/rho, r; tol_p, tol_d; k_max,
+# check_every, fixed_iters, exact_k; the stream
+FUSED_ELLIP_ARGTYPES = ([ctypes.c_void_p] * 17 + [ctypes.c_int] * 8
                         + [ctypes.c_float] * 5 + [ctypes.c_int] * 4
                         + [ctypes.c_void_p])
+# lanes a block -> (rows a slab of M2, blocks an SM) of its build up to
+# stage.NARROW columns (Build<L> in csrc/fused_ellip.cu)
+BUILDS = {8: (16, 2), 16: (16, 2), 32: (32, 1)}
 # the leaves an exact-k snapshot saves per lane: z', v', lam
 SNAP_LEAVES = 3
 WARP = 32
@@ -245,10 +256,25 @@ def fused_ellip_reference(z1, v0, lam0, M2_pad, pinvh, LB_pad, UB_pad,
     return z, v, lam, k, e_flag, rp, rd
 
 
-def launch_geometry(B: int, nzp: int, t0: int, n: int, *, tile_b: int,
-                    check_every: int, exact_k: bool, fixed_iters: int):
-    """(blocks, threads, dynamic shared bytes) of a kernel launch; raises
-    ValueError on a shape or mode the kernel does not take."""
+def shared_bytes(nzp: int, n: int, lanes: int) -> int:
+    """Dynamic shared bytes of a block (fused_ellip_smem in the source):
+    the ring of M2's slabs, z, v and lam as [nzp][lanes], dq with its
+    padding, the warps' row maxima, the masks, the window starts, the
+    slots' lanes, the lanes' ball scales, the slab's two staged differences
+    [n][lanes + DQ_PAD] and pinvh."""
+    slab = stage.build_of(BUILDS, nzp, lanes)[0]
+    return stage.ring_bytes(nzp, slab) + 4 * (
+        nzp * (4 * lanes + DQ_PAD) + nzp // WARP * 2 * lanes + 4
+        + 3 * lanes + 2 * n * (lanes + DQ_PAD) + n * n)
+
+
+def launch_plan(B: int, nzp: int, t0: int, n: int, *, tile_b: int,
+                check_every: int, exact_k: bool, fixed_iters: int,
+                lanes: int | None = None):
+    """The build a launch takes and its geometry, as a dict: lanes a block,
+    blocks, threads, dynamic shared bytes, refill. `lanes` names a build in
+    place of the dispatch's choice; raises ValueError on a shape or mode no
+    build takes."""
     if nzp % COL_PAD or not 0 < nzp <= MAX_COLS:
         raise ValueError(f"the kernel takes a padded width that is a "
                          f"multiple of {COL_PAD} up to {MAX_COLS}; got {nzp}")
@@ -256,27 +282,25 @@ def launch_geometry(B: int, nzp: int, t0: int, n: int, *, tile_b: int,
             and t0 % WARP + n <= WARP):
         raise ValueError(f"the kernel takes a terminal slab inside one warp "
                          f"of {WARP} columns; got t0={t0}, n={n}")
-    if tile_b % CTA_LANES:
-        raise ValueError(f"tile_b must be a multiple of {CTA_LANES}; "
-                         f"got {tile_b}")
-    if B % tile_b:
-        raise ValueError(f"batch {B} is not a multiple of tile_b {tile_b}")
-    if (check_every > 1 and not exact_k and not fixed_iters
-            and tile_b != CTA_LANES):
-        # in plain free-run the output iterates depend on when a lane's
-        # tile drains, and the kernel drains per block of CTA_LANES lanes
-        raise ValueError(
-            f"plain free-run (check_every > 1 without exact_k) takes "
-            f"tile_b={CTA_LANES} on the GPU; got {tile_b}")
-    # dq [2][nzp][TB], the warp maxima [2][warps][2][TB] and the four
-    # state vectors [nzp][TB]
-    smem = 4 * CTA_LANES * (6 * nzp + 4 * (nzp // WARP))
-    return B // CTA_LANES, nzp, smem
+    # fixed_iters runs plain iterations alone, whatever check_every says
+    stage.check_mode(B, tile_b=tile_b,
+                     check_every=1 if fixed_iters else check_every,
+                     exact_k=exact_k)
+    refill = not fixed_iters and not (check_every > 1 and exact_k)
+    return stage.plan(B, nzp, lambda L: shared_bytes(nzp, n, L), BUILDS,
+                      refill=refill, lanes=lanes)
+
+
+def launch_geometry(B: int, nzp: int, t0: int, n: int, **kw):
+    """(blocks, threads, dynamic shared bytes) of a kernel launch; the
+    arguments of `launch_plan`."""
+    plan = launch_plan(B, nzp, t0, n, **kw)
+    return plan["blocks"], plan["threads"], plan["smem"]
 
 
 def _launch(z1, v0, lam0, M2_pad, pinvh, LB_pad, UB_pad, c_pad, *, t0, rho,
             r_ball, tol_p, tol_d, k_max, tile_b, check_every, fixed_iters,
-            exact_k):
+            exact_k, lanes=None):
     args = (z1, v0, lam0, M2_pad, pinvh, LB_pad, UB_pad, c_pad)
     for t in args:
         if t.dtype != torch.float32:
@@ -285,9 +309,8 @@ def _launch(z1, v0, lam0, M2_pad, pinvh, LB_pad, UB_pad, c_pad, *, t0, rho,
             raise ValueError("the fused kernel takes contiguous tensors")
     B, nzp = z1.shape
     n = pinvh.shape[0]
-    blocks, threads, smem = launch_geometry(
-        B, nzp, t0, n, tile_b=tile_b, check_every=check_every,
-        exact_k=exact_k, fixed_iters=fixed_iters)
+    plan = launch_plan(B, nzp, t0, n, tile_b=tile_b, check_every=check_every,
+                       exact_k=exact_k, fixed_iters=fixed_iters, lanes=lanes)
     from spcies_tpu_torch.kernels._build import load_kernel
     launch = load_kernel("fused_ellip", "fused_ellip_launch",
                          FUSED_ELLIP_ARGTYPES)
@@ -300,20 +323,28 @@ def _launch(z1, v0, lam0, M2_pad, pinvh, LB_pad, UB_pad, c_pad, *, t0, rho,
     exact = check_every > 1 and exact_k and not fixed_iters
     snap = torch.empty((B if exact else 0, SNAP_LEAVES * nzp),
                        dtype=torch.float32, device=dev)
+    # the queue of groups of 8 lanes (refill), then each block's count of
+    # iterations (refill) and kilo-clocks of the two halves of an iteration
+    # (in a build with TP_CLOCKS; else zeros)
+    nb = plan["blocks"]
+    queue = torch.zeros((1 + 3 * nb,), dtype=torch.int32, device=dev)
+    ptrs = [t.data_ptr() for t in args + (z, v, lam, k, done, rp, rd, snap,
+                                          queue)]
+    if any(ptr % 16 for ptr in ptrs):
+        raise ValueError("the fused kernel takes 16-byte aligned tensors")
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = launch(
-            *(t.data_ptr() for t in args + (z, v, lam, k, done, rp, rd,
-                                            snap)),
-            B, nzp, int(t0), n, blocks, threads, smem, float(rho),
-            float(1.0 / rho), float(r_ball), float(tol_p), float(tol_d),
-            int(k_max), int(check_every), int(fixed_iters),
-            int(bool(exact_k)), stream)
+            *ptrs, B, nzp, int(t0), n, plan["lanes"], plan["blocks"],
+            plan["threads"], plan["smem"], float(rho), float(1.0 / rho),
+            float(r_ball), float(tol_p), float(tol_d), int(k_max),
+            int(check_every), int(fixed_iters), int(bool(exact_k)), stream)
     if err != 0:
         raise RuntimeError(f"fused_ellip kernel launch failed with CUDA "
-                           f"error {err} (blocks={blocks}, threads={threads},"
-                           f" shared={smem} B)")
+                           f"error {err} ({plan})")
     fused_ellip_solve.launches += 1
+    fused_ellip_solve.last_plan = dict(plan, block_iterations=queue[1:1 + nb],
+                                       block_clocks=queue[1 + nb:].view(nb, 2))
     e_flag = torch.where(done == 1, 1, -1).to(torch.int32)
     return z, v, lam, k, e_flag, rp, rd
 
@@ -322,14 +353,17 @@ def fused_ellip_solve(z1, v0, lam0, M2_pad, pinvh, LB_pad, UB_pad, c_pad, *,
                       t0: int, rho: float, r_ball: float, tol_p: float,
                       tol_d: float, k_max: int, tile_b: int = 256,
                       check_every: int = 1, fixed_iters: int = 0,
-                      exact_k: bool = False):
+                      exact_k: bool = False, lanes: int | None = None):
     """Run the fused ellipMPC-ADMM loop on [B, nzp] tensors in transformed
     coordinates (padded as the module docstring says; B a multiple of
     tile_b): z1 and v0 transformed, lam0 the dual as it is; M2_pad
     [nzp, nzp] in row form (z' += dq @ M2_pad); pinvh the [n, n] map of
     the slab back to the original coordinates; the bounds and c' rows of
     nzp entries; the slab at columns t0 .. t0+n-1. CPU tensors run the
-    plain version; CUDA tensors launch the kernel or raise.
+    plain version; CUDA tensors launch the kernel or raise. `lanes` names
+    the build to launch (one of stage.LANES) in place of the dispatch's
+    choice; the results do not depend on it, and the plain version has no
+    such builds.
 
     Returns (z', v' [B, nzp] transformed, lam [B, nzp], k [B] int32,
     e_flag [B] int32 (1 converged / -1 k_max reached), r_p [B], r_d [B]).
@@ -359,9 +393,10 @@ def fused_ellip_solve(z1, v0, lam0, M2_pad, pinvh, LB_pad, UB_pad, c_pad, *,
     if z1.device.type == "cpu":
         return fused_ellip_reference(*args, **kw)
     if z1.device.type == "cuda":
-        return _launch(*args, **kw)
+        return _launch(*args, lanes=lanes, **kw)
     raise ValueError(f"fused_ellip_solve takes CPU or CUDA tensors; got "
                      f"{z1.device}")
 
 
 fused_ellip_solve.launches = 0
+fused_ellip_solve.last_plan = None

@@ -42,7 +42,16 @@ The batch is padded to a multiple of tile_b by the caller.
 
 `fused_fista_solve` runs the plain version for CPU tensors and launches
 the kernel for CUDA tensors; `fused_fista_solve.launches` counts the
-launches.
+launches and `fused_fista_solve.last_plan` holds the last launch's build
+and geometry.
+
+The kernel runs its three products on the product stage
+csrc/tile_product.cuh, built for 8, 16 and 32 lanes a block
+(kernels/stage.py plans the launch; there is no refill: every mode keeps a
+block of L lanes, and plain free-run freezes each group of 8 lanes once its
+lanes are done, as a tile of tile_b = 8 drains). Every build gives the same
+bits, so `lanes=` of `fused_fista_solve` may name another build, for a
+check or a timing.
 """
 
 from __future__ import annotations
@@ -51,22 +60,26 @@ import ctypes
 
 import torch
 
-from spcies_tpu_torch.kernels.fused_admm import (COL_PAD, MAX_COLS,
+from spcies_tpu_torch.kernels import stage
+from spcies_tpu_torch.kernels.fused_admm import (COL_PAD, DQ_PAD, MAX_COLS,
                                                  RBIG, round_up)
 
-# lanes per thread block (TB in csrc/fused_fista.cu)
-CTA_LANES = 8
+__all__ = ["COL_PAD", "MAX_COLS", "round_up", "fused_fista_reference",
+           "fused_fista_solve", "launch_geometry", "launch_plan",
+           "shared_bytes"]
 
-__all__ = ["COL_PAD", "CTA_LANES", "MAX_COLS", "round_up",
-           "fused_fista_reference", "fused_fista_solve", "launch_geometry"]
-
-# C signature of fused_fista_launch: 18 tensor pointers (11 inputs, 6
-# outputs, the exact-k snapshot scratch); B, nzp, nlamp, blocks, threads,
-# shared bytes; tol; k_max, restart, check_every, fixed_iters, exact_k;
-# the stream
-FUSED_FISTA_ARGTYPES = ([ctypes.c_void_p] * 18 + [ctypes.c_int] * 6
+# C signature of fused_fista_launch: 19 tensor pointers (11 inputs, 6
+# outputs, the exact-k snapshot scratch, int32 scratch for the matrices'
+# real rows and the clock counts); B, nzp, nlamp, lanes, blocks, threads,
+# shared bytes; tol; k_max, restart, check_every, fixed_iters, exact_k; the
+# stream
+FUSED_FISTA_ARGTYPES = ([ctypes.c_void_p] * 19 + [ctypes.c_int] * 7
                         + [ctypes.c_float] + [ctypes.c_int] * 5
                         + [ctypes.c_void_p])
+# lanes a block -> (rows a slab of the ring, blocks an SM) of its build up
+# to stage.NARROW columns (Build<L> in csrc/fused_fista.cu)
+BUILDS = {8: (16, 2), 16: (16, 1), 32: (16, 1)}
+WARP = 32
 # plain version: read "all lanes done" on the host every this many
 # iterations of the checked loop (extra iterations of frozen lanes are
 # exact no-ops)
@@ -210,39 +223,52 @@ def fused_fista_reference(q1, z0, r0, y0, lam0, G_pad, GT_pad, WinvT_pad,
     return s[1], s[3], s[4], k, e_flag, res
 
 
-def launch_geometry(B: int, nzp: int, nlamp: int, *, tile_b: int,
-                    check_every: int, exact_k: bool, fixed_iters: int,
-                    k_max: int):
-    """(blocks, threads, dynamic shared bytes) of a kernel launch; raises
-    ValueError on a shape or mode the kernel does not take."""
+def shared_bytes(nzp: int, nlamp: int, lanes: int) -> int:
+    """Dynamic shared bytes of a block (fused_fista_smem in the source): the
+    ring of slabs of the widest row, q, z_prev, y and lam as [rows][lanes],
+    r and the dz/dy buffer with their padding, the warps' row maxima, the
+    coefficients, the masks, the window starts, the slots' lanes and the
+    snapshot's t and res."""
+    T = max(nzp, nlamp)
+    slab = stage.build_of(BUILDS, T, lanes)[0]
+    return stage.ring_bytes(T, slab) + 4 * (
+        (2 * nzp + 2 * nlamp) * lanes + (nlamp + T) * (lanes + DQ_PAD)
+        + T // WARP * 2 * lanes + lanes + 4 + 4 * lanes)
+
+
+def launch_plan(B: int, nzp: int, nlamp: int, *, tile_b: int,
+                check_every: int, exact_k: bool, fixed_iters: int,
+                k_max: int, lanes: int | None = None):
+    """The build a launch takes and its geometry, as a dict: lanes a block,
+    blocks, threads, dynamic shared bytes, refill (always False). `lanes`
+    names a build in place of the dispatch's choice; raises ValueError on a
+    shape or mode no build takes."""
     for name, w in (("nz", nzp), ("nlam", nlamp)):
         if w % COL_PAD or not 0 < w <= MAX_COLS:
             raise ValueError(f"the kernel takes a padded {name} that is a "
                              f"multiple of {COL_PAD} up to {MAX_COLS}; "
                              f"got {w}")
-    if tile_b % CTA_LANES:
-        raise ValueError(f"tile_b must be a multiple of {CTA_LANES}; "
-                         f"got {tile_b}")
-    if B % tile_b:
-        raise ValueError(f"batch {B} is not a multiple of tile_b {tile_b}")
     if k_max < 1:
         raise ValueError(f"k_max must be at least 1; got {k_max}")
-    if (check_every > 1 and not exact_k and not fixed_iters
-            and tile_b != CTA_LANES):
-        # in plain free-run the output iterates depend on when a lane's
-        # tile drains, and the kernel drains per block of CTA_LANES lanes
-        raise ValueError(
-            f"plain free-run (check_every > 1 without exact_k) takes "
-            f"tile_b={CTA_LANES} on the GPU; got {tile_b}")
-    # product inputs dz [nzp][8], r and dy [nlamp][8]; state q and z_prev
-    # [nzp][8], r, y and lam [nlamp][8]; residual maxima [warps][8]
-    smem = 4 * CTA_LANES * (3 * nzp + 5 * nlamp + nlamp // 32)
-    return B // CTA_LANES, max(nzp, nlamp), smem
+    # fixed_iters runs plain iterations alone, whatever check_every says
+    stage.check_mode(B, tile_b=tile_b,
+                     check_every=1 if fixed_iters else check_every,
+                     exact_k=exact_k)
+    return stage.plan(B, max(nzp, nlamp),
+                      lambda L: shared_bytes(nzp, nlamp, L), BUILDS,
+                      refill=False, lanes=lanes)
+
+
+def launch_geometry(B: int, nzp: int, nlamp: int, **kw):
+    """(blocks, threads, dynamic shared bytes) of a kernel launch; the
+    arguments of `launch_plan`."""
+    plan = launch_plan(B, nzp, nlamp, **kw)
+    return plan["blocks"], plan["threads"], plan["smem"]
 
 
 def _launch(q1, z0, r0, y0, lam0, G_pad, GT_pad, WinvT_pad, hinv_pad,
             LB_pad, UB_pad, *, tol, k_max, restart, tile_b, check_every,
-            fixed_iters, exact_k):
+            fixed_iters, exact_k, lanes=None):
     args = (q1, z0, r0, y0, lam0, G_pad, GT_pad, WinvT_pad, hinv_pad,
             LB_pad, UB_pad)
     for t in args:
@@ -252,9 +278,9 @@ def _launch(q1, z0, r0, y0, lam0, G_pad, GT_pad, WinvT_pad, hinv_pad,
             raise ValueError("the fused kernel takes contiguous tensors")
     B, nzp = q1.shape
     nlamp = r0.shape[1]
-    blocks, threads, smem = launch_geometry(
-        B, nzp, nlamp, tile_b=tile_b, check_every=check_every,
-        exact_k=exact_k, fixed_iters=fixed_iters, k_max=k_max)
+    plan = launch_plan(B, nzp, nlamp, tile_b=tile_b, check_every=check_every,
+                       exact_k=exact_k, fixed_iters=fixed_iters, k_max=k_max,
+                       lanes=lanes)
     from spcies_tpu_torch.kernels._build import load_kernel
     launch = load_kernel("fused_fista", "fused_fista_launch",
                          FUSED_FISTA_ARGTYPES)
@@ -268,18 +294,28 @@ def _launch(q1, z0, r0, y0, lam0, G_pad, GT_pad, WinvT_pad, hinv_pad,
     exact = check_every > 1 and exact_k and not fixed_iters
     snap = torch.empty((B if exact else 0, 2 * nzp + 3 * nlamp),
                        dtype=torch.float32, device=dev)
+    # the real rows of G', Winv' and G, found by the launch; then each
+    # block's kilo-clocks of its iterations and of each product's slab loop
+    # (in a build with TP_CLOCKS; else zeros)
+    nb = plan["blocks"]
+    ext = torch.zeros((4 + 4 * nb,), dtype=torch.int32, device=dev)
+    ptrs = [t.data_ptr() for t in args + (z, y, lam, k, done, res, snap,
+                                          ext)]
+    if any(ptr % 16 for ptr in ptrs):
+        raise ValueError("the fused kernel takes 16-byte aligned tensors")
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = launch(
-            *(t.data_ptr() for t in args + (z, y, lam, k, done, res, snap)),
-            B, nzp, nlamp, blocks, threads, smem, float(tol), int(k_max),
+            *ptrs, B, nzp, nlamp, plan["lanes"], plan["blocks"],
+            plan["threads"], plan["smem"], float(tol), int(k_max),
             int(bool(restart)), int(check_every), int(fixed_iters),
             int(bool(exact_k)), stream)
     if err != 0:
         raise RuntimeError(f"fused_fista kernel launch failed with CUDA "
-                           f"error {err} (blocks={blocks}, threads={threads},"
-                           f" shared={smem} B)")
+                           f"error {err} ({plan})")
     fused_fista_solve.launches += 1
+    fused_fista_solve.last_plan = dict(plan,
+                                       block_clocks=ext[4:].view(nb, 4))
     e_flag = torch.where(done == 1, 1, -1).to(torch.int32)
     return z, y, lam, k, e_flag, res
 
@@ -288,12 +324,15 @@ def fused_fista_solve(q1, z0, r0, y0, lam0, G_pad, GT_pad, WinvT_pad,
                       hinv_pad, LB_pad, UB_pad, *, tol: float, k_max: int,
                       restart: bool = False, tile_b: int = 256,
                       check_every: int = 1, fixed_iters: int = 0,
-                      exact_k: bool = False):
+                      exact_k: bool = False, lanes: int | None = None):
     """Run the fused dual-FISTA loop: q1, z0 [B, nzp]; r0, y0, lam0
     [B, nlamp]; G_pad [nlamp, nzp], GT_pad [nzp, nlamp], WinvT_pad
     [nlamp, nlamp]; hinv_pad and the bounds hold nzp entries (padded as
     the module docstring says; B a multiple of tile_b). CPU tensors run
-    the plain version; CUDA tensors launch the kernel or raise.
+    the plain version; CUDA tensors launch the kernel or raise. `lanes`
+    names the build to launch (one of stage.LANES) in place of the
+    dispatch's choice; the results do not depend on it, and the plain
+    version has no such builds.
 
     Returns (z [B, nzp], y, lam [B, nlamp], k [B] int32, e_flag [B] int32
     (1 converged / -1 k_max reached), res [B]).
@@ -328,9 +367,10 @@ def fused_fista_solve(q1, z0, r0, y0, lam0, G_pad, GT_pad, WinvT_pad,
     if q1.device.type == "cpu":
         return fused_fista_reference(*args, **kw)
     if q1.device.type == "cuda":
-        return _launch(*args, **kw)
+        return _launch(*args, lanes=lanes, **kw)
     raise ValueError(f"fused_fista_solve takes CPU or CUDA tensors; got "
                      f"{q1.device}")
 
 
 fused_fista_solve.launches = 0
+fused_fista_solve.last_plan = None

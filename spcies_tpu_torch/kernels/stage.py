@@ -1,6 +1,7 @@
 """Launch geometry of the kernels that run on the product stage
-csrc/tile_product.cuh with refill: K5 (kernels/fused_soc.py) and K6
-(kernels/fused_hmpc.py).
+csrc/tile_product.cuh with a build for each lanes a block: K2
+(kernels/fused_fista.py, no refill), K4 (kernels/fused_ellip.py), K5
+(kernels/fused_soc.py) and K6 (kernels/fused_hmpc.py).
 
 Each kernel is built for 8, 16 and 32 lanes a block (LANES), and up to
 NARROW columns each of those has a build of its own (`builds`: lanes -> rows

@@ -8,6 +8,7 @@ import numpy as np
 import pytest
 import torch
 import torch.nn.functional as F
+from threadpoolctl import threadpool_limits
 
 import spcies_tpu as jsp
 
@@ -16,6 +17,17 @@ from spcies_tpu_torch.kernels import _build
 from spcies_tpu_torch.kernels import fused_admm as fk
 
 torch.set_num_threads(2)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_blas_thread():
+    """One BLAS thread while this module runs. Both packages' offline
+    layers factor small matrices with numpy, whose OpenBLAS threads
+    spin-wait for each other: with the suite's workers on every core, such
+    a call waits for all its threads to be scheduled (a test of 0.03 s
+    took 10 s)."""
+    with threadpool_limits(limits=1, user_api="blas"):
+        yield
 
 
 def _on_cpu(pkg):

@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 import torch.nn.functional as F
+from threadpoolctl import threadpool_limits
 
 import spcies_tpu as jsp
 from spcies_tpu.kernels.fused_ellip import fused_ellip_solve as jax_kernel
@@ -20,6 +21,17 @@ from spcies_tpu_torch.kernels import fused_ellip as fk
 from spcies_tpu_torch.solvers.fused_backend import FusedEllipADMMSolve
 
 torch.set_num_threads(2)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_blas_thread():
+    """One BLAS thread while this module runs. Both packages' offline
+    layers factor small matrices with numpy, whose OpenBLAS threads
+    spin-wait for each other: with the suite's workers on every core, such
+    a call waits for all its threads to be scheduled (a test of 0.03 s
+    took 10 s)."""
+    with threadpool_limits(limits=1, user_api="blas"):
+        yield
 
 
 def _on_cpu(pkg):
@@ -383,21 +395,38 @@ def test_wrapper_rejects_bad_arguments():
 
 
 def test_launch_geometry():
-    # the N=30 shape: nz = 240 pads to 256 columns, slab 234..239
-    smem = 4 * 8 * (6 * 256 + 4 * 8)
+    # the N=30 shape: nz = 240 pads to 256 columns, slab 234..239. Exact-k,
+    # the main path, keeps one block of 32 lanes: its state and the 32-row
+    # slabs of M2 take all but 27 KB of the shared memory a block can have
     for B in (8192, 32768):
-        assert fk.launch_geometry(B, 256, 234, 6, tile_b=256, check_every=8,
-                                  exact_k=True, fixed_iters=0) == (
-            B // 8, 256, smem)
-    # 512 columns fit the 227 KB a block can opt into
-    assert 48 * 1024 < fk.launch_geometry(
-        8, 512, 0, 6, tile_b=8, check_every=1, exact_k=False,
-        fixed_iters=0)[2] <= 232448
-    # plain free-run drains per block of 8 lanes; fixed_iters does not care
+        kw = dict(tile_b=256, check_every=8, exact_k=True, fixed_iters=0)
+        plan = fk.launch_plan(B, 256, 234, 6, **kw)
+        assert plan == dict(lanes=32, blocks=B // 32, threads=256,
+                            smem=fk.shared_bytes(256, 6, 32), refill=False)
+        assert fk.launch_geometry(B, 256, 234, 6, **kw) == (B // 32, 256,
+                                                            plan["smem"])
+    assert fk.shared_bytes(256, 6, 32) == 4 * (
+        2 * 32 * 256 + 16 + 256 * (4 * 32 + 4) + 8 * 2 * 32 + 4 + 3 * 32
+        + 2 * 6 * 36 + 36)
+    # plain free-run and the checked mode refill persistent blocks, one an
+    # SM at 32 lanes
+    for ce in (1, 8):
+        plan = fk.launch_plan(8192, 256, 234, 6, tile_b=8, check_every=ce,
+                              exact_k=False, fixed_iters=0)
+        assert (plan["lanes"], plan["blocks"], plan["refill"]) == (32, 132,
+                                                                   True)
+    # 512 columns fit the 227 KB a block can opt into, at 16 lanes at most
+    plan = fk.launch_plan(8192, 512, 0, 6, tile_b=8, check_every=1,
+                          exact_k=False, fixed_iters=0)
+    assert plan["lanes"] == 16 and 48 * 1024 < plan["smem"] <= 232448
+    # plain free-run drains per group of 8 lanes; fixed_iters does not care
+    # and keeps a block of L lanes
     assert fk.launch_geometry(16, 96, 74, 6, tile_b=8, check_every=4,
                               exact_k=False, fixed_iters=0)[:2] == (2, 96)
     assert fk.launch_geometry(256, 96, 74, 6, tile_b=256, check_every=8,
                               exact_k=False, fixed_iters=50)[0] == 32
+    assert not fk.launch_plan(256, 96, 74, 6, tile_b=256, check_every=8,
+                              exact_k=False, fixed_iters=50)["refill"]
     bad = [
         dict(nzp=250),                    # not whole warps
         dict(nzp=544),                    # beyond 512 threads
@@ -418,6 +447,33 @@ def test_launch_geometry():
                                fixed_iters=0)
 
 
+@pytest.mark.parametrize("B,exact_k,lanes", [
+    (8192, True, 32), (2048, True, 16), (1024, True, 8),
+    (8192, False, 32), (2048, False, 16), (64, False, 8),
+])
+def test_lanes_chosen_per_batch(B, exact_k, lanes):
+    """The widest build that still gives half of the 132 SMs a block, as
+    kernels/stage.py picks it; every build fits shared memory."""
+    plan = fk.launch_plan(B, 256, 234, 6, tile_b=256 if exact_k else 8,
+                          check_every=8, exact_k=exact_k, fixed_iters=0)
+    assert plan["lanes"] == lanes and plan["refill"] == (not exact_k)
+    for L in fk.BUILDS:
+        assert fk.shared_bytes(256, 6, L) <= 232448
+
+
+@pytest.mark.parametrize("lanes,kw", [
+    (64, {}),                              # no such build
+    (32, dict(nzp=352, t0=320)),           # above 320 columns
+    (16, dict(B=8200)),                    # exact-k: not whole blocks
+])
+def test_named_builds_are_refused(lanes, kw):
+    a = {**dict(B=8192, nzp=256, t0=234), **kw}
+    with pytest.raises(ValueError, match="no build"):
+        fk.launch_plan(a["B"], a["nzp"], a["t0"], 6, tile_b=8,
+                       check_every=8, exact_k=True, fixed_iters=0,
+                       lanes=lanes)
+
+
 def test_build_is_lazy_and_content_addressed():
     # importing the package built nothing
     assert _build.build_record("fused_ellip") is None
@@ -427,6 +483,16 @@ def test_build_is_lazy_and_content_addressed():
     src = (_build.CSRC / "fused_ellip.cu").read_text()
     assert src.count("extern \"C\" int fused_ellip_launch(") == 1
     assert f"NSNAP = {fk.SNAP_LEAVES};" in src
-    # the C signature the wrapper binds: 16 pointers, 7 + 5 + 4 scalars,
+    # the C signature the wrapper binds: 17 pointers, 8 + 5 + 4 scalars,
     # the stream
-    assert len(fk.FUSED_ELLIP_ARGTYPES) == 33
+    assert len(fk.FUSED_ELLIP_ARGTYPES) == 35
+    # the builds the wrapper plans for are the source's
+    assert '#include "tile_product.cuh"' in src
+    for lanes, (slab, blocks) in fk.BUILDS.items():
+        assert f"#define EL_SLAB_{lanes} {slab}\n" in src
+        assert f"#define EL_BLOCKS_{lanes} {blocks}\n" in src
+        assert f"launch<{lanes}, true>(p, " in src
+    # no tensor-core product and no library product in the launched source
+    assert "mma" not in src and "cublas" not in src.lower()
+    # the one-column-per-thread parent stays beside it, for the timing tool
+    assert (_build.CSRC / "variants" / "fused_ellip_parent.cu").is_file()

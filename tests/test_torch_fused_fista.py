@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 import torch
 import torch.nn.functional as F
+from threadpoolctl import threadpool_limits
 
 import spcies_tpu as jsp
 
@@ -17,6 +18,17 @@ from spcies_tpu_torch.kernels import _build
 from spcies_tpu_torch.kernels import fused_fista as fk
 
 torch.set_num_threads(2)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_blas_thread():
+    """One BLAS thread while this module runs. Both packages' offline
+    layers factor small matrices with numpy, whose OpenBLAS threads
+    spin-wait for each other: with the suite's workers on every core, such
+    a call waits for all its threads to be scheduled (a test of 0.03 s
+    took 10 s)."""
+    with threadpool_limits(limits=1, user_api="blas"):
+        yield
 
 
 def _on_cpu(pkg):
@@ -336,12 +348,21 @@ def test_wrapper_rejects_bad_arguments():
 
 def test_launch_geometry():
     # the N=30 shapes: nz 240 (laxMPC) or 234 (equMPC) pad to 256 columns,
-    # nlam 180 to 192; one thread per column of the wider
-    smem = 4 * 8 * (3 * 256 + 5 * 192 + 6)
+    # nlam 180 to 192; one thread per column of the wider. A block of 32
+    # lanes holds its state and a ring of 16-row slabs in 215 KB of shared
+    # memory
     for B in (8192, 32768):
-        assert fk.launch_geometry(B, 256, 192, tile_b=256, check_every=8,
-                                  exact_k=True, fixed_iters=0,
-                                  k_max=4000) == (B // 8, 256, smem)
+        kw = dict(tile_b=256, check_every=8, exact_k=True, fixed_iters=0,
+                  k_max=4000)
+        plan = fk.launch_plan(B, 256, 192, **kw)
+        assert plan == dict(lanes=32, blocks=B // 32, threads=256,
+                            smem=fk.shared_bytes(256, 192, 32),
+                            refill=False)
+        assert fk.launch_geometry(B, 256, 192, **kw) == (B // 32, 256,
+                                                         plan["smem"])
+    assert fk.shared_bytes(256, 192, 32) == 4 * (
+        2 * 16 * 256 + 16 + (2 * 256 + 2 * 192) * 32 + (192 + 256) * 36
+        + 8 * 2 * 32 + 32 + 4 + 4 * 32)
     assert fk.launch_geometry(16, 96, 160, tile_b=8, check_every=8,
                               exact_k=False, fixed_iters=0,
                               k_max=10)[:2] == (2, 160)
@@ -402,6 +423,46 @@ def test_build_is_lazy_and_content_addressed():
     assert d != _build.source_digest("fused_admm")
     assert (_build.CSRC / "fused_fista.cu").read_text().count(
         "extern \"C\" int fused_fista_launch(") == 1
-    # the C signature the wrapper binds: 18 pointers, 6 + 1 + 5 scalars,
+    # the C signature the wrapper binds: 19 pointers, 7 + 1 + 5 scalars,
     # the stream
-    assert len(fk.FUSED_FISTA_ARGTYPES) == 31
+    assert len(fk.FUSED_FISTA_ARGTYPES) == 33
+    src = (_build.CSRC / "fused_fista.cu").read_text()
+    # the builds the wrapper plans for are the source's
+    assert '#include "tile_product.cuh"' in src
+    for lanes, (slab, blocks) in fk.BUILDS.items():
+        assert f"#define FI_SLAB_{lanes} {slab}\n" in src
+        assert f"#define FI_BLOCKS_{lanes} {blocks}\n" in src
+    # the window-minimum exit of exact-k is the mode loop's
+    assert "tp::run_modes<L, true>(" in src
+    # no tensor-core product and no library product in the launched source
+    assert "mma" not in src and "cublas" not in src.lower()
+    # the one-column-per-thread parent stays beside it, for the timing tool
+    assert (_build.CSRC / "variants" / "fused_fista_parent.cu").is_file()
+
+
+@pytest.mark.parametrize("B,lanes", [(8192, 32), (4096, 32), (2048, 16),
+                                     (1024, 8), (64, 8)])
+def test_lanes_chosen_per_batch(B, lanes):
+    """The widest build that divides the batch and still gives half of the
+    132 SMs a block, as kernels/stage.py picks it; every build fits shared
+    memory at the N=30 widths, and 512 x 512 at 8 lanes."""
+    plan = fk.launch_plan(B, 256, 192, tile_b=8, check_every=8,
+                          exact_k=True, fixed_iters=0, k_max=4000)
+    assert plan["lanes"] == lanes and not plan["refill"]
+    for L in fk.BUILDS:
+        assert fk.shared_bytes(256, 192, L) <= 232448
+    assert fk.shared_bytes(512, 512, 8) <= 232448
+
+
+@pytest.mark.parametrize("lanes,kw", [
+    (64, {}),                              # no such build
+    (32, dict(nzp=352)),                   # above 320 columns
+    (16, dict(B=8200)),                    # not whole blocks
+    (16, dict(nzp=512, nlamp=512)),        # beyond shared memory
+])
+def test_named_builds_are_refused(lanes, kw):
+    a = {**dict(B=8192, nzp=256, nlamp=192), **kw}
+    with pytest.raises(ValueError, match="no build"):
+        fk.launch_plan(a["B"], a["nzp"], a["nlamp"], tile_b=8,
+                       check_every=8, exact_k=True, fixed_iters=0,
+                       k_max=4000, lanes=lanes)

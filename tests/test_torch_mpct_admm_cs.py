@@ -10,6 +10,7 @@ banded backend (ROADMAP queue 1 item 8)."""
 import numpy as np
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 
 import spcies_tpu as jsp
 from spcies_tpu.oracle import mpct_admm_cs_oracle
@@ -20,6 +21,17 @@ from spcies_tpu_torch.convert import ingredients_from_jax
 from spcies_tpu_torch.kernels import fused_admm as fa
 
 torch.set_num_threads(2)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_blas_thread():
+    """One BLAS thread while this module runs. Both packages' offline
+    layers factor small matrices with numpy, whose OpenBLAS threads
+    spin-wait for each other: with the suite's workers on every core, such
+    a call waits for all its threads to be scheduled (a test of 0.03 s
+    took 10 s)."""
+    with threadpool_limits(limits=1, user_api="blas"):
+        yield
 
 
 def _on_cpu(pkg):

@@ -5,6 +5,7 @@ ingredients and the projections."""
 import numpy as np
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 
 import spcies_tpu as jsp
 import spcies_tpu.config as jcfg
@@ -21,6 +22,17 @@ from spcies_tpu_torch.utils import linalg as tlinalg
 from spcies_tpu_torch.utils import projections as tproj
 
 torch.set_num_threads(2)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_blas_thread():
+    """One BLAS thread while this module runs. Both packages' offline
+    layers factor small matrices with numpy, whose OpenBLAS threads
+    spin-wait for each other: with the suite's workers on every core, such
+    a call waits for all its threads to be scheduled (a test of 0.03 s
+    took 10 s)."""
+    with threadpool_limits(limits=1, user_api="blas"):
+        yield
 
 
 @pytest.mark.parametrize("name", ["METHODS_BY_FORMULATION", "SUBMETHODS",

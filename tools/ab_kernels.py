@@ -2,20 +2,19 @@
 """A/B of build variants of the port's kernels on one CUDA card, in one
 process.
 
-K4 (fused_ellip): each variant is the committed source
-(spcies_tpu_torch/csrc/) with one text substitution: the product's unroll
-depth, or the blocks an SM the kernel is compiled for.
-
-K5 and K6 (fused_soc, fused_hmpc): the committed source on the product stage
-csrc/tile_product.cuh at 8, 16 and 32 lanes a block, and builds of it with
-other macro defaults (refill off, other slab rows and blocks an SM, a ring
-of three slabs, clock counts of an iteration's halves, the cones projected
-as the parents project them), each held to the parent
-(csrc/variants/fused_hmpc_parent.cu, fused_soc_parent.cu: one column a
-thread, 8 lanes a block) bit for bit in every mode chip_smoke.py runs for
-the kernel, then timed with the parent in turns at B=8192 and 32768 beside
-each launch's group and block iterations. `--only a,b` keeps the builds
-whose names hold a or b.
+K2, K4, K5 and K6 (fused_fista, fused_ellip, fused_soc, fused_hmpc): the
+committed source on the product stage csrc/tile_product.cuh at 8, 16 and 32
+lanes a block, and builds of it with other macro defaults (K4-K6: refill
+off, other slab rows and blocks an SM, a ring of three slabs, clock counts
+of an iteration's halves; K6 and K5: the cones projected as the parents
+project them; K2: other slab rows, blocks an SM, columns a thread, ring
+depth and clock counts of its products), each held to the parent
+(csrc/variants/fused_*_parent.cu: one column a thread, 8 lanes a block)
+bit for bit in every mode chip_smoke.py runs for the kernel, then timed
+with the parent in turns at B=8192 and 32768 (and K4 at phase 10's binding
+ball, B=8192) beside each launch's group and block iterations. `--only a,b` keeps the builds whose names hold
+a or b, here and for K1 and K7 (which then skip K1's bf16 and sort_lanes
+timings).
 
 K1 and K7 (fused_admm, fused_split): the builds of the product stage
 csrc/tile_product.cuh, under K1's source csrc/fused_admm.cu and K7's build on
@@ -36,14 +35,14 @@ solver is timed with sort_lanes on and off.
 
 The script builds every variant into the git-ignored
 spcies_tpu_torch/_build/ab/, prints ptxas's registers and spills and the
-mean block iterations beside k_mean, holds each variant against the plain
-PyTorch version (K4) or the parent (K1, K5-K7) at the kernel's
-chip_smoke.py families, and times the variants in turns (forward, then
-backward) at B=4096, 8192 and 32768 (K4-K6: 8192 and 32768) with CUDA
-events. Run from the repository root on a machine with a card, for all
+mean block iterations beside k_mean, holds each variant against the parent
+at the kernel's chip_smoke.py families, and times the variants in turns
+(forward, then backward) at B=4096, 8192 and 32768 (K2 and K4-K6: 8192 and
+32768) with CUDA events. Run from the repository root on a machine with a card, for all
 kernels or the ones named:
 
     python3 tools/ab_kernels.py [fused_admm fused_split fused_hmpc ...]
+                                [--only a,b]
 
 With SPCIES_LOG_DIR set, every line also goes to ab_kernels.log in that
 directory.
@@ -69,96 +68,11 @@ import spcies_tpu_torch as sp  # noqa: E402
 from spcies_tpu_torch.kernels import _build  # noqa: E402
 from spcies_tpu_torch.kernels import fused_admm as k1  # noqa: E402
 from spcies_tpu_torch.kernels import fused_ellip as k4  # noqa: E402
+from spcies_tpu_torch.kernels import fused_fista as k2  # noqa: E402
 from spcies_tpu_torch.kernels import fused_hmpc as k6  # noqa: E402
 from spcies_tpu_torch.kernels import fused_soc as k5  # noqa: E402
 from spcies_tpu_torch.kernels import fused_split as k7  # noqa: E402
 from spcies_tpu_torch.kernels import stage  # noqa: E402
-
-# kernel -> variant name -> (text in the committed source, replacement);
-# None is the committed source itself
-TEXT_VARIANTS = {
-    "fused_ellip": {
-        "committed (unroll 16, 3 blocks an SM)": None,
-        "unroll 8": ("UNROLL = 16;", "UNROLL = 8; "),
-        "unroll 4": ("UNROLL = 16;", "UNROLL = 4;  "),
-        "128 registers, 2 blocks an SM": ("nzp <= NARROW ?", "false ?"),
-    },
-}
-
-
-def _ellip(kern, plain, u_at, *families):
-    return dict(families=families, kern=kern, plain=plain, u_at=u_at,
-                solver=c.ellip_solver, inputs=c.ellip_inputs,
-                args=c.ellip_kernel_args)
-
-
-# kernel -> its families, wrapper, plain version, u's column in the
-# kernel's first output, and chip_smoke.py's solver, input and argument
-# builders for them
-KERNELS = {
-    "fused_ellip": _ellip(k4.fused_ellip_solve, k4.fused_ellip_reference, 1,
-                          "ellipMPC-ADMM"),
-}
-ARGTYPES = {"fused_ellip": k4.FUSED_ELLIP_ARGTYPES}
-
-
-def variant_dir(kernel: str, name: str, change) -> Path:  # K4
-    """A directory holding a variant's source, written from the committed
-    one: `change` is None (the committed source itself) or an (old, new)
-    text substitution."""
-    if change is None:
-        return REPO / "spcies_tpu_torch" / "csrc"
-    src = (REPO / "spcies_tpu_torch" / "csrc" / f"{kernel}.cu").read_text()
-    old, new = change
-    if src.count(old) != 1:
-        raise RuntimeError(f"{kernel} {name}: {old!r} not found once")
-    d = _build.BUILD_DIR / "ab" / f"{kernel}-{re.sub(r'\W+', '_', name)}"
-    d.mkdir(parents=True, exist_ok=True)
-    (d / f"{kernel}.cu").write_text(src.replace(old, new))
-    return d
-
-
-def use(kernel: str, directory: Path):
-    """Make the wrapper launch the library built from `directory`."""
-    _build.CSRC = directory
-    _build._LOADED.pop(kernel, None)
-    _build.load_kernel(kernel, f"{kernel}_launch", ARGTYPES[kernel])
-    return _build.build_record(kernel)
-
-
-def ab(kernel: str, result: dict):
-    """Build, check and time every variant of one kernel."""
-    spec = KERNELS[kernel]
-    kern, plain = spec["kern"], spec["plain"]
-    dirs = {name: variant_dir(kernel, name, change)
-            for name, change in TEXT_VARIANTS[kernel].items()}
-    for name, d in dirs.items():
-        for line in use(kernel, d)["log"].splitlines():
-            if "registers" in line or "spill" in line:
-                c.log(f"{kernel} [{name}] ptxas: {line.strip()}")
-    for fam in spec["families"]:
-        for B in (c.FB, c.BATCH):
-            solver = spec["solver"](sp, fam, device="cuda")
-            args, kk = spec["args"](solver, spec["inputs"](sp, fam, 0, B))
-            if B == c.FB:
-                ref = plain(*args, **kk)
-                for name, d in dirs.items():
-                    use(kernel, d)
-                    out = kern(*args, **kk)
-                    torch.cuda.synchronize()
-                    a = c.agreement(out, ref, B, solver.m, False,
-                                    u_at=spec["u_at"])
-                    c.log(f"{kernel} [{name}] {fam} vs plain B={B}: "
-                          + json.dumps(a))
-                    assert a["k_agree"] >= c.K_AGREE and a["u_err"] <= c.U_TOL
-            t = {name: [] for name in dirs}
-            for name in list(dirs) + list(dirs)[::-1]:
-                use(kernel, dirs[name])
-                t[name].append(c.cuda_ms(lambda: kern(*args, **kk), reps=3))
-            c.log(f"{kernel} {fam} B={B} ms (CUDA events, in turns): "
-                  + json.dumps(t))
-            result[f"{kernel} {fam} B={B}"] = {k: min(v)
-                                               for k, v in t.items()}
 
 
 # ---- K1 and K7: the builds of csrc/tile_product.cuh -----------------------
@@ -343,6 +257,18 @@ PARENT_HMPC_ARGTYPES = ([ctypes.c_void_p] * 16 + [ctypes.c_int] * 9
 PARENT_SOC_ARGTYPES = ([ctypes.c_void_p] * 16 + [ctypes.c_int] * 6
                        + [ctypes.c_float] * 2 + [ctypes.c_int] * 3
                        + [ctypes.c_void_p])
+# and of the parents of K4 (fused_ellip_parent.cu: 16 tensor pointers; B,
+# nzp, t0, n, blocks, threads, shared bytes; rho, 1/rho, r, tol_p, tol_d;
+# k_max, check_every, fixed_iters, exact_k; the stream) and K2
+# (fused_fista_parent.cu: 18 tensor pointers; B, nzp, nlamp, blocks,
+# threads, shared bytes; tol; k_max, restart, check_every, fixed_iters,
+# exact_k; the stream)
+PARENT_ELLIP_ARGTYPES = ([ctypes.c_void_p] * 16 + [ctypes.c_int] * 7
+                         + [ctypes.c_float] * 5 + [ctypes.c_int] * 4
+                         + [ctypes.c_void_p])
+PARENT_FISTA_ARGTYPES = ([ctypes.c_void_p] * 18 + [ctypes.c_int] * 6
+                         + [ctypes.c_float] + [ctypes.c_int] * 5
+                         + [ctypes.c_void_p])
 
 
 def _hmpc_chip(name):
@@ -367,8 +293,41 @@ def _soc_chip(name):
                 args=lambda solver, x: c.ellip_kernel_args(solver, x))
 
 
+def _ellip_chip():
+    """K4's modes carry fixed_iters in their input options."""
+    adm = "ellipMPC-ADMM"
+    return dict(module=k4, solve=k4.fused_ellip_solve, prefix="EL",
+                families=(adm,),
+                modes=[(m[0], m[1], m[2], m[5], dict(m[6], fixed=m[3]))
+                       for m in c.ellip_modes() if m[0] == adm],
+                timings=[(adm, adm, {}, (c.FB, c.BATCH)),
+                         (adm, f"{adm} random SPD P, c != xr",
+                          dict(spd_seed=11), (c.FB,))],
+                solver=lambda sp_, fam, **kw: c.ellip_solver(
+                    sp_, fam, device="cuda", **kw),
+                inputs=lambda fam, B, extra: (
+                    c.ellip_inputs(sp, fam, 0, B),
+                    extra.get("fixed", 0)),
+                args=lambda solver, x: c.ellip_kernel_args(solver, *x))
+
+
+def _fista_chip():
+    return dict(module=k2, solve=k2.fused_fista_solve, prefix="FI",
+                families=("laxMPC-FISTA", "equMPC-FISTA"),
+                modes=[(m[1], m[0], m[2], m[4], dict(fixed=m[3]))
+                       for m in c.fista_modes()],
+                solver=lambda sp_, fam, **kw: c.family_solver(
+                    sp_, fam, device="cuda", **kw),
+                inputs=lambda fam, B, extra: (c.problem(sp, 0, B)[2],
+                                              extra.get("fixed", 0)),
+                args=lambda solver, x: c.fista_kernel_args(solver, *x),
+                common=False)
+
+
 STAGE = {"fused_hmpc": _hmpc_chip("fused_hmpc"),
-         "fused_soc": _soc_chip("fused_soc")}
+         "fused_soc": _soc_chip("fused_soc"),
+         "fused_ellip": _ellip_chip(),
+         "fused_fista": _fista_chip()}
 
 
 def run_stage(v, args, kk):
@@ -414,6 +373,51 @@ def run_hmpc_parent(v, args, kk):
     return results(its, k, done, rp, rd)
 
 
+def run_ellip_parent(v, args, kk):
+    """The parent K4: 8 lanes a block, one column a thread."""
+    B, nzp = args[0].shape
+    n = args[4].shape[0]
+    k4.launch_plan(B, nzp, kk["t0"], n, tile_b=kk["tile_b"],
+                   check_every=kk["check_every"], exact_k=kk["exact_k"],
+                   fixed_iters=kk.get("fixed_iters", 0))
+    fixed = kk.get("fixed_iters", 0)
+    exact = kk["check_every"] > 1 and kk["exact_k"] and not fixed
+    its, k, done, rp, rd, snap = outputs(args[0], B, 3 * nzp if exact else 0)
+    smem = 4 * 8 * (6 * nzp + 4 * (nzp // 32))
+    err = v.fn(*(t.data_ptr() for t in (*args, *its, k, done, rp, rd, snap)),
+               B, nzp, kk["t0"], n, B // 8, nzp, smem, float(kk["rho"]),
+               float(1.0 / kk["rho"]), float(kk["r_ball"]),
+               float(kk["tol_p"]), float(kk["tol_d"]), int(kk["k_max"]),
+               int(kk["check_every"]), int(fixed), int(bool(kk["exact_k"])),
+               torch.cuda.current_stream().cuda_stream)
+    assert err == 0, err
+    return results(its, k, done, rp, rd)    # z, v, lam
+
+
+def run_fista_parent(v, args, kk):
+    """The parent K2: 8 lanes a block, one column a thread."""
+    B, nzp = args[0].shape
+    nlamp = args[2].shape[1]
+    fixed = kk.get("fixed_iters", 0)
+    k2.launch_plan(B, nzp, nlamp, tile_b=kk["tile_b"],
+                   check_every=kk["check_every"], exact_k=kk["exact_k"],
+                   fixed_iters=fixed, k_max=kk["k_max"])
+    exact = kk["check_every"] > 1 and kk["exact_k"] and not fixed
+    z = torch.empty_like(args[0])
+    y, lam = torch.empty_like(args[2]), torch.empty_like(args[2])
+    _, k, done, res, _, snap = outputs(
+        args[0], B, 2 * nzp + 3 * nlamp if exact else 0)
+    smem = 4 * 8 * (3 * nzp + 5 * nlamp + nlamp // 32)
+    err = v.fn(*(t.data_ptr() for t in (*args, z, y, lam, k, done, res,
+                                        snap)),
+               B, nzp, nlamp, B // 8, max(nzp, nlamp), smem,
+               float(kk["tol"]), int(kk["k_max"]), int(bool(kk["restart"])),
+               int(kk["check_every"]), int(fixed), int(bool(kk["exact_k"])),
+               torch.cuda.current_stream().cuda_stream)
+    assert err == 0, err
+    return z, y, lam, k, torch.where(done == 1, 1, -1).to(torch.int32), res
+
+
 def run_soc_parent(v, args, kk):
     """The parent K5: 8 lanes a block, one column a thread."""
     B, P = args[0].shape
@@ -446,6 +450,12 @@ RUNNERS = {
     "fused_soc": ("fused_soc_launch", k5.FUSED_SOC_ARGTYPES, run_stage),
     "fused_soc_parent": ("fused_soc_launch", PARENT_SOC_ARGTYPES,
                          run_soc_parent),
+    "fused_ellip": ("fused_ellip_launch", k4.FUSED_ELLIP_ARGTYPES, run_stage),
+    "fused_ellip_parent": ("fused_ellip_launch", PARENT_ELLIP_ARGTYPES,
+                           run_ellip_parent),
+    "fused_fista": ("fused_fista_launch", k2.FUSED_FISTA_ARGTYPES, run_stage),
+    "fused_fista_parent": ("fused_fista_launch", PARENT_FISTA_ARGTYPES,
+                           run_fista_parent),
 }
 
 
@@ -520,6 +530,19 @@ STAGE_BUILDS = [
 # K6's own: the cones projected in their warps, lane by lane, as the
 # parent does
 OWN_BUILDS = {
+    "fused_ellip": [],
+    # K2's own (it has no refill and no clock counts): slab rows, blocks an
+    # SM, columns a thread at 16 lanes, a ring of three slabs
+    "fused_fista": [
+        ("slabs of 8, 3 blocks an SM", 8, {"FI_SLAB_8": 8, "FI_BLOCKS_8": 3}),
+        ("slabs of 8, 2 blocks an SM", 16, {"FI_SLAB_16": 8,
+                                            "FI_BLOCKS_16": 2}),
+        ("4 columns a thread", 16, {"FI_COLS_16": 4}),
+        ("slabs of 8", 32, {"FI_SLAB_32": 8}),
+        ("ring of 3", 32, {"TP_STAGES": 3}),
+        ("clock counts", 8, {"TP_CLOCKS": 1}),
+        ("clock counts", 32, {"TP_CLOCKS": 1}),
+    ],
     "fused_hmpc": [
         ("cones in their warps", 8, {"HM_SPREAD_CONES": 0}),
         ("cones in their warps", 32, {"HM_SPREAD_CONES": 0}),
@@ -542,7 +565,8 @@ def stage_variants(kernel: str):
     spec = STAGE[kernel]
     out = [Variant("parent (8 lanes, one column a thread)",
                    VARIANTS / f"{kernel}_parent.cu", 8)]
-    builds = ([("committed", L, {}) for L in k1.LANES[::-1]] + STAGE_BUILDS
+    builds = ([("committed", L, {}) for L in k1.LANES[::-1]]
+              + (STAGE_BUILDS if spec.get("common", True) else [])
               + OWN_BUILDS[kernel])
     for name, L, macros in builds:
         macros = {m.format(P=spec["prefix"]): x for m, x in macros.items()}
@@ -581,13 +605,22 @@ def build_all(kernel, candidates):
 
 
 def clock_shares(plan):
-    """From a TP_CLOCKS build's counts: the clocks of a block iteration's
-    element-wise half (to the product's first barrier) and of the rest, and
-    the element-wise share, each a mean over the blocks."""
+    """From a TP_CLOCKS build's counts, each a mean over the blocks (per
+    block iteration with refill, whose blocks count their iterations; else
+    per block). K4-K6: the clocks of an iteration's element-wise half (to
+    the product's first barrier) and of the rest, and the element-wise
+    share. K2: the clocks of its iterations and of each product's slab
+    loop (G', Winv', G), and the share outside the slab loops."""
     clocks = plan["block_clocks"].double() * 1024
-    iters = plan["block_iterations"].double().clamp(min=1)
-    ew = float((clocks[:, 0] / iters).mean())
-    prod = float((clocks[:, 1] / iters).mean())
+    iters = (plan["block_iterations"].double().clamp(min=1)
+             if plan["refill"] else torch.ones_like(clocks[:, 0]))
+    mean = [float((clocks[:, i] / iters).mean())
+            for i in range(clocks.shape[1])]
+    if len(mean) == 4:
+        total, *prods = mean
+        return dict(clocks_iterations=total, clocks_products=prods,
+                    share_outside_products=1.0 - sum(prods) / total)
+    ew, prod = mean
     return dict(clocks_elementwise=ew, clocks_product=prod,
                 elementwise_share=ew / (ew + prod))
 
@@ -618,9 +651,11 @@ def ab_stage(kernel: str, result: dict, only=()):
             assert same_bits(out, ref, B), (kernel, v.name, fam, label)
             ok.append(v.name)
         c.log(f"{kernel} {fam} {label}: bit-identical to the parent: {ok}")
-    for fam in spec["families"]:
-        solver = spec["solver"](sp, fam)
-        for B in (c.FB, c.BATCH):
+    timings = spec.get("timings") or [(fam, fam, {}, (c.FB, c.BATCH))
+                                      for fam in spec["families"]]
+    for fam, label, kw, batches in timings:
+        solver = spec["solver"](sp, fam, **kw)
+        for B in batches:
             args, kk = spec["args"](solver, spec["inputs"](fam, B, {}))
             run = [parent] + [v for v in builds if v.fits(args, kk)]
             for v in run:
@@ -631,13 +666,13 @@ def ab_stage(kernel: str, result: dict, only=()):
                                   else None)
                 if "clock" in v.name:
                     it.update(clock_shares(spec["solve"].last_plan))
-                c.log(f"{kernel} [{v.name}] {fam} B={B}: k_mean="
+                c.log(f"{kernel} [{v.name}] {label} B={B}: k_mean="
                       f"{float(k.float().mean())} " + json.dumps(it))
             t = time_in_turns(run, args, kk)
-            c.log(f"{kernel} {fam} B={B} ms (CUDA events, in turns): "
+            c.log(f"{kernel} {label} B={B} ms (CUDA events, in turns): "
                   + json.dumps(t))
-            result[f"{kernel} {fam} B={B}"] = {n: min(x)
-                                               for n, x in t.items()}
+            result[f"{kernel} {label} B={B}"] = {n: min(x)
+                                                 for n, x in t.items()}
 
 
 def same_bits(out, ref, B):
@@ -677,8 +712,10 @@ def time_in_turns(variants, args, kk, reps=3):
     return t
 
 
-def ab_tile(kernel: str, result: dict):
-    """Build, check against the parent and time every variant of K1 or K7."""
+def ab_tile(kernel: str, result: dict, only=()):
+    """Build, check against the parent and time every variant of K1 or K7;
+    with `only`, the parent and the builds whose names hold one of its
+    strings, and not K1's bf16 and sort_lanes timings."""
     # the state buffers alone at 64 lanes a block: K1's z, v, lam and dq
     # (K7's aux, zs, lm and dq) as [width][64] floats
     width = 256 if kernel == "fused_admm" else 320
@@ -686,7 +723,10 @@ def ab_tile(kernel: str, result: dict):
           f"lanes a block take {4 * 4 * width * 64} of {k1.SMEM_MAX} bytes "
           f"before the ring: not built")
     candidates = tile_variants(kernel)
-    if kernel == "fused_admm":
+    if only:
+        candidates = candidates[:1] + [v for v in candidates[1:]
+                                       if any(o in v.name for o in only)]
+    elif kernel == "fused_admm":
         candidates += bf16_variants()[2:]
     variants = [v for v in build_all(kernel, candidates)
                 if v.stem != "fused_admm_tc"]
@@ -719,7 +759,7 @@ def ab_tile(kernel: str, result: dict):
                   + json.dumps(t))
             result[f"{kernel} {fam} B={B}"] = {n: min(x)
                                                for n, x in t.items()}
-    if kernel == "fused_admm":
+    if kernel == "fused_admm" and not only:
         ab_bf16(result)
         ab_sort_lanes(result)
 
@@ -783,7 +823,7 @@ def ab_sort_lanes(result: dict):
 
 
 def main(kernels):
-    only = ()    # --only a,b: K5 and K6 run the builds whose names hold a or b
+    only = ()    # --only a,b: the builds whose names hold a or b
     if "--only" in kernels:
         i = kernels.index("--only")
         only = tuple(kernels[i + 1].split(","))
@@ -796,12 +836,11 @@ def main(kernels):
     torch.set_float32_matmul_precision("highest")
     c.log(c.card_line())
     result = {}
-    for kernel in kernels or ["fused_admm", "fused_split", *STAGE, *KERNELS]:
+    for kernel in kernels or ["fused_admm", "fused_split", *STAGE]:
         if kernel in STAGE:
             ab_stage(kernel, result, only)
         else:
-            (ab_tile if kernel in ("fused_admm", "fused_split") else ab)(
-                kernel, result)
+            ab_tile(kernel, result, only)
     _build.CSRC = CSRC
     c.log(json.dumps(result))
 
