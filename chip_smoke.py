@@ -47,13 +47,19 @@ started together), then
      tensors at the bench's N=30 family (bench.py:289-296: T = 10 Q,
      S = R, rho_base 2, rho_mult 20, tol 1e-4, k_max 5000, checked) at
      B=8192, and at B=4096 in the free-run, exact-k and k_max-capped
-     modes, held together as in 1;
+     modes, held together as in 1, each mode at 8 and 16 lanes a block,
+     every build also held to the plain version and to the 8-lane build
+     bit for bit;
   8. drives MPCT-EADMM and MPCT-ADMM-cs (bench.py:297-302: rho 2, k_max
      4000, exact-k, check_every 8) through make_solver(...,
      backend="fused", device="cuda") as in 5;
   9. times the EADMM kernel, its plain version and the fp32 dense EADMM
-     engine at B=8192 and 32768, and the MPCT-ADMM-cs fused solve and its
-     fp32 dense engine at 8192;
+     engine at B=8192 and 32768, with the lanes a block of the launch, its
+     blocks' iterations against k_mean and two bounds (the products'
+     FLOP counted over every column of C2m and C2t, and over their nd
+     distinct columns, as the kernel computes them: the kernels line
+     carries the second), and the MPCT-ADMM-cs fused solve and its fp32
+     dense engine at 8192;
  10. runs the ellipMPC kernels and their plain versions on the same CUDA
      tensors at the bench's N=30 ellipMPC families (bench.py:309-326: T
      diagonalised, P = I, c = xr, r = 0.5, tol 1e-4): K4 (ellipMPC-ADMM,
@@ -92,14 +98,15 @@ started together), then
  15. times K6 and K7, their plain versions and the fp32 dense engines at
      B=8192 and 32768 for HMPC-ADMM, HMPC-ADMM-split and ellipHMPC-ADMM,
      and at B=8192 for HMPC-SADMM-split, with iterations as in 12.
-K1, K2, K4, K5 and K6 run on the product stage csrc/tile_product.cuh;
+K1, K2, K3, K4, K5 and K6 run on the product stage csrc/tile_product.cuh;
 tools/ab_kernels.py holds their builds to the one-column-per-thread parents
 in csrc/variants/.
 The line before the card line lists every kernel with its launches on the
 main paths, its largest u error against its plain version, its time, its
 plain version's time and its bound: the larger of the bytes it must move
 (inputs read once, outputs written once) over 3.35 TB/s and the fp32
-FLOP of its products, counted from each lane's own k, over 67 TFLOP/s.
+FLOP of its products, counted from each lane's own k (K3's z2 product over
+the nd distinct columns of C2m and C2t it computes), over 67 TFLOP/s.
 It exits non-zero, with no result line, when there is no CUDA device or
 any check fails. The last line is the JSON result.
 """
@@ -317,11 +324,13 @@ def check_lanes_bitwise(solve, args, kk, B, name, phase=1):
     log(f"phase {phase} {name}: builds {list(outs)} bit-identical")
 
 
-def check_builds(solve, args, kk, B, name, phase, out_p, m, fixed, u_at):
-    """Run a kernel whose wrapper takes `lanes=` (K2, K4) at every number
-    of lanes a block whose build takes this shape: hold each build to the
-    plain version's outputs `out_p` (check_agreement) and to the 8-lane
-    build bit for bit (check_lanes_bitwise). Returns the largest u error."""
+def check_builds(solve, args, kk, B, name, phase, out_p, m, fixed, u_at,
+                 **where):
+    """Run a kernel whose wrapper takes `lanes=` (K2, K3, K4) at every
+    number of lanes a block whose build takes this shape: hold each build to
+    the plain version's outputs `out_p` (check_agreement; `where` holds
+    agreement's k_at and u_off) and to the 8-lane build bit for bit
+    (check_lanes_bitwise). Returns the largest u error."""
     u_err = 0.0
     for L in (8, 16, 32):
         try:
@@ -331,7 +340,7 @@ def check_builds(solve, args, kk, B, name, phase, out_p, m, fixed, u_at):
                 raise
             continue
         torch.cuda.synchronize()
-        a = agreement(out, out_p, B, m, fixed, u_at=u_at)
+        a = agreement(out, out_p, B, m, fixed, u_at=u_at, **where)
         check_agreement(f"{name} lanes={L}", a, phase)
         u_err = max(u_err, a["u_err"])
     check_lanes_bitwise(solve, args, kk, B, name, phase)
@@ -744,13 +753,9 @@ def eadmm_kernel_args(solver, inputs):
     return (*kin, *solver.raw_fn.operator), dict(solver.raw_fn.kernel_kw)
 
 
-def phase_eadmm_kernel_vs_plain(sp):
-    """The EADMM kernel and its plain version on the same CUDA tensors.
-    Returns the largest u error over the modes."""
-    from spcies_tpu_torch.kernels.fused_eadmm import (fused_eadmm_reference,
-                                                      fused_eadmm_solve)
-    name = "MPCT-EADMM"
-    modes = [
+def eadmm_modes():
+    """Phase 7's runs: (label, B, capped, solver options)."""
+    return [
         (f"checked B={FB}", FB, False, {}),
         (f"free-run B={SMALL_BATCH}", SMALL_BATCH, False,
          dict(check_every=8, tile_b=8)),
@@ -760,8 +765,19 @@ def phase_eadmm_kernel_vs_plain(sp):
          SMALL_BATCH, True,
          dict(check_every=8, exact_k=True, tol=1e-13, k_max=19)),
     ]
+
+
+def phase_eadmm_kernel_vs_plain(sp):
+    """The EADMM kernel and its plain version on the same CUDA tensors, at
+    the dispatch's build and at each number of lanes a block its builds
+    take (8 and 16), every build held to the plain version and to the
+    8-lane build bit for bit. Returns the largest u error over the
+    modes."""
+    from spcies_tpu_torch.kernels.fused_eadmm import (fused_eadmm_reference,
+                                                      fused_eadmm_solve)
+    name = "MPCT-EADMM"
     u_err = 0.0
-    for label, B, capped, kw in modes:
+    for label, B, capped, kw in eadmm_modes():
         solver = mpct_solver(sp, name, **kw)
         _, _, inputs = problem(sp, 0, B)
         args, kk = eadmm_kernel_args(solver, inputs)
@@ -769,12 +785,14 @@ def phase_eadmm_kernel_vs_plain(sp):
         torch.cuda.synchronize()
         out_p = fused_eadmm_reference(*args, **kk)
         torch.cuda.synchronize()
-        a = agreement(out_k, out_p, B, solver.m, capped, u_at=0, k_at=5,
-                      u_off=solver.n)
+        where = dict(k_at=5, u_off=solver.n)
+        a = agreement(out_k, out_p, B, solver.m, capped, u_at=0, **where)
         check_agreement(f"{name} {label}", a, phase=7)
         if capped:
             assert bool((out_k[5][:B] == 19).all()), "capped k"
-        u_err = max(u_err, a["u_err"])
+        u_err = max(u_err, a["u_err"], check_builds(
+            fused_eadmm_solve, args, kk, B, f"{name} {label}", 7, out_p,
+            solver.m, capped, 0, **where))
     return u_err
 
 
@@ -847,7 +865,9 @@ def phase_mpct_times(sp):
         args, kk = eadmm_kernel_args(fused, inputs)
         x = [torch.as_tensor(a, dtype=torch.float32, device=DEVICE)
              for a in inputs]
-        kernel = lambda: fused_eadmm_solve(*args, **kk)  # noqa: E731
+        classes = fused.raw_fn.classes
+        kernel = lambda: fused_eadmm_solve(  # noqa: E731
+            *args, **kk, classes=classes)
         plain = lambda: fused_eadmm_reference(*args, **kk)  # noqa: E731
         dense_fn = lambda: dense(*x)  # noqa: E731
         t = {"plain": [], "kernel": [], "dense": []}
@@ -864,11 +884,23 @@ def phase_mpct_times(sp):
         log(f"phase 9 MPCT-EADMM times (ms per B={B} solve, CUDA "
             f"events): " + json.dumps(t))
         res = kernel()
+        torch.cuda.synchronize()
         nz1, nm = fused.raw_fn.nz1, fused.raw_fn.nm
-        bound = roofline(args + res, iter_flops(
+        nd = fused_eadmm_solve.last_plan["nd"]
+        # the products' FLOP an iteration and lane: as the parent counts
+        # them (C2m and M3p nz1 x nz1, C2t's nm tail rows), and recounted
+        # with C2m and C2t over their nd distinct columns, as the kernel
+        # does them
+        full = roofline(args + res, iter_flops(
             res[5][:B], 2.0 * (2 * nz1 * nz1 + nm * nz1)))
-        log(f"phase 9 MPCT-EADMM bound B={B}: {bound}")
-        out[B] = dict({key: min(v) for key, v in t.items()}, bound=bound)
+        bound = roofline(args[:6] + classes + args[8:] + res, iter_flops(
+            res[5][:B], 2.0 * (nz1 * nd + nz1 * nz1 + nm * nd)))
+        log(f"phase 9 MPCT-EADMM B={B}: k_mean="
+            f"{float(res[5][:B].float().mean())} "
+            f"{json.dumps(iterations(res[5][:B], fused_eadmm_solve))} "
+            f"nd={nd} bound={bound} bound_all_columns={full}")
+        out[B] = dict({key: min(v) for key, v in t.items()}, bound=bound,
+                      bound_all_columns=full)
     _, _, inputs = problem(sp, 0, FB)
     x = [torch.as_tensor(a, dtype=torch.float32, device=DEVICE)
          for a in inputs]

@@ -1,5 +1,5 @@
 // Fused three-block EADMM for MPCT on NVIDIA Hopper (sm_90a), written by
-// hand.
+// hand, on the product stage csrc/tile_product.cuh.
 //
 // Replaces the Pallas TPU kernel
 // spcies_tpu/kernels/fused_eadmm.py::_fused_eadmm_kernel. It computes what
@@ -20,63 +20,82 @@
 //     r_z3 = max|(z3n - z3) mr|
 //
 // until all three residuals meet tol or k_max. The wrapper and the plain
-// PyTorch version of every mode are in kernels/fused_eadmm.py.
+// PyTorch version of every mode are in kernels/fused_eadmm.py. The
+// one-column-per-thread kernel this design replaced is
+// csrc/variants/fused_eadmm_parent.cu (tools/ab_kernels.py holds every build
+// to it, bit for bit).
 //
-// Layout. One thread block per TB = 8 lanes; one thread per column j of the
-// padded width Z (a multiple of 32, at most 512). Thread j owns column j of
-// the nine state vectors z1, z2b, z3, lm, lht, the previous product inputs
-// v2m_p, v2t_p, q3_p, and x0b for the block's TB lanes, in shared memory
-// that only thread j touches. Every element-wise step is column-local; only
-// the two products need a lane's whole input row. So an iteration is
-//   1. thread j forms z1, v2m, v2t and the deltas dv2m, dv2t of its column
-//      and stores the deltas as [Z][TB];                      __syncthreads
-//   2. z2bn = z2acc + dv2m @ C2m + dv2t @ C2t, q3 and dq3 (stored as
-//      [Z][TB]); the row maxima of |dz2| go through warp shuffles, then
-//      shared memory across warps;                            __syncthreads
-//   3. z3n = z3acc + dq3 @ M3p, the residual rows, the dual ascent, the row
-//      maxima of r_pf and r_z3;                               __syncthreads
-//   4. every thread reads the maxima and finds the converged lanes.
-// Each product reads row i of its matrix at column j (the 32 threads of a
-// warp read 32 consecutive floats) and its input as broadcast reads of
-// shared memory. Loop control is uniform across a block because every
-// thread reads the same maxima.
+// The z2 product over distinct columns. Many columns of C2m and C2t are
+// copies of each other: C2m = A2mid W2BC and the tail rows of C2t are W2BC,
+// W2BC = W2' tile(I_nm, (1, N+1)), so column j of both is column j % nm of
+// z2's block (a product with a unit vector is exact) and the pad columns are
+// zero. The wrapper finds the classes of columns that are equal in both
+// matrices, byte for byte (kernels/fused_eadmm.py distinct_columns), and
+// passes C2d = C2m[:, reps] and C2td = C2t[:, reps] ([Z][nd], nd classes: 9
+// at the N=30 family) and col_of[j], the class of column j. The chain of a
+// (lane, column) sum is the chain of its class's representative, so each is
+// computed once and read by every copy: the parent's bits with nd / Z of its
+// work. Arbitrary matrices give nd up to Z and the same result, slowly.
 //
-// Carried state. After the first iteration the accumulators equal z2b and
-// z3 on every lane, frozen lanes included (the JAX kernel sets both from
-// the same values), so the kernel carries seven leaves and marks the lanes
-// whose next iteration is their first ("fresh"): those take z2refb (read
-// from the input) and 0 as accumulators. The plain version keeps all nine
-// leaves, op for op.
+// Layout. A block of Z threads (one per column; a multiple of 32, at most
+// 512) holds L = 8 or 16 lanes (kernels/fused_eadmm.py launch_plan; 32 do
+// not fit shared memory). In shared memory: the nine state vectors z2b, z3,
+// lm, lht, v2m_p, v2t_p, q3_p, z1 and x0b as [Z][L] (the swizzled layout of
+// csrc/tile_product.cuh), the product input dv2m and then dq3 as [Z][L + 4],
+// dv2t as [Z][L], the chains' results as [nd][L + 4] each, C2d's copy
+// ([Z][nd], 16 lanes), the row maxima, and the ring of M3p's slabs. An
+// iteration is
+//   1. P1: thread j forms z1, v2m, v2t and the deltas of column j for the
+//      L lanes, 8 at a time;                                 __syncthreads
+//   2. the z2 chains: thread t < nd L takes class d = t / L, lane b = t % L:
+//      a2 = dv2t[:, b] . C2td[:, d] over rows [t0, t1) and, apart,
+//      a1 = dv2m[:, b] . C2d[:, d] over rows [0, nr), each one fmaf chain
+//      in ascending row order. C2td's few rows are read by __ldg; the
+//      16-lane build reads C2d from a copy in shared memory it makes once
+//      (faster than by __ldg: PERF.md), the 8-lane build, whose two blocks
+//      an SM have no room for the copy, by __ldg;
+//                                                             __syncthreads
+//   3. P2: thread j forms z2bn = (z2acc + a1[col_of[j]]) + a2[col_of[j]], q3
+//      and dq3, and at a checked iteration the row maxima of |dz2|;
+//   4. P3: z3n = z3acc + dq3 @ M3p on the product stage: a thread owns 8
+//      lanes x TC columns (TC = 2 at 16 lanes, 1 at 8), M3p's rows [0, nr)
+//      come through the ring of slabs filled by TMA (its first barrier
+//      publishes dq3); each tile's owner then forms the residual rows and
+//      the dual ascent of its cells and their maxima;        __syncthreads
+//   5. at a checked iteration thread t < L (lane t's keeper: its k and
+//      residuals) takes lane t's maxima and warp 0 publishes the lanes that
+//      meet tol.                                              __syncthreads
+// Groups of 8 lanes that are done are skipped, and in exact-k's windows the
+// lanes still running are compacted into the first groups and the product's
+// tiles narrow (tile_product.cuh). In plain free-run each group of 8 lanes
+// freezes once its 8 lanes are done, as a tile of tile_b = 8 drains.
+//
+// Fresh lanes. A lane's first iteration takes z2refb and 0 as its
+// accumulators; after it they equal z2b and z3 on every lane (the JAX kernel
+// sets both from the same values), so the engine carries seven leaves and a
+// mask of the slots whose next iteration is their lane's first: all slots at
+// the start, and in the replay the lanes whose window starts at 0. The mask
+// is 0 whenever lanes are compacted; a fresh lane reads z2refb at its own
+// lane.
 //
 // Rows. v2t is exactly 0 outside the tail block (it is masked by mt), and
 // the rows of C2m and M3p beyond the last real lane are 0 (the padding
-// contract), so the products read only the rows t0..t1 of C2t where mt is
-// nonzero and the rows below nr, one past the last lane where mr is
-// nonzero, of C2m and M3p: adding zero terms changes no sum. Each block
-// finds the three bounds from mt and mr before its loop.
+// contract), so the chains read the rows t0..t1 of C2t where mt is nonzero
+// and the rows below nr, one past the last lane where mr is nonzero, of C2m
+// and M3p: adding zero terms changes no sum. Each block finds the three
+// bounds from mt and mr before its loop.
 //
-// Exact-k snapshots. At each window start the seven leaves of every lane
-// not yet done go to global scratch (each thread writes, and later reads
-// back, only its own columns), and the window start to shared memory. The
-// replay runs each lane's last window with the checked semantics and the
-// budget min(C, k_max - kws), as K1 and K2 do.
-//
-// Bound. Every block re-reads C2m, M3p (nr x Z each) and the tail rows of
-// C2t from L2 on every iteration: 504 KiB at the N=30 shapes (nr = 248,
-// Z = 256, 8 tail rows), for 2 TB FLOP per 4 bytes read. They stay in the
-// 50 MB L2 and do not fit a block's 227 KB of shared memory. The product
-// loops are unrolled 8 deep to keep 8 L2 loads in flight per thread: on an
-// NVIDIA H100 (700 W) unrolled 16 the kernel spilled 60 bytes and ran
-// 1.5-2.4 % slower, unrolled 32 it spilled 104 bytes and ran 15 % slower
-// (PERF.md, K3). Folding C2m into its rank-(n+m) factors (block sum, W2,
-// broadcast) would read 32x fewer bytes for the z2 product but sums in
-// another order than the plain version; it is left for later work, with
-// wgmma/TMA staging.
+// Exact-k snapshots. At each window start the seven leaves z2b, z3, lm, lht,
+// v2m_p, v2t_p and q3_p of every lane not yet done go to global scratch
+// (each thread writes, and later reads back, only its own column), and the
+// window start to shared memory (tp::run_modes). The replay runs each lane's
+// last window with the checked semantics and the budget min(C, k_max - kws).
 //
 // Arithmetic. fp32 on the CUDA cores, no TF32. The library is built with
 // -fmad=false, so the element-wise steps round as PyTorch's separate
-// operations do; the products use explicit fmaf. Only the order of the
-// products' sums differs from a cuBLAS or CPU matmul.
+// operations do; every (lane, column) sum of a product is one explicit fmaf
+// chain over the rows in ascending order, as in the parent, so every build
+// gives the parent's bits. The row maxima are exact in any order.
 //
 // Padding. Pad columns carry zero rows and columns of C2m, C2t and M3p,
 // zero rm, rht, mh, mt, mr and h1i and [0, 0] bounds, so they stay exactly
@@ -84,14 +103,54 @@
 
 #include <cuda_runtime.h>
 
+#include "tile_product.cuh"
+
+// rows a slab of M3p's ring and blocks an SM (up to NARROW columns; one
+// above) of each build (kernels/fused_eadmm.py BUILDS); a timing script may
+// set others
+#ifndef EA_SLAB_8
+#define EA_SLAB_8 8
+#endif
+#ifndef EA_BLOCKS_8
+#define EA_BLOCKS_8 2
+#endif
+#ifndef EA_SLAB_16
+#define EA_SLAB_16 16
+#endif
+#ifndef EA_BLOCKS_16
+#define EA_BLOCKS_16 1
+#endif
+// 1: a build copies C2d's rows [0, nr) to shared memory once a block, and
+// the z2 chains read them there; 0: the chains read C2d by __ldg (the 8-lane
+// build, whose two blocks an SM have no room for the copy)
+#ifndef EA_STAGE_C2D_8
+#define EA_STAGE_C2D_8 0
+#endif
+#ifndef EA_STAGE_C2D_16
+#define EA_STAGE_C2D_16 1
+#endif
+
 namespace {
 
-constexpr int TB = 8;          // lanes per block (CTA_LANES in the wrapper)
 constexpr int MAX_COLS = 512;  // threads per block, one per column
+constexpr int NARROW = 256;    // up to this width the builds of Build<L>
 constexpr int NSNAP = 7;       // snapshot leaves (SNAP_LEAVES in the wrapper)
+constexpr int NLEAF = 9;       // state leaves in shared memory
 constexpr float RBIG = 3.4e38f;
-constexpr unsigned ALL = (1u << TB) - 1u;
-static_assert(TB % 4 == 0, "vectors are moved as float4");
+constexpr unsigned FULL = 0xffffffffu;
+
+template <int L>
+struct Build;
+template <>
+struct Build<8> {
+  static constexpr int SR = EA_SLAB_8, MINB = EA_BLOCKS_8, TC = 1;
+  static constexpr bool STAGE = EA_STAGE_C2D_8;
+};
+template <>
+struct Build<16> {
+  static constexpr int SR = EA_SLAB_16, MINB = EA_BLOCKS_16, TC = 2;
+  static constexpr bool STAGE = EA_STAGE_C2D_16;
+};
 
 struct Params {
   const float* __restrict__ x0b;
@@ -100,454 +159,544 @@ struct Params {
   const float* __restrict__ z30;
   const float* __restrict__ lm0;
   const float* __restrict__ lht0;
-  const float* __restrict__ c2m;  // [Z][Z], dv2m @ c2m
-  const float* __restrict__ c2t;  // [Z][Z], dv2t @ c2t
-  const float* __restrict__ m3p;  // [Z][Z], dq3 @ m3p
+  const float* __restrict__ c2d;   // [Z][nd]: C2m's class representatives
+  const float* __restrict__ c2td;  // [Z][nd]: C2t's
+  const int* __restrict__ col_of;  // [Z]: the class of each column
+  const float* __restrict__ m3p;   // [Z][Z], dq3 @ m3p
   const float* __restrict__ rows[8];  // rm, rht, mh, mt, mr, h1i, lb, ub
   float* out[5];                      // z1, z2b, z3, lm, lht
   int* k;
   int* done;
-  float* res[3];                      // r_pf, r_z2, r_z3
-  float* snap;  // exact-k: per lane [z2b | z3 | lm | lht | v2m | v2t | q3]
-  int Z;
+  float* res[3];  // r_pf, r_z2, r_z3
+  float* snap;    // exact-k: per lane [z2b | z3 | lm | lht | v2m | v2t | q3]
+  int* ext;       // TP_CLOCKS: [4 b, 4 b + 4) block b's kilo-clocks of P1,
+                  // of the chains, of P2, and of P3 and the keepers
+  int Z, nd;
   float tol;
   int k_max, check_every, exact_k;
 };
 
-// Shared memory. The product inputs are read by every thread; the state
-// columns are each read and written by their own thread only.
-struct Shared {
-  float* d2m;  // [Z][TB]  product inputs
-  float* d2t;
-  float* dq3;
-  float* st[9];  // [Z][TB] state: z2b, z3, lm, lht, v2m, v2t, q3, z1, x0
-  float* red;    // [Z / 32][3][TB] warp maxima of r_pf, r_z2, r_z3
-};
-// indices into Shared::st; the first NSNAP are the snapshot leaves
+// the leaves; the first NSNAP are the snapshot leaves
 enum { Z2B, Z3, LM, LHT, V2M, V2T, Q3, Z1, X0 };
 
-struct Col {
-  int j, lane0, Z;
-  int nr, t0, t1;  // the rows the products read (see Rows above)
-  float rm, rht, mh, mt, mr, sg, h1i, lb, ub;
+using tp::bit;
+
+// What lane t's keeper (thread t < L) holds of its lane: k and the three
+// residuals it recorded last.
+struct Keeper {
+  int k = 0;
+  float r[3] = {RBIG, RBIG, RBIG};
 };
 
-__device__ __forceinline__ bool bit(unsigned m, int b) {
-  return (m >> b) & 1u;
-}
+template <int L, int TC, int SR>
+struct Engine {
+  static constexpr int G = L / 8;
+  static constexpr int DS = L + tp::DQ_PAD;  // row stride of dqm, a1, a2
+  static constexpr unsigned ALL = (1u << L) - 1u;
+  static constexpr bool STAGE = Build<L>::STAGE;  // C2d in shared memory
+  const Params& p;
+  float* leaf[NLEAF];  // [Z][L], swizzled
+  float* dqm;          // [Z][DS]: dv2m, then dq3
+  float* d2t;          // [Z][L]: dv2t
+  float *a1, *a2;      // [nd][DS]: the chains' results
+  float* c2s;          // STAGE: [Z][nd], C2d's rows [0, nr)
+  float* red2;         // [Z / 32][L]: the warps' maxima of |dz2|
+  float* red3;         // [Z / 16][2][8]: the half warps' maxima of r_pf,
+                       // r_z3 over their lane group's 8 lanes
+  unsigned* ctrl;      // [4]
+  int *sn_k, *orig;    // [L] each: window starts, the lane a slot holds
+  tp::Ring ring;
+  Keeper kp;
+  int tid, Z, nd, lane0, nr, t0, t1, cls;
+  float rm, rht, mh, mt, mr, sg, h1i, lb, ub;  // column tid's constants
+  unsigned fresh = ALL;  // slots whose next iteration is their lane's first
+  long long clk[4] = {0, 0, 0, 0};  // TP_CLOCKS: thread 0's clocks of P1,
+                                    // of the chains, of P2, and of P3 and
+                                    // the keepers
 
-__device__ __forceinline__ void load(float (&v)[TB], const float* src) {
-  const float4* s4 = reinterpret_cast<const float4*>(src);
-#pragma unroll
-  for (int q = 0; q < TB / 4; ++q) {
-    const float4 a = s4[q];
-    v[4 * q] = a.x;
-    v[4 * q + 1] = a.y;
-    v[4 * q + 2] = a.z;
-    v[4 * q + 3] = a.w;
+  __device__ __forceinline__ Engine(const Params& p_, float* smem)
+      : p(p_) {
+    tid = threadIdx.x;
+    Z = p.Z;
+    nd = p.nd;
+    lane0 = blockIdx.x * L;
+    float* a = smem + tp::ring_bytes(Z, SR) / 4;
+    for (int l = 0; l < NLEAF; ++l, a += Z * L) leaf[l] = a;
+    dqm = a;
+    d2t = dqm + Z * DS;
+    a1 = d2t + Z * L;
+    a2 = a1 + nd * DS;
+    c2s = a2 + nd * DS;
+    red2 = c2s + (STAGE ? Z * nd : 0);
+    red3 = red2 + (Z >> 5) * L;
+    ctrl = reinterpret_cast<unsigned*>(red3 + Z);
+    sn_k = reinterpret_cast<int*>(ctrl + 4);
+    orig = sn_k + L;
+    int* bnd = orig + L;  // nr, t0, t1
+    const int j = tid;
+    rm = p.rows[0][j];
+    rht = p.rows[1][j];
+    mh = p.rows[2][j];
+    mt = p.rows[3][j];
+    mr = p.rows[4][j];
+    sg = mh - mt;
+    h1i = p.rows[5][j];
+    lb = p.rows[6][j];
+    ub = p.rows[7][j];
+    cls = p.col_of[j];
+    if (j == 0) {
+      bnd[0] = 0;
+      bnd[1] = Z;
+      bnd[2] = 0;
+    }
+    __syncthreads();
+    if (mr != 0.0f) atomicMax(&bnd[0], j + 1);
+    if (mt != 0.0f) {
+      atomicMin(&bnd[1], j);
+      atomicMax(&bnd[2], j + 1);
+    }
+    __syncthreads();
+    nr = bnd[0];
+    t0 = bnd[1];
+    t1 = bnd[2];
+    // C2d's rows [0, nr), read by the first iteration's chains after its
+    // first barrier
+    if (STAGE) {
+      for (int i = j; i < nr * nd; i += Z) c2s[i] = p.c2d[i];
+    }
+    // a ring of at least one row: with no real row M3p is zero
+    tp::ring_init<SR>(ring, smem, p.m3p, Z, max(1, nr), 0, 0, tid, Z);
   }
-}
 
-__device__ __forceinline__ void store(float* dst, const float (&v)[TB]) {
-  float4* d4 = reinterpret_cast<float4*>(dst);
-#pragma unroll
-  for (int q = 0; q < TB / 4; ++q)
-    d4[q] = make_float4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]);
-}
-
-// acc[b] = sum_{i0 <= i < i1} v[i][b] m[i][j]: v in shared memory as
-// [rows][TB], m row-major with leading dimension ld, read from L2.
-__device__ __forceinline__ void product(const float* v,
-                                        const float* __restrict__ m, int ld,
-                                        int i0, int i1, int j,
-                                        float (&acc)[TB]) {
-#pragma unroll
-  for (int b = 0; b < TB; ++b) acc[b] = 0.0f;
-  const float* col = m + j;
-#pragma unroll 8
-  for (int i = i0; i < i1; ++i) {
-    const float w = __ldg(col + static_cast<size_t>(i) * ld);
-    const float4* v4 = reinterpret_cast<const float4*>(v + i * TB);
-#pragma unroll
-    for (int q = 0; q < TB / 4; ++q) {
-      const float4 d = v4[q];
-      acc[4 * q] = fmaf(d.x, w, acc[4 * q]);
-      acc[4 * q + 1] = fmaf(d.y, w, acc[4 * q + 1]);
-      acc[4 * q + 2] = fmaf(d.z, w, acc[4 * q + 2]);
-      acc[4 * q + 3] = fmaf(d.w, w, acc[4 * q + 3]);
+  __device__ __forceinline__ void tic(long long& t, int i) {
+    if (TP_CLOCKS && tid == 0) {
+      const long long now = clock64();
+      clk[i] += now - t;
+      t = now;
     }
   }
-}
 
-// The maxima of v[b] over the warp, written to red[warp][slot][b] by the
-// warp's first thread.
-__device__ __forceinline__ void warp_max(float (&v)[TB], float* red, int j,
-                                         int slot) {
-#pragma unroll
-  for (int b = 0; b < TB; ++b) {
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      v[b] = fmaxf(v[b], __shfl_xor_sync(0xffffffffu, v[b], off));
-  }
-  if ((j & 31) == 0) store(red + ((j >> 5) * 3 + slot) * TB, v);
-}
-
-// One iteration of column j for the block's TB lanes. Lanes in `frozen`
-// keep all their state; lanes in `fresh` take z2refb and 0 as the
-// accumulators (their first iteration). Thread 0 records the residuals of
-// the lanes in `rmask` in lres. Returns the lanes whose three residuals
-// meet tol (identical in every thread of the block).
-__device__ __forceinline__ unsigned iterate(const Params& p, const Shared& s,
-                                            const Col& c, unsigned frozen,
-                                            unsigned fresh, unsigned rmask,
-                                            float (&lres)[3][TB]) {
-  const int o = c.j * TB;  // this thread's column in every buffer
-  float z1[TB], z2n[TB];
-  // 1. P1: z1 = clip(-q1 h1i); the deltas of the z2 product's inputs
-  {
-    float z2b[TB], z3[TB], lm[TB], lht[TB], x0[TB], vm[TB], vt[TB];
-    float dm[TB], dt[TB], z1s[TB];
-    load(z2b, s.st[Z2B] + o);
-    load(z3, s.st[Z3] + o);
-    load(lm, s.st[LM] + o);
-    load(lht, s.st[LHT] + o);
-    load(x0, s.st[X0] + o);
-    load(vm, s.st[V2M] + o);
-    load(vt, s.st[V2T] + o);
-    load(z1s, s.st[Z1] + o);
-#pragma unroll
-    for (int b = 0; b < TB; ++b) {
-      const float s_ht = c.rht * (c.mt * z2b[b] - x0[b]) + lht[b];
-      const float q1 = -(c.rm * (z2b[b] + z3[b]) + lm[b]) + c.sg * s_ht;
-      z1[b] = fminf(fmaxf(-q1 * c.h1i, c.lb), c.ub);
-      const float v2m = c.rm * (z3[b] - z1[b]) + lm[b];
-      const float v2t = c.mt * (c.rht * (-z1[b]) + lht[b]);
-      dm[b] = v2m - vm[b];
-      dt[b] = v2t - vt[b];
-      if (!bit(frozen, b)) {
-        vm[b] = v2m;
-        vt[b] = v2t;
-        z1s[b] = z1[b];
-      }
-    }
-    store(s.d2m + o, dm);
-    store(s.d2t + o, dt);
-    store(s.st[V2M] + o, vm);
-    store(s.st[V2T] + o, vt);
-    store(s.st[Z1] + o, z1s);
-  }
-  __syncthreads();
-  // 2. P2: z2bn = z2acc + dv2m @ C2m + dv2t @ C2t; q3 and its delta
-  {
-    float a1[TB], a2[TB], z2b[TB], lm[TB], q3p[TB], dq[TB], az[TB];
-    product(s.d2m, p.c2m, c.Z, 0, c.nr, c.j, a1);
-    product(s.d2t, p.c2t, c.Z, c.t0, c.t1, c.j, a2);
-    load(z2b, s.st[Z2B] + o);
-    load(lm, s.st[LM] + o);
-    load(q3p, s.st[Q3] + o);
-#pragma unroll
-    for (int b = 0; b < TB; ++b) {
-      const float acc =
-          bit(fresh, b)
-              ? __ldg(p.z2refb + static_cast<size_t>(c.lane0 + b) * c.Z + c.j)
-              : z2b[b];
-      z2n[b] = (acc + a1[b]) + a2[b];
-      const float q3 = c.rm * (z2n[b] - z1[b]) + lm[b];
-      dq[b] = q3 - q3p[b];
-      az[b] = fabsf((z2n[b] - z2b[b]) * c.mr);
-      if (!bit(frozen, b)) {
-        q3p[b] = q3;
-        z2b[b] = z2n[b];
-      }
-    }
-    store(s.dq3 + o, dq);
-    store(s.st[Q3] + o, q3p);
-    store(s.st[Z2B] + o, z2b);
-    warp_max(az, s.red, c.j, 1);
-  }
-  __syncthreads();
-  // 3. P3: z3n = z3acc + dq3 @ M3p; residual rows and dual ascent
-  {
-    float a3[TB], z3[TB], lm[TB], lht[TB], x0[TB], pf[TB], az[TB];
-    product(s.dq3, p.m3p, c.Z, 0, c.nr, c.j, a3);
-    load(z3, s.st[Z3] + o);
-    load(lm, s.st[LM] + o);
-    load(lht, s.st[LHT] + o);
-    load(x0, s.st[X0] + o);
-#pragma unroll
-    for (int b = 0; b < TB; ++b) {
-      const float acc = bit(fresh, b) ? 0.0f : z3[b];
-      const float z3n = acc + a3[b];
-      const float midR = z2n[b] + z3n - z1[b];
-      const float htR = c.mh * z1[b] - x0[b] + c.mt * (z2n[b] - z1[b]);
-      pf[b] = fmaxf(fabsf(midR * c.mr), fabsf(htR));
-      az[b] = fabsf((z3n - z3[b]) * c.mr);
-      if (!bit(frozen, b)) {
-        z3[b] = z3n;
-        lm[b] = lm[b] + c.rm * midR;
-        lht[b] = lht[b] + c.rht * htR;
-      }
-    }
-    store(s.st[Z3] + o, z3);
-    store(s.st[LM] + o, lm);
-    store(s.st[LHT] + o, lht);
-    warp_max(pf, s.red, c.j, 0);
-    warp_max(az, s.red, c.j, 2);
-  }
-  __syncthreads();
-  // 4. the residuals of each lane, and the lanes that meet tol
-  float rs[3][TB];
-#pragma unroll
-  for (int q = 0; q < 3; ++q)
-#pragma unroll
-    for (int b = 0; b < TB; ++b) rs[q][b] = 0.0f;
-  for (int w = 0; w < (c.Z >> 5); ++w) {
-#pragma unroll
-    for (int q = 0; q < 3; ++q) {
-      float m[TB];
-      load(m, s.red + (w * 3 + q) * TB);
-#pragma unroll
-      for (int b = 0; b < TB; ++b) rs[q][b] = fmaxf(rs[q][b], m[b]);
-    }
-  }
-  unsigned conv = 0;
-#pragma unroll
-  for (int b = 0; b < TB; ++b) {
-    if (rs[0][b] <= p.tol && rs[1][b] <= p.tol && rs[2][b] <= p.tol)
-      conv |= 1u << b;
-    if (c.j == 0 && bit(rmask, b)) {
-#pragma unroll
-      for (int q = 0; q < 3; ++q) lres[q][b] = rs[q][b];
-    }
-  }
-  return conv;
-}
-
-// Copy this thread's columns of the seven snapshot leaves between shared
-// memory and the per-lane [z2b | z3 | lm | lht | v2m | v2t | q3] layout in
-// global memory, for the lanes in `lanes`. TO_GLOBAL selects the direction.
-template <bool TO_GLOBAL>
-__device__ __forceinline__ void snapshot(const Shared& s, const Col& c,
-                                         float* snap, unsigned lanes) {
-  const int W = NSNAP * c.Z;
-#pragma unroll
-  for (int l = 0; l < NSNAP; ++l) {
-#pragma unroll
-    for (int b = 0; b < TB; ++b) {
-      if (!bit(lanes, b)) continue;
-      float* g = snap + static_cast<size_t>(c.lane0 + b) * W + l * c.Z + c.j;
-      float* sh = s.st[l] + c.j * TB + b;
-      if (TO_GLOBAL)
-        *g = *sh;
+  // One iteration (tp::run_modes). Lanes in `frozen` keep all their state;
+  // what `idle` lanes hold is never read again, and a group of 8 lanes that
+  // are all frozen or idle is skipped. With CHECK, the keepers of the lanes
+  // in rmask record their residuals and count kinc iterations, and the
+  // lanes whose three residuals meet tol are returned (identical in every
+  // thread of the block). `last` and `stop` do not matter here: K3's
+  // outputs are the state after a lane's last iteration.
+  template <bool CHECK>
+  TP_ITERATE unsigned iterate(unsigned frozen, unsigned idle, unsigned last,
+                              bool stop, unsigned rmask, int kinc) {
+    long long t = TP_CLOCKS && tid == 0 ? clock64() : 0;
+    const unsigned dead = tp::whole_groups<L>(frozen | idle);
+    p1(dead, frozen);
+    __syncthreads();
+    tic(t, 0);
+    chains(dead);
+    __syncthreads();
+    tic(t, 1);
+    p2<CHECK>(dead, frozen);
+    tic(t, 2);
+    // the widest tiles the live groups allow, as tp::TileEngine narrows them
+    const int nl = max(1, G - __popc(dead) / 8);
+    const bool packed = dead == (ALL & ~((1u << (8 * nl - 1) << 1) - 1u));
+    unsigned conv;
+    if constexpr (TC >= 2 && G >= 2) {
+      if (packed && 2 * nl <= G)
+        conv = finish<TC / 2, CHECK>(dead, frozen, rmask, kinc);
       else
-        *sh = *g;
+        conv = finish<TC, CHECK>(dead, frozen, rmask, kinc);
+    } else {
+      conv = finish<TC, CHECK>(dead, frozen, rmask, kinc);
+    }
+    tic(t, 3);
+    fresh &= frozen;
+    return conv;
+  }
+
+  // P1: z1 = clip(-q1 h1i); the deltas of the z2 product's inputs.
+  __device__ __forceinline__ void p1(unsigned dead, unsigned frozen) {
+    const int j = tid;
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      if (bit(dead, 8 * g)) continue;
+      float z2b[8], z3[8], lm[8], lht[8], x0[8], vm[8], vt[8], z1s[8];
+      float dm[8], dt[8];
+      tp::ld8<L>(z2b, leaf[Z2B], j, g);
+      tp::ld8<L>(z3, leaf[Z3], j, g);
+      tp::ld8<L>(lm, leaf[LM], j, g);
+      tp::ld8<L>(lht, leaf[LHT], j, g);
+      tp::ld8<L>(x0, leaf[X0], j, g);
+      tp::ld8<L>(vm, leaf[V2M], j, g);
+      tp::ld8<L>(vt, leaf[V2T], j, g);
+      tp::ld8<L>(z1s, leaf[Z1], j, g);
+#pragma unroll
+      for (int b = 0; b < 8; ++b) {
+        const float s_ht = rht * (mt * z2b[b] - x0[b]) + lht[b];
+        const float q1 = -(rm * (z2b[b] + z3[b]) + lm[b]) + sg * s_ht;
+        const float z1 = fminf(fmaxf(-q1 * h1i, lb), ub);
+        const float v2m = rm * (z3[b] - z1) + lm[b];
+        const float v2t = mt * (rht * (-z1) + lht[b]);
+        dm[b] = v2m - vm[b];
+        dt[b] = v2t - vt[b];
+        if (!bit(frozen, 8 * g + b)) {
+          vm[b] = v2m;
+          vt[b] = v2t;
+          z1s[b] = z1;
+        }
+      }
+      tp::st8_dq<L>(dqm, j, g, dm);
+      float4* d4 = reinterpret_cast<float4*>(d2t + j * L + 8 * g);
+      d4[0] = make_float4(dt[0], dt[1], dt[2], dt[3]);
+      d4[1] = make_float4(dt[4], dt[5], dt[6], dt[7]);
+      tp::st8<L>(leaf[V2M], j, g, vm);
+      tp::st8<L>(leaf[V2T], j, g, vt);
+      tp::st8<L>(leaf[Z1], j, g, z1s);
     }
   }
-}
 
-__global__ void __launch_bounds__(MAX_COLS) fused_eadmm_kernel(Params p) {
+  // The z2 chains of every (class, lane) of a live group: a1 over rows
+  // [0, nr) of C2d, a2 over rows [t0, t1) of C2td, each in ascending order.
+  __device__ __forceinline__ void chains(unsigned dead) {
+    const int n = nd * L;
+    for (int ch = tid; ch < n; ch += Z) {
+      const int d = ch / L, b = ch % L;
+      if (bit(dead, b)) continue;
+      // a2 first: its few rows of C2td come from L2 while nothing waits
+      const float* ct = p.c2td + d;
+      float s2 = 0.0f;
+#pragma unroll 8
+      for (int i = t0; i < t1; ++i)
+        s2 = fmaf(d2t[i * L + b], __ldg(ct + static_cast<size_t>(i) * nd),
+                  s2);
+      const float* cm = (STAGE ? c2s : p.c2d) + d;
+      const float* dv = dqm + b;
+      float s1 = 0.0f;
+#pragma unroll 8
+      for (int i = 0; i < nr; ++i)
+        s1 = fmaf(dv[i * DS], STAGE ? cm[i * nd] : __ldg(cm + i * nd), s1);
+      a1[d * DS + b] = s1;
+      a2[d * DS + b] = s2;
+    }
+  }
+
+  // P2: z2bn = (z2acc + a1) + a2 at column tid's class; q3 and its delta
+  // (into dqm); with CHECK the warps' maxima of |dz2|.
+  template <bool CHECK>
+  __device__ __forceinline__ void p2(unsigned dead, unsigned frozen) {
+    const int j = tid;
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      if (bit(dead, 8 * g)) continue;
+      float z2b[8], lm[8], q3p[8], z1[8], c1[8], c2[8], dq[8], az[8];
+      tp::ld8<L>(z2b, leaf[Z2B], j, g);
+      tp::ld8<L>(lm, leaf[LM], j, g);
+      tp::ld8<L>(q3p, leaf[Q3], j, g);
+      tp::ld8<L>(z1, leaf[Z1], j, g);
+      tp::ld8_dq<L>(c1, a1, cls, g);
+      tp::ld8_dq<L>(c2, a2, cls, g);
+#pragma unroll
+      for (int b = 0; b < 8; ++b) {
+        const int s = 8 * g + b;
+        const float acc =
+            bit(fresh, s)
+                ? __ldg(p.z2refb + static_cast<size_t>(lane0 + orig[s]) * Z +
+                        j)
+                : z2b[b];
+        const float z2n = (acc + c1[b]) + c2[b];
+        const float q3 = rm * (z2n - z1[b]) + lm[b];
+        dq[b] = q3 - q3p[b];
+        if (CHECK) az[b] = fabsf((z2n - z2b[b]) * mr);
+        if (!bit(frozen, s)) {
+          q3p[b] = q3;
+          z2b[b] = z2n;
+        }
+      }
+      tp::st8_dq<L>(dqm, j, g, dq);
+      tp::st8<L>(leaf[Q3], j, g, q3p);
+      tp::st8<L>(leaf[Z2B], j, g, z2b);
+      if (CHECK) {
+#pragma unroll
+        for (int b = 0; b < 8; ++b) {
+#pragma unroll
+          for (int off = 16; off > 0; off >>= 1)
+            az[b] = fmaxf(az[b], __shfl_xor_sync(FULL, az[b], off));
+        }
+        if ((j & 31) == 0) {
+          float4* w = reinterpret_cast<float4*>(red2 + (j >> 5) * L + 8 * g);
+          w[0] = make_float4(az[0], az[1], az[2], az[3]);
+          w[1] = make_float4(az[4], az[5], az[6], az[7]);
+        }
+      }
+    }
+  }
+
+  // P3 with tiles of 8 lanes x TCX columns: z3n = z3acc + dq3 @ M3p, the
+  // residual rows and the dual ascent of the tile's cells; with CHECK their
+  // maxima and the keepers' part.
+  template <int TCX, bool CHECK>
+  __device__ __forceinline__ unsigned finish(unsigned dead, unsigned frozen,
+                                             unsigned rmask, int kinc) {
+    const tp::Tile<L, TCX> tile(tid, Z);
+    float acc[TCX][8];
+#pragma unroll
+    for (int q = 0; q < TCX; ++q) {
+#pragma unroll
+      for (int b = 0; b < 8; ++b) acc[q][b] = 0.0f;
+    }
+    const bool live = tile.active && !bit(dead, 8 * tile.lg);
+    tp::product<L, TCX, SR>(ring, dqm, tile, acc, live, tid, Z, false,
+                            [] {});
+    float pf[8], az[8];
+#pragma unroll
+    for (int b = 0; b < 8; ++b) pf[b] = az[b] = 0.0f;
+    if (live) {
+      const unsigned fz = frozen >> (8 * tile.lg);
+      const unsigned fr = fresh >> (8 * tile.lg);
+#pragma unroll
+      for (int q = 0; q < TCX; ++q) {
+        const int c = tile.col(q);
+        const float crm = __ldg(p.rows[0] + c), crht = __ldg(p.rows[1] + c),
+                    cmh = __ldg(p.rows[2] + c), cmt = __ldg(p.rows[3] + c),
+                    cmr = __ldg(p.rows[4] + c);
+        float z1[8], z2[8], z3[8], lm[8], lht[8], x0[8];
+        tp::ld8<L>(z1, leaf[Z1], c, tile.lg);
+        tp::ld8<L>(z2, leaf[Z2B], c, tile.lg);
+        tp::ld8<L>(z3, leaf[Z3], c, tile.lg);
+        tp::ld8<L>(lm, leaf[LM], c, tile.lg);
+        tp::ld8<L>(lht, leaf[LHT], c, tile.lg);
+        tp::ld8<L>(x0, leaf[X0], c, tile.lg);
+#pragma unroll
+        for (int b = 0; b < 8; ++b) {
+          const float z3n = (bit(fr, b) ? 0.0f : z3[b]) + acc[q][b];
+          const float midR = z2[b] + z3n - z1[b];
+          const float htR = cmh * z1[b] - x0[b] + cmt * (z2[b] - z1[b]);
+          if (CHECK) {
+            pf[b] = fmaxf(pf[b], fmaxf(fabsf(midR * cmr), fabsf(htR)));
+            az[b] = fmaxf(az[b], fabsf((z3n - z3[b]) * cmr));
+          }
+          if (!bit(fz, b)) {
+            z3[b] = z3n;
+            lm[b] = lm[b] + crm * midR;
+            lht[b] = lht[b] + crht * htR;
+          }
+        }
+        tp::st8<L>(leaf[Z3], c, tile.lg, z3);
+        tp::st8<L>(leaf[LM], c, tile.lg, lm);
+        tp::st8<L>(leaf[LHT], c, tile.lg, lht);
+      }
+    }
+    if (!CHECK) {
+      __syncthreads();
+      return 0u;
+    }
+    // a half warp's 16 threads share one lane group: Z / TCX threads a
+    // group, a multiple of 16
+#pragma unroll
+    for (int b = 0; b < 8; ++b) {
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1) {
+        pf[b] = fmaxf(pf[b], __shfl_xor_sync(FULL, pf[b], off));
+        az[b] = fmaxf(az[b], __shfl_xor_sync(FULL, az[b], off));
+      }
+    }
+    if (live && (tid & 15) == 0) {
+      float4* w = reinterpret_cast<float4*>(red3 + (tid >> 4) * 16);
+      w[0] = make_float4(pf[0], pf[1], pf[2], pf[3]);
+      w[1] = make_float4(pf[4], pf[5], pf[6], pf[7]);
+      w[2] = make_float4(az[0], az[1], az[2], az[3]);
+      w[3] = make_float4(az[4], az[5], az[6], az[7]);
+    }
+    __syncthreads();
+    if (tid < 32) keep(Z / TCX, rmask, kinc);
+    __syncthreads();
+    return ctrl[0];
+  }
+
+  // The keepers' part of a checked iteration, run by all of warp 0: lane
+  // t's three residuals over the maxima (ncg threads a lane group in the
+  // product's tiles); the lanes that meet tol go to ctrl[0].
+  __device__ __forceinline__ void keep(int ncg, unsigned rmask, int kinc) {
+    bool conv = false;
+    if (tid < L) {
+      float r[3] = {0.0f, 0.0f, 0.0f};
+      for (int w = 0; w < (Z >> 5); ++w)
+        r[1] = fmaxf(r[1], red2[w * L + tid]);
+      const int h0 = (tid >> 3) * (ncg >> 4);
+      const int h1 = min(Z >> 4, h0 + (ncg >> 4));
+      for (int h = h0; h < h1; ++h) {
+        r[0] = fmaxf(r[0], red3[h * 16 + (tid & 7)]);
+        r[2] = fmaxf(r[2], red3[h * 16 + 8 + (tid & 7)]);
+      }
+      conv = r[0] <= p.tol && r[1] <= p.tol && r[2] <= p.tol;
+      if (bit(rmask, tid)) {
+        kp.k += kinc;
+#pragma unroll
+        for (int q = 0; q < 3; ++q) kp.r[q] = r[q];
+      }
+    }
+    const unsigned m = __ballot_sync(FULL, conv);
+    if (tid == 0) ctrl[0] = m;
+  }
+
+  // Exact-k compaction (tp::compact_lanes) over the seven snapshot leaves
+  // and x0b. No slot is fresh here: a window start that compacts follows a
+  // whole window of every lane's iterations.
+  __device__ __forceinline__ unsigned compact(unsigned done) {
+    float* const moved[NSNAP + 1] = {leaf[Z2B], leaf[Z3],  leaf[LM],
+                                     leaf[LHT], leaf[V2M], leaf[V2T],
+                                     leaf[Q3],  leaf[X0]};
+    return tp::compact_lanes<L>(done, moved, orig, tid);
+  }
+
+  // Exact-k: this thread's column of the seven snapshot leaves between
+  // shared memory and the lanes' snapshots, for the slots in `lanes` (slot b
+  // holds lane orig[b]). Reading them back (every lane in its own slot
+  // again) also restores x0b, zeroes z1 and marks the lanes whose window
+  // starts at 0 fresh.
+  template <bool TO_GLOBAL>
+  __device__ __forceinline__ void snapshot(unsigned lanes) {
+#pragma unroll
+    for (int l = 0; l < NSNAP; ++l) {
+      for (int b = 0; b < L; ++b) {
+        if (!bit(lanes, b)) continue;
+        float* g = p.snap +
+                   (static_cast<size_t>(lane0 + orig[b]) * NSNAP + l) * Z +
+                   tid;
+        float& sh = tp::at<L>(leaf[l], tid, b);
+        if (TO_GLOBAL)
+          *g = sh;
+        else
+          sh = *g;
+      }
+    }
+    if (!TO_GLOBAL) {
+      fresh = 0;
+      for (int b = 0; b < L; ++b) {
+        tp::at<L>(leaf[X0], tid, b) =
+            p.x0b[static_cast<size_t>(lane0 + b) * Z + tid];
+        tp::at<L>(leaf[Z1], tid, b) = 0.0f;
+        if (sn_k[b] == 0) fresh |= 1u << b;
+      }
+      __syncthreads();
+    }
+  }
+};
+
+template <int L, int TC, int SR, int MAXT, int MINB>
+__global__ void __launch_bounds__(MAXT, MINB) fused_eadmm_kernel(Params p) {
   extern __shared__ __align__(16) float smem[];
-  __shared__ int sn_k[TB];       // exact-k: each lane's window start
-  __shared__ float lres[3][TB];  // thread 0's residuals of each lane
-  __shared__ int bounds[3];      // nr, t0, t1
+  Engine<L, TC, SR> e(p, smem);
+  const int j = e.tid;
   const int Z = p.Z;
-  const int j = threadIdx.x;
-  Shared s;
-  {
-    float* a = smem;
-    float** bufs[3] = {&s.d2m, &s.d2t, &s.dq3};
-    for (int l = 0; l < 3; ++l, a += Z * TB) *bufs[l] = a;
-    for (int l = 0; l < 9; ++l, a += Z * TB) s.st[l] = a;
-    s.red = a;
-  }
-  Col c;
-  c.j = j;
-  c.Z = Z;
-  c.lane0 = blockIdx.x * TB;
-  c.rm = p.rows[0][j];
-  c.rht = p.rows[1][j];
-  c.mh = p.rows[2][j];
-  c.mt = p.rows[3][j];
-  c.mr = p.rows[4][j];
-  c.sg = c.mh - c.mt;
-  c.h1i = p.rows[5][j];
-  c.lb = p.rows[6][j];
-  c.ub = p.rows[7][j];
-  const int o = j * TB;
-  if (j == 0) {
-    bounds[0] = 0;
-    bounds[1] = Z;
-    bounds[2] = 0;
-  }
-  __syncthreads();
-  if (c.mr != 0.0f) atomicMax(&bounds[0], j + 1);
-  if (c.mt != 0.0f) {
-    atomicMin(&bounds[1], j);
-    atomicMax(&bounds[2], j + 1);
-  }
-  __syncthreads();
-  c.nr = bounds[0];
-  c.t0 = bounds[1];
-  c.t1 = bounds[2];
-
   {
     // state: z2b0, z30, lm0, lht0, zero previous inputs, zero z1, x0b
-    const float* src[9] = {p.z2b0, p.z30,   p.lm0,   p.lht0, nullptr,
-                           nullptr, nullptr, nullptr, p.x0b};
+    const float* src[NLEAF] = {p.z2b0,  p.z30,   p.lm0,   p.lht0, nullptr,
+                               nullptr, nullptr, nullptr, p.x0b};
 #pragma unroll
-    for (int l = 0; l < 9; ++l) {
-      float v[TB];
-#pragma unroll
-      for (int b = 0; b < TB; ++b)
-        v[b] = src[l] ? src[l][static_cast<size_t>(c.lane0 + b) * Z + j]
-                      : 0.0f;
-      store(s.st[l] + o, v);
+    for (int l = 0; l < NLEAF; ++l) {
+      for (int b = 0; b < L; ++b)
+        tp::at<L>(e.leaf[l], j, b) =
+            src[l] ? src[l][static_cast<size_t>(e.lane0 + b) * Z + j] : 0.0f;
     }
   }
-  if (j == 0) {
-#pragma unroll
-    for (int b = 0; b < TB; ++b)
-#pragma unroll
-      for (int q = 0; q < 3; ++q) lres[q][b] = RBIG;
+  if (j < L) {
+    e.sn_k[j] = 0;
+    e.orig[j] = j;
   }
-  unsigned done = 0;
-  int k[TB];
+  __syncthreads();
+  const unsigned done =
+      tp::run_modes<L>(e, p.k_max, p.check_every, p.exact_k, 0);
+  tp::ring_drain(e.ring);
+  const int leaves[5] = {Z1, Z2B, Z3, LM, LHT};
 #pragma unroll
-  for (int b = 0; b < TB; ++b) k[b] = 0;
-  const int C = p.check_every;
+  for (int l = 0; l < 5; ++l) {
+    for (int b = 0; b < L; ++b)
+      p.out[l][static_cast<size_t>(e.lane0 + b) * Z + j] =
+          tp::at<L>(e.leaf[leaves[l]], j, b);
+  }
+  if (j < L) {
+    const int lane = e.lane0 + j;
+    p.k[lane] = e.kp.k;
+    p.done[lane] = bit(done, j) ? 1 : 0;
+#pragma unroll
+    for (int q = 0; q < 3; ++q) p.res[q][lane] = e.kp.r[q];
+  }
+  if (TP_CLOCKS && j == 0) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      p.ext[4 * blockIdx.x + i] = static_cast<int>(e.clk[i] >> 10);
+  }
+}
 
-  if (C > 1 && p.exact_k) {
-    // free-run windows of C iterations; snapshot every still-active lane
-    // at each window start; a lane is done once the window's last
-    // iteration meets tol. Windows may overshoot k_max: the replay budget
-    // cuts each lane off at exactly k_max.
-    for (int it = 0; it < p.k_max && done != ALL; it += C) {
-      snapshot<true>(s, c, p.snap, ~done & ALL);
-      if (j == 0) {
-#pragma unroll
-        for (int b = 0; b < TB; ++b)
-          if (!bit(done, b)) sn_k[b] = it;
-      }
-      for (int f = 0; f < C - 1; ++f)
-        iterate(p, s, c, 0u, (it == 0 && f == 0) ? ALL : 0u, 0u, lres);
-      done |= iterate(p, s, c, 0u, 0u, 0u, lres);
-    }
-    __syncthreads();  // the window starts, written by thread 0
-    // replay each lane's last window from its snapshot with per-iteration
-    // checks: k counts on from the window start
-    snapshot<false>(s, c, p.snap, ALL);
-    {
-      const float zero[TB] = {};
-      store(s.st[Z1] + o, zero);
-    }
-    int budget[TB];
-    unsigned first = 0;  // lanes replaying from the initial state
-#pragma unroll
-    for (int b = 0; b < TB; ++b) {
-      k[b] = sn_k[b];
-      budget[b] = min(C, p.k_max - k[b]);
-      if (k[b] == 0) first |= 1u << b;
-    }
-    unsigned convd = 0;
-    for (int w = 0; w < C; ++w) {
-      unsigned frozen = convd;
-#pragma unroll
-      for (int b = 0; b < TB; ++b)
-        if (w >= budget[b]) frozen |= 1u << b;
-      if (frozen == ALL) break;
-      const unsigned conv = iterate(p, s, c, frozen, w == 0 ? first : 0u,
-                                    ~frozen & ALL, lres);
-#pragma unroll
-      for (int b = 0; b < TB; ++b)
-        if (!bit(frozen, b)) ++k[b];
-      convd |= conv & ~frozen;
-    }
-    done = convd;
-  } else if (C > 1) {
-    // free-run: C-1 plain iterations, then one tested iteration; every
-    // lane keeps iterating until the block's lanes are all done, k is
-    // recorded at check granularity, and a done lane's residuals stay at
-    // its exit
-    for (int it = 0; it < p.k_max && done != ALL;) {
-      const int n_fast = min(C - 1, p.k_max - 1 - it);
-      for (int f = 0; f < n_fast; ++f)
-        iterate(p, s, c, 0u, (it == 0 && f == 0) ? ALL : 0u, 0u, lres);
-      const unsigned conv = iterate(p, s, c, 0u,
-                                    (it == 0 && n_fast == 0) ? ALL : 0u,
-                                    ~done & ALL, lres);
-#pragma unroll
-      for (int b = 0; b < TB; ++b)
-        if (!bit(done, b)) k[b] += n_fast + 1;
-      done |= conv;
-      it += n_fast + 1;
-    }
-  } else {
-    // checked: exit tests every iteration; a converged lane freezes
-    for (int it = 0; it < p.k_max && done != ALL; ++it) {
-      const unsigned conv = iterate(p, s, c, done, it == 0 ? ALL : 0u,
-                                    ~done & ALL, lres);
-#pragma unroll
-      for (int b = 0; b < TB; ++b)
-        if (!bit(done, b)) ++k[b];
-      done |= conv;
-    }
-  }
+// Rows a slab, and whether C2d is copied to shared memory, of the builds at
+// `lanes` lanes.
+int slab_rows(int lanes) { return lanes == 8 ? Build<8>::SR : Build<16>::SR; }
+bool staged(int lanes) {
+  return lanes == 8 ? Build<8>::STAGE : Build<16>::STAGE;
+}
 
-  {
-    const int leaves[5] = {Z1, Z2B, Z3, LM, LHT};
-#pragma unroll
-    for (int l = 0; l < 5; ++l) {
-      float v[TB];
-      load(v, s.st[leaves[l]] + o);
-#pragma unroll
-      for (int b = 0; b < TB; ++b)
-        p.out[l][static_cast<size_t>(c.lane0 + b) * Z + j] = v[b];
-    }
+template <int L>
+int launch(const Params& p, int blocks, int threads, int smem, void* stream) {
+  // up to NARROW columns the build of Build<L>; wider, one block of up to
+  // MAX_COLS threads an SM (not at 16 lanes: above 256 columns its state
+  // does not fit shared memory)
+  void (*kernel)(Params) = nullptr;
+  if (threads <= NARROW)
+    kernel = fused_eadmm_kernel<L, Build<L>::TC, Build<L>::SR, NARROW,
+                                Build<L>::MINB>;
+  else if constexpr (L == 8)
+    kernel = fused_eadmm_kernel<L, Build<L>::TC, Build<L>::SR, MAX_COLS, 1>;
+  if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
   }
-  if (j == 0) {
-#pragma unroll
-    for (int b = 0; b < TB; ++b) {
-      p.k[c.lane0 + b] = k[b];
-      p.done[c.lane0 + b] = bit(done, b) ? 1 : 0;
-#pragma unroll
-      for (int q = 0; q < 3; ++q) p.res[q][c.lane0 + b] = lres[q][b];
-    }
-  }
+  kernel<<<blocks, threads, smem, static_cast<cudaStream_t>(stream)>>>(p);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
+// Dynamic shared bytes at `lanes` lanes a block and nd classes of columns
+// (kernels/fused_eadmm.py shared_bytes computes the same): the ring of M3p's
+// slabs, the nine leaves as [Z][lanes], dv2m/dq3 with its padding, dv2t, the
+// chains' results, the row maxima, the masks, the window starts, the slots'
+// lanes and the row bounds.
+extern "C" long fused_eadmm_smem(int Z, int lanes, int nd) {
+  const long L = lanes, D = lanes + tp::DQ_PAD;
+  return tp::ring_bytes(Z, slab_rows(lanes)) +
+         4L * (NLEAF * Z * L + Z * D + Z * L + 2L * nd * D +
+               (staged(lanes) ? static_cast<long>(Z) * nd : 0L) +
+               (Z / 32) * L + Z + 4 + 2 * L + 4);
+}
+
 // Launch on `stream` (a cudaStream_t). The geometry comes from the wrapper
-// (kernels/fused_eadmm.py launch_geometry) and is checked here again.
-// Returns the CUDA error of the launch, as an int.
+// (kernels/fused_eadmm.py launch_plan) and is checked here again: B / lanes
+// blocks of Z threads; `ext` is 4 blocks int32 of scratch. Returns the CUDA
+// error of the launch, as an int.
 extern "C" int fused_eadmm_launch(
     const float* x0b, const float* z2refb, const float* z2b0,
-    const float* z30, const float* lm0, const float* lht0, const float* c2m,
-    const float* c2t, const float* m3p, const float* rm, const float* rht,
-    const float* mh, const float* mt, const float* mr, const float* h1i,
-    const float* lb, const float* ub, float* z1, float* z2b, float* z3,
-    float* lm, float* lht, int* k, int* done, float* rpf, float* rz2,
-    float* rz3, float* snap, int B, int Z, int blocks, int threads,
-    int smem, float tol, int k_max, int check_every, int exact_k,
-    void* stream) {
-  const long need = 4L * TB * (12L * Z + 3L * (Z / 32));
+    const float* z30, const float* lm0, const float* lht0, const float* c2d,
+    const float* c2td, const int* col_of, const float* m3p, const float* rm,
+    const float* rht, const float* mh, const float* mt, const float* mr,
+    const float* h1i, const float* lb, const float* ub, float* z1,
+    float* z2b, float* z3, float* lm, float* lht, int* k, int* done,
+    float* rpf, float* rz2, float* rz3, float* snap, int* ext, int B, int Z,
+    int nd, int lanes, int blocks, int threads, int smem, float tol,
+    int k_max, int check_every, int exact_k, void* stream) {
   const bool exact = check_every > 1 && exact_k;
-  if (Z <= 0 || Z % 32 != 0 || Z > MAX_COLS || B % TB != 0 ||
-      blocks != B / TB || threads != Z || smem != need || check_every < 1 ||
-      k_max < 1 || (exact && B > 0 && snap == nullptr))
+  if (Z <= 0 || Z % 32 != 0 || Z > MAX_COLS || nd < 1 || nd > Z ||
+      (lanes != 8 && lanes != 16) || B % lanes != 0 ||
+      blocks != B / lanes || threads != Z ||
+      smem != fused_eadmm_smem(Z, lanes, nd) || check_every < 1 ||
+      k_max < 1 || (exact && B > 0 && snap == nullptr) || ext == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0) return 0;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        fused_eadmm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  Params p{x0b, z2refb, z2b0, z30, lm0, lht0, c2m, c2t, m3p,
+  Params p{x0b, z2refb, z2b0, z30, lm0, lht0, c2d, c2td, col_of, m3p,
            {rm, rht, mh, mt, mr, h1i, lb, ub},
-           {z1, z2b, z3, lm, lht}, k, done, {rpf, rz2, rz3}, snap,
-           Z, tol, k_max, check_every, exact_k};
-  fused_eadmm_kernel<<<blocks, threads, smem,
-                       static_cast<cudaStream_t>(stream)>>>(p);
-  return static_cast<int>(cudaGetLastError());
+           {z1, z2b, z3, lm, lht}, k, done, {rpf, rz2, rz3}, snap, ext,
+           Z, nd, tol, k_max, check_every, exact_k};
+  return lanes == 8 ? launch<8>(p, blocks, threads, smem, stream)
+                    : launch<16>(p, blocks, threads, smem, stream);
 }

@@ -44,7 +44,21 @@ they stay exactly 0 and never enter a residual. The batch is padded to a
 multiple of tile_b by the caller.
 
 `fused_eadmm_solve` runs the plain version for CPU tensors and launches the
-kernel for CUDA tensors; `fused_eadmm_solve.launches` counts the launches.
+kernel for CUDA tensors; `fused_eadmm_solve.launches` counts the launches
+and `fused_eadmm_solve.last_plan` holds the last launch's build and
+geometry.
+
+The kernel runs M3p's product on the product stage csrc/tile_product.cuh,
+built for 8 and 16 lanes a block (32 do not fit shared memory;
+kernels/stage.py plans the launch, with no refill: every mode keeps a block
+of L lanes, and plain free-run freezes each group of 8 lanes once its lanes
+are done, as a tile of tile_b = 8 drains). The z2 product runs over the
+distinct columns of C2m and C2t (`distinct_columns`): columns that are
+equal in both matrices, byte for byte, give the same fmaf chain, so the
+kernel computes one chain a class and lane and gives the bits of the
+one-column-per-thread parent (csrc/variants/fused_eadmm_parent.cu). Every
+build gives the same bits, so `lanes=` of `fused_eadmm_solve` may name
+another build, for a check or a timing.
 """
 
 from __future__ import annotations
@@ -53,21 +67,39 @@ import ctypes
 
 import torch
 
-from spcies_tpu_torch.kernels.fused_admm import (COL_PAD, MAX_COLS,
+from spcies_tpu_torch.kernels import stage
+from spcies_tpu_torch.kernels.fused_admm import (COL_PAD, DQ_PAD, MAX_COLS,
                                                  RBIG, round_up)
 
-# lanes per thread block (TB in csrc/fused_eadmm.cu)
-CTA_LANES = 8
+__all__ = ["COL_PAD", "MAX_COLS", "round_up", "distinct_columns",
+           "fused_eadmm_reference", "fused_eadmm_solve", "launch_geometry",
+           "launch_plan", "narrow_operands", "shared_bytes"]
 
-__all__ = ["COL_PAD", "CTA_LANES", "MAX_COLS", "round_up",
-           "fused_eadmm_reference", "fused_eadmm_solve", "launch_geometry"]
-
-# C signature of fused_eadmm_launch: 28 tensor pointers (17 inputs, 10
-# outputs, the exact-k snapshot scratch); B, Z, blocks, threads, shared
-# bytes; tol; k_max, check_every, exact_k; the stream
-FUSED_EADMM_ARGTYPES = ([ctypes.c_void_p] * 28 + [ctypes.c_int] * 5
+# C signature of fused_eadmm_launch: 30 pointers (18 inputs: the six tiles,
+# C2m's and C2t's representative columns, the class of each column, M3p and
+# the eight rows; 10 outputs; the exact-k snapshot scratch; int32 scratch
+# for clock counts); B, Z, nd, lanes, blocks, threads, shared bytes; tol;
+# k_max, check_every, exact_k; the stream
+FUSED_EADMM_ARGTYPES = ([ctypes.c_void_p] * 30 + [ctypes.c_int] * 7
                         + [ctypes.c_float] + [ctypes.c_int] * 3
                         + [ctypes.c_void_p])
+# lanes a block -> (rows a slab of M3p's ring, blocks an SM) of its build
+# (Build<L> in csrc/fused_eadmm.cu; the blocks an SM up to NARROW columns)
+BUILDS = {8: (8, 2), 16: (16, 1)}
+# lanes a block -> whether its build copies C2d to shared memory for the z2
+# chains (EA_STAGE_C2D_<L> in the source: not at 8 lanes, whose two blocks
+# an SM have no room for it)
+C2D_STAGED = {8: False, 16: True}
+# rows a slab reckoned for a number of lanes no build has: the smallest ring
+# the 16-lane build would take
+SLAB_ROWS_OTHER = 16
+# up to this width each lanes a block has its build of BUILDS (NARROW in
+# the source); wider, one block of up to MAX_COLS threads an SM
+NARROW = 256
+WARP = 32
+# the state vectors a block keeps as [Z][lanes]: z2b, z3, lm, lht, the three
+# previous product inputs, z1 and x0b
+STATE_LEAVES = 9
 # the leaves an exact-k snapshot saves per lane in the kernel: z2b, z3, lm,
 # lht and the three previous product inputs (the accumulators equal z2b and
 # z3 after the first iteration, which the kernel marks instead)
@@ -214,43 +246,97 @@ def fused_eadmm_reference(x0b, z2refb, z2b0, z30, lm0, lht0, C2m, C2t, M3p,
     return (z1, st[0], st[1], st[2], st[3], k, e_flag) + r
 
 
-def launch_geometry(B: int, Z: int, *, tile_b: int, check_every: int,
-                    exact_k: bool, k_max: int):
-    """(blocks, threads, dynamic shared bytes) of a kernel launch; raises
-    ValueError on a shape or mode the kernel does not take."""
+def distinct_columns(C2m, C2t):
+    """The classes of the columns of the stacked [C2m; C2t] that are equal
+    byte for byte, on the matrices' device. Returns (reps, col_of): reps
+    [nd] int64, the first column of each class in ascending order, and
+    col_of [Z] int32, the class of each column. A column is a copy only if
+    it is one in both matrices; +0.0 and -0.0 are told apart."""
+    Z = C2m.shape[1]
+    cols = torch.cat([C2m, C2t]).T.contiguous()
+    key = cols.view(torch.int32) if cols.dtype == torch.float32 else \
+        cols.view(torch.int64)
+    _, inverse = torch.unique(key, dim=0, return_inverse=True)
+    nd = int(inverse.max()) + 1
+    first = torch.full((nd,), Z, dtype=torch.int64, device=cols.device)
+    first.scatter_reduce_(0, inverse, torch.arange(Z, device=cols.device),
+                          reduce="amin")
+    order = torch.argsort(first)
+    rank = torch.empty_like(order)
+    rank[order] = torch.arange(nd, device=cols.device)
+    return first[order], rank[inverse].to(torch.int32)
+
+
+def narrow_operands(C2m, C2t):
+    """The z2 product's operands as the kernel takes them: (C2d, C2td,
+    col_of), C2d = C2m[:, reps] and C2td = C2t[:, reps] ([Z, nd],
+    contiguous) over `distinct_columns`' classes."""
+    reps, col_of = distinct_columns(C2m, C2t)
+    return (C2m[:, reps].contiguous(), C2t[:, reps].contiguous(), col_of)
+
+
+def shared_bytes(Z: int, lanes: int, nd: int = 1) -> int:
+    """Dynamic shared bytes of a block (fused_eadmm_smem in the source) at
+    nd classes of columns: the ring of M3p's slabs, the nine state vectors
+    as [Z][lanes], dv2m/dq3 with its padding, dv2t, the chains' results,
+    C2d's copy where the build makes one (C2D_STAGED), the row maxima, the
+    masks, the window starts, the slots' lanes and the row bounds. A number
+    of lanes no build has is reckoned with SLAB_ROWS_OTHER rows a slab and
+    a copy of C2d."""
+    slab = BUILDS.get(lanes, (SLAB_ROWS_OTHER, 1))[0]
+    D = lanes + DQ_PAD
+    return stage.ring_bytes(Z, slab) + 4 * (
+        STATE_LEAVES * Z * lanes + Z * D + Z * lanes + 2 * nd * D
+        + (Z * nd if C2D_STAGED.get(lanes, True) else 0)
+        + Z // WARP * lanes + Z + 4 + 2 * lanes + 4)
+
+
+def launch_plan(B: int, Z: int, nd: int, *, tile_b: int, check_every: int,
+                exact_k: bool, k_max: int, lanes: int | None = None):
+    """The build a launch takes and its geometry, as a dict: lanes a block,
+    blocks, threads, dynamic shared bytes, refill (always False). nd is the
+    number of classes of columns. `lanes` names a build (a key of BUILDS)
+    in place of the dispatch's choice; raises ValueError on a shape or mode
+    no build takes."""
     if Z % COL_PAD or not 0 < Z <= MAX_COLS:
         raise ValueError(f"the kernel takes a padded width that is a "
                          f"multiple of {COL_PAD} up to {MAX_COLS}; got {Z}")
-    if tile_b % CTA_LANES:
-        raise ValueError(f"tile_b must be a multiple of {CTA_LANES}; "
-                         f"got {tile_b}")
-    if B % tile_b:
-        raise ValueError(f"batch {B} is not a multiple of tile_b {tile_b}")
+    if not 0 < nd <= Z:
+        raise ValueError(f"the classes of columns number 1 to {Z}; got {nd}")
     if k_max < 1:
         raise ValueError(f"k_max must be at least 1; got {k_max}")
-    if check_every > 1 and not exact_k and tile_b != CTA_LANES:
-        # in plain free-run the output iterates depend on when a lane's
-        # tile drains, and the kernel drains per block of CTA_LANES lanes
-        raise ValueError(
-            f"plain free-run (check_every > 1 without exact_k) takes "
-            f"tile_b={CTA_LANES} on the GPU; got {tile_b}")
-    # nine state vectors (z1, z2b, z3, lm, lht, v2m_p, v2t_p, q3_p, x0b)
-    # and three product inputs, each [Z][8]; warp maxima of the three
-    # residuals [Z / 32][3][8]
-    smem = 4 * CTA_LANES * (12 * Z + 3 * (Z // 32))
-    return B // CTA_LANES, Z, smem
+    stage.check_mode(B, tile_b=tile_b, check_every=check_every,
+                     exact_k=exact_k)
+    return stage.plan(B, Z, lambda L: shared_bytes(Z, L, nd), BUILDS,
+                      refill=False, lanes=lanes)
 
 
-def _launch(*args, tol, k_max, tile_b, check_every, exact_k):
+def launch_geometry(B: int, Z: int, nd: int, **kw):
+    """(blocks, threads, dynamic shared bytes) of a kernel launch; the
+    arguments of `launch_plan`."""
+    plan = launch_plan(B, Z, nd, **kw)
+    return plan["blocks"], plan["threads"], plan["smem"]
+
+
+def _launch(*args, tol, k_max, tile_b, check_every, exact_k, classes=None,
+            lanes=None):
     for t in args:
         if t.dtype != torch.float32:
             raise TypeError(f"the fused kernel takes float32; got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError("the fused kernel takes contiguous tensors")
     B, Z = args[0].shape
-    blocks, threads, smem = launch_geometry(
-        B, Z, tile_b=tile_b, check_every=check_every, exact_k=exact_k,
-        k_max=k_max)
+    C2d, C2td, col_of = (narrow_operands(args[6], args[7]) if classes is None
+                         else classes)
+    nd = C2d.shape[1]
+    if (C2d.shape != (Z, nd) or C2td.shape != (Z, nd)
+            or col_of.shape != (Z,) or col_of.dtype != torch.int32
+            or C2d.dtype != torch.float32 or C2td.dtype != torch.float32
+            or not (C2d.is_contiguous() and C2td.is_contiguous())):
+        raise ValueError("classes are (C2d, C2td, col_of) as "
+                         "narrow_operands gives them")
+    plan = launch_plan(B, Z, nd, tile_b=tile_b, check_every=check_every,
+                       exact_k=exact_k, k_max=k_max, lanes=lanes)
     from spcies_tpu_torch.kernels._build import load_kernel
     launch = load_kernel("fused_eadmm", "fused_eadmm_launch",
                          FUSED_EADMM_ARGTYPES)
@@ -263,17 +349,26 @@ def _launch(*args, tol, k_max, tile_b, check_every, exact_k):
     exact = check_every > 1 and exact_k
     snap = torch.empty((B if exact else 0, SNAP_LEAVES * Z),
                        dtype=torch.float32, device=dev)
+    # each block's kilo-clocks of P1, of the z2 chains, of P2, and of P3
+    # and the keepers (in a build with TP_CLOCKS; else zeros)
+    nb = plan["blocks"]
+    ext = torch.zeros((4 * nb,), dtype=torch.int32, device=dev)
+    ins = args[:6] + (C2d, C2td, col_of) + args[8:]
+    ptrs = [t.data_ptr() for t in ins + outs + (k, done) + res + (snap, ext)]
+    if any(ptr % 16 for ptr in ptrs):
+        raise ValueError("the fused kernel takes 16-byte aligned tensors")
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = launch(
-            *(t.data_ptr() for t in args + outs + (k, done) + res + (snap,)),
-            B, Z, blocks, threads, smem, float(tol), int(k_max),
-            int(check_every), int(bool(exact_k)), stream)
+            *ptrs, B, Z, nd, plan["lanes"], plan["blocks"], plan["threads"],
+            plan["smem"], float(tol), int(k_max), int(check_every),
+            int(bool(exact_k)), stream)
     if err != 0:
         raise RuntimeError(f"fused_eadmm kernel launch failed with CUDA "
-                           f"error {err} (blocks={blocks}, threads={threads},"
-                           f" shared={smem} B)")
+                           f"error {err} ({plan})")
     fused_eadmm_solve.launches += 1
+    fused_eadmm_solve.last_plan = dict(plan, nd=nd,
+                                       block_clocks=ext.view(nb, 4))
     e_flag = torch.where(done == 1, 1, -1).to(torch.int32)
     return outs + (k, e_flag) + res
 
@@ -282,11 +377,16 @@ def fused_eadmm_solve(x0b, z2refb, z2b0, z30, lm0, lht0, C2m, C2t, M3p,
                       rm_row, rht_row, mh_row, mt_row, mr_row, h1i_row,
                       lb_row, ub_row, *, tol: float, k_max: int,
                       tile_b: int = 256, check_every: int = 1,
-                      exact_k: bool = False):
+                      exact_k: bool = False, classes=None,
+                      lanes: int | None = None):
     """Run the fused EADMM loop: six [B, Z] tiles, three [Z, Z] matrices
     and eight rows of Z entries (padded as the module docstring says; B a
     multiple of tile_b). CPU tensors run the plain version; CUDA tensors
-    launch the kernel or raise.
+    launch the kernel or raise. `classes` is `narrow_operands(C2m, C2t)`,
+    computed once per operator by a caller that launches many times (the
+    launch computes it when left out); `lanes` names the build to launch (a
+    key of BUILDS) in place of the dispatch's choice. The results depend on
+    neither, and the plain version takes neither.
 
     Returns (z1, z2b, z3, lm, lht [B, Z], k [B] int32, e_flag [B] int32
     (1 converged / -1 k_max reached), r_pf, r_z2, r_z3 [B]).
@@ -311,9 +411,10 @@ def fused_eadmm_solve(x0b, z2refb, z2b0, z30, lm0, lht0, C2m, C2t, M3p,
     if x0b.device.type == "cpu":
         return fused_eadmm_reference(*args, **kw)
     if x0b.device.type == "cuda":
-        return _launch(*args, **kw)
+        return _launch(*args, classes=classes, lanes=lanes, **kw)
     raise ValueError(f"fused_eadmm_solve takes CPU or CUDA tensors; got "
                      f"{x0b.device}")
 
 
 fused_eadmm_solve.launches = 0
+fused_eadmm_solve.last_plan = None

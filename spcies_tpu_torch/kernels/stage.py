@@ -1,9 +1,11 @@
 """Launch geometry of the kernels that run on the product stage
 csrc/tile_product.cuh with a build for each lanes a block: K2
-(kernels/fused_fista.py, no refill), K4 (kernels/fused_ellip.py), K5
+(kernels/fused_fista.py, no refill), K3 (kernels/fused_eadmm.py, no
+refill), K4 (kernels/fused_ellip.py), K5
 (kernels/fused_soc.py) and K6 (kernels/fused_hmpc.py).
 
-Each kernel is built for 8, 16 and 32 lanes a block (LANES), and up to
+Each kernel is built for 8, 16 and 32 lanes a block (LANES; K3,
+kernels/fused_eadmm.py, for 8 and 16: a build is a key of `builds`), and up to
 NARROW columns each of those has a build of its own (`builds`: lanes -> rows
 a slab of the matrix, blocks an SM it is compiled for); wider shapes take one
 block an SM with 16-row slabs, and no 32-lane build. With refill (every mode
@@ -78,7 +80,8 @@ def pick_lanes(B: int, width: int, smem_of, builds: dict, *,
                refill: bool) -> int:
     """The widest build that takes the launch and still gives half of the
     SMs a block; the narrowest that takes it when none does."""
-    fits = [L for L in LANES if _takes(B, width, smem_of, L, refill)]
+    fits = [L for L in LANES
+            if L in builds and _takes(B, width, smem_of, L, refill)]
     if not fits:
         raise ValueError(f"no build of the kernel takes batch {B} at width "
                          f"{width}")
@@ -96,7 +99,8 @@ def plan(B: int, width: int, smem_of, builds: dict, *, refill: bool,
     the shape."""
     if lanes is None:
         lanes = pick_lanes(B, width, smem_of, builds, refill=refill)
-    elif lanes not in LANES or not _takes(B, width, smem_of, lanes, refill):
+    elif (lanes not in LANES or lanes not in builds
+          or not _takes(B, width, smem_of, lanes, refill)):
         raise ValueError(f"no build of the kernel takes {lanes} lanes a "
                          f"block at batch {B}, width {width}")
     return dict(lanes=lanes,

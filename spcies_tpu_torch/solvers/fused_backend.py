@@ -25,7 +25,8 @@ import torch.nn.functional as F
 
 from spcies_tpu_torch.kernels.fused_admm import (COL_PAD, fused_admm_solve,
                                                  round_up)
-from spcies_tpu_torch.kernels.fused_eadmm import fused_eadmm_solve
+from spcies_tpu_torch.kernels.fused_eadmm import (fused_eadmm_solve,
+                                                  narrow_operands)
 from spcies_tpu_torch.kernels.fused_ellip import (fused_ellip_solve,
                                                   slab_start)
 from spcies_tpu_torch.kernels.fused_fista import fused_fista_solve
@@ -291,6 +292,9 @@ class FusedEADMMSolve:
         rows[7, :nz1] = np.minimum(ing["UB"], 1e30)
         self.operator = tuple(torch.as_tensor(a, device=device)
                               for a in (*mats, *rows[:, None, :]))
+        # the kernel's z2 product over the distinct columns of C2m and C2t,
+        # found once here so that a request does no comparison
+        self.classes = narrow_operands(*self.operator[:2])
         self.dtype = dtype
         self.W2, self.T, self.S = (
             torch.as_tensor(ing[key], dtype=dtype, device=device)
@@ -328,7 +332,8 @@ class FusedEADMMSolve:
                              "EADMM backend; use backend='dense'")
         *kin, Bsz = self.prepare(x0, xr, ur, init=init)
         (z1, z2b, z3, lm, lht, k, e_flag, r_pf, r_z2,
-         r_z3) = fused_eadmm_solve(*kin, *self.operator, **self.kernel_kw)
+         r_z3) = fused_eadmm_solve(*kin, *self.operator,
+                                   classes=self.classes, **self.kernel_kw)
         n, m, N, nm, nz1 = self.n, self.m, self.N, self.nm, self.nz1
         lam = torch.cat([lht[:Bsz, :n], lm[:Bsz, :nz1],
                          lht[:Bsz, N * nm:nz1]], dim=-1)

@@ -14,8 +14,9 @@ import spcies_tpu as jsp
 from spcies_tpu.kernels.fused_eadmm import fused_eadmm_solve as jax_kernel
 
 import spcies_tpu_torch as tsp
-from spcies_tpu_torch.kernels import _build
+from spcies_tpu_torch.kernels import _build, stage
 from spcies_tpu_torch.kernels import fused_eadmm as fk
+from spcies_tpu_torch.kernels.fused_admm import SMEM_MAX
 from spcies_tpu_torch.solvers.fused_backend import FusedEADMMSolve
 
 torch.set_num_threads(2)
@@ -296,18 +297,26 @@ def test_wrapper_rejects_bad_arguments():
 
 
 def test_launch_geometry():
-    # the N=30 shape: nz1 = 248 pads to 256 columns, one thread each
-    smem = 4 * 8 * (12 * 256 + 3 * 8)
+    # the N=30 shape: nz1 = 248 pads to 256 columns, one thread each; the
+    # MPCT operator's columns fall into 9 classes, and 16 lanes a block
+    # take batches of 1056 lanes (66 blocks, half the SMs) and more
+    smem16 = fk.shared_bytes(256, 16, 9)
     for B in (8192, 32768):
-        assert fk.launch_geometry(B, 256, tile_b=256, check_every=1,
+        assert fk.launch_geometry(B, 256, 9, tile_b=256, check_every=1,
                                   exact_k=False, k_max=5000) == (
-            B // 8, 256, smem)
+            B // 16, 256, smem16)
+    assert fk.launch_geometry(1024, 256, 9, tile_b=8, check_every=1,
+                              exact_k=False, k_max=5000) == (
+        128, 256, fk.shared_bytes(256, 8, 9))
+    # two 8-lane blocks fit an SM with their reserve
+    assert 2 * (fk.shared_bytes(256, 8, 9) + stage.SMEM_RESERVED) <= \
+        stage.SMEM_SM
     # the N=10 fixture: nz1 = 88 pads to 96
-    assert fk.launch_geometry(16, 96, tile_b=8, check_every=4,
+    assert fk.launch_geometry(16, 96, 9, tile_b=8, check_every=4,
                               exact_k=False, k_max=10)[:2] == (2, 96)
-    # 512 columns fit the 227 KB a block can opt into
+    # 512 columns fit the 227 KB a block can opt into at 8 lanes
     assert 48 * 1024 < fk.launch_geometry(
-        8, 512, tile_b=8, check_every=1, exact_k=False,
+        8, 512, 9, tile_b=8, check_every=1, exact_k=False,
         k_max=10)[2] <= 232448
     bad = [
         dict(B=64, Z=250, tile_b=8),      # not whole warps
@@ -316,12 +325,166 @@ def test_launch_geometry():
         dict(B=48, Z=96, tile_b=32),      # batch not whole tiles
         dict(B=256, Z=96, tile_b=256, check_every=8),  # drain per block
         dict(B=64, Z=96, tile_b=8, k_max=0),
+        dict(B=64, Z=96, tile_b=8, nd=0),  # no class of columns
+        dict(B=64, Z=96, tile_b=8, nd=97),  # more classes than columns
+        dict(B=8, Z=512, tile_b=8, nd=512),  # every column its own class:
+                                             # no build fits at 512
     ]
     for b in bad:
         with pytest.raises(ValueError):
-            fk.launch_geometry(b["B"], b["Z"], tile_b=b["tile_b"],
+            fk.launch_geometry(b["B"], b["Z"], b.get("nd", 9),
+                               tile_b=b["tile_b"],
                                check_every=b.get("check_every", 1),
                                exact_k=False, k_max=b.get("k_max", 10))
+
+
+@pytest.mark.parametrize("B,lanes", [(8192, 16), (32768, 16), (1056, 16),
+                                     (1048, 8), (64, 8), (8, 8)])
+def test_launch_plan_picks_lanes(B, lanes):
+    """16 lanes a block once the batch gives half the SMs a block (66 x 16
+    lanes), 8 below; the plan never launches more than one block per L
+    lanes, and it has no refill."""
+    plan = fk.launch_plan(B, 256, 9, tile_b=8, check_every=1, exact_k=False,
+                          k_max=5000)
+    assert plan == dict(lanes=lanes, blocks=B // lanes, threads=256,
+                        smem=fk.shared_bytes(256, lanes, 9), refill=False)
+
+
+def test_no_32_lane_build():
+    """At 32 lanes a block the state alone outgrows a block's shared memory,
+    even with the 16-row ring, so no 32-lane build exists and naming one
+    raises."""
+    assert 32 not in fk.BUILDS
+    assert fk.shared_bytes(256, 32) > SMEM_MAX
+    assert fk.shared_bytes(256, 32) == fk.shared_bytes(256, 32, 1)
+    with pytest.raises(ValueError, match="no build"):
+        fk.launch_plan(8192, 256, 9, tile_b=256, check_every=1,
+                       exact_k=False, k_max=5000, lanes=32)
+    with pytest.raises(ValueError, match="no build"):
+        fk.launch_plan(8192, 96, 9, tile_b=256, check_every=1,
+                       exact_k=False, k_max=5000, lanes=32)
+    # a small width would fit 32 lanes in shared memory; the dispatch still
+    # takes only the builds there are
+    assert fk.launch_plan(8192, 96, 9, tile_b=256, check_every=1,
+                          exact_k=False, k_max=5000)["lanes"] == 16
+
+
+def _mpct_operator(fixture, N):
+    sys, param, _ = fixture
+    p = dict(param, N=N)
+    opt = tsp.default_options("MPCT", "EADMM", tile_b=8, **KW)
+    ing = tsp.formulations.mpct.mpct_eadmm_ingredients(sys, p, opt)
+    return FusedEADMMSolve(ing, opt, "cpu")
+
+
+@pytest.mark.parametrize("N", [10, 30])
+def test_distinct_columns_of_the_mpct_operator(fixture, N):
+    """The columns of [C2m; C2t] fall into nm + 1 = 9 classes: z2's nm
+    columns, copied to every stage block, and the zero pad columns. Every
+    member of a class equals its representative byte for byte in both
+    matrices, and the representative is the class's first column."""
+    fused = _mpct_operator(fixture, N)
+    C2m, C2t = fused.operator[:2]
+    Z = C2m.shape[0]
+    reps, col_of = fk.distinct_columns(C2m, C2t)
+    assert len(reps) == fused.nm + 1 == 9
+    assert reps.tolist() == list(range(fused.nm)) + [fused.nz1]
+    assert col_of.dtype == torch.int32 and col_of.shape == (Z,)
+    j = torch.arange(Z)
+    want = torch.where(j < fused.nz1, j % fused.nm, fused.nm)
+    assert torch.equal(col_of.long(), want)
+    for M in (C2m, C2t):
+        bits = M.contiguous().view(torch.int32)
+        assert torch.equal(bits, bits[:, reps[col_of.long()]])
+    assert torch.equal(reps[col_of.long()[reps]], reps)
+    # the solver found the same classes once, for the kernel
+    C2d, C2td, cls = fused.classes
+    assert torch.equal(cls, col_of)
+    assert torch.equal(C2d, C2m[:, reps]) and C2d.is_contiguous()
+    assert torch.equal(C2td, C2t[:, reps]) and C2td.is_contiguous()
+
+
+def test_distinct_columns_of_random_matrices():
+    """Random matrices: every column its own class. A column equal in C2m
+    but not in C2t is no copy, and -0.0 is not +0.0."""
+    rng = np.random.default_rng(3)
+    Z = 64
+    C2m = torch.as_tensor(rng.normal(size=(Z, Z)), dtype=torch.float32)
+    C2t = torch.as_tensor(rng.normal(size=(Z, Z)), dtype=torch.float32)
+    reps, col_of = fk.distinct_columns(C2m, C2t)
+    assert reps.tolist() == list(range(Z))
+    assert col_of.tolist() == list(range(Z))
+    C2m[:, 5] = C2m[:, 2]
+    assert len(fk.distinct_columns(C2m, C2t)[0]) == Z
+    C2t[:, 5] = C2t[:, 2]
+    reps, col_of = fk.distinct_columns(C2m, C2t)
+    assert len(reps) == Z - 1 and int(col_of[5]) == int(col_of[2]) == 2
+    a, b = torch.zeros((4, 2)), torch.zeros((4, 2))
+    a[1, 1] = -0.0
+    assert len(fk.distinct_columns(a, b)[0]) == 2
+    # float64 operators (the plain version's) are compared by their bytes
+    assert len(fk.distinct_columns(a.double(), b.double())[0]) == 2
+
+
+@pytest.mark.parametrize("N", [10, 30])
+def test_chains_over_classes_give_every_columns_bits(fixture, N):
+    """A row-ordered fp32 accumulation (one multiply and one add a row) over
+    the class representatives, scattered by col_of, equals the same chain
+    over all columns bit for bit: each copy's chain is its
+    representative's."""
+    fused = _mpct_operator(fixture, N)
+    C2m, C2t = fused.operator[:2]
+    C2d, C2td, col_of = fused.classes
+    rng = np.random.default_rng(N)
+    d = torch.as_tensor(rng.normal(size=(8, C2m.shape[0])),
+                        dtype=torch.float32)
+
+    def chain(v, M):
+        acc = torch.zeros((v.shape[0], M.shape[1]), dtype=torch.float32)
+        for i in range(M.shape[0]):
+            acc = acc + v[:, i:i + 1] * M[i:i + 1]
+        return acc
+
+    for full, narrow in ((C2m, C2d), (C2t, C2td)):
+        want = chain(d, full)
+        got = chain(d, narrow)[:, col_of.long()]
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_wrapper_checks_classes():
+    """The launch takes the classes as narrow_operands gives them and
+    refuses others before any build."""
+    t = torch.zeros((8, 64))
+    mat = torch.zeros((64, 64))
+    row = torch.zeros((1, 64))
+    ok = (t,) * 6 + (mat,) * 3 + (row,) * 8
+    kw = dict(tol=1e-4, k_max=10, tile_b=8, check_every=1, exact_k=False)
+    C2d, C2td, col_of = fk.narrow_operands(mat, mat)
+    assert C2d.shape == (64, 1) and col_of.tolist() == [0] * 64
+    for bad in ((C2d, C2td, col_of.long()), (C2d, C2td[:1], col_of),
+                (C2d.double(), C2td, col_of)):
+        with pytest.raises(ValueError, match="classes"):
+            fk._launch(*ok, classes=bad, **kw)
+
+
+def test_parent_kernel_is_a_variant():
+    """The kernel runs on the product stage; the one-column-per-thread
+    parent it replaced lives only among the variants."""
+    src = (_build.CSRC / "fused_eadmm.cu").read_text()
+    assert '#include "tile_product.cuh"' in src
+    assert "tp::run_modes<L>" in src and "tp::product<L, TCX, SR>" in src
+    parent = _build.CSRC / "variants" / "fused_eadmm_parent.cu"
+    assert "constexpr int TB = 8;" in parent.read_text()
+    assert fk.C2D_STAGED.keys() == fk.BUILDS.keys()
+    for L, (slab, blocks) in fk.BUILDS.items():
+        assert f"#define EA_SLAB_{L} {slab}" in src
+        assert f"#define EA_BLOCKS_{L} {blocks}" in src
+        assert f"#define EA_STAGE_C2D_{L} {int(fk.C2D_STAGED[L])}" in src
+    # the 16-lane build's copy of C2d is [Z][nd] floats of its shared memory
+    assert (fk.shared_bytes(256, 16, 9) - fk.shared_bytes(256, 16, 1)
+            == 4 * 8 * (256 + 2 * 20))
+    assert (fk.shared_bytes(256, 8, 9) - fk.shared_bytes(256, 8, 1)
+            == 4 * 8 * 2 * 12)
 
 
 def test_build_is_lazy_and_content_addressed():
@@ -333,6 +496,6 @@ def test_build_is_lazy_and_content_addressed():
     src = (_build.CSRC / "fused_eadmm.cu").read_text()
     assert src.count("extern \"C\" int fused_eadmm_launch(") == 1
     assert f"NSNAP = {fk.SNAP_LEAVES};" in src
-    # the C signature the wrapper binds: 28 pointers, 5 + 1 + 3 scalars,
+    # the C signature the wrapper binds: 30 pointers, 7 + 1 + 3 scalars,
     # the stream
-    assert len(fk.FUSED_EADMM_ARGTYPES) == 38
+    assert len(fk.FUSED_EADMM_ARGTYPES) == 42

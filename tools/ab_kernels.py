@@ -2,13 +2,17 @@
 """A/B of build variants of the port's kernels on one CUDA card, in one
 process.
 
-K2, K4, K5 and K6 (fused_fista, fused_ellip, fused_soc, fused_hmpc): the
-committed source on the product stage csrc/tile_product.cuh at 8, 16 and 32
-lanes a block, and builds of it with other macro defaults (K4-K6: refill
+K2, K3, K4, K5 and K6 (fused_fista, fused_eadmm, fused_ellip, fused_soc,
+fused_hmpc): the committed source on the product stage
+csrc/tile_product.cuh at each lanes a block it is built for (8, 16 and 32;
+K3 8 and 16), and builds of it with other macro defaults (K4-K6: refill
 off, other slab rows and blocks an SM, a ring of three slabs, clock counts
 of an iteration's halves; K6 and K5: the cones projected as the parents
 project them; K2: other slab rows, blocks an SM, columns a thread, ring
-depth and clock counts of its products), each held to the parent
+depth and clock counts of its products; K3: clock counts of an iteration's
+four parts, per block iteration, and z2 chains that read C2d the other way:
+from shared memory at 8 lanes, by __ldg at 16),
+each held to the parent
 (csrc/variants/fused_*_parent.cu: one column a thread, 8 lanes a block)
 bit for bit in every mode chip_smoke.py runs for the kernel, then timed
 with the parent in turns at B=8192 and 32768 (and K4 at phase 10's binding
@@ -67,6 +71,7 @@ import chip_smoke as c  # noqa: E402
 import spcies_tpu_torch as sp  # noqa: E402
 from spcies_tpu_torch.kernels import _build  # noqa: E402
 from spcies_tpu_torch.kernels import fused_admm as k1  # noqa: E402
+from spcies_tpu_torch.kernels import fused_eadmm as k3  # noqa: E402
 from spcies_tpu_torch.kernels import fused_ellip as k4  # noqa: E402
 from spcies_tpu_torch.kernels import fused_fista as k2  # noqa: E402
 from spcies_tpu_torch.kernels import fused_hmpc as k6  # noqa: E402
@@ -269,6 +274,12 @@ PARENT_ELLIP_ARGTYPES = ([ctypes.c_void_p] * 16 + [ctypes.c_int] * 7
 PARENT_FISTA_ARGTYPES = ([ctypes.c_void_p] * 18 + [ctypes.c_int] * 6
                          + [ctypes.c_float] + [ctypes.c_int] * 5
                          + [ctypes.c_void_p])
+# and of K3's parent (fused_eadmm_parent.cu: 28 tensor pointers; B, Z,
+# blocks, threads, shared bytes; tol; k_max, check_every, exact_k; the
+# stream)
+PARENT_EADMM_ARGTYPES = ([ctypes.c_void_p] * 28 + [ctypes.c_int] * 5
+                         + [ctypes.c_float] + [ctypes.c_int] * 3
+                         + [ctypes.c_void_p])
 
 
 def _hmpc_chip(name):
@@ -324,10 +335,29 @@ def _fista_chip():
                 common=False)
 
 
+def _eadmm_chip():
+    """K3's modes are chip_smoke.py's phase 7; its calls pass the classes
+    of columns the solver found once, so that a timed launch finds none."""
+    fam = "MPCT-EADMM"
+
+    def args(solver, x):
+        a, kk = c.eadmm_kernel_args(solver, x)
+        return a, dict(kk, classes=solver.raw_fn.classes)
+    return dict(module=k3, solve=k3.fused_eadmm_solve, prefix="EA",
+                families=(fam,), k_at=5,
+                modes=[(fam, label, B, kw, {})
+                       for label, B, _capped, kw in c.eadmm_modes()],
+                solver=lambda sp_, fam_, **kw: c.mpct_solver(
+                    sp_, fam_, device="cuda", **kw),
+                inputs=lambda fam_, B, extra: c.problem(sp, 0, B)[2],
+                args=args, common=False)
+
+
 STAGE = {"fused_hmpc": _hmpc_chip("fused_hmpc"),
          "fused_soc": _soc_chip("fused_soc"),
          "fused_ellip": _ellip_chip(),
-         "fused_fista": _fista_chip()}
+         "fused_fista": _fista_chip(),
+         "fused_eadmm": _eadmm_chip()}
 
 
 def run_stage(v, args, kk):
@@ -418,6 +448,30 @@ def run_fista_parent(v, args, kk):
     return z, y, lam, k, torch.where(done == 1, 1, -1).to(torch.int32), res
 
 
+def run_eadmm_parent(v, args, kk):
+    """The parent K3: 8 lanes a block, one column a thread; the classes of
+    columns in kk are not its."""
+    B, Z = args[0].shape
+    stage.check_mode(B, tile_b=kk["tile_b"], check_every=kk["check_every"],
+                     exact_k=kk["exact_k"])
+    exact = kk["check_every"] > 1 and kk["exact_k"]
+    dev = args[0].device
+    its = [torch.empty_like(args[0]) for _ in range(5)]
+    k, done = (torch.empty((B,), dtype=torch.int32, device=dev)
+               for _ in range(2))
+    res = [torch.empty((B,), dtype=torch.float32, device=dev)
+           for _ in range(3)]
+    snap = torch.empty((B if exact else 0, k3.SNAP_LEAVES * Z),
+                       dtype=torch.float32, device=dev)
+    smem = 4 * 8 * (12 * Z + 3 * (Z // 32))
+    err = v.fn(*(t.data_ptr() for t in (*args, *its, k, done, *res, snap)),
+               B, Z, B // 8, Z, smem, float(kk["tol"]), int(kk["k_max"]),
+               int(kk["check_every"]), int(bool(kk["exact_k"])),
+               torch.cuda.current_stream().cuda_stream)
+    assert err == 0, err
+    return (*its, k, torch.where(done == 1, 1, -1).to(torch.int32), *res)
+
+
 def run_soc_parent(v, args, kk):
     """The parent K5: 8 lanes a block, one column a thread."""
     B, P = args[0].shape
@@ -456,6 +510,10 @@ RUNNERS = {
     "fused_fista": ("fused_fista_launch", k2.FUSED_FISTA_ARGTYPES, run_stage),
     "fused_fista_parent": ("fused_fista_launch", PARENT_FISTA_ARGTYPES,
                            run_fista_parent),
+    "fused_eadmm": ("fused_eadmm_launch", k3.FUSED_EADMM_ARGTYPES,
+                    run_stage),
+    "fused_eadmm_parent": ("fused_eadmm_launch", PARENT_EADMM_ARGTYPES,
+                           run_eadmm_parent),
 }
 
 
@@ -531,6 +589,17 @@ STAGE_BUILDS = [
 # parent does
 OWN_BUILDS = {
     "fused_ellip": [],
+    # K3's own: clock counts of an iteration's four parts, and its z2
+    # chains reading C2d from shared memory or by __ldg, the other way from
+    # the committed build's (no variants of slab rows, ring depth or tile)
+    "fused_eadmm": [
+        ("clock counts", 8, {"TP_CLOCKS": 1}),
+        ("clock counts", 16, {"TP_CLOCKS": 1}),
+        ("C2d in shared memory", 8, {"EA_STAGE_C2D_8": 1}),
+        ("C2d by __ldg", 16, {"EA_STAGE_C2D_16": 0}),
+        ("C2d by __ldg, clock counts", 16, {"EA_STAGE_C2D_16": 0,
+                                            "TP_CLOCKS": 1}),
+    ],
     # K2's own (it has no refill and no clock counts): slab rows, blocks an
     # SM, columns a thread at 16 lanes, a ring of three slabs
     "fused_fista": [
@@ -565,7 +634,8 @@ def stage_variants(kernel: str):
     spec = STAGE[kernel]
     out = [Variant("parent (8 lanes, one column a thread)",
                    VARIANTS / f"{kernel}_parent.cu", 8)]
-    builds = ([("committed", L, {}) for L in k1.LANES[::-1]]
+    builds = ([("committed", L, {}) for L in k1.LANES[::-1]
+               if L in spec["module"].BUILDS]
               + (STAGE_BUILDS if spec.get("common", True) else [])
               + OWN_BUILDS[kernel])
     for name, L, macros in builds:
@@ -604,18 +674,31 @@ def build_all(kernel, candidates):
     return built
 
 
-def clock_shares(plan):
+def clock_shares(plan, k=None):
     """From a TP_CLOCKS build's counts, each a mean over the blocks (per
-    block iteration with refill, whose blocks count their iterations; else
-    per block). K4-K6: the clocks of an iteration's element-wise half (to
-    the product's first barrier) and of the rest, and the element-wise
+    block iteration with refill, whose blocks count their iterations, and
+    where k, each lane's iterations, is given, the block's slowest lane's;
+    else per block). K4-K6: the clocks of an iteration's element-wise half
+    (to the product's first barrier) and of the rest, and the element-wise
     share. K2: the clocks of its iterations and of each product's slab
-    loop (G', Winv', G), and the share outside the slab loops."""
+    loop (G', Winv', G), and the share outside the slab loops. K3: the
+    clocks of P1, of the z2 chains, of P2 and of P3 (M3p's product, the
+    dual ascent and the keepers), and their shares."""
     clocks = plan["block_clocks"].double() * 1024
-    iters = (plan["block_iterations"].double().clamp(min=1)
-             if plan["refill"] else torch.ones_like(clocks[:, 0]))
+    if plan["refill"]:
+        iters = plan["block_iterations"].double().clamp(min=1)
+    elif k is not None:
+        iters = k.reshape(-1, plan["lanes"]).amax(dim=1).double().clamp(
+            min=1)
+    else:
+        iters = torch.ones_like(clocks[:, 0])
     mean = [float((clocks[:, i] / iters).mean())
             for i in range(clocks.shape[1])]
+    if "nd" in plan:
+        total = sum(mean)
+        return dict(clocks_p1=mean[0], clocks_chains=mean[1],
+                    clocks_p2=mean[2], clocks_p3=mean[3],
+                    shares=[x / total for x in mean])
     if len(mean) == 4:
         total, *prods = mean
         return dict(clocks_iterations=total, clocks_products=prods,
@@ -661,11 +744,12 @@ def ab_stage(kernel: str, result: dict, only=()):
             for v in run:
                 out = v(args, kk)
                 torch.cuda.synchronize()
-                k = out[3][:B].long()
+                k = out[spec.get("k_at", 3)][:B].long()
                 it = c.iterations(k, spec["solve"] if v is not parent
                                   else None)
                 if "clock" in v.name:
-                    it.update(clock_shares(spec["solve"].last_plan))
+                    it.update(clock_shares(spec["solve"].last_plan,
+                                           k if "k_at" in spec else None))
                 c.log(f"{kernel} [{v.name}] {label} B={B}: k_mean="
                       f"{float(k.float().mean())} " + json.dumps(it))
             t = time_in_turns(run, args, kk)
