@@ -97,7 +97,23 @@ started together), then
      with the device left to its default, as in 11;
  15. times K6 and K7, their plain versions and the fp32 dense engines at
      B=8192 and 32768 for HMPC-ADMM, HMPC-ADMM-split and ellipHMPC-ADMM,
-     and at B=8192 for HMPC-SADMM-split, with iterations as in 12.
+     and at B=8192 for HMPC-SADMM-split, with iterations as in 12;
+ 16. drives the closed-loop rollout (spcies_tpu_torch.runtime) on the card
+     at the bench's closed-loop settings (bench.py:388-445: the headline
+     laxMPC-ADMM solver, B=4096 loops, 50 steps): the fused exact-k solver
+     cold, carried and shifted, and the dense engine shifted, each timed
+     (solves/s, k_mean, k_mean after step 0) and profiled once (device
+     time against wall: the idle share); every fused step launches K1
+     once, the shifted rows converge on every lane of every step, a lane
+     of the cold and carried rows that does not reached k_max, shift's
+     iterations after step 0 stay under 0.7 x cold's, and the fused shift
+     trajectory lies within 1e-3 of the dense one;
+ 17. runs K1's wide build and its plain version on the same CUDA tensors at
+     MPCT-ADMM-cs N=33 (544 columns) and N=64 (1024), B=8192, exact-k,
+     held together as in 1 and timed, the wide build against the narrow
+     one bit for bit at laxMPC-ADMM N=64 (512 columns), and checks that
+     make_solver(..., backend="fused", device="cuda") refuses at build
+     time a width past each kernel's cap (K1 1056 columns, K2-K7 544-576).
 K1, K2, K3, K4, K5 and K6 run on the product stage csrc/tile_product.cuh;
 tools/ab_kernels.py holds their builds to the one-column-per-thread parents
 in csrc/variants/.
@@ -241,12 +257,13 @@ def build_kernels():
     log(f"kernel builds: {time.perf_counter() - t0:.2f} s")
 
 
-def problem(sp, seed: int, B: int):
-    """The bench inputs (bench.py): the tester fixture at N=30, x0 scaled
-    per lane by a uniform factor in [-2, 2] drawn from `seed`."""
+def problem(sp, seed: int, B: int, horizon: int = N):
+    """The bench inputs (bench.py): the tester fixture at N=30 (or
+    `horizon`), x0 scaled per lane by a uniform factor in [-2, 2] drawn
+    from `seed`."""
     sys_, param, st = sp.systems.tester_fixture()
     param30 = dict(param)
-    param30["N"] = N
+    param30["N"] = horizon
     rng = np.random.default_rng(seed)
     x0 = np.asarray(st["x"])[None, :] * rng.uniform(-2.0, 2.0, (B, 1))
     xr = np.tile(st["xr"], (B, 1))
@@ -261,11 +278,11 @@ def headline_options(sp, precision="float", **kw):
     return o
 
 
-def fused_solver(sp, device="cuda", **kw):
-    sys_, param30, _ = problem(sp, 0, 1)
+def fused_solver(sp, device="cuda", horizon=N, backend="fused", **kw):
+    sys_, param30, _ = problem(sp, 0, 1, horizon)
     return sp.make_solver(sys_, param30, formulation="laxMPC",
                           method="ADMM", options=headline_options(sp, **kw),
-                          backend="fused", device=device)
+                          backend=backend, device=device)
 
 
 def kernel_args(solver, inputs, fixed_iters=0):
@@ -556,12 +573,12 @@ def phase_times(sp, fused):
 
 
 def family_solver(sp, name, backend="fused", device=None,
-                  precision="float", **kw):
+                  precision="float", horizon=N, **kw):
     """A solver of one of the bench's N=30 families: the tester fixture
     with T diagonalised for laxMPC-FISTA (bench.py:270-271) and dropped
     for equMPC (bench.py:277-278)."""
     formulation, method, extra = FAMILIES[name]
-    sys_, param30, _ = problem(sp, 0, 1)
+    sys_, param30, _ = problem(sp, 0, 1, horizon)
     p = dict(param30)
     if formulation == "laxMPC":
         p["T"] = np.diag(np.sum(np.asarray(p["T"]), axis=1))
@@ -730,10 +747,11 @@ def phase_family_times(sp):
 
 
 def mpct_solver(sp, name, backend="fused", device=None, precision="float",
-                **kw):
-    """A solver of one of the bench's N=30 MPCT families."""
+                horizon=N, **kw):
+    """A solver of one of the bench's N=30 MPCT families (or at
+    `horizon`)."""
     method, submethod, base = MPCT_FAMILIES[name]
-    sys_, param30, _ = problem(sp, 0, 1)
+    sys_, param30, _ = problem(sp, 0, 1, horizon)
     p = dict(param30)
     p["T"] = 10.0 * np.asarray(p["Q"])
     p["S"] = np.asarray(p["R"]).copy()
@@ -916,12 +934,12 @@ def phase_mpct_times(sp):
 
 
 def ellip_solver(sp, name, backend="fused", device=None, precision="float",
-                 spd_seed=None, **kw):
+                 spd_seed=None, horizon=N, **kw):
     """A solver of one of the bench's N=30 ellipMPC families; `device`
     None leaves it to make_solver's default, the card. spd_seed draws a
     random SPD P and a centre c != xr from that seed."""
     submethod, base = ELLIP_FAMILIES[name]
-    sys_, param30, (_, xr, _) = problem(sp, 0, 1)
+    sys_, param30, (_, xr, _) = problem(sp, 0, 1, horizon)
     n = xr.shape[1]
     p = dict(param30)
     p["T"] = np.diag(np.sum(np.asarray(p["T"]), axis=1))
@@ -1145,11 +1163,11 @@ def phase_ellip_times(sp):
 
 
 def hmpc_solver(sp, name, backend="fused", device=None, precision="float",
-                **kw):
+                horizon=N, **kw):
     """A solver of one of the bench's N=30 HMPC families; `device` None
     leaves it to make_solver's default, the card."""
     formulation, method, submethod, base = HMPC_FAMILIES[name]
-    sys_, param30, (_, _, ur) = problem(sp, 0, 1)
+    sys_, param30, (_, _, ur) = problem(sp, 0, 1, horizon)
     p = dict(param30)
     p.pop("T", None)
     p["w"] = 3 * 1.627 * 0.2
@@ -1396,9 +1414,233 @@ def phase_hmpc_times(sp):
                                   bound=bound)
     return out
 
+# phase 16: the closed-loop rollout at the bench's closed-loop settings
+# (bench.py:388-445): the headline laxMPC-ADMM solver, 4096 loops, 50 steps
+CL_BATCH, CL_STEPS, CL_RUNS = 4096, 50, 3
+SHIFT_BAR = 0.7     # shift's iterations after step 0 against cold's
+                    # (tests/test_rollout.py:109)
+CL_XS_TOL = 1e-3    # fused fp32 against dense fp32 trajectories
 
-def kernel_entry(name, launches, err, times):
-    """One kernel's entry of the `kernels` line."""
+
+def device_ms(run):
+    """(device ms, K1's ms) of one call of run() under torch.profiler, or
+    (None, None) where the profiler sees no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+
+    def dev_us(e):
+        return (getattr(e, "self_device_time_total", None)
+                or getattr(e, "self_cuda_time_total", 0) or 0)
+
+    events = prof.key_averages()
+    total = sum(dev_us(e) for e in events)
+    if not total:
+        return None, None
+    k1 = sum(dev_us(e) for e in events if "fused_admm" in e.key)
+    return total / 1e3, k1 / 1e3
+
+
+def phase_rollout(sp):
+    """The closed-loop rollout on the card: the fused solver (one K1
+    launch a step) cold, carried and shifted, and the dense engine shifted,
+    each a warm-up, CL_RUNS timed runs and one run under torch.profiler
+    (the device's busy time against the median wall: its idle share).
+    Returns the K1 launches of the timed runs and the rows."""
+    from spcies_tpu_torch.kernels.fused_admm import fused_admm_solve
+    from spcies_tpu_torch.runtime import closed_loop_rollout
+    sys_, _, inputs = problem(sp, 0, CL_BATCH)
+    A, B = np.asarray(sys_["A"]), np.asarray(sys_["B"])
+    x = [torch.as_tensor(a, dtype=torch.float32, device="cuda")
+         for a in inputs]
+    fused = fused_solver(sp, tile_b=TILE_B, check_every=CHECK_EVERY,
+                         exact_k=True)
+    dense = fused_solver(sp, backend="dense")
+    rows = [("fused cold", fused, False), ("fused carry", fused, True),
+            ("fused shift", fused, "shift"), ("dense shift", dense, "shift")]
+    out, launches = {}, 0
+    for label, solver, ws in rows:
+        def run():
+            return closed_loop_rollout(solver, A, B, *x, n_steps=CL_STEPS,
+                                       warm_start=ws)
+        run()
+        torch.cuda.synchronize()
+        fused_admm_solve.launches = 0
+        times = []
+        for _ in range(CL_RUNS):
+            t0 = time.perf_counter()
+            res = run()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        n = fused_admm_solve.launches
+        want = CL_RUNS * CL_STEPS if solver is fused else 0
+        assert n == want, (label, n, want)
+        launches += n
+        ks, es = res["ks"], res["e_flags"]
+        dt = sorted(times)[len(times) // 2]
+        dev, k1_ms = device_ms(run)
+        row = dict(
+            solves_per_s=CL_BATCH * CL_STEPS / dt,
+            solves_per_s_min=CL_BATCH * CL_STEPS / max(times),
+            solves_per_s_max=CL_BATCH * CL_STEPS / min(times),
+            k_mean=float(ks.float().mean()),
+            k_mean_after_step0=float(ks[1:].float().mean()),
+            k_after_step0=int(ks[1:].long().sum()),
+            converged=float((es == 1).float().mean()),
+            steps_all_converged=int((es == 1).all(dim=1).sum()),
+            k1_launches=n, runs=CL_RUNS, wall_ms=dt * 1e3,
+            device_ms=dev, k1_ms=k1_ms,
+            idle_share=None if dev is None else 1.0 - dev / (dt * 1e3))
+        log(f"phase 16 rollout {label} (B={CL_BATCH}, {CL_STEPS} steps): "
+            + json.dumps(row))
+        assert tuple(res["xs"].shape) == (CL_STEPS + 1, CL_BATCH, A.shape[0])
+        assert bool(torch.isfinite(res["xs"]).all()), label
+        # a lane that did not converge ran to k_max (the fp32 floor of
+        # some cold and carried states at k_max 1000)
+        assert bool((ks[es != 1] == K_MAX).all()), label
+        if ws == "shift":
+            assert bool((es == 1).all()), label
+        out[label] = (row, res)
+    k_shift = out["fused shift"][0]["k_after_step0"]
+    k_cold = out["fused cold"][0]["k_after_step0"]
+    assert k_shift < SHIFT_BAR * k_cold, (k_shift, k_cold)
+    dx = float((out["fused shift"][1]["xs"]
+                - out["dense shift"][1]["xs"]).abs().max())
+    log(f"phase 16 fused shift vs dense shift: max|dxs|={dx}; shift/cold "
+        f"iterations after step 0 = {k_shift / k_cold}")
+    assert dx <= CL_XS_TOL, dx
+    return launches, {label: row for label, (row, _) in out.items()}
+
+
+# phase 17: K1 past 512 columns
+WIDE_CASES = (("MPCT-ADMM-cs N=33", 33), ("MPCT-ADMM-cs N=64", 64))
+# a horizon past each kernel's cap: K1 1056 columns, K2-K7 544-576
+REFUSED = {
+    "fused_admm": (130, lambda sp, h: fused_solver(sp, horizon=h)),
+    "fused_fista": (65, lambda sp, h: family_solver(sp, "laxMPC-FISTA",
+                                                    horizon=h)),
+    "fused_eadmm": (65, lambda sp, h: mpct_solver(sp, "MPCT-EADMM",
+                                                  horizon=h)),
+    "fused_ellip": (65, lambda sp, h: ellip_solver(sp, "ellipMPC-ADMM",
+                                                   horizon=h)),
+    "fused_soc": (65, lambda sp, h: ellip_solver(sp, "ellipMPC-ADMM-soc",
+                                                 horizon=h)),
+    "fused_hmpc": (65, lambda sp, h: hmpc_solver(sp, "HMPC-ADMM",
+                                                 horizon=h)),
+    "fused_split": (65, lambda sp, h: hmpc_solver(sp, "HMPC-ADMM-split",
+                                                  horizon=h)),
+}
+
+
+def timed(kernel, plain):
+    """A kernel and its plain version in turns (plain, kernel, kernel,
+    plain), each a CUDA-event mean; the least of each."""
+    t = {"plain": [], "kernel": []}
+    t["plain"].append(cuda_ms(plain))
+    t["kernel"].append(cuda_ms(kernel, reps=3))
+    t["kernel"].append(cuda_ms(kernel, reps=3))
+    t["plain"].append(cuda_ms(plain))
+    return {key: min(v) for key, v in t.items()}
+
+
+def phase_wide(sp):
+    """K1's wide build against its plain version on CUDA tensors at
+    MPCT-ADMM-cs N=33 (544 columns) and N=64 (1024), B=8192, exact-k, its
+    8- and 16-lane builds bit for bit where both take the shape; the wide
+    build against the narrow one at laxMPC-ADMM N=64 (512 columns), bit
+    for bit; times and bounds; then make_solver(..., backend="fused",
+    device="cuda") refusing a width past each kernel's cap at build time.
+    Returns the times by padded width."""
+    from spcies_tpu_torch.kernels import fused_admm as k1
+    out = {}
+    for label, horizon in WIDE_CASES:
+        solver = mpct_solver(sp, "MPCT-ADMM-cs", horizon=horizon)
+        _, _, inputs = problem(sp, 0, FB, horizon)
+        args, kk = kernel_args(solver, inputs)
+        nzp = args[0].shape[1]
+        outs = {}
+        for L in (16, 8):
+            try:
+                outs[L] = k1.fused_admm_solve(*args, **kk, lanes=L)
+            except ValueError as e:     # no build of L lanes takes it
+                if "no build" not in str(e):
+                    raise
+                continue
+            assert k1.fused_admm_solve.last_plan["wide"], label
+        torch.cuda.synchronize()
+        out_k = k1.fused_admm_solve(*args, **kk)
+        plan = dict(k1.fused_admm_solve.last_plan)
+        out_p = k1.fused_admm_reference(*args, **kk)
+        torch.cuda.synchronize()
+        a = agreement(out_k, out_p, FB, solver.nz, False)
+        check_agreement(f"{label} ({nzp} columns)", a, phase=17)
+        for L, o in outs.items():
+            assert all(bool(torch.equal(x, y)) for x, y in zip(o, out_k)), (
+                label, L)
+        log(f"phase 17 {label}: builds {sorted(outs)} bit-identical "
+            f"plan={plan}")
+        t = timed(lambda: k1.fused_admm_solve(*args, **kk),
+                  lambda: k1.fused_admm_reference(*args, **kk))
+        k = out_k[3][:FB]
+        bound = roofline(args + out_k,
+                         iter_flops(k, 2.0 * solver.nz * solver.nz))
+        lanes = plan["lanes"]
+        row = dict(t, bound=bound, share=bound[0] / t["kernel"],
+                   k_mean=float(k.float().mean()),
+                   block_k_mean=float(
+                       k.reshape(-1, lanes).amax(dim=1).float().mean()),
+                   lanes=lanes, slab=plan["slab"], u_err=a["u_err"])
+        log(f"phase 17 {label} times (ms, B={FB}, CUDA events): "
+            + json.dumps(row))
+        out[nzp] = row
+
+    # 512 columns: the wide build gives the narrow build's bits
+    solver = fused_solver(sp, horizon=64, tile_b=TILE_B,
+                          check_every=CHECK_EVERY, exact_k=True)
+    _, _, inputs = problem(sp, 0, FB, 64)
+    args, kk = kernel_args(solver, inputs)
+    assert args[0].shape[1] == 512
+    narrow = k1.fused_admm_solve(*args, **kk, wide=False)
+    assert not k1.fused_admm_solve.last_plan["wide"]
+    for L in (16, 8):
+        wide = k1.fused_admm_solve(*args, **kk, wide=True, lanes=L)
+        assert k1.fused_admm_solve.last_plan["wide"]
+        torch.cuda.synchronize()
+        assert all(bool(torch.equal(x, y)) for x, y in zip(wide, narrow)), L
+    out_p = k1.fused_admm_reference(*args, **kk)
+    a = agreement(narrow, out_p, FB, solver.m, False)
+    log(f"phase 17 laxMPC-ADMM N=64 (512 columns): wide builds (16, 8 "
+        f"lanes) bit-identical to the narrow build; vs plain "
+        f"{json.dumps(a)}")
+    assert a["k_agree"] >= K_AGREE and a["u_err"] <= U_TOL, a
+    t = {"narrow": [], "wide": []}
+    for key in ("narrow", "wide", "wide", "narrow"):
+        t[key].append(cuda_ms(lambda: k1.fused_admm_solve(
+            *args, **kk, wide=key == "wide"), reps=3))
+    log(f"phase 17 laxMPC-ADMM N=64 times (ms, B={FB}): narrow / wide "
+        + json.dumps(t))
+    out[512] = {key: min(v) for key, v in t.items()}
+
+    # build-time refusal past each kernel's cap
+    for name, (horizon, build) in REFUSED.items():
+        try:
+            build(sp, horizon)
+        except ValueError as e:
+            msg = str(e)
+            assert 'backend="dense"' in msg and "csrc/" + name in msg, msg
+            log(f"phase 17 {name} at N={horizon}: make_solver refuses: "
+                f"{msg}")
+        else:
+            raise AssertionError(f"{name} built past its cap at N={horizon}")
+    return out
+
+
+def kernel_entry(name, launches, err, times, wide=None):
+    """One kernel's entry of the `kernels` line; K1's also carries its wide
+    widths' times and bounds (phase 17) under "wide"."""
     line = {"fused_admm": "fused_admm.py:74", "fused_fista":
             "fused_fista.py:61", "fused_eadmm": "fused_eadmm.py:50",
             "fused_ellip": "fused_ellip.py:54",
@@ -1406,16 +1648,24 @@ def kernel_entry(name, launches, err, times):
             "fused_hmpc": "fused_hmpc.py:57",
             "fused_split": "fused_split.py:58"}[name]
     bound_ms, bound_by = times["bound"]
-    return {"name": name, "route": "cuda",
-            "source": f"spcies_tpu_torch/csrc/{name}.cu",
-            "replaces": f"spcies_tpu/kernels/{line}", "launches": launches,
-            "max_abs_err": err, "ms": times["kernel"],
-            "plain_ms": times["plain"], "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None,
-            **({"bf16_ms": times["bf16"]["kernel"],
-                "bf16_plain_ms": times["bf16"]["plain"],
-                "bf16_bound_ms": times["bf16"]["bound"]}
-               if "bf16" in times else {})}
+    entry = {"name": name, "route": "cuda",
+             "source": f"spcies_tpu_torch/csrc/{name}.cu",
+             "replaces": f"spcies_tpu/kernels/{line}", "launches": launches,
+             "max_abs_err": err, "ms": times["kernel"],
+             "plain_ms": times["plain"], "bound_ms": bound_ms,
+             "bound_by": bound_by, "library_ms": None}
+    if "bf16" in times:
+        entry.update(bf16_ms=times["bf16"]["kernel"],
+                     bf16_plain_ms=times["bf16"]["plain"],
+                     bf16_bound_ms=times["bf16"]["bound"])
+    if wide:
+        entry["wide"] = {
+            str(nzp): dict(ms=row["kernel"], plain_ms=row["plain"],
+                           bound_ms=row["bound"][0],
+                           bound_by=row["bound"][1], share=row["share"],
+                           lanes=row["lanes"], slab=row["slab"])
+            for nzp, row in wide.items() if "bound" in row}
+    return entry
 
 
 def main():
@@ -1448,9 +1698,14 @@ def main():
     hmpc_err = phase_hmpc_kernel_vs_plain(sp)
     hmpc_launches = phase_hmpc_paths(sp)
     hmpc_times = phase_hmpc_times(sp)
+    roll_launches, _rows = phase_rollout(sp)
+    wide = phase_wide(sp)
     log(json.dumps({"kernels": [
         kernel_entry("fused_admm", launches + fam_launches["fused_admm"]
-                     + mpct_launches["fused_admm"], head["u_err"], times),
+                     + mpct_launches["fused_admm"] + roll_launches,
+                     max(head["u_err"], *(r["u_err"] for r in wide.values()
+                                          if "u_err" in r)),
+                     times, wide),
         kernel_entry("fused_fista", fam_launches["fused_fista"], fista_err,
                      fam_times[FB]),
         kernel_entry("fused_eadmm", mpct_launches["fused_eadmm"], eadmm_err,

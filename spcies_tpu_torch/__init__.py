@@ -23,6 +23,7 @@ from spcies_tpu_torch import systems
 from spcies_tpu_torch import formulations
 from spcies_tpu_torch import solvers
 from spcies_tpu_torch import kernels
+from spcies_tpu_torch import runtime
 from spcies_tpu_torch import utils
 
 __all__ = [
@@ -37,5 +38,6 @@ __all__ = [
     "formulations",
     "solvers",
     "kernels",
+    "runtime",
     "utils",
 ]

@@ -33,6 +33,11 @@ BUILDER_KEYS = {
                             "rho", "H1i", "W2", "M3", "LB", "UB"),
     ("MPCT", "ADMM", "cs"): ("n", "m", "N", "nz", *_ADMM_RHO, "T", "S",
                              "M_q", "M_b", "LB", "UB"),
+    ("MPCT", "ADMM", "semiband"): ("n", "m", "N", "p", "nz", "nv",
+                                   "rho_is_scalar", "rho_scalar", "rho_vec",
+                                   "T", "S", "M_q", "M_b", "C_tilde", "LBv",
+                                   "UBv", "soft_mask", "beta", "soft",
+                                   "constrained_output"),
     ("ellipMPC", "ADMM", ""): ("n", "m", "N", "nz", "A", "Qd", "Rd", "T",
                                "rho_is_scalar", "rho_s", "rho_T", "P",
                                "P_half", "Pinv_half", "c", "r", "M_q",

@@ -17,9 +17,7 @@ import numpy as np
 BUILDERS: dict[tuple[str, str, str], Callable] = {}
 
 # triples of the JAX package not ported yet -> their ROADMAP queue 1 item
-UNPORTED = {
-    ("MPCT", "ADMM", "semiband"): 9,
-}
+UNPORTED: dict[tuple[str, str, str], int] = {}
 
 
 def register_builder(formulation: str, method: str, submethod: str = ""):

@@ -20,9 +20,14 @@ Port of the EADMM and ADMM-cs parts of spcies_tpu/formulations/mpct.py:
            (code_MPCT_ADMM_cs_C.c:94-218): 'dense' is the affine map
            z = M_q q_hat + M_b x0 on solvers/admm.py; 'fused' the box-ADMM
            kernel (kernels/fused_admm.py) unchanged.
+  ADMM-semiband  ADMM on the semiband (non-extended) parameterisation
+           (code_MPCT_ADMM_semiband_C.c:119-1125) with the reference's
+           soft constraints and constrained output: 'dense' collapses the
+           two-level Woodbury KKT solve into the affine map
+           z = M_q p + M_b x0, on the masked loop of solvers/loop.py.
 
-The semiband submethod, ADMM-cs's banded backend and its time-varying mode
-are not ported yet (ROADMAP queue 1 items 8 and 9).
+The banded backends of ADMM-cs and ADMM-semiband and ADMM-cs's
+time-varying mode are not ported yet (ROADMAP queue 1 item 8).
 """
 
 from __future__ import annotations
@@ -449,6 +454,268 @@ def build_mpct_admm_cs(sys: dict, param: dict, opt: Options,
             device=device)
         return SolveResult(u=v[:, 2 * n:2 * n + m], k=k, e_flag=e_flag,
                            sol=dict(z=z, v=v, lam=lam, r_p=r_p, r_d=r_d,
+                                    **hist_sol_entries(hist)))
+
+    return BatchedSolver(_solve, ing, opt, n=n, m=m, N=N, nz=nz, dtype=dtype,
+                         device=device)
+
+
+# ---------------------------------------------------------------------------
+# ADMM-semiband
+# ---------------------------------------------------------------------------
+
+def _soft_box_prox(y, lb, ub, br):
+    """Prox of the soft-constraint penalty beta*dist_box(v) at y: the
+    reference's five-case scalar branch
+    (spcies_MPCT_ADMM_semiband_solver.m:407-430), branch-free. br = beta/rho
+    (scalar or per-entry)."""
+    v1 = y + br
+    v3 = y - br
+    inside = (y >= lb) & (y <= ub)
+    return torch.where(v1 <= lb, v1,
+                       torch.where(inside, y,
+                                   torch.where(v3 >= ub, v3,
+                                               proj_box(y, lb, ub))))
+
+
+def mpct_semiband_equality_matrix(A: np.ndarray, B: np.ndarray, N: int):
+    """G over z = (x_0,u_0,...,x_{N-1},u_{N-1},x_s,u_s)
+    (compute_MPCT_ADMM_semiband_ingredients.m:136-151): x_0 = x(t), the N
+    dynamics rows (the last one maps into x_s), and the equilibrium row."""
+    n, m = A.shape[0], B.shape[1]
+    nm = n + m
+    nz = (N + 1) * nm
+    G = np.zeros(((N + 2) * n, nz))
+    G[:n, :n] = np.eye(n)
+    for k in range(N):
+        r = (k + 1) * n
+        c = k * nm
+        G[r:r + n, c:c + n] = A
+        G[r:r + n, c + n:c + nm] = B
+        G[r:r + n, c + nm:c + nm + n] = -np.eye(n)
+    G[-n:, -nm:-m] = A - np.eye(n)
+    G[-n:, -m:] = B
+    return G
+
+
+def mpct_admm_semiband_ingredients(sys: dict, param: dict,
+                                   opt: Options) -> dict:
+    """Offline ingredients (compute_MPCT_ADMM_semiband_ingredients.m), the
+    dense arm: the reference's two-level Woodbury (banded Gamma_hat plus a
+    rank-2(n+m) correction, ECC'24) avoids dense factorisation on embedded
+    CPUs; here the same KKT solve collapses into the dense affine map
+    z = M_q p + M_b x0, algebraically identical and one matrix product
+    online. O(N^2) memory."""
+    A, B, n, m = get_sys_matrices(sys)
+    N = int(param["N"])
+    Q = np.asarray(param["Q"], dtype=float)
+    R = np.asarray(param["R"], dtype=float)
+    T = np.asarray(param["T"], dtype=float)
+    S = np.asarray(param["S"], dtype=float)
+    nm = n + m
+    nz = (N + 1) * nm
+    constrained_output = bool(opt.solver["constrained_output"])
+    soft = bool(opt.solver["soft_constraints"])
+    eps_x = float(opt.solver["epsilon_x"])
+    eps_u = float(opt.solver["epsilon_u"])
+    eps_y = float(opt.solver["epsilon_y"])
+    beta = float(opt.solver["beta"])
+
+    if constrained_output:
+        if "C" not in sys or "LBy" not in sys or "UBy" not in sys:
+            raise ValueError(
+                "MPCT/ADMM-semiband constrained_output=True requires sys "
+                "fields C (output map), LBy, UBy (and optionally D): the "
+                "cons_MPCT_ADMM_semiband_C.m constrained-output contract")
+        C = np.asarray(sys["C"], dtype=float)
+        D = np.asarray(sys.get("D", np.zeros((C.shape[0], m))), dtype=float)
+        p = C.shape[0]
+        stage_map = np.vstack([np.hstack([np.eye(n), np.zeros((n, m))]),
+                               np.hstack([np.zeros((m, n)), np.eye(m)]),
+                               np.hstack([C, D])])
+        C_tilde = linalg.blkdiag(*([stage_map] * (N + 1)))
+    else:
+        p = 0
+        C_tilde = None
+    sv = nm + p            # per-stage v dimension
+    nv = (N + 1) * sv
+
+    rho = np.asarray(opt.solver["rho"], dtype=float)
+    force_vec = bool(opt.solver.get("force_vector_rho", False))
+    rho_is_scalar = rho.ndim == 0 and not force_vec
+    rho_vec = np.full(nv, float(rho)) if rho.ndim == 0 else rho.ravel().copy()
+    if rho_vec.size != nv:
+        raise ValueError(f"rho vector must have length {nv}")
+
+    # Hessian: banded stage costs + rank-(n+m) coupling to (x_s, u_s)
+    # (:119-133)
+    QR = linalg.blkdiag(Q, R)
+    H = linalg.blkdiag(*([QR] * N), linalg.blkdiag(N * Q + T, N * R + S))
+    H[:N * nm, -nm:] = np.tile(-QR, (N, 1))
+    H[-nm:, :N * nm] = np.tile(-QR, (1, N))
+    if constrained_output:
+        Hhat = H + C_tilde.T @ (rho_vec[:, None] * C_tilde)
+    else:
+        Hhat = H + np.diag(rho_vec)
+    Hinv = np.linalg.inv(Hhat)
+    G = mpct_semiband_equality_matrix(A, B, N)
+    W = G @ Hinv @ G.T
+    GH = G @ Hinv
+    Winv = np.linalg.inv(W)
+    M_q = GH.T @ (Winv @ GH) - Hinv
+    M_b = GH.T @ Winv[:, :n]
+
+    # per-entry bound vectors + soft mask over v (:358-520 branch layout)
+    LBx, UBx, LBu, UBu = get_bounds(sys, n, m, opt.inf_value)
+    if constrained_output:
+        LBy = np.asarray(sys.get("LBy", -opt.inf_value * np.ones(p)),
+                         float).ravel()
+        UBy = np.asarray(sys.get("UBy", opt.inf_value * np.ones(p)),
+                         float).ravel()
+        stage_lb = np.concatenate([LBx, LBu, LBy])
+        stage_ub = np.concatenate([UBx, UBu, UBy])
+        eps_stage = np.concatenate([np.full(n, eps_x), np.full(m, eps_u),
+                                    np.full(p, eps_y)])
+    else:
+        stage_lb = np.concatenate([LBx, LBu])
+        stage_ub = np.concatenate([UBx, UBu])
+        eps_stage = np.concatenate([np.full(n, eps_x), np.full(m, eps_u)])
+
+    inf_v = opt.inf_value
+    lb0 = stage_lb.copy()
+    ub0 = stage_ub.copy()
+    lb0[:n] = -inf_v          # x_0 unconstrained
+    ub0[:n] = inf_v
+    if soft:                   # terminal untightened in soft mode
+        lbT, ubT = stage_lb, stage_ub
+    else:
+        lbT = stage_lb + eps_stage
+        ubT = stage_ub - eps_stage
+    LBv = np.concatenate([lb0] + [stage_lb] * (N - 1) + [lbT])
+    UBv = np.concatenate([ub0] + [stage_ub] * (N - 1) + [ubT])
+    # soft mask: x_0 and u_0 never soft; y_0 and stages 1..N soft
+    soft_mask = np.ones(nv, dtype=bool)
+    soft_mask[:nm] = False
+
+    return dict(
+        n=n, m=m, N=N, p=p, nz=nz, nv=nv,
+        rho_is_scalar=rho_is_scalar, rho_vec=rho_vec,
+        rho_scalar=float(rho) if rho.ndim == 0 else None,
+        A=A, T=T, S=S, M_q=M_q, M_b=M_b, C_tilde=C_tilde,
+        LBv=LBv, UBv=UBv, soft_mask=soft_mask,
+        beta=beta, soft=soft, constrained_output=constrained_output,
+    )
+
+
+@register_builder("MPCT", "ADMM", "semiband")
+def build_mpct_admm_semiband(sys: dict, param: dict, opt: Options,
+                             backend: str = "dense", device="cuda",
+                             ingredients: dict | None = None
+                             ) -> BatchedSolver:
+    """MPCT via ADMM on the semiband (non-extended) parameterisation
+    (code_MPCT_ADMM_semiband_C.c:119-1125,
+    spcies_MPCT_ADMM_semiband_solver.m) on `device`, with the reference's
+    soft-constraint and constrained-output options. `ingredients` replaces
+    the offline computation (same keys as mpct_admm_semiband_ingredients).
+    The warm start is init=(z, v, lam)."""
+    if backend not in ("dense", "banded"):
+        raise ValueError("MPCT/ADMM-semiband has dense and banded backends")
+    if backend == "banded":
+        raise NotImplementedError(
+            "backend='banded' is not ported to spcies_tpu_torch yet "
+            "(ROADMAP queue 1 item 8)")
+    device = resolve_device(device)
+    ing = (ingredients if ingredients is not None
+           else mpct_admm_semiband_ingredients(sys, param, opt))
+    dtype = _DTYPES[opt.precision]
+    n, m, N, nz, nv = ing["n"], ing["m"], ing["N"], ing["nz"], ing["nv"]
+    tol_p = float(opt.solver["tol_p"])
+    tol_d = float(opt.solver["tol_d"])
+    k_max = int(opt.solver["k_max"])
+    soft = ing["soft"]
+    con_out = ing["constrained_output"]
+
+    def dev(a):
+        return torch.as_tensor(a, dtype=dtype, device=device)
+
+    if ing["rho_is_scalar"]:
+        rho = dev(ing["rho_scalar"])
+        rho_i = dev(1.0 / ing["rho_scalar"])
+    else:
+        rho = dev(ing["rho_vec"])
+        rho_i = dev(1.0 / np.asarray(ing["rho_vec"]))
+    LBv, UBv, T, S, M_q, M_b = (dev(ing[key]) for key in (
+        "LBv", "UBv", "T", "S", "M_q", "M_b"))
+    soft_mask = torch.as_tensor(np.asarray(ing["soft_mask"], dtype=bool),
+                                device=device)
+    beta_rho_i = ing["beta"] * rho_i
+    Ct = dev(ing["C_tilde"]) if con_out else None
+
+    def ct_apply(z):
+        return z @ Ct.T if con_out else z
+
+    def ct_t_apply(y):
+        return y @ Ct if con_out else y
+
+    def proj(y):
+        hard = proj_box(y, LBv, UBv)
+        if not soft:
+            return hard
+        return torch.where(soft_mask,
+                           _soft_box_prox(y, LBv, UBv, beta_rho_i), hard)
+
+    def _solve(x0, xr, ur, init, fixed_iters):
+        Bsz = x0.shape[0]
+        q = torch.zeros((Bsz, nz), dtype=dtype, device=device)
+        q[:, nz - n - m:nz - m] = -(xr @ T.T)
+        q[:, nz - m:] = -(ur @ S.T)
+
+        if init is None:
+            v0 = torch.zeros((Bsz, nv), dtype=dtype, device=device)
+            lam0 = torch.zeros((Bsz, nv), dtype=dtype, device=device)
+        else:
+            v0, lam0 = (torch.as_tensor(a, dtype=dtype, device=device)
+                        for a in init[1:])
+
+        def z_step(pvec):
+            return pvec @ M_q.T + x0 @ M_b.T
+
+        rinf = torch.full((Bsz,), float("inf"), dtype=dtype, device=device)
+        p0 = q + ct_t_apply(lam0 - rho * v0)
+        z1 = z_step(p0)
+        state0 = dict(z=z1, z_next=z1, v=v0, lam=lam0, r_p=rinf, r_d=rinf)
+
+        def body(state, _it):
+            z = state["z_next"]
+            v_prev = state["v"]
+            lam = state["lam"]
+            zt = ct_apply(z)
+            v = proj(zt + rho_i * lam)
+            lam_new = lam + rho * (zt - v)
+            r_p = inf_norm(zt - v)
+            r_d = inf_norm(v - v_prev)
+            conv = (r_p <= tol_p) & (r_d <= tol_d)
+            # delta form: dp = C~'(dlam - rho dv) = C~'(rho(zt - 2v + v_prev))
+            dp = ct_t_apply(rho * (zt - 2.0 * v + v_prev))
+            z_next = z + delta_dot(dp, M_q.T)
+            return (dict(z=z, z_next=z_next, v=v, lam=lam_new,
+                         r_p=r_p, r_d=r_d), conv)
+
+        if opt.debug:
+            state, k, e_flag, hist = run_masked_loop(
+                body, state0, k_max, Bsz, fixed_iters=fixed_iters,
+                history_keys=("r_p", "r_d")
+                + (("z", "v", "lam")
+                   if int(opt.debug) >= 2 else ()))
+        else:
+            state, k, e_flag = run_masked_loop(body, state0, k_max, Bsz,
+                                               fixed_iters=fixed_iters)
+            hist = None
+        u = state["v"][:, n:n + m]
+        return SolveResult(u=u, k=k, e_flag=e_flag,
+                           sol=dict(z=state["z"], v=state["v"],
+                                    lam=state["lam"], r_p=state["r_p"],
+                                    r_d=state["r_d"],
                                     **hist_sol_entries(hist)))
 
     return BatchedSolver(_solve, ing, opt, n=n, m=m, N=N, nz=nz, dtype=dtype,

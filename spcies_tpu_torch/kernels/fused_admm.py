@@ -38,9 +38,13 @@ The kernel is built for 8, 16 and 32 lanes a thread block (its product
 stage is csrc/tile_product.cuh); `pick_lanes` takes the widest build that
 divides the batch, fits the 232,448 bytes of shared memory a block can have
 and still gives half of the 132 SMs a block, and `launch_plan` states the
-choice. Every build gives the same bits, so `lanes=` of `fused_admm_solve`
-may name another build, for a check or a timing. The bf16 mode runs the same
-kernel with M and dq rounded to bf16.
+choice. Up to MAX_COLS padded columns a build runs one thread a column;
+past that the wide build (fused_admm_wide_kernel<L>) runs WIDE_THREADS
+threads of WIDE_CPT columns each, at 8 or 16 lanes a block, and takes
+WIDE_THREADS up to WIDE_COLS columns (`check_width` says whether some build
+takes a width). Every build gives the same bits, so `lanes=` and `wide=` of
+`fused_admm_solve` may name another build, for a check or a timing. The
+bf16 mode runs the same kernel with M and dq rounded to bf16.
 """
 
 from __future__ import annotations
@@ -57,10 +61,18 @@ DRAIN_LANES = 8
 # lanes a block the kernel is built for (fused_admm_kernel<L> in
 # csrc/fused_admm.cu), widest first
 LANES = (32, 16, 8)
-# threads per block the kernel is compiled for (__launch_bounds__); up to
-# NARROW columns a build of its own, with more registers and deeper slabs
+# threads per block the kernel is compiled for (__launch_bounds__), and the
+# widest padded width of a one-thread-a-column build (K2-K7 share the cap);
+# up to NARROW columns a build of its own, with more registers and deeper
+# slabs
 MAX_COLS = 512
 NARROW = 256
+# the wide build: WIDE_CPT columns a thread on WIDE_THREADS threads, up to
+# WIDE_COLS columns, slabs of WIDE_SLAB_ROWS rows where SLAB_ROWS leave no
+# room in shared memory
+WIDE_CPT, WIDE_THREADS = 2, 512
+WIDE_COLS = WIDE_CPT * WIDE_THREADS
+WIDE_SLAB_ROWS = 8
 # dynamic shared memory a block can have on an H100, and its SMs
 SMEM_MAX = 232448
 SMS = 132
@@ -74,10 +86,10 @@ RBIG = 3.4e38
 SNAP_LEAVES = 3
 # C signature of fused_admm_launch: 15 tensor pointers (6 inputs, 7 outputs,
 # the exact-k snapshot scratch, the bf16 mode's scratch for M rounded); B,
-# nzp, lanes, blocks, threads, shared bytes; rho, 1/rho, alpha, 1-alpha;
-# relax; tol_p, tol_d; k_max, check_every, fixed_iters, exact_k, bf16; the
-# stream
-FUSED_ADMM_ARGTYPES = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 6
+# nzp, lanes, wide, blocks, threads, shared bytes; rho, 1/rho, alpha,
+# 1-alpha; relax; tol_p, tol_d; k_max, check_every, fixed_iters, exact_k,
+# bf16; the stream
+FUSED_ADMM_ARGTYPES = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 7
                        + [ctypes.c_float] * 4 + [ctypes.c_int]
                        + [ctypes.c_float] * 2 + [ctypes.c_int] * 5
                        + [ctypes.c_void_p])
@@ -213,25 +225,57 @@ def fused_admm_reference(z1, v0, lam0, M_q_pad, LB_pad, UB_pad, *,
     return z, v, lam, k, e_flag, rp, rd
 
 
-def shared_bytes(nzp: int, lanes: int) -> int:
-    """Dynamic shared bytes of a block (fused_admm_smem in the source)."""
+def _smem(nzp: int, lanes: int, slab: int) -> int:
     # the ring of M's slabs, z, v and lam as [nzp][lanes], dq with its
     # padding, the warps' row maxima, the masks, the window starts and the
     # slots' lanes
-    slab = SLAB_ROWS_NARROW if nzp <= NARROW else SLAB_ROWS
     return (4 * STAGES * slab * nzp + RING_EXTRA
             + 4 * (nzp * (4 * lanes + DQ_PAD) + nzp // 32 * 2 * lanes + 4
                    + 2 * lanes))
 
 
-def pick_lanes(B: int, nzp: int) -> int:
+def slab_rows(nzp: int, lanes: int, wide: bool = False) -> int:
+    """Rows a slab of M in the build that a launch at this width takes."""
+    if not wide:
+        return SLAB_ROWS_NARROW if nzp <= NARROW else SLAB_ROWS
+    return (SLAB_ROWS if _smem(nzp, lanes, SLAB_ROWS) <= SMEM_MAX
+            else WIDE_SLAB_ROWS)
+
+
+def shared_bytes(nzp: int, lanes: int, wide: bool = False) -> int:
+    """Dynamic shared bytes of a block (fused_admm_smem in the source)."""
+    return _smem(nzp, lanes, slab_rows(nzp, lanes, wide))
+
+
+def check_widths(kernel: str, cap: int, **widths: int) -> None:
+    """Raise ValueError, naming `kernel`, the width, the cap and the dense
+    backend, unless every padded width (name=width) is a multiple of
+    COL_PAD from COL_PAD up to cap."""
+    for name, w in widths.items():
+        if w % COL_PAD or not 0 < w <= cap:
+            raise ValueError(
+                f"the {kernel} takes a padded {name} that is a multiple of "
+                f"{COL_PAD} up to {cap}; this operator has {w}: use "
+                f'backend="dense"')
+
+
+def check_width(nzp: int) -> None:
+    """Raise ValueError unless some build of the kernel takes nzp padded
+    columns (a plain check, no CUDA: the fused builders call it when they
+    build for the card)."""
+    check_widths("fused box-ADMM kernel (K1, csrc/fused_admm.cu)",
+                 WIDE_COLS, width=nzp)
+
+
+def pick_lanes(B: int, nzp: int, wide: bool = False) -> int:
     """Lanes a block for a batch of B lanes of width nzp: the widest build
     that divides the batch, fits shared memory and still gives half of the
     SMs a block (one round of 32-lane blocks beat two of 16-lane blocks at
     B = 4096 on an H100); the narrowest that fits when the batch is smaller
     than that."""
     fits = [L for L in LANES
-            if B % L == 0 and shared_bytes(nzp, L) <= SMEM_MAX]
+            if B % L == 0 and shared_bytes(nzp, L, wide) <= SMEM_MAX
+            and not (wide and L > 16)]
     if not fits:
         raise ValueError(f"no build of the kernel takes batch {B} at padded "
                          f"width {nzp}")
@@ -242,14 +286,22 @@ def pick_lanes(B: int, nzp: int) -> int:
 
 
 def launch_plan(B: int, nzp: int, *, tile_b: int, check_every: int,
-                exact_k: bool, fixed_iters: int, lanes: int | None = None):
+                exact_k: bool, fixed_iters: int, lanes: int | None = None,
+                wide: bool | None = None):
     """The build a launch takes and its geometry, as a dict: lanes a block,
-    blocks, threads, dynamic shared bytes. `lanes` names a build in place of
-    `pick_lanes`' choice; raises ValueError on a shape or mode no build
-    takes."""
-    if nzp % COL_PAD or not 0 < nzp <= MAX_COLS:
-        raise ValueError(f"the kernel takes a padded nz that is a multiple "
-                         f"of {COL_PAD} up to {MAX_COLS}; got {nzp}")
+    wide, blocks, threads, dynamic shared bytes, rows a slab. `lanes` names
+    a build in place of `pick_lanes`' choice, `wide` the wide build (by
+    default taken past MAX_COLS columns alone); raises ValueError on a shape
+    or mode no build takes."""
+    check_width(nzp)
+    if wide is None:
+        wide = nzp > MAX_COLS
+    if not wide and nzp > MAX_COLS:
+        raise ValueError(f"a build of one thread a column takes up to "
+                         f"{MAX_COLS} columns; got {nzp}")
+    if wide and nzp < WIDE_THREADS:
+        raise ValueError(f"the wide build takes {WIDE_THREADS} columns or "
+                         f"more; got {nzp}")
     if tile_b % DRAIN_LANES:
         raise ValueError(f"tile_b must be a multiple of {DRAIN_LANES}; "
                          f"got {tile_b}")
@@ -263,13 +315,16 @@ def launch_plan(B: int, nzp: int, *, tile_b: int, check_every: int,
             f"plain free-run (check_every > 1 without exact_k) takes "
             f"tile_b={DRAIN_LANES} on the GPU; got {tile_b}")
     if lanes is None:
-        lanes = pick_lanes(B, nzp)
-    elif (lanes not in LANES or B % lanes
-          or shared_bytes(nzp, lanes) > SMEM_MAX):
+        lanes = pick_lanes(B, nzp, wide)
+    elif (lanes not in LANES or B % lanes or (wide and lanes > 16)
+          or shared_bytes(nzp, lanes, wide) > SMEM_MAX):
         raise ValueError(f"no build of the kernel takes {lanes} lanes a "
-                         f"block at batch {B}, padded width {nzp}")
-    return dict(lanes=lanes, blocks=B // lanes, threads=nzp,
-                smem=shared_bytes(nzp, lanes))
+                         f"block at batch {B}, padded width {nzp}"
+                         f"{' (wide)' if wide else ''}")
+    return dict(lanes=lanes, wide=bool(wide), blocks=B // lanes,
+                threads=WIDE_THREADS if wide else nzp,
+                smem=shared_bytes(nzp, lanes, wide),
+                slab=slab_rows(nzp, lanes, wide))
 
 
 def launch_geometry(B: int, nzp: int, **kw):
@@ -281,7 +336,7 @@ def launch_geometry(B: int, nzp: int, **kw):
 
 def _launch(z1, v0, lam0, M_q_pad, LB_pad, UB_pad, *, rho, tol_p, tol_d,
             k_max, tile_b, bf16, relax_alpha, check_every, fixed_iters,
-            exact_k, lanes):
+            exact_k, lanes, wide):
     args = (z1, v0, lam0, M_q_pad, LB_pad, UB_pad)
     for t in args:
         if t.dtype != torch.float32:
@@ -290,7 +345,8 @@ def _launch(z1, v0, lam0, M_q_pad, LB_pad, UB_pad, *, rho, tol_p, tol_d,
             raise ValueError("the fused kernel takes contiguous tensors")
     B, nzp = z1.shape
     plan = launch_plan(B, nzp, tile_b=tile_b, check_every=check_every,
-                       exact_k=exact_k, fixed_iters=fixed_iters, lanes=lanes)
+                       exact_k=exact_k, fixed_iters=fixed_iters, lanes=lanes,
+                       wide=wide)
     from spcies_tpu_torch.kernels._build import load_kernel
     launch = load_kernel("fused_admm", "fused_admm_launch",
                          FUSED_ADMM_ARGTYPES)
@@ -314,8 +370,8 @@ def _launch(z1, v0, lam0, M_q_pad, LB_pad, UB_pad, *, rho, tol_p, tol_d,
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = launch(
-            *ptrs, B, nzp, plan["lanes"], plan["blocks"], plan["threads"],
-            plan["smem"],
+            *ptrs, B, nzp, plan["lanes"], int(plan["wide"]), plan["blocks"],
+            plan["threads"], plan["smem"],
             float(rho), float(1.0 / rho), alpha, 1.0 - alpha,
             int(alpha != 1.0), float(tol_p), float(tol_d), int(k_max),
             int(check_every), int(fixed_iters), int(bool(exact_k)),
@@ -334,12 +390,13 @@ def fused_admm_solve(z1, v0, lam0, M_q_pad, LB_pad, UB_pad, *,
                      tile_b: int = 256, bf16: bool = False,
                      relax_alpha: float = 1.0, check_every: int = 1,
                      fixed_iters: int = 0, exact_k: bool = False,
-                     lanes: int | None = None):
+                     lanes: int | None = None, wide: bool | None = None):
     """Run the fused ADMM loop on [B, nzp] tensors (padded as the module
     docstring says; B a multiple of tile_b). CPU tensors run the plain
     version; CUDA tensors launch the kernel or raise. `lanes` names the
-    build to launch (one of LANES) in place of `pick_lanes`' choice; the
-    results do not depend on it, and the plain version has no such builds.
+    build to launch (one of LANES) in place of `pick_lanes`' choice, and
+    `wide` the wide build or not (by default: past MAX_COLS columns); the
+    results do not depend on either, and the plain version has no builds.
 
     Returns (z, v, lam [B, nzp], k [B] int32, e_flag [B] int32 (1
     converged / -1 k_max reached), r_p [B], r_d [B]).
@@ -366,7 +423,7 @@ def fused_admm_solve(z1, v0, lam0, M_q_pad, LB_pad, UB_pad, *,
                                     **kw)
     if z1.device.type == "cuda":
         return _launch(z1, v0, lam0, M_q_pad, LB_pad, UB_pad, lanes=lanes,
-                       **kw)
+                       wide=wide, **kw)
     raise ValueError(f"fused_admm_solve takes CPU or CUDA tensors; got "
                      f"{z1.device}")
 

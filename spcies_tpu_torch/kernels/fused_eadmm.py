@@ -69,11 +69,12 @@ import torch
 
 from spcies_tpu_torch.kernels import stage
 from spcies_tpu_torch.kernels.fused_admm import (COL_PAD, DQ_PAD, MAX_COLS,
-                                                 RBIG, round_up)
+                                                 RBIG, SMEM_MAX, check_widths,
+                                                 round_up)
 
-__all__ = ["COL_PAD", "MAX_COLS", "round_up", "distinct_columns",
-           "fused_eadmm_reference", "fused_eadmm_solve", "launch_geometry",
-           "launch_plan", "narrow_operands", "shared_bytes"]
+__all__ = ["check_width", "COL_PAD", "MAX_COLS", "round_up",
+           "distinct_columns", "fused_eadmm_reference", "fused_eadmm_solve",
+           "launch_geometry", "launch_plan", "narrow_operands", "shared_bytes"]
 
 # C signature of fused_eadmm_launch: 30 pointers (18 inputs: the six tiles,
 # C2m's and C2t's representative columns, the class of each column, M3p and
@@ -291,6 +292,19 @@ def shared_bytes(Z: int, lanes: int, nd: int = 1) -> int:
         + Z // WARP * lanes + Z + 4 + 2 * lanes + 4)
 
 
+def check_width(Z: int, nd: int = 1) -> None:
+    """Raise ValueError unless some build of the kernel takes this padded
+    width at nd classes of columns (a plain check, no CUDA: the fused
+    builder calls it when it builds for the card)."""
+    kernel = "fused MPCT-EADMM kernel (K3, csrc/fused_eadmm.cu)"
+    check_widths(kernel, MAX_COLS, width=Z)
+    if min(shared_bytes(Z, L, nd) for L in BUILDS) > SMEM_MAX:
+        raise ValueError(
+            f"no build of the {kernel} fits padded width {Z} with {nd} "
+            f"classes of columns in {SMEM_MAX} bytes of shared memory: use "
+            f'backend="dense"')
+
+
 def launch_plan(B: int, Z: int, nd: int, *, tile_b: int, check_every: int,
                 exact_k: bool, k_max: int, lanes: int | None = None):
     """The build a launch takes and its geometry, as a dict: lanes a block,
@@ -298,9 +312,7 @@ def launch_plan(B: int, Z: int, nd: int, *, tile_b: int, check_every: int,
     number of classes of columns. `lanes` names a build (a key of BUILDS)
     in place of the dispatch's choice; raises ValueError on a shape or mode
     no build takes."""
-    if Z % COL_PAD or not 0 < Z <= MAX_COLS:
-        raise ValueError(f"the kernel takes a padded width that is a "
-                         f"multiple of {COL_PAD} up to {MAX_COLS}; got {Z}")
+    check_width(Z, nd)
     if not 0 < nd <= Z:
         raise ValueError(f"the classes of columns number 1 to {Z}; got {nd}")
     if k_max < 1:

@@ -68,11 +68,11 @@ import torch.nn.functional as F
 
 from spcies_tpu_torch.kernels import stage
 from spcies_tpu_torch.kernels.fused_admm import (COL_PAD, DQ_PAD, MAX_COLS,
-                                                 RBIG, round_up)
+                                                 RBIG, check_widths, round_up)
 
-__all__ = ["COL_PAD", "MAX_COLS", "round_up", "fused_ellip_reference",
-           "fused_ellip_solve", "launch_geometry", "launch_plan",
-           "shared_bytes", "slab_start"]
+__all__ = ["check_width", "COL_PAD", "MAX_COLS", "round_up",
+           "fused_ellip_reference", "fused_ellip_solve", "launch_geometry",
+           "launch_plan", "shared_bytes", "slab_start"]
 
 # C signature of fused_ellip_launch: 17 tensor pointers (8 inputs, 7
 # outputs, the exact-k snapshot scratch, the refill queue); B, nzp, t0, n,
@@ -268,6 +268,14 @@ def shared_bytes(nzp: int, n: int, lanes: int) -> int:
         + 3 * lanes + 2 * n * (lanes + DQ_PAD) + n * n)
 
 
+def check_width(nzp: int) -> None:
+    """Raise ValueError unless some build of the kernel takes this padded
+    width (a plain check, no CUDA: the fused builder calls it when it
+    builds for the card)."""
+    check_widths("fused ellipMPC-ADMM kernel (K4, csrc/fused_ellip.cu)",
+                 MAX_COLS, width=nzp)
+
+
 def launch_plan(B: int, nzp: int, t0: int, n: int, *, tile_b: int,
                 check_every: int, exact_k: bool, fixed_iters: int,
                 lanes: int | None = None):
@@ -275,9 +283,7 @@ def launch_plan(B: int, nzp: int, t0: int, n: int, *, tile_b: int,
     blocks, threads, dynamic shared bytes, refill. `lanes` names a build in
     place of the dispatch's choice; raises ValueError on a shape or mode no
     build takes."""
-    if nzp % COL_PAD or not 0 < nzp <= MAX_COLS:
-        raise ValueError(f"the kernel takes a padded width that is a "
-                         f"multiple of {COL_PAD} up to {MAX_COLS}; got {nzp}")
+    check_width(nzp)
     if not (0 < n <= WARP and 0 <= t0 and t0 + n <= nzp
             and t0 % WARP + n <= WARP):
         raise ValueError(f"the kernel takes a terminal slab inside one warp "

@@ -62,11 +62,11 @@ import torch
 
 from spcies_tpu_torch.kernels import stage
 from spcies_tpu_torch.kernels.fused_admm import (COL_PAD, DQ_PAD, MAX_COLS,
-                                                 RBIG, round_up)
+                                                 RBIG, check_widths, round_up)
 
-__all__ = ["COL_PAD", "MAX_COLS", "round_up", "fused_fista_reference",
-           "fused_fista_solve", "launch_geometry", "launch_plan",
-           "shared_bytes"]
+__all__ = ["check_width", "COL_PAD", "MAX_COLS", "round_up",
+           "fused_fista_reference", "fused_fista_solve", "launch_geometry",
+           "launch_plan", "shared_bytes"]
 
 # C signature of fused_fista_launch: 19 tensor pointers (11 inputs, 6
 # outputs, the exact-k snapshot scratch, int32 scratch for the matrices'
@@ -236,6 +236,14 @@ def shared_bytes(nzp: int, nlamp: int, lanes: int) -> int:
         + T // WARP * 2 * lanes + lanes + 4 + 4 * lanes)
 
 
+def check_width(nzp: int, nlamp: int) -> None:
+    """Raise ValueError unless some build of the kernel takes these padded
+    widths (a plain check, no CUDA: the fused builder calls it when it
+    builds for the card)."""
+    check_widths("fused dual-FISTA kernel (K2, csrc/fused_fista.cu)",
+                 MAX_COLS, nz=nzp, nlam=nlamp)
+
+
 def launch_plan(B: int, nzp: int, nlamp: int, *, tile_b: int,
                 check_every: int, exact_k: bool, fixed_iters: int,
                 k_max: int, lanes: int | None = None):
@@ -243,11 +251,7 @@ def launch_plan(B: int, nzp: int, nlamp: int, *, tile_b: int,
     blocks, threads, dynamic shared bytes, refill (always False). `lanes`
     names a build in place of the dispatch's choice; raises ValueError on a
     shape or mode no build takes."""
-    for name, w in (("nz", nzp), ("nlam", nlamp)):
-        if w % COL_PAD or not 0 < w <= MAX_COLS:
-            raise ValueError(f"the kernel takes a padded {name} that is a "
-                             f"multiple of {COL_PAD} up to {MAX_COLS}; "
-                             f"got {w}")
+    check_width(nzp, nlamp)
     if k_max < 1:
         raise ValueError(f"k_max must be at least 1; got {k_max}")
     # fixed_iters runs plain iterations alone, whatever check_every says

@@ -51,12 +51,13 @@ import torch
 
 from spcies_tpu_torch.kernels import stage
 from spcies_tpu_torch.kernels.fused_admm import (COL_PAD, DQ_PAD, MAX_COLS,
-                                                 round_up)
+                                                 check_widths, round_up)
 from spcies_tpu_torch.kernels.modes import run_modes
 
-__all__ = ["COL_PAD", "MAX_COLS", "round_up", "cone_layout", "cone_columns",
-           "proj_ssoc_seg", "fused_hmpc_reference", "fused_hmpc_solve",
-           "launch_plan", "launch_geometry", "shared_bytes"]
+__all__ = ["check_width", "COL_PAD", "MAX_COLS", "round_up", "cone_layout",
+           "cone_columns", "proj_ssoc_seg", "fused_hmpc_reference",
+           "fused_hmpc_solve", "launch_plan", "launch_geometry",
+           "shared_bytes"]
 
 WARP = 32
 # cones a warp holds at most: three lanes each
@@ -189,6 +190,14 @@ def shared_bytes(dim_p: int, ns_p: int, lanes: int) -> int:
         + ns_p // WARP * 2 * lanes + 4 + 2 * lanes)
 
 
+def check_width(dim_p: int, ns_p: int) -> None:
+    """Raise ValueError unless some build of the kernel takes these padded
+    widths (a plain check, no CUDA: the fused builders call it when they
+    build for the card)."""
+    check_widths("fused cone-ADMM kernel (K6, csrc/fused_hmpc.cu)",
+                 MAX_COLS, dim_p=dim_p, ns_p=ns_p)
+
+
 def launch_plan(B: int, dim_p: int, ns_p: int, cone0: int, cone_g: int, *,
                 tile_b: int, check_every: int, exact_k: bool,
                 lanes: int | None = None):
@@ -196,10 +205,7 @@ def launch_plan(B: int, dim_p: int, ns_p: int, cone0: int, cone_g: int, *,
     blocks, threads, dynamic shared bytes, refill. `lanes` names a build in
     place of the dispatch's choice; raises ValueError on a shape or mode no
     build takes."""
-    for name, w in (("dim_p", dim_p), ("ns_p", ns_p)):
-        if w % COL_PAD or not 0 < w <= MAX_COLS:
-            raise ValueError(f"the kernel takes {name} a multiple of "
-                             f"{COL_PAD} up to {MAX_COLS}; got {w}")
+    check_width(dim_p, ns_p)
     check_cone_layout(ns_p, cone0, cone_g)
     stage.check_mode(B, tile_b=tile_b, check_every=check_every,
                      exact_k=exact_k)

@@ -51,12 +51,12 @@ import torch
 
 from spcies_tpu_torch.kernels import stage
 from spcies_tpu_torch.kernels.fused_admm import (COL_PAD, DQ_PAD, MAX_COLS,
-                                                 round_up)
+                                                 check_widths, round_up)
 from spcies_tpu_torch.kernels.modes import run_modes
 
-__all__ = ["COL_PAD", "MAX_COLS", "round_up", "fused_soc_reference",
-           "fused_soc_solve", "launch_plan", "launch_geometry",
-           "shared_bytes"]
+__all__ = ["check_width", "COL_PAD", "MAX_COLS", "round_up",
+           "fused_soc_reference", "fused_soc_solve", "launch_plan",
+           "launch_geometry", "shared_bytes"]
 
 # C signature of fused_soc_launch: 17 pointers (8 inputs, 7 outputs, the
 # exact-k snapshot scratch, the refill queue); B, P, dim_p, lanes, blocks,
@@ -142,15 +142,21 @@ def shared_bytes(P: int, lanes: int) -> int:
         P * (4 * lanes + DQ_PAD) + P // WARP * 2 * lanes + 4 + 5 * lanes)
 
 
+def check_width(P: int) -> None:
+    """Raise ValueError unless some build of the kernel takes this padded
+    width (a plain check, no CUDA: the fused builder calls it when it
+    builds for the card)."""
+    check_widths("fused slack-SOC kernel (K5, csrc/fused_soc.cu)",
+                 MAX_COLS, width=P)
+
+
 def launch_plan(B: int, P: int, dim_p: int, *, tile_b: int,
                 check_every: int, exact_k: bool, lanes: int | None = None):
     """The build a launch takes and its geometry, as a dict: lanes a block,
     blocks, threads, dynamic shared bytes, refill. `lanes` names a build in
     place of the dispatch's choice; raises ValueError on a shape or mode no
     build takes."""
-    if P % COL_PAD or not 0 < P <= MAX_COLS:
-        raise ValueError(f"the kernel takes a padded width that is a "
-                         f"multiple of {COL_PAD} up to {MAX_COLS}; got {P}")
+    check_width(P)
     if dim_p % WARP or P - dim_p != WARP:
         raise ValueError(f"the kernel takes an s slab of one warp of {WARP} "
                          f"columns after a z slab of whole warps; got "

@@ -49,12 +49,14 @@ import ctypes
 
 import torch
 
-from spcies_tpu_torch.kernels.fused_admm import COL_PAD, MAX_COLS
+from spcies_tpu_torch.kernels.fused_admm import (COL_PAD, MAX_COLS,
+                                                 check_widths)
 from spcies_tpu_torch.kernels.fused_hmpc import (WARP, check_cone_layout,
                                                  cone_columns, cone_project)
 from spcies_tpu_torch.kernels.modes import run_modes
 
-__all__ = ["fused_split_reference", "fused_split_solve", "launch_geometry"]
+__all__ = ["check_width", "fused_split_reference", "fused_split_solve",
+           "launch_geometry"]
 
 # lanes per thread block (TB in csrc/fused_split.cu)
 CTA_LANES = 8
@@ -119,13 +121,19 @@ def fused_split_reference(aux1, zs0, lm0, M1P, lb_row, ub_row, scale_row,
     return (zs, lm, aux, *rest)
 
 
+def check_width(P: int) -> None:
+    """Raise ValueError unless the kernel takes this padded width (a plain
+    check, no CUDA: the fused builders call it when they build for the
+    card)."""
+    check_widths("fused split ADMM kernel (K7, csrc/fused_split.cu)",
+                 MAX_COLS, width=P)
+
+
 def launch_geometry(B: int, P: int, dim_p: int, cone0: int, cone_g: int, *,
                     tile_b: int, check_every: int, exact_k: bool):
     """(blocks, threads, dynamic shared bytes) of a kernel launch; raises
     ValueError on a shape or mode the kernel does not take."""
-    if P % COL_PAD or not 0 < P <= MAX_COLS:
-        raise ValueError(f"the kernel takes a padded width that is a "
-                         f"multiple of {COL_PAD} up to {MAX_COLS}; got {P}")
+    check_width(P)
     if dim_p % WARP or not 0 < dim_p <= cone0:
         raise ValueError(f"the kernel takes a z slab of whole warps before "
                          f"the cones; got dim_p={dim_p}, cone0={cone0}")

@@ -15,6 +15,12 @@ builders onto that kernel. Port of spcies_tpu/solvers/fused_backend.py.
 The options `interleave` and `unroll_window` of the JAX package are
 accepted and change nothing: both only steered the TPU compiler, with
 identical results.
+
+Built for a CUDA device, each adapter asks its kernel module's
+`check_width` whether some build of the kernel takes the operator's padded
+widths, so that a width no build takes is refused by make_solver and not
+by the first request. The plain versions, which CPU tensors run, take any
+width.
 """
 
 from __future__ import annotations
@@ -23,6 +29,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from spcies_tpu_torch.kernels import (fused_admm, fused_eadmm, fused_ellip,
+                                      fused_fista, fused_hmpc, fused_soc,
+                                      fused_split)
 from spcies_tpu_torch.kernels.fused_admm import (COL_PAD, fused_admm_solve,
                                                  round_up)
 from spcies_tpu_torch.kernels.fused_eadmm import (fused_eadmm_solve,
@@ -141,6 +150,14 @@ def _require_fp32(dtype):
                          "use backend='dense' for fp64 verification")
 
 
+def _on_card(solve, device, check, *widths):
+    """Return `solve`, after check(*widths) (a kernel module's
+    `check_width`) where it runs on a CUDA device."""
+    if torch.device(device).type == "cuda":
+        check(*widths)
+    return solve
+
+
 def build_fused_box_admm_solve(ing, opt, dtype, device, *, make_q_ref,
                                make_aux_b, u_start: int,
                                lb_key: str = "LB_z", ub_key: str = "UB_z"):
@@ -148,9 +165,11 @@ def build_fused_box_admm_solve(ing, opt, dtype, device, *, make_q_ref,
     _require_fp32(dtype)
     if not ing["rho_is_scalar"]:
         raise ValueError("the fused backend requires scalar rho")
-    return FusedBoxADMMSolve(ing, opt, device, make_q_ref=make_q_ref,
-                             make_aux_b=make_aux_b, u_start=u_start,
-                             lb_key=lb_key, ub_key=ub_key)
+    solve = FusedBoxADMMSolve(ing, opt, device, make_q_ref=make_q_ref,
+                              make_aux_b=make_aux_b, u_start=u_start,
+                              lb_key=lb_key, ub_key=ub_key)
+    return _on_card(solve, device, fused_admm.check_width,
+                    solve.operator[0].shape[0])
 
 
 class FusedFISTASolve:
@@ -240,8 +259,10 @@ class FusedFISTASolve:
 def build_fused_fista_solve(ing, opt, dtype, device, *, make_q_ref, make_b):
     """Return a FusedFISTASolve for laxMPC or equMPC dual FISTA."""
     _require_fp32(dtype)
-    return FusedFISTASolve(ing, opt, device, make_q_ref=make_q_ref,
-                           make_b=make_b)
+    solve = FusedFISTASolve(ing, opt, device, make_q_ref=make_q_ref,
+                            make_b=make_b)
+    nlamp, nzp = solve.operator[0].shape
+    return _on_card(solve, device, fused_fista.check_width, nzp, nlamp)
 
 
 class FusedEADMMSolve:
@@ -347,7 +368,9 @@ class FusedEADMMSolve:
 def build_fused_eadmm_solve(ing, opt, dtype, device):
     """Return a FusedEADMMSolve for MPCT-EADMM."""
     _require_fp32(dtype)
-    return FusedEADMMSolve(ing, opt, device)
+    solve = FusedEADMMSolve(ing, opt, device)
+    return _on_card(solve, device, fused_eadmm.check_width,
+                    solve.operator[0].shape[0], solve.classes[0].shape[1])
 
 
 class FusedEllipADMMSolve:
@@ -469,7 +492,9 @@ def build_fused_ellip_solve(ing, opt, dtype, device, *, make_q_ref):
     if not ing["rho_is_scalar"]:
         raise ValueError("the fused ellipMPC backend supports scalar rho; "
                          "use backend='dense' for vector rho")
-    return FusedEllipADMMSolve(ing, opt, device, make_q_ref=make_q_ref)
+    solve = FusedEllipADMMSolve(ing, opt, device, make_q_ref=make_q_ref)
+    return _on_card(solve, device, fused_ellip.check_width,
+                    solve.operator[0].shape[0])
 
 
 class FusedSOCSolve:
@@ -577,7 +602,9 @@ def build_fused_soc_solve(ing, opt, dtype, device, *, make_q):
     """Return a FusedSOCSolve for ellipMPC-ADMM-soc; make_q(xr, ur) ->
     [B, dim] linear cost."""
     _require_fp32(dtype)
-    return FusedSOCSolve(ing, opt, device, make_q=make_q)
+    solve = FusedSOCSolve(ing, opt, device, make_q=make_q)
+    return _on_card(solve, device, fused_soc.check_width,
+                    solve.operator[0].shape[0])
 
 
 def _cone_positions(ing, start: int):
@@ -699,8 +726,10 @@ def build_fused_hmpc_solve(ing, opt, dtype, device, M1_np, M2_np, *, make_q,
                            lby=None, uby=None):
     """Return a FusedHMPCSolve for HMPC-ADMM or ellipHMPC-ADMM."""
     _require_fp32(dtype)
-    return FusedHMPCSolve(ing, opt, device, M1_np, M2_np, make_q=make_q,
-                          lby=lby, uby=uby)
+    solve = FusedHMPCSolve(ing, opt, device, M1_np, M2_np, make_q=make_q,
+                           lby=lby, uby=uby)
+    return _on_card(solve, device, fused_hmpc.check_width,
+                    *solve.operator[0].shape)
 
 
 class FusedSplitSolve:
@@ -818,5 +847,7 @@ def build_fused_split_solve(ing, opt, dtype, device, M1_np, M2_np, *,
                             make_q, symmetric: bool):
     """Return a FusedSplitSolve for HMPC-ADMM-split or HMPC-SADMM-split."""
     _require_fp32(dtype)
-    return FusedSplitSolve(ing, opt, device, M1_np, M2_np, make_q=make_q,
-                           symmetric=symmetric)
+    solve = FusedSplitSolve(ing, opt, device, M1_np, M2_np, make_q=make_q,
+                            symmetric=symmetric)
+    return _on_card(solve, device, fused_split.check_width,
+                    solve.operator[0].shape[0])

@@ -301,8 +301,7 @@ def test_ingredients_from_jax_per_triple(name):
 
 def test_ingredients_from_jax_unknown_triple():
     with pytest.raises(KeyError, match="no ingredient layout"):
-        ingredients_from_jax({}, formulation="MPCT", method="ADMM",
-                             submethod="semiband")
+        ingredients_from_jax({}, formulation="personal", method="mine")
 
 
 @pytest.mark.parametrize("method", ["ADMM", "FISTA"])

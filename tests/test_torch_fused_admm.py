@@ -274,7 +274,7 @@ def test_launch_geometry():
                               exact_k=False, fixed_iters=50)[0] == 64
     bad = [
         dict(B=64, nzp=250, tile_b=8),          # not whole warps
-        dict(B=64, nzp=544, tile_b=8),          # beyond 512 threads
+        dict(B=64, nzp=1056, tile_b=8),         # beyond the wide build
         dict(B=60, nzp=96, tile_b=12),          # tile not whole groups
         dict(B=48, nzp=96, tile_b=32),          # batch not whole tiles
         dict(B=256, nzp=96, tile_b=256, check_every=8),  # free-run drain
@@ -364,10 +364,10 @@ def test_geometry_constants_match_the_sources():
         assert f"launch<{lanes}>(p, " in src
     # no tensor-core product and no library product in the launched source
     assert "mma" not in src and "cublas" not in src.lower()
-    # the C signature the wrapper binds: 15 pointers, 6 + 4 + 1 + 2 + 5
+    # the C signature the wrapper binds: 15 pointers, 7 + 4 + 1 + 2 + 5
     # scalars, the stream
     assert src.count('extern "C" int fused_admm_launch(') == 1
-    assert len(fk.FUSED_ADMM_ARGTYPES) == 34
+    assert len(fk.FUSED_ADMM_ARGTYPES) == 35
 
 
 @pytest.mark.parametrize("name", ["fused_admm_parent", "fused_admm_tc",

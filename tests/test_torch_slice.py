@@ -219,10 +219,10 @@ def test_problem_recipe_builds_solver(fixture):
 @pytest.mark.parametrize("probe,exc,match", [
     (dict(formulation="nope", method="ADMM"), ValueError, "Unknown"),
     (dict(formulation="laxMPC", method="EADMM"), ValueError, "not available"),
-    # a triple of the JAX package not ported yet, and a personal one that
-    # no builder is registered for
-    (dict(formulation="MPCT", method="ADMM", submethod="semiband"),
-     NotImplementedError, "No solver builder"),
+    # a backend of the JAX package not ported yet, and a personal triple
+    # that no builder is registered for
+    (dict(formulation="MPCT", method="ADMM", submethod="semiband",
+          backend="banded"), NotImplementedError, "item 8"),
     (dict(formulation="personal", method="mine"), NotImplementedError,
      "No solver builder"),
     (dict(backend="auto"), NotImplementedError, "item 12"),
@@ -263,7 +263,7 @@ def test_default_device_is_the_card(fixture):
         tsp.make_solver(sys, param, formulation="laxMPC", method="ADMM",
                         options=_opts(tsp, "double"))
     builders = [(key, fn) for key, fn in tsp.formulations.BUILDERS.items()]
-    assert len(builders) == 12
+    assert len(builders) == 13
     for (f, m, sub), build in builders:
         opt = tsp.default_options(f, m, sub)
         with pytest.raises(RuntimeError, match='device="cpu"'):

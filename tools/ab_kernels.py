@@ -187,7 +187,8 @@ def run_admm(v, args, kk):
     fn = _build._LOADED["fused_admm"][0].fused_admm_smem
     fn.restype = ctypes.c_long
     saved = k1.shared_bytes
-    k1.shared_bytes = lambda nzp, lanes: fn(nzp, lanes)
+    k1.shared_bytes = lambda nzp, lanes, wide=False: fn(nzp, lanes,
+                                                        int(wide))
     try:
         return k1.fused_admm_solve(*args, **kk, lanes=v.lanes)
     finally:
