@@ -101,6 +101,7 @@
 // zero rm, rht, mh, mt, mr and h1i and [0, 0] bounds, so they stay exactly
 // 0 and add nothing to the row maxima.
 
+#if !WIDE_PART
 #include <cuda_runtime.h>
 
 #include "tile_product.cuh"
@@ -700,3 +701,479 @@ extern "C" int fused_eadmm_launch(
   return lanes == 8 ? launch<8>(p, blocks, threads, smem, stream)
                     : launch<16>(p, blocks, threads, smem, stream);
 }
+#endif  // !WIDE_PART
+
+#if WIDE_PART
+// The wide build, a translation unit of its own (-DWIDE_PART=1;
+// kernels/_build.py compiles the narrow builds above with
+// -DWIDE_PART=0 from exactly their earlier text).
+
+#include <cuda_runtime.h>
+
+#include "wide_cols.cuh"
+
+namespace {
+
+constexpr int NLEAF = 9;  // state leaves
+constexpr int NSNAP = 7;  // snapshot leaves, the first NSNAP
+
+// ---- the wide build ---------------------------------------------------------
+//
+// Past MAX_COLS columns, up to wc::COLS = 1024: fused_eadmm_wide_kernel runs
+// 512 threads of two columns, t and t + 512, at 8 lanes a block, on the
+// first layout (csrc/variants/fused_eadmm_parent.cu: one column a thread,
+// the matrices read from L2) with each thread taking two columns
+// (csrc/wide_cols.cuh). The nine state vectors (2 columns x 8 lanes x 9
+// leaves would pass a 512-thread block's 128 registers) live in global
+// memory that only their thread touches; shared memory holds the three
+// products' inputs dv2m, dv2t and dq3 as [Z][8], the row maxima, and C2d,
+// the distinct columns of C2m ([Z][nd], as the narrow builds' 16-lane build
+// copies it). A column's z2 sums run over its class's column of C2d and
+// C2td, byte for byte its own column of C2m and C2t: the same fmaf chains
+// as the first layout's, so the kernel gives this kernel's bits. The row
+// maxima of P2 and P3 are taken over a thread's two columns, then the warp
+// and the warps. No refill: plain free-run drains each block.
+
+using wc::TB;
+
+struct EadmmWide {
+  const float* __restrict__ x0b;
+  const float* __restrict__ z2refb;
+  const float* __restrict__ z2b0;
+  const float* __restrict__ z30;
+  const float* __restrict__ lm0;
+  const float* __restrict__ lht0;
+  const float* __restrict__ c2d;   // [Z][nd]: C2m's distinct columns
+  const float* __restrict__ c2td;  // [Z][nd]: C2t's, over the same classes
+  const int* __restrict__ col_of;  // [Z]: the class of each column
+  const float* __restrict__ m3p;   // [Z][Z], dq3 @ m3p
+  const float* __restrict__ rows[8];  // rm, rht, mh, mt, mr, h1i, lb, ub
+  float* out[5];                      // z1, z2b, z3, lm, lht
+  int* k;
+  int* done;
+  float* res[3];  // r_pf, r_z2, r_z3
+  float* snap;    // exact-k: per lane [z2b | z3 | lm | lht | v2m | v2t | q3]
+  float* state;   // [blocks][9][Z][8]: the leaves below
+  int Z, nd;
+  float tol;
+  int k_max, check_every, exact_k;
+};
+// the state leaves; the first NSNAP are the snapshot's, in its order
+enum { W_Z2B, W_Z3, W_LM, W_LHT, W_V2M, W_V2T, W_Q3, W_Z1, W_X0 };
+
+// What a thread knows of its two columns and of the block.
+struct EadmmCols {
+  float rm[wc::CPT], rht[wc::CPT], mh[wc::CPT], mt[wc::CPT], mr[wc::CPT],
+      sg[wc::CPT], h1i[wc::CPT], lb[wc::CPT], ub[wc::CPT];
+  int cls[wc::CPT];
+  int nr, t0, t1;  // the rows the products read, as the first layout's
+  int lane0;
+  float* d2m;  // shared: [Z][8]  product inputs
+  float* d2t;
+  float* dq3;
+  float* red;  // shared: [WARPS][3][8]
+  float* c2d;  // shared: [Z][nd]
+  float* st[NLEAF];  // global: [Z][8] each
+};
+
+// acc[b] = sum_{i0 <= i < i1} v[i][b] m[i][c]: m in shared memory with
+// leading dimension ld; one fmaf chain in row order.
+__device__ __forceinline__ void chain_shared(const float* v, const float* m,
+                                             int ld, int i0, int i1, int c,
+                                             float (&acc)[TB]) {
+  wc::zero(acc);
+#pragma unroll 8
+  for (int i = i0; i < i1; ++i) {
+    const float w = m[i * ld + c];
+    const float4* v4 = reinterpret_cast<const float4*>(v + i * TB);
+#pragma unroll
+    for (int q = 0; q < TB / 4; ++q) {
+      const float4 d = v4[q];
+      acc[4 * q] = fmaf(d.x, w, acc[4 * q]);
+      acc[4 * q + 1] = fmaf(d.y, w, acc[4 * q + 1]);
+      acc[4 * q + 2] = fmaf(d.z, w, acc[4 * q + 2]);
+      acc[4 * q + 3] = fmaf(d.w, w, acc[4 * q + 3]);
+    }
+  }
+}
+
+// One iteration of the thread's columns for the block's 8 lanes, as the
+// first layout's iterate: lanes in `frozen` keep all their state; lanes in
+// `fresh` take z2refb and 0 as the accumulators (their first iteration).
+// Thread 0 records the residuals of the lanes in `rmask` in lres. Returns
+// the lanes whose three residuals meet tol.
+__device__ __forceinline__ unsigned eadmm_wide_iterate(
+    const EadmmWide& p, const EadmmCols& c, unsigned frozen, unsigned fresh,
+    unsigned rmask, float (&lres)[3][TB]) {
+  const int Z = p.Z;
+  float z1[wc::CPT][TB], z2n[wc::CPT][TB];
+  // 1. P1: z1 = clip(-q1 h1i); the deltas of the z2 product's inputs
+#pragma unroll
+  for (int h = 0; h < wc::CPT; ++h) {
+    const int j = wc::col(h, Z);
+    if (j < 0) break;
+    const int o = j * TB;
+    float z2b[TB], z3[TB], lm[TB], lht[TB], x0[TB], vm[TB], vt[TB];
+    float dm[TB], dt[TB], z1s[TB];
+    wc::load(z2b, c.st[W_Z2B] + o);
+    wc::load(z3, c.st[W_Z3] + o);
+    wc::load(lm, c.st[W_LM] + o);
+    wc::load(lht, c.st[W_LHT] + o);
+    wc::load(x0, c.st[W_X0] + o);
+    wc::load(vm, c.st[W_V2M] + o);
+    wc::load(vt, c.st[W_V2T] + o);
+    wc::load(z1s, c.st[W_Z1] + o);
+#pragma unroll
+    for (int b = 0; b < TB; ++b) {
+      const float s_ht = c.rht[h] * (c.mt[h] * z2b[b] - x0[b]) + lht[b];
+      const float q1 =
+          -(c.rm[h] * (z2b[b] + z3[b]) + lm[b]) + c.sg[h] * s_ht;
+      z1[h][b] = fminf(fmaxf(-q1 * c.h1i[h], c.lb[h]), c.ub[h]);
+      const float v2m = c.rm[h] * (z3[b] - z1[h][b]) + lm[b];
+      const float v2t = c.mt[h] * (c.rht[h] * (-z1[h][b]) + lht[b]);
+      dm[b] = v2m - vm[b];
+      dt[b] = v2t - vt[b];
+      if (!wc::bit(frozen, b)) {
+        vm[b] = v2m;
+        vt[b] = v2t;
+        z1s[b] = z1[h][b];
+      }
+    }
+    wc::store(c.d2m + o, dm);
+    wc::store(c.d2t + o, dt);
+    wc::store(c.st[W_V2M] + o, vm);
+    wc::store(c.st[W_V2T] + o, vt);
+    wc::store(c.st[W_Z1] + o, z1s);
+  }
+  __syncthreads();
+  // 2. P2: z2bn = z2acc + dv2m @ C2m + dv2t @ C2t; q3 and its delta
+  {
+    float az[TB];
+    wc::zero(az);
+#pragma unroll
+    for (int h = 0; h < wc::CPT; ++h) {
+      const int j = wc::col(h, Z);
+      if (j < 0) break;
+      const int o = j * TB;
+      float a1[TB], a2[TB], z2b[TB], lm[TB], q3p[TB], dq[TB];
+      chain_shared(c.d2m, c.c2d, p.nd, 0, c.nr, c.cls[h], a1);
+      wc::zero(a2);
+      wc::product<8>(c.d2t, p.c2td, p.nd, c.t0, c.t1, c.cls[h], a2);
+      wc::load(z2b, c.st[W_Z2B] + o);
+      wc::load(lm, c.st[W_LM] + o);
+      wc::load(q3p, c.st[W_Q3] + o);
+#pragma unroll
+      for (int b = 0; b < TB; ++b) {
+        const float acc =
+            wc::bit(fresh, b)
+                ? __ldg(p.z2refb + static_cast<size_t>(c.lane0 + b) * Z + j)
+                : z2b[b];
+        z2n[h][b] = (acc + a1[b]) + a2[b];
+        const float q3 = c.rm[h] * (z2n[h][b] - z1[h][b]) + lm[b];
+        dq[b] = q3 - q3p[b];
+        az[b] = fmaxf(az[b], fabsf((z2n[h][b] - z2b[b]) * c.mr[h]));
+        if (!wc::bit(frozen, b)) {
+          q3p[b] = q3;
+          z2b[b] = z2n[h][b];
+        }
+      }
+      wc::store(c.dq3 + o, dq);
+      wc::store(c.st[W_Q3] + o, q3p);
+      wc::store(c.st[W_Z2B] + o, z2b);
+    }
+    wc::warp_max<3>(az, c.red, 1);
+  }
+  __syncthreads();
+  // 3. P3: z3n = z3acc + dq3 @ M3p; residual rows and dual ascent
+  {
+    float pf[TB], az[TB];
+    wc::zero(pf);
+    wc::zero(az);
+#pragma unroll
+    for (int h = 0; h < wc::CPT; ++h) {
+      const int j = wc::col(h, Z);
+      if (j < 0) break;
+      const int o = j * TB;
+      float a3[TB], z3[TB], lm[TB], lht[TB], x0[TB];
+      wc::zero(a3);
+      wc::product<8>(c.dq3, p.m3p, Z, 0, c.nr, j, a3);
+      wc::load(z3, c.st[W_Z3] + o);
+      wc::load(lm, c.st[W_LM] + o);
+      wc::load(lht, c.st[W_LHT] + o);
+      wc::load(x0, c.st[W_X0] + o);
+#pragma unroll
+      for (int b = 0; b < TB; ++b) {
+        const float acc = wc::bit(fresh, b) ? 0.0f : z3[b];
+        const float z3n = acc + a3[b];
+        const float midR = z2n[h][b] + z3n - z1[h][b];
+        const float htR =
+            c.mh[h] * z1[h][b] - x0[b] + c.mt[h] * (z2n[h][b] - z1[h][b]);
+        pf[b] = fmaxf(pf[b], fmaxf(fabsf(midR * c.mr[h]), fabsf(htR)));
+        az[b] = fmaxf(az[b], fabsf((z3n - z3[b]) * c.mr[h]));
+        if (!wc::bit(frozen, b)) {
+          z3[b] = z3n;
+          lm[b] = lm[b] + c.rm[h] * midR;
+          lht[b] = lht[b] + c.rht[h] * htR;
+        }
+      }
+      wc::store(c.st[W_Z3] + o, z3);
+      wc::store(c.st[W_LM] + o, lm);
+      wc::store(c.st[W_LHT] + o, lht);
+    }
+    wc::warp_max<3>(pf, c.red, 0);
+    wc::warp_max<3>(az, c.red, 2);
+  }
+  __syncthreads();
+  // 4. the residuals of each lane, and the lanes that meet tol
+  float rs[3][TB];
+#pragma unroll
+  for (int q = 0; q < 3; ++q) wc::block_max<3>(c.red, q, rs[q]);
+  unsigned conv = 0;
+#pragma unroll
+  for (int b = 0; b < TB; ++b) {
+    if (rs[0][b] <= p.tol && rs[1][b] <= p.tol && rs[2][b] <= p.tol)
+      conv |= 1u << b;
+    if (threadIdx.x == 0 && wc::bit(rmask, b)) {
+#pragma unroll
+      for (int q = 0; q < 3; ++q) lres[q][b] = rs[q][b];
+    }
+  }
+  return conv;
+}
+
+// The seven snapshot leaves of the thread's columns to (TO_GLOBAL) or from
+// each lane's [z2b | z3 | lm | lht | v2m | v2t | q3] in p.snap, for the
+// lanes in `lanes`.
+template <bool TO_GLOBAL>
+__device__ __forceinline__ void eadmm_wide_snapshot(const EadmmWide& p,
+                                                    const EadmmCols& c,
+                                                    unsigned lanes) {
+#pragma unroll
+  for (int h = 0; h < wc::CPT; ++h) {
+    const int j = wc::col(h, p.Z);
+    if (j < 0) break;
+#pragma unroll
+    for (int l = 0; l < NSNAP; ++l)
+      wc::snap_row<TO_GLOBAL>(c.st[l], p.snap, NSNAP * p.Z, l * p.Z + j, j,
+                              c.lane0, lanes);
+  }
+}
+
+__global__ void __launch_bounds__(wc::THREADS, 1)
+    fused_eadmm_wide_kernel(EadmmWide p) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ int sn_k[TB];       // exact-k: each lane's window start
+  __shared__ float lres[3][TB];  // thread 0's residuals of each lane
+  __shared__ int bounds[3];      // nr, t0, t1
+  const int Z = p.Z;
+  const int tid = threadIdx.x;
+  EadmmCols c;
+  c.lane0 = blockIdx.x * TB;
+  c.d2m = smem;
+  c.d2t = c.d2m + Z * TB;
+  c.dq3 = c.d2t + Z * TB;
+  c.red = c.dq3 + Z * TB;
+  c.c2d = c.red + wc::WARPS * 3 * TB;
+#pragma unroll
+  for (int l = 0; l < NLEAF; ++l) c.st[l] = wc::leaf(p.state, NLEAF, l, Z);
+  for (int i = tid; i < Z * p.nd; i += wc::THREADS) c.c2d[i] = p.c2d[i];
+  if (tid == 0) {
+    bounds[0] = 0;
+    bounds[1] = Z;
+    bounds[2] = 0;
+#pragma unroll
+    for (int b = 0; b < TB; ++b)
+#pragma unroll
+      for (int q = 0; q < 3; ++q) lres[q][b] = wc::RBIG;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int h = 0; h < wc::CPT; ++h) {
+    const int j = wc::col(h, Z);
+    c.rm[h] = j < 0 ? 0.0f : p.rows[0][j];
+    c.rht[h] = j < 0 ? 0.0f : p.rows[1][j];
+    c.mh[h] = j < 0 ? 0.0f : p.rows[2][j];
+    c.mt[h] = j < 0 ? 0.0f : p.rows[3][j];
+    c.mr[h] = j < 0 ? 0.0f : p.rows[4][j];
+    c.h1i[h] = j < 0 ? 0.0f : p.rows[5][j];
+    c.lb[h] = j < 0 ? 0.0f : p.rows[6][j];
+    c.ub[h] = j < 0 ? 0.0f : p.rows[7][j];
+    c.sg[h] = c.mh[h] - c.mt[h];
+    c.cls[h] = j < 0 ? 0 : p.col_of[j];
+    if (j < 0) continue;
+    if (c.mr[h] != 0.0f) atomicMax(&bounds[0], j + 1);
+    if (c.mt[h] != 0.0f) {
+      atomicMin(&bounds[1], j);
+      atomicMax(&bounds[2], j + 1);
+    }
+    // state: z2b0, z30, lm0, lht0, zero previous inputs, zero z1, x0b
+    const float* src[9] = {p.z2b0, p.z30,   p.lm0,   p.lht0, nullptr,
+                           nullptr, nullptr, nullptr, p.x0b};
+#pragma unroll
+    for (int l = 0; l < NLEAF; ++l)
+      wc::read_row(c.st[l], src[l], Z, j, c.lane0);
+  }
+  __syncthreads();
+  c.nr = bounds[0];
+  c.t0 = bounds[1];
+  c.t1 = bounds[2];
+  unsigned done = 0;
+  int k[TB];
+#pragma unroll
+  for (int b = 0; b < TB; ++b) k[b] = 0;
+  const int C = p.check_every;
+  constexpr unsigned ALL = wc::ALL;
+
+  if (C > 1 && p.exact_k) {
+    // free-run windows of C iterations; snapshot every still-active lane
+    // at each window start; a lane is done once the window's last
+    // iteration meets tol. Windows may overshoot k_max: the replay budget
+    // cuts each lane off at exactly k_max.
+    for (int it = 0; it < p.k_max && done != ALL; it += C) {
+      eadmm_wide_snapshot<true>(p, c, ~done & ALL);
+      if (tid == 0) {
+#pragma unroll
+        for (int b = 0; b < TB; ++b)
+          if (!wc::bit(done, b)) sn_k[b] = it;
+      }
+      for (int f = 0; f < C - 1; ++f)
+        eadmm_wide_iterate(p, c, 0u, (it == 0 && f == 0) ? ALL : 0u, 0u,
+                           lres);
+      done |= eadmm_wide_iterate(p, c, 0u, 0u, 0u, lres);
+    }
+    __syncthreads();  // the window starts, written by thread 0
+    // replay each lane's last window from its snapshot with per-iteration
+    // checks: k counts on from the window start
+    eadmm_wide_snapshot<false>(p, c, ALL);
+#pragma unroll
+    for (int h = 0; h < wc::CPT; ++h) {
+      const int j = wc::col(h, Z);
+      if (j < 0) break;
+      float zero[TB];
+      wc::zero(zero);
+      wc::store(c.st[W_Z1] + j * TB, zero);
+    }
+    int budget[TB];
+    unsigned first = 0;  // lanes replaying from the initial state
+#pragma unroll
+    for (int b = 0; b < TB; ++b) {
+      k[b] = sn_k[b];
+      budget[b] = min(C, p.k_max - k[b]);
+      if (k[b] == 0) first |= 1u << b;
+    }
+    unsigned convd = 0;
+    for (int w = 0; w < C; ++w) {
+      unsigned frozen = convd;
+#pragma unroll
+      for (int b = 0; b < TB; ++b)
+        if (w >= budget[b]) frozen |= 1u << b;
+      if (frozen == ALL) break;
+      const unsigned conv = eadmm_wide_iterate(
+          p, c, frozen, w == 0 ? first : 0u, ~frozen & ALL, lres);
+#pragma unroll
+      for (int b = 0; b < TB; ++b)
+        if (!wc::bit(frozen, b)) ++k[b];
+      convd |= conv & ~frozen;
+    }
+    done = convd;
+  } else if (C > 1) {
+    // free-run: C-1 plain iterations, then one tested iteration; every
+    // lane keeps iterating until the block's lanes (one group of 8) are
+    // all done, k is recorded at check granularity, and a done lane's
+    // residuals stay at its exit
+    for (int it = 0; it < p.k_max && done != ALL;) {
+      const int n_fast = min(C - 1, p.k_max - 1 - it);
+      for (int f = 0; f < n_fast; ++f)
+        eadmm_wide_iterate(p, c, 0u, (it == 0 && f == 0) ? ALL : 0u, 0u,
+                           lres);
+      const unsigned conv = eadmm_wide_iterate(
+          p, c, 0u, (it == 0 && n_fast == 0) ? ALL : 0u, ~done & ALL, lres);
+#pragma unroll
+      for (int b = 0; b < TB; ++b)
+        if (!wc::bit(done, b)) k[b] += n_fast + 1;
+      done |= conv;
+      it += n_fast + 1;
+    }
+  } else {
+    // checked: exit tests every iteration; a converged lane freezes
+    for (int it = 0; it < p.k_max && done != ALL; ++it) {
+      const unsigned conv = eadmm_wide_iterate(
+          p, c, done, it == 0 ? ALL : 0u, ~done & ALL, lres);
+#pragma unroll
+      for (int b = 0; b < TB; ++b)
+        if (!wc::bit(done, b)) ++k[b];
+      done |= conv;
+    }
+  }
+
+  {
+    const int leaves[5] = {W_Z1, W_Z2B, W_Z3, W_LM, W_LHT};
+#pragma unroll
+    for (int h = 0; h < wc::CPT; ++h) {
+      const int j = wc::col(h, Z);
+      if (j < 0) break;
+#pragma unroll
+      for (int l = 0; l < 5; ++l)
+        wc::write_row(c.st[leaves[l]], p.out[l], Z, j, c.lane0);
+    }
+  }
+  if (tid == 0) {
+#pragma unroll
+    for (int b = 0; b < TB; ++b) {
+      p.k[c.lane0 + b] = k[b];
+      p.done[c.lane0 + b] = wc::bit(done, b) ? 1 : 0;
+#pragma unroll
+      for (int q = 0; q < 3; ++q) p.res[q][c.lane0 + b] = lres[q][b];
+    }
+  }
+}
+
+}  // namespace
+
+// Dynamic shared bytes of a block of the wide build at nd classes of
+// columns (kernels/fused_eadmm.py shared_bytes(Z, 8, nd, wide=True)
+// computes the same): dv2m, dv2t and dq3 as [Z][8], the warps' row maxima
+// and C2d as [Z][nd].
+extern "C" long fused_eadmm_wide_smem(int Z, int nd) {
+  return 4L * (3L * Z * TB + 3L * wc::WARPS * TB + static_cast<long>(Z) * nd);
+}
+
+// Launch the wide build on `stream`: the arguments of fused_eadmm_launch but
+// the clock counts and the lanes, and `state`, the blocks' global state
+// ([B / 8][9][Z][8] floats). The geometry comes from the wrapper
+// (kernels/fused_eadmm.py launch_plan with wide=True) and is checked here
+// again. Returns the CUDA error of the launch, as an int.
+extern "C" int fused_eadmm_wide_launch(
+    const float* x0b, const float* z2refb, const float* z2b0,
+    const float* z30, const float* lm0, const float* lht0, const float* c2d,
+    const float* c2td, const int* col_of, const float* m3p, const float* rm,
+    const float* rht, const float* mh, const float* mt, const float* mr,
+    const float* h1i, const float* lb, const float* ub, float* z1,
+    float* z2b, float* z3, float* lm, float* lht, int* k, int* done,
+    float* rpf, float* rz2, float* rz3, float* snap, float* state, int B,
+    int Z, int nd, int blocks, int threads, int smem, float tol, int k_max,
+    int check_every, int exact_k, void* stream) {
+  const bool exact = check_every > 1 && exact_k;
+  if (Z <= 0 || Z % 32 != 0 || Z > wc::COLS || nd < 1 || nd > Z ||
+      B % TB != 0 || blocks != B / TB || threads != wc::THREADS ||
+      smem != fused_eadmm_wide_smem(Z, nd) || smem > wc::SMEM_MAX ||
+      check_every < 1 || k_max < 1 ||
+      (B > 0 && (state == nullptr || (exact && snap == nullptr))))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (B == 0) return 0;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        fused_eadmm_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  EadmmWide p{x0b, z2refb, z2b0, z30, lm0, lht0, c2d, c2td, col_of, m3p,
+              {rm, rht, mh, mt, mr, h1i, lb, ub},
+              {z1, z2b, z3, lm, lht}, k, done, {rpf, rz2, rz3}, snap, state,
+              Z, nd, tol, k_max, check_every, exact_k};
+  fused_eadmm_wide_kernel<<<blocks, wc::THREADS, smem,
+                            static_cast<cudaStream_t>(stream)>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+#endif  // WIDE_PART

@@ -80,6 +80,7 @@
 // Padding. Pad columns carry zero rows and columns of M2, [0, 0] bounds
 // and c' = 0, so they stay exactly 0 and add nothing to the row maxima.
 
+#if !WIDE_PART
 #include <cuda_runtime.h>
 
 #include "tile_product.cuh"
@@ -432,3 +433,222 @@ extern "C" int fused_ellip_launch(
       return launch<32, true>(p, blocks, threads, smem, stream);
   }
 }
+#endif  // !WIDE_PART
+
+#if WIDE_PART
+// The wide build, a translation unit of its own (-DWIDE_PART=1;
+// kernels/_build.py compiles the narrow builds above with
+// -DWIDE_PART=0 from exactly their earlier text).
+
+#include <cuda_runtime.h>
+
+#include "wide_cols.cuh"
+
+namespace {
+
+// ---- the wide build ---------------------------------------------------------
+//
+// Past MAX_COLS columns, up to wc::COLS = 1024: fused_ellip_wide_kernel runs
+// 512 threads of two columns, t and t + 512, at 8 lanes a block, on the
+// first layout (csrc/variants/fused_ellip_parent.cu: one column a thread,
+// M2 read from L2) with each thread taking two columns (csrc/wide_cols.cuh),
+// so it gives this kernel's bits. The terminal slab, columns t0 .. t0+n-1,
+// lies in one warp of columns (t0 % 32 + n <= 32), in the first half of a
+// thread's columns or, at wide widths, the second: the warp that projects
+// the ball and maps the residuals back through pinvh is the warp of t0's
+// half, found from t0, and its sums stay shuffles in slab order. The state
+// (z, v, lam and the consumed z) lives in global memory that only its
+// thread touches; shared memory holds dq ([2][P][8], by parity) and the row
+// maxima. No refill: plain free-run drains each block, one group of 8
+// lanes.
+
+using wc::TB;
+
+// The element-wise half of the first layout's iteration for column j (the
+// thread's column of half h): the box clip, the ball on the slab, and at a
+// checked iteration the slab's differences mapped back through pinvh.
+struct EllipOp {
+  float lb[wc::CPT], ub[wc::CPT], c[wc::CPT];
+  const float* pinvh;
+  int t0, n;
+  float rho, rho_i, r_ball;
+
+  template <bool CHECK>
+  __device__ __forceinline__ void ew(const wc::Box& x, int h, int j,
+                                     unsigned frozen, float* dq_s,
+                                     float (&ap)[TB], float (&ad)[TB]) {
+    float* st_z = wc::box_leaf(x, wc::BX);
+    float* st_v = wc::box_leaf(x, wc::BA);
+    float* st_lam = wc::box_leaf(x, wc::BB);
+    const int o = j * TB;
+    const bool slab = j >= t0 && j < t0 + n;
+    const bool slab_warp = (j >> 5) == (t0 >> 5);
+    float z[TB], v[TB], lam[TB], vn[TB];
+    wc::load(z, st_z + o);
+    wc::load(v, st_v + o);
+    wc::load(lam, st_lam + o);
+    if (slab_warp) {
+      // the ball about c' on the slab: the squares of the slab's columns,
+      // broadcast in turn and added in slab order
+      float yc[TB], sq[TB], q[TB];
+#pragma unroll
+      for (int b = 0; b < TB; ++b) {
+        const float y = z[b] + rho_i * lam[b];
+        yc[b] = y - c[h];
+        sq[b] = yc[b] * yc[b];
+        q[b] = 0.0f;
+        vn[b] = fminf(fmaxf(y, lb[h]), ub[h]);
+      }
+      for (int i = 0; i < n; ++i) {
+        const int src = (t0 + i) & 31;
+#pragma unroll
+        for (int b = 0; b < TB; ++b)
+          q[b] = q[b] + __shfl_sync(0xffffffffu, sq[b], src);
+      }
+      if (slab) {
+#pragma unroll
+        for (int b = 0; b < TB; ++b) {
+          const float nrm = sqrtf(q[b]);
+          const float sc = fminf(1.0f, r_ball / fmaxf(nrm, 1e-30f));
+          vn[b] = c[h] + sc * yc[b];
+        }
+      }
+    } else {
+#pragma unroll
+      for (int b = 0; b < TB; ++b)
+        vn[b] = fminf(fmaxf(z[b] + rho_i * lam[b], lb[h]), ub[h]);
+    }
+    float dq[TB], rp[TB], rd[TB];
+#pragma unroll
+    for (int b = 0; b < TB; ++b) {
+      dq[b] = rho * ((z[b] - 2.0f * vn[b]) + v[b]);
+      rp[b] = z[b] - vn[b];
+      rd[b] = vn[b] - v[b];
+      if (!wc::bit(frozen, b)) {
+        lam[b] = lam[b] + rho * (z[b] - vn[b]);
+        v[b] = vn[b];
+      }
+    }
+    wc::store(dq_s + o, dq);
+    wc::store(st_v + o, v);
+    wc::store(st_lam + o, lam);
+    if (CHECK) {
+      if (slab_warp) {
+        // the slab's differences back to the original coordinates: column
+        // j - t0 of d_slab @ pinvh, the slab's entries broadcast in turn
+        float bp[TB], bd[TB];
+        wc::zero(bp);
+        wc::zero(bd);
+        for (int i = 0; i < n; ++i) {
+          const int src = (t0 + i) & 31;
+          const float w = slab ? __ldg(pinvh + i * n + (j - t0)) : 0.0f;
+#pragma unroll
+          for (int b = 0; b < TB; ++b) {
+            bp[b] = bp[b] + __shfl_sync(0xffffffffu, rp[b], src) * w;
+            bd[b] = bd[b] + __shfl_sync(0xffffffffu, rd[b], src) * w;
+          }
+        }
+        if (slab) {
+#pragma unroll
+          for (int b = 0; b < TB; ++b) {
+            rp[b] = bp[b];
+            rd[b] = bd[b];
+          }
+        }
+      }
+      wc::max_abs(ap, rp);
+      wc::max_abs(ad, rd);
+    }
+  }
+};
+
+__global__ void __launch_bounds__(wc::THREADS, 1)
+    fused_ellip_wide_kernel(wc::Box x, EllipOp op, const float* lb,
+                            const float* ub, const float* c) {
+  extern __shared__ __align__(16) float smem[];
+  x.dq = smem;
+  x.red = smem + 2 * x.P * TB;
+#pragma unroll
+  for (int h = 0; h < wc::CPT; ++h) {
+    const int j = wc::col(h, x.P);
+    op.lb[h] = j < 0 ? 0.0f : lb[j];
+    op.ub[h] = j < 0 ? 0.0f : ub[j];
+    op.c[h] = j < 0 ? 0.0f : c[j];
+  }
+  // rows from t0 + n on are pads (dq = 0)
+  x.r0 = 0;
+  x.r1 = op.t0 + op.n;
+  x.r2 = 0;
+  x.r3 = 0;
+  wc::box_run<8>(x, op);
+}
+
+}  // namespace
+
+// Dynamic shared bytes of a block of the wide build (kernels/fused_ellip.py
+// shared_bytes(nzp, n, wide=True) computes the same): dq as [2][nzp][8]
+// and the warps' row maxima.
+extern "C" long fused_ellip_wide_smem(int nzp) { return wc::box_smem(nzp); }
+
+// Launch the wide build on `stream`: the arguments of fused_ellip_launch
+// but the refill queue and the lanes, and `state`, the blocks' global state
+// ([B / 8][4][nzp][8] floats). The geometry comes from the wrapper
+// (kernels/fused_ellip.py launch_plan with wide=True) and is checked here
+// again. Returns the CUDA error of the launch, as an int.
+extern "C" int fused_ellip_wide_launch(
+    const float* z1, const float* v0, const float* lam0, const float* m2,
+    const float* pinvh, const float* lb, const float* ub, const float* c,
+    float* z, float* v, float* lam, int* k, int* done, float* rp, float* rd,
+    float* snap, float* state, int B, int nzp, int t0, int n, int blocks,
+    int threads, int smem, float rho, float rho_i, float r_ball,
+    float tol_p, float tol_d, int k_max, int check_every, int fixed_iters,
+    int exact_k, void* stream) {
+  const bool exact = check_every > 1 && exact_k && fixed_iters <= 0;
+  if (nzp <= 0 || nzp % 32 != 0 || nzp > wc::COLS || B % TB != 0 ||
+      blocks != B / TB || threads != wc::THREADS ||
+      smem != wc::box_smem(nzp) || check_every < 1 || k_max < 1 || n < 1 ||
+      n > 32 || t0 < 0 || t0 + n > nzp || t0 % 32 + n > 32 ||
+      (B > 0 && (state == nullptr || (exact && snap == nullptr))))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (B == 0) return 0;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        fused_ellip_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  wc::Box x{};
+  x.st = state;
+  x.m = m2;
+  x.in[0] = z1;
+  x.in[1] = v0;
+  x.in[2] = lam0;
+  x.out[0] = z;
+  x.out[1] = v;
+  x.out[2] = lam;
+  x.k = k;
+  x.done = done;
+  x.rp = rp;
+  x.rd = rd;
+  x.snap = snap;
+  x.P = nzp;
+  x.tol_p = tol_p;
+  x.tol_d = tol_d;
+  x.k_max = k_max;
+  x.check_every = check_every;
+  x.fixed_iters = fixed_iters;
+  x.exact_k = exact_k;
+  EllipOp op{};
+  op.pinvh = pinvh;
+  op.t0 = t0;
+  op.n = n;
+  op.rho = rho;
+  op.rho_i = rho_i;
+  op.r_ball = r_ball;
+  fused_ellip_wide_kernel<<<blocks, wc::THREADS, smem,
+                            static_cast<cudaStream_t>(stream)>>>(x, op, lb,
+                                                                 ub, c);
+  return static_cast<int>(cudaGetLastError());
+}
+
+#endif  // WIDE_PART

@@ -77,6 +77,7 @@
 // zero hinv and [0, 0] bounds, so they stay exactly 0 and add nothing to
 // the row maxima.
 
+#if !WIDE_PART
 #include <cuda_runtime.h>
 
 #include "tile_product.cuh"
@@ -635,3 +636,449 @@ extern "C" int fused_fista_launch(
       return launch<32>(p, blocks, threads, smem, stream);
   }
 }
+#endif  // !WIDE_PART
+
+#if WIDE_PART
+// The wide build, a translation unit of its own (-DWIDE_PART=1;
+// kernels/_build.py compiles the narrow builds above with
+// -DWIDE_PART=0 from exactly their earlier text).
+
+#include <cuda_runtime.h>
+
+#include "wide_cols.cuh"
+
+namespace {
+
+// ---- the wide build ---------------------------------------------------------
+//
+// Past MAX_COLS columns of either width, up to wc::COLS = 1024:
+// fused_fista_wide_kernel runs 512 threads, at 8 lanes a block, on the
+// first layout (csrc/variants/fused_fista_parent.cu: one column a thread,
+// G', Winv' and G read from L2) with each thread taking two columns of each
+// width, t and t + 512 (csrc/wide_cols.cuh): each product's threads cover
+// its output width (nlamp for G' and Winv', nzp for G). Shared memory holds
+// the products' inputs dz, r and dy as [columns][8] and the row maxima of
+// |r|; q, z_prev, r, y and lam live in global memory that only their
+// thread touches. The per-column sums are the first layout's, so the
+// kernel gives this kernel's bits; adaptive restart and exact-k's
+// window-minimum exit are the first layout's too. No refill.
+
+using wc::TB;
+
+struct FistaWide {
+  const float* __restrict__ q1;
+  const float* __restrict__ z0;
+  const float* __restrict__ r0;
+  const float* __restrict__ y0;
+  const float* __restrict__ lam0;
+  const float* __restrict__ g;      // [nlamp][nzp], dy @ g
+  const float* __restrict__ gt;     // [nzp][nlamp], dz @ gt
+  const float* __restrict__ winvt;  // [nlamp][nlamp], r @ winvt
+  const float* __restrict__ hinv;
+  const float* __restrict__ lb;
+  const float* __restrict__ ub;
+  float* z;
+  float* y;
+  float* lam;
+  int* k;
+  int* done;
+  float* res;
+  float* snap;   // exact-k: per lane [q | z_prev | r | y | lam]
+  float* state;  // [blocks][2 nzp + 3 nlamp][8]: q, z_prev, r, y, lam
+  int nzp, nlamp;
+  float tol;
+  int k_max, restart, check_every, fixed_iters, exact_k;
+};
+
+// Per-lane scalars, identical in every thread of the block.
+struct FistaLanes {
+  float t[TB];
+  float res[TB];
+};
+
+// What a thread knows of its columns, and where the block's vectors are.
+struct FistaCols {
+  float nhinv[wc::CPT], lb[wc::CPT], ub[wc::CPT];  // of its nzp columns
+  float* dz;   // shared: [nzp][8]    product inputs
+  float* r;    // shared: [nlamp][8]
+  float* dy;   // shared: [nlamp][8]
+  float* red;  // shared: [WARPS][8]  row maxima of |r|
+  float* q;    // global: [nzp][8]    state
+  float* zp;   // global: [nzp][8]
+  float* rs;   // global: [nlamp][8]
+  float* y;    // global: [nlamp][8]
+  float* lam;  // global: [nlamp][8]
+};
+
+__device__ __forceinline__ float fista_z_of(const FistaCols& c, int h,
+                                            float q) {
+  return fminf(fmaxf(c.nhinv[h] * q, c.lb[h]), c.ub[h]);
+}
+
+// One iteration of the thread's columns for the block's 8 lanes, as the
+// first layout's iterate. Plain (CHECKED = false): every lane takes the
+// full update. Checked: lanes in `frozen` keep everything, and a lane that
+// converges on this iteration keeps its lam, y and t. Returns the lanes
+// with res <= tol (identical in every thread of the block).
+template <bool CHECKED>
+__device__ __forceinline__ unsigned fista_wide_iterate(const FistaWide& p,
+                                                       const FistaCols& c,
+                                                       FistaLanes& ln,
+                                                       unsigned frozen) {
+  // 1. z = clip(-hinv q), dz = z - z_prev
+#pragma unroll
+  for (int h = 0; h < wc::CPT; ++h) {
+    const int j = wc::col(h, p.nzp);
+    if (j < 0) break;
+    const int o = j * TB;
+    float q[TB], zp[TB];
+    wc::load(q, c.q + o);
+    wc::load(zp, c.zp + o);
+#pragma unroll
+    for (int b = 0; b < TB; ++b) q[b] = fista_z_of(c, h, q[b]) - zp[b];
+    wc::store(c.dz + o, q);
+  }
+  __syncthreads();
+  // 2. r -= dz @ G', and its row maxima
+  {
+    float ab[TB], acc[wc::CPT][TB];
+    wc::zero(ab);
+    wc::zero(acc[0]);
+    wc::zero(acc[1]);
+    wc::product_cols<8>(c.dz, p.gt, p.nlamp, 0, p.nzp, p.nlamp, acc);
+#pragma unroll
+    for (int h = 0; h < wc::CPT; ++h) {
+      const int j = wc::col(h, p.nlamp);
+      if (j < 0) break;
+      const int o = j * TB;
+      float r[TB];
+      wc::load(r, c.rs + o);
+#pragma unroll
+      for (int b = 0; b < TB; ++b) {
+        const float rn = r[b] - acc[h][b];
+        acc[h][b] = rn;
+        ab[b] = fmaxf(ab[b], fabsf(rn));
+        if (!CHECKED || !wc::bit(frozen, b)) r[b] = rn;
+      }
+      wc::store(c.r + o, acc[h]);
+      wc::store(c.rs + o, r);
+    }
+    wc::warp_max<1>(ab, c.red, 0);
+  }
+  __syncthreads();
+  // 3. res, restart, t and the momentum coefficient of each lane
+  float coef[TB];
+  unsigned conv = 0;
+  {
+    float rs[TB];
+    wc::block_max<1>(c.red, 0, rs);
+#pragma unroll
+    for (int b = 0; b < TB; ++b) {
+      float tc = ln.t[b];
+      if (p.restart && rs[b] > ln.res[b]) tc = 1.0f;
+      const float tn = 0.5f * (1.0f + sqrtf(1.0f + 4.0f * tc * tc));
+      coef[b] = (tc - 1.0f) / tn;
+      if (rs[b] <= p.tol) conv |= 1u << b;
+      if (!CHECKED || !wc::bit(frozen, b)) ln.res[b] = rs[b];
+      if (!CHECKED || !wc::bit(conv | frozen, b)) ln.t[b] = tn;
+    }
+  }
+  //    lam' = y + r @ Winv', y' = lam' + coef (lam' - lam), dy = y' - y
+  float acc[wc::CPT][TB];
+  wc::zero(acc[0]);
+  wc::zero(acc[1]);
+  wc::product_cols<8>(c.r, p.winvt, p.nlamp, 0, p.nlamp, p.nlamp, acc);
+#pragma unroll
+  for (int h = 0; h < wc::CPT; ++h) {
+    const int j = wc::col(h, p.nlamp);
+    if (j < 0) break;
+    const int o = j * TB;
+    float y[TB], lam[TB];
+    wc::load(y, c.y + o);
+    wc::load(lam, c.lam + o);
+#pragma unroll
+    for (int b = 0; b < TB; ++b) {
+      if (CHECKED && wc::bit(conv | frozen, b)) {
+        acc[h][b] = 0.0f;
+      } else {
+        const float ln_new = y[b] + acc[h][b];
+        const float yn = ln_new + coef[b] * (ln_new - lam[b]);
+        acc[h][b] = yn - y[b];
+        y[b] = yn;
+        lam[b] = ln_new;
+      }
+    }
+    wc::store(c.dy + o, acc[h]);
+    wc::store(c.y + o, y);
+    wc::store(c.lam + o, lam);
+  }
+  __syncthreads();
+  // 4. q -= dy @ G; z_prev = z (recomputed from the q it came from)
+  wc::zero(acc[0]);
+  wc::zero(acc[1]);
+  wc::product_cols<8>(c.dy, p.g, p.nzp, 0, p.nlamp, p.nzp, acc);
+#pragma unroll
+  for (int h = 0; h < wc::CPT; ++h) {
+    const int j = wc::col(h, p.nzp);
+    if (j < 0) break;
+    const int o = j * TB;
+    float q[TB], zp[TB];
+    wc::load(q, c.q + o);
+    wc::load(zp, c.zp + o);
+#pragma unroll
+    for (int b = 0; b < TB; ++b) {
+      if (!CHECKED || !wc::bit(frozen, b)) {
+        zp[b] = fista_z_of(c, h, q[b]);
+        q[b] = q[b] - acc[h][b];
+      }
+    }
+    wc::store(c.q + o, q);
+    wc::store(c.zp + o, zp);
+  }
+  return conv;
+}
+
+// The five state vectors of the thread's columns to (TO_GLOBAL) or from
+// each lane's [q | z_prev | r | y | lam] in p.snap, for the lanes in
+// `lanes`.
+template <bool TO_GLOBAL>
+__device__ __forceinline__ void fista_wide_snapshot(const FistaWide& p,
+                                                    const FistaCols& c,
+                                                    int lane0,
+                                                    unsigned lanes) {
+  const int nzp = p.nzp, nlamp = p.nlamp, W = 2 * nzp + 3 * nlamp;
+#pragma unroll
+  for (int h = 0; h < wc::CPT; ++h) {
+    const int jz = wc::col(h, nzp), jl = wc::col(h, nlamp);
+    if (jz >= 0) {
+      wc::snap_row<TO_GLOBAL>(c.q, p.snap, W, jz, jz, lane0, lanes);
+      wc::snap_row<TO_GLOBAL>(c.zp, p.snap, W, nzp + jz, jz, lane0, lanes);
+    }
+    if (jl >= 0) {
+      wc::snap_row<TO_GLOBAL>(c.rs, p.snap, W, 2 * nzp + jl, jl, lane0,
+                              lanes);
+      wc::snap_row<TO_GLOBAL>(c.y, p.snap, W, 2 * nzp + nlamp + jl, jl,
+                              lane0, lanes);
+      wc::snap_row<TO_GLOBAL>(c.lam, p.snap, W, 2 * nzp + 2 * nlamp + jl,
+                              jl, lane0, lanes);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(wc::THREADS, 1)
+    fused_fista_wide_kernel(FistaWide p) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ float sn_t[TB], sn_res[TB];  // exact-k snapshot scalars
+  __shared__ int sn_k[TB];
+  const int nzp = p.nzp, nlamp = p.nlamp;
+  const int lane0 = blockIdx.x * TB;
+  FistaCols c;
+  c.dz = smem;
+  c.r = c.dz + nzp * TB;
+  c.dy = c.r + nlamp * TB;
+  c.red = c.dy + nlamp * TB;
+  c.q = p.state + static_cast<size_t>(blockIdx.x) * (2 * nzp + 3 * nlamp) *
+                      TB;
+  c.zp = c.q + nzp * TB;
+  c.rs = c.zp + nzp * TB;
+  c.y = c.rs + nlamp * TB;
+  c.lam = c.y + nlamp * TB;
+#pragma unroll
+  for (int h = 0; h < wc::CPT; ++h) {
+    const int j = wc::col(h, nzp);
+    c.nhinv[h] = j < 0 ? 0.0f : -p.hinv[j];
+    c.lb[h] = j < 0 ? 0.0f : p.lb[j];
+    c.ub[h] = j < 0 ? 0.0f : p.ub[j];
+    if (j < 0) continue;
+    wc::read_row(c.q, p.q1, nzp, j, lane0);
+    wc::read_row(c.zp, p.z0, nzp, j, lane0);
+  }
+#pragma unroll
+  for (int h = 0; h < wc::CPT; ++h) {
+    const int j = wc::col(h, nlamp);
+    if (j < 0) break;
+    wc::read_row(c.rs, p.r0, nlamp, j, lane0);
+    wc::read_row(c.y, p.y0, nlamp, j, lane0);
+    wc::read_row(c.lam, p.lam0, nlamp, j, lane0);
+  }
+  FistaLanes ln;
+#pragma unroll
+  for (int b = 0; b < TB; ++b) {
+    ln.t[b] = 1.0f;
+    ln.res[b] = wc::RBIG;
+  }
+  unsigned done = 0;
+  int k[TB];
+#pragma unroll
+  for (int b = 0; b < TB; ++b) k[b] = 0;
+  const int C = p.check_every;
+
+  if (p.fixed_iters > 0) {
+    // exactly fixed_iters plain iterations, no exit tests
+    for (int it = 0; it < p.fixed_iters; ++it)
+      fista_wide_iterate<false>(p, c, ln, 0u);
+#pragma unroll
+    for (int b = 0; b < TB; ++b) k[b] = p.fixed_iters;
+    done = wc::ALL;
+  } else if (C > 1 && p.exact_k) {
+    // free-run windows of C iterations; snapshot every still-active lane
+    // at each window start; a lane is done once a window's minimum
+    // residual meets tol. Windows may overshoot k_max: the replay budget
+    // cuts each lane off at exactly k_max.
+    for (int it = 0; it < p.k_max && done != wc::ALL; it += C) {
+      fista_wide_snapshot<true>(p, c, lane0, ~done & wc::ALL);
+      if (threadIdx.x == 0) {
+#pragma unroll
+        for (int b = 0; b < TB; ++b) {
+          if (wc::bit(done, b)) continue;
+          sn_t[b] = ln.t[b];
+          sn_res[b] = ln.res[b];
+          sn_k[b] = it;
+        }
+      }
+      float rmin[TB];
+#pragma unroll
+      for (int b = 0; b < TB; ++b) rmin[b] = wc::RBIG;
+      for (int f = 0; f < C; ++f) {
+        fista_wide_iterate<false>(p, c, ln, 0u);
+#pragma unroll
+        for (int b = 0; b < TB; ++b) rmin[b] = fminf(rmin[b], ln.res[b]);
+      }
+#pragma unroll
+      for (int b = 0; b < TB; ++b)
+        if (rmin[b] <= p.tol) done |= 1u << b;
+    }
+    __syncthreads();  // the snapshot scalars, written by thread 0
+    // replay each lane's last window from its snapshot with per-iteration
+    // checks: k counts on from the window start
+    fista_wide_snapshot<false>(p, c, lane0, wc::ALL);
+    int budget[TB];
+#pragma unroll
+    for (int b = 0; b < TB; ++b) {
+      ln.t[b] = sn_t[b];
+      ln.res[b] = sn_res[b];
+      k[b] = sn_k[b];
+      budget[b] = min(C, p.k_max - k[b]);
+    }
+    unsigned convd = 0;
+    for (int w = 0; w < C; ++w) {
+      unsigned frozen = convd;
+#pragma unroll
+      for (int b = 0; b < TB; ++b)
+        if (w >= budget[b]) frozen |= 1u << b;
+      if (frozen == wc::ALL) break;
+      const unsigned conv = fista_wide_iterate<true>(p, c, ln, frozen);
+#pragma unroll
+      for (int b = 0; b < TB; ++b)
+        if (!wc::bit(frozen, b)) ++k[b];
+      convd |= conv & ~frozen;
+    }
+    done = convd;
+  } else if (C > 1) {
+    // free-run: C-1 plain iterations, then one tested iteration; every
+    // lane keeps iterating until the block's lanes (one group of 8) are
+    // all done, k is recorded at check granularity, and a done lane's
+    // reported residual stays at its exit while its running one feeds the
+    // restart test
+    float rkeep[TB];
+#pragma unroll
+    for (int b = 0; b < TB; ++b) rkeep[b] = wc::RBIG;
+    for (int it = 0; it < p.k_max && done != wc::ALL;) {
+      const int n_fast = min(C - 1, p.k_max - 1 - it);
+      for (int f = 0; f < n_fast; ++f)
+        fista_wide_iterate<false>(p, c, ln, 0u);
+      const unsigned conv = fista_wide_iterate<false>(p, c, ln, 0u);
+#pragma unroll
+      for (int b = 0; b < TB; ++b) {
+        if (!wc::bit(done, b)) {
+          k[b] += n_fast + 1;
+          rkeep[b] = ln.res[b];
+        }
+      }
+      done |= conv;
+      it += n_fast + 1;
+    }
+#pragma unroll
+    for (int b = 0; b < TB; ++b) ln.res[b] = rkeep[b];
+  } else {
+    // checked: exit tests every iteration; a converged lane freezes
+    for (int it = 0; it < p.k_max && done != wc::ALL; ++it) {
+      const unsigned conv = fista_wide_iterate<true>(p, c, ln, done);
+#pragma unroll
+      for (int b = 0; b < TB; ++b)
+        if (!wc::bit(done, b)) ++k[b];
+      done |= conv;
+    }
+  }
+
+#pragma unroll
+  for (int h = 0; h < wc::CPT; ++h) {
+    const int j = wc::col(h, nzp);
+    if (j < 0) break;
+    wc::write_row(c.zp, p.z, nzp, j, lane0);
+  }
+#pragma unroll
+  for (int h = 0; h < wc::CPT; ++h) {
+    const int j = wc::col(h, nlamp);
+    if (j < 0) break;
+    wc::write_row(c.y, p.y, nlamp, j, lane0);
+    wc::write_row(c.lam, p.lam, nlamp, j, lane0);
+  }
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int b = 0; b < TB; ++b) {
+      p.k[lane0 + b] = k[b];
+      p.done[lane0 + b] = wc::bit(done, b) ? 1 : 0;
+      p.res[lane0 + b] = ln.res[b];
+    }
+  }
+}
+
+}  // namespace
+
+// Dynamic shared bytes of a block of the wide build (kernels/fused_fista.py
+// shared_bytes(nzp, nlamp, wide=True) computes the same): dz as [nzp][8],
+// r and dy as [nlamp][8], and the warps' row maxima.
+extern "C" long fused_fista_wide_smem(int nzp, int nlamp) {
+  return 4L * TB * (nzp + 2L * nlamp + wc::WARPS);
+}
+
+// Launch the wide build on `stream`: the arguments of fused_fista_launch but
+// the row extents and the lanes, and `state`, the blocks' global state
+// ([B / 8][2 nzp + 3 nlamp][8] floats). The geometry comes from the wrapper
+// (kernels/fused_fista.py launch_plan with wide=True) and is checked here
+// again. Returns the CUDA error of the launch, as an int.
+extern "C" int fused_fista_wide_launch(
+    const float* q1, const float* z0, const float* r0, const float* y0,
+    const float* lam0, const float* g, const float* gt, const float* winvt,
+    const float* hinv, const float* lb, const float* ub, float* z, float* y,
+    float* lam, int* k, int* done, float* res, float* snap, float* state,
+    int B, int nzp, int nlamp, int blocks, int threads, int smem, float tol,
+    int k_max, int restart, int check_every, int fixed_iters, int exact_k,
+    void* stream) {
+  const bool exact = check_every > 1 && exact_k && fixed_iters <= 0;
+  if (nzp <= 0 || nzp % 32 != 0 || nzp > wc::COLS || nlamp <= 0 ||
+      nlamp % 32 != 0 || nlamp > wc::COLS || B % TB != 0 ||
+      blocks != B / TB || threads != wc::THREADS ||
+      smem != fused_fista_wide_smem(nzp, nlamp) || check_every < 1 ||
+      k_max < 1 ||
+      (B > 0 && (state == nullptr || (exact && snap == nullptr))))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (B == 0) return 0;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        fused_fista_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  FistaWide p{q1,    z0,          r0,          y0,      lam0,  g,
+              gt,    winvt,       hinv,        lb,      ub,    z,
+              y,     lam,         k,           done,    res,   snap,
+              state, nzp,         nlamp,       tol,     k_max, restart,
+              check_every,        fixed_iters, exact_k};
+  fused_fista_wide_kernel<<<blocks, wc::THREADS, smem,
+                            static_cast<cudaStream_t>(stream)>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+#endif  // WIDE_PART

@@ -84,6 +84,7 @@
 // [0, 0] bounds; a pad cone slot projects a zero triple onto zero. So pad
 // state stays exactly 0 and adds nothing to the row maxima.
 
+#if !WIDE_PART
 #include <cuda_runtime.h>
 
 #include "tile_product.cuh"
@@ -518,3 +519,441 @@ extern "C" int fused_hmpc_launch(
       return launch<32, true>(p, blocks, threads, smem, stream);
   }
 }
+#endif  // !WIDE_PART
+
+#if WIDE_PART
+// The wide build, a translation unit of its own (-DWIDE_PART=1;
+// kernels/_build.py compiles the narrow builds above with
+// -DWIDE_PART=0 from exactly their earlier text).
+
+#include <cuda_runtime.h>
+
+#include "wide_cols.cuh"
+
+namespace {
+
+constexpr int MAX_G = 10;  // cones a warp (MAX_CONES_PER_WARP)
+constexpr unsigned FULL = 0xffffffffu;
+using wc::proj_ssoc;
+
+// ---- the wide build ---------------------------------------------------------
+//
+// Past MAX_COLS columns of either width, up to wc::COLS = 1024:
+// fused_hmpc_wide_kernel runs 512 threads, at 8 lanes a block, on the first
+// layout (csrc/variants/fused_hmpc_parent.cu: one column a thread, CT and MC
+// read from L2) with each thread taking two columns of each width, t and
+// t + 512 (csrc/wide_cols.cuh): s columns t and t + 512 in czd's product
+// and the element-wise half, z columns t and t + 512 in MC's product. The
+// two widths may pass 512 at different N: each product's threads cover its
+// own width. The cones keep their layout, whole warps from cone0, and a
+// warp of cones (32 columns) lies in one half of a thread's s columns,
+// whose 32 threads run its shuffles together. Shared memory holds what
+// every thread reads: the prepared z (czd's input) and w (MC's input) as
+// [columns][8], and the row maxima; the consumed z, s and lam live in
+// global memory that only their thread touches. So the per-column sums are
+// the first layout's and the kernel gives this kernel's bits. No refill:
+// plain free-run drains each block, one group of 8 lanes.
+
+using wc::TB;
+
+struct HmpcWide {
+  const float* __restrict__ z1;
+  const float* __restrict__ s0;
+  const float* __restrict__ lam0;
+  const float* __restrict__ ct;  // [dim_p][ns_p], czd = z @ ct - d
+  const float* __restrict__ mc;  // [ns_p][dim_p], z += w @ mc
+  const float* __restrict__ d;
+  const float* __restrict__ lb;
+  const float* __restrict__ ub;
+  float* z;
+  float* s;
+  float* lam;
+  int* k;
+  int* done;
+  float* rp;
+  float* rd;
+  float* snap;   // exact-k: per lane [z (dim_p) | s (ns_p) | lam (ns_p)]
+  float* state;  // [blocks][dim_p + 2 ns_p][8]: the consumed z, s, lam
+  int dim_p, ns_p, cone0, cone_g, use_soc;
+  float rho, rho_i, tol_p, tol_d;
+  int k_max, check_every, exact_k;
+};
+
+// What a thread knows of its s columns (h = 0, 1) and of the block.
+struct HmpcCols {
+  float d[wc::CPT], lb[wc::CPT], ub[wc::CPT];
+  int lo[wc::CPT], hi[wc::CPT];  // the rows of CT column j that can be
+                                 // nonzero
+  int box_end, s_end;            // MC rows read: [0, box_end), [cone0, s_end)
+  float* zn;                     // shared: [dim_p][8], the prepared z
+  float* w;                      // shared: [ns_p][8]
+  float* red;                    // shared: [WARPS][2][8]
+  float* zc;                     // global: [dim_p][8], the consumed z
+  float* sv;                     // global: [ns_p][8]
+  float* lam;                    // global: [ns_p][8]
+};
+
+// One iteration of the thread's columns for the block's 8 lanes, as the
+// first layout's iterate: lanes in `frozen` keep all their state; with
+// CHECK, returns the lanes whose residuals meet tol, and thread 0 records
+// the residuals of the lanes in `rmask` in lres.
+template <bool CHECK>
+__device__ __forceinline__ unsigned hmpc_wide_iterate(
+    const HmpcWide& p, const HmpcCols& c, unsigned frozen, unsigned rmask,
+    float (&lres)[2][TB]) {
+  float ap[TB], ad[TB];
+  wc::zero(ap);
+  wc::zero(ad);
+#pragma unroll
+  for (int h = 0; h < wc::CPT; ++h) {
+    const int j = wc::col(h, p.ns_p);
+    if (j < 0) break;
+    const int o = j * TB;
+    const int lane = j & 31;
+    const bool cone_warp = j >= p.cone0;
+    const bool cone = cone_warp && lane < 3 * p.cone_g;
+    const int seg = lane / p.cone_g, src = lane % p.cone_g;
+    float czd[TB], y[TB], sn[TB];
+    wc::zero(czd);
+    wc::product<8>(c.zn, p.ct, p.ns_p, c.lo[h], c.hi[h], j, czd);
+    {
+      float lam[TB];
+      wc::load(lam, c.lam + o);
+#pragma unroll
+      for (int b = 0; b < TB; ++b) {
+        czd[b] = czd[b] - c.d[h];
+        y[b] = -czd[b] - p.rho_i * lam[b];
+      }
+    }
+    if (cone_warp) {
+#pragma unroll
+      for (int b = 0; b < TB; ++b) {
+        float y0 = __shfl_sync(FULL, y[b], src);
+        float y1 = __shfl_sync(FULL, y[b], src + p.cone_g);
+        float y2 = __shfl_sync(FULL, y[b], src + 2 * p.cone_g);
+        if (p.use_soc) {
+          proj_ssoc(y0, y1, y2, 1.0f, 0.0f);
+        } else {
+          proj_ssoc(y0, y1, y2, 1.0f, c.lb[h]);
+          proj_ssoc(y0, y1, y2, -1.0f, c.ub[h]);
+        }
+        const float v = seg == 0 ? y0 : (seg == 1 ? y1 : y2);
+        sn[b] = cone ? v : fminf(fmaxf(y[b], c.lb[h]), c.ub[h]);
+      }
+    } else {
+#pragma unroll
+      for (int b = 0; b < TB; ++b)
+        sn[b] = fminf(fmaxf(y[b], c.lb[h]), c.ub[h]);
+    }
+    float sv[TB], lam[TB], w[TB], rp[TB], rd[TB];
+    wc::load(sv, c.sv + o);
+    wc::load(lam, c.lam + o);
+#pragma unroll
+    for (int b = 0; b < TB; ++b) {
+      const float resid = czd[b] + sn[b];
+      const float ds = sn[b] - sv[b];
+      w[b] = p.rho * ds + p.rho * resid;
+      rp[b] = resid;
+      rd[b] = ds;
+      if (!wc::bit(frozen, b)) {
+        lam[b] = lam[b] + p.rho * resid;
+        sv[b] = sn[b];
+      }
+    }
+    wc::store(c.w + o, w);
+    wc::store(c.sv + o, sv);
+    wc::store(c.lam + o, lam);
+    if (CHECK) {
+      wc::max_abs(ap, rp);
+      wc::max_abs(ad, rd);
+    }
+  }
+  if (CHECK) {
+    wc::warp_max<2>(ap, c.red, 0);
+    wc::warp_max<2>(ad, c.red, 1);
+  }
+  __syncthreads();
+  float acc[wc::CPT][TB];
+  wc::zero(acc[0]);
+  wc::zero(acc[1]);
+  wc::product_cols<8>(c.w, p.mc, p.dim_p, 0, c.box_end, p.dim_p, acc);
+  wc::product_cols<8>(c.w, p.mc, p.dim_p, p.cone0, c.s_end, p.dim_p, acc);
+#pragma unroll
+  for (int h = 0; h < wc::CPT; ++h) {
+    const int j = wc::col(h, p.dim_p);
+    if (j < 0) break;
+    const int o = j * TB;
+    float zn[TB], zc[TB];
+    wc::load(zn, c.zn + o);
+    wc::load(zc, c.zc + o);
+#pragma unroll
+    for (int b = 0; b < TB; ++b) {
+      if (!wc::bit(frozen, b)) {
+        zc[b] = zn[b];
+        zn[b] = zn[b] + acc[h][b];
+      }
+    }
+    wc::store(c.zn + o, zn);
+    wc::store(c.zc + o, zc);
+  }
+  unsigned conv = 0;
+  if (CHECK) {
+    float rs[2][TB];
+    wc::block_max<2>(c.red, 0, rs[0]);
+    wc::block_max<2>(c.red, 1, rs[1]);
+#pragma unroll
+    for (int b = 0; b < TB; ++b) {
+      if (rs[0][b] <= p.tol_p && rs[1][b] <= p.tol_d) conv |= 1u << b;
+      if (threadIdx.x == 0 && wc::bit(rmask, b)) {
+        lres[0][b] = rs[0][b];
+        lres[1][b] = rs[1][b];
+      }
+    }
+  }
+  __syncthreads();
+  return conv;
+}
+
+// The prepared z, s and lam of the thread's columns to (TO_GLOBAL) or from
+// each lane's [z | s | lam] in p.snap, for the lanes in `lanes`.
+template <bool TO_GLOBAL>
+__device__ __forceinline__ void hmpc_wide_snapshot(const HmpcWide& p,
+                                                   const HmpcCols& c,
+                                                   int lane0,
+                                                   unsigned lanes) {
+  const int W = p.dim_p + 2 * p.ns_p;
+#pragma unroll
+  for (int h = 0; h < wc::CPT; ++h) {
+    const int jz = wc::col(h, p.dim_p), js = wc::col(h, p.ns_p);
+    if (jz >= 0) wc::snap_row<TO_GLOBAL>(c.zn, p.snap, W, jz, jz, lane0,
+                                         lanes);
+    if (js >= 0) {
+      wc::snap_row<TO_GLOBAL>(c.sv, p.snap, W, p.dim_p + js, js, lane0,
+                              lanes);
+      wc::snap_row<TO_GLOBAL>(c.lam, p.snap, W, p.dim_p + p.ns_p + js, js,
+                              lane0, lanes);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(wc::THREADS, 1)
+    fused_hmpc_wide_kernel(HmpcWide p) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ int sn_k[TB];       // exact-k: each lane's window start
+  __shared__ float lres[2][TB];  // thread 0's residuals of each lane
+  __shared__ int bounds[2];      // box_end, s_end
+  const int dim_p = p.dim_p, ns_p = p.ns_p;
+  const int lane0 = blockIdx.x * TB;
+  HmpcCols c;
+  c.zn = smem;
+  c.w = c.zn + dim_p * TB;
+  c.red = c.w + ns_p * TB;
+  c.zc = p.state + static_cast<size_t>(blockIdx.x) * (dim_p + 2 * ns_p) * TB;
+  c.sv = c.zc + dim_p * TB;
+  c.lam = c.sv + ns_p * TB;
+  if (threadIdx.x == 0) {
+    bounds[0] = 0;
+    bounds[1] = p.cone0;
+#pragma unroll
+    for (int b = 0; b < TB; ++b) {
+      lres[0][b] = wc::RBIG;
+      lres[1][b] = wc::RBIG;
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int h = 0; h < wc::CPT; ++h) {
+    const int j = wc::col(h, ns_p);
+    c.d[h] = j < 0 ? 0.0f : p.d[j];
+    c.lb[h] = j < 0 ? 0.0f : p.lb[j];
+    c.ub[h] = j < 0 ? 0.0f : p.ub[j];
+    c.lo[h] = 0;
+    c.hi[h] = 0;
+    if (j < 0) continue;
+    // the first and last nonzero of CT column j
+    for (int i = 0; i < dim_p; ++i) {
+      if (p.ct[static_cast<size_t>(i) * ns_p + j] != 0.0f) {
+        if (c.hi[h] == 0) c.lo[h] = i;
+        c.hi[h] = i + 1;
+      }
+    }
+    if (c.hi[h] > c.lo[h]) atomicMax(&bounds[j < p.cone0 ? 0 : 1], j + 1);
+  }
+#pragma unroll
+  for (int h = 0; h < wc::CPT; ++h) {
+    const int j = wc::col(h, dim_p);
+    if (j < 0) break;
+    wc::read_row(c.zn, p.z1, dim_p, j, lane0);
+    wc::read_row(c.zc, p.z1, dim_p, j, lane0);
+  }
+#pragma unroll
+  for (int h = 0; h < wc::CPT; ++h) {
+    const int j = wc::col(h, ns_p);
+    if (j < 0) break;
+    wc::read_row(c.sv, p.s0, ns_p, j, lane0);
+    wc::read_row(c.lam, p.lam0, ns_p, j, lane0);
+  }
+  __syncthreads();
+  c.box_end = bounds[0];
+  c.s_end = bounds[1];
+  unsigned done = 0;
+  int k[TB];
+#pragma unroll
+  for (int b = 0; b < TB; ++b) k[b] = 0;
+  const int C = p.check_every;
+  const float* zout = c.zc;  // the z written out: the consumed z ...
+
+  if (C > 1 && p.exact_k) {
+    // free-run windows of C iterations; snapshot every still-active lane
+    // at each window start, so the window a lane converges in can be
+    // replayed with per-iteration checks once the block has drained.
+    // Windows may overshoot k_max: the replay budget cuts each lane off at
+    // exactly k_max.
+    for (int it = 0; it < p.k_max && done != wc::ALL; it += C) {
+      hmpc_wide_snapshot<true>(p, c, lane0, ~done & wc::ALL);
+      if (threadIdx.x == 0) {
+#pragma unroll
+        for (int b = 0; b < TB; ++b)
+          if (!wc::bit(done, b)) sn_k[b] = it;
+      }
+      for (int f = 0; f < C - 1; ++f)
+        hmpc_wide_iterate<false>(p, c, 0u, 0u, lres);
+      done |= hmpc_wide_iterate<true>(p, c, 0u, 0u, lres);
+    }
+    // replay each lane's last window from its snapshot with per-iteration
+    // checks: k counts on from the window start (the last iteration's
+    // closing barrier ordered thread 0's window starts)
+    hmpc_wide_snapshot<false>(p, c, lane0, wc::ALL);
+#pragma unroll
+    for (int h = 0; h < wc::CPT; ++h) {
+      const int j = wc::col(h, dim_p);
+      if (j < 0) break;
+      float z[TB];
+      wc::load(z, c.zn + j * TB);
+      wc::store(c.zc + j * TB, z);
+    }
+    __syncthreads();
+    int budget[TB];
+#pragma unroll
+    for (int b = 0; b < TB; ++b) {
+      k[b] = sn_k[b];
+      budget[b] = min(C, p.k_max - k[b]);
+    }
+    unsigned convd = 0;
+    for (int w = 0; w < C; ++w) {
+      unsigned frozen = convd;
+#pragma unroll
+      for (int b = 0; b < TB; ++b)
+        if (w >= budget[b]) frozen |= 1u << b;
+      if (frozen == wc::ALL) break;
+      const unsigned conv = hmpc_wide_iterate<true>(p, c, frozen,
+                                                    ~frozen & wc::ALL, lres);
+#pragma unroll
+      for (int b = 0; b < TB; ++b)
+        if (!wc::bit(frozen, b)) ++k[b];
+      convd |= conv & ~frozen;
+    }
+    done = convd;
+  } else if (C > 1) {
+    // free-run: C-1 plain iterations, then one checked iteration; every
+    // lane keeps iterating until the block's lanes (one group of 8) are
+    // all done, k is recorded at check granularity, and a done lane's
+    // residuals stay at its exit
+    for (int it = 0; it < p.k_max && done != wc::ALL;) {
+      const int n_fast = min(C - 1, p.k_max - 1 - it);
+      for (int f = 0; f < n_fast; ++f)
+        hmpc_wide_iterate<false>(p, c, 0u, 0u, lres);
+      const unsigned conv =
+          hmpc_wide_iterate<true>(p, c, 0u, ~done & wc::ALL, lres);
+#pragma unroll
+      for (int b = 0; b < TB; ++b)
+        if (!wc::bit(done, b)) k[b] += n_fast + 1;
+      done |= conv;
+      it += n_fast + 1;
+    }
+    zout = c.zn;  // ... but the prepared one in free-run
+  } else {
+    // checked: exit tests every iteration; a converged lane freezes and
+    // keeps the z it consumed at exit
+    for (int it = 0; it < p.k_max && done != wc::ALL; ++it) {
+      const unsigned conv =
+          hmpc_wide_iterate<true>(p, c, done, ~done & wc::ALL, lres);
+#pragma unroll
+      for (int b = 0; b < TB; ++b)
+        if (!wc::bit(done, b)) ++k[b];
+      done |= conv;
+    }
+  }
+
+#pragma unroll
+  for (int h = 0; h < wc::CPT; ++h) {
+    const int j = wc::col(h, dim_p);
+    if (j < 0) break;
+    wc::write_row(zout, p.z, dim_p, j, lane0);
+  }
+#pragma unroll
+  for (int h = 0; h < wc::CPT; ++h) {
+    const int j = wc::col(h, ns_p);
+    if (j < 0) break;
+    wc::write_row(c.sv, p.s, ns_p, j, lane0);
+    wc::write_row(c.lam, p.lam, ns_p, j, lane0);
+  }
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int b = 0; b < TB; ++b) {
+      p.k[lane0 + b] = k[b];
+      p.done[lane0 + b] = wc::bit(done, b) ? 1 : 0;
+      p.rp[lane0 + b] = lres[0][b];
+      p.rd[lane0 + b] = lres[1][b];
+    }
+  }
+}
+
+}  // namespace
+
+// Dynamic shared bytes of a block of the wide build (kernels/fused_hmpc.py
+// shared_bytes(dim_p, ns_p, wide=True) computes the same): the prepared z
+// as [dim_p][8], w as [ns_p][8] and the warps' row maxima.
+extern "C" long fused_hmpc_wide_smem(int dim_p, int ns_p) {
+  return 4L * TB * (dim_p + ns_p + 2L * wc::WARPS);
+}
+
+// Launch the wide build on `stream`: the arguments of fused_hmpc_launch but
+// the refill queue and the lanes, and `state`, the blocks' global state
+// ([B / 8][dim_p + 2 ns_p][8] floats). The geometry comes from the wrapper
+// (kernels/fused_hmpc.py launch_plan with wide=True) and is checked here
+// again. Returns the CUDA error of the launch, as an int.
+extern "C" int fused_hmpc_wide_launch(
+    const float* z1, const float* s0, const float* lam0, const float* ct,
+    const float* mc, const float* d, const float* lb, const float* ub,
+    float* z, float* s, float* lam, int* k, int* done, float* rp, float* rd,
+    float* snap, float* state, int B, int dim_p, int ns_p, int cone0,
+    int cone_g, int use_soc, int blocks, int threads, int smem, float rho,
+    float rho_i, float tol_p, float tol_d, int k_max, int check_every,
+    int exact_k, void* stream) {
+  const bool exact = check_every > 1 && exact_k;
+  if (dim_p <= 0 || dim_p % 32 != 0 || dim_p > wc::COLS || ns_p <= 0 ||
+      ns_p % 32 != 0 || ns_p > wc::COLS || cone0 < 0 || cone0 % 32 != 0 ||
+      cone0 >= ns_p || cone_g < 1 || cone_g > MAX_G || B % TB != 0 ||
+      blocks != B / TB || threads != wc::THREADS ||
+      smem != fused_hmpc_wide_smem(dim_p, ns_p) || check_every < 1 ||
+      k_max < 1 ||
+      (B > 0 && (state == nullptr || (exact && snap == nullptr))))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (B == 0) return 0;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        fused_hmpc_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  HmpcWide p{z1,    s0,    lam0,  ct,     mc,      d,     lb,    ub,
+             z,     s,     lam,   k,      done,    rp,    rd,    snap,
+             state, dim_p, ns_p,  cone0,  cone_g,  use_soc, rho, rho_i,
+             tol_p, tol_d, k_max, check_every, exact_k};
+  fused_hmpc_wide_kernel<<<blocks, wc::THREADS, smem,
+                           static_cast<cudaStream_t>(stream)>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+#endif  // WIDE_PART

@@ -77,6 +77,7 @@
 // the z slab and iscale = 0, so they stay exactly 0 and add nothing to the
 // row maxima.
 
+#if !WIDE_PART
 #include <cuda_runtime.h>
 
 #include "tile_product.cuh"
@@ -446,3 +447,202 @@ extern "C" int fused_soc_launch(
       return launch<32, true>(p, blocks, threads, smem, stream);
   }
 }
+#endif  // !WIDE_PART
+
+#if WIDE_PART
+// The wide build, a translation unit of its own (-DWIDE_PART=1;
+// kernels/_build.py compiles the narrow builds above with
+// -DWIDE_PART=0 from exactly their earlier text).
+
+#include <cuda_runtime.h>
+
+#include "wide_cols.cuh"
+
+namespace {
+
+constexpr unsigned FULL = 0xffffffffu;
+
+// ---- the wide build ---------------------------------------------------------
+//
+// Past MAX_COLS columns, up to wc::COLS = 1024: fused_soc_wide_kernel runs
+// 512 threads of two columns, t and t + 512, at 8 lanes a block, on the
+// first layout (csrc/variants/fused_soc_parent.cu: one column a thread, M1'
+// read from L2) with each thread taking two columns (csrc/wide_cols.cuh),
+// so it gives this kernel's bits. The s slab is the last warp of columns,
+// P - 32 .. P - 1: past 512 columns threads 480-511 own it as their second
+// column, and its cone's sums stay shuffles within that warp, the squares
+// added in column order. The state (aux, zs, lm and the consumed aux) lives
+// in global memory that only its thread touches; shared memory holds dq
+// ([2][P][8], by parity) and the row maxima. No refill: plain free-run
+// drains each block, one group of 8 lanes.
+
+using wc::TB;
+
+// The element-wise half of the first layout's iteration for column j (the
+// thread's column of half h): the clip on the z slab, the SOC on the s slab.
+struct SocOp {
+  float lb[wc::CPT], ub[wc::CPT], scale[wc::CPT], iscale[wc::CPT];
+  int dim_p, n_s;
+
+  template <bool CHECK>
+  __device__ __forceinline__ void ew(const wc::Box& x, int h, int j,
+                                     unsigned frozen, float* dq_s,
+                                     float (&ap)[TB], float (&ad)[TB]) {
+    float* st_aux = wc::box_leaf(x, wc::BX);
+    float* st_zs = wc::box_leaf(x, wc::BA);
+    float* st_lm = wc::box_leaf(x, wc::BB);
+    const int o = j * TB;
+    float aux[TB], zs[TB], lm[TB], zn[TB];
+    wc::load(aux, st_aux + o);
+    wc::load(zs, st_zs + o);
+    wc::load(lm, st_lm + o);
+    if (j < dim_p) {
+#pragma unroll
+      for (int b = 0; b < TB; ++b)
+        zn[b] = fminf(fmaxf(aux[b] + iscale[h] * lm[b], lb[h]), ub[h]);
+    } else {
+      // the s slab, one warp: SOC over [s0 | tail]; the squares of the
+      // cone's n_s entries broadcast in turn and added in column order
+      float w[TB], sq[TB], ss[TB];
+#pragma unroll
+      for (int b = 0; b < TB; ++b) {
+        w[b] = aux[b] + iscale[h] * lm[b];
+        sq[b] = w[b] * w[b];
+        ss[b] = 0.0f;
+      }
+      for (int i = 0; i < n_s; ++i) {
+#pragma unroll
+        for (int b = 0; b < TB; ++b)
+          ss[b] = ss[b] + __shfl_sync(FULL, sq[b], i);
+      }
+#pragma unroll
+      for (int b = 0; b < TB; ++b) {
+        const float s0 = __shfl_sync(FULL, w[b], 0);
+        const float nrm = sqrtf(fmaxf(ss[b] - s0 * s0, 0.0f));
+        const bool inside = nrm <= s0;
+        const bool apex = !inside && nrm <= -s0;
+        const float coef = 0.5f * (s0 + nrm);
+        if (j == dim_p)
+          zn[b] = inside ? s0 : (apex ? 0.0f : coef);
+        else
+          zn[b] = inside ? w[b]
+                         : (apex ? 0.0f : w[b] * (coef / fmaxf(nrm, 1e-30f)));
+      }
+    }
+    float dq[TB];
+#pragma unroll
+    for (int b = 0; b < TB; ++b) {
+      const float lmn = lm[b] + scale[h] * (aux[b] - zn[b]);
+      const float dd = zn[b] - zs[b];
+      dq[b] = (lmn - lm[b]) - scale[h] * dd;
+      if (CHECK) {
+        ap[b] = fmaxf(ap[b], fabsf(aux[b] - zn[b]));
+        ad[b] = fmaxf(ad[b], fabsf(dd));
+      }
+      if (!wc::bit(frozen, b)) {
+        lm[b] = lmn;
+        zs[b] = zn[b];
+      }
+    }
+    wc::store(dq_s + o, dq);
+    wc::store(st_zs + o, zs);
+    wc::store(st_lm + o, lm);
+  }
+};
+
+__global__ void __launch_bounds__(wc::THREADS, 1)
+    fused_soc_wide_kernel(wc::Box x, SocOp op, const float* lb,
+                          const float* ub, const float* scale,
+                          const float* iscale) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ int bounds[2];  // z_end, s_end
+  const int dim_p = op.dim_p;
+  x.dq = smem;
+  x.red = smem + 2 * x.P * TB;
+  if (threadIdx.x == 0) {
+    bounds[0] = 0;
+    bounds[1] = dim_p;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int h = 0; h < wc::CPT; ++h) {
+    const int j = wc::col(h, x.P);
+    op.lb[h] = j >= 0 && j < dim_p ? lb[j] : 0.0f;
+    op.ub[h] = j >= 0 && j < dim_p ? ub[j] : 0.0f;
+    op.scale[h] = j < 0 ? 0.0f : scale[j];
+    op.iscale[h] = j < 0 ? 0.0f : iscale[j];
+    if (j >= 0 && op.iscale[h] != 0.0f)
+      atomicMax(&bounds[j < dim_p ? 0 : 1], j + 1);
+  }
+  __syncthreads();
+  x.r0 = 0;
+  x.r1 = bounds[0];
+  x.r2 = dim_p;
+  x.r3 = bounds[1];
+  op.n_s = bounds[1] - dim_p;
+  wc::box_run<8>(x, op);
+}
+
+}  // namespace
+
+// Dynamic shared bytes of a block of the wide build (kernels/fused_soc.py
+// shared_bytes(P, wide=True) computes the same): dq as [2][P][8] and the
+// warps' row maxima.
+extern "C" long fused_soc_wide_smem(int P) { return wc::box_smem(P); }
+
+// Launch the wide build on `stream`: the arguments of fused_soc_launch but
+// the refill queue and the lanes, and `state`, the blocks' global state
+// ([B / 8][4][P][8] floats). The geometry comes from the wrapper
+// (kernels/fused_soc.py launch_plan with wide=True) and is checked here
+// again. Returns the CUDA error of the launch, as an int.
+extern "C" int fused_soc_wide_launch(
+    const float* aux1, const float* zs0, const float* lm0, const float* m1p,
+    const float* lb, const float* ub, const float* scale,
+    const float* iscale, float* zs, float* lm, float* aux, int* k,
+    int* done, float* rp, float* rd, float* snap, float* state, int B,
+    int P, int dim_p, int blocks, int threads, int smem, float tol_p,
+    float tol_d, int k_max, int check_every, int exact_k, void* stream) {
+  const bool exact = check_every > 1 && exact_k;
+  if (P <= 0 || P % 32 != 0 || P > wc::COLS || dim_p % 32 != 0 ||
+      P - dim_p != 32 || B % TB != 0 || blocks != B / TB ||
+      threads != wc::THREADS || smem != wc::box_smem(P) ||
+      check_every < 1 || k_max < 1 ||
+      (B > 0 && (state == nullptr || (exact && snap == nullptr))))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (B == 0) return 0;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        fused_soc_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  wc::Box x{};
+  x.st = state;
+  x.m = m1p;
+  x.in[0] = aux1;
+  x.in[1] = zs0;
+  x.in[2] = lm0;
+  x.out[0] = aux;
+  x.out[1] = zs;
+  x.out[2] = lm;
+  x.k = k;
+  x.done = done;
+  x.rp = rp;
+  x.rd = rd;
+  x.snap = snap;
+  x.P = P;
+  x.tol_p = tol_p;
+  x.tol_d = tol_d;
+  x.k_max = k_max;
+  x.check_every = check_every;
+  x.fixed_iters = 0;
+  x.exact_k = exact_k;
+  SocOp op{};
+  op.dim_p = dim_p;
+  fused_soc_wide_kernel<<<blocks, wc::THREADS, smem,
+                          static_cast<cudaStream_t>(stream)>>>(
+      x, op, lb, ub, scale, iscale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+#endif  // WIDE_PART

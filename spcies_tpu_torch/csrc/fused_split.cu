@@ -74,6 +74,7 @@
 // and iscale = 0, so they stay exactly 0 (a pad cone slot projects a zero
 // triple onto zero) and add nothing to the row maxima.
 
+#if !WIDE_PART
 #include <cuda_runtime.h>
 
 namespace {
@@ -554,3 +555,209 @@ extern "C" int fused_split_launch(
   kernel<<<blocks, threads, smem, static_cast<cudaStream_t>(stream)>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
+#endif  // !WIDE_PART
+
+#if WIDE_PART
+// The wide build, a translation unit of its own (-DWIDE_PART=1;
+// kernels/_build.py compiles the narrow builds above with
+// -DWIDE_PART=0 from exactly their earlier text).
+
+#include <cuda_runtime.h>
+
+#include "wide_cols.cuh"
+
+namespace {
+
+constexpr int TB = wc::TB;  // lanes per block
+constexpr int MAX_G = 10;   // cones a warp (MAX_CONES_PER_WARP)
+constexpr int UNROLL = 8;   // L2 loads in flight per thread
+constexpr unsigned FULL = 0xffffffffu;
+using wc::bit;
+using wc::proj_ssoc;
+
+// ---- the wide build ---------------------------------------------------------
+//
+// Past MAX_COLS columns, up to wc::COLS = 1024: fused_split_wide_kernel runs
+// 512 threads of two columns, t and t + 512, at 8 lanes a block
+// (csrc/wide_cols.cuh), with this kernel's per-column arithmetic (SplitOp
+// below is iterate's element-wise half) and its modes, so it gives this
+// kernel's bits. The cones keep their layout: they lie in whole warps from
+// cone0, and a warp of cones, 32 columns, lies in one half of a thread's
+// columns, whose 32 threads run its shuffles together. The state (aux, zs,
+// lm and the consumed aux) lives in global memory that only its thread
+// touches; shared memory holds dq ([2][P][8], by parity) and the row maxima.
+// The exact-k snapshot and replay are this kernel's, over the same three
+// leaves.
+
+// iterate's element-wise half for column j (the thread's column of half h).
+struct SplitOp {
+  float lb[wc::CPT], ub[wc::CPT], scale[wc::CPT], iscale[wc::CPT];
+  int cone0, cone_g, symmetric, use_soc;
+  float alpha;
+
+  template <bool CHECK>
+  __device__ __forceinline__ void ew(const wc::Box& x, int h, int j,
+                                     unsigned frozen, float* dq_s,
+                                     float (&ap)[TB], float (&ad)[TB]) {
+    float* st_aux = wc::box_leaf(x, wc::BX);
+    float* st_zs = wc::box_leaf(x, wc::BA);
+    float* st_lm = wc::box_leaf(x, wc::BB);
+    const int o = j * TB;
+    const int lane = j & 31;
+    const bool cone_warp = j >= cone0;
+    const bool cone = cone_warp && lane < 3 * cone_g;
+    const int seg = lane / cone_g, src = lane % cone_g;
+    float aux[TB], zs[TB], lm[TB], lh[TB], zn[TB];
+    wc::load(aux, st_aux + o);
+    wc::load(zs, st_zs + o);
+    wc::load(lm, st_lm + o);
+    const float as = alpha * scale[h];
+    {
+      float w[TB];
+#pragma unroll
+      for (int b = 0; b < TB; ++b) {
+        lh[b] = symmetric ? lm[b] + as * (aux[b] - zs[b]) : lm[b];
+        w[b] = aux[b] + iscale[h] * lh[b];
+      }
+      if (cone_warp) {
+#pragma unroll
+        for (int b = 0; b < TB; ++b) {
+          float y0 = __shfl_sync(FULL, w[b], src);
+          float y1 = __shfl_sync(FULL, w[b], src + cone_g);
+          float y2 = __shfl_sync(FULL, w[b], src + 2 * cone_g);
+          if (use_soc) {
+            proj_ssoc(y0, y1, y2, 1.0f, 0.0f);
+          } else {
+            proj_ssoc(y0, y1, y2, 1.0f, lb[h]);
+            proj_ssoc(y0, y1, y2, -1.0f, ub[h]);
+          }
+          const float v = seg == 0 ? y0 : (seg == 1 ? y1 : y2);
+          zn[b] = cone ? v : fminf(fmaxf(w[b], lb[h]), ub[h]);
+        }
+      } else {
+#pragma unroll
+        for (int b = 0; b < TB; ++b)
+          zn[b] = fminf(fmaxf(w[b], lb[h]), ub[h]);
+      }
+    }
+    float dq[TB];
+#pragma unroll
+    for (int b = 0; b < TB; ++b) {
+      const float lmn = lh[b] + as * (aux[b] - zn[b]);
+      const float dd = zn[b] - zs[b];
+      dq[b] = (lmn - lm[b]) - scale[h] * dd;
+      if (CHECK) {
+        ap[b] = fmaxf(ap[b], fabsf(aux[b] - zn[b]));
+        ad[b] = fmaxf(ad[b], fabsf(dd));
+      }
+      if (!bit(frozen, b)) {
+        lm[b] = lmn;
+        zs[b] = zn[b];
+      }
+    }
+    wc::store(dq_s + o, dq);
+    wc::store(st_zs + o, zs);
+    wc::store(st_lm + o, lm);
+  }
+};
+
+__global__ void __launch_bounds__(wc::THREADS, 1)
+    fused_split_wide_kernel(wc::Box x, SplitOp op, const float* lb,
+                            const float* ub, const float* scale,
+                            const float* iscale, int dim_p) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ int bounds[2];  // z_end, s_end
+  x.dq = smem;
+  x.red = smem + 2 * x.P * TB;
+  if (threadIdx.x == 0) {
+    bounds[0] = 0;
+    bounds[1] = dim_p;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int h = 0; h < wc::CPT; ++h) {
+    const int j = wc::col(h, x.P);
+    op.lb[h] = j < 0 ? 0.0f : lb[j];
+    op.ub[h] = j < 0 ? 0.0f : ub[j];
+    op.scale[h] = j < 0 ? 0.0f : scale[j];
+    op.iscale[h] = j < 0 ? 0.0f : iscale[j];
+    if (j >= 0 && op.iscale[h] != 0.0f)
+      atomicMax(&bounds[j < dim_p ? 0 : 1], j + 1);
+  }
+  __syncthreads();
+  x.r0 = 0;
+  x.r1 = bounds[0];
+  x.r2 = dim_p;
+  x.r3 = bounds[1];
+  wc::box_run<UNROLL>(x, op);
+}
+
+}  // namespace
+
+// Dynamic shared bytes of a block of the wide build (kernels/fused_split.py
+// shared_bytes(P, wide=True) computes the same): dq as [2][P][8] and the
+// warps' row maxima.
+extern "C" long fused_split_wide_smem(int P) { return wc::box_smem(P); }
+
+// Launch the wide build on `stream`: the arguments of fused_split_launch
+// and `state`, the blocks' global state ([B / 8][4][P][8] floats). The
+// geometry comes from the wrapper (kernels/fused_split.py launch_plan with
+// wide=True) and is checked here again. Returns the CUDA error of the
+// launch, as an int.
+extern "C" int fused_split_wide_launch(
+    const float* aux1, const float* zs0, const float* lm0, const float* m1p,
+    const float* lb, const float* ub, const float* scale,
+    const float* iscale, float* zs, float* lm, float* aux, int* k,
+    int* done, float* rp, float* rd, float* snap, float* state, int B,
+    int P, int dim_p, int cone0, int cone_g, int symmetric, int use_soc,
+    int blocks, int threads, int smem, float alpha, float tol_p,
+    float tol_d, int k_max, int check_every, int exact_k, void* stream) {
+  const bool exact = check_every > 1 && exact_k;
+  if (P <= 0 || P % 32 != 0 || P > wc::COLS || dim_p <= 0 ||
+      dim_p % 32 != 0 || cone0 < dim_p || cone0 % 32 != 0 || cone0 >= P ||
+      cone_g < 1 || cone_g > MAX_G || B % TB != 0 || blocks != B / TB ||
+      threads != wc::THREADS || smem != wc::box_smem(P) ||
+      check_every < 1 || k_max < 1 ||
+      (B > 0 && (state == nullptr || (exact && snap == nullptr))))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (B == 0) return 0;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        fused_split_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  wc::Box x{};
+  x.st = state;
+  x.m = m1p;
+  x.in[0] = aux1;
+  x.in[1] = zs0;
+  x.in[2] = lm0;
+  x.out[0] = aux;
+  x.out[1] = zs;
+  x.out[2] = lm;
+  x.k = k;
+  x.done = done;
+  x.rp = rp;
+  x.rd = rd;
+  x.snap = snap;
+  x.P = P;
+  x.tol_p = tol_p;
+  x.tol_d = tol_d;
+  x.k_max = k_max;
+  x.check_every = check_every;
+  x.fixed_iters = 0;
+  x.exact_k = exact_k;
+  SplitOp op{};
+  op.cone0 = cone0;
+  op.cone_g = cone_g;
+  op.symmetric = symmetric;
+  op.use_soc = use_soc;
+  op.alpha = alpha;
+  fused_split_wide_kernel<<<blocks, wc::THREADS, smem,
+                            static_cast<cudaStream_t>(stream)>>>(
+      x, op, lb, ub, scale, iscale, dim_p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+#endif  // WIDE_PART

@@ -7,6 +7,13 @@ in .gitignore), and is cached there by a hash of the source, of every
 header under csrc/ it includes (csrc/tile_product.cuh) and of the flags: a
 changed source or header builds anew, an unchanged one loads the library
 built before.
+
+A source that holds a wide build (K2-K7: its text names WIDE_PART) is
+compiled as two translation units, -DWIDE_PART=0 (the narrow builds: the
+source as it was before its wide build) and -DWIDE_PART=1 (the wide build
+alone), by two nvcc at once, and the two objects are linked into the one
+library: the narrow builds are compiled from exactly the text they had, so
+the compiler cannot place their code otherwise for the wide build's sake.
 """
 
 from __future__ import annotations
@@ -19,6 +26,7 @@ import shutil
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -94,16 +102,37 @@ def build(name: str, csrc: Path | None = None) -> tuple[Path, dict]:
         return lib, dict(seconds=0.0, cached=True, log="")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".tmp{os.getpid()}-{threading.get_ident()}.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(csrc), "-I", str(INCLUDE), "-o",
-           str(tmp), str(csrc / f"{name}.cu")]
+    src = csrc / f"{name}.cu"
+    inc = ["-I", str(csrc), "-I", str(INCLUDE)]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if "WIDE_PART" not in src.read_text():
+        procs = [_run([_nvcc(), *NVCC_FLAGS, *inc, "-o", str(tmp), str(src)],
+                      name)]
+    else:
+        # the narrow and the wide translation units at once, then one link
+        objs = [tmp.with_suffix(f".part{part}.o") for part in (0, 1)]
+        compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+        cmds = [[_nvcc(), *compile_flags, "-c", f"-DWIDE_PART={part}", *inc,
+                 "-o", str(obj), str(src)] for part, obj in enumerate(objs)]
+        with ThreadPoolExecutor(len(cmds)) as pool:
+            procs = list(pool.map(lambda cmd: _run(cmd, name), cmds))
+        procs.append(_run([_nvcc(), "-shared", "-o", str(tmp),
+                           *map(str, objs)], name))
+        for obj in objs:
+            obj.unlink()
     seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed building {name}:\n{proc.stderr}")
     os.replace(tmp, lib)
     return lib, dict(seconds=seconds, cached=False,
-                     log=(proc.stdout + proc.stderr).strip())
+                     log="\n".join((p.stdout + p.stderr).strip()
+                                   for p in procs))
+
+
+def _run(cmd: list[str], name: str) -> subprocess.CompletedProcess:
+    """Run one nvcc command; raise with its errors if it fails."""
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed building {name}:\n{proc.stderr}")
+    return proc
 
 
 def load_kernel(name: str, symbol: str, argtypes):

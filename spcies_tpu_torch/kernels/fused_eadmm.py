@@ -59,6 +59,13 @@ kernel computes one chain a class and lane and gives the bits of the
 one-column-per-thread parent (csrc/variants/fused_eadmm_parent.cu). Every
 build gives the same bits, so `lanes=` of `fused_eadmm_solve` may name
 another build, for a check or a timing.
+
+Past MAX_COLS columns, up to WIDE_COLS, the wide build
+(fused_eadmm_wide_kernel, csrc/wide_cols.cuh) runs 512 threads of two
+columns, t and t + 512, at 8 lanes a block, no refill, with its nine state
+vectors in global memory and C2d in shared memory (so it too refuses
+classes of columns that do not fit); `wide=` of `fused_eadmm_solve` names
+it at any width, for a check of bits.
 """
 
 from __future__ import annotations
@@ -69,8 +76,8 @@ import torch
 
 from spcies_tpu_torch.kernels import stage
 from spcies_tpu_torch.kernels.fused_admm import (COL_PAD, DQ_PAD, MAX_COLS,
-                                                 RBIG, SMEM_MAX, check_widths,
-                                                 round_up)
+                                                 RBIG, SMEM_MAX, WIDE_COLS,
+                                                 check_widths, round_up)
 
 __all__ = ["check_width", "COL_PAD", "MAX_COLS", "round_up",
            "distinct_columns", "fused_eadmm_reference", "fused_eadmm_solve",
@@ -84,6 +91,12 @@ __all__ = ["check_width", "COL_PAD", "MAX_COLS", "round_up",
 FUSED_EADMM_ARGTYPES = ([ctypes.c_void_p] * 30 + [ctypes.c_int] * 7
                         + [ctypes.c_float] + [ctypes.c_int] * 3
                         + [ctypes.c_void_p])
+# and of fused_eadmm_wide_launch: 30 pointers (the clock counts' place holds
+# the blocks' global state); B, Z, nd, blocks, threads, shared bytes; tol;
+# k_max, check_every, exact_k; the stream
+FUSED_EADMM_WIDE_ARGTYPES = ([ctypes.c_void_p] * 30 + [ctypes.c_int] * 6
+                             + [ctypes.c_float] + [ctypes.c_int] * 3
+                             + [ctypes.c_void_p])
 # lanes a block -> (rows a slab of M3p's ring, blocks an SM) of its build
 # (Build<L> in csrc/fused_eadmm.cu; the blocks an SM up to NARROW columns)
 BUILDS = {8: (8, 2), 16: (16, 1)}
@@ -276,14 +289,18 @@ def narrow_operands(C2m, C2t):
     return (C2m[:, reps].contiguous(), C2t[:, reps].contiguous(), col_of)
 
 
-def shared_bytes(Z: int, lanes: int, nd: int = 1) -> int:
+def shared_bytes(Z: int, lanes: int, nd: int = 1, wide: bool = False) -> int:
     """Dynamic shared bytes of a block (fused_eadmm_smem in the source) at
     nd classes of columns: the ring of M3p's slabs, the nine state vectors
     as [Z][lanes], dv2m/dq3 with its padding, dv2t, the chains' results,
     C2d's copy where the build makes one (C2D_STAGED), the row maxima, the
     masks, the window starts, the slots' lanes and the row bounds. A number
     of lanes no build has is reckoned with SLAB_ROWS_OTHER rows a slab and
-    a copy of C2d."""
+    a copy of C2d. The wide build's (fused_eadmm_wide_smem): dv2m, dv2t
+    and dq3 as [Z][8], the warps' row maxima and C2d as [Z][nd]."""
+    if wide:
+        return 4 * (3 * Z * stage.WIDE_LANES
+                    + 3 * stage.WIDE_WARPS * stage.WIDE_LANES + Z * nd)
     slab = BUILDS.get(lanes, (SLAB_ROWS_OTHER, 1))[0]
     D = lanes + DQ_PAD
     return stage.ring_bytes(Z, slab) + 4 * (
@@ -295,10 +312,13 @@ def shared_bytes(Z: int, lanes: int, nd: int = 1) -> int:
 def check_width(Z: int, nd: int = 1) -> None:
     """Raise ValueError unless some build of the kernel takes this padded
     width at nd classes of columns (a plain check, no CUDA: the fused
-    builder calls it when it builds for the card)."""
+    builder calls it when it builds for the card): up to MAX_COLS columns
+    the narrow builds, past it the wide build."""
     kernel = "fused MPCT-EADMM kernel (K3, csrc/fused_eadmm.cu)"
-    check_widths(kernel, MAX_COLS, width=Z)
-    if min(shared_bytes(Z, L, nd) for L in BUILDS) > SMEM_MAX:
+    check_widths(kernel, WIDE_COLS, width=Z)
+    need = (shared_bytes(Z, 8, nd, wide=True) if Z > MAX_COLS else
+            min(shared_bytes(Z, L, nd) for L in BUILDS))
+    if need > SMEM_MAX:
         raise ValueError(
             f"no build of the {kernel} fits padded width {Z} with {nd} "
             f"classes of columns in {SMEM_MAX} bytes of shared memory: use "
@@ -306,12 +326,14 @@ def check_width(Z: int, nd: int = 1) -> None:
 
 
 def launch_plan(B: int, Z: int, nd: int, *, tile_b: int, check_every: int,
-                exact_k: bool, k_max: int, lanes: int | None = None):
+                exact_k: bool, k_max: int, lanes: int | None = None,
+                wide: bool | None = None):
     """The build a launch takes and its geometry, as a dict: lanes a block,
-    blocks, threads, dynamic shared bytes, refill (always False). nd is the
-    number of classes of columns. `lanes` names a build (a key of BUILDS)
-    in place of the dispatch's choice; raises ValueError on a shape or mode
-    no build takes."""
+    blocks, threads, dynamic shared bytes, refill (always False; and
+    wide=True for the wide build). nd is the number of classes of columns.
+    `lanes` names a build (a key of BUILDS) in place of the dispatch's
+    choice, `wide` the wide build or not (by default: past MAX_COLS
+    columns); raises ValueError on a shape or mode no build takes."""
     check_width(Z, nd)
     if not 0 < nd <= Z:
         raise ValueError(f"the classes of columns number 1 to {Z}; got {nd}")
@@ -319,6 +341,8 @@ def launch_plan(B: int, Z: int, nd: int, *, tile_b: int, check_every: int,
         raise ValueError(f"k_max must be at least 1; got {k_max}")
     stage.check_mode(B, tile_b=tile_b, check_every=check_every,
                      exact_k=exact_k)
+    if stage.use_wide(Z, wide):
+        return stage.wide_plan(B, shared_bytes(Z, 8, nd, wide=True), lanes)
     return stage.plan(B, Z, lambda L: shared_bytes(Z, L, nd), BUILDS,
                       refill=False, lanes=lanes)
 
@@ -331,7 +355,7 @@ def launch_geometry(B: int, Z: int, nd: int, **kw):
 
 
 def _launch(*args, tol, k_max, tile_b, check_every, exact_k, classes=None,
-            lanes=None):
+            lanes=None, wide=None):
     for t in args:
         if t.dtype != torch.float32:
             raise TypeError(f"the fused kernel takes float32; got {t.dtype}")
@@ -348,10 +372,13 @@ def _launch(*args, tol, k_max, tile_b, check_every, exact_k, classes=None,
         raise ValueError("classes are (C2d, C2td, col_of) as "
                          "narrow_operands gives them")
     plan = launch_plan(B, Z, nd, tile_b=tile_b, check_every=check_every,
-                       exact_k=exact_k, k_max=k_max, lanes=lanes)
+                       exact_k=exact_k, k_max=k_max, lanes=lanes, wide=wide)
     from spcies_tpu_torch.kernels._build import load_kernel
-    launch = load_kernel("fused_eadmm", "fused_eadmm_launch",
-                         FUSED_EADMM_ARGTYPES)
+    wide = plan.get("wide", False)
+    launch = (load_kernel("fused_eadmm", "fused_eadmm_wide_launch",
+                          FUSED_EADMM_WIDE_ARGTYPES) if wide else
+              load_kernel("fused_eadmm", "fused_eadmm_launch",
+                          FUSED_EADMM_ARGTYPES))
     dev = args[0].device
     outs = tuple(torch.empty_like(args[0]) for _ in range(5))
     k, done = (torch.empty((B,), dtype=torch.int32, device=dev)
@@ -362,25 +389,31 @@ def _launch(*args, tol, k_max, tile_b, check_every, exact_k, classes=None,
     snap = torch.empty((B if exact else 0, SNAP_LEAVES * Z),
                        dtype=torch.float32, device=dev)
     # each block's kilo-clocks of P1, of the z2 chains, of P2, and of P3
-    # and the keepers (in a build with TP_CLOCKS; else zeros)
+    # and the keepers (in a build with TP_CLOCKS; else zeros); the wide
+    # build: the blocks' state, nine leaves
     nb = plan["blocks"]
-    ext = torch.zeros((4 * nb,), dtype=torch.int32, device=dev)
+    ext = (torch.empty((B * STATE_LEAVES * Z,), dtype=torch.float32,
+                       device=dev) if wide else
+           torch.zeros((4 * nb,), dtype=torch.int32, device=dev))
     ins = args[:6] + (C2d, C2td, col_of) + args[8:]
     ptrs = [t.data_ptr() for t in ins + outs + (k, done) + res + (snap, ext)]
     if any(ptr % 16 for ptr in ptrs):
         raise ValueError("the fused kernel takes 16-byte aligned tensors")
     stream = torch.cuda.current_stream(dev).cuda_stream
+    build = ([] if wide else [plan["lanes"]]) + [plan["blocks"],
+                                                 plan["threads"],
+                                                 plan["smem"]]
     with torch.cuda.device(dev):
         err = launch(
-            *ptrs, B, Z, nd, plan["lanes"], plan["blocks"], plan["threads"],
-            plan["smem"], float(tol), int(k_max), int(check_every),
-            int(bool(exact_k)), stream)
+            *ptrs, B, Z, nd, *build, float(tol), int(k_max),
+            int(check_every), int(bool(exact_k)), stream)
     if err != 0:
         raise RuntimeError(f"fused_eadmm kernel launch failed with CUDA "
                            f"error {err} ({plan})")
     fused_eadmm_solve.launches += 1
-    fused_eadmm_solve.last_plan = dict(plan, nd=nd,
-                                       block_clocks=ext.view(nb, 4))
+    fused_eadmm_solve.last_plan = (
+        dict(plan, nd=nd) if wide else
+        dict(plan, nd=nd, block_clocks=ext.view(nb, 4)))
     e_flag = torch.where(done == 1, 1, -1).to(torch.int32)
     return outs + (k, e_flag) + res
 
@@ -390,15 +423,16 @@ def fused_eadmm_solve(x0b, z2refb, z2b0, z30, lm0, lht0, C2m, C2t, M3p,
                       lb_row, ub_row, *, tol: float, k_max: int,
                       tile_b: int = 256, check_every: int = 1,
                       exact_k: bool = False, classes=None,
-                      lanes: int | None = None):
+                      lanes: int | None = None, wide: bool | None = None):
     """Run the fused EADMM loop: six [B, Z] tiles, three [Z, Z] matrices
     and eight rows of Z entries (padded as the module docstring says; B a
     multiple of tile_b). CPU tensors run the plain version; CUDA tensors
     launch the kernel or raise. `classes` is `narrow_operands(C2m, C2t)`,
     computed once per operator by a caller that launches many times (the
     launch computes it when left out); `lanes` names the build to launch (a
-    key of BUILDS) in place of the dispatch's choice. The results depend on
-    neither, and the plain version takes neither.
+    key of BUILDS) in place of the dispatch's choice, `wide` the wide build
+    or not (by default: past MAX_COLS columns). The results depend on none
+    of these, and the plain version takes none.
 
     Returns (z1, z2b, z3, lm, lht [B, Z], k [B] int32, e_flag [B] int32
     (1 converged / -1 k_max reached), r_pf, r_z2, r_z3 [B]).
@@ -423,7 +457,7 @@ def fused_eadmm_solve(x0b, z2refb, z2b0, z30, lm0, lht0, C2m, C2t, M3p,
     if x0b.device.type == "cpu":
         return fused_eadmm_reference(*args, **kw)
     if x0b.device.type == "cuda":
-        return _launch(*args, classes=classes, lanes=lanes, **kw)
+        return _launch(*args, classes=classes, lanes=lanes, wide=wide, **kw)
     raise ValueError(f"fused_eadmm_solve takes CPU or CUDA tensors; got "
                      f"{x0b.device}")
 

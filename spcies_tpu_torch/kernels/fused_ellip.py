@@ -57,6 +57,14 @@ refill its persistent blocks group by group of 8 lanes, exact-k and
 fixed_iters keep a block of L lanes. Every build gives the same bits, so
 `lanes=` of `fused_ellip_solve` may name another build, for a check or a
 timing.
+
+Past MAX_COLS columns, up to WIDE_COLS, the wide build
+(fused_ellip_wide_kernel, csrc/wide_cols.cuh) runs 512 threads of two
+columns, t and t + 512, at 8 lanes a block, no refill, with its state in
+global memory; the warp that takes the ball and the residual map is the
+one that holds the slab, in the first half of a thread's columns or the
+second. `wide=` of `fused_ellip_solve` names it at any width, for a check
+of bits.
 """
 
 from __future__ import annotations
@@ -68,7 +76,8 @@ import torch.nn.functional as F
 
 from spcies_tpu_torch.kernels import stage
 from spcies_tpu_torch.kernels.fused_admm import (COL_PAD, DQ_PAD, MAX_COLS,
-                                                 RBIG, check_widths, round_up)
+                                                 RBIG, WIDE_COLS, check_widths,
+                                                 round_up)
 
 __all__ = ["check_width", "COL_PAD", "MAX_COLS", "round_up",
            "fused_ellip_reference", "fused_ellip_solve", "launch_geometry",
@@ -86,6 +95,15 @@ FUSED_ELLIP_ARGTYPES = ([ctypes.c_void_p] * 17 + [ctypes.c_int] * 8
 BUILDS = {8: (16, 2), 16: (16, 2), 32: (32, 1)}
 # the leaves an exact-k snapshot saves per lane: z', v', lam
 SNAP_LEAVES = 3
+# C signature of fused_ellip_wide_launch: 17 pointers (the refill queue's
+# place holds the blocks' global state); B, nzp, t0, n, blocks, threads,
+# shared bytes; rho, 1/rho, r, tol_p, tol_d; k_max, check_every,
+# fixed_iters, exact_k; the stream
+FUSED_ELLIP_WIDE_ARGTYPES = ([ctypes.c_void_p] * 17 + [ctypes.c_int] * 7
+                             + [ctypes.c_float] * 5 + [ctypes.c_int] * 4
+                             + [ctypes.c_void_p])
+# the wide build's state leaves: z, v, lam and the consumed z
+WIDE_LEAVES = 4
 WARP = 32
 # plain version: read "all lanes done" on the host every this many
 # iterations of the checked loop (extra iterations of frozen lanes are
@@ -256,12 +274,15 @@ def fused_ellip_reference(z1, v0, lam0, M2_pad, pinvh, LB_pad, UB_pad,
     return z, v, lam, k, e_flag, rp, rd
 
 
-def shared_bytes(nzp: int, n: int, lanes: int) -> int:
+def shared_bytes(nzp: int, n: int, lanes: int, wide: bool = False) -> int:
     """Dynamic shared bytes of a block (fused_ellip_smem in the source):
     the ring of M2's slabs, z, v and lam as [nzp][lanes], dq with its
     padding, the warps' row maxima, the masks, the window starts, the
     slots' lanes, the lanes' ball scales, the slab's two staged differences
-    [n][lanes + DQ_PAD] and pinvh."""
+    [n][lanes + DQ_PAD] and pinvh. The wide build's (fused_ellip_wide_smem):
+    dq as [2][nzp][8] and the warps' row maxima."""
+    if wide:
+        return 4 * stage.WIDE_LANES * (2 * nzp + 4 * stage.WIDE_WARPS)
     slab = stage.build_of(BUILDS, nzp, lanes)[0]
     return stage.ring_bytes(nzp, slab) + 4 * (
         nzp * (4 * lanes + DQ_PAD) + nzp // WARP * 2 * lanes + 4
@@ -273,16 +294,17 @@ def check_width(nzp: int) -> None:
     width (a plain check, no CUDA: the fused builder calls it when it
     builds for the card)."""
     check_widths("fused ellipMPC-ADMM kernel (K4, csrc/fused_ellip.cu)",
-                 MAX_COLS, width=nzp)
+                 WIDE_COLS, width=nzp)
 
 
 def launch_plan(B: int, nzp: int, t0: int, n: int, *, tile_b: int,
                 check_every: int, exact_k: bool, fixed_iters: int,
-                lanes: int | None = None):
+                lanes: int | None = None, wide: bool | None = None):
     """The build a launch takes and its geometry, as a dict: lanes a block,
-    blocks, threads, dynamic shared bytes, refill. `lanes` names a build in
-    place of the dispatch's choice; raises ValueError on a shape or mode no
-    build takes."""
+    blocks, threads, dynamic shared bytes, refill (and wide=True for the
+    wide build). `lanes` names a build in place of the dispatch's choice,
+    `wide` the wide build or not (by default: past MAX_COLS columns);
+    raises ValueError on a shape or mode no build takes."""
     check_width(nzp)
     if not (0 < n <= WARP and 0 <= t0 and t0 + n <= nzp
             and t0 % WARP + n <= WARP):
@@ -292,6 +314,8 @@ def launch_plan(B: int, nzp: int, t0: int, n: int, *, tile_b: int,
     stage.check_mode(B, tile_b=tile_b,
                      check_every=1 if fixed_iters else check_every,
                      exact_k=exact_k)
+    if stage.use_wide(nzp, wide):
+        return stage.wide_plan(B, shared_bytes(nzp, n, 8, wide=True), lanes)
     refill = not fixed_iters and not (check_every > 1 and exact_k)
     return stage.plan(B, nzp, lambda L: shared_bytes(nzp, n, L), BUILDS,
                       refill=refill, lanes=lanes)
@@ -306,7 +330,7 @@ def launch_geometry(B: int, nzp: int, t0: int, n: int, **kw):
 
 def _launch(z1, v0, lam0, M2_pad, pinvh, LB_pad, UB_pad, c_pad, *, t0, rho,
             r_ball, tol_p, tol_d, k_max, tile_b, check_every, fixed_iters,
-            exact_k, lanes=None):
+            exact_k, lanes=None, wide=None):
     args = (z1, v0, lam0, M2_pad, pinvh, LB_pad, UB_pad, c_pad)
     for t in args:
         if t.dtype != torch.float32:
@@ -316,10 +340,14 @@ def _launch(z1, v0, lam0, M2_pad, pinvh, LB_pad, UB_pad, c_pad, *, t0, rho,
     B, nzp = z1.shape
     n = pinvh.shape[0]
     plan = launch_plan(B, nzp, t0, n, tile_b=tile_b, check_every=check_every,
-                       exact_k=exact_k, fixed_iters=fixed_iters, lanes=lanes)
+                       exact_k=exact_k, fixed_iters=fixed_iters, lanes=lanes,
+                       wide=wide)
     from spcies_tpu_torch.kernels._build import load_kernel
-    launch = load_kernel("fused_ellip", "fused_ellip_launch",
-                         FUSED_ELLIP_ARGTYPES)
+    wide = plan.get("wide", False)
+    launch = (load_kernel("fused_ellip", "fused_ellip_wide_launch",
+                          FUSED_ELLIP_WIDE_ARGTYPES) if wide else
+              load_kernel("fused_ellip", "fused_ellip_launch",
+                          FUSED_ELLIP_ARGTYPES))
     dev = z1.device
     z, v, lam = (torch.empty_like(z1) for _ in range(3))
     k, done = (torch.empty((B,), dtype=torch.int32, device=dev)
@@ -332,25 +360,31 @@ def _launch(z1, v0, lam0, M2_pad, pinvh, LB_pad, UB_pad, c_pad, *, t0, rho,
     # the queue of groups of 8 lanes (refill), then each block's count of
     # iterations (refill) and kilo-clocks of the two halves of an iteration
     # (in a build with TP_CLOCKS; else zeros)
+    # (the wide build: the blocks' state)
     nb = plan["blocks"]
-    queue = torch.zeros((1 + 3 * nb,), dtype=torch.int32, device=dev)
+    queue = (torch.empty((B * WIDE_LEAVES * nzp,), dtype=torch.float32,
+                         device=dev) if wide else
+             torch.zeros((1 + 3 * nb,), dtype=torch.int32, device=dev))
     ptrs = [t.data_ptr() for t in args + (z, v, lam, k, done, rp, rd, snap,
                                           queue)]
     if any(ptr % 16 for ptr in ptrs):
         raise ValueError("the fused kernel takes 16-byte aligned tensors")
     stream = torch.cuda.current_stream(dev).cuda_stream
+    build = ([] if wide else [plan["lanes"]]) + [plan["blocks"],
+                                                 plan["threads"],
+                                                 plan["smem"]]
     with torch.cuda.device(dev):
         err = launch(
-            *ptrs, B, nzp, int(t0), n, plan["lanes"], plan["blocks"],
-            plan["threads"], plan["smem"], float(rho), float(1.0 / rho),
+            *ptrs, B, nzp, int(t0), n, *build, float(rho), float(1.0 / rho),
             float(r_ball), float(tol_p), float(tol_d), int(k_max),
             int(check_every), int(fixed_iters), int(bool(exact_k)), stream)
     if err != 0:
         raise RuntimeError(f"fused_ellip kernel launch failed with CUDA "
                            f"error {err} ({plan})")
     fused_ellip_solve.launches += 1
-    fused_ellip_solve.last_plan = dict(plan, block_iterations=queue[1:1 + nb],
-                                       block_clocks=queue[1 + nb:].view(nb, 2))
+    fused_ellip_solve.last_plan = plan if wide else dict(
+        plan, block_iterations=queue[1:1 + nb],
+        block_clocks=queue[1 + nb:].view(nb, 2))
     e_flag = torch.where(done == 1, 1, -1).to(torch.int32)
     return z, v, lam, k, e_flag, rp, rd
 
@@ -359,7 +393,8 @@ def fused_ellip_solve(z1, v0, lam0, M2_pad, pinvh, LB_pad, UB_pad, c_pad, *,
                       t0: int, rho: float, r_ball: float, tol_p: float,
                       tol_d: float, k_max: int, tile_b: int = 256,
                       check_every: int = 1, fixed_iters: int = 0,
-                      exact_k: bool = False, lanes: int | None = None):
+                      exact_k: bool = False, lanes: int | None = None,
+                      wide: bool | None = None):
     """Run the fused ellipMPC-ADMM loop on [B, nzp] tensors in transformed
     coordinates (padded as the module docstring says; B a multiple of
     tile_b): z1 and v0 transformed, lam0 the dual as it is; M2_pad
@@ -368,7 +403,8 @@ def fused_ellip_solve(z1, v0, lam0, M2_pad, pinvh, LB_pad, UB_pad, c_pad, *,
     nzp entries; the slab at columns t0 .. t0+n-1. CPU tensors run the
     plain version; CUDA tensors launch the kernel or raise. `lanes` names
     the build to launch (one of stage.LANES) in place of the dispatch's
-    choice; the results do not depend on it, and the plain version has no
+    choice, `wide` the wide build or not (by default: past MAX_COLS
+    columns); the results depend on neither, and the plain version has no
     such builds.
 
     Returns (z', v' [B, nzp] transformed, lam [B, nzp], k [B] int32,
@@ -399,7 +435,7 @@ def fused_ellip_solve(z1, v0, lam0, M2_pad, pinvh, LB_pad, UB_pad, c_pad, *,
     if z1.device.type == "cpu":
         return fused_ellip_reference(*args, **kw)
     if z1.device.type == "cuda":
-        return _launch(*args, lanes=lanes, **kw)
+        return _launch(*args, lanes=lanes, wide=wide, **kw)
     raise ValueError(f"fused_ellip_solve takes CPU or CUDA tensors; got "
                      f"{z1.device}")
 

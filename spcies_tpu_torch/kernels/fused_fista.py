@@ -52,6 +52,12 @@ block of L lanes, and plain free-run freezes each group of 8 lanes once its
 lanes are done, as a tile of tile_b = 8 drains). Every build gives the same
 bits, so `lanes=` of `fused_fista_solve` may name another build, for a
 check or a timing.
+
+Past MAX_COLS columns of either width, up to WIDE_COLS, the wide build
+(fused_fista_wide_kernel, csrc/wide_cols.cuh) runs 512 threads at 8 lanes a
+block, each product's threads covering its output width two columns a
+thread, with q, z_prev, r, y and lam in global memory; `wide=` of
+`fused_fista_solve` names it at any width, for a check of bits.
 """
 
 from __future__ import annotations
@@ -62,7 +68,8 @@ import torch
 
 from spcies_tpu_torch.kernels import stage
 from spcies_tpu_torch.kernels.fused_admm import (COL_PAD, DQ_PAD, MAX_COLS,
-                                                 RBIG, check_widths, round_up)
+                                                 RBIG, WIDE_COLS, check_widths,
+                                                 round_up)
 
 __all__ = ["check_width", "COL_PAD", "MAX_COLS", "round_up",
            "fused_fista_reference", "fused_fista_solve", "launch_geometry",
@@ -80,6 +87,13 @@ FUSED_FISTA_ARGTYPES = ([ctypes.c_void_p] * 19 + [ctypes.c_int] * 7
 # to stage.NARROW columns (Build<L> in csrc/fused_fista.cu)
 BUILDS = {8: (16, 2), 16: (16, 1), 32: (16, 1)}
 WARP = 32
+# C signature of fused_fista_wide_launch: 19 pointers (the row extents'
+# place holds the blocks' global state); B, nzp, nlamp, blocks, threads,
+# shared bytes; tol; k_max, restart, check_every, fixed_iters, exact_k; the
+# stream
+FUSED_FISTA_WIDE_ARGTYPES = ([ctypes.c_void_p] * 19 + [ctypes.c_int] * 6
+                             + [ctypes.c_float] + [ctypes.c_int] * 5
+                             + [ctypes.c_void_p])
 # plain version: read "all lanes done" on the host every this many
 # iterations of the checked loop (extra iterations of frozen lanes are
 # exact no-ops)
@@ -223,12 +237,16 @@ def fused_fista_reference(q1, z0, r0, y0, lam0, G_pad, GT_pad, WinvT_pad,
     return s[1], s[3], s[4], k, e_flag, res
 
 
-def shared_bytes(nzp: int, nlamp: int, lanes: int) -> int:
+def shared_bytes(nzp: int, nlamp: int, lanes: int,
+                 wide: bool = False) -> int:
     """Dynamic shared bytes of a block (fused_fista_smem in the source): the
     ring of slabs of the widest row, q, z_prev, y and lam as [rows][lanes],
     r and the dz/dy buffer with their padding, the warps' row maxima, the
     coefficients, the masks, the window starts, the slots' lanes and the
-    snapshot's t and res."""
+    snapshot's t and res. The wide build's (fused_fista_wide_smem): dz as
+    [nzp][8], r and dy as [nlamp][8] and the warps' row maxima."""
+    if wide:
+        return 4 * stage.WIDE_LANES * (nzp + 2 * nlamp + stage.WIDE_WARPS)
     T = max(nzp, nlamp)
     slab = stage.build_of(BUILDS, T, lanes)[0]
     return stage.ring_bytes(T, slab) + 4 * (
@@ -241,16 +259,19 @@ def check_width(nzp: int, nlamp: int) -> None:
     widths (a plain check, no CUDA: the fused builder calls it when it
     builds for the card)."""
     check_widths("fused dual-FISTA kernel (K2, csrc/fused_fista.cu)",
-                 MAX_COLS, nz=nzp, nlam=nlamp)
+                 WIDE_COLS, nz=nzp, nlam=nlamp)
 
 
 def launch_plan(B: int, nzp: int, nlamp: int, *, tile_b: int,
                 check_every: int, exact_k: bool, fixed_iters: int,
-                k_max: int, lanes: int | None = None):
+                k_max: int, lanes: int | None = None,
+                wide: bool | None = None):
     """The build a launch takes and its geometry, as a dict: lanes a block,
-    blocks, threads, dynamic shared bytes, refill (always False). `lanes`
-    names a build in place of the dispatch's choice; raises ValueError on a
-    shape or mode no build takes."""
+    blocks, threads, dynamic shared bytes, refill (always False; and
+    wide=True for the wide build). `lanes` names a build in place of the
+    dispatch's choice, `wide` the wide build or not (by default: past
+    MAX_COLS columns of either width); raises ValueError on a shape or mode
+    no build takes."""
     check_width(nzp, nlamp)
     if k_max < 1:
         raise ValueError(f"k_max must be at least 1; got {k_max}")
@@ -258,6 +279,9 @@ def launch_plan(B: int, nzp: int, nlamp: int, *, tile_b: int,
     stage.check_mode(B, tile_b=tile_b,
                      check_every=1 if fixed_iters else check_every,
                      exact_k=exact_k)
+    if stage.use_wide(max(nzp, nlamp), wide):
+        return stage.wide_plan(B, shared_bytes(nzp, nlamp, 8, wide=True),
+                               lanes)
     return stage.plan(B, max(nzp, nlamp),
                       lambda L: shared_bytes(nzp, nlamp, L), BUILDS,
                       refill=False, lanes=lanes)
@@ -272,7 +296,7 @@ def launch_geometry(B: int, nzp: int, nlamp: int, **kw):
 
 def _launch(q1, z0, r0, y0, lam0, G_pad, GT_pad, WinvT_pad, hinv_pad,
             LB_pad, UB_pad, *, tol, k_max, restart, tile_b, check_every,
-            fixed_iters, exact_k, lanes=None):
+            fixed_iters, exact_k, lanes=None, wide=None):
     args = (q1, z0, r0, y0, lam0, G_pad, GT_pad, WinvT_pad, hinv_pad,
             LB_pad, UB_pad)
     for t in args:
@@ -284,10 +308,13 @@ def _launch(q1, z0, r0, y0, lam0, G_pad, GT_pad, WinvT_pad, hinv_pad,
     nlamp = r0.shape[1]
     plan = launch_plan(B, nzp, nlamp, tile_b=tile_b, check_every=check_every,
                        exact_k=exact_k, fixed_iters=fixed_iters, k_max=k_max,
-                       lanes=lanes)
+                       lanes=lanes, wide=wide)
     from spcies_tpu_torch.kernels._build import load_kernel
-    launch = load_kernel("fused_fista", "fused_fista_launch",
-                         FUSED_FISTA_ARGTYPES)
+    wide = plan.get("wide", False)
+    launch = (load_kernel("fused_fista", "fused_fista_wide_launch",
+                          FUSED_FISTA_WIDE_ARGTYPES) if wide else
+              load_kernel("fused_fista", "fused_fista_launch",
+                          FUSED_FISTA_ARGTYPES))
     dev = q1.device
     z = torch.empty_like(q1)
     y, lam = torch.empty_like(r0), torch.empty_like(r0)
@@ -300,26 +327,31 @@ def _launch(q1, z0, r0, y0, lam0, G_pad, GT_pad, WinvT_pad, hinv_pad,
                        dtype=torch.float32, device=dev)
     # the real rows of G', Winv' and G, found by the launch; then each
     # block's kilo-clocks of its iterations and of each product's slab loop
-    # (in a build with TP_CLOCKS; else zeros)
+    # (in a build with TP_CLOCKS; else zeros); the wide build: the blocks'
+    # state, q, z_prev, r, y and lam
     nb = plan["blocks"]
-    ext = torch.zeros((4 + 4 * nb,), dtype=torch.int32, device=dev)
+    ext = (torch.empty((B * (2 * nzp + 3 * nlamp),), dtype=torch.float32,
+                       device=dev) if wide else
+           torch.zeros((4 + 4 * nb,), dtype=torch.int32, device=dev))
     ptrs = [t.data_ptr() for t in args + (z, y, lam, k, done, res, snap,
                                           ext)]
     if any(ptr % 16 for ptr in ptrs):
         raise ValueError("the fused kernel takes 16-byte aligned tensors")
     stream = torch.cuda.current_stream(dev).cuda_stream
+    build = ([] if wide else [plan["lanes"]]) + [plan["blocks"],
+                                                 plan["threads"],
+                                                 plan["smem"]]
     with torch.cuda.device(dev):
         err = launch(
-            *ptrs, B, nzp, nlamp, plan["lanes"], plan["blocks"],
-            plan["threads"], plan["smem"], float(tol), int(k_max),
+            *ptrs, B, nzp, nlamp, *build, float(tol), int(k_max),
             int(bool(restart)), int(check_every), int(fixed_iters),
             int(bool(exact_k)), stream)
     if err != 0:
         raise RuntimeError(f"fused_fista kernel launch failed with CUDA "
                            f"error {err} ({plan})")
     fused_fista_solve.launches += 1
-    fused_fista_solve.last_plan = dict(plan,
-                                       block_clocks=ext[4:].view(nb, 4))
+    fused_fista_solve.last_plan = plan if wide else dict(
+        plan, block_clocks=ext[4:].view(nb, 4))
     e_flag = torch.where(done == 1, 1, -1).to(torch.int32)
     return z, y, lam, k, e_flag, res
 
@@ -328,15 +360,17 @@ def fused_fista_solve(q1, z0, r0, y0, lam0, G_pad, GT_pad, WinvT_pad,
                       hinv_pad, LB_pad, UB_pad, *, tol: float, k_max: int,
                       restart: bool = False, tile_b: int = 256,
                       check_every: int = 1, fixed_iters: int = 0,
-                      exact_k: bool = False, lanes: int | None = None):
+                      exact_k: bool = False, lanes: int | None = None,
+                      wide: bool | None = None):
     """Run the fused dual-FISTA loop: q1, z0 [B, nzp]; r0, y0, lam0
     [B, nlamp]; G_pad [nlamp, nzp], GT_pad [nzp, nlamp], WinvT_pad
     [nlamp, nlamp]; hinv_pad and the bounds hold nzp entries (padded as
     the module docstring says; B a multiple of tile_b). CPU tensors run
     the plain version; CUDA tensors launch the kernel or raise. `lanes`
     names the build to launch (one of stage.LANES) in place of the
-    dispatch's choice; the results do not depend on it, and the plain
-    version has no such builds.
+    dispatch's choice, `wide` the wide build or not (by default: past
+    MAX_COLS columns of either width); the results depend on neither, and
+    the plain version has no such builds.
 
     Returns (z [B, nzp], y, lam [B, nlamp], k [B] int32, e_flag [B] int32
     (1 converged / -1 k_max reached), res [B]).
@@ -371,7 +405,7 @@ def fused_fista_solve(q1, z0, r0, y0, lam0, G_pad, GT_pad, WinvT_pad,
     if q1.device.type == "cpu":
         return fused_fista_reference(*args, **kw)
     if q1.device.type == "cuda":
-        return _launch(*args, lanes=lanes, **kw)
+        return _launch(*args, lanes=lanes, wide=wide, **kw)
     raise ValueError(f"fused_fista_solve takes CPU or CUDA tensors; got "
                      f"{q1.device}")
 

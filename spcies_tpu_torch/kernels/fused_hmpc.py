@@ -40,6 +40,14 @@ and 32 lanes a block (kernels/stage.py); plain free-run and the checked mode
 refill its persistent blocks group by group of 8 lanes. Every build gives
 the same bits, so `lanes=` of `fused_hmpc_solve` may name another build, for
 a check or a timing.
+
+Past MAX_COLS columns of either width, up to WIDE_COLS, the wide build
+(fused_hmpc_wide_kernel, csrc/wide_cols.cuh) runs 512 threads at 8 lanes a
+block, each thread taking two columns of each width (t and t + 512), no
+refill, with the consumed z, s and lam in global memory; `wide=` of
+`fused_hmpc_solve` names it at any width, for a check of bits. The cones
+keep their warps: a warp of cones, 32 columns from cone0 on, lies in one
+half, [0, 512) or [512, ns_p), of a thread's s columns.
 """
 
 from __future__ import annotations
@@ -51,7 +59,8 @@ import torch
 
 from spcies_tpu_torch.kernels import stage
 from spcies_tpu_torch.kernels.fused_admm import (COL_PAD, DQ_PAD, MAX_COLS,
-                                                 check_widths, round_up)
+                                                 WIDE_COLS, check_widths,
+                                                 round_up)
 from spcies_tpu_torch.kernels.modes import run_modes
 
 __all__ = ["check_width", "COL_PAD", "MAX_COLS", "round_up", "cone_layout",
@@ -74,6 +83,13 @@ FUSED_HMPC_ARGTYPES = ([ctypes.c_void_p] * 17 + [ctypes.c_int] * 10
 BUILDS = {8: (16, 2), 16: (8, 2), 32: (32, 1)}
 # the leaves an exact-k snapshot saves per lane: z, s, lam
 SNAP_LEAVES = 3
+# C signature of fused_hmpc_wide_launch: 17 pointers (the refill queue's
+# place holds the blocks' global state); B, dim_p, ns_p, cone0, cone_g,
+# use_soc, blocks, threads, shared bytes; rho, 1/rho, tol_p, tol_d; k_max,
+# check_every, exact_k; the stream
+FUSED_HMPC_WIDE_ARGTYPES = ([ctypes.c_void_p] * 17 + [ctypes.c_int] * 9
+                            + [ctypes.c_float] * 4 + [ctypes.c_int] * 3
+                            + [ctypes.c_void_p])
 
 
 def cone_layout(n_cones: int) -> tuple[int, int]:
@@ -179,11 +195,15 @@ def check_cone_layout(width: int, cone0: int, cone_g: int):
                          f"got {cone_g}")
 
 
-def shared_bytes(dim_p: int, ns_p: int, lanes: int) -> int:
+def shared_bytes(dim_p: int, ns_p: int, lanes: int,
+                 wide: bool = False) -> int:
     """Dynamic shared bytes of a block (fused_hmpc_smem in the source): the
     ring of MC's slabs, z, s and lam as [rows][lanes], w with its padding,
     the warps' row maxima, the masks, the window starts and the slots'
-    lanes."""
+    lanes. The wide build's (fused_hmpc_wide_smem): the prepared z as
+    [dim_p][8], w as [ns_p][8] and the warps' row maxima."""
+    if wide:
+        return 4 * stage.WIDE_LANES * (dim_p + ns_p + 2 * stage.WIDE_WARPS)
     slab = stage.build_of(BUILDS, max(dim_p, ns_p), lanes)[0]
     return stage.ring_bytes(dim_p, slab) + 4 * (
         dim_p * lanes + 2 * ns_p * lanes + ns_p * (lanes + DQ_PAD)
@@ -195,20 +215,24 @@ def check_width(dim_p: int, ns_p: int) -> None:
     widths (a plain check, no CUDA: the fused builders call it when they
     build for the card)."""
     check_widths("fused cone-ADMM kernel (K6, csrc/fused_hmpc.cu)",
-                 MAX_COLS, dim_p=dim_p, ns_p=ns_p)
+                 WIDE_COLS, dim_p=dim_p, ns_p=ns_p)
 
 
 def launch_plan(B: int, dim_p: int, ns_p: int, cone0: int, cone_g: int, *,
                 tile_b: int, check_every: int, exact_k: bool,
-                lanes: int | None = None):
+                lanes: int | None = None, wide: bool | None = None):
     """The build a launch takes and its geometry, as a dict: lanes a block,
-    blocks, threads, dynamic shared bytes, refill. `lanes` names a build in
-    place of the dispatch's choice; raises ValueError on a shape or mode no
-    build takes."""
+    blocks, threads, dynamic shared bytes, refill (and wide=True for the
+    wide build). `lanes` names a build in place of the dispatch's choice,
+    `wide` the wide build or not (by default: past MAX_COLS columns of
+    either width); raises ValueError on a shape or mode no build takes."""
     check_width(dim_p, ns_p)
     check_cone_layout(ns_p, cone0, cone_g)
     stage.check_mode(B, tile_b=tile_b, check_every=check_every,
                      exact_k=exact_k)
+    if stage.use_wide(max(dim_p, ns_p), wide):
+        return stage.wide_plan(B, shared_bytes(dim_p, ns_p, 8, wide=True),
+                               lanes)
     return stage.plan(B, max(dim_p, ns_p),
                       lambda L: shared_bytes(dim_p, ns_p, L), BUILDS,
                       refill=not (check_every > 1 and exact_k), lanes=lanes)
@@ -223,7 +247,7 @@ def launch_geometry(B: int, dim_p: int, ns_p: int, cone0: int, cone_g: int,
 
 
 def _launch(*args, rho, tol_p, tol_d, k_max, use_soc, cone0, cone_g, tile_b,
-            check_every, exact_k, lanes=None):
+            check_every, exact_k, lanes=None, wide=None):
     for t in args:
         if t.dtype != torch.float32:
             raise TypeError(f"the fused kernel takes float32; got {t.dtype}")
@@ -232,10 +256,14 @@ def _launch(*args, rho, tol_p, tol_d, k_max, use_soc, cone0, cone_g, tile_b,
     B, dim_p = args[0].shape
     ns_p = args[1].shape[1]
     plan = launch_plan(B, dim_p, ns_p, cone0, cone_g, tile_b=tile_b,
-                       check_every=check_every, exact_k=exact_k, lanes=lanes)
+                       check_every=check_every, exact_k=exact_k, lanes=lanes,
+                       wide=wide)
     from spcies_tpu_torch.kernels._build import load_kernel
-    launch = load_kernel("fused_hmpc", "fused_hmpc_launch",
-                         FUSED_HMPC_ARGTYPES)
+    wide = plan.get("wide", False)
+    launch = (load_kernel("fused_hmpc", "fused_hmpc_wide_launch",
+                          FUSED_HMPC_WIDE_ARGTYPES) if wide else
+              load_kernel("fused_hmpc", "fused_hmpc_launch",
+                          FUSED_HMPC_ARGTYPES))
     dev = args[0].device
     z = torch.empty_like(args[0])
     s, lam = torch.empty_like(args[1]), torch.empty_like(args[1])
@@ -249,26 +277,32 @@ def _launch(*args, rho, tol_p, tol_d, k_max, use_soc, cone0, cone_g, tile_b,
     # the queue of groups of 8 lanes (refill), then each block's count of
     # iterations (refill) and kilo-clocks of the two halves of an iteration
     # (in a build with TP_CLOCKS; else zeros)
+    # (the wide build: the blocks' state, the consumed z, s and lam)
     nb = plan["blocks"]
-    queue = torch.zeros((1 + 3 * nb,), dtype=torch.int32, device=dev)
+    queue = (torch.empty((B * (dim_p + 2 * ns_p),), dtype=torch.float32,
+                         device=dev) if wide else
+             torch.zeros((1 + 3 * nb,), dtype=torch.int32, device=dev))
     ptrs = [t.data_ptr() for t in args + (z, s, lam, k, done, rp, rd, snap,
                                           queue)]
     if any(ptr % 16 for ptr in ptrs):
         raise ValueError("the fused kernel takes 16-byte aligned tensors")
     stream = torch.cuda.current_stream(dev).cuda_stream
+    build = ([] if wide else [plan["lanes"]]) + [plan["blocks"],
+                                                 plan["threads"],
+                                                 plan["smem"]]
     with torch.cuda.device(dev):
         err = launch(
             *ptrs, B, dim_p, ns_p, int(cone0), int(cone_g),
-            int(bool(use_soc)), plan["lanes"], plan["blocks"],
-            plan["threads"], plan["smem"], float(rho), float(1.0 / rho),
+            int(bool(use_soc)), *build, float(rho), float(1.0 / rho),
             float(tol_p), float(tol_d), int(k_max), int(check_every),
             int(bool(exact_k)), stream)
     if err != 0:
         raise RuntimeError(f"fused_hmpc kernel launch failed with CUDA error "
                            f"{err} ({plan})")
     fused_hmpc_solve.launches += 1
-    fused_hmpc_solve.last_plan = dict(plan, block_iterations=queue[1:1 + nb],
-                                   block_clocks=queue[1 + nb:].view(nb, 2))
+    fused_hmpc_solve.last_plan = plan if wide else dict(
+        plan, block_iterations=queue[1:1 + nb],
+        block_clocks=queue[1 + nb:].view(nb, 2))
     e_flag = torch.where(done == 1, 1, -1).to(torch.int32)
     return z, s, lam, k, e_flag, rp, rd
 
@@ -277,15 +311,17 @@ def fused_hmpc_solve(z1, s0, lam0, CT, MC, d_row, lb_row, ub_row, *,
                      rho: float, tol_p: float, tol_d: float, k_max: int,
                      use_soc: bool, cone0: int, cone_g: int,
                      tile_b: int = 256, check_every: int = 1,
-                     exact_k: bool = False, lanes: int | None = None):
+                     exact_k: bool = False, lanes: int | None = None,
+                     wide: bool | None = None):
     """Run the fused single-split cone-ADMM loop on z [B, dim_p] and s, lam
     [B, ns_p] in the layout the module docstring sets out (B a multiple of
     tile_b): CT [dim_p, ns_p] and MC [ns_p, dim_p] in row form
     (czd = z @ CT, z += w @ MC), the rows d, lb, ub of ns_p entries. CPU
     tensors run the plain version; CUDA tensors launch the kernel or raise.
     `lanes` names the build to launch (one of stage.LANES) in place of the
-    dispatch's choice; the results do not depend on it, and the plain
-    version has no such builds.
+    dispatch's choice, `wide` the wide build or not (by default: past
+    MAX_COLS columns of either width); the results depend on neither, and
+    the plain version has no such builds.
 
     Returns (z [B, dim_p], s, lam [B, ns_p], k [B] int32, e_flag [B] int32
     (1 converged / -1 k_max reached), r_p [B], r_d [B]).
@@ -313,7 +349,7 @@ def fused_hmpc_solve(z1, s0, lam0, CT, MC, d_row, lb_row, ub_row, *,
     if z1.device.type == "cpu":
         return fused_hmpc_reference(*args, **kw)
     if z1.device.type == "cuda":
-        return _launch(*args, lanes=lanes, **kw)
+        return _launch(*args, lanes=lanes, wide=wide, **kw)
     raise ValueError(f"fused_hmpc_solve takes CPU or CUDA tensors; got "
                      f"{z1.device}")
 

@@ -41,6 +41,11 @@ and 32 lanes a block (kernels/stage.py); plain free-run and the checked mode
 refill its persistent blocks group by group of 8 lanes. Every build gives
 the same bits, so `lanes=` of `fused_soc_solve` may name another build, for
 a check or a timing.
+
+Past MAX_COLS columns, up to WIDE_COLS, the wide build
+(fused_soc_wide_kernel, csrc/wide_cols.cuh) runs 512 threads of two
+columns at 8 lanes a block, no refill, with its state in global memory;
+`wide=` of `fused_soc_solve` names it at any width, for a check of bits.
 """
 
 from __future__ import annotations
@@ -51,7 +56,8 @@ import torch
 
 from spcies_tpu_torch.kernels import stage
 from spcies_tpu_torch.kernels.fused_admm import (COL_PAD, DQ_PAD, MAX_COLS,
-                                                 check_widths, round_up)
+                                                 WIDE_COLS, check_widths,
+                                                 round_up)
 from spcies_tpu_torch.kernels.modes import run_modes
 
 __all__ = ["check_width", "COL_PAD", "MAX_COLS", "round_up",
@@ -65,6 +71,14 @@ __all__ = ["check_width", "COL_PAD", "MAX_COLS", "round_up",
 FUSED_SOC_ARGTYPES = ([ctypes.c_void_p] * 17 + [ctypes.c_int] * 7
                       + [ctypes.c_float] * 2 + [ctypes.c_int] * 3
                       + [ctypes.c_void_p])
+# and of fused_soc_wide_launch: 17 pointers (the refill queue's place holds
+# the blocks' global state); B, P, dim_p, blocks, threads, shared bytes;
+# tol_p, tol_d; k_max, check_every, exact_k; the stream
+FUSED_SOC_WIDE_ARGTYPES = ([ctypes.c_void_p] * 17 + [ctypes.c_int] * 6
+                           + [ctypes.c_float] * 2 + [ctypes.c_int] * 3
+                           + [ctypes.c_void_p])
+# the wide build's state leaves: aux, zs, lm and the consumed aux
+WIDE_LEAVES = 4
 # lanes a block -> (rows a slab of M1', blocks an SM) of its build up to
 # stage.NARROW columns (Build<L> in csrc/fused_soc.cu)
 BUILDS = {8: (16, 2), 16: (8, 2), 32: (32, 1)}
@@ -132,11 +146,14 @@ def fused_soc_reference(aux1, zs0, lm0, M1P, LB_head, UB_head, scale_row,
     return (zs, lm, aux, *rest)
 
 
-def shared_bytes(P: int, lanes: int) -> int:
+def shared_bytes(P: int, lanes: int, wide: bool = False) -> int:
     """Dynamic shared bytes of a block (fused_soc_smem in the source): the
     ring of M1''s slabs, aux, zs and lm as [P][lanes], dq with its padding,
     the warps' row maxima, the masks, the window starts, the slots' lanes
-    and the lanes' cones."""
+    and the lanes' cones. The wide build's (fused_soc_wide_smem): dq as
+    [2][P][8] and the warps' row maxima."""
+    if wide:
+        return 4 * stage.WIDE_LANES * (2 * P + 4 * stage.WIDE_WARPS)
     slab = stage.build_of(BUILDS, P, lanes)[0]
     return stage.ring_bytes(P, slab) + 4 * (
         P * (4 * lanes + DQ_PAD) + P // WARP * 2 * lanes + 4 + 5 * lanes)
@@ -147,15 +164,17 @@ def check_width(P: int) -> None:
     width (a plain check, no CUDA: the fused builder calls it when it
     builds for the card)."""
     check_widths("fused slack-SOC kernel (K5, csrc/fused_soc.cu)",
-                 MAX_COLS, width=P)
+                 WIDE_COLS, width=P)
 
 
 def launch_plan(B: int, P: int, dim_p: int, *, tile_b: int,
-                check_every: int, exact_k: bool, lanes: int | None = None):
+                check_every: int, exact_k: bool, lanes: int | None = None,
+                wide: bool | None = None):
     """The build a launch takes and its geometry, as a dict: lanes a block,
-    blocks, threads, dynamic shared bytes, refill. `lanes` names a build in
-    place of the dispatch's choice; raises ValueError on a shape or mode no
-    build takes."""
+    blocks, threads, dynamic shared bytes, refill (and wide=True for the
+    wide build). `lanes` names a build in place of the dispatch's choice,
+    `wide` the wide build or not (by default: past MAX_COLS columns);
+    raises ValueError on a shape or mode no build takes."""
     check_width(P)
     if dim_p % WARP or P - dim_p != WARP:
         raise ValueError(f"the kernel takes an s slab of one warp of {WARP} "
@@ -163,6 +182,8 @@ def launch_plan(B: int, P: int, dim_p: int, *, tile_b: int,
                          f"dim_p={dim_p}, P={P}")
     stage.check_mode(B, tile_b=tile_b, check_every=check_every,
                      exact_k=exact_k)
+    if stage.use_wide(P, wide):
+        return stage.wide_plan(B, shared_bytes(P, 8, wide=True), lanes)
     return stage.plan(B, P, lambda L: shared_bytes(P, L), BUILDS,
                       refill=not (check_every > 1 and exact_k), lanes=lanes)
 
@@ -175,7 +196,7 @@ def launch_geometry(B: int, P: int, dim_p: int, **kw):
 
 
 def _launch(*args, dim_p, tol_p, tol_d, k_max, tile_b, check_every,
-            exact_k, lanes=None):
+            exact_k, lanes=None, wide=None):
     for t in args:
         if t.dtype != torch.float32:
             raise TypeError(f"the fused kernel takes float32; got {t.dtype}")
@@ -183,9 +204,13 @@ def _launch(*args, dim_p, tol_p, tol_d, k_max, tile_b, check_every,
             raise ValueError("the fused kernel takes contiguous tensors")
     B, P = args[0].shape
     plan = launch_plan(B, P, dim_p, tile_b=tile_b, check_every=check_every,
-                       exact_k=exact_k, lanes=lanes)
+                       exact_k=exact_k, lanes=lanes, wide=wide)
     from spcies_tpu_torch.kernels._build import load_kernel
-    launch = load_kernel("fused_soc", "fused_soc_launch", FUSED_SOC_ARGTYPES)
+    wide = plan.get("wide", False)
+    launch = (load_kernel("fused_soc", "fused_soc_wide_launch",
+                          FUSED_SOC_WIDE_ARGTYPES) if wide else
+              load_kernel("fused_soc", "fused_soc_launch",
+                          FUSED_SOC_ARGTYPES))
     dev = args[0].device
     zs, lm, aux = (torch.empty_like(args[0]) for _ in range(3))
     k, done = (torch.empty((B,), dtype=torch.int32, device=dev)
@@ -198,24 +223,30 @@ def _launch(*args, dim_p, tol_p, tol_d, k_max, tile_b, check_every,
     # the queue of groups of 8 lanes (refill), then each block's count of
     # iterations (refill) and kilo-clocks of the two halves of an iteration
     # (in a build with TP_CLOCKS; else zeros)
+    # (the wide build: the blocks' state)
     nb = plan["blocks"]
-    queue = torch.zeros((1 + 3 * nb,), dtype=torch.int32, device=dev)
+    queue = (torch.empty((B * WIDE_LEAVES * P,), dtype=torch.float32,
+                         device=dev) if wide else
+             torch.zeros((1 + 3 * nb,), dtype=torch.int32, device=dev))
     ptrs = [t.data_ptr() for t in args + (zs, lm, aux, k, done, rp, rd, snap,
                                           queue)]
     if any(ptr % 16 for ptr in ptrs):
         raise ValueError("the fused kernel takes 16-byte aligned tensors")
     stream = torch.cuda.current_stream(dev).cuda_stream
+    build = ([] if wide else [plan["lanes"]]) + [plan["blocks"],
+                                                 plan["threads"],
+                                                 plan["smem"]]
     with torch.cuda.device(dev):
         err = launch(
-            *ptrs, B, P, int(dim_p), plan["lanes"], plan["blocks"],
-            plan["threads"], plan["smem"], float(tol_p), float(tol_d),
+            *ptrs, B, P, int(dim_p), *build, float(tol_p), float(tol_d),
             int(k_max), int(check_every), int(bool(exact_k)), stream)
     if err != 0:
         raise RuntimeError(f"fused_soc kernel launch failed with CUDA error "
                            f"{err} ({plan})")
     fused_soc_solve.launches += 1
-    fused_soc_solve.last_plan = dict(plan, block_iterations=queue[1:1 + nb],
-                                   block_clocks=queue[1 + nb:].view(nb, 2))
+    fused_soc_solve.last_plan = plan if wide else dict(
+        plan, block_iterations=queue[1:1 + nb],
+        block_clocks=queue[1 + nb:].view(nb, 2))
     e_flag = torch.where(done == 1, 1, -1).to(torch.int32)
     return zs, lm, aux, k, e_flag, rp, rd
 
@@ -223,15 +254,17 @@ def _launch(*args, dim_p, tol_p, tol_d, k_max, tile_b, check_every,
 def fused_soc_solve(aux1, zs0, lm0, M1P, LB_head, UB_head, scale_row,
                     iscale_row, *, dim_p: int, tol_p: float, tol_d: float,
                     k_max: int, tile_b: int = 256, check_every: int = 1,
-                    exact_k: bool = False, lanes: int | None = None):
+                    exact_k: bool = False, lanes: int | None = None,
+                    wide: bool | None = None):
     """Run the fused slack-SOC split ADMM loop on [B, P] tensors in the
     layout [z (dim_p) | s (P - dim_p)] (padded as the module docstring
     says; B a multiple of tile_b): M1P [P, P] in row form
     (aux += dq @ M1P), the z-slab bounds of dim_p entries, the scale and
     iscale rows of P entries. CPU tensors run the plain version; CUDA
     tensors launch the kernel or raise. `lanes` names the build to launch
-    (one of stage.LANES) in place of the dispatch's choice; the results do
-    not depend on it, and the plain version has no such builds.
+    (one of stage.LANES) in place of the dispatch's choice, `wide` the wide
+    build or not (by default: past MAX_COLS columns); the results depend on
+    neither, and the plain version has no such builds.
 
     Returns (zs, lm, aux [B, P], k [B] int32, e_flag [B] int32 (1
     converged / -1 k_max reached), r_p [B], r_d [B]).
@@ -259,7 +292,7 @@ def fused_soc_solve(aux1, zs0, lm0, M1P, LB_head, UB_head, scale_row,
     if aux1.device.type == "cpu":
         return fused_soc_reference(*args, **kw)
     if aux1.device.type == "cuda":
-        return _launch(*args, lanes=lanes, **kw)
+        return _launch(*args, lanes=lanes, wide=wide, **kw)
     raise ValueError(f"fused_soc_solve takes CPU or CUDA tensors; got "
                      f"{aux1.device}")
 

@@ -41,6 +41,14 @@ SM. A build on the product stage K1 runs on (csrc/tile_product.cuh: 8, 16 or
 same bits on every lane and is 3-17 % slower at the HMPC families' batches on
 an H100 (PERF.md): it is kept as csrc/variants/fused_split_tile.cu, which
 tools/ab_kernels.py builds and times and nothing here launches.
+
+Past MAX_COLS columns, up to WIDE_COLS, the wide build
+(fused_split_wide_kernel, csrc/wide_cols.cuh) runs 512 threads of two
+columns, t and t + 512, at 8 lanes a block, with its state in global
+memory; `wide=` of `fused_split_solve` names it at any width, for a check
+of bits. The cones keep their warps: a warp of cones, 32 columns from
+cone0 on, lies in one half, [0, 512) or [512, P), of a thread's columns,
+since both halves start on a warp.
 """
 
 from __future__ import annotations
@@ -49,14 +57,15 @@ import ctypes
 
 import torch
 
+from spcies_tpu_torch.kernels import stage
 from spcies_tpu_torch.kernels.fused_admm import (COL_PAD, MAX_COLS,
-                                                 check_widths)
+                                                 WIDE_COLS, check_widths)
 from spcies_tpu_torch.kernels.fused_hmpc import (WARP, check_cone_layout,
                                                  cone_columns, cone_project)
 from spcies_tpu_torch.kernels.modes import run_modes
 
 __all__ = ["check_width", "fused_split_reference", "fused_split_solve",
-           "launch_geometry"]
+           "launch_geometry", "launch_plan", "shared_bytes"]
 
 # lanes per thread block (TB in csrc/fused_split.cu)
 CTA_LANES = 8
@@ -68,8 +77,16 @@ CTA_LANES = 8
 FUSED_SPLIT_ARGTYPES = ([ctypes.c_void_p] * 16 + [ctypes.c_int] * 10
                         + [ctypes.c_float] * 3 + [ctypes.c_int] * 3
                         + [ctypes.c_void_p])
+# and of fused_split_wide_launch: 17 pointers (the blocks' global state
+# after the snapshot scratch); the ints, floats and ints of
+# fused_split_launch; the stream
+FUSED_SPLIT_WIDE_ARGTYPES = ([ctypes.c_void_p] * 17 + [ctypes.c_int] * 10
+                             + [ctypes.c_float] * 3 + [ctypes.c_int] * 3
+                             + [ctypes.c_void_p])
 # the leaves an exact-k snapshot saves per lane: aux, zs, lm
 SNAP_LEAVES = 3
+# the wide build's state leaves: aux, zs, lm and the consumed aux
+WIDE_LEAVES = 4
 
 
 class _Ops:
@@ -126,13 +143,27 @@ def check_width(P: int) -> None:
     check, no CUDA: the fused builders call it when they build for the
     card)."""
     check_widths("fused split ADMM kernel (K7, csrc/fused_split.cu)",
-                 MAX_COLS, width=P)
+                 WIDE_COLS, width=P)
 
 
-def launch_geometry(B: int, P: int, dim_p: int, cone0: int, cone_g: int, *,
-                    tile_b: int, check_every: int, exact_k: bool):
-    """(blocks, threads, dynamic shared bytes) of a kernel launch; raises
-    ValueError on a shape or mode the kernel does not take."""
+def shared_bytes(P: int, wide: bool = False) -> int:
+    """Dynamic shared bytes of a block: dq [2][P][8], the warp maxima
+    [2][warps][2][8] and, one column a thread, the four state vectors
+    [P][8] (fused_split_wide_smem in the source for the wide build, whose
+    state lives in global memory)."""
+    if wide:
+        return 4 * CTA_LANES * (2 * P + 4 * stage.WIDE_WARPS)
+    return 4 * CTA_LANES * (6 * P + 4 * (P // WARP))
+
+
+def launch_plan(B: int, P: int, dim_p: int, cone0: int, cone_g: int, *,
+                tile_b: int, check_every: int, exact_k: bool,
+                wide: bool | None = None) -> dict:
+    """The build a launch takes and its geometry, as a dict: lanes a block,
+    blocks, threads, dynamic shared bytes, refill (always False; and
+    wide=True for the wide build). `wide` names the wide build or not (by
+    default: past MAX_COLS columns); raises ValueError on a shape or mode
+    no build takes."""
     check_width(P)
     if dim_p % WARP or not 0 < dim_p <= cone0:
         raise ValueError(f"the kernel takes a z slab of whole warps before "
@@ -149,26 +180,37 @@ def launch_geometry(B: int, P: int, dim_p: int, cone0: int, cone_g: int, *,
         raise ValueError(
             f"plain free-run (check_every > 1 without exact_k) takes "
             f"tile_b={CTA_LANES} on the GPU; got {tile_b}")
-    # dq [2][P][TB], the warp maxima [2][warps][2][TB] and the four state
-    # vectors [P][TB]
-    smem = 4 * CTA_LANES * (6 * P + 4 * (P // WARP))
-    return B // CTA_LANES, P, smem
+    if stage.use_wide(P, wide):
+        return stage.wide_plan(B, shared_bytes(P, wide=True))
+    return dict(lanes=CTA_LANES, blocks=B // CTA_LANES, threads=P,
+                smem=shared_bytes(P), refill=False)
+
+
+def launch_geometry(B: int, P: int, dim_p: int, cone0: int, cone_g: int,
+                    **kw):
+    """(blocks, threads, dynamic shared bytes) of a kernel launch; the
+    arguments of `launch_plan`."""
+    plan = launch_plan(B, P, dim_p, cone0, cone_g, **kw)
+    return plan["blocks"], plan["threads"], plan["smem"]
 
 
 def _launch(*args, alpha, symmetric, use_soc, dim_p, cone0, cone_g, tol_p,
-            tol_d, k_max, tile_b, check_every, exact_k):
+            tol_d, k_max, tile_b, check_every, exact_k, wide=None):
     for t in args:
         if t.dtype != torch.float32:
             raise TypeError(f"the fused kernel takes float32; got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError("the fused kernel takes contiguous tensors")
     B, P = args[0].shape
-    blocks, threads, smem = launch_geometry(
-        B, P, dim_p, cone0, cone_g, tile_b=tile_b, check_every=check_every,
-        exact_k=exact_k)
+    plan = launch_plan(B, P, dim_p, cone0, cone_g, tile_b=tile_b,
+                       check_every=check_every, exact_k=exact_k, wide=wide)
+    blocks, threads, smem = plan["blocks"], plan["threads"], plan["smem"]
+    wide = plan.get("wide", False)
     from spcies_tpu_torch.kernels._build import load_kernel
-    launch = load_kernel("fused_split", "fused_split_launch",
-                         FUSED_SPLIT_ARGTYPES)
+    launch = (load_kernel("fused_split", "fused_split_wide_launch",
+                          FUSED_SPLIT_WIDE_ARGTYPES) if wide else
+              load_kernel("fused_split", "fused_split_launch",
+                          FUSED_SPLIT_ARGTYPES))
     dev = args[0].device
     zs, lm, aux = (torch.empty_like(args[0]) for _ in range(3))
     k, done = (torch.empty((B,), dtype=torch.int32, device=dev)
@@ -178,11 +220,13 @@ def _launch(*args, alpha, symmetric, use_soc, dim_p, cone0, cone_g, tol_p,
     exact = check_every > 1 and exact_k
     snap = torch.empty((B if exact else 0, SNAP_LEAVES * P),
                        dtype=torch.float32, device=dev)
+    state = (torch.empty((B * WIDE_LEAVES * P,), dtype=torch.float32,
+                         device=dev),) if wide else ()
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = launch(
             *(t.data_ptr() for t in args + (zs, lm, aux, k, done, rp, rd,
-                                            snap)),
+                                            snap) + state),
             B, P, int(dim_p), int(cone0), int(cone_g), int(bool(symmetric)),
             int(bool(use_soc)), blocks, threads, smem, float(alpha),
             float(tol_p), float(tol_d), int(k_max), int(check_every),
@@ -192,6 +236,7 @@ def _launch(*args, alpha, symmetric, use_soc, dim_p, cone0, cone_g, tol_p,
                            f"error {err} (blocks={blocks}, threads="
                            f"{threads}, shared={smem} B)")
     fused_split_solve.launches += 1
+    fused_split_solve.last_plan = plan
     e_flag = torch.where(done == 1, 1, -1).to(torch.int32)
     return zs, lm, aux, k, e_flag, rp, rd
 
@@ -201,13 +246,15 @@ def fused_split_solve(aux1, zs0, lm0, M1P, lb_row, ub_row, scale_row,
                       use_soc: bool, dim_p: int, cone0: int, cone_g: int,
                       tol_p: float, tol_d: float, k_max: int,
                       tile_b: int = 256, check_every: int = 1,
-                      exact_k: bool = False):
+                      exact_k: bool = False, wide: bool | None = None):
     """Run the fused split (S)ADMM loop on [B, P] tensors in the layout the
     module docstring sets out (B a multiple of tile_b): M1P [P, P] in row
     form (aux += dq @ M1P), the rows lb, ub, scale and iscale of P entries
     (lb/ub: clip bounds, or a cone's D-set bounds on its three lanes).
     alpha scales the dual steps; symmetric adds SADMM's half-step. CPU
     tensors run the plain version; CUDA tensors launch the kernel or raise.
+    `wide` names the wide build or not (by default: past MAX_COLS columns);
+    the results do not depend on it, and the plain version takes none.
 
     Returns (zs, lm, aux [B, P], k [B] int32, e_flag [B] int32 (1
     converged / -1 k_max reached), r_p [B], r_d [B]).
@@ -237,9 +284,10 @@ def fused_split_solve(aux1, zs0, lm0, M1P, lb_row, ub_row, scale_row,
     if aux1.device.type == "cpu":
         return fused_split_reference(*args, **kw)
     if aux1.device.type == "cuda":
-        return _launch(*args, **kw)
+        return _launch(*args, wide=wide, **kw)
     raise ValueError(f"fused_split_solve takes CPU or CUDA tensors; got "
                      f"{aux1.device}")
 
 
 fused_split_solve.launches = 0
+fused_split_solve.last_plan = None

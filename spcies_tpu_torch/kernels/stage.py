@@ -15,13 +15,20 @@ groups; exact-k runs one block per L lanes. `pick_lanes` takes the widest
 build that fits the 232,448 bytes of shared memory a block can have and
 still gives half of the SMs a block, as kernels/fused_admm.py `pick_lanes`
 does.
+
+Past MAX_COLS columns each of K2-K7 runs its wide build
+(csrc/wide_cols.cuh): WIDE_LANES lanes a block on WIDE_THREADS threads of
+two columns each, up to WIDE_COLS columns, one block per WIDE_LANES lanes,
+no refill (`use_wide`, `wide_plan`). A wide build also takes the narrow
+widths when it is named (`wide=True`), for a check of bits.
 """
 
 from __future__ import annotations
 
 from spcies_tpu_torch.kernels.fused_admm import (DRAIN_LANES, LANES,
-                                                 RING_EXTRA, SMEM_MAX, SMS,
-                                                 STAGES)
+                                                 MAX_COLS, RING_EXTRA,
+                                                 SMEM_MAX, SMS, STAGES,
+                                                 WIDE_THREADS)
 
 # shared memory of an H100 SM, and what each block resident on it reserves
 SMEM_SM, SMEM_RESERVED = 233472, 1024
@@ -29,6 +36,10 @@ SMEM_SM, SMEM_RESERVED = 233472, 1024
 # WIDE_BUILD (rows a slab, blocks an SM)
 NARROW = 320
 WIDE_BUILD = (16, 1)
+# the wide builds of K2-K7: lanes a block (one group of 8, which plain
+# free-run drains), and warps a block
+WIDE_LANES = DRAIN_LANES
+WIDE_WARPS = WIDE_THREADS // 32
 
 
 def ring_bytes(P: int, slab: int) -> int:
@@ -106,3 +117,34 @@ def plan(B: int, width: int, smem_of, builds: dict, *, refill: bool,
     return dict(lanes=lanes,
                 blocks=_blocks(B, width, smem_of, builds, lanes, refill),
                 threads=width, smem=smem_of(lanes), refill=refill)
+
+
+def use_wide(width: int, wide: bool | None) -> bool:
+    """Whether a launch at this padded width (the wider of a kernel's
+    widths) takes the wide build: `wide` names it or not; by default, past
+    MAX_COLS columns alone. Raises ValueError where a build of one thread a
+    column is named past MAX_COLS."""
+    if wide is None:
+        return width > MAX_COLS
+    if not wide and width > MAX_COLS:
+        raise ValueError(f"a build of one thread a column takes up to "
+                         f"{MAX_COLS} columns; got {width}")
+    return bool(wide)
+
+
+def wide_plan(B: int, smem: int, lanes: int | None = None) -> dict:
+    """The launch of a wide build (up to WIDE_COLS columns, checked by the
+    kernel's `check_width`) of B lanes, whole groups of WIDE_LANES, with
+    `smem` dynamic shared bytes: one block per WIDE_LANES lanes of
+    WIDE_THREADS threads, no refill. Raises ValueError where `lanes` names
+    another build or the block does not fit shared memory."""
+    if lanes not in (None, WIDE_LANES):
+        raise ValueError(f"the wide build runs {WIDE_LANES} lanes a block; "
+                         f"got lanes={lanes}")
+    if B % WIDE_LANES:
+        raise ValueError(f"batch {B} is not whole groups of {WIDE_LANES}")
+    if smem > SMEM_MAX:
+        raise ValueError(f"the wide build's block needs {smem} bytes of "
+                         f"shared memory, past {SMEM_MAX}")
+    return dict(lanes=WIDE_LANES, blocks=B // WIDE_LANES,
+                threads=WIDE_THREADS, smem=smem, refill=False, wide=True)

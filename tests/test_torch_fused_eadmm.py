@@ -320,7 +320,7 @@ def test_launch_geometry():
         k_max=10)[2] <= 232448
     bad = [
         dict(B=64, Z=250, tile_b=8),      # not whole warps
-        dict(B=64, Z=544, tile_b=8),      # beyond 512 threads
+        dict(B=64, Z=1056, tile_b=8),     # beyond every build (1024)
         dict(B=60, Z=96, tile_b=12),      # tile not whole blocks
         dict(B=48, Z=96, tile_b=32),      # batch not whole tiles
         dict(B=256, Z=96, tile_b=256, check_every=8),  # drain per block

@@ -429,7 +429,7 @@ def test_launch_geometry():
                               exact_k=False, fixed_iters=50)["refill"]
     bad = [
         dict(nzp=250),                    # not whole warps
-        dict(nzp=544),                    # beyond 512 threads
+        dict(nzp=1056),                   # beyond every build (1024)
         dict(t0=60),                      # slab straddles warps 1 and 2
         dict(n=33, t0=0),                 # slab wider than a warp
         dict(t0=92),                      # slab beyond the width

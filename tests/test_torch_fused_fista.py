@@ -377,8 +377,8 @@ def test_launch_geometry():
     bad = [
         dict(B=64, nzp=250, nlamp=64, tile_b=8),     # not whole warps
         dict(B=64, nzp=96, nlamp=70, tile_b=8),
-        dict(B=64, nzp=544, nlamp=64, tile_b=8),     # beyond 512 threads
-        dict(B=64, nzp=96, nlamp=544, tile_b=8),
+        dict(B=64, nzp=1056, nlamp=64, tile_b=8),    # beyond every build
+        dict(B=64, nzp=96, nlamp=1056, tile_b=8),
         dict(B=60, nzp=96, nlamp=64, tile_b=12),     # tile not whole blocks
         dict(B=48, nzp=96, nlamp=64, tile_b=32),     # batch not whole tiles
         dict(B=256, nzp=96, nlamp=64, tile_b=256, check_every=8),  # drain

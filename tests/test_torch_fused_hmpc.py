@@ -372,7 +372,7 @@ def test_launch_geometry():
         2 * 32 * 288 + 16 + 288 * 32 * 3 + 288 * 36 + 9 * 2 * 32 + 4 + 64)
     bad = [
         dict(dim_p=120),                  # not whole warps
-        dict(ns_p=544, cone0=512),        # beyond 512 threads
+        dict(ns_p=1056, cone0=1024),      # beyond every build (1024)
         dict(cone0=40),                   # cones off a warp boundary
         dict(cone0=128),                  # no cone warp
         dict(g=0),                        # an empty warp of cones

@@ -331,7 +331,7 @@ def test_launch_geometry():
     assert plan["smem"] == fk.shared_bytes(512, 16) <= 232448
     bad = [
         dict(P=120, dim_p=96),            # not whole warps
-        dict(P=544, dim_p=512),           # beyond 512 threads
+        dict(P=1056, dim_p=1024),         # beyond every build (1024)
         dict(P=160, dim_p=96),            # an s slab of two warps
         dict(tile_b=12, B=48),            # tile not whole groups of 8
         dict(tile_b=32, B=48),            # batch not whole tiles

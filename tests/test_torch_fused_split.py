@@ -378,7 +378,7 @@ def test_launch_geometry():
                 B // 8, P, smem)
     bad = [
         dict(P=120),                       # not whole warps
-        dict(P=544, cone0=512),            # beyond 512 threads
+        dict(P=1056, cone0=1024),          # beyond every build (1024)
         dict(dim_p=80),                    # a z slab not of whole warps
         dict(dim_p=128),                   # the z slab past the cones
         dict(cone0=128),                   # no cone warp
@@ -416,9 +416,10 @@ def test_lanes_constant_is_the_kernels_own():
     assert not hasattr(fused_admm, "CTA_LANES")
     src = (_build.CSRC / "fused_split.cu").read_text()
     assert f"TB = {fk.CTA_LANES};" in src
-    # the launched source stands alone: no shared header in its cache key
+    # the launched source includes the wide builds' header alone, not the
+    # product stage's (its narrow build is the first layout)
     assert _build.included_files(_build.CSRC / "fused_split.cu") == [
-        _build.CSRC / "fused_split.cu"]
+        _build.CSRC / "fused_split.cu", _build.CSRC / "wide_cols.cuh"]
 
 
 def test_build_is_lazy_and_content_addressed():
