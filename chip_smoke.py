@@ -129,7 +129,27 @@ started together), then
      masses at N=10 and 31, B=1024, checked and exact-k: every lane
      converges, k agrees with the plain version on >= 0.9985 of lanes, u
      within 1e-4, and every lanes-a-block build that takes the shape gives
-     the same bits; each launch plan is logged.
+     the same bits; each launch plan is logged;
+ 19. drives the banded backends and the time-varying mode (plain torch, no
+     kernel of csrc/) through make_solver(..., device="cuda") on the
+     oscillating masses: each of laxMPC-ADMM, -FISTA, equMPC-ADMM, -FISTA,
+     ellipMPC-ADMM and MPCT-ADMM-cs banded, and the time-varying
+     laxMPC-ADMM (sequential, band_parallel_scan, tv_dense_w),
+     laxMPC-FISTA, equMPC-ADMM, -FISTA and MPCT-ADMM-cs, each lane its own
+     model (A, B and the Q and R diagonals scaled per lane in [0.97,
+     1.03]), in fp64 at N=30, B=256 against the same solver on the CPU
+     (every lane converged, k equal, a lane that moves named and by one
+     iteration at most, u within 1e-8); then in fp32 at the JAX
+     long-horizon record's sizes (BENCH_LONGN_r05.json; BAND_ROWS: banded
+     and scan against dense at N=120, B=4096 and N=480, B=1024, MPCT-cs
+     banded against dense at N=120, the time-varying rows at N=120,
+     B=4096 and N=240, B=2048), each run to convergence on 1024 lanes
+     (every lane converged; against the fp64 CPU run of 256 lanes k within
+     one iteration and u within 1e-4 where k is equal), timed at
+     fixed_iters=100 (median of three), with its peak of allocated memory,
+     and profiled twice for its launches and device time an iteration
+     (the idle share); a tv_dense_w row that runs out of memory is logged,
+     the one failure the phase records rather than raises.
 K1, K2, K3, K4, K5 and K6 run on the product stage csrc/tile_product.cuh;
 tools/ab_kernels.py holds their builds to the one-column-per-thread parents
 in csrc/variants/, and tools/ab_parent.py each kernel to an earlier tree's
@@ -1957,6 +1977,307 @@ def phase_off_fixture(sp):
                     check_lanes_bitwise(kern, args, kk, OFF_B, what, 18)
 
 
+# phase 19: the banded backends and the time-varying mode (ROADMAP queue 1
+# item 8) through make_solver on the card, on the oscillating masses
+BAND_TOL = 1e-4
+BAND_K_MAX = 5000
+BAND_FIXED = 100      # the JAX long-horizon record times fixed_iters=100
+BAND_RUNS = 3         # timed runs a row (median)
+BAND_PROFILE = (4, 12)    # fixed_iters of the two profiled runs a row
+BAND_REF_B = 256      # lanes of a full-size row's fp64 CPU reference
+BAND_U_TOL = 1e-8     # fp64 card against fp64 CPU, lanes with equal k
+                      # (fp32 against fp64: U_TOL)
+BAND_CHECK_B = 256    # the fp64 correctness rows, at N=30
+BAND_CONV_B = 1024    # lanes of a full-size row's run to convergence: cut
+                      # from 4096 and 2048 to keep the phase's time down
+                      # (the timed runs keep the row's B)
+LANE_SPREAD = 0.03    # per-lane model factors in [0.97, 1.03]
+
+
+def _band_param(fam, param, st):
+    p = dict(param)
+    if fam.startswith("equMPC"):
+        p.pop("T")
+    elif fam == "MPCT-ADMM-cs":
+        p["T"] = 10.0 * np.asarray(p["Q"])
+        p["S"] = np.asarray(p["R"]).copy()
+    elif fam != "laxMPC-ADMM":      # FISTA and ellipMPC need a diagonal T
+        p["T"] = np.diag(np.sum(p["T"], axis=1))
+    if fam == "ellipMPC-ADMM":
+        p.update(P=np.eye(len(st["xr"])), c=st["xr"], r=R_ELLIP)
+    return p
+
+
+# family -> (formulation, method, submethod, options): laxMPC-ADMM and
+# MPCT-ADMM-cs at the JAX long-horizon record's settings
+# (tools/bench_longn.py:36-58: rho 15 and 2), ellipMPC-ADMM at the bench's
+# N=30 family's (rho 5, P = I, c = xr, r = 0.5)
+BAND_FAMILIES = {
+    "laxMPC-ADMM": ("laxMPC", "ADMM", "", dict(rho=15.0)),
+    "laxMPC-FISTA": ("laxMPC", "FISTA", "", {}),
+    "equMPC-ADMM": ("equMPC", "ADMM", "", dict(rho=15.0)),
+    "equMPC-FISTA": ("equMPC", "FISTA", "", {}),
+    "ellipMPC-ADMM": ("ellipMPC", "ADMM", "", dict(rho=5.0)),
+    "MPCT-ADMM-cs": ("MPCT", "ADMM", "cs", dict(rho=2.0)),
+}
+SCAN = dict(band_parallel_scan=True)
+DENSE_W = dict(tv_dense_w=True)
+# the correctness rows, fp64 at N=30: (family, time-varying, options)
+BAND_CHECKS = tuple((fam, False, {}) for fam in BAND_FAMILIES) + (
+    ("laxMPC-ADMM", True, {}), ("laxMPC-ADMM", True, SCAN),
+    ("laxMPC-ADMM", True, DENSE_W), ("laxMPC-FISTA", True, {}),
+    ("equMPC-ADMM", True, {}), ("equMPC-FISTA", True, {}),
+    ("MPCT-ADMM-cs", True, {}))
+# the full-size rows, fp32, at the JAX long-horizon record's sizes
+# (BENCH_LONGN_r05.json): (family, N, B, backend, time-varying, options)
+BAND_ROWS = (
+    ("laxMPC-ADMM", 120, 4096, "dense", False, {}),
+    ("laxMPC-ADMM", 120, 4096, "banded", False, {}),
+    ("laxMPC-ADMM", 120, 4096, "banded", False, SCAN),
+    ("laxMPC-ADMM", 480, 1024, "dense", False, {}),
+    ("laxMPC-ADMM", 480, 1024, "banded", False, {}),
+    ("laxMPC-ADMM", 480, 1024, "banded", False, SCAN),
+    ("MPCT-ADMM-cs", 120, 4096, "dense", False, {}),
+    ("MPCT-ADMM-cs", 120, 4096, "banded", False, {}),
+    ("laxMPC-ADMM", 120, 4096, "dense", True, {}),
+    ("laxMPC-ADMM", 120, 4096, "dense", True, SCAN),
+    ("laxMPC-ADMM", 120, 4096, "dense", True, DENSE_W),
+    ("laxMPC-ADMM", 240, 2048, "dense", True, {}),
+    ("laxMPC-ADMM", 240, 2048, "dense", True, SCAN),
+    ("laxMPC-ADMM", 240, 2048, "dense", True, DENSE_W),
+    ("MPCT-ADMM-cs", 120, 4096, "dense", True, {}),
+)
+
+
+def band_problem(sp, fam, horizon):
+    sys_, param, st = sp.systems.tester_fixture()
+    return sys_, _band_param(fam, dict(param, N=horizon), st), st
+
+
+def band_ingredients(sp, fam, horizon, backend):
+    """The offline ingredients of a time-invariant row, computed once for
+    the card's solvers and the CPU reference (N=480's dense maps take
+    seconds of numpy; laxMPC's banded and dense backends read one dict)."""
+    from spcies_tpu_torch.formulations import laxmpc, mpct
+    form, meth, sub, kw = BAND_FAMILIES[fam]
+    sys_, p, _ = band_problem(sp, fam, horizon)
+    o = sp.default_options(form, meth, sub, **kw)
+    if fam == "MPCT-ADMM-cs":
+        make = (mpct.mpct_cs_banded_ingredients if backend == "banded"
+                else mpct.mpct_admm_cs_ingredients)
+    else:
+        make = laxmpc.laxmpc_admm_ingredients
+    return make(sys_, p, o)
+
+
+def band_solver(sp, fam, horizon, *, backend, tv, precision, device,
+                ingredients=None, **extra):
+    form, meth, sub, kw = BAND_FAMILIES[fam]
+    sys_, p, _ = band_problem(sp, fam, horizon)
+    o = sp.default_options(form, meth, sub, **{**dict(
+        tol=BAND_TOL, k_max=BAND_K_MAX), **kw, **extra})
+    o.precision = precision
+    o.time_varying = tv
+    return sp.make_solver(sys_, p, formulation=form, method=meth,
+                          submethod=sub, options=o, backend=backend,
+                          device=device, ingredients=ingredients)
+
+
+def band_inputs(sp, fam, horizon, B, seed, tv):
+    """x0 scaled per lane in [-2, 2] as problem() draws it; for the
+    time-varying rows each lane's own model: A, B, and the Q and R
+    diagonals each scaled by a factor in [0.97, 1.03] drawn per lane
+    (tests/test_time_varying.py's scale_A, one value a lane), and the
+    nominal single-stage bounds."""
+    sys_, p, st = band_problem(sp, fam, horizon)
+    rng = np.random.default_rng(seed)
+    x0 = np.asarray(st["x"])[None, :] * rng.uniform(-2, 2, (B, 1))
+    x = (x0, np.tile(st["xr"], (B, 1)), np.tile(st["ur"], (B, 1)))
+    if not tv:
+        return x
+    f = rng.uniform(1 - LANE_SPREAD, 1 + LANE_SPREAD, (B, 4))
+    stage = lambda lo, hi: np.tile(np.concatenate([sys_[lo], sys_[hi]]),
+                                   (B, 1))
+    return x + (f[:, 0, None, None] * np.asarray(sys_["A"]),
+                f[:, 1, None, None] * np.asarray(sys_["B"]),
+                f[:, 2, None] * np.diag(np.asarray(p["Q"])),
+                f[:, 3, None] * np.diag(np.asarray(p["R"])),
+                stage("LBx", "LBu"), stage("UBx", "UBu"))
+
+
+def band_label(fam, horizon, B, backend, tv, extra):
+    how = ("scan" if extra.get("band_parallel_scan") else
+           "dense W" if extra.get("tv_dense_w") else
+           "sequential" if backend == "banded" or tv else backend)
+    return f"{fam}{' time-varying' if tv else ''} {how} N={horizon} B={B}"
+
+
+def hold_lanes(what, got, ref):
+    """Per-lane k of two runs: the lanes that move are named. Returns (k
+    agreement, largest u error on the lanes with equal k, moved lanes,
+    their moves, both runs' every lane converged)."""
+    kg, kr = got.k.cpu().numpy(), ref.k.cpu().numpy()
+    moved = np.flatnonzero(kg != kr)
+    if moved.size:
+        log(f"phase 19 {what}: lanes {moved.tolist()} move by "
+            f"{(kg[moved] - kr[moved]).tolist()} iterations")
+    same = kg == kr
+    u_err = float(np.abs(got.u.cpu().double().numpy()
+                         - ref.u.cpu().numpy())[same].max())
+    converged = bool((got.e_flag == 1).all()) and bool(
+        (ref.e_flag == 1).all())
+    return float(same.mean()), u_err, moved, kg[moved] - kr[moved], converged
+
+
+def profile_run(run):
+    """(device activities, device ms) of one call of run() under
+    torch.profiler: kernels, copies and fills on the card."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return len(dev), sum(e.time_range.elapsed_us() for e in dev) / 1e3
+
+
+def wall_ms(run, reps):
+    """Median host wall of reps calls, each CUDA-synchronised, and all."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return sorted(times)[len(times) // 2], times
+
+
+def band_row(sp, row, refs):
+    """One full-size fp32 row: a run to convergence held against the
+    fp64 CPU run of its first BAND_REF_B lanes, BAND_RUNS timed runs at
+    fixed_iters=BAND_FIXED, the peak of allocated memory, and two
+    profiled runs, whose difference gives an iteration's launches and
+    device time (the idle share: against the timed runs' wall an
+    iteration)."""
+    fam, horizon, B, backend, tv, extra = row
+    what = band_label(*row)
+    key = (fam, horizon, tv)
+
+    def ingredients(backend):
+        if tv:
+            return None
+        ing_key = (key, backend if fam == "MPCT-ADMM-cs" else "")
+        if ing_key not in refs:
+            t0 = time.perf_counter()
+            refs[ing_key] = band_ingredients(sp, fam, horizon, backend)
+            log(f"phase 19 {fam} N={horizon} {backend} ingredients: "
+                f"{time.perf_counter() - t0:.1f} s")
+        return refs[ing_key]
+
+    x = band_inputs(sp, fam, horizon, B, 19, tv)
+    if key not in refs:
+        # the fp64 CPU reference: the sequential banded or time-varying
+        # solver, the same iteration as every backend of the row
+        t0 = time.perf_counter()
+        ref = band_solver(sp, fam, horizon, backend="banded", tv=tv,
+                          precision="double", device="cpu",
+                          ingredients=ingredients("banded"))
+        refs[key] = ref(*(a[:BAND_REF_B] for a in x))
+        ref_what = band_label(fam, horizon, BAND_REF_B, "banded", tv, {})
+        log(f"phase 19 {ref_what} fp64 CPU reference: "
+            f"{time.perf_counter() - t0:.1f} s")
+    ing = ingredients(backend)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out = dict(row=what)
+    try:
+        s = band_solver(sp, fam, horizon, backend=backend, tv=tv,
+                        precision="float", device=DEVICE, ingredients=ing,
+                        **extra)
+        xd = [torch.as_tensor(a, dtype=torch.float32, device=DEVICE)
+              for a in x]
+        t0 = time.perf_counter()
+        res = s(*(a[:BAND_CONV_B] for a in xd))
+        torch.cuda.synchronize()
+        out["converge_ms"] = (time.perf_counter() - t0) * 1e3
+        out["converge_B"] = res.k.shape[0]
+        out["converged"] = float((res.e_flag == 1).float().mean())
+        out["k_mean"] = float(res.k.float().mean())
+        out["k_max"] = int(res.k.max())
+        agree, u_err, moved, moves, _ = hold_lanes(
+            what, type(res)(res.u[:BAND_REF_B], res.k[:BAND_REF_B],
+                            res.e_flag[:BAND_REF_B], {}), refs[key])
+        out.update(k_agree=agree, u_err_vs_fp64=u_err,
+                   moved=dict(zip(moved.tolist(), moves.tolist())))
+        def fixed(iters):
+            return s(*xd, fixed_iters=iters)
+
+        ms, times = wall_ms(lambda: fixed(BAND_FIXED), BAND_RUNS)
+        out.update(ms=ms, ms_all=times, solves_per_s=B / ms * 1e3,
+                   fixed_iters=BAND_FIXED,
+                   peak_mb=torch.cuda.max_memory_allocated() / 2**20)
+        (n1, dev1), (n2, dev2) = (profile_run(lambda: fixed(i))
+                                  for i in BAND_PROFILE)
+        span = BAND_PROFILE[1] - BAND_PROFILE[0]
+        # an iteration's launches and device time, from the difference of
+        # the two runs, against the timed runs' wall an iteration
+        dev_it = (dev2 - dev1) / span
+        out.update(launches_per_iter=(n2 - n1) / span,
+                   launches_profiled=(n1, n2), device_ms_per_iter=dev_it,
+                   idle_share=1.0 - dev_it / (ms / BAND_FIXED))
+        log("phase 19 " + json.dumps(out))
+        # fp32 against fp64: the same code moves a few per cent of lanes by
+        # one iteration at tol 1e-4 (fp32 against fp64, and fp32 dense
+        # against fp32 banded, on the CPU alike), so the bar is one
+        # iteration on every lane, not K_AGREE
+        assert out["converged"] == 1.0, (what, out["converged"])
+        assert not moved.size or np.abs(moves).max() <= 1, (what, moves)
+        assert u_err <= U_TOL, (what, u_err)
+    except torch.cuda.OutOfMemoryError as exc:
+        # the one failure this phase records rather than raises: the
+        # per-lane dense W's memory is the measurement
+        if not extra.get("tv_dense_w"):
+            raise
+        out.update(out_of_memory=str(exc).splitlines()[0],
+                   peak_mb=torch.cuda.max_memory_allocated() / 2**20)
+        log("phase 19 " + json.dumps(out))
+    finally:
+        s = res = None
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_banded(sp):
+    """Phase 19: the banded backends and the time-varying mode on the
+    card. The correctness rows (fp64, N=30, B=256) against the same
+    solver on the CPU, then the full-size fp32 rows (BAND_ROWS)."""
+    t0 = time.perf_counter()
+    for fam, tv, extra in BAND_CHECKS:
+        backend = "dense" if tv else "banded"
+        what = band_label(fam, N, BAND_CHECK_B, backend, tv, extra)
+        x = band_inputs(sp, fam, N, BAND_CHECK_B, 190, tv)
+        got, ref = (band_solver(sp, fam, N, backend=backend, tv=tv,
+                                precision="double", device=dev,
+                                **extra)(*x)
+                    for dev in (DEVICE, "cpu"))
+        agree, u_err, moved, moves, converged = hold_lanes(what, got, ref)
+        log(f"phase 19 {what} fp64 card vs CPU: every lane converged "
+            f"{converged}, k equal on {agree}, k_mean "
+            f"{float(got.k.double().mean())}, max|du| {u_err} "
+            f"({time.perf_counter() - t0:.1f} s into the phase)")
+        assert converged, what
+        assert not moved.size or np.abs(moves).max() <= 1, (what, moves)
+        assert u_err <= BAND_U_TOL, (what, u_err)
+    refs, rows = {}, []
+    for row in BAND_ROWS:
+        rows.append(band_row(sp, row, refs))
+    log(f"phase 19 wall: {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
 def kernel_entry(name, launches, err, times, wide=None):
     """One kernel's entry of the `kernels` line, with its wide widths'
     times and bounds (phase 17) under "wide"."""
@@ -2022,6 +2343,7 @@ def main():
     wide = phase_wide(sp)
     wk = phase_wide_kernels(sp)
     phase_off_fixture(sp)
+    phase_banded(sp)
     log(json.dumps({"kernels": [
         kernel_entry("fused_admm", launches + fam_launches["fused_admm"]
                      + mpct_launches["fused_admm"] + roll_launches,

@@ -18,20 +18,25 @@ import torch
 from spcies_tpu_torch.config import Options, default_options
 
 
-def broadcast_inputs(dtype, device, *arrays):
-    """Promote per-call input vectors to batched [B, n] tensors on `device`;
-    single problems ([n] vectors) get a singleton batch dim. All inputs
-    must agree on B."""
+def broadcast_inputs(dtype, device, *arrays, core_ndims=None):
+    """Promote per-call inputs to batched [B, ...] tensors on `device`;
+    single problems (core-rank inputs) get a singleton batch dim. All
+    inputs must agree on B.
+
+    core_ndims: per-input rank of one problem's data (default 1, vectors;
+    matrix inputs like the time-varying solvers' A are rank 2)."""
+    if core_ndims is None:
+        core_ndims = (1,) * len(arrays)
     out = []
     B = None
-    for a in arrays:
+    for a, cnd in zip(arrays, core_ndims):
         a = torch.as_tensor(a, dtype=dtype, device=device)
-        if a.ndim == 1:
+        if a.ndim == cnd:
             a = a[None]
-        elif a.ndim != 2:
+        elif a.ndim != cnd + 1:
             raise ValueError(
-                f"input must have rank 1 (one problem) or 2 (batched); "
-                f"got rank {a.ndim}")
+                f"input must have rank {cnd} (one problem) or {cnd + 1} "
+                f"(batched); got rank {a.ndim}")
         if B is None:
             B = a.shape[0]
         elif a.shape[0] == 1 and B > 1:
@@ -51,9 +56,12 @@ def broadcast_inputs(dtype, device, *arrays):
 # and 'ua' are sinusoid AMPLITUDES (ellipHMPC's harmonic sine and cosine
 # components), which take the scaling alone: for x_eng(t) = xre + xrs sin +
 # xrc cos the incremental signal is Nx (xre - opx) + (Nx xrs) sin +
-# (Nx xrc) cos
+# (Nx xrc) cos; 'xu' is a stacked single-stage bound [x; u] (the
+# time-varying solvers' LB and UB), scaled by [Nx; Nu] around [opx; opu]
+# (code_laxMPC_ADMM_C.c:93-97)
 _INPUT_KINDS = {"x0": "x", "xr": "x", "ur": "u", "xre": "x", "ure": "u",
-                "xrs": "xa", "xrc": "xa", "urs": "ua", "urc": "ua"}
+                "xrs": "xa", "xrc": "xa", "urs": "ua", "urc": "ua",
+                "LB": "xu", "UB": "xu"}
 
 
 class BatchedSolver:
@@ -67,7 +75,8 @@ class BatchedSolver:
 
     def __init__(self, solve_fn, ingredients: dict, options: Options,
                  *, n: int, m: int, N: int, nz: int, dtype, device,
-                 input_names=("x0", "xr", "ur"), default_inputs=()):
+                 input_names=("x0", "xr", "ur"), default_inputs=(),
+                 input_core_ndims=None, input_kinds=None):
         self.ingredients = ingredients
         self.options = options
         self.n, self.m, self.N, self.nz = n, m, N, nz
@@ -77,10 +86,17 @@ class BatchedSolver:
         # trailing optional inputs (e.g. the soc solver's runtime radius,
         # code_ellipMPC_ADMM_soc_C.c:20 r_ellip) with their default values
         self.default_inputs = tuple(default_inputs)
+        # per-input rank of one problem's data (1: vectors; the
+        # time-varying solvers' A and B are matrices)
+        self.input_core_ndims = (tuple(input_core_ndims)
+                                 if input_core_ndims is not None
+                                 else (1,) * len(self.input_names))
         # per-input unit kind for the in_engineering scaling (_INPUT_KINDS;
-        # None: unscaled), from the input's name
-        self.input_kinds = tuple(_INPUT_KINDS.get(name)
-                                 for name in self.input_names)
+        # None: unscaled), from the input's name unless given
+        if input_kinds is None:
+            input_kinds = (_INPUT_KINDS.get(name)
+                           for name in self.input_names)
+        self.input_kinds = tuple(input_kinds)
         self.n_inputs = len(self.input_names)
         # solve_fn(*inputs, init, fixed_iters)
         self.raw_fn = solve_fn
@@ -103,7 +119,8 @@ class BatchedSolver:
 
     def _to_incremental(self, inputs):
         """Engineering -> incremental units: x = Nx*(x_eng - opx) etc.
-        (code_laxMPC_ADMM_C.c:82-99), computed in fp64 on the host."""
+        (code_laxMPC_ADMM_C.c:82-99; time-varying bounds :93-97),
+        computed in fp64 on the host."""
         out = []
         for a, kind in zip(inputs, self.input_kinds):
             if torch.is_tensor(a):
@@ -116,6 +133,10 @@ class BatchedSolver:
                 a = self._Nx * np.asarray(a, float)
             elif kind == "ua":
                 a = self._Nu * np.asarray(a, float)
+            elif kind == "xu":
+                a = (np.concatenate([self._Nx, self._Nu])
+                     * (np.asarray(a, float)
+                        - np.concatenate([self._opx, self._opu])))
             out.append(a)
         return tuple(out)
 
@@ -136,7 +157,8 @@ class BatchedSolver:
             inputs = inputs + self.default_inputs[-missing:]
         if self.options.in_engineering:
             inputs = self._to_incremental(inputs)
-        inputs = broadcast_inputs(self.dtype, self.device, *inputs)
+        inputs = broadcast_inputs(self.dtype, self.device, *inputs,
+                                  core_ndims=self.input_core_ndims)
         if timer is not None:
             timer.mark("update")
         # Full-fp32 matrix products for the whole solve: TF32 keeps about

@@ -52,19 +52,47 @@ BUILDER_KEYS = {
     ("ellipHMPC", "ADMM", ""): _HMPC,
 }
 
+# the band-Cholesky blocks and stagewise operators of backend='banded'
+_BAND = ("A", "B", "AB", "Alpha", "Beta")
+_ADMM_BAND = ("Hi_0", "Hi_mid")
+
+# (formulation, method, submethod) -> the keys that triple's banded
+# builder reads, where it has one
+BANDED_KEYS = {
+    ("laxMPC", "ADMM", ""): ("n", "m", "N", "nz", *_ADMM_RHO, "Qd", "Rd",
+                             "T", *_BAND, *_ADMM_BAND, "Hi_N", "LB_z",
+                             "UB_z"),
+    ("laxMPC", "FISTA", ""): ("n", "m", "N", "nz", "Qd", "Rd", "T",
+                              "hinv_diag", *_BAND, "LB_z", "UB_z"),
+    ("equMPC", "ADMM", ""): ("n", "m", "N", "nz", *_ADMM_RHO, "Qd", "Rd",
+                             *_BAND, *_ADMM_BAND, "LB_z", "UB_z"),
+    ("equMPC", "FISTA", ""): ("n", "m", "N", "nz", "Qd", "Rd", "hinv_diag",
+                              *_BAND, "LB_z", "UB_z"),
+    ("ellipMPC", "ADMM", ""): ("n", "m", "N", "nz", "Qd", "Rd", "T",
+                               "rho_is_scalar", "rho_s", "rho_T", "P",
+                               "P_half", "Pinv_half", "c", "r", *_BAND,
+                               *_ADMM_BAND, "Hi_N", "LB", "UB"),
+    # mpct_cs_banded_ingredients
+    ("MPCT", "ADMM", "cs"): ("n", "m", "N", "nz", "sd", "bmax", *_ADMM_RHO,
+                             "T", "S", "Hinv_st", "E0", "Cst", "Dst", "Fst",
+                             "Alpha", "BetaInv", "LB", "UB"),
+}
+
 
 def ingredients_from_jax(ing: dict, formulation: str = "laxMPC",
-                         method: str = "ADMM", submethod: str = "") -> dict:
+                         method: str = "ADMM", submethod: str = "",
+                         backend: str = "dense") -> dict:
     """Copy a JAX solver's ingredient dict into the port's form: arrays
     become fp64 numpy arrays (integer and bool arrays keep their dtype),
     Python and numpy scalars become Python scalars. Raises KeyError if a
-    key the port's (formulation, method, submethod) builder reads is
-    missing."""
+    key the port's (formulation, method, submethod) builder for `backend`
+    reads is missing ('banded': BANDED_KEYS; any other: BUILDER_KEYS)."""
     triple = (formulation, method, submethod)
-    if triple not in BUILDER_KEYS:
-        raise KeyError(f"no ingredient layout for {triple}; known: "
-                       f"{sorted(BUILDER_KEYS)}")
-    missing = [k for k in BUILDER_KEYS[triple] if k not in ing]
+    layouts = BANDED_KEYS if backend == "banded" else BUILDER_KEYS
+    if triple not in layouts:
+        raise KeyError(f"no ingredient layout for {triple} on backend "
+                       f"{backend!r}; known: {sorted(layouts)}")
+    missing = [k for k in layouts[triple] if k not in ing]
     if missing:
         raise KeyError(f"ingredients lack {missing}")
     out = {}

@@ -7,8 +7,10 @@ ADMM ('' submethod) — the terminal penalty is rho*P instead of rho*I, which
 makes the v-update's terminal prox an exact P-norm ellipsoid projection
 (compute_ellipMPC_ADMM_ingredients.m:86, code_ellipMPC_ADMM_C.c:321-351).
 Centre c and radius r are baked at build time. Backends: 'dense' (scalar
-or vector rho, on the masked loop) and 'fused' (kernels/fused_ellip.py, in
-P_half coordinates).
+or vector rho, on the masked loop), 'banded' (the same loop, its z-step
+through the stagewise operators and band-Cholesky solves of
+formulations/stagewise.py) and 'fused' (kernels/fused_ellip.py, in P_half
+coordinates).
 
 ADMM-soc ('soc' submethod) — the terminal set as a second-order-cone
 constraint with one slack scalar; the ellipsoid centre is the runtime
@@ -126,7 +128,8 @@ def ellipmpc_admm_ingredients(sys: dict, param: dict, opt: Options) -> dict:
         P=P, P_half=P_half, Pinv_half=np.linalg.inv(P) @ P_half,
         c=c, r=r, M_q=M_q, M_b=M_b,
         Hi_0=np.diag(Hinv)[:m].copy(),
-        Hi_mid=np.diag(Hinv)[m:m + (N - 1) * (n + m)].reshape(N - 1, n + m),
+        Hi_mid=(np.diag(Hinv)[m:m + (N - 1) * (n + m)]
+                .reshape(N - 1, n + m).copy()),
         Hi_N=Hinv[-n:, -n:].copy(),
         Alpha=Alpha, Beta=Beta, LB=LB, UB=UB,
     )
@@ -150,11 +153,7 @@ def build_ellipmpc_admm(sys: dict, param: dict, opt: Options,
     """Build the ellipMPC-ADMM solver on `device`. `ingredients` replaces
     the offline computation (same keys as ellipmpc_admm_ingredients). The
     warm start is init=(z, v, lam)."""
-    if backend == "banded":
-        raise NotImplementedError(
-            "backend='banded' is not ported to spcies_tpu_torch yet "
-            "(ROADMAP queue 1 item 8)")
-    if backend not in ("dense", "fused"):
+    if backend not in ("dense", "banded", "fused"):
         raise ValueError(f"unknown backend {backend!r}")
     device = resolve_device(device)
     ing = (ingredients if ingredients is not None
@@ -185,10 +184,31 @@ def build_ellipmpc_admm(sys: dict, param: dict, opt: Options,
     else:
         rho, rho_i = dev(ing["rho_s"]), dev(1.0 / np.asarray(ing["rho_s"]))
     rho_T, rho_Ti = dev(ing["rho_T"]), dev(1.0 / ing["rho_T"])
-    LB, UB, A, P, P_half, Pinv_half, c, M_q, M_b = (
+    LB, UB, A, P, P_half, Pinv_half, c = (
         dev(ing[key]) for key in ("LB", "UB", "A", "P", "P_half",
-                                  "Pinv_half", "c", "M_q", "M_b"))
+                                  "Pinv_half", "c"))
     r = dev(ing["r"])
+    if backend == "banded":
+        from spcies_tpu_torch.formulations.stagewise import (
+            make_banded_eq_qp)
+        eq_qp = make_banded_eq_qp(ing, dtype, terminal=True, device=device)
+
+        def z_first(q_hat, b0):
+            rhs_extra = torch.zeros((q_hat.shape[0], N, n), dtype=dtype,
+                                    device=device)
+            rhs_extra[:, 0] = -b0
+            return eq_qp(q_hat, rhs_extra)
+
+        def z_lin(dq):
+            return eq_qp(dq, None)
+    else:
+        M_q, M_b = dev(ing["M_q"]), dev(ing["M_b"])
+
+        def z_first(q_hat, b0):
+            return q_hat @ M_q.T + b0 @ M_b.T
+
+        def z_lin(dq):
+            return delta_dot(dq, M_q.T)
 
     def _solve(x0, xr, ur, init, fixed_iters):
         Bsz = x0.shape[0]
@@ -207,7 +227,7 @@ def build_ellipmpc_admm(sys: dict, param: dict, opt: Options,
             return torch.cat([qs, qT], dim=-1)
 
         rinf = torch.full((Bsz,), float("inf"), dtype=dtype, device=device)
-        z1 = q_hat_of(lam0, v0) @ M_q.T + b0 @ M_b.T
+        z1 = z_first(q_hat_of(lam0, v0), b0)
         state0 = dict(z=z1, z_next=z1, v=v0, lam=lam0, r_p=rinf, r_d=rinf)
 
         def body(state, _it):
@@ -232,7 +252,7 @@ def build_ellipmpc_admm(sys: dict, param: dict, opt: Options,
             dz = z - 2.0 * v + v_prev
             dq = torch.cat([rho * dz[:, :ns], rho_T * (dz[:, ns:] @ P.T)],
                            dim=-1)
-            z_next = z + delta_dot(dq, M_q.T)
+            z_next = z + z_lin(dq)
             return (dict(z=z, z_next=z_next, v=v, lam=lam_new, r_p=r_p,
                          r_d=r_d), conv)
 

@@ -10,9 +10,12 @@ formulations/+equMPC/compute_equMPC_ADMM_ingredients.m (offline math),
 code_equMPC_ADMM_C.c (ADMM loop; terminal equality enters at :351),
 code_equMPC_FISTA_C.c, platforms/Matlab/spcies_equMPC_{ADMM,FISTA}_solver.m.
 
-Port of spcies_tpu/formulations/equmpc.py with the 'dense' and 'fused'
-backends: ADMM fused runs the box-ADMM kernel (kernels/fused_admm.py),
-FISTA fused the dual-FISTA kernel (kernels/fused_fista.py).
+Port of spcies_tpu/formulations/equmpc.py with the 'dense', 'banded'
+and 'fused' backends: ADMM fused runs the box-ADMM kernel
+(kernels/fused_admm.py), FISTA fused the dual-FISTA kernel
+(kernels/fused_fista.py), banded the stagewise operators and band-Cholesky
+solves (formulations/stagewise.py); and laxMPC's time-varying mode with no
+terminal block (opt.time_varying, whatever the backend).
 """
 
 from __future__ import annotations
@@ -24,8 +27,10 @@ from spcies_tpu_torch.api import BatchedSolver, resolve_device
 from spcies_tpu_torch.config import Options
 from spcies_tpu_torch.formulations.base import (get_sys_matrices,
                                                 register_builder)
-from spcies_tpu_torch.formulations.laxmpc import (_DTYPES, _reject_unported,
-                                                  _tag_stagewise, build_fista,
+from spcies_tpu_torch.formulations.laxmpc import (_DTYPES, _tag_stagewise,
+                                                  _tv_admm_solver,
+                                                  _tv_fista_solver,
+                                                  build_fista,
                                                   stacked_bounds)
 from spcies_tpu_torch.solvers.admm import admm_solve
 from spcies_tpu_torch.solvers.common import (SolveResult, delta_dot,
@@ -110,10 +115,13 @@ def build_equmpc_admm(sys: dict, param: dict, opt: Options,
                       ingredients: dict | None = None) -> BatchedSolver:
     """Build the equMPC-ADMM solver on `device`. `ingredients` replaces
     the offline computation (same keys as equmpc_admm_ingredients)."""
-    _reject_unported(opt, backend)
-    if backend not in ("dense", "fused"):
-        raise ValueError(f"unknown backend {backend!r}")
     device = resolve_device(device)
+    if opt.time_varying:
+        return _tag_stagewise(
+            _tv_admm_solver(sys, param, opt, terminal=False, device=device,
+                            ingredients=ingredients), False)
+    if backend not in ("dense", "banded", "fused"):
+        raise ValueError(f"unknown backend {backend!r}")
     ing = (ingredients if ingredients is not None
            else equmpc_admm_ingredients(sys, param, opt))
     dtype = _DTYPES[opt.precision]
@@ -146,29 +154,51 @@ def build_equmpc_admm(sys: dict, param: dict, opt: Options,
            else dev(ing["rho_vec"]))
     rho_i = (dev(1.0 / ing["rho_scalar"]) if ing["rho_is_scalar"]
              else dev(ing["rho_inv_vec"]))
-    LB_z, UB_z = dev(ing["LB_z"]), dev(ing["UB_z"])
-    A, M_q, M_b0, M_bN = (dev(ing[key]) for key in ("A", "M_q", "M_b0",
-                                                     "M_bN"))
+    LB_z, UB_z, A = dev(ing["LB_z"]), dev(ing["UB_z"]), dev(ing["A"])
+    if backend == "banded":
+        from spcies_tpu_torch.formulations.stagewise import (
+            make_banded_eq_qp)
+        eq_qp = make_banded_eq_qp(
+            ing, dtype, terminal=False,
+            parallel_scan=bool(opt.solver.get("band_parallel_scan", False)),
+            device=device)
+
+        def z_lin(dq):
+            return eq_qp(dq, None)
+
+        def make_z_step(b0, xr):
+            def z_step(q_hat):
+                rhs_extra = torch.zeros((q_hat.shape[0], N, n), dtype=dtype,
+                                        device=device)
+                rhs_extra[:, 0] = -b0
+                rhs_extra[:, -1] = -xr
+                return eq_qp(q_hat, rhs_extra)
+            return z_step
+    else:
+        M_q, M_b0, M_bN = (dev(ing[key]) for key in ("M_q", "M_b0", "M_bN"))
+
+        def z_lin(dq):
+            return delta_dot(dq, M_q.T)
+
+        def make_z_step(b0, xr):
+            def z_step(q_hat):
+                return q_hat @ M_q.T + b0 @ M_b0.T + xr @ M_bN.T
+            return z_step
 
     def proj(y):
         return proj_box(y, LB_z, UB_z)
 
     def _solve(x0, xr, ur, init, fixed_iters):
         b0 = -(x0 @ A.T)
-
-        def z_step(q_hat):
-            return q_hat @ M_q.T + b0 @ M_b0.T + xr @ M_bN.T
-
         q_ref = _equmpc_q_ref(ing, xr, ur, dtype)
         z, v, lam, k, e_flag, r_p, r_d, hist = admm_solve(
-            z_step, proj, q_ref, rho, rho_i, tol, tol, k_max,
+            make_z_step(b0, xr), proj, q_ref, rho, rho_i, tol, tol, k_max,
             batch=x0.shape[0], nz=nz, dtype=dtype, init=init,
             fixed_iters=fixed_iters,
             relax_alpha=float(opt.solver.get("relax_alpha", 1.0)),
             freeze_converged=bool(opt.solver.get("freeze_converged", True)),
             straggler_polish=int(opt.solver.get("straggler_polish", 0)),
-            z_lin=lambda dq: delta_dot(dq, M_q.T), history=opt.debug,
-            device=device)
+            z_lin=z_lin, history=opt.debug, device=device)
         return SolveResult(u=v[:, :m], k=k, e_flag=e_flag,
                            sol=dict(z=z, v=v, lam=lam, r_p=r_p, r_d=r_d,
                                     **hist_sol_entries(hist)))
@@ -224,8 +254,11 @@ def build_equmpc_fista(sys: dict, param: dict, opt: Options,
     """equMPC via dual FISTA (code_equMPC_FISTA_C.c,
     spcies_equMPC_FISTA_solver.m) on `device`. `ingredients` replaces the
     offline computation (same keys as equmpc_fista_ingredients)."""
-    _reject_unported(opt, backend)
     device = resolve_device(device)
+    if opt.time_varying:
+        return _tag_stagewise(
+            _tv_fista_solver(sys, param, opt, terminal=False, device=device,
+                             ingredients=ingredients), False)
     ing = (ingredients if ingredients is not None
            else equmpc_fista_ingredients(sys, param, opt))
     return build_fista(ing, opt, backend, device,

@@ -20,8 +20,9 @@ The reference's permuted-LDL sparse path is replaced by the dense M1/M2
 affine maps (its own non-sparse path, spcies_HMPC_ADMM_solver.m:135).
 Backends: 'dense' (the masked loop) and 'fused' (kernels/fused_hmpc.py for
 the single-split solvers, kernels/fused_split.py for the split ones). The
-JAX package's banded backend (its arrowhead-Woodbury structured KKT) waits
-for the band-Cholesky scans of ROADMAP queue 1 item 8.
+JAX package's banded backend (its arrowhead-Woodbury structured KKT, on
+the band-Cholesky solves of kernels/band_chol.py) is the part of ROADMAP
+queue 1 item 8 still to port.
 """
 
 from __future__ import annotations

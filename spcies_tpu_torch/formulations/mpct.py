@@ -26,14 +26,19 @@ Port of the EADMM and ADMM-cs parts of spcies_tpu/formulations/mpct.py:
            two-level Woodbury KKT solve into the affine map
            z = M_q p + M_b x0, on the masked loop of solvers/loop.py.
 
-The banded backends of ADMM-cs and ADMM-semiband and ADMM-cs's
-time-varying mode are not ported yet (ROADMAP queue 1 item 8).
+ADMM-cs also runs 'banded', the O(N)-memory long-horizon path (stage-
+local operators and a block-tridiagonal Cholesky, kernels/band_chol.py),
+and a time-varying mode (opt.time_varying, whatever the backend): the
+nine-input signature of laxMPC's, every lane's band factors computed per
+call (kernels/online_band_chol.py). ADMM-semiband's banded backend is not
+ported yet (ROADMAP queue 1 item 8).
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F_
 
 from spcies_tpu_torch.api import BatchedSolver, resolve_device
 from spcies_tpu_torch.config import Options
@@ -379,6 +384,156 @@ def mpct_admm_cs_ingredients(sys: dict, param: dict, opt: Options) -> dict:
     )
 
 
+def mpct_cs_banded_ingredients(sys: dict, param: dict, opt: Options) -> dict:
+    """O(N)-memory structured ingredients for MPCT ADMM-cs, the
+    long-horizon path (the role the reference's CSR/LDL sparsity plays,
+    compute_MPCT_ADMM_cs_ingredients.m:124-141, done with stacked stage
+    blocks + a block-tridiagonal Cholesky, never forming dense H/G/W/M_q).
+
+    The multiplier rows partition into Nb = N+1 blocks of non-uniform
+    size (2n for init + steady-state on stage 0, 2n+m per transition, n
+    for the terminal x_s coupling), padded to bmax = 2n+m with identity
+    diagonal pads (zero rhs pads keep the padded mu entries exactly 0).
+    Memory: O(N (2(n+m))^2) against the dense path's O((N 2(n+m))^2) M_q.
+    """
+    A, B, n, m = get_sys_matrices(sys)
+    N = int(param["N"])
+    Q = np.asarray(param["Q"], dtype=float)
+    R = np.asarray(param["R"], dtype=float)
+    T = np.asarray(param["T"], dtype=float)
+    S = np.asarray(param["S"], dtype=float)
+    sd = 2 * (n + m)
+    nz = N * sd
+    bmax = 2 * n + m
+
+    rho = np.asarray(opt.solver["rho"], dtype=float)
+    force_vec = bool(opt.solver.get("force_vector_rho", False))
+    rho_is_scalar = rho.ndim == 0 and not force_vec
+    rho_vec = np.full(nz, float(rho)) if rho.ndim == 0 else rho.ravel().copy()
+    if rho_vec.size != nz:
+        raise ValueError(f"rho vector must have length {nz}")
+
+    # per-stage Hessian blocks + inverses [N, sd, sd]
+    Qz = np.block([[Q, -Q], [-Q, Q + T / N]])
+    Rz = np.block([[R, -R], [-R, R + S / N]])
+    Hs = linalg.blkdiag(Qz, Rz)
+    Hinv_st = np.empty((N, sd, sd))
+    for j in range(N):
+        Hinv_st[j] = np.linalg.inv(Hs + np.diag(rho_vec[j * sd:(j + 1) * sd]))
+
+    # stage coefficient matrices of the equality rows
+    # (mpct_cs_equality_matrix layout: z_j = (x_j, x_s, u_j, u_s))
+    E0 = np.zeros((2 * n, sd))               # stage 0: init + steady state
+    E0[:n, :n] = np.eye(n)
+    E0[n:, n:2 * n] = A - np.eye(n)
+    E0[n:, 2 * n + m:] = B
+    C = np.zeros((bmax, sd))                 # transition rows on stage j-1
+    C[:n, :n] = A
+    C[:n, 2 * n:2 * n + m] = B
+    C[n:2 * n, n:2 * n] = np.eye(n)
+    C[2 * n:, 2 * n + m:] = np.eye(m)
+    D = np.zeros((bmax, sd))                 # transition rows on stage j
+    D[:n, :n] = -np.eye(n)
+    D[n:2 * n, n:2 * n] = -np.eye(n)
+    D[2 * n:, 2 * n + m:] = -np.eye(m)
+    F = np.zeros((n, sd))                    # terminal rows on stage N-1
+    F[:, :n] = A
+    F[:, n:2 * n] = -np.eye(n)
+    F[:, 2 * n:2 * n + m] = B
+
+    # padded block-tridiagonal W blocks (identity on pad diagonals)
+    Nb = N + 1
+    Wd = np.zeros((Nb, bmax, bmax))
+    Wu = np.zeros((Nb - 1, bmax, bmax))
+    Wd[0, :2 * n, :2 * n] = E0 @ Hinv_st[0] @ E0.T
+    Wd[0, 2 * n:, 2 * n:] = np.eye(m)
+    Wu[0, :2 * n, :] = E0 @ Hinv_st[0] @ C.T
+    for j in range(1, N):
+        Wd[j] = C @ Hinv_st[j - 1] @ C.T + D @ Hinv_st[j] @ D.T
+        if j < N - 1:
+            Wu[j] = D @ Hinv_st[j] @ C.T
+    Wu[N - 1, :, :n] = D @ Hinv_st[N - 1] @ F.T
+    Wd[N, :n, :n] = F @ Hinv_st[N - 1] @ F.T
+    Wd[N, n:, n:] = np.eye(bmax - n)
+    Alpha, BetaInv = linalg.band_chol_blocks_tridiag(Wd, Wu)
+
+    LBx, UBx, LBu, UBu = get_bounds(sys, n, m, opt.inf_value)
+    eps_x = float(opt.solver["epsilon_x"])
+    eps_u = float(opt.solver["epsilon_u"])
+    LBst = np.concatenate([LBx, LBx + eps_x, LBu, LBu + eps_u])
+    UBst = np.concatenate([UBx, UBx - eps_x, UBu, UBu - eps_u])
+
+    return dict(
+        n=n, m=m, N=N, nz=nz, sd=sd, bmax=bmax,
+        rho_is_scalar=rho_is_scalar,
+        A=A, B=B, T=T, S=S,
+        rho_vec=rho_vec, rho_inv_vec=1.0 / rho_vec,
+        rho_scalar=float(rho) if rho.ndim == 0 else None,
+        Hinv_st=Hinv_st, E0=E0, Cst=C, Dst=D, Fst=F,
+        Alpha=Alpha, BetaInv=BetaInv, LB=np.tile(LBst, N),
+        UB=np.tile(UBst, N),
+    )
+
+
+def _cs_q_ref(T, S, N):
+    """The per-stage linear cost [0; -(T/N) xr; 0; -(S/N) ur], tiled
+    (spcies_MPCT_ADMM_cs_solver.m:172 with vars.Tz = -T/N)."""
+    def q_ref(x0, xr, ur):
+        qstage = torch.cat(
+            [torch.zeros_like(x0), -(xr @ T.T) / N,
+             torch.zeros_like(ur), -(ur @ S.T) / N], dim=-1)
+        return qstage.repeat(1, N)
+    return q_ref
+
+
+def _make_cs_banded_z_step(ing, dtype, device, parallel_scan=False):
+    """z_step(q_hat, x0 | None) for the structured MPCT-cs backend:
+    z = -Hinv(q_hat + G'mu), W mu = -G Hinv q_hat - beq, all operations
+    stage-local, the band solve through the Alpha/BetaInv blocks.
+    parallel_scan routes it through the O(log N)-depth scan
+    (kernels.band_chol.BandSolve) for long horizons."""
+    from spcies_tpu_torch.kernels.band_chol import BandSolve
+    n, N, sd, bmax = ing["n"], ing["N"], ing["sd"], ing["bmax"]
+    Hinv_st, E0, C, D, F = (
+        torch.as_tensor(ing[key], dtype=dtype, device=device)
+        for key in ("Hinv_st", "E0", "Cst", "Dst", "Fst"))
+    band_solve = BandSolve(
+        *(torch.as_tensor(ing[key]) for key in ("Alpha", "BetaInv")),
+        scan=parallel_scan, dtype=dtype, device=device)
+
+    def hinv_apply(q):
+        return torch.einsum("bls,lts->blt", q, Hinv_st)
+
+    def g_apply(h):
+        """G h -> padded [B, Nb, bmax] row blocks."""
+        blk0 = F_.pad(h[:, 0] @ E0.T, (0, bmax - 2 * n))
+        mid = h[:, :N - 1] @ C.T + h[:, 1:] @ D.T
+        blkN = F_.pad(h[:, N - 1] @ F.T, (0, bmax - n))
+        return torch.cat([blk0[:, None], mid, blkN[:, None]], dim=1)
+
+    def gt_apply(mu):
+        """G' mu -> [B, N, sd] stage contributions."""
+        out = torch.zeros((mu.shape[0], N, sd), dtype=dtype, device=device)
+        out[:, :N - 1] = mu[:, 1:N] @ C                     # stage j-1
+        out[:, 1:N] += mu[:, 1:N] @ D
+        out[:, 0] += mu[:, 0, :2 * n] @ E0
+        out[:, N - 1] += mu[:, N, :n] @ F
+        return out
+
+    def z_step(q_hat, x0=None):
+        Bsz = q_hat.shape[0]
+        h = hinv_apply(q_hat.reshape(Bsz, N, sd))
+        rhs = -g_apply(h)
+        if x0 is not None:
+            # beq nonzero only in the x_0 = x(t) rows (rhs -= beq)
+            rhs[:, 0, :n] += -x0
+        mu = band_solve(rhs)
+        z = -(h + hinv_apply(gt_apply(mu)))
+        return z.reshape(Bsz, -1)
+
+    return z_step
+
+
 @register_builder("MPCT", "ADMM", "cs")
 def build_mpct_admm_cs(sys: dict, param: dict, opt: Options,
                        backend: str = "dense", device="cuda",
@@ -386,18 +541,17 @@ def build_mpct_admm_cs(sys: dict, param: dict, opt: Options,
     """MPCT via ADMM on the extended (x_i, x_s, u_i, u_s) state space
     (code_MPCT_ADMM_cs_C.c:94-218, spcies_MPCT_ADMM_cs_solver.m) on
     `device`. `ingredients` replaces the offline computation (same keys as
-    mpct_admm_cs_ingredients)."""
+    mpct_admm_cs_ingredients, or mpct_cs_banded_ingredients for
+    backend='banded'). backend='banded' is the O(N)-memory long-horizon
+    path; opt.time_varying takes the per-lane time-varying path whatever
+    the backend."""
     if backend not in ("dense", "fused", "banded"):
         raise ValueError("MPCT/ADMM-cs has dense, banded and fused backends")
-    if opt.time_varying:
-        raise NotImplementedError(
-            "time-varying MPCT-ADMM-cs is not ported to spcies_tpu_torch "
-            "yet (ROADMAP queue 1 item 8)")
-    if backend == "banded":
-        raise NotImplementedError(
-            "backend='banded' is not ported to spcies_tpu_torch yet "
-            "(ROADMAP queue 1 item 8)")
     device = resolve_device(device)
+    if opt.time_varying:
+        return _tv_cs_banded_solver(sys, param, opt, device, ingredients)
+    if backend == "banded":
+        return _build_mpct_cs_banded(sys, param, opt, device, ingredients)
     ing = (ingredients if ingredients is not None
            else mpct_admm_cs_ingredients(sys, param, opt))
     dtype = _DTYPES[opt.precision]
@@ -406,16 +560,6 @@ def build_mpct_admm_cs(sys: dict, param: dict, opt: Options,
     def dev(a, dt=dtype):
         return torch.as_tensor(a, dtype=dt, device=device)
 
-    def q_ref_of(T, S):
-        """The per-stage linear cost [0; -(T/N) xr; 0; -(S/N) ur], tiled
-        (spcies_MPCT_ADMM_cs_solver.m:172 with vars.Tz = -T/N)."""
-        def q_ref(x0, xr, ur):
-            qstage = torch.cat(
-                [torch.zeros_like(x0), -(xr @ T.T) / N,
-                 torch.zeros_like(ur), -(ur @ S.T) / N], dim=-1)
-            return qstage.repeat(1, N)
-        return q_ref
-
     if backend == "fused":
         from spcies_tpu_torch.solvers.fused_backend import (
             build_fused_box_admm_solve)
@@ -423,7 +567,8 @@ def build_mpct_admm_cs(sys: dict, param: dict, opt: Options,
         M_b32 = dev(ing["M_b"], f32)
         _solve_f = build_fused_box_admm_solve(
             ing, opt, dtype, device,
-            make_q_ref=q_ref_of(dev(ing["T"], f32), dev(ing["S"], f32)),
+            make_q_ref=_cs_q_ref(dev(ing["T"], f32), dev(ing["S"], f32),
+                                 N),
             make_aux_b=lambda x0, xr, ur: x0 @ M_b32.T,
             u_start=2 * n, lb_key="LB", ub_key="UB")
         return BatchedSolver(_solve_f, ing, opt, n=n, m=m, N=N, nz=nz,
@@ -431,12 +576,9 @@ def build_mpct_admm_cs(sys: dict, param: dict, opt: Options,
 
     tol = float(opt.solver["tol"])
     k_max = int(opt.solver["k_max"])
-    rho = (dev(ing["rho_scalar"]) if ing["rho_is_scalar"]
-           else dev(ing["rho_vec"]))
-    rho_i = (dev(1.0 / ing["rho_scalar"]) if ing["rho_is_scalar"]
-             else dev(ing["rho_inv_vec"]))
+    rho, rho_i = _admm_rho(ing, dev)
     LB, UB, M_q, M_b = (dev(ing[key]) for key in ("LB", "UB", "M_q", "M_b"))
-    q_ref_fn = q_ref_of(dev(ing["T"]), dev(ing["S"]))
+    q_ref_fn = _cs_q_ref(dev(ing["T"]), dev(ing["S"]), N)
 
     def proj(y):
         return proj_box(y, LB, UB)
@@ -458,6 +600,217 @@ def build_mpct_admm_cs(sys: dict, param: dict, opt: Options,
 
     return BatchedSolver(_solve, ing, opt, n=n, m=m, N=N, nz=nz, dtype=dtype,
                          device=device)
+
+
+def _admm_rho(ing, dev):
+    """(rho, rho_i) of an ADMM ingredient dict: scalars, or per-entry
+    vectors."""
+    if ing["rho_is_scalar"]:
+        return dev(ing["rho_scalar"]), dev(1.0 / ing["rho_scalar"])
+    return dev(ing["rho_vec"]), dev(ing["rho_inv_vec"])
+
+
+def _build_mpct_cs_banded(sys, param, opt, device, ingredients=None):
+    ing = (ingredients if ingredients is not None
+           else mpct_cs_banded_ingredients(sys, param, opt))
+    dtype = _DTYPES[opt.precision]
+    n, m, N, nz = ing["n"], ing["m"], ing["N"], ing["nz"]
+    tol = float(opt.solver["tol"])
+    k_max = int(opt.solver["k_max"])
+
+    def dev(a):
+        return torch.as_tensor(a, dtype=dtype, device=device)
+
+    rho, rho_i = _admm_rho(ing, dev)
+    LB, UB = dev(ing["LB"]), dev(ing["UB"])
+    q_ref_fn = _cs_q_ref(dev(ing["T"]), dev(ing["S"]), N)
+    z_step = _make_cs_banded_z_step(
+        ing, dtype, device,
+        parallel_scan=bool(opt.solver.get("band_parallel_scan", False)))
+
+    def _solve(x0, xr, ur, init, fixed_iters):
+        z, v, lam, k, e_flag, r_p, r_d, hist = admm_solve(
+            lambda q_hat: z_step(q_hat, x0),
+            lambda y: proj_box(y, LB, UB), q_ref_fn(x0, xr, ur), rho, rho_i,
+            tol, tol, k_max, batch=x0.shape[0], nz=nz, dtype=dtype,
+            init=init, fixed_iters=fixed_iters,
+            relax_alpha=float(opt.solver.get("relax_alpha", 1.0)),
+            freeze_converged=bool(opt.solver.get("freeze_converged", True)),
+            straggler_polish=int(opt.solver.get("straggler_polish", 0)),
+            z_lin=lambda dq: z_step(dq, None), history=opt.debug,
+            device=device)
+        return SolveResult(u=v[:, 2 * n:2 * n + m], k=k, e_flag=e_flag,
+                           sol=dict(z=z, v=v, lam=lam, r_p=r_p, r_d=r_d,
+                                    **hist_sol_entries(hist)))
+
+    return BatchedSolver(_solve, ing, opt, n=n, m=m, N=N, nz=nz, dtype=dtype,
+                         device=device)
+
+
+def _tv_cs_banded_solver(sys, param, opt, device, ingredients=None):
+    """Per-lane time-varying MPCT-ADMM-cs through the O(N) banded path.
+
+    9-input signature matching the laxMPC/equMPC time-varying convention
+    (x0, xr, ur, A, B, Qdiag, Rdiag, LB, UB): every lane carries its OWN
+    model and single-stage bounds [LBx; LBu]. T and S stay offline
+    constants (the laxMPC time-varying mode's T treatment,
+    compute_laxMPC_ADMM_ingredients.m:109-118); scalar rho only. All
+    per-lane ingredients (the stage Hessian inverse, the E0/C/D/F equality
+    stage maps, and the block-tridiagonal W factors) are rebuilt inside
+    the solve (kernels/online_band_chol.py online_band_chol_tridiag), so
+    memory stays O(B N (2n+m)^2). No reference counterpart: the reference
+    has no TIME_VARYING mode for MPCT (cons_laxMPC_ADMM_C.m:47-52 scope).
+    """
+    from spcies_tpu_torch.formulations.laxmpc import (TV_CORE_NDIMS,
+                                                      TV_INPUTS, tv_dims)
+    from spcies_tpu_torch.kernels.band_chol import BandSolve
+    from spcies_tpu_torch.kernels.online_band_chol import (
+        online_band_chol_tridiag)
+
+    n, m, N, _ = tv_dims(sys, param, opt, ingredients, True)
+    sd = 2 * (n + m)
+    bmax = 2 * n + m
+    nz = N * sd
+    Nb = N + 1
+    dtype = _DTYPES[opt.precision]
+    tol = float(opt.solver["tol"])
+    k_max = int(opt.solver["k_max"])
+    rho_f = opt.solver["rho"]
+    if np.ndim(rho_f) != 0:
+        raise ValueError("time-varying mode requires scalar rho "
+                         "(cons_laxMPC_ADMM_C.m:47-52 convention)")
+
+    def dev(a):
+        return torch.as_tensor(a, dtype=dtype, device=device)
+
+    rho, rho_i = dev(float(rho_f)), dev(1.0 / float(rho_f))
+    eps_x = float(opt.solver["epsilon_x"])
+    eps_u = float(opt.solver["epsilon_u"])
+    T = np.asarray(param["T"], dtype=float)
+    S = np.asarray(param["S"], dtype=float)
+    q_ref_fn = _cs_q_ref(dev(T), dev(S), N)
+    TN, SN = dev(T / N), dev(S / N)
+    scan = bool(opt.solver.get("band_parallel_scan", False))
+
+    def _solve(x0, xr, ur, A, B, Qd, Rd, LB1, UB1, init, fixed_iters):
+        Bsz = x0.shape[0]
+
+        def zeros(*shape):
+            return torch.zeros((Bsz,) + shape, dtype=dtype, device=device)
+
+        # per-lane stage Hessian Hhat = blkdiag(Qz, Rz) + rho I and its
+        # inverse (one sd x sd per lane; every stage shares it)
+        dQ = torch.diag_embed(Qd)                 # [B, n, n]
+        dR = torch.diag_embed(Rd)
+        Hs = zeros(sd, sd)
+        Hs[:, :n, :n] = dQ
+        Hs[:, :n, n:2 * n] = -dQ
+        Hs[:, n:2 * n, :n] = -dQ
+        Hs[:, n:2 * n, n:2 * n] = dQ + TN
+        Hs[:, 2 * n:2 * n + m, 2 * n:2 * n + m] = dR
+        Hs[:, 2 * n:2 * n + m, 2 * n + m:] = -dR
+        Hs[:, 2 * n + m:, 2 * n:2 * n + m] = -dR
+        Hs[:, 2 * n + m:, 2 * n + m:] = dR + SN
+        Hinv = torch.linalg.inv_ex(
+            Hs + rho * torch.eye(sd, dtype=dtype, device=device),
+            check_errors=False).inverse
+
+        # per-lane equality stage maps (mpct_cs_banded_ingredients layout)
+        eyen = torch.eye(n, dtype=dtype, device=device)
+        eyem = torch.eye(m, dtype=dtype, device=device)
+        E0 = zeros(2 * n, sd)
+        E0[:, :n, :n] = eyen
+        E0[:, n:, n:2 * n] = A - eyen
+        E0[:, n:, 2 * n + m:] = B
+        C = zeros(bmax, sd)
+        C[:, :n, :n] = A
+        C[:, :n, 2 * n:2 * n + m] = B
+        C[:, n:2 * n, n:2 * n] = eyen
+        C[:, 2 * n:, 2 * n + m:] = eyem
+        D = zeros(bmax, sd)
+        D[:, :n, :n] = -eyen
+        D[:, n:2 * n, n:2 * n] = -eyen
+        D[:, 2 * n:, 2 * n + m:] = -eyem
+        F = zeros(n, sd)
+        F[:, :, :n] = A
+        F[:, :, n:2 * n] = -eyen
+        F[:, :, 2 * n:2 * n + m] = B
+
+        # X Hinv per lane, and the outer products X Hinv Y'
+        E0H, CH, DH, FH = (X @ Hinv for X in (E0, C, D, F))
+
+        def outer(XH, Y):
+            return XH @ Y.transpose(-1, -2)
+
+        # block-tridiagonal W blocks, identity on pad diagonals
+        Wd = zeros(Nb, bmax, bmax)
+        Wd[:, 0, :2 * n, :2 * n] = outer(E0H, E0)
+        Wd[:, 0, 2 * n:, 2 * n:] = eyem
+        Wd[:, 1:N] = (outer(CH, C) + outer(DH, D))[:, None]
+        Wd[:, N, :n, :n] = outer(FH, F)
+        Wd[:, N, n:, n:] = torch.eye(bmax - n, dtype=dtype, device=device)
+        Wu = zeros(Nb - 1, bmax, bmax)
+        Wu[:, 0, :2 * n, :] = outer(E0H, C)
+        Wu[:, 1:N - 1] = outer(DH, C)[:, None]
+        Wu[:, N - 1, :, :n] = outer(DH, F)
+        band_solve = BandSolve(*online_band_chol_tridiag(Wd, Wu), scan=scan)
+
+        def hinv_apply(q):                      # q [B, N, sd]
+            return q @ Hinv.transpose(-1, -2)
+
+        def lane_rows(h, M):                    # h [B, sd] -> h M' [B, r]
+            return (h[:, None] @ M.transpose(-1, -2))[:, 0]
+
+        def g_apply(h):
+            blk0 = F_.pad(lane_rows(h[:, 0], E0), (0, bmax - 2 * n))
+            mid = (h[:, :N - 1] @ C.transpose(-1, -2)
+                   + h[:, 1:] @ D.transpose(-1, -2))
+            blkN = F_.pad(lane_rows(h[:, N - 1], F), (0, bmax - n))
+            return torch.cat([blk0[:, None], mid, blkN[:, None]], dim=1)
+
+        def gt_apply(mu):
+            out = zeros(N, sd)
+            out[:, :N - 1] = mu[:, 1:N] @ C
+            out[:, 1:N] += mu[:, 1:N] @ D
+            out[:, 0] += (mu[:, 0, None, :2 * n] @ E0)[:, 0]
+            out[:, N - 1] += (mu[:, N, None, :n] @ F)[:, 0]
+            return out
+
+        def z_step(q_hat, with_b0):
+            h = hinv_apply(q_hat.reshape(Bsz, N, sd))
+            rhs = -g_apply(h)
+            if with_b0:
+                rhs[:, 0, :n] += -x0
+            mu = band_solve(rhs)
+            z = -(h + hinv_apply(gt_apply(mu)))
+            return z.reshape(Bsz, -1)
+
+        # eps-tightened per-lane stage bounds (mpct_admm_cs_ingredients)
+        LBx, LBu = LB1[:, :n], LB1[:, n:]
+        UBx, UBu = UB1[:, :n], UB1[:, n:]
+        LB = torch.cat([LBx, LBx + eps_x, LBu, LBu + eps_u],
+                       dim=-1).repeat(1, N)
+        UB = torch.cat([UBx, UBx - eps_x, UBu, UBu - eps_u],
+                       dim=-1).repeat(1, N)
+
+        z, v, lam, k, e_flag, r_p, r_d, hist = admm_solve(
+            lambda qh: z_step(qh, True),
+            lambda y: proj_box(y, LB, UB), q_ref_fn(x0, xr, ur), rho, rho_i,
+            tol, tol, k_max, batch=Bsz, nz=nz, dtype=dtype, init=init,
+            fixed_iters=fixed_iters,
+            relax_alpha=float(opt.solver.get("relax_alpha", 1.0)),
+            freeze_converged=bool(opt.solver.get("freeze_converged", True)),
+            straggler_polish=int(opt.solver.get("straggler_polish", 0)),
+            z_lin=lambda dq: z_step(dq, False), history=opt.debug,
+            device=device)
+        return SolveResult(u=v[:, 2 * n:2 * n + m], k=k, e_flag=e_flag,
+                           sol=dict(z=z, v=v, lam=lam, r_p=r_p, r_d=r_d,
+                                    **hist_sol_entries(hist)))
+
+    return BatchedSolver(
+        _solve, dict(n=n, m=m, N=N, nz=nz), opt, n=n, m=m, N=N, nz=nz,
+        dtype=dtype, device=device, input_names=TV_INPUTS,
+        input_core_ndims=TV_CORE_NDIMS)
 
 
 # ---------------------------------------------------------------------------

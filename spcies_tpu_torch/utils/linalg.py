@@ -91,3 +91,27 @@ def band_chol_blocks(W: np.ndarray, n: int, N: int):
     for i in range(N - 1):
         Alpha[i] = Wc[i * n:(i + 1) * n, (i + 1) * n:(i + 2) * n]
     return Alpha, Beta
+
+
+def band_chol_blocks_tridiag(Wd: np.ndarray, Wu: np.ndarray):
+    """Alpha/BetaInv directly from the block-tridiagonal BLOCKS of W,
+    never forming dense W (the O(N)-memory long-horizon path; contrast
+    band_chol_blocks, which slices a dense W).
+
+    Wd [Nb, b, b] diagonal blocks, Wu [Nb-1, b, b] super-diagonal blocks;
+    W = U'U with U block-bidiagonal. Returns (Alpha [Nb-1, b, b] =
+    U_{i,i+1}, BetaInv [Nb, b, b] = inv(U_ii)) in the form
+    kernels.band_chol.band_chol_solve consumes. O(Nb b^3) offline."""
+    Nb, b, _ = Wd.shape
+    Alpha = np.zeros((Nb - 1, b, b))
+    BetaInv = np.zeros((Nb, b, b))
+    prev = np.zeros((b, b))
+    eye = np.eye(b)
+    for i in range(Nb):
+        S = Wd[i] - prev.T @ prev
+        U = scipy.linalg.cholesky(S, lower=False)
+        BetaInv[i] = scipy.linalg.solve_triangular(U, eye, lower=False)
+        if i < Nb - 1:
+            Alpha[i] = scipy.linalg.solve_triangular(U.T, Wu[i], lower=True)
+            prev = Alpha[i]
+    return Alpha, BetaInv

@@ -5,8 +5,8 @@ oracle and runtime radius, batched masking), the JAX dense engines' k and
 iterates in fp64 (a non-identity P and a per-lane radius included), debug
 traces, ingredients carried across from the JAX package, the soc solver's
 optional 4th input, the fused backends against the dense engines, and
-error probes. The banded cases of tests/test_ellipmpc.py wait for ROADMAP
-queue 1 item 8."""
+error probes. The banded cases of tests/test_ellipmpc.py are in
+tests/test_torch_banded.py."""
 
 import numpy as np
 import pytest
@@ -484,7 +484,8 @@ def test_fused_batch_padding_and_no_launch(fixture):
 
 
 @pytest.mark.parametrize("which,probe,exc,match", [
-    ("admm", dict(backend="banded"), NotImplementedError, "item 8"),
+    ("admm", dict(backend="banded", nondiag_q=True), ValueError,
+     "diagonal"),
     ("soc", dict(backend="banded"), ValueError, "dense and fused"),
     ("admm", dict(backend="nope"), ValueError, "unknown backend"),
     ("admm", dict(backend="fused", precision="double"), ValueError, "fp32"),

@@ -306,20 +306,29 @@ def test_ingredients_from_jax_unknown_triple():
 
 @pytest.mark.parametrize("method", ["ADMM", "FISTA"])
 @pytest.mark.parametrize("probe,exc,match", [
-    (dict(backend="banded"), NotImplementedError, "item 8"),
-    (dict(time_varying=True), NotImplementedError, "item 8"),
+    # the time-varying mode computes its ingredients per call, and its
+    # nine inputs have the ranks (1, 1, 1, 2, 2, 1, 1, 1, 1)
+    (dict(time_varying=True, ingredients={}), ValueError, "per call"),
+    (dict(time_varying=True, bad_rank=True), ValueError, "rank 2"),
     (dict(backend="nope"), ValueError, "unknown backend"),
     (dict(backend="fused"), ValueError, "fp32"),
     (dict(nondiag_q=True), ValueError, "diagonal"),
 ])
 def test_error_probes(fixture, method, probe, exc, match):
-    sys, param, _ = fixture
+    sys, param, st = fixture
     probe = dict(probe)
     p = dict(param)
     if probe.pop("nondiag_q", False):
         p["Q"] = np.asarray(p["Q"]) + 0.1
     o = tsp.default_options("equMPC", method, rho=15.0)
     o.time_varying = probe.pop("time_varying", False)
+    bad_rank = probe.pop("bad_rank", False)
     with pytest.raises(exc, match=match):
-        tsp.make_solver(sys, p, formulation="equMPC", method=method,
-                        options=o, **probe, device="cpu")
+        s = tsp.make_solver(sys, p, formulation="equMPC", method=method,
+                            options=o, **probe, device="cpu")
+        if bad_rank:
+            # A given as a vector where one problem's A is a matrix
+            s(st["x"], st["xr"], st["ur"], np.ravel(sys["A"]), sys["B"],
+              np.diag(p["Q"]), np.diag(p["R"]),
+              np.concatenate([sys["LBx"], sys["LBu"]]),
+              np.concatenate([sys["UBx"], sys["UBu"]]))

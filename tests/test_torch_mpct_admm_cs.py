@@ -4,8 +4,9 @@ dense backend, the JAX dense engine's k and iterates in fp64, the MPCT-cs
 case of tests/test_fused_admm.py:162 (the box-ADMM kernel's plain version
 against the JAX fused kernel in interpret mode), the slice as a whole from
 ingredients carried across from the JAX package for both MPCT triples, and
-error probes. The banded tests of tests/test_mpct_admm_cs.py wait for the
-banded backend (ROADMAP queue 1 item 8)."""
+error probes. The banded tests of tests/test_mpct_admm_cs.py are in
+tests/test_torch_banded.py, the time-varying ones in
+tests/test_torch_time_varying.py."""
 
 import numpy as np
 import pytest
@@ -244,10 +245,12 @@ def test_semiband_has_no_ingredient_layout():
 
 
 @pytest.mark.parametrize("probe,exc,match", [
-    (dict(backend="banded"), NotImplementedError, "item 8"),
-    (dict(time_varying=True), NotImplementedError, "item 8"),
-    (dict(time_varying=True, backend="fused"), NotImplementedError,
-     "item 8"),
+    # a rho vector of the wrong length; the time-varying mode takes a
+    # scalar rho only, and computes its ingredients per call
+    (dict(backend="banded", rho_len=7), ValueError, "must have length"),
+    (dict(time_varying=True, rho_len=30 * 16), ValueError, "scalar rho"),
+    (dict(time_varying=True, backend="fused", ingredients={}), ValueError,
+     "per call"),
     (dict(backend="nope"), ValueError, "dense, banded and fused"),
     (dict(backend="fused"), ValueError, "fp32"),
     (dict(backend="fused", precision="float", force_vector_rho=True),
@@ -265,6 +268,8 @@ def test_error_probes(fixture, probe, exc, match):
                                else {}))
     o.time_varying = probe.pop("time_varying", False)
     o.precision = probe.pop("precision", "double")
+    if "rho_len" in probe:
+        o.solver["rho"] = np.full(probe.pop("rho_len"), 0.1)
     with pytest.raises(exc, match=match):
         tsp.make_solver(sys, param, formulation="MPCT", method="ADMM",
                         submethod=sub, options=o, **probe, device="cpu")

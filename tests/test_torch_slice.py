@@ -226,11 +226,14 @@ def test_problem_recipe_builds_solver(fixture):
     (dict(formulation="personal", method="mine"), NotImplementedError,
      "No solver builder"),
     (dict(backend="auto"), NotImplementedError, "item 12"),
-    (dict(backend="banded"), NotImplementedError, "item 8"),
+    # HMPC's banded backend is the part of item 8 still to port
+    (dict(formulation="HMPC", method="ADMM", backend="banded"),
+     NotImplementedError, "item 8"),
     (dict(backend="nope"), ValueError, "unknown backend"),
     (dict(backend="fused"), ValueError, "fp32"),
     (dict(backend="fused", debug=1), ValueError, "genHist"),
-    (dict(time_varying=True), NotImplementedError, "item 8"),
+    # the time-varying mode takes a scalar rho only
+    (dict(time_varying=True, vector_rho=True), ValueError, "scalar rho"),
     (dict(nondiag_q=True), ValueError, "diagonal"),
 ])
 def test_error_probes(fixture, probe, exc, match):
@@ -244,6 +247,8 @@ def test_error_probes(fixture, probe, exc, match):
     if o is not None:
         o.debug = probe.pop("debug", 0)
         o.time_varying = probe.pop("time_varying", False)
+        if probe.pop("vector_rho", False):
+            o.solver["rho"] = np.full(30 * 8, 15.0)
     with pytest.raises(exc, match=match):
         if o is None:
             tsp.make_solver(sys, p, rho=15.0, **probe, device="cpu")
