@@ -149,7 +149,25 @@ started together), then
      fixed_iters=100 (median of three), with its peak of allocated memory,
      and profiled twice for its launches and device time an iteration
      (the idle share); a tv_dense_w row that runs out of memory is logged,
-     the one failure the phase records rather than raises.
+     the one failure the phase records rather than raises;
+ 20. drives the banded backends of HMPC-ADMM, HMPC-ADMM-split,
+     HMPC-SADMM-split and MPCT-ADMM-semiband (plain torch on the band
+     solve of 19) through make_solver(..., device="cuda"): in fp64 at
+     N=30, B=256 against the same solver on the CPU as in 19 (HMPC-ADMM
+     sequential and scan, the split pair, semiband hard, soft with a
+     constrained output, vector rho and scan); in fp32 at the JAX
+     long-horizon record's sizes, HMPC-ADMM-split and MPCT-ADMM-semiband
+     at N=480, B=1024, and HMPC-ADMM at N=120, B=4096, each on the dense
+     engine, the sequential band solve and the scan, timed, profiled and
+     measured as in 19 (aot_memory_analysis beside the allocator's peak
+     at N=480); each family's scan run to convergence at N=120 on 1024
+     lanes against an fp64 run of the card's dense engine (every lane
+     converged, k within the CPU's move, LONG_MOVE); and
+     make_solver(backend="auto") with a fresh cache directory on
+     laxMPC-ADMM at N=30 (its probe launches K1), HMPC-ADMM-split at N=30
+     (K7) and at N=480 (K7's width cap refuses fused at build), each
+     choice and probe time logged, a second make_solver served from the
+     cache building only the winner, which converges on every lane.
 K1, K2, K3, K4, K5 and K6 run on the product stage csrc/tile_product.cuh;
 tools/ab_kernels.py holds their builds to the one-column-per-thread parents
 in csrc/variants/, and tools/ab_parent.py each kernel to an earlier tree's
@@ -2112,14 +2130,14 @@ def band_label(fam, horizon, B, backend, tv, extra):
     return f"{fam}{' time-varying' if tv else ''} {how} N={horizon} B={B}"
 
 
-def hold_lanes(what, got, ref):
+def hold_lanes(what, got, ref, phase=19):
     """Per-lane k of two runs: the lanes that move are named. Returns (k
     agreement, largest u error on the lanes with equal k, moved lanes,
     their moves, both runs' every lane converged)."""
     kg, kr = got.k.cpu().numpy(), ref.k.cpu().numpy()
     moved = np.flatnonzero(kg != kr)
     if moved.size:
-        log(f"phase 19 {what}: lanes {moved.tolist()} move by "
+        log(f"phase {phase} {what}: lanes {moved.tolist()} move by "
             f"{(kg[moved] - kr[moved]).tolist()} iterations")
     same = kg == kr
     u_err = float(np.abs(got.u.cpu().double().numpy()
@@ -2153,6 +2171,25 @@ def wall_ms(run, reps):
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     return sorted(times)[len(times) // 2], times
+
+
+def time_and_profile(fixed, B, out):
+    """Into `out`: BAND_RUNS timed runs of fixed(BAND_FIXED) (their
+    median, solves/s and the peak of allocated memory), and two profiled
+    runs, fixed(i) for i in BAND_PROFILE, whose difference gives an
+    iteration's launches and device time (the idle share: against the
+    timed runs' wall an iteration)."""
+    ms, times = wall_ms(lambda: fixed(BAND_FIXED), BAND_RUNS)
+    out.update(ms=ms, ms_all=times, solves_per_s=B / ms * 1e3,
+               fixed_iters=BAND_FIXED,
+               peak_mb=torch.cuda.max_memory_allocated() / 2**20)
+    (n1, dev1), (n2, dev2) = (profile_run(lambda: fixed(i))
+                              for i in BAND_PROFILE)
+    span = BAND_PROFILE[1] - BAND_PROFILE[0]
+    dev_it = (dev2 - dev1) / span
+    out.update(launches_per_iter=(n2 - n1) / span,
+               launches_profiled=(n1, n2), device_ms_per_iter=dev_it,
+               idle_share=1.0 - dev_it / (ms / BAND_FIXED))
 
 
 def band_row(sp, row, refs):
@@ -2212,22 +2249,7 @@ def band_row(sp, row, refs):
                             res.e_flag[:BAND_REF_B], {}), refs[key])
         out.update(k_agree=agree, u_err_vs_fp64=u_err,
                    moved=dict(zip(moved.tolist(), moves.tolist())))
-        def fixed(iters):
-            return s(*xd, fixed_iters=iters)
-
-        ms, times = wall_ms(lambda: fixed(BAND_FIXED), BAND_RUNS)
-        out.update(ms=ms, ms_all=times, solves_per_s=B / ms * 1e3,
-                   fixed_iters=BAND_FIXED,
-                   peak_mb=torch.cuda.max_memory_allocated() / 2**20)
-        (n1, dev1), (n2, dev2) = (profile_run(lambda: fixed(i))
-                                  for i in BAND_PROFILE)
-        span = BAND_PROFILE[1] - BAND_PROFILE[0]
-        # an iteration's launches and device time, from the difference of
-        # the two runs, against the timed runs' wall an iteration
-        dev_it = (dev2 - dev1) / span
-        out.update(launches_per_iter=(n2 - n1) / span,
-                   launches_profiled=(n1, n2), device_ms_per_iter=dev_it,
-                   idle_share=1.0 - dev_it / (ms / BAND_FIXED))
+        time_and_profile(lambda iters: s(*xd, fixed_iters=iters), B, out)
         log("phase 19 " + json.dumps(out))
         # fp32 against fp64: the same code moves a few per cent of lanes by
         # one iteration at tol 1e-4 (fp32 against fp64, and fp32 dense
@@ -2276,6 +2298,303 @@ def phase_banded(sp):
         rows.append(band_row(sp, row, refs))
     log(f"phase 19 wall: {time.perf_counter() - t0:.1f} s")
     return rows
+
+
+# phase 20: the banded backends of HMPC-ADMM, the HMPC split pair and
+# MPCT-ADMM-semiband, backend="auto" and the measured memory analysis, on
+# the oscillating masses. family -> (formulation, method, submethod,
+# options): MPCT-ADMM-semiband and HMPC-ADMM-split at the JAX long-horizon
+# record's settings (tools/bench_longn.py:44-49: rho 0.5; rho 2, sigma
+# 20), HMPC-ADMM and HMPC-SADMM-split at the split's
+LONG_FAMILIES = {
+    "HMPC-ADMM": ("HMPC", "ADMM", "", dict(rho=2.0, sigma=20.0)),
+    "HMPC-ADMM-split": ("HMPC", "ADMM", "split", dict(rho=2.0, sigma=20.0)),
+    "HMPC-SADMM-split": ("HMPC", "SADMM", "split",
+                         dict(rho=2.0, sigma=20.0)),
+    "MPCT-ADMM-semiband": ("MPCT", "ADMM", "semiband", dict(rho=0.5)),
+}
+SOFT_OUTPUT = dict(soft_constraints=True, constrained_output=True, beta=2.0)
+VECTOR_RHO = dict(rho="vector")     # a per-entry rho drawn from seed 3
+# the correctness rows, fp64 at N=30, B=BAND_CHECK_B, the card against the
+# CPU: (family, options)
+LONG_CHECKS = (
+    ("HMPC-ADMM", {}), ("HMPC-ADMM", SCAN), ("HMPC-ADMM-split", {}),
+    ("HMPC-SADMM-split", {}), ("MPCT-ADMM-semiband", {}),
+    ("MPCT-ADMM-semiband", SOFT_OUTPUT), ("MPCT-ADMM-semiband", VECTOR_RHO),
+    ("MPCT-ADMM-semiband", SCAN))
+# the full-size fp32 rows, (family, N, B): the JAX long-horizon record's
+# (BENCH_LONGN_r05.json rows 11-14) and HMPC-ADMM at N=120; each on the
+# dense engine, the sequential band solve and the scan
+LONG_ROWS = (("HMPC-ADMM-split", 480, 1024),
+             ("MPCT-ADMM-semiband", 480, 1024), ("HMPC-ADMM", 120, 4096))
+LONG_BACKENDS = (("dense", {}), ("banded", {}), ("banded", SCAN))
+# the run to convergence of each family on the scan, against an fp64 run
+# of the card's dense engine
+LONG_CONV_N = 120
+LONG_CONV = ("HMPC-ADMM", "HMPC-ADMM-split", "MPCT-ADMM-semiband")
+# the largest move of a lane's k, fp32 on the scan against the fp64 dense
+# engine, that the CPU shows on long_converge's lanes
+# (tools/banded_fp32_cpu.py --long 1024, PERF.md §6): HMPC-ADMM's
+# residual creeps along tol 1e-4 and fp32 moves its k by up to 21
+# iterations on the dense engine and 22 on the scan; the others move by
+# one at most
+LONG_MOVE = {"HMPC-ADMM": 22}
+# the auto probes: (family, N); at N=480 K7's width cap refuses fused
+AUTO_PROBES = (("laxMPC-ADMM", N), ("HMPC-ADMM-split", N),
+               ("HMPC-ADMM-split", 480))
+AUTO_B = 1024       # the probe's batch, and the chosen solver's lanes
+AUTO_FUSED = dict(tile_b=TILE_B, check_every=8, exact_k=True)
+
+
+def long_problem(sp, fam, horizon, output=False):
+    """The fixture at `horizon` with the family's parameters: HMPC's
+    tests/test_hmpc.py:14-25 (w = 3 * 1.627 * 0.2, Te = Th = 10 N Q,
+    Se = R, Sh = R / 2), MPCT's T = 10 Q and S = R; `output` adds the
+    three mass positions as constrained outputs within +-0.25."""
+    sys_, param, st = sp.systems.tester_fixture()
+    p = dict(param, N=horizon)
+    if LONG_FAMILIES[fam][0] == "HMPC":
+        p.pop("T", None)
+        p.update(w=3 * 1.627 * 0.2, Te=10 * horizon * np.asarray(p["Q"]),
+                 Se=np.asarray(p["R"]).copy())
+        p.update(Th=p["Te"], Sh=0.5 * p["Se"])
+    else:
+        p.update(T=10.0 * np.asarray(p["Q"]), S=np.asarray(p["R"]).copy())
+    if output:
+        n_x, m_u = np.asarray(sys_["B"]).shape
+        sys_ = dict(sys_, C=np.eye(3, n_x), D=np.zeros((3, m_u)),
+                    LBy=-0.25 * np.ones(3), UBy=0.25 * np.ones(3))
+    return sys_, p, st
+
+
+def long_solver(sp, fam, horizon, backend, precision, device, **extra):
+    form, meth, sub, kw = LONG_FAMILIES[fam]
+    sys_, p, _ = long_problem(sp, fam, horizon,
+                              extra.get("constrained_output", False))
+    if extra.get("rho") == "vector":
+        nv = (horizon + 1) * sum(np.asarray(sys_["B"]).shape)
+        extra = dict(extra, rho=0.3 + 0.4 * np.random.default_rng(3)
+                     .random(nv))
+    o = sp.default_options(form, meth, sub, **{**dict(
+        tol_p=BAND_TOL, tol_d=BAND_TOL, k_max=BAND_K_MAX), **kw, **extra})
+    o.precision = precision
+    return sp.make_solver(sys_, p, formulation=form, method=meth,
+                          submethod=sub, options=o, backend=backend,
+                          device=device)
+
+
+def long_inputs(sp, fam, horizon, B, seed):
+    """x0 scaled per lane in [-1.5, 1.5], as the JAX long-horizon record
+    draws it (tools/bench_longn.py:147)."""
+    _, _, st = long_problem(sp, fam, horizon)
+    rng = np.random.default_rng(seed)
+    x0 = np.asarray(st["x"])[None, :] * rng.uniform(-1.5, 1.5, (B, 1))
+    return x0, np.tile(st["xr"], (B, 1)), np.tile(st["ur"], (B, 1))
+
+
+def long_label(fam, horizon, B, backend, extra):
+    what = band_label(fam, horizon, B, backend, False, extra)
+    return what + ("".join(f" {key}" for key in ("soft_constraints",
+                                                  "constrained_output")
+                           if extra.get(key))
+                   + (" vector rho" if extra.get("rho") else ""))
+
+
+def long_row(sp, fam, horizon, B, backend, extra):
+    """One full-size fp32 row: the build, one warm run and BAND_RUNS timed
+    runs at fixed_iters=BAND_FIXED, two profiled runs (time_and_profile),
+    and at N=480 the measured memory analysis beside the allocator's
+    peak."""
+    what = long_label(fam, horizon, B, backend, extra)
+    x = long_inputs(sp, fam, horizon, B, 20)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out = dict(row=what)
+    try:
+        t0 = time.perf_counter()
+        s = long_solver(sp, fam, horizon, backend, "float", DEVICE, **extra)
+        out["build_s"] = time.perf_counter() - t0
+        xd = [torch.as_tensor(a, dtype=torch.float32, device=DEVICE)
+              for a in x]
+
+        def fixed(iters):
+            return s(*xd, fixed_iters=iters)
+
+        assert bool(torch.isfinite(fixed(BAND_FIXED).u).all()), what
+        time_and_profile(fixed, B, out)
+        if horizon == 480:
+            torch.cuda.empty_cache()
+            mem = s.aot_memory_analysis(*x, fixed_iters=BAND_PROFILE[0])
+            out.update(memory=mem, max_memory_allocated_mb=(
+                torch.cuda.max_memory_allocated() / 2**20))
+            assert mem["peak_bytes"] > 0, (what, mem)
+        log("phase 20 " + json.dumps(out))
+    finally:
+        s = None
+        torch.cuda.empty_cache()
+    return out
+
+
+def long_converge(sp, fam):
+    """A family's scan solver, fp32, run to convergence on BAND_CONV_B
+    lanes at LONG_CONV_N, against an fp64 run of the card's dense engine
+    on the same lanes: every lane converged, k within LONG_MOVE (one
+    iteration unless named) and u within U_TOL where k is equal, the bar
+    the CPU sets (tools/banded_fp32_cpu.py)."""
+    what = long_label(fam, LONG_CONV_N, BAND_CONV_B, "banded", SCAN)
+    x = long_inputs(sp, fam, LONG_CONV_N, BAND_CONV_B, 21)
+    ref = long_solver(sp, fam, LONG_CONV_N, "dense", "double", DEVICE)(*x)
+    s = long_solver(sp, fam, LONG_CONV_N, "banded", "float", DEVICE, **SCAN)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = s(*x)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    agree, u_err, moved, moves, converged = hold_lanes(what, res, ref, 20)
+    out = dict(row=what, converge_ms=ms, k_mean=float(res.k.float().mean()),
+               k_max=int(res.k.max()),
+               k_mean_fp64_dense=float(ref.k.double().mean()),
+               converged=converged, k_agree=agree, u_err_vs_fp64=u_err,
+               moved=dict(zip(moved.tolist(), moves.tolist())))
+    log("phase 20 " + json.dumps(out))
+    assert converged, what
+    assert not moved.size or np.abs(moves).max() <= LONG_MOVE.get(fam, 1), (
+        what, moves)
+    assert u_err <= U_TOL, (what, u_err)
+    return out
+
+
+def auto_solver(sp, fam, horizon):
+    """make_solver(backend="auto") in fp32 on the card: laxMPC-ADMM at the
+    headline's settings, the HMPC split at LONG_FAMILIES'; both with the
+    fused kernels' exact-k tuning; the probe at AUTO_B lanes."""
+    probe = dict(auto_probe_batch=AUTO_B)
+    if fam == "laxMPC-ADMM":
+        sys_, p, _ = problem(sp, 0, 1, horizon)
+        return sp.make_solver(sys_, p, formulation="laxMPC", method="ADMM",
+                              options=headline_options(
+                                  sp, **dict(AUTO_FUSED,
+                                             check_every=CHECK_EVERY),
+                                  **probe),
+                              backend="auto")
+    return long_solver(sp, fam, horizon, "auto", "float", DEVICE,
+                       **AUTO_FUSED, **probe)
+
+
+def phase_auto(sp):
+    """make_solver(backend="auto") on the card with a fresh cache
+    directory: each AUTO_PROBES entry probes its candidates (the fused
+    one launches K1 or K7; at N=480 K7's width cap refuses it at build)
+    and logs its choice and probe times; a second make_solver hits the
+    cache and builds only the winner, which converges on every lane of
+    AUTO_B. Returns the K1 and K7 launches of this path."""
+    import tempfile
+    from spcies_tpu_torch.formulations import base
+    from spcies_tpu_torch.kernels.fused_admm import fused_admm_solve
+    from spcies_tpu_torch.kernels.fused_split import fused_split_solve
+    old_dir = os.environ.get("SPCIES_AUTO_CACHE_DIR")
+    launches = dict(fused_admm=0, fused_split=0)
+    with tempfile.TemporaryDirectory() as cache:
+        os.environ["SPCIES_AUTO_CACHE_DIR"] = cache
+        try:
+            for fam, horizon in AUTO_PROBES:
+                form, meth, sub = (("laxMPC", "ADMM", "")
+                                   if fam == "laxMPC-ADMM"
+                                   else LONG_FAMILIES[fam][:3])
+                real = base.BUILDERS[(form, meth, sub)]
+                builds = []
+
+                def counting(*args, backend="dense", **kw):
+                    builds.append(backend)
+                    return real(*args, backend=backend, **kw)
+
+                base.BUILDERS[(form, meth, sub)] = counting
+                try:
+                    fused_admm_solve.launches = 0
+                    fused_split_solve.launches = 0
+                    t0 = time.perf_counter()
+                    s1 = auto_solver(sp, fam, horizon)
+                    first_s = time.perf_counter() - t0
+                    probed = list(builds)
+                    t0 = time.perf_counter()
+                    s2 = auto_solver(sp, fam, horizon)
+                    second_s = time.perf_counter() - t0
+                    cached_builds = builds[len(probed):]
+                    if fam == "laxMPC-ADMM":
+                        x = problem(sp, 20, AUTO_B, horizon)[2]
+                    else:
+                        x = long_inputs(sp, fam, horizon, AUTO_B, 20)
+                    res = s2(*x)
+                    k1 = fused_admm_solve.launches
+                    k7 = fused_split_solve.launches
+                finally:
+                    base.BUILDERS[(form, meth, sub)] = real
+                launches["fused_admm"] += k1
+                launches["fused_split"] += k7
+                out = dict(probe=f"{fam} N={horizon}",
+                           choice=s1.backend_choice,
+                           probe_s=s1.backend_probe_s, built=probed,
+                           first_make_solver_s=first_s,
+                           cached=s2.backend_probe_cached,
+                           cached_choice=s2.backend_choice,
+                           cached_built=cached_builds,
+                           second_make_solver_s=second_s,
+                           k1_launches=k1, k7_launches=k7,
+                           converged=float((res.e_flag == 1).float()
+                                           .mean()),
+                           k_mean=float(res.k.float().mean()))
+                log("phase 20 auto " + json.dumps(out))
+                assert s2.backend_probe_cached, out
+                assert cached_builds == [s1.backend_choice], out
+                assert s2.backend_choice == s1.backend_choice, out
+                assert out["converged"] == 1.0, out
+                # the fused candidate: probed (and its kernel launched)
+                # at N=30, refused at build by K7's width cap at N=480
+                if horizon == N:
+                    assert "fused" in s1.backend_probe_s, out
+                    assert (k1 if fam == "laxMPC-ADMM" else k7) > 0, out
+                else:
+                    assert "fused" not in s1.backend_probe_s, out
+        finally:
+            if old_dir is None:
+                os.environ.pop("SPCIES_AUTO_CACHE_DIR", None)
+            else:
+                os.environ["SPCIES_AUTO_CACHE_DIR"] = old_dir
+    return launches
+
+
+def phase_long(sp):
+    """Phase 20: the banded backends of HMPC-ADMM, the HMPC split pair and
+    MPCT-ADMM-semiband on the card: the correctness rows (LONG_CHECKS,
+    fp64, N=30, B=256) against the same solver on the CPU, the full-size
+    fp32 rows (LONG_ROWS x LONG_BACKENDS), the runs to convergence
+    (LONG_CONV), and backend="auto" (phase_auto). Returns the auto path's
+    kernel launches."""
+    t0 = time.perf_counter()
+    for fam, extra in LONG_CHECKS:
+        what = long_label(fam, N, BAND_CHECK_B, "banded", extra)
+        x = long_inputs(sp, fam, N, BAND_CHECK_B, 200)
+        got, ref = (long_solver(sp, fam, N, "banded", "double", dev,
+                                **extra)(*x)
+                    for dev in (DEVICE, "cpu"))
+        agree, u_err, moved, moves, converged = hold_lanes(what, got, ref,
+                                                           20)
+        log(f"phase 20 {what} fp64 card vs CPU: every lane converged "
+            f"{converged}, k equal on {agree}, k_mean "
+            f"{float(got.k.double().mean())}, max|du| {u_err} "
+            f"({time.perf_counter() - t0:.1f} s into the phase)")
+        assert converged, what
+        assert not moved.size or np.abs(moves).max() <= 1, (what, moves)
+        assert u_err <= BAND_U_TOL, (what, u_err)
+    for fam, horizon, B in LONG_ROWS:
+        for backend, extra in LONG_BACKENDS:
+            long_row(sp, fam, horizon, B, backend, extra)
+    log(f"phase 20 rows: {time.perf_counter() - t0:.1f} s into the phase")
+    for fam in LONG_CONV:
+        long_converge(sp, fam)
+    launches = phase_auto(sp)
+    log(f"phase 20 wall: {time.perf_counter() - t0:.1f} s")
+    return launches
 
 
 def kernel_entry(name, launches, err, times, wide=None):
@@ -2344,9 +2663,11 @@ def main():
     wk = phase_wide_kernels(sp)
     phase_off_fixture(sp)
     phase_banded(sp)
+    auto_launches = phase_long(sp)
     log(json.dumps({"kernels": [
         kernel_entry("fused_admm", launches + fam_launches["fused_admm"]
-                     + mpct_launches["fused_admm"] + roll_launches,
+                     + mpct_launches["fused_admm"] + roll_launches
+                     + auto_launches["fused_admm"],
                      max(head["u_err"], *(r["u_err"] for r in wide.values()
                                           if "u_err" in r)),
                      times, wide),
@@ -2367,7 +2688,8 @@ def main():
         kernel_entry("fused_hmpc", hmpc_launches["fused_hmpc"],
                      max(hmpc_err["fused_hmpc"], wk["fused_hmpc"][1]),
                      hmpc_times[("HMPC-ADMM", FB)], wk["fused_hmpc"][0]),
-        kernel_entry("fused_split", hmpc_launches["fused_split"],
+        kernel_entry("fused_split", hmpc_launches["fused_split"]
+                     + auto_launches["fused_split"],
                      max(hmpc_err["fused_split"], wk["fused_split"][1]),
                      hmpc_times[("HMPC-ADMM-split", FB)],
                      wk["fused_split"][0])]}))

@@ -10,7 +10,12 @@ reference's name-mangled `cons_*` eval dispatch
 
 from __future__ import annotations
 
+import copy
 import dataclasses
+import hashlib
+import json
+import os
+import time
 
 import numpy as np
 import torch
@@ -193,6 +198,43 @@ class BatchedSolver:
     def solve(self, *inputs, **kw):
         return self(*inputs, **kw)
 
+    def aot_memory_analysis(self, *inputs, init=None, fixed_iters=None):
+        """The solve's device memory at the given inputs, as a dict of
+        byte counts with the JAX package's keys (argument, output, temp,
+        alias, code and peak bytes; peak = argument + output + temp -
+        alias).
+
+        The JAX package's figure is XLA's, from the compiled executable
+        before it runs. This one is MEASURED, not compile-time: on a CUDA
+        device it places the inputs and runs the solve once between
+        torch.cuda.reset_peak_memory_stats() and
+        torch.cuda.max_memory_allocated(), counting from the allocation
+        before the inputs were placed (the solver's own operators, placed
+        when it was built, are not counted). argument_bytes is what the
+        placed inputs allocated, output_bytes what the result holds after
+        the solve, temp_bytes the rest of the peak. alias_bytes and
+        code_bytes are 0: no buffer is donated, and the kernels' code is
+        not device memory the allocator counts. Returns None on the CPU, as
+        the JAX package does where a backend has no memory analysis."""
+        if self.device.type != "cuda":
+            return None
+        missing = self.n_inputs - len(inputs)
+        if missing > 0:
+            inputs = inputs + self.default_inputs[-missing:]
+        torch.cuda.synchronize(self.device)
+        base = torch.cuda.memory_allocated(self.device)
+        torch.cuda.reset_peak_memory_stats(self.device)
+        placed = broadcast_inputs(self.dtype, self.device, *inputs,
+                                  core_ndims=self.input_core_ndims)
+        argument = torch.cuda.memory_allocated(self.device) - base
+        res = self(*placed, init=init, fixed_iters=fixed_iters)
+        torch.cuda.synchronize(self.device)
+        output = torch.cuda.memory_allocated(self.device) - base - argument
+        peak = torch.cuda.max_memory_allocated(self.device) - base
+        return dict(argument_bytes=argument, output_bytes=output,
+                    temp_bytes=peak - argument - output, alias_bytes=0,
+                    code_bytes=0, peak_bytes=peak)
+
 
 def resolve_device(device="cuda") -> torch.device:
     """The device a solver runs on: the card unless the caller names
@@ -221,6 +263,9 @@ def make_solver(sys: dict, param: dict, *, formulation: str = "",
            request (without a card the default raises RuntimeError).
     ingredients: an ingredient dict to build from instead of computing one
            (for example convert.ingredients_from_jax of a JAX solver's).
+    backend: 'dense', 'fused', 'banded' (where the triple has them) or
+           'auto', which builds the candidates and keeps the fastest
+           (`_auto_backend`).
     """
     if not formulation and (options is None
                             or isinstance(options, dict)
@@ -244,10 +289,6 @@ def make_solver(sys: dict, param: dict, *, formulation: str = "",
         opt.solver.update(solver_overrides)
         opt.resolve()
 
-    if backend == "auto":
-        raise NotImplementedError(
-            "backend='auto' is not ported to spcies_tpu_torch yet "
-            "(ROADMAP queue 1 item 12); choose 'dense' or 'fused'")
     if backend == "fused" and opt.debug:
         # genHist-style traces (debug=1/2) are recorded by the masked loop
         # (solvers/loop.py); the fused kernel runs the whole iteration and
@@ -259,8 +300,240 @@ def make_solver(sys: dict, param: dict, *, formulation: str = "",
     from spcies_tpu_torch.formulations.base import get_builder
     builder = get_builder(opt.formulation, opt.method, opt.submethod)
     device = resolve_device(device)
-    solver = builder(sys, param, opt, backend=backend, device=device,
-                     ingredients=ingredients)
+    if backend == "auto":
+        if ingredients is not None:
+            raise ValueError(
+                "backend='auto' takes no ingredients=: each backend reads "
+                "its own layout (convert.BUILDER_KEYS, BANDED_KEYS); name "
+                "the backend the ingredients were made for")
+        solver = _auto_backend(builder, sys, param, opt, device)
+    else:
+        solver = builder(sys, param, opt, backend=backend, device=device,
+                         ingredients=ingredients)
     if opt.in_engineering:
         solver.set_engineering(sys)
     return solver
+
+
+# ---------------------------------------------------------------------------
+# backend='auto': a short probe of every backend, its choice kept on disk
+# ---------------------------------------------------------------------------
+
+AUTO_BACKENDS = ("dense", "fused", "banded")
+
+
+def _auto_cache_path():
+    """$SPCIES_AUTO_CACHE_DIR/spcies_auto_backend.json, else under
+    ~/.cache/spcies_tpu_torch."""
+    root = os.environ.get("SPCIES_AUTO_CACHE_DIR") or os.path.expanduser(
+        "~/.cache/spcies_tpu_torch")
+    return os.path.join(root, "spcies_auto_backend.json")
+
+
+def _auto_cache_load() -> dict:
+    """The cached choices; an absent or unreadable file holds none."""
+    try:
+        with open(_auto_cache_path()) as f:
+            cache = json.load(f)
+    except (OSError, ValueError):
+        return {}
+    return cache if isinstance(cache, dict) else {}
+
+
+def _auto_cache_store(key: str, backend: str):
+    """Add one choice to the cache, atomically (a temporary file and
+    os.replace). The cache saves a later probe; a directory that cannot be
+    written costs that and fails no build."""
+    path = _auto_cache_path()
+    cache = _auto_cache_load()
+    cache[key] = backend
+    try:
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        tmp = f"{path}.tmp{os.getpid()}"
+        with open(tmp, "w") as f:
+            json.dump(cache, f, indent=0, sort_keys=True)
+        os.replace(tmp, path)
+    except OSError:
+        pass
+
+
+def _digest_value(h, value):
+    """Feed one option or model entry into the hash h: arrays by dtype,
+    shape and bytes, containers entry by entry, the rest by repr."""
+    if isinstance(value, dict):
+        for k in sorted(value):
+            h.update(f"<{k}>".encode())
+            _digest_value(h, value[k])
+        return
+    if isinstance(value, (np.ndarray, list, tuple)):
+        arr = np.asarray(value)
+        if arr.dtype != object:
+            h.update(f"{arr.dtype.str}{arr.shape}".encode())
+            h.update(np.ascontiguousarray(arr).tobytes())
+            return
+    h.update(repr(value).encode())
+
+
+def auto_cache_key(sys: dict, param: dict, opt: Options, device,
+                   probe: tuple) -> str:
+    """The auto cache's key: the JAX package's fields (the triple, n, m,
+    N, precision, time_varying, debug, the probe's batch, iterations and
+    repetitions), the device's type and, on a card, its name, and a sha256
+    digest of the resolved options (the solver dict but its auto_probe_*
+    knobs, and the toolbox options) and of every entry of sys and param.
+    The JAX package's key leaves the digest out, so a second build with
+    another rho or another plant is served the first one's choice; this
+    key does not."""
+    device = torch.device(device)
+    kind = (torch.cuda.get_device_name(device) if device.type == "cuda"
+            else device.type)
+    h = hashlib.sha256()
+    general = {f.name: getattr(opt, f.name)
+               for f in dataclasses.fields(opt) if f.name != "solver"}
+    for part in (general,
+                 {k: v for k, v in opt.solver.items()
+                  if not k.startswith("auto_probe")}, sys, param):
+        h.update(b"|")
+        _digest_value(h, part)
+    n = np.asarray(sys["A"]).shape[0]
+    m = np.asarray(sys.get("B", sys.get("Bu"))).shape[1]
+    return "|".join(map(str, (
+        opt.formulation, opt.method, opt.submethod, n, m,
+        int(param.get("N", 0)), opt.precision, int(opt.time_varying),
+        int(bool(opt.debug)), device.type, kind, *probe, h.hexdigest())))
+
+
+def _probe_inputs(solver, batch):
+    """Zero inputs of `batch` lanes for each input with a unit kind, and
+    the registered defaults of the trailing ones without (the JAX
+    package's probe inputs), on the solver's device."""
+    dims = {"x": solver.n, "xa": solver.n, "u": solver.m, "ua": solver.m,
+            "xu": solver.n + solver.m}
+    inputs = []
+    for kind in solver.input_kinds:
+        if kind not in dims:
+            break
+        inputs.append(torch.zeros((batch, dims[kind]), dtype=solver.dtype,
+                                  device=solver.device))
+    missing = solver.n_inputs - len(inputs)
+    if missing > len(solver.default_inputs):
+        raise ValueError(
+            f"backend='auto' cannot make probe inputs for the input "
+            f"{solver.input_names[len(inputs)]!r}; choose a backend")
+    if missing:
+        inputs += [torch.as_tensor(d, dtype=solver.dtype,
+                                   device=solver.device).expand(
+                                       (batch,) + tuple(np.shape(d)))
+                   for d in solver.default_inputs[-missing:]]
+    return inputs
+
+
+def _probe_s(solver, batch, iters, reps):
+    """Median wall of `reps` solves of exactly `iters` iterations at
+    `batch` lanes, after one warm-up, each synchronised on a card. A fused
+    solver whose kernel has no fixed_iters mode (`takes_fixed_iters`
+    False) runs through fused_backend.for_iterations: its kernel with
+    k_max = iters and a tolerance no residual meets, the same work. Any
+    error propagates, and so does a non-finite result."""
+    run = solver
+    fixed = iters
+    if not getattr(solver.raw_fn, "takes_fixed_iters", True):
+        from spcies_tpu_torch.solvers.fused_backend import for_iterations
+        run = copy.copy(solver)
+        run.raw_fn = for_iterations(solver.raw_fn, iters)
+        fixed = None
+    inputs = _probe_inputs(solver, batch)
+    cuda = solver.device.type == "cuda"
+
+    def once():
+        if cuda:
+            torch.cuda.synchronize(solver.device)
+        t0 = time.perf_counter()
+        res = run(*inputs, fixed_iters=fixed)
+        if cuda:
+            torch.cuda.synchronize(solver.device)
+        return time.perf_counter() - t0, res
+
+    _, res = once()
+    if not bool(torch.isfinite(res.u).all()):
+        raise FloatingPointError(
+            "backend='auto': the probe solve gave a non-finite u")
+    times = sorted(once()[0] for _ in range(reps))
+    return times[len(times) // 2]
+
+
+def _auto_backend(builder, sys, param, opt, device) -> BatchedSolver:
+    """backend='auto': build every backend of the triple on `device` and
+    keep the fastest by a short probe (a fixed-iteration solve of zero
+    inputs, one warm-up, the median of auto_probe_reps), as the JAX
+    package's `_auto_backend` does; no static rule wins everywhere (the
+    fused kernels at the N=30 families, dense at small widths, banded past
+    the kernels' 1024 columns only in memory). Probe knobs (solver
+    options): auto_probe_batch (2048), auto_probe_iters (50),
+    auto_probe_reps (3), auto_probe_refresh (False: a cached choice is
+    served). The solver carries backend_choice, backend_probe_s (seconds
+    per candidate; empty where nothing was probed) and
+    backend_probe_cached.
+
+    A candidate is skipped only where its builder refuses it: a
+    ValueError or NotImplementedError raised while it is built (the fused
+    backends' fp64 refusal and each kernel's width cap, banded's box-only
+    and N >= 3 rules, a triple without the backend); under debug the
+    fused backend is not a candidate (its kernels keep no traces). Every
+    other error propagates, a kernel's build or launch failure, a CUDA
+    error or a non-finite probe result among them: the JAX package's
+    probe gives such a candidate an infinite time instead, which would
+    hide a broken kernel behind a slower backend.
+
+    The choice is kept on disk (`_auto_cache_path`) under
+    `auto_cache_key`, and a later build under the same key, in this
+    process or another, builds only the cached backend and probes
+    nothing (a cached 'fused' is not served to a debug build)."""
+    s = opt.solver
+    probe = (int(s.get("auto_probe_batch", 2048)),
+             int(s.get("auto_probe_iters", 50)),
+             int(s.get("auto_probe_reps", 3)))
+    key = auto_cache_key(sys, param, opt, device, probe)
+
+    def mark(solver, backend, times, cached):
+        solver.backend_choice = backend
+        solver.backend_probe_s = times
+        solver.backend_probe_cached = cached
+        return solver
+
+    if not s.get("auto_probe_refresh", False):
+        cached = _auto_cache_load().get(key)
+        if cached == "fused" and opt.debug:
+            cached = None
+        if cached in AUTO_BACKENDS:
+            try:
+                solver = builder(sys, param, opt, backend=cached,
+                                 device=device)
+            except (ValueError, NotImplementedError):
+                solver = None
+            if solver is not None:
+                return mark(solver, cached, {}, True)
+
+    candidates, refusals = {}, {}
+    for backend in AUTO_BACKENDS:
+        if backend == "fused" and opt.debug:
+            continue
+        try:
+            candidates[backend] = builder(sys, param, opt, backend=backend,
+                                          device=device)
+        except (ValueError, NotImplementedError) as exc:
+            refusals[backend] = exc
+    if not candidates:
+        first = next(iter(refusals.values()))
+        raise ValueError(
+            "no backend could be built for this triple: " + "; ".join(
+                f"{be}: {exc}" for be, exc in refusals.items())) from first
+    if len(candidates) == 1:
+        (backend, solver), = candidates.items()
+        _auto_cache_store(key, backend)
+        return mark(solver, backend, {}, False)
+    times = {backend: _probe_s(solver, *probe)
+             for backend, solver in candidates.items()}
+    best = min(times, key=times.get)
+    _auto_cache_store(key, best)
+    return mark(candidates[best], best, times, False)

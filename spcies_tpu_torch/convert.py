@@ -4,7 +4,11 @@ A solver's state is its ingredient dict: the offline fp64 matrices and
 scalars a builder bakes into the online loop. The JAX package exposes it as
 `solver.ingredients` (numpy arrays and Python scalars); the port's builders
 take the same keys (`make_solver(..., ingredients=...)`), so one set of
-numbers can drive both packages.
+numbers can drive both packages. A banded builder reads the keys of
+BANDED_KEYS where its triple has an entry; HMPC-ADMM's and the split
+pair's banded backends form their structured KKT from the common HMPC
+ingredients (H, G, C and the rest) and need no keys beyond them: their
+BANDED_KEYS entries are their BUILDER_KEYS entries.
 """
 
 from __future__ import annotations
@@ -76,6 +80,17 @@ BANDED_KEYS = {
     ("MPCT", "ADMM", "cs"): ("n", "m", "N", "nz", "sd", "bmax", *_ADMM_RHO,
                              "T", "S", "Hinv_st", "E0", "Cst", "Dst", "Fst",
                              "Alpha", "BetaInv", "LB", "UB"),
+    # mpct_admm_semiband_ingredients(..., structured=True)
+    ("MPCT", "ADMM", "semiband"): ("n", "m", "N", "p", "nz", "nv",
+                                   "rho_is_scalar", "rho_scalar", "rho_vec",
+                                   "A", "B", "T", "S", "blocks_inv", "Gu",
+                                   "Gv", "K1", "Alpha", "BetaInv", "Pu",
+                                   "Vt", "K2", "stage_map", "LBv", "UBv",
+                                   "soft_mask", "beta", "soft",
+                                   "constrained_output"),
+    ("HMPC", "ADMM", ""): _HMPC,
+    ("HMPC", "ADMM", "split"): _HMPC,
+    ("HMPC", "SADMM", "split"): _HMPC,
 }
 
 

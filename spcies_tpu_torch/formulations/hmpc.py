@@ -18,11 +18,11 @@ symmetric half-step duals scaled by alpha), code_ellipHMPC_ADMM_C.c
 
 The reference's permuted-LDL sparse path is replaced by the dense M1/M2
 affine maps (its own non-sparse path, spcies_HMPC_ADMM_solver.m:135).
-Backends: 'dense' (the masked loop) and 'fused' (kernels/fused_hmpc.py for
-the single-split solvers, kernels/fused_split.py for the split ones). The
-JAX package's banded backend (its arrowhead-Woodbury structured KKT, on
-the band-Cholesky solves of kernels/band_chol.py) is the part of ROADMAP
-queue 1 item 8 still to port.
+Backends: 'dense' (the masked loop), 'fused' (kernels/fused_hmpc.py for
+the single-split solvers, kernels/fused_split.py for the split ones) and,
+for HMPC-ADMM and the split pair, 'banded': the O(N)-memory arrowhead-
+Woodbury structured KKT (`_make_hmpc_split_structured_kkt`) on the
+band-Cholesky solve of kernels/band_chol.py, on the same masked loop.
 """
 
 from __future__ import annotations
@@ -335,11 +335,27 @@ def _make_cone_proj(ing, dtype, device, LBy=None, UBy=None):
     return cone_proj
 
 
-def _single_split_dense(ing, opt, dtype, device, M1_np, M2_np, make_q,
+def _dense_single_kkt(ing, dtype, device, M1_np, M2_np):
+    """The single-split dense KKT maps: (kkt_full(q_hat, x0),
+    kkt_lin(dq)) through M1 and M2[:, :n] (the beq = -A x0 rows)."""
+    M1, M2, A = (torch.as_tensor(a, dtype=dtype, device=device)
+                 for a in (M1_np, M2_np, ing["A"]))
+
+    def kkt_full(q_hat, x0):
+        return q_hat @ M1.T + (-(x0 @ A.T)) @ M2.T
+
+    def kkt_lin(dq):
+        return delta_dot(dq, M1.T)
+    return kkt_full, kkt_lin
+
+
+def _single_split_solve(ing, opt, dtype, device, kkt_full, kkt_lin, make_q,
                         LBy=None, UBy=None):
-    """The single-split dense engine of HMPC-ADMM and ellipHMPC-ADMM on the
-    masked loop: `(*inputs, init, fixed_iters) -> SolveResult`, with x0 the
-    first input. init is (z, s, lam)."""
+    """The single-split engine of HMPC-ADMM and ellipHMPC-ADMM on the
+    masked loop, over the KKT maps of either backend (dense:
+    `_dense_single_kkt`; banded: `_make_hmpc_split_structured_kkt` with
+    split=False): `(*inputs, init, fixed_iters) -> SolveResult`, with x0
+    the first input. init is (z, s, lam)."""
     n_s, n_box = ing["n_s"], ing["n_box"]
     m = ing["m"]
     tol_p = float(opt.solver["tol_p"])
@@ -351,13 +367,9 @@ def _single_split_dense(ing, opt, dtype, device, M1_np, M2_np, make_q,
         return torch.as_tensor(a, dtype=dtype, device=device)
 
     rho, rho_i = dev(rho_f), dev(1.0 / rho_f)
-    M1, M2, C, d, A, LB, UB = (dev(a) for a in (
-        M1_np, M2_np, ing["C"], ing["d"], ing["A"], ing["box_LB"],
-        ing["box_UB"]))
+    C, d, LB, UB = (dev(a) for a in (ing["C"], ing["d"], ing["box_LB"],
+                                     ing["box_UB"]))
     cone_proj = _make_cone_proj(ing, dtype, device, LBy, UBy)
-
-    def kkt_lin(dq):
-        return delta_dot(dq, M1.T)
 
     def proj_s(y):
         return torch.cat([proj_box(y[:, :n_box], LB, UB),
@@ -374,7 +386,7 @@ def _single_split_dense(ing, opt, dtype, device, M1_np, M2_np, make_q,
         else:
             s0, lam0 = (dev(a) for a in init[1:])
         # the first z-solve through the full affine map
-        z1 = (q + (rho * (s0 - d) + lam0) @ C) @ M1.T + (-(x0 @ A.T)) @ M2.T
+        z1 = kkt_full(q + (rho * (s0 - d) + lam0) @ C, x0)
         rinf = torch.full((Bsz,), float("inf"), dtype=dtype, device=device)
         state0 = dict(z=z1, z_next=z1, s=s0, lam=lam0, r_p=rinf, r_d=rinf)
 
@@ -412,13 +424,212 @@ def _single_split_dense(ing, opt, dtype, device, M1_np, M2_np, make_q,
     return _solve
 
 
-def _banded_not_ported(backend):
-    if backend == "banded":
-        raise NotImplementedError(
-            "backend='banded' is not ported to spcies_tpu_torch yet "
-            "(ROADMAP queue 1 item 8)")
-    if backend not in ("dense", "fused"):
-        raise ValueError(f"unknown backend {backend!r}")
+def _make_hmpc_split_structured_kkt(ing, sigma_f, rho_f, dtype, device,
+                                    split: bool = True,
+                                    parallel_scan: bool = False):
+    """O(N)-memory KKT maps of the HMPC solvers, the harmonic analogue of
+    MPCT-semiband's two-level structure (mpct._make_semiband_structured_
+    z_step). Port of spcies_tpu/formulations/hmpc.py
+    `_make_hmpc_split_structured_kkt`.
+
+    split=True: the two-block split KKT over (z, s), Hz = H + sigma I,
+    Gh = [G 0; C I] (code_HMPC_ADMM_split_C.c); returns
+    (kkt_full(qz, qs, x0), kkt_lin(dqz, dqs)), each giving (aux_z, aux_s).
+    split=False: the single-split ("reduced") KKT, Hz = H + rho C'C,
+    Gh = G (code_HMPC_ADMM_C.c); in box mode C'C = blkdiag(I_ns,
+    Caux'Caux), so the arrowhead is the same: the stage blocks shift by
+    rho I and the harmonic block by rho Caux'Caux. Returns
+    (kkt_full(q_hat, x0), kkt_lin(dq)).
+
+    Hz is an arrowhead: Hz = Gamma + Us Vs' with Gamma block-diagonal
+    (the stage cost blocks and the small harmonic block Hc) and Us Vs' the
+    rank-2r stage <-> harmonic coupling (r = 3(n+m), the H12/H13 border of
+    harmonic_hessian). With the level-1 Woodbury Hz^-1 = Gamma^-1 -
+    Gu K1 Gv', the dual system Gt = Gh Gamma^-1 Gh' is block-tridiagonal
+    over the N dynamics rows plus a dense O(1) tail (the 3n equilibrium
+    rows, and the n_s cone rows when split, which touch only the harmonic
+    block), so W = Gt - Ut K1 Vt' solves as band solve + tail Schur
+    complement + level-2 Woodbury. Offline, once a build, in fp64 numpy
+    (the dense Gamma^-1 and Gt are offline temporaries); online every
+    operation is stage-local and nothing O(N^2) is on the device. The
+    maps compute aux = Hh^-1 Gh' W^-1 (Gh Hh^-1 q + bh) - Hh^-1 q, the
+    dense path's (M1, M2) action. The band solve is
+    kernels/band_chol.py `BandSolve` (the scan with parallel_scan), whose
+    products of the fixed blocks are formed once, here. Box constraints
+    only, and N >= 3 (ValueError otherwise, as the JAX package)."""
+    from spcies_tpu_torch.kernels.band_chol import BandSolve
+    n, m, N = ing["n"], ing["m"], ing["N"]
+    ns, dim, n_eq, n_s = ing["ns"], ing["dim"], ing["n_eq"], ing["n_s"]
+    if not ing["box_constraints"]:
+        raise ValueError(
+            "the banded HMPC split backend supports box constraints only "
+            "(coupled-output cone rows are stage-local and keep the dense "
+            "backend); use backend='dense'")
+    if N < 3:
+        raise ValueError("the banded HMPC backend requires N >= 3")
+    nm = n + m
+    r = 3 * nm
+    H, G, C = (np.asarray(ing[key], dtype=float) for key in ("H", "G", "C"))
+
+    # --- offline: level-1 arrowhead Woodbury ---------------------------
+    if split:
+        # Hz = H + sigma I
+        D0 = H[:m, :m] + sigma_f * np.eye(m)
+        Dj = H[m:m + nm, m:m + nm] + sigma_f * np.eye(nm)  # stages 1..N-1
+        Hc = H[ns:, ns:] + sigma_f * np.eye(r)
+    else:
+        # Hz = H + rho C'C, box mode: C'C = blkdiag(I_ns, Caux'Caux)
+        Caux_np = C[ing["n_box"]:, ns:]
+        D0 = H[:m, :m] + rho_f * np.eye(m)
+        Dj = H[m:m + nm, m:m + nm] + rho_f * np.eye(nm)
+        Hc = H[ns:, ns:] + rho_f * (Caux_np.T @ Caux_np)
+    D0i = np.linalg.inv(D0)
+    Dji = np.linalg.inv(Dj)
+    Hci = np.linalg.inv(Hc)
+    Uc = H[:ns, ns:]                            # the stage<->harmonic border
+    Us = np.zeros((dim, 2 * r))
+    Us[:ns, r:] = Uc
+    Us[ns:, :r] = np.eye(r)
+    Vs = np.zeros((dim, 2 * r))
+    Vs[:ns, :r] = Uc
+    Vs[ns:, r:] = np.eye(r)
+    Gzi = linalg.blkdiag(D0i, *([Dji] * (N - 1)), Hci)  # offline temporary
+    Gu_np = Gzi @ Us
+    Gv_np = Gzi @ Vs
+    K1_np = np.linalg.inv(np.eye(2 * r) + Vs.T @ Gu_np)
+
+    # --- offline: banded + tail dual system ----------------------------
+    Ghz = np.vstack([G, C]) if split else G
+    Gt = Ghz @ Gzi @ Ghz.T
+    if split:
+        Gt[n_eq:, n_eq:] += (1.0 / rho_f) * np.eye(n_s)
+    Nn = N * n
+    nt = Ghz.shape[0] - Nn                  # 3n (+ n_s cone rows if split)
+    Wb = Gt[:Nn, :Nn]
+    Pfull = Gt[:Nn, Nn:]
+    Wt = Gt[Nn:, Nn:]
+    # the structure the solve relies on: the tail couples to the band only
+    # through the last dynamics row
+    if np.abs(Pfull[:Nn - n]).max() >= 1e-9 * max(1.0, np.abs(Gt).max()):
+        raise ValueError("the HMPC dual system's tail couples to more than "
+                         "the last dynamics row; use backend='dense'")
+    Wd = np.stack([Wb[k * n:(k + 1) * n, k * n:(k + 1) * n]
+                   for k in range(N)])
+    Wu = np.stack([Wb[k * n:(k + 1) * n, (k + 1) * n:(k + 2) * n]
+                   for k in range(N - 1)])
+    Alpha_np, BetaInv_np = linalg.band_chol_blocks_tridiag(Wd, Wu)
+    Fp_np = np.linalg.solve(Wb, Pfull)                 # [Nn, nt], O(N) memory
+    Sti_np = np.linalg.inv(Wt - Pfull.T @ Fp_np)
+    # level-2 Woodbury: W = Gt - Ut K1 Vt'
+    Ut_np = Ghz @ Gu_np
+    Vt_np = Ghz @ Gv_np
+    Pu_np = np.linalg.solve(Gt, Ut_np)
+    K2_np = np.linalg.inv(np.linalg.inv(K1_np) - Vt_np.T @ Pu_np)
+
+    # --- online constants ----------------------------------------------
+    def dev(a):
+        return torch.as_tensor(a, dtype=dtype, device=device)
+
+    band_solve = BandSolve(torch.as_tensor(Alpha_np),
+                           torch.as_tensor(BetaInv_np), scan=parallel_scan,
+                           dtype=dtype, device=device)
+    D0i_t, Dji_t, Hci_t, Gu, A_, B_ = (dev(a) for a in (
+        D0i, Dji, Hci, Gu_np, ing["A"], ing["B"]))
+    GvK1t = dev(Gv_np @ K1_np.T)                        # K1 folded into Gv
+    Th_ = dev(G[(N - 1) * n:Nn, ns:])          # terminal harmonic coefs
+    Eqh = dev(G[Nn:, ns:])                              # equilibrium rows
+    Caux = dev(C[:, dim - r:])                          # cone rows (harmonic)
+    d_t, Fp, Sti, Vt = (dev(a) for a in (ing["d"], Fp_np, Sti_np, Vt_np))
+    # row-vector form: (g @ Vt) @ (Pu K2).T = g Vt K2' Pu', the operator
+    # Gt^-1 Ut K2 Vt' Gt^-1 (K2 is not symmetric: Pu @ K2.T would be wrong)
+    PuK2t = dev(Pu_np @ K2_np)
+    rho_i = 1.0 / rho_f
+
+    def hz_inv(qz):
+        """Hz^-1 qz: stage-local Gamma^-1 and the rank-2r correction."""
+        u0 = qz[:, :m] @ D0i_t
+        st = torch.einsum("bls,ts->blt",
+                          qz[:, m:ns].reshape(-1, N - 1, nm), Dji_t)
+        hm = qz[:, ns:] @ Hci_t
+        g = torch.cat([u0, st.reshape(qz.shape[0], -1), hm], dim=-1)
+        return g - (qz @ GvK1t) @ Gu.T
+
+    def gh_apply(hz, hs):
+        """Gh (hz[, hs]) -> (band rows [B, N, n], tail [B, nt]); split:
+        Gh = [G 0; C I], single: Gh = G (hs is None)."""
+        u0 = hz[:, :m]
+        st = hz[:, m:ns].reshape(-1, N - 1, nm)
+        hm = hz[:, ns:]
+        x, u = st[..., :n], st[..., n:]
+        r0 = u0 @ B_.T - x[:, 0]
+        rl = x[:, :N - 2] @ A_.T + u[:, :N - 2] @ B_.T - x[:, 1:]
+        rN1 = x[:, N - 2] @ A_.T + u[:, N - 2] @ B_.T + hm @ Th_.T
+        rb = torch.cat([r0[:, None], rl, rN1[:, None]], dim=1)
+        if split:
+            rt = torch.cat([hm @ Eqh.T, hm @ Caux.T + hs], dim=-1)
+        else:
+            rt = hm @ Eqh.T
+        return rb, rt
+
+    def ght_apply(wb, wt):
+        """Gh' (wb, wt) -> z rows [B, dim] (and s rows [B, n_s] if
+        split)."""
+        weq = wt[:, :3 * n]
+        u0 = wb[:, 0] @ B_
+        xj = torch.einsum("blj,ji->bli", wb[:, 1:], A_) - wb[:, :N - 1]
+        uj = torch.einsum("blj,ji->bli", wb[:, 1:], B_)
+        hm = wb[:, N - 1] @ Th_ + weq @ Eqh
+        if split:
+            wcone = wt[:, 3 * n:]
+            hm = hm + wcone @ Caux
+        st = torch.cat([xj, uj], dim=-1).reshape(wb.shape[0], -1)
+        gz = torch.cat([u0, st, hm], dim=-1)
+        return (gz, wcone) if split else gz
+
+    def w_solve(rb, rt):
+        """W^-1 over (band, tail): band solve, tail Schur, level 2."""
+        Bsz = rb.shape[0]
+        u1 = band_solve(rb).reshape(Bsz, Nn)
+        bt = (rt - rb.reshape(Bsz, Nn) @ Fp) @ Sti.T
+        g = torch.cat([u1 - bt @ Fp.T, bt], dim=-1)
+        g = g + (g @ Vt) @ PuK2t.T
+        return g[:, :Nn].reshape(Bsz, N, n), g[:, Nn:]
+
+    def add_beq(rb, x0):
+        """rb with beq[:n] = -A x0 added to its first row, out of place:
+        the delta-form maps pass their inputs on."""
+        return torch.cat([rb[:, :1] - (x0 @ A_.T)[:, None], rb[:, 1:]],
+                         dim=1)
+
+    if split:
+        def kkt(qz, qs, x0=None):
+            hz = hz_inv(qz)
+            hs = qs * rho_i
+            rb, rt = gh_apply(hz, hs)
+            if x0 is not None:
+                rb = add_beq(rb, x0)
+                rt = torch.cat([rt[:, :3 * n], rt[:, 3 * n:] + d_t], dim=-1)
+            gz, gs = ght_apply(*w_solve(rb, rt))
+            return hz_inv(gz) - hz, gs * rho_i - hs
+
+        return kkt, lambda dqz, dqs: kkt(dqz, dqs)
+
+    # single split: the cone offset d enters through q_hat outside
+    # (code_HMPC_ADMM_C.c builds q_hat = q + C'(rho(s - d) + lam))
+    def kkt(q_hat, x0=None):
+        hz = hz_inv(q_hat)
+        rb, rt = gh_apply(hz, None)
+        if x0 is not None:
+            rb = add_beq(rb, x0)
+        return hz_inv(ght_apply(*w_solve(rb, rt))) - hz
+
+    return kkt, lambda dq: kkt(dq)
+
+
+def _check_backend(backend):
+    if backend not in ("dense", "fused", "banded"):
+        raise ValueError(f"unknown backend {backend!r}: HMPC has dense, "
+                         "fused and banded backends")
 
 
 @register_builder("HMPC", "ADMM")
@@ -427,23 +638,37 @@ def build_hmpc_admm(sys: dict, param: dict, opt: Options,
                     ingredients: dict | None = None) -> BatchedSolver:
     """Single-split ("reduced") HMPC ADMM (spcies_HMPC_ADMM_solver.m:125-198,
     code_HMPC_ADMM_C.c) on `device`. `ingredients` replaces the offline
-    computation (same keys as hmpc_common_ingredients). The warm start is
-    init=(z, s, lam)."""
-    _banded_not_ported(backend)
+    computation (same keys as hmpc_common_ingredients, whatever the
+    backend). backend='banded' is the O(N)-memory structured KKT (box
+    constraints, N >= 3). The warm start is init=(z, s, lam)."""
+    _check_backend(backend)
     device = resolve_device(device)
     ing = (ingredients if ingredients is not None
            else hmpc_common_ingredients(sys, param, opt, split=False))
     dtype = _DTYPES[opt.precision]
-    M1_np, M2_np = single_split_kkt(ing, float(opt.solver["rho"]))
-    if backend == "fused":
-        from spcies_tpu_torch.solvers.fused_backend import (
-            build_fused_hmpc_solve)
-        solve = build_fused_hmpc_solve(
-            ing, opt, dtype, device, M1_np, M2_np,
-            make_q=hmpc_q_maker(ing, torch.float32, device))
+    rho_f = float(opt.solver["rho"])
+    if backend == "banded":
+        # sigma unused: the single-split KKT shifts by rho C'C
+        solve = _single_split_solve(
+            ing, opt, dtype, device,
+            *_make_hmpc_split_structured_kkt(
+                ing, 0.0, rho_f, dtype, device, split=False,
+                parallel_scan=bool(opt.solver.get("band_parallel_scan",
+                                                  False))),
+            hmpc_q_maker(ing, dtype, device))
     else:
-        solve = _single_split_dense(ing, opt, dtype, device, M1_np, M2_np,
-                                    hmpc_q_maker(ing, dtype, device))
+        M1_np, M2_np = single_split_kkt(ing, rho_f)
+        if backend == "fused":
+            from spcies_tpu_torch.solvers.fused_backend import (
+                build_fused_hmpc_solve)
+            solve = build_fused_hmpc_solve(
+                ing, opt, dtype, device, M1_np, M2_np,
+                make_q=hmpc_q_maker(ing, torch.float32, device))
+        else:
+            solve = _single_split_solve(
+                ing, opt, dtype, device,
+                *_dense_single_kkt(ing, dtype, device, M1_np, M2_np),
+                hmpc_q_maker(ing, dtype, device))
     return BatchedSolver(solve, ing, opt, n=ing["n"], m=ing["m"],
                          N=ing["N"], nz=ing["dim"], dtype=dtype,
                          device=device)
@@ -453,9 +678,10 @@ def _build_hmpc_split(sys, param, opt, symmetric: bool, backend: str,
                       device, ingredients):
     """Two-block split HMPC solver, plain (ADMM) or symmetric (SADMM)
     (spcies_HMPC_{ADMM,SADMM}_split_solver.m, code_HMPC_ADMM_split_C.c;
-    IS_SYMMETRIC define = `symmetric`). The warm start is
-    init=(z, s, lam, mu)."""
-    _banded_not_ported(backend)
+    IS_SYMMETRIC define = `symmetric`). backend='banded' is the
+    O(N)-memory structured KKT over [z | s] (box constraints, N >= 3). The
+    warm start is init=(z, s, lam, mu)."""
+    _check_backend(backend)
     device = resolve_device(device)
     ing = (ingredients if ingredients is not None
            else hmpc_common_ingredients(sys, param, opt, split=True))
@@ -464,30 +690,48 @@ def _build_hmpc_split(sys, param, opt, symmetric: bool, backend: str,
     dim, n_s, ns, n_eq = ing["dim"], ing["n_s"], ing["ns"], ing["n_eq"]
     rho_f = float(opt.solver["rho"])
     sigma_f = float(opt.solver["sigma"])
-    M1_np, M2_np = split_kkt(ing, rho_f, sigma_f)
-    if backend == "fused":
-        from spcies_tpu_torch.solvers.fused_backend import (
-            build_fused_split_solve)
-        solve = build_fused_split_solve(
-            ing, opt, dtype, device, M1_np, M2_np, symmetric=symmetric,
-            make_q=hmpc_q_maker(ing, torch.float32, device))
-        return BatchedSolver(solve, ing, opt, n=n, m=m, N=N, nz=dim,
-                             dtype=dtype, device=device)
+
+    def dev(a):
+        return torch.as_tensor(a, dtype=dtype, device=device)
+
+    if backend == "banded":
+        kkt_full, kkt_lin = _make_hmpc_split_structured_kkt(
+            ing, sigma_f, rho_f, dtype, device,
+            parallel_scan=bool(opt.solver.get("band_parallel_scan", False)))
+
+        def kkt_init(q_hat, x0):
+            return torch.cat(kkt_full(q_hat[:, :dim], q_hat[:, dim:], x0),
+                             dim=-1)
+
+        def kkt_delta(dq):
+            return torch.cat(kkt_lin(dq[:, :dim], dq[:, dim:]), dim=-1)
+    else:
+        M1_np, M2_np = split_kkt(ing, rho_f, sigma_f)
+        if backend == "fused":
+            from spcies_tpu_torch.solvers.fused_backend import (
+                build_fused_split_solve)
+            solve = build_fused_split_solve(
+                ing, opt, dtype, device, M1_np, M2_np, symmetric=symmetric,
+                make_q=hmpc_q_maker(ing, torch.float32, device))
+            return BatchedSolver(solve, ing, opt, n=n, m=m, N=N, nz=dim,
+                                 dtype=dtype, device=device)
+        M1, M2_b0, aux_d, A = (dev(a) for a in (
+            M1_np, M2_np[:, :n], M2_np[:, n_eq:] @ ing["d"], ing["A"]))
+
+        def kkt_init(q_hat, x0):
+            return q_hat @ M1.T + (-(x0 @ A.T)) @ M2_b0.T + aux_d
+
+        def kkt_delta(dq):
+            return delta_dot(dq, M1.T)
 
     box_mode = ing["box_constraints"]
     tol_p = float(opt.solver["tol_p"])
     tol_d = float(opt.solver["tol_d"])
     k_max = int(opt.solver["k_max"])
-
-    def dev(a):
-        return torch.as_tensor(a, dtype=dtype, device=device)
-
     rho, sigma = dev(rho_f), dev(sigma_f)
     rho_i, sigma_i = dev(1.0 / rho_f), dev(1.0 / sigma_f)
     alpha = dev(float(opt.solver["alpha"]) if symmetric else 1.0)
-    M1, M2_b0, aux_d, A, LB, UB = (dev(a) for a in (
-        M1_np, M2_np[:, :n], M2_np[:, n_eq:] @ ing["d"], ing["A"],
-        ing["box_LB"], ing["box_UB"]))
+    LB, UB = dev(ing["box_LB"]), dev(ing["box_UB"])
     make_q = hmpc_q_maker(ing, dtype, device)
     cone_proj = _make_cone_proj(ing, dtype, device)
     n_box = ing["n_box"]
@@ -517,7 +761,7 @@ def _build_hmpc_split(sys, param, opt, symmetric: bool, backend: str,
         else:
             z0, s0, lam0, mu0 = (dev(a) for a in init)
         q_hat0 = torch.cat([q - sigma * z0 + lam0, mu0 - rho * s0], dim=-1)
-        aux1 = q_hat0 @ M1.T + (-(x0 @ A.T)) @ M2_b0.T + aux_d
+        aux1 = kkt_init(q_hat0, x0)
         rinf = torch.full((Bsz,), float("inf"), dtype=dtype, device=device)
         state0 = dict(aux=aux1, aux_next=aux1, z=z0, s=s0, lam=lam0, mu=mu0,
                       r_p=rinf, r_d=rinf)
@@ -546,7 +790,7 @@ def _build_hmpc_split(sys, param, opt, symmetric: bool, backend: str,
             dq = torch.cat([-sigma * (z - z_old) + (lam_new - lam_at_aux),
                             (mu_new - mu_at_aux) - rho * (s - s_old)],
                            dim=-1)
-            aux_next = aux + delta_dot(dq, M1.T)
+            aux_next = aux + delta_dot_op(kkt_delta, dq)
             return (dict(aux=aux, aux_next=aux_next, z=z, s=s, lam=lam_new,
                          mu=mu_new, r_p=r_p, r_d=r_d), conv)
 
@@ -631,9 +875,10 @@ def build_elliphmpc_admm(sys: dict, param: dict, opt: Options,
             make_q=elliphmpc_q_maker(ing, torch.float32, device),
             lby=lby, uby=uby)
     else:
-        solve = _single_split_dense(ing, opt, dtype, device, M1_np, M2_np,
-                                    elliphmpc_q_maker(ing, dtype, device),
-                                    LBy=lby, UBy=uby)
+        solve = _single_split_solve(
+            ing, opt, dtype, device,
+            *_dense_single_kkt(ing, dtype, device, M1_np, M2_np),
+            elliphmpc_q_maker(ing, dtype, device), LBy=lby, UBy=uby)
     return BatchedSolver(solve, ing, opt, n=ing["n"], m=ing["m"],
                          N=ing["N"], nz=ing["dim"], dtype=dtype,
                          device=device, input_names=ELLIP_INPUTS)

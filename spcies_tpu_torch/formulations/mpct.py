@@ -24,14 +24,15 @@ Port of the EADMM and ADMM-cs parts of spcies_tpu/formulations/mpct.py:
            (code_MPCT_ADMM_semiband_C.c:119-1125) with the reference's
            soft constraints and constrained output: 'dense' collapses the
            two-level Woodbury KKT solve into the affine map
-           z = M_q p + M_b x0, on the masked loop of solvers/loop.py.
+           z = M_q p + M_b x0, 'banded' keeps it as stage-local operators
+           (`_make_semiband_structured_z_step`), both on the masked loop
+           of solvers/loop.py.
 
 ADMM-cs also runs 'banded', the O(N)-memory long-horizon path (stage-
 local operators and a block-tridiagonal Cholesky, kernels/band_chol.py),
 and a time-varying mode (opt.time_varying, whatever the backend): the
 nine-input signature of laxMPC's, every lane's band factors computed per
-call (kernels/online_band_chol.py). ADMM-semiband's banded backend is not
-ported yet (ROADMAP queue 1 item 8).
+call (kernels/online_band_chol.py).
 """
 
 from __future__ import annotations
@@ -852,13 +853,21 @@ def mpct_semiband_equality_matrix(A: np.ndarray, B: np.ndarray, N: int):
 
 
 def mpct_admm_semiband_ingredients(sys: dict, param: dict,
-                                   opt: Options) -> dict:
-    """Offline ingredients (compute_MPCT_ADMM_semiband_ingredients.m), the
-    dense arm: the reference's two-level Woodbury (banded Gamma_hat plus a
-    rank-2(n+m) correction, ECC'24) avoids dense factorisation on embedded
-    CPUs; here the same KKT solve collapses into the dense affine map
-    z = M_q p + M_b x0, algebraically identical and one matrix product
-    online. O(N^2) memory."""
+                                   opt: Options,
+                                   structured: bool = False) -> dict:
+    """Offline ingredients (compute_MPCT_ADMM_semiband_ingredients.m), in
+    two arms:
+      structured=False: the reference's two-level Woodbury (banded
+        Gamma_hat plus a rank-2(n+m) correction, ECC'24) avoids dense
+        factorisation on embedded CPUs; here the same KKT solve collapses
+        into the dense affine map z = M_q p + M_b x0, algebraically
+        identical and one matrix product online. O(N^2) memory.
+      structured=True: the long-horizon arm keeping the reference's O(N)
+        memory (:163-227): the per-stage Hhat block inverses, the level-1
+        Woodbury factors of the rank-2(n+m) stage <-> terminal coupling
+        (Gu, Gv, K1), the block-tridiagonal Cholesky of Gamma_tilde =
+        G Gamma_hat^-1 G' (Alpha, BetaInv) and the level-2 correction (Pu,
+        Vt, K2), each O(N (n+m)^2); M_q and M_b are None."""
     A, B, n, m = get_sys_matrices(sys)
     N = int(param["N"])
     Q = np.asarray(param["Q"], dtype=float)
@@ -901,22 +910,30 @@ def mpct_admm_semiband_ingredients(sys: dict, param: dict,
         raise ValueError(f"rho vector must have length {nv}")
 
     # Hessian: banded stage costs + rank-(n+m) coupling to (x_s, u_s)
-    # (:119-133)
+    # (:119-133), by stage blocks in the structured arm
     QR = linalg.blkdiag(Q, R)
-    H = linalg.blkdiag(*([QR] * N), linalg.blkdiag(N * Q + T, N * R + S))
-    H[:N * nm, -nm:] = np.tile(-QR, (N, 1))
-    H[-nm:, :N * nm] = np.tile(-QR, (1, N))
-    if constrained_output:
-        Hhat = H + C_tilde.T @ (rho_vec[:, None] * C_tilde)
+    QT = linalg.blkdiag(N * Q + T, N * R + S)
+    structured_keys = {}
+    if structured:
+        structured_keys = _semiband_structured_keys(
+            A, B, N, QR, QT, rho_vec.reshape(N + 1, sv),
+            stage_map if constrained_output else None)
+        M_q = M_b = None
     else:
-        Hhat = H + np.diag(rho_vec)
-    Hinv = np.linalg.inv(Hhat)
-    G = mpct_semiband_equality_matrix(A, B, N)
-    W = G @ Hinv @ G.T
-    GH = G @ Hinv
-    Winv = np.linalg.inv(W)
-    M_q = GH.T @ (Winv @ GH) - Hinv
-    M_b = GH.T @ Winv[:, :n]
+        H = linalg.blkdiag(*([QR] * N), QT)
+        H[:N * nm, -nm:] = np.tile(-QR, (N, 1))
+        H[-nm:, :N * nm] = np.tile(-QR, (1, N))
+        if constrained_output:
+            Hhat = H + C_tilde.T @ (rho_vec[:, None] * C_tilde)
+        else:
+            Hhat = H + np.diag(rho_vec)
+        Hinv = np.linalg.inv(Hhat)
+        G = mpct_semiband_equality_matrix(A, B, N)
+        W = G @ Hinv @ G.T
+        GH = G @ Hinv
+        Winv = np.linalg.inv(W)
+        M_q = GH.T @ (Winv @ GH) - Hinv
+        M_b = GH.T @ Winv[:, :n]
 
     # per-entry bound vectors + soft mask over v (:358-520 branch layout)
     LBx, UBx, LBu, UBu = get_bounds(sys, n, m, opt.inf_value)
@@ -957,7 +974,157 @@ def mpct_admm_semiband_ingredients(sys: dict, param: dict,
         A=A, T=T, S=S, M_q=M_q, M_b=M_b, C_tilde=C_tilde,
         LBv=LBv, UBv=UBv, soft_mask=soft_mask,
         beta=beta, soft=soft, constrained_output=constrained_output,
+        **structured_keys,
     )
+
+
+def _semiband_structured_keys(A, B, N, QR, QT, rho_st, stage_map):
+    """The structured arm's offline factors, fp64 numpy
+    (compute_MPCT_ADMM_semiband_ingredients.m:163-227). Hhat = Gamma_hat +
+    U V' with Gamma_hat the per-stage blocks (QR, or QT at the terminal,
+    plus each stage's rho shift) and the rank-2(n+m) stage <-> terminal
+    coupling Y = 1_N (x) (-QR) (:118-132): U = [1_N (x) I, 0; 0, I],
+    V = [0, 1_N (x) (-QR); -QR, 0]. rho_st [N + 1, sv] is rho by stage;
+    stage_map the constrained output's stage map, or None."""
+    n, m = B.shape
+    nm = n + m
+    nz = (N + 1) * nm
+    Nb = N + 2
+    blocks = np.empty((N + 1, nm, nm))
+    for i in range(N + 1):
+        Hst = QR if i < N else QT
+        if stage_map is not None:
+            blocks[i] = Hst + stage_map.T @ (rho_st[i][:, None] * stage_map)
+        else:
+            blocks[i] = Hst + np.diag(rho_st[i])
+    blocks_inv = np.linalg.inv(blocks)
+    # level-1 Woodbury: Hhat^-1 = Gamma^-1 - Gu K1 Gv' with
+    # Gu = Gamma^-1 U, Gv = Gamma^-1 V, K1 = (I + V' Gu)^-1
+    Gu = np.zeros((nz, 2 * nm))
+    Gv = np.zeros((nz, 2 * nm))
+    for i in range(N):
+        Gu[i * nm:(i + 1) * nm, :nm] = blocks_inv[i]
+        Gv[i * nm:(i + 1) * nm, nm:] = -blocks_inv[i] @ QR
+    Gu[N * nm:, nm:] = blocks_inv[N]
+    Gv[N * nm:, :nm] = -blocks_inv[N] @ QR
+    VtGu = np.zeros((2 * nm, 2 * nm))
+    VtGu[:nm] = -QR @ Gu[N * nm:]
+    VtGu[nm:] = -QR @ Gu[:N * nm].reshape(N, nm, 2 * nm).sum(axis=0)
+    K1 = np.linalg.inv(np.eye(2 * nm) + VtGu)
+    # Gamma_tilde = G Gamma^-1 G' is block tridiagonal in n x n blocks
+    # (row blocks: the x_0 pin, N dynamics rows, the equilibrium row)
+    E = np.hstack([np.eye(n), np.zeros((n, m))])
+    Cst = np.hstack([A, B])
+    Dst = np.hstack([-np.eye(n), np.zeros((n, m))])
+    Eq = np.hstack([A - np.eye(n), B])
+    Wd = np.zeros((Nb, n, n))
+    Wu = np.zeros((Nb - 1, n, n))
+    Wd[0] = blocks_inv[0][:n, :n]
+    Wu[0] = (E @ blocks_inv[0]) @ Cst.T
+    for k in range(1, N + 1):
+        Wd[k] = (Cst @ blocks_inv[k - 1] @ Cst.T
+                 + Dst @ blocks_inv[k] @ Dst.T)
+        if k < N:
+            Wu[k] = Dst @ blocks_inv[k] @ Cst.T
+    Wu[N] = Dst @ blocks_inv[N] @ Eq.T
+    Wd[N + 1] = Eq @ blocks_inv[N] @ Eq.T
+    Alpha, BetaInv = linalg.band_chol_blocks_tridiag(Wd, Wu)
+
+    def g_np(Z):
+        """G Z columnwise (offline, structural)."""
+        Zs = Z.reshape(N + 1, nm, -1)
+        out = np.empty((Nb * n, Z.shape[1]))
+        out[:n] = Zs[0, :n]
+        for k in range(N):
+            out[(k + 1) * n:(k + 2) * n] = (
+                A @ Zs[k][:n] + B @ Zs[k][n:] - Zs[k + 1][:n])
+        out[-n:] = (A - np.eye(n)) @ Zs[N][:n] + B @ Zs[N][n:]
+        return out
+
+    # level-2 Woodbury: W = Gamma_tilde - Ut K1 Vt' with Ut = G Gu,
+    # Vt = G Gv; W^-1 r = Gt^-1 r + Pu K2 Vt' Gt^-1 r, Pu = Gt^-1 Ut,
+    # K2 = (K1^-1 - Vt' Pu)^-1. The dense Gamma_tilde is an offline
+    # temporary.
+    Ut = g_np(Gu)
+    Vt = g_np(Gv)
+    Gt = np.zeros((Nb * n, Nb * n))
+    for k in range(Nb):
+        Gt[k * n:(k + 1) * n, k * n:(k + 1) * n] = Wd[k]
+        if k < Nb - 1:
+            Gt[k * n:(k + 1) * n, (k + 1) * n:(k + 2) * n] = Wu[k]
+            Gt[(k + 1) * n:(k + 2) * n, k * n:(k + 1) * n] = Wu[k].T
+    Pu = np.linalg.solve(Gt, Ut)
+    K2 = np.linalg.inv(np.eye(2 * nm) + VtGu - Vt.T @ Pu)
+    return dict(blocks_inv=blocks_inv, Gu=Gu, Gv=Gv, K1=K1, Alpha=Alpha,
+                BetaInv=BetaInv, Pu=Pu, Vt=Vt, K2=K2, B=B,
+                stage_map=stage_map)
+
+
+def _make_semiband_structured_z_step(ing, dtype, device,
+                                     parallel_scan=False):
+    """z_step(p, x0 | None) for the O(N)-memory semiband backend, the
+    reference's Alg. 2 two-level Woodbury (code_MPCT_ADMM_semiband_C.c:
+    119-496) as stage-local batched products: the block-diagonal
+    Gamma_hat solves with the rank-2(n+m) level-1 correction, the band
+    solve on Gamma_tilde (kernels/band_chol.py `BandSolve`, the scan with
+    parallel_scan, its products of the fixed blocks formed once, here) and
+    the level-2 correction. Nothing O(N^2) is on the device. Port of
+    spcies_tpu/formulations/mpct.py `_make_semiband_structured_z_step`."""
+    from spcies_tpu_torch.kernels.band_chol import BandSolve
+    n, m, N = ing["n"], ing["m"], ing["N"]
+    nm = n + m
+    Nb = N + 2
+
+    def dev(a):
+        return torch.as_tensor(a, dtype=dtype, device=device)
+
+    Bi, Gu, Gv, K1, Pu, Vt, K2, A_, B_ = (dev(ing[key]) for key in (
+        "blocks_inv", "Gu", "Gv", "K1", "Pu", "Vt", "K2", "A", "B"))
+    band_solve = BandSolve(
+        *(torch.as_tensor(ing[key]) for key in ("Alpha", "BetaInv")),
+        scan=parallel_scan, dtype=dtype, device=device)
+    AmI = A_ - torch.eye(n, dtype=dtype, device=device)
+
+    def hinv(x):
+        """Hhat^-1 x = Gamma^-1 x - Gu K1 (Gv' x) (level-1 Woodbury)."""
+        xs = x.reshape(-1, N + 1, nm)
+        gx = torch.einsum("bls,lts->blt", xs, Bi).reshape(x.shape)
+        return gx - ((x @ Gv) @ K1.T) @ Gu.T
+
+    def g_apply(h):
+        """G h -> [B, Nb, n] row blocks (x_0 pin, dynamics, equilibrium)."""
+        hs = h.reshape(-1, N + 1, nm)
+        hx, hu = hs[..., :n], hs[..., n:]
+        r0 = hx[:, 0]
+        rdyn = (torch.einsum("blj,ij->bli", hx[:, :N], A_)
+                + torch.einsum("blj,ij->bli", hu[:, :N], B_)
+                - hx[:, 1:])
+        rlast = hx[:, N] @ AmI.T + hu[:, N] @ B_.T
+        return torch.cat([r0[:, None], rdyn, rlast[:, None]], dim=1)
+
+    def gt_apply(mu):
+        """G' mu -> flat [B, nz] stage contributions."""
+        gx = torch.einsum("blj,ji->bli", mu[:, 1:N + 1], A_)
+        gu = torch.einsum("blj,ji->bli", mu[:, 1:N + 1], B_)
+        # the x_0 pin's rows on stage 0, the next-state rows on stages 1..
+        gx = gx + torch.cat([mu[:, :1], -mu[:, 1:N]], dim=1)
+        tx = -mu[:, N] + mu[:, N + 1] @ AmI
+        tu = mu[:, N + 1] @ B_
+        stages = torch.cat([gx, gu], dim=-1).reshape(mu.shape[0], -1)
+        return torch.cat([stages, tx, tu], dim=-1)
+
+    def z_step(p, x0=None):
+        h1 = hinv(p)
+        rhs = -g_apply(h1)
+        if x0 is not None:
+            # out of place: the delta-form step passes its inputs on
+            rhs = torch.cat([rhs[:, :1] - x0[:, None], rhs[:, 1:]], dim=1)
+        wr = band_solve(rhs)
+        wf = wr.reshape(wr.shape[0], -1)
+        muf = wf + ((wf @ Vt) @ K2.T) @ Pu.T
+        return -(h1 + hinv(gt_apply(muf.reshape(-1, Nb, n))))
+
+    return z_step
 
 
 @register_builder("MPCT", "ADMM", "semiband")
@@ -969,17 +1136,18 @@ def build_mpct_admm_semiband(sys: dict, param: dict, opt: Options,
     (code_MPCT_ADMM_semiband_C.c:119-1125,
     spcies_MPCT_ADMM_semiband_solver.m) on `device`, with the reference's
     soft-constraint and constrained-output options. `ingredients` replaces
-    the offline computation (same keys as mpct_admm_semiband_ingredients).
-    The warm start is init=(z, v, lam)."""
+    the offline computation (same keys as mpct_admm_semiband_ingredients,
+    its structured arm's for backend='banded'). backend='banded' is the
+    O(N)-memory long-horizon path: the two-level Woodbury as stage-local
+    operators, the constrained output's C~ applied stage by stage. The
+    warm start is init=(z, v, lam)."""
     if backend not in ("dense", "banded"):
         raise ValueError("MPCT/ADMM-semiband has dense and banded backends")
-    if backend == "banded":
-        raise NotImplementedError(
-            "backend='banded' is not ported to spcies_tpu_torch yet "
-            "(ROADMAP queue 1 item 8)")
+    banded = backend == "banded"
     device = resolve_device(device)
     ing = (ingredients if ingredients is not None
-           else mpct_admm_semiband_ingredients(sys, param, opt))
+           else mpct_admm_semiband_ingredients(sys, param, opt,
+                                               structured=banded))
     dtype = _DTYPES[opt.precision]
     n, m, N, nz, nv = ing["n"], ing["m"], ing["N"], ing["nz"], ing["nv"]
     tol_p = float(opt.solver["tol_p"])
@@ -997,18 +1165,50 @@ def build_mpct_admm_semiband(sys: dict, param: dict, opt: Options,
     else:
         rho = dev(ing["rho_vec"])
         rho_i = dev(1.0 / np.asarray(ing["rho_vec"]))
-    LBv, UBv, T, S, M_q, M_b = (dev(ing[key]) for key in (
-        "LBv", "UBv", "T", "S", "M_q", "M_b"))
+    LBv, UBv, T, S = (dev(ing[key]) for key in ("LBv", "UBv", "T", "S"))
     soft_mask = torch.as_tensor(np.asarray(ing["soft_mask"], dtype=bool),
                                 device=device)
     beta_rho_i = ing["beta"] * rho_i
-    Ct = dev(ing["C_tilde"]) if con_out else None
+    sv = nv // (N + 1)
 
-    def ct_apply(z):
-        return z @ Ct.T if con_out else z
+    if banded:
+        zs_structured = _make_semiband_structured_z_step(
+            ing, dtype, device,
+            parallel_scan=bool(opt.solver.get("band_parallel_scan", False)))
 
-    def ct_t_apply(y):
-        return y @ Ct if con_out else y
+        def z_step_lin(dp):
+            return zs_structured(dp)
+
+        # C~ is block diagonal with one shared stage map: applied stage by
+        # stage, the constrained output stays O(N)
+        Smap = dev(ing["stage_map"]) if con_out else None
+
+        def ct_apply(z):
+            if not con_out:
+                return z
+            zt = torch.einsum("bls,ts->blt", z.reshape(-1, N + 1, n + m),
+                              Smap)
+            return zt.reshape(z.shape[0], -1)
+
+        def ct_t_apply(y):
+            if not con_out:
+                return y
+            ys = torch.einsum("blt,ts->bls", y.reshape(-1, N + 1, sv),
+                              Smap)
+            return ys.reshape(y.shape[0], -1)
+    else:
+        M_q, M_b = dev(ing["M_q"]), dev(ing["M_b"])
+
+        def z_step_lin(dp):
+            return delta_dot(dp, M_q.T)
+
+        Ct = dev(ing["C_tilde"]) if con_out else None
+
+        def ct_apply(z):
+            return z @ Ct.T if con_out else z
+
+        def ct_t_apply(y):
+            return y @ Ct if con_out else y
 
     def proj(y):
         hard = proj_box(y, LBv, UBv)
@@ -1031,6 +1231,8 @@ def build_mpct_admm_semiband(sys: dict, param: dict, opt: Options,
                         for a in init[1:])
 
         def z_step(pvec):
+            if banded:
+                return zs_structured(pvec, x0)
             return pvec @ M_q.T + x0 @ M_b.T
 
         rinf = torch.full((Bsz,), float("inf"), dtype=dtype, device=device)
@@ -1050,7 +1252,7 @@ def build_mpct_admm_semiband(sys: dict, param: dict, opt: Options,
             conv = (r_p <= tol_p) & (r_d <= tol_d)
             # delta form: dp = C~'(dlam - rho dv) = C~'(rho(zt - 2v + v_prev))
             dp = ct_t_apply(rho * (zt - 2.0 * v + v_prev))
-            z_next = z + delta_dot(dp, M_q.T)
+            z_next = z + z_step_lin(dp)
             return (dict(z=z, z_next=z_next, v=v, lam=lam_new,
                          r_p=r_p, r_d=r_d), conv)
 

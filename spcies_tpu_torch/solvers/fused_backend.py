@@ -25,6 +25,8 @@ width.
 
 from __future__ import annotations
 
+import copy
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -142,6 +144,21 @@ class FusedBoxADMMSolve:
         return SolveResult(
             u=v[:, self.u_start:self.u_start + self.m], k=k, e_flag=e_flag,
             sol=dict(z=z, v=v, lam=lam, r_p=r_p, r_d=r_d))
+
+
+def for_iterations(solve, iters: int):
+    """A copy of the fused solve `solve` whose kernel runs exactly `iters`
+    iterations on every lane: k_max = iters and a tolerance no residual
+    meets (-1), in the kernel's own mode. backend='auto' times through it
+    the kernels that have no fixed_iters mode (the solves whose
+    `takes_fixed_iters` is False), for the same work as the other
+    candidates' fixed_iters runs; the public call keeps refusing
+    fixed_iters, as the JAX package does."""
+    out = copy.copy(solve)
+    out.kernel_kw = dict(solve.kernel_kw, k_max=int(iters), **{
+        key: -1.0 for key in ("tol", "tol_p", "tol_d")
+        if key in solve.kernel_kw})
+    return out
 
 
 def _require_fp32(dtype):
@@ -277,6 +294,9 @@ class FusedEADMMSolve:
     kernel takes them in float32, and `dtype` other than that builds them
     for the plain version alone.
     """
+
+    # the kernel has no fixed_iters mode (for_iterations)
+    takes_fixed_iters = False
 
     def __init__(self, ing, opt, device, dtype=torch.float32):
         n, m, N, nm = ing["n"], ing["m"], ing["N"], ing["nm"]
@@ -510,6 +530,9 @@ class FusedSOCSolve:
     `dtype` other than that builds them for the plain version alone.
     """
 
+    # the kernel has no fixed_iters mode (for_iterations)
+    takes_fixed_iters = False
+
     def __init__(self, ing, opt, device, *, make_q, dtype=torch.float32):
         n, m, N = ing["n"], ing["m"], ing["N"]
         dim, n_s = ing["dim"], ing["n_s"]
@@ -639,6 +662,9 @@ class FusedHMPCSolve:
     and `dtype` other than that builds them for the plain version alone.
     """
 
+    # the kernel has no fixed_iters mode (for_iterations)
+    takes_fixed_iters = False
+
     def __init__(self, ing, opt, device, M1_np, M2_np, *, make_q, lby=None,
                  uby=None, dtype=torch.float32):
         dim, n_s, n_box = ing["dim"], ing["n_s"], ing["n_box"]
@@ -748,6 +774,9 @@ class FusedSplitSolve:
     kernel's exact arguments; the kernel takes them in float32, and `dtype`
     other than that builds them for the plain version alone.
     """
+
+    # the kernel has no fixed_iters mode (for_iterations)
+    takes_fixed_iters = False
 
     def __init__(self, ing, opt, device, M1_np, M2_np, *, make_q,
                  symmetric: bool, dtype=torch.float32):

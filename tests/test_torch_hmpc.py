@@ -5,7 +5,7 @@ batched masking), the JAX dense engines' k and iterates in fp64 lane for
 lane (box and output mode, warm starts), debug traces and fixed_iters,
 ingredients carried across from the JAX package, the fused backends
 against the dense engines, and error probes. The banded cases of
-tests/test_hmpc.py wait for ROADMAP queue 1 item 8."""
+tests/test_hmpc.py are tests/test_torch_hmpc_banded.py's."""
 
 import numpy as np
 import pytest
@@ -308,9 +308,11 @@ def test_builders_registered():
 
 
 @pytest.mark.parametrize("which,probe,exc,match", [
-    ("single", dict(backend="banded"), NotImplementedError, "item 8"),
-    ("split", dict(backend="banded"), NotImplementedError, "item 8"),
-    ("sadmm", dict(backend="banded"), NotImplementedError, "item 8"),
+    # the banded backend's refusals: N >= 3, box constraints only
+    ("single", dict(backend="banded", N=2), ValueError, "N >= 3"),
+    ("split", dict(backend="banded", N=2), ValueError, "N >= 3"),
+    ("sadmm", dict(backend="banded", output=True), ValueError,
+     "box constraints only"),
     ("single", dict(backend="nope"), ValueError, "unknown backend"),
     ("single", dict(backend="fused", precision="double"), ValueError,
      "fp32"),
@@ -323,8 +325,12 @@ def test_builders_registered():
     ("single", dict(backend="fused", debug=1), ValueError, "genHist"),
 ])
 def test_error_probes(fixture, which, probe, exc, match):
-    sys, _, param, st = fixture
+    sys, sys_e, param, st = fixture
     probe = dict(probe)
+    if probe.pop("output", False):
+        sys = sys_e
+    if "N" in probe:
+        param = dict(param, N=probe.pop("N"))
     method, sub, extra = TRIPLES[which]
     o = tsp.default_options("HMPC", method, sub, **{
         **OPTS, **extra, "sparse": probe.pop("sparse", False)})

@@ -255,8 +255,8 @@ def test_semiband_has_no_ingredient_layout():
     (dict(backend="fused"), ValueError, "fp32"),
     (dict(backend="fused", precision="float", force_vector_rho=True),
      ValueError, "scalar rho"),
-    (dict(submethod="semiband", backend="banded"), NotImplementedError,
-     "item 8"),
+    (dict(submethod="semiband", backend="fused"), ValueError,
+     "dense and banded"),
 ])
 def test_error_probes(fixture, probe, exc, match):
     sys, param, _ = fixture

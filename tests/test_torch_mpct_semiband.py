@@ -1,11 +1,14 @@
-"""MPCT-ADMM-semiband in the PyTorch port, dense backend: the six dense
-tests of tests/test_mpct_semiband.py (the in-repo oracle of
+"""MPCT-ADMM-semiband in the PyTorch port: the six dense tests of
+tests/test_mpct_semiband.py (the in-repo oracle of
 spcies_MPCT_ADMM_semiband_solver.m, across hard and soft constraints and
 plain and constrained output), the JAX dense engine's per-lane k and
 e_flag with iterates within 1e-9 in fp64 (vector rho, warm start and a
-batch included), ingredients carried across from the JAX package, and the
-banded backend's refusal (ROADMAP queue 1 item 8). The banded tests of
-tests/test_mpct_semiband.py wait for that backend."""
+batch included), ingredients carried across from the JAX package, error
+probes, and the banded backend (the two-level Woodbury as stage-local
+operators): the four banded tests of tests/test_mpct_semiband.py, each
+held to the JAX package's banded solver and to the port's dense one, its
+memory contract (nothing O(N^2) among its ingredients), and its
+ingredients carried across."""
 
 import numpy as np
 import pytest
@@ -208,7 +211,7 @@ def test_fixed_iters_and_debug_traces(fixture):
 
 
 @pytest.mark.parametrize("probe,exc,match", [
-    (dict(backend="banded"), NotImplementedError, "item 8"),
+    (dict(backend="banded", rho=np.ones(7)), ValueError, "must have length"),
     (dict(backend="fused"), ValueError, "dense and banded"),
     (dict(constrained_output=True), ValueError, "LBy"),
 ])
@@ -216,3 +219,131 @@ def test_error_probes(fixture, probe, exc, match):
     sys, param, _ = fixture
     with pytest.raises(exc, match=match):
         tsp.make_solver(sys, param, **SB, **probe, device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# the O(N)-memory structured backend (two-level Woodbury, backend='banded')
+# ---------------------------------------------------------------------------
+
+def _hold(got, ref, tol=1e-9):
+    """Per-lane k and e_flag equal, z, v and lam within tol."""
+    np.testing.assert_array_equal(got.k.numpy(), np.asarray(ref.k))
+    np.testing.assert_array_equal(got.e_flag.numpy(), np.asarray(ref.e_flag))
+    for key in ("z", "v", "lam"):
+        np.testing.assert_allclose(got.sol[key].numpy(),
+                                   np.asarray(ref.sol[key]), rtol=0,
+                                   atol=tol, err_msg=key)
+
+
+def _banded_trio(sys, param, x, **kw):
+    """The port's banded solve of x, held to the JAX package's banded
+    solve and to the port's dense one; returns the port's banded solver
+    and result."""
+    s_t = tsp.make_solver(sys, param, **SB, backend="banded", **kw,
+                          device="cpu")
+    r_t = s_t(*x)
+    assert np.all(r_t.e_flag.numpy() == 1)
+    _hold(r_t, jsp.make_solver(sys, param, **SB, backend="banded", **kw)(*x))
+    _hold(r_t, tsp.make_solver(sys, param, **SB, **kw, device="cpu")(*x))
+    return s_t, r_t
+
+
+@pytest.mark.parametrize("extra", [
+    dict(),
+    dict(soft_constraints=True, beta=1.0),
+    dict(constrained_output=True),
+    dict(soft_constraints=True, constrained_output=True, beta=2.0),
+], ids=["hard", "soft", "output", "soft-output"])
+def test_banded_backend_matches_dense(fixture, extra):
+    """tests/test_mpct_semiband.py:129-160 on a batch of 4, and a warm
+    start from it against the JAX package's from its own."""
+    sys, param, st = fixture
+    if extra.get("constrained_output"):
+        sys = _with_output(sys, len(st["x"]))
+    kw = {**OPTS, **extra}
+    x = _batch(st, 4, 7)
+    s_t, r_t = _banded_trio(sys, param, x, **kw)
+    s_j = jsp.make_solver(sys, param, **SB, backend="banded", **kw)
+    r_j = s_j(*x)
+    _hold(*(s(*x, init=(r.sol["z"], r.sol["v"], r.sol["lam"]))
+            for s, r in ((s_t, r_t), (s_j, r_j))))
+
+
+def test_banded_backend_long_horizon(fixture):
+    """tests/test_mpct_semiband.py:163-186: N=120, where the dense M_q
+    would be (121 * 8)^2, and the memory contract: no O(N^2) array among
+    the banded ingredients."""
+    sys, param, st = fixture
+    p = dict(param, N=120)
+    kw = dict(rho=0.5, tol_p=1e-6, tol_d=1e-6, k_max=3000)
+    s, _ = _banded_trio(sys, p, (st["x"], st["xr"], st["ur"]), **kw)
+    ing = s.ingredients
+    assert ing["M_q"] is None and ing["M_b"] is None
+    nz = ing["nz"]
+    for key in ("blocks_inv", "Gu", "Gv", "Alpha", "BetaInv", "Pu", "Vt"):
+        assert np.asarray(ing[key]).size < nz * 20 * (ing["n"] + ing["m"])
+
+
+def test_banded_backend_vector_rho(fixture):
+    """tests/test_mpct_semiband.py:189-205: a per-entry rho through the
+    structured stage blocks, on a batch of 3."""
+    sys, param, st = fixture
+    n, m, N = len(st["x"]), 2, int(param["N"])
+    rng = np.random.default_rng(3)
+    rho_vec = 0.3 + 0.4 * rng.random((N + 1) * (n + m))
+    _banded_trio(sys, param, _batch(st, 3, 8), rho=rho_vec, tol_p=1e-7,
+                 tol_d=1e-7, k_max=5000)
+
+
+def test_banded_parallel_scan_matches_sequential(fixture):
+    """tests/test_mpct_semiband.py:208-228 at N=40: the scan band solve
+    gives the sequential one's k and iterates within 1e-8 (the JAX
+    package's bar), the JAX package's scan's and the port's dense engine's
+    within 1e-9."""
+    sys, param, st = fixture
+    p = dict(param, N=40)
+    kw = dict(rho=0.5, tol_p=1e-6, tol_d=1e-6, k_max=3000)
+    x = (st["x"], st["xr"], st["ur"])
+    _, r_scan = _banded_trio(sys, p, x, band_parallel_scan=True, **kw)
+    r_seq = tsp.make_solver(sys, p, **SB, backend="banded", **kw,
+                            device="cpu")(*x)
+    _hold(r_scan, r_seq, tol=1e-8)
+
+
+def test_banded_ingredients_from_jax(fixture):
+    """The JAX banded solver's structured ingredients, carried across with
+    convert.BANDED_KEYS, drive the port's banded builder to the answer of
+    its own offline computation."""
+    sys, param, st = fixture
+    sys = _with_output(sys, len(st["x"]))
+    kw = dict(OPTS, constrained_output=True, soft_constraints=True,
+              beta=2.0)
+    ing = ingredients_from_jax(
+        jsp.make_solver(sys, param, **SB, backend="banded",
+                        **kw).ingredients, **SB, backend="banded")
+    x = _batch(st, 4, 9)
+    got, own = (tsp.make_solver(sys, param, **SB, backend="banded", **kw,
+                                ingredients=i, device="cpu")(*x)
+                for i in (ing, None))
+    _hold(got, own, tol=1e-12)
+
+
+def test_fp32_banded_against_fp32_dense(fixture):
+    """In fp32 the banded engine ends every lane within one iteration of
+    the fp32 dense engine at tol 1e-4, with u within 1e-4 where k agrees:
+    the bar chip_smoke.py holds the card's fp32 banded rows to."""
+    sys, param, st = fixture
+    x = _batch(st, 32, 10)
+    runs = []
+    for backend in ("banded", "dense"):
+        o = tsp.default_options("MPCT", "ADMM", "semiband",
+                                **dict(OPTS, tol_p=1e-4, tol_d=1e-4))
+        o.precision = "float"
+        runs.append(tsp.make_solver(sys, param, **SB, options=o,
+                                    backend=backend, device="cpu")(*x))
+    rb, rd = runs
+    assert np.all(rb.e_flag.numpy() == 1) and np.all(rd.e_flag.numpy() == 1)
+    dk = rb.k.numpy().astype(int) - rd.k.numpy().astype(int)
+    assert np.abs(dk).max() <= 1, dk
+    same = dk == 0
+    assert np.abs(rb.u.numpy() - rd.u.numpy())[same].max() <= 1e-4

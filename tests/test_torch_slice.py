@@ -219,16 +219,18 @@ def test_problem_recipe_builds_solver(fixture):
 @pytest.mark.parametrize("probe,exc,match", [
     (dict(formulation="nope", method="ADMM"), ValueError, "Unknown"),
     (dict(formulation="laxMPC", method="EADMM"), ValueError, "not available"),
-    # a backend of the JAX package not ported yet, and a personal triple
-    # that no builder is registered for
+    # a backend the triple lacks, and a personal triple that no builder is
+    # registered for
     (dict(formulation="MPCT", method="ADMM", submethod="semiband",
-          backend="banded"), NotImplementedError, "item 8"),
+          backend="fused"), ValueError, "dense and banded"),
     (dict(formulation="personal", method="mine"), NotImplementedError,
      "No solver builder"),
-    (dict(backend="auto"), NotImplementedError, "item 12"),
-    # HMPC's banded backend is the part of item 8 still to port
-    (dict(formulation="HMPC", method="ADMM", backend="banded"),
-     NotImplementedError, "item 8"),
+    # backend='auto' refuses ingredients (each backend reads its own
+    # layout), and the time-varying inputs it cannot make probe inputs for
+    (dict(backend="auto", ingredients={}), ValueError, "ingredients"),
+    (dict(backend="auto", time_varying=True), ValueError, "probe inputs"),
+    (dict(formulation="HMPC", method="ADMM", backend="nope"), ValueError,
+     "unknown backend"),
     (dict(backend="nope"), ValueError, "unknown backend"),
     (dict(backend="fused"), ValueError, "fp32"),
     (dict(backend="fused", debug=1), ValueError, "genHist"),
