@@ -167,7 +167,27 @@ started together), then
      laxMPC-ADMM at N=30 (its probe launches K1), HMPC-ADMM-split at N=30
      (K7) and at N=480 (K7's width cap refuses fused at build), each
      choice and probe time logged, a second make_solver served from the
-     cache building only the winner, which converges on every lane.
+     cache building only the winner, which converges on every lane;
+ 21. drives the scale-out entry points (spcies_tpu_torch.parallel, every
+     shard through its replica's BatchedSolver.__call__): (a) in a fresh
+     child process without torchrun's variables initialize() returns False
+     and host_chip_mesh() is (1, 1), through which shard_map_solver of the
+     headline at B=32768 gives the plain call's bits with one K1 launch,
+     which torch.profiler counts (its first session: in this process,
+     after phases 16-20's sessions, it has missed the launch); (b) sharded_solver over 4 and 16 logical shards of that
+     batch on the one card: each shard the bits of a separate call, k,
+     e_flag and u those of the whole batch (exact-k), sharded and whole
+     batch timed in turns with CUDA events; (c) a solver built on the CPU
+     and replicated to the card gives the card-built solver's bits; (d) a
+     child process under torchrun's variables (world of one): initialize()
+     takes NCCL, global_fleet_metrics equals fleet_metrics; (e) two child
+     processes on the card over gloo, 16384 headline lanes each of their
+     own amplitudes: identical global metrics, each process's lanes the
+     bits of a local solve, a dense fp64 warm start across the two exits at
+     k <= 2; in (d) and (e) no torch.distributed collective is called
+     inside a solve and two all_reduce in the metrics; (f) HMPC-SADMM-split
+     (K7) at B=8192 on two logical shards: every lane converged, each
+     shard's bits; (g) dryrun_multichip(1) and (2, devices=["cuda:0"] * 2).
 K1, K2, K3, K4, K5 and K6 run on the product stage csrc/tile_product.cuh;
 tools/ab_kernels.py holds their builds to the one-column-per-thread parents
 in csrc/variants/, and tools/ab_parent.py each kernel to an earlier tree's
@@ -2597,6 +2617,385 @@ def phase_long(sp):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 21: scale-out (spcies_tpu_torch.parallel) on the card
+# ---------------------------------------------------------------------------
+
+# torchrun's variables, which no phase but 21's children may find set
+LAUNCHER_VARS = ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK",
+                 "LOCAL_RANK")
+SCALE_SHARDS = (4, 16)   # logical shards of the headline batch on one card
+CHILD_TIMEOUT = 300      # seconds for a child process of phase 21
+DENSE_WARM_B = 256       # lanes a process of the fp64 warm start across two
+COLLECTIVES = ("all_reduce", "all_gather", "all_gather_object",
+               "all_gather_into_tensor", "broadcast", "broadcast_object_list",
+               "reduce", "reduce_scatter", "reduce_scatter_tensor",
+               "all_to_all", "all_to_all_single", "barrier", "gather",
+               "scatter", "send", "recv", "isend", "irecv")
+
+
+def scale_out_solver(sp, device=None):
+    """The headline fused solver (exact-k, check_every 16) with timing off,
+    so that no phase mark synchronises the card inside a sharded solve."""
+    solver = fused_solver(sp, device=device or DEVICE, tile_b=TILE_B,
+                          check_every=CHECK_EVERY, exact_k=True)
+    solver.options.timing = False
+    return solver
+
+
+def count_collectives():
+    """Wrap every collective of torch.distributed, in its namespace and in
+    distributed_c10d, with a counter for the rest of the process; returns
+    the dict of calls by name."""
+    import torch.distributed as dist
+    calls = {}
+    c10d = dist.distributed_c10d
+    for name in COLLECTIVES:
+        orig = getattr(c10d, name, None)
+        if orig is None:
+            continue
+
+        def counted(*args, _name=name, _orig=orig, **kw):
+            calls[_name] = calls.get(_name, 0) + 1
+            return _orig(*args, **kw)
+        setattr(dist, name, counted)
+        setattr(c10d, name, counted)
+    return calls
+
+
+def same_bits(a, b, what):
+    """Two SolveResults equal bit for bit: u, k, e_flag and every batched
+    tensor of sol."""
+    for key in ("u", "k", "e_flag"):
+        assert torch.equal(getattr(a, key), getattr(b, key)), (what, key)
+    for key, val in b.sol.items():
+        if torch.is_tensor(val) and val.ndim:
+            assert torch.equal(a.sol[key], val), (what, key)
+
+
+def per_shard_bits(res, solver, inputs, n_shards, what):
+    """res equals a separate call of the solver on each shard's lanes, bit
+    for bit."""
+    per = res.k.shape[0] // n_shards
+    for j in range(n_shards):
+        sl = slice(j * per, (j + 1) * per)
+        part = solver(*(a[sl] for a in inputs))
+        sub = type(res)(u=res.u[sl], k=res.k[sl], e_flag=res.e_flag[sl],
+                        sol={k: v[sl] for k, v in res.sol.items()
+                             if torch.is_tensor(v) and v.ndim})
+        same_bits(sub, part, f"{what} shard {j}")
+
+
+def profiled_launches(run, kernel):
+    """(run()'s result, the launches of `kernel` torch.profiler saw, and
+    every device activity it saw)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = run()
+        torch.cuda.synchronize()
+    device = [e.name for e in prof.events()
+              if e.device_type == DeviceType.CUDA]
+    return out, sum(1 for name in device if kernel in name), len(device)
+
+
+def run_children(code, runs):
+    """Run `code` (python -c) once for each (argv, environment additions)
+    of `runs`, all at once, from the repository's root; each must exit 0
+    and print a line 'RESULT <json>'. Returns the parsed results; a child
+    still running at an error or after CHILD_TIMEOUT is killed."""
+    root = str(Path(__file__).resolve().parent)
+    env = {k: v for k, v in os.environ.items()
+           if k not in LAUNCHER_VARS + ("SPCIES_LOG_DIR",)}
+    env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+    procs = [subprocess.Popen([sys.executable, "-c", code, *argv], cwd=root,
+                              env={**env, **extra}, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for argv, extra in runs]
+    try:
+        outs = [p.communicate(timeout=CHILD_TIMEOUT) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    results = []
+    for p, (out, err) in zip(procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"phase 21 child exited {p.returncode}:\n"
+                               f"{out[-3000:]}\n{err[-3000:]}")
+        line = [s for s in out.splitlines() if s.startswith("RESULT ")]
+        results.append(json.loads(line[-1][len("RESULT "):]))
+    return results
+
+
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+# (a) one process without torchrun's variables, started fresh, so that
+# torch.profiler's first session counts the launches
+CHILD_SINGLE = r"""
+import json, os
+import torch
+import torch.distributed as dist
+import chip_smoke as c
+import spcies_tpu_torch as sp
+from spcies_tpu_torch.kernels.fused_admm import fused_admm_solve
+torch.set_float32_matmul_precision("highest")
+present = [k for k in c.LAUNCHER_VARS if os.environ.get(k)]
+assert not present, present
+assert sp.parallel.initialize() is False and not dist.is_initialized()
+mesh = sp.parallel.host_chip_mesh()
+assert mesh.devices.shape == (1, torch.cuda.device_count()), mesh
+solver = c.scale_out_solver(sp)
+_, _, inputs = c.problem(sp, 0, c.BATCH)
+x = [torch.as_tensor(a, dtype=torch.float32, device=c.DEVICE)
+     for a in inputs]
+solve = sp.parallel.shard_map_solver(solver, mesh)
+fused_admm_solve.launches = 0
+res, seen, _ = c.profiled_launches(lambda: solve(*x), "fused_admm_kernel")
+launches = fused_admm_solve.launches
+c.per_shard_bits(res, solver, x, mesh.size, "phase 21 (a)")
+print("RESULT " + json.dumps(dict(launches=launches, seen=seen,
+                                  mesh=list(mesh.devices.shape))),
+      flush=True)
+"""
+
+# (d) a world of one process under torchrun's variables: NCCL
+CHILD_NCCL = r"""
+import json
+import torch
+import torch.distributed as dist
+import chip_smoke as c
+import spcies_tpu_torch as sp
+from spcies_tpu_torch.kernels.fused_admm import fused_admm_solve
+torch.set_float32_matmul_precision("highest")
+assert sp.parallel.initialize() is False
+assert dist.is_initialized() and dist.get_backend() == "nccl"
+mesh = sp.parallel.host_chip_mesh()
+assert mesh.devices.shape == (1, 1), mesh
+assert mesh.local_entries[0][1] == torch.device("cuda", 0), mesh
+solver = c.scale_out_solver(sp)
+_, _, inputs = c.problem(sp, 4, c.FB)
+solve = sp.parallel.shard_map_solver(solver, mesh)
+calls = c.count_collectives()
+fused_admm_solve.launches = 0
+res = solve(*inputs)
+torch.cuda.synchronize()
+launches = fused_admm_solve.launches
+assert calls == {}, calls
+g = sp.parallel.global_fleet_metrics(res, mesh)
+assert calls == {"all_reduce": 2}, calls
+f = sp.parallel.fleet_metrics(res)
+assert g == dict(f, n_hosts=1, n_devices=1), (g, f)
+assert g["n_converged"] == g["n_lanes"] == c.FB, g
+print("RESULT " + json.dumps(dict(metrics=g, launches=launches,
+                                  backend=dist.get_backend())), flush=True)
+dist.destroy_process_group()
+"""
+
+# (e) two processes on one card over gloo, each with its own lanes
+CHILD_GLOO = r"""
+import json, sys
+import numpy as np
+import torch
+import torch.distributed as dist
+import chip_smoke as c
+import spcies_tpu_torch as sp
+from spcies_tpu_torch.kernels.fused_admm import fused_admm_solve
+pid, port = int(sys.argv[1]), sys.argv[2]
+torch.set_float32_matmul_precision("highest")
+assert sp.parallel.initialize(coordinator_address=f"localhost:{port}",
+                              num_processes=2, process_id=pid,
+                              local_device_ids=[0], backend="gloo")
+assert dist.get_backend() == "gloo"
+mesh = sp.parallel.host_chip_mesh()
+assert mesh.devices.shape == (2, 1), mesh
+B = c.BATCH // 2
+_, _, st = sp.systems.tester_fixture()
+rng = np.random.default_rng(200 + pid)
+x0_l = np.asarray(st["x"])[None, :] * rng.uniform(
+    -2 - 0.4 * pid, 2 + 0.4 * pid, (B, 1))
+xr_l, ur_l = np.tile(st["xr"], (B, 1)), np.tile(st["ur"], (B, 1))
+solver = c.scale_out_solver(sp)
+solve = sp.parallel.shard_map_solver(solver, mesh)
+tagged = [sp.parallel.from_process_local(mesh, a) for a in (x0_l, xr_l, ur_l)]
+calls = c.count_collectives()
+fused_admm_solve.launches = 0
+res = solve(*tagged)
+torch.cuda.synchronize()
+launches = fused_admm_solve.launches
+assert calls == {}, calls
+m = sp.parallel.global_fleet_metrics(res, mesh)
+assert calls == {"all_reduce": 2}, calls
+assert m["n_converged"] == m["n_lanes"] == 2 * B, m
+assert m["n_hosts"] == 2 and m["n_devices"] == 2, m
+# this process's lanes against a local solve of them
+c.same_bits(res, solver(x0_l, xr_l, ur_l), f"process {pid} lanes")
+# a dense fp64 warm start across the two processes exits at once
+dense = c.fused_solver(sp, device=c.DEVICE, backend="dense",
+                       precision="double")
+solve_d = sp.parallel.shard_map_solver(dense, mesh)
+xd = [sp.parallel.from_process_local(mesh, a[:c.DENSE_WARM_B])
+      for a in (x0_l, xr_l, ur_l)]
+cold = solve_d(*xd)
+calls.clear()
+warm = solve_d(*xd, init=(cold.sol["z"], cold.sol["v"], cold.sol["lam"]))
+assert calls == {}, calls
+m_cold = sp.parallel.global_fleet_metrics(cold, mesh)
+m_warm = sp.parallel.global_fleet_metrics(warm, mesh)
+assert m_cold["n_converged"] == m_cold["n_lanes"], m_cold
+assert m_warm["n_converged"] == m_warm["n_lanes"], m_warm
+assert m_warm["k_max"] <= 2, m_warm
+print("RESULT " + json.dumps(dict(metrics=m, cold=m_cold, warm=m_warm,
+                                  launches=launches)), flush=True)
+dist.destroy_process_group()
+"""
+
+
+def phase_scale_out(sp):
+    """Phase 21: the scale-out entry points (spcies_tpu_torch.parallel) on
+    the card, every shard through its replica's BatchedSolver.__call__.
+    Returns K1's and K7's launches on these paths."""
+    from spcies_tpu_torch.api import _replica
+    from spcies_tpu_torch.entry import dryrun_multichip
+    from spcies_tpu_torch.kernels.fused_admm import fused_admm_solve
+    from spcies_tpu_torch.kernels.fused_split import fused_split_solve
+    t0 = time.perf_counter()
+    launches = {"fused_admm": 0, "fused_split": 0}
+
+    # (a) no launcher environment: one process, no group; the headline
+    # through shard_map_solver over host_chip_mesh() is the plain call
+    (a,) = run_children(CHILD_SINGLE, [((), {})])
+    size = a["mesh"][0] * a["mesh"][1]
+    assert a["launches"] == a["seen"] == size, a
+    launches["fused_admm"] += a["launches"]
+    log(f"phase 21 (a) a fresh process: initialize() False, "
+        f"shard_map_solver over host_chip_mesh() {tuple(a['mesh'])}, "
+        f"B={BATCH}: the plain call's bits, K1 launches {a['launches']} "
+        f"(torch.profiler saw {a['seen']})")
+    solver = scale_out_solver(sp)
+    _, _, inputs = problem(sp, 0, BATCH)
+    x = [torch.as_tensor(a, dtype=torch.float32, device=DEVICE)
+         for a in inputs]
+    whole, seen, events = profiled_launches(lambda: solver(*x),
+                                            "fused_admm_kernel")
+    assert bool((whole.e_flag == 1).all())
+    # an observation, not a check: after phases 16-20's sessions in this
+    # process the profiler has missed K1's launch (a full run saw 0 of 1)
+    log(f"phase 21 (a) this process's torch.profiler, after the earlier "
+        f"phases' sessions: saw {seen} K1 launch of 1, {events} device "
+        f"activities")
+
+    # (b) logical shards of the headline batch on one card: each shard's
+    # bits, and the whole batch's k, e_flag and u (exact-k); times in turns
+    for shards in SCALE_SHARDS:
+        solve_s = sp.parallel.sharded_solver(
+            solver, sp.parallel.batch_mesh([DEVICE + ":0"] * shards))
+        fused_admm_solve.launches = 0
+        res_s = solve_s(*x)
+        torch.cuda.synchronize()
+        n = fused_admm_solve.launches
+        launches["fused_admm"] += n
+        plan = dict(fused_admm_solve.last_plan)
+        assert n == shards, n
+        per_shard_bits(res_s, solver, x, shards, f"phase 21 (b) {shards}")
+        for key in ("k", "e_flag", "u"):
+            assert torch.equal(getattr(res_s, key), getattr(whole, key)), (
+                shards, key)
+        t = {"whole": [], "sharded": []}
+        for key in ("whole", "sharded", "sharded", "whole"):
+            t[key].append(cuda_ms(lambda: (solver if key == "whole"
+                                           else solve_s)(*x), reps=3))
+        log(f"phase 21 (b) {shards} logical shards of {BATCH // shards} "
+            f"on one card (lanes a block {plan['lanes']}, blocks "
+            f"{plan['blocks']} a launch; the whole batch "
+            f"{fused_admm_solve.last_plan['lanes']} and "
+            f"{fused_admm_solve.last_plan['blocks']}): K1 launches {n}, "
+            f"each shard's bits, k, e_flag and u of the whole batch; ms "
+            f"per batch (CUDA events, means of 3): {json.dumps(t)}")
+
+    # (c) a solver built on the CPU, replicated to the card
+    rep = _replica(scale_out_solver(sp, device="cpu"), DEVICE + ":0")
+    assert rep.device == torch.device("cuda", 0), rep.device
+    _, _, small = problem(sp, 3, FB)
+    fused_admm_solve.launches = 0
+    r_rep = rep(*small)
+    torch.cuda.synchronize()
+    n = fused_admm_solve.launches
+    launches["fused_admm"] += n
+    assert n == 1, n
+    same_bits(r_rep, solver(*small), "phase 21 (c)")
+    log(f"phase 21 (c) a solver built on the CPU and replicated to cuda:0 "
+        f"gives the card-built solver's bits, B={FB}")
+
+    # (d) a world of one process under torchrun's variables: NCCL
+    (d,) = run_children(CHILD_NCCL, [((), dict(
+        MASTER_ADDR="localhost", MASTER_PORT=str(free_port()),
+        WORLD_SIZE="1", RANK="0", LOCAL_RANK="0"))])
+    launches["fused_admm"] += d["launches"]
+    assert d["backend"] == "nccl" and d["launches"] == 1, d
+    log(f"phase 21 (d) torchrun world of one, backend {d['backend']}: "
+        f"global_fleet_metrics == fleet_metrics {d['metrics']}, K1 "
+        f"launches {d['launches']}, no collective inside the solve, two "
+        f"all_reduce in the metrics")
+
+    # (e) two processes on one card over gloo
+    port = str(free_port())
+    outs = run_children(CHILD_GLOO, [((str(pid), port), {})
+                                     for pid in range(2)])
+    assert outs[0]["metrics"] == outs[1]["metrics"], outs
+    assert outs[0]["warm"] == outs[1]["warm"], outs
+    for out in outs:
+        launches["fused_admm"] += out["launches"]
+        assert out["launches"] == 1, out
+    log(f"phase 21 (e) two processes on cuda:0 over gloo, {BATCH // 2} "
+        f"lanes each: identical global metrics {outs[0]['metrics']}, "
+        f"each process's lanes the bits of a local solve, K1 launches "
+        f"{[o['launches'] for o in outs]}; dense fp64 warm start across "
+        f"them ({DENSE_WARM_B} lanes each): cold {outs[0]['cold']}, warm "
+        f"{outs[0]['warm']}")
+
+    # (f) the sharded baseline config, HMPC-SADMM-split on K7
+    name = "HMPC-SADMM-split"
+    s7 = hmpc_solver(sp, name, device=DEVICE)
+    s7.options.timing = False
+    x7 = [torch.as_tensor(a, dtype=torch.float32, device=DEVICE)
+          for a in hmpc_inputs(sp, name, 0, FB)]
+    fused_split_solve.launches = 0
+    r7 = sp.parallel.sharded_solver(
+        s7, sp.parallel.batch_mesh([DEVICE + ":0"] * 2))(*x7)
+    torch.cuda.synchronize()
+    n = fused_split_solve.launches
+    launches["fused_split"] += n
+    assert n == 2, n
+    m7 = sp.parallel.fleet_metrics(r7)
+    assert m7["n_converged"] == m7["n_lanes"] == FB, m7
+    per_shard_bits(r7, s7, x7, 2, "phase 21 (f)")
+    log(f"phase 21 (f) {name} B={FB} on two logical shards: {m7}, K7 "
+        f"launches {n}, each shard's bits")
+
+    # (g) dryrun_multichip on the card
+    fused_admm_solve.launches = 0
+    dry = [dryrun_multichip(1), dryrun_multichip(2, devices=[DEVICE + ":0"]
+                                                 * 2)]
+    torch.cuda.synchronize()
+    n = fused_admm_solve.launches
+    launches["fused_admm"] += n
+    assert n == 3, n
+    log(f"phase 21 (g) dryrun_multichip(1) and (2, cuda:0 twice): "
+        f"{json.dumps(dry)}, K1 launches {n}")
+    log(f"phase 21 launches {launches}; wall "
+        f"{time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def kernel_entry(name, launches, err, times, wide=None):
     """One kernel's entry of the `kernels` line, with its wide widths'
     times and bounds (phase 17) under "wide"."""
@@ -2664,10 +3063,12 @@ def main():
     phase_off_fixture(sp)
     phase_banded(sp)
     auto_launches = phase_long(sp)
+    scale_launches = phase_scale_out(sp)
     log(json.dumps({"kernels": [
         kernel_entry("fused_admm", launches + fam_launches["fused_admm"]
                      + mpct_launches["fused_admm"] + roll_launches
-                     + auto_launches["fused_admm"],
+                     + auto_launches["fused_admm"]
+                     + scale_launches["fused_admm"],
                      max(head["u_err"], *(r["u_err"] for r in wide.values()
                                           if "u_err" in r)),
                      times, wide),
@@ -2689,7 +3090,8 @@ def main():
                      max(hmpc_err["fused_hmpc"], wk["fused_hmpc"][1]),
                      hmpc_times[("HMPC-ADMM", FB)], wk["fused_hmpc"][0]),
         kernel_entry("fused_split", hmpc_launches["fused_split"]
-                     + auto_launches["fused_split"],
+                     + auto_launches["fused_split"]
+                     + scale_launches["fused_split"],
                      max(hmpc_err["fused_split"], wk["fused_split"][1]),
                      hmpc_times[("HMPC-ADMM-split", FB)],
                      wk["fused_split"][0])]}))

@@ -24,6 +24,7 @@ from spcies_tpu_torch import formulations
 from spcies_tpu_torch import solvers
 from spcies_tpu_torch import kernels
 from spcies_tpu_torch import runtime
+from spcies_tpu_torch import parallel
 from spcies_tpu_torch import utils
 
 __all__ = [
@@ -39,5 +40,6 @@ __all__ = [
     "solvers",
     "kernels",
     "runtime",
+    "parallel",
     "utils",
 ]

@@ -312,7 +312,58 @@ def make_solver(sys: dict, param: dict, *, formulation: str = "",
                          ingredients=ingredients)
     if opt.in_engineering:
         solver.set_engineering(sys)
+    # what _replica rebuilds the solver from on another device
+    solver._recipe = (builder, dict(sys), dict(param), opt,
+                      getattr(solver, "backend_choice", backend))
     return solver
+
+
+def _canonical_device(device) -> torch.device:
+    """`device` with its index made explicit: a bare 'cuda' is the
+    current card; a CPU device has no index."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    elif device.type == "cpu":
+        device = torch.device("cpu")
+    return device
+
+
+def _rebuild(solver: BatchedSolver, device) -> BatchedSolver:
+    """`solver` built anew on `device` from the recipe make_solver kept:
+    the same builder, sys, param, resolved options and backend (for
+    backend='auto' the chosen one, probing nothing), from the solver's own
+    numpy ingredients (the time-varying solvers, which compute theirs per
+    call, from sys and param), with the same engineering-unit scaling.
+    JAX places a solver's operators on another device with device_put; a
+    torch solver's operators are placed when it is built."""
+    recipe = getattr(solver, "_recipe", None)
+    if recipe is None:
+        raise ValueError("only a solver built by make_solver can be "
+                         "replicated to another device")
+    builder, sys, param, opt, backend = recipe
+    replica = builder(sys, param, opt, backend=backend,
+                      device=resolve_device(device),
+                      ingredients=(None if opt.time_varying
+                                   else solver.ingredients))
+    replica._recipe = recipe
+    replica._Nx, replica._Nu = solver._Nx, solver._Nu
+    replica._opx, replica._opu = solver._opx, solver._opu
+    for attr in ("backend_choice", "backend_probe_s",
+                 "backend_probe_cached"):
+        if hasattr(solver, attr):
+            setattr(replica, attr, getattr(solver, attr))
+    return replica
+
+
+def _replica(solver: BatchedSolver, device) -> BatchedSolver:
+    """The solver on `device`: itself where it already lives there, else
+    `_rebuild`. The scale-out wrappers (parallel/) call each shard's
+    replica, so every shard goes through BatchedSolver.__call__."""
+    device = _canonical_device(resolve_device(device))
+    if device == _canonical_device(solver.device):
+        return solver
+    return _rebuild(solver, device)
 
 
 # ---------------------------------------------------------------------------
