@@ -187,7 +187,18 @@ started together), then
      k <= 2; in (d) and (e) no torch.distributed collective is called
      inside a solve and two all_reduce in the metrics; (f) HMPC-SADMM-split
      (K7) at B=8192 on two logical shards: every lane converged, each
-     shard's bits; (g) dryrun_multichip(1) and (2, devices=["cuda:0"] * 2).
+     shard's bits; (g) dryrun_multichip(1) and (2, devices=["cuda:0"] * 2);
+ 22. holds the embedded C beside the card (spcies_tpu_torch.codegen, no
+     kernel of csrc/): Problem.generate_c writes and compiles with cc the
+     C solvers of laxMPC-ADMM and MPCT-ADMM-cs (T = 10 Q, S = R) at the
+     headline horizon (rho 10, tol 1e-4, k_max 1000, relax_alpha 1, which
+     the C assumes) into a temporary directory; 1024 lanes of the
+     headline's inputs run lane by lane through the C (one thread a core)
+     and as one batch through the fp64 dense engine on the card: every
+     lane converges in both, k and e_flag agree on >= 0.9985 of lanes,
+     and u and z agree within 1e-8 on the lanes with equal k; the cc time,
+     the C's median run_time_ms and the card's batch time (CUDA events)
+     are logged.
 K1, K2, K3, K4, K5 and K6 run on the product stage csrc/tile_product.cuh;
 tools/ab_kernels.py holds their builds to the one-column-per-thread parents
 in csrc/variants/, and tools/ab_parent.py each kernel to an earlier tree's
@@ -2996,6 +3007,109 @@ def phase_scale_out(sp):
     return launches
 
 
+# phase 22: the generated C beside the card's fp64 dense engine, at the
+# headline horizon with no relaxation (the generated C has none)
+C_BATCH = 1024
+C_SEED = 22
+C_FAMILIES = {
+    "laxMPC-ADMM": ("laxMPC", "ADMM", "", dict(
+        rho=RHO, tol=TOL, k_max=K_MAX, relax_alpha=1.0)),
+    "MPCT-ADMM-cs": ("MPCT", "ADMM", "cs", dict(
+        rho=RHO, tol=TOL, k_max=K_MAX, relax_alpha=1.0)),
+}
+U_TOL_C = 1e-8      # generated C vs the fp64 dense engine, equal-k lanes
+
+
+def phase_embedded_c(sp, device=None, B=C_BATCH):
+    """Phase 22: for laxMPC-ADMM (codegen/emit_c.py) and MPCT-ADMM-cs
+    (codegen/emit_c_ext.py), Problem.generate_c writes and compiles (cc)
+    the embedded C solver into a temporary directory; B headline lanes
+    from C_SEED are solved lane by lane through CompiledCSolver (one
+    thread a core, a lane a call) and as one batch by the fp64 dense
+    engine on `device` (the card by default):
+    every lane converges in both, k and e_flag agree on >= K_AGREE of
+    lanes, and u and z within U_TOL_C on the lanes with equal k. Logs the cc
+    time, the C's median run_time_ms a solve (its own clock, inside the
+    call), the lanes' wall and the batch's CUDA-event time. Returns
+    {family: numbers}."""
+    import tempfile
+    from spcies_tpu_torch.codegen import CompiledCSolver
+    device = device or DEVICE
+    threads = os.cpu_count() or 1
+    t_phase = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="spcies_c_") as tmp:
+        for fam, (f, m_, sm, kw) in C_FAMILIES.items():
+            sys_, param30, inputs = problem(sp, C_SEED, B)
+            if f == "MPCT":
+                param30 = dict(param30, T=10.0 * np.asarray(param30["Q"]),
+                               S=np.asarray(param30["R"]).copy())
+            opt = sp.default_options(f, m_, sm, **kw)
+            name = fam.replace("-", "_").lower()
+            t0 = time.perf_counter()
+            c_path = sp.Problem(sys=sys_, param=param30,
+                                options=opt).generate_c(
+                                    directory=tmp, save_name=name)
+            cc_s = time.perf_counter() - t0
+            assert c_path == os.path.join(tmp, f"{name}.c"), c_path
+            dense = sp.make_solver(sys_, param30, formulation=f, method=m_,
+                                   submethod=sm, options=opt,
+                                   device=device)
+            assert dense.dtype == torch.float64
+            dense.options.timing = False
+            c = CompiledCSolver(name, n=dense.n, m=dense.m, nz=dense.nz,
+                                directory=tmp)
+            # one lane a call, on every core at once: ctypes lets go of
+            # the interpreter's lock inside the call, and the solver
+            # allocates nothing and writes only its outputs
+            t0 = time.perf_counter()
+            with ThreadPoolExecutor(threads) as pool:
+                lanes = list(pool.map(lambda i: c(*(a[i] for a in inputs)),
+                                      range(B)))
+            c_wall_s = time.perf_counter() - t0
+            u_c = np.stack([r[0] for r in lanes])
+            k_c = np.array([r[1] for r in lanes])
+            e_c = np.array([r[2] for r in lanes])
+            run_ms = np.array([r[3]["run_time_ms"] for r in lanes])
+            z_c = np.stack([r[3]["z"] for r in lanes])
+            res = dense(*inputs)
+            if torch.device(device).type == "cuda":
+                batch_ms = cuda_ms(lambda: dense(*inputs))
+            else:
+                t0 = time.perf_counter()
+                dense(*inputs)
+                batch_ms = (time.perf_counter() - t0) * 1e3
+            k_d = res.k.cpu().numpy()
+            e_d = res.e_flag.cpu().numpy()
+            u_d = res.u.cpu().numpy()
+            assert (e_c == 1).all(), (fam, "C lanes not converged",
+                                      int((e_c != 1).sum()))
+            assert (e_d == 1).all(), (fam, "dense lanes not converged",
+                                      int((e_d != 1).sum()))
+            same = (k_c == k_d) & (e_c == e_d)
+            agree = float(same.mean())
+            u_err = float(np.abs(u_c - u_d)[same].max())
+            # u sits on its bound on most headline lanes: z, the whole
+            # iterate, is held to the same bar
+            z_err = float(np.abs(z_c - res.sol["z"].cpu().numpy())[
+                same].max())
+            moved = np.flatnonzero(~same)
+            row = dict(lanes=B, cc_s=cc_s, c_run_ms_median=float(
+                np.median(run_ms)), c_threads=threads, c_wall_s=c_wall_s,
+                dense_batch_ms=batch_ms, k_agree=agree, u_err=u_err,
+                z_err=z_err,
+                k_mean=float(k_d.mean()), k_max=int(k_d.max()),
+                moved=[(int(i), int(k_c[i]), int(k_d[i]))
+                       for i in moved[:8]])
+            log(f"phase 22 {fam}: {json.dumps(row)}")
+            assert agree >= K_AGREE, (fam, agree)
+            assert u_err <= U_TOL_C and z_err <= U_TOL_C, (fam, u_err,
+                                                            z_err)
+            out[fam] = row
+    log(f"phase 22 wall {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def kernel_entry(name, launches, err, times, wide=None):
     """One kernel's entry of the `kernels` line, with its wide widths'
     times and bounds (phase 17) under "wide"."""
@@ -3064,6 +3178,7 @@ def main():
     phase_banded(sp)
     auto_launches = phase_long(sp)
     scale_launches = phase_scale_out(sp)
+    phase_embedded_c(sp)
     log(json.dumps({"kernels": [
         kernel_entry("fused_admm", launches + fam_launches["fused_admm"]
                      + mpct_launches["fused_admm"] + roll_launches

@@ -26,6 +26,7 @@ from spcies_tpu_torch import kernels
 from spcies_tpu_torch import runtime
 from spcies_tpu_torch import parallel
 from spcies_tpu_torch import utils
+from spcies_tpu_torch import oracle
 
 __all__ = [
     "__version__",
@@ -42,4 +43,5 @@ __all__ = [
     "runtime",
     "parallel",
     "utils",
+    "oracle",
 ]

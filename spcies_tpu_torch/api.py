@@ -10,9 +10,12 @@ reference's name-mangled `cons_*` eval dispatch
 
 from __future__ import annotations
 
+import contextvars
 import copy
 import dataclasses
+import functools
 import hashlib
+import inspect
 import json
 import os
 import time
@@ -69,6 +72,20 @@ _INPUT_KINDS = {"x0": "x", "xr": "x", "ur": "u", "xre": "x", "ure": "u",
                 "LB": "xu", "UB": "xu"}
 
 
+# the device make_solver resolved, while it runs a builder: a
+# BatchedSolver made there without a device (a builder of the JAX
+# package's plugin signature, which takes no device=) runs on it
+_BUILD_DEVICE = contextvars.ContextVar("spcies_build_device", default=None)
+
+
+def _torch_dtype(dtype) -> torch.dtype:
+    """A torch dtype from a torch, numpy or numpy-named one (torch.float64,
+    np.float64 and "float64" all give torch.float64)."""
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    return torch.from_numpy(np.empty(0, dtype=np.dtype(dtype))).dtype
+
+
 class BatchedSolver:
     """A generated batched solver: callable with (x0, xr, ur[, warm start]).
 
@@ -76,16 +93,21 @@ class BatchedSolver:
     `<formulation>_<method>(x0, xr, ur, ...) -> (u_opt, k, e_flag, sol)`
     (header_laxMPC_ADMM_C.h:24-28), but batched: inputs may be [n] (single
     problem) or [B, n]. Every tensor of the solve lives on `device`.
+    Without one it is the device make_solver resolved, where make_solver
+    runs the builder, and else the card: RuntimeError without one, as at
+    every entry point.
     """
 
     def __init__(self, solve_fn, ingredients: dict, options: Options,
-                 *, n: int, m: int, N: int, nz: int, dtype, device,
+                 *, n: int, m: int, N: int, nz: int, dtype, device=None,
                  input_names=("x0", "xr", "ur"), default_inputs=(),
                  input_core_ndims=None, input_kinds=None):
         self.ingredients = ingredients
         self.options = options
         self.n, self.m, self.N, self.nz = n, m, N, nz
-        self.dtype = dtype
+        self.dtype = _torch_dtype(dtype)
+        if device is None:
+            device = _BUILD_DEVICE.get() or resolve_device()
         self.device = torch.device(device)
         self.input_names = tuple(input_names)
         # trailing optional inputs (e.g. the soc solver's runtime radius,
@@ -308,14 +330,49 @@ def make_solver(sys: dict, param: dict, *, formulation: str = "",
                 "the backend the ingredients were made for")
         solver = _auto_backend(builder, sys, param, opt, device)
     else:
-        solver = builder(sys, param, opt, backend=backend, device=device,
-                         ingredients=ingredients)
+        if ingredients is not None and "ingredients" not in _takes(builder):
+            raise TypeError(
+                f"the builder of {opt.formulation}/{opt.method}"
+                f"/{opt.submethod} takes no ingredients=")
+        solver = _build(builder, sys, param, opt, backend, device,
+                        ingredients)
     if opt.in_engineering:
         solver.set_engineering(sys)
-    # what _replica rebuilds the solver from on another device
-    solver._recipe = (builder, dict(sys), dict(param), opt,
+    # what _replica rebuilds the solver from on another device: copies of
+    # sys, param and the resolved options as they are now, which later
+    # edits of the caller's objects do not reach
+    solver._recipe = (builder, copy.deepcopy(dict(sys)),
+                      copy.deepcopy(dict(param)), copy.deepcopy(opt),
                       getattr(solver, "backend_choice", backend))
     return solver
+
+
+@functools.lru_cache(maxsize=None)
+def _takes(builder) -> frozenset:
+    """The keywords of ("device", "ingredients") that `builder` takes,
+    read from its signature once. The port's builders take both; a
+    builder of the JAX package's plugin signature, build(sys, param, opt,
+    backend="dense"), takes neither."""
+    return frozenset(inspect.signature(builder).parameters) & {
+        "device", "ingredients"}
+
+
+def _build(builder, sys, param, opt, backend, device, ingredients=None):
+    """builder(sys, param, opt, backend=backend), with device= and
+    ingredients= where its signature takes them (`_takes`; ingredients
+    is dropped where it does not). While it runs, a BatchedSolver made
+    without a device is made on `device`."""
+    takes = _takes(builder)
+    kw = {}
+    if "device" in takes:
+        kw["device"] = device
+    if "ingredients" in takes:
+        kw["ingredients"] = ingredients
+    token = _BUILD_DEVICE.set(device)
+    try:
+        return builder(sys, param, opt, backend=backend, **kw)
+    finally:
+        _BUILD_DEVICE.reset(token)
 
 
 def _canonical_device(device) -> torch.device:
@@ -331,8 +388,9 @@ def _canonical_device(device) -> torch.device:
 
 def _rebuild(solver: BatchedSolver, device) -> BatchedSolver:
     """`solver` built anew on `device` from the recipe make_solver kept:
-    the same builder, sys, param, resolved options and backend (for
-    backend='auto' the chosen one, probing nothing), from the solver's own
+    the same builder, sys, param, resolved options (copies taken when
+    the solver was built) and backend (for backend='auto' the chosen one,
+    probing nothing), from the solver's own
     numpy ingredients (the time-varying solvers, which compute theirs per
     call, from sys and param), with the same engineering-unit scaling.
     JAX places a solver's operators on another device with device_put; a
@@ -342,10 +400,9 @@ def _rebuild(solver: BatchedSolver, device) -> BatchedSolver:
         raise ValueError("only a solver built by make_solver can be "
                          "replicated to another device")
     builder, sys, param, opt, backend = recipe
-    replica = builder(sys, param, opt, backend=backend,
-                      device=resolve_device(device),
-                      ingredients=(None if opt.time_varying
-                                   else solver.ingredients))
+    replica = _build(builder, sys, param, copy.deepcopy(opt), backend,
+                     resolve_device(device),
+                     None if opt.time_varying else solver.ingredients)
     replica._recipe = recipe
     replica._Nx, replica._Nu = solver._Nx, solver._Nu
     replica._opx, replica._opu = solver._opx, solver._opu
@@ -558,8 +615,7 @@ def _auto_backend(builder, sys, param, opt, device) -> BatchedSolver:
             cached = None
         if cached in AUTO_BACKENDS:
             try:
-                solver = builder(sys, param, opt, backend=cached,
-                                 device=device)
+                solver = _build(builder, sys, param, opt, cached, device)
             except (ValueError, NotImplementedError):
                 solver = None
             if solver is not None:
@@ -570,8 +626,8 @@ def _auto_backend(builder, sys, param, opt, device) -> BatchedSolver:
         if backend == "fused" and opt.debug:
             continue
         try:
-            candidates[backend] = builder(sys, param, opt, backend=backend,
-                                          device=device)
+            candidates[backend] = _build(builder, sys, param, opt, backend,
+                                         device)
         except (ValueError, NotImplementedError) as exc:
             refusals[backend] = exc
     if not candidates:

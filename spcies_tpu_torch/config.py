@@ -248,7 +248,10 @@ class Problem:
                            options=self.options, **kw)
 
     def generate_c(self, **kw):
-        """The embedded plain-C generator is not ported yet."""
-        raise NotImplementedError(
-            "C code generation is not ported to spcies_tpu_torch yet "
-            "(ROADMAP queue 1 item 14)")
+        """Generate the embedded plain-C solver for this recipe
+        (spcies_gen_controller C-platform arm); returns the .c path."""
+        from spcies_tpu_torch.codegen import generate_embedded_solver
+        return generate_embedded_solver(
+            self.sys, self.param, formulation=self.options.formulation,
+            method=self.options.method, submethod=self.options.submethod,
+            options=self.options, **kw)

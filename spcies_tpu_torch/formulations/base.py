@@ -16,9 +16,6 @@ import numpy as np
 
 BUILDERS: dict[tuple[str, str, str], Callable] = {}
 
-# triples of the JAX package not ported yet -> their ROADMAP queue 1 item
-UNPORTED: dict[tuple[str, str, str], int] = {}
-
 
 def register_builder(formulation: str, method: str, submethod: str = ""):
     def deco(fn):
@@ -30,12 +27,9 @@ def register_builder(formulation: str, method: str, submethod: str = ""):
 def get_builder(formulation: str, method: str, submethod: str = ""):
     key = (formulation, method, submethod)
     if key not in BUILDERS:
-        avail = sorted(BUILDERS)
-        todo = (f" (not ported to spcies_tpu_torch yet, ROADMAP queue 1 "
-                f"item {UNPORTED[key]})" if key in UNPORTED else "")
         raise NotImplementedError(
-            f"No solver builder registered for {key}{todo}; available: "
-            f"{avail}")
+            f"No solver builder registered for {key}; available: "
+            f"{sorted(BUILDERS)}")
     return BUILDERS[key]
 
 

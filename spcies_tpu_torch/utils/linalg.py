@@ -115,3 +115,59 @@ def band_chol_blocks_tridiag(Wd: np.ndarray, Wu: np.ndarray):
             Alpha[i] = scipy.linalg.solve_triangular(U.T, Wu[i], lower=True)
             prev = Alpha[i]
     return Alpha, BetaInv
+
+
+def full2csr(M: np.ndarray, tol: float = 1e-14):
+    """Dense -> CSR triplet (val, col, row_ptr), the host-side analogue of
+    +sp_utils/full2CSR.m. Only used offline; the online solvers use
+    structured dense forms instead of generic sparsity."""
+    nr, nc = M.shape
+    val, col, row_ptr = [], [], [0]
+    for i in range(nr):
+        for j in range(nc):
+            if abs(M[i, j]) > tol:
+                val.append(M[i, j])
+                col.append(j)
+        row_ptr.append(len(val))
+    return np.asarray(val), np.asarray(col, dtype=np.int32), \
+        np.asarray(row_ptr, dtype=np.int32)
+
+
+def ldl_factor(W: np.ndarray):
+    """LDL^T factorization via Cholesky (reference +sp_utils/full2LDL.m:16-34):
+    W = L D L^T with unit-lower-triangular L. Returns (L, d)."""
+    C = np.linalg.cholesky(W)
+    d = np.diag(C) ** 2
+    L = C / np.diag(C)[None, :]
+    return L, d
+
+
+def full2csc(M: np.ndarray, tol: float = 1e-14):
+    """Dense -> CSC triplet (val, row, col_ptr), the host-side analogue of
+    +sp_utils/full2CSC.m:25-44 (computed as CSR of the transpose)."""
+    val, row, col_ptr = full2csr(np.asarray(M).T, tol)
+    return val, row, col_ptr
+
+
+def csr_matvec(val, col, row_ptr, x):
+    """CSR sparse mat-vec (+sp_utils/smv.m:23-35). Host-side reference; the
+    online solvers use structured dense forms instead of generic sparsity
+    (SURVEY.md §7)."""
+    nr = len(row_ptr) - 1
+    y = np.zeros(nr)
+    for i in range(nr):
+        for j in range(row_ptr[i], row_ptr[i + 1]):
+            y[i] += val[j] * x[col[j]]
+    return y
+
+
+def ldl_solve(L, d, b):
+    """Solve (L D L') x = b given unit-lower L and diagonal d — the dense
+    analogue of the reference's QDLDL-style sparse LDL solve
+    (+sp_utils/LDLsolve.m:22-48: forward sub -> D^-1 scale -> backward
+    sub)."""
+    y = scipy.linalg.solve_triangular(L, np.asarray(b, float), lower=True,
+                                      unit_diagonal=True)
+    y = y / d
+    return scipy.linalg.solve_triangular(L.T, y, lower=False,
+                                         unit_diagonal=True)

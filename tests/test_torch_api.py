@@ -9,9 +9,12 @@ BatchedSolver.aot_memory_analysis
 tests/test_option_registry.py: every advertised knob of the 13 triples
 builds and solves in both packages with u within 1e-9 in fp64, or raises
 the same exception type in both; and its other tests (:122-215 and
-:243-265, banded among the traced backends). Its codegen test (:217)
-waits for ROADMAP queue 1 item 14. Every auto test points the cache at a
-temporary directory."""
+:243-265, banded among the traced backends); its codegen test (:217) is
+ported in test_torch_codegen_c.py. Also ports of test_api_misc.py's
+test_make_solver_autodetects and test_personal_formulation_hatch (a
+builder of the JAX plugin signature, ROADMAP queue 3 F1), and the
+replica's copy of the recipe (F2). Every auto test points the cache at
+a temporary directory."""
 
 import json
 import warnings
@@ -475,3 +478,195 @@ def test_debug_traces_per_backend(fixture, backend):
     with pytest.raises(ValueError, match="debug traces"):
         tsp.make_solver(sys, param, formulation="laxMPC", method="ADMM",
                         options=opt, backend="fused", device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# the builder contract (ROADMAP queue 3, F1) and the replica's snapshot of
+# the recipe (F2)
+# ---------------------------------------------------------------------------
+
+def test_make_solver_autodetects():
+    """Port of tests/test_api_misc.py::test_make_solver_autodetects: the
+    formulation is found from param's fields (laxMPC on the tester
+    fixture), and the solve converges."""
+    sys, param, st = tsp.systems.tester_fixture()
+    s = tsp.make_solver(sys, param, rho=15.0, tol=1e-4, k_max=1000,
+                        device="cpu")
+    assert s.options.formulation == "laxMPC"
+    res = s(st["x"], st["xr"], st["ur"])
+    assert int(res.e_flag[0]) == 1
+
+
+def test_personal_formulation_hatch():
+    """Port of tests/test_api_misc.py::test_personal_formulation_hatch:
+    a builder of the JAX package's plugin signature, build(sys, param,
+    opt, backend="dense"), returning a BatchedSolver made with no device
+    and a numpy dtype, builds and solves through make_solver on the
+    device make_solver resolved."""
+    from spcies_tpu_torch.formulations import register_builder, BUILDERS
+    from spcies_tpu_torch.api import BatchedSolver
+    from spcies_tpu_torch.solvers.common import SolveResult
+
+    key = ("personal", "gradientDescent", "")
+    if key in BUILDERS:
+        del BUILDERS[key]
+
+    @register_builder("personal", "gradientDescent")
+    def build(sys, param, opt, backend="dense"):
+        n = np.asarray(sys["A"]).shape[0]
+
+        def _solve(x0, xr, ur, init, fixed_iters):
+            u = -0.5 * x0[:, :2]
+            B = x0.shape[0]
+            return SolveResult(u=u, k=torch.ones(B, dtype=torch.int32),
+                               e_flag=torch.ones(B, dtype=torch.int32),
+                               sol={})
+        return BatchedSolver(_solve, {}, opt, n=n, m=2, N=1, nz=n,
+                             dtype=np.float64)
+
+    try:
+        sys, param, st = tsp.systems.tester_fixture()
+        s = tsp.make_solver(sys, param, formulation="personal",
+                            method="gradientDescent", device="cpu")
+        assert s.device == torch.device("cpu")
+        assert s.dtype == torch.float64
+        res = s(st["x"], st["xr"], st["ur"])
+        assert torch.is_tensor(res.u) and res.u.dtype == torch.float64
+        np.testing.assert_allclose(res.u[0].numpy(),
+                                   -0.5 * np.asarray(st["x"][:2]))
+        # a replica rebuilds through the same signature
+        r = api._rebuild(s, "cpu")
+        assert r.device == torch.device("cpu")
+        assert torch.equal(r(st["x"], st["xr"], st["ur"]).u, res.u)
+        with pytest.raises(TypeError, match="ingredients"):
+            tsp.make_solver(sys, param, formulation="personal",
+                            method="gradientDescent", device="cpu",
+                            ingredients={})
+    finally:
+        del BUILDERS[key]
+
+
+def test_builder_taking_device_gets_the_resolved_one(fixture):
+    """A builder whose signature takes device= and ingredients= (the
+    port's own) receives the device make_solver resolved, and the
+    ingredients given; a BatchedSolver made with torch.float64 keeps
+    it."""
+    from spcies_tpu_torch.api import BatchedSolver
+    from spcies_tpu_torch.solvers.common import SolveResult
+    seen = []
+
+    def build(sys, param, opt, backend="dense", device="cuda",
+              ingredients=None):
+        seen.append((device, ingredients))
+
+        def _solve(x0, xr, ur, init, fixed_iters):
+            B = x0.shape[0]
+            return SolveResult(u=x0[:, :2], k=torch.ones(B, dtype=torch.int32),
+                               e_flag=torch.ones(B, dtype=torch.int32),
+                               sol={})
+        return BatchedSolver(_solve, ingredients or {}, opt, n=6, m=2, N=1,
+                             nz=6, dtype=torch.float64, device=device)
+
+    key = ("personal", "withDevice", "")
+    fbase.BUILDERS[key] = build
+    try:
+        sys, param, st = fixture
+        s = tsp.make_solver(sys, param, formulation="personal",
+                            method="withDevice", device="cpu",
+                            ingredients={"a": 1})
+        assert seen == [(torch.device("cpu"), {"a": 1})]
+        assert s.device == torch.device("cpu") and s.dtype == torch.float64
+        assert s.ingredients == {"a": 1}
+    finally:
+        del fbase.BUILDERS[key]
+
+
+def test_batched_solver_without_device_takes_the_card(monkeypatch):
+    """A BatchedSolver built directly with no device resolves it as every
+    entry point does: the card, and RuntimeError without one (no quiet
+    CPU fallback)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    opt = tsp.default_options("laxMPC", "ADMM")
+    with pytest.raises(RuntimeError, match="device=\"cpu\""):
+        api.BatchedSolver(lambda *a: None, {}, opt, n=6, m=2, N=1, nz=6,
+                          dtype=torch.float64)
+    s = api.BatchedSolver(lambda *a: None, {}, opt, n=6, m=2, N=1, nz=6,
+                          dtype="float32", device="cpu")
+    assert s.device == torch.device("cpu") and s.dtype == torch.float32
+
+
+def _edit_after_build():
+    """The reproduction of ROADMAP queue 3's F2 (fp64, CPU, tester
+    fixture): solver A with tol 1e-4 and k_max 1000; then the caller
+    edits the options to build solver B and changes param["Q"] in place.
+    Returns A, A's result before the edits and the inputs."""
+    sys, param, st = tsp.systems.tester_fixture()
+    sys, param = dict(sys), dict(param, Q=np.array(param["Q"], float))
+    opt = tsp.default_options("laxMPC", "ADMM", rho=15.0, tol=1e-4,
+                              k_max=1000)
+    a = tsp.make_solver(sys, param, formulation="laxMPC", method="ADMM",
+                        options=opt, device="cpu")
+    x = (st["x"], st["xr"], st["ur"])
+    before = a(*x)
+    assert int(before.k[0]) == 407
+    opt.solver["k_max"] = 20
+    opt.solver["tol"] = 1e-2
+    b = tsp.make_solver(sys, param, formulation="laxMPC", method="ADMM",
+                        options=opt, device="cpu")
+    assert int(b(*x).k[0]) < 407
+    param["Q"] *= 3.0
+    sys["A"] = sys["A"] * 1.1
+    return a, before, x
+
+
+def _assert_bits(a, b):
+    """u, k, e_flag and every iterate of sol bit for bit (times_ms, a
+    clock reading, aside)."""
+    for name in ("u", "k", "e_flag"):
+        assert torch.equal(getattr(a, name), getattr(b, name)), name
+    keys = sorted(k for k in b.sol if torch.is_tensor(b.sol[k]))
+    assert keys and keys == sorted(k for k in a.sol
+                                   if torch.is_tensor(a.sol[k]))
+    for key in keys:
+        assert torch.equal(a.sol[key], b.sol[key]), key
+
+
+def test_replica_keeps_the_options_it_was_built_with():
+    """api._rebuild(A) after the caller's edits gives A's u, k, e_flag
+    and sol bit for bit: the recipe holds copies of sys, param and the
+    resolved options taken when A was built."""
+    a, before, x = _edit_after_build()
+    _assert_bits(a(*x), before)
+    _assert_bits(api._rebuild(a, "cpu")(*x), before)
+    assert a._recipe[3].solver["k_max"] == 1000
+    assert a._recipe[3].solver is not a.options.solver
+
+
+def test_sharded_replicas_keep_the_options(monkeypatch):
+    """The same through parallel.sharded_solver over two logical CPU
+    devices, each shard through a replica rebuilt from the recipe (as on
+    cards of their own): every lane gives A's bits."""
+    from spcies_tpu_torch.parallel import mesh as pmesh
+    a, _, x = _edit_after_build()
+    rebuilt = []
+
+    def rebuild(solver, device):
+        rebuilt.append(device)
+        return api._rebuild(solver, device)
+
+    monkeypatch.setattr(pmesh, "_replica", rebuild)
+    rng = np.random.default_rng(3)
+    lanes = (np.asarray(x[0])[None] * rng.uniform(-2, 2, (8, 1)),
+             np.tile(x[1], (8, 1)), np.tile(x[2], (8, 1)))
+    solve = tsp.parallel.sharded_solver(
+        a, tsp.parallel.batch_mesh(["cpu", "cpu"]))
+    assert rebuilt
+    res = solve(*lanes)
+    for half in (slice(0, 4), slice(4, 8)):
+        want = a(*(l[half] for l in lanes))
+        _assert_bits(type(res)(u=res.u[half], k=res.k[half],
+                               e_flag=res.e_flag[half],
+                               sol={k: v[half] for k, v in res.sol.items()
+                                    if torch.is_tensor(v)}),
+                     want)
+    assert int(res.k.max()) > 20

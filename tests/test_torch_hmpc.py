@@ -299,12 +299,17 @@ def test_fused_batch_padding(fixture):
 
 
 def test_builders_registered():
-    """The four HMPC triples have builders: none is named as unported."""
-    for triple in (("HMPC", "ADMM", ""), ("HMPC", "ADMM", "split"),
-                   ("HMPC", "SADMM", "split"), ("ellipHMPC", "ADMM", "")):
+    """Every triple of the JAX package's registry (the four HMPC triples
+    among them) has a builder there and in the port, and get_builder
+    returns the port's."""
+    from spcies_tpu.config import SOLVER_REGISTRY
+    from spcies_tpu.formulations import BUILDERS as JAX_BUILDERS
+    assert {("HMPC", "ADMM", ""), ("HMPC", "ADMM", "split"),
+            ("HMPC", "SADMM", "split"),
+            ("ellipHMPC", "ADMM", "")} <= set(SOLVER_REGISTRY)
+    for triple in SOLVER_REGISTRY:
+        assert triple in JAX_BUILDERS and triple in base.BUILDERS, triple
         assert base.get_builder(*triple) is base.BUILDERS[triple]
-        assert triple not in base.UNPORTED
-    assert 11 not in base.UNPORTED.values()
 
 
 @pytest.mark.parametrize("which,probe,exc,match", [

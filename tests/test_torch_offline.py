@@ -75,12 +75,21 @@ def test_determine_formulation(keys):
     assert tsp.determine_formulation(param) == want
 
 
-def test_problem_generate_c_not_ported():
+def test_problem_generate_c_not_ported(tmp_path):
+    """Problem.generate_c, which this test once found refused, writes,
+    compiles and returns the recipe's C solver: the JAX package's
+    bytes."""
     sys_, param, _ = tsp.systems.tester_fixture()
     prob = tcfg.Problem(sys=sys_, param=param,
                         options=tsp.default_options("laxMPC", "ADMM"))
-    with pytest.raises(NotImplementedError, match="item 14"):
-        prob.generate_c()
+    c_path = prob.generate_c(directory=str(tmp_path / "t"))
+    assert c_path == str(tmp_path / "t" / "laxmpc_admm.c")
+    assert (tmp_path / "t" / "liblaxmpc_admm.so").exists()
+    j_path = jcfg.Problem(
+        sys=sys_, param=param,
+        options=jsp.default_options("laxMPC", "ADMM")).generate_c(
+            directory=str(tmp_path / "j"), compile=False)
+    assert open(c_path, "rb").read() == open(j_path, "rb").read()
 
 
 @pytest.mark.parametrize("N", [5, 10])
