@@ -198,7 +198,22 @@ started together), then
      lane converges in both, k and e_flag agree on >= 0.9985 of lanes,
      and u and z agree within 1e-8 on the lanes with equal k; the cc time,
      the C's median run_time_ms and the card's batch time (CUDA events)
-     are logged.
+     are logged;
+ 23. drives the port's surface: (a) the CLI, `python -m spcies_tpu_torch`
+     version, help, help codegen and gen --demo for laxMPC and
+     MPCT-ADMM-cs as processes, each exiting 0, the generated .c and .h
+     equal byte for byte to what generate_embedded_solver writes in this
+     process; (b) the six examples examples/torch_t0*.py as processes on
+     the card, each exiting 0, their output logged; (c) entry(): finite u
+     of shape (256, 2) and k == 10 on every lane, and the fp64 flagship on
+     the card against the CPU (k equal, u and z within 1e-9); (d) the
+     phase timer on CUDA events at the fused headline (K1, B=32768):
+     times_ms's solve and run within 5 % or 0.05 ms of an outside
+     CUDA-event bracket of the solve and of the call, no synchronize
+     before PhaseTimer.finish, one at it, none in a timing=False request,
+     whose result has the timed request's bits; (e) in a fresh process the
+     first request's phases against five warm requests', and in another
+     the first request's cProfile (top 15), logged.
 K1, K2, K3, K4, K5 and K6 run on the product stage csrc/tile_product.cuh;
 tools/ab_kernels.py holds their builds to the one-column-per-thread parents
 in csrc/variants/, and tools/ab_parent.py each kernel to an earlier tree's
@@ -2636,7 +2651,7 @@ def phase_long(sp):
 LAUNCHER_VARS = ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK",
                  "LOCAL_RANK")
 SCALE_SHARDS = (4, 16)   # logical shards of the headline batch on one card
-CHILD_TIMEOUT = 300      # seconds for a child process of phase 21
+CHILD_TIMEOUT = 300      # seconds for a child process (phases 21 and 23)
 DENSE_WARM_B = 256       # lanes a process of the fp64 warm start across two
 COLLECTIVES = ("all_reduce", "all_gather", "all_gather_object",
                "all_gather_into_tensor", "broadcast", "broadcast_object_list",
@@ -2712,31 +2727,46 @@ def profiled_launches(run, kernel):
     return out, sum(1 for name in device if kernel in name), len(device)
 
 
-def run_children(code, runs):
-    """Run `code` (python -c) once for each (argv, environment additions)
-    of `runs`, all at once, from the repository's root; each must exit 0
-    and print a line 'RESULT <json>'. Returns the parsed results; a child
-    still running at an error or after CHILD_TIMEOUT is killed."""
+def run_processes(cmds, cwd=None, extras=None):
+    """Run this interpreter with each argument list of `cmds`, all at once,
+    from `cwd` (the repository's root by default) with the repository on
+    the path and each run's environment additions of `extras`; each must
+    exit 0 within CHILD_TIMEOUT. Returns [(stdout, seconds to its end)]; a
+    process still running at an error is killed."""
     root = str(Path(__file__).resolve().parent)
     env = {k: v for k, v in os.environ.items()
            if k not in LAUNCHER_VARS + ("SPCIES_LOG_DIR",)}
     env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
-    procs = [subprocess.Popen([sys.executable, "-c", code, *argv], cwd=root,
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, *cmd], cwd=cwd or root,
                               env={**env, **extra}, stdout=subprocess.PIPE,
                               stderr=subprocess.PIPE, text=True)
-             for argv, extra in runs]
+             for cmd, extra in zip(cmds, extras or [{}] * len(cmds))]
+    outs = []
     try:
-        outs = [p.communicate(timeout=CHILD_TIMEOUT) for p in procs]
+        for cmd, p in zip(cmds, procs):
+            out, err = p.communicate(timeout=CHILD_TIMEOUT)
+            if p.returncode != 0:
+                raise RuntimeError(f"{' '.join(cmd)[:200]} exited "
+                                   f"{p.returncode}:\n{out[-3000:]}\n"
+                                   f"{err[-3000:]}")
+            outs.append((out, time.perf_counter() - t0))
     finally:
         for p in procs:
             if p.poll() is None:
                 p.kill()
                 p.communicate()
+    return outs
+
+
+def run_children(code, runs):
+    """Run `code` (python -c) once for each (argv, environment additions)
+    of `runs`, all at once, from the repository's root (run_processes);
+    each must print a line 'RESULT <json>'. Returns the parsed results."""
+    outs = run_processes([["-c", code, *argv] for argv, _ in runs],
+                         extras=[extra for _, extra in runs])
     results = []
-    for p, (out, err) in zip(procs, outs):
-        if p.returncode != 0:
-            raise RuntimeError(f"phase 21 child exited {p.returncode}:\n"
-                               f"{out[-3000:]}\n{err[-3000:]}")
+    for out, _seconds in outs:
         line = [s for s in out.splitlines() if s.startswith("RESULT ")]
         results.append(json.loads(line[-1][len("RESULT "):]))
     return results
@@ -3110,6 +3140,273 @@ def phase_embedded_c(sp, device=None, B=C_BATCH):
     return out
 
 
+# phase 23: the port's surface (the CLI, the examples, entry()), the phase
+# timer on CUDA events at the fused headline, and a fresh process's first
+# request
+EXAMPLES = ("torch_t00_basic_tutorial.py", "torch_t01_time_varying.py",
+            "torch_t02_plain_c.py", "torch_t03_real_systems.py",
+            "torch_t04_dev_solver_versions.py",
+            "torch_t05_serving_rollout.py")
+CLI_GEN = (("laxMPC", "", ""), ("MPCT", "ADMM", "cs"))
+TIMER_REL, TIMER_ABS = 0.05, 0.05   # timer against a bracket: 5 % or ms
+WARM_REQUESTS = 5                   # warm requests after the first one
+
+
+class SyncCounter:
+    """Counts, while active, every call of torch.cuda.synchronize and of
+    the synchronize methods of torch.cuda.Event and torch.cuda.Stream, and
+    the count at the entry of each PhaseTimer.finish."""
+
+    def __init__(self):
+        from spcies_tpu_torch.diagnostics.timing import PhaseTimer
+        self.calls = 0
+        self.at_finish = []
+        self._patched = [(torch.cuda, "synchronize"),
+                         (torch.cuda.Event, "synchronize"),
+                         (torch.cuda.Stream, "synchronize"),
+                         (PhaseTimer, "finish")]
+
+    def __enter__(self):
+        self._orig = [getattr(obj, name) for obj, name in self._patched]
+        for (obj, name), orig in zip(self._patched, self._orig):
+            def counted(*args, _orig=orig, _finish=name == "finish", **kw):
+                if _finish:
+                    self.at_finish.append(self.calls)
+                else:
+                    self.calls += 1
+                return _orig(*args, **kw)
+            setattr(obj, name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for (obj, name), orig in zip(self._patched, self._orig):
+            setattr(obj, name, orig)
+
+
+def within(value, ref):
+    return abs(value - ref) <= max(TIMER_REL * ref, TIMER_ABS)
+
+
+# (e) a fresh process: the headline solver's first request against warm
+# ones, timed by the phase timer; with an argument, the first request
+# under cProfile (the top 15 by cumulative time)
+CHILD_FIRST = r"""
+import cProfile, gc, io, json, pstats, sys, time
+import torch
+import chip_smoke as c
+import spcies_tpu_torch as sp
+from spcies_tpu_torch.kernels.fused_admm import fused_admm_solve
+gc_ms = []
+def gc_clock(phase, info, _t=[0.0]):
+    if phase == "start":
+        _t[0] = time.perf_counter()
+    else:
+        gc_ms.append((time.perf_counter() - _t[0]) * 1e3)
+gc.callbacks.append(gc_clock)
+def segments():
+    return torch.cuda.memory_stats().get("segment.all.allocated", 0)
+solver = c.fused_solver(sp, tile_b=c.TILE_B, check_every=c.CHECK_EVERY,
+                        exact_k=True)
+_, _, inputs = c.problem(sp, 0, c.BATCH)
+fused_admm_solve.launches = 0
+prof = cProfile.Profile() if len(sys.argv) > 1 else None
+seg0, t0 = segments(), time.perf_counter()
+if prof is not None:
+    prof.enable()
+first = solver(*inputs)
+if prof is not None:
+    prof.disable()
+host_ms = (time.perf_counter() - t0) * 1e3
+first_gc_ms, seg1 = sum(gc_ms), segments()
+warm = [solver(*inputs).sol["times_ms"] for _ in range(c.WARM_REQUESTS)]
+assert bool((first.e_flag == 1).all())
+top = ""
+if prof is not None:
+    s = io.StringIO()
+    pstats.Stats(prof, stream=s).sort_stats("cumulative").print_stats(15)
+    top = s.getvalue()
+print("RESULT " + json.dumps(dict(
+    first=first.sol["times_ms"], warm=warm, top=top, first_host_ms=host_ms,
+    first_gc_ms=first_gc_ms, first_segments=seg1 - seg0,
+    warm_segments=segments() - seg1,
+    launches=fused_admm_solve.launches)), flush=True)
+"""
+
+
+def surface_cli(sp):
+    """Phase 23 (a): the CLI as processes; gen --demo's .c and .h against
+    generate_embedded_solver in this process."""
+    import tempfile
+    from spcies_tpu_torch.__main__ import demo_problem
+    from spcies_tpu_torch.codegen import generate_embedded_solver
+    with tempfile.TemporaryDirectory(prefix="spcies_cli_") as tmp:
+        cli = ["-m", "spcies_tpu_torch"]
+        cmds = [cli + ["version"], cli + ["help"], cli + ["help", "codegen"]]
+        cmds += [cli + ["gen", "--demo", "--formulation", f, "--method", m_,
+                        "--submethod", s, "--directory", "cli"]
+                 for f, m_, s in CLI_GEN]
+        outs = run_processes(cmds, tmp)
+        assert outs[0][0].strip() == sp.__version__, outs[0][0]
+        assert "help topics" in outs[1][0], outs[1][0][:300]
+        assert "generate_c_solver" in outs[2][0], outs[2][0][:300]
+        names = []
+        for f, m_, s in CLI_GEN:
+            sys_, param = demo_problem(f)
+            path = Path(generate_embedded_solver(
+                sys_, param, formulation=f, method=m_, submethod=s,
+                directory=os.path.join(tmp, "in_process")))
+            for ext in (".c", ".h"):
+                mine = path.with_suffix(ext)
+                cli_file = Path(tmp, "cli", mine.name)
+                assert cli_file.read_bytes() == mine.read_bytes(), mine.name
+            names.append(path.name)
+    log(f"phase 23 (a) python -m spcies_tpu_torch: version "
+        f"{outs[0][0].strip()}, help, help codegen and gen --demo exit 0; "
+        f"{names} and their headers equal generate_embedded_solver's "
+        f"bytes; processes {[round(o[1], 2) for o in outs]} s")
+
+
+def surface_examples():
+    """Phase 23 (b): the six examples as processes on the card (each that
+    builds a solver takes its default device); each exits 0, its output
+    logged."""
+    import tempfile
+    root = Path(__file__).resolve().parent
+    cmds = [[str(root / "examples" / name)] for name in EXAMPLES]
+    with tempfile.TemporaryDirectory(prefix="spcies_examples_") as tmp:
+        outs = run_processes(cmds, tmp)
+    for name, (out, seconds) in zip(EXAMPLES, outs):
+        log(f"phase 23 (b) {name}: exit 0 in {seconds:.2f} s")
+        for line in out.strip().splitlines():
+            log(f"    {line}")
+
+
+def surface_entry():
+    """Phase 23 (c): entry() on the card gives 10 iterations and finite u
+    on every lane; the fp64 flagship there agrees with the CPU's (k equal,
+    u and z within 1e-9)."""
+    from spcies_tpu_torch.entry import _flagship, entry
+    fn, args = entry()
+    res = fn(*args)
+    assert tuple(res.u.shape) == (256, 2), res.u.shape
+    assert bool(torch.isfinite(res.u).all())
+    assert bool((res.k == 10).all()), res.k
+    ref = {}
+    for dev in (DEVICE, "cpu"):
+        s64, a64 = _flagship(256, "float64", device=dev)
+        ref[dev] = s64.raw_fn(*a64, None, None)
+    card, host = ref[DEVICE], ref["cpu"]
+    assert torch.equal(card.k.cpu(), host.k), "fp64 flagship k"
+    du = float((card.u.cpu() - host.u).abs().max())
+    dz = float((card.sol["z"].cpu() - host.sol["z"]).abs().max())
+    assert du <= 1e-9 and dz <= 1e-9, (du, dz)
+    log(f"phase 23 (c) entry(): u {tuple(res.u.shape)} finite, k == 10 on "
+        f"every lane; fp64 flagship on {DEVICE} against the CPU: k equal "
+        f"(k_mean {float(host.k.double().mean()):.2f}), u within {du:.2e}, "
+        f"z within {dz:.2e}")
+
+
+def surface_timer(sp):
+    """Phase 23 (d): the phase timer at the fused headline (K1). Returns
+    K1's launches."""
+    from spcies_tpu_torch.kernels.fused_admm import fused_admm_solve
+    solver = fused_solver(sp, tile_b=TILE_B, check_every=CHECK_EVERY,
+                          exact_k=True)
+    _, _, inputs = problem(sp, 0, BATCH)
+    assert solver.options.timing
+    solver(*inputs)                      # warm: the kernel is loaded
+    orig = solver.raw_fn
+    brackets = []
+
+    def bracketed(*a):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = orig(*a)
+        e1.record()
+        brackets.append((e0, e1))
+        return out
+
+    rows = []
+    fused_admm_solve.launches = 0
+    try:
+        solver.raw_fn = bracketed
+        for _ in range(3):
+            torch.cuda.synchronize()
+            with SyncCounter() as sc:
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+                timed = solver(*inputs)
+                e1.record()
+            torch.cuda.synchronize()
+            assert sc.at_finish == [0] and sc.calls == 1, (sc.at_finish,
+                                                          sc.calls)
+            t = timed.sol["times_ms"]
+            call_ms = e0.elapsed_time(e1)
+            solve_ms = brackets[-1][0].elapsed_time(brackets[-1][1])
+            rows.append(dict(times_ms=t, bracket_solve_ms=solve_ms,
+                             bracket_call_ms=call_ms))
+            assert within(t["solve"], solve_ms), rows[-1]
+            assert within(t["run"], call_ms), rows[-1]
+    finally:
+        solver.raw_fn = orig
+    solver.options.timing = False
+    with SyncCounter() as sc:
+        untimed = solver(*inputs)
+    torch.cuda.synchronize()
+    assert sc.calls == 0 and sc.at_finish == [], (sc.calls, sc.at_finish)
+    assert "times_ms" not in untimed.sol
+    same_bits(untimed, timed, "phase 23 (d) timing off")
+    n = fused_admm_solve.launches
+    assert n == 4, n
+    log(f"phase 23 (d) the phase timer at the headline (B={BATCH}, K1): "
+        f"solve and run within {TIMER_REL:.0%} or {TIMER_ABS} ms of the "
+        f"outside CUDA-event brackets of the solve and the call; no "
+        f"synchronize before finish(), one at it, none with timing off, "
+        f"the same bits: {json.dumps(rows)}")
+    return n
+
+
+def surface_first_request():
+    """Phase 23 (e): in a fresh process the headline's first request
+    against warm ones; in another its cProfile. Returns K1's launches."""
+    (timing,) = run_children(CHILD_FIRST, [((), {})])
+    (profiled,) = run_children(CHILD_FIRST, [(("profile",), {})])
+    for r in (timing, profiled):
+        assert r["launches"] == 1 + WARM_REQUESTS, r
+    warm_update = float(np.median([w["update"] for w in timing["warm"]]))
+    log(f"phase 23 (e) a fresh process, the headline: first request "
+        f"{json.dumps(timing['first'])} (host clock "
+        f"{timing['first_host_ms']:.3f} ms, of it garbage collection "
+        f"{timing['first_gc_ms']:.3f} ms; allocator segments it added "
+        f"{timing['first_segments']}, warm requests "
+        f"{timing['warm_segments']}); warm requests' update median "
+        f"{warm_update:.4f} ms (first / warm "
+        f"{timing['first']['update'] / warm_update:.2f}x); warm "
+        f"{json.dumps(timing['warm'])}")
+    log("phase 23 (e) cProfile of the first request (another fresh "
+        "process):")
+    for line in profiled["top"].strip().splitlines():
+        log(f"    {line}")
+    return timing["launches"] + profiled["launches"]
+
+
+def phase_port_surface(sp):
+    """Phase 23: the CLI, the examples and entry() on the card, the phase
+    timer on CUDA events at the fused headline, and a fresh process's first
+    request (surface_cli, surface_examples, surface_entry, surface_timer,
+    surface_first_request). Returns K1's launches."""
+    t0 = time.perf_counter()
+    surface_cli(sp)
+    surface_examples()
+    surface_entry()
+    launches = surface_timer(sp) + surface_first_request()
+    log(f"phase 23 K1 launches {launches}; wall "
+        f"{time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def kernel_entry(name, launches, err, times, wide=None):
     """One kernel's entry of the `kernels` line, with its wide widths'
     times and bounds (phase 17) under "wide"."""
@@ -3179,11 +3476,12 @@ def main():
     auto_launches = phase_long(sp)
     scale_launches = phase_scale_out(sp)
     phase_embedded_c(sp)
+    surface_launches = phase_port_surface(sp)
     log(json.dumps({"kernels": [
         kernel_entry("fused_admm", launches + fam_launches["fused_admm"]
                      + mpct_launches["fused_admm"] + roll_launches
                      + auto_launches["fused_admm"]
-                     + scale_launches["fused_admm"],
+                     + scale_launches["fused_admm"] + surface_launches,
                      max(head["u_err"], *(r["u_err"] for r in wide.values()
                                           if "u_err" in r)),
                      times, wide),

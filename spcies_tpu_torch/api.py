@@ -26,6 +26,10 @@ import torch
 from spcies_tpu_torch.config import Options, default_options
 
 
+# the numpy dtype a host input is cast to before it is placed
+_NUMPY_DTYPES = {torch.float32: np.float32, torch.float64: np.float64}
+
+
 def broadcast_inputs(dtype, device, *arrays, core_ndims=None):
     """Promote per-call inputs to batched [B, ...] tensors on `device`;
     single problems (core-rank inputs) get a singleton batch dim. All
@@ -35,9 +39,17 @@ def broadcast_inputs(dtype, device, *arrays, core_ndims=None):
     matrix inputs like the time-varying solvers' A are rank 2)."""
     if core_ndims is None:
         core_ndims = (1,) * len(arrays)
+    np_dtype = _NUMPY_DTYPES.get(dtype)
     out = []
     B = None
     for a, cnd in zip(arrays, core_ndims):
+        if np_dtype is not None and not torch.is_tensor(a):
+            # host data is cast by numpy, then copied: the same bits as
+            # torch's cast inside the copy, which took 5-20 ms a call on
+            # a card's first few requests (PERF.md, section 6);
+            # silent on overflow to inf, as torch's cast is
+            with np.errstate(over="ignore"):
+                a = np.asarray(a, dtype=np_dtype)
         a = torch.as_tensor(a, dtype=dtype, device=device)
         if a.ndim == cnd:
             a = a[None]
@@ -170,8 +182,9 @@ class BatchedSolver:
     def __call__(self, *inputs, init=None, fixed_iters=None):
         # Phase timing (Options.timing, the reference's MEASURE_TIME
         # contract: update/solve/polish/run ms stamps around the solve —
-        # snippets/get_elapsed_time.c:12-15, docs/timing.md). On CUDA each
-        # mark synchronises the device first.
+        # snippets/get_elapsed_time.c:12-15, docs_torch/timing.md). On CUDA
+        # each mark records an event on the current stream, and finish()
+        # waits once, so a timed request returns finished work.
         timer = None
         if self.options.timing:
             from spcies_tpu_torch.diagnostics.timing import PhaseTimer

@@ -1,5 +1,10 @@
 """Entry points of the port beside make_solver.
 
+entry() returns (fn, args): the flagship's batched solve step
+(laxMPC-ADMM on the oscillating masses, N=10, B=256, 10 fixed iterations)
+and its inputs on the card, the port of the JAX package's
+`__graft_entry__.entry`.
+
 dryrun_multichip(n) runs the scale-out paths of the JAX package's
 `__graft_entry__.dryrun_multichip` over an n-entry mesh: a fixed-iteration
 sharded solve with its metrics reduced, a per-shard solve of the dense
@@ -20,12 +25,41 @@ from spcies_tpu_torch.systems import tester_fixture
 
 
 def _flagship_batch(st, batch: int, seed: int):
-    """The flagship's inputs: the fixture's state scaled per lane by a
-    uniform factor in [-2, 2] drawn from `seed`."""
+    """The flagship's inputs, fp64 numpy: the fixture's state scaled per
+    lane by a uniform factor in [-2, 2] drawn from `seed`."""
     rng = np.random.default_rng(seed)
     x0 = np.asarray(st["x"])[None, :] * rng.uniform(-2, 2, (batch, 1))
-    return (x0.astype(np.float32), np.tile(st["xr"], (batch, 1)),
+    return (x0, np.tile(st["xr"], (batch, 1)),
             np.tile(st["ur"], (batch, 1)))
+
+
+def _flagship(batch: int, dtype_str: str = "float32", N: int = 10,
+              device="cuda"):
+    """The flagship solver (laxMPC-ADMM, rho 15, tol 1e-4, k_max 1000, the
+    dense backend, `dtype_str` precision, on `device`) and its inputs from
+    seed 0, placed on the solver's device in its dtype."""
+    sys_, param, st = tester_fixture()
+    opts = default_options("laxMPC", "ADMM", rho=15.0, tol=1e-4,
+                           k_max=1000)
+    opts.precision = "double" if dtype_str == "float64" else "float"
+    solver = make_solver(sys_, dict(param, N=N), formulation="laxMPC",
+                         method="ADMM", options=opts, device=device)
+    args = tuple(torch.as_tensor(a, dtype=solver.dtype, device=solver.device)
+                 for a in _flagship_batch(st, batch, 0))
+    return solver, args
+
+
+def entry(device="cuda"):
+    """The flagship's batched solve step, one device: (fn, args) with
+    fn(x0, xr, ur) the solver's raw solve at 10 fixed iterations and args
+    256 lanes on `device` (the card by default; RuntimeError without
+    one)."""
+    solver, args = _flagship(batch=256, device=device)
+
+    def fn(x0, xr, ur):
+        return solver.raw_fn(x0, xr, ur, None, 10)
+
+    return fn, args
 
 
 def dryrun_multichip(n_devices: int, devices=None) -> dict:

@@ -155,8 +155,8 @@ class ShardedSolve:
     becomes the list of the shards' entries.
 
     Every shard's solve is enqueued before any output is gathered, so
-    shards on distinct cards run at once; options.timing synchronises
-    each shard's card at its marks, which serialises them. No
+    shards on distinct cards run at once; options.timing waits for each
+    shard's work at the end of its call, which serialises them. No
     torch.distributed collective is called here."""
 
     def __init__(self, solver, mesh: Mesh):
