@@ -92,7 +92,8 @@ started together), then
      K7 for HMPC-ADMM-split and HMPC-SADMM-split (rho 5, sigma 5, k_max
      4000, exact-k with check_every 8, tile_b 256) at B=8192, and at
      B=4096 checked, free-run, capped and with use_soc; held together as in
-     1, and K6's builds to each other as K5's in 10;
+     1, and each kernel's builds to each other as K5's in 10 (K7's 8-, 16-
+     and 32-lane builds also without refill, which it takes in every mode);
  14. drives the four HMPC paths through make_solver(..., backend="fused")
      with the device left to its default, as in 11;
  15. times K6 and K7, their plain versions and the fp32 dense engines at
@@ -237,6 +238,7 @@ import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from contextlib import contextmanager, nullcontext
 from pathlib import Path
 
 import numpy as np
@@ -427,26 +429,46 @@ def check_agreement(name, a, phase=1):
     assert a["u_err"] <= U_TOL, (name, a["u_err"])
 
 
-def check_lanes_bitwise(solve, args, kk, B, name, phase=1):
-    """Run a kernel whose wrapper takes `lanes=` (K1, K5, K6) at every
-    number of lanes a block whose build takes this shape, and hold the
-    builds to the 8-lane one bit for bit: every output (iterates, k,
-    e_flag, residuals) equal on every lane."""
+@contextmanager
+def without_refill():
+    """kernels/stage.py plans every launch without refill while the
+    context lasts (a check of bits: each block keeps its L lanes)."""
+    from spcies_tpu_torch.kernels import stage
+    plan = stage.plan
+    stage.plan = lambda *a, refill, **kw: plan(*a, refill=False, **kw)
+    try:
+        yield
+    finally:
+        stage.plan = plan
+
+
+def check_lanes_bitwise(solve, args, kk, B, name, phase=1, refill=False):
+    """Run a kernel whose wrapper takes `lanes=` (K1, K5-K7) at every
+    number of lanes a block whose build takes this shape (with `refill`,
+    each also planned without refill: K7, which refills in every mode), and
+    hold the builds to the first one, 8 lanes a block as planned, bit for
+    bit: every output (iterates, k, e_flag, residuals) equal on every
+    lane."""
     outs = {}
-    for L in (8, 16, 32):
+    for L, plain_blocks in [(L, off) for off in (False, True)[:1 + refill]
+                            for L in (8, 16, 32)]:
         try:
-            outs[L] = solve(*args, **kk, lanes=L)
+            with without_refill() if plain_blocks else nullcontext():
+                out = solve(*args, **kk, lanes=L)
         except ValueError as e:     # no build of L lanes takes the shape
             if "no build" not in str(e):
                 raise
             continue
-        assert solve.last_plan["lanes"] == L
+        plan = solve.last_plan
+        assert plan["lanes"] == L
+        outs[f"{L}" + (f" refill={plan['refill']}" if refill else "")] = out
     torch.cuda.synchronize()
-    assert 8 in outs and len(outs) > 1, list(outs)
-    for L, out in outs.items():
+    first = next(iter(outs.values()))
+    assert len(outs) > 1 and next(iter(outs)).startswith("8"), list(outs)
+    for key, out in outs.items():
         same = all(bool(torch.equal(a[:B], b[:B]))
-                   for a, b in zip(out, outs[8]))
-        assert same, (name, L)
+                   for a, b in zip(out, first))
+        assert same, (name, key)
     log(f"phase {phase} {name}: builds {list(outs)} bit-identical")
 
 
@@ -1267,8 +1289,10 @@ def phase_ellip_times(sp):
                 f"{json.dumps(iterations(k, kern))} bound={bound}")
             log(f"phase 12 {name} times (ms per B={B} solve, CUDA events): "
                 + json.dumps(t))
+            it = iterations(k, kern)
             out[(name, B)] = dict({key: min(v) for key, v in t.items()},
-                                  bound=bound)
+                                  bound=bound, lanes=it["lanes"],
+                                  refill=it["refill"])
     return out
 
 
@@ -1377,8 +1401,8 @@ def hmpc_modes():
 
 def phase_hmpc_kernel_vs_plain(sp):
     """K6 and K7 against their plain versions on the same CUDA tensors, and
-    K6's builds against each other. Returns the largest u error of each
-    kernel over its modes."""
+    each kernel's builds against each other (K7's also without refill).
+    Returns the largest u error of each kernel over its modes."""
     u_err = {"fused_hmpc": 0.0, "fused_split": 0.0}
     for name, label, B, cut, kw in hmpc_modes():
         solver = hmpc_solver(sp, name, device=DEVICE, **kw)
@@ -1392,8 +1416,8 @@ def phase_hmpc_kernel_vs_plain(sp):
         check_agreement(f"{name} {label}", a, phase=13)
         if cut:
             assert bool((out_k[3][:B] == 19).all()), "capped k"
-        if key == "fused_hmpc":
-            check_lanes_bitwise(kern, args, kk, B, f"{name} {label}", 13)
+        check_lanes_bitwise(kern, args, kk, B, f"{name} {label}", 13,
+                            refill=key == "fused_split")
         u_err[key] = max(u_err[key], a["u_err"])
     return u_err
 
@@ -1521,8 +1545,10 @@ def phase_hmpc_times(sp):
                 f"{json.dumps(iterations(k, kern))} bound={bound}")
             log(f"phase 15 {name} times (ms per B={B} solve, CUDA events): "
                 + json.dumps(t))
+            it = iterations(k, kern)
             out[(name, B)] = dict({key: min(v) for key, v in t.items()},
-                                  bound=bound)
+                                  bound=bound, lanes=it["lanes"],
+                                  refill=it["refill"])
     return out
 
 # phase 16: the closed-loop rollout at the bench's closed-loop settings
@@ -2037,8 +2063,7 @@ def phase_off_fixture(sp):
                 what = f"{name} {fam} {label} {mode}"
                 check_agreement(what, a, phase=18)
                 log(f"phase 18 {what}: plan {json.dumps(plan)}")
-                if key != "fused_split":    # K7 has one build
-                    check_lanes_bitwise(kern, args, kk, OFF_B, what, 18)
+                check_lanes_bitwise(kern, args, kk, OFF_B, what, 18)
 
 
 # phase 19: the banded backends and the time-varying mode (ROADMAP queue 1
@@ -3423,6 +3448,9 @@ def kernel_entry(name, launches, err, times, wide=None):
              "max_abs_err": err, "ms": times["kernel"],
              "plain_ms": times["plain"], "bound_ms": bound_ms,
              "bound_by": bound_by, "library_ms": None}
+    for key in ("lanes", "refill"):     # the launch's build (K6, K7)
+        if key in times:
+            entry[key] = times[key]
     if "bf16" in times:
         entry.update(bf16_ms=times["bf16"]["kernel"],
                      bf16_plain_ms=times["bf16"]["plain"],

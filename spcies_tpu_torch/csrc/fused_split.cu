@@ -1,5 +1,6 @@
 // Fused two-block split (S)ADMM for HMPC-ADMM-split and HMPC-SADMM-split on
-// NVIDIA Hopper (sm_90a), written by hand.
+// NVIDIA Hopper (sm_90a), written by hand, on the product stage
+// csrc/tile_product.cuh.
 //
 // Replaces the Pallas TPU kernel
 // spcies_tpu/kernels/fused_split.py::_fused_split_kernel. It computes what
@@ -22,53 +23,63 @@
 //
 // until the lane meets tol or k_max (alpha = 1 for ADMM). The wrapper and
 // the plain PyTorch version of every mode are in kernels/fused_split.py.
+// The one-column-per-thread kernel this design replaced is
+// csrc/variants/fused_split_parent.cu (tools/ab_kernels.py holds every build
+// to it, bit for bit).
 //
-// This is K5's kernel (csrc/fused_soc.cu) with four changes: the alpha
-// half-step, alpha in the dual update, a clip with per-column bounds on
-// every column that is not a cone's (the z slab with the harmonic
-// references free at +-3e38, the s slab's box rows in output mode), and
-// a projection of cones in place of one SOC.
+// Layout. A block of P threads (320 at N=30: z 258 -> 288, one warp of 8
+// cones) holds L = 8, 16 or 32 lanes (kernels/stage.py plan); the leaves
+// aux, zs and lm [P][L] and dq [P][L + 4] lie in shared memory (the layouts
+// of csrc/tile_product.cuh), on the stage's engine tp::TileEngine. An
+// iteration is
+//   1. thread j forms zs, lm and dq of column j for the L lanes, 8 at a
+//      time: SADMM's half-step, the clip on the head columns (the harmonic
+//      references free at +-3e38, the s slab's box rows in output mode) and
+//      alpha in the dual update. The cones lie in whole warps from column
+//      cone0, g <= 10 a warp, cone c's y0, y1, y2 at lanes c, g + c, 2g + c.
+//      A cone warp leaves w in its rows of dq, and after a barrier every
+//      thread of the block projects (cone, lane) pairs there, one a thread,
+//      in _proj_ssoc_seg's blended form, as csrc/fused_hmpc.cu does; after a
+//      second barrier the cone warps go on from the result (SP_SPREAD_CONES
+//      0 builds the parent's way, each lane of a cone reading its cone's
+//      entries by shuffles, for a timing script);
+//   2. the product stage: a thread owns 8 lanes x 4 columns of aux (8 x 1
+//      at L = 8), M1''s real rows come through the shared-memory ring
+//      filled by TMA: dq is exactly 0 on the pad columns (iscale = 0 there),
+//      so the product reads only the rows below the z slab's last real
+//      column and from dim_p to the s slab's last real column (282 of 320 at
+//      N=30), found from iscale by each block before its loop. After the
+//      ring's first barrier thread t < L (lane t's keeper) takes lane t's
+//      row maxima and warp 0 publishes the converged lanes;
+//   3. the tile's owner adds acc to aux, except on lanes that are frozen or
+//      end here: a lane's aux stays the one it consumed at exit, the checked
+//      and exact-k modes' output, so no copy of the consumed aux is kept.
+// Each L has its own build (Build below: rows a slab, blocks an SM).
 //
-// Layout. One thread block per TB = 8 lanes; one thread per column j of the
-// padded width P (at most 512; 320 at N=30: z 258 -> 288, one warp of 8
-// cones). Thread j owns column j of the four state vectors (aux, the
-// consumed aux, zs, lm) for the block's TB lanes, in shared memory that
-// only thread j touches. The cones lie in whole warps from column cone0, g
-// <= 10 cones a warp, cone c's y0, y1, y2 at lanes c, g + c, 2g + c: each
-// lane of a cone reads its cone's three entries by warp shuffles and
-// computes the projection itself (the three lanes of a cone do the same
-// arithmetic on the same values), in the blended form of the JAX kernel's
-// _proj_ssoc_seg, with no barrier. As in K5, an iteration has one
-// __syncthreads, after the deltas dq are stored to shared memory as
-// [P][TB] (and, at a checked iteration, the warps' row maxima), both
-// double-buffered by iteration parity; then thread j forms
-// aux[b][j] += sum_i dq[b][i] M1'[i][j]. dq is exactly 0 on the pad
-// columns (iscale = 0 there), so the product reads only the real rows:
-// those below the z slab's last real column and from dim_p to the s slab's
-// last real column (282 of 320 at N=30), found from iscale by each block
-// before its loop. Every thread reads the same row maxima after the
-// product, so loop control is uniform across a block; lanes that are done
-// are frozen by a mask and keep all their state. Up to 320 columns the
-// kernel is compiled for three blocks an SM (at most 64 registers, 444
-// bytes of spills), which at N=30 on an NVIDIA H100 ran faster than two
-// blocks, as K5 is compiled (96 registers), or one (tools/ab_kernels.py;
-// the times are in PERF.md, K7).
+// Refill in every mode (csrc/tile_product.cuh, Refill): persistent blocks
+// whose 8-lane slots take the next group of 8 lanes from a queue once
+// their group has ended. Exact-k opts in to the stage's run_refill_exact:
+// windows with snapshots at each window start, then each block's replay of
+// the groups it ran, in one launch. Built without refill (the wrapper's
+// plan asks for it, for a check of bits), a block keeps its L lanes and
+// exact-k compacts the lanes still running.
 //
-// Bound. Every block re-reads the real rows of M1' (282 x 320 at N=30, 361
-// KB) from L2 on every iteration, for 2 TB FLOP per 4 bytes read; M1' stays
-// in the 50 MB L2. The product is an fmaf chain in row order, unrolled 8
-// deep to keep 8 L2 loads in flight per thread.
+// Bound. 2 (dim + n_s)^2 FLOP an iteration and lane on the CUDA cores; each
+// block re-reads M1''s real rows (282 x 320 at N=30, 361 KB) from L2 once
+// an iteration for its L lanes.
 //
 // Arithmetic. fp32 on the CUDA cores, no TF32. The library is built with
 // -fmad=false, so the element-wise steps (sqrtf and the division included)
-// round as PyTorch's separate operations do; the product uses explicit
-// fmaf.
+// round as PyTorch's separate operations do; the product is an explicit
+// fmaf chain over the rows in ascending order (the z rows, then the s rows),
+// as in the parent, and a cone's projection takes the same values in the
+// same order wherever it runs, so every build gives the parent's bits.
 //
 // Exact-k snapshots. At each window start aux, zs and lm of every lane not
 // yet done go to global scratch (each thread writes, and later reads back,
-// only its own column), and the window start to shared memory; the replay
-// runs each lane's last window with the checked semantics and the budget
-// min(C, k_max - kws), as K1-K5 do.
+// only its own rows), and the window start to global memory (with refill)
+// or shared memory; the replay runs each lane's last window with the
+// checked semantics and the budget min(C, k_max - kws).
 //
 // Padding. Pad columns carry zero rows and columns of M1', [0, 0] bounds
 // and iscale = 0, so they stay exactly 0 (a pad cone slot projects a zero
@@ -77,18 +88,58 @@
 #if !WIDE_PART
 #include <cuda_runtime.h>
 
+#include "tile_product.cuh"
+
+// 1: the cones' projections are spread over the block's threads, one (cone,
+// lane) a thread; 0: each cone warp projects its own cones, lane by lane
+#ifndef SP_SPREAD_CONES
+#define SP_SPREAD_CONES 1
+#endif
+
+// rows a slab of M1' and blocks an SM of each build up to NARROW columns
+// (kernels/fused_split.py BUILDS); a timing script may set others
+#ifndef SP_SLAB_8
+#define SP_SLAB_8 16
+#endif
+#ifndef SP_BLOCKS_8
+#define SP_BLOCKS_8 2
+#endif
+#ifndef SP_SLAB_16
+#define SP_SLAB_16 8
+#endif
+#ifndef SP_BLOCKS_16
+#define SP_BLOCKS_16 2
+#endif
+#ifndef SP_SLAB_32
+#define SP_SLAB_32 16
+#endif
+#ifndef SP_BLOCKS_32
+#define SP_BLOCKS_32 1
+#endif
+
 namespace {
 
-constexpr int TB = 8;          // lanes per block (CTA_LANES in the wrapper)
 constexpr int MAX_COLS = 512;  // threads per block, one per column
-constexpr int NARROW = 320;    // up to this width, three blocks an SM
+constexpr int NARROW = 320;    // up to this width the builds of Build<L>
+constexpr int WIDE_SLAB = 16;  // rows a slab above NARROW (8 and 16 lanes)
 constexpr int MAX_G = 10;      // cones a warp (MAX_CONES_PER_WARP)
 constexpr int NSNAP = 3;       // snapshot leaves (SNAP_LEAVES in the wrapper)
-constexpr int UNROLL = 8;      // L2 loads in flight per thread
-constexpr float RBIG = 3.4e38f;
 constexpr unsigned FULL = 0xffffffffu;
-constexpr unsigned ALL = (1u << TB) - 1u;
-static_assert(TB % 4 == 0, "vectors are moved as float4");
+
+template <int L>
+struct Build;
+template <>
+struct Build<8> {
+  static constexpr int SR = SP_SLAB_8, MINB = SP_BLOCKS_8;
+};
+template <>
+struct Build<16> {
+  static constexpr int SR = SP_SLAB_16, MINB = SP_BLOCKS_16;
+};
+template <>
+struct Build<32> {
+  static constexpr int SR = SP_SLAB_32, MINB = SP_BLOCKS_32;
+};
 
 struct Params {
   const float* __restrict__ aux1;
@@ -106,89 +157,17 @@ struct Params {
   int* done;
   float* rp;
   float* rd;
-  float* snap;  // exact-k: per lane [aux | zs | lm]
+  float* snap;   // exact-k: per lane [aux | zs | lm]
+  int* queue;    // refill: [0] the next group, [1 + b] block b's
+                 // iterations; zeroed by the wrapper
+  int* wk;       // exact-k with refill: [B] window starts, [B / 8] links
+  int n_groups;  // B / 8
   int P, dim_p, cone0, cone_g, symmetric, use_soc;
   float alpha, tol_p, tol_d;
   int k_max, check_every, exact_k;
 };
 
-// Shared memory: the product's input and the warps' row maxima, read by
-// every thread; the state columns, each read and written by its own thread.
-struct Shared {
-  float* dq;     // [2][P][TB]
-  float* red;    // [2][warps][2][TB]
-  float* st[4];  // [P][TB] each, the leaves below
-};
-// the state leaves; the first NSNAP are the snapshot's, in its order
-enum { AUX, ZS, LM, AUXC };  // aux (prepared), zs, lm, the consumed aux
-
-// What thread j knows of its column.
-struct Col {
-  int j;
-  int z_end, s_end;  // the product reads rows [0, z_end) and [dim_p, s_end)
-  int warps;
-  bool cone_warp;    // j in a warp of cones: the warp shuffles
-  bool cone;         // j holds an entry of a cone (lane < 3g)
-  int src, seg;      // the lane of its cone's y0; which entry it holds
-  float lb, ub, scale, iscale;
-};
-
-__device__ __forceinline__ bool bit(unsigned m, int b) {
-  return (m >> b) & 1u;
-}
-
-__device__ __forceinline__ void load(float (&v)[TB], const float* src) {
-  const float4* s4 = reinterpret_cast<const float4*>(src);
-#pragma unroll
-  for (int q = 0; q < TB / 4; ++q) {
-    const float4 a = s4[q];
-    v[4 * q] = a.x;
-    v[4 * q + 1] = a.y;
-    v[4 * q + 2] = a.z;
-    v[4 * q + 3] = a.w;
-  }
-}
-
-__device__ __forceinline__ void store(float* dst, const float (&v)[TB]) {
-  float4* d4 = reinterpret_cast<float4*>(dst);
-#pragma unroll
-  for (int q = 0; q < TB / 4; ++q)
-    d4[q] = make_float4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]);
-}
-
-// The maxima of v[b] over the warp, written to red[warp][slot][b] by the
-// warp's first thread.
-__device__ __forceinline__ void warp_max(float (&v)[TB], float* red, int j,
-                                         int slot) {
-#pragma unroll
-  for (int b = 0; b < TB; ++b) {
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      v[b] = fmaxf(v[b], __shfl_xor_sync(FULL, v[b], off));
-  }
-  if ((j & 31) == 0) store(red + ((j >> 5) * 2 + slot) * TB, v);
-}
-
-// acc[b] += sum_{i0 <= i < i1} dq[i][b] m[i][j], UNROLL L2 loads in flight.
-__device__ __forceinline__ void product(const float* dq_s,
-                                        const float* __restrict__ m, int ld,
-                                        int i0, int i1, int j,
-                                        float (&acc)[TB]) {
-  const float* col = m + j;
-#pragma unroll UNROLL
-  for (int i = i0; i < i1; ++i) {
-    const float w = __ldg(col + static_cast<size_t>(i) * ld);
-    const float4* d4 = reinterpret_cast<const float4*>(dq_s + i * TB);
-#pragma unroll
-    for (int q = 0; q < TB / 4; ++q) {
-      const float4 d = d4[q];
-      acc[4 * q] = fmaf(d.x, w, acc[4 * q]);
-      acc[4 * q + 1] = fmaf(d.y, w, acc[4 * q + 1]);
-      acc[4 * q + 2] = fmaf(d.z, w, acc[4 * q + 2]);
-      acc[4 * q + 3] = fmaf(d.w, w, acc[4 * q + 3]);
-    }
-  }
-}
+using tp::bit;
 
 // Projection onto {||(y1, y2)|| <= a (y0 - dd)}, a in {-1, +1}, in
 // _proj_ssoc_seg's blended form (as csrc/fused_hmpc.cu).
@@ -209,351 +188,305 @@ __device__ __forceinline__ void proj_ssoc(float& y0, float& y1, float& y2,
   y2 = z2;
 }
 
-// One iteration of column j for the block's TB lanes. Lanes in `frozen`
-// keep all their state. With CHECK, returns the lanes whose residuals meet
-// tol (identical in every thread of the block), and thread 0 records the
-// residuals of the lanes in `rmask` in lres.
-template <bool CHECK>
-__device__ __forceinline__ unsigned iterate(const Params& p, const Shared& s,
-                                            const Col& c, int& parity,
-                                            unsigned frozen, unsigned rmask,
-                                            float (&lres)[2][TB]) {
-  const int o = c.j * TB;  // this thread's column in every buffer
-  float* dq_s = s.dq + parity * p.P * TB;
-  float* red = s.red + parity * c.warps * 2 * TB;
-  float aux[TB], zs[TB], lm[TB], lh[TB], zn[TB];
-  load(aux, s.st[AUX] + o);
-  load(zs, s.st[ZS] + o);
-  load(lm, s.st[LM] + o);
-  const float as = p.alpha * c.scale;
-  {
-    float w[TB];
-#pragma unroll
-    for (int b = 0; b < TB; ++b) {
-      lh[b] = p.symmetric ? lm[b] + as * (aux[b] - zs[b]) : lm[b];
-      w[b] = aux[b] + c.iscale * lh[b];
+// The block: the stage's engine over the leaves aux, zs, lm, and what thread
+// j knows of its column.
+template <int L, int TC, int SR>
+struct Engine : tp::TileEngine<L, TC, SR, 3> {
+  static constexpr int G = L / 8;
+  const Params& p;
+  float *aux, *zs, *lm;
+  bool cone_warp;  // j in a warp of cones
+  bool cone;       // j holds an entry of a cone (lane < 3g)
+  int src, seg;    // the lane of its cone's y0; which entry it holds
+  float lb, ub, scale, iscale, as;
+
+  __device__ __forceinline__ Engine(const Params& p_, float* smem,
+                                    int* bounds)
+      : p(p_) {
+    const int j = threadIdx.x;
+    const int P = p.P;
+    this->tid = j;
+    this->T = blockDim.x;
+    this->P = P;
+    this->rwarps = P >> 5;
+    this->lane0 = blockIdx.x * L;
+    this->tol_p = p.tol_p;
+    this->tol_d = p.tol_d;
+    float* a = smem + tp::ring_bytes(P, SR) / 4;
+    aux = a;
+    zs = aux + P * L;
+    lm = zs + P * L;
+    this->dq = lm + P * L;
+    this->red = this->dq + P * (L + tp::DQ_PAD);
+    this->ctrl = reinterpret_cast<unsigned*>(this->red + this->rwarps * 2 * L);
+    this->sn_k = reinterpret_cast<int*>(this->ctrl + 4);
+    this->orig = this->sn_k + L;
+    this->leaf[0] = tp::Leaf{aux, p.aux1, p.aux, P, 0};
+    this->leaf[1] = tp::Leaf{zs, p.zs0, p.zs, P, P};
+    this->leaf[2] = tp::Leaf{lm, p.lm0, p.lm, P, 2 * P};
+    this->snap = p.snap;
+    this->snap_width = NSNAP * P;
+    this->out = tp::LaneOut{p.k, p.done, p.rp, p.rd};
+    scale = p.scale[j];
+    iscale = p.iscale[j];
+    as = p.alpha * scale;
+    lb = p.lb[j];
+    ub = p.ub[j];
+    cone_warp = j >= p.cone0;
+    const int lane = j & 31;
+    cone = cone_warp && lane < 3 * p.cone_g;
+    seg = lane / p.cone_g;
+    src = lane % p.cone_g;
+    // the product's row ranges: [0, z_end) and [dim_p, s_end)
+    if (j == 0) {
+      bounds[0] = 0;
+      bounds[1] = p.dim_p;
     }
-    if (c.cone_warp) {
+    __syncthreads();
+    if (iscale != 0.0f) atomicMax(&bounds[j < p.dim_p ? 0 : 1], j + 1);
+    __syncthreads();
+    tp::ring_init<SR>(this->ring, smem, p.m1p, P, bounds[0], p.dim_p,
+                      bounds[1], j, this->T);
+  }
+
+  // The half-step and w of column j for group g, from its aux, zs, lm.
+  __device__ __forceinline__ void half(const float (&ax)[8],
+                                       const float (&zo)[8],
+                                       const float (&lo)[8], float (&lh)[8],
+                                       float (&w)[8]) const {
 #pragma unroll
-      for (int b = 0; b < TB; ++b) {
-        float y0 = __shfl_sync(FULL, w[b], c.src);
-        float y1 = __shfl_sync(FULL, w[b], c.src + p.cone_g);
-        float y2 = __shfl_sync(FULL, w[b], c.src + 2 * p.cone_g);
-        if (p.use_soc) {
-          proj_ssoc(y0, y1, y2, 1.0f, 0.0f);
-        } else {
-          proj_ssoc(y0, y1, y2, 1.0f, c.lb);
-          proj_ssoc(y0, y1, y2, -1.0f, c.ub);
+    for (int b = 0; b < 8; ++b) {
+      lh[b] = p.symmetric ? lo[b] + as * (ax[b] - zo[b]) : lo[b];
+      w[b] = ax[b] + iscale * lh[b];
+    }
+  }
+
+  // One iteration (tp::run_modes, tp::run_refill, tp::run_refill_exact).
+  // Lanes in `frozen` keep all their state; what `idle` lanes hold is never
+  // read again, and a group of 8 lanes that are all frozen or idle is
+  // skipped; the lanes in `last` (and, with stop, the lanes that converge
+  // here) keep the aux they consumed. With CHECK, the keepers of the lanes
+  // in rmask record their residuals and count kinc iterations, and the
+  // lanes whose residuals meet tol are returned (identical in every thread
+  // of the block).
+  template <bool CHECK>
+  TP_ITERATE unsigned iterate(unsigned frozen, unsigned idle, unsigned last,
+                              bool stop, unsigned rmask, int kinc) {
+    const int j = this->tid;
+    this->tic();
+    const unsigned dead = tp::whole_groups<L>(frozen | idle);
+    if (SP_SPREAD_CONES) {
+      // the cone warps leave w in their rows of dq; every thread projects
+      // (cone, lane) pairs there; the cone warps then go on from the result
+      if (cone_warp) {
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+          if (bit(dead, 8 * g)) continue;
+          float ax[8], zo[8], lo[8], lh[8], w[8];
+          tp::ld8<L>(ax, aux, j, g);
+          tp::ld8<L>(zo, zs, j, g);
+          tp::ld8<L>(lo, lm, j, g);
+          half(ax, zo, lo, lh, w);
+          tp::st8_dq<L>(this->dq, j, g, w);
         }
-        const float v = c.seg == 0 ? y0 : (c.seg == 1 ? y1 : y2);
-        zn[b] = c.cone ? v : fminf(fmaxf(w[b], c.lb), c.ub);
       }
-    } else {
-#pragma unroll
-      for (int b = 0; b < TB; ++b) zn[b] = fminf(fmaxf(w[b], c.lb), c.ub);
+      __syncthreads();
+      project_cones(dead);
+      __syncthreads();
     }
-  }
-  {
-    float dq[TB], ap[TB], ad[TB];
 #pragma unroll
-    for (int b = 0; b < TB; ++b) {
-      const float lmn = lh[b] + as * (aux[b] - zn[b]);
-      const float dd = zn[b] - zs[b];
-      dq[b] = (lmn - lm[b]) - c.scale * dd;
+    for (int g = 0; g < G; ++g) {
+      if (bit(dead, 8 * g)) continue;
+      float ax[8], zo[8], lo[8], lh[8], w[8], zn[8];
+      tp::ld8<L>(ax, aux, j, g);
+      tp::ld8<L>(zo, zs, j, g);
+      tp::ld8<L>(lo, lm, j, g);
+      half(ax, zo, lo, lh, w);
+      if (SP_SPREAD_CONES && cone_warp) {
+        tp::ld8_dq<L>(zn, this->dq, j, g);   // projected, or w off a cone
+        if (!cone) {
+#pragma unroll
+          for (int b = 0; b < 8; ++b) zn[b] = fminf(fmaxf(zn[b], lb), ub);
+        }
+      } else if (!SP_SPREAD_CONES && cone_warp) {
+#pragma unroll
+        for (int b = 0; b < 8; ++b) {
+          float y0 = __shfl_sync(FULL, w[b], src);
+          float y1 = __shfl_sync(FULL, w[b], src + p.cone_g);
+          float y2 = __shfl_sync(FULL, w[b], src + 2 * p.cone_g);
+          project(y0, y1, y2, lb, ub);
+          const float v = seg == 0 ? y0 : (seg == 1 ? y1 : y2);
+          zn[b] = cone ? v : fminf(fmaxf(w[b], lb), ub);
+        }
+      } else {
+#pragma unroll
+        for (int b = 0; b < 8; ++b) zn[b] = fminf(fmaxf(w[b], lb), ub);
+      }
+      float d[8], ap[8], ad[8];
+#pragma unroll
+      for (int b = 0; b < 8; ++b) {
+        const float lmn = lh[b] + as * (ax[b] - zn[b]);
+        const float dd = zn[b] - zo[b];
+        d[b] = (lmn - lo[b]) - scale * dd;
+        if (CHECK) {
+          ap[b] = fabsf(ax[b] - zn[b]);
+          ad[b] = fabsf(dd);
+        }
+        if (!bit(frozen, g * 8 + b)) {
+          lo[b] = lmn;
+          zo[b] = zn[b];
+        }
+      }
+      tp::st8_dq<L>(this->dq, j, g, d);
+      tp::st8<L>(zs, j, g, zo);
+      tp::st8<L>(lm, j, g, lo);
       if (CHECK) {
-        ap[b] = fabsf(aux[b] - zn[b]);
-        ad[b] = fabsf(dd);
-      }
-      if (!bit(frozen, b)) {
-        lm[b] = lmn;
-        zs[b] = zn[b];
+        tp::warp_max<L>(ap, this->red, j, 0, g);
+        tp::warp_max<L>(ad, this->red, j, 1, g);
       }
     }
-    store(dq_s + o, dq);
-    store(s.st[ZS] + o, zs);
-    store(s.st[LM] + o, lm);
-    if (CHECK) {
-      warp_max(ap, red, c.j, 0);
-      warp_max(ad, red, c.j, 1);
-    }
+    return this->template product_half<CHECK>(dead, frozen, last, stop,
+                                              rmask, kinc);
   }
-  __syncthreads();
-  float acc[TB];
-#pragma unroll
-  for (int b = 0; b < TB; ++b) acc[b] = 0.0f;
-  product(dq_s, p.m1p, p.P, 0, c.z_end, c.j, acc);
-  product(dq_s, p.m1p, p.P, p.dim_p, c.s_end, c.j, acc);
-  {
-    float ac[TB];
-    load(ac, s.st[AUXC] + o);
-#pragma unroll
-    for (int b = 0; b < TB; ++b) {
-      if (!bit(frozen, b)) {
-        ac[b] = aux[b];
-        aux[b] = aux[b] + acc[b];
-      }
-    }
-    store(s.st[AUX] + o, aux);
-    store(s.st[AUXC] + o, ac);
-  }
-  parity ^= 1;
-  unsigned conv = 0;
-  if (CHECK) {
-    float rs[2][TB];
-#pragma unroll
-    for (int b = 0; b < TB; ++b) {
-      rs[0][b] = 0.0f;
-      rs[1][b] = 0.0f;
-    }
-    for (int w = 0; w < c.warps; ++w) {
-#pragma unroll
-      for (int q = 0; q < 2; ++q) {
-        float m[TB];
-        load(m, red + (w * 2 + q) * TB);
-#pragma unroll
-        for (int b = 0; b < TB; ++b) rs[q][b] = fmaxf(rs[q][b], m[b]);
-      }
-    }
-#pragma unroll
-    for (int b = 0; b < TB; ++b) {
-      if (rs[0][b] <= p.tol_p && rs[1][b] <= p.tol_d) conv |= 1u << b;
-      if (c.j == 0 && bit(rmask, b)) {
-        lres[0][b] = rs[0][b];
-        lres[1][b] = rs[1][b];
-      }
-    }
-  }
-  return conv;
-}
 
-// Copy this thread's column of aux, zs and lm between shared memory and the
-// per-lane [aux | zs | lm] layout in global memory, for the lanes in
-// `lanes`. TO_GLOBAL selects the direction.
-template <bool TO_GLOBAL>
-__device__ __forceinline__ void snapshot(const Params& p, const Shared& s,
-                                         int j, int lane0, unsigned lanes) {
-#pragma unroll
-  for (int l = 0; l < NSNAP; ++l) {
-#pragma unroll
-    for (int b = 0; b < TB; ++b) {
-      if (!bit(lanes, b)) continue;
-      float* g = p.snap + static_cast<size_t>(lane0 + b) * NSNAP * p.P +
-                 l * p.P + j;
-      float* sh = s.st[l] + j * TB + b;
-      if (TO_GLOBAL)
-        *g = *sh;
-      else
-        *sh = *g;
+  // SOC, or the diamond with the cone's D-set bounds lb, ub
+  __device__ __forceinline__ void project(float& y0, float& y1, float& y2,
+                                          float lo_, float hi_) const {
+    if (p.use_soc) {
+      proj_ssoc(y0, y1, y2, 1.0f, 0.0f);
+    } else {
+      proj_ssoc(y0, y1, y2, 1.0f, lo_);
+      proj_ssoc(y0, y1, y2, -1.0f, hi_);
     }
   }
-}
 
-template <int MAXT, int MINB>
+  // Every (cone, lane) pair of the groups not in `dead`, one a thread: the
+  // cone's (y0, y1, y2) in its three rows of dq, projected in place; the
+  // bounds are those of the cone's y0 column, which its three columns
+  // share.
+  __device__ __forceinline__ void project_cones(unsigned dead) {
+    const int slots = ((p.P - p.cone0) >> 5) * p.cone_g;
+    for (int t = this->tid; t < slots * L; t += this->T) {
+      const int b = t % L;
+      if (bit(dead, b)) continue;
+      const int c = t / L;
+      const int c0 = p.cone0 + 32 * (c / p.cone_g) + c % p.cone_g;
+      float* w0 = this->dq + c0 * (L + tp::DQ_PAD) + b;
+      float* w1 = w0 + p.cone_g * (L + tp::DQ_PAD);
+      float* w2 = w1 + p.cone_g * (L + tp::DQ_PAD);
+      float y0 = *w0, y1 = *w1, y2 = *w2;
+      project(y0, y1, y2, __ldg(p.lb + c0), __ldg(p.ub + c0));
+      *w0 = y0;
+      *w1 = y1;
+      *w2 = y2;
+    }
+  }
+};
+
+template <int L, int TC, int MAXT, int MINB, int SR, bool REFILL, bool EXACT>
 __global__ void __launch_bounds__(MAXT, MINB) fused_split_kernel(Params p) {
   extern __shared__ __align__(16) float smem[];
-  __shared__ int sn_k[TB];       // exact-k: each lane's window start
-  __shared__ float lres[2][TB];  // thread 0's residuals of each lane
-  __shared__ int bounds[2];      // z_end, s_end
-  const int P = p.P;
-  const int j = threadIdx.x;
-  Shared s;
-  s.dq = smem;
-  s.red = smem + 2 * P * TB;
-  {
-    float* a = s.red + 2 * (P / 32) * 2 * TB;
-    for (int l = 0; l < 4; ++l, a += P * TB) s.st[l] = a;
-  }
-  Col c;
-  c.j = j;
-  c.warps = P >> 5;
-  c.scale = p.scale[j];
-  c.iscale = p.iscale[j];
-  c.lb = p.lb[j];
-  c.ub = p.ub[j];
-  c.cone_warp = j >= p.cone0;
-  {
-    const int lane = j & 31;
-    c.cone = c.cone_warp && lane < 3 * p.cone_g;
-    c.seg = lane / p.cone_g;
-    c.src = lane % p.cone_g;
-  }
-  if (j == 0) {
-    bounds[0] = 0;
-    bounds[1] = p.dim_p;
-#pragma unroll
-    for (int b = 0; b < TB; ++b) {
-      lres[0][b] = RBIG;
-      lres[1][b] = RBIG;
-    }
-  }
-  __syncthreads();
-  if (c.iscale != 0.0f) atomicMax(&bounds[j < p.dim_p ? 0 : 1], j + 1);
-  __syncthreads();
-  c.z_end = bounds[0];
-  c.s_end = bounds[1];
-  const int lane0 = blockIdx.x * TB;
-  const int o = j * TB;
-  {
-    float aux[TB], zs[TB], lm[TB];
-#pragma unroll
-    for (int b = 0; b < TB; ++b) {
-      const size_t g = static_cast<size_t>(lane0 + b) * P + j;
-      aux[b] = p.aux1[g];
-      zs[b] = p.zs0[g];
-      lm[b] = p.lm0[g];
-    }
-    store(s.st[AUX] + o, aux);
-    store(s.st[AUXC] + o, aux);
-    store(s.st[ZS] + o, zs);
-    store(s.st[LM] + o, lm);
-  }
-  int parity = 0;
-  unsigned done = 0;
-  int k[TB];
-#pragma unroll
-  for (int b = 0; b < TB; ++b) k[b] = 0;
-  const int C = p.check_every;
-  int aout = AUXC;  // the leaf written out as aux: the consumed aux ...
-
-  if (C > 1 && p.exact_k) {
-    // free-run windows of C iterations; snapshot every still-active lane
-    // at each window start, so the window a lane converges in can be
-    // replayed with per-iteration checks once the block has drained.
-    // Windows may overshoot k_max: the replay budget cuts each lane off at
-    // exactly k_max.
-    for (int it = 0; it < p.k_max && done != ALL; it += C) {
-      snapshot<true>(p, s, j, lane0, ~done & ALL);
-      if (j == 0) {
-#pragma unroll
-        for (int b = 0; b < TB; ++b)
-          if (!bit(done, b)) sn_k[b] = it;
-      }
-      for (int f = 0; f < C - 1; ++f)
-        iterate<false>(p, s, c, parity, 0u, 0u, lres);
-      done |= iterate<true>(p, s, c, parity, 0u, 0u, lres);
-    }
-    __syncthreads();  // the window starts, written by thread 0
-    // replay each lane's last window from its snapshot with per-iteration
-    // checks: k counts on from the window start
-    snapshot<false>(p, s, j, lane0, ALL);
-    {
-      float aux[TB];
-      load(aux, s.st[AUX] + o);
-      store(s.st[AUXC] + o, aux);
-    }
-    int budget[TB];
-#pragma unroll
-    for (int b = 0; b < TB; ++b) {
-      k[b] = sn_k[b];
-      budget[b] = min(C, p.k_max - k[b]);
-    }
-    unsigned convd = 0;
-    for (int w = 0; w < C; ++w) {
-      unsigned frozen = convd;
-#pragma unroll
-      for (int b = 0; b < TB; ++b)
-        if (w >= budget[b]) frozen |= 1u << b;
-      if (frozen == ALL) break;
-      const unsigned conv =
-          iterate<true>(p, s, c, parity, frozen, ~frozen & ALL, lres);
-#pragma unroll
-      for (int b = 0; b < TB; ++b)
-        if (!bit(frozen, b)) ++k[b];
-      convd |= conv & ~frozen;
-    }
-    done = convd;
-  } else if (C > 1) {
-    // free-run: C-1 plain iterations, then one checked iteration; every
-    // lane keeps iterating until the block's lanes are all done, k is
-    // recorded at check granularity, and a done lane's residuals stay at
-    // its exit
-    for (int it = 0; it < p.k_max && done != ALL;) {
-      const int n_fast = min(C - 1, p.k_max - 1 - it);
-      for (int f = 0; f < n_fast; ++f)
-        iterate<false>(p, s, c, parity, 0u, 0u, lres);
-      const unsigned conv =
-          iterate<true>(p, s, c, parity, 0u, ~done & ALL, lres);
-#pragma unroll
-      for (int b = 0; b < TB; ++b)
-        if (!bit(done, b)) k[b] += n_fast + 1;
-      done |= conv;
-      it += n_fast + 1;
-    }
-    aout = AUX;  // ... but the prepared one in free-run
-  } else {
-    // checked: exit tests every iteration; a converged lane freezes and
-    // keeps the aux it consumed at exit
-    for (int it = 0; it < p.k_max && done != ALL; ++it) {
-      const unsigned conv =
-          iterate<true>(p, s, c, parity, done, ~done & ALL, lres);
-#pragma unroll
-      for (int b = 0; b < TB; ++b)
-        if (!bit(done, b)) ++k[b];
-      done |= conv;
-    }
-  }
-
-  {
-    const int leaves[3] = {ZS, LM, aout};
-    float* outs[3] = {p.zs, p.lm, p.aux};
-#pragma unroll
-    for (int l = 0; l < 3; ++l) {
-      float x[TB];
-      load(x, s.st[leaves[l]] + o);
-#pragma unroll
-      for (int b = 0; b < TB; ++b)
-        outs[l][static_cast<size_t>(lane0 + b) * P + j] = x[b];
-    }
-  }
-  if (j == 0) {
-#pragma unroll
-    for (int b = 0; b < TB; ++b) {
-      p.k[lane0 + b] = k[b];
-      p.done[lane0 + b] = bit(done, b) ? 1 : 0;
-      p.rp[lane0 + b] = lres[0][b];
-      p.rd[lane0 + b] = lres[1][b];
-    }
-  }
+  __shared__ int bounds[2];  // z_end, s_end
+  Engine<L, TC, SR> e(p, smem, bounds);
+  tp::run_lanes<L, REFILL, EXACT>(e, p.k_max, p.check_every, p.exact_k,
+                                  p.n_groups, p.queue, 0, p.wk);
 }
 
-}  // namespace
+// Rows a slab of the build that runs `width` threads at `lanes` lanes.
+int slab_rows(int width, int lanes) {
+  if (width > NARROW) return WIDE_SLAB;
+  return lanes == 8 ? Build<8>::SR : lanes == 16 ? Build<16>::SR
+                                                 : Build<32>::SR;
+}
 
-// Launch on `stream` (a cudaStream_t). The geometry comes from the wrapper
-// (kernels/fused_split.py launch_geometry) and is checked here again.
-// Returns the CUDA error of the launch, as an int.
-extern "C" int fused_split_launch(
-    const float* aux1, const float* zs0, const float* lm0, const float* m1p,
-    const float* lb, const float* ub, const float* scale,
-    const float* iscale, float* zs, float* lm, float* aux, int* k,
-    int* done, float* rp, float* rd, float* snap, int B, int P, int dim_p,
-    int cone0, int cone_g, int symmetric, int use_soc, int blocks,
-    int threads, int smem, float alpha, float tol_p, float tol_d, int k_max,
-    int check_every, int exact_k, void* stream) {
-  const long need = 4L * TB * (6L * P + 4L * (P / 32));
-  const bool exact = check_every > 1 && exact_k;
-  if (P <= 0 || P % 32 != 0 || P > MAX_COLS || dim_p <= 0 ||
-      dim_p % 32 != 0 || cone0 < dim_p || cone0 % 32 != 0 || cone0 >= P ||
-      cone_g < 1 || cone_g > MAX_G || B % TB != 0 || blocks != B / TB ||
-      threads != P ||
-      smem != need || check_every < 1 || k_max < 1 ||
-      (exact && B > 0 && snap == nullptr))
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (B == 0) return 0;
-  // up to NARROW columns, compiled for three blocks an SM (at most 64
-  // registers a thread), wider for one block of up to MAX_COLS threads
-  void (*kernel)(Params) = P <= NARROW ? fused_split_kernel<NARROW, 3>
-                                       : fused_split_kernel<MAX_COLS, 1>;
+template <int L, bool REFILL, bool EXACT>
+int launch(const Params& p, int blocks, int threads, int smem, void* stream) {
+  // up to NARROW columns the build of Build<L>; wider, one block of up to
+  // MAX_COLS threads an SM (not at 32 lanes: its state does not fit)
+  constexpr int TC = tp::tile_cols<L>();
+  void (*kernel)(Params) = nullptr;
+  if (threads <= NARROW)
+    kernel = fused_split_kernel<L, TC, NARROW, Build<L>::MINB, Build<L>::SR,
+                                REFILL, EXACT>;
+  else if constexpr (L < 32)
+    kernel = fused_split_kernel<L, TC, MAX_COLS, 1, WIDE_SLAB, REFILL,
+                                EXACT>;
+  if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  Params p{aux1,  zs0,   lm0,    m1p,       lb,      ub,    scale, iscale,
-           zs,    lm,    aux,    k,         done,    rp,    rd,    snap,
-           P,     dim_p, cone0,  cone_g,    symmetric, use_soc, alpha,
-           tol_p, tol_d, k_max,  check_every, exact_k};
   kernel<<<blocks, threads, smem, static_cast<cudaStream_t>(stream)>>>(p);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The build of `lanes` lanes a block, with refill or without; exact-k
+// refills through the stage's run_refill_exact.
+template <int L>
+int launch_lanes(const Params& p, bool refill, bool exact, int blocks,
+                 int threads, int smem, void* stream) {
+  if (!refill) return launch<L, false, false>(p, blocks, threads, smem, stream);
+  if (exact) return launch<L, true, true>(p, blocks, threads, smem, stream);
+  return launch<L, true, false>(p, blocks, threads, smem, stream);
+}
+
+}  // namespace
+
+// Dynamic shared bytes at `lanes` lanes a block (kernels/fused_split.py
+// shared_bytes computes the same): the ring of M1''s slabs, aux, zs and lm
+// as [P][lanes], dq with its padding, the warps' row maxima, the masks, the
+// window starts and the slots' lanes.
+extern "C" long fused_split_smem(int P, int lanes) {
+  return tp::ring_bytes(P, slab_rows(P, lanes)) +
+         4L * (3L * P * lanes + P * (lanes + static_cast<long>(tp::DQ_PAD)) +
+               (P / 32) * 2L * lanes + 4 + 2L * lanes);
+}
+
+// Launch on `stream` (a cudaStream_t). The geometry comes from the wrapper
+// (kernels/fused_split.py launch_plan) and is checked here again: with
+// refill any number of persistent blocks up to one per L lanes, and `queue`
+// 1 + 3 blocks int32 zeros (and, in exact-k, `wk` B + B / 8 int32); else
+// B / lanes blocks. Returns the CUDA error of the launch, as an int.
+extern "C" int fused_split_launch(
+    const float* aux1, const float* zs0, const float* lm0, const float* m1p,
+    const float* lb, const float* ub, const float* scale,
+    const float* iscale, float* zs, float* lm, float* aux, int* k,
+    int* done, float* rp, float* rd, float* snap, int* queue, int* wk,
+    int B, int P, int dim_p, int cone0, int cone_g, int symmetric,
+    int use_soc, int lanes, int refill, int blocks, int threads, int smem,
+    float alpha, float tol_p, float tol_d, int k_max, int check_every,
+    int exact_k, void* stream) {
+  const bool exact = check_every > 1 && exact_k;
+  const int groups = B / 8, slots = lanes / 8;
+  if (P <= 0 || P % 32 != 0 || P > MAX_COLS || dim_p <= 0 ||
+      dim_p % 32 != 0 || cone0 < dim_p || cone0 % 32 != 0 || cone0 >= P ||
+      cone_g < 1 || cone_g > MAX_G ||
+      (lanes != 8 && lanes != 16 && lanes != 32) ||
+      (lanes == 32 && P > NARROW) || B % 8 != 0 || threads != P ||
+      smem != fused_split_smem(P, lanes) || check_every < 1 || k_max < 1 ||
+      (exact && B > 0 && snap == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (refill ? (blocks < 1 || blocks > (groups + slots - 1) / slots ||
+                queue == nullptr || (exact && wk == nullptr))
+             : (B % lanes != 0 || blocks != B / lanes))
+    return B == 0 ? 0 : static_cast<int>(cudaErrorInvalidValue);
+  if (B == 0) return 0;
+  Params p{aux1,   zs0,    lm0,   m1p,   lb,      ub,     scale, iscale,
+           zs,     lm,     aux,   k,     done,    rp,     rd,    snap,
+           queue,  wk,     groups, P,    dim_p,   cone0,  cone_g,
+           symmetric, use_soc, alpha, tol_p, tol_d, k_max, check_every,
+           exact_k};
+  switch (lanes) {
+    case 8:
+      return launch_lanes<8>(p, refill, exact, blocks, threads, smem, stream);
+    case 16:
+      return launch_lanes<16>(p, refill, exact, blocks, threads, smem,
+                              stream);
+    default:
+      return launch_lanes<32>(p, refill, exact, blocks, threads, smem,
+                              stream);
+  }
 }
 #endif  // !WIDE_PART
 

@@ -1,12 +1,11 @@
 // The product stage of the fused loops on NVIDIA Hopper (sm_90a), written by
 // hand: acc[L x P] = dq[L x R] @ M[R x P] for the L lanes of a thread block,
 // once an iteration. csrc/fused_admm.cu (K1), csrc/fused_fista.cu (K2),
-// csrc/fused_ellip.cu (K4), csrc/fused_soc.cu (K5) and csrc/fused_hmpc.cu
-// (K6) include it, and so does a build of K7 on it that is timed but not
-// launched (csrc/variants/fused_split_tile.cu). K2's three products an
-// iteration run over a ring of several matrices (SegRing). The end of the
-// file holds the mode loops a kernel runs over its iteration, and the
-// engine and refill loop K4, K5 and K6 share.
+// csrc/fused_eadmm.cu (K3), csrc/fused_ellip.cu (K4), csrc/fused_soc.cu
+// (K5), csrc/fused_hmpc.cu (K6) and csrc/fused_split.cu (K7) include it.
+// K2's three products an iteration run over a ring of several matrices
+// (SegRing). The end of the file holds the mode loops a kernel runs over its
+// iteration, and the engine and refill loops K4-K7 share.
 //
 // Many lanes a block. A block of P threads (one per column of the padded
 // width P) holds L = 8, 16 or 32 lanes. The rows of M, which every block
@@ -848,29 +847,41 @@ __device__ __forceinline__ unsigned run_modes(E& e, int k_max, int C,
 
 // ---- engines on leaves, and refill ---------------------------------------
 //
-// TileEngine below is what csrc/fused_ellip.cu (K4), csrc/fused_hmpc.cu (K6)
-// and csrc/fused_soc.cu (K5) share: the state as leaves, the product's half
-// of an iteration, the moves of a lane group's state, and run_lanes, which
-// runs a block's modes with or without refill. K1 and K2 keep their own
-// engines and take no refill.
+// TileEngine below is what csrc/fused_ellip.cu (K4), csrc/fused_soc.cu (K5),
+// csrc/fused_hmpc.cu (K6) and csrc/fused_split.cu (K7) share: the state as
+// leaves, the product's half of an iteration, the moves of a lane group's
+// state, and run_lanes, which runs a block's modes with or without refill.
+// K1 and K2 keep their own engines and take no refill.
 //
-// Refill. Plain free-run and the checked mode end per group of 8 lanes (a
-// tile of tile_b = 8), and a wide block would otherwise run to its slowest
-// group. With refill the blocks are persistent (about the SMs times the
-// blocks an SM) and each block's L / 8 slots hold one group each: a slot
-// whose group has ended writes it out and takes the next group from a queue,
-// an int32 counter the wrapper zeroes (a block's first groups are its own:
-// blockIdx.x * G + slot). A group's arithmetic depends neither on its slot
-// nor on the other groups, so the results are the same bits. In plain
-// free-run each group counts its own iterations and its own k_max cut, and
-// slots refill at window ends only, so every live group's checked iteration
-// falls on the same block iteration; a group cut short by k_max waits, frozen,
-// for the window's end. In the checked mode a slot refills once its 8 lanes
-// are all frozen. Once the queue is empty the live groups move down into the
-// first slots, so that the product's tiles narrow as in exact-k. Exact-k
-// keeps one block of L lanes from start to end (compaction and narrowing, no
-// refill); so do K4's exact-k and fixed_iters. TP_REFILL 0 builds the
-// engines without refill, for a timing script.
+// Refill. Every mode but fixed_iters ends per group of 8 lanes (a tile of
+// tile_b = 8 in plain free-run; a lane's own exit in the checked mode and
+// exact-k), and a wide block would otherwise run to its slowest group. With
+// refill the blocks are persistent (about the SMs times the blocks an SM)
+// and each block's L / 8 slots hold one group each: a slot whose group has
+// ended takes the next group from a queue, an int32 counter the wrapper
+// zeroes (a block's first groups are its own: blockIdx.x * G + slot). A
+// group's arithmetic depends neither on its slot nor on the other groups,
+// so the results are the same bits. In plain free-run each group counts its
+// own iterations and its own k_max cut, and slots refill at window ends
+// only, so every live group's checked iteration falls on the same block
+// iteration; a group cut short by k_max waits, frozen, for the window's end.
+// In the checked mode a slot refills once its 8 lanes are all frozen (both:
+// run_refill). Exact-k refills for the kernels that opt in through
+// run_lanes (K7; run_refill_exact): its windows run as plain free-run's,
+// every slot's windows starting together and each live lane's leaves and
+// window start saved at each window start, and a slot refills once its
+// group's 8 lanes have all met tol at a window's end or its windows have
+// reached k_max; the block then replays the last window of every group it
+// ran, from the lanes' snapshots, with per-iteration checks, a slot
+// refilling once its 8 lanes are frozen. Window starts stay multiples of C
+// from 0 for every lane, so each lane gets the bits of a block that keeps
+// it from start to end. Once the queue (or the block's list of groups to
+// replay) is empty the live groups move down into the first slots, so that
+// the product's tiles narrow as in exact-k without refill. Without refill a
+// block keeps its L lanes from start to end (run_modes: exact-k compacts the
+// lanes still running and narrows the tiles); so do K4-K6's exact-k and
+// K4's fixed_iters. TP_REFILL 0 builds K4-K6 without refill, for a timing
+// script.
 
 // A leaf of an engine's state: `rows` rows of L floats in shared memory
 // (swizzled, chunk<L>), read from `in` and written to `out` ([B][rows] in
@@ -1116,7 +1127,76 @@ struct TileEngine {
     // an engine may read rows other threads restored
     if (!TO_GLOBAL) __syncthreads();
   }
+
+  // Exact-k with refill: slot g's lanes in `lanes` (8 bits) of every leaf to
+  // (TO_GLOBAL) or from the snapshots of global lanes lane0 .. lane0 + 7;
+  // each thread moves its own rows.
+  template <bool TO_GLOBAL>
+  __device__ __forceinline__ void snap8(int g, int lane0_, unsigned lanes) {
+#pragma unroll
+    for (int l = 0; l < NL; ++l) {
+      const Leaf& f = leaf[l];
+      if (tid >= f.rows) continue;
+      float* s0 = snap + static_cast<size_t>(lane0_) * snap_width +
+                  f.snap_off + tid;
+      float v[8];
+      if (TO_GLOBAL) {
+        ld8<L>(v, f.sh, tid, g);
+#pragma unroll
+        for (int b = 0; b < 8; ++b)
+          if (bit(lanes, b)) s0[static_cast<size_t>(b) * snap_width] = v[b];
+      } else {
+#pragma unroll
+        for (int b = 0; b < 8; ++b)
+          v[b] = s0[static_cast<size_t>(b) * snap_width];
+        st8<L>(f.sh, tid, g, v);
+      }
+    }
+  }
+
+  // Exact-k with refill: slot g takes the snapshots of global lanes lane0 ..
+  // lane0 + 7 for their replay; their keepers start from their window
+  // starts wk[lane], which sn_k[8 g + b] holds for every thread.
+  __device__ __forceinline__ void restore8(int g, int lane0_, const int* wk) {
+    snap8<false>(g, lane0_, 0xffu);
+    if (tid >= 8 * g && tid < 8 * g + 8) {
+      kp = Keeper{};
+      kp.k = wk[lane0_ + tid - 8 * g];
+      sn_k[tid] = kp.k;
+    }
+  }
 };
+
+// Once no group is left to take: the live groups (grp >= 0) move down into
+// the first slots, with their counts `it` and their lanes' bits of `done`
+// and `ended`, so that the product's tiles narrow; with sn_k (exact-k's
+// replay) each slot's window starts in e.sn_k too, each moved by the thread
+// of its slot. Every thread moves its own rows; the caller publishes them
+// with a barrier.
+template <int G, class E>
+__device__ __forceinline__ void pack_slots(E& e, int (&grp)[G], int (&it)[G],
+                                           unsigned& done, unsigned& ended,
+                                           bool sn_k) {
+#pragma unroll
+  for (int d = 0; d < G; ++d) {
+    if (grp[d] >= 0) continue;
+#pragma unroll
+    for (int s = d + 1; s < G; ++s) {
+      if (grp[s] < 0) continue;
+      e.slot_move(s, d);
+      if (sn_k && e.tid >= 8 * d && e.tid < 8 * d + 8)
+        e.sn_k[e.tid] = e.sn_k[e.tid + 8 * (s - d)];
+      grp[d] = grp[s];
+      it[d] = it[s];
+      grp[s] = -1;
+      const unsigned from = 0xffu << (8 * s), to = 0xffu << (8 * d);
+      done = (done & ~to) | (((done & from) >> (8 * (s - d))));
+      done &= ~from;
+      ended = (ended & ~to) | from;
+      break;
+    }
+  }
+}
 
 // The refill loop of plain free-run (C > 1) and the checked mode (C == 1)
 // over n_groups groups of 8 lanes (see Refill above): queue[0] hands out the
@@ -1183,26 +1263,7 @@ __device__ __forceinline__ void run_refill(E& e, int k_max, int C,
             done &= ~lanes;
           }
         }
-        if (dry) {
-          // the live groups move down into the first slots
-#pragma unroll
-          for (int d = 0; d < G; ++d) {
-            if (grp[d] >= 0) continue;
-#pragma unroll
-            for (int s = d + 1; s < G; ++s) {
-              if (grp[s] < 0) continue;
-              e.slot_move(s, d);
-              grp[d] = grp[s];
-              it[d] = it[s];
-              grp[s] = -1;
-              const unsigned from = 0xffu << (8 * s), to = 0xffu << (8 * d);
-              done = (done & ~to) | (((done & from) >> (8 * (s - d))));
-              done &= ~from;
-              ended = (ended & ~to) | from;
-              break;
-            }
-          }
-        }
+        if (dry) pack_slots<G>(e, grp, it, done, ended, false);
         // the rows a thread moved, before others read them
         __syncthreads();
       }
@@ -1256,16 +1317,189 @@ __device__ __forceinline__ void run_refill(E& e, int k_max, int C,
   e.count(queue, iters);
 }
 
-// A block's whole run: with REFILL run_refill; else the block's L lanes
+// Exact-k with refill (see Refill above) over n_groups groups of 8 lanes:
+// queue[0] hands out the groups for their windows, wk ([B], global) takes
+// each lane's window start, and link ([n_groups]) chains the groups a block
+// ran, the latest first, for its replay; the block's counts go to the rest
+// of the queue (TileEngine::count). One loop over both passes, with two
+// call sites of iterate (one checked, one not), each inlined once. Returns
+// when every group this block took is written out.
+template <int L, class E>
+__device__ __forceinline__ void run_refill_exact(E& e, int k_max, int C,
+                                                 int n_groups, int* queue,
+                                                 int* wk, int* link) {
+  constexpr int G = L / 8;
+  constexpr unsigned ALL = L == 32 ? FULL : (1u << L) - 1u;
+  int grp[G], it[G];  // a slot's group (-1: none), its iterations begun:
+                      // at its window's start (windows), in its replay
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    grp[g] = -1;
+    it[g] = 0;
+  }
+  unsigned done = 0;     // windows: lanes whose window met tol; replay:
+                         // lanes that met tol
+  unsigned ended = ALL;  // lanes of slots whose group has ended, or no group
+  bool replay = false, first = true, dry = false;
+  int f = 0;             // windows: the iteration's place in its window
+  int iters = 0;         // the block's iterations
+  int head = -1;         // windows: the group taken last; replay: the next
+  for (;;) {
+    if (replay || f == 0) {
+      if (ended) {
+        // the slots whose group has ended (replay: write it out) take the
+        // next: from the queue for its windows, from the block's chain for
+        // its replay
+        int need = 0;
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+          if (!bit(ended, 8 * g)) continue;
+          if (replay && grp[g] >= 0) e.write8(g, 8 * grp[g], done);
+          grp[g] = -1;
+          ++need;
+        }
+        if (!dry) {
+          int base = 0;
+          if (!replay) {
+            if (first) {
+              base = blockIdx.x * G;
+            } else {
+              if (e.tid == 0)
+                e.ctrl[1] = static_cast<unsigned>(
+                    gridDim.x * G + atomicAdd(queue, need));
+              __syncthreads();
+              base = static_cast<int>(e.ctrl[1]);
+            }
+            first = false;
+          }
+          int i = 0;
+#pragma unroll
+          for (int g = 0; g < G; ++g) {
+            if (!bit(ended, 8 * g)) continue;
+            int n;
+            if (replay) {
+              n = head;
+              if (n < 0) {
+                dry = true;
+                continue;
+              }
+              head = link[n];
+              e.restore8(g, 8 * n, wk);
+            } else {
+              n = base + i++;
+              if (n >= n_groups) {  // the queue's groups follow a block's own
+                dry = true;
+                continue;
+              }
+              e.read8(g, 8 * n);
+              if (e.tid == 0) link[n] = head;
+              head = n;
+            }
+            grp[g] = n;
+            it[g] = 0;
+            const unsigned lanes = 0xffu << (8 * g);
+            ended &= ~lanes;
+            done &= ~lanes;
+          }
+        }
+        if (dry) pack_slots<G>(e, grp, it, done, ended, replay);
+        // the rows a thread moved, before others read them
+        __syncthreads();
+      }
+      if (ended == ALL) {
+        if (replay) break;
+        // every group this block took has ended its windows: replay them
+        replay = true;
+        dry = false;
+        continue;
+      }
+      if (!replay) {
+        // a window starts: each live lane that has not met tol saves its
+        // leaves and its window start
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+          if (bit(ended, 8 * g)) continue;
+          const unsigned lanes = ~(done >> (8 * g)) & 0xffu;
+          e.template snap8<true>(g, 8 * grp[g], lanes);
+          const int b = e.tid - 8 * g;
+          if (b >= 0 && b < 8 && bit(lanes, b)) wk[8 * grp[g] + b] = it[g];
+        }
+      }
+    }
+    unsigned frozen, idle = 0, last = 0, rmask = 0;
+    bool check;
+    if (replay) {
+      // each lane's last window again, with per-iteration checks and the
+      // budget min(C, k_max - its window start): k counts on from there
+      unsigned over = 0;
+#pragma unroll
+      for (int b = 0; b < L; ++b) {
+        const int budget = min(C, k_max - e.sn_k[b]);
+        if (it[b >> 3] >= budget) over |= 1u << b;
+        if (it[b >> 3] == budget - 1) last |= 1u << b;
+      }
+      frozen = done | ended | over;
+      rmask = ~frozen & ALL;
+      check = true;
+    } else {
+      // a lane that has met tol runs on only for its neighbours' sake: its
+      // replay starts from its snapshot
+      frozen = ended;
+      idle = done;
+      check = f == C - 1;
+    }
+    ++iters;
+    unsigned conv = 0;
+    if (check)
+      conv = e.template iterate<true>(frozen, idle, last, replay, rmask,
+                                      replay ? 1 : 0);
+    else
+      e.template iterate<false>(frozen, idle, 0u, false, 0u, 0);
+    if (replay) {
+      done |= conv & rmask;
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        if (bit(ended, 8 * g)) continue;
+        ++it[g];
+        bool all = true;
+#pragma unroll
+        for (int b = 8 * g; b < 8 * g + 8; ++b)
+          all = all && (bit(done, b) || it[g] >= min(C, k_max - e.sn_k[b]));
+        if (all) ended |= 0xffu << (8 * g);
+      }
+    } else if (check) {
+      done |= conv & ~ended;
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        const unsigned lanes = 0xffu << (8 * g);
+        if (ended & lanes) continue;
+        it[g] += C;
+        if ((done & lanes) == lanes || it[g] >= k_max) ended |= lanes;
+      }
+      f = 0;
+    } else {
+      ++f;
+    }
+  }
+  ring_drain(e.ring);
+  e.count(queue, iters);
+}
+
+// A block's whole run: with REFILL run_refill, or with EXACT (a kernel
+// built for exact-k with refill, wk its scratch of window starts and
+// links: [B + B / 8] int32) run_refill_exact; else the block's L lanes
 // from blockIdx.x * L, through run_modes (fixed_iters > 0 there: exactly
 // that many plain iterations, K4's fourth mode). A kernel is built for
 // each, so that each holds one loop (two inlined iterations) and not two.
-template <int L, bool REFILL, class E>
+template <int L, bool REFILL, bool EXACT = false, class E>
 __device__ __forceinline__ void run_lanes(E& e, int k_max, int C,
                                           int exact_k, int n_groups,
-                                          int* queue, int fixed_iters = 0) {
+                                          int* queue, int fixed_iters = 0,
+                                          int* wk = nullptr) {
   constexpr int G = L / 8;
-  if constexpr (REFILL) {
+  if constexpr (REFILL && EXACT) {
+    run_refill_exact<L>(e, k_max, C, n_groups, queue, wk, wk + 8 * n_groups);
+  } else if constexpr (REFILL) {
     run_refill<L>(e, k_max, C, n_groups, queue);
   } else {
 #pragma unroll

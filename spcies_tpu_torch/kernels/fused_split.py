@@ -33,14 +33,17 @@ fixed_iters mode, as in the JAX kernel.
 
 `fused_split_solve` runs the plain version for CPU tensors and launches
 the kernel for CUDA tensors; `fused_split_solve.launches` counts the
-launches.
+launches and `fused_split_solve.last_plan` holds the last launch's build and
+geometry.
 
-The kernel runs 8 lanes a thread block, one column a thread, three blocks an
-SM. A build on the product stage K1 runs on (csrc/tile_product.cuh: 8, 16 or
-32 lanes a block, M1' staged through shared memory, register tiles) gives the
-same bits on every lane and is 3-17 % slower at the HMPC families' batches on
-an H100 (PERF.md): it is kept as csrc/variants/fused_split_tile.cu, which
-tools/ab_kernels.py builds and times and nothing here launches.
+The kernel runs on the product stage csrc/tile_product.cuh, built for 8, 16
+and 32 lanes a block (kernels/stage.py), with refill in every mode: its
+persistent blocks take groups of 8 lanes from a queue, and in exact-k each
+block then replays the groups it ran (the stage's run_refill_exact), in
+the same launch. Every build gives the same bits, so `lanes=` of
+`fused_split_solve` may name another build, for a check or a timing. The
+one-column-per-thread kernel it replaced is csrc/variants/fused_split_parent.cu,
+which tools/ab_kernels.py builds and times and nothing here launches.
 
 Past MAX_COLS columns, up to WIDE_COLS, the wide build
 (fused_split_wide_kernel, csrc/wide_cols.cuh) runs 512 threads of two
@@ -58,7 +61,7 @@ import ctypes
 import torch
 
 from spcies_tpu_torch.kernels import stage
-from spcies_tpu_torch.kernels.fused_admm import (COL_PAD, MAX_COLS,
+from spcies_tpu_torch.kernels.fused_admm import (COL_PAD, DQ_PAD, MAX_COLS,
                                                  WIDE_COLS, check_widths)
 from spcies_tpu_torch.kernels.fused_hmpc import (WARP, check_cone_layout,
                                                  cone_columns, cone_project)
@@ -67,22 +70,24 @@ from spcies_tpu_torch.kernels.modes import run_modes
 __all__ = ["check_width", "fused_split_reference", "fused_split_solve",
            "launch_geometry", "launch_plan", "shared_bytes"]
 
-# lanes per thread block (TB in csrc/fused_split.cu)
-CTA_LANES = 8
-
-# C signature of fused_split_launch: 16 tensor pointers (8 inputs, 7
-# outputs, the exact-k snapshot scratch); B, P, dim_p, cone0, cone_g,
-# symmetric, use_soc, blocks, threads, shared bytes; alpha, tol_p, tol_d;
-# k_max, check_every, exact_k; the stream
-FUSED_SPLIT_ARGTYPES = ([ctypes.c_void_p] * 16 + [ctypes.c_int] * 10
+# C signature of fused_split_launch: 18 pointers (8 inputs, 7 outputs, the
+# exact-k snapshot scratch, the refill queue, the window starts and links);
+# B, P, dim_p, cone0, cone_g, symmetric, use_soc, lanes, refill, blocks,
+# threads, shared bytes; alpha, tol_p, tol_d; k_max, check_every, exact_k;
+# the stream
+FUSED_SPLIT_ARGTYPES = ([ctypes.c_void_p] * 18 + [ctypes.c_int] * 12
                         + [ctypes.c_float] * 3 + [ctypes.c_int] * 3
                         + [ctypes.c_void_p])
-# and of fused_split_wide_launch: 17 pointers (the blocks' global state
-# after the snapshot scratch); the ints, floats and ints of
-# fused_split_launch; the stream
+# and of fused_split_wide_launch: 17 pointers (the snapshot scratch, then
+# the blocks' global state); B, P, dim_p, cone0, cone_g, symmetric,
+# use_soc, blocks, threads, shared bytes; alpha, tol_p, tol_d; k_max,
+# check_every, exact_k; the stream
 FUSED_SPLIT_WIDE_ARGTYPES = ([ctypes.c_void_p] * 17 + [ctypes.c_int] * 10
                              + [ctypes.c_float] * 3 + [ctypes.c_int] * 3
                              + [ctypes.c_void_p])
+# lanes a block -> (rows a slab of M1', blocks an SM) of its build up to
+# stage.NARROW columns (Build<L> in csrc/fused_split.cu)
+BUILDS = {8: (16, 2), 16: (8, 2), 32: (16, 1)}
 # the leaves an exact-k snapshot saves per lane: aux, zs, lm
 SNAP_LEAVES = 3
 # the wide build's state leaves: aux, zs, lm and the consumed aux
@@ -146,44 +151,39 @@ def check_width(P: int) -> None:
                  WIDE_COLS, width=P)
 
 
-def shared_bytes(P: int, wide: bool = False) -> int:
-    """Dynamic shared bytes of a block: dq [2][P][8], the warp maxima
-    [2][warps][2][8] and, one column a thread, the four state vectors
-    [P][8] (fused_split_wide_smem in the source for the wide build, whose
-    state lives in global memory)."""
+def shared_bytes(P: int, lanes: int = 8, wide: bool = False) -> int:
+    """Dynamic shared bytes of a block (fused_split_smem in the source): the
+    ring of M1''s slabs, aux, zs and lm as [P][lanes], dq with its padding,
+    the warps' row maxima, the masks, the window starts and the slots'
+    lanes. The wide build's (fused_split_wide_smem): dq as [2][P][8] and the
+    warps' row maxima."""
     if wide:
-        return 4 * CTA_LANES * (2 * P + 4 * stage.WIDE_WARPS)
-    return 4 * CTA_LANES * (6 * P + 4 * (P // WARP))
+        return 4 * stage.WIDE_LANES * (2 * P + 4 * stage.WIDE_WARPS)
+    slab = stage.build_of(BUILDS, P, lanes)[0]
+    return stage.ring_bytes(P, slab) + 4 * (
+        3 * P * lanes + P * (lanes + DQ_PAD) + P // WARP * 2 * lanes + 4
+        + 2 * lanes)
 
 
 def launch_plan(B: int, P: int, dim_p: int, cone0: int, cone_g: int, *,
                 tile_b: int, check_every: int, exact_k: bool,
-                wide: bool | None = None) -> dict:
+                lanes: int | None = None, wide: bool | None = None) -> dict:
     """The build a launch takes and its geometry, as a dict: lanes a block,
-    blocks, threads, dynamic shared bytes, refill (always False; and
-    wide=True for the wide build). `wide` names the wide build or not (by
-    default: past MAX_COLS columns); raises ValueError on a shape or mode
-    no build takes."""
+    blocks, threads, dynamic shared bytes, refill (and wide=True for the
+    wide build). `lanes` names a build in place of the dispatch's choice,
+    `wide` the wide build or not (by default: past MAX_COLS columns);
+    raises ValueError on a shape or mode no build takes."""
     check_width(P)
     if dim_p % WARP or not 0 < dim_p <= cone0:
         raise ValueError(f"the kernel takes a z slab of whole warps before "
                          f"the cones; got dim_p={dim_p}, cone0={cone0}")
     check_cone_layout(P, cone0, cone_g)
-    if tile_b % CTA_LANES:
-        raise ValueError(f"tile_b must be a multiple of {CTA_LANES}; "
-                         f"got {tile_b}")
-    if B % tile_b:
-        raise ValueError(f"batch {B} is not a multiple of tile_b {tile_b}")
-    if check_every > 1 and not exact_k and tile_b != CTA_LANES:
-        # in plain free-run the output iterates depend on when a lane's
-        # tile drains, and the kernel drains per block of CTA_LANES lanes
-        raise ValueError(
-            f"plain free-run (check_every > 1 without exact_k) takes "
-            f"tile_b={CTA_LANES} on the GPU; got {tile_b}")
+    stage.check_mode(B, tile_b=tile_b, check_every=check_every,
+                     exact_k=exact_k)
     if stage.use_wide(P, wide):
-        return stage.wide_plan(B, shared_bytes(P, wide=True))
-    return dict(lanes=CTA_LANES, blocks=B // CTA_LANES, threads=P,
-                smem=shared_bytes(P), refill=False)
+        return stage.wide_plan(B, shared_bytes(P, wide=True), lanes)
+    return stage.plan(B, P, lambda L: shared_bytes(P, L), BUILDS,
+                      refill=True, lanes=lanes)
 
 
 def launch_geometry(B: int, P: int, dim_p: int, cone0: int, cone_g: int,
@@ -195,7 +195,8 @@ def launch_geometry(B: int, P: int, dim_p: int, cone0: int, cone_g: int,
 
 
 def _launch(*args, alpha, symmetric, use_soc, dim_p, cone0, cone_g, tol_p,
-            tol_d, k_max, tile_b, check_every, exact_k, wide=None):
+            tol_d, k_max, tile_b, check_every, exact_k, lanes=None,
+            wide=None):
     for t in args:
         if t.dtype != torch.float32:
             raise TypeError(f"the fused kernel takes float32; got {t.dtype}")
@@ -203,8 +204,8 @@ def _launch(*args, alpha, symmetric, use_soc, dim_p, cone0, cone_g, tol_p,
             raise ValueError("the fused kernel takes contiguous tensors")
     B, P = args[0].shape
     plan = launch_plan(B, P, dim_p, cone0, cone_g, tile_b=tile_b,
-                       check_every=check_every, exact_k=exact_k, wide=wide)
-    blocks, threads, smem = plan["blocks"], plan["threads"], plan["smem"]
+                       check_every=check_every, exact_k=exact_k, lanes=lanes,
+                       wide=wide)
     wide = plan.get("wide", False)
     from spcies_tpu_torch.kernels._build import load_kernel
     launch = (load_kernel("fused_split", "fused_split_wide_launch",
@@ -220,23 +221,40 @@ def _launch(*args, alpha, symmetric, use_soc, dim_p, cone0, cone_g, tol_p,
     exact = check_every > 1 and exact_k
     snap = torch.empty((B if exact else 0, SNAP_LEAVES * P),
                        dtype=torch.float32, device=dev)
-    state = (torch.empty((B * WIDE_LEAVES * P,), dtype=torch.float32,
-                         device=dev),) if wide else ()
+    nb = plan["blocks"]
+    if wide:
+        scratch = (torch.empty((B * WIDE_LEAVES * P,), dtype=torch.float32,
+                               device=dev),)
+        build = []
+    else:
+        # the queue of groups of 8 lanes (refill), then each block's count
+        # of iterations (refill) and kilo-clocks of the two halves of an
+        # iteration (in a build with TP_CLOCKS; else zeros); in exact-k with
+        # refill each lane's window start and each group's link
+        queue = torch.zeros((1 + 3 * nb,), dtype=torch.int32, device=dev)
+        wk = torch.empty((B + B // 8 if exact and plan["refill"] else 0,),
+                         dtype=torch.int32, device=dev)
+        scratch = (queue, wk)
+        build = [plan["lanes"], int(plan["refill"])]
+    ptrs = [t.data_ptr() for t in args + (zs, lm, aux, k, done, rp, rd,
+                                          snap) + scratch]
+    if any(ptr % 16 for ptr in ptrs):
+        raise ValueError("the fused kernel takes 16-byte aligned tensors")
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = launch(
-            *(t.data_ptr() for t in args + (zs, lm, aux, k, done, rp, rd,
-                                            snap) + state),
-            B, P, int(dim_p), int(cone0), int(cone_g), int(bool(symmetric)),
-            int(bool(use_soc)), blocks, threads, smem, float(alpha),
-            float(tol_p), float(tol_d), int(k_max), int(check_every),
-            int(bool(exact_k)), stream)
+            *ptrs, B, P, int(dim_p), int(cone0), int(cone_g),
+            int(bool(symmetric)), int(bool(use_soc)), *build, nb,
+            plan["threads"], plan["smem"], float(alpha), float(tol_p),
+            float(tol_d), int(k_max), int(check_every), int(bool(exact_k)),
+            stream)
     if err != 0:
         raise RuntimeError(f"fused_split kernel launch failed with CUDA "
-                           f"error {err} (blocks={blocks}, threads="
-                           f"{threads}, shared={smem} B)")
+                           f"error {err} ({plan})")
     fused_split_solve.launches += 1
-    fused_split_solve.last_plan = plan
+    fused_split_solve.last_plan = plan if wide else dict(
+        plan, block_iterations=queue[1:1 + nb],
+        block_clocks=queue[1 + nb:].view(nb, 2))
     e_flag = torch.where(done == 1, 1, -1).to(torch.int32)
     return zs, lm, aux, k, e_flag, rp, rd
 
@@ -246,15 +264,18 @@ def fused_split_solve(aux1, zs0, lm0, M1P, lb_row, ub_row, scale_row,
                       use_soc: bool, dim_p: int, cone0: int, cone_g: int,
                       tol_p: float, tol_d: float, k_max: int,
                       tile_b: int = 256, check_every: int = 1,
-                      exact_k: bool = False, wide: bool | None = None):
+                      exact_k: bool = False, lanes: int | None = None,
+                      wide: bool | None = None):
     """Run the fused split (S)ADMM loop on [B, P] tensors in the layout the
     module docstring sets out (B a multiple of tile_b): M1P [P, P] in row
     form (aux += dq @ M1P), the rows lb, ub, scale and iscale of P entries
     (lb/ub: clip bounds, or a cone's D-set bounds on its three lanes).
     alpha scales the dual steps; symmetric adds SADMM's half-step. CPU
     tensors run the plain version; CUDA tensors launch the kernel or raise.
-    `wide` names the wide build or not (by default: past MAX_COLS columns);
-    the results do not depend on it, and the plain version takes none.
+    `lanes` names the build to launch (one of stage.LANES) in place of the
+    dispatch's choice, `wide` the wide build or not (by default: past
+    MAX_COLS columns); the results depend on neither, and the plain version
+    has no such builds.
 
     Returns (zs, lm, aux [B, P], k [B] int32, e_flag [B] int32 (1
     converged / -1 k_max reached), r_p [B], r_d [B]).
@@ -284,7 +305,7 @@ def fused_split_solve(aux1, zs0, lm0, M1P, lb_row, ub_row, scale_row,
     if aux1.device.type == "cpu":
         return fused_split_reference(*args, **kw)
     if aux1.device.type == "cuda":
-        return _launch(*args, wide=wide, **kw)
+        return _launch(*args, lanes=lanes, wide=wide, **kw)
     raise ValueError(f"fused_split_solve takes CPU or CUDA tensors; got "
                      f"{aux1.device}")
 

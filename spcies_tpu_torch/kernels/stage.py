@@ -1,17 +1,18 @@
 """Launch geometry of the kernels that run on the product stage
 csrc/tile_product.cuh with a build for each lanes a block: K2
 (kernels/fused_fista.py, no refill), K3 (kernels/fused_eadmm.py, no
-refill), K4 (kernels/fused_ellip.py), K5
-(kernels/fused_soc.py) and K6 (kernels/fused_hmpc.py).
+refill), K4 (kernels/fused_ellip.py), K5 (kernels/fused_soc.py), K6
+(kernels/fused_hmpc.py) and K7 (kernels/fused_split.py, refill in every
+mode, exact-k's included).
 
 Each kernel is built for 8, 16 and 32 lanes a block (LANES; K3,
 kernels/fused_eadmm.py, for 8 and 16: a build is a key of `builds`), and up to
 NARROW columns each of those has a build of its own (`builds`: lanes -> rows
 a slab of the matrix, blocks an SM it is compiled for); wider shapes take one
-block an SM with 16-row slabs, and no 32-lane build. With refill (every mode
-but exact-k) the blocks are persistent, about the SMs times the blocks an SM,
-and take groups of 8 lanes from a queue, so the batch need only be whole
-groups; exact-k runs one block per L lanes. `pick_lanes` takes the widest
+block an SM with 16-row slabs, and no 32-lane build. With refill (K4-K6:
+every mode but exact-k; K7: every mode) the blocks are persistent, about the
+SMs times the blocks an SM, and take groups of 8 lanes from a queue, so the
+batch need only be whole groups; without, one block per L lanes. `pick_lanes` takes the widest
 build that fits the 232,448 bytes of shared memory a block can have and
 still gives half of the SMs a block, as kernels/fused_admm.py `pick_lanes`
 does.

@@ -371,7 +371,7 @@ def test_geometry_constants_match_the_sources():
 
 
 @pytest.mark.parametrize("name", ["fused_admm_parent", "fused_admm_tc",
-                                  "fused_split_tile", "fused_hmpc_parent",
+                                  "fused_split_parent", "fused_hmpc_parent",
                                   "fused_soc_parent"])
 def test_variant_sources_stay_out_of_the_launched_builds(name):
     # the builds a timing script holds against the launched kernels; the

@@ -7,6 +7,8 @@ against the checked mode bit for bit, and against the JAX dense engine in
 fp64; plus the wrapper's dispatch, validation and build plumbing, which
 need no GPU."""
 
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -314,6 +316,57 @@ def test_free_run_plain_version_drains_per_tile(fixture):
     assert bool(((o8[0][rows] - o16[0][rows]).abs().amax(dim=1) > 0).all())
 
 
+def _group_runs(args, kw, perm):
+    """The plain version on all groups of 8 lanes at once, on each group
+    alone, and on the groups in the order `perm`."""
+    aux1, zs0, lm0, *ops = args
+    B = aux1.shape[0]
+    whole = fk.fused_split_reference(aux1, zs0, lm0, *ops, **kw)
+    alone = [fk.fused_split_reference(aux1[g:g + 8], zs0[g:g + 8],
+                                      lm0[g:g + 8], *ops, **kw)
+             for g in range(0, B, 8)]
+    rows = torch.cat([torch.arange(8 * g, 8 * g + 8) for g in perm])
+    moved = fk.fused_split_reference(aux1[rows], zs0[rows], lm0[rows], *ops,
+                                     **kw)
+    return whole, alone, rows, moved
+
+
+# (method, case): ADMM and SADMM, diamonds, shifted SOCs (tol 1e-3) and
+# output mode, and each group cut at k_max 19
+GROUP_CASES = [("ADMM", "diamond"), ("SADMM", "diamond"), ("ADMM", "soc"),
+               ("SADMM", "output"), ("SADMM", "capped")]
+
+
+@pytest.mark.parametrize("method,case", GROUP_CASES)
+def test_exact_k_groups_do_not_depend_on_their_neighbours(fixture, method,
+                                                          case):
+    """What refill in exact-k relies on: each group of 8 lanes gets the
+    same bits (iterates, k, e_flag, residuals) solved alone, in another
+    order of the groups, or beside other groups, though the windows of the
+    whole batch run on until its slowest lane is done."""
+    sys, sys_e, param, st = fixture
+    x0, xr, ur = _data(st, 32, 12)
+    x0[8:16] *= 0.05                # groups of unlike iteration counts
+    xr[8:16] = 0.0
+    kw = {"soc": dict(use_soc=True, **SOC_TOL),
+          "capped": dict(tol_p=1e-13, tol_d=1e-13, k_max=19)}.get(case, {})
+    args, fused = _fp64(sys_e if case == "output" else sys, param,
+                        (x0, xr, ur), method, **kw)
+    args = tuple(a.float() for a in args)
+    kk = dict(fused.kernel_kw, tile_b=8, check_every=8, exact_k=True)
+    whole, alone, rows, moved = _group_runs(args, kk, (2, 0, 3, 1))
+    groups = whole[3].reshape(4, 8).amax(dim=1).tolist()
+    if case == "capped":
+        assert groups == [19] * 4 and bool((whole[4] == -1).all())
+    else:
+        assert len(set(groups)) > 1 and bool((whole[4] == 1).all())
+    for g, out in enumerate(alone):
+        for a, b in zip(whole, out):
+            assert torch.equal(a[8 * g:8 * g + 8], b), g
+    for a, b in zip(whole, moved):
+        assert torch.equal(a[rows], b)
+
+
 def test_wrapper_takes_plain_version_on_cpu(fixture):
     """For CPU tensors the wrapper returns the plain version's results and
     launches nothing."""
@@ -369,13 +422,18 @@ def test_wrapper_rejects_bad_arguments():
 
 def test_launch_geometry():
     # the N=30 shapes: z 258 -> 288 and one warp of 8 diamonds (320), or
-    # two warps of 8 SOCs (352)
-    for P, g in ((320, 8), (352, 8)):
-        smem = 4 * 8 * (6 * P + 4 * (P // 32))
+    # two warps of 8 SOCs (352). Every mode refills persistent blocks; each
+    # shape takes the widest build whose shared memory fits.
+    for (P, g), lanes in (((320, 8), 32), ((352, 8), 16)):
         for B in (8192, 32768):
-            assert fk.launch_geometry(B, P, 288, 288, g, tile_b=256,
-                                      check_every=8, exact_k=True) == (
-                B // 8, P, smem)
+            kw = dict(tile_b=256, check_every=8, exact_k=True)
+            plan = fk.launch_plan(B, P, 288, 288, g, **kw)
+            per_sm = min(fk.BUILDS[lanes][1] if P <= 320 else 1,
+                         233472 // (plan["smem"] + 1024))
+            assert plan == dict(lanes=lanes, blocks=132 * per_sm, threads=P,
+                                smem=fk.shared_bytes(P, lanes), refill=True)
+            assert fk.launch_geometry(B, P, 288, 288, g, **kw) == (
+                plan["blocks"], plan["threads"], plan["smem"])
     bad = [
         dict(P=120),                       # not whole warps
         dict(P=1056, cone0=1024),          # beyond every build (1024)
@@ -383,9 +441,9 @@ def test_launch_geometry():
         dict(dim_p=128),                   # the z slab past the cones
         dict(cone0=128),                   # no cone warp
         dict(g=11),                        # more cones than a warp holds
-        dict(tile_b=12, B=48),             # tile not whole blocks
+        dict(tile_b=12, B=48),             # tile not whole groups of 8
         dict(tile_b=32, B=48),             # batch not whole tiles
-        dict(tile_b=256, B=256, check_every=8),   # drain per block
+        dict(tile_b=256, B=256, check_every=8),   # drain per group
     ]
     for b in bad:
         a = {**dict(B=64, P=128, dim_p=96, cone0=96, g=8, tile_b=8,
@@ -396,30 +454,125 @@ def test_launch_geometry():
                                check_every=a["check_every"], exact_k=False)
 
 
-# (batch, padded width): the HMPC families at both batches, the use_soc
-# width, the widest shape and a request of 64 lanes
-@pytest.mark.parametrize("shape", [(8192, 320), (32768, 320), (8192, 352),
-                                   (4096, 512), (64, 320)])
+# (batch, padded width) -> lanes a block the dispatch picks: the HMPC
+# families at both batches, the use_soc width, the widest shape of one
+# thread a column and a request of 64 lanes
+SHAPES = {(8192, 320): 32, (32768, 320): 32, (8192, 352): 16,
+          (4096, 512): 16, (64, 320): 8}
+PLAN_MODES = {"checked": dict(check_every=1, exact_k=False),
+              "free-run": dict(check_every=8, exact_k=False),
+              "exact-k": dict(check_every=8, exact_k=True)}
+
+
+@pytest.mark.parametrize("shape", sorted(SHAPES))
 def test_launch_geometry_by_shape(shape):
     B, P = shape
-    blocks, threads, smem = fk.launch_geometry(
-        B, P, 288, 288, 8, tile_b=8, check_every=8, exact_k=True)
-    # 8 lanes a block and one column a thread at every shape
-    assert (blocks, threads) == (B // fk.CTA_LANES, P)
-    assert smem == 4 * 8 * (6 * P + 4 * (P // 32)) <= 232448
-    # three blocks an SM fit its 228 KiB up to the families' width
-    assert (3 * (smem + 1024) <= 228 * 1024) == (P <= 352)
+    cone0 = P - 32
+    for mode, kw in PLAN_MODES.items():
+        tile_b = 8 if mode == "free-run" or B < 256 else 256
+        blocks, threads, smem = fk.launch_geometry(
+            B, P, 288, cone0, 8, tile_b=tile_b, **kw)
+        plan = fk.launch_plan(B, P, 288, cone0, 8, tile_b=tile_b, **kw)
+        # refill in every mode: at most one block per L lanes, every slot
+        # with a group to start with, one column a thread
+        L = plan["lanes"]
+        assert L == SHAPES[shape] and plan["refill"], mode
+        assert threads == P and 1 <= blocks <= -(-B // L)
+        assert blocks * L // 8 <= B // 8
+        assert smem == fk.shared_bytes(P, L) <= 232448
+
+
+def _source_smem(P, lanes):
+    """fused_split_smem of csrc/fused_split.cu, its text evaluated."""
+    src = (_build.CSRC / "fused_split.cu").read_text()
+    body = src[src.index('extern "C" long fused_split_smem('):]
+    expr = body[body.index("return") + 6:body.index(";")]
+    slab = {8: r"SP_SLAB_8 (\d+)", 16: r"SP_SLAB_16 (\d+)",
+            32: r"SP_SLAB_32 (\d+)"}[lanes]
+    rows = (int(re.search(r"WIDE_SLAB = (\d+);", src).group(1)) if P > 320
+            else int(re.search(r"#define " + slab, src).group(1)))
+    expr = expr.replace("tp::ring_bytes(P, slab_rows(P, lanes))",
+                        f"(4 * 2 * {rows} * P + 64)")
+    expr = re.sub(r"static_cast<long>\(([^)]*)\)", r"\1", expr)
+    expr = re.sub(r"(\d)L\b", r"\1", expr).replace("tp::DQ_PAD", "4")
+    expr = expr.replace("/", "//")
+    return eval(f"({expr})", {}, dict(P=P, lanes=lanes))
+
+
+@pytest.mark.parametrize("P", [160, 320, 352, 512])
+def test_shared_bytes_follow_the_source_formula(P):
+    """Python's shared bytes are the C source's (its slab rows, the ring of
+    two slabs and its mbarriers, the leaves, dq, the row maxima and the
+    masks), and the plan never takes a build past 232,448 bytes."""
+    for lanes in (8, 16, 32):
+        assert fk.shared_bytes(P, lanes) == _source_smem(P, lanes)
+        takes = lanes < 32 or P <= 320
+        if fk.shared_bytes(P, lanes) <= 232448 and takes:
+            plan = fk.launch_plan(8192, P, P - 64, P - 32, 8, tile_b=256,
+                                  check_every=8, exact_k=True, lanes=lanes)
+            assert plan["smem"] == fk.shared_bytes(P, lanes)
+        else:
+            with pytest.raises(ValueError, match="no build"):
+                fk.launch_plan(8192, P, P - 64, P - 32, 8, tile_b=256,
+                               check_every=8, exact_k=True, lanes=lanes)
+
+
+@pytest.mark.parametrize("lanes,kw", [
+    (64, {}),                              # no such build
+    (4, {}),
+    (32, dict(P=352)),                     # use_soc: 234,064 bytes
+    (32, dict(P=384)),                     # above 320 columns
+    (16, dict(wide=True)),                 # the wide build runs 8 lanes
+])
+def test_named_builds_are_refused(lanes, kw):
+    a = {**dict(P=320, wide=None), **kw}
+    with pytest.raises(ValueError, match="no build|wide build runs"):
+        fk.launch_plan(8192, a["P"], 288, a["P"] - 32, 8, tile_b=256,
+                       check_every=8, exact_k=True, lanes=lanes,
+                       wide=a["wide"])
+
+
+@pytest.mark.parametrize("lanes", [8, 16, 32])
+def test_plain_free_run_takes_tile_8_at_every_lanes(lanes):
+    for kw in (dict(check_every=8, exact_k=False),
+               dict(check_every=8, exact_k=True)):
+        plan = fk.launch_plan(8200, 320, 288, 288, 8, tile_b=8, lanes=lanes,
+                              **kw)
+        # refill takes whole groups of 8 lanes, not whole blocks
+        assert plan["lanes"] == lanes and plan["refill"]
+        assert plan["blocks"] <= -(-8200 // lanes)
+    with pytest.raises(ValueError, match="plain free-run"):
+        fk.launch_plan(8192, 320, 288, 288, 8, tile_b=256, lanes=lanes,
+                       check_every=8, exact_k=False)
 
 
 def test_lanes_constant_is_the_kernels_own():
-    from spcies_tpu_torch.kernels import fused_admm
+    from spcies_tpu_torch.kernels import fused_admm, stage
     assert not hasattr(fused_admm, "CTA_LANES")
+    assert not hasattr(fk, "CTA_LANES")
     src = (_build.CSRC / "fused_split.cu").read_text()
-    assert f"TB = {fk.CTA_LANES};" in src
-    # the launched source includes the wide builds' header alone, not the
-    # product stage's (its narrow build is the first layout)
+    # the builds the wrapper plans for are the source's, each lanes a block
+    # with refill (and exact-k's refill) and without
+    for lanes, (slab, blocks) in fk.BUILDS.items():
+        assert f"#define SP_SLAB_{lanes} {slab}\n" in src
+        assert f"#define SP_BLOCKS_{lanes} {blocks}\n" in src
+        assert f"launch_lanes<{lanes}>(p, " in src
+    for build in ("<L, false, false>", "<L, true, true>", "<L, true, false>"):
+        assert f"launch{build}(p, " in src
+    assert f"NARROW = {stage.NARROW};" in src
+    assert f"WIDE_SLAB = {stage.WIDE_BUILD[0]};" in src
+    # the launched source runs on the product stage, and its wide build on
+    # the wide builds' header
     assert _build.included_files(_build.CSRC / "fused_split.cu") == [
-        _build.CSRC / "fused_split.cu", _build.CSRC / "wide_cols.cuh"]
+        _build.CSRC / "fused_split.cu", _build.CSRC / "wide_cols.cuh",
+        _build.CSRC / "tile_product.cuh"]
+    # exact-k opts in to the stage's refill, and the kernel keeps no mode
+    # loop of its own
+    assert "tp::run_lanes<L, REFILL, EXACT>" in src
+    code = "\n".join(line.split("//")[0]
+                     for line in src.split("#if WIDE_PART")[0].splitlines())
+    for own in ("snapshot<", "REPLAY", "budget", "sn_k[", "for (int it"):
+        assert own not in code, own
 
 
 def test_build_is_lazy_and_content_addressed():
@@ -431,6 +584,6 @@ def test_build_is_lazy_and_content_addressed():
     src = (_build.CSRC / "fused_split.cu").read_text()
     assert src.count("extern \"C\" int fused_split_launch(") == 1
     assert f"NSNAP = {fk.SNAP_LEAVES};" in src
-    # the C signature the wrapper binds: 16 pointers, 10 + 3 + 3 scalars,
+    # the C signature the wrapper binds: 18 pointers, 12 + 3 + 3 scalars,
     # the stream
-    assert len(fk.FUSED_SPLIT_ARGTYPES) == 33
+    assert len(fk.FUSED_SPLIT_ARGTYPES) == 37

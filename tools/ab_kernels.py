@@ -2,46 +2,46 @@
 """A/B of build variants of the port's kernels on one CUDA card, in one
 process.
 
-K2, K3, K4, K5 and K6 (fused_fista, fused_eadmm, fused_ellip, fused_soc,
-fused_hmpc): the committed source on the product stage
+K2-K7 (fused_fista, fused_eadmm, fused_ellip, fused_soc, fused_hmpc,
+fused_split): the committed source on the product stage
 csrc/tile_product.cuh at each lanes a block it is built for (8, 16 and 32;
 K3 8 and 16), and builds of it with other macro defaults (K4-K6: refill
 off, other slab rows and blocks an SM, a ring of three slabs, clock counts
-of an iteration's halves; K6 and K5: the cones projected as the parents
-project them; K2: other slab rows, blocks an SM, columns a thread, ring
-depth and clock counts of its products; K3: clock counts of an iteration's
-four parts, per block iteration, and z2 chains that read C2d the other way:
-from shared memory at 8 lanes, by __ldg at 16),
-each held to the parent
+of an iteration's halves; K7: refill off, which its plan decides at run
+time, other slab rows and blocks an SM, clock counts; K7, K6 and K5: the
+cones projected as the parents project them; K2: other slab rows, blocks an
+SM, columns a thread, ring depth and clock counts of its products; K3:
+clock counts of an iteration's four parts, per block iteration, and z2
+chains that read C2d the other way: from shared memory at 8 lanes, by
+__ldg at 16), each held to the parent
 (csrc/variants/fused_*_parent.cu: one column a thread, 8 lanes a block)
 bit for bit in every mode chip_smoke.py runs for the kernel, then timed
-with the parent in turns at B=8192 and 32768 (and K4 at phase 10's binding
-ball, B=8192) beside each launch's group and block iterations. `--only a,b` keeps the builds whose names hold
-a or b, here and for K1 and K7 (which then skip K1's bf16 and sort_lanes
-timings).
+with the parent in turns at B=8192 and 32768 (K4 also at phase 10's
+binding ball, B=8192; K7's HMPC-SADMM-split at B=8192) beside each
+launch's group and block iterations. `--only a,b` keeps the builds whose
+names hold a or b, here and for K1 (which then skips its bf16 and
+sort_lanes timings).
 
-K1 and K7 (fused_admm, fused_split): the builds of the product stage
-csrc/tile_product.cuh, under K1's source csrc/fused_admm.cu and K7's build on
-it, csrc/variants/fused_split_tile.cu (which no wrapper launches): the lanes
-a block L in {8, 16, 32} (64 does not fit shared memory: the bytes are
-printed), 2 or 4 columns a thread at 16 lanes, and builds of the stage with
-another slab depth, another ring depth, cp.async in place of TMA
-(cp.async.bulk), M read unstaged from L2 by __ldg, strided in place of
-adjacent columns a thread, and the iteration not inlined. The parent (one
-column a thread, 8 lanes a block: csrc/variants/fused_admm_parent.cu with its
-state in registers for K1, and for K7 csrc/fused_split.cu, the kernel its
-wrapper launches) is one more variant, so parent and change are timed in one
-call. Every fp32 variant must give the parent's k, e_flag and iterates bit
-for bit. For K1 the bf16 mode is timed on the tensor cores
-(csrc/variants/fused_admm_tc.cu at 16 and 32 lanes a block), on the CUDA cores
-and in the parent, each held against the plain version, and the laxMPC-ADMM
-solver is timed with sort_lanes on and off.
+K1 (fused_admm): the builds of the product stage csrc/tile_product.cuh
+under K1's source csrc/fused_admm.cu: the lanes a block L in {8, 16, 32}
+(64 does not fit shared memory: the bytes are printed), 2 or 4 columns a
+thread at 16 lanes, and builds of the stage with another slab depth,
+another ring depth, cp.async in place of TMA (cp.async.bulk), M read
+unstaged from L2 by __ldg, strided in place of adjacent columns a thread,
+and the iteration not inlined. The parent (one column a thread, 8 lanes a
+block: csrc/variants/fused_admm_parent.cu with its state in registers) is
+one more variant, so parent and change are timed in one call. Every fp32
+variant must give the parent's k, e_flag and iterates bit for bit. The
+bf16 mode is timed on the tensor cores (csrc/variants/fused_admm_tc.cu at
+16 and 32 lanes a block), on the CUDA cores and in the parent, each held
+against the plain version, and the laxMPC-ADMM solver is timed with
+sort_lanes on and off.
 
 The script builds every variant into the git-ignored
 spcies_tpu_torch/_build/ab/, prints ptxas's registers and spills and the
 mean block iterations beside k_mean, holds each variant against the parent
 at the kernel's chip_smoke.py families, and times the variants in turns
-(forward, then backward) at B=4096, 8192 and 32768 (K2 and K4-K6: 8192 and
+(forward, then backward) at B=4096, 8192 and 32768 (K2 and K4-K7: 8192 and
 32768) with CUDA events. Run from the repository root on a machine with a card, for all
 kernels or the ones named:
 
@@ -80,11 +80,11 @@ from spcies_tpu_torch.kernels import fused_split as k7  # noqa: E402
 from spcies_tpu_torch.kernels import stage  # noqa: E402
 
 
-# ---- K1 and K7: the builds of csrc/tile_product.cuh -----------------------
+# ---- K1: the builds of csrc/tile_product.cuh -----------------------------
 
 CSRC = REPO / "spcies_tpu_torch" / "csrc"
-# the sources no wrapper launches: K1's parent, its bf16 kernel on the tensor
-# cores, and K7 on the product stage
+# the sources no wrapper launches: the parents and K1's bf16 kernel on the
+# tensor cores
 VARIANTS = CSRC / "variants"
 # variant name -> (the macro defaults of tile_product.cuh it changes, the
 # (lanes a block, columns a thread) it is run at)
@@ -222,37 +222,7 @@ def run_admm_tc(v, args, kk):
     return results(its, k, done, rp, rd)
 
 
-def run_split(v, args, kk):
-    """K7 as its wrapper launches it: csrc/fused_split.cu."""
-    return k7.fused_split_solve(*args, **kk)
-
-
-def run_split_tile(v, args, kk):
-    """K7 on the product stage at v.lanes lanes a block."""
-    B, P = args[0].shape
-    # the wrapper's checks of the shape and the mode hold for this build too
-    k7.launch_geometry(B, P, kk["dim_p"], kk["cone0"], kk["cone_g"],
-                       tile_b=kk["tile_b"], check_every=kk["check_every"],
-                       exact_k=kk["exact_k"])
-    fn = _build._LOADED["fused_split_tile"][0].fused_split_tile_smem
-    fn.restype = ctypes.c_long
-    smem = fn(P, v.lanes)
-    if B % v.lanes or smem > k1.SMEM_MAX:
-        raise ValueError(f"{v.name} does not take batch {B} at width {P}")
-    exact = kk["check_every"] > 1 and kk["exact_k"]
-    its, k, done, rp, rd, snap = outputs(args[0], B, 3 * P if exact else 0)
-    err = v.fn(*(t.data_ptr() for t in (*args, *its, k, done, rp, rd, snap)),
-               B, P, kk["dim_p"], kk["cone0"], kk["cone_g"],
-               int(kk["symmetric"]), int(kk["use_soc"]), B // v.lanes, P,
-               smem, float(kk["alpha"]), float(kk["tol_p"]),
-               float(kk["tol_d"]), int(kk["k_max"]), int(kk["check_every"]),
-               int(bool(kk["exact_k"])),
-               torch.cuda.current_stream().cuda_stream)
-    assert err == 0, err
-    return results(its, k, done, rp, rd)    # zs, lm, aux
-
-
-# ---- K5 and K6 on the product stage, with refill -------------------------
+# ---- K2-K7 on the product stage ------------------------------------------
 
 # the C signatures of the parents (csrc/variants/fused_hmpc_parent.cu and
 # fused_soc_parent.cu): 16 tensor pointers; the ints of the launch; the
@@ -281,6 +251,12 @@ PARENT_FISTA_ARGTYPES = ([ctypes.c_void_p] * 18 + [ctypes.c_int] * 6
 PARENT_EADMM_ARGTYPES = ([ctypes.c_void_p] * 28 + [ctypes.c_int] * 5
                          + [ctypes.c_float] + [ctypes.c_int] * 3
                          + [ctypes.c_void_p])
+# and of K7's parent (fused_split_parent.cu: 16 tensor pointers; B, P,
+# dim_p, cone0, cone_g, symmetric, use_soc, blocks, threads, shared bytes;
+# alpha, tol_p, tol_d; k_max, check_every, exact_k; the stream)
+PARENT_SPLIT_ARGTYPES = ([ctypes.c_void_p] * 16 + [ctypes.c_int] * 10
+                         + [ctypes.c_float] * 3 + [ctypes.c_int] * 3
+                         + [ctypes.c_void_p])
 
 
 def _hmpc_chip(name):
@@ -291,6 +267,23 @@ def _hmpc_chip(name):
                 solver=c.hmpc_solver,
                 inputs=lambda fam, B, extra: c.hmpc_inputs(sp, fam, 0, B),
                 args=lambda solver, x: c.hmpc_kernel_args(solver, x))
+
+
+def _split_chip():
+    """K7's modes are chip_smoke.py's phase 13 for the split pair; it
+    refills in every mode, and its plan (not a macro) decides whether, so
+    its builds without refill are the committed source."""
+    adm, sad = "HMPC-ADMM-split", "HMPC-SADMM-split"
+    return dict(module=k7, solve=k7.fused_split_solve, prefix="SP",
+                families=(adm, sad),
+                modes=[(m[0], m[1], m[2], m[4], {}) for m in c.hmpc_modes()
+                       if c.hmpc_kernel(m[0])[0] == "fused_split"],
+                timings=[(adm, adm, {}, (c.FB, c.BATCH)),
+                         (sad, sad, {}, (c.FB,))],
+                solver=c.hmpc_solver,
+                inputs=lambda fam, B, extra: c.hmpc_inputs(sp, fam, 0, B),
+                args=lambda solver, x: c.hmpc_kernel_args(solver, x),
+                common=False)
 
 
 def _soc_chip(name):
@@ -354,7 +347,8 @@ def _eadmm_chip():
                 args=args, common=False)
 
 
-STAGE = {"fused_hmpc": _hmpc_chip("fused_hmpc"),
+STAGE = {"fused_split": _split_chip(),
+         "fused_hmpc": _hmpc_chip("fused_hmpc"),
          "fused_soc": _soc_chip("fused_soc"),
          "fused_ellip": _ellip_chip(),
          "fused_fista": _fista_chip(),
@@ -362,8 +356,8 @@ STAGE = {"fused_hmpc": _hmpc_chip("fused_hmpc"),
 
 
 def run_stage(v, args, kk):
-    """K5 or K6 through its wrapper at v.lanes lanes a block, with the
-    loaded build's shared bytes, slabs, blocks an SM and refill."""
+    """K2-K7 through its wrapper at v.lanes lanes a block, with the loaded
+    build's shared bytes, slabs, blocks an SM and refill."""
     spec = STAGE[v.stem]
     mod = spec["module"]
     fn = getattr(_build._LOADED[v.stem][0], f"{v.stem}_smem")
@@ -473,6 +467,26 @@ def run_eadmm_parent(v, args, kk):
     return (*its, k, torch.where(done == 1, 1, -1).to(torch.int32), *res)
 
 
+def run_split_parent(v, args, kk):
+    """The parent K7: 8 lanes a block, one column a thread."""
+    B, P = args[0].shape
+    k7.launch_plan(B, P, kk["dim_p"], kk["cone0"], kk["cone_g"],
+                   tile_b=kk["tile_b"], check_every=kk["check_every"],
+                   exact_k=kk["exact_k"])
+    exact = kk["check_every"] > 1 and kk["exact_k"]
+    its, k, done, rp, rd, snap = outputs(args[0], B, 3 * P if exact else 0)
+    smem = 4 * 8 * (6 * P + 4 * (P // 32))
+    err = v.fn(*(t.data_ptr() for t in (*args, *its, k, done, rp, rd, snap)),
+               B, P, kk["dim_p"], kk["cone0"], kk["cone_g"],
+               int(kk["symmetric"]), int(kk["use_soc"]), B // 8, P, smem,
+               float(kk["alpha"]), float(kk["tol_p"]), float(kk["tol_d"]),
+               int(kk["k_max"]), int(kk["check_every"]),
+               int(bool(kk["exact_k"])),
+               torch.cuda.current_stream().cuda_stream)
+    assert err == 0, err
+    return results(its, k, done, rp, rd)    # zs, lm, aux
+
+
 def run_soc_parent(v, args, kk):
     """The parent K5: 8 lanes a block, one column a thread."""
     B, P = args[0].shape
@@ -496,9 +510,9 @@ RUNNERS = {
     "fused_admm_parent": ("fused_admm_launch", PARENT_ADMM_ARGTYPES,
                           run_admm_parent),
     "fused_admm_tc": ("fused_admm_tc_launch", TC_ADMM_ARGTYPES, run_admm_tc),
-    "fused_split": ("fused_split_launch", k7.FUSED_SPLIT_ARGTYPES, run_split),
-    "fused_split_tile": ("fused_split_tile_launch", k7.FUSED_SPLIT_ARGTYPES,
-                         run_split_tile),
+    "fused_split": ("fused_split_launch", k7.FUSED_SPLIT_ARGTYPES, run_stage),
+    "fused_split_parent": ("fused_split_launch", PARENT_SPLIT_ARGTYPES,
+                           run_split_parent),
     "fused_hmpc": ("fused_hmpc_launch", k6.FUSED_HMPC_ARGTYPES, run_stage),
     "fused_hmpc_parent": ("fused_hmpc_launch", PARENT_HMPC_ARGTYPES,
                           run_hmpc_parent),
@@ -553,14 +567,11 @@ class Variant:
 
 
 def tile_variants(kernel: str):
-    """The parent first, then the committed header at every tile, then the
+    """K1's parent first, then the committed header at every tile, then the
     other builds of the product stage."""
-    if kernel == "fused_admm":
-        parent = VARIANTS / "fused_admm_parent.cu"
-        source = CSRC / "fused_admm.cu"
-    else:
-        parent = CSRC / "fused_split.cu"
-        source = VARIANTS / "fused_split_tile.cu"
+    assert kernel == "fused_admm", kernel
+    parent = VARIANTS / "fused_admm_parent.cu"
+    source = CSRC / "fused_admm.cu"
     out = [Variant("parent (8 lanes, one column a thread)", parent, 8)]
 
     def add(label, macros, tiles):
@@ -590,6 +601,21 @@ STAGE_BUILDS = [
 # parent does
 OWN_BUILDS = {
     "fused_ellip": [],
+    # K7's (not STAGE_BUILDS: its plan decides refill, so no macro does):
+    # without refill, clock counts, other slab rows and blocks an SM, and
+    # the cones projected in their warps, lane by lane, as the parent does
+    "fused_split": [
+        ("no refill", 8, {"TP_REFILL": 0}),
+        ("no refill", 16, {"TP_REFILL": 0}),
+        ("no refill", 32, {"TP_REFILL": 0}),
+        ("clock counts", 8, {"TP_CLOCKS": 1}),
+        ("clock counts", 32, {"TP_CLOCKS": 1}),
+        ("slabs of 8, 3 blocks an SM", 8, {"SP_SLAB_8": 8, "SP_BLOCKS_8": 3}),
+        ("slabs of 8", 32, {"SP_SLAB_32": 8}),
+        ("cones in their warps", 32, {"SP_SPREAD_CONES": 0}),
+        ("cones in their warps, clock counts", 32, {"SP_SPREAD_CONES": 0,
+                                                    "TP_CLOCKS": 1}),
+    ],
     # K3's own: clock counts of an iteration's four parts, and its z2
     # chains reading C2d from shared memory or by __ldg, the other way from
     # the committed build's (no variants of slab rows, ring depth or tile)
@@ -630,8 +656,8 @@ OWN_BUILDS = {
 
 
 def stage_variants(kernel: str):
-    """K5's or K6's parent first, then the committed source at each L, then
-    the builds of STAGE_BUILDS."""
+    """The kernel's parent first, then the committed source at each L, then
+    the builds of STAGE_BUILDS (where the kernel takes them) and its own."""
     spec = STAGE[kernel]
     out = [Variant("parent (8 lanes, one column a thread)",
                    VARIANTS / f"{kernel}_parent.cu", 8)]
@@ -641,8 +667,11 @@ def stage_variants(kernel: str):
               + OWN_BUILDS[kernel])
     for name, L, macros in builds:
         macros = {m.format(P=spec["prefix"]): x for m, x in macros.items()}
+        refill = bool(macros.get("TP_REFILL", 1))
+        if kernel == "fused_split":    # the plan decides, not the macro
+            macros.pop("TP_REFILL", None)
         v = Variant(f"{name} L={L}", CSRC / f"{kernel}.cu", L, macros)
-        v.refill = bool(macros.get("TP_REFILL", 1))
+        v.refill = refill
         v.builds = {
             lanes: (macros.get(f"{spec['prefix']}_SLAB_{lanes}", slab),
                     macros.get(f"{spec['prefix']}_BLOCKS_{lanes}", minb))
@@ -710,7 +739,7 @@ def clock_shares(plan, k=None):
 
 
 def ab_stage(kernel: str, result: dict, only=()):
-    """K5 or K6: every build against the parent, bit for bit, in every mode
+    """K2-K7: every build against the parent, bit for bit, in every mode
     chip_smoke.py runs; then parent and builds timed in turns at the family
     batches, with each build's group and block iterations. With `only`, the
     parent and the builds whose names hold one of its strings."""
@@ -771,12 +800,9 @@ def block_iterations(k, lanes):
 
 
 def tile_families(kernel):
-    """name -> (solver builder, input builder, argument builder)."""
-    if kernel == "fused_split":
-        return {fam: (lambda fam=fam: c.hmpc_solver(sp, fam, device="cuda"),
-                      lambda B, fam=fam: c.hmpc_inputs(sp, fam, 0, B),
-                      c.hmpc_kernel_args)
-                for fam in ("HMPC-ADMM-split", "HMPC-SADMM-split")}
+    """name -> (solver builder, input builder, argument builder): K1's
+    families."""
+    assert kernel == "fused_admm", kernel
     plain = lambda B: c.problem(sp, 0, B)[2]  # noqa: E731
     return {
         "laxMPC-ADMM": (lambda: c.fused_solver(
@@ -798,12 +824,12 @@ def time_in_turns(variants, args, kk, reps=3):
 
 
 def ab_tile(kernel: str, result: dict, only=()):
-    """Build, check against the parent and time every variant of K1 or K7;
-    with `only`, the parent and the builds whose names hold one of its
-    strings, and not K1's bf16 and sort_lanes timings."""
-    # the state buffers alone at 64 lanes a block: K1's z, v, lam and dq
-    # (K7's aux, zs, lm and dq) as [width][64] floats
-    width = 256 if kernel == "fused_admm" else 320
+    """Build, check against the parent and time every variant of K1; with
+    `only`, the parent and the builds whose names hold one of its strings,
+    and not K1's bf16 and sort_lanes timings."""
+    # the state buffers alone at 64 lanes a block: K1's z, v, lam and dq as
+    # [width][64] floats
+    width = 256
     c.log(f"{kernel} at width {width}: the four [width][64] buffers of 64 "
           f"lanes a block take {4 * 4 * width * 64} of {k1.SMEM_MAX} bytes "
           f"before the ring: not built")
@@ -921,7 +947,7 @@ def main(kernels):
     torch.set_float32_matmul_precision("highest")
     c.log(c.card_line())
     result = {}
-    for kernel in kernels or ["fused_admm", "fused_split", *STAGE]:
+    for kernel in kernels or ["fused_admm", *STAGE]:
         if kernel in STAGE:
             ab_stage(kernel, result, only)
         else:
