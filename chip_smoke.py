@@ -115,14 +115,18 @@ started together), then
      one bit for bit at laxMPC-ADMM N=64 (512 columns), and checks that
      make_solver(..., backend="fused", device="cuda") refuses at build
      time a width past each kernel's cap of 1024 columns (1056); then
-     K2-K7's wide builds (csrc/wide_cols.cuh: 512 threads of two columns,
-     8 lanes a block): each forced at its family's N=30 width gives the
-     narrow build's bits in every mode of the kernel's own phase (4, 7,
-     10 or 13), and at the first oscillating-masses horizon whose padded
-     width passes 512 and the widest whose widths stay at or under 1024
-     (WIDE_HORIZONS; one family a kernel at the bench's settings, B=8192)
-     it converges on every lane, agrees with its plain version as in 1
-     and is timed against it (kernel, plain once, kernel) with its bound;
+     K2-K7's wide builds (512 threads of two columns; K2, K3, K4 and K6
+     on csrc/wide_cols.cuh at 8 lanes a block, K5 and K7 on the stage's
+     engine at 16 or 8 lanes a block with refill): each forced at its
+     family's N=30 width gives the narrow build's bits in every mode of
+     the kernel's own phase (4, 7, 10 or 13; K5 and K7 at each lanes-a-
+     block build, with refill and without), and at the first
+     oscillating-masses horizon whose padded width passes 512 and the
+     widest whose widths stay at or under 1024 (WIDE_HORIZONS; one family
+     a kernel at the bench's settings, B=8192, and HMPC-SADMM-split at
+     N=58 for K7's half-step) it converges on every lane, agrees with its
+     plain version as in 1 and is timed against it (kernel, plain once,
+     kernel) with its bound and its plan;
  18. runs every kernel away from the N=30 fixture, one family a kernel
      (laxMPC-ADMM, laxMPC-FISTA, MPCT-EADMM, ellipMPC-ADMM, -soc,
      HMPC-ADMM, HMPC-ADMM-split): on the three random plants of
@@ -1796,6 +1800,11 @@ WIDE_HORIZONS = {
     "fused_hmpc": (61, 124),
     "fused_split": (58, 121),
 }
+# the wide builds on the stage's engine (K5, K7: lanes a block and refill
+# planned as the narrow builds'), and the runs past 512 columns of a second
+# family of a kernel, logged beside its rows: K7's SADMM half-step
+STAGE_WIDE = ("fused_soc", "fused_split")
+WIDE_EXTRA = {"fused_split": (("HMPC-SADMM-split", 58),)}
 
 
 def fam_kernel(fam):
@@ -1917,30 +1926,47 @@ def event_ms(fn):
 def phase_wide_kernels(sp):
     """K2-K7's wide builds on CUDA tensors: each forced at its family's
     N=30 width gives the narrow build's bits in every mode of the kernel's
-    own phase; at the first horizon past 512 columns and the widest up to
-    1024, B=8192, every lane converges, k agrees with the plain version on
-    >= 0.9985 of lanes and u within U_TOL, timed in turns (kernel, plain
-    once, kernel) with the bound and its share. Returns, by kernel, the
-    rows by padded width and the largest u error."""
+    own phase (K5 and K7 at each lanes-a-block build, with refill and
+    without); at the first horizon past 512 columns and the widest up to
+    1024, B=8192 (and WIDE_EXTRA's), every lane converges, k agrees with
+    the plain version on >= 0.9985 of lanes and u within U_TOL, timed in
+    turns (kernel, plain once, kernel) with the bound, its share and the
+    plan. Returns, by kernel, the rows by padded width (WIDE_FAMILY's
+    family) and the largest u error."""
+    from spcies_tpu_torch.kernels.stage import WIDE_BUILDS
     out = {}
     for name, fam in WIDE_FAMILY.items():
         _, kern, plain, u_at, k_at, u_off = fam_kernel(fam)
+        builds = ([(L, refill) for L in sorted(WIDE_BUILDS)
+                   for refill in (True, False)] if name in STAGE_WIDE
+                  else [(None, None)])
         for label, mfam, B, fixed, _cut, kw, extra in kernel_modes(name):
             solver = fam_solver(sp, mfam, **kw)
             args, kk = fam_args(sp, mfam, solver, B, fixed, **extra)
             narrow = kern(*args, **kk, wide=False)
-            wide = kern(*args, **kk, wide=True)
-            assert kern.last_plan["wide"], label
-            torch.cuda.synchronize()
-            same = all(bool(torch.equal(a[:B], b[:B]))
-                       for a, b in zip(wide, narrow))
-            assert same, (name, label)
+            plans = []
+            for L, refill in builds:
+                with nullcontext() if refill in (None, True) else \
+                        without_refill():
+                    wide = kern(*args, **kk, wide=True, lanes=L)
+                plan = {k: v for k, v in kern.last_plan.items()
+                        if not torch.is_tensor(v)}
+                assert plan["wide"], label
+                assert L is None or (plan["lanes"], plan["refill"]) == (
+                    L, refill), (label, plan)
+                torch.cuda.synchronize()
+                same = all(bool(torch.equal(a[:B], b[:B]))
+                           for a, b in zip(wide, narrow))
+                assert same, (name, label, L, refill)
+                plans.append(plan)
             log(f"phase 17 {name} {label}: wide build bit-identical to "
-                f"the narrow build (plan {kern.last_plan})")
+                f"the narrow build (plans {plans})")
         rows, u_err = {}, 0.0
-        for horizon in WIDE_HORIZONS[name]:
-            solver = fam_solver(sp, fam, horizon=horizon)
-            args, kk = fam_args(sp, fam, solver, FB)
+        runs = [(fam, h) for h in WIDE_HORIZONS[name]] + list(
+            WIDE_EXTRA.get(name, ()))
+        for rfam, horizon in runs:
+            solver = fam_solver(sp, rfam, horizon=horizon)
+            args, kk = fam_args(sp, rfam, solver, FB)
             kx = kernel_extra(name, solver)
             t0, out_k = event_ms(lambda: kern(*args, **kk, **kx))
             plan = dict(kern.last_plan)
@@ -1952,11 +1978,11 @@ def phase_wide_kernels(sp):
                           k_at=k_at, u_off=u_off(solver))
             width = max(max(t.shape) for t in solver.raw_fn.operator
                         if t.dim() == 2)
-            check_agreement(f"{name} {fam} N={horizon} ({width} columns)",
+            check_agreement(f"{name} {rfam} N={horizon} ({width} columns)",
                             a, phase=17)
             k = out_k[k_at][:FB]
             kernel_ms = min(t1, t2)
-            bound = roofline(args + out_k, iter_flops(k, fam_flops(fam,
+            bound = roofline(args + out_k, iter_flops(k, fam_flops(rfam,
                                                                    solver)))
             row = dict(kernel=kernel_ms, first_call=t0, plain=t_plain,
                        bound=bound, share=bound[0] / kernel_ms,
@@ -1968,9 +1994,22 @@ def phase_wide_kernels(sp):
                        u_err=a["u_err"])
             if name == "fused_eadmm":
                 row["nd"] = plan["nd"]
-            log(f"phase 17 {name} {fam} N={horizon} ({width} columns) "
+            if name in STAGE_WIDE:
+                row.update(iterations(k, kern), slab=plan["slab"],
+                           blocks=plan["blocks"],
+                           global_leaves=plan["global_leaves"])
+                # every other lanes-a-block build gives the planned one's
+                # bits (16 lanes with global leaves against 8 with shared)
+                for L in sorted(set(WIDE_BUILDS) - {plan["lanes"]}):
+                    other = kern(*args, **kk, lanes=L)
+                    torch.cuda.synchronize()
+                    assert all(bool(torch.equal(x, y))
+                               for x, y in zip(other, out_k)), (name, L)
+                    row[f"bits_equal_lanes_{L}"] = True
+            log(f"phase 17 {name} {rfam} N={horizon} ({width} columns) "
                 f"times (ms, B={FB}, CUDA events): " + json.dumps(row))
-            rows[width] = row
+            if rfam == fam:
+                rows[width] = row
             u_err = max(u_err, a["u_err"])
         out[name] = (rows, u_err)
     return out

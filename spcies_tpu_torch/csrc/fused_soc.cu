@@ -77,7 +77,6 @@
 // the z slab and iscale = 0, so they stay exactly 0 and add nothing to the
 // row maxima.
 
-#if !WIDE_PART
 #include <cuda_runtime.h>
 
 #include "tile_product.cuh"
@@ -161,9 +160,11 @@ struct Params {
 using tp::bit;
 
 // The block: the stage's engine over the leaves aux, zs, lm, and what
-// thread j knows of its column.
-template <int L, int TC, int SR>
-struct Engine : tp::TileEngine<L, TC, SR, NSNAP> {
+// thread j knows of its column (its first, j, in the wide build's CPT = 2:
+// none past P, its blockDim.x threads; WideEngine then lays out what
+// follows dq for its 16 warps).
+template <int L, int TC, int SR, int CPT = 1>
+struct Engine : tp::TileEngine<L, TC, SR, NSNAP, CPT> {
   static constexpr int G = L / 8;
   const Params& p;
   float *aux, *zs, *lm;
@@ -200,8 +201,14 @@ struct Engine : tp::TileEngine<L, TC, SR, NSNAP> {
     this->snap = p.snap;
     this->snap_width = NSNAP * P;
     this->out = tp::LaneOut{p.k, p.done, p.rp, p.rd};
-    scale = p.scale[j];
-    iscale = p.iscale[j];
+    if constexpr (CPT == 1) {
+      scale = p.scale[j];
+      iscale = p.iscale[j];
+    } else {
+      this->T = blockDim.x;
+      scale = j < P ? p.scale[j] : 0.0f;
+      iscale = j < P ? p.iscale[j] : 0.0f;
+    }
     lb = j < p.dim_p ? p.lb[j] : 0.0f;
     ub = j < p.dim_p ? p.ub[j] : 0.0f;
     // the product's row ranges: [0, z_end) and [dim_p, s_end)
@@ -210,11 +217,24 @@ struct Engine : tp::TileEngine<L, TC, SR, NSNAP> {
       bounds[1] = p.dim_p;
     }
     __syncthreads();
-    if (iscale != 0.0f) atomicMax(&bounds[j < p.dim_p ? 0 : 1], j + 1);
+    if constexpr (CPT == 1) {
+      if (iscale != 0.0f) atomicMax(&bounds[j < p.dim_p ? 0 : 1], j + 1);
+    } else {
+#pragma unroll
+      for (int c = 0; c < CPT; ++c) {
+        const int jc = this->row(c);
+        if (jc < P && p.iscale[jc] != 0.0f)
+          atomicMax(&bounds[jc < p.dim_p ? 0 : 1], jc + 1);
+      }
+    }
     __syncthreads();
     n_s = bounds[1] - p.dim_p;
-    tp::ring_init<SR>(this->ring, smem, p.m1p, P, bounds[0], p.dim_p,
-                      bounds[1], j, P);
+    if constexpr (CPT == 1)
+      tp::ring_init<SR>(this->ring, smem, p.m1p, P, bounds[0], p.dim_p,
+                        bounds[1], j, P);
+    else
+      tp::ring_init<SR>(this->ring, smem, p.m1p, P, bounds[0], p.dim_p,
+                        bounds[1], j, this->T);
   }
 
   // One iteration (tp::run_modes, tp::run_refill). Lanes in `frozen` keep
@@ -353,6 +373,11 @@ struct Engine : tp::TileEngine<L, TC, SR, NSNAP> {
   }
 };
 
+}  // namespace
+
+#if !WIDE_PART
+namespace {
+
 template <int L, int TC, int MAXT, int MINB, int SR, bool REFILL>
 __global__ void __launch_bounds__(MAXT, MINB) fused_soc_kernel(Params p) {
   extern __shared__ __align__(16) float smem[];
@@ -451,198 +476,317 @@ extern "C" int fused_soc_launch(
 
 #if WIDE_PART
 // The wide build, a translation unit of its own (-DWIDE_PART=1;
-// kernels/_build.py compiles the narrow builds above with
-// -DWIDE_PART=0 from exactly their earlier text).
-
-#include <cuda_runtime.h>
-
-#include "wide_cols.cuh"
+// kernels/_build.py compiles the narrow builds above with -DWIDE_PART=0
+// from exactly their text).
+//
+// Past MAX_COLS columns, up to WIDE_COLS = 1024: fused_soc_wide_kernel runs
+// WideEngine, the narrow Engine on WIDE_THREADS = 512 threads of WIDE_CPT = 2
+// columns (t and t + 512, as K1's wide build in csrc/fused_admm.cu), at 16
+// or 8 lanes a block (kernels/stage.py WIDE_BUILDS). aux, zs and lm lie
+// [P][L] in shared memory and dq [P][L + 4], with 16-row slabs of M1' at 16
+// lanes (up to 544 columns) and 8-row slabs at 8 (up to 1024); where the
+// three leaves do not fit at 16 lanes (576 columns and more), zs and lm lie
+// in the block's global scratch in the same layout, 8-row slabs (the global
+// leaves: only each column's own thread touches them, in the element-wise
+// half and the moves of a lane group's state, so they need no barrier, and
+// the L2 bytes of M1' a lane halve against 8 lanes). M1''s real rows come
+// through the stage's TMA ring; the product's tiles are 8 lanes x TCW
+// columns, TCW = max(TC, 2 L / 8), so that (L / 8) P / TCW <= 512 tiles
+// cover the block's columns. The s slab, the last 32 columns, lies in one
+// half of the threads' columns (past 512 columns threads 0-31's second):
+// that warp stages w and its thread t takes lane t's cone, its squares
+// added in column order, as the narrow build does. The modes and refill
+// are the stage's (tp::run_lanes), exact-k's through run_refill_exact, so
+// every build gives the narrow builds' bits. The build before this one ran
+// csrc/wide_cols.cuh's box_run with its state in global memory.
 
 namespace {
 
-constexpr unsigned FULL = 0xffffffffu;
+constexpr int WIDE_CPT = 2;             // columns a thread
+constexpr int WIDE_THREADS = MAX_COLS;  // threads a block
+constexpr int WIDE_COLS = WIDE_CPT * WIDE_THREADS;
+constexpr int WIDE_SLAB_16 = 16;        // rows a slab at 16 lanes a block
+constexpr int WIDE_SLAB_8 = 8;          // and at 8, and with global leaves
+constexpr long SMEM_MAX = 232448;       // shared bytes a block can have
 
-// ---- the wide build ---------------------------------------------------------
-//
-// Past MAX_COLS columns, up to wc::COLS = 1024: fused_soc_wide_kernel runs
-// 512 threads of two columns, t and t + 512, at 8 lanes a block, on the
-// first layout (csrc/variants/fused_soc_parent.cu: one column a thread, M1'
-// read from L2) with each thread taking two columns (csrc/wide_cols.cuh),
-// so it gives this kernel's bits. The s slab is the last warp of columns,
-// P - 32 .. P - 1: past 512 columns threads 480-511 own it as their second
-// column, and its cone's sums stay shuffles within that warp, the squares
-// added in column order. The state (aux, zs, lm and the consumed aux) lives
-// in global memory that only its thread touches; shared memory holds dq
-// ([2][P][8], by parity) and the row maxima. No refill: plain free-run
-// drains each block, one group of 8 lanes.
+constexpr int wide_slab(int lanes) {
+  return lanes == 16 ? WIDE_SLAB_16 : WIDE_SLAB_8;
+}
 
-using wc::TB;
+// Dynamic shared bytes of a block at `lanes` lanes, slabs of `sr` rows and
+// `leaves` leaves in shared memory: the ring of M1''s slabs, the leaves as
+// [P][lanes], dq with its padding, the 16 warps' row maxima, the masks, the
+// window starts, the slots' lanes and the lanes' cones.
+long wide_bytes(int P, int lanes, int sr, int leaves) {
+  return tp::ring_bytes(P, sr) +
+         4L * (leaves * P * lanes + P * (lanes + tp::DQ_PAD) +
+               (WIDE_THREADS / 32) * 2L * lanes + 4 + 5L * lanes);
+}
 
-// The element-wise half of the first layout's iteration for column j (the
-// thread's column of half h): the clip on the z slab, the SOC on the s slab.
-struct SocOp {
-  float lb[wc::CPT], ub[wc::CPT], scale[wc::CPT], iscale[wc::CPT];
-  int dim_p, n_s;
+// Whether zs and lm go to global scratch: where the three leaves do not fit.
+bool wide_global(int P, int lanes) {
+  return wide_bytes(P, lanes, wide_slab(lanes), 3) > SMEM_MAX;
+}
 
+// Columns of a product tile at L lanes: 512 threads cover (L / 8) P / TCW
+// tiles up to 1024 columns.
+template <int L>
+constexpr int wide_tc() {
+  return tp::tile_cols<L>() > (L / 8) * WIDE_CPT ? tp::tile_cols<L>()
+                                                  : (L / 8) * WIDE_CPT;
+}
+
+// The wide kernels' parameters: the narrow ones, exact-k's window starts
+// and links for refill, and the blocks' scratch of the global leaves.
+struct WideParams : Params {
+  int* wk;         // [B] window starts, [B / 8] links
+  float* scratch;  // [blocks][2][P][L]: zs, then lm
+};
+
+template <int L, int TC, int SR, bool GL>
+struct WideEngine : Engine<L, TC, SR, WIDE_CPT> {
+  using Base = Engine<L, TC, SR, WIDE_CPT>;
+  using Base::G;
+  using Base::aux;
+  using Base::cone_lane;
+  using Base::lm;
+  using Base::p;
+  using Base::zs;
+  float lb2, ub2, scale2, iscale2;  // the second column's
+
+  // The row maxima of the block's warps after dq; with GL, zs and lm in the
+  // block's rows of `scratch`, dq right after aux.
+  __device__ __forceinline__ WideEngine(const WideParams& p_, float* smem,
+                                        int* bounds)
+      : Base(p_, smem, bounds) {
+    const int P = p.P;
+    if constexpr (GL) {
+      zs = p_.scratch + static_cast<size_t>(blockIdx.x) * 2 * P * L;
+      lm = zs + P * L;
+      this->leaf[1].sh = zs;
+      this->leaf[2].sh = lm;
+      this->dq = aux + P * L;
+    }
+    this->rwarps = this->T >> 5;
+    this->red = this->dq + P * (L + tp::DQ_PAD);
+    this->ctrl = reinterpret_cast<unsigned*>(this->red + this->rwarps * 2 * L);
+    this->sn_k = reinterpret_cast<int*>(this->ctrl + 4);
+    this->orig = this->sn_k + L;
+    cone_lane = reinterpret_cast<float*>(this->orig + L);
+    const int j = this->row(1);
+    lb2 = j < p.dim_p ? p.lb[j] : 0.0f;
+    ub2 = j < p.dim_p ? p.ub[j] : 0.0f;
+    scale2 = j < p.P ? p.scale[j] : 0.0f;
+    iscale2 = j < p.P ? p.iscale[j] : 0.0f;
+  }
+
+  // Engine::iterate over the thread's columns.
   template <bool CHECK>
-  __device__ __forceinline__ void ew(const wc::Box& x, int h, int j,
-                                     unsigned frozen, float* dq_s,
-                                     float (&ap)[TB], float (&ad)[TB]) {
-    float* st_aux = wc::box_leaf(x, wc::BX);
-    float* st_zs = wc::box_leaf(x, wc::BA);
-    float* st_lm = wc::box_leaf(x, wc::BB);
-    const int o = j * TB;
-    float aux[TB], zs[TB], lm[TB], zn[TB];
-    wc::load(aux, st_aux + o);
-    wc::load(zs, st_zs + o);
-    wc::load(lm, st_lm + o);
-    if (j < dim_p) {
+  TP_ITERATE unsigned iterate(unsigned frozen, unsigned idle, unsigned last,
+                              bool stop, unsigned rmask, int kinc) {
+    this->tic();
+    const unsigned dead = tp::whole_groups<L>(frozen | idle);
+    const int P = p.P, dim_p = p.dim_p;
+    // the warp that holds the s slab (every thread of it, in one half of
+    // their columns) takes the lanes' cones
 #pragma unroll
-      for (int b = 0; b < TB; ++b)
-        zn[b] = fminf(fmaxf(aux[b] + iscale[h] * lm[b], lb[h]), ub[h]);
-    } else {
-      // the s slab, one warp: SOC over [s0 | tail]; the squares of the
-      // cone's n_s entries broadcast in turn and added in column order
-      float w[TB], sq[TB], ss[TB];
-#pragma unroll
-      for (int b = 0; b < TB; ++b) {
-        w[b] = aux[b] + iscale[h] * lm[b];
-        sq[b] = w[b] * w[b];
-        ss[b] = 0.0f;
-      }
-      for (int i = 0; i < n_s; ++i) {
-#pragma unroll
-        for (int b = 0; b < TB; ++b)
-          ss[b] = ss[b] + __shfl_sync(FULL, sq[b], i);
-      }
-#pragma unroll
-      for (int b = 0; b < TB; ++b) {
-        const float s0 = __shfl_sync(FULL, w[b], 0);
-        const float nrm = sqrtf(fmaxf(ss[b] - s0 * s0, 0.0f));
-        const bool inside = nrm <= s0;
-        const bool apex = !inside && nrm <= -s0;
-        const float coef = 0.5f * (s0 + nrm);
-        if (j == dim_p)
-          zn[b] = inside ? s0 : (apex ? 0.0f : coef);
-        else
-          zn[b] = inside ? w[b]
-                         : (apex ? 0.0f : w[b] * (coef / fmaxf(nrm, 1e-30f)));
-      }
+    for (int c = 0; c < WIDE_CPT; ++c) {
+      const int j = this->row(c);
+      if (j >= dim_p && j < P)
+        spread_cone(dead, j, c == 0 ? this->iscale : iscale2);
     }
-    float dq[TB];
 #pragma unroll
-    for (int b = 0; b < TB; ++b) {
-      const float lmn = lm[b] + scale[h] * (aux[b] - zn[b]);
-      const float dd = zn[b] - zs[b];
-      dq[b] = (lmn - lm[b]) - scale[h] * dd;
+    for (int g = 0; g < G; ++g) {
+      if (bit(dead, 8 * g)) continue;
+      float ap[8], ad[8];
+#pragma unroll
+      for (int b = 0; b < 8; ++b) ap[b] = ad[b] = 0.0f;
+#pragma unroll
+      for (int c = 0; c < WIDE_CPT; ++c) {
+        const int j = this->row(c);
+        if (j >= P) break;
+        const float scale = c == 0 ? this->scale : scale2;
+        float ax[8], zo[8], lo[8], zn[8];
+        tp::ld8<L>(ax, aux, j, g);
+        tp::ld8<L>(zo, zs, j, g);
+        tp::ld8<L>(lo, lm, j, g);
+        if (j < dim_p) {
+          const float lb = c == 0 ? this->lb : lb2;
+          const float ub = c == 0 ? this->ub : ub2;
+          const float is = c == 0 ? this->iscale : iscale2;
+#pragma unroll
+          for (int b = 0; b < 8; ++b)
+            zn[b] = fminf(fmaxf(ax[b] + is * lo[b], lb), ub);
+        } else {
+          // each lane's case from spread_cone, on w staged in this row
+          float w[8];
+          tp::ld8_dq<L>(w, this->dq, j, g);
+#pragma unroll
+          for (int b = 0; b < 8; ++b) {
+            const int lane = 8 * g + b;
+            const float cs = cone_lane[2 * L + lane];
+            if (j == dim_p)
+              zn[b] = cone_lane[lane];
+            else
+              zn[b] = cs == 0.0f ? w[b]
+                                 : (cs == 1.0f ? 0.0f
+                                               : w[b] * cone_lane[L + lane]);
+          }
+        }
+        float d[8];
+#pragma unroll
+        for (int b = 0; b < 8; ++b) {
+          const float lmn = lo[b] + scale * (ax[b] - zn[b]);
+          const float dd = zn[b] - zo[b];
+          d[b] = (lmn - lo[b]) - scale * dd;
+          if (CHECK) {
+            ap[b] = fmaxf(ap[b], fabsf(ax[b] - zn[b]));
+            ad[b] = fmaxf(ad[b], fabsf(dd));
+          }
+          if (!bit(frozen, g * 8 + b)) {
+            lo[b] = lmn;
+            zo[b] = zn[b];
+          }
+        }
+        tp::st8_dq<L>(this->dq, j, g, d);
+        tp::st8<L>(zs, j, g, zo);
+        tp::st8<L>(lm, j, g, lo);
+      }
       if (CHECK) {
-        ap[b] = fmaxf(ap[b], fabsf(aux[b] - zn[b]));
-        ad[b] = fmaxf(ad[b], fabsf(dd));
-      }
-      if (!wc::bit(frozen, b)) {
-        lm[b] = lmn;
-        zs[b] = zn[b];
+        tp::warp_max<L>(ap, this->red, this->tid, 0, g);
+        tp::warp_max<L>(ad, this->red, this->tid, 1, g);
       }
     }
-    wc::store(dq_s + o, dq);
-    wc::store(st_zs + o, zs);
-    wc::store(st_lm + o, lm);
+    return this->template product_half<CHECK>(dead, frozen, last, stop,
+                                              rmask, kinc);
+  }
+
+  // Engine::spread_cone for the thread's column j of the s slab, of scale
+  // `is`.
+  __device__ __forceinline__ void spread_cone(unsigned dead, int j,
+                                              float is) {
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      if (bit(dead, 8 * g)) continue;
+      float ax[8], lo[8], w[8];
+      tp::ld8<L>(ax, aux, j, g);
+      tp::ld8<L>(lo, lm, j, g);
+#pragma unroll
+      for (int b = 0; b < 8; ++b) w[b] = ax[b] + is * lo[b];
+      tp::st8_dq<L>(this->dq, j, g, w);
+    }
+    __syncwarp();
+    const int t = j - p.dim_p;
+    if (t < L && !bit(dead, t)) {
+      const float* col = this->dq + p.dim_p * (L + tp::DQ_PAD) + t;
+      const float s0 = col[0];
+      float ss = 0.0f;
+      for (int i = 0; i < this->n_s; ++i) {
+        const float x = col[i * (L + tp::DQ_PAD)];
+        const float sq = x * x;
+        ss = ss + sq;
+      }
+      const float nrm = sqrtf(fmaxf(ss - s0 * s0, 0.0f));
+      const bool inside = nrm <= s0;
+      const bool apex = !inside && nrm <= -s0;
+      const float coef = 0.5f * (s0 + nrm);
+      cone_lane[t] = inside ? s0 : (apex ? 0.0f : coef);
+      cone_lane[L + t] = coef / fmaxf(nrm, 1e-30f);
+      cone_lane[2 * L + t] = inside ? 0.0f : (apex ? 1.0f : 2.0f);
+    }
+    __syncwarp();
   }
 };
 
-__global__ void __launch_bounds__(wc::THREADS, 1)
-    fused_soc_wide_kernel(wc::Box x, SocOp op, const float* lb,
-                          const float* ub, const float* scale,
-                          const float* iscale) {
+template <int L, int TC, int SR, bool GL, bool REFILL, bool EXACT>
+__global__ void __launch_bounds__(WIDE_THREADS, 1)
+    fused_soc_wide_kernel(WideParams p) {
   extern __shared__ __align__(16) float smem[];
   __shared__ int bounds[2];  // z_end, s_end
-  const int dim_p = op.dim_p;
-  x.dq = smem;
-  x.red = smem + 2 * x.P * TB;
-  if (threadIdx.x == 0) {
-    bounds[0] = 0;
-    bounds[1] = dim_p;
+  WideEngine<L, TC, SR, GL> e(p, smem, bounds);
+  tp::run_lanes<L, REFILL, EXACT>(e, p.k_max, p.check_every, p.exact_k,
+                                  p.n_groups, p.queue, 0, p.wk);
+}
+
+template <int L, bool GL, bool REFILL, bool EXACT>
+int wide_launch(const WideParams& p, int blocks, int smem, void* stream) {
+  constexpr int SR = GL ? WIDE_SLAB_8 : wide_slab(L);
+  void (*kernel)(WideParams) =
+      fused_soc_wide_kernel<L, wide_tc<L>(), SR, GL, REFILL, EXACT>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
   }
-  __syncthreads();
-#pragma unroll
-  for (int h = 0; h < wc::CPT; ++h) {
-    const int j = wc::col(h, x.P);
-    op.lb[h] = j >= 0 && j < dim_p ? lb[j] : 0.0f;
-    op.ub[h] = j >= 0 && j < dim_p ? ub[j] : 0.0f;
-    op.scale[h] = j < 0 ? 0.0f : scale[j];
-    op.iscale[h] = j < 0 ? 0.0f : iscale[j];
-    if (j >= 0 && op.iscale[h] != 0.0f)
-      atomicMax(&bounds[j < dim_p ? 0 : 1], j + 1);
-  }
-  __syncthreads();
-  x.r0 = 0;
-  x.r1 = bounds[0];
-  x.r2 = dim_p;
-  x.r3 = bounds[1];
-  op.n_s = bounds[1] - dim_p;
-  wc::box_run<8>(x, op);
+  kernel<<<blocks, WIDE_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int L, bool GL>
+int wide_lanes(const WideParams& p, bool refill, bool exact, int blocks,
+               int smem, void* stream) {
+  if (!refill)
+    return wide_launch<L, GL, false, false>(p, blocks, smem, stream);
+  if (exact) return wide_launch<L, GL, true, true>(p, blocks, smem, stream);
+  return wide_launch<L, GL, true, false>(p, blocks, smem, stream);
 }
 
 }  // namespace
 
-// Dynamic shared bytes of a block of the wide build (kernels/fused_soc.py
-// shared_bytes(P, wide=True) computes the same): dq as [2][P][8] and the
-// warps' row maxima.
-extern "C" long fused_soc_wide_smem(int P) { return wc::box_smem(P); }
+// Dynamic shared bytes of a block of the wide build at `lanes` lanes
+// (kernels/fused_soc.py shared_bytes(P, lanes, wide=True) computes the
+// same): wide_bytes with the three leaves, or with aux alone and 8-row
+// slabs where zs and lm go to global scratch.
+extern "C" long fused_soc_wide_smem(int P, int lanes) {
+  return wide_global(P, lanes) ? wide_bytes(P, lanes, WIDE_SLAB_8, 1)
+                               : wide_bytes(P, lanes, wide_slab(lanes), 3);
+}
 
-// Launch the wide build on `stream`: the arguments of fused_soc_launch but
-// the refill queue and the lanes, and `state`, the blocks' global state
-// ([B / 8][4][P][8] floats). The geometry comes from the wrapper
+// Launch the wide build on `stream`: the arguments of fused_soc_launch, the
+// window starts and links of exact-k with refill (`wk`, B + B / 8 int32)
+// and the global leaves (`scratch`, blocks x 2 P lanes floats where
+// wide_global, else unused) after the queue, and `refill` after the lanes,
+// with `threads` WIDE_THREADS, `lanes` 8 or 16 and P up to WIDE_COLS. With
+// refill, in every mode, any number of persistent blocks up to one per L
+// lanes; else B / lanes blocks. The geometry comes from the wrapper
 // (kernels/fused_soc.py launch_plan with wide=True) and is checked here
 // again. Returns the CUDA error of the launch, as an int.
 extern "C" int fused_soc_wide_launch(
     const float* aux1, const float* zs0, const float* lm0, const float* m1p,
     const float* lb, const float* ub, const float* scale,
     const float* iscale, float* zs, float* lm, float* aux, int* k,
-    int* done, float* rp, float* rd, float* snap, float* state, int B,
-    int P, int dim_p, int blocks, int threads, int smem, float tol_p,
-    float tol_d, int k_max, int check_every, int exact_k, void* stream) {
+    int* done, float* rp, float* rd, float* snap, int* queue, int* wk,
+    float* scratch, int B, int P, int dim_p, int lanes, int refill,
+    int blocks, int threads, int smem, float tol_p, float tol_d, int k_max,
+    int check_every, int exact_k, void* stream) {
   const bool exact = check_every > 1 && exact_k;
-  if (P <= 0 || P % 32 != 0 || P > wc::COLS || dim_p % 32 != 0 ||
-      P - dim_p != 32 || B % TB != 0 || blocks != B / TB ||
-      threads != wc::THREADS || smem != wc::box_smem(P) ||
-      check_every < 1 || k_max < 1 ||
-      (B > 0 && (state == nullptr || (exact && snap == nullptr))))
+  const int groups = B / 8, slots = lanes / 8;
+  if (P <= 0 || P % 32 != 0 || P > WIDE_COLS || dim_p % 32 != 0 ||
+      P - dim_p != 32 || (lanes != 8 && lanes != 16) || B % 8 != 0 ||
+      threads != WIDE_THREADS || smem != fused_soc_wide_smem(P, lanes) ||
+      smem > SMEM_MAX || check_every < 1 || k_max < 1 ||
+      (exact && B > 0 && snap == nullptr) ||
+      (B > 0 && wide_global(P, lanes) && scratch == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
+  if (refill ? (blocks < 1 || blocks > (groups + slots - 1) / slots ||
+                queue == nullptr || (exact && wk == nullptr))
+             : (B % lanes != 0 || blocks != B / lanes))
+    return B == 0 ? 0 : static_cast<int>(cudaErrorInvalidValue);
   if (B == 0) return 0;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        fused_soc_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  wc::Box x{};
-  x.st = state;
-  x.m = m1p;
-  x.in[0] = aux1;
-  x.in[1] = zs0;
-  x.in[2] = lm0;
-  x.out[0] = aux;
-  x.out[1] = zs;
-  x.out[2] = lm;
-  x.k = k;
-  x.done = done;
-  x.rp = rp;
-  x.rd = rd;
-  x.snap = snap;
-  x.P = P;
-  x.tol_p = tol_p;
-  x.tol_d = tol_d;
-  x.k_max = k_max;
-  x.check_every = check_every;
-  x.fixed_iters = 0;
-  x.exact_k = exact_k;
-  SocOp op{};
-  op.dim_p = dim_p;
-  fused_soc_wide_kernel<<<blocks, wc::THREADS, smem,
-                          static_cast<cudaStream_t>(stream)>>>(
-      x, op, lb, ub, scale, iscale);
-  return static_cast<int>(cudaGetLastError());
+  WideParams p{};
+  static_cast<Params&>(p) =
+      Params{aux1,  zs0,    lm0,   m1p,   lb,    ub,    scale, iscale,
+             zs,    lm,     aux,   k,     done,  rp,    rd,    snap,
+             queue, groups, P,     dim_p, tol_p, tol_d, k_max, check_every,
+             exact_k};
+  p.wk = wk;
+  p.scratch = scratch;
+  if (lanes == 8)
+    return wide_lanes<8, false>(p, refill, exact, blocks, smem, stream);
+  if (wide_global(P, lanes))
+    return wide_lanes<16, true>(p, refill, exact, blocks, smem, stream);
+  return wide_lanes<16, false>(p, refill, exact, blocks, smem, stream);
 }
 
 #endif  // WIDE_PART

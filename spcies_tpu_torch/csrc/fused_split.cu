@@ -85,7 +85,6 @@
 // and iscale = 0, so they stay exactly 0 (a pad cone slot projects a zero
 // triple onto zero) and add nothing to the row maxima.
 
-#if !WIDE_PART
 #include <cuda_runtime.h>
 
 #include "tile_product.cuh"
@@ -189,9 +188,10 @@ __device__ __forceinline__ void proj_ssoc(float& y0, float& y1, float& y2,
 }
 
 // The block: the stage's engine over the leaves aux, zs, lm, and what thread
-// j knows of its column.
-template <int L, int TC, int SR>
-struct Engine : tp::TileEngine<L, TC, SR, 3> {
+// j knows of its column (its first, j, in the wide build's CPT = 2: none
+// past P; WideEngine then lays out what follows dq for its 16 warps).
+template <int L, int TC, int SR, int CPT = 1>
+struct Engine : tp::TileEngine<L, TC, SR, 3, CPT> {
   static constexpr int G = L / 8;
   const Params& p;
   float *aux, *zs, *lm;
@@ -227,11 +227,19 @@ struct Engine : tp::TileEngine<L, TC, SR, 3> {
     this->snap = p.snap;
     this->snap_width = NSNAP * P;
     this->out = tp::LaneOut{p.k, p.done, p.rp, p.rd};
-    scale = p.scale[j];
-    iscale = p.iscale[j];
-    as = p.alpha * scale;
-    lb = p.lb[j];
-    ub = p.ub[j];
+    if constexpr (CPT == 1) {
+      scale = p.scale[j];
+      iscale = p.iscale[j];
+      as = p.alpha * scale;
+      lb = p.lb[j];
+      ub = p.ub[j];
+    } else {
+      scale = j < P ? p.scale[j] : 0.0f;
+      iscale = j < P ? p.iscale[j] : 0.0f;
+      as = p.alpha * scale;
+      lb = j < P ? p.lb[j] : 0.0f;
+      ub = j < P ? p.ub[j] : 0.0f;
+    }
     cone_warp = j >= p.cone0;
     const int lane = j & 31;
     cone = cone_warp && lane < 3 * p.cone_g;
@@ -243,7 +251,16 @@ struct Engine : tp::TileEngine<L, TC, SR, 3> {
       bounds[1] = p.dim_p;
     }
     __syncthreads();
-    if (iscale != 0.0f) atomicMax(&bounds[j < p.dim_p ? 0 : 1], j + 1);
+    if constexpr (CPT == 1) {
+      if (iscale != 0.0f) atomicMax(&bounds[j < p.dim_p ? 0 : 1], j + 1);
+    } else {
+#pragma unroll
+      for (int c = 0; c < CPT; ++c) {
+        const int jc = this->row(c);
+        if (jc < P && p.iscale[jc] != 0.0f)
+          atomicMax(&bounds[jc < p.dim_p ? 0 : 1], jc + 1);
+      }
+    }
     __syncthreads();
     tp::ring_init<SR>(this->ring, smem, p.m1p, P, bounds[0], p.dim_p,
                       bounds[1], j, this->T);
@@ -383,6 +400,11 @@ struct Engine : tp::TileEngine<L, TC, SR, 3> {
   }
 };
 
+}  // namespace
+
+#if !WIDE_PART
+namespace {
+
 template <int L, int TC, int MAXT, int MINB, int SR, bool REFILL, bool EXACT>
 __global__ void __launch_bounds__(MAXT, MINB) fused_split_kernel(Params p) {
   extern __shared__ __align__(16) float smem[];
@@ -492,205 +514,301 @@ extern "C" int fused_split_launch(
 
 #if WIDE_PART
 // The wide build, a translation unit of its own (-DWIDE_PART=1;
-// kernels/_build.py compiles the narrow builds above with
-// -DWIDE_PART=0 from exactly their earlier text).
-
-#include <cuda_runtime.h>
-
-#include "wide_cols.cuh"
+// kernels/_build.py compiles the narrow builds above with -DWIDE_PART=0
+// from exactly their text).
+//
+// Past MAX_COLS columns, up to WIDE_COLS = 1024: fused_split_wide_kernel runs
+// WideEngine, the narrow Engine on WIDE_THREADS = 512 threads of WIDE_CPT = 2
+// columns (t and t + 512, as K1's wide build in csrc/fused_admm.cu), at 16
+// or 8 lanes a block (kernels/stage.py WIDE_BUILDS). aux, zs and lm lie
+// [P][L] in shared memory and dq [P][L + 4], with 16-row slabs of M1' at 16
+// lanes (up to 544 columns) and 8-row slabs at 8 (up to 1024); where the
+// three leaves do not fit at 16 lanes (576 columns and more), zs and lm lie
+// in the block's global scratch in the same layout, 8-row slabs (the global
+// leaves: only each column's own thread touches them, in the element-wise
+// half and the moves of a lane group's state, so they need no barrier, and
+// the L2 bytes of M1' a lane halve against 8 lanes). M1''s real rows come
+// through the stage's TMA ring; the product's tiles are 8 lanes x TCW
+// columns, TCW = max(TC, 2 L / 8), so that (L / 8) P / TCW <= 512 tiles
+// cover the block's columns (narrower tiles
+// once only the first group is live ask for fewer). An iteration is the
+// narrow build's: the cone columns leave w in their rows of dq, every thread
+// projects (cone, lane) pairs after a barrier (K6's spread cones), then each
+// thread forms zs, lm and dq of each of its columns, the residuals' maxima
+// over its columns and the block's 16 warps. The modes and refill in every
+// mode are the stage's (tp::run_lanes), as the narrow builds run them, so
+// every build gives the narrow builds' bits. The build before this one ran
+// csrc/wide_cols.cuh's box_run with its state in global memory.
 
 namespace {
 
-constexpr int TB = wc::TB;  // lanes per block
-constexpr int MAX_G = 10;   // cones a warp (MAX_CONES_PER_WARP)
-constexpr int UNROLL = 8;   // L2 loads in flight per thread
-constexpr unsigned FULL = 0xffffffffu;
-using wc::bit;
-using wc::proj_ssoc;
+constexpr int WIDE_CPT = 2;             // columns a thread
+constexpr int WIDE_THREADS = MAX_COLS;  // threads a block
+constexpr int WIDE_COLS = WIDE_CPT * WIDE_THREADS;
+constexpr int WIDE_SLAB_16 = 16;        // rows a slab at 16 lanes a block
+constexpr int WIDE_SLAB_8 = 8;          // and at 8, and with global leaves
+constexpr long SMEM_MAX = 232448;       // shared bytes a block can have
 
-// ---- the wide build ---------------------------------------------------------
-//
-// Past MAX_COLS columns, up to wc::COLS = 1024: fused_split_wide_kernel runs
-// 512 threads of two columns, t and t + 512, at 8 lanes a block
-// (csrc/wide_cols.cuh), with this kernel's per-column arithmetic (SplitOp
-// below is iterate's element-wise half) and its modes, so it gives this
-// kernel's bits. The cones keep their layout: they lie in whole warps from
-// cone0, and a warp of cones, 32 columns, lies in one half of a thread's
-// columns, whose 32 threads run its shuffles together. The state (aux, zs,
-// lm and the consumed aux) lives in global memory that only its thread
-// touches; shared memory holds dq ([2][P][8], by parity) and the row maxima.
-// The exact-k snapshot and replay are this kernel's, over the same three
-// leaves.
+constexpr int wide_slab(int lanes) {
+  return lanes == 16 ? WIDE_SLAB_16 : WIDE_SLAB_8;
+}
 
-// iterate's element-wise half for column j (the thread's column of half h).
-struct SplitOp {
-  float lb[wc::CPT], ub[wc::CPT], scale[wc::CPT], iscale[wc::CPT];
-  int cone0, cone_g, symmetric, use_soc;
-  float alpha;
+// Dynamic shared bytes of a block at `lanes` lanes, slabs of `sr` rows and
+// `leaves` leaves in shared memory: the ring of M1''s slabs, the leaves as
+// [P][lanes], dq with its padding, the 16 warps' row maxima, the masks, the
+// window starts and the slots' lanes.
+long wide_bytes(int P, int lanes, int sr, int leaves) {
+  return tp::ring_bytes(P, sr) +
+         4L * (leaves * P * lanes + P * (lanes + tp::DQ_PAD) +
+               (WIDE_THREADS / 32) * 2L * lanes + 4 + 2L * lanes);
+}
 
+// Whether zs and lm go to global scratch: where the three leaves do not fit.
+bool wide_global(int P, int lanes) {
+  return wide_bytes(P, lanes, wide_slab(lanes), 3) > SMEM_MAX;
+}
+
+// The wide kernels' parameters: the narrow ones and the blocks' scratch of
+// the global leaves ([blocks][2][P][L], zs then lm).
+struct WideParams : Params {
+  float* scratch;
+};
+
+// Columns of a product tile at L lanes: 512 threads cover (L / 8) P / TCW
+// tiles up to 1024 columns.
+template <int L>
+constexpr int wide_tc() {
+  return tp::tile_cols<L>() > (L / 8) * WIDE_CPT ? tp::tile_cols<L>()
+                                                  : (L / 8) * WIDE_CPT;
+}
+
+template <int L, int TC, int SR, bool GL>
+struct WideEngine : Engine<L, TC, SR, WIDE_CPT> {
+  using Base = Engine<L, TC, SR, WIDE_CPT>;
+  using Base::G;
+  using Base::aux;
+  using Base::lm;
+  using Base::p;
+  using Base::zs;
+  float lb2, ub2, scale2, iscale2;  // the second column's
+
+  // The row maxima of the block's warps after dq; with GL, zs and lm in the
+  // block's rows of `scratch`, dq right after aux.
+  __device__ __forceinline__ WideEngine(const WideParams& p_, float* smem,
+                                        int* bounds)
+      : Base(p_, smem, bounds) {
+    const int P = p.P;
+    if constexpr (GL) {
+      zs = p_.scratch + static_cast<size_t>(blockIdx.x) * 2 * P * L;
+      lm = zs + P * L;
+      this->leaf[1].sh = zs;
+      this->leaf[2].sh = lm;
+      this->dq = aux + P * L;
+    }
+    this->rwarps = this->T >> 5;
+    this->red = this->dq + P * (L + tp::DQ_PAD);
+    this->ctrl = reinterpret_cast<unsigned*>(this->red + this->rwarps * 2 * L);
+    this->sn_k = reinterpret_cast<int*>(this->ctrl + 4);
+    this->orig = this->sn_k + L;
+    const int j = this->row(1);
+    const bool has = j < p.P;
+    lb2 = has ? p.lb[j] : 0.0f;
+    ub2 = has ? p.ub[j] : 0.0f;
+    scale2 = has ? p.scale[j] : 0.0f;
+    iscale2 = has ? p.iscale[j] : 0.0f;
+  }
+
+  // Engine::half for the thread's c-th column.
+  __device__ __forceinline__ void half(int c, const float (&ax)[8],
+                                       const float (&zo)[8],
+                                       const float (&lo)[8], float (&lh)[8],
+                                       float (&w)[8]) const {
+    const float as = c == 0 ? this->as : p.alpha * scale2;
+    const float is = c == 0 ? this->iscale : iscale2;
+#pragma unroll
+    for (int b = 0; b < 8; ++b) {
+      lh[b] = p.symmetric ? lo[b] + as * (ax[b] - zo[b]) : lo[b];
+      w[b] = ax[b] + is * lh[b];
+    }
+  }
+
+  // Engine::iterate over the thread's columns.
   template <bool CHECK>
-  __device__ __forceinline__ void ew(const wc::Box& x, int h, int j,
-                                     unsigned frozen, float* dq_s,
-                                     float (&ap)[TB], float (&ad)[TB]) {
-    float* st_aux = wc::box_leaf(x, wc::BX);
-    float* st_zs = wc::box_leaf(x, wc::BA);
-    float* st_lm = wc::box_leaf(x, wc::BB);
-    const int o = j * TB;
-    const int lane = j & 31;
-    const bool cone_warp = j >= cone0;
-    const bool cone = cone_warp && lane < 3 * cone_g;
-    const int seg = lane / cone_g, src = lane % cone_g;
-    float aux[TB], zs[TB], lm[TB], lh[TB], zn[TB];
-    wc::load(aux, st_aux + o);
-    wc::load(zs, st_zs + o);
-    wc::load(lm, st_lm + o);
-    const float as = alpha * scale[h];
-    {
-      float w[TB];
+  TP_ITERATE unsigned iterate(unsigned frozen, unsigned idle, unsigned last,
+                              bool stop, unsigned rmask, int kinc) {
+    this->tic();
+    const unsigned dead = tp::whole_groups<L>(frozen | idle);
+    const int P = p.P;
+    // the cone columns leave w in their rows of dq; every thread projects
+    // (cone, lane) pairs there; the cone columns then go on from the result
 #pragma unroll
-      for (int b = 0; b < TB; ++b) {
-        lh[b] = symmetric ? lm[b] + as * (aux[b] - zs[b]) : lm[b];
-        w[b] = aux[b] + iscale[h] * lh[b];
+    for (int c = 0; c < WIDE_CPT; ++c) {
+      const int j = this->row(c);
+      if (j >= P) break;
+      if (j < p.cone0) continue;
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        if (bit(dead, 8 * g)) continue;
+        float ax[8], zo[8], lo[8], lh[8], w[8];
+        tp::ld8<L>(ax, aux, j, g);
+        tp::ld8<L>(zo, zs, j, g);
+        tp::ld8<L>(lo, lm, j, g);
+        half(c, ax, zo, lo, lh, w);
+        tp::st8_dq<L>(this->dq, j, g, w);
       }
-      if (cone_warp) {
+    }
+    __syncthreads();
+    this->project_cones(dead);
+    __syncthreads();
 #pragma unroll
-        for (int b = 0; b < TB; ++b) {
-          float y0 = __shfl_sync(FULL, w[b], src);
-          float y1 = __shfl_sync(FULL, w[b], src + cone_g);
-          float y2 = __shfl_sync(FULL, w[b], src + 2 * cone_g);
-          if (use_soc) {
-            proj_ssoc(y0, y1, y2, 1.0f, 0.0f);
-          } else {
-            proj_ssoc(y0, y1, y2, 1.0f, lb[h]);
-            proj_ssoc(y0, y1, y2, -1.0f, ub[h]);
+    for (int g = 0; g < G; ++g) {
+      if (bit(dead, 8 * g)) continue;
+      float ap[8], ad[8];
+#pragma unroll
+      for (int b = 0; b < 8; ++b) ap[b] = ad[b] = 0.0f;
+#pragma unroll
+      for (int c = 0; c < WIDE_CPT; ++c) {
+        const int j = this->row(c);
+        if (j >= P) break;
+        const float lb = c == 0 ? this->lb : lb2;
+        const float ub = c == 0 ? this->ub : ub2;
+        const float scale = c == 0 ? this->scale : scale2;
+        const float as = c == 0 ? this->as : p.alpha * scale2;
+        const bool cone_warp = j >= p.cone0;
+        const bool cone = cone_warp && (j & 31) < 3 * p.cone_g;
+        float ax[8], zo[8], lo[8], lh[8], w[8], zn[8];
+        tp::ld8<L>(ax, aux, j, g);
+        tp::ld8<L>(zo, zs, j, g);
+        tp::ld8<L>(lo, lm, j, g);
+        half(c, ax, zo, lo, lh, w);
+        if (cone_warp) {
+          tp::ld8_dq<L>(zn, this->dq, j, g);   // projected, or w off a cone
+          if (!cone) {
+#pragma unroll
+            for (int b = 0; b < 8; ++b) zn[b] = fminf(fmaxf(zn[b], lb), ub);
           }
-          const float v = seg == 0 ? y0 : (seg == 1 ? y1 : y2);
-          zn[b] = cone ? v : fminf(fmaxf(w[b], lb[h]), ub[h]);
+        } else {
+#pragma unroll
+          for (int b = 0; b < 8; ++b) zn[b] = fminf(fmaxf(w[b], lb), ub);
         }
-      } else {
+        float d[8];
 #pragma unroll
-        for (int b = 0; b < TB; ++b)
-          zn[b] = fminf(fmaxf(w[b], lb[h]), ub[h]);
+        for (int b = 0; b < 8; ++b) {
+          const float lmn = lh[b] + as * (ax[b] - zn[b]);
+          const float dd = zn[b] - zo[b];
+          d[b] = (lmn - lo[b]) - scale * dd;
+          if (CHECK) {
+            ap[b] = fmaxf(ap[b], fabsf(ax[b] - zn[b]));
+            ad[b] = fmaxf(ad[b], fabsf(dd));
+          }
+          if (!bit(frozen, g * 8 + b)) {
+            lo[b] = lmn;
+            zo[b] = zn[b];
+          }
+        }
+        tp::st8_dq<L>(this->dq, j, g, d);
+        tp::st8<L>(zs, j, g, zo);
+        tp::st8<L>(lm, j, g, lo);
       }
-    }
-    float dq[TB];
-#pragma unroll
-    for (int b = 0; b < TB; ++b) {
-      const float lmn = lh[b] + as * (aux[b] - zn[b]);
-      const float dd = zn[b] - zs[b];
-      dq[b] = (lmn - lm[b]) - scale[h] * dd;
       if (CHECK) {
-        ap[b] = fmaxf(ap[b], fabsf(aux[b] - zn[b]));
-        ad[b] = fmaxf(ad[b], fabsf(dd));
-      }
-      if (!bit(frozen, b)) {
-        lm[b] = lmn;
-        zs[b] = zn[b];
+        tp::warp_max<L>(ap, this->red, this->tid, 0, g);
+        tp::warp_max<L>(ad, this->red, this->tid, 1, g);
       }
     }
-    wc::store(dq_s + o, dq);
-    wc::store(st_zs + o, zs);
-    wc::store(st_lm + o, lm);
+    return this->template product_half<CHECK>(dead, frozen, last, stop,
+                                              rmask, kinc);
   }
 };
 
-__global__ void __launch_bounds__(wc::THREADS, 1)
-    fused_split_wide_kernel(wc::Box x, SplitOp op, const float* lb,
-                            const float* ub, const float* scale,
-                            const float* iscale, int dim_p) {
+template <int L, int TC, int SR, bool GL, bool REFILL, bool EXACT>
+__global__ void __launch_bounds__(WIDE_THREADS, 1)
+    fused_split_wide_kernel(WideParams p) {
   extern __shared__ __align__(16) float smem[];
   __shared__ int bounds[2];  // z_end, s_end
-  x.dq = smem;
-  x.red = smem + 2 * x.P * TB;
-  if (threadIdx.x == 0) {
-    bounds[0] = 0;
-    bounds[1] = dim_p;
+  WideEngine<L, TC, SR, GL> e(p, smem, bounds);
+  tp::run_lanes<L, REFILL, EXACT>(e, p.k_max, p.check_every, p.exact_k,
+                                  p.n_groups, p.queue, 0, p.wk);
+}
+
+template <int L, bool GL, bool REFILL, bool EXACT>
+int wide_launch(const WideParams& p, int blocks, int smem, void* stream) {
+  constexpr int SR = GL ? WIDE_SLAB_8 : wide_slab(L);
+  void (*kernel)(WideParams) =
+      fused_split_wide_kernel<L, wide_tc<L>(), SR, GL, REFILL, EXACT>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
   }
-  __syncthreads();
-#pragma unroll
-  for (int h = 0; h < wc::CPT; ++h) {
-    const int j = wc::col(h, x.P);
-    op.lb[h] = j < 0 ? 0.0f : lb[j];
-    op.ub[h] = j < 0 ? 0.0f : ub[j];
-    op.scale[h] = j < 0 ? 0.0f : scale[j];
-    op.iscale[h] = j < 0 ? 0.0f : iscale[j];
-    if (j >= 0 && op.iscale[h] != 0.0f)
-      atomicMax(&bounds[j < dim_p ? 0 : 1], j + 1);
-  }
-  __syncthreads();
-  x.r0 = 0;
-  x.r1 = bounds[0];
-  x.r2 = dim_p;
-  x.r3 = bounds[1];
-  wc::box_run<UNROLL>(x, op);
+  kernel<<<blocks, WIDE_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int L, bool GL>
+int wide_lanes(const WideParams& p, bool refill, bool exact, int blocks,
+               int smem, void* stream) {
+  if (!refill)
+    return wide_launch<L, GL, false, false>(p, blocks, smem, stream);
+  if (exact) return wide_launch<L, GL, true, true>(p, blocks, smem, stream);
+  return wide_launch<L, GL, true, false>(p, blocks, smem, stream);
 }
 
 }  // namespace
 
-// Dynamic shared bytes of a block of the wide build (kernels/fused_split.py
-// shared_bytes(P, wide=True) computes the same): dq as [2][P][8] and the
-// warps' row maxima.
-extern "C" long fused_split_wide_smem(int P) { return wc::box_smem(P); }
+// Dynamic shared bytes of a block of the wide build at `lanes` lanes
+// (kernels/fused_split.py shared_bytes(P, lanes, wide=True) computes the
+// same): wide_bytes with the three leaves, or with aux alone and 8-row
+// slabs where zs and lm go to global scratch.
+extern "C" long fused_split_wide_smem(int P, int lanes) {
+  return wide_global(P, lanes) ? wide_bytes(P, lanes, WIDE_SLAB_8, 1)
+                               : wide_bytes(P, lanes, wide_slab(lanes), 3);
+}
 
 // Launch the wide build on `stream`: the arguments of fused_split_launch
-// and `state`, the blocks' global state ([B / 8][4][P][8] floats). The
-// geometry comes from the wrapper (kernels/fused_split.py launch_plan with
-// wide=True) and is checked here again. Returns the CUDA error of the
-// launch, as an int.
+// and `scratch`, the global leaves (blocks x 2 P lanes floats where
+// wide_global, else unused), with `threads` WIDE_THREADS, `lanes` 8 or 16
+// and P up to WIDE_COLS. The geometry comes from the wrapper
+// (kernels/fused_split.py launch_plan with wide=True) and is checked here
+// again. Returns the CUDA error of the launch, as an int.
 extern "C" int fused_split_wide_launch(
     const float* aux1, const float* zs0, const float* lm0, const float* m1p,
     const float* lb, const float* ub, const float* scale,
     const float* iscale, float* zs, float* lm, float* aux, int* k,
-    int* done, float* rp, float* rd, float* snap, float* state, int B,
-    int P, int dim_p, int cone0, int cone_g, int symmetric, int use_soc,
-    int blocks, int threads, int smem, float alpha, float tol_p,
-    float tol_d, int k_max, int check_every, int exact_k, void* stream) {
+    int* done, float* rp, float* rd, float* snap, int* queue, int* wk,
+    float* scratch, int B, int P, int dim_p, int cone0, int cone_g,
+    int symmetric,
+    int use_soc, int lanes, int refill, int blocks, int threads, int smem,
+    float alpha, float tol_p, float tol_d, int k_max, int check_every,
+    int exact_k, void* stream) {
   const bool exact = check_every > 1 && exact_k;
-  if (P <= 0 || P % 32 != 0 || P > wc::COLS || dim_p <= 0 ||
+  const int groups = B / 8, slots = lanes / 8;
+  if (P <= 0 || P % 32 != 0 || P > WIDE_COLS || dim_p <= 0 ||
       dim_p % 32 != 0 || cone0 < dim_p || cone0 % 32 != 0 || cone0 >= P ||
-      cone_g < 1 || cone_g > MAX_G || B % TB != 0 || blocks != B / TB ||
-      threads != wc::THREADS || smem != wc::box_smem(P) ||
-      check_every < 1 || k_max < 1 ||
-      (B > 0 && (state == nullptr || (exact && snap == nullptr))))
+      cone_g < 1 || cone_g > MAX_G || (lanes != 8 && lanes != 16) ||
+      B % 8 != 0 || threads != WIDE_THREADS ||
+      smem != fused_split_wide_smem(P, lanes) || smem > SMEM_MAX ||
+      check_every < 1 || k_max < 1 || (exact && B > 0 && snap == nullptr) ||
+      (B > 0 && wide_global(P, lanes) && scratch == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
+  if (refill ? (blocks < 1 || blocks > (groups + slots - 1) / slots ||
+                queue == nullptr || (exact && wk == nullptr))
+             : (B % lanes != 0 || blocks != B / lanes))
+    return B == 0 ? 0 : static_cast<int>(cudaErrorInvalidValue);
   if (B == 0) return 0;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        fused_split_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  wc::Box x{};
-  x.st = state;
-  x.m = m1p;
-  x.in[0] = aux1;
-  x.in[1] = zs0;
-  x.in[2] = lm0;
-  x.out[0] = aux;
-  x.out[1] = zs;
-  x.out[2] = lm;
-  x.k = k;
-  x.done = done;
-  x.rp = rp;
-  x.rd = rd;
-  x.snap = snap;
-  x.P = P;
-  x.tol_p = tol_p;
-  x.tol_d = tol_d;
-  x.k_max = k_max;
-  x.check_every = check_every;
-  x.fixed_iters = 0;
-  x.exact_k = exact_k;
-  SplitOp op{};
-  op.cone0 = cone0;
-  op.cone_g = cone_g;
-  op.symmetric = symmetric;
-  op.use_soc = use_soc;
-  op.alpha = alpha;
-  fused_split_wide_kernel<<<blocks, wc::THREADS, smem,
-                            static_cast<cudaStream_t>(stream)>>>(
-      x, op, lb, ub, scale, iscale, dim_p);
-  return static_cast<int>(cudaGetLastError());
+  WideParams p{};
+  static_cast<Params&>(p) =
+      Params{aux1,   zs0,    lm0,   m1p,   lb,      ub,     scale, iscale,
+             zs,     lm,     aux,   k,     done,    rp,     rd,    snap,
+             queue,  wk,     groups, P,    dim_p,   cone0,  cone_g,
+             symmetric, use_soc, alpha, tol_p, tol_d, k_max, check_every,
+             exact_k};
+  p.scratch = scratch;
+  if (lanes == 8)
+    return wide_lanes<8, false>(p, refill, exact, blocks, smem, stream);
+  if (wide_global(P, lanes))
+    return wide_lanes<16, true>(p, refill, exact, blocks, smem, stream);
+  return wide_lanes<16, false>(p, refill, exact, blocks, smem, stream);
 }
 
 #endif  // WIDE_PART

@@ -905,8 +905,13 @@ struct LaneOut {
 // columns: leaf 0's rows). The kernel's engine derives from it, sets every
 // member, and supplies iterate<CHECK>(frozen, idle, last, stop, rmask,
 // kinc), which runs its element-wise half for the groups not in `dead` and
-// returns product_half's result.
-template <int L, int TC, int SR, int NL>
+// returns product_half's result. In the moves of a lane group's state below
+// thread tid owns row tid of every leaf, and with CPT > 1 (the wide builds
+// of K5 and K7: 512 threads over up to 1024 columns, whose tiles TC are
+// wide enough that (L / 8) P / TC <= T) rows tid + c T, c < CPT, through
+// the *_row forms; CPT = 1 keeps the text, and the code, of the builds of a
+// thread a column.
+template <int L, int TC, int SR, int NL, int CPT = 1>
 struct TileEngine {
   static constexpr int G = L / 8;
   static constexpr unsigned ALL = L == 32 ? FULL : (1u << L) - 1u;
@@ -927,6 +932,9 @@ struct TileEngine {
   // first barrier (the element-wise half, waiting for the slowest warp),
   // and from there to the iteration's end
   long long t0 = 0, clk_ew = 0, clk_prod = 0;
+
+  // The thread's c-th row (c < CPT).
+  __device__ __forceinline__ int row(int c) const { return tid + c * T; }
 
   // Where an iteration starts (TP_CLOCKS).
   __device__ __forceinline__ void tic() {
@@ -1018,21 +1026,48 @@ struct TileEngine {
   // lane0 .. lane0 + 7; each thread moves its own row.
   template <bool TO_SHARED>
   __device__ __forceinline__ void move8(int g, int lane0_) {
+    if constexpr (CPT > 1) {
+#pragma unroll
+      for (int c = 0; c < CPT; ++c) move8_row<TO_SHARED>(g, lane0_, row(c));
+    } else {
+#pragma unroll
+      for (int l = 0; l < NL; ++l) {
+        const Leaf& f = leaf[l];
+        if (tid >= f.rows) continue;
+        float v[8];
+        if (TO_SHARED) {
+#pragma unroll
+          for (int b = 0; b < 8; ++b)
+            v[b] = f.in[static_cast<size_t>(lane0_ + b) * f.rows + tid];
+          st8<L>(f.sh, tid, g, v);
+        } else {
+          ld8<L>(v, f.sh, tid, g);
+#pragma unroll
+          for (int b = 0; b < 8; ++b)
+            f.out[static_cast<size_t>(lane0_ + b) * f.rows + tid] = v[b];
+        }
+      }
+    }
+  }
+
+  // move8 of row r.
+  template <bool TO_SHARED>
+  __device__ __forceinline__ void move8_row(int g, int lane0_, int r) {
 #pragma unroll
     for (int l = 0; l < NL; ++l) {
       const Leaf& f = leaf[l];
-      if (tid >= f.rows) continue;
+      if (r >= f.rows) continue;
       float v[8];
       if (TO_SHARED) {
 #pragma unroll
         for (int b = 0; b < 8; ++b)
-          v[b] = f.in[static_cast<size_t>(lane0_ + b) * f.rows + tid];
-        st8<L>(f.sh, tid, g, v);
+          v[b] = f.in[static_cast<size_t>(lane0_ + b) * f.rows + r];
+        st8<L>(f.sh, r, g, v);
       } else {
-        ld8<L>(v, f.sh, tid, g);
+        ld8<L>(v, f.sh, r, g);
 #pragma unroll
         for (int b = 0; b < 8; ++b)
-          f.out[static_cast<size_t>(lane0_ + b) * f.rows + tid] = v[b];
+          f.out[static_cast<size_t>(lane0_ + b) * f.rows + r] = v[b];
       }
     }
   }
@@ -1059,13 +1094,27 @@ struct TileEngine {
   // Slot `from`'s lanes move to slot `to` (each thread its rows; the
   // keepers by shuffles in warp 0). Called by every thread.
   __device__ __forceinline__ void slot_move(int from, int to) {
+    if constexpr (CPT > 1) {
 #pragma unroll
-    for (int l = 0; l < NL; ++l) {
-      const Leaf& f = leaf[l];
-      if (tid >= f.rows) continue;
-      float v[8];
-      ld8<L>(v, f.sh, tid, from);
-      st8<L>(f.sh, tid, to, v);
+      for (int c = 0; c < CPT; ++c) {
+#pragma unroll
+        for (int l = 0; l < NL; ++l) {
+          const Leaf& f = leaf[l];
+          if (row(c) >= f.rows) continue;
+          float v[8];
+          ld8<L>(v, f.sh, row(c), from);
+          st8<L>(f.sh, row(c), to, v);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int l = 0; l < NL; ++l) {
+        const Leaf& f = leaf[l];
+        if (tid >= f.rows) continue;
+        float v[8];
+        ld8<L>(v, f.sh, tid, from);
+        st8<L>(f.sh, tid, to, v);
+      }
     }
     if (tid < 32) {
       const bool mine = tid >= 8 * to && tid < 8 * to + 8;
@@ -1084,14 +1133,31 @@ struct TileEngine {
     const unsigned live = ~done & ALL;
     const int n = __popc(live);
     if (__popc(whole_groups<L>(done)) / 8 == (L - n) / 8) return done;
+    if constexpr (CPT > 1) {
 #pragma unroll
-    for (int l = 0; l < NL; ++l) {
-      if (tid >= leaf[l].rows) continue;
-      int to = 0;
-      for (int s = 0; s < L; ++s) {
-        if (!bit(live, s)) continue;
-        if (s != to) at<L>(leaf[l].sh, tid, to) = at<L>(leaf[l].sh, tid, s);
-        ++to;
+      for (int c = 0; c < CPT; ++c) {
+#pragma unroll
+        for (int l = 0; l < NL; ++l) {
+          if (row(c) >= leaf[l].rows) continue;
+          int to = 0;
+          for (int s = 0; s < L; ++s) {
+            if (!bit(live, s)) continue;
+            if (s != to)
+              at<L>(leaf[l].sh, row(c), to) = at<L>(leaf[l].sh, row(c), s);
+            ++to;
+          }
+        }
+      }
+    } else {
+#pragma unroll
+      for (int l = 0; l < NL; ++l) {
+        if (tid >= leaf[l].rows) continue;
+        int to = 0;
+        for (int s = 0; s < L; ++s) {
+          if (!bit(live, s)) continue;
+          if (s != to) at<L>(leaf[l].sh, tid, to) = at<L>(leaf[l].sh, tid, s);
+          ++to;
+        }
       }
     }
     if (tid == 0) {
@@ -1109,23 +1175,48 @@ struct TileEngine {
   // lanes' snapshots, for the slots in `lanes` (slot b holds lane orig[b]).
   template <bool TO_GLOBAL>
   __device__ __forceinline__ void snapshot(unsigned lanes) {
+    if constexpr (CPT > 1) {
+#pragma unroll
+      for (int c = 0; c < CPT; ++c) snapshot_row<TO_GLOBAL>(lanes, row(c));
+    } else {
+#pragma unroll
+      for (int l = 0; l < NL; ++l) {
+        if (tid >= leaf[l].rows) continue;
+        for (int b = 0; b < L; ++b) {
+          if (!bit(lanes, b)) continue;
+          float* g = snap +
+                     static_cast<size_t>(lane0 + orig[b]) * snap_width +
+                     leaf[l].snap_off + tid;
+          float& sh = at<L>(leaf[l].sh, tid, b);
+          if (TO_GLOBAL)
+            *g = sh;
+          else
+            sh = *g;
+        }
+      }
+    }
+    // an engine may read rows other threads restored
+    if (!TO_GLOBAL) __syncthreads();
+  }
+
+  // snapshot's moves of row r.
+  template <bool TO_GLOBAL>
+  __device__ __forceinline__ void snapshot_row(unsigned lanes, int r) {
 #pragma unroll
     for (int l = 0; l < NL; ++l) {
-      if (tid >= leaf[l].rows) continue;
+      if (r >= leaf[l].rows) continue;
       for (int b = 0; b < L; ++b) {
         if (!bit(lanes, b)) continue;
         float* g = snap +
                    static_cast<size_t>(lane0 + orig[b]) * snap_width +
-                   leaf[l].snap_off + tid;
-        float& sh = at<L>(leaf[l].sh, tid, b);
+                   leaf[l].snap_off + r;
+        float& sh = at<L>(leaf[l].sh, r, b);
         if (TO_GLOBAL)
           *g = sh;
         else
           sh = *g;
       }
     }
-    // an engine may read rows other threads restored
-    if (!TO_GLOBAL) __syncthreads();
   }
 
   // Exact-k with refill: slot g's lanes in `lanes` (8 bits) of every leaf to
@@ -1133,15 +1224,46 @@ struct TileEngine {
   // each thread moves its own rows.
   template <bool TO_GLOBAL>
   __device__ __forceinline__ void snap8(int g, int lane0_, unsigned lanes) {
+    if constexpr (CPT > 1) {
+#pragma unroll
+      for (int c = 0; c < CPT; ++c)
+        snap8_row<TO_GLOBAL>(g, lane0_, lanes, row(c));
+    } else {
+#pragma unroll
+      for (int l = 0; l < NL; ++l) {
+        const Leaf& f = leaf[l];
+        if (tid >= f.rows) continue;
+        float* s0 = snap + static_cast<size_t>(lane0_) * snap_width +
+                    f.snap_off + tid;
+        float v[8];
+        if (TO_GLOBAL) {
+          ld8<L>(v, f.sh, tid, g);
+#pragma unroll
+          for (int b = 0; b < 8; ++b)
+            if (bit(lanes, b)) s0[static_cast<size_t>(b) * snap_width] = v[b];
+        } else {
+#pragma unroll
+          for (int b = 0; b < 8; ++b)
+            v[b] = s0[static_cast<size_t>(b) * snap_width];
+          st8<L>(f.sh, tid, g, v);
+        }
+      }
+    }
+  }
+
+  // snap8 of row r.
+  template <bool TO_GLOBAL>
+  __device__ __forceinline__ void snap8_row(int g, int lane0_, unsigned lanes,
+                                            int r) {
 #pragma unroll
     for (int l = 0; l < NL; ++l) {
       const Leaf& f = leaf[l];
-      if (tid >= f.rows) continue;
-      float* s0 = snap + static_cast<size_t>(lane0_) * snap_width +
-                  f.snap_off + tid;
+      if (r >= f.rows) continue;
+      float* s0 =
+          snap + static_cast<size_t>(lane0_) * snap_width + f.snap_off + r;
       float v[8];
       if (TO_GLOBAL) {
-        ld8<L>(v, f.sh, tid, g);
+        ld8<L>(v, f.sh, r, g);
 #pragma unroll
         for (int b = 0; b < 8; ++b)
           if (bit(lanes, b)) s0[static_cast<size_t>(b) * snap_width] = v[b];
@@ -1149,7 +1271,7 @@ struct TileEngine {
 #pragma unroll
         for (int b = 0; b < 8; ++b)
           v[b] = s0[static_cast<size_t>(b) * snap_width];
-        st8<L>(f.sh, tid, g, v);
+        st8<L>(f.sh, r, g, v);
       }
     }
   }

@@ -43,9 +43,13 @@ the same bits, so `lanes=` of `fused_soc_solve` may name another build, for
 a check or a timing.
 
 Past MAX_COLS columns, up to WIDE_COLS, the wide build
-(fused_soc_wide_kernel, csrc/wide_cols.cuh) runs 512 threads of two
-columns at 8 lanes a block, no refill, with its state in global memory;
-`wide=` of `fused_soc_solve` names it at any width, for a check of bits.
+(fused_soc_wide_kernel) runs the same engine on 512 threads of two columns,
+t and t + 512, at 16 lanes a block (its state in shared memory with 16-row
+slabs of M1' up to 544 columns; past that zs and lm in a per-block global
+scratch, 8-row slabs) or 8 (8-row slabs, its state in shared memory up to
+1024), with refill in every mode, exact-k's included (kernels/stage.py
+WIDE_BUILDS, `wide_layout`); `wide=` of `fused_soc_solve` names it at any
+width, for a check of bits.
 """
 
 from __future__ import annotations
@@ -71,14 +75,13 @@ __all__ = ["check_width", "COL_PAD", "MAX_COLS", "round_up",
 FUSED_SOC_ARGTYPES = ([ctypes.c_void_p] * 17 + [ctypes.c_int] * 7
                       + [ctypes.c_float] * 2 + [ctypes.c_int] * 3
                       + [ctypes.c_void_p])
-# and of fused_soc_wide_launch: 17 pointers (the refill queue's place holds
-# the blocks' global state); B, P, dim_p, blocks, threads, shared bytes;
-# tol_p, tol_d; k_max, check_every, exact_k; the stream
-FUSED_SOC_WIDE_ARGTYPES = ([ctypes.c_void_p] * 17 + [ctypes.c_int] * 6
+# and of fused_soc_wide_launch: 19 pointers (those of fused_soc_launch,
+# then exact-k's window starts and links, the global leaves' scratch); B,
+# P, dim_p, lanes, refill, blocks, threads, shared bytes; tol_p, tol_d;
+# k_max, check_every, exact_k; the stream
+FUSED_SOC_WIDE_ARGTYPES = ([ctypes.c_void_p] * 19 + [ctypes.c_int] * 8
                            + [ctypes.c_float] * 2 + [ctypes.c_int] * 3
                            + [ctypes.c_void_p])
-# the wide build's state leaves: aux, zs, lm and the consumed aux
-WIDE_LEAVES = 4
 # lanes a block -> (rows a slab of M1', blocks an SM) of its build up to
 # stage.NARROW columns (Build<L> in csrc/fused_soc.cu)
 BUILDS = {8: (16, 2), 16: (8, 2), 32: (32, 1)}
@@ -146,17 +149,32 @@ def fused_soc_reference(aux1, zs0, lm0, M1P, LB_head, UB_head, scale_row,
     return (zs, lm, aux, *rest)
 
 
-def shared_bytes(P: int, lanes: int, wide: bool = False) -> int:
-    """Dynamic shared bytes of a block (fused_soc_smem in the source): the
-    ring of M1''s slabs, aux, zs and lm as [P][lanes], dq with its padding,
-    the warps' row maxima, the masks, the window starts, the slots' lanes
-    and the lanes' cones. The wide build's (fused_soc_wide_smem): dq as
-    [2][P][8] and the warps' row maxima."""
-    if wide:
-        return 4 * stage.WIDE_LANES * (2 * P + 4 * stage.WIDE_WARPS)
-    slab = stage.build_of(BUILDS, P, lanes)[0]
+def _bytes(P, lanes, slab, leaves, warps):
+    """The ring of M1''s slabs, `leaves` leaves as [P][lanes], dq with its
+    padding, the warps' row maxima, the masks, the window starts, the
+    slots' lanes and the lanes' cones."""
     return stage.ring_bytes(P, slab) + 4 * (
-        P * (4 * lanes + DQ_PAD) + P // WARP * 2 * lanes + 4 + 5 * lanes)
+        P * ((leaves + 1) * lanes + DQ_PAD) + warps * 2 * lanes + 4
+        + 5 * lanes)
+
+
+def wide_layout(P: int, lanes: int) -> tuple[int, bool]:
+    """(rows a slab, global leaves) of the wide build (stage.wide_layout)."""
+    return stage.wide_layout(lanes, lambda slab, leaves: _bytes(
+        P, lanes, slab, leaves, stage.WIDE_WARPS))
+
+
+def shared_bytes(P: int, lanes: int, wide: bool = False) -> int:
+    """Dynamic shared bytes of a block (fused_soc_smem in the source; the
+    wide build's fused_soc_wide_smem): aux, zs and lm in shared memory,
+    P / 32 warps' row maxima; the wide build's WIDE_WARPS, and aux alone
+    where zs and lm go to global scratch."""
+    if not wide:
+        return _bytes(P, lanes, stage.build_of(BUILDS, P, lanes)[0], 3,
+                      P // WARP)
+    slab, global_leaves = wide_layout(P, lanes)
+    return _bytes(P, lanes, slab, 1 if global_leaves else 3,
+                  stage.WIDE_WARPS)
 
 
 def check_width(P: int) -> None:
@@ -183,7 +201,10 @@ def launch_plan(B: int, P: int, dim_p: int, *, tile_b: int,
     stage.check_mode(B, tile_b=tile_b, check_every=check_every,
                      exact_k=exact_k)
     if stage.use_wide(P, wide):
-        return stage.wide_plan(B, shared_bytes(P, 8, wide=True), lanes)
+        # the wide build refills in every mode, exact-k's included
+        return stage.plan(B, P, lambda L: shared_bytes(P, L, wide=True),
+                          stage.WIDE_BUILDS, refill=True, lanes=lanes,
+                          layout=lambda L: wide_layout(P, L))
     return stage.plan(B, P, lambda L: shared_bytes(P, L), BUILDS,
                       refill=not (check_every > 1 and exact_k), lanes=lanes)
 
@@ -222,20 +243,27 @@ def _launch(*args, dim_p, tol_p, tol_d, k_max, tile_b, check_every,
                        dtype=torch.float32, device=dev)
     # the queue of groups of 8 lanes (refill), then each block's count of
     # iterations (refill) and kilo-clocks of the two halves of an iteration
-    # (in a build with TP_CLOCKS; else zeros)
-    # (the wide build: the blocks' state)
+    # (in a build with TP_CLOCKS; else zeros); the wide build's exact-k with
+    # refill: each lane's window start and each group's link
     nb = plan["blocks"]
-    queue = (torch.empty((B * WIDE_LEAVES * P,), dtype=torch.float32,
-                         device=dev) if wide else
-             torch.zeros((1 + 3 * nb,), dtype=torch.int32, device=dev))
-    ptrs = [t.data_ptr() for t in args + (zs, lm, aux, k, done, rp, rd, snap,
-                                          queue)]
+    queue = torch.zeros((1 + 3 * nb,), dtype=torch.int32, device=dev)
+    scratch = (queue,)
+    build = [plan["lanes"]]
+    if wide:
+        # exact-k's window starts and links; the global leaves: zs and lm of
+        # each block's lanes
+        scratch += (torch.empty((B + B // 8 if exact and plan["refill"]
+                                 else 0,), dtype=torch.int32, device=dev),
+                    torch.empty((nb * 2 * P * plan["lanes"]
+                                 if plan["global_leaves"] else 0,),
+                                dtype=torch.float32, device=dev))
+        build.append(int(plan["refill"]))
+    ptrs = [t.data_ptr() for t in args + (zs, lm, aux, k, done, rp, rd, snap)
+            + scratch]
     if any(ptr % 16 for ptr in ptrs):
         raise ValueError("the fused kernel takes 16-byte aligned tensors")
     stream = torch.cuda.current_stream(dev).cuda_stream
-    build = ([] if wide else [plan["lanes"]]) + [plan["blocks"],
-                                                 plan["threads"],
-                                                 plan["smem"]]
+    build += [plan["blocks"], plan["threads"], plan["smem"]]
     with torch.cuda.device(dev):
         err = launch(
             *ptrs, B, P, int(dim_p), *build, float(tol_p), float(tol_d),
@@ -244,7 +272,7 @@ def _launch(*args, dim_p, tol_p, tol_d, k_max, tile_b, check_every,
         raise RuntimeError(f"fused_soc kernel launch failed with CUDA error "
                            f"{err} ({plan})")
     fused_soc_solve.launches += 1
-    fused_soc_solve.last_plan = plan if wide else dict(
+    fused_soc_solve.last_plan = dict(
         plan, block_iterations=queue[1:1 + nb],
         block_clocks=queue[1 + nb:].view(nb, 2))
     e_flag = torch.where(done == 1, 1, -1).to(torch.int32)

@@ -46,12 +46,13 @@ one-column-per-thread kernel it replaced is csrc/variants/fused_split_parent.cu,
 which tools/ab_kernels.py builds and times and nothing here launches.
 
 Past MAX_COLS columns, up to WIDE_COLS, the wide build
-(fused_split_wide_kernel, csrc/wide_cols.cuh) runs 512 threads of two
-columns, t and t + 512, at 8 lanes a block, with its state in global
-memory; `wide=` of `fused_split_solve` names it at any width, for a check
-of bits. The cones keep their warps: a warp of cones, 32 columns from
-cone0 on, lies in one half, [0, 512) or [512, P), of a thread's columns,
-since both halves start on a warp.
+(fused_split_wide_kernel) runs the same engine on 512 threads of two
+columns, t and t + 512, at 16 lanes a block (its state in shared memory
+with 16-row slabs of M1' up to 544 columns; past that zs and lm in a
+per-block global scratch, 8-row slabs) or 8 (8-row slabs, its state in
+shared memory up to 1024), with the spread cones and refill in every mode
+(kernels/stage.py WIDE_BUILDS, `wide_layout`); `wide=` of
+`fused_split_solve` names it at any width, for a check of bits.
 """
 
 from __future__ import annotations
@@ -78,11 +79,9 @@ __all__ = ["check_width", "fused_split_reference", "fused_split_solve",
 FUSED_SPLIT_ARGTYPES = ([ctypes.c_void_p] * 18 + [ctypes.c_int] * 12
                         + [ctypes.c_float] * 3 + [ctypes.c_int] * 3
                         + [ctypes.c_void_p])
-# and of fused_split_wide_launch: 17 pointers (the snapshot scratch, then
-# the blocks' global state); B, P, dim_p, cone0, cone_g, symmetric,
-# use_soc, blocks, threads, shared bytes; alpha, tol_p, tol_d; k_max,
-# check_every, exact_k; the stream
-FUSED_SPLIT_WIDE_ARGTYPES = ([ctypes.c_void_p] * 17 + [ctypes.c_int] * 10
+# and of fused_split_wide_launch: those, the global leaves' scratch after
+# the links
+FUSED_SPLIT_WIDE_ARGTYPES = ([ctypes.c_void_p] * 19 + [ctypes.c_int] * 12
                              + [ctypes.c_float] * 3 + [ctypes.c_int] * 3
                              + [ctypes.c_void_p])
 # lanes a block -> (rows a slab of M1', blocks an SM) of its build up to
@@ -90,8 +89,6 @@ FUSED_SPLIT_WIDE_ARGTYPES = ([ctypes.c_void_p] * 17 + [ctypes.c_int] * 10
 BUILDS = {8: (16, 2), 16: (8, 2), 32: (16, 1)}
 # the leaves an exact-k snapshot saves per lane: aux, zs, lm
 SNAP_LEAVES = 3
-# the wide build's state leaves: aux, zs, lm and the consumed aux
-WIDE_LEAVES = 4
 
 
 class _Ops:
@@ -151,18 +148,32 @@ def check_width(P: int) -> None:
                  WIDE_COLS, width=P)
 
 
-def shared_bytes(P: int, lanes: int = 8, wide: bool = False) -> int:
-    """Dynamic shared bytes of a block (fused_split_smem in the source): the
-    ring of M1''s slabs, aux, zs and lm as [P][lanes], dq with its padding,
-    the warps' row maxima, the masks, the window starts and the slots'
-    lanes. The wide build's (fused_split_wide_smem): dq as [2][P][8] and the
-    warps' row maxima."""
-    if wide:
-        return 4 * stage.WIDE_LANES * (2 * P + 4 * stage.WIDE_WARPS)
-    slab = stage.build_of(BUILDS, P, lanes)[0]
+def _bytes(P, lanes, slab, leaves, warps):
+    """The ring of M1''s slabs, `leaves` leaves as [P][lanes], dq with its
+    padding, the warps' row maxima, the masks, the window starts and the
+    slots' lanes."""
     return stage.ring_bytes(P, slab) + 4 * (
-        3 * P * lanes + P * (lanes + DQ_PAD) + P // WARP * 2 * lanes + 4
+        leaves * P * lanes + P * (lanes + DQ_PAD) + warps * 2 * lanes + 4
         + 2 * lanes)
+
+
+def wide_layout(P: int, lanes: int) -> tuple[int, bool]:
+    """(rows a slab, global leaves) of the wide build (stage.wide_layout)."""
+    return stage.wide_layout(lanes, lambda slab, leaves: _bytes(
+        P, lanes, slab, leaves, stage.WIDE_WARPS))
+
+
+def shared_bytes(P: int, lanes: int = 8, wide: bool = False) -> int:
+    """Dynamic shared bytes of a block (fused_split_smem in the source; the
+    wide build's fused_split_wide_smem): aux, zs and lm in shared memory,
+    P / 32 warps' row maxima; the wide build's WIDE_WARPS, and aux alone
+    where zs and lm go to global scratch."""
+    if not wide:
+        return _bytes(P, lanes, stage.build_of(BUILDS, P, lanes)[0], 3,
+                      P // WARP)
+    slab, global_leaves = wide_layout(P, lanes)
+    return _bytes(P, lanes, slab, 1 if global_leaves else 3,
+                  stage.WIDE_WARPS)
 
 
 def launch_plan(B: int, P: int, dim_p: int, cone0: int, cone_g: int, *,
@@ -181,7 +192,9 @@ def launch_plan(B: int, P: int, dim_p: int, cone0: int, cone_g: int, *,
     stage.check_mode(B, tile_b=tile_b, check_every=check_every,
                      exact_k=exact_k)
     if stage.use_wide(P, wide):
-        return stage.wide_plan(B, shared_bytes(P, wide=True), lanes)
+        return stage.plan(B, P, lambda L: shared_bytes(P, L, True),
+                          stage.WIDE_BUILDS, refill=True, lanes=lanes,
+                          layout=lambda L: wide_layout(P, L))
     return stage.plan(B, P, lambda L: shared_bytes(P, L), BUILDS,
                       refill=True, lanes=lanes)
 
@@ -206,8 +219,8 @@ def _launch(*args, alpha, symmetric, use_soc, dim_p, cone0, cone_g, tol_p,
     plan = launch_plan(B, P, dim_p, cone0, cone_g, tile_b=tile_b,
                        check_every=check_every, exact_k=exact_k, lanes=lanes,
                        wide=wide)
-    wide = plan.get("wide", False)
     from spcies_tpu_torch.kernels._build import load_kernel
+    wide = plan.get("wide", False)
     launch = (load_kernel("fused_split", "fused_split_wide_launch",
                           FUSED_SPLIT_WIDE_ARGTYPES) if wide else
               load_kernel("fused_split", "fused_split_launch",
@@ -222,20 +235,19 @@ def _launch(*args, alpha, symmetric, use_soc, dim_p, cone0, cone_g, tol_p,
     snap = torch.empty((B if exact else 0, SNAP_LEAVES * P),
                        dtype=torch.float32, device=dev)
     nb = plan["blocks"]
+    # the queue of groups of 8 lanes (refill), then each block's count of
+    # iterations (refill) and kilo-clocks of the two halves of an iteration
+    # (in a build with TP_CLOCKS; else zeros); in exact-k with refill each
+    # lane's window start and each group's link
+    queue = torch.zeros((1 + 3 * nb,), dtype=torch.int32, device=dev)
+    wk = torch.empty((B + B // 8 if exact and plan["refill"] else 0,),
+                     dtype=torch.int32, device=dev)
+    scratch = (queue, wk)
     if wide:
-        scratch = (torch.empty((B * WIDE_LEAVES * P,), dtype=torch.float32,
-                               device=dev),)
-        build = []
-    else:
-        # the queue of groups of 8 lanes (refill), then each block's count
-        # of iterations (refill) and kilo-clocks of the two halves of an
-        # iteration (in a build with TP_CLOCKS; else zeros); in exact-k with
-        # refill each lane's window start and each group's link
-        queue = torch.zeros((1 + 3 * nb,), dtype=torch.int32, device=dev)
-        wk = torch.empty((B + B // 8 if exact and plan["refill"] else 0,),
-                         dtype=torch.int32, device=dev)
-        scratch = (queue, wk)
-        build = [plan["lanes"], int(plan["refill"])]
+        # the wide build's global leaves: zs and lm of each block's lanes
+        scratch += (torch.empty((nb * 2 * P * plan["lanes"]
+                                 if plan["global_leaves"] else 0,),
+                                dtype=torch.float32, device=dev),)
     ptrs = [t.data_ptr() for t in args + (zs, lm, aux, k, done, rp, rd,
                                           snap) + scratch]
     if any(ptr % 16 for ptr in ptrs):
@@ -244,7 +256,8 @@ def _launch(*args, alpha, symmetric, use_soc, dim_p, cone0, cone_g, tol_p,
     with torch.cuda.device(dev):
         err = launch(
             *ptrs, B, P, int(dim_p), int(cone0), int(cone_g),
-            int(bool(symmetric)), int(bool(use_soc)), *build, nb,
+            int(bool(symmetric)), int(bool(use_soc)), plan["lanes"],
+            int(plan["refill"]), nb,
             plan["threads"], plan["smem"], float(alpha), float(tol_p),
             float(tol_d), int(k_max), int(check_every), int(bool(exact_k)),
             stream)
@@ -252,7 +265,7 @@ def _launch(*args, alpha, symmetric, use_soc, dim_p, cone0, cone_g, tol_p,
         raise RuntimeError(f"fused_split kernel launch failed with CUDA "
                            f"error {err} ({plan})")
     fused_split_solve.launches += 1
-    fused_split_solve.last_plan = plan if wide else dict(
+    fused_split_solve.last_plan = dict(
         plan, block_iterations=queue[1:1 + nb],
         block_clocks=queue[1 + nb:].view(nb, 2))
     e_flag = torch.where(done == 1, 1, -1).to(torch.int32)

@@ -17,11 +17,18 @@ build that fits the 232,448 bytes of shared memory a block can have and
 still gives half of the SMs a block, as kernels/fused_admm.py `pick_lanes`
 does.
 
-Past MAX_COLS columns each of K2-K7 runs its wide build
-(csrc/wide_cols.cuh): WIDE_LANES lanes a block on WIDE_THREADS threads of
-two columns each, up to WIDE_COLS columns, one block per WIDE_LANES lanes,
-no refill (`use_wide`, `wide_plan`). A wide build also takes the narrow
-widths when it is named (`wide=True`), for a check of bits.
+Past MAX_COLS columns each of K2-K7 runs its wide build, up to WIDE_COLS
+columns on WIDE_THREADS threads of two columns each (`use_wide`). K5's and
+K7's run on the stage's engine (csrc/fused_soc.cu, csrc/fused_split.cu):
+`plan(..., wide=True)` takes the widest of WIDE_BUILDS (16 lanes a block at
+16-row slabs, 8 at 8-row slabs, one block an SM) whose shared bytes fit,
+with refill and persistent blocks as the narrow builds have them; where the
+three leaves of a 16-lane block do not fit, its zs and lm go to global
+scratch with 8-row slabs (`wide_layout`). K2, K3,
+K4 and K6 keep the first wide layout (csrc/wide_cols.cuh and their own):
+WIDE_LANES lanes a block, one block per WIDE_LANES lanes, no refill
+(`wide_plan`). A wide build also takes the narrow widths when it is named
+(`wide=True`), for a check of bits.
 """
 
 from __future__ import annotations
@@ -37,10 +44,15 @@ SMEM_SM, SMEM_RESERVED = 233472, 1024
 # WIDE_BUILD (rows a slab, blocks an SM)
 NARROW = 320
 WIDE_BUILD = (16, 1)
-# the wide builds of K2-K7: lanes a block (one group of 8, which plain
-# free-run drains), and warps a block
+# the wide builds of K2, K3, K4 and K6: lanes a block (one group of 8,
+# which plain free-run drains); warps a block of every wide build
 WIDE_LANES = DRAIN_LANES
 WIDE_WARPS = WIDE_THREADS // 32
+# the wide builds of K5 and K7 on the stage's engine: lanes a block -> (rows
+# a slab of the matrix, blocks an SM) (wide_slab in their sources), and the
+# rows a slab with global leaves (WIDE_SLAB_8)
+WIDE_BUILDS = {16: (16, 1), 8: (8, 1)}
+GLOBAL_SLAB = 8
 
 
 def ring_bytes(P: int, slab: int) -> int:
@@ -49,10 +61,24 @@ def ring_bytes(P: int, slab: int) -> int:
     return 4 * STAGES * slab * P + RING_EXTRA
 
 
-def build_of(builds: dict, width: int, lanes: int) -> tuple[int, int]:
-    """(rows a slab, blocks an SM) of the build that runs `width` threads at
+def build_of(builds: dict, width: int, lanes: int,
+             wide: bool = False) -> tuple[int, int]:
+    """(rows a slab, blocks an SM) of the build that runs `width` threads
+    (the wide builds of `builds`: WIDE_THREADS over `width` columns) at
     `lanes` lanes a block."""
-    return builds[lanes] if width <= NARROW else WIDE_BUILD
+    return builds[lanes] if wide or width <= NARROW else WIDE_BUILD
+
+
+def wide_layout(lanes: int, bytes_of) -> tuple[int, bool]:
+    """(rows a slab, global leaves) of K5's or K7's wide build at `lanes`
+    lanes a block: WIDE_BUILDS' slab with the three leaves in shared memory
+    where they fit, else zs and lm in global scratch and GLOBAL_SLAB-row
+    slabs (wide_global in their sources); bytes_of(slab, leaves) is a
+    block's shared bytes with `leaves` leaves in shared memory."""
+    slab = WIDE_BUILDS[lanes][0]
+    if bytes_of(slab, 3) <= SMEM_MAX:
+        return slab, False
+    return GLOBAL_SLAB, True
 
 
 def check_mode(B: int, *, tile_b: int, check_every: int, exact_k: bool):
@@ -70,54 +96,67 @@ def check_mode(B: int, *, tile_b: int, check_every: int, exact_k: bool):
             f"tile_b={DRAIN_LANES} on the GPU; got {tile_b}")
 
 
-def _takes(B, width, smem_of, lanes, refill):
+def _takes(B, width, smem_of, lanes, refill, wide=False):
     """Whether the build of `lanes` lanes a block takes the launch."""
-    return (smem_of(lanes) <= SMEM_MAX and (lanes < 32 or width <= NARROW)
+    return (smem_of(lanes) <= SMEM_MAX
+            and (wide or lanes < 32 or width <= NARROW)
             and (refill or B % lanes == 0))
 
 
-def _blocks(B, width, smem_of, builds, lanes, refill):
+def _blocks(B, width, smem_of, builds, lanes, refill, wide=False):
     """Blocks of a launch: with refill about the SMs times the blocks an SM
     the build fits, never more than the groups fill; else one per L
     lanes."""
     if not refill:
         return B // lanes
-    per_sm = min(build_of(builds, width, lanes)[1],
+    per_sm = min(build_of(builds, width, lanes, wide)[1],
                  SMEM_SM // (smem_of(lanes) + SMEM_RESERVED))
     groups, slots = B // DRAIN_LANES, lanes // DRAIN_LANES
     return max(1, min(-(-groups // slots), SMS * max(1, per_sm)))
 
 
 def pick_lanes(B: int, width: int, smem_of, builds: dict, *,
-               refill: bool) -> int:
+               refill: bool, wide: bool = False) -> int:
     """The widest build that takes the launch and still gives half of the
     SMs a block; the narrowest that takes it when none does."""
     fits = [L for L in LANES
-            if L in builds and _takes(B, width, smem_of, L, refill)]
+            if L in builds and _takes(B, width, smem_of, L, refill, wide)]
     if not fits:
         raise ValueError(f"no build of the kernel takes batch {B} at width "
                          f"{width}")
     return next((L for L in fits
-                 if _blocks(B, width, smem_of, builds, L, refill) >= SMS // 2),
+                 if _blocks(B, width, smem_of, builds, L, refill,
+                            wide) >= SMS // 2),
                 fits[-1])
 
 
 def plan(B: int, width: int, smem_of, builds: dict, *, refill: bool,
-         lanes: int | None = None) -> dict:
+         lanes: int | None = None, layout=None) -> dict:
     """The build a launch of B lanes (whole groups of DRAIN_LANES) on
     `width` threads takes, as a dict: lanes a block, blocks, threads,
-    dynamic shared bytes (`smem_of(lanes)`), refill. `lanes` names a build
-    in place of `pick_lanes`' choice; raises ValueError when no build takes
-    the shape."""
+    dynamic shared bytes (`smem_of(lanes)`), refill; with `layout`, a wide
+    build of `builds` (WIDE_BUILDS) on WIDE_THREADS threads over `width`
+    columns, and wide=True, its rows a slab and whether its leaves are
+    global (`layout(lanes)`) in the dict. `lanes` names a build in place of
+    `pick_lanes`' choice; raises ValueError when no build takes the
+    shape."""
+    wide = layout is not None
     if lanes is None:
-        lanes = pick_lanes(B, width, smem_of, builds, refill=refill)
+        lanes = pick_lanes(B, width, smem_of, builds, refill=refill,
+                           wide=wide)
     elif (lanes not in LANES or lanes not in builds
-          or not _takes(B, width, smem_of, lanes, refill)):
+          or not _takes(B, width, smem_of, lanes, refill, wide)):
         raise ValueError(f"no build of the kernel takes {lanes} lanes a "
                          f"block at batch {B}, width {width}")
-    return dict(lanes=lanes,
-                blocks=_blocks(B, width, smem_of, builds, lanes, refill),
-                threads=width, smem=smem_of(lanes), refill=refill)
+    out = dict(lanes=lanes,
+               blocks=_blocks(B, width, smem_of, builds, lanes, refill,
+                              wide),
+               threads=WIDE_THREADS if wide else width,
+               smem=smem_of(lanes), refill=refill)
+    if wide:
+        slab, global_leaves = layout(lanes)
+        out.update(wide=True, slab=slab, global_leaves=global_leaves)
+    return out
 
 
 def use_wide(width: int, wide: bool | None) -> bool:
@@ -134,8 +173,9 @@ def use_wide(width: int, wide: bool | None) -> bool:
 
 
 def wide_plan(B: int, smem: int, lanes: int | None = None) -> dict:
-    """The launch of a wide build (up to WIDE_COLS columns, checked by the
-    kernel's `check_width`) of B lanes, whole groups of WIDE_LANES, with
+    """The launch of a wide build of K2, K3, K4 or K6 (up to WIDE_COLS
+    columns, checked by the kernel's `check_width`) of B lanes, whole
+    groups of WIDE_LANES, with
     `smem` dynamic shared bytes: one block per WIDE_LANES lanes of
     WIDE_THREADS threads, no refill. Raises ValueError where `lanes` names
     another build or the block does not fit shared memory."""

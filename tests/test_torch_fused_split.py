@@ -522,11 +522,12 @@ def test_shared_bytes_follow_the_source_formula(P):
     (4, {}),
     (32, dict(P=352)),                     # use_soc: 234,064 bytes
     (32, dict(P=384)),                     # above 320 columns
-    (16, dict(wide=True)),                 # the wide build runs 8 lanes
+    # the wide build runs 16 lanes up to its cap of 1024 columns, no wider
+    (16, dict(wide=True, P=1056, match="up to 1024")),
 ])
 def test_named_builds_are_refused(lanes, kw):
-    a = {**dict(P=320, wide=None), **kw}
-    with pytest.raises(ValueError, match="no build|wide build runs"):
+    a = {**dict(P=320, wide=None, match="no build"), **kw}
+    with pytest.raises(ValueError, match=a["match"]):
         fk.launch_plan(8192, a["P"], 288, a["P"] - 32, 8, tile_b=256,
                        check_every=8, exact_k=True, lanes=lanes,
                        wide=a["wide"])
@@ -561,16 +562,13 @@ def test_lanes_constant_is_the_kernels_own():
         assert f"launch{build}(p, " in src
     assert f"NARROW = {stage.NARROW};" in src
     assert f"WIDE_SLAB = {stage.WIDE_BUILD[0]};" in src
-    # the launched source runs on the product stage, and its wide build on
-    # the wide builds' header
+    # the launched source, its wide build too, runs on the product stage
     assert _build.included_files(_build.CSRC / "fused_split.cu") == [
-        _build.CSRC / "fused_split.cu", _build.CSRC / "wide_cols.cuh",
-        _build.CSRC / "tile_product.cuh"]
+        _build.CSRC / "fused_split.cu", _build.CSRC / "tile_product.cuh"]
     # exact-k opts in to the stage's refill, and the kernel keeps no mode
-    # loop of its own
-    assert "tp::run_lanes<L, REFILL, EXACT>" in src
-    code = "\n".join(line.split("//")[0]
-                     for line in src.split("#if WIDE_PART")[0].splitlines())
+    # loop of its own, in the narrow builds or the wide
+    assert src.count("tp::run_lanes<L, REFILL, EXACT>") == 2
+    code = "\n".join(line.split("//")[0] for line in src.splitlines())
     for own in ("snapshot<", "REPLAY", "budget", "sn_k[", "for (int it"):
         assert own not in code, own
 

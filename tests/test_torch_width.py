@@ -6,8 +6,9 @@ when they build for the card, so that make_solver refuses a width no build
 takes); each launch plan takes the wide build past 512 columns (and where
 it is named), and sizes its shared memory as the C source does; K1's
 plain version at 544 columns (MPCT-ADMM-cs, N=33) and K2-K7's at the first
-oscillating-masses horizon past 512 columns give the JAX fused kernel's
-per-lane k and e_flag in interpret mode."""
+oscillating-masses horizon past 512 columns, and K5's and K7's at the
+widest up to 1024 columns, give the JAX fused kernel's per-lane k and
+e_flag in interpret mode."""
 
 import numpy as np
 import pytest
@@ -163,13 +164,16 @@ WIDE_PLANS = {
            "fused_ellip_wide_smem", lambda W: dict(nzp=W),
            lambda W: (W, 6, 8)),
     "K5": (fused_soc, lambda W: (W, W - 32), {}, "fused_soc_wide_smem",
-           lambda W: dict(P=W), lambda W: (W, 8)),
+           lambda W: dict(P=W), lambda W: (W,)),
     "K6": (fused_hmpc, lambda W: (W, W, W - 32, 8), {},
            "fused_hmpc_wide_smem", lambda W: dict(dim_p=W, ns_p=W),
            lambda W: (W, W, 8)),
     "K7": (fused_split, lambda W: (W, W - 64, W - 32, 8), {},
            "fused_split_wide_smem", lambda W: dict(P=W), lambda W: (W,)),
 }
+# K5 and K7 run their wide builds on the stage's engine (kernels/stage.py
+# WIDE_BUILDS): lanes a block, refill and persistent blocks as planned
+STAGE_WIDE = ("K5", "K7")
 
 
 def _c_return(src: str, fn: str) -> str:
@@ -179,44 +183,97 @@ def _c_return(src: str, fn: str) -> str:
     return body.strip().removeprefix("return").strip().rstrip(";")
 
 
-def _c_bytes(kernel: str, W: int) -> int:
+def _py(expr: str) -> str:
+    """A C expression of the sources as Python: no namespaces, casts or
+    long suffixes, integer division, a conditional as Python's."""
+    import re
+    expr = expr.replace("wc::", "").replace("tp::", "")
+    expr = expr.replace("static_cast<long>", "").replace("/", "//")
+    expr = re.sub(r"\b(\d+)L\b", r"\1", expr)
+    m = re.fullmatch(r"\s*(.+?)\s*\?\s*(.+?)\s*:\s*(.+?)\s*", expr, re.S)
+    return f"(({m[2]}) if ({m[1]}) else ({m[3]}))" if m else f"({expr})"
+
+
+def _c_fn(src: str, head: str) -> str:
+    """The expression the one-line C function `head` of `src` returns."""
+    i = src.index(head)
+    body = src[src.index("{", i) + 1:src.index("}", i)]
+    return body.strip().removeprefix("return").strip().rstrip(";")
+
+
+def _c_bytes(kernel: str, W: int, lanes: int = 8) -> int:
     """The wide build's shared bytes as its C source computes them,
-    evaluated in Python (wc::box_smem from csrc/wide_cols.cuh)."""
+    evaluated in Python: wc::box_smem from csrc/wide_cols.cuh (K2, K3, K4,
+    K6), or K5's and K7's wide_bytes over the stage's ring (tp::ring_bytes
+    of csrc/tile_product.cuh, two buffers and 64 bytes of mbarriers) at
+    `lanes` lanes a block, with the three leaves or, where wide_global,
+    aux alone."""
     import re
     module, _shape, _kw, fn, cargs, _ = WIDE_PLANS[kernel]
     name = module.__name__.rsplit(".", 1)[1]
     src = (_build.CSRC / f"{name}.cu").read_text()
     hdr = (_build.CSRC / "wide_cols.cuh").read_text()
+    tph = (_build.CSRC / "tile_product.cuh").read_text()
     expr = _c_return(src, fn)
     box = hdr[hdr.index("inline long box_smem(int P) {"):]
     box = box[box.index("return") + 6:box.index(";")]
     expr = re.sub(r"wc::box_smem\((\w+)\)",
                   lambda m: "(" + re.sub(r"\bP\b", m.group(1), box) + ")",
                   expr)
-    expr = expr.replace("wc::", "").replace("static_cast<long>", "")
-    expr = re.sub(r"\b(\d+)L\b", r"\1", expr)
-    env = dict(cargs(W), TB=8, WARPS=16)
-    return eval(expr, {}, env)
+    env = dict(cargs(W), lanes=lanes, TB=8, WARPS=16)
+    if "WIDE_SLAB_16" in src:
+        assert "4L * NST * SR * P + (TP_STAGE == 2 ? 64L : 0L)" in tph
+        assert "#define TP_STAGES 2\n" in tph and "#define TP_STAGE 2 " in tph
+        consts = {k: int(v) for k, v in re.findall(
+            r"constexpr (?:int|long) (\w+) = (\d+);", src)}
+        wb = _py(_c_fn(src, "long wide_bytes(int P, int lanes, int sr, "
+                            "int leaves)"))
+        wg = _py(_c_fn(src, "bool wide_global(int P, int lanes)"))
+        env.update(consts, DQ_PAD=4, WIDE_THREADS=consts["MAX_COLS"],
+                   wide_slab=lambda n: consts[f"WIDE_SLAB_{n}"],
+                   ring_bytes=lambda P, SR: 4 * 2 * SR * P + 64)
+        env["wide_bytes"] = lambda P, lanes, sr, leaves: eval(
+            wb, {}, dict(env, P=P, lanes=lanes, sr=sr, leaves=leaves))
+        env["wide_global"] = lambda P, lanes: eval(
+            wg, {}, dict(env, P=P, lanes=lanes))
+    return eval(_py(expr), {}, env)
 
 
 @pytest.mark.parametrize("kernel", sorted(WIDE_PLANS))
 @pytest.mark.parametrize("W", [256, 544, 1024])
 def test_wide_launch_plan(kernel, W):
     """Each of K2-K7's launch plans names its wide build at 256, 544 and
-    1024 columns: 512 threads, 8 lanes a block, one block per 8 lanes, no
-    refill, its shared bytes within the 232,448 a block can have and equal
-    to what the C source's wide_smem function computes. Past 512 columns
-    the plan takes it by default; up to 512 the narrow builds, and no build
-    of one thread a column is named past 512."""
+    1024 columns: 512 threads, its shared bytes within the 232,448 a block
+    can have and equal to what the C source's wide_smem function computes.
+    K2, K3, K4 and K6: 8 lanes a block, one block per 8 lanes, no refill.
+    K5 and K7 (on the stage's engine): 16 lanes a block, with 16-row slabs
+    and the three leaves in shared memory where they fit (up to 544
+    columns), else with zs and lm in global scratch and 8-row slabs (the
+    three leaves at 16 lanes would pass the 232,448 bytes), refill in every
+    mode, persistent blocks, no more than the SMs (one block an SM) and the
+    groups fill. Past 512 columns the plan takes the wide build by
+    default; up to 512 the narrow builds, and no build of one thread a
+    column is named past 512."""
     module, shape, extra, _fn, _c, sb = WIDE_PLANS[kernel]
     kw = dict(tile_b=8, check_every=8, exact_k=True, **extra)
     plan = module.launch_plan(8192, *shape(W), **kw, wide=True)
     assert plan["wide"] and plan["threads"] == 512 == stage.WIDE_THREADS
-    assert plan["lanes"] == 8 and plan["blocks"] == 8192 // 8
-    assert not plan["refill"]
+    if kernel in STAGE_WIDE:
+        assert plan["lanes"] == 16 and plan["refill"]
+        assert plan["global_leaves"] == (W > 544)
+        assert plan["slab"] == (16 if W <= 544 else stage.GLOBAL_SLAB)
+        assert plan["blocks"] == min(8192 // 16, fused_admm.SMS * 1)
+        assert plan["smem"] == module.shared_bytes(*sb(W), 16, wide=True)
+        assert plan["smem"] == _c_bytes(kernel, W, 16)
+        eight = module.launch_plan(8192, *shape(W), **kw, wide=True, lanes=8)
+        assert eight["slab"] == 8 and not eight["global_leaves"]
+        assert eight["smem"] == _c_bytes(kernel, W, 8)
+    else:
+        assert plan["lanes"] == 8 and plan["blocks"] == 8192 // 8
+        assert not plan["refill"]
+        assert plan["smem"] == module.shared_bytes(*sb(W), wide=True)
+        assert plan["smem"] == _c_bytes(kernel, W)
     assert plan["smem"] <= fused_admm.SMEM_MAX
-    assert plan["smem"] == module.shared_bytes(*sb(W), wide=True)
-    assert plan["smem"] == _c_bytes(kernel, W)
     default = module.launch_plan(8192, *shape(W), **kw)
     assert default.get("wide", False) == (W > 512)
     if W > 512:
@@ -229,18 +286,52 @@ def test_wide_launch_plan(kernel, W):
 
 
 def test_wide_plan_takes_eight_lanes_alone():
-    """The wide build is one build, 8 lanes a block: naming another raises,
-    as does a batch of part of a group of 8."""
-    kw = dict(tile_b=8, check_every=1, exact_k=False)
+    """K4's wide build is one build, 8 lanes a block: naming another
+    raises, as does a batch of part of a group of 8."""
+    kw = dict(tile_b=8, check_every=1, exact_k=False, fixed_iters=0)
     for lanes in (16, 32):
         with pytest.raises(ValueError, match="8 lanes a block"):
-            fused_soc.launch_plan(8192, 544, 512, **kw, lanes=lanes)
-    assert fused_soc.launch_plan(8192, 544, 512, **kw, lanes=8)["wide"]
+            fused_ellip.launch_plan(8192, 544, 514, 6, **kw, lanes=lanes)
+    assert fused_ellip.launch_plan(8192, 544, 514, 6, **kw, lanes=8)["wide"]
     with pytest.raises(ValueError):
-        fused_soc.launch_plan(12, 544, 512, **kw)
+        fused_ellip.launch_plan(12, 544, 514, 6, **kw)
+
+
+@pytest.mark.parametrize("kernel", STAGE_WIDE)
+def test_stage_wide_plans_refuse_what_does_not_fit(kernel):
+    """K5's and K7's wide builds run 16 or 8 lanes a block: 32 lanes are
+    refused at every width, as is a batch of part of a group of 8. 16
+    lanes at 1024 columns keep aux alone in shared memory (their three
+    leaves, dq and a ring of 8-row slabs would need 346,320 bytes or
+    more); 8 lanes
+    take 1024 columns with their three leaves, and every batch of whole
+    groups, its blocks no more than the groups."""
+    module, shape, extra, _fn, _c, _sb = WIDE_PLANS[kernel]
+    for mode in (dict(check_every=1, exact_k=False),
+                 dict(check_every=8, exact_k=True)):
+        kw = dict(tile_b=8, **mode, **extra)
+        for W in (544, 1024):
+            with pytest.raises(ValueError, match="no build"):
+                module.launch_plan(8192, *shape(W), **kw, lanes=32)
+        assert module._bytes(shape(1024)[0], 16, 8, 3, 16) >= 346320 > (
+            fused_admm.SMEM_MAX)
+        plan = module.launch_plan(8192, *shape(1024), **kw, lanes=16)
+        assert plan["global_leaves"] and plan["slab"] == 8
+        assert plan["smem"] <= fused_admm.SMEM_MAX
+        assert module.launch_plan(8192, *shape(1024), **kw) == plan
+        plan = module.launch_plan(8192, *shape(1024), **kw, lanes=8)
+        assert plan["wide"] and plan["refill"] and plan["slab"] == 8
+        assert not plan["global_leaves"]
+        small = module.launch_plan(40, *shape(544), **kw)
+        assert small["lanes"] == 8 and small["blocks"] == 5
+        with pytest.raises(ValueError):
+            module.launch_plan(12, *shape(544), **kw)
 
 
 def test_wide_constants_match_the_header():
+    """K2, K3, K4 and K6 build their wide kernels on csrc/wide_cols.cuh;
+    K5 and K7 on the stage (csrc/tile_product.cuh alone), with the
+    constants and builds kernels/stage.py plans for."""
     hdr = (_build.CSRC / "wide_cols.cuh").read_text()
     assert f"THREADS = {stage.WIDE_THREADS};" in hdr
     assert f"TB = {stage.WIDE_LANES};" in hdr
@@ -249,10 +340,32 @@ def test_wide_constants_match_the_header():
     for name in ("fused_fista", "fused_eadmm", "fused_ellip", "fused_soc",
                  "fused_hmpc", "fused_split"):
         src = (_build.CSRC / f"{name}.cu").read_text()
-        assert '#include "wide_cols.cuh"' in src
+        on_stage = name in ("fused_soc", "fused_split")
+        assert ('#include "wide_cols.cuh"' in src) != on_stage
         assert f"{name}_wide_kernel" in src
         assert f'extern "C" int {name}_wide_launch(' in src
         assert f'extern "C" long {name}_wide_smem(' in src
+        if on_stage:
+            wide = src[src.index("#if WIDE_PART"):]
+            assert _build.included_files(_build.CSRC / f"{name}.cu") == [
+                _build.CSRC / f"{name}.cu", _build.CSRC / "tile_product.cuh"]
+            assert f"WIDE_CPT = {fused_admm.WIDE_CPT};" in wide
+            assert "WIDE_THREADS = MAX_COLS;" in wide
+            assert f"MAX_COLS = {fused_admm.MAX_COLS};" in src
+            assert f"SMEM_MAX = {fused_admm.SMEM_MAX};" in wide
+            for lanes, (slab, per_sm) in stage.WIDE_BUILDS.items():
+                assert f"WIDE_SLAB_{lanes} = {slab};" in wide
+                assert f"wide_lanes<{lanes}, false>(p, " in wide
+                assert per_sm == 1
+            # 16 lanes with the global leaves, at GLOBAL_SLAB rows a slab
+            assert "wide_lanes<16, true>(p, " in wide
+            assert "GL ? WIDE_SLAB_8 : wide_slab(L)" in wide
+            assert stage.GLOBAL_SLAB == stage.WIDE_BUILDS[8][0]
+            assert "__launch_bounds__(WIDE_THREADS, 1)" in wide
+            for build in ("<L, GL, false, false>", "<L, GL, true, true>",
+                          "<L, GL, true, false>"):
+                assert f"wide_launch{build}(p, " in wide
+            assert "tp::run_lanes<L, REFILL, EXACT>" in wide
 
 
 def _mpct_cs_pair(N, **kw):
@@ -341,11 +454,12 @@ def _ellip_param(param, st, N):
                 P=np.eye(len(st["xr"])), c=np.asarray(st["xr"]), r=0.5)
 
 
-def _wide_case(kernel):
+def _wide_case(kernel, N=None, **kw):
     """(port test module, the kernel's plain-version solver pair at fp32
     with the JAX fused kernel in interpret mode, the inputs of B=8 lanes)
     for K2-K7 at the first oscillating-masses horizon whose padded width
-    passes 512, each in its test module's settings."""
+    passes 512 (or at horizon N, K5 and K7, with the solver options `kw`),
+    each in its test module's settings."""
     import importlib
     sys, param, st = tsp.systems.tester_fixture()
     mod = importlib.import_module({
@@ -355,7 +469,13 @@ def _wide_case(kernel):
         "K5": "tests.test_torch_fused_soc",
         "K6": "tests.test_torch_fused_hmpc",
         "K7": "tests.test_torch_fused_split"}[kernel])
-    N = WIDE_N[kernel]
+    N = N or WIDE_N[kernel]
+    if kernel == "K5":
+        return mod, mod._fused_pair(sys, _ellip_param(param, st, N),
+                                    **kw), mod._data(st, 8, 7)
+    if kernel == "K7":
+        return mod, mod._fused_pair(sys, _hmpc_param(param, N), "ADMM",
+                                    **kw), mod._data(st, 8, 7)
     if kernel == "K2":
         p = dict(param, N=N, T=np.diag(np.sum(param["T"], axis=1)))
         pair = mod._fused_pair("laxMPC", sys, p)
@@ -363,12 +483,10 @@ def _wide_case(kernel):
         p = dict(param, N=N, T=10.0 * np.asarray(param["Q"]),
                  S=np.asarray(param["R"]).copy())
         pair = mod._fused_pair(sys, p)
-    elif kernel in ("K4", "K5"):
+    elif kernel == "K4":
         pair = mod._fused_pair(sys, _ellip_param(param, st, N))
-    elif kernel == "K6":
-        pair = mod._fused_pair(sys, _hmpc_param(param, N))
     else:
-        pair = mod._fused_pair(sys, _hmpc_param(param, N), "ADMM")
+        pair = mod._fused_pair(sys, _hmpc_param(param, N))
     return mod, pair, mod._data(st, 8, 7)
 
 
@@ -408,3 +526,36 @@ def test_plain_version_past_512_columns_matches_jax_fused(kernel):
                                   np.where(stalled, -1, 1))
     mod._assert_parity(s_j(*x), rt, int(rt.k.max()) + 8,
                        WIDE_MOVED.get(kernel, ()))
+
+
+# the widest oscillating-masses horizon whose padded width stays at 1024
+# (chip_smoke.py WIDE_HORIZONS), where K5 and K7 run 16 lanes a block with
+# global leaves on the card; lanes that end apart from the JAX kernel's as
+# the frameworks' sums of the products differ in order, and by how many
+# iterations: K5's lane 0 (1216 here, 1211 in the JAX run; the slowest
+# lane, which at N=60 ends one apart, WIDE_MOVED), in both modes
+WIDEST_N = {"K5": 123, "K7": 121}
+WIDEST_MOVED = {"K5": ((0,), 5)}
+WIDEST_MODES = {"checked": {}, "exact-k": dict(check_every=8, exact_k=True)}
+
+
+@pytest.mark.parametrize("mode", sorted(WIDEST_MODES))
+@pytest.mark.parametrize("kernel", sorted(WIDEST_N))
+def test_plain_version_at_1024_columns_matches_jax_fused(kernel, mode):
+    """K5's and K7's plain versions at the widest horizon up to 1024
+    columns (on the card, their wide builds at 16 lanes a block), B=8,
+    checked and exact-k, fp32, in each kernel's test module settings: the
+    JAX fused kernel's per-lane k and e_flag exactly (WIDEST_MOVED's lanes
+    within their iterations), and iterates within that module's drift
+    bound (_assert_parity)."""
+    mod, (s_j, s_t), x = _wide_case(kernel, WIDEST_N[kernel],
+                                    **WIDEST_MODES[mode])
+    shapes = [t.shape for t in s_t.raw_fn.operator if t.dim() == 2]
+    assert max(max(s) for s in shapes) == 1024
+    rt = s_t(*x)
+    stalled = np.zeros(8, bool)
+    stalled[list(WIDE_STALLED.get(kernel, ()))] = True
+    np.testing.assert_array_equal(rt.e_flag.numpy(),
+                                  np.where(stalled, -1, 1))
+    moved, step = WIDEST_MOVED.get(kernel, ((), 1))
+    mod._assert_parity(s_j(*x), rt, int(rt.k.max()) + 8, moved, step)

@@ -13,8 +13,10 @@ mangled name hashes them): on an H100, K2's 8-lane two-blocks-an-SM build
 takes 0 or 8 bytes of spill stores for the earlier tree's own text
 (PERF.md §6). So the two trees' narrow translation units
 (-DWIDE_PART=0; kernels/_build.py) are compiled for the report at one path
-with one command line, and the earlier tree's also at a second path: a
-function whose report moves there too moves with the path, not the code.
+with one command line, and the earlier tree's also at a second path and,
+at the first path, with a comment line appended to each of its files: a
+function whose report moves there too moves with the path or the files'
+contents, not the code.
 
 The earlier tree is a directory holding its csrc/ (sources and headers),
 for example the parent commit's:
@@ -29,10 +31,25 @@ is timed parent, change, change, parent, twice, each a CUDA-event mean of 3
 launches. With SPCIES_LOG_DIR set, every line also goes to ab_parent.log
 in that directory.
 
-With --wide, K2-K7's wide builds instead (both trees must have them, with
-the same C signatures): each kernel's family at chip_smoke.py's
-WIDE_HORIZONS, B=8192, with the ptxas report of every function (the wide
-kernels' registers and spills may move) and no comparison of them.
+With --wide, K2-K7's wide builds instead: each kernel's family at
+chip_smoke.py's WIDE_HORIZONS, B=8192, with the ptxas report of every
+function (the wide kernels' registers and spills may move) and no
+comparison of them. K2, K3, K4 and K6 take the same C signatures in both
+trees; K5's and K7's wide launches of a tree whose wide builds still ran on
+csrc/wide_cols.cuh (8 lanes a block, the blocks' state in global memory)
+are called with that signature (PARENT_WIDE), the working tree's through
+its wrappers, and for these two the working tree's other lanes-a-block
+wide builds are also held to its planned one bit for bit and timed, and a
+build of it with TP_CLOCKS gives the clocks of an iteration's element-wise
+half and product (tools/ab_kernels.py clock_shares) at each lanes a block;
+K7 also at chip_smoke.py's WIDE_EXTRA (HMPC-SADMM-split N=58). For
+example, against the commit before K5 and K7 moved onto the stage's
+engine:
+
+    mkdir -p scratch_checkout/parent
+    git archive 85c747c spcies_tpu_torch/csrc | tar -x -C scratch_checkout/parent
+    python3 tools/ab_parent.py --wide \
+        scratch_checkout/parent/spcies_tpu_torch/csrc fused_soc fused_split
 """
 
 from __future__ import annotations
@@ -70,6 +87,19 @@ CASES = {
                    ("ellipHMPC-ADMM", "ellipHMPC-ADMM", c.FB, {})],
     "fused_split": [("HMPC-ADMM-split", "HMPC-ADMM-split", c.FB, {}),
                     ("HMPC-SADMM-split", "HMPC-SADMM-split", c.FB, {})],
+}
+# the wide launches of K5 and K7 on csrc/wide_cols.cuh: 17 pointers (the
+# inputs, the outputs, the exact-k snapshot, the blocks' state); B, P,
+# dim_p (K7: cone0, cone_g, symmetric, use_soc), blocks, threads, shared
+# bytes; tol_p, tol_d (K7: alpha first); k_max, check_every, exact_k; the
+# stream
+PARENT_WIDE = {
+    "fused_soc": ([ctypes.c_void_p] * 17 + [ctypes.c_int] * 6
+                  + [ctypes.c_float] * 2 + [ctypes.c_int] * 3
+                  + [ctypes.c_void_p]),
+    "fused_split": ([ctypes.c_void_p] * 17 + [ctypes.c_int] * 10
+                    + [ctypes.c_float] * 3 + [ctypes.c_int] * 3
+                    + [ctypes.c_void_p]),
 }
 _ENTRY = re.compile(r"Compiling entry function '([^']+)'")
 _SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
@@ -121,6 +151,41 @@ def narrow_report(name: str, runs: list[tuple[Path, str]]) -> list[dict]:
     return out
 
 
+def parent_wide(name, lib, args, kk):
+    """K5's or K7's wide build on csrc/wide_cols.cuh (PARENT_WIDE): one
+    block of 512 threads per 8 lanes, 4 [P][8] leaves a block in global
+    memory, dq as [2][P][8] and the row maxima in shared memory. Returns
+    the wrapper's outputs."""
+    fn = getattr(lib, f"{name}_wide_launch")
+    fn.argtypes, fn.restype = PARENT_WIDE[name], ctypes.c_int
+    B, P = args[0].shape
+    dev = args[0].device
+    zs, lm, aux = (torch.empty_like(args[0]) for _ in range(3))
+    k, done = (torch.empty((B,), dtype=torch.int32, device=dev)
+               for _ in range(2))
+    rp, rd = (torch.empty((B,), dtype=torch.float32, device=dev)
+              for _ in range(2))
+    exact = kk["check_every"] > 1 and kk["exact_k"]
+    snap = torch.empty((B if exact else 0, 3 * P), dtype=torch.float32,
+                       device=dev)
+    state = torch.empty((B * 4 * P,), dtype=torch.float32, device=dev)
+    split = name == "fused_split"
+    shape = [B, P, int(kk["dim_p"])] + ([
+        int(kk["cone0"]), int(kk["cone_g"]), int(bool(kk["symmetric"])),
+        int(bool(kk["use_soc"]))] if split else [])
+    floats = ([float(kk["alpha"])] if split else []) + [
+        float(kk["tol_p"]), float(kk["tol_d"])]
+    ptrs = [t.data_ptr() for t in args + (zs, lm, aux, k, done, rp, rd,
+                                          snap, state)]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = fn(*ptrs, *shape, B // 8, 512, 4 * 8 * (2 * P + 4 * 16), *floats,
+             int(kk["k_max"]), int(kk["check_every"]),
+             int(bool(kk["exact_k"])), stream)
+    assert err == 0, (name, err)
+    e_flag = torch.where(done == 1, 1, -1).to(torch.int32)
+    return zs, lm, aux, k, e_flag, rp, rd
+
+
 def args_of(sp, fam, B, **kw):
     """(kernel wrapper, its arguments, its keyword arguments) of a family's
     fused solver (with `kw`) on B lanes of the bench's inputs."""
@@ -154,10 +219,27 @@ def main():
     # both trees built afresh beside the cache, for ptxas's reports
     _build.BUILD_DIR = _build.BUILD_DIR / f"ab_parent_{os.getpid()}"
     jobs = [(n, d) for n in names for d in (parent_dir, None)]
+    clocks = _build.BUILD_DIR / "clocks"
+    if wide and set(names) & set(PARENT_WIDE):
+        # the working tree built with TP_CLOCKS, for K5's and K7's clocks
+        clocks.mkdir(parents=True)
+        for f in list(_build.CSRC.glob("*.cu")) + list(
+                _build.CSRC.glob("*.cuh")):
+            (clocks / f.name).write_text(
+                ("#define TP_CLOCKS 1\n" if f.stem in PARENT_WIDE else "")
+                + f.read_text())
+        jobs += [(n, clocks) for n in names if n in PARENT_WIDE]
     with ThreadPoolExecutor(len(jobs)) as pool:
         built = dict(zip(jobs, pool.map(lambda j: _build.build(*j), jobs)))
+        touched = _build.BUILD_DIR / "parent_touched"
+        if not wide:
+            touched.mkdir(parents=True)
+            for f in list(parent_dir.glob("*.cu")) + list(
+                    parent_dir.glob("*.cuh")):
+                (touched / f.name).write_text(f.read_text()
+                                              + "\n// a comment line\n")
         runs = [(parent_dir, "stage"), (_build.CSRC, "stage"),
-                (parent_dir, "stage_elsewhere")]
+                (parent_dir, "stage_elsewhere"), (touched, "stage")]
         reports = ({} if wide else dict(zip(names, pool.map(
             lambda n: narrow_report(n, runs), names))))
     for name in names:
@@ -168,29 +250,40 @@ def main():
                   f"parent {json.dumps(resources(rec_p['log']))} change "
                   f"{json.dumps(resources(rec_c['log']))}")
         else:
-            res_p, res_c, res_e = reports[name]
-            moved = {f: (r, res_c.get(f), res_e.get(f))
+            res_p, res_c, res_e, res_t = reports[name]
+            moved = {f: (r, res_c.get(f), res_e.get(f), res_t.get(f))
                      for f, r in res_p.items() if res_c.get(f) != r}
             same = not moved and set(res_p) == set(res_c)
             c.log(f"{name}: the narrow translation unit's {len(res_p)} "
                   f"functions (parent) and {len(res_c)} (change), compiled "
                   f"at one path: registers and spills unchanged: {same}; "
                   + (json.dumps(res_c) if same else
-                     "moved (parent, change, parent at another path): "
+                     "moved (parent, change, parent at another path, "
+                     "parent with a comment appended): "
                      + json.dumps(moved)))
         libs = {"parent": (ctypes.CDLL(str(lib_p)), rec_p),
                 "change": (ctypes.CDLL(str(lib_c)), rec_c)}
-        cases = ([(f"{c.WIDE_FAMILY[name]} N={h} (wide)",
-                   c.WIDE_FAMILY[name], c.FB, dict(horizon=h))
-                  for h in c.WIDE_HORIZONS[name]] if wide else CASES[name])
+        if (name, clocks) in built:
+            lib_k, rec_k = built[(name, clocks)]
+            libs["clocks"] = (ctypes.CDLL(str(lib_k)), rec_k)
+        cases = ([(f"{fam} N={h} (wide)", fam, c.FB, dict(horizon=h))
+                  for fam, h in [(c.WIDE_FAMILY[name], h)
+                                 for h in c.WIDE_HORIZONS[name]]
+                  + list(c.WIDE_EXTRA.get(name, ()))]
+                 if wide else CASES[name])
         for label, fam, B, kw in cases:
             kern, args, kk = args_of(sp, fam, B, **kw)
 
             def run(key):
                 _build._LOADED[name] = libs[key]
+                if wide and key == "parent" and name in PARENT_WIDE:
+                    return parent_wide(name, libs[key][0], args, kk)
                 return kern(*args, **kk)
 
             outs = {key: run(key) for key in ("parent", "change")}
+            plan = getattr(kern, "last_plan", None) or {}
+            c.log(f"{name} {label}: change's plan " + json.dumps(
+                {k: v for k, v in plan.items() if not torch.is_tensor(v)}))
             torch.cuda.synchronize()
             same = all(bool(torch.equal(a, b))
                        for a, b in zip(outs["parent"], outs["change"]))
@@ -202,7 +295,39 @@ def main():
                   f"change {min(t['change'])} (change / parent "
                   f"{min(t['change']) / min(t['parent']):.4f})")
             assert same, (name, label)
+            if "clocks" in libs:
+                c.log(f"{name} {label}: the change's builds "
+                      + json.dumps(stage_builds(name, libs, kern, args, kk)))
         _build._LOADED[name] = libs["change"]
+
+
+def stage_builds(name, libs, kern, args, kk):
+    """K5's or K7's wide builds of the working tree at each lanes a block:
+    the bits of the planned one (those of the last call) and the least of
+    two CUDA-event means of 3 launches; then the clocks of an iteration's
+    two halves in the TP_CLOCKS build."""
+    from ab_kernels import clock_shares
+    from spcies_tpu_torch.kernels.stage import WIDE_BUILDS
+    _build._LOADED[name] = libs["change"]
+    planned = kern(*args, **kk)
+    out = {}
+    for L in sorted(WIDE_BUILDS):
+        o = kern(*args, **kk, lanes=L)
+        torch.cuda.synchronize()
+        out[f"lanes={L}"] = dict(
+            bits_equal=all(bool(torch.equal(a, b))
+                           for a, b in zip(o, planned)),
+            ms=min(c.cuda_ms(lambda: kern(*args, **kk, lanes=L), reps=3)
+                   for _ in range(2)),
+            global_leaves=kern.last_plan["global_leaves"],
+            slab=kern.last_plan["slab"])
+    _build._LOADED[name] = libs["clocks"]
+    for L in sorted(WIDE_BUILDS):
+        kern(*args, **kk, lanes=L)
+        torch.cuda.synchronize()
+        out[f"lanes={L}"].update(clock_shares(kern.last_plan))
+    _build._LOADED[name] = libs["change"]
+    return out
 
 
 if __name__ == "__main__":
