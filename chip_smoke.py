@@ -115,18 +115,19 @@ started together), then
      one bit for bit at laxMPC-ADMM N=64 (512 columns), and checks that
      make_solver(..., backend="fused", device="cuda") refuses at build
      time a width past each kernel's cap of 1024 columns (1056); then
-     K2-K7's wide builds (512 threads of two columns; K2, K3, K4 and K6
-     on csrc/wide_cols.cuh at 8 lanes a block, K5 and K7 on the stage's
-     engine at 16 or 8 lanes a block with refill): each forced at its
-     family's N=30 width gives the narrow build's bits in every mode of
-     the kernel's own phase (4, 7, 10 or 13; K5 and K7 at each lanes-a-
-     block build, with refill and without), and at the first
+     K2-K7's wide builds (512 threads of two columns; K2 and K3 on
+     csrc/wide_cols.cuh at 8 lanes a block, K4-K7 on the stage's engine
+     at 16 or 8 lanes a block with refill): each forced at its family's
+     N=30 width gives the narrow build's bits in every mode of the
+     kernel's own phase (4, 7, 10 or 13; K4-K7 at each lanes-a-block
+     build, with refill and without), and at the first
      oscillating-masses horizon whose padded width passes 512 and the
      widest whose widths stay at or under 1024 (WIDE_HORIZONS; one family
-     a kernel at the bench's settings, B=8192, and HMPC-SADMM-split at
-     N=58 for K7's half-step) it converges on every lane, agrees with its
-     plain version as in 1 and is timed against it (kernel, plain once,
-     kernel) with its bound and its plan;
+     a kernel at the bench's settings, B=8192, ellipHMPC-ADMM at N=62 for
+     K6's other family and HMPC-SADMM-split at N=58 for K7's half-step)
+     it converges on every lane, agrees with its plain version as in 1
+     and is timed against it (kernel, plain once, kernel) with its bound
+     and its plan;
  18. runs every kernel away from the N=30 fixture, one family a kernel
      (laxMPC-ADMM, laxMPC-FISTA, MPCT-EADMM, ellipMPC-ADMM, -soc,
      HMPC-ADMM, HMPC-ADMM-split): on the three random plants of
@@ -1800,11 +1801,13 @@ WIDE_HORIZONS = {
     "fused_hmpc": (61, 124),
     "fused_split": (58, 121),
 }
-# the wide builds on the stage's engine (K5, K7: lanes a block and refill
+# the wide builds on the stage's engine (K4-K7: lanes a block and refill
 # planned as the narrow builds'), and the runs past 512 columns of a second
-# family of a kernel, logged beside its rows: K7's SADMM half-step
-STAGE_WIDE = ("fused_soc", "fused_split")
-WIDE_EXTRA = {"fused_split": (("HMPC-SADMM-split", 58),)}
+# family of a kernel, logged beside its rows: K6's ellipHMPC-ADMM at its
+# first horizon past 512 columns (544 x 224) and K7's SADMM half-step
+STAGE_WIDE = ("fused_ellip", "fused_soc", "fused_hmpc", "fused_split")
+WIDE_EXTRA = {"fused_hmpc": (("ellipHMPC-ADMM", 62),),
+              "fused_split": (("HMPC-SADMM-split", 58),)}
 
 
 def fam_kernel(fam):
@@ -1926,7 +1929,7 @@ def event_ms(fn):
 def phase_wide_kernels(sp):
     """K2-K7's wide builds on CUDA tensors: each forced at its family's
     N=30 width gives the narrow build's bits in every mode of the kernel's
-    own phase (K5 and K7 at each lanes-a-block build, with refill and
+    own phase (K4-K7 at each lanes-a-block build, with refill and
     without); at the first horizon past 512 columns and the widest up to
     1024, B=8192 (and WIDE_EXTRA's), every lane converges, k agrees with
     the plain version on >= 0.9985 of lanes and u within U_TOL, timed in
@@ -1952,8 +1955,9 @@ def phase_wide_kernels(sp):
                 plan = {k: v for k, v in kern.last_plan.items()
                         if not torch.is_tensor(v)}
                 assert plan["wide"], label
+                # K4's fixed_iters keeps static blocks
                 assert L is None or (plan["lanes"], plan["refill"]) == (
-                    L, refill), (label, plan)
+                    L, refill and not fixed), (label, plan)
                 torch.cuda.synchronize()
                 same = all(bool(torch.equal(a[:B], b[:B]))
                            for a, b in zip(wide, narrow))
@@ -3495,7 +3499,8 @@ def kernel_entry(name, launches, err, times, wide=None):
                      bf16_plain_ms=times["bf16"]["plain"],
                      bf16_bound_ms=times["bf16"]["bound"])
     if wide:
-        keep = ("lanes", "slab", "threads", "smem", "horizon", "nd")
+        keep = ("lanes", "slab", "threads", "smem", "horizon", "nd",
+                "refill", "blocks", "global_leaves")
         entry["wide"] = {
             str(nzp): dict(ms=row["kernel"], plain_ms=row["plain"],
                            bound_ms=row["bound"][0],

@@ -80,7 +80,6 @@
 // Padding. Pad columns carry zero rows and columns of M2, [0, 0] bounds
 // and c' = 0, so they stay exactly 0 and add nothing to the row maxima.
 
-#if !WIDE_PART
 #include <cuda_runtime.h>
 
 #include "tile_product.cuh"
@@ -156,9 +155,10 @@ struct Params {
 using tp::bit;
 
 // The block: the stage's engine over the leaves z, v, lam, and what thread
-// j knows of its column.
-template <int L, int TC, int SR>
-struct Engine : tp::TileEngine<L, TC, SR, NSNAP> {
+// j knows of its column (in the wide build's CPT = 2, WideEngine sets up
+// the block and each of a thread's columns instead).
+template <int L, int TC, int SR, int CPT = 1>
+struct Engine : tp::TileEngine<L, TC, SR, NSNAP, CPT> {
   static constexpr int G = L / 8;
   static constexpr int RS = L + tp::DQ_PAD;  // row stride of dq and rst
   const Params& p;
@@ -172,45 +172,48 @@ struct Engine : tp::TileEngine<L, TC, SR, NSNAP> {
   float lbj, ubj, cj;
 
   __device__ __forceinline__ Engine(const Params& p_, float* smem) : p(p_) {
-    const int j = threadIdx.x;
-    const int P = p.nzp;
-    this->tid = j;
-    this->T = P;
-    this->P = P;
-    this->rwarps = P >> 5;
-    this->lane0 = blockIdx.x * L;
-    this->tol_p = p.tol_p;
-    this->tol_d = p.tol_d;
-    float* a = smem + tp::ring_bytes(P, SR) / 4;
-    z = a;
-    v = z + P * L;
-    lam = v + P * L;
-    this->dq = lam + P * L;
-    this->red = this->dq + P * RS;
-    this->ctrl = reinterpret_cast<unsigned*>(this->red + this->rwarps * 2 * L);
-    this->sn_k = reinterpret_cast<int*>(this->ctrl + 4);
-    this->orig = this->sn_k + L;
-    ball = reinterpret_cast<float*>(this->orig + L);
-    rst = ball + L;
-    pin = rst + 2 * p.n * RS;
-    // z is the leaf the product adds to; the snapshot is [z | v | lam]
-    this->leaf[0] = tp::Leaf{z, p.z1, p.z, P, 0};
-    this->leaf[1] = tp::Leaf{v, p.v0, p.v, P, P};
-    this->leaf[2] = tp::Leaf{lam, p.lam0, p.lam, P, 2 * P};
-    this->snap = p.snap;
-    this->snap_width = NSNAP * P;
-    this->out = tp::LaneOut{p.k, p.done, p.rp, p.rd};
-    jj = j - p.t0;
-    slab = jj >= 0 && jj < p.n;
-    slab_warp = (j >> 5) == (p.t0 >> 5);
-    lbj = p.lb[j];
-    ubj = p.ub[j];
-    cj = p.c[j];
-    // pinvh, published by the barrier after the lanes are read in
-    for (int i = j; i < p.n * p.n; i += P) pin[i] = p.pinvh[i];
-    // the product's rows: the real ones, [0, t0 + n)
-    const int nr = p.t0 + p.n;
-    tp::ring_init<SR>(this->ring, smem, p.m2, P, nr, nr, nr, j, P);
+    if constexpr (CPT == 1) {
+      const int j = threadIdx.x;
+      const int P = p.nzp;
+      this->tid = j;
+      this->T = P;
+      this->P = P;
+      this->rwarps = P >> 5;
+      this->lane0 = blockIdx.x * L;
+      this->tol_p = p.tol_p;
+      this->tol_d = p.tol_d;
+      float* a = smem + tp::ring_bytes(P, SR) / 4;
+      z = a;
+      v = z + P * L;
+      lam = v + P * L;
+      this->dq = lam + P * L;
+      this->red = this->dq + P * RS;
+      this->ctrl =
+          reinterpret_cast<unsigned*>(this->red + this->rwarps * 2 * L);
+      this->sn_k = reinterpret_cast<int*>(this->ctrl + 4);
+      this->orig = this->sn_k + L;
+      ball = reinterpret_cast<float*>(this->orig + L);
+      rst = ball + L;
+      pin = rst + 2 * p.n * RS;
+      // z is the leaf the product adds to; the snapshot is [z | v | lam]
+      this->leaf[0] = tp::Leaf{z, p.z1, p.z, P, 0};
+      this->leaf[1] = tp::Leaf{v, p.v0, p.v, P, P};
+      this->leaf[2] = tp::Leaf{lam, p.lam0, p.lam, P, 2 * P};
+      this->snap = p.snap;
+      this->snap_width = NSNAP * P;
+      this->out = tp::LaneOut{p.k, p.done, p.rp, p.rd};
+      jj = j - p.t0;
+      slab = jj >= 0 && jj < p.n;
+      slab_warp = (j >> 5) == (p.t0 >> 5);
+      lbj = p.lb[j];
+      ubj = p.ub[j];
+      cj = p.c[j];
+      // pinvh, published by the barrier after the lanes are read in
+      for (int i = j; i < p.n * p.n; i += P) pin[i] = p.pinvh[i];
+      // the product's rows: the real ones, [0, t0 + n)
+      const int nr = p.t0 + p.n;
+      tp::ring_init<SR>(this->ring, smem, p.m2, P, nr, nr, nr, j, P);
+    }
   }
 
   // One iteration (tp::run_modes, tp::run_refill). Lanes in `frozen` keep
@@ -335,6 +338,11 @@ struct Engine : tp::TileEngine<L, TC, SR, NSNAP> {
   }
 };
 
+}  // namespace
+
+#if !WIDE_PART
+namespace {
+
 template <int L, int TC, int MAXT, int MINB, int SR, bool REFILL>
 __global__ void __launch_bounds__(MAXT, MINB) fused_ellip_kernel(Params p) {
   extern __shared__ __align__(16) float smem[];
@@ -435,220 +443,343 @@ extern "C" int fused_ellip_launch(
 }
 #endif  // !WIDE_PART
 
+
 #if WIDE_PART
 // The wide build, a translation unit of its own (-DWIDE_PART=1;
-// kernels/_build.py compiles the narrow builds above with
-// -DWIDE_PART=0 from exactly their earlier text).
-
-#include <cuda_runtime.h>
-
-#include "wide_cols.cuh"
+// kernels/_build.py compiles the narrow builds above with -DWIDE_PART=0
+// from exactly their text).
+//
+// Past MAX_COLS columns, up to tp::WIDE_COLS = 1024: fused_ellip_wide_kernel
+// runs WideEngine, the narrow Engine on tp::WIDE_THREADS = 512 threads of
+// tp::WIDE_CPT = 2 columns (t and t + 512, as the wide builds of K1, K5 and
+// K7), at 16 or 8 lanes a block (kernels/stage.py WIDE_BUILDS). z, v and
+// lam lie [P][L] in shared memory and dq [P][L + 4], with 16-row slabs of
+// M2 at 16 lanes (up to 544 columns) and 8-row slabs at 8 (up to 1024);
+// where the three leaves do not fit at 16 lanes (576 columns and more), v
+// and lam lie in the block's global scratch in the same layout, 8-row slabs
+// (the global leaves: only each column's own thread touches them, so they
+// need no barrier, and the L2 bytes of M2 a lane halve against 8 lanes).
+// M2's real rows, [0, t0 + n), come through the stage's TMA ring; the
+// product's tiles are 8 lanes x TCW columns, TCW = max(TC, 2 L / 8), so
+// that (L / 8) P / TCW <= 512 tiles cover the block's columns. The slab,
+// columns t0 .. t0+n-1 inside one warp of columns, lies in one half of the
+// threads' columns (past 512 columns the second: t0 = 514 at N=65, 1018 at
+// N=128): its warp, the threads (t0 % 512) / 32 on their column of half
+// t0 / 512, stages y - c' and its thread t takes lane t's ball, the squares
+// added in slab order, and at a checked iteration maps lane t's slab
+// differences back through pinvh and folds them into its warp's row maxima
+// after the maxima over the thread's two columns, as the narrow build does.
+// The modes are the stage's (tp::run_lanes): refill in the checked mode,
+// plain free-run and exact-k (tp::run_refill_exact), fixed_iters in static
+// blocks of L lanes; so every build gives the narrow builds' bits. The
+// build before this one ran the first layout on csrc/wide_cols.cuh at 8
+// lanes a block, with its state in global memory and M2 read from L2.
 
 namespace {
 
-// ---- the wide build ---------------------------------------------------------
-//
-// Past MAX_COLS columns, up to wc::COLS = 1024: fused_ellip_wide_kernel runs
-// 512 threads of two columns, t and t + 512, at 8 lanes a block, on the
-// first layout (csrc/variants/fused_ellip_parent.cu: one column a thread,
-// M2 read from L2) with each thread taking two columns (csrc/wide_cols.cuh),
-// so it gives this kernel's bits. The terminal slab, columns t0 .. t0+n-1,
-// lies in one warp of columns (t0 % 32 + n <= 32), in the first half of a
-// thread's columns or, at wide widths, the second: the warp that projects
-// the ball and maps the residuals back through pinvh is the warp of t0's
-// half, found from t0, and its sums stay shuffles in slab order. The state
-// (z, v, lam and the consumed z) lives in global memory that only its
-// thread touches; shared memory holds dq ([2][P][8], by parity) and the row
-// maxima. No refill: plain free-run drains each block, one group of 8
-// lanes.
+// Dynamic shared bytes of a block at `lanes` lanes, slabs of `sr` rows and
+// `leaves` leaves in shared memory, for a slab of n columns: the ring of
+// M2's slabs, the leaves as [P][lanes], dq with its padding, the 16 warps'
+// row maxima, the masks, the window starts, the slots' lanes, the lanes'
+// ball scales, the slab's staged differences and pinvh.
+long wide_bytes(int P, int n, int lanes, int sr, int leaves) {
+  return tp::ring_bytes(P, sr) +
+         4L * (leaves * P * lanes + P * (lanes + tp::DQ_PAD) +
+               (tp::WIDE_THREADS / 32) * 2L * lanes + 4 + 3L * lanes +
+               2L * n * (lanes + tp::DQ_PAD) + n * n);
+}
 
-using wc::TB;
+// Whether v and lam go to global scratch: where the three leaves do not fit.
+bool wide_global(int P, int n, int lanes) {
+  return wide_bytes(P, n, lanes, tp::wide_slab(lanes), 3) > tp::SMEM_MAX;
+}
 
-// The element-wise half of the first layout's iteration for column j (the
-// thread's column of half h): the box clip, the ball on the slab, and at a
-// checked iteration the slab's differences mapped back through pinvh.
-struct EllipOp {
-  float lb[wc::CPT], ub[wc::CPT], c[wc::CPT];
-  const float* pinvh;
-  int t0, n;
-  float rho, rho_i, r_ball;
+// The wide kernels' parameters: the narrow ones, exact-k's window starts
+// and links for refill, and the blocks' scratch of the global leaves.
+struct WideParams : Params {
+  int* wk;         // [B] window starts, [B / 8] links
+  float* scratch;  // [blocks][2][P][L]: v, then lam
+};
 
-  template <bool CHECK>
-  __device__ __forceinline__ void ew(const wc::Box& x, int h, int j,
-                                     unsigned frozen, float* dq_s,
-                                     float (&ap)[TB], float (&ad)[TB]) {
-    float* st_z = wc::box_leaf(x, wc::BX);
-    float* st_v = wc::box_leaf(x, wc::BA);
-    float* st_lam = wc::box_leaf(x, wc::BB);
-    const int o = j * TB;
-    const bool slab = j >= t0 && j < t0 + n;
-    const bool slab_warp = (j >> 5) == (t0 >> 5);
-    float z[TB], v[TB], lam[TB], vn[TB];
-    wc::load(z, st_z + o);
-    wc::load(v, st_v + o);
-    wc::load(lam, st_lam + o);
-    if (slab_warp) {
-      // the ball about c' on the slab: the squares of the slab's columns,
-      // broadcast in turn and added in slab order
-      float yc[TB], sq[TB], q[TB];
-#pragma unroll
-      for (int b = 0; b < TB; ++b) {
-        const float y = z[b] + rho_i * lam[b];
-        yc[b] = y - c[h];
-        sq[b] = yc[b] * yc[b];
-        q[b] = 0.0f;
-        vn[b] = fminf(fmaxf(y, lb[h]), ub[h]);
-      }
-      for (int i = 0; i < n; ++i) {
-        const int src = (t0 + i) & 31;
-#pragma unroll
-        for (int b = 0; b < TB; ++b)
-          q[b] = q[b] + __shfl_sync(0xffffffffu, sq[b], src);
-      }
-      if (slab) {
-#pragma unroll
-        for (int b = 0; b < TB; ++b) {
-          const float nrm = sqrtf(q[b]);
-          const float sc = fminf(1.0f, r_ball / fmaxf(nrm, 1e-30f));
-          vn[b] = c[h] + sc * yc[b];
-        }
-      }
+template <int L, int TC, int SR, bool GL>
+struct WideEngine : Engine<L, TC, SR, tp::WIDE_CPT> {
+  using Base = Engine<L, TC, SR, tp::WIDE_CPT>;
+  using Base::ball;
+  using Base::cj;
+  using Base::G;
+  using Base::jj;
+  using Base::lam;
+  using Base::lbj;
+  using Base::p;
+  using Base::pin;
+  using Base::RS;
+  using Base::rst;
+  using Base::slab;
+  using Base::slab_warp;
+  using Base::ubj;
+  using Base::v;
+  using Base::z;
+  float lb2, ub2, c2;  // the second column's
+  int hs;              // the half of a thread's columns that holds the slab
+
+  // The block as the narrow Engine sets it up, on blockDim.x threads: the
+  // row maxima of its warps after dq, with GL v and lam in the block's rows
+  // of `scratch` and dq right after z; slab, jj and slab_warp of the
+  // thread's column of half hs.
+  __device__ __forceinline__ WideEngine(const WideParams& p_, float* smem)
+      : Base(p_, smem) {
+    const int j = threadIdx.x;
+    const int P = p.nzp, T = blockDim.x;
+    this->tid = j;
+    this->T = T;
+    this->P = P;
+    this->rwarps = T >> 5;
+    this->lane0 = blockIdx.x * L;
+    this->tol_p = p.tol_p;
+    this->tol_d = p.tol_d;
+    z = smem + tp::ring_bytes(P, SR) / 4;
+    if constexpr (GL) {
+      v = p_.scratch + static_cast<size_t>(blockIdx.x) * 2 * P * L;
+      lam = v + P * L;
+      this->dq = z + P * L;
     } else {
-#pragma unroll
-      for (int b = 0; b < TB; ++b)
-        vn[b] = fminf(fmaxf(z[b] + rho_i * lam[b], lb[h]), ub[h]);
+      v = z + P * L;
+      lam = v + P * L;
+      this->dq = lam + P * L;
     }
-    float dq[TB], rp[TB], rd[TB];
+    this->red = this->dq + P * RS;
+    this->ctrl =
+        reinterpret_cast<unsigned*>(this->red + this->rwarps * 2 * L);
+    this->sn_k = reinterpret_cast<int*>(this->ctrl + 4);
+    this->orig = this->sn_k + L;
+    ball = reinterpret_cast<float*>(this->orig + L);
+    rst = ball + L;
+    pin = rst + 2 * p.n * RS;
+    this->leaf[0] = tp::Leaf{z, p.z1, p.z, P, 0};
+    this->leaf[1] = tp::Leaf{v, p.v0, p.v, P, P};
+    this->leaf[2] = tp::Leaf{lam, p.lam0, p.lam, P, 2 * P};
+    this->snap = p.snap;
+    this->snap_width = NSNAP * P;
+    this->out = tp::LaneOut{p.k, p.done, p.rp, p.rd};
+    hs = p.t0 / T;
+    jj = this->row(hs) - p.t0;
+    slab = jj >= 0 && jj < p.n;
+    slab_warp = (j >> 5) == ((p.t0 % T) >> 5);
+    const int j2 = this->row(1);
+    lbj = j < P ? p.lb[j] : 0.0f;
+    ubj = j < P ? p.ub[j] : 0.0f;
+    cj = j < P ? p.c[j] : 0.0f;
+    lb2 = j2 < P ? p.lb[j2] : 0.0f;
+    ub2 = j2 < P ? p.ub[j2] : 0.0f;
+    c2 = j2 < P ? p.c[j2] : 0.0f;
+    // pinvh, published by the barrier after the lanes are read in
+    for (int i = j; i < p.n * p.n; i += T) pin[i] = p.pinvh[i];
+    // the product's rows: the real ones, [0, t0 + n)
+    const int nr = p.t0 + p.n;
+    tp::ring_init<SR>(this->ring, smem, p.m2, P, nr, nr, nr, j, T);
+  }
+
+  // Engine::iterate over the thread's columns: the residuals' maxima over
+  // both columns (the slab column's put 0), then over the warp, then the
+  // slab warp's mapped slab differences.
+  template <bool CHECK>
+  TP_ITERATE unsigned iterate(unsigned frozen, unsigned idle, unsigned last,
+                              bool stop, unsigned rmask, int kinc) {
+    this->tic();
+    const unsigned dead = tp::whole_groups<L>(frozen | idle);
+    const int P = p.nzp;
+    if (slab_warp) ball_scales(dead);
 #pragma unroll
-    for (int b = 0; b < TB; ++b) {
-      dq[b] = rho * ((z[b] - 2.0f * vn[b]) + v[b]);
-      rp[b] = z[b] - vn[b];
-      rd[b] = vn[b] - v[b];
-      if (!wc::bit(frozen, b)) {
-        lam[b] = lam[b] + rho * (z[b] - vn[b]);
-        v[b] = vn[b];
-      }
-    }
-    wc::store(dq_s + o, dq);
-    wc::store(st_v + o, v);
-    wc::store(st_lam + o, lam);
-    if (CHECK) {
-      if (slab_warp) {
-        // the slab's differences back to the original coordinates: column
-        // j - t0 of d_slab @ pinvh, the slab's entries broadcast in turn
-        float bp[TB], bd[TB];
-        wc::zero(bp);
-        wc::zero(bd);
-        for (int i = 0; i < n; ++i) {
-          const int src = (t0 + i) & 31;
-          const float w = slab ? __ldg(pinvh + i * n + (j - t0)) : 0.0f;
+    for (int g = 0; g < G; ++g) {
+      if (bit(dead, 8 * g)) continue;
+      float ap[8], ad[8];
 #pragma unroll
-          for (int b = 0; b < TB; ++b) {
-            bp[b] = bp[b] + __shfl_sync(0xffffffffu, rp[b], src) * w;
-            bd[b] = bd[b] + __shfl_sync(0xffffffffu, rd[b], src) * w;
+      for (int b = 0; b < 8; ++b) ap[b] = ad[b] = 0.0f;
+#pragma unroll
+      for (int c = 0; c < tp::WIDE_CPT; ++c) {
+        const int j = this->row(c);
+        if (j >= P) break;
+        const float lb = c == 0 ? lbj : lb2;
+        const float ub = c == 0 ? ubj : ub2;
+        const float cc = c == 0 ? cj : c2;
+        const bool sl = slab && c == hs;
+        float zc[8], vp[8], lm[8], d[8], dp[8], dd[8];
+        tp::ld8<L>(zc, z, j, g);
+        tp::ld8<L>(vp, v, j, g);
+        tp::ld8<L>(lm, lam, j, g);
+#pragma unroll
+        for (int b = 0; b < 8; ++b) {
+          const float y = zc[b] + p.rho_i * lm[b];
+          const float vn = sl ? cc + ball[8 * g + b] * (y - cc)
+                              : fminf(fmaxf(y, lb), ub);
+          const float ln = lm[b] + p.rho * (zc[b] - vn);
+          d[b] = p.rho * ((zc[b] - 2.0f * vn) + vp[b]);
+          if (CHECK) {
+            dp[b] = zc[b] - vn;
+            dd[b] = vn - vp[b];
+          }
+          if (!bit(frozen, g * 8 + b)) {
+            vp[b] = vn;
+            lm[b] = ln;
           }
         }
-        if (slab) {
+        tp::st8_dq<L>(this->dq, j, g, d);
+        tp::st8<L>(v, j, g, vp);
+        tp::st8<L>(lam, j, g, lm);
+        if (CHECK) {
+          if (sl) {
+            // mapped back and folded into the maxima below, lane by lane
+            tp::st8_dq<L>(rst, jj, g, dp);
+            tp::st8_dq<L>(rst + p.n * RS, jj, g, dd);
+          } else {
 #pragma unroll
-          for (int b = 0; b < TB; ++b) {
-            rp[b] = bp[b];
-            rd[b] = bd[b];
+            for (int b = 0; b < 8; ++b) {
+              ap[b] = fmaxf(ap[b], fabsf(dp[b]));
+              ad[b] = fmaxf(ad[b], fabsf(dd[b]));
+            }
           }
         }
       }
-      wc::max_abs(ap, rp);
-      wc::max_abs(ad, rd);
+      if (CHECK) {
+        tp::warp_max<L>(ap, this->red, this->tid, 0, g);
+        tp::warp_max<L>(ad, this->red, this->tid, 1, g);
+      }
     }
+    if (CHECK && slab_warp) this->slab_residuals(dead);
+    return this->template product_half<CHECK>(dead, frozen, last, stop,
+                                              rmask, kinc);
+  }
+
+  // Engine::ball_scales on the thread's column of half hs.
+  __device__ __forceinline__ void ball_scales(unsigned dead) {
+    const int j = this->row(hs);
+    const float cc = hs == 0 ? cj : c2;
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      if (bit(dead, 8 * g)) continue;
+      float zc[8], lm[8], yc[8];
+      tp::ld8<L>(zc, z, j, g);
+      tp::ld8<L>(lm, lam, j, g);
+#pragma unroll
+      for (int b = 0; b < 8; ++b) yc[b] = (zc[b] + p.rho_i * lm[b]) - cc;
+      tp::st8_dq<L>(this->dq, j, g, yc);
+    }
+    __syncwarp();
+    const int t = this->tid & 31;
+    if (t < L && !bit(dead, t)) {
+      const float* col = this->dq + p.t0 * RS + t;
+      float q = 0.0f;
+      for (int i = 0; i < p.n; ++i) {
+        const float x = col[i * RS];
+        const float sq = x * x;
+        q = q + sq;
+      }
+      const float nrm = sqrtf(q);
+      ball[t] = fminf(1.0f, p.r_ball / fmaxf(nrm, 1e-30f));
+    }
+    __syncwarp();
   }
 };
 
-__global__ void __launch_bounds__(wc::THREADS, 1)
-    fused_ellip_wide_kernel(wc::Box x, EllipOp op, const float* lb,
-                            const float* ub, const float* c) {
+template <int L, int TC, int SR, bool GL, bool REFILL, bool EXACT>
+__global__ void __launch_bounds__(tp::WIDE_THREADS, 1)
+    fused_ellip_wide_kernel(WideParams p) {
   extern __shared__ __align__(16) float smem[];
-  x.dq = smem;
-  x.red = smem + 2 * x.P * TB;
-#pragma unroll
-  for (int h = 0; h < wc::CPT; ++h) {
-    const int j = wc::col(h, x.P);
-    op.lb[h] = j < 0 ? 0.0f : lb[j];
-    op.ub[h] = j < 0 ? 0.0f : ub[j];
-    op.c[h] = j < 0 ? 0.0f : c[j];
+  WideEngine<L, TC, SR, GL> e(p, smem);
+  tp::run_lanes<L, REFILL, EXACT>(e, p.k_max, p.check_every, p.exact_k,
+                                  p.n_groups, p.queue, p.fixed_iters, p.wk);
+}
+
+template <int L, bool GL, bool REFILL, bool EXACT>
+int wide_launch(const WideParams& p, int blocks, int smem, void* stream) {
+  constexpr int SR = GL ? tp::WIDE_SLAB_8 : tp::wide_slab(L);
+  void (*kernel)(WideParams) =
+      fused_ellip_wide_kernel<L, tp::wide_tc<L>(), SR, GL, REFILL, EXACT>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
   }
-  // rows from t0 + n on are pads (dq = 0)
-  x.r0 = 0;
-  x.r1 = op.t0 + op.n;
-  x.r2 = 0;
-  x.r3 = 0;
-  wc::box_run<8>(x, op);
+  kernel<<<blocks, tp::WIDE_THREADS, smem,
+           static_cast<cudaStream_t>(stream)>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The build of a mode: static blocks (no refill: every mode, fixed_iters
+// among them, through run_modes), refill in exact-k, refill in the checked
+// mode and plain free-run.
+template <int L, bool GL>
+int wide_lanes(const WideParams& p, bool refill, bool exact, int blocks,
+               int smem, void* stream) {
+  if (!refill)
+    return wide_launch<L, GL, false, false>(p, blocks, smem, stream);
+  if (exact) return wide_launch<L, GL, true, true>(p, blocks, smem, stream);
+  return wide_launch<L, GL, true, false>(p, blocks, smem, stream);
 }
 
 }  // namespace
 
-// Dynamic shared bytes of a block of the wide build (kernels/fused_ellip.py
-// shared_bytes(nzp, n, wide=True) computes the same): dq as [2][nzp][8]
-// and the warps' row maxima.
-extern "C" long fused_ellip_wide_smem(int nzp) { return wc::box_smem(nzp); }
+// Dynamic shared bytes of a block of the wide build at `lanes` lanes for a
+// slab of n columns (kernels/fused_ellip.py shared_bytes(P, n, lanes,
+// wide=True) computes the same): wide_bytes with the three leaves, or with
+// z alone and 8-row slabs where v and lam go to global scratch.
+extern "C" long fused_ellip_wide_smem(int P, int n, int lanes) {
+  return wide_global(P, n, lanes)
+             ? wide_bytes(P, n, lanes, tp::WIDE_SLAB_8, 1)
+             : wide_bytes(P, n, lanes, tp::wide_slab(lanes), 3);
+}
 
-// Launch the wide build on `stream`: the arguments of fused_ellip_launch
-// but the refill queue and the lanes, and `state`, the blocks' global state
-// ([B / 8][4][nzp][8] floats). The geometry comes from the wrapper
-// (kernels/fused_ellip.py launch_plan with wide=True) and is checked here
-// again. Returns the CUDA error of the launch, as an int.
+// Launch the wide build on `stream`: the arguments of fused_ellip_launch,
+// the window starts and links of exact-k with refill (`wk`, B + B / 8
+// int32) and the global leaves (`scratch`, blocks x 2 nzp lanes floats
+// where wide_global, else unused) after the queue, and `refill` after the
+// lanes, with `threads` tp::WIDE_THREADS, `lanes` 8 or 16 and nzp up to
+// tp::WIDE_COLS. With refill (every mode but fixed_iters) any number of
+// persistent blocks up to one per L lanes; else B / lanes blocks. The
+// geometry comes from the wrapper (kernels/fused_ellip.py launch_plan with
+// wide=True) and is checked here again. Returns the CUDA error of the
+// launch, as an int.
 extern "C" int fused_ellip_wide_launch(
     const float* z1, const float* v0, const float* lam0, const float* m2,
     const float* pinvh, const float* lb, const float* ub, const float* c,
     float* z, float* v, float* lam, int* k, int* done, float* rp, float* rd,
-    float* snap, float* state, int B, int nzp, int t0, int n, int blocks,
-    int threads, int smem, float rho, float rho_i, float r_ball,
-    float tol_p, float tol_d, int k_max, int check_every, int fixed_iters,
-    int exact_k, void* stream) {
-  const bool exact = check_every > 1 && exact_k && fixed_iters <= 0;
-  if (nzp <= 0 || nzp % 32 != 0 || nzp > wc::COLS || B % TB != 0 ||
-      blocks != B / TB || threads != wc::THREADS ||
-      smem != wc::box_smem(nzp) || check_every < 1 || k_max < 1 || n < 1 ||
-      n > 32 || t0 < 0 || t0 + n > nzp || t0 % 32 + n > 32 ||
-      (B > 0 && (state == nullptr || (exact && snap == nullptr))))
+    float* snap, int* queue, int* wk, float* scratch, int B, int nzp, int t0,
+    int n, int lanes, int refill, int blocks, int threads, int smem,
+    float rho, float rho_i, float r_ball, float tol_p, float tol_d,
+    int k_max, int check_every, int fixed_iters, int exact_k,
+    void* stream) {
+  const bool fixed = fixed_iters > 0;
+  const bool exact = check_every > 1 && exact_k && !fixed;
+  const int groups = B / 8, slots = lanes / 8;
+  if (nzp <= 0 || nzp % 32 != 0 || nzp > tp::WIDE_COLS ||
+      (lanes != 8 && lanes != 16) || B % 8 != 0 ||
+      threads != tp::WIDE_THREADS || n < 1 || n > 32 || t0 < 0 ||
+      t0 + n > nzp || t0 % 32 + n > 32 ||
+      smem != fused_ellip_wide_smem(nzp, n, lanes) || smem > tp::SMEM_MAX ||
+      check_every < 1 || k_max < 1 || (refill && fixed) ||
+      (lanes == 8 && wide_global(nzp, n, lanes)) ||
+      (exact && B > 0 && snap == nullptr) ||
+      (B > 0 && wide_global(nzp, n, lanes) && scratch == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
+  if (refill ? (blocks < 1 || blocks > (groups + slots - 1) / slots ||
+                queue == nullptr || (exact && wk == nullptr))
+             : (B % lanes != 0 || blocks != B / lanes))
+    return B == 0 ? 0 : static_cast<int>(cudaErrorInvalidValue);
   if (B == 0) return 0;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        fused_ellip_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  wc::Box x{};
-  x.st = state;
-  x.m = m2;
-  x.in[0] = z1;
-  x.in[1] = v0;
-  x.in[2] = lam0;
-  x.out[0] = z;
-  x.out[1] = v;
-  x.out[2] = lam;
-  x.k = k;
-  x.done = done;
-  x.rp = rp;
-  x.rd = rd;
-  x.snap = snap;
-  x.P = nzp;
-  x.tol_p = tol_p;
-  x.tol_d = tol_d;
-  x.k_max = k_max;
-  x.check_every = check_every;
-  x.fixed_iters = fixed_iters;
-  x.exact_k = exact_k;
-  EllipOp op{};
-  op.pinvh = pinvh;
-  op.t0 = t0;
-  op.n = n;
-  op.rho = rho;
-  op.rho_i = rho_i;
-  op.r_ball = r_ball;
-  fused_ellip_wide_kernel<<<blocks, wc::THREADS, smem,
-                            static_cast<cudaStream_t>(stream)>>>(x, op, lb,
-                                                                 ub, c);
-  return static_cast<int>(cudaGetLastError());
+  WideParams p{};
+  static_cast<Params&>(p) =
+      Params{z1,    v0,     lam0,  m2,          pinvh,       lb,
+             ub,    c,      z,     v,           lam,         k,
+             done,  rp,     rd,    snap,        queue,       groups,
+             nzp,   t0,     n,     rho,         rho_i,       r_ball,
+             tol_p, tol_d,  k_max, check_every, fixed_iters, exact_k};
+  p.wk = wk;
+  p.scratch = scratch;
+  if (lanes == 8)
+    return wide_lanes<8, false>(p, refill, exact, blocks, smem, stream);
+  if (wide_global(nzp, n, lanes))
+    return wide_lanes<16, true>(p, refill, exact, blocks, smem, stream);
+  return wide_lanes<16, false>(p, refill, exact, blocks, smem, stream);
 }
 
 #endif  // WIDE_PART

@@ -84,7 +84,6 @@
 // [0, 0] bounds; a pad cone slot projects a zero triple onto zero. So pad
 // state stays exactly 0 and adds nothing to the row maxima.
 
-#if !WIDE_PART
 #include <cuda_runtime.h>
 
 #include "tile_product.cuh"
@@ -186,9 +185,10 @@ __device__ __forceinline__ void proj_ssoc(float& y0, float& y1, float& y2,
 }
 
 // The block: the stage's engine over the leaves z, s, lam, and what thread
-// j knows of its s column.
-template <int L, int TC, int SR>
-struct Engine : tp::TileEngine<L, TC, SR, 3> {
+// j knows of its s column (in the wide build's CPT = 2, WideEngine sets up
+// the block and each of a thread's s columns instead).
+template <int L, int TC, int SR, int CPT = 1>
+struct Engine : tp::TileEngine<L, TC, SR, 3, CPT> {
   static constexpr int G = L / 8;
   const Params& p;
   float *z, *s, *lam;
@@ -202,59 +202,62 @@ struct Engine : tp::TileEngine<L, TC, SR, 3> {
   __device__ __forceinline__ Engine(const Params& p_, float* smem,
                                     int* bounds)
       : p(p_) {
-    const int j = threadIdx.x;
-    this->tid = j;
-    this->T = blockDim.x;
-    this->P = p.dim_p;
-    this->rwarps = p.ns_p >> 5;
-    this->lane0 = blockIdx.x * L;
-    this->tol_p = p.tol_p;
-    this->tol_d = p.tol_d;
-    float* a = smem + tp::ring_bytes(p.dim_p, SR) / 4;
-    z = a;
-    s = z + p.dim_p * L;
-    lam = s + p.ns_p * L;
-    this->dq = lam + p.ns_p * L;
-    this->red = this->dq + p.ns_p * (L + tp::DQ_PAD);
-    this->ctrl = reinterpret_cast<unsigned*>(this->red + this->rwarps * 2 * L);
-    this->sn_k = reinterpret_cast<int*>(this->ctrl + 4);
-    this->orig = this->sn_k + L;
-    this->leaf[0] = tp::Leaf{z, p.z1, p.z, p.dim_p, 0};
-    this->leaf[1] = tp::Leaf{s, p.s0, p.s, p.ns_p, p.dim_p};
-    this->leaf[2] = tp::Leaf{lam, p.lam0, p.lam, p.ns_p, p.dim_p + p.ns_p};
-    this->snap = p.snap;
-    this->snap_width = p.dim_p + 2 * p.ns_p;
-    this->out = tp::LaneOut{p.k, p.done, p.rp, p.rd};
-    has_s = j < p.ns_p;
-    cone_warp = has_s && j >= p.cone0;
-    const int lane = j & 31;
-    cone = cone_warp && lane < 3 * p.cone_g;
-    seg = lane / p.cone_g;
-    src = lane % p.cone_g;
-    d = has_s ? p.d[j] : 0.0f;
-    lb = has_s ? p.lb[j] : 0.0f;
-    ub = has_s ? p.ub[j] : 0.0f;
-    lo = 0;
-    hi = 0;
-    if (has_s) {
-      // the first and last nonzero of CT column j
-      for (int i = 0; i < p.dim_p; ++i) {
-        if (p.ct[static_cast<size_t>(i) * p.ns_p + j] != 0.0f) {
-          if (hi == 0) lo = i;
-          hi = i + 1;
+    if constexpr (CPT == 1) {
+      const int j = threadIdx.x;
+      this->tid = j;
+      this->T = blockDim.x;
+      this->P = p.dim_p;
+      this->rwarps = p.ns_p >> 5;
+      this->lane0 = blockIdx.x * L;
+      this->tol_p = p.tol_p;
+      this->tol_d = p.tol_d;
+      float* a = smem + tp::ring_bytes(p.dim_p, SR) / 4;
+      z = a;
+      s = z + p.dim_p * L;
+      lam = s + p.ns_p * L;
+      this->dq = lam + p.ns_p * L;
+      this->red = this->dq + p.ns_p * (L + tp::DQ_PAD);
+      this->ctrl =
+          reinterpret_cast<unsigned*>(this->red + this->rwarps * 2 * L);
+      this->sn_k = reinterpret_cast<int*>(this->ctrl + 4);
+      this->orig = this->sn_k + L;
+      this->leaf[0] = tp::Leaf{z, p.z1, p.z, p.dim_p, 0};
+      this->leaf[1] = tp::Leaf{s, p.s0, p.s, p.ns_p, p.dim_p};
+      this->leaf[2] = tp::Leaf{lam, p.lam0, p.lam, p.ns_p, p.dim_p + p.ns_p};
+      this->snap = p.snap;
+      this->snap_width = p.dim_p + 2 * p.ns_p;
+      this->out = tp::LaneOut{p.k, p.done, p.rp, p.rd};
+      has_s = j < p.ns_p;
+      cone_warp = has_s && j >= p.cone0;
+      const int lane = j & 31;
+      cone = cone_warp && lane < 3 * p.cone_g;
+      seg = lane / p.cone_g;
+      src = lane % p.cone_g;
+      d = has_s ? p.d[j] : 0.0f;
+      lb = has_s ? p.lb[j] : 0.0f;
+      ub = has_s ? p.ub[j] : 0.0f;
+      lo = 0;
+      hi = 0;
+      if (has_s) {
+        // the first and last nonzero of CT column j
+        for (int i = 0; i < p.dim_p; ++i) {
+          if (p.ct[static_cast<size_t>(i) * p.ns_p + j] != 0.0f) {
+            if (hi == 0) lo = i;
+            hi = i + 1;
+          }
         }
       }
+      // the product's row ranges: [0, box_end) and [cone0, s_end)
+      if (j == 0) {
+        bounds[0] = 0;
+        bounds[1] = p.cone0;
+      }
+      __syncthreads();
+      if (hi > lo) atomicMax(&bounds[j < p.cone0 ? 0 : 1], j + 1);
+      __syncthreads();
+      tp::ring_init<SR>(this->ring, smem, p.mc, p.dim_p, bounds[0], p.cone0,
+                        bounds[1], j, this->T);
     }
-    // the product's row ranges: [0, box_end) and [cone0, s_end)
-    if (j == 0) {
-      bounds[0] = 0;
-      bounds[1] = p.cone0;
-    }
-    __syncthreads();
-    if (hi > lo) atomicMax(&bounds[j < p.cone0 ? 0 : 1], j + 1);
-    __syncthreads();
-    tp::ring_init<SR>(this->ring, smem, p.mc, p.dim_p, bounds[0], p.cone0,
-                      bounds[1], j, this->T);
   }
 
   // One iteration (tp::run_modes, tp::run_refill). Lanes in `frozen` keep
@@ -419,6 +422,11 @@ struct Engine : tp::TileEngine<L, TC, SR, 3> {
   }
 };
 
+}  // namespace
+
+#if !WIDE_PART
+namespace {
+
 template <int L, int TC, int MAXT, int MINB, int SR, bool REFILL>
 __global__ void __launch_bounds__(MAXT, MINB) fused_hmpc_kernel(Params p) {
   extern __shared__ __align__(16) float smem[];
@@ -521,439 +529,365 @@ extern "C" int fused_hmpc_launch(
 }
 #endif  // !WIDE_PART
 
+
 #if WIDE_PART
 // The wide build, a translation unit of its own (-DWIDE_PART=1;
-// kernels/_build.py compiles the narrow builds above with
-// -DWIDE_PART=0 from exactly their earlier text).
-
-#include <cuda_runtime.h>
-
-#include "wide_cols.cuh"
+// kernels/_build.py compiles the narrow builds above with -DWIDE_PART=0
+// from exactly their text).
+//
+// Past MAX_COLS columns of either width, up to tp::WIDE_COLS = 1024:
+// fused_hmpc_wide_kernel runs WideEngine, the narrow Engine on
+// tp::WIDE_THREADS = 512 threads of tp::WIDE_CPT = 2 columns of each width
+// (t and t + 512), at 16 or 8 lanes a block (kernels/stage.py WIDE_BUILDS).
+// z has dim_p rows, the product's columns and czd's source; s, lam and w
+// have ns_p rows, w's rows also the ring's. The two widths pass 512 at
+// different N (HMPC-ADMM N=61: dim_p 512, ns_p 544; ellipHMPC-ADMM N=62:
+// 544, 224), so a thread may own a second column of one width and none of
+// the other. z and s, lam lie [rows][L] in shared memory and w [ns_p][L +
+// 4], with 16-row slabs of MC at 16 lanes and 8-row slabs at 8; where the
+// three leaves do not fit at 16 lanes (576 columns and more), s and lam lie
+// in the block's global scratch in the same layout, 8-row slabs (the global
+// leaves: only each column's own thread touches them). z stays in shared
+// memory: the product adds to it and czd reads other threads' rows of it.
+// MC's real rows ([0, box_end) and [cone0, s_end)) come through the
+// stage's TMA ring; the product's tiles are 8 lanes x TCW columns of z, TCW
+// = max(TC, 2 L / 8). An iteration is the narrow build's with the spread
+// cones: the cone columns form czd and leave y in their rows of w; a
+// barrier; every thread projects (cone, lane) pairs, stride 512; a barrier;
+// then each thread forms czd (again, on a cone column: the same chain, so
+// the same bits, and no czd of two columns held across the barriers), s,
+// lam and w of each of its s columns, the residuals' maxima over its
+// columns and then over the block's 16 warps. The modes and refill in
+// every mode are the stage's (tp::run_lanes), exact-k's through
+// tp::run_refill_exact, so every build gives the narrow builds' bits. The
+// build before this one ran the first layout (8 lanes a block, CT and MC
+// read from L2, the cones projected by shuffles in their warps, the state
+// in global memory) on csrc/wide_cols.cuh.
 
 namespace {
 
-constexpr int MAX_G = 10;  // cones a warp (MAX_CONES_PER_WARP)
-constexpr unsigned FULL = 0xffffffffu;
-using wc::proj_ssoc;
+// Dynamic shared bytes of a block at `lanes` lanes, slabs of `sr` rows and
+// `leaves` leaves in shared memory (z, and with 3 s and lam): the ring of
+// MC's slabs, z as [dim_p][lanes], s and lam as [ns_p][lanes], w with its
+// padding, the 16 warps' row maxima, the masks, the window starts and the
+// slots' lanes.
+long wide_bytes(int dim_p, int ns_p, int lanes, int sr, int leaves) {
+  return tp::ring_bytes(dim_p, sr) +
+         4L * (dim_p * lanes + (leaves - 1) * ns_p * lanes +
+               ns_p * (lanes + tp::DQ_PAD) +
+               (tp::WIDE_THREADS / 32) * 2L * lanes + 4 + 2L * lanes);
+}
 
-// ---- the wide build ---------------------------------------------------------
-//
-// Past MAX_COLS columns of either width, up to wc::COLS = 1024:
-// fused_hmpc_wide_kernel runs 512 threads, at 8 lanes a block, on the first
-// layout (csrc/variants/fused_hmpc_parent.cu: one column a thread, CT and MC
-// read from L2) with each thread taking two columns of each width, t and
-// t + 512 (csrc/wide_cols.cuh): s columns t and t + 512 in czd's product
-// and the element-wise half, z columns t and t + 512 in MC's product. The
-// two widths may pass 512 at different N: each product's threads cover its
-// own width. The cones keep their layout, whole warps from cone0, and a
-// warp of cones (32 columns) lies in one half of a thread's s columns,
-// whose 32 threads run its shuffles together. Shared memory holds what
-// every thread reads: the prepared z (czd's input) and w (MC's input) as
-// [columns][8], and the row maxima; the consumed z, s and lam live in
-// global memory that only their thread touches. So the per-column sums are
-// the first layout's and the kernel gives this kernel's bits. No refill:
-// plain free-run drains each block, one group of 8 lanes.
+// Whether s and lam go to global scratch: where the three leaves do not
+// fit.
+bool wide_global(int dim_p, int ns_p, int lanes) {
+  return wide_bytes(dim_p, ns_p, lanes, tp::wide_slab(lanes), 3) >
+         tp::SMEM_MAX;
+}
 
-using wc::TB;
-
-struct HmpcWide {
-  const float* __restrict__ z1;
-  const float* __restrict__ s0;
-  const float* __restrict__ lam0;
-  const float* __restrict__ ct;  // [dim_p][ns_p], czd = z @ ct - d
-  const float* __restrict__ mc;  // [ns_p][dim_p], z += w @ mc
-  const float* __restrict__ d;
-  const float* __restrict__ lb;
-  const float* __restrict__ ub;
-  float* z;
-  float* s;
-  float* lam;
-  int* k;
-  int* done;
-  float* rp;
-  float* rd;
-  float* snap;   // exact-k: per lane [z (dim_p) | s (ns_p) | lam (ns_p)]
-  float* state;  // [blocks][dim_p + 2 ns_p][8]: the consumed z, s, lam
-  int dim_p, ns_p, cone0, cone_g, use_soc;
-  float rho, rho_i, tol_p, tol_d;
-  int k_max, check_every, exact_k;
+// The wide kernels' parameters: the narrow ones, exact-k's window starts
+// and links for refill, and the blocks' scratch of the global leaves.
+struct WideParams : Params {
+  int* wk;         // [B] window starts, [B / 8] links
+  float* scratch;  // [blocks][2][ns_p][L]: s, then lam
 };
 
-// What a thread knows of its s columns (h = 0, 1) and of the block.
-struct HmpcCols {
-  float d[wc::CPT], lb[wc::CPT], ub[wc::CPT];
-  int lo[wc::CPT], hi[wc::CPT];  // the rows of CT column j that can be
-                                 // nonzero
-  int box_end, s_end;            // MC rows read: [0, box_end), [cone0, s_end)
-  float* zn;                     // shared: [dim_p][8], the prepared z
-  float* w;                      // shared: [ns_p][8]
-  float* red;                    // shared: [WARPS][2][8]
-  float* zc;                     // global: [dim_p][8], the consumed z
-  float* sv;                     // global: [ns_p][8]
-  float* lam;                    // global: [ns_p][8]
+// What a thread knows of one of its s columns.
+struct SCol {
+  bool has_s, cone_warp, cone;
+  int lo, hi;  // the rows of CT column j that can be nonzero
+  float d, lb, ub;
 };
 
-// One iteration of the thread's columns for the block's 8 lanes, as the
-// first layout's iterate: lanes in `frozen` keep all their state; with
-// CHECK, returns the lanes whose residuals meet tol, and thread 0 records
-// the residuals of the lanes in `rmask` in lres.
-template <bool CHECK>
-__device__ __forceinline__ unsigned hmpc_wide_iterate(
-    const HmpcWide& p, const HmpcCols& c, unsigned frozen, unsigned rmask,
-    float (&lres)[2][TB]) {
-  float ap[TB], ad[TB];
-  wc::zero(ap);
-  wc::zero(ad);
-#pragma unroll
-  for (int h = 0; h < wc::CPT; ++h) {
-    const int j = wc::col(h, p.ns_p);
-    if (j < 0) break;
-    const int o = j * TB;
-    const int lane = j & 31;
-    const bool cone_warp = j >= p.cone0;
-    const bool cone = cone_warp && lane < 3 * p.cone_g;
-    const int seg = lane / p.cone_g, src = lane % p.cone_g;
-    float czd[TB], y[TB], sn[TB];
-    wc::zero(czd);
-    wc::product<8>(c.zn, p.ct, p.ns_p, c.lo[h], c.hi[h], j, czd);
-    {
-      float lam[TB];
-      wc::load(lam, c.lam + o);
-#pragma unroll
-      for (int b = 0; b < TB; ++b) {
-        czd[b] = czd[b] - c.d[h];
-        y[b] = -czd[b] - p.rho_i * lam[b];
-      }
-    }
-    if (cone_warp) {
-#pragma unroll
-      for (int b = 0; b < TB; ++b) {
-        float y0 = __shfl_sync(FULL, y[b], src);
-        float y1 = __shfl_sync(FULL, y[b], src + p.cone_g);
-        float y2 = __shfl_sync(FULL, y[b], src + 2 * p.cone_g);
-        if (p.use_soc) {
-          proj_ssoc(y0, y1, y2, 1.0f, 0.0f);
-        } else {
-          proj_ssoc(y0, y1, y2, 1.0f, c.lb[h]);
-          proj_ssoc(y0, y1, y2, -1.0f, c.ub[h]);
-        }
-        const float v = seg == 0 ? y0 : (seg == 1 ? y1 : y2);
-        sn[b] = cone ? v : fminf(fmaxf(y[b], c.lb[h]), c.ub[h]);
-      }
+template <int L, int TC, int SR, bool GL>
+struct WideEngine : Engine<L, TC, SR, tp::WIDE_CPT> {
+  using Base = Engine<L, TC, SR, tp::WIDE_CPT>;
+  using Base::G;
+  using Base::lam;
+  using Base::p;
+  using Base::s;
+  using Base::z;
+  SCol col[tp::WIDE_CPT];
+
+  // The block as the narrow Engine sets it up, on blockDim.x threads: the
+  // row maxima of its warps after w, with GL s and lam in the block's rows
+  // of `scratch` and w right after z; what the thread knows of each of its
+  // s columns; the product's row ranges over both.
+  __device__ __forceinline__ WideEngine(const WideParams& p_, float* smem,
+                                        int* bounds)
+      : Base(p_, smem, bounds) {
+    const int j = threadIdx.x, T = blockDim.x;
+    const int dim_p = p.dim_p, ns_p = p.ns_p;
+    this->tid = j;
+    this->T = T;
+    this->P = dim_p;
+    this->rwarps = T >> 5;
+    this->lane0 = blockIdx.x * L;
+    this->tol_p = p.tol_p;
+    this->tol_d = p.tol_d;
+    z = smem + tp::ring_bytes(dim_p, SR) / 4;
+    if constexpr (GL) {
+      s = p_.scratch + static_cast<size_t>(blockIdx.x) * 2 * ns_p * L;
+      lam = s + ns_p * L;
+      this->dq = z + dim_p * L;
     } else {
-#pragma unroll
-      for (int b = 0; b < TB; ++b)
-        sn[b] = fminf(fmaxf(y[b], c.lb[h]), c.ub[h]);
+      s = z + dim_p * L;
+      lam = s + ns_p * L;
+      this->dq = lam + ns_p * L;
     }
-    float sv[TB], lam[TB], w[TB], rp[TB], rd[TB];
-    wc::load(sv, c.sv + o);
-    wc::load(lam, c.lam + o);
+    this->red = this->dq + ns_p * (L + tp::DQ_PAD);
+    this->ctrl =
+        reinterpret_cast<unsigned*>(this->red + this->rwarps * 2 * L);
+    this->sn_k = reinterpret_cast<int*>(this->ctrl + 4);
+    this->orig = this->sn_k + L;
+    this->leaf[0] = tp::Leaf{z, p.z1, p.z, dim_p, 0};
+    this->leaf[1] = tp::Leaf{s, p.s0, p.s, ns_p, dim_p};
+    this->leaf[2] = tp::Leaf{lam, p.lam0, p.lam, ns_p, dim_p + ns_p};
+    this->snap = p.snap;
+    this->snap_width = dim_p + 2 * ns_p;
+    this->out = tp::LaneOut{p.k, p.done, p.rp, p.rd};
+    if (j == 0) {
+      bounds[0] = 0;
+      bounds[1] = p.cone0;
+    }
+    __syncthreads();
 #pragma unroll
-    for (int b = 0; b < TB; ++b) {
-      const float resid = czd[b] + sn[b];
+    for (int c = 0; c < tp::WIDE_CPT; ++c) {
+      const int jc = this->row(c);
+      SCol& q = col[c];
+      q.has_s = jc < ns_p;
+      q.cone_warp = q.has_s && jc >= p.cone0;
+      q.cone = q.cone_warp && (jc & 31) < 3 * p.cone_g;
+      q.d = q.has_s ? p.d[jc] : 0.0f;
+      q.lb = q.has_s ? p.lb[jc] : 0.0f;
+      q.ub = q.has_s ? p.ub[jc] : 0.0f;
+      q.lo = 0;
+      q.hi = 0;
+      if (q.has_s) {
+        // the first and last nonzero of CT column jc
+        for (int i = 0; i < dim_p; ++i) {
+          if (p.ct[static_cast<size_t>(i) * ns_p + jc] != 0.0f) {
+            if (q.hi == 0) q.lo = i;
+            q.hi = i + 1;
+          }
+        }
+      }
+      // the product's row ranges: [0, box_end) and [cone0, s_end)
+      if (q.hi > q.lo) atomicMax(&bounds[jc < p.cone0 ? 0 : 1], jc + 1);
+    }
+    __syncthreads();
+    tp::ring_init<SR>(this->ring, smem, p.mc, dim_p, bounds[0], p.cone0,
+                      bounds[1], j, T);
+  }
+
+  // czd - d of s column j (the thread's c-th) for group g: the chain over
+  // CT column j's rows that can be nonzero, z read from shared memory, as
+  // Engine::iterate forms it.
+  __device__ __forceinline__ void czd(int c, int j, int g,
+                                      float (&cz)[8]) const {
+    const SCol& q = col[c];
+#pragma unroll
+    for (int b = 0; b < 8; ++b) cz[b] = 0.0f;
+    for (int i = q.lo; i < q.hi; ++i) {
+      const float ct = __ldg(p.ct + static_cast<size_t>(i) * p.ns_p + j);
+      float zv[8];
+      tp::ld8<L>(zv, z, i, g);
+#pragma unroll
+      for (int b = 0; b < 8; ++b) cz[b] = fmaf(zv[b], ct, cz[b]);
+    }
+#pragma unroll
+    for (int b = 0; b < 8; ++b) cz[b] = cz[b] - q.d;
+  }
+
+  // Engine::iterate (its spread cones) over the thread's s columns.
+  template <bool CHECK>
+  TP_ITERATE unsigned iterate(unsigned frozen, unsigned idle, unsigned last,
+                              bool stop, unsigned rmask, int kinc) {
+    this->tic();
+    const unsigned dead = tp::whole_groups<L>(frozen | idle);
+    // the cone columns leave y in their rows of w; every thread projects
+    // (cone, lane) pairs there; the cone columns then go on from the result
+#pragma unroll
+    for (int c = 0; c < tp::WIDE_CPT; ++c) {
+      if (!col[c].cone_warp) continue;
+      const int j = this->row(c);
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        if (bit(dead, 8 * g)) continue;
+        float cz[8], lm[8], y[8];
+        czd(c, j, g, cz);
+        tp::ld8<L>(lm, lam, j, g);
+#pragma unroll
+        for (int b = 0; b < 8; ++b) y[b] = -cz[b] - p.rho_i * lm[b];
+        tp::st8_dq<L>(this->dq, j, g, y);
+      }
+    }
+    __syncthreads();
+    this->project_cones(dead);
+    __syncthreads();
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      if (bit(dead, 8 * g)) continue;
+      float ap[8], ad[8];
+#pragma unroll
+      for (int b = 0; b < 8; ++b) ap[b] = ad[b] = 0.0f;
+#pragma unroll
+      for (int c = 0; c < tp::WIDE_CPT; ++c) {
+        const SCol& q = col[c];
+        if (!q.has_s) break;
+        const int j = this->row(c);
+        float cz[8], sn[8];
+        czd(c, j, g, cz);
+        if (q.cone_warp) {
+          tp::ld8_dq<L>(sn, this->dq, j, g);   // projected, or y off a cone
+          if (!q.cone) {
+#pragma unroll
+            for (int b = 0; b < 8; ++b) sn[b] = fminf(fmaxf(sn[b], q.lb), q.ub);
+          }
+        } else {
+          float lm[8];
+          tp::ld8<L>(lm, lam, j, g);
+#pragma unroll
+          for (int b = 0; b < 8; ++b) {
+            const float y = -cz[b] - p.rho_i * lm[b];
+            sn[b] = fminf(fmaxf(y, q.lb), q.ub);
+          }
+        }
+        update<CHECK>(g, j, cz, sn, frozen, ap, ad);
+      }
+      if (CHECK) {
+        tp::warp_max<L>(ap, this->red, this->tid, 0, g);
+        tp::warp_max<L>(ad, this->red, this->tid, 1, g);
+      }
+    }
+    return this->template product_half<CHECK>(dead, frozen, last, stop,
+                                              rmask, kinc);
+  }
+
+  // Engine::update for s column j, its residuals folded into ap, ad.
+  template <bool CHECK>
+  __device__ __forceinline__ void update(int g, int j, const float (&cz)[8],
+                                         const float (&sn)[8],
+                                         unsigned frozen, float (&ap)[8],
+                                         float (&ad)[8]) {
+    float lm[8], sv[8], w[8];
+    tp::ld8<L>(lm, lam, j, g);
+    tp::ld8<L>(sv, s, j, g);
+#pragma unroll
+    for (int b = 0; b < 8; ++b) {
+      const float resid = cz[b] + sn[b];
       const float ds = sn[b] - sv[b];
       w[b] = p.rho * ds + p.rho * resid;
-      rp[b] = resid;
-      rd[b] = ds;
-      if (!wc::bit(frozen, b)) {
-        lam[b] = lam[b] + p.rho * resid;
+      if (CHECK) {
+        ap[b] = fmaxf(ap[b], fabsf(resid));
+        ad[b] = fmaxf(ad[b], fabsf(ds));
+      }
+      if (!bit(frozen, g * 8 + b)) {
+        lm[b] = lm[b] + p.rho * resid;
         sv[b] = sn[b];
       }
     }
-    wc::store(c.w + o, w);
-    wc::store(c.sv + o, sv);
-    wc::store(c.lam + o, lam);
-    if (CHECK) {
-      wc::max_abs(ap, rp);
-      wc::max_abs(ad, rd);
-    }
+    tp::st8_dq<L>(this->dq, j, g, w);
+    tp::st8<L>(s, j, g, sv);
+    tp::st8<L>(lam, j, g, lm);
   }
-  if (CHECK) {
-    wc::warp_max<2>(ap, c.red, 0);
-    wc::warp_max<2>(ad, c.red, 1);
-  }
-  __syncthreads();
-  float acc[wc::CPT][TB];
-  wc::zero(acc[0]);
-  wc::zero(acc[1]);
-  wc::product_cols<8>(c.w, p.mc, p.dim_p, 0, c.box_end, p.dim_p, acc);
-  wc::product_cols<8>(c.w, p.mc, p.dim_p, p.cone0, c.s_end, p.dim_p, acc);
-#pragma unroll
-  for (int h = 0; h < wc::CPT; ++h) {
-    const int j = wc::col(h, p.dim_p);
-    if (j < 0) break;
-    const int o = j * TB;
-    float zn[TB], zc[TB];
-    wc::load(zn, c.zn + o);
-    wc::load(zc, c.zc + o);
-#pragma unroll
-    for (int b = 0; b < TB; ++b) {
-      if (!wc::bit(frozen, b)) {
-        zc[b] = zn[b];
-        zn[b] = zn[b] + acc[h][b];
-      }
-    }
-    wc::store(c.zn + o, zn);
-    wc::store(c.zc + o, zc);
-  }
-  unsigned conv = 0;
-  if (CHECK) {
-    float rs[2][TB];
-    wc::block_max<2>(c.red, 0, rs[0]);
-    wc::block_max<2>(c.red, 1, rs[1]);
-#pragma unroll
-    for (int b = 0; b < TB; ++b) {
-      if (rs[0][b] <= p.tol_p && rs[1][b] <= p.tol_d) conv |= 1u << b;
-      if (threadIdx.x == 0 && wc::bit(rmask, b)) {
-        lres[0][b] = rs[0][b];
-        lres[1][b] = rs[1][b];
-      }
-    }
-  }
-  __syncthreads();
-  return conv;
-}
+};
 
-// The prepared z, s and lam of the thread's columns to (TO_GLOBAL) or from
-// each lane's [z | s | lam] in p.snap, for the lanes in `lanes`.
-template <bool TO_GLOBAL>
-__device__ __forceinline__ void hmpc_wide_snapshot(const HmpcWide& p,
-                                                   const HmpcCols& c,
-                                                   int lane0,
-                                                   unsigned lanes) {
-  const int W = p.dim_p + 2 * p.ns_p;
-#pragma unroll
-  for (int h = 0; h < wc::CPT; ++h) {
-    const int jz = wc::col(h, p.dim_p), js = wc::col(h, p.ns_p);
-    if (jz >= 0) wc::snap_row<TO_GLOBAL>(c.zn, p.snap, W, jz, jz, lane0,
-                                         lanes);
-    if (js >= 0) {
-      wc::snap_row<TO_GLOBAL>(c.sv, p.snap, W, p.dim_p + js, js, lane0,
-                              lanes);
-      wc::snap_row<TO_GLOBAL>(c.lam, p.snap, W, p.dim_p + p.ns_p + js, js,
-                              lane0, lanes);
-    }
-  }
-}
-
-__global__ void __launch_bounds__(wc::THREADS, 1)
-    fused_hmpc_wide_kernel(HmpcWide p) {
+template <int L, int TC, int SR, bool GL, bool REFILL, bool EXACT>
+__global__ void __launch_bounds__(tp::WIDE_THREADS, 1)
+    fused_hmpc_wide_kernel(WideParams p) {
   extern __shared__ __align__(16) float smem[];
-  __shared__ int sn_k[TB];       // exact-k: each lane's window start
-  __shared__ float lres[2][TB];  // thread 0's residuals of each lane
-  __shared__ int bounds[2];      // box_end, s_end
-  const int dim_p = p.dim_p, ns_p = p.ns_p;
-  const int lane0 = blockIdx.x * TB;
-  HmpcCols c;
-  c.zn = smem;
-  c.w = c.zn + dim_p * TB;
-  c.red = c.w + ns_p * TB;
-  c.zc = p.state + static_cast<size_t>(blockIdx.x) * (dim_p + 2 * ns_p) * TB;
-  c.sv = c.zc + dim_p * TB;
-  c.lam = c.sv + ns_p * TB;
-  if (threadIdx.x == 0) {
-    bounds[0] = 0;
-    bounds[1] = p.cone0;
-#pragma unroll
-    for (int b = 0; b < TB; ++b) {
-      lres[0][b] = wc::RBIG;
-      lres[1][b] = wc::RBIG;
-    }
-  }
-  __syncthreads();
-#pragma unroll
-  for (int h = 0; h < wc::CPT; ++h) {
-    const int j = wc::col(h, ns_p);
-    c.d[h] = j < 0 ? 0.0f : p.d[j];
-    c.lb[h] = j < 0 ? 0.0f : p.lb[j];
-    c.ub[h] = j < 0 ? 0.0f : p.ub[j];
-    c.lo[h] = 0;
-    c.hi[h] = 0;
-    if (j < 0) continue;
-    // the first and last nonzero of CT column j
-    for (int i = 0; i < dim_p; ++i) {
-      if (p.ct[static_cast<size_t>(i) * ns_p + j] != 0.0f) {
-        if (c.hi[h] == 0) c.lo[h] = i;
-        c.hi[h] = i + 1;
-      }
-    }
-    if (c.hi[h] > c.lo[h]) atomicMax(&bounds[j < p.cone0 ? 0 : 1], j + 1);
-  }
-#pragma unroll
-  for (int h = 0; h < wc::CPT; ++h) {
-    const int j = wc::col(h, dim_p);
-    if (j < 0) break;
-    wc::read_row(c.zn, p.z1, dim_p, j, lane0);
-    wc::read_row(c.zc, p.z1, dim_p, j, lane0);
-  }
-#pragma unroll
-  for (int h = 0; h < wc::CPT; ++h) {
-    const int j = wc::col(h, ns_p);
-    if (j < 0) break;
-    wc::read_row(c.sv, p.s0, ns_p, j, lane0);
-    wc::read_row(c.lam, p.lam0, ns_p, j, lane0);
-  }
-  __syncthreads();
-  c.box_end = bounds[0];
-  c.s_end = bounds[1];
-  unsigned done = 0;
-  int k[TB];
-#pragma unroll
-  for (int b = 0; b < TB; ++b) k[b] = 0;
-  const int C = p.check_every;
-  const float* zout = c.zc;  // the z written out: the consumed z ...
+  __shared__ int bounds[2];  // box_end, s_end
+  WideEngine<L, TC, SR, GL> e(p, smem, bounds);
+  tp::run_lanes<L, REFILL, EXACT>(e, p.k_max, p.check_every, p.exact_k,
+                                  p.n_groups, p.queue, 0, p.wk);
+}
 
-  if (C > 1 && p.exact_k) {
-    // free-run windows of C iterations; snapshot every still-active lane
-    // at each window start, so the window a lane converges in can be
-    // replayed with per-iteration checks once the block has drained.
-    // Windows may overshoot k_max: the replay budget cuts each lane off at
-    // exactly k_max.
-    for (int it = 0; it < p.k_max && done != wc::ALL; it += C) {
-      hmpc_wide_snapshot<true>(p, c, lane0, ~done & wc::ALL);
-      if (threadIdx.x == 0) {
-#pragma unroll
-        for (int b = 0; b < TB; ++b)
-          if (!wc::bit(done, b)) sn_k[b] = it;
-      }
-      for (int f = 0; f < C - 1; ++f)
-        hmpc_wide_iterate<false>(p, c, 0u, 0u, lres);
-      done |= hmpc_wide_iterate<true>(p, c, 0u, 0u, lres);
-    }
-    // replay each lane's last window from its snapshot with per-iteration
-    // checks: k counts on from the window start (the last iteration's
-    // closing barrier ordered thread 0's window starts)
-    hmpc_wide_snapshot<false>(p, c, lane0, wc::ALL);
-#pragma unroll
-    for (int h = 0; h < wc::CPT; ++h) {
-      const int j = wc::col(h, dim_p);
-      if (j < 0) break;
-      float z[TB];
-      wc::load(z, c.zn + j * TB);
-      wc::store(c.zc + j * TB, z);
-    }
-    __syncthreads();
-    int budget[TB];
-#pragma unroll
-    for (int b = 0; b < TB; ++b) {
-      k[b] = sn_k[b];
-      budget[b] = min(C, p.k_max - k[b]);
-    }
-    unsigned convd = 0;
-    for (int w = 0; w < C; ++w) {
-      unsigned frozen = convd;
-#pragma unroll
-      for (int b = 0; b < TB; ++b)
-        if (w >= budget[b]) frozen |= 1u << b;
-      if (frozen == wc::ALL) break;
-      const unsigned conv = hmpc_wide_iterate<true>(p, c, frozen,
-                                                    ~frozen & wc::ALL, lres);
-#pragma unroll
-      for (int b = 0; b < TB; ++b)
-        if (!wc::bit(frozen, b)) ++k[b];
-      convd |= conv & ~frozen;
-    }
-    done = convd;
-  } else if (C > 1) {
-    // free-run: C-1 plain iterations, then one checked iteration; every
-    // lane keeps iterating until the block's lanes (one group of 8) are
-    // all done, k is recorded at check granularity, and a done lane's
-    // residuals stay at its exit
-    for (int it = 0; it < p.k_max && done != wc::ALL;) {
-      const int n_fast = min(C - 1, p.k_max - 1 - it);
-      for (int f = 0; f < n_fast; ++f)
-        hmpc_wide_iterate<false>(p, c, 0u, 0u, lres);
-      const unsigned conv =
-          hmpc_wide_iterate<true>(p, c, 0u, ~done & wc::ALL, lres);
-#pragma unroll
-      for (int b = 0; b < TB; ++b)
-        if (!wc::bit(done, b)) k[b] += n_fast + 1;
-      done |= conv;
-      it += n_fast + 1;
-    }
-    zout = c.zn;  // ... but the prepared one in free-run
-  } else {
-    // checked: exit tests every iteration; a converged lane freezes and
-    // keeps the z it consumed at exit
-    for (int it = 0; it < p.k_max && done != wc::ALL; ++it) {
-      const unsigned conv =
-          hmpc_wide_iterate<true>(p, c, done, ~done & wc::ALL, lres);
-#pragma unroll
-      for (int b = 0; b < TB; ++b)
-        if (!wc::bit(done, b)) ++k[b];
-      done |= conv;
-    }
+template <int L, bool GL, bool REFILL, bool EXACT>
+int wide_launch(const WideParams& p, int blocks, int smem, void* stream) {
+  constexpr int SR = GL ? tp::WIDE_SLAB_8 : tp::wide_slab(L);
+  void (*kernel)(WideParams) =
+      fused_hmpc_wide_kernel<L, tp::wide_tc<L>(), SR, GL, REFILL, EXACT>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
   }
+  kernel<<<blocks, tp::WIDE_THREADS, smem,
+           static_cast<cudaStream_t>(stream)>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
 
-#pragma unroll
-  for (int h = 0; h < wc::CPT; ++h) {
-    const int j = wc::col(h, dim_p);
-    if (j < 0) break;
-    wc::write_row(zout, p.z, dim_p, j, lane0);
-  }
-#pragma unroll
-  for (int h = 0; h < wc::CPT; ++h) {
-    const int j = wc::col(h, ns_p);
-    if (j < 0) break;
-    wc::write_row(c.sv, p.s, ns_p, j, lane0);
-    wc::write_row(c.lam, p.lam, ns_p, j, lane0);
-  }
-  if (threadIdx.x == 0) {
-#pragma unroll
-    for (int b = 0; b < TB; ++b) {
-      p.k[lane0 + b] = k[b];
-      p.done[lane0 + b] = wc::bit(done, b) ? 1 : 0;
-      p.rp[lane0 + b] = lres[0][b];
-      p.rd[lane0 + b] = lres[1][b];
-    }
-  }
+template <int L, bool GL>
+int wide_lanes(const WideParams& p, bool refill, bool exact, int blocks,
+               int smem, void* stream) {
+  if (!refill)
+    return wide_launch<L, GL, false, false>(p, blocks, smem, stream);
+  if (exact) return wide_launch<L, GL, true, true>(p, blocks, smem, stream);
+  return wide_launch<L, GL, true, false>(p, blocks, smem, stream);
 }
 
 }  // namespace
 
-// Dynamic shared bytes of a block of the wide build (kernels/fused_hmpc.py
-// shared_bytes(dim_p, ns_p, wide=True) computes the same): the prepared z
-// as [dim_p][8], w as [ns_p][8] and the warps' row maxima.
-extern "C" long fused_hmpc_wide_smem(int dim_p, int ns_p) {
-  return 4L * TB * (dim_p + ns_p + 2L * wc::WARPS);
+// Dynamic shared bytes of a block of the wide build at `lanes` lanes
+// (kernels/fused_hmpc.py shared_bytes(dim_p, ns_p, lanes, wide=True)
+// computes the same): wide_bytes with the three leaves, or with z alone
+// and 8-row slabs where s and lam go to global scratch.
+extern "C" long fused_hmpc_wide_smem(int dim_p, int ns_p, int lanes) {
+  return wide_global(dim_p, ns_p, lanes)
+             ? wide_bytes(dim_p, ns_p, lanes, tp::WIDE_SLAB_8, 1)
+             : wide_bytes(dim_p, ns_p, lanes, tp::wide_slab(lanes), 3);
 }
 
-// Launch the wide build on `stream`: the arguments of fused_hmpc_launch but
-// the refill queue and the lanes, and `state`, the blocks' global state
-// ([B / 8][dim_p + 2 ns_p][8] floats). The geometry comes from the wrapper
-// (kernels/fused_hmpc.py launch_plan with wide=True) and is checked here
-// again. Returns the CUDA error of the launch, as an int.
+// Launch the wide build on `stream`: the arguments of fused_hmpc_launch,
+// the window starts and links of exact-k with refill (`wk`, B + B / 8
+// int32) and the global leaves (`scratch`, blocks x 2 ns_p lanes floats
+// where wide_global, else unused) after the queue, and `refill` after the
+// lanes, with `threads` tp::WIDE_THREADS, `lanes` 8 or 16 and both widths
+// up to tp::WIDE_COLS. With refill, in every mode, any number of
+// persistent blocks up to one per L lanes; else B / lanes blocks. The
+// geometry comes from the wrapper (kernels/fused_hmpc.py launch_plan with
+// wide=True) and is checked here again. Returns the CUDA error of the
+// launch, as an int.
 extern "C" int fused_hmpc_wide_launch(
     const float* z1, const float* s0, const float* lam0, const float* ct,
     const float* mc, const float* d, const float* lb, const float* ub,
     float* z, float* s, float* lam, int* k, int* done, float* rp, float* rd,
-    float* snap, float* state, int B, int dim_p, int ns_p, int cone0,
-    int cone_g, int use_soc, int blocks, int threads, int smem, float rho,
-    float rho_i, float tol_p, float tol_d, int k_max, int check_every,
-    int exact_k, void* stream) {
+    float* snap, int* queue, int* wk, float* scratch, int B, int dim_p,
+    int ns_p, int cone0, int cone_g, int use_soc, int lanes, int refill,
+    int blocks, int threads, int smem, float rho, float rho_i, float tol_p,
+    float tol_d, int k_max, int check_every, int exact_k, void* stream) {
   const bool exact = check_every > 1 && exact_k;
-  if (dim_p <= 0 || dim_p % 32 != 0 || dim_p > wc::COLS || ns_p <= 0 ||
-      ns_p % 32 != 0 || ns_p > wc::COLS || cone0 < 0 || cone0 % 32 != 0 ||
-      cone0 >= ns_p || cone_g < 1 || cone_g > MAX_G || B % TB != 0 ||
-      blocks != B / TB || threads != wc::THREADS ||
-      smem != fused_hmpc_wide_smem(dim_p, ns_p) || check_every < 1 ||
-      k_max < 1 ||
-      (B > 0 && (state == nullptr || (exact && snap == nullptr))))
+  const int groups = B / 8, slots = lanes / 8;
+  if (dim_p <= 0 || dim_p % 32 != 0 || dim_p > tp::WIDE_COLS || ns_p <= 0 ||
+      ns_p % 32 != 0 || ns_p > tp::WIDE_COLS || cone0 < 0 ||
+      cone0 % 32 != 0 || cone0 >= ns_p || cone_g < 1 || cone_g > MAX_G ||
+      (lanes != 8 && lanes != 16) || B % 8 != 0 ||
+      threads != tp::WIDE_THREADS ||
+      smem != fused_hmpc_wide_smem(dim_p, ns_p, lanes) ||
+      smem > tp::SMEM_MAX || check_every < 1 || k_max < 1 ||
+      (lanes == 8 && wide_global(dim_p, ns_p, lanes)) ||
+      (exact && B > 0 && snap == nullptr) ||
+      (B > 0 && wide_global(dim_p, ns_p, lanes) && scratch == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
+  if (refill ? (blocks < 1 || blocks > (groups + slots - 1) / slots ||
+                queue == nullptr || (exact && wk == nullptr))
+             : (B % lanes != 0 || blocks != B / lanes))
+    return B == 0 ? 0 : static_cast<int>(cudaErrorInvalidValue);
   if (B == 0) return 0;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        fused_hmpc_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  HmpcWide p{z1,    s0,    lam0,  ct,     mc,      d,     lb,    ub,
-             z,     s,     lam,   k,      done,    rp,    rd,    snap,
-             state, dim_p, ns_p,  cone0,  cone_g,  use_soc, rho, rho_i,
-             tol_p, tol_d, k_max, check_every, exact_k};
-  fused_hmpc_wide_kernel<<<blocks, wc::THREADS, smem,
-                           static_cast<cudaStream_t>(stream)>>>(p);
-  return static_cast<int>(cudaGetLastError());
+  WideParams p{};
+  static_cast<Params&>(p) =
+      Params{z1,    s0,     lam0,  ct,     mc,      d,     lb,    ub,
+             z,     s,      lam,   k,      done,    rp,    rd,    snap,
+             queue, groups, dim_p, ns_p,   cone0,   cone_g, use_soc,
+             rho,   rho_i,  tol_p, tol_d,  k_max,   check_every, exact_k};
+  p.wk = wk;
+  p.scratch = scratch;
+  if (lanes == 8)
+    return wide_lanes<8, false>(p, refill, exact, blocks, smem, stream);
+  if (wide_global(dim_p, ns_p, lanes))
+    return wide_lanes<16, true>(p, refill, exact, blocks, smem, stream);
+  return wide_lanes<16, false>(p, refill, exact, blocks, smem, stream);
 }
 
 #endif  // WIDE_PART

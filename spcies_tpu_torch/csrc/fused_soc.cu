@@ -479,10 +479,11 @@ extern "C" int fused_soc_launch(
 // kernels/_build.py compiles the narrow builds above with -DWIDE_PART=0
 // from exactly their text).
 //
-// Past MAX_COLS columns, up to WIDE_COLS = 1024: fused_soc_wide_kernel runs
-// WideEngine, the narrow Engine on WIDE_THREADS = 512 threads of WIDE_CPT = 2
-// columns (t and t + 512, as K1's wide build in csrc/fused_admm.cu), at 16
-// or 8 lanes a block (kernels/stage.py WIDE_BUILDS). aux, zs and lm lie
+// Past MAX_COLS columns, up to tp::WIDE_COLS = 1024: fused_soc_wide_kernel
+// runs WideEngine, the narrow Engine on tp::WIDE_THREADS = 512 threads of
+// tp::WIDE_CPT = 2 columns (t and t + 512, as K1's wide build in
+// csrc/fused_admm.cu), at 16 or 8 lanes a block (kernels/stage.py
+// WIDE_BUILDS). aux, zs and lm lie
 // [P][L] in shared memory and dq [P][L + 4], with 16-row slabs of M1' at 16
 // lanes (up to 544 columns) and 8-row slabs at 8 (up to 1024); where the
 // three leaves do not fit at 16 lanes (576 columns and more), zs and lm lie
@@ -498,20 +499,10 @@ extern "C" int fused_soc_launch(
 // added in column order, as the narrow build does. The modes and refill
 // are the stage's (tp::run_lanes), exact-k's through run_refill_exact, so
 // every build gives the narrow builds' bits. The build before this one ran
-// csrc/wide_cols.cuh's box_run with its state in global memory.
+// the first layout on csrc/wide_cols.cuh (8 lanes a block, M1' read from
+// L2), with its state in global memory.
 
 namespace {
-
-constexpr int WIDE_CPT = 2;             // columns a thread
-constexpr int WIDE_THREADS = MAX_COLS;  // threads a block
-constexpr int WIDE_COLS = WIDE_CPT * WIDE_THREADS;
-constexpr int WIDE_SLAB_16 = 16;        // rows a slab at 16 lanes a block
-constexpr int WIDE_SLAB_8 = 8;          // and at 8, and with global leaves
-constexpr long SMEM_MAX = 232448;       // shared bytes a block can have
-
-constexpr int wide_slab(int lanes) {
-  return lanes == 16 ? WIDE_SLAB_16 : WIDE_SLAB_8;
-}
 
 // Dynamic shared bytes of a block at `lanes` lanes, slabs of `sr` rows and
 // `leaves` leaves in shared memory: the ring of M1''s slabs, the leaves as
@@ -520,20 +511,12 @@ constexpr int wide_slab(int lanes) {
 long wide_bytes(int P, int lanes, int sr, int leaves) {
   return tp::ring_bytes(P, sr) +
          4L * (leaves * P * lanes + P * (lanes + tp::DQ_PAD) +
-               (WIDE_THREADS / 32) * 2L * lanes + 4 + 5L * lanes);
+               (tp::WIDE_THREADS / 32) * 2L * lanes + 4 + 5L * lanes);
 }
 
 // Whether zs and lm go to global scratch: where the three leaves do not fit.
 bool wide_global(int P, int lanes) {
-  return wide_bytes(P, lanes, wide_slab(lanes), 3) > SMEM_MAX;
-}
-
-// Columns of a product tile at L lanes: 512 threads cover (L / 8) P / TCW
-// tiles up to 1024 columns.
-template <int L>
-constexpr int wide_tc() {
-  return tp::tile_cols<L>() > (L / 8) * WIDE_CPT ? tp::tile_cols<L>()
-                                                  : (L / 8) * WIDE_CPT;
+  return wide_bytes(P, lanes, tp::wide_slab(lanes), 3) > tp::SMEM_MAX;
 }
 
 // The wide kernels' parameters: the narrow ones, exact-k's window starts
@@ -544,8 +527,8 @@ struct WideParams : Params {
 };
 
 template <int L, int TC, int SR, bool GL>
-struct WideEngine : Engine<L, TC, SR, WIDE_CPT> {
-  using Base = Engine<L, TC, SR, WIDE_CPT>;
+struct WideEngine : Engine<L, TC, SR, tp::WIDE_CPT> {
+  using Base = Engine<L, TC, SR, tp::WIDE_CPT>;
   using Base::G;
   using Base::aux;
   using Base::cone_lane;
@@ -590,7 +573,7 @@ struct WideEngine : Engine<L, TC, SR, WIDE_CPT> {
     // the warp that holds the s slab (every thread of it, in one half of
     // their columns) takes the lanes' cones
 #pragma unroll
-    for (int c = 0; c < WIDE_CPT; ++c) {
+    for (int c = 0; c < tp::WIDE_CPT; ++c) {
       const int j = this->row(c);
       if (j >= dim_p && j < P)
         spread_cone(dead, j, c == 0 ? this->iscale : iscale2);
@@ -602,7 +585,7 @@ struct WideEngine : Engine<L, TC, SR, WIDE_CPT> {
 #pragma unroll
       for (int b = 0; b < 8; ++b) ap[b] = ad[b] = 0.0f;
 #pragma unroll
-      for (int c = 0; c < WIDE_CPT; ++c) {
+      for (int c = 0; c < tp::WIDE_CPT; ++c) {
         const int j = this->row(c);
         if (j >= P) break;
         const float scale = c == 0 ? this->scale : scale2;
@@ -699,7 +682,7 @@ struct WideEngine : Engine<L, TC, SR, WIDE_CPT> {
 };
 
 template <int L, int TC, int SR, bool GL, bool REFILL, bool EXACT>
-__global__ void __launch_bounds__(WIDE_THREADS, 1)
+__global__ void __launch_bounds__(tp::WIDE_THREADS, 1)
     fused_soc_wide_kernel(WideParams p) {
   extern __shared__ __align__(16) float smem[];
   __shared__ int bounds[2];  // z_end, s_end
@@ -710,15 +693,15 @@ __global__ void __launch_bounds__(WIDE_THREADS, 1)
 
 template <int L, bool GL, bool REFILL, bool EXACT>
 int wide_launch(const WideParams& p, int blocks, int smem, void* stream) {
-  constexpr int SR = GL ? WIDE_SLAB_8 : wide_slab(L);
+  constexpr int SR = GL ? tp::WIDE_SLAB_8 : tp::wide_slab(L);
   void (*kernel)(WideParams) =
-      fused_soc_wide_kernel<L, wide_tc<L>(), SR, GL, REFILL, EXACT>;
+      fused_soc_wide_kernel<L, tp::wide_tc<L>(), SR, GL, REFILL, EXACT>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  kernel<<<blocks, WIDE_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<blocks, tp::WIDE_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
       p);
   return static_cast<int>(cudaGetLastError());
 }
@@ -739,19 +722,19 @@ int wide_lanes(const WideParams& p, bool refill, bool exact, int blocks,
 // same): wide_bytes with the three leaves, or with aux alone and 8-row
 // slabs where zs and lm go to global scratch.
 extern "C" long fused_soc_wide_smem(int P, int lanes) {
-  return wide_global(P, lanes) ? wide_bytes(P, lanes, WIDE_SLAB_8, 1)
-                               : wide_bytes(P, lanes, wide_slab(lanes), 3);
+  return wide_global(P, lanes) ? wide_bytes(P, lanes, tp::WIDE_SLAB_8, 1)
+                               : wide_bytes(P, lanes, tp::wide_slab(lanes), 3);
 }
 
 // Launch the wide build on `stream`: the arguments of fused_soc_launch, the
 // window starts and links of exact-k with refill (`wk`, B + B / 8 int32)
 // and the global leaves (`scratch`, blocks x 2 P lanes floats where
 // wide_global, else unused) after the queue, and `refill` after the lanes,
-// with `threads` WIDE_THREADS, `lanes` 8 or 16 and P up to WIDE_COLS. With
-// refill, in every mode, any number of persistent blocks up to one per L
-// lanes; else B / lanes blocks. The geometry comes from the wrapper
-// (kernels/fused_soc.py launch_plan with wide=True) and is checked here
-// again. Returns the CUDA error of the launch, as an int.
+// with `threads` tp::WIDE_THREADS, `lanes` 8 or 16 and P up to
+// tp::WIDE_COLS. With refill, in every mode, any number of persistent
+// blocks up to one per L lanes; else B / lanes blocks. The geometry comes
+// from the wrapper (kernels/fused_soc.py launch_plan with wide=True) and is
+// checked here again. Returns the CUDA error of the launch, as an int.
 extern "C" int fused_soc_wide_launch(
     const float* aux1, const float* zs0, const float* lm0, const float* m1p,
     const float* lb, const float* ub, const float* scale,
@@ -762,10 +745,10 @@ extern "C" int fused_soc_wide_launch(
     int check_every, int exact_k, void* stream) {
   const bool exact = check_every > 1 && exact_k;
   const int groups = B / 8, slots = lanes / 8;
-  if (P <= 0 || P % 32 != 0 || P > WIDE_COLS || dim_p % 32 != 0 ||
+  if (P <= 0 || P % 32 != 0 || P > tp::WIDE_COLS || dim_p % 32 != 0 ||
       P - dim_p != 32 || (lanes != 8 && lanes != 16) || B % 8 != 0 ||
-      threads != WIDE_THREADS || smem != fused_soc_wide_smem(P, lanes) ||
-      smem > SMEM_MAX || check_every < 1 || k_max < 1 ||
+      threads != tp::WIDE_THREADS || smem != fused_soc_wide_smem(P, lanes) ||
+      smem > tp::SMEM_MAX || check_every < 1 || k_max < 1 ||
       (exact && B > 0 && snap == nullptr) ||
       (B > 0 && wide_global(P, lanes) && scratch == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);

@@ -517,10 +517,11 @@ extern "C" int fused_split_launch(
 // kernels/_build.py compiles the narrow builds above with -DWIDE_PART=0
 // from exactly their text).
 //
-// Past MAX_COLS columns, up to WIDE_COLS = 1024: fused_split_wide_kernel runs
-// WideEngine, the narrow Engine on WIDE_THREADS = 512 threads of WIDE_CPT = 2
-// columns (t and t + 512, as K1's wide build in csrc/fused_admm.cu), at 16
-// or 8 lanes a block (kernels/stage.py WIDE_BUILDS). aux, zs and lm lie
+// Past MAX_COLS columns, up to tp::WIDE_COLS = 1024: fused_split_wide_kernel
+// runs WideEngine, the narrow Engine on tp::WIDE_THREADS = 512 threads of
+// tp::WIDE_CPT = 2 columns (t and t + 512, as K1's wide build in
+// csrc/fused_admm.cu), at 16 or 8 lanes a block (kernels/stage.py
+// WIDE_BUILDS). aux, zs and lm lie
 // [P][L] in shared memory and dq [P][L + 4], with 16-row slabs of M1' at 16
 // lanes (up to 544 columns) and 8-row slabs at 8 (up to 1024); where the
 // three leaves do not fit at 16 lanes (576 columns and more), zs and lm lie
@@ -538,20 +539,10 @@ extern "C" int fused_split_launch(
 // over its columns and the block's 16 warps. The modes and refill in every
 // mode are the stage's (tp::run_lanes), as the narrow builds run them, so
 // every build gives the narrow builds' bits. The build before this one ran
-// csrc/wide_cols.cuh's box_run with its state in global memory.
+// the first layout on csrc/wide_cols.cuh (8 lanes a block, M1' read from
+// L2), with its state in global memory.
 
 namespace {
-
-constexpr int WIDE_CPT = 2;             // columns a thread
-constexpr int WIDE_THREADS = MAX_COLS;  // threads a block
-constexpr int WIDE_COLS = WIDE_CPT * WIDE_THREADS;
-constexpr int WIDE_SLAB_16 = 16;        // rows a slab at 16 lanes a block
-constexpr int WIDE_SLAB_8 = 8;          // and at 8, and with global leaves
-constexpr long SMEM_MAX = 232448;       // shared bytes a block can have
-
-constexpr int wide_slab(int lanes) {
-  return lanes == 16 ? WIDE_SLAB_16 : WIDE_SLAB_8;
-}
 
 // Dynamic shared bytes of a block at `lanes` lanes, slabs of `sr` rows and
 // `leaves` leaves in shared memory: the ring of M1''s slabs, the leaves as
@@ -560,12 +551,12 @@ constexpr int wide_slab(int lanes) {
 long wide_bytes(int P, int lanes, int sr, int leaves) {
   return tp::ring_bytes(P, sr) +
          4L * (leaves * P * lanes + P * (lanes + tp::DQ_PAD) +
-               (WIDE_THREADS / 32) * 2L * lanes + 4 + 2L * lanes);
+               (tp::WIDE_THREADS / 32) * 2L * lanes + 4 + 2L * lanes);
 }
 
 // Whether zs and lm go to global scratch: where the three leaves do not fit.
 bool wide_global(int P, int lanes) {
-  return wide_bytes(P, lanes, wide_slab(lanes), 3) > SMEM_MAX;
+  return wide_bytes(P, lanes, tp::wide_slab(lanes), 3) > tp::SMEM_MAX;
 }
 
 // The wide kernels' parameters: the narrow ones and the blocks' scratch of
@@ -574,17 +565,9 @@ struct WideParams : Params {
   float* scratch;
 };
 
-// Columns of a product tile at L lanes: 512 threads cover (L / 8) P / TCW
-// tiles up to 1024 columns.
-template <int L>
-constexpr int wide_tc() {
-  return tp::tile_cols<L>() > (L / 8) * WIDE_CPT ? tp::tile_cols<L>()
-                                                  : (L / 8) * WIDE_CPT;
-}
-
 template <int L, int TC, int SR, bool GL>
-struct WideEngine : Engine<L, TC, SR, WIDE_CPT> {
-  using Base = Engine<L, TC, SR, WIDE_CPT>;
+struct WideEngine : Engine<L, TC, SR, tp::WIDE_CPT> {
+  using Base = Engine<L, TC, SR, tp::WIDE_CPT>;
   using Base::G;
   using Base::aux;
   using Base::lm;
@@ -642,7 +625,7 @@ struct WideEngine : Engine<L, TC, SR, WIDE_CPT> {
     // the cone columns leave w in their rows of dq; every thread projects
     // (cone, lane) pairs there; the cone columns then go on from the result
 #pragma unroll
-    for (int c = 0; c < WIDE_CPT; ++c) {
+    for (int c = 0; c < tp::WIDE_CPT; ++c) {
       const int j = this->row(c);
       if (j >= P) break;
       if (j < p.cone0) continue;
@@ -667,7 +650,7 @@ struct WideEngine : Engine<L, TC, SR, WIDE_CPT> {
 #pragma unroll
       for (int b = 0; b < 8; ++b) ap[b] = ad[b] = 0.0f;
 #pragma unroll
-      for (int c = 0; c < WIDE_CPT; ++c) {
+      for (int c = 0; c < tp::WIDE_CPT; ++c) {
         const int j = this->row(c);
         if (j >= P) break;
         const float lb = c == 0 ? this->lb : lb2;
@@ -721,7 +704,7 @@ struct WideEngine : Engine<L, TC, SR, WIDE_CPT> {
 };
 
 template <int L, int TC, int SR, bool GL, bool REFILL, bool EXACT>
-__global__ void __launch_bounds__(WIDE_THREADS, 1)
+__global__ void __launch_bounds__(tp::WIDE_THREADS, 1)
     fused_split_wide_kernel(WideParams p) {
   extern __shared__ __align__(16) float smem[];
   __shared__ int bounds[2];  // z_end, s_end
@@ -732,15 +715,15 @@ __global__ void __launch_bounds__(WIDE_THREADS, 1)
 
 template <int L, bool GL, bool REFILL, bool EXACT>
 int wide_launch(const WideParams& p, int blocks, int smem, void* stream) {
-  constexpr int SR = GL ? WIDE_SLAB_8 : wide_slab(L);
+  constexpr int SR = GL ? tp::WIDE_SLAB_8 : tp::wide_slab(L);
   void (*kernel)(WideParams) =
-      fused_split_wide_kernel<L, wide_tc<L>(), SR, GL, REFILL, EXACT>;
+      fused_split_wide_kernel<L, tp::wide_tc<L>(), SR, GL, REFILL, EXACT>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  kernel<<<blocks, WIDE_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<blocks, tp::WIDE_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
       p);
   return static_cast<int>(cudaGetLastError());
 }
@@ -761,14 +744,14 @@ int wide_lanes(const WideParams& p, bool refill, bool exact, int blocks,
 // same): wide_bytes with the three leaves, or with aux alone and 8-row
 // slabs where zs and lm go to global scratch.
 extern "C" long fused_split_wide_smem(int P, int lanes) {
-  return wide_global(P, lanes) ? wide_bytes(P, lanes, WIDE_SLAB_8, 1)
-                               : wide_bytes(P, lanes, wide_slab(lanes), 3);
+  return wide_global(P, lanes) ? wide_bytes(P, lanes, tp::WIDE_SLAB_8, 1)
+                               : wide_bytes(P, lanes, tp::wide_slab(lanes), 3);
 }
 
 // Launch the wide build on `stream`: the arguments of fused_split_launch
 // and `scratch`, the global leaves (blocks x 2 P lanes floats where
-// wide_global, else unused), with `threads` WIDE_THREADS, `lanes` 8 or 16
-// and P up to WIDE_COLS. The geometry comes from the wrapper
+// wide_global, else unused), with `threads` tp::WIDE_THREADS, `lanes` 8 or 16
+// and P up to tp::WIDE_COLS. The geometry comes from the wrapper
 // (kernels/fused_split.py launch_plan with wide=True) and is checked here
 // again. Returns the CUDA error of the launch, as an int.
 extern "C" int fused_split_wide_launch(
@@ -783,11 +766,11 @@ extern "C" int fused_split_wide_launch(
     int exact_k, void* stream) {
   const bool exact = check_every > 1 && exact_k;
   const int groups = B / 8, slots = lanes / 8;
-  if (P <= 0 || P % 32 != 0 || P > WIDE_COLS || dim_p <= 0 ||
+  if (P <= 0 || P % 32 != 0 || P > tp::WIDE_COLS || dim_p <= 0 ||
       dim_p % 32 != 0 || cone0 < dim_p || cone0 % 32 != 0 || cone0 >= P ||
       cone_g < 1 || cone_g > MAX_G || (lanes != 8 && lanes != 16) ||
-      B % 8 != 0 || threads != WIDE_THREADS ||
-      smem != fused_split_wide_smem(P, lanes) || smem > SMEM_MAX ||
+      B % 8 != 0 || threads != tp::WIDE_THREADS ||
+      smem != fused_split_wide_smem(P, lanes) || smem > tp::SMEM_MAX ||
       check_every < 1 || k_max < 1 || (exact && B > 0 && snap == nullptr) ||
       (B > 0 && wide_global(P, lanes) && scratch == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);

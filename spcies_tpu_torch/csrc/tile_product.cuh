@@ -317,6 +317,32 @@ constexpr int tile_cols() {
   return L == 8 ? 1 : (L == 16 ? TP_COLS_16 : 4);
 }
 
+// The wide builds of K4-K7 (csrc/fused_ellip.cu, csrc/fused_soc.cu,
+// csrc/fused_hmpc.cu, csrc/fused_split.cu): past 512 columns, up to
+// WIDE_COLS, their engine runs on WIDE_THREADS threads of WIDE_CPT columns
+// (t and t + WIDE_THREADS) at 16 lanes a block with 16-row slabs, or at 8
+// with 8-row slabs (kernels/stage.py WIDE_BUILDS), one block an SM; where
+// a kernel's leaves do not all fit at 16 lanes, all but the first go to the
+// block's global scratch, with 8-row slabs (WIDE_SLAB_8).
+constexpr int WIDE_CPT = 2;             // columns a thread
+constexpr int WIDE_THREADS = 512;       // threads a block
+constexpr int WIDE_COLS = WIDE_CPT * WIDE_THREADS;
+constexpr int WIDE_SLAB_16 = 16;        // rows a slab at 16 lanes a block
+constexpr int WIDE_SLAB_8 = 8;          // and at 8, and with global leaves
+constexpr long SMEM_MAX = 232448;       // shared bytes a block can have
+
+constexpr int wide_slab(int lanes) {
+  return lanes == 16 ? WIDE_SLAB_16 : WIDE_SLAB_8;
+}
+
+// Columns of a wide build's product tile at L lanes: WIDE_THREADS threads
+// cover (L / 8) P / TCW tiles up to WIDE_COLS columns.
+template <int L>
+constexpr int wide_tc() {
+  return tile_cols<L>() > (L / 8) * WIDE_CPT ? tile_cols<L>()
+                                              : (L / 8) * WIDE_CPT;
+}
+
 // A thread's tile of the product: lane group lg, columns c0 + q * cs;
 // threads past the last tile are not active.
 template <int L, int TC>
@@ -867,9 +893,10 @@ __device__ __forceinline__ unsigned run_modes(E& e, int k_max, int C,
 // iteration; a group cut short by k_max waits, frozen, for the window's end.
 // In the checked mode a slot refills once its 8 lanes are all frozen (both:
 // run_refill). Exact-k refills for the kernels that opt in through
-// run_lanes (K7; run_refill_exact): its windows run as plain free-run's,
-// every slot's windows starting together and each live lane's leaves and
-// window start saved at each window start, and a slot refills once its
+// run_lanes (K7, and the wide builds of K4-K7; run_refill_exact): its
+// windows run as plain free-run's, every slot's windows starting together
+// and each live lane's leaves and window start saved at each window start,
+// and a slot refills once its
 // group's 8 lanes have all met tol at a window's end or its windows have
 // reached k_max; the block then replays the last window of every group it
 // ran, from the lanes' snapshots, with per-iteration checks, a slot
@@ -879,9 +906,9 @@ __device__ __forceinline__ unsigned run_modes(E& e, int k_max, int C,
 // replay) is empty the live groups move down into the first slots, so that
 // the product's tiles narrow as in exact-k without refill. Without refill a
 // block keeps its L lanes from start to end (run_modes: exact-k compacts the
-// lanes still running and narrows the tiles); so do K4-K6's exact-k and
-// K4's fixed_iters. TP_REFILL 0 builds K4-K6 without refill, for a timing
-// script.
+// lanes still running and narrows the tiles); so do the narrow builds of
+// K4-K6 in exact-k, and K4's fixed_iters. TP_REFILL 0 builds the narrow
+// builds of K4-K6 without refill, for a timing script.
 
 // A leaf of an engine's state: `rows` rows of L floats in shared memory
 // (swizzled, chunk<L>), read from `in` and written to `out` ([B][rows] in
@@ -907,7 +934,7 @@ struct LaneOut {
 // kinc), which runs its element-wise half for the groups not in `dead` and
 // returns product_half's result. In the moves of a lane group's state below
 // thread tid owns row tid of every leaf, and with CPT > 1 (the wide builds
-// of K5 and K7: 512 threads over up to 1024 columns, whose tiles TC are
+// of K4-K7: 512 threads over up to 1024 columns, whose tiles TC are
 // wide enough that (L / 8) P / TC <= T) rows tid + c T, c < CPT, through
 // the *_row forms; CPT = 1 keeps the text, and the code, of the builds of a
 // thread a column.

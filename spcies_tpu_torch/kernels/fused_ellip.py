@@ -59,9 +59,13 @@ fixed_iters keep a block of L lanes. Every build gives the same bits, so
 timing.
 
 Past MAX_COLS columns, up to WIDE_COLS, the wide build
-(fused_ellip_wide_kernel, csrc/wide_cols.cuh) runs 512 threads of two
-columns, t and t + 512, at 8 lanes a block, no refill, with its state in
-global memory; the warp that takes the ball and the residual map is the
+(fused_ellip_wide_kernel) runs the same engine on 512 threads of two
+columns, t and t + 512, at 16 lanes a block (its state in shared memory
+with 16-row slabs of M2 up to 544 columns; past that v and lam in a
+per-block global scratch, 8-row slabs) or 8 (8-row slabs, its state in
+shared memory up to 1024), with refill in the checked mode, plain free-run
+and exact-k, fixed_iters in static blocks (kernels/stage.py WIDE_BUILDS,
+`wide_layout`); the warp that takes the ball and the residual map is the
 one that holds the slab, in the first half of a thread's columns or the
 second. `wide=` of `fused_ellip_solve` names it at any width, for a check
 of bits.
@@ -95,15 +99,14 @@ FUSED_ELLIP_ARGTYPES = ([ctypes.c_void_p] * 17 + [ctypes.c_int] * 8
 BUILDS = {8: (16, 2), 16: (16, 2), 32: (32, 1)}
 # the leaves an exact-k snapshot saves per lane: z', v', lam
 SNAP_LEAVES = 3
-# C signature of fused_ellip_wide_launch: 17 pointers (the refill queue's
-# place holds the blocks' global state); B, nzp, t0, n, blocks, threads,
-# shared bytes; rho, 1/rho, r, tol_p, tol_d; k_max, check_every,
-# fixed_iters, exact_k; the stream
-FUSED_ELLIP_WIDE_ARGTYPES = ([ctypes.c_void_p] * 17 + [ctypes.c_int] * 7
+# C signature of fused_ellip_wide_launch: 19 pointers (those of
+# fused_ellip_launch, then exact-k's window starts and links, the global
+# leaves' scratch); B, nzp, t0, n, lanes, refill, blocks, threads, shared
+# bytes; rho, 1/rho, r, tol_p, tol_d; k_max, check_every, fixed_iters,
+# exact_k; the stream
+FUSED_ELLIP_WIDE_ARGTYPES = ([ctypes.c_void_p] * 19 + [ctypes.c_int] * 9
                              + [ctypes.c_float] * 5 + [ctypes.c_int] * 4
                              + [ctypes.c_void_p])
-# the wide build's state leaves: z, v, lam and the consumed z
-WIDE_LEAVES = 4
 WARP = 32
 # plain version: read "all lanes done" on the host every this many
 # iterations of the checked loop (extra iterations of frozen lanes are
@@ -274,19 +277,33 @@ def fused_ellip_reference(z1, v0, lam0, M2_pad, pinvh, LB_pad, UB_pad,
     return z, v, lam, k, e_flag, rp, rd
 
 
-def shared_bytes(nzp: int, n: int, lanes: int, wide: bool = False) -> int:
-    """Dynamic shared bytes of a block (fused_ellip_smem in the source):
-    the ring of M2's slabs, z, v and lam as [nzp][lanes], dq with its
+def _bytes(nzp, n, lanes, slab, leaves, warps):
+    """The ring of M2's slabs, `leaves` leaves as [nzp][lanes], dq with its
     padding, the warps' row maxima, the masks, the window starts, the
     slots' lanes, the lanes' ball scales, the slab's two staged differences
-    [n][lanes + DQ_PAD] and pinvh. The wide build's (fused_ellip_wide_smem):
-    dq as [2][nzp][8] and the warps' row maxima."""
-    if wide:
-        return 4 * stage.WIDE_LANES * (2 * nzp + 4 * stage.WIDE_WARPS)
-    slab = stage.build_of(BUILDS, nzp, lanes)[0]
+    [n][lanes + DQ_PAD] and pinvh."""
     return stage.ring_bytes(nzp, slab) + 4 * (
-        nzp * (4 * lanes + DQ_PAD) + nzp // WARP * 2 * lanes + 4
+        nzp * ((leaves + 1) * lanes + DQ_PAD) + warps * 2 * lanes + 4
         + 3 * lanes + 2 * n * (lanes + DQ_PAD) + n * n)
+
+
+def wide_layout(nzp: int, n: int, lanes: int) -> tuple[int, bool]:
+    """(rows a slab, global leaves) of the wide build (stage.wide_layout)."""
+    return stage.wide_layout(lanes, lambda slab, leaves: _bytes(
+        nzp, n, lanes, slab, leaves, stage.WIDE_WARPS))
+
+
+def shared_bytes(nzp: int, n: int, lanes: int, wide: bool = False) -> int:
+    """Dynamic shared bytes of a block (fused_ellip_smem in the source; the
+    wide build's fused_ellip_wide_smem): z, v and lam in shared memory,
+    nzp / 32 warps' row maxima; the wide build's WIDE_WARPS, and z alone
+    where v and lam go to global scratch."""
+    if not wide:
+        return _bytes(nzp, n, lanes, stage.build_of(BUILDS, nzp, lanes)[0],
+                      3, nzp // WARP)
+    slab, global_leaves = wide_layout(nzp, n, lanes)
+    return _bytes(nzp, n, lanes, slab, 1 if global_leaves else 3,
+                  stage.WIDE_WARPS)
 
 
 def check_width(nzp: int) -> None:
@@ -315,7 +332,11 @@ def launch_plan(B: int, nzp: int, t0: int, n: int, *, tile_b: int,
                      check_every=1 if fixed_iters else check_every,
                      exact_k=exact_k)
     if stage.use_wide(nzp, wide):
-        return stage.wide_plan(B, shared_bytes(nzp, n, 8, wide=True), lanes)
+        # the wide build refills in every mode but fixed_iters
+        return stage.plan(B, nzp, lambda L: shared_bytes(nzp, n, L, True),
+                          stage.WIDE_BUILDS, refill=not fixed_iters,
+                          lanes=lanes,
+                          layout=lambda L: wide_layout(nzp, n, L))
     refill = not fixed_iters and not (check_every > 1 and exact_k)
     return stage.plan(B, nzp, lambda L: shared_bytes(nzp, n, L), BUILDS,
                       refill=refill, lanes=lanes)
@@ -360,19 +381,25 @@ def _launch(z1, v0, lam0, M2_pad, pinvh, LB_pad, UB_pad, c_pad, *, t0, rho,
     # the queue of groups of 8 lanes (refill), then each block's count of
     # iterations (refill) and kilo-clocks of the two halves of an iteration
     # (in a build with TP_CLOCKS; else zeros)
-    # (the wide build: the blocks' state)
     nb = plan["blocks"]
-    queue = (torch.empty((B * WIDE_LEAVES * nzp,), dtype=torch.float32,
-                         device=dev) if wide else
-             torch.zeros((1 + 3 * nb,), dtype=torch.int32, device=dev))
-    ptrs = [t.data_ptr() for t in args + (z, v, lam, k, done, rp, rd, snap,
-                                          queue)]
+    queue = torch.zeros((1 + 3 * nb,), dtype=torch.int32, device=dev)
+    scratch = (queue,)
+    build = [plan["lanes"]]
+    if wide:
+        # exact-k's window starts and links; the global leaves: v and lam
+        # of each block's lanes
+        scratch += (torch.empty((B + B // 8 if exact and plan["refill"]
+                                 else 0,), dtype=torch.int32, device=dev),
+                    torch.empty((nb * 2 * nzp * plan["lanes"]
+                                 if plan["global_leaves"] else 0,),
+                                dtype=torch.float32, device=dev))
+        build.append(int(plan["refill"]))
+    ptrs = [t.data_ptr() for t in args + (z, v, lam, k, done, rp, rd, snap)
+            + scratch]
     if any(ptr % 16 for ptr in ptrs):
         raise ValueError("the fused kernel takes 16-byte aligned tensors")
     stream = torch.cuda.current_stream(dev).cuda_stream
-    build = ([] if wide else [plan["lanes"]]) + [plan["blocks"],
-                                                 plan["threads"],
-                                                 plan["smem"]]
+    build += [plan["blocks"], plan["threads"], plan["smem"]]
     with torch.cuda.device(dev):
         err = launch(
             *ptrs, B, nzp, int(t0), n, *build, float(rho), float(1.0 / rho),
@@ -382,7 +409,7 @@ def _launch(z1, v0, lam0, M2_pad, pinvh, LB_pad, UB_pad, c_pad, *, t0, rho,
         raise RuntimeError(f"fused_ellip kernel launch failed with CUDA "
                            f"error {err} ({plan})")
     fused_ellip_solve.launches += 1
-    fused_ellip_solve.last_plan = plan if wide else dict(
+    fused_ellip_solve.last_plan = dict(
         plan, block_iterations=queue[1:1 + nb],
         block_clocks=queue[1 + nb:].view(nb, 2))
     e_flag = torch.where(done == 1, 1, -1).to(torch.int32)

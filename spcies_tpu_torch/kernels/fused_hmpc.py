@@ -42,12 +42,15 @@ the same bits, so `lanes=` of `fused_hmpc_solve` may name another build, for
 a check or a timing.
 
 Past MAX_COLS columns of either width, up to WIDE_COLS, the wide build
-(fused_hmpc_wide_kernel, csrc/wide_cols.cuh) runs 512 threads at 8 lanes a
-block, each thread taking two columns of each width (t and t + 512), no
-refill, with the consumed z, s and lam in global memory; `wide=` of
-`fused_hmpc_solve` names it at any width, for a check of bits. The cones
-keep their warps: a warp of cones, 32 columns from cone0 on, lies in one
-half, [0, 512) or [512, ns_p), of a thread's s columns.
+(fused_hmpc_wide_kernel) runs the same engine on 512 threads, each taking
+two columns of each width (t and t + 512), at 16 lanes a block (its state
+in shared memory with 16-row slabs of MC while the three leaves fit; past
+that s and lam in a per-block global scratch, 8-row slabs) or 8 (8-row
+slabs, its state in shared memory up to 1024), with refill in every mode,
+exact-k's included (kernels/stage.py WIDE_BUILDS, `wide_layout`); the
+cones are projected spread over the block, one (cone, lane) a thread, as
+in the narrow builds. `wide=` of `fused_hmpc_solve` names it at any width,
+for a check of bits.
 """
 
 from __future__ import annotations
@@ -83,11 +86,12 @@ FUSED_HMPC_ARGTYPES = ([ctypes.c_void_p] * 17 + [ctypes.c_int] * 10
 BUILDS = {8: (16, 2), 16: (8, 2), 32: (32, 1)}
 # the leaves an exact-k snapshot saves per lane: z, s, lam
 SNAP_LEAVES = 3
-# C signature of fused_hmpc_wide_launch: 17 pointers (the refill queue's
-# place holds the blocks' global state); B, dim_p, ns_p, cone0, cone_g,
-# use_soc, blocks, threads, shared bytes; rho, 1/rho, tol_p, tol_d; k_max,
+# C signature of fused_hmpc_wide_launch: 19 pointers (those of
+# fused_hmpc_launch, then exact-k's window starts and links, the global
+# leaves' scratch); B, dim_p, ns_p, cone0, cone_g, use_soc, lanes, refill,
+# blocks, threads, shared bytes; rho, 1/rho, tol_p, tol_d; k_max,
 # check_every, exact_k; the stream
-FUSED_HMPC_WIDE_ARGTYPES = ([ctypes.c_void_p] * 17 + [ctypes.c_int] * 9
+FUSED_HMPC_WIDE_ARGTYPES = ([ctypes.c_void_p] * 19 + [ctypes.c_int] * 11
                             + [ctypes.c_float] * 4 + [ctypes.c_int] * 3
                             + [ctypes.c_void_p])
 
@@ -195,19 +199,33 @@ def check_cone_layout(width: int, cone0: int, cone_g: int):
                          f"got {cone_g}")
 
 
+def _bytes(dim_p, ns_p, lanes, slab, leaves, warps):
+    """The ring of MC's slabs, z as [dim_p][lanes] and, with leaves 3, s
+    and lam as [ns_p][lanes], w with its padding, the warps' row maxima,
+    the masks, the window starts and the slots' lanes."""
+    return stage.ring_bytes(dim_p, slab) + 4 * (
+        dim_p * lanes + (leaves - 1) * ns_p * lanes + ns_p * (lanes + DQ_PAD)
+        + warps * 2 * lanes + 4 + 2 * lanes)
+
+
+def wide_layout(dim_p: int, ns_p: int, lanes: int) -> tuple[int, bool]:
+    """(rows a slab, global leaves) of the wide build (stage.wide_layout)."""
+    return stage.wide_layout(lanes, lambda slab, leaves: _bytes(
+        dim_p, ns_p, lanes, slab, leaves, stage.WIDE_WARPS))
+
+
 def shared_bytes(dim_p: int, ns_p: int, lanes: int,
                  wide: bool = False) -> int:
-    """Dynamic shared bytes of a block (fused_hmpc_smem in the source): the
-    ring of MC's slabs, z, s and lam as [rows][lanes], w with its padding,
-    the warps' row maxima, the masks, the window starts and the slots'
-    lanes. The wide build's (fused_hmpc_wide_smem): the prepared z as
-    [dim_p][8], w as [ns_p][8] and the warps' row maxima."""
-    if wide:
-        return 4 * stage.WIDE_LANES * (dim_p + ns_p + 2 * stage.WIDE_WARPS)
-    slab = stage.build_of(BUILDS, max(dim_p, ns_p), lanes)[0]
-    return stage.ring_bytes(dim_p, slab) + 4 * (
-        dim_p * lanes + 2 * ns_p * lanes + ns_p * (lanes + DQ_PAD)
-        + ns_p // WARP * 2 * lanes + 4 + 2 * lanes)
+    """Dynamic shared bytes of a block (fused_hmpc_smem in the source; the
+    wide build's fused_hmpc_wide_smem): z, s and lam in shared memory,
+    ns_p / 32 warps' row maxima; the wide build's WIDE_WARPS, and z alone
+    where s and lam go to global scratch."""
+    if not wide:
+        slab = stage.build_of(BUILDS, max(dim_p, ns_p), lanes)[0]
+        return _bytes(dim_p, ns_p, lanes, slab, 3, ns_p // WARP)
+    slab, global_leaves = wide_layout(dim_p, ns_p, lanes)
+    return _bytes(dim_p, ns_p, lanes, slab, 1 if global_leaves else 3,
+                  stage.WIDE_WARPS)
 
 
 def check_width(dim_p: int, ns_p: int) -> None:
@@ -231,8 +249,11 @@ def launch_plan(B: int, dim_p: int, ns_p: int, cone0: int, cone_g: int, *,
     stage.check_mode(B, tile_b=tile_b, check_every=check_every,
                      exact_k=exact_k)
     if stage.use_wide(max(dim_p, ns_p), wide):
-        return stage.wide_plan(B, shared_bytes(dim_p, ns_p, 8, wide=True),
-                               lanes)
+        # the wide build refills in every mode, exact-k's included
+        return stage.plan(B, max(dim_p, ns_p),
+                          lambda L: shared_bytes(dim_p, ns_p, L, True),
+                          stage.WIDE_BUILDS, refill=True, lanes=lanes,
+                          layout=lambda L: wide_layout(dim_p, ns_p, L))
     return stage.plan(B, max(dim_p, ns_p),
                       lambda L: shared_bytes(dim_p, ns_p, L), BUILDS,
                       refill=not (check_every > 1 and exact_k), lanes=lanes)
@@ -277,19 +298,25 @@ def _launch(*args, rho, tol_p, tol_d, k_max, use_soc, cone0, cone_g, tile_b,
     # the queue of groups of 8 lanes (refill), then each block's count of
     # iterations (refill) and kilo-clocks of the two halves of an iteration
     # (in a build with TP_CLOCKS; else zeros)
-    # (the wide build: the blocks' state, the consumed z, s and lam)
     nb = plan["blocks"]
-    queue = (torch.empty((B * (dim_p + 2 * ns_p),), dtype=torch.float32,
-                         device=dev) if wide else
-             torch.zeros((1 + 3 * nb,), dtype=torch.int32, device=dev))
-    ptrs = [t.data_ptr() for t in args + (z, s, lam, k, done, rp, rd, snap,
-                                          queue)]
+    queue = torch.zeros((1 + 3 * nb,), dtype=torch.int32, device=dev)
+    scratch = (queue,)
+    build = [plan["lanes"]]
+    if wide:
+        # exact-k's window starts and links; the global leaves: s and lam
+        # of each block's lanes
+        scratch += (torch.empty((B + B // 8 if exact and plan["refill"]
+                                 else 0,), dtype=torch.int32, device=dev),
+                    torch.empty((nb * 2 * ns_p * plan["lanes"]
+                                 if plan["global_leaves"] else 0,),
+                                dtype=torch.float32, device=dev))
+        build.append(int(plan["refill"]))
+    ptrs = [t.data_ptr() for t in args + (z, s, lam, k, done, rp, rd, snap)
+            + scratch]
     if any(ptr % 16 for ptr in ptrs):
         raise ValueError("the fused kernel takes 16-byte aligned tensors")
     stream = torch.cuda.current_stream(dev).cuda_stream
-    build = ([] if wide else [plan["lanes"]]) + [plan["blocks"],
-                                                 plan["threads"],
-                                                 plan["smem"]]
+    build += [plan["blocks"], plan["threads"], plan["smem"]]
     with torch.cuda.device(dev):
         err = launch(
             *ptrs, B, dim_p, ns_p, int(cone0), int(cone_g),
@@ -300,7 +327,7 @@ def _launch(*args, rho, tol_p, tol_d, k_max, use_soc, cone0, cone_g, tile_b,
         raise RuntimeError(f"fused_hmpc kernel launch failed with CUDA error "
                            f"{err} ({plan})")
     fused_hmpc_solve.launches += 1
-    fused_hmpc_solve.last_plan = plan if wide else dict(
+    fused_hmpc_solve.last_plan = dict(
         plan, block_iterations=queue[1:1 + nb],
         block_clocks=queue[1 + nb:].view(nb, 2))
     e_flag = torch.where(done == 1, 1, -1).to(torch.int32)

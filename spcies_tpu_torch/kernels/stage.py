@@ -10,25 +10,27 @@ kernels/fused_eadmm.py, for 8 and 16: a build is a key of `builds`), and up to
 NARROW columns each of those has a build of its own (`builds`: lanes -> rows
 a slab of the matrix, blocks an SM it is compiled for); wider shapes take one
 block an SM with 16-row slabs, and no 32-lane build. With refill (K4-K6:
-every mode but exact-k; K7: every mode) the blocks are persistent, about the
-SMs times the blocks an SM, and take groups of 8 lanes from a queue, so the
-batch need only be whole groups; without, one block per L lanes. `pick_lanes` takes the widest
+every mode but exact-k and K4's fixed_iters; K7: every mode) the blocks are
+persistent, about the SMs times the blocks an SM, and take groups of 8
+lanes from a queue, so the batch need only be whole groups; without, one
+block per L lanes. `pick_lanes` takes the widest
 build that fits the 232,448 bytes of shared memory a block can have and
 still gives half of the SMs a block, as kernels/fused_admm.py `pick_lanes`
 does.
 
 Past MAX_COLS columns each of K2-K7 runs its wide build, up to WIDE_COLS
-columns on WIDE_THREADS threads of two columns each (`use_wide`). K5's and
-K7's run on the stage's engine (csrc/fused_soc.cu, csrc/fused_split.cu):
-`plan(..., wide=True)` takes the widest of WIDE_BUILDS (16 lanes a block at
+columns on WIDE_THREADS threads of two columns each (`use_wide`). K4's,
+K5's, K6's and K7's run on the stage's engine (csrc/fused_ellip.cu,
+csrc/fused_soc.cu, csrc/fused_hmpc.cu, csrc/fused_split.cu):
+`plan(..., layout=)` takes the widest of WIDE_BUILDS (16 lanes a block at
 16-row slabs, 8 at 8-row slabs, one block an SM) whose shared bytes fit,
-with refill and persistent blocks as the narrow builds have them; where the
-three leaves of a 16-lane block do not fit, its zs and lm go to global
-scratch with 8-row slabs (`wide_layout`). K2, K3,
-K4 and K6 keep the first wide layout (csrc/wide_cols.cuh and their own):
-WIDE_LANES lanes a block, one block per WIDE_LANES lanes, no refill
-(`wide_plan`). A wide build also takes the narrow widths when it is named
-(`wide=True`), for a check of bits.
+with refill (every mode but K4's fixed_iters, exact-k's included) and
+persistent blocks as the narrow builds have them; where the three leaves
+of a 16-lane block do not fit, all but the first go to global scratch with
+8-row slabs (`wide_layout`). K2 and K3 keep the first wide layout
+(csrc/wide_cols.cuh and their own): WIDE_LANES lanes a block, one block
+per WIDE_LANES lanes, no refill (`wide_plan`). A wide build also takes the
+narrow widths when it is named (`wide=True`), for a check of bits.
 """
 
 from __future__ import annotations
@@ -44,13 +46,14 @@ SMEM_SM, SMEM_RESERVED = 233472, 1024
 # WIDE_BUILD (rows a slab, blocks an SM)
 NARROW = 320
 WIDE_BUILD = (16, 1)
-# the wide builds of K2, K3, K4 and K6: lanes a block (one group of 8,
-# which plain free-run drains); warps a block of every wide build
+# the wide builds of K2 and K3: lanes a block (one group of 8, which plain
+# free-run drains); warps a block of every wide build
 WIDE_LANES = DRAIN_LANES
 WIDE_WARPS = WIDE_THREADS // 32
-# the wide builds of K5 and K7 on the stage's engine: lanes a block -> (rows
-# a slab of the matrix, blocks an SM) (wide_slab in their sources), and the
-# rows a slab with global leaves (WIDE_SLAB_8)
+# the wide builds of K4-K7 on the stage's engine: lanes a block -> (rows a
+# slab of the matrix, blocks an SM) (tp::wide_slab in
+# csrc/tile_product.cuh), and the rows a slab with global leaves
+# (tp::WIDE_SLAB_8)
 WIDE_BUILDS = {16: (16, 1), 8: (8, 1)}
 GLOBAL_SLAB = 8
 
@@ -70,11 +73,12 @@ def build_of(builds: dict, width: int, lanes: int,
 
 
 def wide_layout(lanes: int, bytes_of) -> tuple[int, bool]:
-    """(rows a slab, global leaves) of K5's or K7's wide build at `lanes`
-    lanes a block: WIDE_BUILDS' slab with the three leaves in shared memory
-    where they fit, else zs and lm in global scratch and GLOBAL_SLAB-row
-    slabs (wide_global in their sources); bytes_of(slab, leaves) is a
-    block's shared bytes with `leaves` leaves in shared memory."""
+    """(rows a slab, global leaves) of K4's, K5's, K6's or K7's wide build
+    at `lanes` lanes a block: WIDE_BUILDS' slab with the three leaves in
+    shared memory where they fit, else the second and third leaves in
+    global scratch and GLOBAL_SLAB-row slabs (wide_global in their
+    sources); bytes_of(slab, leaves) is a block's shared bytes with
+    `leaves` leaves in shared memory."""
     slab = WIDE_BUILDS[lanes][0]
     if bytes_of(slab, 3) <= SMEM_MAX:
         return slab, False
@@ -173,9 +177,9 @@ def use_wide(width: int, wide: bool | None) -> bool:
 
 
 def wide_plan(B: int, smem: int, lanes: int | None = None) -> dict:
-    """The launch of a wide build of K2, K3, K4 or K6 (up to WIDE_COLS
-    columns, checked by the kernel's `check_width`) of B lanes, whole
-    groups of WIDE_LANES, with
+    """The launch of a wide build of K2 or K3 (up to WIDE_COLS columns,
+    checked by the kernel's `check_width`) of B lanes, whole groups of
+    WIDE_LANES, with
     `smem` dynamic shared bytes: one block per WIDE_LANES lanes of
     WIDE_THREADS threads, no refill. Raises ValueError where `lanes` names
     another build or the block does not fit shared memory."""

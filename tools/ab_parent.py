@@ -32,24 +32,26 @@ launches. With SPCIES_LOG_DIR set, every line also goes to ab_parent.log
 in that directory.
 
 With --wide, K2-K7's wide builds instead: each kernel's family at
-chip_smoke.py's WIDE_HORIZONS, B=8192, with the ptxas report of every
-function (the wide kernels' registers and spills may move) and no
-comparison of them. K2, K3, K4 and K6 take the same C signatures in both
-trees; K5's and K7's wide launches of a tree whose wide builds still ran on
-csrc/wide_cols.cuh (8 lanes a block, the blocks' state in global memory)
-are called with that signature (PARENT_WIDE), the working tree's through
-its wrappers, and for these two the working tree's other lanes-a-block
-wide builds are also held to its planned one bit for bit and timed, and a
+chip_smoke.py's WIDE_HORIZONS, B=8192, and at its WIDE_EXTRA
+(ellipHMPC-ADMM N=62 for K6, HMPC-SADMM-split N=58 for K7), with the
+ptxas report of every function (the wide kernels' registers and spills
+may move) and no comparison of them. Where the earlier tree's wide build
+of a kernel still ran on csrc/wide_cols.cuh (8 lanes a block, the blocks'
+state in global memory: its wide launch takes `state`), that launch is
+called with its own C signature (PARENT_WIDE: K4, K5, K6, K7), the
+working tree's through its wrappers; else both through the wrappers. For
+the kernels whose wide builds run on the stage's engine (K4-K7,
+chip_smoke.py STAGE_WIDE) the working tree's other lanes-a-block wide
+builds are also held to its planned one bit for bit and timed, and a
 build of it with TP_CLOCKS gives the clocks of an iteration's element-wise
-half and product (tools/ab_kernels.py clock_shares) at each lanes a block;
-K7 also at chip_smoke.py's WIDE_EXTRA (HMPC-SADMM-split N=58). For
-example, against the commit before K5 and K7 moved onto the stage's
+half and product (tools/ab_kernels.py clock_shares) at each lanes a block.
+For example, against the commit before K4 and K6 moved onto the stage's
 engine:
 
     mkdir -p scratch_checkout/parent
-    git archive 85c747c spcies_tpu_torch/csrc | tar -x -C scratch_checkout/parent
+    git archive f700d9f spcies_tpu_torch/csrc | tar -x -C scratch_checkout/parent
     python3 tools/ab_parent.py --wide \
-        scratch_checkout/parent/spcies_tpu_torch/csrc fused_soc fused_split
+        scratch_checkout/parent/spcies_tpu_torch/csrc fused_ellip fused_hmpc
 """
 
 from __future__ import annotations
@@ -88,15 +90,24 @@ CASES = {
     "fused_split": [("HMPC-ADMM-split", "HMPC-ADMM-split", c.FB, {}),
                     ("HMPC-SADMM-split", "HMPC-SADMM-split", c.FB, {})],
 }
-# the wide launches of K5 and K7 on csrc/wide_cols.cuh: 17 pointers (the
-# inputs, the outputs, the exact-k snapshot, the blocks' state); B, P,
-# dim_p (K7: cone0, cone_g, symmetric, use_soc), blocks, threads, shared
-# bytes; tol_p, tol_d (K7: alpha first); k_max, check_every, exact_k; the
-# stream
+# the wide launches of K4-K7 on csrc/wide_cols.cuh: 17 pointers (the
+# inputs, the outputs, the exact-k snapshot, the blocks' state); then K4:
+# B, nzp, t0, n, blocks, threads, shared bytes; rho, 1/rho, r, tol_p,
+# tol_d; k_max, check_every, fixed_iters, exact_k; K5: B, P, dim_p, blocks,
+# threads, shared bytes; tol_p, tol_d; k_max, check_every, exact_k; K6: B,
+# dim_p, ns_p, cone0, cone_g, use_soc, blocks, threads, shared bytes; rho,
+# 1/rho, tol_p, tol_d; k_max, check_every, exact_k; K7: as K5's with cone0,
+# cone_g, symmetric, use_soc after dim_p and alpha before tol_p; the stream
 PARENT_WIDE = {
+    "fused_ellip": ([ctypes.c_void_p] * 17 + [ctypes.c_int] * 7
+                    + [ctypes.c_float] * 5 + [ctypes.c_int] * 4
+                    + [ctypes.c_void_p]),
     "fused_soc": ([ctypes.c_void_p] * 17 + [ctypes.c_int] * 6
                   + [ctypes.c_float] * 2 + [ctypes.c_int] * 3
                   + [ctypes.c_void_p]),
+    "fused_hmpc": ([ctypes.c_void_p] * 17 + [ctypes.c_int] * 9
+                   + [ctypes.c_float] * 4 + [ctypes.c_int] * 3
+                   + [ctypes.c_void_p]),
     "fused_split": ([ctypes.c_void_p] * 17 + [ctypes.c_int] * 10
                     + [ctypes.c_float] * 3 + [ctypes.c_int] * 3
                     + [ctypes.c_void_p]),
@@ -151,39 +162,69 @@ def narrow_report(name: str, runs: list[tuple[Path, str]]) -> list[dict]:
     return out
 
 
+def takes_state(tree: Path, name: str) -> bool:
+    """Whether the wide launch of <name>.cu in `tree` is the first
+    layout's on csrc/wide_cols.cuh (its C signature takes `state`)."""
+    src = (tree / f"{name}.cu").read_text()
+    head = src.find(f'extern "C" int {name}_wide_launch(')
+    return head >= 0 and "float* state" in src[head:src.index("{", head)]
+
+
 def parent_wide(name, lib, args, kk):
-    """K5's or K7's wide build on csrc/wide_cols.cuh (PARENT_WIDE): one
-    block of 512 threads per 8 lanes, 4 [P][8] leaves a block in global
-    memory, dq as [2][P][8] and the row maxima in shared memory. Returns
-    the wrapper's outputs."""
+    """A wide build of K4-K7 on csrc/wide_cols.cuh (PARENT_WIDE): one
+    block of 512 threads per 8 lanes, its leaves in global memory, dq (K6:
+    the prepared z and w) and the row maxima in shared memory. Returns the
+    wrapper's outputs."""
     fn = getattr(lib, f"{name}_wide_launch")
     fn.argtypes, fn.restype = PARENT_WIDE[name], ctypes.c_int
     B, P = args[0].shape
     dev = args[0].device
-    zs, lm, aux = (torch.empty_like(args[0]) for _ in range(3))
+    outs = [torch.empty_like(args[i]) for i in
+            ((0, 1, 2) if name != "fused_hmpc" else (0, 1, 1))]
     k, done = (torch.empty((B,), dtype=torch.int32, device=dev)
                for _ in range(2))
     rp, rd = (torch.empty((B,), dtype=torch.float32, device=dev)
               for _ in range(2))
-    exact = kk["check_every"] > 1 and kk["exact_k"]
-    snap = torch.empty((B if exact else 0, 3 * P), dtype=torch.float32,
-                       device=dev)
-    state = torch.empty((B * 4 * P,), dtype=torch.float32, device=dev)
-    split = name == "fused_split"
-    shape = [B, P, int(kk["dim_p"])] + ([
-        int(kk["cone0"]), int(kk["cone_g"]), int(bool(kk["symmetric"])),
-        int(bool(kk["use_soc"]))] if split else [])
-    floats = ([float(kk["alpha"])] if split else []) + [
-        float(kk["tol_p"]), float(kk["tol_d"])]
-    ptrs = [t.data_ptr() for t in args + (zs, lm, aux, k, done, rp, rd,
-                                          snap, state)]
+    exact = kk["check_every"] > 1 and kk["exact_k"] and not kk.get(
+        "fixed_iters", 0)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = fn(*ptrs, *shape, B // 8, 512, 4 * 8 * (2 * P + 4 * 16), *floats,
-             int(kk["k_max"]), int(kk["check_every"]),
-             int(bool(kk["exact_k"])), stream)
+    tail = [int(kk["k_max"]), int(kk["check_every"])]
+    if name == "fused_ellip":
+        n = args[4].shape[0]
+        width = 3 * P
+        state = 4 * P
+        ints = [B, P, int(kk["t0"]), n, B // 8, 512, 4 * 8 * (2 * P + 64)]
+        floats = [float(kk["rho"]), float(1.0 / kk["rho"]),
+                  float(kk["r_ball"]), float(kk["tol_p"]),
+                  float(kk["tol_d"])]
+        tail.append(int(kk.get("fixed_iters", 0)))
+    elif name == "fused_hmpc":
+        ns_p = args[1].shape[1]
+        width = state = P + 2 * ns_p
+        ints = [B, P, ns_p, int(kk["cone0"]), int(kk["cone_g"]),
+                int(bool(kk["use_soc"])), B // 8, 512,
+                4 * 8 * (P + ns_p + 32)]
+        floats = [float(kk["rho"]), float(1.0 / kk["rho"]),
+                  float(kk["tol_p"]), float(kk["tol_d"])]
+    else:
+        split = name == "fused_split"
+        width, state = 3 * P, 4 * P
+        ints = [B, P, int(kk["dim_p"])] + ([
+            int(kk["cone0"]), int(kk["cone_g"]), int(bool(kk["symmetric"])),
+            int(bool(kk["use_soc"]))] if split else []) + [
+            B // 8, 512, 4 * 8 * (2 * P + 4 * 16)]
+        floats = ([float(kk["alpha"])] if split else []) + [
+            float(kk["tol_p"]), float(kk["tol_d"])]
+    tail.append(int(bool(kk["exact_k"])))
+    snap = torch.empty((B if exact else 0, width), dtype=torch.float32,
+                       device=dev)
+    scratch = torch.empty((B * state,), dtype=torch.float32, device=dev)
+    ptrs = [t.data_ptr() for t in args + (*outs, k, done, rp, rd, snap,
+                                          scratch)]
+    err = fn(*ptrs, *ints, *floats, *tail, stream)
     assert err == 0, (name, err)
     e_flag = torch.where(done == 1, 1, -1).to(torch.int32)
-    return zs, lm, aux, k, e_flag, rp, rd
+    return (*outs, k, e_flag, rp, rd)
 
 
 def args_of(sp, fam, B, **kw):
@@ -220,15 +261,16 @@ def main():
     _build.BUILD_DIR = _build.BUILD_DIR / f"ab_parent_{os.getpid()}"
     jobs = [(n, d) for n in names for d in (parent_dir, None)]
     clocks = _build.BUILD_DIR / "clocks"
-    if wide and set(names) & set(PARENT_WIDE):
-        # the working tree built with TP_CLOCKS, for K5's and K7's clocks
+    if wide and set(names) & set(c.STAGE_WIDE):
+        # the working tree built with TP_CLOCKS, for the clocks of the wide
+        # builds on the stage's engine
         clocks.mkdir(parents=True)
         for f in list(_build.CSRC.glob("*.cu")) + list(
                 _build.CSRC.glob("*.cuh")):
             (clocks / f.name).write_text(
-                ("#define TP_CLOCKS 1\n" if f.stem in PARENT_WIDE else "")
+                ("#define TP_CLOCKS 1\n" if f.stem in c.STAGE_WIDE else "")
                 + f.read_text())
-        jobs += [(n, clocks) for n in names if n in PARENT_WIDE]
+        jobs += [(n, clocks) for n in names if n in c.STAGE_WIDE]
     with ThreadPoolExecutor(len(jobs)) as pool:
         built = dict(zip(jobs, pool.map(lambda j: _build.build(*j), jobs)))
         touched = _build.BUILD_DIR / "parent_touched"
@@ -276,7 +318,8 @@ def main():
 
             def run(key):
                 _build._LOADED[name] = libs[key]
-                if wide and key == "parent" and name in PARENT_WIDE:
+                if (wide and key == "parent" and name in PARENT_WIDE
+                        and takes_state(parent_dir, name)):
                     return parent_wide(name, libs[key][0], args, kk)
                 return kern(*args, **kk)
 
@@ -302,7 +345,8 @@ def main():
 
 
 def stage_builds(name, libs, kern, args, kk):
-    """K5's or K7's wide builds of the working tree at each lanes a block:
+    """A wide build on the stage's engine (K4-K7) of the working tree at
+    each lanes a block:
     the bits of the planned one (those of the last call) and the least of
     two CUDA-event means of 3 launches; then the clocks of an iteration's
     two halves in the TP_CLOCKS build."""
