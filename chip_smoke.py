@@ -115,19 +115,21 @@ started together), then
      one bit for bit at laxMPC-ADMM N=64 (512 columns), and checks that
      make_solver(..., backend="fused", device="cuda") refuses at build
      time a width past each kernel's cap of 1024 columns (1056); then
-     K2-K7's wide builds (512 threads of two columns; K2 and K3 on
-     csrc/wide_cols.cuh at 8 lanes a block, K4-K7 on the stage's engine
-     at 16 or 8 lanes a block with refill): each forced at its family's
-     N=30 width gives the narrow build's bits in every mode of the
-     kernel's own phase (4, 7, 10 or 13; K4-K7 at each lanes-a-block
-     build, with refill and without), and at the first
-     oscillating-masses horizon whose padded width passes 512 and the
-     widest whose widths stay at or under 1024 (WIDE_HORIZONS; one family
-     a kernel at the bench's settings, B=8192, ellipHMPC-ADMM at N=62 for
-     K6's other family and HMPC-SADMM-split at N=58 for K7's half-step)
-     it converges on every lane, agrees with its plain version as in 1
-     and is timed against it (kernel, plain once, kernel) with its bound
-     and its plan;
+     K2-K7's wide builds (512 threads of two columns on the stage at 16
+     or 8 lanes a block; K4-K7 with refill, K2 and K3 without): each
+     forced at its family's N=30 width gives the narrow build's bits in
+     every mode of the kernel's own phase (4, 7, 10 or 13) at each
+     lanes-a-block build (K4-K7 with refill and without), and at the
+     first oscillating-masses horizon whose padded width passes 512 and
+     the widest whose widths stay at or under 1024 (WIDE_HORIZONS; one
+     family a kernel at the bench's settings, B=8192; WIDE_EXTRA:
+     ellipHMPC-ADMM at N=62 for K6's other family, HMPC-SADMM-split at
+     N=58 for K7's half-step, and MPCT-EADMM on two random plants at 1024
+     columns with 21 and 29 classes of columns, where K3's z2 chains read
+     C2d by __ldg) it converges on every lane, agrees with its plain
+     version as in 1 and is timed against it (kernel, plain once, kernel)
+     with its bound and its plan, and every other lanes-a-block build
+     gives the planned one's bits;
  18. runs every kernel away from the N=30 fixture, one family a kernel
      (laxMPC-ADMM, laxMPC-FISTA, MPCT-EADMM, ellipMPC-ADMM, -soc,
      HMPC-ADMM, HMPC-ADMM-split): on the three random plants of
@@ -145,14 +147,16 @@ started together), then
      model (A, B and the Q and R diagonals scaled per lane in [0.97,
      1.03]), in fp64 at N=30, B=256 against the same solver on the CPU
      (every lane converged, k equal, a lane that moves named and by one
-     iteration at most, u within 1e-8); then in fp32 at the JAX
+     iteration at most, u within 1e-8; the fp64 CPU runs of phases 19
+     and 20 start before phase 18 in CPU_WORKERS processes of one thread
+     each, beside the card's phases 18-20); then in fp32 at the JAX
      long-horizon record's sizes (BENCH_LONGN_r05.json; BAND_ROWS: banded
      and scan against dense at N=120, B=4096 and N=480, B=1024, MPCT-cs
      banded against dense at N=120, the time-varying rows at N=120,
      B=4096 and N=240, B=2048), each run to convergence on 1024 lanes
      (every lane converged; against the fp64 CPU run of 256 lanes k within
      one iteration and u within 1e-4 where k is equal), timed at
-     fixed_iters=100 (median of three), with its peak of allocated memory,
+     fixed_iters=100 (one run), with its peak of allocated memory,
      and profiled twice for its launches and device time an iteration
      (the idle share); a tv_dense_w row that runs out of memory is logged,
      the one failure the phase records rather than raises;
@@ -237,12 +241,13 @@ any check fails. The last line is the JSON result.
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import subprocess
 import sys
 import time
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 from contextlib import contextmanager, nullcontext
 from pathlib import Path
 
@@ -614,8 +619,9 @@ def phase_main_path(sp, head_plain, m):
     return launches, solver
 
 
-def cuda_ms(fn, reps=1):
-    fn()
+def cuda_ms(fn, reps=1, warm=True):
+    if warm:
+        fn()
     torch.cuda.synchronize()
     e0 = torch.cuda.Event(enable_timing=True)
     e1 = torch.cuda.Event(enable_timing=True)
@@ -625,6 +631,25 @@ def cuda_ms(fn, reps=1):
     e1.record()
     torch.cuda.synchronize()
     return e0.elapsed_time(e1) / reps
+
+
+def in_turns(kernel, plain, dense=None, reps=5):
+    """A kernel, its plain version and, if given, a dense engine in turns
+    (plain, kernel, kernel, plain, dense, dense), each a CUDA-event mean,
+    the kernel's over `reps` calls. Each kernel measurement follows a
+    warm-up call; the plain version and the dense engine, host-bound
+    loops of small launches, are warmed once, before their first
+    measurement. Returns the times and the dense engine's warm-up result
+    (None without one)."""
+    t = {"plain": [cuda_ms(plain)], "kernel": []}
+    for _ in range(2):
+        t["kernel"].append(cuda_ms(kernel, reps=reps))
+    t["plain"].append(cuda_ms(plain, warm=False))
+    res = None
+    if dense is not None:
+        res = dense()
+        t["dense"] = [cuda_ms(dense, warm=False) for _ in range(2)]
+    return t, res
 
 
 def roofline(tensors, flops):
@@ -661,14 +686,7 @@ def phase_times(sp, fused):
     kernel = lambda: fused_admm_solve(*args, **kk)  # noqa: E731
     plain = lambda: fused_admm_reference(*args, **kk)  # noqa: E731
     dense_fn = lambda: dense(*x)  # noqa: E731
-    t = {"plain": [], "kernel": [], "dense": []}
-    t["plain"].append(cuda_ms(plain))
-    t["kernel"].append(cuda_ms(kernel, reps=5))
-    t["kernel"].append(cuda_ms(kernel, reps=5))
-    t["plain"].append(cuda_ms(plain))
-    t["dense"].append(cuda_ms(dense_fn))
-    t["dense"].append(cuda_ms(dense_fn))
-    res = dense(*x)
+    t, res = in_turns(kernel, plain, dense_fn)
     log(f"phase 3 dense fp32 engine: k_mean={float(res.k.float().mean())} "
         f"converged={float((res.e_flag == 1).float().mean())}")
     log("phase 3 times (ms per B=32768 solve, CUDA events): "
@@ -848,14 +866,7 @@ def phase_family_times(sp):
         kernel = lambda: fused_fista_solve(*args, **kk)  # noqa: E731
         plain = lambda: fused_fista_reference(*args, **kk)  # noqa: E731
         dense_fn = lambda: dense(*x)  # noqa: E731
-        t = {"plain": [], "kernel": [], "dense": []}
-        t["plain"].append(cuda_ms(plain))
-        t["kernel"].append(cuda_ms(kernel, reps=5))
-        t["kernel"].append(cuda_ms(kernel, reps=5))
-        t["plain"].append(cuda_ms(plain))
-        t["dense"].append(cuda_ms(dense_fn))
-        t["dense"].append(cuda_ms(dense_fn))
-        res = dense(*x)
+        t, res = in_turns(kernel, plain, dense_fn)
         log(f"phase 6 laxMPC-FISTA dense fp32 engine B={B}: "
             f"k_mean={float(res.k.float().mean())} "
             f"converged={float((res.e_flag == 1).float().mean())}")
@@ -1024,14 +1035,7 @@ def phase_mpct_times(sp):
             *args, **kk, classes=classes)
         plain = lambda: fused_eadmm_reference(*args, **kk)  # noqa: E731
         dense_fn = lambda: dense(*x)  # noqa: E731
-        t = {"plain": [], "kernel": [], "dense": []}
-        t["plain"].append(cuda_ms(plain))
-        t["kernel"].append(cuda_ms(kernel, reps=5))
-        t["kernel"].append(cuda_ms(kernel, reps=5))
-        t["plain"].append(cuda_ms(plain))
-        t["dense"].append(cuda_ms(dense_fn))
-        t["dense"].append(cuda_ms(dense_fn))
-        res = dense(*x)
+        t, res = in_turns(kernel, plain, dense_fn)
         log(f"phase 9 MPCT-EADMM dense fp32 engine B={B}: "
             f"k_mean={float(res.k.float().mean())} "
             f"converged={float((res.e_flag == 1).float().mean())}")
@@ -1271,14 +1275,7 @@ def phase_ellip_times(sp):
             kernel = lambda: kern(*args, **kk)  # noqa: E731
             plain_fn = lambda: plain(*args, **kk)  # noqa: E731
             dense_fn = lambda: dense(*x)  # noqa: E731
-            t = {"plain": [], "kernel": [], "dense": []}
-            t["plain"].append(cuda_ms(plain_fn))
-            t["kernel"].append(cuda_ms(kernel, reps=5))
-            t["kernel"].append(cuda_ms(kernel, reps=5))
-            t["plain"].append(cuda_ms(plain_fn))
-            t["dense"].append(cuda_ms(dense_fn))
-            t["dense"].append(cuda_ms(dense_fn))
-            res = dense(*x)
+            t, res = in_turns(kernel, plain_fn, dense_fn)
             log(f"phase 12 {name} dense fp32 engine B={B}: "
                 f"k_mean={float(res.k.float().mean())} "
                 f"converged={float((res.e_flag == 1).float().mean())}")
@@ -1531,14 +1528,7 @@ def phase_hmpc_times(sp):
             kernel = lambda: kern(*args, **kk)  # noqa: E731
             plain_fn = lambda: plain(*args, **kk)  # noqa: E731
             dense_fn = lambda: dense(*x)  # noqa: E731
-            t = {"plain": [], "kernel": [], "dense": []}
-            t["plain"].append(cuda_ms(plain_fn))
-            t["kernel"].append(cuda_ms(kernel, reps=5))
-            t["kernel"].append(cuda_ms(kernel, reps=5))
-            t["plain"].append(cuda_ms(plain_fn))
-            t["dense"].append(cuda_ms(dense_fn))
-            t["dense"].append(cuda_ms(dense_fn))
-            res = dense(*x)
+            t, res = in_turns(kernel, plain_fn, dense_fn)
             log(f"phase 15 {name} dense fp32 engine B={B}: "
                 f"k_mean={float(res.k.float().mean())} "
                 f"converged={float((res.e_flag == 1).float().mean())}")
@@ -1608,6 +1598,7 @@ def phase_rollout(sp):
         def run():
             return closed_loop_rollout(solver, A, B, *x, n_steps=CL_STEPS,
                                        warm_start=ws)
+        t_row = time.perf_counter()
         run()
         torch.cuda.synchronize()
         fused_admm_solve.launches = 0
@@ -1623,7 +1614,9 @@ def phase_rollout(sp):
         launches += n
         ks, es = res["ks"], res["e_flags"]
         dt = sorted(times)[len(times) // 2]
+        t_prof = time.perf_counter()
         dev, k1_ms = device_ms(run)
+        now = time.perf_counter()
         row = dict(
             solves_per_s=CL_BATCH * CL_STEPS / dt,
             solves_per_s_min=CL_BATCH * CL_STEPS / max(times),
@@ -1635,7 +1628,8 @@ def phase_rollout(sp):
             steps_all_converged=int((es == 1).all(dim=1).sum()),
             k1_launches=n, runs=CL_RUNS, wall_ms=dt * 1e3,
             device_ms=dev, k1_ms=k1_ms,
-            idle_share=None if dev is None else 1.0 - dev / (dt * 1e3))
+            idle_share=None if dev is None else 1.0 - dev / (dt * 1e3),
+            row_s=now - t_row, profiled_s=now - t_prof)
         log(f"phase 16 rollout {label} (B={CL_BATCH}, {CL_STEPS} steps): "
             + json.dumps(row))
         assert tuple(res["xs"].shape) == (CL_STEPS + 1, CL_BATCH, A.shape[0])
@@ -1681,11 +1675,7 @@ REFUSED = {
 def timed(kernel, plain):
     """A kernel and its plain version in turns (plain, kernel, kernel,
     plain), each a CUDA-event mean; the least of each."""
-    t = {"plain": [], "kernel": []}
-    t["plain"].append(cuda_ms(plain))
-    t["kernel"].append(cuda_ms(kernel, reps=3))
-    t["kernel"].append(cuda_ms(kernel, reps=3))
-    t["plain"].append(cuda_ms(plain))
+    t, _ = in_turns(kernel, plain, reps=3)
     return {key: min(v) for key, v in t.items()}
 
 
@@ -1801,13 +1791,41 @@ WIDE_HORIZONS = {
     "fused_hmpc": (61, 124),
     "fused_split": (58, 121),
 }
-# the wide builds on the stage's engine (K4-K7: lanes a block and refill
-# planned as the narrow builds'), and the runs past 512 columns of a second
-# family of a kernel, logged beside its rows: K6's ellipHMPC-ADMM at its
-# first horizon past 512 columns (544 x 224) and K7's SADMM half-step
-STAGE_WIDE = ("fused_ellip", "fused_soc", "fused_hmpc", "fused_split")
-WIDE_EXTRA = {"fused_hmpc": (("ellipHMPC-ADMM", 62),),
-              "fused_split": (("HMPC-SADMM-split", 58),)}
+# the wide builds with refill (K4-K7; K2's and K3's keep a block of L
+# lanes, as their narrow builds do), and the runs past 512 columns of a
+# second family or plant of a kernel, logged beside its rows, as (family,
+# horizon, random_plant's seed, states and inputs or None): K6's
+# ellipHMPC-ADMM at its first horizon past 512 columns (544 x 224), K7's
+# SADMM half-step, and K3 at 1024 columns with more classes of columns than
+# C2d's copy fits beside the 16-lane build's ring (nd 21: read by __ldg at
+# 16 lanes, copied at 8) and beside the 8-lane build's (nd 29: by __ldg at
+# both)
+REFILL_WIDE = ("fused_ellip", "fused_soc", "fused_hmpc", "fused_split")
+WIDE_EXTRA = {"fused_eadmm": (("MPCT-EADMM", 49, (410, 14, 6)),
+                              ("MPCT-EADMM", 35, (411, 20, 8))),
+              "fused_hmpc": (("ellipHMPC-ADMM", 62, None),),
+              "fused_split": (("HMPC-SADMM-split", 58, None),)}
+
+
+def wide_runs(name):
+    """Phase 17's runs past 512 columns of a kernel: (family, horizon,
+    keyword arguments of fam_solver and fam_args, label), WIDE_HORIZONS'
+    of its WIDE_FAMILY, then its WIDE_EXTRA (a random plant at the
+    horizon)."""
+    out = []
+    for fam, horizon, spec in [(WIDE_FAMILY[name], h, None)
+                               for h in WIDE_HORIZONS[name]] + list(
+                                   WIDE_EXTRA.get(name, ())):
+        if spec is None:
+            out.append((fam, horizon, {}, f"{fam} N={horizon}"))
+            continue
+        seed, n, m = spec
+        sys_, param, x0, xr, ur = random_plant(seed, n, m)
+        plant = (sys_, dict(param, N=horizon), x0, xr, ur)
+        out.append((fam, horizon, dict(plant=plant),
+                    f"{fam} random plant n={n} m={m} (seed {seed}) "
+                    f"N={horizon}"))
+    return out
 
 
 def fam_kernel(fam):
@@ -1929,34 +1947,35 @@ def event_ms(fn):
 def phase_wide_kernels(sp):
     """K2-K7's wide builds on CUDA tensors: each forced at its family's
     N=30 width gives the narrow build's bits in every mode of the kernel's
-    own phase (K4-K7 at each lanes-a-block build, with refill and
-    without); at the first horizon past 512 columns and the widest up to
-    1024, B=8192 (and WIDE_EXTRA's), every lane converges, k agrees with
-    the plain version on >= 0.9985 of lanes and u within U_TOL, timed in
-    turns (kernel, plain once, kernel) with the bound, its share and the
-    plan. Returns, by kernel, the rows by padded width (WIDE_FAMILY's
-    family) and the largest u error."""
+    own phase at each lanes-a-block build (K4-K7 with refill and without);
+    at the first horizon past 512 columns and the widest up to 1024,
+    B=8192 (and WIDE_EXTRA's), every lane converges, k agrees with the
+    plain version on >= 0.9985 of lanes and u within U_TOL, timed in turns
+    (kernel, plain once, kernel) with the bound, its share and the plan,
+    and every other lanes-a-block build gives the planned one's bits.
+    Returns, by kernel, the rows by padded width (WIDE_FAMILY's family)
+    and the largest u error."""
     from spcies_tpu_torch.kernels.stage import WIDE_BUILDS
     out = {}
     for name, fam in WIDE_FAMILY.items():
         _, kern, plain, u_at, k_at, u_off = fam_kernel(fam)
-        builds = ([(L, refill) for L in sorted(WIDE_BUILDS)
-                   for refill in (True, False)] if name in STAGE_WIDE
-                  else [(None, None)])
+        builds = [(L, refill) for L in sorted(WIDE_BUILDS)
+                  for refill in ((True, False) if name in REFILL_WIDE
+                                 else (False,))]
         for label, mfam, B, fixed, _cut, kw, extra in kernel_modes(name):
             solver = fam_solver(sp, mfam, **kw)
             args, kk = fam_args(sp, mfam, solver, B, fixed, **extra)
             narrow = kern(*args, **kk, wide=False)
             plans = []
             for L, refill in builds:
-                with nullcontext() if refill in (None, True) else \
-                        without_refill():
+                with without_refill() if name in REFILL_WIDE and \
+                        not refill else nullcontext():
                     wide = kern(*args, **kk, wide=True, lanes=L)
                 plan = {k: v for k, v in kern.last_plan.items()
                         if not torch.is_tensor(v)}
                 assert plan["wide"], label
                 # K4's fixed_iters keeps static blocks
-                assert L is None or (plan["lanes"], plan["refill"]) == (
+                assert (plan["lanes"], plan["refill"]) == (
                     L, refill and not fixed), (label, plan)
                 torch.cuda.synchronize()
                 same = all(bool(torch.equal(a[:B], b[:B]))
@@ -1966,11 +1985,9 @@ def phase_wide_kernels(sp):
             log(f"phase 17 {name} {label}: wide build bit-identical to "
                 f"the narrow build (plans {plans})")
         rows, u_err = {}, 0.0
-        runs = [(fam, h) for h in WIDE_HORIZONS[name]] + list(
-            WIDE_EXTRA.get(name, ()))
-        for rfam, horizon in runs:
-            solver = fam_solver(sp, rfam, horizon=horizon)
-            args, kk = fam_args(sp, rfam, solver, FB)
+        for rfam, horizon, pk, what in wide_runs(name):
+            solver = fam_solver(sp, rfam, horizon=horizon, **pk)
+            args, kk = fam_args(sp, rfam, solver, FB, **pk)
             kx = kernel_extra(name, solver)
             t0, out_k = event_ms(lambda: kern(*args, **kk, **kx))
             plan = dict(kern.last_plan)
@@ -1982,8 +1999,8 @@ def phase_wide_kernels(sp):
                           k_at=k_at, u_off=u_off(solver))
             width = max(max(t.shape) for t in solver.raw_fn.operator
                         if t.dim() == 2)
-            check_agreement(f"{name} {rfam} N={horizon} ({width} columns)",
-                            a, phase=17)
+            check_agreement(f"{name} {what} ({width} columns)", a,
+                            phase=17)
             k = out_k[k_at][:FB]
             kernel_ms = min(t1, t2)
             bound = roofline(args + out_k, iter_flops(k, fam_flops(rfam,
@@ -1997,22 +2014,27 @@ def phase_wide_kernels(sp):
                        smem=plan["smem"], horizon=horizon,
                        u_err=a["u_err"])
             if name == "fused_eadmm":
-                row["nd"] = plan["nd"]
-            if name in STAGE_WIDE:
-                row.update(iterations(k, kern), slab=plan["slab"],
-                           blocks=plan["blocks"],
-                           global_leaves=plan["global_leaves"])
-                # every other lanes-a-block build gives the planned one's
-                # bits (16 lanes with global leaves against 8 with shared)
-                for L in sorted(set(WIDE_BUILDS) - {plan["lanes"]}):
-                    other = kern(*args, **kk, lanes=L)
-                    torch.cuda.synchronize()
-                    assert all(bool(torch.equal(x, y))
-                               for x, y in zip(other, out_k)), (name, L)
-                    row[f"bits_equal_lanes_{L}"] = True
-            log(f"phase 17 {name} {rfam} N={horizon} ({width} columns) "
-                f"times (ms, B={FB}, CUDA events): " + json.dumps(row))
-            if rfam == fam:
+                row.update(nd=plan["nd"], c2d_staged=plan["c2d_staged"])
+                # a random plant's run is there for the chains' __ldg path
+                assert not pk or not plan["c2d_staged"], (what, plan)
+            row.update(iterations(k, kern), slab=plan["slab"],
+                       blocks=plan["blocks"],
+                       global_leaves=plan["global_leaves"])
+            # every other lanes-a-block build gives the planned one's bits
+            # (at 1024 columns 16 lanes keep more of their state in global
+            # scratch than 8, and K3's may read C2d where 8 copy it)
+            for L in sorted(set(WIDE_BUILDS) - {plan["lanes"]}):
+                other = kern(*args, **kk, **kx, lanes=L)
+                torch.cuda.synchronize()
+                assert all(bool(torch.equal(x, y))
+                           for x, y in zip(other, out_k)), (what, L)
+                row[f"bits_equal_lanes_{L}"] = True
+                if name == "fused_eadmm":
+                    row[f"c2d_staged_lanes_{L}"] = kern.last_plan[
+                        "c2d_staged"]
+            log(f"phase 17 {name} {what} ({width} columns) times (ms, "
+                f"B={FB}, CUDA events): " + json.dumps(row))
+            if rfam == fam and not pk:
                 rows[width] = row
             u_err = max(u_err, a["u_err"])
         out[name] = (rows, u_err)
@@ -2114,8 +2136,16 @@ def phase_off_fixture(sp):
 BAND_TOL = 1e-4
 BAND_K_MAX = 5000
 BAND_FIXED = 100      # the JAX long-horizon record times fixed_iters=100
-BAND_RUNS = 3         # timed runs a row (median)
-BAND_PROFILE = (4, 12)    # fixed_iters of the two profiled runs a row
+# the timing depth of phases 19 and 20, which are host-bound and took
+# half of the script's time limit, kept small to keep the script inside it
+# (the lanes their checks compare are not for cutting): under
+# torch.profiler a sequential row's iteration costs tens of times its timed
+# wall (PERF.md section 5)
+BAND_RUNS = 1         # timed runs a row (wall_ms: their upper median)
+BAND_PROFILE = (1, 3)     # fixed_iters of the two profiled runs a row:
+                          # their difference is 2 iterations' launches and
+                          # device time
+BAND_MEMORY_ITERS = 4     # fixed_iters of the N=480 rows' memory analysis
 BAND_REF_B = 256      # lanes of a full-size row's fp64 CPU reference
 BAND_U_TOL = 1e-8     # fp64 card against fp64 CPU, lanes with equal k
                       # (fp32 against fp64: U_TOL)
@@ -2276,34 +2306,143 @@ def profile_run(run):
 
 
 def wall_ms(run, reps):
-    """Median host wall of reps calls, each CUDA-synchronised, and all."""
+    """The upper median of reps calls' host walls, each CUDA-synchronised
+    (of two, the slower), all of them, and the last call's result."""
     times = []
     for _ in range(reps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        run()
+        res = run()
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
-    return sorted(times)[len(times) // 2], times
+    return sorted(times)[len(times) // 2], times, res
 
 
 def time_and_profile(fixed, B, out):
-    """Into `out`: BAND_RUNS timed runs of fixed(BAND_FIXED) (their
-    median, solves/s and the peak of allocated memory), and two profiled
-    runs, fixed(i) for i in BAND_PROFILE, whose difference gives an
-    iteration's launches and device time (the idle share: against the
-    timed runs' wall an iteration)."""
-    ms, times = wall_ms(lambda: fixed(BAND_FIXED), BAND_RUNS)
+    """Into `out`: BAND_RUNS timed runs of fixed(BAND_FIXED) (wall_ms's
+    upper median, solves/s and the peak of allocated memory), and two
+    profiled runs, fixed(i) for i in BAND_PROFILE, whose difference gives
+    an iteration's launches and device time (the idle share: against the
+    timed runs' wall an iteration); and the seconds each part took.
+    Returns the last timed run's result."""
+    t0 = time.perf_counter()
+    ms, times, res = wall_ms(lambda: fixed(BAND_FIXED), BAND_RUNS)
     out.update(ms=ms, ms_all=times, solves_per_s=B / ms * 1e3,
                fixed_iters=BAND_FIXED,
                peak_mb=torch.cuda.max_memory_allocated() / 2**20)
+    t1 = time.perf_counter()
     (n1, dev1), (n2, dev2) = (profile_run(lambda: fixed(i))
                               for i in BAND_PROFILE)
     span = BAND_PROFILE[1] - BAND_PROFILE[0]
     dev_it = (dev2 - dev1) / span
     out.update(launches_per_iter=(n2 - n1) / span,
                launches_profiled=(n1, n2), device_ms_per_iter=dev_it,
-               idle_share=1.0 - dev_it / (ms / BAND_FIXED))
+               idle_share=1.0 - dev_it / (ms / BAND_FIXED),
+               timed_s=t1 - t0, profiled_s=time.perf_counter() - t1)
+    return res
+
+
+# The fp64 CPU runs that phases 19 and 20 hold the card to: host work of
+# small batched operations, one thread each, about half of the two phases'
+# time when run in turn with the card's. main() starts them in CPU_WORKERS
+# processes of their own before phase 18, so that they run beside phases
+# 18-20's card work; a phase run alone computes its runs here instead.
+CPU_WORKERS = 4
+_CPU_POOL: list = []          # the pool, while it runs
+_CPU_RUNS: dict = {}          # job -> its future
+
+
+def _items(extra):
+    return tuple(sorted(extra.items()))
+
+
+def cpu_jobs():
+    """Every fp64 CPU run of phases 19 and 20, in the order they read
+    them: phase 19's correctness rows, its full-size rows' references (one
+    a family, horizon and mode, drawn at the row's B), phase 20's
+    correctness rows."""
+    refs = {}
+    for fam, horizon, B, _backend, tv, _extra in BAND_ROWS:
+        refs.setdefault((fam, horizon, tv), B)
+    return ([("band check", fam, tv, _items(extra))
+             for fam, tv, extra in BAND_CHECKS]
+            + [("band ref", fam, horizon, B, tv)
+               for (fam, horizon, tv), B in refs.items()]
+            + [("long check", fam, _items(extra))
+               for fam, extra in LONG_CHECKS])
+
+
+def cpu_reference(job):
+    """One fp64 run on the CPU: (u, k, e_flag) as numpy arrays and its
+    seconds. "band check": a phase-19 correctness row's solver and inputs;
+    "band ref": the sequential banded (or time-varying) solver on the
+    first BAND_REF_B lanes of a full-size row's inputs, the same iteration
+    as every backend of the row; "long check": a phase-20 correctness
+    row's."""
+    import spcies_tpu_torch as sp
+    t0 = time.perf_counter()
+    kind, fam, *rest = job
+    if kind == "band check":
+        tv, extra = rest[0], dict(rest[1])
+        x = band_inputs(sp, fam, N, BAND_CHECK_B, 190, tv)
+        res = band_solver(sp, fam, N, backend="dense" if tv else "banded",
+                          tv=tv, precision="double", device="cpu",
+                          **extra)(*x)
+    elif kind == "band ref":
+        horizon, B, tv = rest
+        x = band_inputs(sp, fam, horizon, B, 19, tv)
+        ing = None if tv else band_ingredients(sp, fam, horizon, "banded")
+        res = band_solver(sp, fam, horizon, backend="banded", tv=tv,
+                          precision="double", device="cpu",
+                          ingredients=ing)(*(a[:BAND_REF_B] for a in x))
+    else:
+        x = long_inputs(sp, fam, N, BAND_CHECK_B, 200)
+        res = long_solver(sp, fam, N, "banded", "double", "cpu",
+                          **dict(rest[0]))(*x)
+    return (res.u.numpy(), res.k.numpy(), res.e_flag.numpy(),
+            time.perf_counter() - t0)
+
+
+def _cpu_worker():
+    torch.set_num_threads(1)
+    torch.set_float32_matmul_precision("highest")
+
+
+def start_cpu_runs():
+    """Start every cpu_jobs() run in CPU_WORKERS fresh processes (spawned:
+    this process holds a CUDA context), one torch thread each."""
+    import multiprocessing
+    pool = ProcessPoolExecutor(
+        CPU_WORKERS, mp_context=multiprocessing.get_context("spawn"),
+        initializer=_cpu_worker)
+    _CPU_POOL.append(pool)
+    for job in cpu_jobs():
+        _CPU_RUNS[job] = pool.submit(cpu_reference, job)
+
+
+def stop_cpu_runs():
+    """Drop the runs not started and wait for the pool's processes."""
+    while _CPU_POOL:
+        _CPU_POOL.pop().shutdown(wait=True, cancel_futures=True)
+    _CPU_RUNS.clear()
+
+
+class CpuRun:
+    """An fp64 CPU run's u, k and e_flag as CPU tensors."""
+
+    def __init__(self, u, k, e_flag):
+        self.u, self.k, self.e_flag = (torch.from_numpy(a)
+                                       for a in (u, k, e_flag))
+
+
+def cpu_run(job):
+    """(CpuRun, its seconds of CPU, seconds this phase waited for it): from
+    the pool where main() started it, else run here."""
+    t0 = time.perf_counter()
+    fut = _CPU_RUNS.get(job)
+    u, k, e_flag, seconds = (fut.result() if fut is not None
+                             else cpu_reference(job))
+    return CpuRun(u, k, e_flag), seconds, time.perf_counter() - t0
 
 
 def band_row(sp, row, refs):
@@ -2316,6 +2455,7 @@ def band_row(sp, row, refs):
     fam, horizon, B, backend, tv, extra = row
     what = band_label(*row)
     key = (fam, horizon, tv)
+    t_row = time.perf_counter()
 
     def ingredients(backend):
         if tv:
@@ -2332,14 +2472,11 @@ def band_row(sp, row, refs):
     if key not in refs:
         # the fp64 CPU reference: the sequential banded or time-varying
         # solver, the same iteration as every backend of the row
-        t0 = time.perf_counter()
-        ref = band_solver(sp, fam, horizon, backend="banded", tv=tv,
-                          precision="double", device="cpu",
-                          ingredients=ingredients("banded"))
-        refs[key] = ref(*(a[:BAND_REF_B] for a in x))
+        refs[key], seconds, waited = cpu_run(("band ref", fam, horizon, B,
+                                              tv))
         ref_what = band_label(fam, horizon, BAND_REF_B, "banded", tv, {})
-        log(f"phase 19 {ref_what} fp64 CPU reference: "
-            f"{time.perf_counter() - t0:.1f} s")
+        log(f"phase 19 {ref_what} fp64 CPU reference: {seconds:.1f} s "
+            f"(waited {waited:.1f} s)")
     ing = ingredients(backend)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -2364,6 +2501,7 @@ def band_row(sp, row, refs):
         out.update(k_agree=agree, u_err_vs_fp64=u_err,
                    moved=dict(zip(moved.tolist(), moves.tolist())))
         time_and_profile(lambda iters: s(*xd, fixed_iters=iters), B, out)
+        out["row_s"] = time.perf_counter() - t_row
         log("phase 19 " + json.dumps(out))
         # fp32 against fp64: the same code moves a few per cent of lanes by
         # one iteration at tol 1e-4 (fp32 against fp64, and fp32 dense
@@ -2388,22 +2526,23 @@ def band_row(sp, row, refs):
 
 def phase_banded(sp):
     """Phase 19: the banded backends and the time-varying mode on the
-    card. The correctness rows (fp64, N=30, B=256) against the same
+    card. The correctness rows (fp64, N=30, B=BAND_CHECK_B) against the same
     solver on the CPU, then the full-size fp32 rows (BAND_ROWS)."""
     t0 = time.perf_counter()
     for fam, tv, extra in BAND_CHECKS:
         backend = "dense" if tv else "banded"
         what = band_label(fam, N, BAND_CHECK_B, backend, tv, extra)
         x = band_inputs(sp, fam, N, BAND_CHECK_B, 190, tv)
-        got, ref = (band_solver(sp, fam, N, backend=backend, tv=tv,
-                                precision="double", device=dev,
-                                **extra)(*x)
-                    for dev in (DEVICE, "cpu"))
+        got = band_solver(sp, fam, N, backend=backend, tv=tv,
+                          precision="double", device=DEVICE, **extra)(*x)
+        ref, seconds, waited = cpu_run(("band check", fam, tv,
+                                        _items(extra)))
         agree, u_err, moved, moves, converged = hold_lanes(what, got, ref)
         log(f"phase 19 {what} fp64 card vs CPU: every lane converged "
             f"{converged}, k equal on {agree}, k_mean "
-            f"{float(got.k.double().mean())}, max|du| {u_err} "
-            f"({time.perf_counter() - t0:.1f} s into the phase)")
+            f"{float(got.k.double().mean())}, max|du| {u_err} (CPU run "
+            f"{seconds:.1f} s, waited {waited:.1f} s; "
+            f"{time.perf_counter() - t0:.1f} s into the phase)")
         assert converged, what
         assert not moved.size or np.abs(moves).max() <= 1, (what, moves)
         assert u_err <= BAND_U_TOL, (what, u_err)
@@ -2515,15 +2654,16 @@ def long_label(fam, horizon, B, backend, extra):
 
 
 def long_row(sp, fam, horizon, B, backend, extra):
-    """One full-size fp32 row: the build, one warm run and BAND_RUNS timed
-    runs at fixed_iters=BAND_FIXED, two profiled runs (time_and_profile),
-    and at N=480 the measured memory analysis beside the allocator's
-    peak."""
+    """One full-size fp32 row: the build, a warm-up run of one iteration,
+    BAND_RUNS timed runs at fixed_iters=BAND_FIXED (the last one's u
+    finite), two profiled runs (time_and_profile), and at N=480 the
+    measured memory analysis beside the allocator's peak."""
     what = long_label(fam, horizon, B, backend, extra)
     x = long_inputs(sp, fam, horizon, B, 20)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     out = dict(row=what)
+    t_row = time.perf_counter()
     try:
         t0 = time.perf_counter()
         s = long_solver(sp, fam, horizon, backend, "float", DEVICE, **extra)
@@ -2534,14 +2674,19 @@ def long_row(sp, fam, horizon, B, backend, extra):
         def fixed(iters):
             return s(*xd, fixed_iters=iters)
 
-        assert bool(torch.isfinite(fixed(BAND_FIXED).u).all()), what
-        time_and_profile(fixed, B, out)
+        fixed(1)
+        res = time_and_profile(fixed, B, out)
+        assert bool(torch.isfinite(res.u).all()), what
+        res = None
         if horizon == 480:
             torch.cuda.empty_cache()
-            mem = s.aot_memory_analysis(*x, fixed_iters=BAND_PROFILE[0])
+            t0 = time.perf_counter()
+            mem = s.aot_memory_analysis(*x, fixed_iters=BAND_MEMORY_ITERS)
             out.update(memory=mem, max_memory_allocated_mb=(
-                torch.cuda.max_memory_allocated() / 2**20))
+                torch.cuda.max_memory_allocated() / 2**20),
+                memory_s=time.perf_counter() - t0)
             assert mem["peak_bytes"] > 0, (what, mem)
+        out["row_s"] = time.perf_counter() - t_row
         log("phase 20 " + json.dumps(out))
     finally:
         s = None
@@ -2557,7 +2702,9 @@ def long_converge(sp, fam):
     the CPU sets (tools/banded_fp32_cpu.py)."""
     what = long_label(fam, LONG_CONV_N, BAND_CONV_B, "banded", SCAN)
     x = long_inputs(sp, fam, LONG_CONV_N, BAND_CONV_B, 21)
+    t0 = time.perf_counter()
     ref = long_solver(sp, fam, LONG_CONV_N, "dense", "double", DEVICE)(*x)
+    ref_s = time.perf_counter() - t0
     s = long_solver(sp, fam, LONG_CONV_N, "banded", "float", DEVICE, **SCAN)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2569,7 +2716,8 @@ def long_converge(sp, fam):
                k_max=int(res.k.max()),
                k_mean_fp64_dense=float(ref.k.double().mean()),
                converged=converged, k_agree=agree, u_err_vs_fp64=u_err,
-               moved=dict(zip(moved.tolist(), moves.tolist())))
+               moved=dict(zip(moved.tolist(), moves.tolist())),
+               fp64_dense_s=ref_s)
     log("phase 20 " + json.dumps(out))
     assert converged, what
     assert not moved.size or np.abs(moves).max() <= LONG_MOVE.get(fam, 1), (
@@ -2680,23 +2828,24 @@ def phase_auto(sp):
 def phase_long(sp):
     """Phase 20: the banded backends of HMPC-ADMM, the HMPC split pair and
     MPCT-ADMM-semiband on the card: the correctness rows (LONG_CHECKS,
-    fp64, N=30, B=256) against the same solver on the CPU, the full-size
-    fp32 rows (LONG_ROWS x LONG_BACKENDS), the runs to convergence
-    (LONG_CONV), and backend="auto" (phase_auto). Returns the auto path's
-    kernel launches."""
+    fp64, N=30, B=BAND_CHECK_B) against the same solver on the CPU, the
+    full-size fp32 rows (LONG_ROWS x LONG_BACKENDS), the runs to
+    convergence (LONG_CONV), and backend="auto" (phase_auto). Returns the
+    auto path's kernel launches."""
     t0 = time.perf_counter()
     for fam, extra in LONG_CHECKS:
         what = long_label(fam, N, BAND_CHECK_B, "banded", extra)
         x = long_inputs(sp, fam, N, BAND_CHECK_B, 200)
-        got, ref = (long_solver(sp, fam, N, "banded", "double", dev,
-                                **extra)(*x)
-                    for dev in (DEVICE, "cpu"))
+        got = long_solver(sp, fam, N, "banded", "double", DEVICE,
+                          **extra)(*x)
+        ref, seconds, waited = cpu_run(("long check", fam, _items(extra)))
         agree, u_err, moved, moves, converged = hold_lanes(what, got, ref,
                                                            20)
         log(f"phase 20 {what} fp64 card vs CPU: every lane converged "
             f"{converged}, k equal on {agree}, k_mean "
-            f"{float(got.k.double().mean())}, max|du| {u_err} "
-            f"({time.perf_counter() - t0:.1f} s into the phase)")
+            f"{float(got.k.double().mean())}, max|du| {u_err} (CPU run "
+            f"{seconds:.1f} s, waited {waited:.1f} s; "
+            f"{time.perf_counter() - t0:.1f} s into the phase)")
         assert converged, what
         assert not moved.size or np.abs(moves).max() <= 1, (what, moves)
         assert u_err <= BAND_U_TOL, (what, u_err)
@@ -2827,12 +2976,13 @@ def run_processes(cmds, cwd=None, extras=None):
     return outs
 
 
-def run_children(code, runs):
-    """Run `code` (python -c) once for each (argv, environment additions)
-    of `runs`, all at once, from the repository's root (run_processes);
-    each must print a line 'RESULT <json>'. Returns the parsed results."""
-    outs = run_processes([["-c", code, *argv] for argv, _ in runs],
-                         extras=[extra for _, extra in runs])
+def run_children(runs):
+    """Run python -c `code` once for each (code, argv, environment
+    additions) of `runs`, all at once, from the repository's root
+    (run_processes); each must print a line 'RESULT <json>'. Returns the
+    parsed results."""
+    outs = run_processes([["-c", code, *argv] for code, argv, _ in runs],
+                         extras=[extra for _, _, extra in runs])
     results = []
     for out, _seconds in outs:
         line = [s for s in out.splitlines() if s.startswith("RESULT ")]
@@ -2840,11 +2990,17 @@ def run_children(code, runs):
     return results
 
 
-def free_port():
+def free_ports(n):
+    """n distinct free ports of localhost."""
     import socket
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
+    socks = [socket.socket() for _ in range(n)]
+    try:
+        for s in socks:
+            s.bind(("localhost", 0))
+        return [str(s.getsockname()[1]) for s in socks]
+    finally:
+        for s in socks:
+            s.close()
 
 
 # (a) one process without torchrun's variables, started fresh, so that
@@ -2979,9 +3135,19 @@ def phase_scale_out(sp):
     t0 = time.perf_counter()
     launches = {"fused_admm": 0, "fused_split": 0}
 
+    # the child processes of (a), (d) and (e), all at once, and before
+    # this process's own runs, so that (b)'s times do not share the card
+    # with them
+    nccl_port, gloo_port = free_ports(2)
+    a, d, *gloo = run_children(
+        [(CHILD_SINGLE, (), {}),
+         (CHILD_NCCL, (), dict(MASTER_ADDR="localhost",
+                               MASTER_PORT=nccl_port, WORLD_SIZE="1",
+                               RANK="0", LOCAL_RANK="0"))]
+        + [(CHILD_GLOO, (str(pid), gloo_port), {}) for pid in range(2)])
+
     # (a) no launcher environment: one process, no group; the headline
     # through shard_map_solver over host_chip_mesh() is the plain call
-    (a,) = run_children(CHILD_SINGLE, [((), {})])
     size = a["mesh"][0] * a["mesh"][1]
     assert a["launches"] == a["seen"] == size, a
     launches["fused_admm"] += a["launches"]
@@ -3045,9 +3211,6 @@ def phase_scale_out(sp):
         f"gives the card-built solver's bits, B={FB}")
 
     # (d) a world of one process under torchrun's variables: NCCL
-    (d,) = run_children(CHILD_NCCL, [((), dict(
-        MASTER_ADDR="localhost", MASTER_PORT=str(free_port()),
-        WORLD_SIZE="1", RANK="0", LOCAL_RANK="0"))])
     launches["fused_admm"] += d["launches"]
     assert d["backend"] == "nccl" and d["launches"] == 1, d
     log(f"phase 21 (d) torchrun world of one, backend {d['backend']}: "
@@ -3056,9 +3219,7 @@ def phase_scale_out(sp):
         f"all_reduce in the metrics")
 
     # (e) two processes on one card over gloo
-    port = str(free_port())
-    outs = run_children(CHILD_GLOO, [((str(pid), port), {})
-                                     for pid in range(2)])
+    outs = gloo
     assert outs[0]["metrics"] == outs[1]["metrics"], outs
     assert outs[0]["warm"] == outs[1]["warm"], outs
     for out in outs:
@@ -3397,6 +3558,11 @@ def surface_timer(sp):
 
     rows = []
     fused_admm_solve.launches = 0
+    # no garbage collection inside the measured calls: a collection between
+    # the bracket's first event and the timer's (a few ms on this host, as
+    # (e) measures) would be counted by the one and not by the other
+    gc.collect()
+    gc.disable()
     try:
         solver.raw_fn = bracketed
         for _ in range(3):
@@ -3418,6 +3584,7 @@ def surface_timer(sp):
             assert within(t["solve"], solve_ms), rows[-1]
             assert within(t["run"], call_ms), rows[-1]
     finally:
+        gc.enable()
         solver.raw_fn = orig
     solver.options.timing = False
     with SyncCounter() as sc:
@@ -3439,8 +3606,8 @@ def surface_timer(sp):
 def surface_first_request():
     """Phase 23 (e): in a fresh process the headline's first request
     against warm ones; in another its cProfile. Returns K1's launches."""
-    (timing,) = run_children(CHILD_FIRST, [((), {})])
-    (profiled,) = run_children(CHILD_FIRST, [(("profile",), {})])
+    (timing,) = run_children([(CHILD_FIRST, (), {})])
+    (profiled,) = run_children([(CHILD_FIRST, ("profile",), {})])
     for r in (timing, profiled):
         assert r["launches"] == 1 + WARM_REQUESTS, r
     warm_update = float(np.median([w["update"] for w in timing["warm"]]))
@@ -3500,7 +3667,7 @@ def kernel_entry(name, launches, err, times, wide=None):
                      bf16_bound_ms=times["bf16"]["bound"])
     if wide:
         keep = ("lanes", "slab", "threads", "smem", "horizon", "nd",
-                "refill", "blocks", "global_leaves")
+                "refill", "blocks", "global_leaves", "c2d_staged")
         entry["wide"] = {
             str(nzp): dict(ms=row["kernel"], plain_ms=row["plain"],
                            bound_ms=row["bound"][0],
@@ -3508,6 +3675,19 @@ def kernel_entry(name, launches, err, times, wide=None):
                            **{k: row[k] for k in keep if k in row})
             for nzp, row in wide.items() if "bound" in row}
     return entry
+
+
+def phase_clock(t_start):
+    """A runner of phases that logs each one's wall time and the script's
+    so far (all of them share the script's time limit)."""
+    def step(label, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        now = time.perf_counter()
+        log(f"phase {label}: {now - t0:.1f} s (script {now - t_start:.1f} "
+            f"s)")
+        return out
+    return step
 
 
 def main():
@@ -3524,31 +3704,37 @@ def main():
     log(f"python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
     card = card_line()
-    build_kernels()
-    head, head_plain, m = phase_kernel_vs_plain(sp)
-    launches, fused = phase_main_path(sp, head_plain, m)
-    times = phase_times(sp, fused)
-    fista_err = phase_fista_kernel_vs_plain(sp)
-    fam_launches = phase_family_paths(sp)
-    fam_times = phase_family_times(sp)
-    eadmm_err = phase_eadmm_kernel_vs_plain(sp)
-    mpct_launches = phase_mpct_paths(sp)
-    mpct_times = phase_mpct_times(sp)
-    ellip_err = phase_ellip_kernel_vs_plain(sp)
-    ellip_launches = phase_ellip_paths(sp)
-    ellip_times = phase_ellip_times(sp)
-    hmpc_err = phase_hmpc_kernel_vs_plain(sp)
-    hmpc_launches = phase_hmpc_paths(sp)
-    hmpc_times = phase_hmpc_times(sp)
-    roll_launches, _rows = phase_rollout(sp)
-    wide = phase_wide(sp)
-    wk = phase_wide_kernels(sp)
-    phase_off_fixture(sp)
-    phase_banded(sp)
-    auto_launches = phase_long(sp)
-    scale_launches = phase_scale_out(sp)
-    phase_embedded_c(sp)
-    surface_launches = phase_port_surface(sp)
+    t_start = time.perf_counter()
+    step = phase_clock(t_start)
+    step("builds", build_kernels)
+    head, head_plain, m = step("1", phase_kernel_vs_plain, sp)
+    launches, fused = step("2", phase_main_path, sp, head_plain, m)
+    times = step("3", phase_times, sp, fused)
+    fista_err = step("4", phase_fista_kernel_vs_plain, sp)
+    fam_launches = step("5", phase_family_paths, sp)
+    fam_times = step("6", phase_family_times, sp)
+    eadmm_err = step("7", phase_eadmm_kernel_vs_plain, sp)
+    mpct_launches = step("8", phase_mpct_paths, sp)
+    mpct_times = step("9", phase_mpct_times, sp)
+    ellip_err = step("10", phase_ellip_kernel_vs_plain, sp)
+    ellip_launches = step("11", phase_ellip_paths, sp)
+    ellip_times = step("12", phase_ellip_times, sp)
+    hmpc_err = step("13", phase_hmpc_kernel_vs_plain, sp)
+    hmpc_launches = step("14", phase_hmpc_paths, sp)
+    hmpc_times = step("15", phase_hmpc_times, sp)
+    roll_launches, _rows = step("16", phase_rollout, sp)
+    wide = step("17 (K1)", phase_wide, sp)
+    wk = step("17 (K2-K7)", phase_wide_kernels, sp)
+    start_cpu_runs()
+    try:
+        step("18", phase_off_fixture, sp)
+        step("19", phase_banded, sp)
+        auto_launches = step("20", phase_long, sp)
+    finally:
+        stop_cpu_runs()
+    scale_launches = step("21", phase_scale_out, sp)
+    step("22", phase_embedded_c, sp)
+    surface_launches = step("23", phase_port_surface, sp)
     log(json.dumps({"kernels": [
         kernel_entry("fused_admm", launches + fam_launches["fused_admm"]
                      + mpct_launches["fused_admm"] + roll_launches

@@ -101,11 +101,68 @@
 // zero rm, rht, mh, mt, mr and h1i and [0, 0] bounds, so they stay exactly
 // 0 and add nothing to the row maxima.
 
-#if !WIDE_PART
 #include <cuda_runtime.h>
 
 #include "tile_product.cuh"
 
+// What the narrow builds (#if !WIDE_PART) and the wide build (#if
+// WIDE_PART) share: the element-wise steps of one (lane, column) cell, so
+// that the iteration's arithmetic lies in one place.
+namespace {
+
+// P1: z1 = clip(-q1 h1i) and the z2 product's inputs v2m, v2t (sg = mh -
+// mt).
+__device__ __forceinline__ void p1_cell(float rm, float rht, float mt,
+                                        float sg, float h1i, float lb,
+                                        float ub, float z2b, float z3,
+                                        float lm, float lht, float x0,
+                                        float& z1, float& v2m, float& v2t) {
+  const float s_ht = rht * (mt * z2b - x0) + lht;
+  const float q1 = -(rm * (z2b + z3) + lm) + sg * s_ht;
+  z1 = fminf(fmaxf(-q1 * h1i, lb), ub);
+  v2m = rm * (z3 - z1) + lm;
+  v2t = mt * (rht * (-z1) + lht);
+}
+
+// P2: z2bn = (z2acc + a1) + a2 and q3.
+__device__ __forceinline__ void p2_cell(float rm, float acc, float a1,
+                                        float a2, float z1, float lm,
+                                        float& z2n, float& q3) {
+  z2n = (acc + a1) + a2;
+  q3 = rm * (z2n - z1) + lm;
+}
+
+// P3's rest at lane b of a group whose fresh and frozen lanes are the bits
+// of fr and fz: z3n = z3acc (0 on a fresh lane, else z3) + the product's
+// sum, the residual rows and, unless the lane is frozen, the dual ascent;
+// with CHECK the cell's part of the row maxima of r_pf (pf) and r_z3 (az).
+// (The masks are tested here, in the order of the cell's operations: bools
+// formed at the call gave the 8-lane narrow builds 16 bytes of spill at
+// their 128 registers.)
+template <bool CHECK>
+__device__ __forceinline__ void p3_cell(float rm, float rht, float mh,
+                                        float mt, float mr, unsigned fr,
+                                        unsigned fz, int b, float acc,
+                                        float z1, float z2, float x0,
+                                        float& z3, float& lm, float& lht,
+                                        float& pf, float& az) {
+  const float z3n = (tp::bit(fr, b) ? 0.0f : z3) + acc;
+  const float midR = z2 + z3n - z1;
+  const float htR = mh * z1 - x0 + mt * (z2 - z1);
+  if (CHECK) {
+    pf = fmaxf(pf, fmaxf(fabsf(midR * mr), fabsf(htR)));
+    az = fmaxf(az, fabsf((z3n - z3) * mr));
+  }
+  if (!tp::bit(fz, b)) {
+    z3 = z3n;
+    lm = lm + rm * midR;
+    lht = lht + rht * htR;
+  }
+}
+
+}  // namespace
+
+#if !WIDE_PART
 // rows a slab of M3p's ring and blocks an SM (up to NARROW columns; one
 // above) of each build (kernels/fused_eadmm.py BUILDS); a timing script may
 // set others
@@ -332,11 +389,9 @@ struct Engine {
       tp::ld8<L>(z1s, leaf[Z1], j, g);
 #pragma unroll
       for (int b = 0; b < 8; ++b) {
-        const float s_ht = rht * (mt * z2b[b] - x0[b]) + lht[b];
-        const float q1 = -(rm * (z2b[b] + z3[b]) + lm[b]) + sg * s_ht;
-        const float z1 = fminf(fmaxf(-q1 * h1i, lb), ub);
-        const float v2m = rm * (z3[b] - z1) + lm[b];
-        const float v2t = mt * (rht * (-z1) + lht[b]);
+        float z1, v2m, v2t;
+        p1_cell(rm, rht, mt, sg, h1i, lb, ub, z2b[b], z3[b], lm[b], lht[b],
+                x0[b], z1, v2m, v2t);
         dm[b] = v2m - vm[b];
         dt[b] = v2t - vt[b];
         if (!bit(frozen, 8 * g + b)) {
@@ -403,8 +458,8 @@ struct Engine {
                 ? __ldg(p.z2refb + static_cast<size_t>(lane0 + orig[s]) * Z +
                         j)
                 : z2b[b];
-        const float z2n = (acc + c1[b]) + c2[b];
-        const float q3 = rm * (z2n - z1[b]) + lm[b];
+        float z2n, q3;
+        p2_cell(rm, acc, c1[b], c2[b], z1[b], lm[b], z2n, q3);
         dq[b] = q3 - q3p[b];
         if (CHECK) az[b] = fabsf((z2n - z2b[b]) * mr);
         if (!bit(frozen, s)) {
@@ -467,20 +522,10 @@ struct Engine {
         tp::ld8<L>(lht, leaf[LHT], c, tile.lg);
         tp::ld8<L>(x0, leaf[X0], c, tile.lg);
 #pragma unroll
-        for (int b = 0; b < 8; ++b) {
-          const float z3n = (bit(fr, b) ? 0.0f : z3[b]) + acc[q][b];
-          const float midR = z2[b] + z3n - z1[b];
-          const float htR = cmh * z1[b] - x0[b] + cmt * (z2[b] - z1[b]);
-          if (CHECK) {
-            pf[b] = fmaxf(pf[b], fmaxf(fabsf(midR * cmr), fabsf(htR)));
-            az[b] = fmaxf(az[b], fabsf((z3n - z3[b]) * cmr));
-          }
-          if (!bit(fz, b)) {
-            z3[b] = z3n;
-            lm[b] = lm[b] + crm * midR;
-            lht[b] = lht[b] + crht * htR;
-          }
-        }
+        for (int b = 0; b < 8; ++b)
+          p3_cell<CHECK>(crm, crht, cmh, cmt, cmr, fr, fz, b, acc[q][b],
+                         z1[b], z2[b], x0[b], z3[b], lm[b], lht[b], pf[b],
+                         az[b]);
         tp::st8<L>(leaf[Z3], c, tile.lg, z3);
         tp::st8<L>(leaf[LM], c, tile.lg, lm);
         tp::st8<L>(leaf[LHT], c, tile.lg, lht);
@@ -705,442 +750,647 @@ extern "C" int fused_eadmm_launch(
 
 #if WIDE_PART
 // The wide build, a translation unit of its own (-DWIDE_PART=1;
-// kernels/_build.py compiles the narrow builds above with
-// -DWIDE_PART=0 from exactly their earlier text).
-
-#include <cuda_runtime.h>
-
-#include "wide_cols.cuh"
+// kernels/_build.py compiles the narrow builds above with -DWIDE_PART=0
+// from exactly their text).
+//
+// Past MAX_COLS columns, up to tp::WIDE_COLS = 1024: fused_eadmm_wide_kernel
+// runs WideEngine, the narrow Engine's iteration on tp::WIDE_THREADS = 512
+// threads of tp::WIDE_CPT = 2 columns (t and t + 512), at 16 or 8 lanes a
+// block (kernels/stage.py WIDE_BUILDS), one block per L lanes and no refill,
+// its modes tp::run_modes', as the narrow builds run them. What differs
+// from the narrow builds is where the state lies and who forms P3's results:
+//   - the nine leaves lie in the block's global scratch ([9][Z][L], the
+//     swizzled layout), which at 16 lanes would take 313 KB of shared
+//     memory at 544 columns and 590 KB at 1024, and so does dv2t ([Z][L],
+//     of which the chains read the rows [t0, t1) alone). Each leaf is
+//     touched by its column's thread alone, so it needs no barrier; dv2t's
+//     rows are published by the barrier after P1;
+//   - P3's tile owner (8 lanes x TC columns, TC = tp::wide_tc<L>(): 4 at
+//     16 lanes, 2 at 8; M3p's rows [0, nr) through the stage's TMA ring)
+//     only writes its sums into dqm, once a barrier has ended the
+//     product's reads of dq3 there; after a second barrier the column's
+//     thread forms z3n, the residual rows, the dual ascent and the row
+//     maxima of its columns, which the narrow builds' tile owner does:
+//     each element sees the same operations in the same order, so the bits
+//     hold, and a maximum does not depend on its order;
+//   - the z2 chains read C2d from a copy in shared memory where it fits
+//     beside a ring of 8-row slabs, else by __ldg (over L2, their loads
+//     took the chains from 3 % to 17 % of an iteration at 1024 columns);
+//     then M3p comes in the build's slabs (tp::wide_slab: 16 rows at 16
+//     lanes) where they fit, else in 8-row slabs (wide_staged,
+//     wide_slab_rows: the copy and 16-row slabs at 544 columns, the copy
+//     and 8-row slabs at 1024);
+//   - the column loops of P1, P2 and P3's column part stay rolled: their
+//     global loads, batched across columns and groups, spilled.
+// The row maxima of P2 and of P3's column part are taken over a thread's
+// two columns, then its warp, into [16 warps][3][L], which lane t's keeper
+// folds. Both engines run each cell's arithmetic through p1_cell, p2_cell
+// and p3_cell above. The build before this one ran the first wide layout
+// (8 lanes a block, M3p read from L2 by every thread).
 
 namespace {
 
-constexpr int NLEAF = 9;  // state leaves
-constexpr int NSNAP = 7;  // snapshot leaves, the first NSNAP
+constexpr int NSNAP = 7;  // snapshot leaves (SNAP_LEAVES in the wrapper)
+constexpr int NLEAF = 9;  // state leaves, in the block's global scratch
+constexpr int NSCR = NLEAF + 1;  // the scratch's [Z][L] parts: dv2t's last
+constexpr int NRED = 3;   // row maxima a lane: r_pf, r_z2, r_z3
+constexpr int WARPS = tp::WIDE_THREADS / 32;
+constexpr float RBIG = 3.4e38f;
+constexpr unsigned FULL = 0xffffffffu;
 
-// ---- the wide build ---------------------------------------------------------
-//
-// Past MAX_COLS columns, up to wc::COLS = 1024: fused_eadmm_wide_kernel runs
-// 512 threads of two columns, t and t + 512, at 8 lanes a block, on the
-// first layout (csrc/variants/fused_eadmm_parent.cu: one column a thread,
-// the matrices read from L2) with each thread taking two columns
-// (csrc/wide_cols.cuh). The nine state vectors (2 columns x 8 lanes x 9
-// leaves would pass a 512-thread block's 128 registers) live in global
-// memory that only their thread touches; shared memory holds the three
-// products' inputs dv2m, dv2t and dq3 as [Z][8], the row maxima, and C2d,
-// the distinct columns of C2m ([Z][nd], as the narrow builds' 16-lane build
-// copies it). A column's z2 sums run over its class's column of C2d and
-// C2td, byte for byte its own column of C2m and C2t: the same fmaf chains
-// as the first layout's, so the kernel gives this kernel's bits. The row
-// maxima of P2 and P3 are taken over a thread's two columns, then the warp
-// and the warps. No refill: plain free-run drains each block.
-
-using wc::TB;
-
-struct EadmmWide {
+struct WideParams {
   const float* __restrict__ x0b;
   const float* __restrict__ z2refb;
   const float* __restrict__ z2b0;
   const float* __restrict__ z30;
   const float* __restrict__ lm0;
   const float* __restrict__ lht0;
-  const float* __restrict__ c2d;   // [Z][nd]: C2m's distinct columns
-  const float* __restrict__ c2td;  // [Z][nd]: C2t's, over the same classes
+  const float* __restrict__ c2d;   // [Z][nd]: C2m's class representatives
+  const float* __restrict__ c2td;  // [Z][nd]: C2t's
   const int* __restrict__ col_of;  // [Z]: the class of each column
   const float* __restrict__ m3p;   // [Z][Z], dq3 @ m3p
   const float* __restrict__ rows[8];  // rm, rht, mh, mt, mr, h1i, lb, ub
   float* out[5];                      // z1, z2b, z3, lm, lht
   int* k;
   int* done;
-  float* res[3];  // r_pf, r_z2, r_z3
-  float* snap;    // exact-k: per lane [z2b | z3 | lm | lht | v2m | v2t | q3]
-  float* state;   // [blocks][9][Z][8]: the leaves below
-  int Z, nd;
+  float* res[3];   // r_pf, r_z2, r_z3
+  float* snap;     // exact-k: per lane [z2b | z3 | lm | lht | v2m | v2t | q3]
+  float* scratch;  // [blocks][NSCR][Z][L]: the leaves, dv2t
+  int* ext;        // TP_CLOCKS: [4 b, 4 b + 4) block b's kilo-clocks of P1,
+                   // of the chains, of P2, and of P3 and the keepers
+  int Z, nd, staged;
   float tol;
   int k_max, check_every, exact_k;
 };
-// the state leaves; the first NSNAP are the snapshot's, in its order
-enum { W_Z2B, W_Z3, W_LM, W_LHT, W_V2M, W_V2T, W_Q3, W_Z1, W_X0 };
 
-// What a thread knows of its two columns and of the block.
-struct EadmmCols {
-  float rm[wc::CPT], rht[wc::CPT], mh[wc::CPT], mt[wc::CPT], mr[wc::CPT],
-      sg[wc::CPT], h1i[wc::CPT], lb[wc::CPT], ub[wc::CPT];
-  int cls[wc::CPT];
-  int nr, t0, t1;  // the rows the products read, as the first layout's
-  int lane0;
-  float* d2m;  // shared: [Z][8]  product inputs
-  float* d2t;
-  float* dq3;
-  float* red;  // shared: [WARPS][3][8]
-  float* c2d;  // shared: [Z][nd]
-  float* st[NLEAF];  // global: [Z][8] each
+// the leaves; the first NSNAP are the snapshot leaves
+enum { Z2B, Z3, LM, LHT, V2M, V2T, Q3, Z1, X0 };
+
+using tp::bit;
+
+// What lane t's keeper (thread t < L) holds of its lane: k and the three
+// residuals it recorded last.
+struct Keeper {
+  int k = 0;
+  float r[NRED] = {RBIG, RBIG, RBIG};
 };
 
-// acc[b] = sum_{i0 <= i < i1} v[i][b] m[i][c]: m in shared memory with
-// leading dimension ld; one fmaf chain in row order.
-__device__ __forceinline__ void chain_shared(const float* v, const float* m,
-                                             int ld, int i0, int i1, int c,
-                                             float (&acc)[TB]) {
-  wc::zero(acc);
-#pragma unroll 8
-  for (int i = i0; i < i1; ++i) {
-    const float w = m[i * ld + c];
-    const float4* v4 = reinterpret_cast<const float4*>(v + i * TB);
-#pragma unroll
-    for (int q = 0; q < TB / 4; ++q) {
-      const float4 d = v4[q];
-      acc[4 * q] = fmaf(d.x, w, acc[4 * q]);
-      acc[4 * q + 1] = fmaf(d.y, w, acc[4 * q + 1]);
-      acc[4 * q + 2] = fmaf(d.z, w, acc[4 * q + 2]);
-      acc[4 * q + 3] = fmaf(d.w, w, acc[4 * q + 3]);
-    }
-  }
+// Dynamic shared bytes at `lanes` lanes, nd classes of columns, slabs of sr
+// rows and C2d's copy (staged) or not: the ring of M3p's slabs, dv2m, dq3
+// and then P3's sums with their padding, the chains' results, C2d's copy,
+// the 16 warps' row maxima, the masks, the window starts, the slots' lanes
+// and the row bounds.
+long wide_bytes(int Z, int lanes, int nd, int sr, int staged) {
+  return tp::ring_bytes(Z, sr) +
+         4L * (Z * (lanes + tp::DQ_PAD) + 2L * nd * (lanes + tp::DQ_PAD) +
+               staged * static_cast<long>(Z) * nd + NRED * WARPS * lanes + 4 +
+               2L * lanes + 4);
 }
 
-// One iteration of the thread's columns for the block's 8 lanes, as the
-// first layout's iterate: lanes in `frozen` keep all their state; lanes in
-// `fresh` take z2refb and 0 as the accumulators (their first iteration).
-// Thread 0 records the residuals of the lanes in `rmask` in lres. Returns
-// the lanes whose three residuals meet tol.
-__device__ __forceinline__ unsigned eadmm_wide_iterate(
-    const EadmmWide& p, const EadmmCols& c, unsigned frozen, unsigned fresh,
-    unsigned rmask, float (&lres)[3][TB]) {
-  const int Z = p.Z;
-  float z1[wc::CPT][TB], z2n[wc::CPT][TB];
-  // 1. P1: z1 = clip(-q1 h1i); the deltas of the z2 product's inputs
-#pragma unroll
-  for (int h = 0; h < wc::CPT; ++h) {
-    const int j = wc::col(h, Z);
-    if (j < 0) break;
-    const int o = j * TB;
-    float z2b[TB], z3[TB], lm[TB], lht[TB], x0[TB], vm[TB], vt[TB];
-    float dm[TB], dt[TB], z1s[TB];
-    wc::load(z2b, c.st[W_Z2B] + o);
-    wc::load(z3, c.st[W_Z3] + o);
-    wc::load(lm, c.st[W_LM] + o);
-    wc::load(lht, c.st[W_LHT] + o);
-    wc::load(x0, c.st[W_X0] + o);
-    wc::load(vm, c.st[W_V2M] + o);
-    wc::load(vt, c.st[W_V2T] + o);
-    wc::load(z1s, c.st[W_Z1] + o);
-#pragma unroll
-    for (int b = 0; b < TB; ++b) {
-      const float s_ht = c.rht[h] * (c.mt[h] * z2b[b] - x0[b]) + lht[b];
-      const float q1 =
-          -(c.rm[h] * (z2b[b] + z3[b]) + lm[b]) + c.sg[h] * s_ht;
-      z1[h][b] = fminf(fmaxf(-q1 * c.h1i[h], c.lb[h]), c.ub[h]);
-      const float v2m = c.rm[h] * (z3[b] - z1[h][b]) + lm[b];
-      const float v2t = c.mt[h] * (c.rht[h] * (-z1[h][b]) + lht[b]);
-      dm[b] = v2m - vm[b];
-      dt[b] = v2t - vt[b];
-      if (!wc::bit(frozen, b)) {
-        vm[b] = v2m;
-        vt[b] = v2t;
-        z1s[b] = z1[h][b];
-      }
-    }
-    wc::store(c.d2m + o, dm);
-    wc::store(c.d2t + o, dt);
-    wc::store(c.st[W_V2M] + o, vm);
-    wc::store(c.st[W_V2T] + o, vt);
-    wc::store(c.st[W_Z1] + o, z1s);
-  }
-  __syncthreads();
-  // 2. P2: z2bn = z2acc + dv2m @ C2m + dv2t @ C2t; q3 and its delta
-  {
-    float az[TB];
-    wc::zero(az);
-#pragma unroll
-    for (int h = 0; h < wc::CPT; ++h) {
-      const int j = wc::col(h, Z);
-      if (j < 0) break;
-      const int o = j * TB;
-      float a1[TB], a2[TB], z2b[TB], lm[TB], q3p[TB], dq[TB];
-      chain_shared(c.d2m, c.c2d, p.nd, 0, c.nr, c.cls[h], a1);
-      wc::zero(a2);
-      wc::product<8>(c.d2t, p.c2td, p.nd, c.t0, c.t1, c.cls[h], a2);
-      wc::load(z2b, c.st[W_Z2B] + o);
-      wc::load(lm, c.st[W_LM] + o);
-      wc::load(q3p, c.st[W_Q3] + o);
-#pragma unroll
-      for (int b = 0; b < TB; ++b) {
-        const float acc =
-            wc::bit(fresh, b)
-                ? __ldg(p.z2refb + static_cast<size_t>(c.lane0 + b) * Z + j)
-                : z2b[b];
-        z2n[h][b] = (acc + a1[b]) + a2[b];
-        const float q3 = c.rm[h] * (z2n[h][b] - z1[h][b]) + lm[b];
-        dq[b] = q3 - q3p[b];
-        az[b] = fmaxf(az[b], fabsf((z2n[h][b] - z2b[b]) * c.mr[h]));
-        if (!wc::bit(frozen, b)) {
-          q3p[b] = q3;
-          z2b[b] = z2n[h][b];
-        }
-      }
-      wc::store(c.dq3 + o, dq);
-      wc::store(c.st[W_Q3] + o, q3p);
-      wc::store(c.st[W_Z2B] + o, z2b);
-    }
-    wc::warp_max<3>(az, c.red, 1);
-  }
-  __syncthreads();
-  // 3. P3: z3n = z3acc + dq3 @ M3p; residual rows and dual ascent
-  {
-    float pf[TB], az[TB];
-    wc::zero(pf);
-    wc::zero(az);
-#pragma unroll
-    for (int h = 0; h < wc::CPT; ++h) {
-      const int j = wc::col(h, Z);
-      if (j < 0) break;
-      const int o = j * TB;
-      float a3[TB], z3[TB], lm[TB], lht[TB], x0[TB];
-      wc::zero(a3);
-      wc::product<8>(c.dq3, p.m3p, Z, 0, c.nr, j, a3);
-      wc::load(z3, c.st[W_Z3] + o);
-      wc::load(lm, c.st[W_LM] + o);
-      wc::load(lht, c.st[W_LHT] + o);
-      wc::load(x0, c.st[W_X0] + o);
-#pragma unroll
-      for (int b = 0; b < TB; ++b) {
-        const float acc = wc::bit(fresh, b) ? 0.0f : z3[b];
-        const float z3n = acc + a3[b];
-        const float midR = z2n[h][b] + z3n - z1[h][b];
-        const float htR =
-            c.mh[h] * z1[h][b] - x0[b] + c.mt[h] * (z2n[h][b] - z1[h][b]);
-        pf[b] = fmaxf(pf[b], fmaxf(fabsf(midR * c.mr[h]), fabsf(htR)));
-        az[b] = fmaxf(az[b], fabsf((z3n - z3[b]) * c.mr[h]));
-        if (!wc::bit(frozen, b)) {
-          z3[b] = z3n;
-          lm[b] = lm[b] + c.rm[h] * midR;
-          lht[b] = lht[b] + c.rht[h] * htR;
-        }
-      }
-      wc::store(c.st[W_Z3] + o, z3);
-      wc::store(c.st[W_LM] + o, lm);
-      wc::store(c.st[W_LHT] + o, lht);
-    }
-    wc::warp_max<3>(pf, c.red, 0);
-    wc::warp_max<3>(az, c.red, 2);
-  }
-  __syncthreads();
-  // 4. the residuals of each lane, and the lanes that meet tol
-  float rs[3][TB];
-#pragma unroll
-  for (int q = 0; q < 3; ++q) wc::block_max<3>(c.red, q, rs[q]);
-  unsigned conv = 0;
-#pragma unroll
-  for (int b = 0; b < TB; ++b) {
-    if (rs[0][b] <= p.tol && rs[1][b] <= p.tol && rs[2][b] <= p.tol)
-      conv |= 1u << b;
-    if (threadIdx.x == 0 && wc::bit(rmask, b)) {
-#pragma unroll
-      for (int q = 0; q < 3; ++q) lres[q][b] = rs[q][b];
-    }
-  }
-  return conv;
+// Whether the z2 chains read C2d from a copy in shared memory: where it
+// fits beside a ring of tp::WIDE_SLAB_8-row slabs.
+int wide_staged(int Z, int lanes, int nd) {
+  return wide_bytes(Z, lanes, nd, tp::WIDE_SLAB_8, 1) <= tp::SMEM_MAX;
 }
 
-// The seven snapshot leaves of the thread's columns to (TO_GLOBAL) or from
-// each lane's [z2b | z3 | lm | lht | v2m | v2t | q3] in p.snap, for the
-// lanes in `lanes`.
-template <bool TO_GLOBAL>
-__device__ __forceinline__ void eadmm_wide_snapshot(const EadmmWide& p,
-                                                    const EadmmCols& c,
-                                                    unsigned lanes) {
-#pragma unroll
-  for (int h = 0; h < wc::CPT; ++h) {
-    const int j = wc::col(h, p.Z);
-    if (j < 0) break;
-#pragma unroll
-    for (int l = 0; l < NSNAP; ++l)
-      wc::snap_row<TO_GLOBAL>(c.st[l], p.snap, NSNAP * p.Z, l * p.Z + j, j,
-                              c.lane0, lanes);
-  }
+// Rows a slab: the build's where its ring fits beside the buffers (and
+// C2d's copy where wide_staged), else tp::WIDE_SLAB_8.
+int wide_slab_rows(int Z, int lanes, int nd) {
+  return wide_bytes(Z, lanes, nd, tp::wide_slab(lanes),
+                    wide_staged(Z, lanes, nd)) <= tp::SMEM_MAX
+             ? tp::wide_slab(lanes)
+             : tp::WIDE_SLAB_8;
 }
 
-__global__ void __launch_bounds__(wc::THREADS, 1)
-    fused_eadmm_wide_kernel(EadmmWide p) {
-  extern __shared__ __align__(16) float smem[];
-  __shared__ int sn_k[TB];       // exact-k: each lane's window start
-  __shared__ float lres[3][TB];  // thread 0's residuals of each lane
-  __shared__ int bounds[3];      // nr, t0, t1
-  const int Z = p.Z;
-  const int tid = threadIdx.x;
-  EadmmCols c;
-  c.lane0 = blockIdx.x * TB;
-  c.d2m = smem;
-  c.d2t = c.d2m + Z * TB;
-  c.dq3 = c.d2t + Z * TB;
-  c.red = c.dq3 + Z * TB;
-  c.c2d = c.red + wc::WARPS * 3 * TB;
-#pragma unroll
-  for (int l = 0; l < NLEAF; ++l) c.st[l] = wc::leaf(p.state, NLEAF, l, Z);
-  for (int i = tid; i < Z * p.nd; i += wc::THREADS) c.c2d[i] = p.c2d[i];
-  if (tid == 0) {
-    bounds[0] = 0;
-    bounds[1] = Z;
-    bounds[2] = 0;
-#pragma unroll
-    for (int b = 0; b < TB; ++b)
-#pragma unroll
-      for (int q = 0; q < 3; ++q) lres[q][b] = wc::RBIG;
-  }
-  __syncthreads();
-#pragma unroll
-  for (int h = 0; h < wc::CPT; ++h) {
-    const int j = wc::col(h, Z);
-    c.rm[h] = j < 0 ? 0.0f : p.rows[0][j];
-    c.rht[h] = j < 0 ? 0.0f : p.rows[1][j];
-    c.mh[h] = j < 0 ? 0.0f : p.rows[2][j];
-    c.mt[h] = j < 0 ? 0.0f : p.rows[3][j];
-    c.mr[h] = j < 0 ? 0.0f : p.rows[4][j];
-    c.h1i[h] = j < 0 ? 0.0f : p.rows[5][j];
-    c.lb[h] = j < 0 ? 0.0f : p.rows[6][j];
-    c.ub[h] = j < 0 ? 0.0f : p.rows[7][j];
-    c.sg[h] = c.mh[h] - c.mt[h];
-    c.cls[h] = j < 0 ? 0 : p.col_of[j];
-    if (j < 0) continue;
-    if (c.mr[h] != 0.0f) atomicMax(&bounds[0], j + 1);
-    if (c.mt[h] != 0.0f) {
-      atomicMin(&bounds[1], j);
-      atomicMax(&bounds[2], j + 1);
-    }
-    // state: z2b0, z30, lm0, lht0, zero previous inputs, zero z1, x0b
-    const float* src[9] = {p.z2b0, p.z30,   p.lm0,   p.lht0, nullptr,
-                           nullptr, nullptr, nullptr, p.x0b};
+template <int L, int TC, int SR>
+struct WideEngine {
+  static constexpr int G = L / 8;
+  static constexpr int DS = L + tp::DQ_PAD;  // row stride of dqm, a1, a2
+  static constexpr unsigned ALL = (1u << L) - 1u;
+  static constexpr int T = tp::WIDE_THREADS;
+  const WideParams& p;
+  float* leaf[NLEAF];  // the block's global scratch: [Z][L] each, swizzled
+  float* dqm;          // [Z][DS]: dv2m, then dq3, then P3's sums
+  float* d2t;          // the block's global scratch: [Z][L], dv2t
+  float *a1, *a2;      // [nd][DS]: the chains' results
+  float* c2s;          // staged: [Z][nd], C2d's rows [0, nr)
+  float* red;          // [WARPS][NRED][L]: the warps' row maxima
+  unsigned* ctrl;      // [4]
+  int *sn_k, *orig;    // [L] each: window starts, the lane a slot holds
+  tp::Ring ring;
+  Keeper kp;
+  int tid, Z, nd, lane0, nr, t0, t1;
+  bool staged;
+  unsigned fresh = ALL;  // slots whose next iteration is their lane's first
+  long long clk[4] = {0, 0, 0, 0};  // TP_CLOCKS: thread 0's clocks of P1,
+                                    // of the chains, of P2, and of P3 and
+                                    // the keepers
+
+  // The thread's c-th column (c < tp::WIDE_CPT); none where it is >= Z,
+  // which holds for whole warps.
+  __device__ __forceinline__ int col(int c) const { return tid + c * T; }
+
+  __device__ __forceinline__ WideEngine(const WideParams& p_, float* smem)
+      : p(p_) {
+    tid = threadIdx.x;
+    Z = p.Z;
+    nd = p.nd;
+    staged = p.staged != 0;
+    lane0 = blockIdx.x * L;
+    float* a = smem + tp::ring_bytes(Z, SR) / 4;
+    dqm = a;
+    a1 = dqm + Z * DS;
+    a2 = a1 + nd * DS;
+    c2s = a2 + nd * DS;
+    red = c2s + (staged ? Z * nd : 0);
+    ctrl = reinterpret_cast<unsigned*>(red + WARPS * NRED * L);
+    sn_k = reinterpret_cast<int*>(ctrl + 4);
+    orig = sn_k + L;
+    int* bnd = orig + L;  // nr, t0, t1
+    float* st = p.scratch + static_cast<size_t>(blockIdx.x) * NSCR * Z * L;
 #pragma unroll
     for (int l = 0; l < NLEAF; ++l)
-      wc::read_row(c.st[l], src[l], Z, j, c.lane0);
+      leaf[l] = st + static_cast<size_t>(l) * Z * L;
+    d2t = st + static_cast<size_t>(NLEAF) * Z * L;
+    if (tid == 0) {
+      bnd[0] = 0;
+      bnd[1] = Z;
+      bnd[2] = 0;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int c = 0; c < tp::WIDE_CPT; ++c) {
+      const int j = col(c);
+      if (j >= Z) break;
+      if (p.rows[4][j] != 0.0f) atomicMax(&bnd[0], j + 1);
+      if (p.rows[3][j] != 0.0f) {
+        atomicMin(&bnd[1], j);
+        atomicMax(&bnd[2], j + 1);
+      }
+    }
+    __syncthreads();
+    nr = bnd[0];
+    t0 = bnd[1];
+    t1 = bnd[2];
+    // C2d's rows [0, nr), read by the first iteration's chains after its
+    // first barrier
+    if (staged) {
+      for (int i = tid; i < nr * nd; i += T) c2s[i] = p.c2d[i];
+    }
+    // a ring of at least one row: with no real row M3p is zero
+    tp::ring_init<SR>(ring, smem, p.m3p, Z, max(1, nr), 0, 0, tid, T);
+  }
+
+  __device__ __forceinline__ void tic(long long& t, int i) {
+    if (TP_CLOCKS && tid == 0) {
+      const long long now = clock64();
+      clk[i] += now - t;
+      t = now;
+    }
+  }
+
+  // One iteration (tp::run_modes), as the narrow Engine's: lanes in
+  // `frozen` keep all their state; what `idle` lanes hold is never read
+  // again, and a group of 8 lanes that are all frozen or idle is skipped.
+  // With CHECK, the keepers of the lanes in rmask record their residuals
+  // and count kinc iterations, and the lanes whose three residuals meet
+  // tol are returned (identical in every thread of the block).
+  template <bool CHECK>
+  TP_ITERATE unsigned iterate(unsigned frozen, unsigned idle, unsigned last,
+                              bool stop, unsigned rmask, int kinc) {
+    long long t = TP_CLOCKS && tid == 0 ? clock64() : 0;
+    const unsigned dead = tp::whole_groups<L>(frozen | idle);
+    p1(dead, frozen);
+    __syncthreads();
+    tic(t, 0);
+    chains(dead);
+    __syncthreads();
+    tic(t, 1);
+    p2<CHECK>(dead, frozen);
+    tic(t, 2);
+    // the widest tiles the live groups allow, as tp::TileEngine narrows them
+    const int nl = max(1, G - __popc(dead) / 8);
+    const bool packed = dead == (ALL & ~((1u << (8 * nl - 1) << 1) - 1u));
+    if constexpr (TC >= 2 && G >= 2) {
+      if (packed && 2 * nl <= G)
+        product<TC / 2>(dead);
+      else
+        product<TC>(dead);
+    } else {
+      product<TC>(dead);
+    }
+    const unsigned conv = finish<CHECK>(dead, frozen, rmask, kinc);
+    tic(t, 3);
+    fresh &= frozen;
+    return conv;
+  }
+
+  // P1: z1 = clip(-q1 h1i); the deltas of the z2 product's inputs (dv2t on
+  // the rows [t0, t1) alone, where mt is nonzero: it is 0 elsewhere).
+  __device__ __forceinline__ void p1(unsigned dead, unsigned frozen) {
+#pragma unroll 1
+    for (int c = 0; c < tp::WIDE_CPT; ++c) {
+      const int j = col(c);
+      if (j >= Z) break;
+      const float rm = __ldg(p.rows[0] + j), rht = __ldg(p.rows[1] + j),
+                  mh = __ldg(p.rows[2] + j), mt = __ldg(p.rows[3] + j),
+                  h1i = __ldg(p.rows[5] + j), lb = __ldg(p.rows[6] + j),
+                  ub = __ldg(p.rows[7] + j);
+      const float sg = mh - mt;
+      const bool tail = j >= t0 && j < t1;
+#pragma unroll 1
+      for (int g = 0; g < G; ++g) {
+        if (bit(dead, 8 * g)) continue;
+        float z2b[8], z3[8], lm[8], lht[8], x0[8], vm[8], vt[8], z1s[8];
+        float dm[8], dt[8];
+        tp::ld8<L>(z2b, leaf[Z2B], j, g);
+        tp::ld8<L>(z3, leaf[Z3], j, g);
+        tp::ld8<L>(lm, leaf[LM], j, g);
+        tp::ld8<L>(lht, leaf[LHT], j, g);
+        tp::ld8<L>(x0, leaf[X0], j, g);
+        tp::ld8<L>(vm, leaf[V2M], j, g);
+        tp::ld8<L>(z1s, leaf[Z1], j, g);
+        if (tail) tp::ld8<L>(vt, leaf[V2T], j, g);
+#pragma unroll
+        for (int b = 0; b < 8; ++b) {
+          float z1, v2m, v2t;
+          p1_cell(rm, rht, mt, sg, h1i, lb, ub, z2b[b], z3[b], lm[b],
+                  lht[b], x0[b], z1, v2m, v2t);
+          dm[b] = v2m - vm[b];
+          if (tail) dt[b] = v2t - vt[b];
+          if (!bit(frozen, 8 * g + b)) {
+            vm[b] = v2m;
+            if (tail) vt[b] = v2t;
+            z1s[b] = z1;
+          }
+        }
+        tp::st8_dq<L>(dqm, j, g, dm);
+        if (tail) {
+          float4* d4 = reinterpret_cast<float4*>(d2t + j * L + 8 * g);
+          d4[0] = make_float4(dt[0], dt[1], dt[2], dt[3]);
+          d4[1] = make_float4(dt[4], dt[5], dt[6], dt[7]);
+          tp::st8<L>(leaf[V2T], j, g, vt);
+        }
+        tp::st8<L>(leaf[V2M], j, g, vm);
+        tp::st8<L>(leaf[Z1], j, g, z1s);
+      }
+    }
+  }
+
+  // The z2 chains of every (class, lane) of a live group, as the narrow
+  // Engine's: a1 over rows [0, nr) of C2d, a2 over rows [t0, t1) of C2td,
+  // each in ascending order.
+  __device__ __forceinline__ void chains(unsigned dead) {
+    const int n = nd * L;
+    for (int ch = tid; ch < n; ch += T) {
+      const int d = ch / L, b = ch % L;
+      if (bit(dead, b)) continue;
+      // a2 first: its few rows of C2td come from L2 while nothing waits
+      const float* ct = p.c2td + d;
+      float s2 = 0.0f;
+#pragma unroll 8
+      for (int i = t0; i < t1; ++i)
+        s2 = fmaf(d2t[i * L + b], __ldg(ct + static_cast<size_t>(i) * nd),
+                  s2);
+      const float* dv = dqm + b;
+      float s1 = 0.0f;
+      if (staged) {
+        const float* cm = c2s + d;
+#pragma unroll 8
+        for (int i = 0; i < nr; ++i) s1 = fmaf(dv[i * DS], cm[i * nd], s1);
+      } else {
+        const float* cm = p.c2d + d;
+#pragma unroll 8
+        for (int i = 0; i < nr; ++i)
+          s1 = fmaf(dv[i * DS], __ldg(cm + i * nd), s1);
+      }
+      a1[d * DS + b] = s1;
+      a2[d * DS + b] = s2;
+    }
+  }
+
+  // The maxima over the warp of v (8 lanes of group g), to red's `slot`.
+  __device__ __forceinline__ void warp_max(float (&v)[8], int slot, int g) {
+#pragma unroll
+    for (int b = 0; b < 8; ++b) {
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        v[b] = fmaxf(v[b], __shfl_xor_sync(FULL, v[b], off));
+    }
+    if ((tid & 31) == 0) {
+      float4* w = reinterpret_cast<float4*>(
+          red + ((tid >> 5) * NRED + slot) * L + 8 * g);
+      w[0] = make_float4(v[0], v[1], v[2], v[3]);
+      w[1] = make_float4(v[4], v[5], v[6], v[7]);
+    }
+  }
+
+  // P2: z2bn = (z2acc + a1) + a2 at each column's class; q3 and its delta
+  // (into dqm); with CHECK the row maxima of |dz2|.
+  template <bool CHECK>
+  __device__ __forceinline__ void p2(unsigned dead, unsigned frozen) {
+#pragma unroll 1
+    for (int g = 0; g < G; ++g) {
+      if (bit(dead, 8 * g)) continue;
+      float az[8];
+#pragma unroll
+      for (int b = 0; b < 8; ++b) az[b] = 0.0f;
+#pragma unroll 1
+      for (int c = 0; c < tp::WIDE_CPT; ++c) {
+        const int j = col(c);
+        if (j >= Z) break;
+        const float rm = __ldg(p.rows[0] + j), mr = __ldg(p.rows[4] + j);
+        const int cls = __ldg(p.col_of + j);
+        float z2b[8], lm[8], q3p[8], z1[8], c1[8], c2[8], dq[8];
+        tp::ld8<L>(z2b, leaf[Z2B], j, g);
+        tp::ld8<L>(lm, leaf[LM], j, g);
+        tp::ld8<L>(q3p, leaf[Q3], j, g);
+        tp::ld8<L>(z1, leaf[Z1], j, g);
+        tp::ld8_dq<L>(c1, a1, cls, g);
+        tp::ld8_dq<L>(c2, a2, cls, g);
+#pragma unroll
+        for (int b = 0; b < 8; ++b) {
+          const int s = 8 * g + b;
+          const float acc =
+              bit(fresh, s)
+                  ? __ldg(p.z2refb +
+                          static_cast<size_t>(lane0 + orig[s]) * Z + j)
+                  : z2b[b];
+          float z2n, q3;
+          p2_cell(rm, acc, c1[b], c2[b], z1[b], lm[b], z2n, q3);
+          dq[b] = q3 - q3p[b];
+          if (CHECK) az[b] = fmaxf(az[b], fabsf((z2n - z2b[b]) * mr));
+          if (!bit(frozen, s)) {
+            q3p[b] = q3;
+            z2b[b] = z2n;
+          }
+        }
+        tp::st8_dq<L>(dqm, j, g, dq);
+        tp::st8<L>(leaf[Q3], j, g, q3p);
+        tp::st8<L>(leaf[Z2B], j, g, z2b);
+      }
+      if (CHECK) warp_max(az, 1, g);
+    }
+  }
+
+  // P3's product with tiles of 8 lanes x TCX columns: its sums dq3 @ M3p
+  // into dqm once every thread is done reading dq3 there, published by a
+  // second barrier.
+  template <int TCX>
+  __device__ __forceinline__ void product(unsigned dead) {
+    const tp::Tile<L, TCX> tile(tid, Z);
+    float acc[TCX][8];
+#pragma unroll
+    for (int q = 0; q < TCX; ++q) {
+#pragma unroll
+      for (int b = 0; b < 8; ++b) acc[q][b] = 0.0f;
+    }
+    const bool live = tile.active && !bit(dead, 8 * tile.lg);
+    tp::product<L, TCX, SR>(ring, dqm, tile, acc, live, tid, T, false,
+                            [] {});
+    __syncthreads();
+    if (live) {
+#pragma unroll
+      for (int q = 0; q < TCX; ++q)
+        tp::st8_dq<L>(dqm, tile.col(q), tile.lg, acc[q]);
+    }
+    __syncthreads();
+  }
+
+  // P3's rest, each thread its columns: z3n = z3acc + the product's sums,
+  // the residual rows and the dual ascent; with CHECK their row maxima and
+  // the keepers' part.
+  template <bool CHECK>
+  __device__ __forceinline__ unsigned finish(unsigned dead, unsigned frozen,
+                                             unsigned rmask, int kinc) {
+#pragma unroll 1
+    for (int g = 0; g < G; ++g) {
+      if (bit(dead, 8 * g)) continue;
+      const unsigned fz = frozen >> (8 * g);
+      const unsigned fr = fresh >> (8 * g);
+      float pf[8], az[8];
+#pragma unroll
+      for (int b = 0; b < 8; ++b) pf[b] = az[b] = 0.0f;
+#pragma unroll 1
+      for (int c = 0; c < tp::WIDE_CPT; ++c) {
+        const int j = col(c);
+        if (j >= Z) break;
+        const float crm = __ldg(p.rows[0] + j), crht = __ldg(p.rows[1] + j),
+                    cmh = __ldg(p.rows[2] + j), cmt = __ldg(p.rows[3] + j),
+                    cmr = __ldg(p.rows[4] + j);
+        float ac[8], z1[8], z2[8], z3[8], lm[8], lht[8], x0[8];
+        tp::ld8_dq<L>(ac, dqm, j, g);
+        tp::ld8<L>(z1, leaf[Z1], j, g);
+        tp::ld8<L>(z2, leaf[Z2B], j, g);
+        tp::ld8<L>(z3, leaf[Z3], j, g);
+        tp::ld8<L>(lm, leaf[LM], j, g);
+        tp::ld8<L>(lht, leaf[LHT], j, g);
+        tp::ld8<L>(x0, leaf[X0], j, g);
+#pragma unroll
+        for (int b = 0; b < 8; ++b)
+          p3_cell<CHECK>(crm, crht, cmh, cmt, cmr, fr, fz, b, ac[b], z1[b],
+                         z2[b], x0[b], z3[b], lm[b], lht[b], pf[b], az[b]);
+        tp::st8<L>(leaf[Z3], j, g, z3);
+        tp::st8<L>(leaf[LM], j, g, lm);
+        tp::st8<L>(leaf[LHT], j, g, lht);
+      }
+      if (CHECK) {
+        warp_max(pf, 0, g);
+        warp_max(az, 2, g);
+      }
+    }
+    // without CHECK the next iteration's first barrier comes before any
+    // thread reads what another wrote here
+    if (!CHECK) return 0u;
+    __syncthreads();
+    if (tid < 32) keep(rmask, kinc);
+    __syncthreads();
+    return ctrl[0];
+  }
+
+  // The keepers' part of a checked iteration, run by all of warp 0: lane
+  // t's three residuals over the warps' maxima; the lanes that meet tol go
+  // to ctrl[0].
+  __device__ __forceinline__ void keep(unsigned rmask, int kinc) {
+    bool conv = false;
+    if (tid < L) {
+      float r[NRED] = {0.0f, 0.0f, 0.0f};
+      for (int w = 0; w < WARPS; ++w) {
+#pragma unroll
+        for (int q = 0; q < NRED; ++q)
+          r[q] = fmaxf(r[q], red[(w * NRED + q) * L + tid]);
+      }
+      conv = r[0] <= p.tol && r[1] <= p.tol && r[2] <= p.tol;
+      if (bit(rmask, tid)) {
+        kp.k += kinc;
+#pragma unroll
+        for (int q = 0; q < NRED; ++q) kp.r[q] = r[q];
+      }
+    }
+    const unsigned m = __ballot_sync(FULL, conv);
+    if (tid == 0) ctrl[0] = m;
+  }
+
+  // Exact-k compaction (tp::compact_lanes) over the seven snapshot leaves
+  // and x0b of the thread's columns. No slot is fresh here: a window start
+  // that compacts follows a whole window of every lane's iterations.
+  __device__ __forceinline__ unsigned compact(unsigned done) {
+    const unsigned live = ~done & ALL;
+    const int n = __popc(live);
+    if (__popc(tp::whole_groups<L>(done)) / 8 == (L - n) / 8) return done;
+    float* const moved[NSNAP + 1] = {leaf[Z2B], leaf[Z3],  leaf[LM],
+                                     leaf[LHT], leaf[V2M], leaf[V2T],
+                                     leaf[Q3],  leaf[X0]};
+#pragma unroll
+    for (int c = 0; c < tp::WIDE_CPT; ++c) {
+      const int j = col(c);
+      if (j >= Z) break;
+#pragma unroll
+      for (int l = 0; l < NSNAP + 1; ++l) {
+        int to = 0;
+        for (int s = 0; s < L; ++s) {
+          if (!bit(live, s)) continue;
+          if (s != to) tp::at<L>(moved[l], j, to) = tp::at<L>(moved[l], j, s);
+          ++to;
+        }
+      }
+    }
+    if (tid == 0) {
+      int to = 0;
+      for (int s = 0; s < L; ++s) {
+        if (!bit(live, s)) continue;
+        orig[to++] = orig[s];
+      }
+    }
+    __syncthreads();
+    return ALL & ~((1u << n) - 1u);
+  }
+
+  // Exact-k: the thread's columns of the seven snapshot leaves between its
+  // scratch and the lanes' snapshots, for the slots in `lanes` (slot b
+  // holds lane orig[b]). Reading them back (every lane in its own slot
+  // again) also restores x0b, zeroes z1 and marks the lanes whose window
+  // starts at 0 fresh.
+  template <bool TO_GLOBAL>
+  __device__ __forceinline__ void snapshot(unsigned lanes) {
+#pragma unroll
+    for (int c = 0; c < tp::WIDE_CPT; ++c) {
+      const int j = col(c);
+      if (j >= Z) break;
+#pragma unroll
+      for (int l = 0; l < NSNAP; ++l) {
+        for (int b = 0; b < L; ++b) {
+          if (!bit(lanes, b)) continue;
+          float* g = p.snap +
+                     (static_cast<size_t>(lane0 + orig[b]) * NSNAP + l) * Z +
+                     j;
+          float& sh = tp::at<L>(leaf[l], j, b);
+          if (TO_GLOBAL)
+            *g = sh;
+          else
+            sh = *g;
+        }
+      }
+      if (!TO_GLOBAL) {
+        for (int b = 0; b < L; ++b) {
+          tp::at<L>(leaf[X0], j, b) =
+              p.x0b[static_cast<size_t>(lane0 + b) * Z + j];
+          tp::at<L>(leaf[Z1], j, b) = 0.0f;
+        }
+      }
+    }
+    if (!TO_GLOBAL) {
+      fresh = 0;
+      for (int b = 0; b < L; ++b)
+        if (sn_k[b] == 0) fresh |= 1u << b;
+      __syncthreads();
+    }
+  }
+};
+
+template <int L, int TC, int SR>
+__global__ void __launch_bounds__(tp::WIDE_THREADS, 1)
+    fused_eadmm_wide_kernel(WideParams p) {
+  extern __shared__ __align__(16) float smem[];
+  WideEngine<L, TC, SR> e(p, smem);
+  const int Z = p.Z;
+  // state: z2b0, z30, lm0, lht0, zero previous inputs, zero z1, x0b
+  const float* src[NLEAF] = {p.z2b0,  p.z30,   p.lm0,   p.lht0, nullptr,
+                             nullptr, nullptr, nullptr, p.x0b};
+#pragma unroll
+  for (int c = 0; c < tp::WIDE_CPT; ++c) {
+    const int j = e.col(c);
+    if (j >= Z) break;
+#pragma unroll
+    for (int l = 0; l < NLEAF; ++l) {
+      for (int b = 0; b < L; ++b)
+        tp::at<L>(e.leaf[l], j, b) =
+            src[l] ? src[l][static_cast<size_t>(e.lane0 + b) * Z + j] : 0.0f;
+    }
+  }
+  if (e.tid < L) {
+    e.sn_k[e.tid] = 0;
+    e.orig[e.tid] = e.tid;
   }
   __syncthreads();
-  c.nr = bounds[0];
-  c.t0 = bounds[1];
-  c.t1 = bounds[2];
-  unsigned done = 0;
-  int k[TB];
+  const unsigned done =
+      tp::run_modes<L>(e, p.k_max, p.check_every, p.exact_k, 0);
+  tp::ring_drain(e.ring);
+  const int leaves[5] = {Z1, Z2B, Z3, LM, LHT};
 #pragma unroll
-  for (int b = 0; b < TB; ++b) k[b] = 0;
-  const int C = p.check_every;
-  constexpr unsigned ALL = wc::ALL;
+  for (int c = 0; c < tp::WIDE_CPT; ++c) {
+    const int j = e.col(c);
+    if (j >= Z) break;
+#pragma unroll
+    for (int l = 0; l < 5; ++l) {
+      for (int b = 0; b < L; ++b)
+        p.out[l][static_cast<size_t>(e.lane0 + b) * Z + j] =
+            tp::at<L>(e.leaf[leaves[l]], j, b);
+    }
+  }
+  if (e.tid < L) {
+    const int lane = e.lane0 + e.tid;
+    p.k[lane] = e.kp.k;
+    p.done[lane] = bit(done, e.tid) ? 1 : 0;
+#pragma unroll
+    for (int q = 0; q < NRED; ++q) p.res[q][lane] = e.kp.r[q];
+  }
+  if (TP_CLOCKS && e.tid == 0) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      p.ext[4 * blockIdx.x + i] = static_cast<int>(e.clk[i] >> 10);
+  }
+}
 
-  if (C > 1 && p.exact_k) {
-    // free-run windows of C iterations; snapshot every still-active lane
-    // at each window start; a lane is done once the window's last
-    // iteration meets tol. Windows may overshoot k_max: the replay budget
-    // cuts each lane off at exactly k_max.
-    for (int it = 0; it < p.k_max && done != ALL; it += C) {
-      eadmm_wide_snapshot<true>(p, c, ~done & ALL);
-      if (tid == 0) {
-#pragma unroll
-        for (int b = 0; b < TB; ++b)
-          if (!wc::bit(done, b)) sn_k[b] = it;
-      }
-      for (int f = 0; f < C - 1; ++f)
-        eadmm_wide_iterate(p, c, 0u, (it == 0 && f == 0) ? ALL : 0u, 0u,
-                           lres);
-      done |= eadmm_wide_iterate(p, c, 0u, 0u, 0u, lres);
-    }
-    __syncthreads();  // the window starts, written by thread 0
-    // replay each lane's last window from its snapshot with per-iteration
-    // checks: k counts on from the window start
-    eadmm_wide_snapshot<false>(p, c, ALL);
-#pragma unroll
-    for (int h = 0; h < wc::CPT; ++h) {
-      const int j = wc::col(h, Z);
-      if (j < 0) break;
-      float zero[TB];
-      wc::zero(zero);
-      wc::store(c.st[W_Z1] + j * TB, zero);
-    }
-    int budget[TB];
-    unsigned first = 0;  // lanes replaying from the initial state
-#pragma unroll
-    for (int b = 0; b < TB; ++b) {
-      k[b] = sn_k[b];
-      budget[b] = min(C, p.k_max - k[b]);
-      if (k[b] == 0) first |= 1u << b;
-    }
-    unsigned convd = 0;
-    for (int w = 0; w < C; ++w) {
-      unsigned frozen = convd;
-#pragma unroll
-      for (int b = 0; b < TB; ++b)
-        if (w >= budget[b]) frozen |= 1u << b;
-      if (frozen == ALL) break;
-      const unsigned conv = eadmm_wide_iterate(
-          p, c, frozen, w == 0 ? first : 0u, ~frozen & ALL, lres);
-#pragma unroll
-      for (int b = 0; b < TB; ++b)
-        if (!wc::bit(frozen, b)) ++k[b];
-      convd |= conv & ~frozen;
-    }
-    done = convd;
-  } else if (C > 1) {
-    // free-run: C-1 plain iterations, then one tested iteration; every
-    // lane keeps iterating until the block's lanes (one group of 8) are
-    // all done, k is recorded at check granularity, and a done lane's
-    // residuals stay at its exit
-    for (int it = 0; it < p.k_max && done != ALL;) {
-      const int n_fast = min(C - 1, p.k_max - 1 - it);
-      for (int f = 0; f < n_fast; ++f)
-        eadmm_wide_iterate(p, c, 0u, (it == 0 && f == 0) ? ALL : 0u, 0u,
-                           lres);
-      const unsigned conv = eadmm_wide_iterate(
-          p, c, 0u, (it == 0 && n_fast == 0) ? ALL : 0u, ~done & ALL, lres);
-#pragma unroll
-      for (int b = 0; b < TB; ++b)
-        if (!wc::bit(done, b)) k[b] += n_fast + 1;
-      done |= conv;
-      it += n_fast + 1;
-    }
-  } else {
-    // checked: exit tests every iteration; a converged lane freezes
-    for (int it = 0; it < p.k_max && done != ALL; ++it) {
-      const unsigned conv = eadmm_wide_iterate(
-          p, c, done, it == 0 ? ALL : 0u, ~done & ALL, lres);
-#pragma unroll
-      for (int b = 0; b < TB; ++b)
-        if (!wc::bit(done, b)) ++k[b];
-      done |= conv;
-    }
+template <int L, int SR>
+int wide_launch(const WideParams& p, int blocks, int smem, void* stream) {
+  void (*kernel)(WideParams) =
+      fused_eadmm_wide_kernel<L, tp::wide_tc<L>(), SR>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
   }
-
-  {
-    const int leaves[5] = {W_Z1, W_Z2B, W_Z3, W_LM, W_LHT};
-#pragma unroll
-    for (int h = 0; h < wc::CPT; ++h) {
-      const int j = wc::col(h, Z);
-      if (j < 0) break;
-#pragma unroll
-      for (int l = 0; l < 5; ++l)
-        wc::write_row(c.st[leaves[l]], p.out[l], Z, j, c.lane0);
-    }
-  }
-  if (tid == 0) {
-#pragma unroll
-    for (int b = 0; b < TB; ++b) {
-      p.k[c.lane0 + b] = k[b];
-      p.done[c.lane0 + b] = wc::bit(done, b) ? 1 : 0;
-#pragma unroll
-      for (int q = 0; q < 3; ++q) p.res[q][c.lane0 + b] = lres[q][b];
-    }
-  }
+  kernel<<<blocks, tp::WIDE_THREADS, smem,
+           static_cast<cudaStream_t>(stream)>>>(p);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Dynamic shared bytes of a block of the wide build at nd classes of
-// columns (kernels/fused_eadmm.py shared_bytes(Z, 8, nd, wide=True)
-// computes the same): dv2m, dv2t and dq3 as [Z][8], the warps' row maxima
-// and C2d as [Z][nd].
-extern "C" long fused_eadmm_wide_smem(int Z, int nd) {
-  return 4L * (3L * Z * TB + 3L * wc::WARPS * TB + static_cast<long>(Z) * nd);
+// Dynamic shared bytes of a block of the wide build at `lanes` lanes and nd
+// classes of columns (kernels/fused_eadmm.py shared_bytes(Z, lanes, nd,
+// wide=True) computes the same).
+extern "C" long fused_eadmm_wide_smem(int Z, int lanes, int nd) {
+  return wide_bytes(Z, lanes, nd, wide_slab_rows(Z, lanes, nd),
+                    wide_staged(Z, lanes, nd));
 }
 
-// Launch the wide build on `stream`: the arguments of fused_eadmm_launch but
-// the clock counts and the lanes, and `state`, the blocks' global state
-// ([B / 8][9][Z][8] floats). The geometry comes from the wrapper
+// Launch the wide build on `stream`: the arguments of fused_eadmm_launch
+// with `scratch`, the blocks' leaves and dv2t (B / lanes x 10 Z lanes
+// floats), before
+// `ext`; `threads` tp::WIDE_THREADS, `lanes` 8 or 16, Z up to
+// tp::WIDE_COLS, B / lanes blocks. The geometry comes from the wrapper
 // (kernels/fused_eadmm.py launch_plan with wide=True) and is checked here
 // again. Returns the CUDA error of the launch, as an int.
 extern "C" int fused_eadmm_wide_launch(
@@ -1150,30 +1400,30 @@ extern "C" int fused_eadmm_wide_launch(
     const float* rht, const float* mh, const float* mt, const float* mr,
     const float* h1i, const float* lb, const float* ub, float* z1,
     float* z2b, float* z3, float* lm, float* lht, int* k, int* done,
-    float* rpf, float* rz2, float* rz3, float* snap, float* state, int B,
-    int Z, int nd, int blocks, int threads, int smem, float tol, int k_max,
-    int check_every, int exact_k, void* stream) {
+    float* rpf, float* rz2, float* rz3, float* snap, float* scratch,
+    int* ext, int B, int Z, int nd, int lanes, int blocks, int threads,
+    int smem, float tol, int k_max, int check_every, int exact_k,
+    void* stream) {
   const bool exact = check_every > 1 && exact_k;
-  if (Z <= 0 || Z % 32 != 0 || Z > wc::COLS || nd < 1 || nd > Z ||
-      B % TB != 0 || blocks != B / TB || threads != wc::THREADS ||
-      smem != fused_eadmm_wide_smem(Z, nd) || smem > wc::SMEM_MAX ||
+  if (Z <= 0 || Z % 32 != 0 || Z > tp::WIDE_COLS || nd < 1 || nd > Z ||
+      (lanes != 8 && lanes != 16) || B % lanes != 0 ||
+      blocks != B / lanes || threads != tp::WIDE_THREADS ||
+      smem != fused_eadmm_wide_smem(Z, lanes, nd) || smem > tp::SMEM_MAX ||
       check_every < 1 || k_max < 1 ||
-      (B > 0 && (state == nullptr || (exact && snap == nullptr))))
+      (B > 0 && (scratch == nullptr || ext == nullptr ||
+                 (exact && snap == nullptr))))
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0) return 0;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        fused_eadmm_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  EadmmWide p{x0b, z2refb, z2b0, z30, lm0, lht0, c2d, c2td, col_of, m3p,
-              {rm, rht, mh, mt, mr, h1i, lb, ub},
-              {z1, z2b, z3, lm, lht}, k, done, {rpf, rz2, rz3}, snap, state,
-              Z, nd, tol, k_max, check_every, exact_k};
-  fused_eadmm_wide_kernel<<<blocks, wc::THREADS, smem,
-                            static_cast<cudaStream_t>(stream)>>>(p);
-  return static_cast<int>(cudaGetLastError());
+  WideParams p{x0b, z2refb, z2b0, z30, lm0, lht0, c2d, c2td, col_of, m3p,
+               {rm, rht, mh, mt, mr, h1i, lb, ub},
+               {z1, z2b, z3, lm, lht}, k, done, {rpf, rz2, rz3}, snap,
+               scratch, ext, Z, nd, wide_staged(Z, lanes, nd), tol, k_max,
+               check_every, exact_k};
+  if (lanes == 8)
+    return wide_launch<8, tp::WIDE_SLAB_8>(p, blocks, smem, stream);
+  if (wide_slab_rows(Z, lanes, nd) == tp::WIDE_SLAB_16)
+    return wide_launch<16, tp::WIDE_SLAB_16>(p, blocks, smem, stream);
+  return wide_launch<16, tp::WIDE_SLAB_8>(p, blocks, smem, stream);
 }
 
 #endif  // WIDE_PART

@@ -472,8 +472,8 @@ extern "C" int fused_ellip_launch(
 // The modes are the stage's (tp::run_lanes): refill in the checked mode,
 // plain free-run and exact-k (tp::run_refill_exact), fixed_iters in static
 // blocks of L lanes; so every build gives the narrow builds' bits. The
-// build before this one ran the first layout on csrc/wide_cols.cuh at 8
-// lanes a block, with its state in global memory and M2 read from L2.
+// build before this one ran the first wide layout, at 8 lanes a block,
+// with its state in global memory and M2 read from L2.
 
 namespace {
 

@@ -560,9 +560,9 @@ extern "C" int fused_hmpc_launch(
 // columns and then over the block's 16 warps. The modes and refill in
 // every mode are the stage's (tp::run_lanes), exact-k's through
 // tp::run_refill_exact, so every build gives the narrow builds' bits. The
-// build before this one ran the first layout (8 lanes a block, CT and MC
-// read from L2, the cones projected by shuffles in their warps, the state
-// in global memory) on csrc/wide_cols.cuh.
+// build before this one ran the first wide layout (8 lanes a block, CT
+// and MC read from L2, the cones projected by shuffles in their warps, the
+// state in global memory).
 
 namespace {
 

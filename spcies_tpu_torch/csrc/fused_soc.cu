@@ -499,8 +499,8 @@ extern "C" int fused_soc_launch(
 // added in column order, as the narrow build does. The modes and refill
 // are the stage's (tp::run_lanes), exact-k's through run_refill_exact, so
 // every build gives the narrow builds' bits. The build before this one ran
-// the first layout on csrc/wide_cols.cuh (8 lanes a block, M1' read from
-// L2), with its state in global memory.
+// the first wide layout (8 lanes a block, M1' read from L2), with its
+// state in global memory.
 
 namespace {
 

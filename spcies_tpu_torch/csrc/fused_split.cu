@@ -539,8 +539,8 @@ extern "C" int fused_split_launch(
 // over its columns and the block's 16 warps. The modes and refill in every
 // mode are the stage's (tp::run_lanes), as the narrow builds run them, so
 // every build gives the narrow builds' bits. The build before this one ran
-// the first layout on csrc/wide_cols.cuh (8 lanes a block, M1' read from
-// L2), with its state in global memory.
+// the first wide layout (8 lanes a block, M1' read from L2), with its
+// state in global memory.
 
 namespace {
 

@@ -61,11 +61,14 @@ build gives the same bits, so `lanes=` of `fused_eadmm_solve` may name
 another build, for a check or a timing.
 
 Past MAX_COLS columns, up to WIDE_COLS, the wide build
-(fused_eadmm_wide_kernel, csrc/wide_cols.cuh) runs 512 threads of two
-columns, t and t + 512, at 8 lanes a block, no refill, with its nine state
-vectors in global memory and C2d in shared memory (so it too refuses
-classes of columns that do not fit); `wide=` of `fused_eadmm_solve` names
-it at any width, for a check of bits.
+(fused_eadmm_wide_kernel) runs the narrow builds' iteration on the stage,
+512 threads of two columns, t and t + 512, at 16 or 8 lanes a block
+(stage.WIDE_BUILDS), no refill: the nine state vectors in the block's
+global scratch, M3p's slabs through the TMA ring (16 rows where they fit,
+else 8) and C2d copied to shared memory where it fits, else read by __ldg
+(`wide_layout`). It takes as many classes of columns as the build before it
+did (`wide_classes`). `wide=` of `fused_eadmm_solve` names it at any width,
+for a check of bits.
 """
 
 from __future__ import annotations
@@ -91,10 +94,9 @@ __all__ = ["check_width", "COL_PAD", "MAX_COLS", "round_up",
 FUSED_EADMM_ARGTYPES = ([ctypes.c_void_p] * 30 + [ctypes.c_int] * 7
                         + [ctypes.c_float] + [ctypes.c_int] * 3
                         + [ctypes.c_void_p])
-# and of fused_eadmm_wide_launch: 30 pointers (the clock counts' place holds
-# the blocks' global state); B, Z, nd, blocks, threads, shared bytes; tol;
-# k_max, check_every, exact_k; the stream
-FUSED_EADMM_WIDE_ARGTYPES = ([ctypes.c_void_p] * 30 + [ctypes.c_int] * 6
+# and of fused_eadmm_wide_launch: 31 pointers (the blocks' global scratch
+# before the clock counts); then as fused_eadmm_launch's
+FUSED_EADMM_WIDE_ARGTYPES = ([ctypes.c_void_p] * 31 + [ctypes.c_int] * 7
                              + [ctypes.c_float] + [ctypes.c_int] * 3
                              + [ctypes.c_void_p])
 # lanes a block -> (rows a slab of M3p's ring, blocks an SM) of its build
@@ -114,6 +116,8 @@ WARP = 32
 # the state vectors a block keeps as [Z][lanes]: z2b, z3, lm, lht, the three
 # previous product inputs, z1 and x0b
 STATE_LEAVES = 9
+# the wide build's row maxima a lane, over its 16 warps: r_pf, r_z2, r_z3
+WIDE_MAXIMA = 3
 # the leaves an exact-k snapshot saves per lane in the kernel: z2b, z3, lm,
 # lht and the three previous product inputs (the accumulators equal z2b and
 # z3 after the first iteration, which the kernel marks instead)
@@ -296,11 +300,10 @@ def shared_bytes(Z: int, lanes: int, nd: int = 1, wide: bool = False) -> int:
     C2d's copy where the build makes one (C2D_STAGED), the row maxima, the
     masks, the window starts, the slots' lanes and the row bounds. A number
     of lanes no build has is reckoned with SLAB_ROWS_OTHER rows a slab and
-    a copy of C2d. The wide build's (fused_eadmm_wide_smem): dv2m, dv2t
-    and dq3 as [Z][8], the warps' row maxima and C2d as [Z][nd]."""
+    a copy of C2d. The wide build's (fused_eadmm_wide_smem): `_wide_bytes`
+    of its `wide_layout`."""
     if wide:
-        return 4 * (3 * Z * stage.WIDE_LANES
-                    + 3 * stage.WIDE_WARPS * stage.WIDE_LANES + Z * nd)
+        return _wide_bytes(Z, lanes, nd, *wide_layout(Z, lanes, nd))
     slab = BUILDS.get(lanes, (SLAB_ROWS_OTHER, 1))[0]
     D = lanes + DQ_PAD
     return stage.ring_bytes(Z, slab) + 4 * (
@@ -309,16 +312,57 @@ def shared_bytes(Z: int, lanes: int, nd: int = 1, wide: bool = False) -> int:
         + Z // WARP * lanes + Z + 4 + 2 * lanes + 4)
 
 
+def _wide_bytes(Z: int, lanes: int, nd: int, slab: int, staged: bool) -> int:
+    """A wide block's shared bytes (wide_bytes in the source) at `slab`
+    rows a slab, with C2d's copy (staged) or not: the ring of M3p's slabs,
+    dv2m, dq3 and then P3's sums with their padding, the chains' results,
+    C2d's copy, the 16 warps' row maxima, the masks, the window starts,
+    the slots' lanes and the row bounds; the nine state vectors and dv2t
+    lie in global scratch."""
+    return stage.ring_bytes(Z, slab) + 4 * (
+        Z * (lanes + DQ_PAD) + 2 * nd * (lanes + DQ_PAD)
+        + (Z * nd if staged else 0) + WIDE_MAXIMA * stage.WIDE_WARPS * lanes
+        + 4 + 2 * lanes + 4)
+
+
+def wide_layout(Z: int, lanes: int, nd: int) -> tuple[int, bool]:
+    """(rows a slab of M3p, whether the z2 chains read C2d from a copy in
+    shared memory) of the wide build at `lanes` lanes (wide_slab_rows and
+    wide_staged in the source): the copy where it fits beside a ring of
+    stage.GLOBAL_SLAB-row slabs; then the build's slab of stage.WIDE_BUILDS
+    where its ring fits beside the rest, else stage.GLOBAL_SLAB rows."""
+    staged = _wide_bytes(Z, lanes, nd, stage.GLOBAL_SLAB, True) <= SMEM_MAX
+    slab = stage.WIDE_BUILDS[lanes][0]
+    if _wide_bytes(Z, lanes, nd, slab, staged) > SMEM_MAX:
+        slab = stage.GLOBAL_SLAB
+    return slab, staged
+
+
+def wide_classes(Z: int) -> int:
+    """The most classes of columns the wide build takes at Z columns: those
+    whose [Z][nd] copy of C2d fit beside three [Z][8] buffers and 16 warps'
+    three row maxima of 8 lanes, the first wide layout's rule, kept so
+    that the kernel takes and refuses the shapes it did. Its 16-lane build
+    on the stage fits each of them (it reads C2d by __ldg where the copy
+    does not fit: 32 classes at 1024 columns)."""
+    return (SMEM_MAX // 4 - 3 * 8 * Z - 3 * stage.WIDE_WARPS * 8) // Z
+
+
 def check_width(Z: int, nd: int = 1) -> None:
     """Raise ValueError unless some build of the kernel takes this padded
     width at nd classes of columns (a plain check, no CUDA: the fused
     builder calls it when it builds for the card): up to MAX_COLS columns
-    the narrow builds, past it the wide build."""
+    the narrow builds, past it the wide build (`wide_classes`)."""
     kernel = "fused MPCT-EADMM kernel (K3, csrc/fused_eadmm.cu)"
     check_widths(kernel, WIDE_COLS, width=Z)
-    need = (shared_bytes(Z, 8, nd, wide=True) if Z > MAX_COLS else
-            min(shared_bytes(Z, L, nd) for L in BUILDS))
-    if need > SMEM_MAX:
+    if Z > MAX_COLS and nd > wide_classes(Z):
+        raise ValueError(
+            f"the wide build of the {kernel} takes at most "
+            f"{wide_classes(Z)} classes of columns at padded width {Z}, the "
+            f"most the first wide layout kept in its {SMEM_MAX} bytes of "
+            f'shared memory: use backend="dense" (got {nd})')
+    if Z <= MAX_COLS and min(shared_bytes(Z, L, nd)
+                             for L in BUILDS) > SMEM_MAX:
         raise ValueError(
             f"no build of the {kernel} fits padded width {Z} with {nd} "
             f"classes of columns in {SMEM_MAX} bytes of shared memory: use "
@@ -329,11 +373,13 @@ def launch_plan(B: int, Z: int, nd: int, *, tile_b: int, check_every: int,
                 exact_k: bool, k_max: int, lanes: int | None = None,
                 wide: bool | None = None):
     """The build a launch takes and its geometry, as a dict: lanes a block,
-    blocks, threads, dynamic shared bytes, refill (always False; and
-    wide=True for the wide build). nd is the number of classes of columns.
-    `lanes` names a build (a key of BUILDS) in place of the dispatch's
-    choice, `wide` the wide build or not (by default: past MAX_COLS
-    columns); raises ValueError on a shape or mode no build takes."""
+    blocks, threads, dynamic shared bytes, refill (always False); the wide
+    build's also wide=True, its rows a slab, global_leaves (always True)
+    and c2d_staged (`wide_layout`). nd is the number of classes of columns.
+    `lanes` names a build (a key of BUILDS, or of stage.WIDE_BUILDS for the
+    wide build) in place of the dispatch's choice, `wide` the wide build or
+    not (by default: past MAX_COLS columns); raises ValueError on a shape
+    or mode no build takes."""
     check_width(Z, nd)
     if not 0 < nd <= Z:
         raise ValueError(f"the classes of columns number 1 to {Z}; got {nd}")
@@ -342,7 +388,10 @@ def launch_plan(B: int, Z: int, nd: int, *, tile_b: int, check_every: int,
     stage.check_mode(B, tile_b=tile_b, check_every=check_every,
                      exact_k=exact_k)
     if stage.use_wide(Z, wide):
-        return stage.wide_plan(B, shared_bytes(Z, 8, nd, wide=True), lanes)
+        plan = stage.plan(B, Z, lambda L: shared_bytes(Z, L, nd, wide=True),
+                          stage.WIDE_BUILDS, refill=False, lanes=lanes,
+                          layout=lambda L: (wide_layout(Z, L, nd)[0], True))
+        return dict(plan, c2d_staged=wide_layout(Z, plan["lanes"], nd)[1])
     return stage.plan(B, Z, lambda L: shared_bytes(Z, L, nd), BUILDS,
                       refill=False, lanes=lanes)
 
@@ -388,32 +437,30 @@ def _launch(*args, tol, k_max, tile_b, check_every, exact_k, classes=None,
     exact = check_every > 1 and exact_k
     snap = torch.empty((B if exact else 0, SNAP_LEAVES * Z),
                        dtype=torch.float32, device=dev)
+    # the wide build's blocks' state, nine leaves of [Z][lanes], and dv2t
+    scratch = (torch.empty((B * (STATE_LEAVES + 1) * Z,),
+                           dtype=torch.float32, device=dev),) if wide else ()
     # each block's kilo-clocks of P1, of the z2 chains, of P2, and of P3
-    # and the keepers (in a build with TP_CLOCKS; else zeros); the wide
-    # build: the blocks' state, nine leaves
+    # and the keepers (in a build with TP_CLOCKS; else zeros)
     nb = plan["blocks"]
-    ext = (torch.empty((B * STATE_LEAVES * Z,), dtype=torch.float32,
-                       device=dev) if wide else
-           torch.zeros((4 * nb,), dtype=torch.int32, device=dev))
+    ext = torch.zeros((4 * nb,), dtype=torch.int32, device=dev)
     ins = args[:6] + (C2d, C2td, col_of) + args[8:]
-    ptrs = [t.data_ptr() for t in ins + outs + (k, done) + res + (snap, ext)]
+    ptrs = [t.data_ptr() for t in ins + outs + (k, done) + res + (snap,)
+            + scratch + (ext,)]
     if any(ptr % 16 for ptr in ptrs):
         raise ValueError("the fused kernel takes 16-byte aligned tensors")
     stream = torch.cuda.current_stream(dev).cuda_stream
-    build = ([] if wide else [plan["lanes"]]) + [plan["blocks"],
-                                                 plan["threads"],
-                                                 plan["smem"]]
     with torch.cuda.device(dev):
         err = launch(
-            *ptrs, B, Z, nd, *build, float(tol), int(k_max),
-            int(check_every), int(bool(exact_k)), stream)
+            *ptrs, B, Z, nd, plan["lanes"], plan["blocks"], plan["threads"],
+            plan["smem"], float(tol), int(k_max), int(check_every),
+            int(bool(exact_k)), stream)
     if err != 0:
         raise RuntimeError(f"fused_eadmm kernel launch failed with CUDA "
                            f"error {err} ({plan})")
     fused_eadmm_solve.launches += 1
-    fused_eadmm_solve.last_plan = (
-        dict(plan, nd=nd) if wide else
-        dict(plan, nd=nd, block_clocks=ext.view(nb, 4)))
+    fused_eadmm_solve.last_plan = dict(plan, nd=nd,
+                                       block_clocks=ext.view(nb, 4))
     e_flag = torch.where(done == 1, 1, -1).to(torch.int32)
     return outs + (k, e_flag) + res
 
@@ -430,7 +477,8 @@ def fused_eadmm_solve(x0b, z2refb, z2b0, z30, lm0, lht0, C2m, C2t, M3p,
     launch the kernel or raise. `classes` is `narrow_operands(C2m, C2t)`,
     computed once per operator by a caller that launches many times (the
     launch computes it when left out); `lanes` names the build to launch (a
-    key of BUILDS) in place of the dispatch's choice, `wide` the wide build
+    key of BUILDS, or of stage.WIDE_BUILDS for the wide build) in place of
+    the dispatch's choice, `wide` the wide build
     or not (by default: past MAX_COLS columns). The results depend on none
     of these, and the plain version takes none.
 

@@ -54,9 +54,11 @@ bits, so `lanes=` of `fused_fista_solve` may name another build, for a
 check or a timing.
 
 Past MAX_COLS columns of either width, up to WIDE_COLS, the wide build
-(fused_fista_wide_kernel, csrc/wide_cols.cuh) runs 512 threads at 8 lanes a
-block, each product's threads covering its output width two columns a
-thread, with q, z_prev, r, y and lam in global memory; `wide=` of
+(fused_fista_wide_kernel) runs the narrow builds' iteration on the stage,
+512 threads of two columns of each width at 16 or 8 lanes a block
+(stage.WIDE_BUILDS), no refill: its three products through one ring of
+16-row slabs where they fit (else 8, `wide_slab`), q, z_prev, y and lam in
+the block's global scratch. `wide=` of
 `fused_fista_solve` names it at any width, for a check of bits.
 """
 
@@ -68,8 +70,8 @@ import torch
 
 from spcies_tpu_torch.kernels import stage
 from spcies_tpu_torch.kernels.fused_admm import (COL_PAD, DQ_PAD, MAX_COLS,
-                                                 RBIG, WIDE_COLS, check_widths,
-                                                 round_up)
+                                                 RBIG, SMEM_MAX, WIDE_COLS,
+                                                 check_widths, round_up)
 
 __all__ = ["check_width", "COL_PAD", "MAX_COLS", "round_up",
            "fused_fista_reference", "fused_fista_solve", "launch_geometry",
@@ -87,11 +89,9 @@ FUSED_FISTA_ARGTYPES = ([ctypes.c_void_p] * 19 + [ctypes.c_int] * 7
 # to stage.NARROW columns (Build<L> in csrc/fused_fista.cu)
 BUILDS = {8: (16, 2), 16: (16, 1), 32: (16, 1)}
 WARP = 32
-# C signature of fused_fista_wide_launch: 19 pointers (the row extents'
-# place holds the blocks' global state); B, nzp, nlamp, blocks, threads,
-# shared bytes; tol; k_max, restart, check_every, fixed_iters, exact_k; the
-# stream
-FUSED_FISTA_WIDE_ARGTYPES = ([ctypes.c_void_p] * 19 + [ctypes.c_int] * 6
+# C signature of fused_fista_wide_launch: 20 pointers (the blocks' global
+# scratch before the int32 scratch); then as fused_fista_launch's
+FUSED_FISTA_WIDE_ARGTYPES = ([ctypes.c_void_p] * 20 + [ctypes.c_int] * 7
                              + [ctypes.c_float] + [ctypes.c_int] * 5
                              + [ctypes.c_void_p])
 # plain version: read "all lanes done" on the host every this many
@@ -243,15 +243,37 @@ def shared_bytes(nzp: int, nlamp: int, lanes: int,
     ring of slabs of the widest row, q, z_prev, y and lam as [rows][lanes],
     r and the dz/dy buffer with their padding, the warps' row maxima, the
     coefficients, the masks, the window starts, the slots' lanes and the
-    snapshot's t and res. The wide build's (fused_fista_wide_smem): dz as
-    [nzp][8], r and dy as [nlamp][8] and the warps' row maxima."""
+    snapshot's t and res. The wide build's (fused_fista_wide_smem):
+    `_wide_bytes` of its `wide_slab`."""
     if wide:
-        return 4 * stage.WIDE_LANES * (nzp + 2 * nlamp + stage.WIDE_WARPS)
+        return _wide_bytes(nzp, nlamp, lanes, wide_slab(nzp, nlamp, lanes))
     T = max(nzp, nlamp)
     slab = stage.build_of(BUILDS, T, lanes)[0]
     return stage.ring_bytes(T, slab) + 4 * (
         (2 * nzp + 2 * nlamp) * lanes + (nlamp + T) * (lanes + DQ_PAD)
         + T // WARP * 2 * lanes + lanes + 4 + 4 * lanes)
+
+
+def _wide_bytes(nzp: int, nlamp: int, lanes: int, slab: int) -> int:
+    """A wide block's shared bytes (wide_bytes in the source) at `slab`
+    rows a slab: the ring of slabs of the widest row, r and the dz/dy
+    buffer with their padding, the 16 warps' row maxima, the coefficients,
+    the masks, the window starts, the slots' lanes and the snapshot's t and
+    res; q, z_prev, y and lam lie in global scratch."""
+    T = max(nzp, nlamp)
+    return stage.ring_bytes(T, slab) + 4 * (
+        (nlamp + T) * (lanes + DQ_PAD) + stage.WIDE_WARPS * 2 * lanes
+        + lanes + 4 + 4 * lanes)
+
+
+def wide_slab(nzp: int, nlamp: int, lanes: int) -> int:
+    """Rows a slab of the wide build at `lanes` lanes (wide_slab_rows in
+    the source): 16 (stage.WIDE_BUILDS' at 16 lanes) where they fit, else
+    stage.GLOBAL_SLAB."""
+    slab = stage.WIDE_BUILDS[16][0]
+    if _wide_bytes(nzp, nlamp, lanes, slab) > SMEM_MAX:
+        slab = stage.GLOBAL_SLAB
+    return slab
 
 
 def check_width(nzp: int, nlamp: int) -> None:
@@ -267,11 +289,12 @@ def launch_plan(B: int, nzp: int, nlamp: int, *, tile_b: int,
                 k_max: int, lanes: int | None = None,
                 wide: bool | None = None):
     """The build a launch takes and its geometry, as a dict: lanes a block,
-    blocks, threads, dynamic shared bytes, refill (always False; and
-    wide=True for the wide build). `lanes` names a build in place of the
-    dispatch's choice, `wide` the wide build or not (by default: past
-    MAX_COLS columns of either width); raises ValueError on a shape or mode
-    no build takes."""
+    blocks, threads, dynamic shared bytes, refill (always False); the wide
+    build's also wide=True, its rows a slab (`wide_slab`) and global_leaves
+    (always True). `lanes` names a build in place of the dispatch's
+    choice, `wide` the wide build or not (by default: past MAX_COLS columns
+    of either width); raises ValueError on a shape or mode no build
+    takes."""
     check_width(nzp, nlamp)
     if k_max < 1:
         raise ValueError(f"k_max must be at least 1; got {k_max}")
@@ -280,8 +303,10 @@ def launch_plan(B: int, nzp: int, nlamp: int, *, tile_b: int,
                      check_every=1 if fixed_iters else check_every,
                      exact_k=exact_k)
     if stage.use_wide(max(nzp, nlamp), wide):
-        return stage.wide_plan(B, shared_bytes(nzp, nlamp, 8, wide=True),
-                               lanes)
+        return stage.plan(B, max(nzp, nlamp),
+                          lambda L: shared_bytes(nzp, nlamp, L, wide=True),
+                          stage.WIDE_BUILDS, refill=False, lanes=lanes,
+                          layout=lambda L: (wide_slab(nzp, nlamp, L), True))
     return stage.plan(B, max(nzp, nlamp),
                       lambda L: shared_bytes(nzp, nlamp, L), BUILDS,
                       refill=False, lanes=lanes)
@@ -325,33 +350,31 @@ def _launch(q1, z0, r0, y0, lam0, G_pad, GT_pad, WinvT_pad, hinv_pad,
     exact = check_every > 1 and exact_k and not fixed_iters
     snap = torch.empty((B if exact else 0, 2 * nzp + 3 * nlamp),
                        dtype=torch.float32, device=dev)
+    # the wide build's blocks' leaves: z_prev, q, y and lam
+    scratch = (torch.empty((B * (2 * nzp + 2 * nlamp),),
+                           dtype=torch.float32, device=dev),) if wide else ()
     # the real rows of G', Winv' and G, found by the launch; then each
     # block's kilo-clocks of its iterations and of each product's slab loop
-    # (in a build with TP_CLOCKS; else zeros); the wide build: the blocks'
-    # state, q, z_prev, r, y and lam
+    # (in a build with TP_CLOCKS; else zeros)
     nb = plan["blocks"]
-    ext = (torch.empty((B * (2 * nzp + 3 * nlamp),), dtype=torch.float32,
-                       device=dev) if wide else
-           torch.zeros((4 + 4 * nb,), dtype=torch.int32, device=dev))
-    ptrs = [t.data_ptr() for t in args + (z, y, lam, k, done, res, snap,
-                                          ext)]
+    ext = torch.zeros((4 + 4 * nb,), dtype=torch.int32, device=dev)
+    ptrs = [t.data_ptr() for t in args + (z, y, lam, k, done, res, snap)
+            + scratch + (ext,)]
     if any(ptr % 16 for ptr in ptrs):
         raise ValueError("the fused kernel takes 16-byte aligned tensors")
     stream = torch.cuda.current_stream(dev).cuda_stream
-    build = ([] if wide else [plan["lanes"]]) + [plan["blocks"],
-                                                 plan["threads"],
-                                                 plan["smem"]]
     with torch.cuda.device(dev):
         err = launch(
-            *ptrs, B, nzp, nlamp, *build, float(tol), int(k_max),
+            *ptrs, B, nzp, nlamp, plan["lanes"], plan["blocks"],
+            plan["threads"], plan["smem"], float(tol), int(k_max),
             int(bool(restart)), int(check_every), int(fixed_iters),
             int(bool(exact_k)), stream)
     if err != 0:
         raise RuntimeError(f"fused_fista kernel launch failed with CUDA "
                            f"error {err} ({plan})")
     fused_fista_solve.launches += 1
-    fused_fista_solve.last_plan = plan if wide else dict(
-        plan, block_clocks=ext[4:].view(nb, 4))
+    fused_fista_solve.last_plan = dict(plan,
+                                       block_clocks=ext[4:].view(nb, 4))
     e_flag = torch.where(done == 1, 1, -1).to(torch.int32)
     return z, y, lam, k, e_flag, res
 

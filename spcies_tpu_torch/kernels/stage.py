@@ -19,18 +19,20 @@ still gives half of the SMs a block, as kernels/fused_admm.py `pick_lanes`
 does.
 
 Past MAX_COLS columns each of K2-K7 runs its wide build, up to WIDE_COLS
-columns on WIDE_THREADS threads of two columns each (`use_wide`). K4's,
-K5's, K6's and K7's run on the stage's engine (csrc/fused_ellip.cu,
-csrc/fused_soc.cu, csrc/fused_hmpc.cu, csrc/fused_split.cu):
-`plan(..., layout=)` takes the widest of WIDE_BUILDS (16 lanes a block at
-16-row slabs, 8 at 8-row slabs, one block an SM) whose shared bytes fit,
-with refill (every mode but K4's fixed_iters, exact-k's included) and
-persistent blocks as the narrow builds have them; where the three leaves
-of a 16-lane block do not fit, all but the first go to global scratch with
-8-row slabs (`wide_layout`). K2 and K3 keep the first wide layout
-(csrc/wide_cols.cuh and their own): WIDE_LANES lanes a block, one block
-per WIDE_LANES lanes, no refill (`wide_plan`). A wide build also takes the
-narrow widths when it is named (`wide=True`), for a check of bits.
+columns on WIDE_THREADS threads of two columns each (`use_wide`), on the
+stage's engine (csrc/fused_fista.cu, csrc/fused_eadmm.cu,
+csrc/fused_ellip.cu, csrc/fused_soc.cu, csrc/fused_hmpc.cu,
+csrc/fused_split.cu): `plan(..., layout=)` takes the widest of WIDE_BUILDS
+(16 lanes a block, 8; one block an SM) whose shared bytes fit, and
+`layout(lanes)` names the build's rows a slab and whether leaves of its
+state go to global scratch. K4's-K7's wide builds refill as the narrow
+builds do (every mode but K4's fixed_iters, exact-k's included), with 16-row
+slabs where their three leaves fit and all but the first leaf in global
+scratch with 8-row slabs where they do not (`wide_layout`); K2's and K3's
+keep a block of L lanes, as their narrow builds do, and lay out their own
+state (kernels/fused_fista.py and kernels/fused_eadmm.py `wide_layout`). A
+wide build also takes the narrow widths when it is named (`wide=True`), for
+a check of bits.
 """
 
 from __future__ import annotations
@@ -46,14 +48,11 @@ SMEM_SM, SMEM_RESERVED = 233472, 1024
 # WIDE_BUILD (rows a slab, blocks an SM)
 NARROW = 320
 WIDE_BUILD = (16, 1)
-# the wide builds of K2 and K3: lanes a block (one group of 8, which plain
-# free-run drains); warps a block of every wide build
-WIDE_LANES = DRAIN_LANES
+# warps a block of every wide build
 WIDE_WARPS = WIDE_THREADS // 32
-# the wide builds of K4-K7 on the stage's engine: lanes a block -> (rows a
-# slab of the matrix, blocks an SM) (tp::wide_slab in
-# csrc/tile_product.cuh), and the rows a slab with global leaves
-# (tp::WIDE_SLAB_8)
+# the wide builds on the stage's engine: lanes a block -> (rows a slab of
+# the matrix, blocks an SM) (tp::wide_slab in csrc/tile_product.cuh), and
+# the rows a slab with global leaves (tp::WIDE_SLAB_8)
 WIDE_BUILDS = {16: (16, 1), 8: (8, 1)}
 GLOBAL_SLAB = 8
 
@@ -175,21 +174,3 @@ def use_wide(width: int, wide: bool | None) -> bool:
                          f"{MAX_COLS} columns; got {width}")
     return bool(wide)
 
-
-def wide_plan(B: int, smem: int, lanes: int | None = None) -> dict:
-    """The launch of a wide build of K2 or K3 (up to WIDE_COLS columns,
-    checked by the kernel's `check_width`) of B lanes, whole groups of
-    WIDE_LANES, with
-    `smem` dynamic shared bytes: one block per WIDE_LANES lanes of
-    WIDE_THREADS threads, no refill. Raises ValueError where `lanes` names
-    another build or the block does not fit shared memory."""
-    if lanes not in (None, WIDE_LANES):
-        raise ValueError(f"the wide build runs {WIDE_LANES} lanes a block; "
-                         f"got lanes={lanes}")
-    if B % WIDE_LANES:
-        raise ValueError(f"batch {B} is not whole groups of {WIDE_LANES}")
-    if smem > SMEM_MAX:
-        raise ValueError(f"the wide build's block needs {smem} bytes of "
-                         f"shared memory, past {SMEM_MAX}")
-    return dict(lanes=WIDE_LANES, blocks=B // WIDE_LANES,
-                threads=WIDE_THREADS, smem=smem, refill=False, wide=True)

@@ -151,29 +151,32 @@ def test_wide_constants_match_the_source():
 
 # kernel -> (module, its launch_plan's shape arguments at padded width W,
 # its C source's function of the wide build's shared bytes, that
-# function's arguments, shared_bytes' arguments for the wide build)
+# function's arguments, shared_bytes' arguments for the wide build at L
+# lanes a block)
 WIDE_PLANS = {
     "K2": (fused_fista, lambda W: (W, W - 128),
            dict(fixed_iters=0, k_max=100), "fused_fista_wide_smem",
            lambda W: dict(nzp=W, nlamp=W - 128),
-           lambda W: (W, W - 128, 8)),
+           lambda W, L: (W, W - 128, L)),
     "K3": (fused_eadmm, lambda W: (W, 9), dict(k_max=100),
            "fused_eadmm_wide_smem", lambda W: dict(Z=W, nd=9),
-           lambda W: (W, 8, 9)),
+           lambda W, L: (W, L, 9)),
     "K4": (fused_ellip, lambda W: (W, W - 30, 6), dict(fixed_iters=0),
            "fused_ellip_wide_smem", lambda W: dict(P=W, n=6),
-           lambda W: (W, 6)),
+           lambda W, L: (W, 6, L)),
     "K5": (fused_soc, lambda W: (W, W - 32), {}, "fused_soc_wide_smem",
-           lambda W: dict(P=W), lambda W: (W,)),
+           lambda W: dict(P=W), lambda W, L: (W, L)),
     "K6": (fused_hmpc, lambda W: (W, W, W - 32, 8), {},
            "fused_hmpc_wide_smem", lambda W: dict(dim_p=W, ns_p=W),
-           lambda W: (W, W)),
+           lambda W, L: (W, W, L)),
     "K7": (fused_split, lambda W: (W, W - 64, W - 32, 8), {},
-           "fused_split_wide_smem", lambda W: dict(P=W), lambda W: (W,)),
+           "fused_split_wide_smem", lambda W: dict(P=W),
+           lambda W, L: (W, L)),
 }
-# K4-K7 run their wide builds on the stage's engine (kernels/stage.py
-# WIDE_BUILDS): lanes a block, refill and persistent blocks as planned
-STAGE_WIDE = ("K4", "K5", "K6", "K7")
+# every wide build runs on the stage's engine (kernels/stage.py
+# WIDE_BUILDS); K4-K7's refill, K2's and K3's keep a block of L lanes
+STAGE_WIDE = ("K2", "K3", "K4", "K5", "K6", "K7")
+REFILL_WIDE = ("K4", "K5", "K6", "K7")
 # a block's shared bytes with its three leaves in shared memory at 16 lanes
 # a block and 8-row slabs, at 1024 columns (of both widths)
 THREE_LEAVES_1024 = {
@@ -219,72 +222,76 @@ def _c_def(src: str, name: str, env: dict):
     return lambda *a: eval(expr, {}, dict(env, **dict(zip(params, a))))
 
 
-def _c_bytes(kernel: str, W: int, lanes: int = 8) -> int:
+def _c_bytes(kernel: str, W: int, lanes: int = 8, cargs=None) -> int:
     """The wide build's shared bytes as its C source computes them,
-    evaluated in Python: K2's and K3's own expressions (csrc/wide_cols.cuh
-    has no shared layout of its own), or K4-K7's wide_bytes over the
-    stage's ring (tp::ring_bytes of csrc/tile_product.cuh, two buffers and
-    64 bytes of mbarriers) at `lanes` lanes a block, with the three leaves
-    or, where wide_global, the first alone, with the constants of their
-    sources and of csrc/tile_product.cuh."""
+    evaluated in Python: the source's wide_smem function over its one-line
+    helpers (wide_bytes over the stage's ring, tp::ring_bytes of
+    csrc/tile_product.cuh: two buffers and 64 bytes of mbarriers; the
+    layout's choices, wide_global, wide_slab_rows, wide_staged) at `lanes`
+    lanes a block, with the constants of the source and of
+    csrc/tile_product.cuh, at WIDE_PLANS' arguments of padded width W or
+    at `cargs`."""
     import re
-    module, _shape, _kw, fn, cargs, _ = WIDE_PLANS[kernel]
+    module, _shape, _kw, fn, c_of, _ = WIDE_PLANS[kernel]
     name = module.__name__.rsplit(".", 1)[1]
     src = (_build.CSRC / f"{name}.cu").read_text()
     tph = (_build.CSRC / "tile_product.cuh").read_text()
-    expr = _c_return(src, fn)
-    env = dict(cargs(W), lanes=lanes, TB=8, WARPS=16)
-    if "long wide_bytes(" in src:
-        assert "4L * NST * SR * P + (TP_STAGE == 2 ? 64L : 0L)" in tph
-        assert "#define TP_STAGES 2\n" in tph and "#define TP_STAGE 2 " in tph
-        env.update({k: int(v) for k, v in re.findall(
-            r"constexpr (?:int|long) (\w+) = (\d+);", tph + src)})
-        env.update(wide_slab=lambda n: env[f"WIDE_SLAB_{n}"],
-                   ring_bytes=lambda P, SR: 4 * 2 * SR * P + 64)
-        env["wide_bytes"] = _c_def(src, "wide_bytes", env)
-        env["wide_global"] = _c_def(src, "wide_global", env)
-    return eval(_py(expr), {}, env)
+    wide = src[src.index("#if WIDE_PART"):]
+    assert "4L * NST * SR * P + (TP_STAGE == 2 ? 64L : 0L)" in tph
+    assert "#define TP_STAGES 2\n" in tph and "#define TP_STAGE 2 " in tph
+    assert "WARPS = tp::WIDE_THREADS / 32;" in wide or "WARPS" not in wide
+    env = dict(cargs or c_of(W), lanes=lanes, WARPS=stage.WIDE_WARPS)
+    env.update({k: int(v) for k, v in re.findall(
+        r"constexpr (?:int|long) (\w+) = (\d+);", tph + wide)})
+    env.update(wide_slab=lambda n: env[f"WIDE_SLAB_{n}"],
+               ring_bytes=lambda P, SR: 4 * 2 * SR * P + 64)
+    for helper in re.findall(r"^(?:long|int|bool) (\w+)\(", wide, re.M):
+        env[helper] = _c_def(wide, helper, env)
+    return eval(_py(_c_return(src, fn)), {}, env)
 
 
 @pytest.mark.parametrize("kernel", sorted(WIDE_PLANS))
 @pytest.mark.parametrize("W", [256, 544, 1024])
 def test_wide_launch_plan(kernel, W):
     """Each of K2-K7's launch plans names its wide build at 256, 544 and
-    1024 columns: 512 threads, its shared bytes within the 232,448 a block
-    can have and equal to what the C source's wide_smem function computes.
-    K2 and K3: 8 lanes a block, one block per 8 lanes, no refill. K4-K7
-    (on the stage's engine): 16 lanes a block, with 16-row slabs and the
-    three leaves in shared memory where they fit (up to 544 columns), else
-    with the second and third leaves in global scratch and 8-row slabs (the
-    three leaves at 16 lanes would pass the 232,448 bytes), refill in every
-    mode (K4's fixed_iters: static blocks of 16 lanes), persistent blocks,
-    no more than the SMs (one block an SM) and the groups fill. Past 512
-    columns the plan takes the wide build by default; up to 512 the narrow
-    builds, and no build of one thread a column is named past 512."""
+    1024 columns: 512 threads at 16 lanes a block, its shared bytes within
+    the 232,448 a block can have and equal to what the C source's
+    wide_smem function computes, also at 8 lanes. K4-K7: 16-row slabs and
+    the three leaves in shared memory where they fit (up to 544 columns),
+    else the second and third leaves in global scratch and 8-row slabs
+    (the three leaves at 16 lanes would pass the 232,448 bytes), refill in
+    every mode (K4's fixed_iters: static blocks of 16 lanes), persistent
+    blocks, no more than the SMs (one block an SM) and the groups fill. K2
+    and K3: one block per 16 lanes, no refill, their state laid out by
+    their own layouts. Past 512 columns the plan takes the wide build by
+    default; up to 512 the narrow builds, and no build of one thread a
+    column is named past 512."""
     module, shape, extra, _fn, _c, sb = WIDE_PLANS[kernel]
     kw = dict(tile_b=8, check_every=8, exact_k=True, **extra)
     plan = module.launch_plan(8192, *shape(W), **kw, wide=True)
     assert plan["wide"] and plan["threads"] == 512 == stage.WIDE_THREADS
-    if kernel in STAGE_WIDE:
-        assert plan["lanes"] == 16 and plan["refill"]
+    assert plan["lanes"] == 16
+    assert plan["smem"] == module.shared_bytes(*sb(W, 16), wide=True)
+    assert plan["smem"] == _c_bytes(kernel, W, 16)
+    eight = module.launch_plan(8192, *shape(W), **kw, wide=True, lanes=8)
+    assert eight["smem"] == _c_bytes(kernel, W, 8)
+    assert eight["smem"] == module.shared_bytes(*sb(W, 8), wide=True)
+    if kernel in REFILL_WIDE:
+        assert plan["refill"]
         assert plan["global_leaves"] == (W > 544)
         assert plan["slab"] == (16 if W <= 544 else stage.GLOBAL_SLAB)
         assert plan["blocks"] == min(8192 // 16, fused_admm.SMS * 1)
-        assert plan["smem"] == module.shared_bytes(*sb(W), 16, wide=True)
-        assert plan["smem"] == _c_bytes(kernel, W, 16)
-        eight = module.launch_plan(8192, *shape(W), **kw, wide=True, lanes=8)
         assert eight["slab"] == 8 and not eight["global_leaves"]
-        assert eight["smem"] == _c_bytes(kernel, W, 8)
         assert eight["blocks"] == fused_admm.SMS and eight["refill"]
         if kernel == "K4":
             fixed = module.launch_plan(8192, *shape(W),
                                        **dict(kw, fixed_iters=50), wide=True)
             assert fixed == dict(plan, refill=False, blocks=8192 // 16)
     else:
-        assert plan["lanes"] == 8 and plan["blocks"] == 8192 // 8
-        assert not plan["refill"]
-        assert plan["smem"] == module.shared_bytes(*sb(W), wide=True)
-        assert plan["smem"] == _c_bytes(kernel, W)
+        assert not plan["refill"] and plan["blocks"] == 8192 // 16
+        assert not eight["refill"] and eight["blocks"] == 8192 // 8
+        assert plan["slab"] == _k23_slab(kernel, sb(W, 16))
+        assert plan["global_leaves"]
     assert plan["smem"] <= fused_admm.SMEM_MAX
     default = module.launch_plan(8192, *shape(W), **kw)
     assert default.get("wide", False) == (W > 512)
@@ -297,27 +304,148 @@ def test_wide_launch_plan(kernel, W):
             "K2", "K6") else 1])
 
 
-def test_wide_plan_takes_eight_lanes_alone():
-    """K3's wide build is one build, 8 lanes a block: naming another
-    raises, as does a batch of part of a group of 8."""
-    kw = dict(tile_b=8, check_every=1, exact_k=False, k_max=100)
-    for lanes in (16, 32):
-        with pytest.raises(ValueError, match="8 lanes a block"):
-            fused_eadmm.launch_plan(8192, 544, 9, **kw, lanes=lanes)
-    assert fused_eadmm.launch_plan(8192, 544, 9, **kw, lanes=8)["wide"]
-    with pytest.raises(ValueError):
-        fused_eadmm.launch_plan(12, 544, 9, **kw)
+def _k23_slab(kernel, args):
+    """K2's or K3's wide build's rows a slab at shared_bytes' arguments."""
+    if kernel == "K2":
+        return fused_fista.wide_slab(*args)
+    return fused_eadmm.wide_layout(*args)[0]
+
+
+# K2's and K3's wide layouts at phase 17's shapes (chip_smoke.py
+# WIDE_HORIZONS: laxMPC-FISTA N=65 and 128, MPCT-EADMM N=64 and 127, whose
+# nd is 9 and 8): padded width -> shape arguments, and lanes a block ->
+# (rows a slab, global leaves; K3 also whether C2d is copied to shared
+# memory)
+K23_LAYOUTS = {
+    ("K2", 544): ((544, 416), {16: (16, True), 8: (16, True)}),
+    ("K2", 1024): ((1024, 768), {16: (8, True), 8: (16, True)}),
+    ("K3", 544): ((544, 9), {16: (16, True, True), 8: (8, True, True)}),
+    ("K3", 1024): ((1024, 8), {16: (8, True, True), 8: (8, True, True)}),
+}
+
+
+@pytest.mark.parametrize("lanes", [8, 16])
+@pytest.mark.parametrize("kernel,W", sorted(K23_LAYOUTS))
+def test_k2_k3_wide_layouts(kernel, W, lanes):
+    """K2's and K3's wide builds at phase 17's shapes, 8 and 16 lanes a
+    block: one block per L lanes, no refill, and the layout each picks.
+    K2: its four leaves in global scratch, 16-row slabs where they fit (not
+    at 1024 x 768 columns, 16 lanes). K3: the nine leaves and dv2t in
+    global scratch; C2d copied to shared memory
+    where it fits beside 8-row slabs (here everywhere), then 16-row slabs
+    of M3p where they fit beside the rest (544 columns, 16 lanes). The
+    shared bytes are those of the C source's wide_smem expression, and the
+    layout one step richer does not fit."""
+    module = WIDE_PLANS[kernel][0]
+    shape, layouts = K23_LAYOUTS[(kernel, W)]
+    kw = dict(tile_b=8, check_every=8, exact_k=True, k_max=100,
+              **(dict(fixed_iters=0) if kernel == "K2" else {}))
+    plan = module.launch_plan(8192, *shape, **kw, lanes=lanes)
+    assert plan["wide"] and plan["lanes"] == lanes and not plan["refill"]
+    assert plan["blocks"] == 8192 // lanes and plan["threads"] == 512
+    cargs = (dict(nzp=shape[0], nlamp=shape[1]) if kernel == "K2" else
+             dict(Z=shape[0], nd=shape[1]))
+    assert plan["smem"] == _c_bytes(kernel, W, lanes, cargs)
+    assert plan["smem"] <= fused_admm.SMEM_MAX
+    want = layouts[lanes]
+    if kernel == "K2":
+        nzp, nlamp = shape
+        assert (plan["slab"], plan["global_leaves"]) == want
+        assert module.wide_slab(nzp, nlamp, lanes) == want[0]
+        if want[0] < 16:
+            assert module._wide_bytes(nzp, nlamp, lanes, 16) > (
+                fused_admm.SMEM_MAX)
+    else:
+        Z, nd = shape
+        assert (plan["slab"], plan["global_leaves"],
+                plan["c2d_staged"]) == want
+        slab, staged = want[0], want[2]
+        if not staged:
+            assert module._wide_bytes(Z, lanes, nd, stage.GLOBAL_SLAB,
+                                      True) > fused_admm.SMEM_MAX
+        if slab < stage.WIDE_BUILDS[lanes][0]:
+            assert module._wide_bytes(Z, lanes, nd, 16, staged) > (
+                fused_admm.SMEM_MAX)
+
+
+@pytest.mark.parametrize("Z", [544, 1024])
+def test_k3_wide_build_takes_every_class_count_it_took(Z):
+    """Past 512 columns check_width takes nd up to wide_classes(Z), 82
+    classes at 544 columns and 32 at 1024, and refuses one more: the first
+    wide layout's rule (C2d's [Z][nd] beside three [Z][8] buffers and 16
+    warps' three row maxima of 8 lanes in 232,448 bytes), so that the
+    kernel takes and refuses what it did; and the wide build on the stage
+    takes each of those counts at 16 lanes a block (planned) and at 8."""
+    top = fused_eadmm.wide_classes(Z)
+    assert top == {544: 82, 1024: 32}[Z]
+    assert 4 * (24 * Z + 384 + Z * top) <= fused_admm.SMEM_MAX
+    assert 4 * (24 * Z + 384 + Z * (top + 1)) > fused_admm.SMEM_MAX
+    kw = dict(tile_b=8, check_every=8, exact_k=True, k_max=100)
+    for nd in range(1, top + 1):
+        fused_eadmm.check_width(Z, nd)
+        assert fused_eadmm.launch_plan(8192, Z, nd, **kw)["lanes"] == 16
+        plan = fused_eadmm.launch_plan(8192, Z, nd, **kw, lanes=8)
+        assert plan["wide"] and plan["smem"] <= fused_admm.SMEM_MAX
+    with pytest.raises(ValueError, match='shared memory: use backend="dense"'):
+        fused_eadmm.check_width(Z, top + 1)
+
+
+def _chip_smoke():
+    """chip_smoke.py as a module (it needs no card until main runs)."""
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke_mod", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("run", [2, 3])
+def test_phase_17_k3_plants_take_the_ldg_layout(run):
+    """chip_smoke.py's phase-17 runs of K3 on random plants (WIDE_EXTRA)
+    reach 1024 padded columns with more classes of columns than C2d's copy
+    fits beside the 16-lane build's ring, so that the card runs the layout
+    whose z2 chains read C2d by __ldg: nd 21, where the 8-lane build still
+    copies it, and nd 29, where neither does."""
+    cs = _chip_smoke()
+    fam, horizon, pk, _ = cs.wide_runs("fused_eadmm")[run]
+    cs.DEVICE = "cpu"
+    solver = cs.fam_solver(tsp, fam, horizon=horizon, **pk)
+    Z = max(max(t.shape) for t in solver.raw_fn.operator if t.dim() == 2)
+    nd = solver.raw_fn.classes[0].shape[1]
+    assert (Z, nd) == (1024, {2: 21, 3: 29}[run])
+    kw = dict(tile_b=256, check_every=1, exact_k=False, k_max=5000)
+    plan = fused_eadmm.launch_plan(cs.FB, Z, nd, **kw)
+    assert (plan["lanes"], plan["c2d_staged"]) == (16, False)
+    eight = fused_eadmm.launch_plan(cs.FB, Z, nd, **kw, lanes=8)
+    assert eight["c2d_staged"] == (run == 2)
+
+
+def test_first_wide_layout_retired():
+    """The first wide layout is gone: its header no longer exists, no
+    kernel source or header under csrc/ names it, and kernels/stage.py
+    plans every wide build through `plan` (no wide_plan, no
+    WIDE_LANES)."""
+    assert not (_build.CSRC / "wide_cols.cuh").exists()
+    for f in sorted(_build.CSRC.glob("**/*.cu*")):
+        assert "wide_cols" not in f.read_text(), f
+    assert not hasattr(stage, "wide_plan")
+    assert not hasattr(stage, "WIDE_LANES")
 
 
 @pytest.mark.parametrize("kernel", STAGE_WIDE)
 def test_stage_wide_plans_refuse_what_does_not_fit(kernel):
-    """K4's, K5's, K6's and K7's wide builds run 16 or 8 lanes a block: 32
-    lanes are refused at every width, as is a batch of part of a group of
-    8. 16 lanes at 1024 columns keep their first leaf alone in shared
-    memory (their three leaves, dq and a ring of 8-row slabs would need
-    346,320 bytes or more); 8 lanes take 1024 columns with their three
-    leaves, and every batch of whole groups, its blocks no more than the
-    groups."""
+    """Every wide build runs 16 or 8 lanes a block: 32 lanes are refused at
+    every width, as is a batch of part of a group of 8. K4-K7: 16 lanes at
+    1024 columns keep their first leaf alone in shared memory (their three
+    leaves, dq and a ring of 8-row slabs would need 346,320 bytes or more);
+    8 lanes take 1024 columns with their three leaves, and every batch of
+    whole groups, its blocks no more than the groups. K2 and K3 (no
+    refill): 16 lanes at 1024 columns take 8-row slabs with their leaves
+    in global scratch, 8 lanes their own slab and any batch of
+    whole groups, one block per 8 lanes, and 16 lanes only a batch of
+    whole blocks."""
     module, shape, extra, _fn, _c, _sb = WIDE_PLANS[kernel]
     for mode in (dict(check_every=1, exact_k=False),
                  dict(check_every=8, exact_k=True)):
@@ -325,14 +453,25 @@ def test_stage_wide_plans_refuse_what_does_not_fit(kernel):
         for W in (544, 1024):
             with pytest.raises(ValueError, match="no build"):
                 module.launch_plan(8192, *shape(W), **kw, lanes=32)
-        assert THREE_LEAVES_1024[kernel]() >= 346320 > fused_admm.SMEM_MAX
         plan = module.launch_plan(8192, *shape(1024), **kw, lanes=16)
         assert plan["global_leaves"] and plan["slab"] == 8
         assert plan["smem"] <= fused_admm.SMEM_MAX
         assert module.launch_plan(8192, *shape(1024), **kw) == plan
         plan = module.launch_plan(8192, *shape(1024), **kw, lanes=8)
-        assert plan["wide"] and plan["refill"] and plan["slab"] == 8
-        assert not plan["global_leaves"]
+        assert plan["wide"]
+        if kernel in REFILL_WIDE:
+            assert THREE_LEAVES_1024[kernel]() >= 346320 > (
+                fused_admm.SMEM_MAX)
+            assert plan["refill"] and not plan["global_leaves"]
+            assert plan["slab"] == 8
+        else:
+            assert not plan["refill"] and plan["blocks"] == 8192 // 8
+            assert plan["slab"] == _k23_slab(kernel,
+                                             WIDE_PLANS[kernel][5](1024, 8))
+            odd = module.launch_plan(8200, *shape(544), **kw)
+            assert odd["lanes"] == 8 and odd["blocks"] == 1025
+            with pytest.raises(ValueError, match="no build"):
+                module.launch_plan(8200, *shape(544), **kw, lanes=16)
         small = module.launch_plan(40, *shape(544), **kw)
         assert small["lanes"] == 8 and small["blocks"] == 5
         with pytest.raises(ValueError):
@@ -340,18 +479,12 @@ def test_stage_wide_plans_refuse_what_does_not_fit(kernel):
 
 
 def test_wide_constants_match_the_header():
-    """K2 and K3 build their wide kernels on csrc/wide_cols.cuh, in which
-    nothing of the one-product layout K4, K5 and K7 ran on remains; K4-K7
-    on the stage (csrc/tile_product.cuh alone), whose wide constants
-    (tp::WIDE_*, one copy for the four) are those kernels/stage.py plans
-    for."""
-    hdr = (_build.CSRC / "wide_cols.cuh").read_text()
-    assert f"THREADS = {stage.WIDE_THREADS};" in hdr
-    assert f"TB = {stage.WIDE_LANES};" in hdr
-    assert f"CPT = {fused_admm.WIDE_CPT};" in hdr
-    assert f"SMEM_MAX = {fused_admm.SMEM_MAX};" in hdr
-    for gone in ("Box", "box_", "BOX_", "BXC", "proj_ssoc", "max_abs"):
-        assert gone not in hdr, gone
+    """K2-K7 build their wide kernels on the stage (csrc/tile_product.cuh
+    alone), whose wide constants (tp::WIDE_*, one copy for the six) are
+    those kernels/stage.py plans for: 512 threads of two columns, tiles of
+    tp::wide_tc<L>() columns, a build for each of stage.WIDE_BUILDS' lanes
+    a block; K4-K7 through the refill loops (tp::run_lanes), K2 and K3
+    through tp::run_modes, as their narrow builds."""
     tph = (_build.CSRC / "tile_product.cuh").read_text()
     assert f"WIDE_CPT = {fused_admm.WIDE_CPT};" in tph
     assert f"WIDE_THREADS = {stage.WIDE_THREADS};" in tph
@@ -363,28 +496,31 @@ def test_wide_constants_match_the_header():
     for name in ("fused_fista", "fused_eadmm", "fused_ellip", "fused_soc",
                  "fused_hmpc", "fused_split"):
         src = (_build.CSRC / f"{name}.cu").read_text()
-        on_stage = name not in ("fused_fista", "fused_eadmm")
-        assert ('#include "wide_cols.cuh"' in src) != on_stage
-        assert f"{name}_wide_kernel" in src
-        assert f'extern "C" int {name}_wide_launch(' in src
-        assert f'extern "C" long {name}_wide_smem(' in src
-        if on_stage:
-            wide = src[src.index("#if WIDE_PART"):]
-            assert _build.included_files(_build.CSRC / f"{name}.cu") == [
-                _build.CSRC / f"{name}.cu", _build.CSRC / "tile_product.cuh"]
-            assert "constexpr int WIDE_CPT" not in src
-            assert "wide_tc() {" not in src
-            assert f"MAX_COLS = {fused_admm.MAX_COLS};" in src
+        wide = src[src.index("#if WIDE_PART"):]
+        assert _build.included_files(_build.CSRC / f"{name}.cu") == [
+            _build.CSRC / f"{name}.cu", _build.CSRC / "tile_product.cuh"]
+        assert f"{name}_wide_kernel" in wide
+        assert f'extern "C" int {name}_wide_launch(' in wide
+        assert f'extern "C" long {name}_wide_smem(' in wide
+        assert "constexpr int WIDE_CPT" not in src
+        assert "wide_tc() {" not in src
+        assert f"MAX_COLS = {fused_admm.MAX_COLS};" in src
+        assert "__launch_bounds__(tp::WIDE_THREADS, 1)" in wide
+        assert "tp::wide_tc<L>()" in wide
+        if name in ("fused_fista", "fused_eadmm"):
             for lanes in stage.WIDE_BUILDS:
-                assert f"wide_lanes<{lanes}, false>(p, " in wide
-            # 16 lanes with the global leaves, at GLOBAL_SLAB rows a slab
-            assert "wide_lanes<16, true>(p, " in wide
-            assert "GL ? tp::WIDE_SLAB_8 : tp::wide_slab(L)" in wide
-            assert "__launch_bounds__(tp::WIDE_THREADS, 1)" in wide
-            for build in ("<L, GL, false, false>", "<L, GL, true, true>",
-                          "<L, GL, true, false>"):
-                assert f"wide_launch{build}(p, " in wide
-            assert "tp::run_lanes<L, REFILL, EXACT>" in wide
+                assert f"wide_launch<{lanes}, " in wide
+            assert "tp::run_modes<L" in wide and "run_lanes" not in wide
+            continue
+        for lanes in stage.WIDE_BUILDS:
+            assert f"wide_lanes<{lanes}, false>(p, " in wide
+        # 16 lanes with the global leaves, at GLOBAL_SLAB rows a slab
+        assert "wide_lanes<16, true>(p, " in wide
+        assert "GL ? tp::WIDE_SLAB_8 : tp::wide_slab(L)" in wide
+        for build in ("<L, GL, false, false>", "<L, GL, true, true>",
+                      "<L, GL, true, false>"):
+            assert f"wide_launch{build}(p, " in wide
+        assert "tp::run_lanes<L, REFILL, EXACT>" in wide
 
 
 def _mpct_cs_pair(N, **kw):

@@ -33,25 +33,26 @@ in that directory.
 
 With --wide, K2-K7's wide builds instead: each kernel's family at
 chip_smoke.py's WIDE_HORIZONS, B=8192, and at its WIDE_EXTRA
-(ellipHMPC-ADMM N=62 for K6, HMPC-SADMM-split N=58 for K7), with the
+(ellipHMPC-ADMM N=62 for K6, HMPC-SADMM-split N=58 for K7, MPCT-EADMM on
+two random plants at 1024 columns for K3's __ldg path), with the
 ptxas report of every function (the wide kernels' registers and spills
 may move) and no comparison of them. Where the earlier tree's wide build
-of a kernel still ran on csrc/wide_cols.cuh (8 lanes a block, the blocks'
+of a kernel still ran the first wide layout (8 lanes a block, the blocks'
 state in global memory: its wide launch takes `state`), that launch is
-called with its own C signature (PARENT_WIDE: K4, K5, K6, K7), the
-working tree's through its wrappers; else both through the wrappers. For
-the kernels whose wide builds run on the stage's engine (K4-K7,
-chip_smoke.py STAGE_WIDE) the working tree's other lanes-a-block wide
-builds are also held to its planned one bit for bit and timed, and a
-build of it with TP_CLOCKS gives the clocks of an iteration's element-wise
-half and product (tools/ab_kernels.py clock_shares) at each lanes a block.
-For example, against the commit before K4 and K6 moved onto the stage's
-engine:
+called with its own C signature (PARENT_WIDE: K2-K7), the working tree's
+through its wrappers; else both through the wrappers. For every wide
+build (all on the stage) the working tree's other lanes-a-block wide
+builds are also held to its planned one bit for bit
+and timed, and a build of it with TP_CLOCKS gives the clocks of an
+iteration's parts (tools/ab_kernels.py clock_shares: K4-K7's element-wise
+half and product, K2's iterations and products, K3's P1, z2 chains, P2
+and P3) at each lanes a block. For example, against the commit before K2
+and K3 moved onto the stage:
 
     mkdir -p scratch_checkout/parent
-    git archive f700d9f spcies_tpu_torch/csrc | tar -x -C scratch_checkout/parent
+    git archive 27aecea spcies_tpu_torch/csrc | tar -x -C scratch_checkout/parent
     python3 tools/ab_parent.py --wide \
-        scratch_checkout/parent/spcies_tpu_torch/csrc fused_ellip fused_hmpc
+        scratch_checkout/parent/spcies_tpu_torch/csrc fused_fista fused_eadmm
 """
 
 from __future__ import annotations
@@ -90,8 +91,14 @@ CASES = {
     "fused_split": [("HMPC-ADMM-split", "HMPC-ADMM-split", c.FB, {}),
                     ("HMPC-SADMM-split", "HMPC-SADMM-split", c.FB, {})],
 }
-# the wide launches of K4-K7 on csrc/wide_cols.cuh: 17 pointers (the
-# inputs, the outputs, the exact-k snapshot, the blocks' state); then K4:
+# the wide launches on the first wide layout: K2, 19 pointers (the 11
+# inputs, the 6 outputs, the exact-k snapshot, the blocks' state); B, nzp,
+# nlamp, blocks, threads, shared bytes; tol; k_max, restart, check_every,
+# fixed_iters, exact_k; the stream. K3, 30 pointers (the 18 inputs with
+# C2m's and C2t's classes, the 10 outputs, the snapshot, the state); B, Z,
+# nd, blocks, threads, shared bytes; tol; k_max, check_every, exact_k; the
+# stream. K4-K7, 17 pointers (the inputs, the outputs, the exact-k
+# snapshot, the blocks' state); then K4:
 # B, nzp, t0, n, blocks, threads, shared bytes; rho, 1/rho, r, tol_p,
 # tol_d; k_max, check_every, fixed_iters, exact_k; K5: B, P, dim_p, blocks,
 # threads, shared bytes; tol_p, tol_d; k_max, check_every, exact_k; K6: B,
@@ -99,6 +106,12 @@ CASES = {
 # 1/rho, tol_p, tol_d; k_max, check_every, exact_k; K7: as K5's with cone0,
 # cone_g, symmetric, use_soc after dim_p and alpha before tol_p; the stream
 PARENT_WIDE = {
+    "fused_fista": ([ctypes.c_void_p] * 19 + [ctypes.c_int] * 6
+                    + [ctypes.c_float] + [ctypes.c_int] * 5
+                    + [ctypes.c_void_p]),
+    "fused_eadmm": ([ctypes.c_void_p] * 30 + [ctypes.c_int] * 6
+                    + [ctypes.c_float] + [ctypes.c_int] * 3
+                    + [ctypes.c_void_p]),
     "fused_ellip": ([ctypes.c_void_p] * 17 + [ctypes.c_int] * 7
                     + [ctypes.c_float] * 5 + [ctypes.c_int] * 4
                     + [ctypes.c_void_p]),
@@ -112,6 +125,9 @@ PARENT_WIDE = {
                     + [ctypes.c_float] * 3 + [ctypes.c_int] * 3
                     + [ctypes.c_void_p]),
 }
+# where k lies in the outputs of the wide builds without refill, whose
+# clocks are each block's over its slowest lane's iterations
+K_AT = {"fused_fista": 3, "fused_eadmm": 5}
 _ENTRY = re.compile(r"Compiling entry function '([^']+)'")
 _SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
 _REGS = re.compile(r"Used (\d+) registers")
@@ -163,20 +179,22 @@ def narrow_report(name: str, runs: list[tuple[Path, str]]) -> list[dict]:
 
 
 def takes_state(tree: Path, name: str) -> bool:
-    """Whether the wide launch of <name>.cu in `tree` is the first
-    layout's on csrc/wide_cols.cuh (its C signature takes `state`)."""
+    """Whether the wide launch of <name>.cu in `tree` is the first wide
+    layout's (its C signature takes `state`)."""
     src = (tree / f"{name}.cu").read_text()
     head = src.find(f'extern "C" int {name}_wide_launch(')
     return head >= 0 and "float* state" in src[head:src.index("{", head)]
 
 
 def parent_wide(name, lib, args, kk):
-    """A wide build of K4-K7 on csrc/wide_cols.cuh (PARENT_WIDE): one
-    block of 512 threads per 8 lanes, its leaves in global memory, dq (K6:
-    the prepared z and w) and the row maxima in shared memory. Returns the
-    wrapper's outputs."""
+    """A wide build on the first wide layout (PARENT_WIDE): one block of
+    512 threads per 8 lanes, its leaves in global memory, the products'
+    inputs (K6: the prepared z and w) and the row maxima in shared memory.
+    Returns the wrapper's outputs."""
     fn = getattr(lib, f"{name}_wide_launch")
     fn.argtypes, fn.restype = PARENT_WIDE[name], ctypes.c_int
+    if name in ("fused_fista", "fused_eadmm"):
+        return parent_wide_k2_k3(name, fn, args, kk)
     B, P = args[0].shape
     dev = args[0].device
     outs = [torch.empty_like(args[i]) for i in
@@ -227,6 +245,60 @@ def parent_wide(name, lib, args, kk):
     return (*outs, k, e_flag, rp, rd)
 
 
+def parent_wide_k2_k3(name, fn, args, kk):
+    """K2's or K3's wide launch on the first wide layout (`fn`, with its
+    C signature set), through the working tree's wrapper's arguments:
+    shared bytes as that layout reckoned them (K2: dz, r and dy as
+    [columns][8] and 16 warps' row maxima; K3: dv2m, dv2t and dq3 as
+    [Z][8], 16 warps' three row maxima and C2d), the blocks' state in
+    global memory. Returns the wrapper's outputs."""
+    B = args[0].shape[0]
+    dev = args[0].device
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    k, done = (torch.empty((B,), dtype=torch.int32, device=dev)
+               for _ in range(2))
+    exact = kk["check_every"] > 1 and kk["exact_k"] and not kk.get(
+        "fixed_iters", 0)
+    if name == "fused_fista":
+        nzp, nlamp = args[0].shape[1], args[2].shape[1]
+        z, y, lam = (torch.empty_like(args[i]) for i in (0, 2, 2))
+        res = torch.empty((B,), dtype=torch.float32, device=dev)
+        width = 2 * nzp + 3 * nlamp
+        snap = torch.empty((B if exact else 0, width), dtype=torch.float32,
+                           device=dev)
+        state = torch.empty((B * width,), dtype=torch.float32, device=dev)
+        ptrs = [t.data_ptr() for t in args + (z, y, lam, k, done, res, snap,
+                                              state)]
+        err = fn(*ptrs, B, nzp, nlamp, B // 8, 512,
+                 4 * 8 * (nzp + 2 * nlamp + 16), float(kk["tol"]),
+                 int(kk["k_max"]), int(bool(kk["restart"])),
+                 int(kk["check_every"]), int(kk.get("fixed_iters", 0)),
+                 int(bool(kk["exact_k"])), stream)
+        assert err == 0, (name, err)
+        return z, y, lam, k, torch.where(done == 1, 1, -1).to(
+            torch.int32), res
+    from spcies_tpu_torch.kernels.fused_eadmm import narrow_operands
+    Z = args[0].shape[1]
+    c2d, c2td, col_of = kk.get("classes") or narrow_operands(args[6],
+                                                             args[7])
+    nd = c2d.shape[1]
+    outs = tuple(torch.empty_like(args[0]) for _ in range(5))
+    res = tuple(torch.empty((B,), dtype=torch.float32, device=dev)
+                for _ in range(3))
+    snap = torch.empty((B if exact else 0, 7 * Z), dtype=torch.float32,
+                       device=dev)
+    state = torch.empty((B * 9 * Z,), dtype=torch.float32, device=dev)
+    ins = args[:6] + (c2d, c2td, col_of) + args[8:]
+    ptrs = [t.data_ptr() for t in ins + outs + (k, done) + res + (snap,
+                                                                  state)]
+    err = fn(*ptrs, B, Z, nd, B // 8, 512,
+             4 * (3 * Z * 8 + 3 * 16 * 8 + Z * nd), float(kk["tol"]),
+             int(kk["k_max"]), int(kk["check_every"]),
+             int(bool(kk["exact_k"])), stream)
+    assert err == 0, (name, err)
+    return outs + (k, torch.where(done == 1, 1, -1).to(torch.int32)) + res
+
+
 def args_of(sp, fam, B, **kw):
     """(kernel wrapper, its arguments, its keyword arguments) of a family's
     fused solver (with `kw`) on B lanes of the bench's inputs."""
@@ -238,7 +310,7 @@ def args_of(sp, fam, B, **kw):
         return fused_admm_solve, args, kk
     name, kern = c.fam_kernel(fam)[:2]
     solver = c.fam_solver(sp, fam, **kw)
-    args, kk = c.fam_args(sp, fam, solver, B)
+    args, kk = c.fam_args(sp, fam, solver, B, plant=kw.get("plant"))
     return kern, args, dict(kk, **c.kernel_extra(name, solver))
 
 
@@ -261,16 +333,16 @@ def main():
     _build.BUILD_DIR = _build.BUILD_DIR / f"ab_parent_{os.getpid()}"
     jobs = [(n, d) for n in names for d in (parent_dir, None)]
     clocks = _build.BUILD_DIR / "clocks"
-    if wide and set(names) & set(c.STAGE_WIDE):
+    if wide:
         # the working tree built with TP_CLOCKS, for the clocks of the wide
-        # builds on the stage's engine
+        # builds
         clocks.mkdir(parents=True)
         for f in list(_build.CSRC.glob("*.cu")) + list(
                 _build.CSRC.glob("*.cuh")):
             (clocks / f.name).write_text(
-                ("#define TP_CLOCKS 1\n" if f.stem in c.STAGE_WIDE else "")
+                ("#define TP_CLOCKS 1\n" if f.stem in c.WIDE_FAMILY else "")
                 + f.read_text())
-        jobs += [(n, clocks) for n in names if n in c.STAGE_WIDE]
+        jobs += [(n, clocks) for n in names]
     with ThreadPoolExecutor(len(jobs)) as pool:
         built = dict(zip(jobs, pool.map(lambda j: _build.build(*j), jobs)))
         touched = _build.BUILD_DIR / "parent_touched"
@@ -308,10 +380,8 @@ def main():
         if (name, clocks) in built:
             lib_k, rec_k = built[(name, clocks)]
             libs["clocks"] = (ctypes.CDLL(str(lib_k)), rec_k)
-        cases = ([(f"{fam} N={h} (wide)", fam, c.FB, dict(horizon=h))
-                  for fam, h in [(c.WIDE_FAMILY[name], h)
-                                 for h in c.WIDE_HORIZONS[name]]
-                  + list(c.WIDE_EXTRA.get(name, ()))]
+        cases = ([(f"{what} (wide)", fam, c.FB, dict(horizon=h, **pk))
+                  for fam, h, pk, what in c.wide_runs(name)]
                  if wide else CASES[name])
         for label, fam, B, kw in cases:
             kern, args, kk = args_of(sp, fam, B, **kw)
@@ -345,11 +415,11 @@ def main():
 
 
 def stage_builds(name, libs, kern, args, kk):
-    """A wide build on the stage's engine (K4-K7) of the working tree at
-    each lanes a block:
-    the bits of the planned one (those of the last call) and the least of
-    two CUDA-event means of 3 launches; then the clocks of an iteration's
-    two halves in the TP_CLOCKS build."""
+    """A wide build on the stage of the working tree at each lanes a
+    block: the bits of the planned one (those of the last call) and the
+    least of two CUDA-event means of 3 launches; then the clocks of an
+    iteration's parts in the TP_CLOCKS build (K2, K3: each block's over its
+    slowest lane's iterations, K_AT)."""
     from ab_kernels import clock_shares
     from spcies_tpu_torch.kernels.stage import WIDE_BUILDS
     _build._LOADED[name] = libs["change"]
@@ -367,9 +437,10 @@ def stage_builds(name, libs, kern, args, kk):
             slab=kern.last_plan["slab"])
     _build._LOADED[name] = libs["clocks"]
     for L in sorted(WIDE_BUILDS):
-        kern(*args, **kk, lanes=L)
+        o = kern(*args, **kk, lanes=L)
         torch.cuda.synchronize()
-        out[f"lanes={L}"].update(clock_shares(kern.last_plan))
+        k = o[K_AT[name]] if name in K_AT else None
+        out[f"lanes={L}"].update(clock_shares(kern.last_plan, k))
     _build._LOADED[name] = libs["change"]
     return out
 
