@@ -1594,7 +1594,8 @@ def device_ms(run):
 
 def phase_rollout(sp):
     """The closed-loop rollout on the card: the fused solver (one K1
-    launch a step) cold, carried and shifted, and the dense engine shifted,
+    launch a step, its episodes replayed as CUDA graphs) cold, carried and
+    shifted, and the dense engine (the eager loop) shifted,
     each a warm-up, CL_RUNS timed runs and one run under torch.profiler
     (the device's busy time against the median wall: its idle share).
     Returns the K1 launches of the timed runs and the rows."""
@@ -1645,9 +1646,13 @@ def phase_rollout(sp):
             k1_launches=n, runs=CL_RUNS, wall_ms=dt * 1e3,
             device_ms=dev, k1_ms=k1_ms,
             idle_share=None if dev is None else 1.0 - dev / (dt * 1e3),
+            graphed=bool(getattr(solver.raw_fn, "episode_graphs", None)),
             row_s=now - t_row, profiled_s=now - t_prof)
         log(f"phase 16 rollout {label} (B={CL_BATCH}, {CL_STEPS} steps): "
             + json.dumps(row))
+        # the fused solve replays its episodes as CUDA graphs; the dense
+        # engine reads "all done" on the host and keeps the loop
+        assert row["graphed"] == (solver is fused), label
         assert tuple(res["xs"].shape) == (CL_STEPS + 1, CL_BATCH, A.shape[0])
         assert bool(torch.isfinite(res["xs"]).all()), label
         # a lane that did not converge ran to k_max (the fp32 floor of

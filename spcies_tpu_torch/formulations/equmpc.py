@@ -135,11 +135,15 @@ def build_equmpc_admm(sys: dict, param: dict, opt: Options,
         # through the affine offset of the peeled first solve
         from spcies_tpu_torch.solvers.fused_backend import (
             build_fused_box_admm_solve)
-        A, M_b0, M_bN = (dev(ing[key], torch.float32)
-                         for key in ("A", "M_b0", "M_bN"))
+        A, M_b0, M_bN, Qd, Rd = (dev(ing[key], torch.float32)
+                                 for key in ("A", "M_b0", "M_bN", "Qd",
+                                             "Rd"))
+        # the weights on the device once: a call copies nothing from the
+        # host, so that a CUDA graph can capture it (runtime/rollout.py)
+        weights = dict(ing, Qd=Qd, Rd=Rd)
         _solve_f = build_fused_box_admm_solve(
             ing, opt, dtype, device,
-            make_q_ref=lambda x0, xr, ur: _equmpc_q_ref(ing, xr, ur,
+            make_q_ref=lambda x0, xr, ur: _equmpc_q_ref(weights, xr, ur,
                                                         torch.float32),
             make_aux_b=lambda x0, xr, ur: ((-(x0 @ A.T)) @ M_b0.T
                                            + xr @ M_bN.T),

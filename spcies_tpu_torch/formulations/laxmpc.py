@@ -251,11 +251,15 @@ def _build_laxmpc_admm_fused(ing, opt, dtype, device):
         build_fused_box_admm_solve)
 
     n, m, N, nz = ing["n"], ing["m"], ing["N"], ing["nz"]
-    M_b = torch.as_tensor(ing["M_b"], dtype=torch.float32, device=device)
-    A = torch.as_tensor(ing["A"], dtype=torch.float32, device=device)
+    M_b, A, Qd, Rd, T = (
+        torch.as_tensor(ing[key], dtype=torch.float32, device=device)
+        for key in ("M_b", "A", "Qd", "Rd", "T"))
+    # the weights on the device once: a call copies nothing from the host,
+    # so that a CUDA graph can capture it (runtime/rollout.py)
+    weights = dict(ing, Qd=Qd, Rd=Rd, T=T)
     _solve = build_fused_box_admm_solve(
         ing, opt, dtype, device,
-        make_q_ref=lambda x0, xr, ur: _q_ref(ing, xr, ur, torch.float32),
+        make_q_ref=lambda x0, xr, ur: _q_ref(weights, xr, ur, torch.float32),
         make_aux_b=lambda x0, xr, ur: (-(x0 @ A.T)) @ M_b.T,
         u_start=0)
     return BatchedSolver(_solve, ing, opt, n=n, m=m, N=N, nz=nz,

@@ -16,6 +16,17 @@ solver's device, written in place, and each step is one call of
 `solver.raw_fn` (one kernel launch on a fused box-ADMM or dual-FISTA
 solver), with no host synchronisation beyond what a request itself does.
 
+On a CUDA device, a solve that declares itself `capturable` (the fused
+box-ADMM solve: its calls only enqueue work, one K1 launch each) has the
+loop captured as a CUDA graph of the whole episode the first time a
+shape (lanes, widths, steps, warm start, noise) comes, and the graph
+replayed for every later episode of that shape (EpisodeGraph): one
+`replay()` enqueues the episode's operations, the loop's in the loop's
+order, where the loop spends host time on each of them. A solve keeps
+MAX_GRAPHS shapes; past them, for every other solve (the dense, banded
+and time-varying engines read "all lanes done" on the host) and on the
+CPU, the episode runs the loop.
+
 The carry follows the first step's `res.sol`: (z, v, lam) where it holds
 v (the ADMM families), else (lam, lam, lam) (the dual-FISTA families, which
 read init[0]). Step 0, and every step of a cold rollout, passes init=None,
@@ -28,6 +39,8 @@ carry or passes it to the wrong slots.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -46,6 +59,9 @@ CARRIED = {
     ("laxMPC", "FISTA", ""): _DUAL,
     ("equMPC", "FISTA", ""): _DUAL,
 }
+# episode shapes a solve keeps a CUDA graph of; a rollout of yet another
+# shape runs the eager loop
+MAX_GRAPHS = 4
 
 
 def shift_stagewise(arr, n: int, m: int, N: int, *, terminal: bool,
@@ -110,9 +126,12 @@ def closed_loop_rollout(solver, A, B, x0, xr, ur, *, n_steps: int,
     process_noise: optional [n_steps, Bz, n] additive disturbance.
 
     Returns a dict of tensors on the solver's device: xs [n_steps+1, Bz,
-    n], us [n_steps, Bz, m], ks [n_steps, Bz], e_flags [n_steps, Bz].
-    Each step is the span `rollout.step`, its warm-start carry the span
-    `rollout.carry` (diagnostics.spans).
+    n], us [n_steps, Bz, m], ks [n_steps, Bz], e_flags [n_steps, Bz],
+    the caller's own (no later call writes them).
+    Each step of the loop is the span `rollout.step`, its warm-start carry
+    the span `rollout.carry`, and each replay of a graph the span
+    `rollout.replay` (diagnostics.spans): a graphed episode records its
+    steps' spans only while the graph is captured.
     """
     if warm_start not in (False, True, "shift"):
         raise ValueError(f"warm_start is False, True or 'shift'; got "
@@ -154,8 +173,31 @@ def closed_loop_rollout(solver, A, B, x0, xr, ur, *, n_steps: int,
     Bz = x0.shape[0]
     xr = torch.broadcast_to(torch.atleast_2d(as_dev(xr)), (Bz, n)).contiguous()
     ur = torch.broadcast_to(torch.atleast_2d(as_dev(ur)), (Bz, m)).contiguous()
-    noise = None if process_noise is None else as_dev(process_noise)
+    inputs = (A, B, x0, xr, ur)
+    if process_noise is not None:
+        inputs += (as_dev(process_noise),)
+    episode = functools.partial(_episode, solver, n_steps, warm_start)
 
+    # full-fp32 products for the whole loop, as BatchedSolver.__call__ pins
+    # them for a request (raw_fn is called directly here); the setting is
+    # process-wide, so it is restored afterwards
+    prec = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")
+    try:
+        key = (Bz, n, m, n_steps, warm_start,
+               None if process_noise is None else inputs[-1].shape)
+        graph = (_cached_graph(solver.raw_fn, episode, inputs, key)
+                 if _graphed(solver) else None)
+        return graph(*inputs) if graph is not None else episode(*inputs)
+    finally:
+        torch.set_float32_matmul_precision(prec)
+
+
+def _episode(solver, n_steps, warm_start, A, B, x0, xr, ur, noise=None):
+    """The eager loop: one episode of closed_loop_rollout on its device
+    tensors, into outputs it allocates."""
+    Bz, n, m = x0.shape[0], A.shape[0], B.shape[1]
+    dt, dev = x0.dtype, x0.device
     xs = torch.empty((n_steps + 1, Bz, n), dtype=dt, device=dev)
     us = torch.empty((n_steps, Bz, m), dtype=dt, device=dev)
     ks = torch.empty((n_steps, Bz), dtype=torch.int32, device=dev)
@@ -177,29 +219,89 @@ def closed_loop_rollout(solver, A, B, x0, xr, ur, *, n_steps: int,
         lam_s = shift_dual_stages(res.sol["lam"], solver.n, solver.N)
         return (lam_s, lam_s, lam_s)
 
-    # full-fp32 products for the whole loop, as BatchedSolver.__call__ pins
-    # them for a request (raw_fn is called directly here); the setting is
-    # process-wide, so it is restored afterwards
-    prec = torch.get_float32_matmul_precision()
-    torch.set_float32_matmul_precision("highest")
-    try:
-        x, init = x0, None
-        for t in range(n_steps):
-            t_step = spans.begin()
-            res = solver.raw_fn(x, xr, ur, init, None)
-            u = res.u
-            x = x @ A.T + u @ B.T
-            if noise is not None:
-                x = x + noise[t]
-            xs[t + 1] = x
-            us[t] = u
-            ks[t] = res.k
-            es[t] = res.e_flag
-            if warm_start:
-                t_carry = spans.begin()
-                init = carry(res)
-                spans.end("rollout.carry", t_carry)
-            spans.end("rollout.step", t_step)
-    finally:
-        torch.set_float32_matmul_precision(prec)
+    x, init = x0, None
+    for t in range(n_steps):
+        t_step = spans.begin()
+        res = solver.raw_fn(x, xr, ur, init, None)
+        u = res.u
+        x = x @ A.T + u @ B.T
+        if noise is not None:
+            x = x + noise[t]
+        xs[t + 1] = x
+        us[t] = u
+        ks[t] = res.k
+        es[t] = res.e_flag
+        if warm_start:
+            t_carry = spans.begin()
+            init = carry(res)
+            spans.end("rollout.carry", t_carry)
+        spans.end("rollout.step", t_step)
     return dict(xs=xs, us=us, ks=ks, e_flags=es)
+
+
+def _graphed(solver) -> bool:
+    """Whether the solver's episodes run as CUDA graphs: on a CUDA device,
+    with a solve that declares its calls capturable (they only enqueue
+    work on the current stream, and read nothing back to the host)."""
+    return (solver.device.type == "cuda"
+            and getattr(solver.raw_fn, "capturable", False))
+
+
+def _cached_graph(solve, episode, inputs, key):
+    """The solve's graph of `key`'s episodes, captured from `episode` on
+    `inputs` on first use; None once the solve holds MAX_GRAPHS others,
+    so that the episode runs eagerly."""
+    graphs = solve.episode_graphs
+    if key not in graphs and len(graphs) < MAX_GRAPHS:
+        graphs[key] = EpisodeGraph(episode, solve.kernel, inputs)
+    return graphs.get(key)
+
+
+class EpisodeGraph:
+    """One shape of closed_loop_rollout's episodes as a CUDA graph: the
+    eager loop run once on a side stream, then captured, and replayed for
+    every call of that shape.
+
+    The graph reads its inputs from buffers of its own, into which each
+    call copies the caller's, and writes its outputs into buffers of its
+    own, which each call clones; so a later call leaves an earlier call's
+    results as they were. A replay advances `kernel.launches` (the solve's
+    kernel entry) by the launches the capture made and, while
+    `spans.recording()`, records each captured launch again with a copy of
+    its counts as the replay left them. The call is the span
+    `rollout.replay` (diagnostics.spans).
+    """
+
+    def __init__(self, episode, kernel, inputs):
+        self.kernel = kernel
+        self.inputs = tuple(a.clone() for a in inputs)
+        stream = torch.cuda.current_stream(self.inputs[0].device)
+        side = torch.cuda.Stream(self.inputs[0].device)
+        side.wait_stream(stream)
+        with torch.cuda.stream(side):
+            episode(*self.inputs)
+        stream.wait_stream(side)
+        self.graph = torch.cuda.CUDAGraph()
+        # the capture enqueues nothing: its launches run at each replay
+        launches = kernel.launches
+        with spans.capture() as self.records, torch.cuda.graph(self.graph):
+            self.outputs = episode(*self.inputs)
+        self.launches = kernel.launches - launches
+        kernel.launches = launches
+
+    def __call__(self, *inputs):
+        t0 = spans.begin()
+        for buf, a in zip(self.inputs, inputs):
+            buf.copy_(a)
+        self.graph.replay()
+        self.kernel.launches += self.launches
+        if spans.recording() and self.records:
+            # one copy of every launch's counts, as this replay left them
+            counts = torch.cat([r[4].reshape(-1) for r in self.records])
+            sizes = [r[4].numel() for r in self.records]
+            for (name, _t, lanes, refill, was), now in zip(
+                    self.records, counts.split(sizes)):
+                spans.record_launch(name, lanes, refill, now.view_as(was))
+        out = {key: buf.clone() for key, buf in self.outputs.items()}
+        spans.end("rollout.replay", t0)
+        return out

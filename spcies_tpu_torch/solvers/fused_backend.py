@@ -59,7 +59,15 @@ class FusedBoxADMMSolve:
     u_start + m]. `prepare` and `operator` expose the kernel's exact
     arguments, so a caller can run the kernel and its plain version on
     the inputs the solve gives it.
+
+    A call only enqueues work on the current stream, one launch of
+    `kernel`, and reads nothing back to the host, so it is `capturable`:
+    runtime.closed_loop_rollout replays its episodes as CUDA graphs, kept
+    in `episode_graphs`.
     """
+
+    capturable = True
+    kernel = staticmethod(fused_admm_solve)
 
     def __init__(self, ing, opt, device, *, make_q_ref, make_aux_b,
                  u_start: int, lb_key: str, ub_key: str):
@@ -98,6 +106,8 @@ class FusedBoxADMMSolve:
         self.M_q = torch.as_tensor(ing["M_q"], dtype=torch.float32,
                                    device=device)
         self.rho = float(ing["rho_scalar"])
+        # runtime.rollout.EpisodeGraph by episode shape
+        self.episode_graphs = {}
 
     def prepare(self, *inputs, init=None):
         """Kernel inputs for one call: (z1, v0, lam0) padded to
